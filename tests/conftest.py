@@ -32,6 +32,11 @@ def pytest_configure(config):
         "slow: long-running chaos storms / full-scale runs (tier-1 runs "
         "-m 'not slow')",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch/CUDA port's kernel tests; "
+        "they skip without one)",
+    )
 
 
 import pytest  # noqa: E402

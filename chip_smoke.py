@@ -3,15 +3,35 @@
 
     python3 chip_smoke.py
 
-Builds every kernel from csrc/ with nvcc, holds each against its plain
-PyTorch version on a small mixed snapshot under all three fit strategies,
-then runs the port's main path at the north-star shape,
-heterogeneous(20000, 50000, seed=0) -> encode_snapshot -> schedule_batch
-(P=51200, N=20480, R=5), and checks it: 50000 pods scheduled, the choices'
-sha256 equal to the JAX package's recorded digest, kernel 1 equal to its
-plain version over the whole [P, N], kernel 2 equal to its plain version on
-the first 2048 pods and over all pods, and every kernel of the path launched
-during the main path's run.  Times come from CUDA events after a warm-up.
+Builds every kernel from csrc/ with nvcc (one process per source, all at
+once), then drives the port's two routes at the north-star shape,
+heterogeneous(20000, 50000, seed=0) (P=51200, N=20480, R=5, U1=101):
+
+  [mixed]            static_feasible and fit_scan == their plain versions on
+                     a small mixed snapshot, three fit strategies;
+  [north-star]       the per-pod route, encode_snapshot -> schedule_batch:
+                     50000/50000 scheduled, the JAX package's choices digest,
+                     static_feasible == plain over [P, N], fit_scan == plain
+                     on the first 8192 pods;
+  [waves-mixed]      the class-wave kernels (class_static_hoist,
+                     class_usage_hoist full and column-list, wave_commit,
+                     chunk_rounds) == their plain versions on the card, bit
+                     for bit, on small snapshots (mixed x 3 strategies, an
+                     interference wave that forces fallbacks and epoch
+                     refreshes, two-entry lists whose block budget runs out
+                     and leaves work to stage B),
+                     and the route's choices == the per-pod route's;
+  [north-star-waves] HoistCache.ensure -> schedule_batch(inc=...): the same
+                     choices digest, the JAX route's sweep count and ordinal
+                     digest, every kernel == plain at full size (chunk_rounds
+                     on the first 64 chunks), then the route with
+                     class_waves=False (chunk_rounds carries all 1600 chunks)
+                     and a warm cycle that patches the dirty columns.
+
+Each route is counted on its own: every launch count is set to 0 just
+before the route runs and read just after, and a kernel of the route that
+was not launched fails the run.  Times come from CUDA events after a
+warm-up.
 
 Prints one line per phase, then a JSON line of per-kernel numbers, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -37,6 +57,10 @@ sys.path.insert(0, HERE)
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 PREFIX = 2048  # pods of the north-star scan held against the plain scan
+PLAIN_PODS = 8192  # pods of the north-star scan the plain scan re-runs in full
+WAVE_PREFIX_CHUNKS = 64  # stage-B chunks held against the plain round loop
+PER_POD_KERNELS = ("static_feasible", "fit_scan")
+WAVE_KERNELS = ("class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds")
 STRATEGIES = (
     ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
     ("MostAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -115,7 +139,8 @@ def phase_build() -> None:
     for name, log in kernels.BUILD_LOG.items():
         info = [ln.strip() for ln in log.splitlines() if re.search(r"registers|Used|spill", ln)]
         print(f"[build] {name}: " + " | ".join(info), flush=True)
-    print(f"[build] {len(kernels.SOURCES)} kernel libraries in {dt:.2f} s", flush=True)
+    print(f"[build] {len(set(kernels.SOURCES.values()))} kernel libraries ({len(kernels.SOURCES)} kernels) "
+          f"in {dt:.2f} s", flush=True)
 
 
 def phase_mixed() -> None:
@@ -166,13 +191,13 @@ def phase_north_star() -> list:
     print(f"[north-star] encode_s {encode_s:.3f}: P={P} N={N} R={R} resources {meta.resources} "
           f"scale {meta.resource_scale.tolist()}", flush=True)
 
-    # --- the main path, counted ---
+    # --- the per-pod route, counted ---
     kernels.reset_launches()
     t0 = time.perf_counter()
     choices, used = schedule_batch(arr, cfg)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if k in PER_POD_KERNELS}
     check(all(n > 0 for n in launches.values()), f"a kernel of the path was not launched: {launches}")
     c = choices[: meta.n_pods].cpu().numpy().astype("<i4")
     scheduled = int((c >= 0).sum())
@@ -214,12 +239,18 @@ def phase_north_star() -> list:
 
     k2_ms = cuda_ms(run_kernel, reps=3)
     ck, uk, n_scored = out["k"]
+    check(torch.equal(ck, choices), "north-star: timed fit_scan != the main path's")
+    # the plain scan over all pods takes ~70 s; a prefix of the scan is a
+    # scan, so the plain version re-runs the first PLAIN_PODS pods
+    pre = arr.pod_prefix(PLAIN_PODS)
+    ckp, ukp, _ = kernels.fit_scan(sf[:PLAIN_PODS].contiguous(), pre, cfg)
     t0 = time.perf_counter()
-    cp, up = schedule_scan_plain(arr, cfg, sf=sf)
+    cp, up = schedule_scan_plain(pre, cfg, sf=sf[:PLAIN_PODS])
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    k2_err = max(int((ck.long() - cp.long()).abs().max()), int((uk.long() - up.long()).abs().max()))
-    check(k2_err == 0, "north-star: fit_scan kernel != plain over all pods")
+    k2_err = max(int((ckp.long() - cp.long()).abs().max()), int((ukp.long() - up.long()).abs().max()))
+    check(k2_err == 0, f"north-star: fit_scan kernel != plain on the first {PLAIN_PODS} pods")
+    check(torch.equal(ckp, choices[:PLAIN_PODS]), "north-star: prefix scan != full scan")
     n_scored = int(n_scored.item())
     # the scan's floor: the same launch with every sf bit clear, so each pod
     # still streams its row and pays the block reduction and the barriers,
@@ -230,12 +261,13 @@ def phase_north_star() -> list:
     k2_bytes = P * N + 4 * P * R + P + 3 * 4 * N * R + 4 * P
     k2_ops = n_scored * f32_ops_per_scored_node(cfg)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
-    print(f"[north-star] fit_scan: kernel == plain over all {P} pods; kernel {k2_ms:.3f} ms "
-          f"({k2_ms / P * 1e3:.3f} us per pod; with no feasible node {floor_ms:.3f} ms, "
+    print(f"[north-star] fit_scan: kernel == plain on the first {PLAIN_PODS} pods; kernel {k2_ms:.3f} ms "
+          f"over all {P} ({k2_ms / P * 1e3:.3f} us per pod; with no feasible node {floor_ms:.3f} ms, "
           f"{floor_ms / P * 1e3:.3f} us per pod: the {P} block reductions and barriers), "
-          f"plain {k2_plain_ms:.1f} ms (host clock), bound {k2_bound:.4f} ms ({k2_by}: {k2_bytes} B, "
-          f"{n_scored} scored pairs x {f32_ops_per_scored_node(cfg)} f32 ops)", flush=True)
-    return [
+          f"plain {k2_plain_ms:.1f} ms on {PLAIN_PODS} pods (host clock), bound {k2_bound:.4f} ms "
+          f"({k2_by}: {k2_bytes} B, {n_scored} scored pairs x {f32_ops_per_scored_node(cfg)} f32 ops)",
+          flush=True)
+    return step_s, [
         dict(name="static_feasible", route="cuda", source="kubernetes_tpu_torch/csrc/static_feasible.cu",
              replaces="kubernetes_tpu/ops/filters.py:81", launches=launches["static_feasible"],
              max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
@@ -243,8 +275,322 @@ def phase_north_star() -> list:
         dict(name="fit_scan", route="cuda", source="kubernetes_tpu_torch/csrc/fit_scan.cu",
              replaces="kubernetes_tpu/ops/assign.py:181", launches=launches["fit_scan"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None),
+             library_ms=None, plain_scope=f"first {PLAIN_PODS} pods"),
     ]
+
+
+def f32_bits(x):
+    import torch
+
+    return x.contiguous().view(torch.int32)
+
+
+def same(a, b) -> bool:
+    """Bitwise equality of two tensors (f32 compared as bits)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = f32_bits(a), f32_bits(b)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def mismatch(a, b) -> int:
+    """Entries that differ (f32 as bits)."""
+    if a.dtype.is_floating_point:
+        a, b = f32_bits(a), f32_bits(b)
+    return int((a != b).sum())
+
+
+def hold_class_kernels(arr, meta, cfg, tag: str, **knobs) -> dict:
+    """Hold K3, K4 (full and column list), K5 and K6 to their plain versions
+    on these arrays (the plain versions run on the card's tensors) and the
+    route's choices to the per-pod route's; `knobs` are the route's wave_k /
+    wave_block.  -> the wave's counters."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import assign, incremental, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
+
+    inc = HoistCache().ensure(arr, meta, cfg)
+    check(inc is not None, f"{tag}: no class state")
+    r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
+    stat_p = incremental._static_hoist_plain(class_view(arr, r_u))
+    check(same(inc.stat_u, stat_p), f"{tag}: class_static_hoist != plain")
+    base_p, fit_p = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
+    check(same(inc.base_u, base_p) and same(inc.fit_u, fit_p), f"{tag}: class_usage_hoist != plain")
+    # column list: dirty a third of the nodes, several sharing a word
+    N = arr.N
+    g = torch.Generator().manual_seed(7)
+    dirty = torch.randperm(N, generator=g)[: max(1, N // 3)].sort().values.to(arr.device)
+    used2 = arr.node_used.clone()
+    used2[dirty] += arr.pod_req[0]
+    cols = torch.full((incremental._round_up_pow2(len(dirty)),), N, dtype=torch.int32, device=arr.device)
+    cols[: len(dirty)] = dirty.to(torch.int32)
+    bk, fk = kernels.class_usage_hoist(inc.req_u, used2, arr.node_alloc, cfg, cols=cols,
+                                       base_u=inc.base_u, fit_u=inc.fit_u)
+    bp, fp = incremental._patch_hoist_plain(inc.base_u, inc.fit_u, inc.req_u, used2, arr.node_alloc, cols, cfg)
+    bf, ff = kernels.class_usage_hoist(inc.req_u, used2, arr.node_alloc, cfg)
+    check(same(bk, bp) and same(fk, fp), f"{tag}: class_usage_hoist column list != plain")
+    check(same(bk, bf) and same(fk, ff), f"{tag}: patched columns != a full hoist")
+    check(same(inc.base_u, base_p), f"{tag}: the column list wrote into the resident base_u")
+    # K5
+    wk = kernels.wave_commit(arr, inc, cfg, **knobs)
+    t0u = assign.t0u_prologue(inc, N)
+    wp = assign.wave_commit_plain(inc.cls, arr.pod_valid, arr.pod_req, arr.node_used, t0u, inc.stat_u,
+                                  arr.node_alloc, inc.req_u, cfg, **knobs)
+    names = ("committed", "out", "ordinal", "used", "t0u")
+    for name, a, b in zip(names, wk[:5], wp[:5]):
+        check(same(a, b), f"{tag}: wave_commit {name} != plain ({mismatch(a, b)} entries)")
+    check(int(wk[5]) == wp[5] and int(wk[6]) == wp[6],
+          f"{tag}: wave_commit blocks/epochs {int(wk[5])}/{int(wk[6])} != plain {wp[5]}/{wp[6]}")
+    # K6 after the plain wave (so each kernel is held alone), and with no wave
+    wave_p = (wp[0], wp[1], wp[2], torch.tensor(wp[5], dtype=torch.int32, device=arr.device))
+    for leg, wave, used0, t0 in (("waves", wave_p, wp[3], wp[4]), ("no waves", None, arr.node_used, None)):
+        ck = kernels.chunk_rounds(arr, inc, cfg, used0, t0, wave)
+        cp = assign.schedule_scan_chunked_plain(
+            arr, cfg, inc, used0, t0u if t0 is None else t0,
+            None if wave is None else (wp[0], wp[1], wp[2], wp[5]))
+        for name, a, b in zip(("choices", "used", "ordinals"), ck[:3], cp[:3]):
+            check(same(a, b), f"{tag} {leg}: chunk_rounds {name} != plain ({mismatch(a, b)} entries)")
+        check(ck[3] == cp[3], f"{tag} {leg}: chunk_rounds sweeps {ck[3]} != plain {cp[3]}")
+    # the route against the per-pod route
+    c1, u1 = assign.schedule_batch(arr, cfg)
+    for waves in (True, False):
+        c2, u2, o2, s2 = assign.schedule_batch_ordinals(arr, cfg, inc=inc, class_waves=waves, **knobs)
+        check(torch.equal(c1, c2) and torch.equal(u1, u2), f"{tag} waves={waves}: route != per-pod route")
+    return dict(blocks=wp[5], epochs=wp[6], stage_b=int((~wp[0][: meta.n_pods]).sum()), U1=inc.req_u.shape[0])
+
+
+def phase_waves_mixed() -> None:
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+
+    cases = [(f"mixed {name}", workloads.mixed(), name, shape, {}) for name, shape in STRATEGIES]
+    cases += [
+        ("interference", workloads.interference(), "LeastAllocated", STRATEGIES[0][1], {}),
+        ("heterogeneous(64, 300)", workloads.heterogeneous(64, 300), "LeastAllocated", STRATEGIES[0][1], {}),
+        ("mixed, wave_block=4 wave_k=8", workloads.mixed(), "MostAllocated", STRATEGIES[1][1],
+         dict(wave_block=4, wave_k=8)),
+        # two-entry lists in 64-pod blocks: the block budget runs out and
+        # chunk_rounds continues after a partial wave
+        ("basic(48, 1500), wave_block=64 wave_k=2", workloads.basic(48, 1500), "LeastAllocated",
+         STRATEGIES[0][1], dict(wave_block=64, wave_k=2)),
+    ]
+    for tag, snap, strategy, shape, knobs in cases:
+        arr, meta = encode_snapshot(snap, device="cuda")
+        cfg = infer_score_config(arr, dataclasses.replace(
+            DEFAULT_SCORE_CONFIG, fit_strategy=strategy, rtcr_shape=shape))
+        info = hold_class_kernels(arr, meta, cfg, tag, **knobs)
+        if tag == "interference":
+            check(info["epochs"] > 0, "interference: the wave never refreshed an epoch")
+        if tag.startswith("basic"):
+            check(info["stage_b"] > 0, f"{tag}: the wave left nothing to stage B")
+        print(f"[waves-mixed] {tag}: P={arr.P} N={arr.N} U1={info['U1']} wave blocks {info['blocks']} "
+              f"epochs {info['epochs']} left to stage B {info['stage_b']}; class_static_hoist, "
+              f"class_usage_hoist (full, columns), wave_commit, chunk_rounds == plain; route == per-pod",
+              flush=True)
+
+
+def phase_north_star_waves(per_pod_step_s: float) -> list:
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, incremental, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache, IncState, class_view
+
+    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
+    arr, meta = encode_snapshot(snap)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    P, N, R = arr.P, arr.N, arr.R
+    n = meta.n_pods
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    # --- the class-wave route, counted ---
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = HoistCache()
+    inc = cache.ensure(arr, meta, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if k in WAVE_KERNELS}
+    check(all(v > 0 for v in launches.values()), f"a kernel of the class-wave route was not launched: {launches}")
+    U1 = inc.req_u.shape[0]
+    scheduled = int((choices[:n] >= 0).sum())
+    print(f"[north-star-waves] HoistCache.ensure {t1 - t0:.3f} s ({cache.last['action']}), "
+          f"schedule_batch(inc) {t2 - t1:.3f} s (first call): U1={U1} scheduled {scheduled}/{n}, "
+          f"sweeps {sweeps}, choices sha256 {digest(choices)}, ordinals sha256 {digest(ords)}, "
+          f"launches {launches}", flush=True)
+    check(U1 == workloads.NORTH_STAR_CLASSES, f"U1 {U1} != {workloads.NORTH_STAR_CLASSES}")
+    check(scheduled == workloads.NORTH_STAR_SCHEDULED, "north-star waves: scheduled count")
+    check(digest(choices) == workloads.NORTH_STAR_CHOICES_SHA256, "north-star waves: choices differ from JAX")
+    check(sweeps == workloads.NORTH_STAR_WAVE_SWEEPS, f"north-star waves: sweeps {sweeps}")
+    check(digest(ords) == workloads.NORTH_STAR_WAVE_ORDINALS_SHA256, "north-star waves: ordinals differ from JAX")
+    # step_s after a warm-up, both routes on the same snapshot
+    def route():
+        return assign.schedule_batch(arr, cfg, inc=cache.ensure(arr, meta, cfg))
+
+    route()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    route()
+    torch.cuda.synchronize()
+    wave_step_s = time.perf_counter() - t0
+    print(f"[north-star-waves] step_s: class-wave route {wave_step_s:.4f} s (ensure hit + schedule_batch), "
+          f"per-pod route {per_pod_step_s:.4f} s ([north-star], first call)", flush=True)
+
+    # --- K3 and K4 against plain over all [U1, N] ---
+    r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
+    stat_p = incremental._static_hoist_plain(class_view(arr, r_u))
+    k3_err = mismatch(inc.stat_u, stat_p)
+    check(k3_err == 0, "north-star: class_static_hoist != plain")
+    base_p, fit_p = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
+    k4_err = mismatch(inc.base_u, base_p) + mismatch(inc.fit_u, fit_p)
+    check(k4_err == 0, "north-star: class_usage_hoist != plain")
+    k3_ms = cuda_ms(lambda: kernels.class_static_hoist(arr, r_u), reps=20, warmup=2)
+    k3_plain = cuda_ms(lambda: incremental._static_hoist_plain(class_view(arr, r_u)), reps=5)
+    k4_ms = cuda_ms(lambda: kernels.class_usage_hoist(inc.req_u, arr.node_used, arr.node_alloc, cfg), reps=20,
+                    warmup=2)
+    k4_plain = cuda_ms(lambda: incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg),
+                       reps=5)
+    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
+    S, E_, L = arr.sel_mask.shape
+    W = -(-N // 32)
+    k3_bytes = N * (1 + T + L) + U1 * (T + 1 + 4 + 4 * TT + 8) + S * E_ * L + 4 * S * E_ + 4 * U1 * W
+    k3_bound, k3_by = bound(k3_bytes, U1 * N * (3 + T + TT))
+    per_score = f32_ops_per_scored_node(cfg)
+    k4_bytes = 4 * U1 * R + 2 * 4 * N * R + 4 * U1 * N + 4 * U1 * W
+    k4_bound, k4_by = bound(k4_bytes, U1 * N * per_score)
+    print(f"[north-star-waves] class_static_hoist == plain over [{U1}, {N}]: {k3_ms:.4f} ms, plain "
+          f"{k3_plain:.4f} ms, bound {k3_bound:.5f} ms ({k3_by}); class_usage_hoist == plain: {k4_ms:.4f} ms, "
+          f"plain {k4_plain:.4f} ms, bound {k4_bound:.5f} ms ({k4_by}: {k4_bytes} B, {U1 * N} scores)", flush=True)
+
+    # --- K5 against plain over the whole wave ---
+    out = {}
+
+    def run_k5():
+        out["w"] = kernels.wave_commit(arr, inc, cfg)
+
+    k5_ms = cuda_ms(run_k5, reps=5, warmup=1)
+    wk = out["w"]
+    t0u = assign.t0u_prologue(inc, N)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wp = assign.wave_commit_plain(inc.cls, arr.pod_valid, arr.pod_req, arr.node_used, t0u, inc.stat_u,
+                                  arr.node_alloc, inc.req_u, cfg)
+    torch.cuda.synchronize()
+    k5_plain = (time.perf_counter() - t0) * 1e3
+    k5_err = sum(mismatch(a, b) for a, b in zip(wk[:5], wp[:5]))
+    check(k5_err == 0 and int(wk[5]) == wp[5] and int(wk[6]) == wp[6], "north-star: wave_commit != plain")
+    placed = int((wp[1] >= 0).sum())
+    n_blocks, epochs = wp[5], wp[6]
+    k5_bytes = (4 * P + P + 4 * P * R + 4 * N * R + 2 * 4 * U1 * W + 4 * U1 * N + 4 * N * R + 4 * U1 * R
+                + P + 4 * P + 4 * P + 4 * N * R + 4 * U1 * N)
+    # each placed pod's post-placement column is scored for every class; each
+    # refresh reads every class row once
+    k5_ops = U1 * placed * per_score + (epochs + 1) * U1 * N
+    k5_bound, k5_by = bound(k5_bytes, k5_ops)
+    print(f"[north-star-waves] wave_commit == plain over the whole wave ({n_blocks} blocks, {epochs} epochs, "
+          f"{placed} placed): {k5_ms:.3f} ms, plain {k5_plain:.1f} ms (host clock), bound {k5_bound:.5f} ms "
+          f"({k5_by}: {k5_bytes} B, {k5_ops} ops)", flush=True)
+
+    # --- the route with class_waves=False: chunk_rounds carries every chunk ---
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_off, u_off, o_off, s_off = assign.schedule_batch_ordinals(arr, cfg, inc=inc, class_waves=False)
+    torch.cuda.synchronize()
+    off_s = time.perf_counter() - t0
+    check(kernels.LAUNCHES["chunk_rounds"] == 1 and kernels.LAUNCHES["wave_commit"] == 0,
+          f"waves off: launches {kernels.LAUNCHES}")
+    print(f"[north-star-waves] class_waves=False {off_s:.3f} s: sweeps {s_off}, choices sha256 "
+          f"{digest(c_off)}, ordinals sha256 {digest(o_off)}", flush=True)
+    check(digest(c_off) == workloads.NORTH_STAR_CHOICES_SHA256, "waves off: choices differ from JAX")
+    check(s_off == workloads.NORTH_STAR_NOWAVE_SWEEPS, f"waves off: sweeps {s_off}")
+    check(digest(o_off) == workloads.NORTH_STAR_NOWAVE_ORDINALS_SHA256, "waves off: ordinals differ from JAX")
+    k6_full_ms = cuda_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, arr.node_used, None, None), reps=3)
+    # K6 against plain on the first chunks: a prefix of the chunk scan is a scan
+    npre = WAVE_PREFIX_CHUNKS * assign.INC_CHUNK
+    pre = arr.pod_prefix(npre)
+    inc_pre = IncState(cls=inc.cls[:npre].contiguous(), req_u=inc.req_u, stat_u=inc.stat_u, base_u=inc.base_u,
+                       fit_u=inc.fit_u)
+    ck = kernels.chunk_rounds(pre, inc_pre, cfg, arr.node_used, None, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp = assign.schedule_scan_chunked_plain(pre, cfg, inc_pre, arr.node_used, t0u, None)
+    torch.cuda.synchronize()
+    k6_plain = (time.perf_counter() - t0) * 1e3
+    k6_err = sum(mismatch(a, b) for a, b in zip(ck[:3], cp[:3])) + abs(ck[3] - cp[3])
+    check(k6_err == 0, f"north-star: chunk_rounds != plain on the first {WAVE_PREFIX_CHUNKS} chunks")
+    check(torch.equal(ck[0], c_off[:npre]) and torch.equal(ck[2], o_off[:npre]), "chunk prefix != full run")
+    k6_ms = cuda_ms(lambda: kernels.chunk_rounds(pre, inc_pre, cfg, arr.node_used, None, None), reps=5)
+    k6_bytes = (4 * npre * R + npre + 4 * npre + 4 * N * R + 4 * U1 * R + 2 * 4 * U1 * W + 4 * U1 * N
+                + 4 * N * R + 4 * npre + 4 * N * R + 4 * U1 * N + 4 * npre)
+    # each pod's list is one selection over its class row; each stage-B
+    # placement re-scores its column for every class
+    k6_ops = npre * N + U1 * int((cp[0] >= 0).sum()) * per_score
+    k6_bound, k6_by = bound(k6_bytes, k6_ops)
+    print(f"[north-star-waves] chunk_rounds == plain on the first {WAVE_PREFIX_CHUNKS} chunks ({cp[3]} rounds): "
+          f"{k6_ms:.3f} ms, plain {k6_plain:.1f} ms (host clock), bound {k6_bound:.5f} ms ({k6_by}); "
+          f"all {P // assign.INC_CHUNK} chunks ({s_off} rounds): {k6_full_ms:.3f} ms", flush=True)
+
+    # --- a warm cycle: the first 2048 pods' usage, patched columns ---
+    arr2 = dataclasses.replace(arr, node_used=choices_used(arr, choices, 2048))
+    kernels.reset_launches()
+    inc2 = cache.ensure(arr2, meta, cfg)
+    check(cache.last["action"] == "patch" and kernels.LAUNCHES["class_usage_hoist"] == 1,
+          f"warm cycle: action {cache.last['action']}, launches {kernels.LAUNCHES}")
+    bf, ff = kernels.class_usage_hoist(inc2.req_u, arr2.node_used, arr2.node_alloc, cfg)
+    check(same(inc2.base_u, bf) and same(inc2.fit_u, ff), "warm cycle: patched != a full hoist")
+    dirty = cache.last["patched_cols"]
+    cols = torch.full((incremental._round_up_pow2(dirty),), N, dtype=torch.int32, device=arr.device)
+    cols[:dirty] = torch.nonzero((arr2.node_used != arr.node_used).any(dim=1)).flatten().to(torch.int32)
+    bp, fp = incremental._patch_hoist_plain(inc.base_u, inc.fit_u, inc.req_u, arr2.node_used, arr.node_alloc,
+                                            cols, cfg)
+    check(same(inc2.base_u, bp) and same(inc2.fit_u, fp), "warm cycle: patched != plain patch")
+    kp_ms = cuda_ms(lambda: kernels.class_usage_hoist(inc.req_u, arr2.node_used, arr.node_alloc, cfg, cols=cols,
+                                                      base_u=inc.base_u, fit_u=inc.fit_u), reps=20, warmup=2)
+    c2, u2 = assign.schedule_batch(arr2, cfg, inc=inc2)
+    c3, u3 = assign.schedule_batch(arr2, cfg)
+    check(torch.equal(c2, c3) and torch.equal(u2, u3), "warm cycle: class-wave route != per-pod route")
+    print(f"[north-star-waves] warm cycle: {dirty} dirty columns patched ({len(cols)} in the list) == a full "
+          f"hoist == plain, {kp_ms:.4f} ms with the copy of the resident pair; route == per-pod route "
+          f"({int((c2[:n] >= 0).sum())} scheduled)", flush=True)
+    common = dict(route="cuda", library_ms=None)
+    return [
+        dict(name="class_static_hoist", source="kubernetes_tpu_torch/csrc/class_hoist.cu",
+             replaces="kubernetes_tpu/ops/incremental.py:146", launches=launches["class_static_hoist"],
+             max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by, **common),
+        dict(name="class_usage_hoist", source="kubernetes_tpu_torch/csrc/class_hoist.cu",
+             replaces="kubernetes_tpu/ops/incremental.py:188", launches=launches["class_usage_hoist"],
+             max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
+             patch_ms=kp_ms, **common),
+        dict(name="wave_commit", source="kubernetes_tpu_torch/csrc/wave_commit.cu",
+             replaces="kubernetes_tpu/ops/assign.py:530", launches=launches["wave_commit"],
+             max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound, bound_by=k5_by, **common),
+        dict(name="chunk_rounds", source="kubernetes_tpu_torch/csrc/chunk_rounds.cu",
+             replaces="kubernetes_tpu/ops/assign.py:1093", launches=launches["chunk_rounds"],
+             max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound, bound_by=k6_by,
+             plain_scope=f"first {WAVE_PREFIX_CHUNKS} chunks", all_chunks_ms=k6_full_ms, **common),
+    ]
+
+
+def choices_used(arr, choices, k: int):
+    """node_used after the first k pods' placements."""
+    import torch
+
+    used = arr.node_used.clone()
+    c = choices[:k].to(torch.int64)
+    m = c >= 0
+    used.index_add_(0, c[m], arr.pod_req[:k][m])
+    return used
 
 
 def main() -> int:
@@ -259,7 +605,9 @@ def main() -> int:
     card, name = phase_card()
     phase_build()
     phase_mixed()
-    rows = phase_north_star()
+    step_s, rows = phase_north_star()
+    phase_waves_mixed()
+    rows += phase_north_star_waves(step_s)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

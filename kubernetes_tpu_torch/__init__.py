@@ -13,7 +13,12 @@ entry points run on the card unless the caller passes device="cpu":
     choices, used = schedule_batch(arr, cfg)          # i32[P], i32[N, R]
     placements = decode_choices(choices, meta)        # {pod: node or None}
 
-The slice ported so far is the per-pod commit scan with the fit-only stage
-set (static feasibility + NodeResourcesFit + BalancedAllocation); anything
-else raises NotImplementedError (see ROADMAP.md queues A and B).
+    inc = HoistCache().ensure(arr, meta, cfg)         # ops/incremental.py
+    choices, used = schedule_batch(arr, cfg, inc=inc)  # the class-wave route
+
+The slice ported so far is the fit-only stage set (static feasibility +
+NodeResourcesFit + BalancedAllocation) on two routes: the per-pod commit
+scan, and the incremental class-wave route (class hoists, dirty-column
+patch, commit waves, chunk round loop); anything else raises
+NotImplementedError (see ROADMAP.md queues A and B).
 """

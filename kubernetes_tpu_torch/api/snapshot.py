@@ -95,6 +95,13 @@ class EncodingMeta:
     taint_vocab: v.Interner
     n_nodes: int
     n_pods: int
+    # equivalence classes (ops/incremental.py — HoistCache): the class of each
+    # pod row i32[P] (pods with equal spec keys share a class; padded rows
+    # take class U, the padding class), the first row of each class i64[U1]
+    # (the padding class points at row n_pods), and U1
+    pod_class: Optional[np.ndarray] = None
+    class_first_pod: Optional[np.ndarray] = None
+    n_classes: int = 0
 
 
 # pod-axis fields (axis 0 is P) — what a pod prefix slices
@@ -230,16 +237,26 @@ def _node_taints(nd) -> list:
 
 
 def _pod_spec_key(pod) -> Tuple:
-    """Everything this encoder reads from a pending pod: pods with equal keys
-    get identical rows, so the per-pod work runs once per spec."""
+    """A pending pod's spec identity, the JAX package's api/snapshot.py
+    _pod_spec_key: pods with equal keys get identical rows, so the per-pod
+    work runs once per spec, and the keys ARE the equivalence classes
+    (EncodingMeta.pod_class), which the class-wave route's commit order
+    depends on, so they must partition pods exactly as the JAX encoder
+    does (labels and the other fields this slice refuses included)."""
     return (
         tuple(sorted(pod.requests.items())),
+        tuple(sorted(pod.labels.items())),
+        pod.namespace,
         pod.node_name,
         pod.priority,
         pod.tolerations,
         pod.node_selector,
         pod.affinity,
-        bool(pod.scheduling_gates),
+        pod.topology_spread,
+        pod.host_ports,
+        pod.scheduling_gates,
+        pod.pod_group,
+        pod.images,
     )
 
 
@@ -459,6 +476,18 @@ def encode_snapshot(snap: Snapshot, device=None) -> Tuple[ClusterArrays, Encodin
         pod_has_sel[:p] = u_has_sel[inv]
     sel_mask, sel_kind = table.encode(L)
 
+    # --- equivalence classes: inv numbers specs by first occurrence in
+    # activeQ order, so a class's first row is where its number appeared ---
+    pod_class = np.full(P, U, dtype=np.int32)
+    pod_class[:p] = inv
+    padded = P > p
+    class_first = np.zeros(U + (1 if padded else 0), dtype=np.int64)
+    if U:
+        uu, fi = np.unique(inv, return_index=True)
+        class_first[uu] = fi
+    if padded:
+        class_first[U] = p
+
     node_valid = np.zeros(N, dtype=bool)
     node_valid[:n] = True
     node_unsched = np.zeros(N, dtype=bool)
@@ -487,6 +516,9 @@ def encode_snapshot(snap: Snapshot, device=None) -> Tuple[ClusterArrays, Encodin
         taint_vocab=taints,
         n_nodes=n,
         n_pods=p,
+        pod_class=pod_class,
+        class_first_pod=class_first,
+        n_classes=int(class_first.shape[0]),
     )
     return arrays, meta
 

@@ -24,10 +24,22 @@ GI = 1024**3
 # The north-star shape and the JAX package's decisions there: the count of
 # scheduled pods and the sha256 of its choices[:n_pods] as little-endian
 # int32, from `JAX_PLATFORMS=cpu python tests/torch_north_star_digest.py`
-# (the JAX package's schedule_batch on the CPU, which runs its per-pod scan).
+# (its per-pod leg: the JAX package's schedule_batch on the CPU).
 NORTH_STAR = dict(n_nodes=20000, n_pods=50000, seed=0)
 NORTH_STAR_SCHEDULED = 50000
 NORTH_STAR_CHOICES_SHA256 = "06714885065d2bdf07c90eee8d4d5bd3e05569be5e34beb5e7a51edabddc9e53"
+# The JAX package's class-wave route there (KTPU_FORCE_CHUNKED=1,
+# DeltaEncoder -> HoistCache.ensure -> schedule_batch_ordinals_routed), from
+# the same script's two class-wave legs: the total sweep count (wave blocks
+# + stage-B rounds) and the sha256 of ordinals[:n_pods] as little-endian
+# int32, with the waves on and with KTPU_CLASS_WAVES=0.  Both legs' choices
+# hash to NORTH_STAR_CHOICES_SHA256.  1319 is also the rounds_executed that
+# BENCH_r07-r09 recorded.
+NORTH_STAR_CLASSES = 101  # U1: 100 pod specs + the padding class
+NORTH_STAR_WAVE_SWEEPS = 1319
+NORTH_STAR_WAVE_ORDINALS_SHA256 = "2c13b3c4e3fc9962b190a602252c8ec6d746e065c05623b18f8d1d251eeef879"
+NORTH_STAR_NOWAVE_SWEEPS = 2635
+NORTH_STAR_NOWAVE_ORDINALS_SHA256 = "7f1f1312ba63845b250797dfa3be3b14cd27e2401d1dfead3f03c79641bc3ad4"
 
 
 def basic(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
@@ -182,3 +194,18 @@ def mixed(n_nodes: int = 40, n_pods: int = 160, seed: int = 0) -> Snapshot:
         for j in range(n_nodes // 2)
     ]
     return Snapshot(nodes=nodes, pending_pods=pods, bound_pods=bound)
+
+
+def interference(n_nodes: int = 8, n_big: int = 240, n_small: int = 16) -> Snapshot:
+    """One dominant class hammering a few nearly-full nodes: almost every
+    commit moves the winning node's score, so wave blocks truncate, the
+    exact fallback rescore runs, fallbacks stack on claimed nodes (epoch
+    refreshes) and capacity runs out mid-wave.  The port of the JAX
+    package's tests/test_class_waves.py _interference_snap."""
+    nodes = [
+        t.Node(name=f"n{i}", allocatable={t.CPU: 4000, t.MEMORY: 8 * GI, t.PODS: 40})
+        for i in range(n_nodes)
+    ]
+    pods = [t.Pod(name=f"p{i:03d}", requests={t.CPU: 1000, t.MEMORY: 128 * 1024**2}) for i in range(n_big)]
+    pods += [t.Pod(name=f"q{i}", requests={t.CPU: 500, t.MEMORY: 128 * 1024**2}) for i in range(n_small)]
+    return Snapshot(nodes=nodes, pending_pods=pods)

@@ -11,6 +11,10 @@ host ports and an image-score matrix would each enable a stage the port does
 not have, so their presence raises instead of being lost.  PreferNoSchedule
 taints and preferred node-affinity terms become the arrays' evidence flags
 (ops/scores.py — infer_score_config).
+
+``from_jax_meta`` carries the JAX encoder's metadata across, with its class
+index (``pod_class`` / ``class_first_pod``), so the port's HoistCache and
+class-wave route can be fed exactly the JAX encoder's inputs.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Dict
 
 import numpy as np
 
-from .api.snapshot import ClusterArrays
+from .api.snapshot import ClusterArrays, EncodingMeta
 
 
 def from_jax_arrays(fields: Dict[str, np.ndarray], device) -> ClusterArrays:
@@ -43,4 +47,25 @@ def from_jax_arrays(fields: Dict[str, np.ndarray], device) -> ClusterArrays:
         device,
         has_prefer_taints=bool(np.any(f["node_taint_pref"])),
         has_node_pref=bool(np.any(f["pod_pref_terms"] >= 0)),
+    )
+
+
+def from_jax_meta(meta) -> EncodingMeta:
+    """The port's EncodingMeta from the JAX package's, class index included
+    (the vocabularies stay behind: nothing on the port's path reads them)."""
+    pc = getattr(meta, "pod_class", None)
+    first = getattr(meta, "class_first_pod", None)
+    return EncodingMeta(
+        node_names=list(meta.node_names),
+        pod_names=list(meta.pod_names),
+        pod_perm=np.asarray(meta.pod_perm),
+        resources=list(meta.resources),
+        resource_scale=np.asarray(meta.resource_scale),
+        label_vocab=None,
+        taint_vocab=None,
+        n_nodes=int(meta.n_nodes),
+        n_pods=int(meta.n_pods),
+        pod_class=None if pc is None else np.asarray(pc, dtype=np.int32),
+        class_first_pod=None if first is None else np.asarray(first, dtype=np.int64),
+        n_classes=int(getattr(meta, "n_classes", 0) or (0 if first is None else len(first))),
     )

@@ -128,8 +128,10 @@ def most_allocated(requested: torch.Tensor, alloc: torch.Tensor, res_idx) -> tor
 
 def interp_shape_f32(util: torch.Tensor, shape) -> torch.Tensor:
     """Piecewise-linear interpolation through the shape points in one f32
-    op order: y0 + t*(y1-y0), t = (u-x0)/(x1-x0); clamps outside the shape."""
-    pts = torch.tensor(shape, dtype=torch.float32)
+    op order: y0 + t*(y1-y0), t = (u-x0)/(x1-x0); clamps outside the shape.
+    The points live on util's device: on CUDA, torch divides by a CPU scalar
+    as a multiply by its reciprocal, which is not IEEE division."""
+    pts = torch.tensor(shape, dtype=torch.float32, device=util.device)
     xs, ys = pts[:, 0], pts[:, 1]
     out = torch.full_like(util, float(ys[-1]))
     for i in range(len(shape) - 1, 0, -1):

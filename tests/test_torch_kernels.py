@@ -112,7 +112,7 @@ def test_heterogeneous_counts_launches(card):
     from kubernetes_tpu_torch.ops import schedule_batch
 
     choices, used = schedule_batch(arr, cfg)
-    assert kernels.LAUNCHES == {"static_feasible": 1, "fit_scan": 1}
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "static_feasible": 1, "fit_scan": 1}
     cp, up = schedule_scan_plain(arr, cfg)
     assert torch.equal(choices, cp) and torch.equal(used, up)
 
@@ -127,3 +127,143 @@ def test_wrappers_refuse_bad_inputs(card):
         kernels.fit_scan(sf.to(torch.uint8), arr, cfg)
     with pytest.raises(ValueError, match="score_resources"):
         kernels.fit_scan(sf, arr, dataclasses.replace(cfg, score_resources=(0, 9)))
+
+
+# ---------------------------------------------------------------------------
+# the class-wave kernels: class_static_hoist, class_usage_hoist (full and
+# column list), wave_commit, chunk_rounds, each against its plain version
+# ---------------------------------------------------------------------------
+
+def _classed_arrays(seed: int, P: int, N: int, U1: int):
+    """_random_arrays with an equivalence-class index: U1 - 1 classes of
+    pods with identical rows, the rest of the rows padding (class U1 - 1,
+    invalid), as the encoder lays them out."""
+    import types
+
+    from kubernetes_tpu_torch.api.snapshot import POD_FIELDS
+
+    arr = _random_arrays(seed, P=P, N=N)
+    rng = np.random.default_rng(seed + 1000)
+    n_pods = P - 8
+    cls = np.full(P, U1 - 1, dtype=np.int32)
+    cls[:n_pods] = np.concatenate([np.arange(U1 - 1), rng.integers(0, U1 - 1, n_pods - (U1 - 1))])
+    rng.shuffle(cls[:n_pods])
+    first = np.array([int(np.flatnonzero(cls == u)[0]) for u in range(U1)], dtype=np.int64)
+    src = torch.from_numpy(first[cls]).to(arr.device)
+    fields = {f: getattr(arr, f)[src].contiguous() for f in POD_FIELDS}
+    fields["pod_valid"][n_pods:] = False
+    arr = dataclasses.replace(arr, **fields)
+    meta = types.SimpleNamespace(pod_class=cls, class_first_pod=first, n_nodes=N)
+    return arr, meta
+
+
+def _cfg(strategy):
+    name, shape = STRATEGIES[strategy]
+    return dataclasses.replace(
+        DEFAULT_SCORE_CONFIG, fit_strategy=name, rtcr_shape=shape, enable_pairwise=False, enable_ports=False,
+        enable_taint_score=False, enable_node_pref=False, enable_image=False, score_resources=(0, 1, 3),
+        fit_weight=1.3, balanced_weight=0.7)
+
+
+def _bitwise(a, b):
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("U1,N", [(2, 997), (33, 1001), (102, 77)])
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+def test_class_hoists(card, U1, N, strategy):
+    from kubernetes_tpu_torch.ops import incremental
+    from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
+
+    arr, meta = _classed_arrays(U1 + N, P=256, N=N, U1=U1)
+    cfg = _cfg(strategy)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    r_u = torch.as_tensor(meta.class_first_pod, device=card)
+    assert torch.equal(inc.stat_u, incremental._static_hoist_plain(class_view(arr, r_u)))
+    base, fit = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
+    assert _bitwise(inc.base_u, base) and torch.equal(inc.fit_u, fit)
+    dirty = torch.randperm(N, generator=torch.Generator().manual_seed(U1))[: N // 3].sort().values.to(card)
+    used2 = arr.node_used.clone()
+    used2[dirty] = (used2[dirty] * 2 + 7).clamp_max(2**31 - 1)
+    cols = torch.full((incremental._round_up_pow2(len(dirty)),), N, dtype=torch.int32, device=card)
+    cols[: len(dirty)] = dirty.to(torch.int32)
+    bk, fk = kernels.class_usage_hoist(inc.req_u, used2, arr.node_alloc, cfg, cols=cols,
+                                       base_u=inc.base_u, fit_u=inc.fit_u)
+    bp, fp = incremental._patch_hoist_plain(inc.base_u, inc.fit_u, inc.req_u, used2, arr.node_alloc, cols, cfg)
+    assert _bitwise(bk, bp) and torch.equal(fk, fp)
+    assert _bitwise(inc.base_u, base)  # the resident buffers were not written
+
+
+@pytest.mark.parametrize("U1,N", [(2, 997), (33, 1001), (102, 77)])
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+def test_wave_commit_and_chunk_rounds(card, U1, N, strategy):
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = _classed_arrays(3 * U1 + N, P=256, N=N, U1=U1)
+    cfg = _cfg(strategy)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    t0u = assign.t0u_prologue(inc, N)
+    for knobs in (dict(wave_k=256, wave_block=48), dict(wave_k=2, wave_block=64)):
+        wk = kernels.wave_commit(arr, inc, cfg, **knobs)
+        wp = assign.wave_commit_plain(inc.cls, arr.pod_valid, arr.pod_req, arr.node_used, t0u, inc.stat_u,
+                                      arr.node_alloc, inc.req_u, cfg, **knobs)
+        for a, b in zip(wk[:5], wp[:5]):
+            assert _bitwise(a, b)
+        assert (int(wk[5]), int(wk[6])) == (wp[5], wp[6])
+        wave_t = (wp[0], wp[1], wp[2], torch.tensor(wp[5], dtype=torch.int32, device=card))
+        ck = kernels.chunk_rounds(arr, inc, cfg, wp[3], wp[4], wave_t)
+        cp = assign.schedule_scan_chunked_plain(arr, cfg, inc, wp[3], wp[4], (wp[0], wp[1], wp[2], wp[5]))
+        for a, b in zip(ck[:3], cp[:3]):
+            assert torch.equal(a, b)
+        assert ck[3] == cp[3]
+    ck = kernels.chunk_rounds(arr, inc, cfg, arr.node_used, None, None)
+    cp = assign.schedule_scan_chunked_plain(arr, cfg, inc, arr.node_used, t0u, None)
+    for a, b in zip(ck[:3], cp[:3]):
+        assert torch.equal(a, b)
+    assert ck[3] == cp[3]
+    # the route, both ways, against the per-pod route
+    c1, u1 = assign.schedule_batch(arr, cfg)
+    for waves in (True, False):
+        c2, u2 = assign.schedule_batch(arr, cfg, inc=inc, class_waves=waves)
+        assert torch.equal(c1, c2) and torch.equal(u1, u2)
+
+
+def test_class_wave_route_counts_launches(card):
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = encode_snapshot(heterogeneous(500, 1500), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    kernels.reset_launches()
+    inc = HoistCache().ensure(arr, meta, cfg)
+    choices, used = assign.schedule_batch(arr, cfg, inc=inc)
+    assert kernels.LAUNCHES == {"static_feasible": 0, "fit_scan": 0, "class_static_hoist": 1,
+                                "class_usage_hoist": 1, "wave_commit": 1, "chunk_rounds": 1}
+    cp, up = schedule_scan_plain(arr, cfg)
+    assert torch.equal(choices, cp) and torch.equal(used, up)
+
+
+def test_chunk_rounds_raises_at_its_round_cap(card):
+    """Every round commits a pod, so a chunk never needs more than INC_CHUNK
+    rounds.  Class state that breaks this must raise on both entry points,
+    never come back as unschedulable pods: a NaN score at the head of a
+    class's list is skipped by the pass-1 speculation but taken by the
+    pass-2 revalidation, so the chunk's first pod never certifies."""
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = encode_snapshot(heterogeneous(64, 300), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    c = int(inc.cls[0])
+    feasible = torch.nonzero(assign.t0u_prologue(inc, arr.N)[c] > float("-inf")).flatten()
+    assert len(feasible) >= 2  # one for the NaN, one for pass 1 to pick
+    base = inc.base_u.clone()
+    base[c, feasible[0]] = float("nan")
+    bad = inc._replace(base_u=base)
+    for entry in (assign.schedule_batch, assign.schedule_batch_ordinals):
+        with pytest.raises(RuntimeError, match="round"):
+            entry(arr, cfg, inc=bad, class_waves=False)

@@ -91,3 +91,25 @@ def test_reset_launches():
     kernels.reset_launches()
     assert set(kernels.LAUNCHES) == set(kernels.SOURCES)
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("kernel", ["class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds"])
+def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
+    """The class-wave kernels' wrappers launch or raise: CPU tensors are
+    refused before any build, never handed to a plain version."""
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench.workloads import mixed
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = encode_snapshot(mixed(), device="cpu")
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    calls = {
+        "class_static_hoist": lambda: kernels.class_static_hoist(arr, torch.as_tensor(meta.class_first_pod)),
+        "class_usage_hoist": lambda: kernels.class_usage_hoist(inc.req_u, arr.node_used, arr.node_alloc, cfg),
+        "wave_commit": lambda: kernels.wave_commit(arr, inc, cfg),
+        "chunk_rounds": lambda: kernels.chunk_rounds(arr, inc, cfg, arr.node_used, None, None),
+    }
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[kernel]()

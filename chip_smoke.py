@@ -4,12 +4,14 @@
     python3 chip_smoke.py
 
 Builds every kernel from csrc/ with nvcc (one process per source, all at
-once), then drives the port's two routes at the north-star shape,
-heterogeneous(20000, 50000, seed=0) (P=51200, N=20480, R=5, U1=101):
+once), then drives the port's three routes and bench.py's warm loop at the
+north-star shape, heterogeneous(20000, 50000, seed=0) (P=51200, N=20480,
+R=5, U1=101):
 
   [mixed]            static_feasible and fit_scan == their plain versions on
                      a small mixed snapshot, three fit strategies;
-  [north-star]       the per-pod route, encode_snapshot -> schedule_batch:
+  [north-star]       the per-pod route, encode_snapshot -> schedule_batch
+                     (chunked=False):
                      50000/50000 scheduled, the JAX package's choices digest,
                      static_feasible == plain over [P, N], fit_scan == plain
                      on the first 8192 pods;
@@ -26,12 +28,29 @@ heterogeneous(20000, 50000, seed=0) (P=51200, N=20480, R=5, U1=101):
                      digest, every kernel == plain at full size (chunk_rounds
                      on the first 64 chunks), then the route with
                      class_waves=False (chunk_rounds carries all 1600 chunks)
-                     and a warm cycle that patches the dirty columns.
+                     and a warm cycle that patches the dirty columns;
+  [north-star-dense] a cold DeltaEncoder encode, then the dense chunked
+                     route (no class state: the card's default),
+                     packed_static_rows + chunk_rounds_dense: 50000/50000,
+                     the choices digest, the JAX dense route's sweep count
+                     and ordinal digest; packed_static_rows == plain over
+                     [P, W], chunk_rounds_dense == plain on the first chunks;
+  [warm-loop]        bench.py's warm waves 2..7 through PipelinedBatchLoop at
+                     depth 1, then again at depth 0: per-wave choice digests
+                     equal across the depths and to the JAX loop's, its
+                     HoistCache actions, enc.stats["delta"] >= 3, delta_s,
+                     end_to_end_s (median of the steady walls) and
+                     overlap_fraction as bench.py computes them;
+  [wide-planes]      a snapshot with 80 distinct NoSchedule taints through
+                     DeltaEncoder: its two 80-wide bool fields travel packed
+                     and unpack_planes (== plain) unpacks them; decisions ==
+                     the JAX package's.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
-was not launched fails the run.  Times come from CUDA events after a
-warm-up.
+was not launched fails the run.  Kernel times come from CUDA events after
+a warm-up; step and loop times from the host clock around work that ends
+in torch.cuda.synchronize().
 
 Prints one line per phase, then a JSON line of per-kernel numbers, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -61,6 +80,8 @@ PLAIN_PODS = 8192  # pods of the north-star scan the plain scan re-runs in full
 WAVE_PREFIX_CHUNKS = 64  # stage-B chunks held against the plain round loop
 PER_POD_KERNELS = ("static_feasible", "fit_scan")
 WAVE_KERNELS = ("class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds")
+DENSE_KERNELS = ("packed_static_rows", "chunk_rounds_dense")
+DENSE_PREFIX_CHUNKS = 8  # dense chunks held against the plain round loop
 STRATEGIES = (
     ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
     ("MostAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -191,10 +212,11 @@ def phase_north_star() -> list:
     print(f"[north-star] encode_s {encode_s:.3f}: P={P} N={N} R={R} resources {meta.resources} "
           f"scale {meta.resource_scale.tolist()}", flush=True)
 
-    # --- the per-pod route, counted ---
+    # --- the per-pod route, counted (chunked=False: on the card the default
+    # without class state is the dense chunked route, [north-star-dense]) ---
     kernels.reset_launches()
     t0 = time.perf_counter()
-    choices, used = schedule_batch(arr, cfg)
+    choices, used = schedule_batch(arr, cfg, chunked=False)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     launches = {k: v for k, v in kernels.LAUNCHES.items() if k in PER_POD_KERNELS}
@@ -352,7 +374,8 @@ def hold_class_kernels(arr, meta, cfg, tag: str, **knobs) -> dict:
             None if wave is None else (wp[0], wp[1], wp[2], wp[5]))
         for name, a, b in zip(("choices", "used", "ordinals"), ck[:3], cp[:3]):
             check(same(a, b), f"{tag} {leg}: chunk_rounds {name} != plain ({mismatch(a, b)} entries)")
-        check(ck[3] == cp[3], f"{tag} {leg}: chunk_rounds sweeps {ck[3]} != plain {cp[3]}")
+        sweeps = kernels.read_sweeps(ck[3])
+        check(sweeps == cp[3], f"{tag} {leg}: chunk_rounds sweeps {sweeps} != plain {cp[3]}")
     # the route against the per-pod route
     c1, u1 = assign.schedule_batch(arr, cfg)
     for waves in (True, False):
@@ -527,7 +550,7 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     cp = assign.schedule_scan_chunked_plain(pre, cfg, inc_pre, arr.node_used, t0u, None)
     torch.cuda.synchronize()
     k6_plain = (time.perf_counter() - t0) * 1e3
-    k6_err = sum(mismatch(a, b) for a, b in zip(ck[:3], cp[:3])) + abs(ck[3] - cp[3])
+    k6_err = sum(mismatch(a, b) for a, b in zip(ck[:3], cp[:3])) + abs(kernels.read_sweeps(ck[3]) - cp[3])
     check(k6_err == 0, f"north-star: chunk_rounds != plain on the first {WAVE_PREFIX_CHUNKS} chunks")
     check(torch.equal(ck[0], c_off[:npre]) and torch.equal(ck[2], o_off[:npre]), "chunk prefix != full run")
     k6_ms = cuda_ms(lambda: kernels.chunk_rounds(pre, inc_pre, cfg, arr.node_used, None, None), reps=5)
@@ -582,6 +605,238 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     ]
 
 
+def dense_scored_pairs(arr, sfs, choices) -> int:
+    """(pod, node) pairs the dense hoist scores: static bit set and fit
+    against the usage at the pod's chunk start (rebuilt from the choices)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import assign, bitplane
+
+    C = assign.CHUNK
+    used = arr.node_used.clone()
+    total = 0
+    for c0 in range(0, arr.P, C):
+        req = arr.pod_req[c0:c0 + C]
+        sf = bitplane.unpack(sfs[c0:c0 + C], arr.N)
+        fit = ((req[:, None, :] == 0) | (req[:, None, :] <= (arr.node_alloc - used)[None])).all(dim=2)
+        total += int((sf & fit).sum())
+        ch = choices[c0:c0 + C].to(torch.int64)
+        m = ch >= 0
+        used.index_add_(0, ch[m], req[m])
+    return total
+
+
+def phase_north_star_dense() -> list:
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
+
+    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
+    enc = DeltaEncoder()
+    t0 = time.perf_counter()
+    host, meta = enc.encode(snap)
+    t1 = time.perf_counter()
+    arr, meta = enc.to_device(host, meta)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    print(f"[north-star-dense] cold DeltaEncoder encode_s {encode_s:.3f}: host encode {t1 - t0:.3f} s, "
+          f"to_device {encode_s - (t1 - t0):.3f} s", flush=True)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    P, N, R = arr.P, arr.N, arr.R
+    W = -(-N // 32)
+    n = meta.n_pods
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    # --- the dense route, counted ---
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if k in DENSE_KERNELS}
+    check(all(v > 0 for v in launches.values()), f"a kernel of the dense route was not launched: {launches}")
+    check(sum(kernels.LAUNCHES.values()) == sum(launches.values()), f"dense route launches {kernels.LAUNCHES}")
+    scheduled = int((choices[:n] >= 0).sum())
+    print(f"[north-star-dense] schedule_batch_ordinals (dense) "
+          f"{first_s:.3f} s (first call): scheduled {scheduled}/{n}, sweeps {sweeps}, choices sha256 "
+          f"{digest(choices)}, ordinals sha256 {digest(ords)}, launches {launches}", flush=True)
+    check(scheduled == workloads.NORTH_STAR_SCHEDULED, "dense: scheduled count")
+    check(digest(choices) == workloads.NORTH_STAR_CHOICES_SHA256, "dense: choices differ from JAX")
+    check(sweeps == workloads.NORTH_STAR_DENSE_SWEEPS, f"dense: sweeps {sweeps}")
+    check(digest(ords) == workloads.NORTH_STAR_DENSE_ORDINALS_SHA256, "dense: ordinals differ from JAX")
+    step_dense_s = float("inf")
+    for _ in range(3):  # bench.py's step_dense_s: the best of three
+        t0 = time.perf_counter()
+        c2, _ = assign.schedule_batch(arr, cfg)
+        torch.cuda.synchronize()
+        step_dense_s = min(step_dense_s, time.perf_counter() - t0)
+    check(torch.equal(c2, choices), "dense: a repeated step differs")
+
+    # --- K7 against plain over all [P, W] ---
+    sfs = kernels.packed_static_rows(arr)
+    sfs_p = assign.packed_static_rows_plain(arr)
+    k7_err = mismatch(sfs, sfs_p)
+    check(k7_err == 0, f"north-star: packed_static_rows != plain ({k7_err} words)")
+    k7_ms = cuda_ms(lambda: kernels.packed_static_rows(arr), reps=10, warmup=2)
+    k7_plain = cuda_ms(lambda: assign.packed_static_rows_plain(arr), reps=2)
+    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
+    S, E_, L = arr.sel_mask.shape
+    k7_bytes = N * (1 + T + L) + P * (1 + T + 4 + 4 * TT + 1) + S * E_ * L + 4 * S * E_ + 4 * P * W
+    k7_bound, k7_by = bound(k7_bytes, P * N * (3 + T + TT))
+    print(f"[north-star-dense] packed_static_rows == plain over [{P}, {W}]: {k7_ms:.4f} ms, plain "
+          f"{k7_plain:.3f} ms, bound {k7_bound:.4f} ms ({k7_by}: {k7_bytes} B)", flush=True)
+
+    # --- K8 over all chunks, then against plain on the first chunks ---
+    out = {}
+
+    def run_k8():
+        out["k"] = kernels.chunk_rounds_dense(arr, cfg, sfs)
+
+    k8_ms = cuda_ms(run_k8, reps=3)
+    ck = out["k"]
+    check(torch.equal(ck[0], choices) and torch.equal(ck[2], ords), "dense: timed chunk_rounds_dense != route")
+    npre = DENSE_PREFIX_CHUNKS * assign.CHUNK
+    pre = arr.pod_prefix(npre)
+    kp = kernels.chunk_rounds_dense(pre, cfg, sfs[:npre].contiguous())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp = assign.schedule_scan_chunked_dense_plain(pre, cfg, sfs_p[:npre])
+    torch.cuda.synchronize()
+    k8_plain = (time.perf_counter() - t0) * 1e3
+    k8_err = sum(mismatch(a, b) for a, b in zip(kp[:3], pp[:3])) + abs(kernels.read_sweeps(kp[3]) - pp[3])
+    check(k8_err == 0, f"north-star: chunk_rounds_dense != plain on the first {DENSE_PREFIX_CHUNKS} chunks")
+    check(torch.equal(kp[0], choices[:npre]) and torch.equal(kp[2], ords[:npre]), "dense prefix != full run")
+    k8_pre_ms = cuda_ms(lambda: kernels.chunk_rounds_dense(pre, cfg, sfs[:npre].contiguous()), reps=5)
+    scored = dense_scored_pairs(arr, sfs, choices)
+    per_score = f32_ops_per_scored_node(cfg)
+    k8_bytes = 4 * P * W + 4 * P * R + P + 3 * 4 * N * R + 2 * 4 * P
+    # the hoist's fit test over every (pod, node), each scored pair's score,
+    # and one list selection per pod over its row
+    k8_ops = P * N * R + scored * per_score + P * N
+    k8_bound, k8_by = bound(k8_bytes, k8_ops)
+    print(f"[north-star-dense] chunk_rounds_dense == plain on the first {DENSE_PREFIX_CHUNKS} chunks "
+          f"({pp[3]} rounds): {k8_pre_ms:.3f} ms, plain {k8_plain:.1f} ms (host clock); all {P // assign.CHUNK} "
+          f"chunks ({sweeps} rounds): {k8_ms:.3f} ms ({k8_ms / (P // assign.CHUNK) * 1e3:.1f} us per chunk), "
+          f"bound {k8_bound:.4f} ms ({k8_by}: {k8_bytes} B, {scored} scored pairs x {per_score} + "
+          f"{P * N * (R + 1)} ops); step_dense_s {step_dense_s:.4f} (best of 3)", flush=True)
+    common = dict(route="cuda", library_ms=None)
+    return step_dense_s, (choices, meta), [
+        dict(name="packed_static_rows", source="kubernetes_tpu_torch/csrc/class_hoist.cu",
+             replaces="kubernetes_tpu/ops/filters.py:92", launches=launches["packed_static_rows"],
+             max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain, bound_ms=k7_bound, bound_by=k7_by, **common),
+        dict(name="chunk_rounds_dense", source="kubernetes_tpu_torch/csrc/chunk_rounds_dense.cu",
+             replaces="kubernetes_tpu/ops/assign.py:1418", launches=launches["chunk_rounds_dense"],
+             max_abs_err=k8_err, ms=k8_ms, plain_ms=k8_plain, bound_ms=k8_bound, bound_by=k8_by,
+             plain_scope=f"first {DENSE_PREFIX_CHUNKS} chunks", prefix_ms=k8_pre_ms, **common),
+    ]
+
+
+def phase_warm_loop(cold) -> dict:
+    """bench.py:283-327 at both depths; `cold` is the dense step's (choices,
+    meta) of wave 1, whose decisions are the class-wave step's."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.api.snapshot import Snapshot
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel.pipeline import PipelinedBatchLoop
+
+    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
+    choices, meta = cold
+    first = workloads.verdicts_of(choices.cpu().numpy(), meta)
+    names = [nd.name for nd in snap.nodes]
+    res = {}
+    for depth in (1, 0):
+        enc = DeltaEncoder()
+        enc.encode_device(snap)  # the cold encode the loop's encoder carries on from, as in bench.py
+        torch.cuda.synchronize()
+        loop = PipelinedBatchLoop(encoder=enc, depth=depth)
+        kernels.reset_launches()
+        waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain, Snapshot)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        digests = {w: workloads.wave_digest(waves[w], fetched[w], names) for w in sorted(fetched) if w >= 2}
+        actions = [h["action"] for h in loop.hoist.history]
+        steady = sorted(walls[2:])
+        end_to_end_s = steady[len(steady) // 2]  # bench.py:377-379
+        delta_s = loop.host_seconds["encode"][0] / max(1, len(walls))
+        overlap = loop.overlap_fraction()
+        sched = [sum(1 for v in fetched[w].values() if v) for w in sorted(digests)]
+        print(f"[warm-loop] depth {depth}: walls {[round(x, 4) for x in walls]}, end_to_end_s {end_to_end_s:.4f} "
+              f"(median of the steady walls), delta_s {delta_s:.4f} (encode + dispatch per cycle), "
+              f"overlap_fraction {overlap:.3f}, host seconds {loop.host_seconds}, encoder {enc.stats}, "
+              f"scheduled {sched}, launches {launches}", flush=True)
+        cycles = len(walls)
+        split = {k: round(v / cycles, 4) for k, v in loop.phase_seconds.items()}
+        caller = sum(a - b for a, b in zip(walls, submits)) / cycles
+        print(f"[warm-loop] depth {depth}: per cycle, host seconds: caller feedback (mk_wave + place) "
+              f"{caller:.4f}, in submit {sum(submits) / cycles:.4f} = {split}", flush=True)
+        for w in sorted(digests):
+            print(f"[warm-loop] depth {depth} wave {w}: HoistCache {actions[w - 2]} "
+                  f"(patched columns {loop.hoist.history[w - 2]['patched_cols']}), choices {digests[w]}", flush=True)
+        check(digests == workloads.NORTH_STAR_WARM_DIGESTS, f"warm loop depth {depth}: choices differ from JAX")
+        check(actions == workloads.NORTH_STAR_WARM_ACTIONS, f"warm loop depth {depth}: HoistCache actions {actions}")
+        check(enc.stats["delta"] >= 3, f"delta path did not engage: {enc.stats}")
+        check(all(x == workloads.NORTH_STAR_SCHEDULED for x in sched), f"warm loop: scheduled {sched}")
+        for k in WAVE_KERNELS:
+            check(launches.get(k, 0) > 0, f"warm loop depth {depth}: {k} was not launched: {launches}")
+        res[depth] = dict(digests=digests, end_to_end_s=end_to_end_s, delta_s=delta_s, overlap=overlap,
+                          walls=walls)
+    check(res[0]["digests"] == res[1]["digests"], "warm loop: depth 0 != depth 1")
+    check(res[0]["overlap"] == 0.0, f"warm loop: overlap_fraction {res[0]['overlap']} at depth 0")
+    check(res[1]["overlap"] > 0.0, "warm loop: nothing overlapped at depth 1")
+    return res
+
+
+def phase_wide_planes() -> list:
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, bitplane, infer_score_config, kernels, schedule_batch
+
+    snap = workloads.wide_taints(**workloads.WIDE_TAINTS)
+    enc = DeltaEncoder()
+    host, meta = enc.encode(snap)
+    kernels.reset_launches()
+    arr, meta = enc.to_device(host, meta)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["unpack_planes"]
+    check(launches == 2, f"wide planes: unpack_planes launched {launches} times (node_taint_ns, pod_tol_ns)")
+    for name in ("node_taint_ns", "pod_tol_ns"):
+        check(torch.equal(getattr(arr, name).cpu(), torch.from_numpy(getattr(host, name))),
+              f"wide planes: {name} unpacked != host")
+    words = torch.from_numpy(bitplane.np_pack_lastaxis(host.pod_tol_ns).view("int32")).cuda()
+    n_w = host.pod_tol_ns.shape[1]
+    k9_err = mismatch(kernels.unpack_planes(words, n_w), bitplane.unpack(words, n_w))
+    check(k9_err == 0, "wide planes: unpack_planes != plain")
+    k9_ms = cuda_ms(lambda: kernels.unpack_planes(words, n_w), reps=50, warmup=3)
+    k9_plain = cuda_ms(lambda: bitplane.unpack(words, n_w), reps=10)
+    rows = words.shape[0]
+    k9_bytes = rows * (4 * words.shape[1] + n_w)
+    k9_bound, k9_by = bound(k9_bytes, rows * n_w)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    choices, _ = schedule_batch(arr, cfg)
+    c = choices[: meta.n_pods].cpu().numpy().astype("<i4")
+    scheduled = int((c >= 0).sum())
+    check(scheduled == workloads.WIDE_TAINTS_SCHEDULED, f"wide planes: scheduled {scheduled}")
+    check(hashlib.sha256(c.tobytes()).hexdigest() == workloads.WIDE_TAINTS_CHOICES_SHA256,
+          "wide planes: choices differ from JAX")
+    print(f"[wide-planes] {len(snap.nodes)} nodes, {meta.n_pods} pods, {n_w} hard taints: node_taint_ns "
+          f"{tuple(arr.node_taint_ns.shape)} and pod_tol_ns {tuple(arr.pod_tol_ns.shape)} sent packed, "
+          f"unpack_planes x{launches} == host == plain; scheduled {scheduled}/{meta.n_pods}, choices == JAX; "
+          f"unpack_planes [{rows}, {n_w}]: {k9_ms:.4f} ms, plain {k9_plain:.4f} ms, bound {k9_bound:.6f} ms "
+          f"({k9_by}: {k9_bytes} B)", flush=True)
+    return [dict(name="unpack_planes", route="cuda", source="kubernetes_tpu_torch/csrc/unpack_planes.cu",
+                 replaces="kubernetes_tpu/api/delta.py:922", launches=launches, max_abs_err=k9_err, ms=k9_ms,
+                 plain_ms=k9_plain, bound_ms=k9_bound, bound_by=k9_by, library_ms=None)]
+
+
 def choices_used(arr, choices, k: int):
     """node_used after the first k pods' placements."""
     import torch
@@ -608,6 +863,10 @@ def main() -> int:
     step_s, rows = phase_north_star()
     phase_waves_mixed()
     rows += phase_north_star_waves(step_s)
+    step_dense_s, cold, dense_rows = phase_north_star_dense()
+    rows += dense_rows
+    phase_warm_loop(cold)
+    rows += phase_wide_planes()
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,10 +1,11 @@
-"""Snapshot -> fixed-shape tensors on the device (the cold full encode).
+"""Snapshot -> fixed-shape tensors on the device.
 
-The port of the JAX package's ``api/snapshot.py`` encoder (its
-``encode_snapshot`` delegates to ``api/delta.py`` — ``build_cluster_side``,
-``_pod_side`` and ``_assemble`` — whose cold path this module reproduces):
-the host-side cluster state is lowered once per scheduling step into padded,
-bucketed arrays, then moved to the device as one ``ClusterArrays``.
+The port of the JAX package's ``api/snapshot.py``: the host-side types
+(``Snapshot``, ``ClusterArrays``, ``EncodingMeta``), the shared encoding
+rules (bucketing, the int32 rescale, activeQ order, the pod spec key and
+its interner) and ``encode_snapshot``, which is a one-shot
+``api/delta.py — DeltaEncoder``, as in the JAX package, so the cold encode
+and the incremental one are one code body.
 
 Tensor schema (N nodes, P pending pods, R resources, L node-label literals,
 T taint vocab, S node-selector terms, E exprs/term, TT terms/pod — padded):
@@ -31,10 +32,10 @@ tensor index == commit order in ops/assign.py.
 This slice ports the fit-only stage set.  A snapshot that needs a stage the
 port does not have yet (pod (anti-)affinity, topology spread, host ports,
 images, volumes, resource claims, pod groups) raises NotImplementedError
-here; it is never dropped.  PreferNoSchedule taints and preferred node
-affinity are recorded as evidence flags, so ``ops.infer_score_config``
-enables those stages exactly as the JAX package would, and
-``ops.schedule_batch`` then refuses them.
+in the encoder (``_refuse``); it is never dropped.  PreferNoSchedule taints
+and preferred node affinity are recorded as evidence flags, so
+``ops.infer_score_config`` enables those stages exactly as the JAX package
+would, and ``ops.schedule_batch`` then refuses them.
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from . import types as t
 from . import vocab as v
 
@@ -162,8 +162,10 @@ class ClusterArrays:
     def device(self) -> torch.device:
         return self.node_alloc.device
 
+    FIELDS = tuple(_DTYPES)
+
     def tensors(self) -> Dict[str, torch.Tensor]:
-        return {f: getattr(self, f) for f in _DTYPES}
+        return {f: getattr(self, f) for f in self.FIELDS}
 
     def to(self, device) -> "ClusterArrays":
         return replace(self, **{k: x.to(device) for k, x in self.tensors().items()})
@@ -266,261 +268,67 @@ def _refuse(what: str, queue: str) -> None:
     )
 
 
-def _check_supported(snap) -> None:
-    """Raise on anything that would need a stage this slice does not port."""
-    if snap.pvs or snap.pvcs or (snap.resource_slices and snap.device_classes):
-        _refuse("volumes / resource slices", "queue A5, api/volumes.py")
-    if any(nd.volume_attach_limit for nd in snap.nodes):
-        _refuse("volume attach limits", "queue A5, api/volumes.py")
-    if snap.pod_groups:
-        _refuse("pod groups", "queue A9, kernel B11")
-    node_images = any(nd.images for nd in snap.nodes)
-    for pending, pods in ((True, snap.pending_pods), (False, snap.bound_pods)):
-        for pod in pods:
-            a = pod.affinity
-            if a is not None and (
-                a.required_pod_affinity or a.required_pod_anti_affinity
-                or a.preferred_pod_affinity or a.preferred_pod_anti_affinity
-            ):
-                _refuse(f"pod {pod.name!r}: pod (anti-)affinity", "queue A7, kernels B8/B9")
-            if pod.host_ports:
-                _refuse(f"pod {pod.name!r}: host ports", "queue A7, kernel B9 ports_ok")
-            if pod.pvcs or pod.resource_claims:
-                _refuse(f"pod {pod.name!r}: volumes / resource claims", "queue A5")
-            if not pending:
-                continue
-            if pod.topology_spread:
-                _refuse(f"pod {pod.name!r}: topology spread", "queue A7, kernel B9")
-            if pod.pod_group:
-                _refuse(f"pod {pod.name!r}: pod group", "queue A9, kernel B11")
-            if pod.images and node_images:
-                _refuse(f"pod {pod.name!r}: image locality", "queue A7, kernel B8")
+def _identity_key(pod) -> Tuple:
+    """Field-object identity profile of a pod: pods copied from one template
+    share these objects, so equal keys imply equal _pod_spec_key (the fast
+    first level of SpecInterner).  Covers every field _pod_spec_key reads."""
+    return (
+        id(pod.requests), id(pod.labels), pod.namespace, pod.node_name,
+        pod.priority, id(pod.tolerations), id(pod.node_selector),
+        id(pod.affinity), id(pod.topology_spread), id(pod.host_ports),
+        id(pod.scheduling_gates), pod.pod_group, id(pod.images),
+    )
+
+
+class SpecInterner:
+    """A PERSISTENT two-level interner (the JAX package's api/snapshot.py:346,
+    its Python path): identity profile -> canonical spec key survives across
+    calls, so waves stamped from the same objects cost O(P) dict hits, not
+    O(P) sorted canonicalizations.  Values keep the keyed pod alive, so a
+    recycled id never aliases a live entry."""
+
+    def __init__(self):
+        self._keys: Dict[Tuple, Tuple] = {}
+
+    def group(self, pods: Sequence):
+        """-> (reps, inv, rep_keys): the same reps and inv as group_by_spec,
+        plus each rep's canonical key."""
+        if len(self._keys) > 2 * (len(pods) + 1024):
+            self._keys.clear()
+        cache = self._keys
+        can_ids: Dict[Tuple, int] = {}
+        reps: List = []
+        rep_keys: List[Tuple] = []
+        inv = np.empty(len(pods), dtype=np.int64)
+        for i, pod in enumerate(pods):
+            ik = _identity_key(pod)
+            ent = cache.get(ik)
+            if ent is None:
+                ent = cache[ik] = (_pod_spec_key(pod), pod)
+            k = ent[0]
+            su = can_ids.get(k)
+            if su is None:
+                su = can_ids[k] = len(reps)
+                reps.append(pod)
+                rep_keys.append(k)
+            inv[i] = su
+        return reps, inv, tuple(rep_keys)
+
+
+def group_by_spec(pods: Sequence) -> Tuple[List, np.ndarray]:
+    """-> (reps, inv): the unique encoding specs in first-occurrence order
+    and each pod's spec index (the JAX package's api/snapshot.py:508)."""
+    reps, inv, _ = SpecInterner().group(pods)
+    return reps, inv
 
 
 def encode_snapshot(snap: Snapshot, device=None) -> Tuple[ClusterArrays, EncodingMeta]:
-    """Cold full encode of `snap` onto `device` (the card unless the caller
-    passes device="cpu")."""
-    dev = resolve_device(device)
-    _check_supported(snap)
-    nodes = snap.nodes
-    n = len(nodes)
-    pending = snap.pending_pods
-    perm = activeq_order(pending)
-    pods = [pending[i] for i in perm]
-    p = len(pods)
-    N = _bucket(n)
-    P = _bucket(p)
-    resources = _resource_axis(snap)
-    R = len(resources)
-    node_index = {nd.name: i for i, nd in enumerate(nodes)}
+    """One-shot encode of `snap` onto `device` (the card unless the caller
+    passes device="cpu"): a DeltaEncoder used for a single cycle, so the
+    incremental path and this one are one code body (api/delta.py)."""
+    from .delta import DeltaEncoder
 
-    # --- pending pods grouped by spec (rows are built once per spec) ---
-    spec_ids: Dict[Tuple, int] = {}
-    reps: List = []
-    inv = np.empty(p, dtype=np.int64)
-    for i, pod in enumerate(pods):
-        k = _pod_spec_key(pod)
-        u = spec_ids.get(k)
-        if u is None:
-            u = spec_ids[k] = len(reps)
-            reps.append(pod)
-        inv[i] = u
-    U = len(reps)
-
-    # label keys some pending pod's node selection refers to
-    referenced = set()
-    for pod in reps:
-        referenced.update(k for k, _ in pod.node_selector)
-        if pod.affinity:
-            for term in pod.affinity.required_node_terms:
-                referenced.update(e.key for e in term.match_expressions)
-            for pt in pod.affinity.preferred_node_terms:
-                referenced.update(e.key for e in pt.preference.match_expressions)
-
-    # --- node labels, interned by filtered profile ---
-    lab = v.LabelVocab()
-    prof_ids: Dict[Tuple, int] = {}
-    prof_rows: List[List[int]] = []
-    prof_inv = np.empty(n, dtype=np.int64)
-    for i, nd in enumerate(nodes):
-        fk = tuple(sorted((k, val) for k, val in nd.labels.items() if k in referenced))
-        u = prof_ids.get(fk)
-        if u is None:
-            u = prof_ids[fk] = len(prof_rows)
-            prof_rows.append(lab.add_labels(dict(fk)))
-        prof_inv[i] = u
-    L = max(1, len(lab))
-    node_labels = np.zeros((N, L), dtype=bool)
-    if n:
-        uniq = np.zeros((len(prof_rows), L), dtype=bool)
-        for u, lits in enumerate(prof_rows):
-            uniq[u, lits] = True
-        node_labels[:n] = uniq[prof_inv]
-
-    # --- taints, interned by node profile ---
-    taints = v.Interner()
-    tprof_ids: Dict[Tuple, int] = {}
-    tprof: List[list] = []
-    tinv = np.empty(n, dtype=np.int64)
-    for i, nd in enumerate(nodes):
-        key = (nd.taints, nd.unschedulable)
-        u = tprof_ids.get(key)
-        if u is None:
-            u = tprof_ids[key] = len(tprof)
-            ts = _node_taints(nd)
-            tprof.append(ts)
-            for tn in ts:
-                taints.intern((tn.key, tn.value, tn.effect))
-        tinv[i] = u
-    T = max(1, len(taints))
-    taint_objs = [t.Taint(k, val, eff) for (k, val, eff) in taints.items]
-    taint_is_pref = np.array([tn.effect == t.PREFER_NO_SCHEDULE for tn in taint_objs], dtype=bool)
-    node_taint_ns = np.zeros((N, T), dtype=bool)
-    if n:
-        uniq = np.zeros((len(tprof), T), dtype=bool)
-        for u, ts in enumerate(tprof):
-            for tn in ts:
-                if tn.effect != t.PREFER_NO_SCHEDULE:
-                    uniq[u, taints.get((tn.key, tn.value, tn.effect))] = True
-        node_taint_ns[:n] = uniq[tinv]
-
-    # --- resources: raw int64, then the per-axis int32 rescale ---
-    aprof: Dict[Tuple, List[int]] = {}
-    alloc_raw = np.zeros((n, R), dtype=np.int64)
-    for i, nd in enumerate(nodes):
-        key = tuple(sorted(nd.allocatable.items()))
-        row = aprof.get(key)
-        if row is None:
-            row = aprof[key] = [
-                nd.allocatable.get(r, _DEFAULT_POD_LIMIT if r == t.PODS else 0)
-                for r in resources
-            ]
-        alloc_raw[i] = row
-    used_raw = np.zeros((n, R), dtype=np.int64)
-    breq: Dict[Tuple, List[int]] = {}
-    b_ni: List[int] = []
-    b_req: List[List[int]] = []
-    for q in snap.bound_pods:
-        ni = node_index.get(q.node_name)
-        if ni is None:
-            continue
-        key = tuple(sorted(q.requests.items()))
-        row = breq.get(key)
-        if row is None:
-            row = breq[key] = pod_effective_requests(q, resources)
-        b_ni.append(ni)
-        b_req.append(row)
-    if b_ni:
-        np.add.at(used_raw, np.array(b_ni), np.array(b_req, dtype=np.int64))
-    req_uniq = (
-        np.array([pod_effective_requests(rp, resources) for rp in reps], dtype=np.int64)
-        if U else np.zeros((1, R), dtype=np.int64)
-    )
-    stacked = np.concatenate([alloc_raw, req_uniq, used_raw], axis=0)
-    scale = np.array([_scale_for(stacked[:, j]) for j in range(R)], dtype=np.int64)
-    node_alloc = np.zeros((N, R), dtype=np.int32)
-    node_alloc[:n] = alloc_raw // scale
-    node_used = np.zeros((N, R), dtype=np.int32)
-    node_used[:n] = -(-used_raw // scale)
-    pod_req = np.zeros((P, R), dtype=np.int32)
-    if p:
-        pod_req[:p] = (-(-req_uniq // scale))[inv]
-
-    # --- pod side, per unique spec, scattered through inv ---
-    table = v.TermTable()
-    Uq = max(1, U)
-    u_valid = np.zeros(Uq, dtype=bool)
-    u_prio = np.zeros(Uq, dtype=np.int32)
-    u_tol = np.ones((Uq, T), dtype=bool)
-    u_pin = np.full(Uq, -1, dtype=np.int32)
-    term_lists: List[List[int]] = []
-    has_node_pref = False
-    for ui, pod in enumerate(reps):
-        u_valid[ui] = not pod.scheduling_gates
-        u_prio[ui] = pod.priority
-        if pod.tolerations:
-            for tid, taint in enumerate(taint_objs):
-                if not taint_is_pref[tid]:
-                    u_tol[ui, tid] = any(tol.tolerates(taint) for tol in pod.tolerations)
-        elif taint_objs:
-            u_tol[ui] = taint_is_pref
-        if pod.node_name:
-            u_pin[ui] = node_index.get(pod.node_name, -2)
-        terms = v.pod_required_node_terms(pod, lab)
-        term_lists.append([] if terms is None else [table.intern(tm) for tm in terms])
-        if pod.affinity:
-            # preferred terms share the term table (as in the JAX encoder);
-            # their score stage is refused by ops.schedule_batch
-            for pt in pod.affinity.preferred_node_terms:
-                if pt.preference.match_expressions:
-                    table.intern(v.lower_node_term(pt.preference.match_expressions, lab))
-                    has_node_pref = True
-    TT = max(1, max((len(x) for x in term_lists), default=1))
-    u_terms = np.full((Uq, TT), -1, dtype=np.int32)
-    for ui, ids in enumerate(term_lists):
-        u_terms[ui, : len(ids)] = ids
-    u_has_sel = np.array([bool(ids) for ids in term_lists] or [False], dtype=bool)
-
-    pod_valid = np.zeros(P, dtype=bool)
-    pod_prio = np.zeros(P, dtype=np.int32)
-    pod_tol_ns = np.ones((P, T), dtype=bool)
-    pod_nodename = np.full(P, -1, dtype=np.int32)
-    pod_terms = np.full((P, TT), -1, dtype=np.int32)
-    pod_has_sel = np.zeros(P, dtype=bool)
-    if p:
-        pod_valid[:p] = u_valid[inv]
-        pod_prio[:p] = u_prio[inv]
-        pod_tol_ns[:p] = u_tol[inv]
-        pod_nodename[:p] = u_pin[inv]
-        pod_terms[:p] = u_terms[inv]
-        pod_has_sel[:p] = u_has_sel[inv]
-    sel_mask, sel_kind = table.encode(L)
-
-    # --- equivalence classes: inv numbers specs by first occurrence in
-    # activeQ order, so a class's first row is where its number appeared ---
-    pod_class = np.full(P, U, dtype=np.int32)
-    pod_class[:p] = inv
-    padded = P > p
-    class_first = np.zeros(U + (1 if padded else 0), dtype=np.int64)
-    if U:
-        uu, fi = np.unique(inv, return_index=True)
-        class_first[uu] = fi
-    if padded:
-        class_first[U] = p
-
-    node_valid = np.zeros(N, dtype=bool)
-    node_valid[:n] = True
-    node_unsched = np.zeros(N, dtype=bool)
-    node_unsched[:n] = [nd.unschedulable for nd in nodes]
-
-    arrays = ClusterArrays.from_numpy(
-        dict(
-            node_valid=node_valid, node_alloc=node_alloc, node_used=node_used,
-            node_unsched=node_unsched, node_labels=node_labels,
-            node_taint_ns=node_taint_ns, pod_valid=pod_valid, pod_req=pod_req,
-            pod_prio=pod_prio, pod_tol_ns=pod_tol_ns, pod_nodename=pod_nodename,
-            pod_terms=pod_terms, pod_has_sel=pod_has_sel, sel_mask=sel_mask,
-            sel_kind=sel_kind,
-        ),
-        dev,
-        has_prefer_taints=bool(taint_is_pref.any()),
-        has_node_pref=has_node_pref,
-    )
-    meta = EncodingMeta(
-        node_names=[nd.name for nd in nodes],
-        pod_names=[pod.name for pod in pods],
-        pod_perm=perm,
-        resources=resources,
-        resource_scale=scale,
-        label_vocab=lab,
-        taint_vocab=taints,
-        n_nodes=n,
-        n_pods=p,
-        pod_class=pod_class,
-        class_first_pod=class_first,
-        n_classes=int(class_first.shape[0]),
-    )
-    return arrays, meta
+    return DeltaEncoder(device).encode_device(snap)
 
 
 def decode_choices(choices, meta: EncodingMeta) -> Dict[str, Optional[str]]:

@@ -13,7 +13,12 @@ scheduling gate, bound pods and two priorities.
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import random
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
 
 from ..api import types as t
 from ..api.snapshot import Snapshot
@@ -40,6 +45,35 @@ NORTH_STAR_WAVE_SWEEPS = 1319
 NORTH_STAR_WAVE_ORDINALS_SHA256 = "2c13b3c4e3fc9962b190a602252c8ec6d746e065c05623b18f8d1d251eeef879"
 NORTH_STAR_NOWAVE_SWEEPS = 2635
 NORTH_STAR_NOWAVE_ORDINALS_SHA256 = "7f1f1312ba63845b250797dfa3be3b14cd27e2401d1dfead3f03c79641bc3ad4"
+# The JAX package's dense chunked route there (KTPU_FORCE_CHUNKED=1,
+# DeltaEncoder -> schedule_batch_ordinals_routed with no class state: 400
+# chunks of 128 pods), from the same script's dense leg: the sweep count
+# and the sha256 of ordinals[:n_pods].  Its choices hash to
+# NORTH_STAR_CHOICES_SHA256.
+NORTH_STAR_DENSE_SWEEPS = 2027
+NORTH_STAR_DENSE_ORDINALS_SHA256 = "b4e8f69508fe1971fa4411978c8a61778c2b9a4a01e4d49cd55cf97001dd6e10"
+# bench.py's warm loop there (waves 2..7, warm_waves below) through the JAX
+# package's PipelinedBatchLoop at depth 0 (run_serial's order) under
+# KTPU_FORCE_CHUNKED=1, from the same script's warm leg: wave -> its
+# wave_digest (every wave schedules 50000/50000), and the loop's HoistCache
+# action per wave (the loop's own cache starts cold at wave 2; waves 4 and 6
+# bind a wave that moved most nodes' usage, so they re-hoist in full).  The
+# JAX encoder ran 1 full and 6 delta cycles.
+NORTH_STAR_WARM_DIGESTS: Dict[int, str] = {
+    2: "3cecc627ae03162d6ed3175e0a2840d7b79adc4ab20e548b878d36d2ba9fba4e",
+    3: "3cecc627ae03162d6ed3175e0a2840d7b79adc4ab20e548b878d36d2ba9fba4e",
+    4: "f985bd155eed995f8160379beff4d3314af146fecaaee560234522fbb441515d",
+    5: "f985bd155eed995f8160379beff4d3314af146fecaaee560234522fbb441515d",
+    6: "fdd8faa02edf432e2c106b92c8ab2ac83984a3ec46568dd77899c579ac6be357",
+    7: "fdd8faa02edf432e2c106b92c8ab2ac83984a3ec46568dd77899c579ac6be357",
+}
+NORTH_STAR_WARM_ACTIONS: List[str] = ["static_rebuild", "hit", "full", "hit", "full", "hit"]
+# wide_taints at this size, through the JAX package's encoder and per-pod
+# scan (the same script's wide leg): the scheduled count and the sha256 of
+# choices[:n_pods].
+WIDE_TAINTS = dict(n_nodes=2000, n_pods=5000)
+WIDE_TAINTS_SCHEDULED = 5000
+WIDE_TAINTS_CHOICES_SHA256 = "f1508798386437d40839a4b4d338967d5876d9d21f1d1f339f09a0df25c89ca5"
 
 
 def basic(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
@@ -208,4 +242,103 @@ def interference(n_nodes: int = 8, n_big: int = 240, n_small: int = 16) -> Snaps
     ]
     pods = [t.Pod(name=f"p{i:03d}", requests={t.CPU: 1000, t.MEMORY: 128 * 1024**2}) for i in range(n_big)]
     pods += [t.Pod(name=f"q{i}", requests={t.CPU: 500, t.MEMORY: 128 * 1024**2}) for i in range(n_small)]
+    return Snapshot(nodes=nodes, pending_pods=pods)
+
+
+# ---------------------------------------------------------------------------
+# bench.py's warm loop (bench.py:283-327), shared by chip_smoke.py and the
+# JAX reference script so both drive the same dataflow
+# ---------------------------------------------------------------------------
+
+def mk_wave(snap, w: int) -> list:
+    """Wave w: the snapshot's pending pods renamed (bench.py mk_wave)."""
+    return [dataclasses.replace(p, name=f"w{w}-{p.name}", uid="") for p in snap.pending_pods]
+
+
+def place(pods, verdicts) -> list:
+    """The pods that were placed, bound to their nodes (bench.py place)."""
+    return [dataclasses.replace(p, node_name=verdicts[p.name]) for p in pods if verdicts.get(p.name)]
+
+
+def verdicts_of(choices, meta) -> Dict[str, Optional[str]]:
+    """choices (node index or -1, in meta.pod_names order) -> verdicts."""
+    c = np.asarray(choices)
+    return {
+        meta.pod_names[k]: (meta.node_names[int(c[k])] if int(c[k]) >= 0 else None)
+        for k in range(meta.n_pods)
+    }
+
+
+def wave_digest(pods, verdicts, node_names) -> str:
+    """sha256 of each pod's node index (-1: unscheduled), in wave order, as
+    little-endian int32."""
+    index = {n: i for i, n in enumerate(node_names)}
+    a = np.array([index[verdicts[p.name]] if verdicts[p.name] is not None else -1 for p in pods], dtype="<i4")
+    return hashlib.sha256(a.tobytes()).hexdigest()
+
+
+def warm_waves(snap, first: Dict[str, Optional[str]], submit: Callable, drain: Callable, snapshot_cls,
+               last: int = 7, clock: Callable = None):
+    """bench.py's warm cycles: wave w (2..last) binds the placements of the
+    newest fetched wave w-2 (the pipeline's one-wave lag), `submit` takes
+    each wave's snapshot and returns the previous wave's verdicts (or None),
+    `drain` the last.  `first` are wave 1's verdicts.
+
+    -> (waves {w: pods}, fetched {w: verdicts}, walls [s per cycle, mark
+    to mark, the caller-side feedback included, as bench.py measures],
+    submits [s in submit() per cycle])."""
+    import time
+
+    clock = clock or time.perf_counter
+    waves = {1: snap.pending_pods}
+    fetched = {1: first}
+    walls, submits = [], []
+    t_mark = clock()
+    for w in range(2, last + 1):
+        src = w - 2 if w - 2 in fetched else max(fetched)
+        snapw = snapshot_cls(nodes=snap.nodes, pending_pods=mk_wave(snap, w),
+                             bound_pods=place(waves[src], fetched[src]))
+        waves[w] = snapw.pending_pods
+        t_sub = clock()
+        v = submit(snapw)
+        now = clock()
+        submits.append(now - t_sub)
+        walls.append(now - t_mark)
+        t_mark = now
+        if v is not None:
+            fetched[w - 1] = v
+    fetched[last] = drain()
+    return waves, fetched, walls, submits
+
+
+def wide_taints(n_nodes: int = 2000, n_pods: int = 5000, n_taints: int = 80, seed: int = 0) -> Snapshot:
+    """Dedicated node pools: `n_taints` distinct NoSchedule taints
+    (team-k=true), three nodes in four carrying one, and pods tolerating
+    none, one or two teams.  node_taint_ns and pod_tol_ns are then
+    `n_taints` wide, which for 64 or more makes the encoder send them packed
+    (api/delta.py — DeltaEncoder._packed_put; kernel K9 unpacks them)."""
+    rng = random.Random(seed)
+    nodes = []
+    pools = 0
+    for i in range(n_nodes):
+        taints = ()
+        if i % 4:
+            taints = (t.Taint(key=f"team-{pools % n_taints}", value="true", effect=t.NO_SCHEDULE),)
+            pools += 1
+        nodes.append(t.Node(
+            name=f"node-{i}",
+            allocatable={t.CPU: rng.choice([8, 16, 32]) * MILLI, t.MEMORY: rng.choice([32, 64]) * GI,
+                         t.PODS: 110},
+            labels={t.LABEL_ZONE: f"zone-{i % 3}"},
+            taints=taints,
+        ))
+    pods = []
+    for i in range(n_pods):
+        teams = rng.sample(range(n_taints), i % 3)
+        pods.append(t.Pod(
+            name=f"pod-{i}",
+            requests={t.CPU: rng.choice([250, 500, 1000]), t.MEMORY: rng.choice([256, 512, 1024]) * 1024**2},
+            tolerations=tuple(t.Toleration(key=f"team-{k}", value="true", effect=t.NO_SCHEDULE) for k in teams),
+            priority=rng.choice([0, 0, 100]),
+        ))
     return Snapshot(nodes=nodes, pending_pods=pods)

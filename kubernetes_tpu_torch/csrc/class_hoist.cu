@@ -11,6 +11,14 @@
 //   a warp ballot writes 32 nodes' bits as one word directly (tail bits
 //   past N are zero), never a bool plane.
 //
+// K7 ktt_packed_static_rows replaces the dense chunked route's packed
+//   static plane, the lax.map of static_feasible_rows + bitplane.pack over
+//   blocks of pod rows (ops/assign.py:1014-1053, ops/filters.py:92): the
+//   same kernel over every POD row (no class index) with the pod_valid
+//   term, sfs[p] = pack(node_valid & pod_valid & taints_ok & nodesel &
+//   nodename_ok).  At the north star it writes 51200 x 640 words (131 MB,
+//   >= 39 us at 3.35 TB/s): the words are the bound.
+//
 // K4 ktt_class_usage_hoist replaces
 //   ops/incremental.py:188 _usage_hoist (cols == NULL: every column) and
 //   ops/incremental.py:214 _patch_hoist (cols: a pow2 column list padded
@@ -43,20 +51,28 @@ namespace {
 
 constexpr int NT = 256;
 
-// tolerations of each class's first pod, as words: tol_w[u, TW]
+// grid.y is at most 65535: kernels over rows loop blockIdx.y by gridDim.y
+constexpr int MAX_GRID_Y = 65535;
+
+// row u's pod row: the class's first pod r_u[u], or u itself (r_u NULL)
+__device__ __forceinline__ int64_t pod_row(const int64_t* r_u, int u) { return r_u ? r_u[u] : u; }
+
+// tolerations of each row's pod, as words: tol_w[u, TW]
 __global__ void class_tol_kernel(const uint8_t* __restrict__ pod_tol_ns,  // [P, T]
                                  const int64_t* __restrict__ r_u, int U1, int T, int TW,
                                  uint32_t* __restrict__ tol_w) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)U1 * TW) return;
   const int u = (int)(i / TW), w = (int)(i % TW);
-  const uint8_t* src = pod_tol_ns + r_u[u] * T + 32 * w;
+  const uint8_t* src = pod_tol_ns + pod_row(r_u, u) * T + 32 * w;
   const int lim = min(32, T - 32 * w);
   uint32_t bits = 0;
   for (int b = 0; b < lim; ++b) bits |= (uint32_t)(src[b] != 0) << b;
   tol_w[i] = bits;
 }
 
+// one thread per (row, node); rows are classes (r_u: their first pods) or
+// pods (r_u NULL); pod_valid NULL leaves the pod_valid term out
 __global__ void __launch_bounds__(NT) class_static_kernel(
     const uint8_t* __restrict__ node_valid,    // [N]
     const uint32_t* __restrict__ taint_w,      // [N, TW]
@@ -65,29 +81,61 @@ __global__ void __launch_bounds__(NT) class_static_kernel(
     const int32_t* __restrict__ pod_terms,     // [P, TT]
     const uint8_t* __restrict__ pod_has_sel,   // [P]
     const uint8_t* __restrict__ tm,            // [S, N]
-    const int64_t* __restrict__ r_u,           // [U1]
-    int N, int W, int TW, int TT,
+    const int64_t* __restrict__ r_u,           // [U1] or NULL
+    const uint8_t* __restrict__ pod_valid,     // [P] or NULL
+    int U1, int N, int W, int TW, int TT,
     uint32_t* __restrict__ stat_u) {  // [U1, W]
   const int n = blockIdx.x * NT + threadIdx.x;
   if (n >= W * 32) return;  // whole warps leave together (NT % 32 == 0)
-  const int u = blockIdx.y;
-  const int64_t p = r_u[u];
-  bool ok = n < N && node_valid[n];
-  for (int w = 0; ok && w < TW; ++w) {
-    if (taint_w[(int64_t)n * TW + w] & ~tol_w[(int64_t)u * TW + w]) ok = false;
-  }
-  const int pin = pod_nodename[p];
-  if (pin != -1) ok = ok && pin == n;  // -2: the named node is missing
-  if (ok && pod_has_sel[p]) {
-    bool any = false;
-    for (int j = 0; j < TT && !any; ++j) {
-      const int s = pod_terms[p * TT + j];
-      if (s >= 0) any = tm[(int64_t)s * N + n] != 0;
+  for (int u = blockIdx.y; u < U1; u += gridDim.y) {
+    const int64_t p = pod_row(r_u, u);
+    bool ok = n < N && node_valid[n] && (pod_valid == nullptr || pod_valid[p]);
+    for (int w = 0; ok && w < TW; ++w) {
+      if (taint_w[(int64_t)n * TW + w] & ~tol_w[(int64_t)u * TW + w]) ok = false;
     }
-    ok = any;
+    const int pin = pod_nodename[p];
+    if (pin != -1) ok = ok && pin == n;  // -2: the named node is missing
+    if (ok && pod_has_sel[p]) {
+      bool any = false;
+      for (int j = 0; j < TT && !any; ++j) {
+        const int s = pod_terms[p * TT + j];
+        if (s >= 0) any = tm[(int64_t)s * N + n] != 0;
+      }
+      ok = any;
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, ok);
+    if ((threadIdx.x & 31) == 0) stat_u[(int64_t)u * W + (n >> 5)] = word;
   }
-  const uint32_t word = __ballot_sync(0xffffffffu, ok);
-  if ((threadIdx.x & 31) == 0) stat_u[(int64_t)u * W + (n >> 5)] = word;
+}
+
+// the packed static plane of U1 rows (classes or pods): term match, taint
+// and toleration words, then one word per (row, 32 nodes)
+int static_plane(const void* node_valid, const void* node_taint_ns, const void* node_labels,
+                 const void* pod_valid, const void* pod_tol_ns, const void* pod_nodename,
+                 const void* pod_terms, const void* pod_has_sel, const void* sel_mask,
+                 const void* sel_kind, const void* r_u, void* tm, void* taint_w, void* tol_w,
+                 void* stat_u, int U1, int N, int T, int TT, int S, int E, int L, cudaStream_t st) {
+  if (U1 <= 0 || N <= 0) return (int)cudaGetLastError();
+  const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
+  const int W = (N + 31) / 32;
+  term_match_kernel<<<blocks_for((int64_t)S * N, NT), NT, 0, st>>>(
+      static_cast<const uint8_t*>(sel_mask), static_cast<const int32_t*>(sel_kind),
+      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm));
+  pack_bits_kernel<<<blocks_for((int64_t)N * TW, NT), NT, 0, st>>>(
+      static_cast<const uint8_t*>(node_taint_ns), N, T, TW, static_cast<uint32_t*>(taint_w));
+  class_tol_kernel<<<blocks_for((int64_t)U1 * TW, NT), NT, 0, st>>>(
+      static_cast<const uint8_t*>(pod_tol_ns), static_cast<const int64_t*>(r_u), U1, T, TW,
+      static_cast<uint32_t*>(tol_w));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(blocks_for((int64_t)W * 32, NT), U1 < MAX_GRID_Y ? U1 : MAX_GRID_Y);
+  class_static_kernel<<<grid, NT, 0, st>>>(
+      static_cast<const uint8_t*>(node_valid), static_cast<const uint32_t*>(taint_w),
+      static_cast<const uint32_t*>(tol_w), static_cast<const int32_t*>(pod_nodename),
+      static_cast<const int32_t*>(pod_terms), static_cast<const uint8_t*>(pod_has_sel),
+      static_cast<const uint8_t*>(tm), static_cast<const int64_t*>(r_u),
+      static_cast<const uint8_t*>(pod_valid), U1, N, W, TW, TT, static_cast<uint32_t*>(stat_u));
+  return (int)cudaGetLastError();
 }
 
 // one thread per (class, node column): full mode over every column (cols
@@ -145,28 +193,22 @@ extern "C" int ktt_class_static_hoist(const void* node_valid, const void* node_t
                                       const void* sel_kind, const void* r_u, void* tm,
                                       void* taint_w, void* tol_w, void* stat_u, int U1, int N,
                                       int T, int TT, int S, int E, int L, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (U1 <= 0 || N <= 0) return (int)cudaGetLastError();
-  const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
-  const int W = (N + 31) / 32;
-  term_match_kernel<<<blocks_for((int64_t)S * N, NT), NT, 0, st>>>(
-      static_cast<const uint8_t*>(sel_mask), static_cast<const int32_t*>(sel_kind),
-      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm));
-  pack_bits_kernel<<<blocks_for((int64_t)N * TW, NT), NT, 0, st>>>(
-      static_cast<const uint8_t*>(node_taint_ns), N, T, TW, static_cast<uint32_t*>(taint_w));
-  class_tol_kernel<<<blocks_for((int64_t)U1 * TW, NT), NT, 0, st>>>(
-      static_cast<const uint8_t*>(pod_tol_ns), static_cast<const int64_t*>(r_u), U1, T, TW,
-      static_cast<uint32_t*>(tol_w));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_for((int64_t)W * 32, NT), U1);
-  class_static_kernel<<<grid, NT, 0, st>>>(
-      static_cast<const uint8_t*>(node_valid), static_cast<const uint32_t*>(taint_w),
-      static_cast<const uint32_t*>(tol_w), static_cast<const int32_t*>(pod_nodename),
-      static_cast<const int32_t*>(pod_terms), static_cast<const uint8_t*>(pod_has_sel),
-      static_cast<const uint8_t*>(tm), static_cast<const int64_t*>(r_u), N, W, TW, TT,
-      static_cast<uint32_t*>(stat_u));
-  return (int)cudaGetLastError();
+  return static_plane(node_valid, node_taint_ns, node_labels, nullptr, pod_tol_ns, pod_nodename,
+                      pod_terms, pod_has_sel, sel_mask, sel_kind, r_u, tm, taint_w, tol_w, stat_u,
+                      U1, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K7: every pod row, pod_valid included -> sfs [P, W]
+extern "C" int ktt_packed_static_rows(const void* node_valid, const void* node_taint_ns,
+                                      const void* node_labels, const void* pod_valid,
+                                      const void* pod_tol_ns, const void* pod_nodename,
+                                      const void* pod_terms, const void* pod_has_sel,
+                                      const void* sel_mask, const void* sel_kind, void* tm,
+                                      void* taint_w, void* tol_w, void* sfs, int P, int N, int T,
+                                      int TT, int S, int E, int L, void* stream) {
+  return static_plane(node_valid, node_taint_ns, node_labels, pod_valid, pod_tol_ns, pod_nodename,
+                      pod_terms, pod_has_sel, sel_mask, sel_kind, nullptr, tm, taint_w, tol_w, sfs,
+                      P, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ip / fp: the score parameters (score.cuh make_score_params), host memory

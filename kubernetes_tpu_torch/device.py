@@ -7,6 +7,7 @@ CPU path (the tests) says ``device="cpu"``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -22,3 +23,16 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device!r} requested but CUDA is not available")
     return dev
+
+
+def h2d(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
+    """A small host array as a new tensor on `device`: on the card an
+    explicit copy from pinned memory, queued on the current stream with no
+    host synchronisation (a copy from pageable memory would wait for the
+    stream); on the CPU a copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dtype is not None:
+        t = t.to(dtype)
+    if device.type == "cpu":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)

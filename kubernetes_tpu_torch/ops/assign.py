@@ -1,7 +1,7 @@
 """Batched assignment with sequential-commit semantics — the port of the JAX
 package's ``ops/assign.py`` for the fit-only stage set: the per-pod scan
-``schedule_scan`` and the incremental class-wave route of
-``schedule_scan_chunked`` (``inc`` mode).
+``schedule_scan``, and ``schedule_scan_chunked`` in both its modes (dense,
+and the incremental class-wave route).
 
 Static feasibility is evaluated for the whole batch up front ([P, N]); then
 pods commit one at a time in activeQ order (== tensor order).  Each step
@@ -11,31 +11,46 @@ score with ties to the LOWEST node index, and adds the pod's request to the
 chosen node's usage.
 
 ``schedule_scan_plain`` is the plain PyTorch version (one Python step per
-pod).  ``schedule_batch`` is the entry point: on the card it runs the
-static-feasibility kernel and the fit-scan kernel (csrc/), on the CPU the
-plain versions.  Stages this slice does not port raise NotImplementedError
-(ops/scores.py — check_config).
+pod); on the card the per-pod route runs the static-feasibility kernel and
+the fit-scan kernel (csrc/).  Stages this slice does not port raise
+NotImplementedError (ops/scores.py — check_config).
+
+THE DENSE CHUNKED ROUTE (no class state).  ``CHUNK`` pods at a time: the
+chunk's masked scores [C, N] against the usage its predecessors left, the
+top-(C+1) candidates per pod, then the prefix-commit round loop
+(``_round_loop``: speculate, revalidate under intra-round prefix sums,
+commit the longest exact prefix).  Plain: ``packed_static_rows_plain`` and
+``schedule_scan_chunked_dense_plain``; on the card kernel K7
+``packed_static_rows`` (csrc/class_hoist.cu) and K8 ``chunk_rounds_dense``
+(csrc/chunk_rounds_dense.cu).
 
 THE CLASS-WAVE ROUTE.  Given the resident class state of
-``ops/incremental.py — HoistCache.ensure`` (``inc``), ``schedule_batch``
-routes ``schedule_scan_chunked``: stage A, the class-batched commit waves
-(``wave_commit_plain``; kernel K5 ``wave_commit``, csrc/wave_commit.cu),
-commits a contiguous prefix of the batch, usually all of it, in blocks of
-``wave_block`` pods certified against per-class top-``wave_k`` lists; stage
-B, the chunk round loop (``schedule_scan_chunked_plain``; kernel K6
-``chunk_rounds``, csrc/chunk_rounds.cu), continues the serial order over
-whatever the wave left, ``INC_CHUNK`` pods at a time.  Decisions equal the
-per-pod scan's; commit ordinals and the sweep count equal the JAX route's
-(``KTPU_FORCE_CHUNKED=1``).  The JAX package's wave knobs are keyword
-arguments here with the same defaults (``class_waves=False`` is its
-``KTPU_CLASS_WAVES=0``; ``wave_k``, ``wave_block``).  On the CPU the route runs the plain versions, on
-the card the kernels; where ``inc`` is None or does not fit the arrays, the
-per-pod route runs (the dense chunked mode is not ported yet).
+``ops/incremental.py — HoistCache.ensure`` (``inc``): stage A, the
+class-batched commit waves (``wave_commit_plain``; kernel K5
+``wave_commit``, csrc/wave_commit.cu), commits a contiguous prefix of the
+batch, usually all of it, in blocks of ``wave_block`` pods certified
+against per-class top-``wave_k`` lists; stage B, the chunk round loop
+(``schedule_scan_chunked_plain``, the same ``_round_loop`` over the pods'
+class rows; kernel K6 ``chunk_rounds``, csrc/chunk_rounds.cu), continues
+the serial order over whatever the wave left, ``INC_CHUNK`` pods at a time.
+The JAX package's wave knobs are keyword arguments here with the same
+defaults (``class_waves=False`` is its ``KTPU_CLASS_WAVES=0``; ``wave_k``,
+``wave_block``).
+
+ROUTING (``dispatch``, the JAX package's schedule_batch_routed): class
+state that fits -> the class-wave route; else a chunkable batch on the card
+-> the dense chunked route (its ``_chunk_routed`` off the CPU); else the
+per-pod route.  On the CPU the dense route runs only with ``chunked=True``
+(the JAX package's ``KTPU_FORCE_CHUNKED=1``).  Decisions are the same on
+every route; commit ordinals and the sweep count are each route's own and
+equal the JAX route's.  ``dispatch`` launches without a host
+synchronisation; ``finish`` reads the sweep count and the round-cap status
+back and raises on the cap (``schedule_batch`` does both).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,7 +75,7 @@ WAVE_ITERS = 12  # pointer-dispersal iterations per block
 
 # Route counters, bumped per call (the JAX package bumps its TRACE_COUNTS
 # per trace; eager PyTorch has no trace, so a call is the unit here).
-TRACE_COUNTS = {"plain": 0, "chunked_inc": 0, "class_waves": 0}
+TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0}
 
 
 def reset_trace_counts() -> None:
@@ -339,12 +354,20 @@ def _best_and_cand(vals, nodes, vu, iu):
     return best, cand
 
 
-def _chunk_plain(cfg, creq, ccls, cvalid, used0, t0u, alloc, stat_full, req_u, wcom0, wout0, C, K, Z):
-    """One chunk of stage B: the round loop of the JAX package's
-    assign.py:1093-1387 (inc mode) -> (out, nrounds, ord_, used_out, t0u)."""
+def _round_loop(cfg, creq, cvalid, rows, used0, alloc, wcom0, wout0, C, K, Z):
+    """The prefix-commit round loop of one chunk, shared by both modes of
+    the JAX package's schedule_scan_chunked (its assign.py:1170-1347 with
+    the per-mode hoist of :1093-1168): `rows` f32[C, N] are the chunk's
+    masked scores against chunk-start usage (inc mode: the pods' class rows
+    t0u[ccls]; dense mode: the hoist total0), which give the top-K lists and
+    stat_at (a -inf entry stays infeasible: usage only grows).  Pods with
+    wcom0 set enter committed with the decisions wout0.
+
+    -> (out i32[C], nrounds int, ord_ i32[C]: the round that committed each
+    pod)."""
     dev = creq.device
-    N = t0u.shape[1]
     R = creq.shape[1]
+    N = rows.shape[1]
     ninf = torch.tensor(float("-inf"), device=dev)
     idxC = torch.arange(C, dtype=torch.int32, device=dev)
     jlt = idxC[None, :] < idxC[:, None]  # [i, j]: j < i
@@ -353,12 +376,11 @@ def _chunk_plain(cfg, creq, ccls, cvalid, used0, t0u, alloc, stat_full, req_u, w
     ord_ = torch.zeros(C, dtype=torch.int32, device=dev)
     nrounds = 0
     if not bool(committed.all()):
-        topv, topi = top_k(t0u[ccls], K)
+        topv, topi = top_k(rows, K)
         topv = torch.where(cvalid[:, None], topv, ninf)
-        cls_rows = t0u[ccls]  # [C, N]: the class rows at chunk start
 
         def stat_at(ids):
-            return cls_rows[:, ids.to(torch.int64)] > ninf  # [C, D]
+            return rows[:, ids.to(torch.int64)] > ninf  # [C, D]
 
         cleank = torch.ones((C, K), dtype=torch.bool, device=dev)
         dlist = torch.full((C,), -1, dtype=torch.int32, device=dev)
@@ -415,11 +437,16 @@ def _chunk_plain(cfg, creq, ccls, cvalid, used0, t0u, alloc, stat_full, req_u, w
             fitij = ((creq[:, None, :] == 0) | (creq[:, None, :] <= cab - uij)).all(dim=2)
             vij = score_flat((uij + creq[:, None, :]).reshape(-1, R), cab.reshape(-1, R), cfg).reshape(C, C)
             Mij = torch.where(act[None, :] & jlt & cstat & fitij, vij, ninf)
+            # dirty slots an earlier pod picked this round are superseded:
+            # slot d is excluded for pod i when its first picker j is < i
             D2 = (dlist[None, :] == c[:, None]) & act[:, None] & dvalid[None, :]  # [C(j), C(d)]
-            excl2 = (jlt[:, :, None] & D2[None, :, :]).any(dim=1)  # [C(i), C(d)]
-            M2x = torch.where(excl2, ninf, M2)
-            cmp = topi[:, :, None] == c[None, None, :]  # [C, K, C(j)]
-            chosen_before = (cmp & (jlt & act[None, :])[:, None, :]).any(dim=2)
+            first_d = torch.where(D2, idxC[:, None], C).min(dim=0).values
+            M2x = torch.where(first_d[None, :] < idxC[:, None], ninf, M2)
+            # list entries an earlier pod picked this round: the first picker
+            # of each node (C: none), looked up at the list's nodes
+            first_n = torch.full((N + 1,), C, dtype=torch.int32, device=dev).scatter_reduce(
+                0, torch.where(act, c, N).to(torch.int64), idxC, reduce="amin")
+            chosen_before = first_n[topi.to(torch.int64)] < idxC[:, None]  # [C, K]
             cleank2 = cleank & ~chosen_before
             jf2 = _first(cleank2)
             vu2 = torch.where(cleank2.any(dim=1), _take(topv, jf2), ninf)
@@ -436,7 +463,9 @@ def _chunk_plain(cfg, creq, ccls, cvalid, used0, t0u, alloc, stat_full, req_u, w
             out = torch.where(prefix, c, out)
             ord_ = torch.where(prefix, torch.tensor(nrounds, dtype=torch.int32, device=dev), ord_)
             committed = committed | prefix
-            cleank = cleank & ~(cmp & pact[None, None, :]).any(dim=2)
+            picked = torch.zeros((N + 1,), dtype=torch.bool, device=dev)
+            picked[torch.where(pact, c, N).to(torch.int64)] = True
+            cleank = cleank & ~picked[topi.to(torch.int64)]
             Epact = Em & pact[:, None]
             adds = (Epact[:, :, None].to(torch.int32) * creq[:, None, :]).sum(dim=0, dtype=torch.int32)
             minpos = torch.where(Epact, idxC[:, None], C).min(dim=0).values
@@ -451,6 +480,17 @@ def _chunk_plain(cfg, creq, ccls, cvalid, used0, t0u, alloc, stat_full, req_u, w
             dsu[sl[upd]] += adds[upd]
             nd += int(is_new.sum())
             nrounds += 1
+    return out, nrounds, ord_
+
+
+def _chunk_plain(cfg, creq, ccls, cvalid, used0, t0u, alloc, stat_full, req_u, wcom0, wout0, C, K, Z):
+    """One chunk of stage B in inc mode (the JAX package's
+    assign.py:1093-1387): the round loop over the pods' class rows, the
+    usage update, then the class rows patched at the committed columns ->
+    (out, nrounds, ord_, used_out, t0u)."""
+    N = t0u.shape[1]
+    ninf = torch.tensor(float("-inf"), device=creq.device)
+    out, nrounds, ord_ = _round_loop(cfg, creq, cvalid, t0u[ccls], used0, alloc, wcom0, wout0, C, K, Z)
     newly = (out >= 0) & ~wcom0
     used_out = used0.clone()
     used_out.index_add_(0, out[newly].to(torch.int64), creq[newly])
@@ -512,6 +552,96 @@ def schedule_scan_chunked_plain(arr, cfg: ScoreConfig, inc, used0, t0u0, wave=No
     return torch.cat(outs), used, ords_g, sweeps
 
 
+def packed_static_rows_plain(arr) -> torch.Tensor:
+    """int32 words [P, ceil(N/32)]: static feasibility of every pod row,
+    pod_valid included, packed per block of CHUNK rows (the JAX package's
+    lax.map of _sf_block, assign.py:1014-1053) -> the plain version of
+    kernel K7 packed_static_rows."""
+    P, N = arr.P, arr.N
+    tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
+    nodes = torch.arange(N, dtype=torch.int32, device=arr.device)
+    blocks = []
+    for b0 in range(0, P, CHUNK):
+        sl = slice(b0, min(P, b0 + CHUNK))
+        sf, _ = filters.static_feasible_rows(
+            tm, arr.node_valid, arr.node_taint_ns, nodes, arr.pod_terms[sl], arr.pod_has_sel[sl],
+            arr.pod_tol_ns[sl], arr.pod_nodename[sl], arr.pod_valid[sl])
+        blocks.append(bitplane.pack(sf))
+    return torch.cat(blocks)
+
+
+def packed_static_rows(arr) -> torch.Tensor:
+    """The packed [P, W] static plane on arr's device: the plain version for
+    CPU tensors, kernel K7 for CUDA tensors."""
+    if arr.device.type == "cpu":
+        return packed_static_rows_plain(arr)
+    from . import kernels
+
+    return kernels.packed_static_rows(arr)
+
+
+def _dense_chunk_plain(cfg, creq, csf, cvalid, used0, alloc, C, K, Z):
+    """One chunk of the dense mode (the JAX package's assign.py:1126-1168
+    and the round loop): the masked hoist total0 [C, N] against chunk-start
+    usage, the round loop over it, the usage update -> (out, nrounds, ord_,
+    used_out)."""
+    N = used0.shape[0]
+    ninf = torch.tensor(float("-inf"), device=creq.device)
+    sf = bitplane.unpack(csf, N)
+    total0 = torch.where(sf & fit_rows(creq, used0, alloc), _scores(creq, used0, alloc, cfg), ninf)
+    none = torch.zeros(C, dtype=torch.bool, device=creq.device)
+    out, nrounds, ord_ = _round_loop(cfg, creq, cvalid, total0, used0, alloc, none,
+                                     torch.full((C,), -1, dtype=torch.int32, device=creq.device), C, K, Z)
+    newly = out >= 0
+    used_out = used0.clone()
+    used_out.index_add_(0, out[newly].to(torch.int64), creq[newly])
+    return out, nrounds, ord_, used_out
+
+
+def schedule_scan_chunked_dense_plain(arr, cfg: ScoreConfig, sfs: Optional[torch.Tensor] = None):
+    """The dense mode of the JAX package's assign.py:870
+    schedule_scan_chunked (no class state): CHUNK pods at a time, each chunk
+    hoisting its [C, N] scores against the usage its predecessors left, the
+    round loop, then the usage update.  `sfs` is the packed static plane
+    (packed_static_rows_plain when not given).
+
+    -> (choices i32[P], used i32[N, R], ordinals i32[P], sweeps int): the
+    ordinal of a pod is the rounds of the earlier chunks plus its own round
+    (:1422-1444), sweeps the total."""
+    if sfs is None:
+        sfs = packed_static_rows_plain(arr)
+    dev = arr.device
+    P, N = arr.P, arr.N
+    C = CHUNK
+    K = min(C + 1, N)
+    Z = min(SPECZ, K)
+    used = arr.node_used
+    outs, ords, rounds = [], [], []
+    for ch in range(P // C):
+        sl = slice(ch * C, (ch + 1) * C)
+        o, nr, od, used = _dense_chunk_plain(cfg, arr.pod_req[sl], sfs[sl], arr.pod_valid[sl], used,
+                                             arr.node_alloc, C, K, Z)
+        outs.append(o)
+        ords.append(od)
+        rounds.append(nr)
+    base = torch.tensor([0] + rounds[:-1], dtype=torch.int64).cumsum(0).to(torch.int32).to(dev)
+    ords_g = (base[:, None] + torch.stack(ords)).reshape(P)
+    return torch.cat(outs), used, ords_g, sum(rounds)
+
+
+def schedule_scan_chunked_dense(arr, cfg: ScoreConfig):
+    """The dense chunked route: on CUDA tensors kernel K7 (the packed static
+    plane) and K8 (the chunk scan, one launch); on the CPU the plain
+    versions."""
+    TRACE_COUNTS["chunked"] += 1
+    sfs = packed_static_rows(arr)
+    if arr.device.type != "cpu":
+        from . import kernels
+
+        return kernels.chunk_rounds_dense(arr, cfg, sfs)
+    return schedule_scan_chunked_dense_plain(arr, cfg, sfs)
+
+
 def _chunkable(arr, cfg: ScoreConfig) -> bool:
     """The JAX package's assign.py:494 _chunkable for the fit-only stage set
     (check_config has refused every other stage): P is a multiple of the
@@ -571,30 +701,61 @@ def schedule_scan_chunked(arr, cfg: ScoreConfig, inc, class_waves: bool = CLASS_
     return schedule_scan_chunked_plain(arr, cfg, inc, used, t0u, wave)
 
 
-def _route(arr, cfg: ScoreConfig, device, inc, knobs):
+class Step(NamedTuple):
+    """A dispatched scheduling step.  On the card nothing has been read
+    back: `sweeps` is then the kernels' int32[2] device pair (sweep count,
+    round-cap status), which finish() reads."""
+
+    choices: torch.Tensor  # i32[P] node index or -1
+    used: torch.Tensor  # i32[N, R]
+    ordinals: torch.Tensor  # i32[P]
+    sweeps: Any  # int, or the int32[2] device pair
+
+
+def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[bool] = None, **knobs) -> Step:
+    """Route and launch one step without a host synchronisation on the card
+    (the pipeline's dispatch): with applicable class state `inc` the
+    class-wave route; else, where the batch is chunkable, the dense chunked
+    route (the JAX package's _chunk_routed: on the card by default, on the
+    CPU only with chunked=True); else the per-pod route.  chunked=False
+    keeps the per-pod route.  `knobs` are schedule_scan_chunked's."""
     dev = resolve_device(device)
     check_config(cfg)
     if arr.device.type != dev.type:
         arr = arr.to(dev)
     inc = inc_applicable(arr, cfg, inc)
     if inc is not None and _chunkable(arr, cfg):
-        return schedule_scan_chunked(arr, cfg, inc, **knobs)
+        return Step(*schedule_scan_chunked(arr, cfg, inc, **knobs))
+    if _chunkable(arr, cfg) and (arr.device.type != "cpu" if chunked is None else chunked):
+        return Step(*schedule_scan_chunked_dense(arr, cfg))
     choices, used = _per_pod(arr, cfg)
-    return choices, used, torch.arange(arr.P, dtype=torch.int32, device=arr.device), arr.P
+    return Step(choices, used, torch.arange(arr.P, dtype=torch.int32, device=arr.device), arr.P)
+
+
+def finish(step: Step) -> Step:
+    """The step with its sweep count read back (one host synchronisation on
+    the card).  Raises when a chunk of the round loop hit its round cap:
+    that never passes as unscheduled pods."""
+    if isinstance(step.sweeps, int):
+        return step
+    from . import kernels
+
+    return step._replace(sweeps=kernels.read_sweeps(step.sweeps))
 
 
 def schedule_batch(arr, cfg: ScoreConfig, device=None, inc=None, **knobs) -> Tuple[torch.Tensor, torch.Tensor]:
     """The scheduling step: -> (choices i32[P], node_used i32[N, R]) on
     `device` (the card unless the caller passes device="cpu").  With `inc`
     (ops/incremental.py — HoistCache.ensure) the class-wave route runs;
-    `knobs` are schedule_scan_chunked's keyword arguments."""
-    return _route(arr, cfg, device, inc, knobs)[:2]
+    `knobs` are dispatch()'s keyword arguments.  Returns once the step's
+    status is read (finish)."""
+    return finish(dispatch(arr, cfg, device, inc, **knobs))[:2]
 
 
 def schedule_batch_ordinals(arr, cfg: ScoreConfig, device=None, inc=None, **knobs):
     """schedule_batch + (per-pod commit ordinal i32[P], total sweeps int):
     the ordinal is the index of the device sweep that decided the pod (the
-    pod's index on the per-pod route; the wave block or global round on the
-    class-wave route), as the JAX package's
-    assign.py:2375 schedule_batch_ordinals_impl gives it."""
-    return _route(arr, cfg, device, inc, knobs)
+    pod's index on the per-pod route; the chunk round on the dense chunked
+    route; the wave block or global round on the class-wave route), as the
+    JAX package's assign.py:2375 schedule_batch_ordinals_impl gives it."""
+    return tuple(finish(dispatch(arr, cfg, device, inc, **knobs)))

@@ -18,6 +18,12 @@ These are the plain versions.  On the card the kernels (csrc/) inline the
 same word layout as ``__device__`` code: a warp ballot packs 32 nodes into
 one word, a bit test is ``(w >> (n & 31)) & 1``.
 
+``np_pack_lastaxis`` / ``np_unpack_lastaxis`` are the host (numpy) side:
+the encoder packs a wide bool field before its host-to-device copy and
+kernel K9 ``unpack_planes`` (csrc/unpack_planes.cu) unpacks it on the card
+(api/delta.py — DeltaEncoder._packed_put).  They give uint32 words, the
+JAX package's bytes.
+
 Only one block of ``nl == n`` bits per row (one device) is ported; the
 per-shard block layout (``pack_blocks`` / ``unpack_blocks`` with s > 1)
 comes with the multi-GPU slice, and the wrappers below refuse s > 1.
@@ -25,6 +31,7 @@ comes with the multi-GPU slice, and the wrappers below refuse s > 1.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 WORD_BITS = 32
@@ -137,3 +144,38 @@ def assign_cols(w: torch.Tensor, cols: torch.Tensor, on: torch.Tensor, nl: int) 
     tw = pack(touched[:n])
     nw = pack(newbits[..., :n])
     return (w & ~tw) | nw
+
+
+def unpack_planes(w: torch.Tensor, n: int) -> torch.Tensor:
+    """unpack() on w's device: the plain version for CPU tensors, kernel K9
+    unpack_planes for CUDA tensors."""
+    if w.device.type == "cpu":
+        return unpack(w, n)
+    from . import kernels
+
+    return kernels.unpack_planes(w, n)
+
+
+# ---------------------------------------------------------------------------
+# host side (numpy): the encoder's transfer packing
+# ---------------------------------------------------------------------------
+
+def np_pack_lastaxis(a: np.ndarray) -> np.ndarray:
+    """bool [..., n] -> uint32 [..., words_for(n)], the layout of pack()
+    (little-endian bits in little-endian words: packbits with
+    bitorder='little', then a uint8 -> uint32 view on a little-endian
+    host)."""
+    a = np.ascontiguousarray(a, dtype=np.bool_)
+    n = a.shape[-1]
+    w = words_for(n)
+    pad = w * WORD_BITS - n
+    if pad:
+        a = np.concatenate([a, np.zeros(a.shape[:-1] + (pad,), dtype=np.bool_)], axis=-1)
+    return np.ascontiguousarray(np.packbits(a, axis=-1, bitorder="little")).view(np.uint32)
+
+
+def np_unpack_lastaxis(w: np.ndarray, n: int) -> np.ndarray:
+    """uint32 [..., words] -> bool [..., n] (np_pack_lastaxis inverse)."""
+    w = np.ascontiguousarray(w, dtype=np.uint32)
+    bits = np.unpackbits(w.view(np.uint8), axis=-1, bitorder="little")
+    return bits[..., :n].astype(np.bool_)

@@ -74,6 +74,25 @@ def static_feasible_plain(arr) -> torch.Tensor:
     )
 
 
+def static_feasible_rows(tm: torch.Tensor, node_valid: torch.Tensor, node_taint_ns: torch.Tensor,
+                         my_nodes: torch.Tensor, pod_terms: torch.Tensor, pod_has_sel: torch.Tensor,
+                         pod_tol_ns: torch.Tensor, pod_nodename: torch.Tensor, pod_valid: torch.Tensor):
+    """(sf bool[B, Nl], nodesel bool[B, Nl]) for a pod ROW BLOCK against the
+    node ids `my_nodes` (the JAX package's ops/filters.py:92, pod_valid
+    included): the dense chunked route packs it per block of rows, so the
+    widest dense mask is [B, Nl], never [P, N].  The same tests as
+    static_feasible_plain, so the bits are the same."""
+    ids = torch.clamp_min(pod_terms, 0).long()
+    per_term = tm[ids] & (pod_terms >= 0)[:, :, None]
+    ones = torch.ones((), dtype=torch.bool, device=tm.device)
+    nodesel = torch.where(pod_has_sel[:, None], per_term.any(dim=1), ones)
+    intolerable = (~pod_tol_ns).to(torch.float32) @ node_taint_ns.to(torch.float32).T
+    pin = pod_nodename[:, None]
+    nn_ok = (pin == -1) | (pin == my_nodes[None, :])
+    sf = node_valid[None, :] & pod_valid[:, None] & (intolerable == 0) & nodesel & nn_ok
+    return sf, nodesel
+
+
 def static_feasible(arr) -> torch.Tensor:
     """bool[P, N] on arr's device: the plain version for CPU tensors, the
     static-feasibility kernel for CUDA tensors."""

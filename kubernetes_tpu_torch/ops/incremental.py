@@ -35,6 +35,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..device import h2d
 from . import bitplane, filters
 from .scores import ScoreConfig, balanced_allocation, check_config, fit_score
 
@@ -171,10 +172,17 @@ class HoistCache:
         plus (U1, N, cfg).  Mismatch: full static re-hoist (K3).
       usage side — node_alloc identity, equal per-class requests, (U1, N,
         cfg).  Mismatch: full usage re-hoist (K4).  Match: the rows of
-        node_used that differ from the previous cycle's (compared on the
-        tensors' device; identity short-circuits to "none") are patched
-        (K4 on a pow2 column list padded with the sentinel N), or fully
-        re-hoisted when at least half the nodes are dirty.
+        node_used that differ from the previous cycle's are patched (K4 on
+        a pow2 column list padded with the sentinel N), or fully re-hoisted
+        when at least half the nodes are dirty.
+
+    The requests and the usage rows are compared on the HOST (as the JAX
+    package compares its host arrays): ``ensure(..., host=)`` takes the
+    encoder's host arrays (api/delta.py — DeltaEncoder.encode), so a cycle
+    needs no device-to-host read and never waits for a step in flight.
+    Without them the two fields are read back from `arr` (a
+    synchronisation on the card).  The column list goes to the device by an
+    explicit copy from pinned memory.
 
     ``stats`` counts actions, ``last`` describes the latest, ``history``
     keeps up to 512 of them, ``summary()`` is the bench triple.
@@ -185,7 +193,7 @@ class HoistCache:
         self._stat = None
         self._usage_key = None
         self._usage = None  # (base_u, fit_u)
-        self._req_u = None
+        self._req_u_host = None
         self._prev_used = None
         self._cls_ent = None  # (host array, device tensor)
         self._ru_ent = None
@@ -211,7 +219,7 @@ class HoistCache:
         self._stat = None
         self._usage_key = None
         self._usage = None
-        self._req_u = None
+        self._req_u_host = None
         self._prev_used = None
         self._cls_ent = None
         self._ru_ent = None
@@ -234,11 +242,14 @@ class HoistCache:
             ent[0] is host or (ent[0].shape == host.shape and np.array_equal(ent[0], host))
         ):
             return ent[1]
-        d = torch.as_tensor(np.ascontiguousarray(host)).to(dtype).to(device)
+        d = h2d(host, device, dtype)
         setattr(self, name, (host, d))
         return d
 
-    def ensure(self, arr, meta, cfg: ScoreConfig) -> Optional[IncState]:
+    def ensure(self, arr, meta, cfg: ScoreConfig, host=None) -> Optional[IncState]:
+        """This cycle's IncState for the arrays `arr` (on their device);
+        `host` are the same arrays on the host (numpy), when the caller has
+        them."""
         check_config(cfg)
         pc = getattr(meta, "pod_class", None)
         r_u_h = getattr(meta, "class_first_pod", None)
@@ -276,18 +287,21 @@ class HoistCache:
 
         # ---- usage side ----
         req_u = arr.pod_req[r_u].contiguous()
+        pod_req_h = host.pod_req if host is not None else arr.pod_req.cpu().numpy()
+        used_h = host.node_used if host is not None else arr.node_used.cpu().numpy()
+        req_u_h = np.ascontiguousarray(pod_req_h[r_u_h])
         ukey_meta = (u1, N, cfg, str(dev))
         usage_ok = (
             self._usage_key is not None
             and self._usage_key[1] == ukey_meta
             and self._usage_key[0] is arr.node_alloc
-            and torch.equal(self._req_u, req_u)
+            and np.array_equal(self._req_u_host, req_u_h)
         )
         used = arr.node_used
         n_dirty, dirty = 0, None
-        if usage_ok and used is not self._prev_used:
-            dirty = torch.nonzero((used != self._prev_used).any(dim=1)).flatten()
-            n_dirty = int(dirty.numel())
+        if usage_ok and used_h is not self._prev_used:
+            dirty = np.flatnonzero((used_h != self._prev_used).any(axis=1))
+            n_dirty = len(dirty)
         if not usage_ok or 2 * n_dirty >= N:
             self._usage = usage_hoist(req_u, used, arr.node_alloc, cfg)
             self.stats["full"] += 1
@@ -298,8 +312,9 @@ class HoistCache:
             frac, ncols = 0.0, 0
             action = action or "hit"
         else:
-            cols = torch.full((_round_up_pow2(n_dirty),), N, dtype=torch.int32, device=dev)
-            cols[:n_dirty] = dirty.to(torch.int32)
+            cols_h = np.full(_round_up_pow2(n_dirty), N, dtype=np.int32)
+            cols_h[:n_dirty] = dirty
+            cols = h2d(cols_h, dev)
             self._usage = patch_hoist(self._usage[0], self._usage[1], req_u, used, arr.node_alloc, cols, cfg)
             self.stats["hits"] += 1
             self.stats["patched"] += 1
@@ -308,8 +323,8 @@ class HoistCache:
             frac, ncols = n_dirty / max(1, n_real), n_dirty
             action = action or "patch"
         self._usage_key = (arr.node_alloc, ukey_meta)
-        self._req_u = req_u
-        self._prev_used = used
+        self._req_u_host = req_u_h
+        self._prev_used = used_h
 
         cls = self._on_device("_cls_ent", pc, torch.int32, dev)
         self._note(action, u1, frac, ncols)

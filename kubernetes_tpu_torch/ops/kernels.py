@@ -11,7 +11,13 @@ c_void_p, score parameters as small host arrays.
 Kernels (LAUNCHES keys) and their libraries: static_feasible and fit_scan
 (the per-pod route); class_static_hoist and class_usage_hoist (K3, K4:
 class_hoist.cu), wave_commit (K5) and chunk_rounds (K6) (the class-wave
-route).
+route); packed_static_rows (K7, class_hoist.cu) and chunk_rounds_dense (K8)
+(the dense chunked route); unpack_planes (K9, the encoder's packed
+transfers).
+
+No wrapper reads anything back: the chunk-scan kernels leave their sweep
+count and round-cap status in an int32[2] device pair, which read_sweeps
+reads (and raises on) where the caller fetches the step.
 
 Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take, raises when the C entry returns a CUDA error, and
@@ -34,7 +40,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from .assign import INC_CHUNK, SPEC_ITERS, WAVE_BLOCK, WAVE_ITERS, WAVE_K
+from .assign import CHUNK, INC_CHUNK, SPEC_ITERS, WAVE_BLOCK, WAVE_ITERS, WAVE_K
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -48,6 +54,8 @@ SOURCES = {
     "static_feasible": "static_feasible.cu", "fit_scan": "fit_scan.cu",
     "class_static_hoist": "class_hoist.cu", "class_usage_hoist": "class_hoist.cu",
     "wave_commit": "wave_commit.cu", "chunk_rounds": "chunk_rounds.cu",
+    "packed_static_rows": "class_hoist.cu", "chunk_rounds_dense": "chunk_rounds_dense.cu",
+    "unpack_planes": "unpack_planes.cu",
 }
 
 _P = ctypes.c_void_p
@@ -62,6 +70,9 @@ _ARGTYPES = {
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
     "chunk_rounds": ("ktt_chunk_rounds", [_P] * 23 + [_I] * 6 + [_P]),
+    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 14 + [_I] * 7 + [_P]),
+    "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 16 + [_I] * 5 + [_P]),
+    "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -436,10 +447,10 @@ def chunk_rounds(arr, inc, cfg, used_w, t0u_w, wave):
     INC_CHUNK pods, from the wave's usage and class rows (`wave` =
     (committed, out, ordinal, n_blocks) of wave_commit) or, with wave None,
     from the cycle start (used_w = arr.node_used, t0u_w None: the kernel
-    builds t0u) -> (choices i32[P], used i32[N, R], ordinals i32[P], sweeps
-    int).  Every round commits a pod, so a chunk takes at most INC_CHUNK
-    rounds; the kernel stops a chunk past that cap and reports it, and the
-    wrapper raises (one host sync, after the launch)."""
+    builds t0u) -> (choices i32[P], used i32[N, R], ordinals i32[P], the
+    int32[2] device pair (sweeps, status): read_sweeps).  Every round
+    commits a pod, so a chunk takes at most INC_CHUNK rounds; the kernel
+    stops a chunk past that cap and reports it in the status."""
     dev = arr.device
     _need_cuda(dev, "chunk_rounds")
     P, N, R = arr.P, arr.N, arr.R
@@ -479,7 +490,119 @@ def chunk_rounds(arr, inc, cfg, used_w, t0u_w, wave):
         )
     _raise_on(err, "chunk_rounds")
     LAUNCHES["chunk_rounds"] += 1
+    return choices, used, ords, scal
+
+
+def read_sweeps(scal: torch.Tensor) -> int:
+    """The sweep count of a chunk-scan kernel's (sweeps, status) pair (one
+    host synchronisation when it lies on the card).  Raises when a chunk
+    exceeded its round cap: every round commits a pod, so that never
+    happens on state the algorithm admits, and it never passes as
+    unscheduled pods."""
     sweeps, capped = scal.tolist()
     if capped:
-        raise RuntimeError(f"chunk_rounds: a chunk exceeded its cap of {C} rounds (every round commits a pod)")
-    return choices, used, ords, sweeps
+        raise RuntimeError("chunk scan: a chunk exceeded its round cap (every round commits a pod)")
+    return sweeps
+
+
+# ---------------------------------------------------------------------------
+# the dense chunked route (K7 packed_static_rows, K8 chunk_rounds_dense) and
+# the encoder's packed transfers (K9 unpack_planes)
+# ---------------------------------------------------------------------------
+
+def packed_static_rows(arr) -> torch.Tensor:
+    """K7 (csrc/class_hoist.cu): static feasibility of every pod row,
+    pod_valid included, as int32 words [P, ceil(N/32)] written by warp
+    ballot (no dense bool plane)."""
+    dev = arr.device
+    _need_cuda(dev, "packed_static_rows")
+    P, N = arr.P, arr.N
+    T = arr.node_taint_ns.shape[1]
+    TT = arr.pod_terms.shape[1]
+    S, E, L = arr.sel_mask.shape
+    for name, dt, shape in (
+        ("node_valid", torch.bool, (N,)), ("node_taint_ns", torch.bool, (N, T)),
+        ("node_labels", torch.bool, (N, L)), ("pod_valid", torch.bool, (P,)),
+        ("pod_tol_ns", torch.bool, (P, T)), ("pod_nodename", torch.int32, (P,)),
+        ("pod_terms", torch.int32, (P, TT)), ("pod_has_sel", torch.bool, (P,)),
+        ("sel_mask", torch.bool, (S, E, L)), ("sel_kind", torch.int32, (S, E)),
+    ):
+        _check(getattr(arr, name), name, dt, shape, dev)
+    fn = _fn("packed_static_rows")
+    TW = max(1, -(-T // 32))
+    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
+    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
+    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
+    sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            arr.node_valid.data_ptr(), arr.node_taint_ns.data_ptr(), arr.node_labels.data_ptr(),
+            arr.pod_valid.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
+            arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
+            arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sfs.data_ptr(),
+            P, N, T, TT, S, E, L, _stream(dev),
+        )
+    _raise_on(err, "packed_static_rows")
+    LAUNCHES["packed_static_rows"] += 1
+    return sfs
+
+
+def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor):
+    """K8 (csrc/chunk_rounds_dense.cu): the dense chunked scan in one
+    launch, chunks of CHUNK pods, from the cycle start's usage and K7's
+    packed static plane -> (choices i32[P], used i32[N, R], ordinals i32[P],
+    the int32[2] device pair (sweeps, status): read_sweeps)."""
+    dev = arr.device
+    _need_cuda(dev, "chunk_rounds_dense")
+    P, N, R = arr.P, arr.N, arr.R
+    C = CHUNK
+    if P % C:
+        raise ValueError(f"chunk_rounds_dense kernel takes chunks of {C} pods dividing P; got P={P}")
+    W = -(-N // 32)
+    _check(sfs, "sfs", torch.int32, (P, W), dev)
+    for name, dt, shape in (
+        ("pod_req", torch.int32, (P, R)), ("pod_valid", torch.bool, (P,)),
+        ("node_alloc", torch.int32, (N, R)), ("node_used", torch.int32, (N, R)),
+    ):
+        _check(getattr(arr, name), name, dt, shape, dev)
+    ip, fp = _score_params(cfg, R)
+    fn = _fn("chunk_rounds_dense")
+    K = min(C + 1, N)
+    choices = torch.empty((P,), dtype=torch.int32, device=dev)
+    used = torch.empty((N, R), dtype=torch.int32, device=dev)
+    ords = torch.empty((P,), dtype=torch.int32, device=dev)
+    scal = torch.zeros((2,), dtype=torch.int32, device=dev)
+    total0 = torch.empty((C, N), dtype=torch.float32, device=dev)
+    topv = torch.empty((C, K), dtype=torch.float32, device=dev)
+    topi = torch.empty((C, K), dtype=torch.int32, device=dev)
+    nf = torch.empty((C,), dtype=torch.int32, device=dev)
+    bits = torch.empty((2, W), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            arr.pod_req.data_ptr(), arr.pod_valid.data_ptr(), arr.node_alloc.data_ptr(), arr.node_used.data_ptr(),
+            sfs.data_ptr(), choices.data_ptr(), used.data_ptr(), ords.data_ptr(), scal.data_ptr(),
+            total0.data_ptr(), topv.data_ptr(), topi.data_ptr(), nf.data_ptr(), bits.data_ptr(),
+            _host(ip), _host(fp), P, N, R, C, SPEC_ITERS, _stream(dev),
+        )
+    _raise_on(err, "chunk_rounds_dense")
+    LAUNCHES["chunk_rounds_dense"] += 1
+    return choices, used, ords, scal
+
+
+def unpack_planes(words: torch.Tensor, n: int) -> torch.Tensor:
+    """K9 (csrc/unpack_planes.cu): int32 words [..., ceil(n/32)] -> bool
+    [..., n], the packed layout of ops/bitplane.py."""
+    dev = words.device
+    _need_cuda(dev, "unpack_planes")
+    W = -(-n // 32)
+    if words.dtype != torch.int32 or words.shape[-1] != W or not words.is_contiguous():
+        raise ValueError(f"unpack_planes: expected contiguous int32 words [..., {W}], got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    fn = _fn("unpack_planes")
+    out = torch.empty(tuple(words.shape[:-1]) + (n,), dtype=torch.bool, device=dev)
+    rows = words.numel() // W if W else 0
+    with torch.cuda.device(dev):
+        err = fn(words.data_ptr(), out.data_ptr(), rows, W, n, _stream(dev))
+    _raise_on(err, "unpack_planes")
+    LAUNCHES["unpack_planes"] += 1
+    return out

@@ -111,7 +111,7 @@ def test_heterogeneous_counts_launches(card):
     kernels.reset_launches()
     from kubernetes_tpu_torch.ops import schedule_batch
 
-    choices, used = schedule_batch(arr, cfg)
+    choices, used = schedule_batch(arr, cfg, chunked=False)  # the per-pod route
     assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "static_feasible": 1, "fit_scan": 1}
     cp, up = schedule_scan_plain(arr, cfg)
     assert torch.equal(choices, cp) and torch.equal(used, up)
@@ -218,12 +218,12 @@ def test_wave_commit_and_chunk_rounds(card, U1, N, strategy):
         cp = assign.schedule_scan_chunked_plain(arr, cfg, inc, wp[3], wp[4], (wp[0], wp[1], wp[2], wp[5]))
         for a, b in zip(ck[:3], cp[:3]):
             assert torch.equal(a, b)
-        assert ck[3] == cp[3]
+        assert kernels.read_sweeps(ck[3]) == cp[3]
     ck = kernels.chunk_rounds(arr, inc, cfg, arr.node_used, None, None)
     cp = assign.schedule_scan_chunked_plain(arr, cfg, inc, arr.node_used, t0u, None)
     for a, b in zip(ck[:3], cp[:3]):
         assert torch.equal(a, b)
-    assert ck[3] == cp[3]
+    assert kernels.read_sweeps(ck[3]) == cp[3]
     # the route, both ways, against the per-pod route
     c1, u1 = assign.schedule_batch(arr, cfg)
     for waves in (True, False):
@@ -240,7 +240,7 @@ def test_class_wave_route_counts_launches(card):
     kernels.reset_launches()
     inc = HoistCache().ensure(arr, meta, cfg)
     choices, used = assign.schedule_batch(arr, cfg, inc=inc)
-    assert kernels.LAUNCHES == {"static_feasible": 0, "fit_scan": 0, "class_static_hoist": 1,
+    assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "class_static_hoist": 1,
                                 "class_usage_hoist": 1, "wave_commit": 1, "chunk_rounds": 1}
     cp, up = schedule_scan_plain(arr, cfg)
     assert torch.equal(choices, cp) and torch.equal(used, up)
@@ -267,3 +267,82 @@ def test_chunk_rounds_raises_at_its_round_cap(card):
     for entry in (assign.schedule_batch, assign.schedule_batch_ordinals):
         with pytest.raises(RuntimeError, match="round"):
             entry(arr, cfg, inc=bad, class_waves=False)
+
+
+# ---------------------------------------------------------------------------
+# the dense chunked route and the encoder's packed transfers: K7
+# packed_static_rows, K8 chunk_rounds_dense, K9 unpack_planes, each against
+# its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,P,N", [(0, 256, 997), (1, 128, 77), (2, 384, 2048), (3, 128, 5)])
+def test_packed_static_rows(card, seed, P, N):
+    from kubernetes_tpu_torch.ops import assign
+
+    arr = _random_arrays(seed, P=P, N=N)
+    assert torch.equal(kernels.packed_static_rows(arr), assign.packed_static_rows_plain(arr))
+    arr, _ = encode_snapshot(mixed(), device=card)
+    assert torch.equal(kernels.packed_static_rows(arr), assign.packed_static_rows_plain(arr))
+
+
+def _dense_pair(arr, cfg):
+    from kubernetes_tpu_torch.ops import assign
+
+    sfs = kernels.packed_static_rows(arr)
+    ck = kernels.chunk_rounds_dense(arr, cfg, sfs)
+    cp = assign.schedule_scan_chunked_dense_plain(arr, cfg, sfs)
+    for a, b in zip(ck[:3], cp[:3]):
+        assert torch.equal(a, b)
+    assert kernels.read_sweeps(ck[3]) == cp[3]
+    return cp
+
+
+@pytest.mark.parametrize("seed,P,N", [(4, 256, 997), (5, 128, 77), (6, 256, 3001), (7, 128, 9)])
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+def test_chunk_rounds_dense(card, seed, P, N, strategy):
+    arr = _random_arrays(seed, P=P, N=N)
+    _dense_pair(arr, _cfg(strategy))
+
+
+def test_chunk_rounds_dense_partly_invalid_chunk(card):
+    """A chunk whose pods are half invalid (gated or padding rows) and one
+    that is wholly invalid: their lists are empty and they never commit a
+    node, and the rounds of the others are unchanged."""
+    arr = _random_arrays(8, P=384, N=500)
+    valid = arr.pod_valid.clone()
+    valid[64:192] = False  # the second half of chunk 0 and the first of chunk 1
+    valid[256:] = False  # chunk 2
+    arr = dataclasses.replace(arr, pod_valid=valid)
+    choices = _dense_pair(arr, _cfg("least"))[0]
+    assert (choices[~valid] == -1).all()
+
+
+def test_dense_route_on_snapshots(card):
+    """The card's default route without class state is the dense chunked
+    one: K7 and K8 once each, the plain version's choices, usage, ordinals
+    and sweeps, and the per-pod route's decisions."""
+    from kubernetes_tpu_torch.ops import assign
+
+    for snap in (mixed(), heterogeneous(500, 1500)):
+        arr, _ = encode_snapshot(snap, device=card)
+        cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+        kernels.reset_launches()
+        c, u, o, s = assign.schedule_batch_ordinals(arr, cfg)
+        assert kernels.LAUNCHES == {**dict.fromkeys(kernels.LAUNCHES, 0), "packed_static_rows": 1,
+                                    "chunk_rounds_dense": 1}
+        cp, up, op, sp = assign.schedule_scan_chunked_dense_plain(arr, cfg)
+        assert torch.equal(c, cp) and torch.equal(u, up) and torch.equal(o, op) and s == sp
+        c1, u1 = assign.schedule_batch(arr, cfg, chunked=False)
+        assert torch.equal(c, c1) and torch.equal(u, u1)
+
+
+@pytest.mark.parametrize("shape", [(3, 64), (5, 65), (2, 7, 100), (1, 1000), (40, 2048)])
+def test_unpack_planes(card, shape):
+    from kubernetes_tpu_torch.ops import bitplane
+
+    rng = np.random.default_rng(sum(shape))
+    dense = rng.random(shape) < 0.4
+    words = torch.from_numpy(bitplane.np_pack_lastaxis(dense).view(np.int32)).to(card)
+    got = kernels.unpack_planes(words, shape[-1])
+    assert torch.equal(got, bitplane.unpack(words, shape[-1]))
+    assert torch.equal(got.cpu(), torch.from_numpy(dense))

@@ -28,6 +28,8 @@ import kubernetes_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(kubernetes_tpu_torch.__path__, "kubernetes_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+# the encoder and the pipeline of the warm loop are among them
+assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked
@@ -93,10 +95,12 @@ def test_reset_launches():
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
-@pytest.mark.parametrize("kernel", ["class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds"])
+@pytest.mark.parametrize("kernel", ["class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds",
+                                    "packed_static_rows", "chunk_rounds_dense", "unpack_planes"])
 def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
-    """The class-wave kernels' wrappers launch or raise: CPU tensors are
-    refused before any build, never handed to a plain version."""
+    """The class-wave, dense-route and transfer kernels' wrappers launch or
+    raise: CPU tensors are refused before any build, never handed to a plain
+    version."""
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
     from kubernetes_tpu_torch.bench.workloads import mixed
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, kernels
@@ -110,6 +114,10 @@ def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
         "class_usage_hoist": lambda: kernels.class_usage_hoist(inc.req_u, arr.node_used, arr.node_alloc, cfg),
         "wave_commit": lambda: kernels.wave_commit(arr, inc, cfg),
         "chunk_rounds": lambda: kernels.chunk_rounds(arr, inc, cfg, arr.node_used, None, None),
+        "packed_static_rows": lambda: kernels.packed_static_rows(arr),
+        "chunk_rounds_dense": lambda: kernels.chunk_rounds_dense(
+            arr, cfg, torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)),
+        "unpack_planes": lambda: kernels.unpack_planes(torch.zeros((3, 2), dtype=torch.int32), 64),
     }
     with pytest.raises(ValueError, match="CUDA"):
         calls[kernel]()

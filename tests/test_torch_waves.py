@@ -175,9 +175,9 @@ def test_route_counts_and_fallback_to_the_per_pod_route():
     inc = HoistCache().ensure(arr, meta, cfg)
     assign.reset_trace_counts()
     assign.schedule_batch(arr, cfg, device="cpu", inc=inc)
-    assert assign.TRACE_COUNTS == {"plain": 0, "chunked_inc": 1, "class_waves": 1}
+    assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 1, "class_waves": 1}
     assign.schedule_batch(arr, cfg, device="cpu", inc=inc, class_waves=False)
-    assert assign.TRACE_COUNTS == {"plain": 0, "chunked_inc": 2, "class_waves": 1}
+    assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 2, "class_waves": 1}
     # class state that does not fit the arrays: the per-pod route
     assert assign.inc_applicable(arr.pod_prefix(64), cfg, inc) is None
     c, u, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu")

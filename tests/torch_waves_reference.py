@@ -10,7 +10,9 @@ environment pinned (LEGS below):
 
 For every snapshot of the leg it encodes with DeltaEncoder, builds the class
 state with HoistCache.ensure and runs schedule_batch_ordinals_routed, and
-saves choices, used, ordinals and sweeps under "<snapshot>/<field>".
+saves choices, used, ordinals and sweeps under "<snapshot>/<field>".  The
+"dense" leg (DENSE, for tests/test_torch_dense.py) builds no class state:
+the route is the dense chunked one, 128-pod chunks.
 """
 
 import os
@@ -33,6 +35,11 @@ LEGS = {
 }
 
 
+# the dense chunked route (no class state) on the waves leg's snapshots,
+# every one of which has P >= 128
+DENSE = ({"KTPU_FORCE_CHUNKED": "1"}, ("random", "selectors", "heterogeneous", "interference", "mixed"))
+
+
 def snapshot(name: str):
     """The snapshots both packages encode (JAX-typed ones and the port's
     mixed/interference, which the JAX encoder reads as they are)."""
@@ -53,7 +60,7 @@ def snapshot(name: str):
 
 def main() -> None:
     leg, out = sys.argv[1], sys.argv[2]
-    env, names, _ = LEGS[leg]
+    env, names = DENSE if leg == "dense" else LEGS[leg][:2]
     for k, v in env.items():
         if os.environ.get(k) != v:
             raise SystemExit(f"{leg}: run with {k}={v}")
@@ -70,7 +77,7 @@ def main() -> None:
     for name in names:
         arr, meta = DeltaEncoder().encode(snapshot(name))
         cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
-        inc = HoistCache().ensure(arr, meta, cfg)
+        inc = None if leg == "dense" else HoistCache().ensure(arr, meta, cfg)
         c, u, o, s = schedule_batch_ordinals_routed(arr, cfg, donate=False, inc=inc)
         for field, x in (("choices", c), ("used", u), ("ordinals", o), ("sweeps", s)):
             res[f"{name}/{field}"] = np.asarray(x)

@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds every kernel from csrc/ with nvcc (one process per source, all at
-once), then drives the port's three routes and bench.py's warm loop at the
-north-star shape, heterogeneous(20000, 50000, seed=0) (P=51200, N=20480,
-R=5, U1=101):
+once), then drives the port's fit-only routes and bench.py's warm loop at
+the north-star shape, heterogeneous(20000, 50000, seed=0) (P=51200,
+N=20480, R=5, U1=101), and the full stage set on BASELINE config 3 and an
+all-stages snapshot:
 
   [mixed]            static_feasible and fit_scan == their plain versions on
                      a small mixed snapshot, three fit strategies;
@@ -42,9 +43,27 @@ R=5, U1=101):
                      end_to_end_s (median of the steady walls) and
                      overlap_fraction as bench.py computes them;
   [wide-planes]      a snapshot with 80 distinct NoSchedule taints through
-                     DeltaEncoder: its two 80-wide bool fields travel packed
-                     and unpack_planes (== plain) unpacks them; decisions ==
-                     the JAX package's.
+                     DeltaEncoder: its four 80-wide bool fields (the hard and
+                     PreferNoSchedule taint and toleration planes) travel
+                     packed and unpack_planes (== plain) unpacks them;
+                     decisions == the JAX package's;
+  [config3]          BASELINE config 3, spread_affinity(5000, 10000, seed=0)
+                     (P=10240, N=6144, 80 terms, 5003 domains): a cold
+                     DeltaEncoder encode, then schedule_batch_ordinals on the
+                     rounds route (packed_static_rows with the eligibility
+                     plane, then rounds, each launched once): 10000/10000,
+                     the JAX choices digest, the JAX rounds route's sweeps
+                     (1691) and ordinal digest, step_rounds_s; both K7
+                     planes == plain over [P, W], rounds == plain on the
+                     first 8 chunks (choices, usage, ordinals, count planes);
+  [config3-perpod]   the same arrays with chunked=False: packed_static_rows
+                     and full_scan over all pods, the same choices digest,
+                     full_scan == plain on the first 512 pods, step_perpod_s;
+  [all-stages]       all_stages() (every optional stage on): the rounds and
+                     the per-pod routes equal the JAX digests (choices,
+                     sweeps, ordinals), score_planes == plain on both bf16
+                     planes (beside torch.matmul of its node-affinity
+                     product), rounds and full_scan == plain.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
@@ -82,6 +101,8 @@ PER_POD_KERNELS = ("static_feasible", "fit_scan")
 WAVE_KERNELS = ("class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds")
 DENSE_KERNELS = ("packed_static_rows", "chunk_rounds_dense")
 DENSE_PREFIX_CHUNKS = 8  # dense chunks held against the plain round loop
+ROUNDS_PREFIX_CHUNKS = 8  # config-3 rounds chunks held against the plain rounds scan
+PERPOD_PREFIX = 512  # config-3 pods of the full-stage per-pod scan held against plain
 STRATEGIES = (
     ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
     ("MostAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -807,8 +828,9 @@ def phase_wide_planes() -> list:
     arr, meta = enc.to_device(host, meta)
     torch.cuda.synchronize()
     launches = kernels.LAUNCHES["unpack_planes"]
-    check(launches == 2, f"wide planes: unpack_planes launched {launches} times (node_taint_ns, pod_tol_ns)")
-    for name in ("node_taint_ns", "pod_tol_ns"):
+    wide = ("node_taint_ns", "pod_tol_ns", "node_taint_pref", "pod_tol_pref")
+    check(launches == len(wide), f"wide planes: unpack_planes launched {launches} times ({', '.join(wide)})")
+    for name in wide:
         check(torch.equal(getattr(arr, name).cpu(), torch.from_numpy(getattr(host, name))),
               f"wide planes: {name} unpacked != host")
     words = torch.from_numpy(bitplane.np_pack_lastaxis(host.pod_tol_ns).view("int32")).cuda()
@@ -828,13 +850,348 @@ def phase_wide_planes() -> list:
     check(hashlib.sha256(c.tobytes()).hexdigest() == workloads.WIDE_TAINTS_CHOICES_SHA256,
           "wide planes: choices differ from JAX")
     print(f"[wide-planes] {len(snap.nodes)} nodes, {meta.n_pods} pods, {n_w} hard taints: node_taint_ns "
-          f"{tuple(arr.node_taint_ns.shape)} and pod_tol_ns {tuple(arr.pod_tol_ns.shape)} sent packed, "
+          f"{tuple(arr.node_taint_ns.shape)}, pod_tol_ns {tuple(arr.pod_tol_ns.shape)} and their "
+          f"PreferNoSchedule twins sent packed, "
           f"unpack_planes x{launches} == host == plain; scheduled {scheduled}/{meta.n_pods}, choices == JAX; "
           f"unpack_planes [{rows}, {n_w}]: {k9_ms:.4f} ms, plain {k9_plain:.4f} ms, bound {k9_bound:.6f} ms "
           f"({k9_by}: {k9_bytes} B)", flush=True)
     return [dict(name="unpack_planes", route="cuda", source="kubernetes_tpu_torch/csrc/unpack_planes.cu",
                  replaces="kubernetes_tpu/api/delta.py:922", launches=launches, max_abs_err=k9_err, ms=k9_ms,
                  plain_ms=k9_plain, bound_ms=k9_bound, bound_by=k9_by, library_ms=None)]
+
+
+def full_bytes(arr) -> int:
+    """Bytes the full-stage scans must move: every input read once (the two
+    packed planes, the pod arrays and slots, the node arrays and the
+    per-domain count tables), every output written once."""
+    P, N = arr.P, arr.N
+    W = -(-N // 32)
+    pod = sum(getattr(arr, f).numel() * getattr(arr, f).element_size() for f in (
+        "pod_req", "pod_valid", "pod_spread_terms", "pod_spread_maxskew", "pod_spread_hard", "pod_aff_terms",
+        "pod_aff_self", "pod_anti_terms", "pod_match_terms", "pod_match_vals", "pod_pref_aff_terms",
+        "pod_pref_aff_w", "pod_ports"))
+    node = sum(getattr(arr, f).numel() * getattr(arr, f).element_size() for f in (
+        "node_alloc", "node_used", "node_dom", "term_key", "term_counts0", "anti_counts0", "pref_own0",
+        "node_ports0"))
+    img = arr.image_score.numel() * 2 if arr.image_score.shape[1] == N else 0
+    return 2 * 4 * P * W + pod + node + img + 3 * 4 * P + arr.node_used.numel() * 4
+
+
+def full_ops(arr, cfg, sfs, eligs, choices) -> tuple:
+    """(operations, scored pairs): the work a sequential full-stage scan
+    must do on this run's data, real pods and nodes only.  A scored pair is
+    a (pod, node) pair that passes the static and fit tests against the
+    usage the earlier pods left (rebuilt from the choices).  Per scored
+    pair: the fit and balanced scores; 4 per hard spread slot (count + 1 -
+    min, the compare, the raw sum) and 1 per soft one; 1 per required
+    affinity and anti-affinity slot; 2 per matched slot (the existing pods'
+    anti-affinity) and, with the inter-pod score on, 2 per preferred and
+    matched slot; 2 per host port; 6 per normalised stage the pod's data
+    needs (the reduction, the formula's 3, the weighted add): taint where
+    cfg scores it, node affinity for a pod with preferred terms, spread for
+    a pod with a spread slot, inter-pod for one with a preferred or matched
+    slot; 2 for the image score.  Per pod: the fit test over the real
+    nodes' resources, each hard spread slot's minimum over the eligible
+    nodes with its key and, when placed, the commit over the real nodes (2
+    per matched and anti-affinity slot; with the inter-pod score 2 per
+    preferred slot and hardPodAffinityWeight affinity slot; 1 per port)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import assign, bitplane
+
+    dev = arr.device
+    P, N, R = arr.P, arr.N, arr.R
+    n_nodes = int(arr.node_valid.sum())
+    pw = bool(cfg.enable_pairwise)
+    ips = pw and bool(cfg.enable_interpod_score)
+    zero = torch.zeros((P,), dtype=torch.int64, device=dev)
+
+    def count(mask):
+        return mask.sum(dim=1).to(torch.int64)
+
+    on_sp = (arr.pod_spread_terms >= 0) & arr.pod_spread_hard
+    hard = count(on_sp) if pw else zero
+    soft = count((arr.pod_spread_terms >= 0) & ~arr.pod_spread_hard) if pw else zero
+    aff = count(arr.pod_aff_terms >= 0) if pw else zero
+    anti = count(arr.pod_anti_terms >= 0) if pw else zero
+    match = count(arr.pod_match_terms >= 0) if pw else zero
+    pref = count(arr.pod_pref_aff_terms >= 0) if ips else zero
+    ports = count(arr.pod_ports) if cfg.enable_ports else zero
+    na = count(arr.pod_pref_terms >= 0) if cfg.enable_node_pref else zero
+    stages = ((na > 0).to(torch.int64) + (hard + soft > 0).to(torch.int64) + int(bool(cfg.enable_taint_score))
+              + ((pref + match > 0).to(torch.int64) if ips else zero))
+    per_pair = (f32_ops_per_scored_node(cfg) + 4 * hard + soft + aff + anti + 2 * match
+                + (2 * (pref + match) if ips else zero) + 2 * ports + 6 * stages
+                + 2 * int(assign._image_on(arr, cfg)))
+    hpaw = aff if ips and cfg.hard_pod_affinity_weight else zero
+    placed = (choices >= 0).to(torch.int64)
+    valid = arr.pod_valid.to(torch.int64)
+    per_pod = (valid * n_nodes * R + placed * (2 * n_nodes * (match + anti + (pref + hpaw if ips else zero)) + ports))
+    dbt, D = assign.dom_by_term(arr)
+    has_key = dbt < D
+    used = arr.node_used.clone()
+    scored = torch.zeros((P,), dtype=torch.int64, device=dev)
+    for p0 in range(0, P, 256):
+        req = arr.pod_req[p0:p0 + 256]
+        sf = bitplane.unpack(sfs[p0:p0 + 256], N)
+        if pw:  # the hard spread minimum: eligible nodes with the slot's key
+            el = bitplane.unpack(eligs[p0:p0 + 256], N)
+            for s in range(on_sp.shape[1]):
+                hk = has_key[torch.clamp_min(arr.pod_spread_terms[p0:p0 + 256, s], 0).to(torch.int64)]
+                per_pod[p0:p0 + 256] += count(el & hk) * on_sp[p0:p0 + 256, s]
+        for k in range(req.shape[0]):
+            fit = ((req[k] == 0) | (req[k] <= arr.node_alloc - used)).all(dim=1)
+            scored[p0 + k] = (sf[k] & fit).sum()
+            c = int(choices[p0 + k])
+            if c >= 0:
+                used[c] += req[k]
+    return int((scored * per_pair).sum() + per_pod.sum()), int(scored.sum())
+
+
+def same_state(a: dict, b: dict) -> int:
+    """Entries of the pairwise state {cnt, anti, pref, total, ports} that
+    differ (f32 compared as bits)."""
+    return sum(mismatch(a[k], b[k]) for k in ("cnt", "anti", "pref", "total", "ports"))
+
+
+def phase_config3() -> tuple:
+    """BASELINE config 3 through the rounds route (the card's default for a
+    pairwise config): K7 with the eligibility plane, then K12."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
+
+    snap = workloads.spread_affinity(**workloads.CONFIG3)
+    enc = DeltaEncoder()
+    t0 = time.perf_counter()
+    host, meta = enc.encode(snap)
+    t1 = time.perf_counter()
+    arr, meta = enc.to_device(host, meta)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    P, N, R = arr.P, arr.N, arr.R
+    T, D1 = arr.term_counts0.shape
+    n = meta.n_pods
+    check(cfg.enable_pairwise and cfg.enable_interpod_score and not cfg.enable_ports, f"config 3: {cfg}")
+    print(f"[config3] cold DeltaEncoder encode_s {encode_s:.3f} (host {t1 - t0:.3f} s): P={P} N={N} R={R} "
+          f"T={T} D={D1 - 1} slots spread/aff/anti/pref/match {arr.pod_spread_terms.shape[1]}/"
+          f"{arr.pod_aff_terms.shape[1]}/{arr.pod_anti_terms.shape[1]}/{arr.pod_pref_aff_terms.shape[1]}/"
+          f"{arr.pod_match_terms.shape[1]}", flush=True)
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(launches == {"packed_static_rows": 1, "rounds": 1}, f"config 3 rounds route launches {launches}")
+    scheduled = int((choices[:n] >= 0).sum())
+    print(f"[config3] schedule_batch_ordinals (rounds) {first_s:.3f} s (first call): scheduled {scheduled}/{n}, "
+          f"sweeps {sweeps}, choices sha256 {digest(choices)}, ordinals sha256 {digest(ords)}, "
+          f"launches {launches}", flush=True)
+    check(scheduled == workloads.CONFIG3_SCHEDULED, "config 3: scheduled count")
+    check(digest(choices) == workloads.CONFIG3_CHOICES_SHA256, "config 3: choices differ from JAX")
+    check(sweeps == workloads.CONFIG3_ROUNDS_SWEEPS, f"config 3: sweeps {sweeps}")
+    check(digest(ords) == workloads.CONFIG3_ROUNDS_ORDINALS_SHA256, "config 3: ordinals differ from JAX")
+    step_rounds_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        c2, _ = assign.schedule_batch(arr, cfg)
+        torch.cuda.synchronize()
+        step_rounds_s = min(step_rounds_s, time.perf_counter() - t0)
+    check(torch.equal(c2, choices), "config 3: a repeated step differs")
+
+    # --- K7's two planes against plain over [P, W] ---
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    sfs_p, eligs_p = assign.packed_static_rows_plain(arr, with_elig=True)
+    k7_err = mismatch(sfs, sfs_p) + mismatch(eligs, eligs_p)
+    check(k7_err == 0, f"config 3: packed_static_rows (with eligibility) != plain ({k7_err} words)")
+
+    # --- K12 over all chunks, then against plain on the first chunks ---
+    out = {}
+
+    def run_k12():
+        out["k"] = kernels.rounds(arr, cfg, sfs, eligs, (None, None))
+
+    k12_ms = cuda_ms(run_k12, reps=3)
+    ck = out["k"]
+    check(torch.equal(ck[0], choices) and torch.equal(ck[2], ords), "config 3: timed rounds != route")
+    npre = ROUNDS_PREFIX_CHUNKS * assign.RCHUNK
+    pre = arr.pod_prefix(npre)
+    kp = kernels.rounds(pre, cfg, sfs[:npre].contiguous(), eligs[:npre].contiguous(), (None, None),
+                        with_state=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp = assign.schedule_scan_rounds_plain(pre, cfg, sfs_p[:npre], eligs_p[:npre], (None, None), with_state=True)
+    torch.cuda.synchronize()
+    k12_plain = (time.perf_counter() - t0) * 1e3
+    k12_err = (sum(mismatch(a, b) for a, b in zip(kp[:3], pp[:3])) + abs(kernels.read_sweeps(kp[3]) - pp[3])
+               + same_state(kp[4], pp[4]))
+    check(k12_err == 0, f"config 3: rounds != plain on the first {ROUNDS_PREFIX_CHUNKS} chunks ({k12_err})")
+    check(torch.equal(kp[0], choices[:npre]) and torch.equal(kp[2], ords[:npre]), "config 3 prefix != full run")
+    k12_pre_ms = cuda_ms(lambda: kernels.rounds(pre, cfg, sfs[:npre].contiguous(), eligs[:npre].contiguous(),
+                                                (None, None)), reps=3)
+    k_ops, scored = full_ops(arr, cfg, sfs, eligs, choices)
+    k_bytes = full_bytes(arr)
+    k12_bound, k12_by = bound(k_bytes, k_ops)
+    print(f"[config3] packed_static_rows (static + eligibility) == plain over [{P}, {-(-N // 32)}] x 2; "
+          f"rounds == plain on the first {ROUNDS_PREFIX_CHUNKS} chunks ({pp[3]} rounds; choices, usage, "
+          f"ordinals, count planes): {k12_pre_ms:.3f} ms, plain {k12_plain:.1f} ms (host clock); all "
+          f"{P // assign.RCHUNK} chunks ({sweeps} rounds): {k12_ms:.3f} ms ({k12_ms / sweeps * 1e3:.1f} us per "
+          f"round), bound {k12_bound:.4f} ms ({k12_by}: {k_bytes} B, {k_ops} ops over {scored} scored pairs); "
+          f"step_rounds_s {step_rounds_s:.4f} (best of 3)", flush=True)
+    row = dict(name="rounds", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
+               replaces="kubernetes_tpu/ops/assign.py:1464", launches=launches["rounds"], max_abs_err=k12_err,
+               ms=k12_ms, plain_ms=k12_plain, bound_ms=k12_bound, bound_by=k12_by, library_ms=None,
+               plain_scope=f"first {ROUNDS_PREFIX_CHUNKS} chunks", prefix_ms=k12_pre_ms)
+    return (arr, meta, cfg, choices, sfs, eligs, sfs_p, eligs_p, k_ops), step_rounds_s, row
+
+
+def phase_config3_perpod(c3) -> tuple:
+    """The same arrays through the per-pod route (chunked=False): K7, then
+    K11 over all pods."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import assign, bitplane, kernels
+
+    arr, meta, cfg, rchoices, sfs, eligs, sfs_p, eligs_p, k_ops = c3
+    P, N = arr.P, arr.N
+    n = meta.n_pods
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    choices, used = assign.schedule_batch(arr, cfg, chunked=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(launches == {"packed_static_rows": 1, "full_scan": 1}, f"config 3 per-pod route launches {launches}")
+    digest = hashlib.sha256(choices[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+    print(f"[config3-perpod] schedule_batch(chunked=False) {first_s:.3f} s (first call): scheduled "
+          f"{int((choices[:n] >= 0).sum())}/{n}, choices sha256 {digest}, launches {launches}", flush=True)
+    check(digest == workloads.CONFIG3_CHOICES_SHA256, "config 3 per-pod: choices differ from JAX")
+    check(torch.equal(choices, rchoices), "config 3: per-pod route != rounds route")
+    step_perpod_s = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        c2, _ = assign.schedule_batch(arr, cfg, chunked=False)
+        torch.cuda.synchronize()
+        step_perpod_s = min(step_perpod_s, time.perf_counter() - t0)
+    check(torch.equal(c2, choices), "config 3 per-pod: a repeated step differs")
+    k11_ms = cuda_ms(lambda: kernels.full_scan(arr, cfg, sfs, eligs, (None, None)), reps=2)
+    pre = arr.pod_prefix(PERPOD_PREFIX)
+    kp = kernels.full_scan(pre, cfg, sfs[:PERPOD_PREFIX].contiguous(), eligs[:PERPOD_PREFIX].contiguous(),
+                           (None, None), with_state=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp = assign.schedule_scan_plain(pre, cfg, sf=bitplane.unpack(sfs_p[:PERPOD_PREFIX], N), planes=(None, None),
+                                    with_state=True)
+    torch.cuda.synchronize()
+    k11_plain = (time.perf_counter() - t0) * 1e3
+    k11_err = mismatch(kp[0], pp[0]) + mismatch(kp[1], pp[1]) + same_state(kp[2], pp[2])
+    check(k11_err == 0, f"config 3: full_scan != plain on the first {PERPOD_PREFIX} pods ({k11_err})")
+    check(torch.equal(kp[0], choices[:PERPOD_PREFIX]), "config 3 per-pod prefix != full run")
+    k_bytes = full_bytes(arr)
+    k11_bound, k11_by = bound(k_bytes, k_ops)
+    print(f"[config3-perpod] full_scan == plain on the first {PERPOD_PREFIX} pods (choices, usage, count "
+          f"planes); kernel {k11_ms:.3f} ms over all {P} ({k11_ms / P * 1e3:.2f} us per pod), plain {k11_plain:.1f} "
+          f"ms on {PERPOD_PREFIX} pods (host clock), bound {k11_bound:.4f} ms ({k11_by}); step_perpod_s "
+          f"{step_perpod_s:.4f} (best of 2)", flush=True)
+    row = dict(name="full_scan", route="cuda", source="kubernetes_tpu_torch/csrc/full_scan.cu",
+               replaces="kubernetes_tpu/ops/assign.py:181", launches=launches["full_scan"], max_abs_err=k11_err,
+               ms=k11_ms, plain_ms=k11_plain, bound_ms=k11_bound, bound_by=k11_by, library_ms=None,
+               plain_scope=f"first {PERPOD_PREFIX} pods")
+    return step_perpod_s, row
+
+
+def phase_all_stages() -> list:
+    """Every optional stage on: K10 == plain on both planes, and the rounds
+    and per-pod routes (K7, K10, K12 / K11) == plain and == the JAX
+    package's digests."""
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, filters, infer_score_config, kernels
+
+    arr, meta = encode_snapshot(workloads.all_stages())
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    check(all((cfg.enable_pairwise, cfg.enable_ports, cfg.enable_taint_score, cfg.enable_node_pref,
+               cfg.enable_image, cfg.enable_interpod_score)), f"all stages: {cfg}")
+    P, N = arr.P, arr.N
+    n = meta.n_pods
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    # --- the rounds route, counted ---
+    kernels.reset_launches()
+    choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(launches == {"packed_static_rows": 1, "score_planes": 1, "rounds": 1}, f"all stages rounds {launches}")
+    check(int((choices[:n] >= 0).sum()) == workloads.ALL_STAGES_SCHEDULED, "all stages: scheduled count")
+    check(digest(choices) == workloads.ALL_STAGES_CHOICES_SHA256, "all stages: choices differ from JAX")
+    check(sweeps == workloads.ALL_STAGES_ROUNDS_SWEEPS, f"all stages: sweeps {sweeps}")
+    check(digest(ords) == workloads.ALL_STAGES_ROUNDS_ORDINALS_SHA256, "all stages: ordinals differ from JAX")
+    # --- the per-pod route, counted ---
+    kernels.reset_launches()
+    pchoices, pused = assign.schedule_batch(arr, cfg, chunked=False)
+    torch.cuda.synchronize()
+    plaunch = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(plaunch == {"packed_static_rows": 1, "score_planes": 1, "full_scan": 1}, f"all stages per-pod {plaunch}")
+    check(torch.equal(pchoices, choices) and torch.equal(pused, used), "all stages: per-pod route != rounds route")
+
+    # --- K10 against plain, bit for bit on both planes ---
+    traw, naraw = kernels.score_planes(arr)
+    traw_p, naraw_p = assign.score_planes_plain(arr)
+    k10_err = mismatch(traw.view(torch.int16), traw_p.view(torch.int16)) + mismatch(
+        naraw.view(torch.int16), naraw_p.view(torch.int16))
+    check(k10_err == 0, f"all stages: score_planes != plain ({k10_err} entries)")
+    k10_ms = cuda_ms(lambda: kernels.score_planes(arr), reps=20, warmup=2)
+    k10_plain = cuda_ms(lambda: assign.score_planes_plain(arr), reps=5)
+    tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels).to(torch.float32)
+    S = tm.shape[0]
+    W_na = torch.zeros((P, S), dtype=torch.float32, device=arr.device)
+    ids = torch.clamp_min(arr.pod_pref_terms, 0).to(torch.int64)
+    W_na.index_put_((torch.arange(P, device=arr.device)[:, None].expand_as(ids), ids),
+                    torch.where(arr.pod_pref_terms >= 0, arr.pod_pref_weights, torch.zeros_like(arr.pod_pref_weights)),
+                    accumulate=True)
+    k10_lib = cuda_ms(lambda: torch.matmul(W_na, tm), reps=20, warmup=2)
+    T = arr.node_taint_pref.shape[1]
+    PW = arr.pod_pref_terms.shape[1]
+    Se, E_, L = arr.sel_mask.shape
+    k10_bytes = N * T + P * T + P * PW * 8 + Se * E_ * L + 4 * Se * E_ + N * L + 2 * 2 * P * N
+    k10_bound, k10_by = bound(k10_bytes, P * N * (T + PW))
+
+    # --- K12 and K11 against plain over the whole snapshot ---
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    kr = kernels.rounds(arr, cfg, sfs, eligs, (traw, naraw), with_state=True)
+    pr = assign.schedule_scan_rounds_plain(arr, cfg, sfs, eligs, (traw, naraw), with_state=True)
+    k12_err = (sum(mismatch(a, b) for a, b in zip(kr[:3], pr[:3])) + abs(kernels.read_sweeps(kr[3]) - pr[3])
+               + same_state(kr[4], pr[4]))
+    check(k12_err == 0, f"all stages: rounds != plain ({k12_err})")
+    kf = kernels.full_scan(arr, cfg, sfs, eligs, (traw, naraw), with_state=True)
+    pf = assign.schedule_scan_plain(arr, cfg, sf=filters.static_feasible_plain(arr), planes=(traw, naraw),
+                                    with_state=True)
+    k11_err = mismatch(kf[0], pf[0]) + mismatch(kf[1], pf[1]) + same_state(kf[2], pf[2])
+    check(k11_err == 0, f"all stages: full_scan != plain ({k11_err})")
+    check(torch.equal(kf[0], choices), "all stages: full_scan != the route")
+    print(f"[all-stages] P={P} N={N}, every stage on: rounds route ({launches}) and per-pod route ({plaunch}): "
+          f"scheduled {int((choices[:n] >= 0).sum())}/{n}, choices, sweeps ({sweeps}) and ordinals == JAX; "
+          f"rounds == plain and full_scan == plain (choices, usage, ordinals, count planes); score_planes == "
+          f"plain on both bf16 planes: {k10_ms:.4f} ms, plain {k10_plain:.4f} ms, torch.matmul of the "
+          f"node-affinity product {k10_lib:.4f} ms, bound {k10_bound:.6f} ms ({k10_by}: {k10_bytes} B)",
+          flush=True)
+    return [dict(name="score_planes", route="cuda", source="kubernetes_tpu_torch/csrc/score_planes.cu",
+                 replaces="kubernetes_tpu/ops/scores.py:229", launches=launches["score_planes"],
+                 max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain, bound_ms=k10_bound, bound_by=k10_by,
+                 library_ms=k10_lib)], (k11_err, k12_err)
 
 
 def choices_used(arr, choices, k: int):
@@ -867,6 +1224,13 @@ def main() -> int:
     rows += dense_rows
     phase_warm_loop(cold)
     rows += phase_wide_planes()
+    c3, _, k12_row = phase_config3()
+    _, k11_row = phase_config3_perpod(c3)
+    del c3
+    k10_rows, (k11_err, k12_err) = phase_all_stages()
+    k11_row["max_abs_err"] += k11_err
+    k12_row["max_abs_err"] += k12_err
+    rows += k10_rows + [k11_row, k12_row]
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -16,9 +16,11 @@ entry points run on the card unless the caller passes device="cpu":
     inc = HoistCache().ensure(arr, meta, cfg)         # ops/incremental.py
     choices, used = schedule_batch(arr, cfg, inc=inc)  # the class-wave route
 
-The slice ported so far is the fit-only stage set (static feasibility +
-NodeResourcesFit + BalancedAllocation) on two routes: the per-pod commit
-scan, and the incremental class-wave route (class hoists, dirty-column
-patch, commit waves, chunk round loop); anything else raises
+Every stage the JAX package's ScoreConfig can enable is ported: the
+fit-only stage set (static feasibility + NodeResourcesFit +
+BalancedAllocation) on the per-pod, dense chunked and class-wave routes,
+and the full stage set (PodTopologySpread, InterPodAffinity, NodePorts,
+TaintToleration / NodeAffinity / ImageLocality scores) on the per-pod and
+rounds routes.  Volumes, resource claims and pod groups raise
 NotImplementedError (see ROADMAP.md queues A and B).
 """

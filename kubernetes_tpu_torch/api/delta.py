@@ -28,10 +28,16 @@ synchronisation.  A bool field of two or more axes with a last axis of 64
 or more travels packed (``_packed_put``) and kernel K9 ``unpack_planes``
 unpacks it on the card.
 
+The cluster side also keeps the pairwise state of the bound pods (the term
+vocabulary, per-(term, domain) counts of matching pods, of anti-affinity and
+preferred-term owners) and host-port occupancy as counts, so a bind or a
+delete is a reversible scatter; a bound pod that brings a term or a port
+the vocabulary lacks falls back to a rebuild, as in the JAX package.
+
 Not ported here (each refused where it would be needed, never dropped):
-pairwise terms and counts, host ports, images, volumes and resource claims
-(the cluster side keeps no storage fingerprint), pod groups, the sidecar's
-``encode_pregrouped``, and mesh placement.
+volumes and resource claims (the cluster side keeps no storage
+fingerprint), pod groups, the sidecar's ``encode_pregrouped``, and mesh
+placement.
 """
 
 from __future__ import annotations
@@ -45,15 +51,18 @@ import torch
 from ..device import resolve_device
 from . import types as t
 from . import vocab as v
+from .pairwise import HARD, SOFT, PairwiseVocab, TermKey, _match_matrix, _term_of_affinity, _term_of_spread
 from .snapshot import (
     _DEFAULT_POD_LIMIT,
     ClusterArrays,
     EncodingMeta,
     SpecInterner,
     _bucket,
+    _image_score_matrix,
     _node_taints,
     _refuse,
     _resource_axis,
+    _round_up_pow2,
     _scale_for,
     activeq_order,
     pod_effective_requests,
@@ -67,16 +76,43 @@ from .snapshot import (
 
 @dataclass(frozen=True)
 class WaveFingerprint:
-    """Wave-derived inputs the cluster side depends on (the fit-only part of
-    the JAX package's: its pairwise term and host-port sequences are always
-    empty here, since the encoder refuses both)."""
+    """Wave-derived inputs the cluster side depends on: two waves with
+    equal fingerprints share one cluster-side cache."""
 
     referenced_keys: frozenset
     resources: Tuple[str, ...]
+    term_seq: Tuple[TermKey, ...]  # pairwise terms in first-intern order
+    port_seq: Tuple[Tuple[str, int], ...]
+
+
+def _pod_pairwise_terms(pod):
+    """(aff, anti, pref[(term, signed w)], spread[(term, maxSkew, mode)]) as
+    TermKey tuples, in the canonical intern order."""
+    aff: List[TermKey] = []
+    anti: List[TermKey] = []
+    pref: List[Tuple[TermKey, float]] = []
+    spread: List[Tuple[TermKey, int, int]] = []
+    if pod.affinity:
+        for term in pod.affinity.required_pod_affinity:
+            aff.append(_term_of_affinity(term, pod.namespace))
+        for term in pod.affinity.required_pod_anti_affinity:
+            anti.append(_term_of_affinity(term, pod.namespace))
+        for wt in pod.affinity.preferred_pod_affinity:
+            pref.append((_term_of_affinity(wt.term, pod.namespace), float(wt.weight)))
+        for wt in pod.affinity.preferred_pod_anti_affinity:
+            pref.append((_term_of_affinity(wt.term, pod.namespace), -float(wt.weight)))
+    for c in pod.topology_spread:
+        spread.append((_term_of_spread(c, pod.namespace), c.max_skew,
+                       HARD if c.when_unsatisfiable == t.DO_NOT_SCHEDULE else SOFT))
+    return aff, anti, pref, spread
 
 
 def wave_fingerprint(reps: Sequence[t.Pod], resources: Sequence[str]) -> WaveFingerprint:
     referenced: set = set()
+    term_seq: List[TermKey] = []
+    seen_terms: set = set()
+    port_seq: List[Tuple[str, int]] = []
+    seen_ports: set = set()
     for pod in reps:
         for k, _ in pod.node_selector:
             referenced.add(k)
@@ -87,11 +123,21 @@ def wave_fingerprint(reps: Sequence[t.Pod], resources: Sequence[str]) -> WaveFin
             for pt in pod.affinity.preferred_node_terms:
                 for e in pt.preference.match_expressions:
                     referenced.add(e.key)
-    return WaveFingerprint(referenced_keys=frozenset(referenced), resources=tuple(resources))
+        aff, anti, pref, spread = _pod_pairwise_terms(pod)
+        for tk in [*aff, *anti, *(tk for tk, _ in pref), *(tk for tk, _, _ in spread)]:
+            if tk not in seen_terms:
+                seen_terms.add(tk)
+                term_seq.append(tk)
+        for pp in pod.host_ports:
+            if pp not in seen_ports:
+                seen_ports.add(pp)
+                port_seq.append(pp)
+    return WaveFingerprint(referenced_keys=frozenset(referenced), resources=tuple(resources),
+                           term_seq=tuple(term_seq), port_seq=tuple(port_seq))
 
 
 # --------------------------------------------------------------------------
-# what the fit-only slice refuses
+# what the port refuses
 # --------------------------------------------------------------------------
 
 
@@ -102,43 +148,26 @@ def _check_snapshot(snap) -> None:
         _refuse("pod groups", "queue A9, kernel B11")
 
 
-def _check_nodes(nodes) -> bool:
-    """Refuse volume attach limits; -> whether any node lists images."""
+def _check_nodes(nodes) -> None:
     if any(nd.volume_attach_limit for nd in nodes):
         _refuse("volume attach limits", "queue A5, api/volumes.py")
-    return any(nd.images for nd in nodes)
 
 
-def _check_pod(pod, pending: bool, node_images: bool) -> None:
-    a = pod.affinity
-    if a is not None and (
-        a.required_pod_affinity or a.required_pod_anti_affinity
-        or a.preferred_pod_affinity or a.preferred_pod_anti_affinity
-    ):
-        _refuse(f"pod {pod.name!r}: pod (anti-)affinity", "queue A7, kernels B8/B9")
-    if pod.host_ports:
-        _refuse(f"pod {pod.name!r}: host ports", "queue A7, kernel B9 ports_ok")
+def _check_pod(pod, pending: bool) -> None:
     if pod.pvcs or pod.resource_claims:
         _refuse(f"pod {pod.name!r}: volumes / resource claims", "queue A5")
-    if not pending:
-        return
-    if pod.topology_spread:
-        _refuse(f"pod {pod.name!r}: topology spread", "queue A7, kernel B9")
-    if pod.pod_group:
+    if pending and pod.pod_group:
         _refuse(f"pod {pod.name!r}: pod group", "queue A9, kernel B11")
-    if pod.images and node_images:
-        _refuse(f"pod {pod.name!r}: image locality", "queue A7, kernel B8")
 
 
-def _check_pending(reps, pending, node_images: bool) -> None:
-    """Every refused pending-pod feature but volumes and claims is part of
-    the spec key, so the unique specs stand for their pods; volumes and
-    claims are checked per pod."""
+def _check_pending(reps, pending) -> None:
+    """The pod group is part of the spec key, so the unique specs stand for
+    their pods; volumes and claims are checked per pod."""
     for pod in reps:
-        _check_pod(pod, True, node_images)
+        _check_pod(pod, True)
     for pod in pending:
         if pod.pvcs or pod.resource_claims:
-            _check_pod(pod, True, node_images)
+            _check_pod(pod, True)
 
 
 # --------------------------------------------------------------------------
@@ -151,10 +180,11 @@ class _Fallback(Exception):
 
 
 # One bound pod's contribution, for O(1) reversal on delete: (node row,
-# request row, the pod OBJECT).  Holding the object keeps it alive, so
-# `rec[_OBJ] is q` is a sound unchanged-check.
+# request row, bound-spec row, host-port ids, anti-affinity term ids,
+# preferred (term id, signed weight) pairs, the pod OBJECT).  Holding the
+# object keeps it alive, so `rec[_OBJ] is q` is a sound unchanged-check.
 _BoundRec = tuple
-_NI, _REQ_U, _OBJ = range(3)
+_NI, _REQ_U, _SPEC_U, _PORT_IDS, _ANTI_IDS, _PREF, _OBJ = range(7)
 
 _EMPTY_DIRTY = np.empty(0, dtype=np.int64)
 
@@ -178,39 +208,56 @@ class ClusterSide:
     node-axis arrays are UNPADDED ([n] rows): padding happens at assembly."""
 
     wfp: WaveFingerprint
+    hpaw: float  # hardPodAffinityWeight: bound pods' required-affinity terms score at it
     nodes: List[t.Node]
     nodes_fp: Tuple
     node_index: Dict[str, int]
-    node_images: bool
     lab: v.LabelVocab
     node_labels: np.ndarray  # bool[n, L]
     taints: v.Interner
     taint_objs: List[t.Taint]
     node_taint_ns: np.ndarray  # bool[n, T] hard taints
-    has_prefer_taints: bool
+    node_taint_pref: np.ndarray  # bool[n, T] PreferNoSchedule taints
     alloc_raw: np.ndarray  # i64[n, R]
     alloc_uniq: np.ndarray  # the distinct allocatable rows (the rescale reads them)
     used_raw: np.ndarray  # i64[n, R]
     breq_uniq_ids: Dict[Tuple, int]
     breq_uniq: List[List[int]]  # raw effective-request rows of bound pods
+    # pairwise: the vocabulary (wave terms first, then bound pods'), the
+    # node -> domain map and the bound pods' per-(term, domain) counts
+    voc: PairwiseVocab
+    terms_list: List[TermKey]
+    node_dom: np.ndarray  # i32[K, n]
+    term_key: np.ndarray  # i32[T2]
+    term_counts0: np.ndarray  # f32[T2, D+1]
+    anti_counts0: np.ndarray
+    pref_own0: np.ndarray
+    # bound specs (labels, namespace, affinity): match column and own terms
+    bspec_ids: Dict[Tuple, int]
+    m_cols: List[np.ndarray]  # each f32[T2]
+    bspec_anti: List[Tuple[int, ...]]
+    bspec_pref: List[Tuple[Tuple[int, float], ...]]
+    # host ports, as counts (an OR is not reversible, counts are)
+    node_port_count: np.ndarray  # i32[n, PT]
     records: Dict[str, _BoundRec] = field(default_factory=dict)
     stats: Dict[str, int] = field(default_factory=lambda: {"rebuilds": 0, "deltas": 0})
     # padded-array cache for _assemble: name -> (key, array)
     pad_cache: Dict[str, Tuple] = field(default_factory=dict)
-    # bumped whenever a sync changes used_raw; versioned cache entries copy
-    # once per version, so handed-out arrays are immutable
+    # bumped whenever a sync changes used_raw, the counts or the ports;
+    # versioned cache entries copy once per version, so handed-out arrays
+    # are immutable
     mut_version: int = 0
     # fast bind-absorb: uid -> (wave id << 32 | position) into wave_store
     # [wave id -> [sorted pods, reps, inv list, pods not yet bound]]
     wave_ix: Dict[str, int] = field(default_factory=dict)
     wave_store: Dict[int, list] = field(default_factory=dict)
     wave_next: int = 0
-    # bound-side info per wave rep: id(rep) -> (rep, request row)
+    # bound-side info per wave rep: id(rep) -> (rep, (req row, spec row, port ids))
     rep_bound_info: Dict[int, Tuple] = field(default_factory=dict)
     raw_nodes_fp: Tuple = ()
     raw_refs: Tuple = ()
-    # node rows whose usage changed in the last sync_bound (None after a
-    # rebuild: everything)
+    # node rows whose bound-pod contributions changed in the last sync_bound
+    # (None after a rebuild: everything)
     last_dirty_nodes: Optional[np.ndarray] = None
 
 
@@ -230,8 +277,46 @@ def raw_keepalive_refs(snap) -> Tuple:
     return (list(snap.nodes),)
 
 
-def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: WaveFingerprint) -> ClusterSide:
-    node_images = _check_nodes(nodes)
+def _bound_spec_key(q) -> Tuple:
+    return (tuple(sorted(q.labels.items())), q.namespace, q.affinity)
+
+
+def _bound_term_ids(voc: PairwiseVocab, pod, hpaw: float, intern: bool):
+    """Anti-affinity term ids and signed preferred (id, w) of a BOUND pod;
+    its REQUIRED affinity terms score toward incoming pods at
+    hardPodAffinityWeight (interpodaffinity/scoring.go — processExistingPod).
+    Raises _Fallback on a term the vocabulary lacks when not interning."""
+    get = voc.terms.intern if intern else voc.terms.get
+    anti: List[int] = []
+    pref: List[Tuple[int, float]] = []
+    if pod.affinity:
+        for term in pod.affinity.required_pod_anti_affinity:
+            ti = get(_term_of_affinity(term, pod.namespace))
+            if ti is None:
+                raise _Fallback("new anti term from bound pod")
+            anti.append(ti)
+        for wt in pod.affinity.preferred_pod_affinity:
+            ti = get(_term_of_affinity(wt.term, pod.namespace))
+            if ti is None:
+                raise _Fallback("new pref term from bound pod")
+            pref.append((ti, float(wt.weight)))
+        for wt in pod.affinity.preferred_pod_anti_affinity:
+            ti = get(_term_of_affinity(wt.term, pod.namespace))
+            if ti is None:
+                raise _Fallback("new pref-anti term from bound pod")
+            pref.append((ti, -float(wt.weight)))
+        if hpaw:
+            for term in pod.affinity.required_pod_affinity:
+                ti = get(_term_of_affinity(term, pod.namespace))
+                if ti is None:
+                    raise _Fallback("new req-aff term from bound pod")
+                pref.append((ti, float(hpaw)))
+    return tuple(anti), tuple(pref)
+
+
+def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: WaveFingerprint,
+                       hpaw: float) -> ClusterSide:
+    _check_nodes(nodes)
     n = len(nodes)
     resources = list(wfp.resources)
     R = len(resources)
@@ -275,13 +360,19 @@ def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: Wav
     T = max(1, len(taints))
     taint_objs = [t.Taint(k, val, eff) for (k, val, eff) in taints.items]
     node_taint_ns = np.zeros((n, T), dtype=bool)
+    node_taint_pref = np.zeros((n, T), dtype=bool)
     if n:
-        uniq = np.zeros((len(tprof), T), dtype=bool)
+        uns = np.zeros((len(tprof), T), dtype=bool)
+        upref = np.zeros((len(tprof), T), dtype=bool)
         for u, ts in enumerate(tprof):
             for tn in ts:
-                if tn.effect != t.PREFER_NO_SCHEDULE:
-                    uniq[u, taints.get((tn.key, tn.value, tn.effect))] = True
-        node_taint_ns[:] = uniq[tinv]
+                tid = taints.get((tn.key, tn.value, tn.effect))
+                if tn.effect == t.PREFER_NO_SCHEDULE:
+                    upref[u, tid] = True
+                else:
+                    uns[u, tid] = True
+        node_taint_ns[:] = uns[tinv]
+        node_taint_pref[:] = upref[tinv]
 
     # --- allocatable (raw), interned by profile ---
     aprof_ids: Dict[Tuple, int] = {}
@@ -297,15 +388,27 @@ def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: Wav
     alloc_uniq = np.array(arows, dtype=np.int64) if arows else np.zeros((1, R), dtype=np.int64)
     alloc_raw = alloc_uniq[ainv] if n else np.zeros((0, R), dtype=np.int64)
 
-    # --- bound pods: one record each, requests interned ---
+    # --- pairwise vocab: the WAVE's terms and ports first, then bound pods' ---
+    voc = PairwiseVocab(v.Interner(), v.Interner(), v.Interner(), v.Interner())
+    for tk in wfp.term_seq:
+        voc.terms.intern(tk)
+    for pp in wfp.port_seq:
+        voc.ports.intern(pp)
+
+    # --- bound pods: one record each, requests and specs interned ---
     used_raw = np.zeros((n, R), dtype=np.int64)
     breq_uniq_ids: Dict[Tuple, int] = {}
     breq_uniq: List[List[int]] = []
+    bspec_ids: Dict[Tuple, int] = {}
+    bspec_reps: List[t.Pod] = []
+    bspec_anti: List[Tuple[int, ...]] = []
+    bspec_pref: List[Tuple[Tuple[int, float], ...]] = []
     records: Dict[str, _BoundRec] = {}
     rec_ni: List[int] = []
     rec_req: List[int] = []
+    rec_spec: List[int] = []
     for q in bound:
-        _check_pod(q, False, node_images)
+        _check_pod(q, False)
         ni = node_index.get(q.node_name)
         if ni is None:
             continue
@@ -314,37 +417,102 @@ def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: Wav
         if ru is None:
             ru = breq_uniq_ids[rkey] = len(breq_uniq)
             breq_uniq.append(pod_effective_requests(q, resources))
+        skey = _bound_spec_key(q)
+        su = bspec_ids.get(skey)
+        if su is None:
+            su = bspec_ids[skey] = len(bspec_reps)
+            bspec_reps.append(q)
+            anti, pref = _bound_term_ids(voc, q, hpaw, intern=True)
+            bspec_anti.append(anti)
+            bspec_pref.append(pref)
+        for proto, port in q.host_ports:
+            voc.ports.intern((proto, port))
         if q.uid in records:
             raise ValueError(f"duplicate bound pod uid {q.uid!r} in snapshot")
-        records[q.uid] = (ni, ru, q)
+        records[q.uid] = (ni, ru, su, tuple(voc.ports.get(pp) for pp in q.host_ports),
+                          bspec_anti[su], bspec_pref[su], q)
         rec_ni.append(ni)
         rec_req.append(ru)
+        rec_spec.append(su)
+
+    # --- topology keys and domains over the node set ---
+    for tk in [tm.topology_key for tm in voc.terms.items]:
+        voc.topo_keys.intern(tk)
+    K = max(1, len(voc.topo_keys))
+    for nd in nodes:
+        for tk in voc.topo_keys.items:
+            if tk in nd.labels:
+                voc.domains.intern((tk, nd.labels[tk]))
+    D = len(voc.domains)
+    node_dom = np.full((K, max(1, n)), D, dtype=np.int32)
+    for i, nd in enumerate(nodes):
+        for k, tk in enumerate(voc.topo_keys.items):
+            if tk in nd.labels:
+                node_dom[k, i] = voc.domains.get((tk, nd.labels[tk]))
+    T2 = max(1, len(voc.terms))
+    term_key = np.zeros(T2, dtype=np.int32)
+    for ti, term in enumerate(voc.terms.items):
+        term_key[ti] = voc.topo_keys.get(term.topology_key)
+
+    terms_list = list(voc.terms.items)
+    m_cols: List[np.ndarray] = []
+    if bspec_reps and terms_list:
+        m_u = _match_matrix(terms_list, bspec_reps)  # [T2, Ub]
+        m_cols = [np.ascontiguousarray(m_u[:, j]) for j in range(m_u.shape[1])]
+    elif bspec_reps:
+        m_cols = [np.zeros(T2, dtype=np.float32) for _ in bspec_reps]
 
     cs = ClusterSide(
-        wfp=wfp, nodes=list(nodes), nodes_fp=_nodes_fp(nodes), node_index=node_index,
-        node_images=node_images, lab=lab, node_labels=node_labels, taints=taints, taint_objs=taint_objs,
-        node_taint_ns=node_taint_ns,
-        has_prefer_taints=any(tn.effect == t.PREFER_NO_SCHEDULE for tn in taint_objs),
+        wfp=wfp, hpaw=hpaw, nodes=list(nodes), nodes_fp=_nodes_fp(nodes), node_index=node_index,
+        lab=lab, node_labels=node_labels, taints=taints, taint_objs=taint_objs,
+        node_taint_ns=node_taint_ns, node_taint_pref=node_taint_pref,
         alloc_raw=alloc_raw, alloc_uniq=np.unique(alloc_raw, axis=0) if n else np.zeros((1, R), np.int64),
-        used_raw=used_raw, breq_uniq_ids=breq_uniq_ids, breq_uniq=breq_uniq, records=records,
+        used_raw=used_raw, breq_uniq_ids=breq_uniq_ids, breq_uniq=breq_uniq,
+        voc=voc, terms_list=terms_list, node_dom=node_dom, term_key=term_key,
+        term_counts0=np.zeros((T2, D + 1), dtype=np.float32),
+        anti_counts0=np.zeros((T2, D + 1), dtype=np.float32),
+        pref_own0=np.zeros((T2, D + 1), dtype=np.float32),
+        bspec_ids=bspec_ids, m_cols=m_cols, bspec_anti=bspec_anti, bspec_pref=bspec_pref,
+        node_port_count=np.zeros((max(1, n), max(1, len(voc.ports))), dtype=np.int32),
+        records=records,
     )
-    _apply_bound_batch(cs, np.array(rec_ni, dtype=np.int64), np.array(rec_req, dtype=np.int64), sign=1)
+    _apply_bound_batch(cs, np.array(rec_ni, dtype=np.int64), np.array(rec_req, dtype=np.int64),
+                       np.array(rec_spec, dtype=np.int64), list(records.values()), sign=1)
     return cs
 
 
-def _apply_bound_batch(cs: ClusterSide, ni: np.ndarray, req_u: np.ndarray, sign: int) -> None:
+def _apply_bound_batch(cs: ClusterSide, ni: np.ndarray, req_u: np.ndarray, spec_u: np.ndarray,
+                       recs: List[_BoundRec], sign: int) -> None:
     """Scatter-add (sign=+1) or -subtract (sign=-1) a batch of bound-pod
-    requests.  Integer sums, so the order cannot change the result."""
+    contributions.  Every sum is integer-valued (weights are exact in f32
+    below 2^24), so the order cannot change the result."""
     if len(ni) == 0:
         return
     np.add.at(cs.used_raw, ni, np.int64(sign) * np.array(cs.breq_uniq, dtype=np.int64)[req_u])
+    if cs.terms_list:
+        uniq, uinv = np.unique(spec_u, return_inverse=True)
+        m_u = np.stack([cs.m_cols[int(u)] for u in uniq], axis=1)  # [T2, Uq]
+        m = m_u[:, uinv]  # [T2, B]
+        dom_cols = cs.node_dom[cs.term_key][:, ni]  # [T2, B]
+        fs = np.float32(sign)
+        for ti in np.flatnonzero(m_u.any(axis=1)):
+            np.add.at(cs.term_counts0[ti], dom_cols[ti], fs * m[ti])
+    for rec in recs:
+        ni_r = rec[_NI]
+        for ti in rec[_ANTI_IDS]:
+            cs.anti_counts0[ti, cs.node_dom[cs.term_key[ti], ni_r]] += np.float32(sign)
+        for ti, w in rec[_PREF]:
+            cs.pref_own0[ti, cs.node_dom[cs.term_key[ti], ni_r]] += np.float32(sign) * np.float32(w)
+        for pid in rec[_PORT_IDS]:
+            cs.node_port_count[ni_r, pid] += sign
 
 
 def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
     """Absorb the bound-pod diff (binds + deletes since the last cycle) into
     the resident cluster side.  Raises _Fallback when a new bound pod needs a
-    resource kind the cache lacks, and NotImplementedError (through _refuse)
-    when it brings a feature the slice does not port."""
+    vocabulary entry the cache lacks (a term, a host port, a resource kind),
+    and NotImplementedError (through _refuse) before anything moves when it
+    brings a feature the port does not have."""
     cur: Dict[str, t.Pod] = {}
     for q in bound:
         if q.node_name in cs.node_index:
@@ -366,13 +534,16 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
     if not gone and not new:
         cs.last_dirty_nodes = _EMPTY_DIRTY
         return
+    for q in new:
+        if q.pvcs or q.resource_claims:
+            _check_pod(q, False)
     resources = list(cs.wfp.resources)
     res_set = set(resources)
+    fresh_specs: List[t.Pod] = []
 
-    def _spec_info(q) -> int:
-        """The request row of a bound pod (the part that sorts), once per
+    def _spec_info(q) -> Tuple[int, int, Tuple[int, ...]]:
+        """(request row, spec row, port ids): the sorting part, once per
         unique spec."""
-        _check_pod(q, False, cs.node_images)
         if any(k not in res_set for k in q.requests):
             raise _Fallback("new resource kind from bound pod")
         rkey = tuple(sorted(q.requests.items()))
@@ -380,7 +551,21 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
         if ru is None:
             ru = cs.breq_uniq_ids[rkey] = len(cs.breq_uniq)
             cs.breq_uniq.append(pod_effective_requests(q, resources))
-        return ru
+        skey = _bound_spec_key(q)
+        su = cs.bspec_ids.get(skey)
+        if su is None:
+            anti, pref = _bound_term_ids(cs.voc, q, cs.hpaw, intern=False)
+            su = cs.bspec_ids[skey] = len(cs.bspec_ids)
+            cs.bspec_anti.append(anti)
+            cs.bspec_pref.append(pref)
+            fresh_specs.append(q)
+        port_ids = []
+        for pp in q.host_ports:
+            pid = cs.voc.ports.get(pp)
+            if pid is None:
+                raise _Fallback("new host port from bound pod")
+            port_ids.append(pid)
+        return ru, su, tuple(port_ids)
 
     add_recs: List[_BoundRec] = []
     # a 50k-pod wave's absorb runs this loop 50k times per cycle: locals for
@@ -389,6 +574,7 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
     wave_store = cs.wave_store
     rb = cs.rep_bound_info
     node_index = cs.node_index
+    anti_l, pref_l = cs.bspec_anti, cs.bspec_pref
     append = add_recs.append
     for q in new:
         packed = wave_pop(q.uid, None)
@@ -415,11 +601,17 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
             if ent is None or ent[0] is not rep:
                 ent = (rep, _spec_info(rep))
                 rb[id(rep)] = ent
-            ru = ent[1]
+            ru, su, port_ids = ent[1]
         else:
-            ru = _spec_info(q)
-        append((node_index[q.node_name], ru, q))
-    # every check passed: only now does the resident state move
+            ru, su, port_ids = _spec_info(q)
+        append((node_index[q.node_name], ru, su, port_ids, anti_l[su], pref_l[su], q))
+    if fresh_specs:
+        if cs.terms_list:
+            m_new = _match_matrix(cs.terms_list, fresh_specs)
+            cs.m_cols.extend(np.ascontiguousarray(m_new[:, j]) for j in range(len(fresh_specs)))
+        else:
+            cs.m_cols.extend(np.zeros(max(1, len(cs.terms_list)), dtype=np.float32) for _ in fresh_specs)
+    # every vocabulary check passed: only now does the resident state move
     cs.stats["deltas"] += 1
     cs.mut_version += 1
     dirty_ni: List[int] = []
@@ -427,24 +619,31 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
         recs = [cs.records.pop(uid) for uid in gone]
         dirty_ni.extend(r[_NI] for r in recs)
         _apply_bound_batch(cs, np.array([r[_NI] for r in recs], dtype=np.int64),
-                           np.array([r[_REQ_U] for r in recs], dtype=np.int64), sign=-1)
+                           np.array([r[_REQ_U] for r in recs], dtype=np.int64),
+                           np.array([r[_SPEC_U] for r in recs], dtype=np.int64), recs, sign=-1)
     if add_recs:
         for rec in add_recs:
             cs.records[rec[_OBJ].uid] = rec
         dirty_ni.extend(r[_NI] for r in add_recs)
         _apply_bound_batch(cs, np.array([r[_NI] for r in add_recs], dtype=np.int64),
-                           np.array([r[_REQ_U] for r in add_recs], dtype=np.int64), sign=1)
+                           np.array([r[_REQ_U] for r in add_recs], dtype=np.int64),
+                           np.array([r[_SPEC_U] for r in add_recs], dtype=np.int64), add_recs, sign=1)
     cs.last_dirty_nodes = np.unique(np.array(dirty_ni, dtype=np.int64))
 
 
 def _wave_compatible(cs: ClusterSide, wfp: WaveFingerprint) -> bool:
     """A cached cluster side serves a new wave EXACTLY (equal fingerprint)
-    or as a SUPERSET (every referenced label key and resource kind already
-    there; surplus label literals and resource columns are inert, so the
-    decisions are the same)."""
+    or as a SUPERSET (every label key, resource kind, term and port the wave
+    needs already there; surplus entries are inert, so the decisions are
+    the same)."""
     if cs.wfp == wfp:
         return True
-    return wfp.referenced_keys <= cs.wfp.referenced_keys and set(wfp.resources) <= set(cs.wfp.resources)
+    return (
+        wfp.referenced_keys <= cs.wfp.referenced_keys
+        and set(wfp.resources) <= set(cs.wfp.resources)
+        and all(tk in cs.voc.terms for tk in wfp.term_seq)
+        and all(pp in cs.voc.ports for pp in wfp.port_seq)
+    )
 
 
 # --------------------------------------------------------------------------
@@ -482,7 +681,10 @@ class _Staging:
 
 # host dtype -> tensor dtype; packed words (uint32) travel as int32 bit
 # patterns (ops/bitplane.py)
-_TORCH_OF = {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32, np.dtype(np.uint32): torch.int32}
+_TORCH_OF = {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32, np.dtype(np.uint32): torch.int32,
+             np.dtype(np.float32): torch.float32}
+# bf16 planes (image_score) travel as their uint16 bit patterns
+_BITS_OF = {np.dtype(np.uint16): (np.int16, torch.bfloat16)}
 
 
 # --------------------------------------------------------------------------
@@ -499,8 +701,11 @@ class DeltaEncoder:
     `device` (the card unless the caller passes device="cpu"),
     ``encode_device`` does both.  ``stats`` counts full and delta cycles."""
 
-    def __init__(self, device=None, *, debug_verify: bool = False):
+    def __init__(self, device=None, *, hard_pod_affinity_weight: float = 1.0, debug_verify: bool = False):
         self.device = resolve_device(device)
+        # bound pods' required-affinity terms score toward incoming pods at
+        # this weight (the JAX DeltaEncoder's hard_pod_affinity_weight)
+        self.hpaw = hard_pod_affinity_weight
         self._cs: Optional[ClusterSide] = None
         self._dev: Dict[str, Tuple] = {}  # field -> (host array, device tensor)
         self.stats = {"full": 0, "delta": 0, "verified": 0}
@@ -529,7 +734,7 @@ class DeltaEncoder:
         raw_nodes_fp, _ = raw_fingerprints(snap)
         wfp = wave_fingerprint(reps, resources)
         cs = self._cs
-        if cs is not None and cs.raw_nodes_fp == raw_nodes_fp and _wave_compatible(cs, wfp):
+        if cs is not None and cs.hpaw == self.hpaw and cs.raw_nodes_fp == raw_nodes_fp and _wave_compatible(cs, wfp):
             try:
                 sync_bound(cs, snap.bound_pods)
                 self.stats["delta"] += 1
@@ -541,13 +746,13 @@ class DeltaEncoder:
         else:
             cs = None
         if cs is None:
-            cs = build_cluster_side(snap.nodes, snap.bound_pods, wfp)
+            cs = build_cluster_side(snap.nodes, snap.bound_pods, wfp, self.hpaw)
             cs.raw_nodes_fp = raw_nodes_fp
             cs.raw_refs = raw_keepalive_refs(snap)
             cs.stats["rebuilds"] += 1
             self._cs = cs
             self.stats["full"] += 1
-        _check_pending(reps, wave_pods, cs.node_images)
+        _check_pending(reps, wave_pods)
         # remember this wave's specs so the next cycle's bind-absorb is O(1)
         # per pod; size-capped so never-scheduled uids cannot pile up
         if len(cs.wave_ix) > 4 * (len(cs.records) + len(wave_pods) + 1024):
@@ -571,12 +776,16 @@ class DeltaEncoder:
     def _verify_against_rebuild(cs: ClusterSide, snap) -> None:
         """debug_verify: the synced cluster side must equal a fresh rebuild
         (an in-place Node/Pod mutation defeats the identity checks)."""
-        fresh = build_cluster_side(snap.nodes, snap.bound_pods, cs.wfp)
-        if cs.used_raw.shape == fresh.used_raw.shape and not np.array_equal(cs.used_raw, fresh.used_raw):
-            raise AssertionError(
-                "delta debug_verify: used_raw diverged from rebuild (in-place Node/Pod mutation "
-                "defeating the identity fingerprint?)"
-            )
+        fresh = build_cluster_side(snap.nodes, snap.bound_pods, cs.wfp, cs.hpaw)
+        for name in ("used_raw", "term_counts0", "anti_counts0", "pref_own0", "node_port_count"):
+            a, b = getattr(cs, name), getattr(fresh, name)
+            # departed bound pods' terms stay interned in cs: only equal
+            # shapes are comparable
+            if a.shape == b.shape and not np.array_equal(a, b):
+                raise AssertionError(
+                    f"delta debug_verify: {name} diverged from rebuild (in-place Node/Pod mutation "
+                    "defeating the identity fingerprint?)"
+                )
 
     # -- device side --
     def encode_device(self, snap):
@@ -598,7 +807,11 @@ class DeltaEncoder:
         the card through pinned staging on the copy stream (the caller
         makes the compute stream wait)."""
         a = np.ascontiguousarray(a)
-        dt = _TORCH_OF[a.dtype]
+        if a.dtype in _BITS_OF:
+            carrier, dt = _BITS_OF[a.dtype]
+            a = a.view(carrier)
+        else:
+            dt = _TORCH_OF[a.dtype]
         if self.device.type == "cpu":
             return torch.from_numpy(a.copy()).view(dt)
         if self._copy_stream is None:
@@ -655,7 +868,7 @@ class DeltaEncoder:
             out[name] = d
         if copied and self.device.type != "cpu":
             self._fence()
-        return ClusterArrays(**out, has_prefer_taints=arr.has_prefer_taints, has_node_pref=arr.has_node_pref), meta
+        return ClusterArrays(**out), meta
 
 
 def _cached(cs: ClusterSide, name: str, key, builder):
@@ -670,10 +883,10 @@ def _cached(cs: ClusterSide, name: str, key, builder):
     return a
 
 
-def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, T: int, L: int, req_s):
+def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, N: int, T: int, L: int, req_s):
     """Every wave-derived (pod-side) array, built per unique spec and
-    scattered through inv; cached as a unit by _assemble.  -> (dict of
-    arrays, whether a pod carries a preferred node-affinity term)."""
+    scattered through inv; cached as a unit by _assemble (the JAX package's
+    api/delta.py:1228, without the gang part: pod groups are refused)."""
     U = len(reps)
     R = len(cs.wfp.resources)
     Uq = max(1, U)
@@ -683,31 +896,36 @@ def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, T: int, L: int, req_s)
     taint_is_pref = np.array([tn.effect == t.PREFER_NO_SCHEDULE for tn in taint_objs], dtype=bool)
     table = v.TermTable()
     term_lists: List[List[int]] = []
-    has_node_pref = False
+    pref_lists: List[List[Tuple[int, float]]] = []
     u_valid = np.zeros(Uq, dtype=bool)
     u_prio = np.zeros(Uq, dtype=np.int32)
     u_tol = np.ones((Uq, T), dtype=bool)
+    u_tol_pref = np.ones((Uq, T), dtype=bool)
     u_pin = np.full(Uq, -1, dtype=np.int32)
     for ui, pod in enumerate(reps):
         u_valid[ui] = not pod.scheduling_gates
         u_prio[ui] = pod.priority
         if pod.tolerations:
             for tid, taint in enumerate(taint_objs):
-                if not taint_is_pref[tid]:
-                    u_tol[ui, tid] = any(tol.tolerates(taint) for tol in pod.tolerations)
+                tol = any(x.tolerates(taint) for x in pod.tolerations)
+                if taint_is_pref[tid]:
+                    u_tol_pref[ui, tid] = tol
+                else:
+                    u_tol[ui, tid] = tol
         elif taint_objs:
             u_tol[ui] = taint_is_pref
+            u_tol_pref[ui] = ~taint_is_pref
         if pod.node_name:
             u_pin[ui] = cs.node_index.get(pod.node_name, -2)
         terms = v.pod_required_node_terms(pod, cs.lab)
         term_lists.append([] if terms is None else [table.intern(tm) for tm in terms])
+        prefs: List[Tuple[int, float]] = []
         if pod.affinity:
-            # preferred terms share the term table, as in the JAX encoder;
-            # their score stage is refused by ops.schedule_batch
             for pt in pod.affinity.preferred_node_terms:
                 if pt.preference.match_expressions:
-                    table.intern(v.lower_node_term(pt.preference.match_expressions, cs.lab))
-                    has_node_pref = True
+                    prefs.append((table.intern(v.lower_node_term(pt.preference.match_expressions, cs.lab)),
+                                  float(pt.weight)))
+        pref_lists.append(prefs)
     TT = max(1, max((len(x) for x in term_lists), default=1))
     u_terms = np.full((Uq, TT), -1, dtype=np.int32)
     u_has_sel = np.zeros(Uq, dtype=bool)
@@ -715,25 +933,100 @@ def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, T: int, L: int, req_s)
         if ids:
             u_has_sel[ui] = True
             u_terms[ui, : len(ids)] = ids
-    pod_valid = np.zeros(P, dtype=bool)
-    pod_prio = np.zeros(P, dtype=np.int32)
-    pod_tol_ns = np.ones((P, T), dtype=bool)
-    pod_nodename = np.full(P, -1, dtype=np.int32)
-    pod_terms = np.full((P, TT), -1, dtype=np.int32)
-    pod_has_sel = np.zeros(P, dtype=bool)
-    if p:
-        pod_valid[:p] = u_valid[inv]
-        pod_prio[:p] = u_prio[inv]
-        pod_tol_ns[:p] = u_tol[inv]
-        pod_nodename[:p] = u_pin[inv]
-        pod_terms[:p] = u_terms[inv]
-        pod_has_sel[:p] = u_has_sel[inv]
+    PW = max(1, max((len(x) for x in pref_lists), default=1))
+    u_pref_terms = np.full((Uq, PW), -1, dtype=np.int32)
+    u_pref_weights = np.zeros((Uq, PW), dtype=np.float32)
+    for ui, prefs in enumerate(pref_lists):
+        for a, (tid, w) in enumerate(prefs):
+            u_pref_terms[ui, a] = tid
+            u_pref_weights[ui, a] = w
     sel_mask, sel_kind = table.encode(L)
+
+    # --- pairwise wave side against the resident vocabulary ---
+    T2 = max(1, len(cs.voc.terms))
+    get = cs.voc.terms.get
+    pod_aff, pod_anti, pod_prefp, pod_spread = [], [], [], []
+    for pod in reps:
+        aff, anti, pref, spread = _pod_pairwise_terms(pod)
+        pod_aff.append([get(tk) for tk in aff])
+        pod_anti.append([get(tk) for tk in anti])
+        pod_prefp.append([(get(tk), w) for tk, w in pref])
+        pod_spread.append([(get(tk), skew, mode) for tk, skew, mode in spread])
+    m_pend = np.zeros((T2, P), dtype=np.float32)
+    m_uniq = None
+    if p and cs.terms_list:
+        m_uniq = _match_matrix(cs.terms_list, list(reps))  # [T2, U]
+        m_pend[:, :p] = m_uniq[:, inv]
+    A1 = max(1, max((len(x) for x in pod_aff), default=1))
+    A2 = max(1, max((len(x) for x in pod_anti), default=1))
+    B = max(1, max((len(x) for x in pod_prefp), default=1))
+    C = max(1, max((len(x) for x in pod_spread), default=1))
+    u_aff = np.full((Uq, A1), -1, dtype=np.int32)
+    u_anti = np.full((Uq, A2), -1, dtype=np.int32)
+    u_pref_t = np.full((Uq, B), -1, dtype=np.int32)
+    u_pref_w = np.zeros((Uq, B), dtype=np.float32)
+    u_spread_t = np.full((Uq, C), -1, dtype=np.int32)
+    u_spread_skew = np.zeros((Uq, C), dtype=np.int32)
+    u_spread_hard = np.zeros((Uq, C), dtype=bool)
+    for ui in range(U):
+        for a, ti in enumerate(pod_aff[ui]):
+            u_aff[ui, a] = ti
+        for a, ti in enumerate(pod_anti[ui]):
+            u_anti[ui, a] = ti
+        for a, (ti, w) in enumerate(pod_prefp[ui]):
+            u_pref_t[ui, a] = ti
+            u_pref_w[ui, a] = np.float32(w)
+        for c, (ti, skew, mode) in enumerate(pod_spread[ui]):
+            u_spread_t[ui, c] = ti
+            u_spread_skew[ui, c] = skew
+            u_spread_hard[ui, c] = mode == HARD
+    # matched-term slots: per unique spec, the nonzero entries of its m_pend
+    # column (M rounded up to a power of two); and the self-match bit of each
+    # own required-affinity slot (the waiver's input)
+    MM = 1
+    u_mt = np.full((Uq, 1), -1, dtype=np.int32)
+    u_mv = np.zeros((Uq, 1), dtype=np.float32)
+    u_aself = np.zeros((Uq, A1), dtype=bool)
+    if m_uniq is not None:
+        nz = [np.flatnonzero(m_uniq[:, ui]) for ui in range(U)]
+        MM = _round_up_pow2(max((len(z) for z in nz), default=1), minimum=1)
+        u_mt = np.full((Uq, MM), -1, dtype=np.int32)
+        u_mv = np.zeros((Uq, MM), dtype=np.float32)
+        for ui, z in enumerate(nz):
+            u_mt[ui, : len(z)] = z
+            u_mv[ui, : len(z)] = m_uniq[z, ui]
+        rows, cols = np.nonzero(u_aff[:U] >= 0)
+        if len(rows):
+            u_aself[rows, cols] = m_uniq[u_aff[rows, cols], rows] > 0
+
+    # --- host ports ---
+    PT = cs.node_port_count.shape[1]
+    u_ports = np.zeros((Uq, PT), dtype=bool)
+    for ui, pod in enumerate(reps):
+        for pp in pod.host_ports:
+            u_ports[ui, cs.voc.ports.get(pp)] = True
+
+    def rows(u_arr, fill, dtype):
+        out = np.full((P,) + u_arr.shape[1:], fill, dtype=dtype)
+        if p:
+            out[:p] = u_arr[inv]
+        return out
+
     return dict(
-        pod_valid=pod_valid, pod_req=pod_req, pod_prio=pod_prio, pod_tol_ns=pod_tol_ns,
-        pod_nodename=pod_nodename, pod_terms=pod_terms, pod_has_sel=pod_has_sel,
-        sel_mask=sel_mask, sel_kind=sel_kind,
-    ), has_node_pref
+        pod_valid=rows(u_valid, False, bool), pod_req=pod_req, pod_prio=rows(u_prio, 0, np.int32),
+        pod_tol_ns=rows(u_tol, True, bool), pod_tol_pref=rows(u_tol_pref, True, bool),
+        pod_nodename=rows(u_pin, -1, np.int32), pod_terms=rows(u_terms, -1, np.int32),
+        pod_has_sel=rows(u_has_sel, False, bool), sel_mask=sel_mask, sel_kind=sel_kind,
+        pod_pref_terms=rows(u_pref_terms, -1, np.int32), pod_pref_weights=rows(u_pref_weights, 0, np.float32),
+        m_pend=m_pend, pod_match_terms=rows(u_mt, -1, np.int32), pod_match_vals=rows(u_mv, 0, np.float32),
+        pod_aff_self=rows(u_aself, False, bool), pod_aff_terms=rows(u_aff, -1, np.int32),
+        pod_anti_terms=rows(u_anti, -1, np.int32), pod_pref_aff_terms=rows(u_pref_t, -1, np.int32),
+        pod_pref_aff_w=rows(u_pref_w, 0, np.float32), pod_spread_terms=rows(u_spread_t, -1, np.int32),
+        pod_spread_maxskew=rows(u_spread_skew, 0, np.int32), pod_spread_hard=rows(u_spread_hard, False, bool),
+        pod_ports=rows(u_ports, False, bool),
+        pod_group=np.full(P, -1, dtype=np.int32), group_min=np.ones(1, dtype=np.int32),
+        image_score=_image_score_matrix(cs.nodes, reps, inv, N, P),
+    )
 
 
 def _class_index(inv: np.ndarray, U: int, p: int, P: int):
@@ -803,23 +1096,39 @@ def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, re
     T = cs.node_taint_ns.shape[1]
     node_labels = _cached(cs, "node_labels", N, lambda: _pad2(cs.node_labels, bool))
     node_taint_ns = _cached(cs, "node_taint_ns", N, lambda: _pad2(cs.node_taint_ns, bool))
+    node_taint_pref = _cached(cs, "node_taint_pref", N, lambda: _pad2(cs.node_taint_pref, bool))
 
     # --- pod side, per unique spec ---
     pod_key = (rep_keys, inv.tobytes(), P, skey)
     ent = cs.pad_cache.get("podside")
     if ent is not None and ent[0] == pod_key:
-        ps, has_node_pref = ent[1]
+        ps = ent[1]
     else:
         req_s = -(-req_raw // scale)
-        ps, has_node_pref = _pod_side(cs, reps, inv, p, P, T, L, req_s)
-        cs.pad_cache["podside"] = (pod_key, (ps, has_node_pref))
+        ps = _pod_side(cs, reps, inv, p, P, N, T, L, req_s)
+        cs.pad_cache["podside"] = (pod_key, ps)
+
+    K = cs.node_dom.shape[0]
+    D1 = cs.term_counts0.shape[1]
+
+    def _dom():
+        a = np.full((K, N), D1 - 1, dtype=np.int32)
+        if n:
+            a[:, :n] = cs.node_dom[:, :n]
+        return a
 
     pod_class, class_first = _cached(cs, "class_index", (P, U, p, inv.tobytes()),
                                      lambda: _class_index(inv, U, p, P))
     arrays = ClusterArrays(
         node_valid=node_valid, node_alloc=node_alloc, node_used=node_used, node_unsched=node_unsched,
-        node_labels=node_labels, node_taint_ns=node_taint_ns, **ps,
-        has_prefer_taints=cs.has_prefer_taints, has_node_pref=has_node_pref,
+        node_labels=node_labels, node_taint_ns=node_taint_ns, node_taint_pref=node_taint_pref,
+        node_dom=_cached(cs, "node_dom", N, _dom),
+        term_key=_cached(cs, "term_key", 0, cs.term_key.copy),
+        term_counts0=_cached(cs, "term_counts0", cs.mut_version, cs.term_counts0.copy),
+        anti_counts0=_cached(cs, "anti_counts0", cs.mut_version, cs.anti_counts0.copy),
+        pref_own0=_cached(cs, "pref_own0", cs.mut_version, cs.pref_own0.copy),
+        node_ports0=_cached(cs, "node_ports0", (N, cs.mut_version), lambda: _pad2(cs.node_port_count > 0, bool)),
+        **ps,
     )
     meta = EncodingMeta(
         node_names=[nd.name for nd in nodes],

@@ -29,13 +29,10 @@ T taint vocab, S node-selector terms, E exprs/term, TT terms/pod — padded):
 Pending pods are sorted into activeQ order (priority desc, then arrival), so
 tensor index == commit order in ops/assign.py.
 
-This slice ports the fit-only stage set.  A snapshot that needs a stage the
-port does not have yet (pod (anti-)affinity, topology spread, host ports,
-images, volumes, resource claims, pod groups) raises NotImplementedError
-in the encoder (``_refuse``); it is never dropped.  PreferNoSchedule taints
-and preferred node affinity are recorded as evidence flags, so
-``ops.infer_score_config`` enables those stages exactly as the JAX package
-would, and ``ops.schedule_batch`` then refuses them.
+The pairwise, port, preferred-term and image fields are listed on
+``ClusterArrays``.  A snapshot that needs what the port does not have yet
+(volumes, resource claims, pod groups) raises NotImplementedError in the
+encoder (``_refuse``); it is never dropped.
 """
 
 from __future__ import annotations
@@ -104,27 +101,67 @@ class EncodingMeta:
     n_classes: int = 0
 
 
-# pod-axis fields (axis 0 is P) — what a pod prefix slices
+# pod-axis fields (axis 0 is P) — what a pod prefix slices (m_pend is the
+# one field whose pod axis is its last)
 POD_FIELDS = (
-    "pod_valid", "pod_req", "pod_prio", "pod_tol_ns", "pod_nodename",
-    "pod_terms", "pod_has_sel",
+    "pod_valid", "pod_req", "pod_prio", "pod_tol_ns", "pod_tol_pref", "pod_nodename",
+    "pod_terms", "pod_has_sel", "pod_pref_terms", "pod_pref_weights", "pod_match_terms",
+    "pod_match_vals", "pod_aff_self", "pod_aff_terms", "pod_anti_terms", "pod_pref_aff_terms",
+    "pod_pref_aff_w", "pod_spread_terms", "pod_spread_maxskew", "pod_spread_hard", "pod_ports",
+    "pod_group", "image_score",
 )
-# field -> torch dtype
+# field -> torch dtype, in the JAX package's ClusterArrays order
 _DTYPES = {
     "node_valid": torch.bool, "node_alloc": torch.int32, "node_used": torch.int32,
     "node_unsched": torch.bool, "node_labels": torch.bool,
-    "node_taint_ns": torch.bool, "pod_valid": torch.bool,
+    "node_taint_ns": torch.bool, "node_taint_pref": torch.bool, "pod_valid": torch.bool,
     "pod_req": torch.int32, "pod_prio": torch.int32, "pod_tol_ns": torch.bool,
-    "pod_nodename": torch.int32, "pod_terms": torch.int32,
+    "pod_tol_pref": torch.bool, "pod_nodename": torch.int32, "pod_terms": torch.int32,
     "pod_has_sel": torch.bool, "sel_mask": torch.bool, "sel_kind": torch.int32,
+    "pod_pref_terms": torch.int32, "pod_pref_weights": torch.float32,
+    "node_dom": torch.int32, "term_key": torch.int32, "m_pend": torch.float32,
+    "pod_match_terms": torch.int32, "pod_match_vals": torch.float32, "pod_aff_self": torch.bool,
+    "term_counts0": torch.float32, "anti_counts0": torch.float32,
+    "pod_aff_terms": torch.int32, "pod_anti_terms": torch.int32,
+    "pod_pref_aff_terms": torch.int32, "pod_pref_aff_w": torch.float32, "pref_own0": torch.float32,
+    "pod_spread_terms": torch.int32, "pod_spread_maxskew": torch.int32, "pod_spread_hard": torch.bool,
+    "pod_ports": torch.bool, "node_ports0": torch.bool,
+    "pod_group": torch.int32, "group_min": torch.int32,
+    "image_score": torch.bfloat16,
 }
 
 
 @dataclass
 class ClusterArrays:
-    """The device-side snapshot: the fields the fit-only slice reads, as
-    contiguous tensors on one device, plus two host-side evidence flags for
-    the score stages this slice does not port."""
+    """The device-side snapshot, the JAX package's ClusterArrays field for
+    field (api/snapshot.py:127), as contiguous tensors on one device.
+
+    Beyond the fit-only fields of the module docstring (S preferred-term
+    slots PW, T2 pairwise terms over K topology keys and D domains — domain
+    id D: the node lacks the key —, M matched-term slots, A1/A2/B/C
+    affinity, anti-affinity, preferred and spread slots, PT host ports):
+
+      node_taint_pref[N, T]   bool  PreferNoSchedule taints
+      pod_tol_pref[P, T]      bool  True = pod tolerates PreferNoSchedule taint t
+      pod_pref_terms[P, PW]   i32   preferred node-affinity term ids into sel_*, -1 pad
+      pod_pref_weights[P, PW] f32
+      node_dom[K, N]          i32   domain of node n under key k
+      term_key[T2]            i32   topology key of each term
+      m_pend[T2, P]           f32   pending pod p matches term t's selector + namespaces
+      pod_match_terms[P, M]   i32   m_pend's nonzero rows per pod, -1 pad
+      pod_match_vals[P, M]    f32
+      pod_aff_self[P, A1]     bool  the pod matches its own required-affinity term
+      term_counts0[T2, D+1]   f32   bound pods matching term t per domain
+      anti_counts0[T2, D+1]   f32   bound pods owning anti-affinity term t per domain
+      pref_own0[T2, D+1]      f32   weight sums of bound pods owning preferred term t
+      pod_aff_terms[P, A1], pod_anti_terms[P, A2], pod_pref_aff_terms[P, B] i32
+      pod_pref_aff_w[P, B]    f32   signed weights (anti-affinity negative)
+      pod_spread_terms / pod_spread_maxskew[P, C] i32, pod_spread_hard[P, C] bool
+      pod_ports[P, PT], node_ports0[N, PT] bool
+      pod_group[P] i32 (-1), group_min[1] i32: empty, pod groups are refused
+      image_score             bf16  [P, N] ImageLocality scores, [P, 1] zeros
+                                    when no pod and node share an image
+    """
 
     node_valid: torch.Tensor
     node_alloc: torch.Tensor
@@ -132,19 +169,40 @@ class ClusterArrays:
     node_unsched: torch.Tensor
     node_labels: torch.Tensor
     node_taint_ns: torch.Tensor
+    node_taint_pref: torch.Tensor
     pod_valid: torch.Tensor
     pod_req: torch.Tensor
     pod_prio: torch.Tensor
     pod_tol_ns: torch.Tensor
+    pod_tol_pref: torch.Tensor
     pod_nodename: torch.Tensor
     pod_terms: torch.Tensor
     pod_has_sel: torch.Tensor
     sel_mask: torch.Tensor
     sel_kind: torch.Tensor
-    # some node carries a PreferNoSchedule taint (TaintToleration score stage)
-    has_prefer_taints: bool = False
-    # some pod carries a preferred node-affinity term (NodeAffinity score stage)
-    has_node_pref: bool = False
+    pod_pref_terms: torch.Tensor
+    pod_pref_weights: torch.Tensor
+    node_dom: torch.Tensor
+    term_key: torch.Tensor
+    m_pend: torch.Tensor
+    pod_match_terms: torch.Tensor
+    pod_match_vals: torch.Tensor
+    pod_aff_self: torch.Tensor
+    term_counts0: torch.Tensor
+    anti_counts0: torch.Tensor
+    pod_aff_terms: torch.Tensor
+    pod_anti_terms: torch.Tensor
+    pod_pref_aff_terms: torch.Tensor
+    pod_pref_aff_w: torch.Tensor
+    pref_own0: torch.Tensor
+    pod_spread_terms: torch.Tensor
+    pod_spread_maxskew: torch.Tensor
+    pod_spread_hard: torch.Tensor
+    pod_ports: torch.Tensor
+    node_ports0: torch.Tensor
+    pod_group: torch.Tensor
+    group_min: torch.Tensor
+    image_score: torch.Tensor
 
     @property
     def N(self) -> int:
@@ -173,18 +231,52 @@ class ClusterArrays:
     def pod_prefix(self, k: int) -> "ClusterArrays":
         """The first k pods (activeQ order).  A prefix of the commit scan is
         itself a scan: the first k pods' choices do not depend on later pods."""
-        return replace(self, **{f: getattr(self, f)[:k].contiguous() for f in POD_FIELDS})
+        out = {f: getattr(self, f)[:k].contiguous() for f in POD_FIELDS}
+        out["m_pend"] = self.m_pend[:, :k].contiguous()
+        return replace(self, **out)
 
     @classmethod
-    def from_numpy(cls, arrays: Dict[str, np.ndarray], device, **flags) -> "ClusterArrays":
+    def from_numpy(cls, arrays: Dict[str, np.ndarray], device) -> "ClusterArrays":
+        """From host arrays (the JAX package's field names and dtypes; a bf16
+        field comes as its uint16 bit patterns or as ml_dtypes bf16).  A
+        field beyond the fit-only ones that is missing takes the value the
+        encoder gives a snapshot without that feature (no_feature_fields)."""
+        from ..ops.bitplane import bf16_of_np, quantize_scores_np
+
         dev = torch.device(device)
+        arrays = {**no_feature_fields(len(arrays["pod_req"]), len(arrays["node_alloc"]),
+                                      np.shape(arrays["node_taint_ns"])[1]), **arrays}
         out = {}
         for name, dt in _DTYPES.items():
             a = np.array(arrays[name])  # a writable, contiguous copy
-            if dt is torch.bool:
-                a = a != 0
-            out[name] = torch.from_numpy(a).to(dt).to(dev)
-        return cls(**out, **flags)
+            if dt is torch.bfloat16:
+                x = bf16_of_np(a if a.dtype.itemsize == 2 else quantize_scores_np(a))
+            else:
+                if dt is torch.bool:
+                    a = a != 0
+                x = torch.from_numpy(a).to(dt)
+            out[name] = x.to(dev)
+        return cls(**out)
+
+
+def no_feature_fields(P: int, N: int, T: int) -> Dict[str, np.ndarray]:
+    """The arrays the encoder gives a snapshot with no preferred terms, no
+    pairwise terms, no host ports, no PreferNoSchedule taints and no images:
+    one empty slot each, one term whose key no node has (D = 0)."""
+    return dict(
+        node_taint_pref=np.zeros((N, T), bool), pod_tol_pref=np.ones((P, T), bool),
+        pod_pref_terms=np.full((P, 1), -1, np.int32), pod_pref_weights=np.zeros((P, 1), np.float32),
+        node_dom=np.zeros((1, N), np.int32), term_key=np.zeros(1, np.int32), m_pend=np.zeros((1, P), np.float32),
+        pod_match_terms=np.full((P, 1), -1, np.int32), pod_match_vals=np.zeros((P, 1), np.float32),
+        pod_aff_self=np.zeros((P, 1), bool), term_counts0=np.zeros((1, 1), np.float32),
+        anti_counts0=np.zeros((1, 1), np.float32), pod_aff_terms=np.full((P, 1), -1, np.int32),
+        pod_anti_terms=np.full((P, 1), -1, np.int32), pod_pref_aff_terms=np.full((P, 1), -1, np.int32),
+        pod_pref_aff_w=np.zeros((P, 1), np.float32), pref_own0=np.zeros((1, 1), np.float32),
+        pod_spread_terms=np.full((P, 1), -1, np.int32), pod_spread_maxskew=np.zeros((P, 1), np.int32),
+        pod_spread_hard=np.zeros((P, 1), bool), pod_ports=np.zeros((P, 1), bool),
+        node_ports0=np.zeros((N, 1), bool), pod_group=np.full(P, -1, np.int32), group_min=np.ones(1, np.int32),
+        image_score=np.zeros((P, 1), np.uint16),
+    )
 
 
 def _resource_axis(snap) -> List[str]:
@@ -229,6 +321,57 @@ def activeq_order(pods) -> np.ndarray:
     return np.argsort(-prio, kind="stable")
 
 
+_IMG_MIN_MB = 23.0  # imagelocality/image_locality.go — minThreshold (23 MB)
+_IMG_MAX_MB = 1000.0  # maxThreshold
+
+
+def image_score_value(sum_mb: float) -> np.float32:
+    """ImageLocality score from summed present-image megabytes (f32):
+    100 * (clip(sum) - min) / (max - min), rounded onto the bf16 lattice
+    (the JAX package's api/snapshot.py:247)."""
+    from ..ops.bitplane import bf16_round_np
+
+    s = np.float32(min(max(float(sum_mb), _IMG_MIN_MB), _IMG_MAX_MB))
+    return np.float32(bf16_round_np(
+        (s - np.float32(_IMG_MIN_MB)) * np.float32(100.0) / np.float32(_IMG_MAX_MB - _IMG_MIN_MB)))
+
+
+def _image_score_matrix(nodes, reps, inv, N: int, P: int) -> np.ndarray:
+    """ImageLocality scores as bf16 bit patterns (uint16) [P, N], or [P, 1]
+    zeros when no pending pod and node share an image (the JAX package's
+    api/snapshot.py:263).  Image sizes quantize to whole MB, so the sums are
+    integer-exact in f32; the product runs over the unique specs `reps` and
+    rows are gathered per pod through `inv`."""
+    from ..ops.bitplane import quantize_scores_np
+
+    img_ids: Dict[str, int] = {}
+    for pod in reps:
+        for im in pod.images:
+            img_ids.setdefault(im, len(img_ids))
+    if not img_ids or not any(nd.images for nd in nodes):
+        return np.zeros((P, 1), dtype=np.uint16)
+    I = len(img_ids)
+    node_mb = np.zeros((N, I), dtype=np.float32)
+    for i, nd in enumerate(nodes):
+        for im, size in nd.images.items():
+            j = img_ids.get(im)
+            if j is not None:
+                node_mb[i, j] = np.float32(size // (1024 * 1024))
+    pod_has = np.zeros((len(reps), I), dtype=np.float32)
+    for k, pod in enumerate(reps):
+        for im in pod.images:
+            pod_has[k, img_ids[im]] = 1.0
+    raw = pod_has @ node_mb.T  # integer-valued f32 MB sums, [U, N]
+    sc = np.clip(raw, _IMG_MIN_MB, _IMG_MAX_MB).astype(np.float32)
+    scored = ((sc - np.float32(_IMG_MIN_MB)) * np.float32(100.0)
+              / np.float32(_IMG_MAX_MB - _IMG_MIN_MB)).astype(np.float32)
+    scored = quantize_scores_np(scored)
+    out = np.zeros((P, N), dtype=np.uint16)  # zero == the empty-image score
+    if len(inv):
+        out[: len(inv)] = scored[inv]
+    return out
+
+
 def _node_taints(nd) -> list:
     # spec.unschedulable is the synthetic node.kubernetes.io/unschedulable
     # NoSchedule taint, so NodeUnschedulable falls out of the taint filter
@@ -244,7 +387,7 @@ def _pod_spec_key(pod) -> Tuple:
     work runs once per spec, and the keys ARE the equivalence classes
     (EncodingMeta.pod_class), which the class-wave route's commit order
     depends on, so they must partition pods exactly as the JAX encoder
-    does (labels and the other fields this slice refuses included)."""
+    does (labels included)."""
     return (
         tuple(sorted(pod.requests.items())),
         tuple(sorted(pod.labels.items())),

@@ -116,6 +116,31 @@ class LabelSelector:
     def of(**labels: str) -> "LabelSelector":
         return LabelSelector(match_labels=tuple(sorted(labels.items())))
 
+    def matches(self, labels: Dict[str, str]) -> bool:
+        """An empty selector matches everything (a missing one, None, matches
+        nothing: api/pairwise.py _matches)."""
+        for k, v in self.match_labels:
+            if labels.get(k) != v:
+                return False
+        for req in self.match_expressions:
+            has = req.key in labels
+            val = labels.get(req.key)
+            if req.operator == OP_IN:
+                if not has or val not in req.values:
+                    return False
+            elif req.operator == OP_NOT_IN:
+                if has and val in req.values:
+                    return False
+            elif req.operator == OP_EXISTS:
+                if not has:
+                    return False
+            elif req.operator == OP_DOES_NOT_EXIST:
+                if has:
+                    return False
+            else:
+                raise ValueError(f"bad label selector operator {req.operator}")
+        return True
+
 
 @dataclass(frozen=True)
 class PodAffinityTerm:

@@ -149,6 +149,15 @@ def lower_node_term(exprs: Iterable[t.NodeSelectorRequirement], vocab: LabelVoca
     return tuple(sorted(out, key=lambda e: (e[0], sorted(e[1]))))
 
 
+def label_selector_to_requirements(sel: t.LabelSelector) -> List[t.NodeSelectorRequirement]:
+    """metav1.LabelSelector -> requirement list (the node-term lowering
+    serves pod selectors too: api/pairwise.py _match_matrix)."""
+    reqs = [t.NodeSelectorRequirement(key=k, operator=t.OP_IN, values=(v,)) for k, v in sel.match_labels]
+    for e in sel.match_expressions:
+        reqs.append(t.NodeSelectorRequirement(key=e.key, operator=e.operator, values=e.values))
+    return reqs
+
+
 def pod_required_node_terms(pod: t.Pod, vocab: LabelVocab) -> Optional[List[Term]]:
     """The pod's hard node-selection constraint as an OR-of-conjunctions:
     spec.nodeSelector distributed into each required node-affinity term.

@@ -36,39 +36,89 @@ PHASES = (  # the order of the PH_* enum in csrc/wave_commit.cu
 REPS = 3
 
 
-def _build_phase_lib():
-    """Compile the instrumented library into the build directory; -> the
-    loaded library with ktt_wave_commit bound as the wrapper binds it."""
+def build_phase_lib(kernel: str, define: str, reader: str):
+    """Compile `kernel`'s source again with -D`define` (its phase counters)
+    into the build directory, in parallel with the normal build; -> (the
+    loaded library's `reader` entry, the C entry bound as the wrapper binds
+    it)."""
     from ..ops import kernels
 
+    src = kernels.CSRC / kernels.SOURCES[kernel]
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = kernels.BUILD_DIR / "libwave_commit-phases.so"
-    proc = subprocess.Popen(
-        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-DKTT_WAVE_PHASES", "-o", str(out),
-         str(kernels.CSRC / "wave_commit.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
-    kernels.build(["wave_commit", "class_static_hoist"])  # in parallel with the nvcc above
+    out = kernels.BUILD_DIR / f"lib{src.stem}-phases.so"
+    proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, f"-D{define}", "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    kernels.build()  # in parallel with the nvcc above
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for wave_commit.cu -DKTT_WAVE_PHASES:\n{log}")
+        raise RuntimeError(f"nvcc failed for {src.name} -D{define}:\n{log}")
     lib = ctypes.CDLL(str(out))
-    sym, argtypes = kernels._ARGTYPES["wave_commit"]
+    sym, argtypes = kernels._ARGTYPES[kernel]
     fn = getattr(lib, sym)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    lib.ktt_wave_phases.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    lib.ktt_wave_phases.restype = ctypes.c_int
-    return lib, fn
+    read = getattr(lib, reader)
+    read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    return read, fn
 
 
-def _read_phases(lib):
-    cycles = np.zeros(len(PHASES), dtype=np.uint64)
-    hits = np.zeros(len(PHASES), dtype=np.uint64)
-    err = lib.ktt_wave_phases(cycles.ctypes.data, hits.ctypes.data)
+def read_phases(read, n: int):
+    """(cycles, hits) uint64[n] of the phase counters, which the read zeroes."""
+    cycles = np.zeros(n, dtype=np.uint64)
+    hits = np.zeros(n, dtype=np.uint64)
+    err = read(cycles.ctypes.data, hits.ctypes.data)
     if err != 0:
-        raise RuntimeError(f"ktt_wave_phases failed: cudaError {err}")
+        raise RuntimeError(f"reading the phase counters failed: cudaError {err}")
     return cycles, hits
+
+
+def timed(kernel: str, fn, run, read=None, n_phases: int = 0, reps: int = REPS):
+    """(outputs of the last call, mean ms over `reps`) of run() with `fn` as
+    the wrapper's C entry for `kernel`, after one warm-up call (whose
+    `n_phases` phase counts, with `read`, are dropped)."""
+    import torch
+
+    from ..ops import kernels
+
+    normal = kernels._fn(kernel)
+    kernels._FNS[kernel] = fn
+    try:
+        out = run()
+        torch.cuda.synchronize()
+        if read is not None:
+            read_phases(read, n_phases)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            out = run()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end) / reps
+    finally:
+        kernels._FNS[kernel] = normal
+
+
+def report(tag: str, phases, cycles, hits, ms_phases: float, reps: int = REPS) -> dict:
+    """Print and return each phase's share of block 0's cycles and of the
+    instrumented launch's time."""
+    per_launch = cycles.astype(np.float64) / reps
+    total = float(per_launch.sum())
+    rows = {}
+    for i, (name, what) in enumerate(phases):
+        share = per_launch[i] / total
+        n = int(hits[i]) // reps
+        rows[name] = dict(cycles=per_launch[i], share=share, ms=share * ms_phases, runs=n,
+                          us_per_run=share * ms_phases * 1e3 / n if n else None)
+        print(f"[{tag}] {name:9s} {share * 100:6.2f}%  {share * ms_phases:9.3f} ms  runs {n:5d}  "
+              f"{(share * ms_phases * 1e3 / n) if n else 0.0:8.2f} us per run  -- {what}", flush=True)
+    return rows
+
+
+def card_name() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
 
 def main() -> int:
@@ -82,58 +132,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("wave_phases: no CUDA device", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
-    lib, phase_fn = _build_phase_lib()
+    card = card_name()
+    read, phase_fn = build_phase_lib("wave_commit", "KTT_WAVE_PHASES", "ktt_wave_phases")
     normal_fn = kernels._fn("wave_commit")
 
     arr, meta = encode_snapshot(workloads.heterogeneous(**workloads.NORTH_STAR))
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     inc = HoistCache().ensure(arr, meta, cfg)
 
-    def timed(fn):
-        """(outputs of the last launch, mean ms over REPS) of the wrapper
-        with `fn` as its C entry, after one warm-up launch."""
-        kernels._FNS["wave_commit"] = fn
-        try:
-            out = kernels.wave_commit(arr, inc, cfg)
-            torch.cuda.synchronize()
-            if fn is phase_fn:
-                _read_phases(lib)  # drop the warm-up's counts
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(REPS):
-                out = kernels.wave_commit(arr, inc, cfg)
-            end.record()
-            torch.cuda.synchronize()
-            return out, start.elapsed_time(end) / REPS
-        finally:
-            kernels._FNS["wave_commit"] = normal_fn
+    def run():
+        return kernels.wave_commit(arr, inc, cfg)
 
-    ref, ms_normal_a = timed(normal_fn)
-    got, ms_phases = timed(phase_fn)
-    cycles, hits = _read_phases(lib)
-    _, ms_normal_b = timed(normal_fn)
+    ref, ms_normal_a = timed("wave_commit", normal_fn, run)
+    got, ms_phases = timed("wave_commit", phase_fn, run, read, len(PHASES))
+    cycles, hits = read_phases(read, len(PHASES))
+    _, ms_normal_b = timed("wave_commit", normal_fn, run)
     for name, a, b in zip(("committed", "out", "ordinal", "used", "t0u", "n_blocks", "epochs"), ref, got):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         if not torch.equal(a, b):
             raise RuntimeError(f"the instrumented wave_commit's {name} differs from the normal build's")
     n_blocks, epochs = int(ref[5]), int(ref[6])
-    per_launch = cycles.astype(np.float64) / REPS
-    total = float(per_launch.sum())
-    rows = {}
     print(f"[wave-phases] {card} | north star P={arr.P} N={arr.N} U1={inc.req_u.shape[0]}: {n_blocks} blocks, "
           f"{epochs} epochs; instrumented {ms_phases:.3f} ms, normal {ms_normal_a:.3f} / {ms_normal_b:.3f} ms "
-          f"(before / after), block 0's cycles per launch {total:.0f}", flush=True)
-    for i, (name, what) in enumerate(PHASES):
-        share = per_launch[i] / total
-        n = int(hits[i]) // REPS
-        rows[name] = dict(cycles=per_launch[i], share=share, ms=share * ms_phases, runs=n,
-                          us_per_run=share * ms_phases * 1e3 / n if n else None)
-        print(f"[wave-phases] {name:9s} {share * 100:6.2f}%  {share * ms_phases:9.3f} ms  runs {n:5d}  "
-              f"{(share * ms_phases * 1e3 / n) if n else 0.0:8.2f} us per run  -- {what}", flush=True)
+          f"(before / after), block 0's cycles per launch {float(cycles.sum()) / REPS:.0f}", flush=True)
+    rows = report("wave-phases", PHASES, cycles, hits, ms_phases)
     print(json.dumps(dict(card=card, n_blocks=n_blocks, epochs=epochs, ms_instrumented=ms_phases,
                           ms_normal=[ms_normal_a, ms_normal_b], phases=rows)), flush=True)
     print(card, flush=True)

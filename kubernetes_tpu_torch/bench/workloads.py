@@ -1,8 +1,11 @@
 """Seeded synthetic snapshots.
 
-``basic`` and ``heterogeneous`` are copies of the JAX package's
-``bench/workloads.py`` generators: both draw from ``random.Random(seed)`` in
-the same order, so one seed builds the same snapshot in both packages.
+``basic``, ``heterogeneous`` and ``spread_affinity`` are copies of the JAX
+package's ``bench/workloads.py`` generators: each draws from
+``random.Random(seed)`` in the same order, so one seed builds the same
+snapshot in both packages.  ``spread_affinity(5000, 10000, seed=0)`` is
+BASELINE config 3 (P=10240, N=6144 after bucketing); ``all_stages`` turns
+every optional score and filter stage on at once.
 ``heterogeneous(20000, 50000, seed=0)`` is the north-star shape (P=51200,
 N=20480, R=5 after bucketing).  ``mixed`` is a small snapshot that drives
 every filter of the fit-only slice: nodeSelector, required node affinity
@@ -74,6 +77,24 @@ NORTH_STAR_WARM_ACTIONS: List[str] = ["static_rebuild", "hit", "full", "hit", "f
 WIDE_TAINTS = dict(n_nodes=2000, n_pods=5000)
 WIDE_TAINTS_SCHEDULED = 5000
 WIDE_TAINTS_CHOICES_SHA256 = "f1508798386437d40839a4b4d338967d5876d9d21f1d1f339f09a0df25c89ca5"
+# BASELINE config 3, spread_affinity(5000, 10000, seed=0) (P=10240, N=6144,
+# R=4, 80 terms, 5003 domains), through the JAX package's encoder: its
+# per-pod scan (the same script's config3 leg) -> the scheduled count and
+# the sha256 of choices[:n_pods]; its rounds route (KTPU_FORCE_CHUNKED=1,
+# the config3-rounds leg: 640 chunks of 16) -> the sweep count and the
+# sha256 of ordinals[:n_pods] (its choices hash to CONFIG3_CHOICES_SHA256).
+CONFIG3 = dict(n_nodes=5000, n_pods=10000, seed=0)
+CONFIG3_SCHEDULED = 10000
+CONFIG3_CHOICES_SHA256 = "0ed727a5e4bec796440ebbc8497ada5a0e3f6bb9d0f4aff48a6e7dfb187b7db0"
+CONFIG3_ROUNDS_SWEEPS = 1691
+CONFIG3_ROUNDS_ORDINALS_SHA256 = "9a80440cacec0772c847cf9bc518a7f41b5d4f494b6c7c254e0de048f88f04b8"
+# all_stages() (P=512, N=256, every optional stage on) through the JAX
+# package's encoder, per-pod scan and rounds kernel (the all-stages leg):
+# scheduled count, choices digest, sweeps and ordinals digest.
+ALL_STAGES_SCHEDULED = 510
+ALL_STAGES_CHOICES_SHA256 = "6518d422ee031a901d03bd5930f82657c0367789836ab29ee8a0d32d8e260fed"
+ALL_STAGES_ROUNDS_SWEEPS = 316
+ALL_STAGES_ROUNDS_ORDINALS_SHA256 = "0e41def53fba92103c3a7077e2b5817e309fd58c863d4a2e704570065bbebe16"
 
 
 def basic(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
@@ -341,4 +362,119 @@ def wide_taints(n_nodes: int = 2000, n_pods: int = 5000, n_taints: int = 80, see
             tolerations=tuple(t.Toleration(key=f"team-{k}", value="true", effect=t.NO_SCHEDULE) for k in teams),
             priority=rng.choice([0, 0, 100]),
         ))
+    return Snapshot(nodes=nodes, pending_pods=pods)
+
+
+def spread_affinity(n_nodes: int, n_pods: int, seed: int = 0, zones: int = 3) -> Snapshot:
+    """BASELINE config 3 (PodTopologySpread + InterPodAffinity across zones),
+    the JAX package's bench/workloads.py:45 draw for draw: pods of
+    max(4, n_pods // 250) apps, a quarter with a hard zone spread, a quarter
+    with a soft one, a tenth with required zone affinity to their app and a
+    tenth with hostname anti-affinity to it (one replica per node)."""
+    rng = random.Random(seed)
+    nodes = [
+        t.Node(
+            name=f"node-{i}",
+            allocatable={t.CPU: 32 * MILLI, t.MEMORY: 128 * GI, t.PODS: 110},
+            labels={t.LABEL_ZONE: f"zone-{i % zones}"},
+        )
+        for i in range(n_nodes)
+    ]
+    apps = [f"svc-{i}" for i in range(max(4, n_pods // 250))]
+    pods = []
+    for i in range(n_pods):
+        app = rng.choice(apps)
+        kind = rng.random()
+        spread = ()
+        aff = None
+        if kind < 0.5:
+            spread = (
+                t.TopologySpreadConstraint(
+                    max_skew=rng.choice([1, 2]),
+                    topology_key=t.LABEL_ZONE,
+                    when_unsatisfiable=t.DO_NOT_SCHEDULE if kind < 0.25 else t.SCHEDULE_ANYWAY,
+                    label_selector=t.LabelSelector.of(app=app),
+                ),
+            )
+        elif kind < 0.7:
+            if kind < 0.6:
+                term = t.PodAffinityTerm(topology_key=t.LABEL_ZONE, label_selector=t.LabelSelector.of(app=app))
+                aff = t.Affinity(required_pod_affinity=(term,))
+            else:
+                term = t.PodAffinityTerm(topology_key=t.LABEL_HOSTNAME, label_selector=t.LabelSelector.of(app=app))
+                aff = t.Affinity(required_pod_anti_affinity=(term,))
+        pods.append(
+            t.Pod(
+                name=f"pod-{i}",
+                labels={"app": app},
+                requests={t.CPU: rng.choice([100, 250, 500]), t.MEMORY: rng.choice([128, 256, 512]) * 1024**2},
+                topology_spread=spread,
+                affinity=aff,
+            )
+        )
+    return Snapshot(nodes=nodes, pending_pods=pods)
+
+
+def all_stages(n_nodes: int = 240, n_pods: int = 512, seed: int = 99) -> Snapshot:
+    """Every optional stage at once (the construction of the JAX package's
+    tests/test_assign_parity.py test_rounds_scan_all_stages_on, at a larger
+    size): zone spread (hard and soft), required and preferred inter-pod
+    affinity and preferred anti-affinity (the inter-pod score with its
+    hardPodAffinityWeight half), a host port, PreferNoSchedule taints on a
+    quarter of the nodes, preferred node affinity, and an image present on
+    a third of the nodes."""
+    rng = random.Random(seed)
+    nodes = []
+    for i in range(n_nodes):
+        taints = ()
+        if i % 4 == 0:
+            taints = (t.Taint(key="soft", value="x", effect=t.PREFER_NO_SCHEDULE),)
+        nd = t.Node(
+            name=f"n{i:03d}",
+            allocatable={t.CPU: 8000, t.MEMORY: 8 * GI, t.PODS: 64},
+            labels={t.LABEL_ZONE: f"zone-{i % 3}", "tier": rng.choice(["a", "b"])},
+            taints=taints,
+        )
+        if i % 3 == 0:
+            nd.images = {"registry/app:v1": 500 * 1024**2}
+        nodes.append(nd)
+    apps = ["web", "db", "cache"]
+    pods = []
+    for i in range(n_pods):
+        app = rng.choice(apps)
+        spread = ()
+        aff_kw = {}
+        if i % 3 == 0:
+            spread = (t.TopologySpreadConstraint(
+                max_skew=1, topology_key=t.LABEL_ZONE,
+                when_unsatisfiable=t.DO_NOT_SCHEDULE if i % 6 else t.SCHEDULE_ANYWAY,
+                label_selector=t.LabelSelector.of(app=app)),)
+        if i % 4 == 1:
+            aff_kw["required_pod_affinity"] = (t.PodAffinityTerm(
+                topology_key=t.LABEL_ZONE, label_selector=t.LabelSelector.of(app=rng.choice(apps))),)
+        if i % 4 == 2:
+            aff_kw["preferred_pod_affinity"] = (t.WeightedPodAffinityTerm(
+                weight=rng.choice([10, 50]),
+                term=t.PodAffinityTerm(topology_key=t.LABEL_ZONE,
+                                       label_selector=t.LabelSelector.of(app=rng.choice(apps)))),)
+        if i % 5 == 0:
+            aff_kw["preferred_pod_anti_affinity"] = (t.WeightedPodAffinityTerm(
+                weight=20,
+                term=t.PodAffinityTerm(topology_key=t.LABEL_HOSTNAME, label_selector=t.LabelSelector.of(app=app))),)
+        if i % 7 == 0:
+            aff_kw["preferred_node_terms"] = (t.PreferredSchedulingTerm(
+                weight=rng.choice([1, 5]),
+                preference=t.NodeSelectorTerm(match_expressions=(
+                    t.NodeSelectorRequirement(key="tier", operator=t.OP_IN, values=("a",)),))),)
+        pod = t.Pod(
+            name=f"p{i:04d}",
+            requests={t.CPU: rng.choice([100, 250]), t.MEMORY: 128 * 1024**2},
+            labels={"app": app},
+            topology_spread=spread,
+            affinity=t.Affinity(**aff_kw) if aff_kw else None,
+            host_ports=(("TCP", 9100),) if i % 11 == 0 else (),
+        )
+        if i % 6 == 0:
+            pod.images = ("registry/app:v1",)
+        pods.append(pod)
     return Snapshot(nodes=nodes, pending_pods=pods)

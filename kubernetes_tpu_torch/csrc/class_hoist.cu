@@ -17,7 +17,9 @@
 //   same kernel over every POD row (no class index) with the pod_valid
 //   term, sfs[p] = pack(node_valid & pod_valid & taints_ok & nodesel &
 //   nodename_ok).  At the north star it writes 51200 x 640 words (131 MB,
-//   >= 39 us at 3.35 TB/s): the words are the bound.
+//   >= 39 us at 3.35 TB/s): the words are the bound.  For the full stage
+//   set (:1616-1640) it also writes the eligibility plane
+//   eligs[p] = pack(nodesel & node_valid) that spread's minMatch reads.
 //
 // K4 ktt_class_usage_hoist replaces
 //   ops/incremental.py:188 _usage_hoist (cols == NULL: every column) and
@@ -72,7 +74,8 @@ __global__ void class_tol_kernel(const uint8_t* __restrict__ pod_tol_ns,  // [P,
 }
 
 // one thread per (row, node); rows are classes (r_u: their first pods) or
-// pods (r_u NULL); pod_valid NULL leaves the pod_valid term out
+// pods (r_u NULL); pod_valid NULL leaves the pod_valid term out; elig_u,
+// when given, gets the packed nodesel & node_valid plane too
 __global__ void __launch_bounds__(NT) class_static_kernel(
     const uint8_t* __restrict__ node_valid,    // [N]
     const uint32_t* __restrict__ taint_w,      // [N, TW]
@@ -84,27 +87,35 @@ __global__ void __launch_bounds__(NT) class_static_kernel(
     const int64_t* __restrict__ r_u,           // [U1] or NULL
     const uint8_t* __restrict__ pod_valid,     // [P] or NULL
     int U1, int N, int W, int TW, int TT,
-    uint32_t* __restrict__ stat_u) {  // [U1, W]
+    uint32_t* __restrict__ stat_u,   // [U1, W]
+    uint32_t* __restrict__ elig_u) {  // [U1, W] or NULL
   const int n = blockIdx.x * NT + threadIdx.x;
   if (n >= W * 32) return;  // whole warps leave together (NT % 32 == 0)
   for (int u = blockIdx.y; u < U1; u += gridDim.y) {
     const int64_t p = pod_row(r_u, u);
-    bool ok = n < N && node_valid[n] && (pod_valid == nullptr || pod_valid[p]);
+    const bool node_ok = n < N && node_valid[n];
+    bool ok = node_ok && (pod_valid == nullptr || pod_valid[p]);
     for (int w = 0; ok && w < TW; ++w) {
       if (taint_w[(int64_t)n * TW + w] & ~tol_w[(int64_t)u * TW + w]) ok = false;
     }
     const int pin = pod_nodename[p];
     if (pin != -1) ok = ok && pin == n;  // -2: the named node is missing
-    if (ok && pod_has_sel[p]) {
+    bool sel = true;
+    if ((ok || (elig_u != nullptr && node_ok)) && pod_has_sel[p]) {
       bool any = false;
       for (int j = 0; j < TT && !any; ++j) {
         const int s = pod_terms[p * TT + j];
         if (s >= 0) any = tm[(int64_t)s * N + n] != 0;
       }
-      ok = any;
+      sel = any;
     }
+    ok = ok && sel;
     const uint32_t word = __ballot_sync(0xffffffffu, ok);
-    if ((threadIdx.x & 31) == 0) stat_u[(int64_t)u * W + (n >> 5)] = word;
+    const uint32_t eword = __ballot_sync(0xffffffffu, node_ok && sel);
+    if ((threadIdx.x & 31) == 0) {
+      stat_u[(int64_t)u * W + (n >> 5)] = word;
+      if (elig_u != nullptr) elig_u[(int64_t)u * W + (n >> 5)] = eword;
+    }
   }
 }
 
@@ -114,7 +125,8 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
                  const void* pod_valid, const void* pod_tol_ns, const void* pod_nodename,
                  const void* pod_terms, const void* pod_has_sel, const void* sel_mask,
                  const void* sel_kind, const void* r_u, void* tm, void* taint_w, void* tol_w,
-                 void* stat_u, int U1, int N, int T, int TT, int S, int E, int L, cudaStream_t st) {
+                 void* stat_u, void* elig_u, int U1, int N, int T, int TT, int S, int E, int L,
+                 cudaStream_t st) {
   if (U1 <= 0 || N <= 0) return (int)cudaGetLastError();
   const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
   const int W = (N + 31) / 32;
@@ -134,7 +146,8 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
       static_cast<const uint32_t*>(tol_w), static_cast<const int32_t*>(pod_nodename),
       static_cast<const int32_t*>(pod_terms), static_cast<const uint8_t*>(pod_has_sel),
       static_cast<const uint8_t*>(tm), static_cast<const int64_t*>(r_u),
-      static_cast<const uint8_t*>(pod_valid), U1, N, W, TW, TT, static_cast<uint32_t*>(stat_u));
+      static_cast<const uint8_t*>(pod_valid), U1, N, W, TW, TT, static_cast<uint32_t*>(stat_u),
+      static_cast<uint32_t*>(elig_u));
   return (int)cudaGetLastError();
 }
 
@@ -194,20 +207,21 @@ extern "C" int ktt_class_static_hoist(const void* node_valid, const void* node_t
                                       void* taint_w, void* tol_w, void* stat_u, int U1, int N,
                                       int T, int TT, int S, int E, int L, void* stream) {
   return static_plane(node_valid, node_taint_ns, node_labels, nullptr, pod_tol_ns, pod_nodename,
-                      pod_terms, pod_has_sel, sel_mask, sel_kind, r_u, tm, taint_w, tol_w, stat_u,
+                      pod_terms, pod_has_sel, sel_mask, sel_kind, r_u, tm, taint_w, tol_w, stat_u, nullptr,
                       U1, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// K7: every pod row, pod_valid included -> sfs [P, W]
+// K7: every pod row, pod_valid included -> sfs [P, W]; eligs (or NULL) gets
+// the packed nodesel & node_valid plane the rounds and full scans read
 extern "C" int ktt_packed_static_rows(const void* node_valid, const void* node_taint_ns,
                                       const void* node_labels, const void* pod_valid,
                                       const void* pod_tol_ns, const void* pod_nodename,
                                       const void* pod_terms, const void* pod_has_sel,
                                       const void* sel_mask, const void* sel_kind, void* tm,
-                                      void* taint_w, void* tol_w, void* sfs, int P, int N, int T,
-                                      int TT, int S, int E, int L, void* stream) {
+                                      void* taint_w, void* tol_w, void* sfs, void* eligs, int P, int N,
+                                      int T, int TT, int S, int E, int L, void* stream) {
   return static_plane(node_valid, node_taint_ns, node_labels, pod_valid, pod_tol_ns, pod_nodename,
-                      pod_terms, pod_has_sel, sel_mask, sel_kind, nullptr, tm, taint_w, tol_w, sfs,
+                      pod_terms, pod_has_sel, sel_mask, sel_kind, nullptr, tm, taint_w, tol_w, sfs, eligs,
                       P, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
 }
 

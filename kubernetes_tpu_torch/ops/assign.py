@@ -1,23 +1,29 @@
 """Batched assignment with sequential-commit semantics — the port of the JAX
-package's ``ops/assign.py`` for the fit-only stage set: the per-pod scan
-``schedule_scan``, and ``schedule_scan_chunked`` in both its modes (dense,
-and the incremental class-wave route).
+package's ``ops/assign.py``: the per-pod scan ``schedule_scan`` over every
+stage, ``schedule_scan_chunked`` in both its modes (dense, and the
+incremental class-wave route) for the fit-only stage set, and the dense
+mode of ``schedule_scan_rounds`` for the full stage set.
 
 Static feasibility is evaluated for the whole batch up front ([P, N]); then
 pods commit one at a time in activeQ order (== tensor order).  Each step
-re-evaluates NodeResourcesFit.Filter against the running node usage, scores
-the feasible nodes (fit strategy + BalancedAllocation), takes the highest
-score with ties to the LOWEST node index, and adds the pod's request to the
-chosen node's usage.
+re-evaluates NodeResourcesFit.Filter, NodePorts and the pairwise filters
+(PodTopologySpread, InterPodAffinity) against the running state, scores the
+feasible nodes (fit strategy + BalancedAllocation + the TaintToleration,
+NodeAffinity, spread, inter-pod and ImageLocality scores, each normalised
+over the pod's current feasible set), takes the highest score with ties to
+the LOWEST node index, and commits the pod's request, its pairwise counts
+and its host ports.
 
-``schedule_scan_plain`` is the plain PyTorch version (one Python step per
-pod); on the card the per-pod route runs the static-feasibility kernel and
-the fit-scan kernel (csrc/).  Stages this slice does not port raise
-NotImplementedError (ops/scores.py — check_config).
+THE PER-POD ROUTE.  ``schedule_scan_plain`` is the plain PyTorch version
+(one Python step per pod); on the card the fit-only stage set runs the
+static-feasibility kernel and ``fit_scan`` (csrc/fit_scan.cu), any other
+stage set kernel K7's packed planes, K10 ``score_planes`` where the taint
+or node-affinity score needs its [P, N] plane, and K11 ``full_scan``
+(csrc/full_scan.cu).
 
-THE DENSE CHUNKED ROUTE (no class state).  ``CHUNK`` pods at a time: the
-chunk's masked scores [C, N] against the usage its predecessors left, the
-top-(C+1) candidates per pod, then the prefix-commit round loop
+THE DENSE CHUNKED ROUTE (no class state, fit-only).  ``CHUNK`` pods at a
+time: the chunk's masked scores [C, N] against the usage its predecessors
+left, the top-(C+1) candidates per pod, then the prefix-commit round loop
 (``_round_loop``: speculate, revalidate under intra-round prefix sums,
 commit the longest exact prefix).  Plain: ``packed_static_rows_plain`` and
 ``schedule_scan_chunked_dense_plain``; on the card kernel K7
@@ -37,11 +43,22 @@ The JAX package's wave knobs are keyword arguments here with the same
 defaults (``class_waves=False`` is its ``KTPU_CLASS_WAVES=0``; ``wave_k``,
 ``wave_block``).
 
-ROUTING (``dispatch``, the JAX package's schedule_batch_routed): class
-state that fits -> the class-wave route; else a chunkable batch on the card
--> the dense chunked route (its ``_chunk_routed`` off the CPU); else the
-per-pod route.  On the CPU the dense route runs only with ``chunked=True``
-(the JAX package's ``KTPU_FORCE_CHUNKED=1``).  Decisions are the same on
+THE ROUNDS ROUTE (the full stage set, dense mode).  ``RCHUNK`` pods at a
+time, every round re-hoists the chunk's uncommitted pods against exact
+round-start state (the per-pod scan's row functions, pod by pod), then
+dispersal speculation over each pod's top-32, the exact repair under the
+intra-round prefix, and the longest confirmed prefix commits, truncated at
+term sharing and at normalisation hazards (``schedule_scan_rounds_plain``;
+on the card K7, K10 and K12 ``rounds``, csrc/rounds.cu).  Its knobs
+``rchunk`` and ``repair_iters`` are keyword arguments with the JAX
+package's defaults (KTPU_RCHUNK=16, KTPU_REPAIR_ITERS=1).
+
+ROUTING (``dispatch``, the JAX package's schedule_batch_impl): class state
+that fits -> the class-wave route; else, on the card (on the CPU with
+chunked=True, the JAX package's KTPU_FORCE_CHUNKED=1), a chunkable batch
+-> the dense chunked route and any other batch with P a multiple of RCHUNK
+(a fit-only batch of fewer than CHUNK pods too) -> the rounds route; else
+the per-pod route.  Decisions are the same on
 every route; commit ordinals and the sweep count are each route's own and
 equal the JAX route's.  ``dispatch`` launches without a host
 synchronisation; ``finish`` reads the sweep count and the round-cap status
@@ -55,9 +72,10 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from . import bitplane, filters
+from . import bitplane, filters, pairwise
 from .incremental import _scores, fit_rows, score_flat
-from .scores import ScoreConfig, balanced_allocation, check_config, fit_score
+from .scores import (MAX_NODE_SCORE, ScoreConfig, balanced_allocation, check_config, fit_score,
+                     normalize_reverse, taint_prefer_counts_plain)
 
 _INT_MAX = 2**31 - 1
 
@@ -72,10 +90,12 @@ CLASS_WAVES = True  # stage A on (the JAX package's KTPU_CLASS_WAVES)
 WAVE_K = 256  # per-class candidate list length per epoch
 WAVE_BLOCK = 48  # pods certified per wave block
 WAVE_ITERS = 12  # pointer-dispersal iterations per block
+RCHUNK = 16  # pods per chunk of the rounds scan (the JAX package's KTPU_RCHUNK)
+REPAIR_ITERS = 1  # speculate -> repair iterations per round (its KTPU_REPAIR_ITERS)
 
 # Route counters, bumped per call (the JAX package bumps its TRACE_COUNTS
 # per trace; eager PyTorch has no trace, so a call is the unit here).
-TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0}
+TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0}
 
 
 def reset_trace_counts() -> None:
@@ -83,10 +103,88 @@ def reset_trace_counts() -> None:
         TRACE_COUNTS[k] = 0
 
 
-def schedule_scan_plain(arr, cfg: ScoreConfig, sf: torch.Tensor = None) -> Tuple[torch.Tensor, torch.Tensor]:
+def fit_only(cfg: ScoreConfig, arr) -> bool:
+    """No stage beyond static feasibility, NodeResourcesFit and
+    BalancedAllocation: the fit_scan kernel's stage set."""
+    return not (cfg.enable_pairwise or cfg.enable_ports or cfg.enable_taint_score or cfg.enable_node_pref
+                or _image_on(arr, cfg))
+
+
+def _image_on(arr, cfg: ScoreConfig) -> bool:
+    """Whether the ImageLocality stage has a real [P, N] matrix (the JAX
+    package's assign.py:168)."""
+    return cfg.enable_image and arr.image_score.shape[1] == arr.N
+
+
+def preferred_node_affinity_raw_plain(pod_pref_terms, pod_pref_weights, tm: torch.Tensor) -> torch.Tensor:
+    """bf16[P, N] summed weights of the matching preferred node-affinity
+    terms (nodeaffinity/node_affinity.go — Score): the JAX package's
+    assign.py:153, a [P, S] weight scatter-add (a term listed twice adds
+    twice) and one [P, S] @ [S, N] product in f32 (integer-valued, exact),
+    stored on the bf16 lattice."""
+    P = pod_pref_terms.shape[0]
+    S = tm.shape[0]
+    ids = torch.clamp_min(pod_pref_terms, 0).to(torch.int64)
+    zero = torch.zeros((), dtype=torch.float32, device=tm.device)
+    w = torch.where(pod_pref_terms >= 0, pod_pref_weights, zero)
+    W = torch.zeros((P, S), dtype=torch.float32, device=tm.device)
+    rows = torch.arange(P, device=tm.device)[:, None].expand_as(ids)
+    W.index_put_((rows, ids), w, accumulate=True)
+    return bitplane.quantize_scores(W @ tm.to(torch.float32))
+
+
+def score_planes_plain(arr) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(traw, naraw) bf16[P, N]: the PreferNoSchedule count plane and the
+    preferred node-affinity weight plane — the plain version of kernel K10
+    score_planes."""
+    tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
+    return (taint_prefer_counts_plain(arr.pod_tol_pref, arr.node_taint_pref),
+            preferred_node_affinity_raw_plain(arr.pod_pref_terms, arr.pod_pref_weights, tm))
+
+
+def score_planes(arr, cfg: ScoreConfig):
+    """(traw or None, naraw or None) for the stages cfg enables, on arr's
+    device: the plain version for CPU tensors, kernel K10 for CUDA tensors."""
+    if not (cfg.enable_taint_score or cfg.enable_node_pref):
+        return None, None
+    if arr.device.type == "cpu":
+        traw, naraw = score_planes_plain(arr)
+    else:
+        from . import kernels
+
+        traw, naraw = kernels.score_planes(arr)
+    return (traw if cfg.enable_taint_score else None), (naraw if cfg.enable_node_pref else None)
+
+
+def dom_by_term(arr) -> Tuple[torch.Tensor, int]:
+    """(i32[T, N] the domain of every node under each term's key, D): the
+    static map the pairwise state goes through (domain D: key absent)."""
+    return arr.node_dom[arr.term_key.to(torch.int64)], arr.term_counts0.shape[1] - 1
+
+
+def pairwise_state0(arr, dbt: torch.Tensor, D: int):
+    """The per-node count state the scans start from (the JAX package's
+    assign.py:374-378): cnt/anti/pref_node f32[T, N] gathered from the
+    per-domain tables, total_t f32[T]."""
+    idx = dbt.to(torch.int64)
+    return (torch.gather(arr.term_counts0, 1, idx), torch.gather(arr.anti_counts0, 1, idx),
+            torch.gather(arr.pref_own0, 1, idx), arr.term_counts0[:, :D].sum(dim=1))
+
+
+def schedule_scan_plain(arr, cfg: ScoreConfig, sf: torch.Tensor = None, planes=None, with_state: bool = False):
     """-> (choices i32[P] node index or -1, node_used i32[N, R]), the plain
-    per-pod scan.  `sf` is the static-feasibility mask (computed with the
-    plain version when not given)."""
+    per-pod scan over every stage cfg enables: the JAX package's
+    assign.py:181 schedule_scan op for op.  `sf` is the static-feasibility
+    mask, `planes` score_planes' (traw, naraw) (both computed with the plain
+    versions when not given).
+
+    Each step: feasible = sf & fit & ports & spread & inter-pod; the score
+    accumulates fit, balanced, taint, node affinity, spread, inter-pod and
+    image in that order, each normalisation over the feasible set in its
+    own op order; the argmax takes the lowest node index; the commit adds
+    the request, the pairwise counts and the host ports.  With `with_state`
+    also the final pairwise state {cnt, anti, pref, total, ports} (what
+    kernel K11 is held to)."""
     if sf is None:
         sf = filters.static_feasible_plain(arr)
     dev = arr.device
@@ -95,35 +193,107 @@ def schedule_scan_plain(arr, cfg: ScoreConfig, sf: torch.Tensor = None) -> Tuple
     nodes = torch.arange(arr.N, dtype=torch.int32, device=dev)
     int_max = torch.tensor(_INT_MAX, dtype=torch.int32, device=dev)
     neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     choices = torch.full((arr.P,), -1, dtype=torch.int32, device=dev)
     valid = arr.pod_valid.cpu().tolist()
+    pw = cfg.enable_pairwise
+    ips = pw and cfg.enable_interpod_score
+    img_on = _image_on(arr, cfg)
+    if planes is None:
+        planes = score_planes(arr, cfg)
+    traw, naraw = planes
+    if pw:
+        tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
+        elig = filters.node_selection_ok_from(tm, arr) & arr.node_valid[None, :]
+        dbt, D = dom_by_term(arr)
+        has_key_all = dbt < D
+        cnt_node, anti_node, pref_node, total_t = pairwise_state0(arr, dbt, D)
+    if cfg.enable_ports:
+        ports_used = arr.node_ports0.clone()
     for p in range(arr.P):
         if not valid[p]:
             continue  # a padding or gated pod: its sf row is all False
         req = arr.pod_req[p]
         feasible = sf[p] & filters.fit_ok(req, used, alloc)
+        if cfg.enable_ports:
+            feasible = feasible & pairwise.ports_ok(ports_used, arr.pod_ports[p])
+        if pw:
+            spread_ok, spread_raw = pairwise.spread_step(
+                cnt_node, has_key_all, arr.pod_spread_terms[p], arr.pod_spread_maxskew[p],
+                arr.pod_spread_hard[p], elig[p])
+            feasible = feasible & spread_ok & pairwise.interpod_required_ok(
+                cnt_node, anti_node, total_t, has_key_all, arr.pod_aff_terms[p], arr.pod_anti_terms[p],
+                arr.pod_match_terms[p], arr.pod_match_vals[p], arr.pod_aff_self[p])
         requested = used + req[None, :]
         total = cfg.fit_weight * fit_score(requested, alloc, cfg) + cfg.balanced_weight * balanced_allocation(
             requested, alloc, cfg.score_resources
         )
+        if traw is not None:
+            total = total + cfg.taint_weight * normalize_reverse(traw[p], feasible)
+        if naraw is not None:
+            na_row = naraw[p].to(torch.float32)
+            na_max = torch.where(feasible, na_row, zero).max()
+            total = total + cfg.node_affinity_weight * torch.where(
+                na_max > 0, na_row * MAX_NODE_SCORE / na_max, zero)
+        if pw:
+            total = total + cfg.spread_weight * normalize_reverse(spread_raw, feasible)
+        if ips:
+            ip_raw = pairwise.interpod_pref_raw(
+                cnt_node, pref_node, has_key_all, arr.pod_pref_aff_terms[p], arr.pod_pref_aff_w[p],
+                arr.pod_match_terms[p], arr.pod_match_vals[p])
+            mx = torch.where(feasible, ip_raw, neg_inf).max()
+            mn = -torch.where(feasible, -ip_raw, neg_inf).max()
+            total = total + cfg.interpod_weight * torch.where(
+                mx > mn, MAX_NODE_SCORE * (ip_raw - mn) / (mx - mn), zero)
+        if img_on:
+            total = total + cfg.image_weight * arr.image_score[p].to(torch.float32)
         total = torch.where(feasible, total, neg_inf)
         best = total.max()
-        cand = torch.where((total == best) & feasible, nodes, int_max)
-        choice = torch.where(best > neg_inf, cand.min(), torch.tensor(-1, dtype=torch.int32, device=dev))
+        if not bool(best > neg_inf):
+            continue
+        choice = int(torch.where((total == best) & feasible, nodes, int_max).min())
         choices[p] = choice
-        placed = (nodes == choice)[:, None]
-        used = used + placed.to(torch.int32) * req[None, :]
-    return choices, used
+        used[choice] += req
+        if pw:
+            dom_col = dbt[:, choice]
+            cnt_node, anti_node, total_t = pairwise.commit_counts(
+                cnt_node, anti_node, total_t, dbt, D, choice, dom_col, arr.pod_match_terms[p],
+                arr.pod_match_vals[p], arr.pod_anti_terms[p])
+            if ips:
+                # the committed pod's preferred terms, and its required
+                # affinity terms at hardPodAffinityWeight (assign.py:349-368)
+                at = torch.tensor([choice], dtype=torch.int32, device=dev)
+                pt = arr.pod_pref_aff_terms[p]
+                pref_node = _scatter_rows(pref_node, dbt, pt[None], at,
+                                          torch.where(pt >= 0, arr.pod_pref_aff_w[p], zero)[None])[0]
+                if cfg.hard_pod_affinity_weight:
+                    aff = arr.pod_aff_terms[p]
+                    hw = torch.tensor(float(cfg.hard_pod_affinity_weight), dtype=torch.float32, device=dev)
+                    pref_node = _scatter_rows(pref_node, dbt, aff[None], at, torch.where(aff >= 0, hw, zero)[None])[0]
+        if cfg.enable_ports:
+            ports_used[choice] |= arr.pod_ports[p]
+    if not with_state:
+        return choices, used
+    if not pw:
+        dbt, D = dom_by_term(arr)
+        cnt_node, anti_node, pref_node, total_t = pairwise_state0(arr, dbt, D)
+    return choices, used, dict(cnt=cnt_node, anti=anti_node, pref=pref_node, total=total_t,
+                               ports=ports_used if cfg.enable_ports else arr.node_ports0.clone())
 
 
 def _per_pod(arr, cfg: ScoreConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-pod route: on the card the fit_scan kernel for the fit-only
+    stage set (after static_feasible), else K7's packed planes, K10's score
+    planes where a stage needs them and the full_scan kernel K11."""
     TRACE_COUNTS["plain"] += 1
-    sf = filters.static_feasible(arr)
     if arr.device.type == "cpu":
-        return schedule_scan_plain(arr, cfg, sf=sf)
+        return schedule_scan_plain(arr, cfg, sf=filters.static_feasible(arr))
     from . import kernels
 
-    return kernels.fit_scan(sf, arr, cfg)[:2]
+    if fit_only(cfg, arr):
+        return kernels.fit_scan(filters.static_feasible(arr), arr, cfg)[:2]
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    return kernels.full_scan(arr, cfg, sfs, eligs, score_planes(arr, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -552,32 +722,39 @@ def schedule_scan_chunked_plain(arr, cfg: ScoreConfig, inc, used0, t0u0, wave=No
     return torch.cat(outs), used, ords_g, sweeps
 
 
-def packed_static_rows_plain(arr) -> torch.Tensor:
+def packed_static_rows_plain(arr, with_elig: bool = False):
     """int32 words [P, ceil(N/32)]: static feasibility of every pod row,
     pod_valid included, packed per block of CHUNK rows (the JAX package's
-    lax.map of _sf_block, assign.py:1014-1053) -> the plain version of
-    kernel K7 packed_static_rows."""
+    lax.map of _sf_block, assign.py:1014-1053 and :1616-1640) -> the plain
+    version of kernel K7 packed_static_rows.  With `with_elig` also the
+    packed eligibility plane nodesel & node_valid that spread's minMatch
+    reads -> (sfs, eligs)."""
     P, N = arr.P, arr.N
     tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
     nodes = torch.arange(N, dtype=torch.int32, device=arr.device)
-    blocks = []
+    blocks, eblocks = [], []
     for b0 in range(0, P, CHUNK):
         sl = slice(b0, min(P, b0 + CHUNK))
-        sf, _ = filters.static_feasible_rows(
+        sf, nsb = filters.static_feasible_rows(
             tm, arr.node_valid, arr.node_taint_ns, nodes, arr.pod_terms[sl], arr.pod_has_sel[sl],
             arr.pod_tol_ns[sl], arr.pod_nodename[sl], arr.pod_valid[sl])
         blocks.append(bitplane.pack(sf))
+        if with_elig:
+            eblocks.append(bitplane.pack(nsb & arr.node_valid[None, :]))
+    if with_elig:
+        return torch.cat(blocks), torch.cat(eblocks)
     return torch.cat(blocks)
 
 
-def packed_static_rows(arr) -> torch.Tensor:
-    """The packed [P, W] static plane on arr's device: the plain version for
-    CPU tensors, kernel K7 for CUDA tensors."""
+def packed_static_rows(arr, with_elig: bool = False):
+    """The packed [P, W] static plane (and with `with_elig` the eligibility
+    plane) on arr's device: the plain version for CPU tensors, kernel K7 for
+    CUDA tensors."""
     if arr.device.type == "cpu":
-        return packed_static_rows_plain(arr)
+        return packed_static_rows_plain(arr, with_elig)
     from . import kernels
 
-    return kernels.packed_static_rows(arr)
+    return kernels.packed_static_rows(arr, with_elig)
 
 
 def _dense_chunk_plain(cfg, creq, csf, cvalid, used0, alloc, C, K, Z):
@@ -642,16 +819,386 @@ def schedule_scan_chunked_dense(arr, cfg: ScoreConfig):
     return schedule_scan_chunked_dense_plain(arr, cfg, sfs)
 
 
+# ---------------------------------------------------------------------------
+# the rounds route: the JAX package's schedule_scan_rounds, dense mode
+# ---------------------------------------------------------------------------
+
+def _slot_indicator(ids: torch.Tensor, T: int, w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[C, slots] padded term ids -> f32[C, T] incidence: 1 where the pod
+    carries the term (with `w`, a nonzero weight too); the JAX package's
+    .at[].max, duplicates included."""
+    on = (ids >= 0) if w is None else ((ids >= 0) & (w != 0))
+    C = ids.shape[0]
+    T = max(T, 1)
+    flat = (torch.arange(C, device=ids.device)[:, None] * T + torch.clamp_min(ids, 0).to(torch.int64)).reshape(-1)
+    M = torch.zeros(C * T, dtype=torch.float32, device=ids.device)
+    return M.scatter_reduce(0, flat, on.to(torch.float32).reshape(-1), reduce="amax").reshape(C, T)
+
+
+def chunk_share(cx, cfg: ScoreConfig, T: int) -> torch.Tensor:
+    """bool[C, C] share(i, j): pod j's state writes touch a term pod i reads
+    (or their host ports overlap) — the per-chunk incidence products of the
+    JAX package's assign.py:1771-1795, 0/1 sums in f32."""
+    C = cx["req"].shape[0]
+    dev = cx["req"].device
+    pw = cfg.enable_pairwise
+    ips = pw and cfg.enable_interpod_score
+    share = torch.zeros((C, C), dtype=torch.bool, device=dev)
+    if pw:
+        rd = (_slot_indicator(cx["spread_t"], T) + _slot_indicator(cx["aff"], T)
+              + _slot_indicator(cx["anti"], T))
+        wr_cnt = _slot_indicator(cx["mt"], T, cx["mv"])
+        rd_anti = _slot_indicator(cx["mt"], T)
+        wr_anti = _slot_indicator(cx["anti"], T)
+        share = (rd @ wr_cnt.T + rd_anti @ wr_anti.T) > 0.0
+        if ips:
+            rd_pref = _slot_indicator(cx["pref_t"], T)
+            wr_pref = rd_pref
+            if cfg.hard_pod_affinity_weight:
+                wr_pref = torch.maximum(wr_pref, _slot_indicator(cx["aff"], T))
+            share = share | ((rd_pref @ wr_cnt.T + rd_anti @ wr_pref.T) > 0.0)
+    if cfg.enable_ports:
+        pf = cx["ports"].to(torch.float32)
+        share = share | ((pf @ pf.T) > 0.0)
+    return share
+
+
+def _round_start(cfg, cx, st, base0, fit0, has_key_all, nodes):
+    """The exact re-hoist of a round against round-start state: feasibility,
+    the per-pod normalisation scalars and raws, the masked total [C, N] and
+    each pod's argmax (the JAX package's assign.py:1832-1919)."""
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=base0.device)
+    zero = torch.zeros((), dtype=torch.float32, device=base0.device)
+    C = base0.shape[0]
+    pw = cfg.enable_pairwise
+    ips = pw and cfg.enable_interpod_score
+    r = {}
+    feasible = cx["sf"] & fit0
+    if cfg.enable_ports:
+        feasible = feasible & ~(st["ports"][None, :, :] & cx["ports"][:, None, :]).any(dim=2)
+    if pw:
+        oks, raws, ipoks = [], [], []
+        for i in range(C):
+            ok_i, raw_i = pairwise.spread_step(st["cnt"], has_key_all, cx["spread_t"][i], cx["skew"][i],
+                                               cx["hard"][i], cx["elig"][i])
+            oks.append(ok_i)
+            raws.append(raw_i)
+            ipoks.append(pairwise.interpod_required_ok(
+                st["cnt"], st["anti"], st["total"], has_key_all, cx["aff"][i], cx["anti"][i], cx["mt"][i],
+                cx["mv"][i], cx["aself"][i]))
+        r["spread_raw"] = torch.stack(raws)
+        feasible = feasible & torch.stack(oks) & torch.stack(ipoks)
+    total = base0
+    if cfg.enable_taint_score:
+        r["t_mx"] = torch.where(feasible, cx["traw"], zero).max(dim=1).values
+        total = total + cfg.taint_weight * torch.where(
+            (r["t_mx"] > 0)[:, None], MAX_NODE_SCORE - MAX_NODE_SCORE * cx["traw"] / r["t_mx"][:, None],
+            torch.full_like(total, MAX_NODE_SCORE))
+    if cfg.enable_node_pref:
+        r["na_mx"] = torch.where(feasible, cx["naraw"], zero).max(dim=1).values
+        total = total + cfg.node_affinity_weight * torch.where(
+            (r["na_mx"] > 0)[:, None], cx["naraw"] * MAX_NODE_SCORE / r["na_mx"][:, None], zero)
+    if pw:
+        r["s_mx"] = torch.where(feasible, r["spread_raw"], zero).max(dim=1).values
+        total = total + cfg.spread_weight * torch.where(
+            (r["s_mx"] > 0)[:, None], MAX_NODE_SCORE - MAX_NODE_SCORE * r["spread_raw"] / r["s_mx"][:, None],
+            torch.full_like(total, MAX_NODE_SCORE))
+    if ips:
+        r["ip_raw"] = torch.stack([pairwise.interpod_pref_raw(
+            st["cnt"], st["pref"], has_key_all, cx["pref_t"][i], cx["pref_w"][i], cx["mt"][i], cx["mv"][i])
+            for i in range(C)])
+        r["ip_mx"] = torch.where(feasible, r["ip_raw"], neg_inf).max(dim=1).values
+        r["ip_mn"] = -torch.where(feasible, -r["ip_raw"], neg_inf).max(dim=1).values
+        total = total + cfg.interpod_weight * torch.where(
+            (r["ip_mx"] > r["ip_mn"])[:, None],
+            MAX_NODE_SCORE * (r["ip_raw"] - r["ip_mn"][:, None]) / (r["ip_mx"][:, None] - r["ip_mn"][:, None]),
+            zero)
+    if "img" in cx:
+        total = total + cfg.image_weight * cx["img"]
+    total = torch.where(feasible, total, neg_inf)
+    best = total.max(dim=1).values
+    imax = torch.tensor(_INT_MAX, dtype=torch.int32, device=total.device)
+    cand = torch.where((total == best[:, None]) & feasible, nodes[None, :], imax).min(dim=1).values
+    c0 = torch.where((best > neg_inf) & cx["valid"], cand, -1)
+    return feasible, total, c0, r
+
+
+def _repair(cfg, cx, r, feasible, total, share, c, unc, used, alloc, nodes, jlt):
+    """(t, hard) for the speculation c: t_i = pod i's true sequential argmax
+    given that the pods j < i commit c_j; hard_i = the repair's premises are
+    void for i (the JAX package's assign.py:1938-2056)."""
+    dev = total.device
+    C, N = total.shape
+    R = used.shape[1]
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    imax = torch.tensor(_INT_MAX, dtype=torch.int32, device=dev)
+    creq = cx["req"]
+    act = unc & (c >= 0)
+    cn = torch.clamp_min(c, 0)
+    cn64 = cn.to(torch.int64)
+    E = (c[:, None] == c[None, :]) & act[:, None]  # [C(k), C(j)]
+    T3 = E[:, :, None].to(torch.int32) * creq[:, None, :]  # [k, j, R]
+    cum = torch.cumsum(T3, dim=0, dtype=torch.int32) - T3  # int32: any order is the same sum
+    ca = alloc[cn64]  # [C(j), R]
+    uij = used[cn64][None, :, :] + cum  # [C(i), C(j), R]
+    fitij = ((creq[:, None, :] == 0) | (creq[:, None, :] <= ca[None] - uij)).all(dim=2)
+    reqij = uij + creq[:, None, :]
+    baseij = score_flat(reqij.reshape(-1, R), ca[None].expand(C, C, R).reshape(-1, R), cfg).reshape(C, C)
+    feas0_at = feasible[:, cn64]
+    newtot = baseij
+    extreme_at = torch.zeros((C, C), dtype=torch.bool, device=dev)
+    if cfg.enable_taint_score:
+        r_at, mx = cx["traw"][:, cn64], r["t_mx"][:, None]
+        newtot = newtot + cfg.taint_weight * torch.where(
+            mx > 0, MAX_NODE_SCORE - MAX_NODE_SCORE * r_at / mx, torch.full_like(newtot, MAX_NODE_SCORE))
+        extreme_at = extreme_at | ((mx > 0) & (r_at == mx))
+    if cfg.enable_node_pref:
+        r_at, mx = cx["naraw"][:, cn64], r["na_mx"][:, None]
+        newtot = newtot + cfg.node_affinity_weight * torch.where(mx > 0, r_at * MAX_NODE_SCORE / mx, zero)
+        extreme_at = extreme_at | ((mx > 0) & (r_at == mx))
+    if cfg.enable_pairwise:
+        r_at, mx = r["spread_raw"][:, cn64], r["s_mx"][:, None]
+        newtot = newtot + cfg.spread_weight * torch.where(
+            mx > 0, MAX_NODE_SCORE - MAX_NODE_SCORE * r_at / mx, torch.full_like(newtot, MAX_NODE_SCORE))
+        extreme_at = extreme_at | ((mx > 0) & (r_at == mx))
+        if cfg.enable_interpod_score:
+            r_at, mx, mn = r["ip_raw"][:, cn64], r["ip_mx"][:, None], r["ip_mn"][:, None]
+            newtot = newtot + cfg.interpod_weight * torch.where(
+                mx > mn, MAX_NODE_SCORE * (r_at - mn) / (mx - mn), zero)
+            extreme_at = extreme_at | ((mx > mn) & ((r_at == mx) | (r_at == mn)))
+    if "img" in cx:
+        newtot = newtot + cfg.image_weight * cx["img"][:, cn64]
+    newtot = torch.where(feas0_at & fitij, newtot, neg_inf)
+    dropped = feas0_at & ~fitij
+    hard = ((share | (dropped & extreme_at)) & jlt & act[None, :]).any(dim=1)
+    # unpicked nodes keep round-start scores; picked nodes take newtot
+    O = ((c[:, None] == nodes[None, :]) & act[:, None]).to(torch.float32)  # [C(j), N]
+    picked_before = (jlt.to(torch.float32) @ O) > 0.0  # [C(i), N]
+    av = torch.where(picked_before, neg_inf, total).max(dim=1).values
+    a_n = torch.where((total == av[:, None]) & ~picked_before, nodes[None, :], imax).min(dim=1).values
+    Mj = torch.where(act[None, :] & jlt, newtot, neg_inf)
+    vb = Mj.max(dim=1).values
+    b_n = torch.where(Mj == vb[:, None], cn[None, :], imax).min(dim=1).values
+    t_val = torch.maximum(av, vb)
+    t_n = torch.where(vb > av, b_n, torch.where(av > vb, a_n, torch.minimum(a_n, b_n)))
+    t = torch.where((t_val > neg_inf) & cx["valid"], t_n, -1).to(torch.int32)
+    return t, hard
+
+
+def _scatter_rows(state, dbt, ids, cn_final, w):
+    """state[T, N] += w * (node's domain == the chosen node's domain) over
+    the (pod, slot) rows -> (state, tids, dcol, wf)."""
+    tids = torch.clamp_min(ids, 0).to(torch.int64).reshape(-1)
+    nodes = cn_final.to(torch.int64)[:, None].expand(ids.shape).reshape(-1)
+    wf = w.reshape(-1)
+    dcol = dbt[tids, nodes]
+    same = dbt[tids] == dcol[:, None]
+    return state.index_add(0, tids, wf[:, None] * same), tids, dcol, wf
+
+
+def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters):
+    """The round loop of one chunk (the JAX package's assign.py:1830-2212,
+    dense mode) -> (out i32[C], nrounds, ord_ i32[C], the state after)."""
+    dev = alloc.device
+    creq = cx["req"]
+    C = creq.shape[0]
+    N, R = alloc.shape
+    T = dbt.shape[0]
+    pw = cfg.enable_pairwise
+    ips = pw and cfg.enable_interpod_score
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    idxC = torch.arange(C, dtype=torch.int32, device=dev)
+    jlt = idxC[None, :] < idxC[:, None]  # [i, j]: j < i
+    has_key_all = dbt < D
+    share = chunk_share(cx, cfg, T)
+    base0 = _scores(creq, st["used"], alloc, cfg)
+    fit0 = fit_rows(creq, st["used"], alloc)
+    committed = torch.zeros(C, dtype=torch.bool, device=dev)
+    out = torch.full((C,), -1, dtype=torch.int32, device=dev)
+    ord_ = torch.zeros(C, dtype=torch.int32, device=dev)
+    nrounds = 0
+    Zr = min(32, N)
+    while not bool(committed.all()):
+        if nrounds >= C:
+            raise RuntimeError("rounds scan: a chunk exceeded its round cap (every round commits a pod)")
+        unc = ~committed
+        feasible, total, c0, r = _round_start(cfg, cx, st, base0, fit0, has_key_all, nodes)
+        # ---- dispersal speculation: pod i takes its rank-th best node,
+        # rank = earlier uncommitted pods sharing its argmax ----
+        same0 = (c0[:, None] == c0[None, :]) & (c0[None, :] >= 0) & unc[None, :]
+        rank = (same0 & jlt).sum(dim=1).to(torch.int32)
+        topv, topi = top_k(total, Zr)
+        sel = torch.clamp_max(rank, Zr - 1).to(torch.int64)[:, None]
+        v_sel = torch.gather(topv, 1, sel)[:, 0]
+        c_sp = torch.gather(topi, 1, sel)[:, 0]
+        c = torch.where(unc & (c0 >= 0) & (rank > 0) & (rank < Zr) & (v_sel > neg_inf), c_sp, c0)
+        # ---- exact repair under the intra-round prefix ----
+        for _ in range(repair_iters - 1):
+            t, hard = _repair(cfg, cx, r, feasible, total, share, c, unc, st["used"], alloc, nodes, jlt)
+            c = torch.where(unc, t, c)
+        t, hard = _repair(cfg, cx, r, feasible, total, share, c, unc, st["used"], alloc, nodes, jlt)
+        # ---- commit the longest confirmed prefix, plus the first
+        # divergence-only pod at its exact t ----
+        bad = unc & (hard | (t != c))
+        firstbad = int(_first(bad)) if bool(bad.any()) else C
+        fb_commit = (idxC == firstbad) & unc & ~hard
+        c_final = torch.where(fb_commit, t, c)
+        prefix = unc & (idxC < firstbad)
+        commit_set = prefix | fb_commit
+        pact = commit_set & (c_final >= 0)
+        cn_final = torch.clamp_min(c_final, 0)
+        out = torch.where(commit_set, c_final, out)
+        ord_ = torch.where(commit_set, torch.tensor(nrounds, dtype=torch.int32, device=dev), ord_)
+        committed = committed | commit_set
+        # ---- absorb the committed picks into the live state ----
+        used = st["used"].clone()
+        used.index_add_(0, c_final[pact].to(torch.int64), creq[pact])
+        st["used"] = used
+        cols = cn_final.to(torch.int64)
+        col_used = used[cols]
+        col_alloc = alloc[cols]
+        col_fit = fit_rows(creq, col_used, col_alloc)
+        col_base = _scores(creq, col_used, col_alloc, cfg)
+        base0 = base0.clone()
+        fit0 = fit0.clone()
+        base0[:, cols[pact]] = col_base[:, pact]
+        fit0[:, cols[pact]] = col_fit[:, pact]
+        if cfg.enable_ports:
+            # two pods of a round may commit to one node: OR both in
+            st["ports"] = st["ports"].to(torch.int32).index_add(
+                0, cols[pact], cx["ports"][pact].to(torch.int32)) > 0
+        if pw:
+            w_mt = torch.where((cx["mt"] >= 0) & pact[:, None], cx["mv"], zero)
+            st["cnt"], tids_mt, dcol_mt, wf_mt = _scatter_rows(st["cnt"], dbt, cx["mt"], cn_final, w_mt)
+            st["total"] = st["total"].index_add(0, tids_mt, wf_mt * (dcol_mt < D))
+            w_an = ((cx["anti"] >= 0) & pact[:, None]).to(torch.float32)
+            st["anti"] = _scatter_rows(st["anti"], dbt, cx["anti"], cn_final, w_an)[0]
+            if ips:
+                w_pf = torch.where((cx["pref_t"] >= 0) & pact[:, None], cx["pref_w"], zero)
+                st["pref"] = _scatter_rows(st["pref"], dbt, cx["pref_t"], cn_final, w_pf)[0]
+                if cfg.hard_pod_affinity_weight:
+                    hw = torch.tensor(float(cfg.hard_pod_affinity_weight), dtype=torch.float32, device=dev)
+                    w_ha = torch.where((cx["aff"] >= 0) & pact[:, None], hw, zero)
+                    st["pref"] = _scatter_rows(st["pref"], dbt, cx["aff"], cn_final, w_ha)[0]
+        nrounds += 1
+    return out, nrounds, ord_, st
+
+
+def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes):
+    """The per-pod inputs of the rounds scan: a function of a pod slice ->
+    the dict of its rows (masks unpacked, bf16 raws upcast to f32)."""
+    N = arr.N
+    traw, naraw = planes
+    img_on = _image_on(arr, cfg)
+
+    def rows(sl):
+        cx = {"req": arr.pod_req[sl], "valid": arr.pod_valid[sl], "sf": bitplane.unpack(sfs[sl], N)}
+        if cfg.enable_pairwise:
+            cx.update(elig=bitplane.unpack(eligs[sl], N), spread_t=arr.pod_spread_terms[sl],
+                      skew=arr.pod_spread_maxskew[sl], hard=arr.pod_spread_hard[sl], aff=arr.pod_aff_terms[sl],
+                      anti=arr.pod_anti_terms[sl], mt=arr.pod_match_terms[sl], mv=arr.pod_match_vals[sl],
+                      aself=arr.pod_aff_self[sl])
+            if cfg.enable_interpod_score:
+                cx.update(pref_t=arr.pod_pref_aff_terms[sl], pref_w=arr.pod_pref_aff_w[sl])
+        if cfg.enable_ports:
+            cx["ports"] = arr.pod_ports[sl]
+        if traw is not None:
+            cx["traw"] = traw[sl].to(torch.float32)
+        if naraw is not None:
+            cx["naraw"] = naraw[sl].to(torch.float32)
+        if img_on:
+            cx["img"] = arr.image_score[sl].to(torch.float32)
+        return cx
+
+    return rows
+
+
+def schedule_scan_rounds_plain(arr, cfg: ScoreConfig, sfs=None, eligs=None, planes=None, rchunk: int = None,
+                               repair_iters: int = None, inc=None, with_state: bool = False):
+    """The dense mode of the JAX package's assign.py:1464
+    schedule_scan_rounds: chunks of `rchunk` pods (its KTPU_RCHUNK), each
+    re-hoisted against exact round-start state every round, committed by
+    dispersal speculation, exact repair (`repair_iters`, its
+    KTPU_REPAIR_ITERS) and the share / normalisation-hazard truncation.
+    `sfs`, `eligs` are K7's packed planes and `planes` score_planes' (the
+    plain versions when not given).
+
+    -> (choices i32[P], used i32[N, R], ordinals i32[P], sweeps int): the
+    ordinal is the rounds of the earlier chunks plus the pod's own round
+    (:2225-2235), sweeps their total; with `with_state` also the final
+    pairwise state {cnt, anti, pref, total, ports} (what kernel K12 is held
+    to)."""
+    if inc is not None:
+        raise NotImplementedError(
+            "schedule_scan_rounds inc mode (the elig_u/traw_u/naraw_u/img_u class planes): "
+            "not ported to kubernetes_tpu_torch yet (ROADMAP.md queue B, B10 inc, slice 5)")
+    rchunk = RCHUNK if rchunk is None else rchunk
+    repair_iters = REPAIR_ITERS if repair_iters is None else repair_iters
+    dev = arr.device
+    P = arr.P
+    if P % rchunk:
+        raise ValueError(f"the rounds scan takes chunks of {rchunk} pods dividing P; got P={P}")
+    if sfs is None:
+        sfs, eligs = packed_static_rows_plain(arr, with_elig=True)
+    if planes is None:
+        planes = score_planes(arr, cfg)
+    rows = rounds_inputs(arr, cfg, sfs, eligs, planes)
+    dbt, D = dom_by_term(arr)
+    cnt, anti, pref, total = pairwise_state0(arr, dbt, D)
+    st = {"used": arr.node_used.clone(), "cnt": cnt, "anti": anti, "pref": pref, "total": total,
+          "ports": arr.node_ports0.clone()}
+    nodes = torch.arange(arr.N, dtype=torch.int32, device=dev)
+    outs, ords, rounds = [], [], []
+    for ch in range(P // rchunk):
+        o, nr, od, st = _rounds_chunk_plain(cfg, rows(slice(ch * rchunk, (ch + 1) * rchunk)), st,
+                                            arr.node_alloc, dbt, D, nodes, repair_iters)
+        outs.append(o)
+        ords.append(od)
+        rounds.append(nr)
+    base = torch.tensor([0] + rounds[:-1], dtype=torch.int64).cumsum(0).to(torch.int32).to(dev)
+    ords_g = (base[:, None] + torch.stack(ords)).reshape(-1)
+    out = (torch.cat(outs), st.pop("used"), ords_g, sum(rounds))
+    return out + (st,) if with_state else out
+
+
+def schedule_scan_rounds(arr, cfg: ScoreConfig, inc=None, rchunk: int = None, repair_iters: int = None):
+    """The rounds route: on CUDA tensors kernel K7 (packed static and
+    eligibility planes), K10 (score planes, where a stage needs them) and
+    K12 (the rounds scan, one launch); on the CPU the plain versions."""
+    TRACE_COUNTS["rounds"] += 1
+    if inc is not None:
+        raise NotImplementedError(
+            "schedule_scan_rounds inc mode (the elig_u/traw_u/naraw_u/img_u class planes): "
+            "not ported to kubernetes_tpu_torch yet (ROADMAP.md queue B, B10 inc, slice 5)")
+    sfs, eligs = packed_static_rows(arr, with_elig=True)
+    planes = score_planes(arr, cfg)
+    if arr.device.type != "cpu":
+        from . import kernels
+
+        return kernels.rounds(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
+    return schedule_scan_rounds_plain(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
+
+
 def _chunkable(arr, cfg: ScoreConfig) -> bool:
-    """The JAX package's assign.py:494 _chunkable for the fit-only stage set
-    (check_config has refused every other stage): P is a multiple of the
-    dense chunk."""
-    return arr.P >= CHUNK and arr.P % CHUNK == 0
+    """The JAX package's assign.py:494 _chunkable: the chunked scan applies
+    when node usage is the only scan-carried state (the fit-only stage set)
+    and P is a multiple of the dense chunk."""
+    return fit_only(cfg, arr) and arr.P >= CHUNK and arr.P % CHUNK == 0
+
+
+def _rounds_capable(arr, cfg: ScoreConfig) -> bool:
+    """The JAX package's assign.py:1447: the rounds scan serves every stage
+    combination; P must be a multiple of its chunk."""
+    return arr.P >= RCHUNK and arr.P % RCHUNK == 0
 
 
 def inc_route_applies(arr, cfg: ScoreConfig) -> bool:
-    """Whether (arr, cfg) routes the class-wave route at all: callers gate
-    HoistCache.ensure() on it (the JAX package's assign.py:2237)."""
+    """Whether (arr, cfg) routes a route that reads class state at all:
+    callers gate HoistCache.ensure() on it (the JAX package's
+    assign.py:2237).  The rounds route's inc mode is not ported (its class
+    planes wait for slice 5), so only the class-wave route counts."""
     return _chunkable(arr, cfg)
 
 
@@ -665,6 +1212,10 @@ def inc_applicable(arr, cfg: ScoreConfig, inc):
     if inc.base_u.shape[-1] != arr.N or inc.req_u.shape[1] != arr.R:
         return None
     if arr.P % INC_CHUNK:
+        return None
+    if not fit_only(cfg, arr):
+        # the JAX package's gate on elig_u / traw_u / naraw_u / img_u: the
+        # port's IncState carries none of them yet
         return None
     return inc
 
@@ -714,11 +1265,15 @@ class Step(NamedTuple):
 
 def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[bool] = None, **knobs) -> Step:
     """Route and launch one step without a host synchronisation on the card
-    (the pipeline's dispatch): with applicable class state `inc` the
-    class-wave route; else, where the batch is chunkable, the dense chunked
-    route (the JAX package's _chunk_routed: on the card by default, on the
-    CPU only with chunked=True); else the per-pod route.  chunked=False
-    keeps the per-pod route.  `knobs` are schedule_scan_chunked's."""
+    (the pipeline's dispatch), as the JAX package's schedule_batch_impl
+    routes off the CPU: with applicable class state `inc` the class-wave
+    route; else a chunkable batch (fit-only stages) takes the dense chunked
+    route and any other batch whose P is a multiple of RCHUNK the rounds
+    route — on the card by default, on the CPU only with chunked=True (the
+    JAX package's KTPU_FORCE_CHUNKED=1); else the per-pod route.
+    chunked=False keeps the per-pod route.  `knobs` are the route's keyword
+    arguments (schedule_scan_chunked's, or schedule_scan_rounds' rchunk /
+    repair_iters)."""
     dev = resolve_device(device)
     check_config(cfg)
     if arr.device.type != dev.type:
@@ -726,8 +1281,11 @@ def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[boo
     inc = inc_applicable(arr, cfg, inc)
     if inc is not None and _chunkable(arr, cfg):
         return Step(*schedule_scan_chunked(arr, cfg, inc, **knobs))
-    if _chunkable(arr, cfg) and (arr.device.type != "cpu" if chunked is None else chunked):
+    routed = arr.device.type != "cpu" if chunked is None else chunked
+    if routed and _chunkable(arr, cfg):
         return Step(*schedule_scan_chunked_dense(arr, cfg))
+    if routed and _rounds_capable(arr, cfg):
+        return Step(*schedule_scan_rounds(arr, cfg, **knobs))
     choices, used = _per_pod(arr, cfg)
     return Step(choices, used, torch.arange(arr.P, dtype=torch.int32, device=arr.device), arr.P)
 

@@ -157,6 +157,41 @@ def unpack_planes(w: torch.Tensor, n: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# score storage: bf16, accumulated in f32 (the JAX package's
+# bitplane.py:219-251 with its default KTPU_SCORE_DTYPE=bf16)
+# ---------------------------------------------------------------------------
+
+def quantize_scores(x: torch.Tensor) -> torch.Tensor:
+    """A computed f32 raw score plane onto the bf16 storage lattice (round
+    to nearest even, as XLA's f32 -> bf16 convert).  Consumers upcast to
+    f32 before any reduction."""
+    return x.to(torch.bfloat16)
+
+
+def quantize_scores_np(x) -> np.ndarray:
+    """Host mirror of quantize_scores: f32 values -> their bf16 bit patterns
+    as uint16 (numpy has no bf16 type without ml_dtypes; the rounding is
+    torch's, the same round to nearest even).  ``bf16_of_np`` turns them
+    into a bf16 tensor."""
+    x = np.asarray(x, dtype=np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16).reshape(x.shape)
+
+
+def bf16_of_np(bits: np.ndarray) -> torch.Tensor:
+    """uint16 bf16 bit patterns (quantize_scores_np, or an ml_dtypes bf16
+    array viewed as uint16) -> a CPU bf16 tensor."""
+    bits = np.asarray(bits)
+    return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16).copy()).view(torch.bfloat16).reshape(bits.shape)
+
+
+def bf16_round_np(x):
+    """f32 -> bf16 lattice -> f32 (what a value reads as once stored)."""
+    out = bf16_of_np(quantize_scores_np(x)).to(torch.float32).numpy()
+    return np.float32(out) if out.ndim == 0 else out
+
+
+# ---------------------------------------------------------------------------
 # host side (numpy): the encoder's transfer packing
 # ---------------------------------------------------------------------------
 

@@ -9,11 +9,13 @@ libraries are loaded with ctypes; pointers and the stream go in as
 c_void_p, score parameters as small host arrays.
 
 Kernels (LAUNCHES keys) and their libraries: static_feasible and fit_scan
-(the per-pod route); class_static_hoist and class_usage_hoist (K3, K4:
-class_hoist.cu), wave_commit (K5) and chunk_rounds (K6) (the class-wave
-route); packed_static_rows (K7, class_hoist.cu) and chunk_rounds_dense (K8)
-(the dense chunked route); unpack_planes (K9, the encoder's packed
-transfers).
+(the per-pod route, fit-only); class_static_hoist and class_usage_hoist
+(K3, K4: class_hoist.cu), wave_commit (K5) and chunk_rounds (K6) (the
+class-wave route); packed_static_rows (K7, class_hoist.cu) and
+chunk_rounds_dense (K8) (the dense chunked route); unpack_planes (K9, the
+encoder's packed transfers); score_planes (K10), full_scan (K11, the
+per-pod route over the full stage set) and rounds (K12, the rounds route);
+K11 and K12 inline csrc/pairwise.cuh.
 
 No wrapper reads anything back: the chunk-scan kernels leave their sweep
 count and round-cap status in an int32[2] device pair, which read_sweeps
@@ -55,7 +57,8 @@ SOURCES = {
     "class_static_hoist": "class_hoist.cu", "class_usage_hoist": "class_hoist.cu",
     "wave_commit": "wave_commit.cu", "chunk_rounds": "chunk_rounds.cu",
     "packed_static_rows": "class_hoist.cu", "chunk_rounds_dense": "chunk_rounds_dense.cu",
-    "unpack_planes": "unpack_planes.cu",
+    "unpack_planes": "unpack_planes.cu", "score_planes": "score_planes.cu",
+    "full_scan": "full_scan.cu", "rounds": "rounds.cu",
 }
 
 _P = ctypes.c_void_p
@@ -70,9 +73,12 @@ _ARGTYPES = {
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
     "chunk_rounds": ("ktt_chunk_rounds", [_P] * 23 + [_I] * 6 + [_P]),
-    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 14 + [_I] * 7 + [_P]),
+    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 15 + [_I] * 7 + [_P]),
     "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 16 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
+    "score_planes": ("ktt_score_planes", [_P] * 12 + [_I] * 7 + [_P]),
+    "full_scan": ("ktt_full_scan", [_P] * 9),
+    "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -510,10 +516,11 @@ def read_sweeps(scal: torch.Tensor) -> int:
 # the encoder's packed transfers (K9 unpack_planes)
 # ---------------------------------------------------------------------------
 
-def packed_static_rows(arr) -> torch.Tensor:
+def packed_static_rows(arr, with_elig: bool = False):
     """K7 (csrc/class_hoist.cu): static feasibility of every pod row,
     pod_valid included, as int32 words [P, ceil(N/32)] written by warp
-    ballot (no dense bool plane)."""
+    ballot (no dense bool plane); with `with_elig` also the eligibility
+    plane nodesel & node_valid -> (sfs, eligs)."""
     dev = arr.device
     _need_cuda(dev, "packed_static_rows")
     P, N = arr.P, arr.N
@@ -534,17 +541,18 @@ def packed_static_rows(arr) -> torch.Tensor:
     taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
     tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
     sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=dev)
+    eligs = torch.empty_like(sfs) if with_elig else None
     with torch.cuda.device(dev):
         err = fn(
             arr.node_valid.data_ptr(), arr.node_taint_ns.data_ptr(), arr.node_labels.data_ptr(),
             arr.pod_valid.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
             arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sfs.data_ptr(),
-            P, N, T, TT, S, E, L, _stream(dev),
+            None if eligs is None else eligs.data_ptr(), P, N, T, TT, S, E, L, _stream(dev),
         )
     _raise_on(err, "packed_static_rows")
     LAUNCHES["packed_static_rows"] += 1
-    return sfs
+    return (sfs, eligs) if with_elig else sfs
 
 
 def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor):
@@ -606,3 +614,186 @@ def unpack_planes(words: torch.Tensor, n: int) -> torch.Tensor:
     _raise_on(err, "unpack_planes")
     LAUNCHES["unpack_planes"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the full stage set: K10 score_planes, K11 full_scan, K12 rounds
+# ---------------------------------------------------------------------------
+
+# csrc/pairwise.cuh limits: slots per pod, matched-term slots, host ports,
+# and csrc/rounds.cu's chunk
+MAX_SLOTS, MAX_MATCH, MAX_PORTS, MAX_RCHUNK, ZR_MAX = 16, 32, 64, 32, 32
+
+
+def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 (csrc/score_planes.cu): (traw, naraw) bf16[P, N], the
+    PreferNoSchedule count plane and the preferred node-affinity weight
+    plane."""
+    dev = arr.device
+    _need_cuda(dev, "score_planes")
+    P, N = arr.P, arr.N
+    T = arr.node_taint_pref.shape[1]
+    PW = arr.pod_pref_terms.shape[1]
+    S, E, L = arr.sel_mask.shape
+    for name, dt, shape in (
+        ("node_taint_pref", torch.bool, (N, T)), ("pod_tol_pref", torch.bool, (P, T)),
+        ("pod_pref_terms", torch.int32, (P, PW)), ("pod_pref_weights", torch.float32, (P, PW)),
+        ("sel_mask", torch.bool, (S, E, L)), ("sel_kind", torch.int32, (S, E)),
+        ("node_labels", torch.bool, (N, L)),
+    ):
+        _check(getattr(arr, name), name, dt, shape, dev)
+    fn = _fn("score_planes")
+    TW = max(1, -(-T // 32))
+    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
+    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
+    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
+    traw = torch.empty((P, N), dtype=torch.bfloat16, device=dev)
+    naraw = torch.empty((P, N), dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            arr.node_taint_pref.data_ptr(), arr.pod_tol_pref.data_ptr(), arr.pod_pref_terms.data_ptr(),
+            arr.pod_pref_weights.data_ptr(), arr.sel_mask.data_ptr(), arr.sel_kind.data_ptr(),
+            arr.node_labels.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), traw.data_ptr(),
+            naraw.data_ptr(), P, N, T, PW, S, E, L, _stream(dev),
+        )
+    _raise_on(err, "score_planes")
+    LAUNCHES["score_planes"] += 1
+    return traw, naraw
+
+
+def _full_args(arr, cfg, sfs, eligs, planes):
+    """The inputs K11 and K12 share, checked, and the scan's working state
+    (fresh tensors: the inputs are never written) -> (pointer array, dims,
+    switches, weights, score params, state dict, the tensors to keep
+    alive)."""
+    from .assign import _image_on, dom_by_term, pairwise_state0
+
+    dev = arr.device
+    P, N, R = arr.P, arr.N, arr.R
+    W = -(-N // 32)
+    traw, naraw = planes
+    img_on = _image_on(arr, cfg)
+    pw = bool(cfg.enable_pairwise)
+    T, D1 = arr.term_counts0.shape
+    PT = arr.node_ports0.shape[1]
+    CS, A1, A2 = arr.pod_spread_terms.shape[1], arr.pod_aff_terms.shape[1], arr.pod_anti_terms.shape[1]
+    B, M = arr.pod_pref_aff_terms.shape[1], arr.pod_match_terms.shape[1]
+    if max(CS, A1, A2, B) > MAX_SLOTS or M > MAX_MATCH or PT > MAX_PORTS:
+        raise ValueError(f"the full-stage kernels take <= {MAX_SLOTS} slots, <= {MAX_MATCH} matched terms and "
+                         f"<= {MAX_PORTS} host ports; got spread {CS}, affinity {A1}, anti {A2}, preferred {B}, "
+                         f"matched {M}, ports {PT}")
+    _check(sfs, "sfs", torch.int32, (P, W), dev)
+    if pw:
+        _check(eligs, "eligs", torch.int32, (P, W), dev)
+    if cfg.enable_taint_score:
+        _check(traw, "traw", torch.bfloat16, (P, N), dev)
+    if cfg.enable_node_pref:
+        _check(naraw, "naraw", torch.bfloat16, (P, N), dev)
+    K = arr.node_dom.shape[0]
+    for name, dt, shape in (
+        ("pod_req", torch.int32, (P, R)), ("pod_valid", torch.bool, (P,)),
+        ("node_alloc", torch.int32, (N, R)), ("node_used", torch.int32, (N, R)),
+        ("pod_spread_terms", torch.int32, (P, CS)), ("pod_spread_maxskew", torch.int32, (P, CS)),
+        ("pod_spread_hard", torch.bool, (P, CS)), ("pod_aff_terms", torch.int32, (P, A1)),
+        ("pod_aff_self", torch.bool, (P, A1)), ("pod_anti_terms", torch.int32, (P, A2)),
+        ("pod_match_terms", torch.int32, (P, M)), ("pod_match_vals", torch.float32, (P, M)),
+        ("pod_pref_aff_terms", torch.int32, (P, B)), ("pod_pref_aff_w", torch.float32, (P, B)),
+        ("pod_ports", torch.bool, (P, PT)), ("node_ports0", torch.bool, (N, PT)),
+        ("node_dom", torch.int32, (K, N)), ("term_key", torch.int32, (T,)),
+        ("term_counts0", torch.float32, (T, D1)), ("anti_counts0", torch.float32, (T, D1)),
+        ("pref_own0", torch.float32, (T, D1)),
+    ):
+        _check(getattr(arr, name), name, dt, shape, dev)
+    if img_on:
+        _check(arr.image_score, "image_score", torch.bfloat16, (P, N), dev)
+    ip, fp = _score_params(cfg, R)
+    dbt, D = dom_by_term(arr)
+    dbt = dbt.contiguous()
+    cnt, anti, pref, total_t = (x.contiguous() for x in pairwise_state0(arr, dbt, D))
+    st = dict(used=arr.node_used.clone(), cnt=cnt, anti=anti, pref=pref, total=total_t,
+              ports=arr.node_ports0.clone())
+
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    ptrs = np.array([ptr(x) for x in (
+        arr.pod_req, arr.pod_valid, sfs, eligs if pw else None, traw if cfg.enable_taint_score else None,
+        naraw if cfg.enable_node_pref else None, arr.image_score if img_on else None, arr.pod_spread_terms,
+        arr.pod_spread_maxskew, arr.pod_spread_hard, arr.pod_aff_terms, arr.pod_aff_self, arr.pod_anti_terms,
+        arr.pod_match_terms, arr.pod_match_vals, arr.pod_pref_aff_terms, arr.pod_pref_aff_w, arr.pod_ports,
+        arr.node_alloc, st["used"], dbt, st["cnt"], st["anti"], st["pref"], st["total"], st["ports"],
+    )], dtype=np.uint64)
+    dims = np.array([P, N, R, T, D, PT, CS, A1, A2, B, M], dtype=np.int32)
+    ips = pw and bool(cfg.enable_interpod_score)
+    sw = np.array([pw, ips, bool(cfg.enable_ports), bool(cfg.enable_taint_score),
+                   bool(cfg.enable_node_pref), img_on], dtype=np.int32)
+    wp = np.array([cfg.taint_weight, cfg.node_affinity_weight, cfg.spread_weight, cfg.interpod_weight,
+                   cfg.image_weight, cfg.hard_pod_affinity_weight], dtype=np.float32)
+    return ptrs, dims, sw, wp, ip, fp, st, dbt
+
+
+def full_scan(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, with_state: bool = False):
+    """K11 (csrc/full_scan.cu): the per-pod scan over the full stage set in
+    one launch, from K7's packed static (and eligibility) planes and
+    score_planes' (traw, naraw) -> (choices i32[P], used i32[N, R]), and
+    with `with_state` the final pairwise state (cnt, anti, pref, total,
+    ports)."""
+    dev = arr.device
+    _need_cuda(dev, "full_scan")
+    ptrs, dims, sw, wp, ip, fp, st, _dbt = _full_args(arr, cfg, sfs, eligs, planes)
+    fn = _fn("full_scan")
+    N = arr.N
+    choices = torch.empty((arr.P,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((4 * 4 * N + N,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), choices.data_ptr(),
+                 scratch.data_ptr(), _stream(dev))
+    _raise_on(err, "full_scan")
+    LAUNCHES["full_scan"] += 1
+    used = st.pop("used")
+    return (choices, used, st) if with_state else (choices, used)
+
+
+def rounds(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, rchunk: Optional[int] = None,
+           repair_iters: Optional[int] = None, with_state: bool = False):
+    """K12 (csrc/rounds.cu): the rounds scan over the full stage set in one
+    cooperative launch, chunks of `rchunk` pods -> (choices i32[P], used
+    i32[N, R], ordinals i32[P], the int32[2] device pair (sweeps, status):
+    read_sweeps), and with `with_state` the final pairwise state.  Every
+    round commits a pod, so a chunk takes at most `rchunk` rounds; the
+    kernel stops a chunk past that cap and reports it in the status."""
+    from .assign import REPAIR_ITERS, RCHUNK
+
+    dev = arr.device
+    _need_cuda(dev, "rounds")
+    C = RCHUNK if rchunk is None else rchunk
+    iters = REPAIR_ITERS if repair_iters is None else repair_iters
+    P, N = arr.P, arr.N
+    if not 1 <= C <= MAX_RCHUNK or P % C or iters < 1:
+        raise ValueError(f"rounds kernel takes chunks of 1..{MAX_RCHUNK} pods dividing P and repair_iters >= 1; "
+                         f"got rchunk={C}, P={P}, repair_iters={iters}")
+    ptrs, dims, sw, wp, ip, fp, st, _dbt = _full_args(arr, cfg, sfs, eligs, planes)
+    fn = _fn("rounds")
+    n_ent = MAX_MATCH + 3 * MAX_SLOTS
+    scratch = [
+        torch.empty((C, N), dtype=torch.uint8, device=dev),
+        *(torch.empty((C, N), dtype=torch.float32, device=dev) for _ in range(4)),
+        torch.empty((C, ZR_MAX), dtype=torch.float32, device=dev),
+        torch.empty((C, ZR_MAX), dtype=torch.int32, device=dev),
+        *(torch.empty((C,), dtype=torch.int32, device=dev) for _ in range(5)),
+        torch.zeros((2,), dtype=torch.int32, device=dev),
+        torch.empty((C * n_ent, 4), dtype=torch.int32, device=dev),
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+    ]
+    sp = np.array([x.data_ptr() for x in scratch], dtype=np.uint64)
+    choices = torch.empty((P,), dtype=torch.int32, device=dev)
+    ords = torch.empty((P,), dtype=torch.int32, device=dev)
+    scal = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), choices.data_ptr(),
+                 ords.data_ptr(), scal.data_ptr(), _host(sp), C, iters, _stream(dev))
+    _raise_on(err, "rounds")
+    LAUNCHES["rounds"] += 1
+    used = st.pop("used")
+    out = (choices, used, ords, scal)
+    return out + (st,) if with_state else out

@@ -1,5 +1,6 @@
 """Score (Score extension point) functions — the port of the JAX package's
-``ops/scores.py``.
+``ops/scores.py``: the fit strategies, BalancedAllocation, the
+PreferNoSchedule count plane and the reversed normalisation.
 
 Score arithmetic is float32 in ONE explicit op order, the JAX package's, so
 the plain versions here are bitwise equal to it on the CPU
@@ -53,43 +54,43 @@ DEFAULT_SCORE_CONFIG = ScoreConfig()
 
 FIT_STRATEGIES = ("LeastAllocated", "MostAllocated", "RequestedToCapacityRatio")
 
-# stage flag -> (what it scores, where its port is queued in ROADMAP.md)
-UNPORTED_STAGES = {
-    "enable_pairwise": ("PodTopologySpread / InterPodAffinity", "queue A7, kernels B8/B9"),
-    "enable_ports": ("NodePorts", "queue A7, kernel B9 ports_ok"),
-    "enable_taint_score": ("TaintToleration score", "queue A7, kernel B0c taint_prefer_counts"),
-    "enable_node_pref": ("preferred NodeAffinity score", "queue A7, kernel B0c _preferred_node_affinity_raw"),
-    "enable_image": ("ImageLocality", "queue A7, kernel B8"),
-}
+def _any(x) -> bool:
+    """Host truth of `x.any()` for a numpy array or a tensor."""
+    return bool(x.any())
 
 
 def infer_score_config(arr, cfg: ScoreConfig = DEFAULT_SCORE_CONFIG) -> ScoreConfig:
-    """Specialize cfg to the snapshot, reading the same "stage present?"
-    evidence as the JAX package.  The port's encoder (and convert.py) refuse
-    any snapshot with pairwise terms, host ports or image scores, so those
-    stages are proven absent; the taint and node-affinity score stages follow
-    the arrays' evidence flags."""
+    """Specialize cfg to the snapshot: disable the stages the encoded arrays
+    prove unused, reading the same evidence as the JAX package's
+    ops/scores.py:75 (host arrays or tensors; one host read per field on
+    the card)."""
+    has_terms = (
+        _any(arr.pod_aff_terms >= 0) or _any(arr.pod_anti_terms >= 0)
+        or _any(arr.pod_spread_terms >= 0) or _any(arr.anti_counts0 > 0)
+    )
+    has_ports = _any(arr.pod_ports) or _any(arr.node_ports0)
+    has_prefer_taints = _any(arr.node_taint_pref)
+    has_node_pref = _any(arr.pod_pref_terms >= 0)
+    has_image = arr.image_score.shape[1] == arr.N and _any(arr.image_score != 0)
+    has_interpod_pref = (
+        _any(arr.pod_pref_aff_terms >= 0) or _any(arr.pref_own0 != 0)
+        # committed pods' REQUIRED affinity terms score toward later pods
+        # at hardPodAffinityWeight, so required terms alone need the stage
+        or (cfg.hard_pod_affinity_weight > 0 and _any(arr.pod_aff_terms >= 0))
+    )
     return dataclasses.replace(
         cfg,
-        enable_pairwise=False,
-        enable_ports=False,
-        enable_taint_score=bool(arr.has_prefer_taints),
-        enable_node_pref=bool(arr.has_node_pref),
-        enable_image=False,
-        enable_interpod_score=False,
+        enable_pairwise=has_terms or has_interpod_pref,
+        enable_ports=has_ports,
+        enable_taint_score=has_prefer_taints,
+        enable_node_pref=has_node_pref,
+        enable_image=has_image,
+        enable_interpod_score=has_interpod_pref,
     )
 
 
 def check_config(cfg: ScoreConfig) -> None:
-    """Raise on a config this slice cannot run: an unported stage, or an
-    unknown fit strategy."""
-    for flag, (what, queue) in UNPORTED_STAGES.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"ScoreConfig.{flag}: the {what} stage is not ported to "
-                f"kubernetes_tpu_torch yet (ROADMAP.md {queue}); use "
-                "infer_score_config(arr, cfg) to drop stages the snapshot lacks"
-            )
+    """Raise on a config the port cannot run: an unknown fit strategy."""
     if cfg.fit_strategy not in FIT_STRATEGIES:
         raise ValueError(f"unknown fit scoringStrategy {cfg.fit_strategy!r}")
 
@@ -190,3 +191,26 @@ def balanced_allocation(requested: torch.Tensor, alloc: torch.Tensor, res_idx) -
     # not correctly rounded
     std = torch.sqrt(var.to(torch.float64)).to(torch.float32)
     return (1.0 - std) * MAX_NODE_SCORE
+
+
+def taint_prefer_counts_plain(pod_tol_pref: torch.Tensor, node_taint_pref: torch.Tensor) -> torch.Tensor:
+    """bf16[P, N] count of intolerable PreferNoSchedule taints, the raw
+    TaintToleration score (tainttoleration/taint_toleration.go —
+    CountIntolerableTaintsPreferNoSchedule): a counting product in f32
+    (integer-valued, exact below 2^24 in any order), stored on the bf16
+    lattice (the JAX package's ops/scores.py:229 taint_prefer_counts).
+    The plain version of kernel K10 score_planes' first plane."""
+    counts = (~pod_tol_pref).to(torch.float32) @ node_taint_pref.to(torch.float32).t()
+    return counts.to(torch.bfloat16)
+
+
+def normalize_reverse(counts: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:
+    """f32[N]: DefaultNormalizeScore with reverse=true over the feasible set
+    (helper/normalize_score.go): 100 - 100 * c / maxCount; all 100 when
+    maxCount == 0.  A bf16 plane is upcast to f32 first (the JAX package's
+    ops/scores.py:253 and the scan's norm_reverse, assign.py:241)."""
+    counts = counts.to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=counts.device)
+    mx = torch.where(feasible, counts, zero).max(dim=-1, keepdim=True).values
+    return torch.where(mx > 0, MAX_NODE_SCORE - MAX_NODE_SCORE * counts / mx,
+                       torch.full_like(counts, MAX_NODE_SCORE))

@@ -97,33 +97,50 @@ def test_ties_go_to_the_lowest_node_index():
 
 
 def test_pairwise_snapshot_raises():
+    """A pairwise snapshot no longer raises: the port's encoder and the JAX
+    arrays carried across both give the JAX package's decisions; arrays that
+    carry a pod group (the one thing still missing) still raise."""
     snap = jw.spread_affinity(12, 40)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_snapshot(snap, device="cpu")
     ja, _ = jax_encode(snap)
-    with pytest.raises(ValueError, match="pairwise"):
-        from_jax_arrays({f.name: np.asarray(getattr(ja, f.name)) for f in dataclasses.fields(ja)}, "cpu")
+    jc, ju = (np.array(x) for x in jax_schedule(ja, jax_infer(ja, JAX_DEFAULT)))
+    fields = {f.name: np.asarray(getattr(ja, f.name)) for f in dataclasses.fields(ja)}
+    for arr in (encode_snapshot(snap, device="cpu")[0], from_jax_arrays(fields, "cpu")):
+        tc, tu = schedule_batch(arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG), device="cpu")
+        np.testing.assert_array_equal(tc.numpy(), jc)
+        np.testing.assert_array_equal(tu.numpy(), ju)
+    fields["pod_group"] = np.where(np.arange(len(fields["pod_group"])) < 3, 0, -1).astype(np.int32)
+    with pytest.raises(ValueError, match="pod group"):
+        from_jax_arrays(fields, "cpu")
 
 
 @pytest.mark.parametrize("flag", ["enable_pairwise", "enable_ports", "enable_taint_score",
                                   "enable_node_pref", "enable_image"])
 def test_unported_stage_raises(flag):
-    arr, _ = encode_snapshot(tw.basic(4, 4), device="cpu")
+    """No stage raises any more: a stage forced on where the snapshot has no
+    evidence for it runs, and decides as the JAX package's does with the
+    same stage forced on."""
+    snap = tw.basic(4, 4)
+    arr, _ = encode_snapshot(snap, device="cpu")
     cfg = dataclasses.replace(infer_score_config(arr, DEFAULT_SCORE_CONFIG), **{flag: True})
-    with pytest.raises(NotImplementedError, match=flag):
-        schedule_batch(arr, cfg, device="cpu")
+    tc, tu = schedule_batch(arr, cfg, device="cpu")
+    ja, _ = jax_encode(snap)
+    jcfg = dataclasses.replace(jax_infer(ja, JAX_DEFAULT), **{flag: True})
+    jc, ju = (np.array(x) for x in jax_schedule(ja, jcfg))
+    np.testing.assert_array_equal(tc.numpy(), jc)
+    np.testing.assert_array_equal(tu.numpy(), ju)
 
 
 def test_prefer_taints_enable_the_unported_taint_stage():
     """A PreferNoSchedule taint makes infer_score_config enable the taint
-    score stage, as in the JAX package, and schedule_batch then refuses."""
-    nodes = [tt.Node(name="n0", allocatable={tt.CPU: 1000},
-                     taints=(tt.Taint("soft", "x", tt.PREFER_NO_SCHEDULE),))]
-    arr, _ = encode_snapshot(Snapshot(nodes, [tt.Pod(name="p", requests={tt.CPU: 1})]), device="cpu")
+    score stage, as in the JAX package, and the stage now runs: the pod
+    avoids the tainted node while another fits."""
+    nodes = [tt.Node(name=f"n{i}", allocatable={tt.CPU: 1000},
+                     taints=(tt.Taint("soft", "x", tt.PREFER_NO_SCHEDULE),) if i == 0 else ()) for i in range(2)]
+    arr, meta = encode_snapshot(Snapshot(nodes, [tt.Pod(name="p", requests={tt.CPU: 1})]), device="cpu")
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     assert cfg.enable_taint_score
-    with pytest.raises(NotImplementedError, match="TaintToleration"):
-        schedule_batch(arr, cfg, device="cpu")
+    choices, _ = schedule_batch(arr, cfg, device="cpu")
+    assert decode_choices(choices, meta) == {"p": "n1"}
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -64,8 +64,9 @@ def assert_same_encoding(got, gm, want, wm):
     for name in ClusterArrays.FIELDS:
         a, b = np.asarray(getattr(got, name)), np.asarray(getattr(want, name))
         assert a.shape == b.shape, name
+        if name == "image_score":  # bf16 bit patterns on both sides
+            b = b.view(np.uint16)
         np.testing.assert_array_equal(a, b.astype(a.dtype), err_msg=name)
-    assert got.has_prefer_taints == bool(np.any(want.node_taint_pref))
     for name in ("node_names", "pod_names", "resources", "n_nodes", "n_pods", "n_classes"):
         assert getattr(gm, name) == getattr(wm, name), name
     for name in ("pod_perm", "resource_scale", "pod_class", "class_first_pod"):
@@ -166,20 +167,115 @@ def test_duplicate_bound_uid_rejected():
 
 @pytest.mark.parametrize("feature", ["host-ports", "pod-affinity", "pvcs"])
 def test_delta_bringing_a_refused_feature_raises(feature):
-    """A bound pod arriving in a delta with a feature the slice does not
-    port raises; the encoder's resident state does not move."""
+    """A bound pod arriving in a delta with a feature the port does not have
+    (volumes) raises and the encoder's resident state does not move; one
+    that brings a host port or an affinity term the vocabulary lacks now
+    falls back to a rebuild, as the JAX encoder does, and encodes as it."""
     nodes = cluster_nodes(6)
-    enc = DeltaEncoder("cpu")
-    enc.encode(Snapshot(nodes=nodes, pending_pods=[template("a", 0)]))
+    enc, jax_enc = DeltaEncoder("cpu"), JaxDeltaEncoder()
+    first = Snapshot(nodes=nodes, pending_pods=[template("a", 0)])
+    enc.encode(first)
+    jax_enc.encode(first)
     term = t.PodAffinityTerm(topology_key=t.LABEL_ZONE, label_selector=t.LabelSelector.of(app="web"))
     extra = {"host-ports": dict(host_ports=(("TCP", 80),)),
              "pod-affinity": dict(affinity=t.Affinity(required_pod_affinity=(term,))),
              "pvcs": dict(pvcs=("claim",))}[feature]
     bad = dataclasses.replace(mk_pod("b", node_name="n2"), **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        enc.encode(Snapshot(nodes=nodes, pending_pods=[template("c", 0)], bound_pods=[bad]))
-    assert enc.stats == {"full": 1, "delta": 0, "verified": 0}
-    assert not enc._cs.records
+    snap = Snapshot(nodes=nodes, pending_pods=[template("c", 0)], bound_pods=[bad])
+    if feature == "pvcs":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            enc.encode(snap)
+        assert enc.stats == {"full": 1, "delta": 0, "verified": 0}
+        assert not enc._cs.records
+        return
+    assert_same_encoding(*enc.encode(snap), *jax_enc.encode(snap))
+    assert enc.stats == jax_enc.stats == {"full": 2, "delta": 0, "verified": 0}
+
+
+def pairwise_template(name, kind):
+    """Pods stamped from a template family with spread, (anti-)affinity,
+    preferred terms and host ports."""
+    zone = t.PodAffinityTerm(topology_key=t.LABEL_ZONE, label_selector=t.LabelSelector.of(app="web"))
+    host = t.PodAffinityTerm(topology_key=t.LABEL_HOSTNAME, label_selector=t.LabelSelector.of(app="db"))
+    if kind == 0:
+        return mk_pod(name, cpu=250, labels={"app": "web"}, topology_spread=(t.TopologySpreadConstraint(
+            max_skew=1, topology_key=t.LABEL_ZONE, label_selector=t.LabelSelector.of(app="web")),))
+    if kind == 1:
+        return mk_pod(name, cpu=100, labels={"app": "db"},
+                      affinity=t.Affinity(required_pod_anti_affinity=(host,),
+                                          preferred_pod_affinity=(t.WeightedPodAffinityTerm(20, zone),)))
+    if kind == 2:
+        return mk_pod(name, cpu=50, labels={"app": "web"}, affinity=t.Affinity(required_pod_affinity=(zone,)),
+                      host_ports=(("TCP", 8080),))
+    return mk_pod(name, cpu=75, labels={"app": "cache"},
+                  affinity=t.Affinity(preferred_pod_anti_affinity=(t.WeightedPodAffinityTerm(5, host),)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pairwise_churn_matches_jax_and_fresh_encodes(seed):
+    """Binds and deletes of pods with pairwise terms and host ports move the
+    per-domain counts and port occupancy as the JAX DeltaEncoder does, cycle
+    for cycle; the kinds drawn change the term vocabulary, which rebuilds as
+    the JAX encoder's does (the fallback counters are pinned to its)."""
+    rng = np.random.default_rng(seed)
+    nodes = cluster_nodes(20)
+    bound = []
+    port, jax_enc = DeltaEncoder("cpu"), JaxDeltaEncoder()
+    serial = 0
+    for cycle in range(6):
+        kinds = [int(k) for k in rng.integers(0, 4 if cycle >= 3 else 2, int(rng.integers(4, 10)))]
+        pending = [pairwise_template(f"q{serial + i}", k) for i, k in enumerate(kinds)]
+        serial += len(pending)
+        snap = Snapshot(nodes=nodes, pending_pods=pending, bound_pods=list(bound))
+        host, meta = port.encode(snap)
+        want, wm = jax_enc.encode(snap)
+        assert_same_encoding(host, meta, want, wm)
+        assert port.stats == jax_enc.stats, cycle
+        arr, meta = port.to_device(host, meta)
+        fresh, fm = encode_snapshot(snap, device="cpu")
+        assert _decisions(arr, meta) == _decisions(fresh, fm), cycle
+        for pod in pending:
+            if rng.random() < 0.7:
+                bound.append(dataclasses.replace(pod, node_name=nodes[int(rng.integers(0, len(nodes)))].name))
+        if bound and rng.random() < 0.8:
+            bound.pop(int(rng.integers(0, len(bound))))
+    assert port.stats["full"] >= 2 and port.stats["delta"] >= 1, port.stats
+
+
+@pytest.mark.parametrize("hpaw", [0.0, 10.0])
+def test_hard_pod_affinity_weight_matches_jax(hpaw):
+    """DeltaEncoder(hard_pod_affinity_weight=) scores the bound pods'
+    required-affinity terms at that weight, and ScoreConfig's weight scores
+    the scans' own commits at it, as the JAX package's encoder and scan do
+    (after its tests/test_interpod_pref.py test_hard_pod_affinity_weight_
+    configurable): the encodings are equal, and the per-pod and rounds
+    scans decide as the JAX per-pod scan and the oracle."""
+    from kubernetes_tpu.ops import schedule_batch as jax_schedule
+    from kubernetes_tpu_torch.ops import assign
+
+    rng = np.random.default_rng(11)
+    nodes = cluster_nodes(18)
+    bound = [dataclasses.replace(pairwise_template(f"b{i}", 2 if i % 2 == 0 else int(rng.integers(0, 4))),
+                                 node_name=nodes[int(rng.integers(0, len(nodes)))].name) for i in range(10)]
+    pending = [pairwise_template(f"q{i}", int(k)) for i, k in enumerate(rng.integers(0, 4, 32))]
+    snap = Snapshot(nodes=nodes, pending_pods=pending, bound_pods=bound)
+    port = DeltaEncoder("cpu", hard_pod_affinity_weight=hpaw)
+    host, meta = port.encode(snap)
+    want, wm = JaxDeltaEncoder(hard_pod_affinity_weight=hpaw).encode(snap)
+    assert_same_encoding(host, meta, want, wm)
+    arr, meta = port.to_device(host, meta)
+    cfg = infer_score_config(arr, dataclasses.replace(DEFAULT_SCORE_CONFIG, hard_pod_affinity_weight=hpaw))
+    jcfg = jax_infer(want, dataclasses.replace(JAX_DEFAULT, hard_pod_affinity_weight=hpaw))
+    assert cfg.enable_interpod_score and jcfg.enable_interpod_score
+    assert assign._rounds_capable(arr, cfg) and not assign._chunkable(arr, cfg)
+    choices, used = assign.schedule_scan_plain(arr, cfg)
+    jc, ju = (np.asarray(x) for x in jax_schedule(want, jcfg))
+    np.testing.assert_array_equal(choices.numpy(), jc)
+    np.testing.assert_array_equal(used.numpy(), ju)
+    rc, ru, _, _ = assign.schedule_scan_rounds_plain(arr, cfg)
+    assert torch.equal(rc, choices) and torch.equal(ru, used)
+    placed = decode_choices(choices, meta)
+    assert [(n, placed[n]) for n in meta.pod_names] == oracle_schedule(snap, jcfg)
 
 
 @pytest.mark.parametrize("shape", [(3, 64), (5, 65), (2, 7, 100), (1, 1), (4, 0)])
@@ -197,9 +293,10 @@ def test_host_pack_unpack_match_jax_bytes(shape):
 
 
 def test_wide_taint_vocabulary_travels_packed(monkeypatch):
-    """80 distinct NoSchedule taints: node_taint_ns and pod_tol_ns are 80
-    wide, go to the device packed and come back equal; decisions equal the
-    JAX package's encoder and the oracle's."""
+    """80 distinct NoSchedule taints: node_taint_ns and pod_tol_ns, and the
+    PreferNoSchedule planes beside them (node_taint_pref, pod_tol_pref), are
+    80 wide, go to the device packed and come back equal; decisions equal
+    the JAX package's encoder and the oracle's."""
     from kubernetes_tpu_torch.api import delta
 
     snap = tw.wide_taints(200, 400)
@@ -209,10 +306,13 @@ def test_wide_taint_vocabulary_travels_packed(monkeypatch):
     enc = DeltaEncoder("cpu")
     host, meta = enc.encode(snap)
     arr, meta = enc.to_device(host, meta)
-    assert sorted(packed) == sorted([host.node_taint_ns.shape, host.pod_tol_ns.shape])
+    assert sorted(packed) == sorted([host.node_taint_ns.shape, host.pod_tol_ns.shape,
+                                     host.node_taint_pref.shape, host.pod_tol_pref.shape])
     assert host.node_taint_ns.shape[1] == 80 and delta._packable(host.pod_tol_ns)
     for name in ClusterArrays.FIELDS:
-        np.testing.assert_array_equal(getattr(arr, name).numpy(), getattr(host, name), err_msg=name)
+        got = getattr(arr, name)
+        got = got.view(torch.int16).numpy().view(np.uint16) if got.dtype == torch.bfloat16 else got.numpy()
+        np.testing.assert_array_equal(got, getattr(host, name), err_msg=name)
     ja, jm = JaxDeltaEncoder().encode(snap)
     assert_same_encoding(host, meta, ja, jm)
     placed = _decisions(arr, meta)

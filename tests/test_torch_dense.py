@@ -139,16 +139,17 @@ def test_dense_route_matches_oracle(name):
 def test_routing():
     """On the CPU the per-pod route stays the default (the JAX package's
     routing without KTPU_FORCE_CHUNKED); chunked=True takes the dense route;
-    a batch that is not a multiple of the chunk takes the per-pod route."""
+    a batch of fewer than CHUNK pods takes the rounds route, as the JAX
+    package's does (its _rounds_routed after _chunk_routed)."""
     _, _, arr = _carry(tw.mixed())
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     assign.reset_trace_counts()
     c1, u1, o1, s1 = assign.schedule_batch_ordinals(arr, cfg, device="cpu")
-    assert assign.TRACE_COUNTS == {"plain": 1, "chunked": 0, "chunked_inc": 0, "class_waves": 0}
+    assert assign.TRACE_COUNTS == {"plain": 1, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0}
     assert s1 == arr.P and torch.equal(o1, torch.arange(arr.P, dtype=torch.int32))
     c2, u2, o2, s2 = assign.schedule_batch_ordinals(arr, cfg, device="cpu", chunked=True)
     assert assign.TRACE_COUNTS["chunked"] == 1
     assert torch.equal(c1, c2) and torch.equal(u1, u2) and s2 < arr.P
     small = arr.pod_prefix(64)
     assign.schedule_batch(small, cfg, device="cpu", chunked=True)
-    assert assign.TRACE_COUNTS["plain"] == 2 and assign.TRACE_COUNTS["chunked"] == 1
+    assert assign.TRACE_COUNTS["rounds"] == 1 and assign.TRACE_COUNTS["chunked"] == 1

@@ -1,11 +1,14 @@
 """The port's encoder against the JAX package's.
 
-`basic` and `heterogeneous` are built by each package's own generator from
-the same seed (so this also holds the port's copies of the generators to
-the originals); `mixed` is the port's snapshot, which the JAX encoder reads
-as it is.  Names, resources, scales and the numeric fields must be equal;
-vocabulary-dependent fields (labels, taints, terms) are compared through
-the static-feasibility masks they produce.  Tolerance: none.
+`basic`, `heterogeneous` and `spread_affinity` are built by each package's
+own generator from the same seed (so this also holds the port's copies of
+the generators to the originals); `mixed` and `all_stages` are the port's
+snapshots, which the JAX encoder reads as they are.  Names, resources,
+scales and the numeric fields must be equal; vocabulary-dependent fields
+(labels, taints, terms) are compared through the static-feasibility masks
+they produce; on the full-stage snapshots (pairwise terms and counts of
+bound pods, host ports, preferred terms, images) every field is compared.
+Tolerance: none.
 """
 
 import numpy as np
@@ -17,7 +20,7 @@ from kubernetes_tpu.api.snapshot import encode_snapshot as jax_encode
 from kubernetes_tpu.bench import workloads as jw
 from kubernetes_tpu.ops import filters as jf
 from kubernetes_tpu_torch.api import types as tt
-from kubernetes_tpu_torch.api.snapshot import Snapshot, decode_choices, encode_snapshot
+from kubernetes_tpu_torch.api.snapshot import ClusterArrays, Snapshot, decode_choices, encode_snapshot
 from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.ops import filters as tf
 
@@ -63,9 +66,13 @@ def test_static_feasible_equal(encoded):
 
 
 def test_evidence_flags_match_jax(encoded):
+    """The evidence infer_score_config reads (PreferNoSchedule taints,
+    preferred node-affinity terms) is the arrays themselves, equal to the
+    JAX encoder's."""
     (ja, _), (ta, _) = encoded
-    assert ta.has_prefer_taints == bool(np.any(ja.node_taint_pref))
-    assert ta.has_node_pref == bool(np.any(np.asarray(ja.pod_pref_terms) >= 0))
+    assert np.array_equal(ta.node_taint_pref.numpy(), np.asarray(ja.node_taint_pref))
+    assert np.array_equal(ta.pod_pref_terms.numpy(), np.asarray(ja.pod_pref_terms))
+    assert np.array_equal(ta.pod_pref_weights.numpy(), np.asarray(ja.pod_pref_weights))
 
 
 def test_default_device_is_the_card(monkeypatch):
@@ -93,6 +100,14 @@ def _node(**kw):
 
 TERM = tt.PodAffinityTerm(topology_key=tt.LABEL_ZONE, label_selector=tt.LabelSelector.of(app="a"))
 REFUSED = {
+    "pvcs": lambda: Snapshot([_node()], [_pod(pvcs=("claim",))]),
+    "resource-claims": lambda: Snapshot([_node()], [_pod(resource_claims=(tt.ResourceClaimRef("gpu"),))]),
+    "attach-limit": lambda: Snapshot([_node(volume_attach_limit=4)], [_pod()]),
+    "pod-group": lambda: Snapshot([_node()], [_pod(pod_group="g")]),
+    "pod-groups": lambda: Snapshot([_node()], [_pod()], pod_groups={"g": tt.PodGroup("g", 2)}),
+}
+# features the port refused before the full stage set was ported
+PORTED = {
     "pod-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(required_pod_affinity=(TERM,)))]),
     "pod-anti-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(required_pod_anti_affinity=(TERM,)))]),
     "preferred-pod-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(
@@ -103,11 +118,6 @@ REFUSED = {
     "bound-host-ports": lambda: Snapshot([_node()], [_pod()], [tt.Pod(
         name="b", node_name="n", host_ports=(("TCP", 80),))]),
     "images": lambda: Snapshot([_node(images={"img": 500 * 2**20})], [_pod(images=("img",))]),
-    "pvcs": lambda: Snapshot([_node()], [_pod(pvcs=("claim",))]),
-    "resource-claims": lambda: Snapshot([_node()], [_pod(resource_claims=(tt.ResourceClaimRef("gpu"),))]),
-    "attach-limit": lambda: Snapshot([_node(volume_attach_limit=4)], [_pod()]),
-    "pod-group": lambda: Snapshot([_node()], [_pod(pod_group="g")]),
-    "pod-groups": lambda: Snapshot([_node()], [_pod()], pod_groups={"g": tt.PodGroup("g", 2)}),
 }
 
 
@@ -115,6 +125,67 @@ REFUSED = {
 def test_unported_features_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         encode_snapshot(REFUSED[case](), device="cpu")
+
+
+def _assert_all_fields_equal(ta, ja):
+    """Every ClusterArrays field equal to the JAX encoder's (node_labels is
+    bool here, f32 there; image_score compared as bf16 bit patterns)."""
+    for name in ClusterArrays.FIELDS:
+        t = getattr(ta, name)
+        j = np.asarray(getattr(ja, name))
+        if name == "image_score":
+            got, want = t.view(torch.int16).numpy().view(np.uint16), j.view(np.uint16)
+        else:
+            got, want = t.numpy(), j.astype(t.numpy().dtype)
+        assert got.shape == want.shape, (name, got.shape, want.shape)
+        assert np.array_equal(got, want), name
+
+
+@pytest.mark.parametrize("case", sorted(PORTED))
+def test_ported_features_encode_as_jax(case):
+    _assert_all_fields_equal(encode_snapshot(PORTED[case](), device="cpu")[0], jax_encode(PORTED[case]())[0])
+
+
+def _bound_pairwise():
+    """Bound pods that carry anti-affinity, preferred (anti-)affinity and
+    required affinity (the hardPodAffinityWeight half), host ports and
+    images, beside a pending wave with spread and affinity terms."""
+    snap = tw.all_stages(18, 40, seed=4)
+    term = tt.PodAffinityTerm(topology_key=tt.LABEL_HOSTNAME, label_selector=tt.LabelSelector.of(app="web"))
+    zterm = tt.PodAffinityTerm(topology_key=tt.LABEL_ZONE, label_selector=tt.LabelSelector.of(app="db"))
+    aff = tt.Affinity(required_pod_anti_affinity=(term,), required_pod_affinity=(zterm,),
+                      preferred_pod_affinity=(tt.WeightedPodAffinityTerm(30, zterm),),
+                      preferred_pod_anti_affinity=(tt.WeightedPodAffinityTerm(7, term),))
+    snap.bound_pods = [tt.Pod(name=f"b{i}", node_name=f"n{i % 18:03d}", labels={"app": ("web", "db")[i % 2]},
+                              requests={tt.CPU: 100}, affinity=aff if i % 3 == 0 else None,
+                              host_ports=(("TCP", 9100 + i % 2),) if i % 4 == 0 else (),
+                              images=("registry/app:v1",)) for i in range(12)]
+    return snap
+
+
+FULL_CASES = {
+    # each package's own generator from one seed: the snapshots are the same
+    "spread-affinity": (lambda: jw.spread_affinity(90, 400, seed=2), lambda: tw.spread_affinity(90, 400, seed=2)),
+    "all-stages": (lambda: tw.all_stages(48, 128), lambda: tw.all_stages(48, 128)),
+    "bound-pairwise": (_bound_pairwise, _bound_pairwise),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FULL_CASES))
+def test_full_stage_fields_equal_jax(case):
+    jsnap, tsnap = (f() for f in FULL_CASES[case])
+    (ja, jm), (ta, tm) = jax_encode(jsnap), encode_snapshot(tsnap, device="cpu")
+    assert tm.pod_names == jm.pod_names and tm.node_names == jm.node_names
+    _assert_all_fields_equal(ta, ja)
+
+
+def test_config3_encodes_at_full_size():
+    """BASELINE config 3 itself: the shape the card runs (P=10240, N=6144,
+    80 terms over two keys, 5003 domains, two matched-term slots)."""
+    arr, meta = encode_snapshot(tw.spread_affinity(5000, 10000, seed=0), device="cpu")
+    assert (arr.P, arr.N, arr.R) == (10240, 6144, 4)
+    assert tuple(arr.term_counts0.shape) == (80, 5004) and arr.node_dom.shape[0] == 2
+    assert arr.pod_match_terms.shape[1] == 2 and meta.n_pods == 10000
 
 
 def test_jax_typed_snapshot_encodes_the_same():

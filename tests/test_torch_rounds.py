@@ -1,0 +1,250 @@
+"""The port's full-stage scans on the CPU against the JAX package's, and
+kernels K11 / K12 against their plain versions on the card.
+
+On the CPU (every snapshot of tests/torch_rounds_reference.py: the random
+pairwise clusters of tests/test_assign_parity.py and its rounds cases —
+same-app spread, one pod per node by anti-affinity, the skew boundary with
+capacity exhaustion, every stage on — and two fit-only batches of 32 and
+64 pods, which the rounds route serves with every pairwise stage off; all
+encoded by the port's encoder):
+
+- ``schedule_scan_plain`` equals the JAX package's ``schedule_scan``
+  (choices, final usage) and its decisions the serial oracle's;
+- ``schedule_scan_rounds_plain`` equals the JAX package's
+  ``schedule_scan_rounds`` in choices, final usage, commit ordinals and the
+  sweep count (the JAX side in a fresh process with KTPU_RCHUNK=16 and
+  KTPU_REPAIR_ITERS=1 pinned);
+- ``dispatch`` routes a pairwise config to the rounds scan where the JAX
+  package does (chunked=True on the CPU), to the per-pod scan otherwise,
+  and refuses the rounds scan's class-state mode.
+
+The ``cuda`` legs import no JAX and skip without a card:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_rounds.py
+
+Tolerance: none (f32 state planes compared as bit patterns).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import torch_rounds_reference as ref
+from kubernetes_tpu_torch.api.snapshot import decode_choices, encode_snapshot
+from kubernetes_tpu_torch.bench import workloads as tw
+from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, infer_score_config, kernels
+
+ROOT = Path(__file__).resolve().parent.parent
+NAMES = sorted(ref.SNAPSHOTS)
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("rounds") / "ref.npz"
+    subprocess.run(
+        [sys.executable, str(ROOT / "tests" / "torch_rounds_reference.py"), str(out)],
+        env={**os.environ, **ref.PINNED, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(ROOT)},
+        cwd=ROOT, check=True, timeout=900,
+    )
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+_PORT = {}
+
+
+def port(name: str):
+    """(snapshot, arrays, meta, cfg) of the port's own encoder, once per
+    snapshot."""
+    if name not in _PORT:
+        snap = ref.snapshot(name)
+        arr, meta = encode_snapshot(snap, device="cpu")
+        _PORT[name] = (snap, arr, meta, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
+    return _PORT[name]
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_per_pod_scan_matches_jax_and_oracle(name, jax_ref):
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG as JAX_DEFAULT
+    from kubernetes_tpu.oracle import oracle_schedule
+
+    snap, arr, meta, cfg = port(name)
+    assert assign.fit_only(cfg, arr) == (name in ref.FIT_ONLY), cfg
+    choices, used = assign.schedule_scan_plain(arr, cfg)
+    np.testing.assert_array_equal(choices.numpy(), jax_ref[f"{name}/choices"])
+    np.testing.assert_array_equal(used.numpy(), jax_ref[f"{name}/used"])
+    placed = decode_choices(choices, meta)
+    assert [(n, placed[n]) for n in meta.pod_names] == oracle_schedule(snap, JAX_DEFAULT)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_rounds_scan_matches_jax(name, jax_ref):
+    _, arr, _, cfg = port(name)
+    assert assign._rounds_capable(arr, cfg) and not assign._chunkable(arr, cfg)
+    choices, used, ords, sweeps = assign.schedule_scan_rounds_plain(arr, cfg)
+    np.testing.assert_array_equal(choices.numpy(), jax_ref[f"{name}/rounds_choices"])
+    np.testing.assert_array_equal(used.numpy(), jax_ref[f"{name}/rounds_used"])
+    np.testing.assert_array_equal(ords.numpy(), jax_ref[f"{name}/ordinals"])
+    assert sweeps == int(jax_ref[f"{name}/sweeps"])
+    # the two routes decide alike
+    np.testing.assert_array_equal(choices.numpy(), jax_ref[f"{name}/choices"])
+
+
+def test_all_stages_snapshot_turns_every_stage_on():
+    _, arr, _, cfg = port("all-stages")
+    assert all((cfg.enable_pairwise, cfg.enable_ports, cfg.enable_taint_score, cfg.enable_node_pref,
+                cfg.enable_image, cfg.enable_interpod_score)), cfg
+
+
+def test_rounds_prefix_and_state_match_the_full_run():
+    """A prefix of chunks is itself a rounds scan (chip_smoke.py holds K12 to
+    the plain version on a prefix), and the state it returns is the per-pod
+    scan's after the same pods."""
+    _, arr, _, cfg = port("rounds-random-0")
+    full = assign.schedule_scan_rounds_plain(arr, cfg)
+    k = 4 * assign.RCHUNK
+    pre = arr.pod_prefix(k)
+    c, u, o, s, st = assign.schedule_scan_rounds_plain(pre, cfg, with_state=True)
+    assert torch.equal(c, full[0][:k]) and torch.equal(o, full[2][:k])
+    pc, pu, pst = assign.schedule_scan_plain(pre, cfg, with_state=True)
+    assert torch.equal(c, pc) and torch.equal(u, pu)
+    for key in ("cnt", "anti", "pref", "total", "ports"):
+        assert torch.equal(bits(st[key]), bits(pst[key])), key
+
+
+@pytest.mark.parametrize("chunked,route", [(True, "rounds"), (False, "plain"), (None, "plain")])
+def test_dispatch_routes_a_pairwise_config(chunked, route):
+    """On the CPU the rounds route runs only with chunked=True (the JAX
+    package's KTPU_FORCE_CHUNKED=1); its ordinals are the rounds scan's, the
+    per-pod route's the pod indices."""
+    _, arr, _, cfg = port("rounds-random-1")
+    assign.reset_trace_counts()
+    step = assign.finish(assign.dispatch(arr, cfg, device="cpu", chunked=chunked))
+    assert assign.TRACE_COUNTS[route] == 1 and sum(assign.TRACE_COUNTS.values()) == 1
+    want = assign.schedule_scan_rounds_plain(arr, cfg)
+    assert torch.equal(step.choices, want[0])
+    if route == "rounds":
+        assert torch.equal(step.ordinals, want[2]) and step.sweeps == want[3]
+    else:
+        assert torch.equal(step.ordinals, torch.arange(arr.P, dtype=torch.int32)) and step.sweeps == arr.P
+
+
+def test_dispatch_ignores_class_state_on_a_pairwise_config():
+    """The port's class state carries no pairwise planes yet: it does not
+    apply (the JAX package's inc_applicable), the dense rounds route runs,
+    and the rounds scan's class-state mode raises naming slice 5."""
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = encode_snapshot(tw.spread_affinity(60, 256, seed=2), device="cpu")
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, dataclasses.replace(
+        cfg, enable_pairwise=False, enable_ports=False, enable_taint_score=False, enable_node_pref=False,
+        enable_image=False, enable_interpod_score=False))
+    assert inc is not None and assign.inc_applicable(arr, cfg, inc) is None
+    assert not assign.inc_route_applies(arr, cfg)
+    c, _, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu", inc=inc, chunked=True)
+    want = assign.schedule_scan_rounds_plain(arr, cfg)
+    assert torch.equal(c, want[0]) and torch.equal(o, want[2]) and s == want[3]
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        assign.schedule_scan_rounds_plain(arr, cfg, inc=inc)
+
+
+def test_a_batch_rounds_cannot_chunk_takes_the_per_pod_route():
+    """P = 8 (the smallest bucket) is no multiple of the rounds chunk."""
+    snap = tw.spread_affinity(6, 5, seed=3)
+    arr, _ = encode_snapshot(snap, device="cpu")
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    assert arr.P == 8 and not assign._rounds_capable(arr, cfg)
+    assign.reset_trace_counts()
+    choices, _ = assign.schedule_batch(arr, cfg, device="cpu", chunked=True)
+    assert assign.TRACE_COUNTS["plain"] == 1 and assign.TRACE_COUNTS["rounds"] == 0
+    assert torch.equal(choices, assign.schedule_scan_plain(arr, cfg)[0])
+
+
+@pytest.mark.parametrize("rchunk,repair_iters", [(8, 1), (32, 1), (16, 2), (16, 3)])
+def test_rounds_knobs_never_move_decisions(rchunk, repair_iters):
+    """The chunk size and the repair iterations change the rounds, never
+    the decisions (the JAX package's sweep over them)."""
+    _, arr, _, cfg = port("all-stages")
+    c, u, o, s = assign.schedule_scan_rounds_plain(arr, cfg, rchunk=rchunk, repair_iters=repair_iters)
+    pc, pu = assign.schedule_scan_plain(arr, cfg)
+    assert torch.equal(c, pc) and torch.equal(u, pu)
+    assert int(o.max()) + 1 == s
+
+
+# ---------------------------------------------------------------------------
+# on the card: K11 full_scan and K12 rounds == their plain versions
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card: python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_rounds.py")
+    kernels.build(["packed_static_rows", "score_planes", "full_scan", "rounds"])
+    return torch.device("cuda")
+
+
+CARD_SNAPSHOTS = {
+    "all-stages": lambda: tw.all_stages(),
+    "config3-small": lambda: tw.spread_affinity(300, 1000, seed=1),
+    "all-stages-tight": lambda: tw.all_stages(40, 512, seed=7),
+    # fit-only batches below the dense chunk: the rounds route with pw = 0
+    **{name: (lambda name=name: ref.snapshot(name)) for name in ref.FIT_ONLY},
+}
+
+
+def _state_equal(a, b):
+    return all(torch.equal(bits(a[k]), bits(b[k])) for k in ("cnt", "anti", "pref", "total", "ports"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_SNAPSHOTS))
+def test_full_scan_kernel_matches_plain(card, name):
+    arr, _ = encode_snapshot(CARD_SNAPSHOTS[name](), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    planes = assign.score_planes(arr, cfg)
+    kc, ku, kst = kernels.full_scan(arr, cfg, sfs, eligs, planes, with_state=True)
+    pc, pu, pst = assign.schedule_scan_plain(arr, cfg, sf=bitplane.unpack(sfs, arr.N), planes=planes,
+                                             with_state=True)
+    assert torch.equal(kc, pc) and torch.equal(ku, pu) and _state_equal(kst, pst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_SNAPSHOTS))
+@pytest.mark.parametrize("rchunk,repair_iters", [(16, 1), (8, 2), (32, 1)])
+def test_rounds_kernel_matches_plain(card, name, rchunk, repair_iters):
+    arr, _ = encode_snapshot(CARD_SNAPSHOTS[name](), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    planes = assign.score_planes(arr, cfg)
+    kc, ku, ko, ks, kst = kernels.rounds(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters,
+                                         with_state=True)
+    pc, pu, po, ps, pst = assign.schedule_scan_rounds_plain(arr, cfg, sfs, eligs, planes, rchunk=rchunk,
+                                                           repair_iters=repair_iters, with_state=True)
+    assert torch.equal(kc, pc) and torch.equal(ku, pu) and torch.equal(ko, po)
+    assert kernels.read_sweeps(ks) == ps and _state_equal(kst, pst)
+
+
+@pytest.mark.cuda
+def test_routes_launch_their_kernels(card):
+    arr, _ = encode_snapshot(tw.spread_affinity(300, 1000, seed=1), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    kernels.reset_launches()
+    c, _, _, _ = assign.schedule_batch_ordinals(arr, cfg)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"packed_static_rows": 1, "rounds": 1}
+    kernels.reset_launches()
+    c2, _ = assign.schedule_batch(arr, cfg, chunked=False)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"packed_static_rows": 1, "full_scan": 1}
+    assert torch.equal(c, c2)

@@ -96,7 +96,8 @@ def test_reset_launches():
 
 
 @pytest.mark.parametrize("kernel", ["class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds",
-                                    "packed_static_rows", "chunk_rounds_dense", "unpack_planes"])
+                                    "packed_static_rows", "chunk_rounds_dense", "unpack_planes", "score_planes",
+                                    "full_scan", "rounds"])
 def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
     """The class-wave, dense-route and transfer kernels' wrappers launch or
     raise: CPU tensors are refused before any build, never handed to a plain
@@ -118,6 +119,30 @@ def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
         "chunk_rounds_dense": lambda: kernels.chunk_rounds_dense(
             arr, cfg, torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)),
         "unpack_planes": lambda: kernels.unpack_planes(torch.zeros((3, 2), dtype=torch.int32), 64),
+        "score_planes": lambda: kernels.score_planes(arr),
+        "full_scan": lambda: kernels.full_scan(arr, cfg, *words, (None, None)),
+        "rounds": lambda: kernels.rounds(arr, cfg, *words, (None, None)),
     }
+    words = [torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)] * 2
     with pytest.raises(ValueError, match="CUDA"):
         calls[kernel]()
+
+
+def test_wrappers_refuse_a_tensor_off_the_launch_device():
+    """Every wrapper launches on the device of its arrays (under
+    torch.cuda.device(dev), on that device's current stream), and refuses
+    a tensor on another card before the launch; arrays all on a second card
+    pass the check whatever PyTorch's current device is."""
+    from types import SimpleNamespace
+
+    from kubernetes_tpu_torch.ops import kernels
+
+    def tensor(dev):
+        return SimpleNamespace(device=torch.device(dev), dtype=torch.int32, shape=(4,), is_contiguous=lambda: True)
+
+    with pytest.raises(ValueError, match="expected cuda:0"):
+        kernels._check(tensor("cuda:1"), "x", torch.int32, (4,), torch.device("cuda:0"))
+    with pytest.raises(ValueError, match="expected cuda:1"):
+        kernels._check(tensor("cuda:0"), "x", torch.int32, (4,), torch.device("cuda:1"))
+    kernels._check(tensor("cuda:1"), "x", torch.int32, (4,), torch.device("cuda:1"))
+    kernels._check(tensor("cuda:0"), "x", torch.int32, (4,), torch.device("cuda:0"))

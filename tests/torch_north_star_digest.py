@@ -20,7 +20,15 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   action per wave and the encoder's stats;
 - the wide leg: the port's wide_taints snapshot (80 distinct NoSchedule
   taints) through the JAX package's encoder and per-pod scan -> the
-  scheduled count and the choices digest.
+  scheduled count and the choices digest;
+- the config3 leg: BASELINE config 3, spread_affinity(5000, 10000, seed=0),
+  through the JAX encoder and its per-pod scan -> the scheduled count and
+  the choices digest; the config3-rounds leg: the same snapshot through the
+  rounds route (KTPU_FORCE_CHUNKED=1) -> sweeps, the ordinals digest and
+  the choices digest;
+- the all-stages leg: the port's all_stages snapshot through the JAX
+  per-pod scan and rounds kernel -> scheduled count, choices digest, sweeps
+  and the ordinals digest.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -29,7 +37,8 @@ there), the whole script about ten minutes and a few GB:
 
     JAX_PLATFORMS=cpu python tests/torch_north_star_digest.py [LEG ...]
 
-(LEG: waves, waves-off, dense, warm or wide runs only those legs.  The warm leg
+(LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds or
+all-stages runs only those legs.  The warm leg
 alone on a smaller heterogeneous(N_NODES, N_PODS), as tests/test_torch_pipeline.py
 runs it: KTPU_FORCE_CHUNKED=1 python tests/torch_north_star_digest.py --leg
 warm N_NODES N_PODS.)
@@ -145,7 +154,68 @@ def wide_leg() -> None:
           flush=True)
 
 
-LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg}
+def config3_leg() -> None:
+    """BASELINE config 3, spread_affinity(5000, 10000, seed=0): the JAX
+    package's encoder and its per-pod scan (schedule_batch with
+    KTPU_FORCE_CHUNKED=0) -> the scheduled count and the choices digest."""
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.bench.workloads import spread_affinity
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config, schedule_batch
+    from kubernetes_tpu.ops.assign import TRACE_COUNTS
+
+    arr, meta = DeltaEncoder().encode(spread_affinity(5000, 10000, seed=0))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    choices, _ = schedule_batch(arr, cfg)
+    c = np.asarray(choices)[: meta.n_pods]
+    print(f"config3: P {arr.P} N {arr.N} T {arr.term_counts0.shape[0]} D {arr.term_counts0.shape[1] - 1} "
+          f"scheduled {int((c >= 0).sum())} sha256 {_sha(c)} "
+          f"route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
+
+
+def config3_rounds_leg() -> None:
+    """Config 3 through the JAX package's rounds route (KTPU_FORCE_CHUNKED=1,
+    no class state: schedule_scan_rounds, dense, chunks of 16) -> the sweep
+    count and the ordinals and choices digests."""
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.bench.workloads import spread_affinity
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.assign import TRACE_COUNTS, schedule_batch_ordinals_routed
+
+    arr, meta = DeltaEncoder().encode(spread_affinity(5000, 10000, seed=0))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    choices, _, ords, sweeps = schedule_batch_ordinals_routed(arr, cfg, donate=False)
+    n = meta.n_pods
+    c = np.asarray(choices)[:n]
+    print(f"config3-rounds: scheduled {int((c >= 0).sum())} sweeps {int(sweeps)} ordinals sha256 "
+          f"{_sha(np.asarray(ords)[:n])} choices sha256 {_sha(c)} "
+          f"route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
+
+
+def all_stages_leg() -> None:
+    """The port's all_stages snapshot (every optional stage on): the JAX
+    package's per-pod scan and, in the same process, its rounds kernel
+    (schedule_scan_rounds with ordinals) -> scheduled count, choices digest,
+    sweeps and ordinals digest."""
+    import jax
+
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.assign import schedule_scan, schedule_scan_rounds
+    from kubernetes_tpu_torch.bench.workloads import all_stages
+
+    arr, meta = DeltaEncoder().encode(all_stages())
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    c = np.asarray(jax.jit(schedule_scan, static_argnames=("cfg",))(arr, cfg)[0])[:n]
+    rc, _, ords, sweeps = jax.jit(schedule_scan_rounds, static_argnames=("cfg", "with_ordinals"))(
+        arr, cfg, with_ordinals=True)
+    assert np.array_equal(np.asarray(rc)[:n], c)
+    print(f"all-stages: P {arr.P} N {arr.N} cfg {cfg} scheduled {int((c >= 0).sum())} sha256 {_sha(c)} "
+          f"sweeps {int(sweeps)} ordinals sha256 {_sha(np.asarray(ords)[:n])}", flush=True)
+
+
+LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": config3_leg,
+        "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg}
 
 
 def main() -> None:
@@ -159,7 +229,9 @@ def main() -> None:
     if not only:
         per_pod_leg()
     runs = [("waves", {"KTPU_CLASS_WAVES": "1"}), ("waves-off", {"KTPU_CLASS_WAVES": "0"}),
-            ("dense", {}), ("warm", {"KTPU_MEMWATCH": "0"}), ("wide", {"KTPU_FORCE_CHUNKED": "0"})]
+            ("dense", {}), ("warm", {"KTPU_MEMWATCH": "0"}), ("wide", {"KTPU_FORCE_CHUNKED": "0"}),
+            ("config3", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-rounds", {}),
+            ("all-stages", {"KTPU_FORCE_CHUNKED": "0"})]
     for name, extra in runs:
         if only and name not in only:
             continue

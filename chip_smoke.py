@@ -6,8 +6,9 @@
 Builds every kernel from csrc/ with nvcc (one process per source, all at
 once), then drives the port's fit-only routes and bench.py's warm loop at
 the north-star shape, heterogeneous(20000, 50000, seed=0) (P=51200,
-N=20480, R=5, U1=101), and the full stage set on BASELINE config 3 and an
-all-stages snapshot:
+N=20480, R=5, U1=101), the full stage set on BASELINE config 3 (cold, with
+and without class state, and its warm loop) and an all-stages snapshot,
+and gangs on BASELINE config 5:
 
   [mixed]            static_feasible and fit_scan == their plain versions on
                      a small mixed snapshot, three fit strategies;
@@ -59,11 +60,36 @@ all-stages snapshot:
   [config3-perpod]   the same arrays with chunked=False: packed_static_rows
                      and full_scan over all pods, the same choices digest,
                      full_scan == plain on the first 512 pods, step_perpod_s;
+  [config3-inc]      the same arrays with class state: HoistCache.ensure
+                     (class_static_hoist with the eligibility words,
+                     class_usage_hoist), then the rounds route in class mode
+                     (rounds in class-row mode, launched alone; route
+                     rounds_inc): 10000/10000, the JAX digests, 1691 sweeps;
+                     class_static_hoist == plain on both planes, rounds in
+                     class-row mode == plain == dense on the first 8 chunks,
+                     timed in turns with the dense mode; step_rounds_inc_s;
+  [config3-warm]     bench.py's waves 2..7 over config 3 through
+                     PipelinedBatchLoop at depth 1 and 0, every step on the
+                     rounds route with class state: per-wave digests and
+                     HoistCache actions as the JAX loop's, end_to_end_s,
+                     delta_s, overlap_fraction;
   [all-stages]       all_stages() (every optional stage on): the rounds and
                      the per-pod routes equal the JAX digests (choices,
                      sweeps, ordinals), score_planes == plain on both bf16
                      planes (beside torch.matmul of its node-affinity
-                     product), rounds and full_scan == plain.
+                     product), rounds and full_scan == plain; with class
+                     state the same results, score_planes over the class
+                     view and every class plane == plain;
+  [gang-small]       gang(48, 64, 40): the host fixpoint on class state
+                     (class-wave route per iteration) and the device
+                     fixpoint (K7 + K8 + K13 queued G + 1 times): 13
+                     iterations, 36 groups, the JAX digests, ordinals and
+                     sweeps; gang_quorum == plain;
+  [config5]          BASELINE config 5, gang(1000, 64, 2000) (P=65536,
+                     N=2048, G=1000): both fixpoints as above with the JAX
+                     digests, their walls and the device loop's host enqueue
+                     time; gang_quorum timed beside its plain version and
+                     torch.bincount of the quorum count.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
@@ -357,7 +383,7 @@ def hold_class_kernels(arr, meta, cfg, tag: str, **knobs) -> dict:
     inc = HoistCache().ensure(arr, meta, cfg)
     check(inc is not None, f"{tag}: no class state")
     r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
-    stat_p = incremental._static_hoist_plain(class_view(arr, r_u))
+    stat_p = incremental._static_hoist_plain(class_view(arr, r_u))[0]
     check(same(inc.stat_u, stat_p), f"{tag}: class_static_hoist != plain")
     base_p, fit_p = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
     check(same(inc.base_u, base_p) and same(inc.fit_u, fit_p), f"{tag}: class_usage_hoist != plain")
@@ -492,14 +518,14 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
 
     # --- K3 and K4 against plain over all [U1, N] ---
     r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
-    stat_p = incremental._static_hoist_plain(class_view(arr, r_u))
+    stat_p = incremental._static_hoist_plain(class_view(arr, r_u))[0]
     k3_err = mismatch(inc.stat_u, stat_p)
     check(k3_err == 0, "north-star: class_static_hoist != plain")
     base_p, fit_p = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
     k4_err = mismatch(inc.base_u, base_p) + mismatch(inc.fit_u, fit_p)
     check(k4_err == 0, "north-star: class_usage_hoist != plain")
     k3_ms = cuda_ms(lambda: kernels.class_static_hoist(arr, r_u), reps=20, warmup=2)
-    k3_plain = cuda_ms(lambda: incremental._static_hoist_plain(class_view(arr, r_u)), reps=5)
+    k3_plain = cuda_ms(lambda: incremental._static_hoist_plain(class_view(arr, r_u))[0], reps=5)
     k4_ms = cuda_ms(lambda: kernels.class_usage_hoist(inc.req_u, arr.node_used, arr.node_alloc, cfg), reps=20,
                     warmup=2)
     k4_plain = cuda_ms(lambda: incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg),
@@ -759,15 +785,28 @@ def phase_north_star_dense() -> list:
 def phase_warm_loop(cold) -> dict:
     """bench.py:283-327 at both depths; `cold` is the dense step's (choices,
     meta) of wave 1, whose decisions are the class-wave step's."""
+    from kubernetes_tpu_torch.bench import workloads
+
+    res = run_warm_loop("warm-loop", workloads.heterogeneous(**workloads.NORTH_STAR), cold,
+                        workloads.NORTH_STAR_WARM_DIGESTS, workloads.NORTH_STAR_WARM_ACTIONS,
+                        workloads.NORTH_STAR_SCHEDULED, WAVE_KERNELS, "class_waves")
+    check(res[1]["overlap"] > 0.0, "warm loop: nothing overlapped at depth 1")
+    return res
+
+
+def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_kernels, route) -> dict:
+    """bench.py's warm waves 2..7 over `snap` through PipelinedBatchLoop at
+    depth 1, then 0, each counted on its own: every wave's digest and the
+    HoistCache action as the JAX loop's, every kernel of `need_kernels`
+    launched, `route` taken by each of the six steps."""
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
     from kubernetes_tpu_torch.api.snapshot import Snapshot
     from kubernetes_tpu_torch.bench import workloads
-    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops import assign, kernels
     from kubernetes_tpu_torch.parallel.pipeline import PipelinedBatchLoop
 
-    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
     choices, meta = cold
     first = workloads.verdicts_of(choices.cpu().numpy(), meta)
     names = [nd.name for nd in snap.nodes]
@@ -778,9 +817,11 @@ def phase_warm_loop(cold) -> dict:
         torch.cuda.synchronize()
         loop = PipelinedBatchLoop(encoder=enc, depth=depth)
         kernels.reset_launches()
+        assign.reset_trace_counts()
         waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain, Snapshot)
         torch.cuda.synchronize()
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
         digests = {w: workloads.wave_digest(waves[w], fetched[w], names) for w in sorted(fetched) if w >= 2}
         actions = [h["action"] for h in loop.hoist.history]
         steady = sorted(walls[2:])
@@ -788,29 +829,29 @@ def phase_warm_loop(cold) -> dict:
         delta_s = loop.host_seconds["encode"][0] / max(1, len(walls))
         overlap = loop.overlap_fraction()
         sched = [sum(1 for v in fetched[w].values() if v) for w in sorted(digests)]
-        print(f"[warm-loop] depth {depth}: walls {[round(x, 4) for x in walls]}, end_to_end_s {end_to_end_s:.4f} "
+        print(f"[{tag}] depth {depth}: walls {[round(x, 4) for x in walls]}, end_to_end_s {end_to_end_s:.4f} "
               f"(median of the steady walls), delta_s {delta_s:.4f} (encode + dispatch per cycle), "
               f"overlap_fraction {overlap:.3f}, host seconds {loop.host_seconds}, encoder {enc.stats}, "
-              f"scheduled {sched}, launches {launches}", flush=True)
+              f"scheduled {sched}, launches {launches}, routes {routes}", flush=True)
         cycles = len(walls)
         split = {k: round(v / cycles, 4) for k, v in loop.phase_seconds.items()}
         caller = sum(a - b for a, b in zip(walls, submits)) / cycles
-        print(f"[warm-loop] depth {depth}: per cycle, host seconds: caller feedback (mk_wave + place) "
+        print(f"[{tag}] depth {depth}: per cycle, host seconds: caller feedback (mk_wave + place) "
               f"{caller:.4f}, in submit {sum(submits) / cycles:.4f} = {split}", flush=True)
         for w in sorted(digests):
-            print(f"[warm-loop] depth {depth} wave {w}: HoistCache {actions[w - 2]} "
+            print(f"[{tag}] depth {depth} wave {w}: HoistCache {actions[w - 2]} "
                   f"(patched columns {loop.hoist.history[w - 2]['patched_cols']}), choices {digests[w]}", flush=True)
-        check(digests == workloads.NORTH_STAR_WARM_DIGESTS, f"warm loop depth {depth}: choices differ from JAX")
-        check(actions == workloads.NORTH_STAR_WARM_ACTIONS, f"warm loop depth {depth}: HoistCache actions {actions}")
-        check(enc.stats["delta"] >= 3, f"delta path did not engage: {enc.stats}")
-        check(all(x == workloads.NORTH_STAR_SCHEDULED for x in sched), f"warm loop: scheduled {sched}")
-        for k in WAVE_KERNELS:
-            check(launches.get(k, 0) > 0, f"warm loop depth {depth}: {k} was not launched: {launches}")
+        check(digests == want_digests, f"{tag} depth {depth}: choices differ from JAX")
+        check(actions == want_actions, f"{tag} depth {depth}: HoistCache actions {actions}")
+        check(enc.stats["delta"] >= 3, f"{tag}: delta path did not engage: {enc.stats}")
+        check(all(x == want_sched for x in sched), f"{tag}: scheduled {sched}")
+        check(routes.get(route, 0) == len(walls), f"{tag} depth {depth}: routes {routes}")
+        for k in need_kernels:
+            check(launches.get(k, 0) > 0, f"{tag} depth {depth}: {k} was not launched: {launches}")
         res[depth] = dict(digests=digests, end_to_end_s=end_to_end_s, delta_s=delta_s, overlap=overlap,
                           walls=walls)
-    check(res[0]["digests"] == res[1]["digests"], "warm loop: depth 0 != depth 1")
-    check(res[0]["overlap"] == 0.0, f"warm loop: overlap_fraction {res[0]['overlap']} at depth 0")
-    check(res[1]["overlap"] > 0.0, "warm loop: nothing overlapped at depth 1")
+    check(res[0]["digests"] == res[1]["digests"], f"{tag}: depth 0 != depth 1")
+    check(res[0]["overlap"] == 0.0, f"{tag}: overlap_fraction {res[0]['overlap']} at depth 0")
     return res
 
 
@@ -1117,7 +1158,8 @@ def phase_all_stages() -> list:
 
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
     from kubernetes_tpu_torch.bench import workloads
-    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, filters, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, filters, incremental, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
 
     arr, meta = encode_snapshot(workloads.all_stages())
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
@@ -1146,6 +1188,28 @@ def phase_all_stages() -> list:
     plaunch = {k: v for k, v in kernels.LAUNCHES.items() if v}
     check(plaunch == {"packed_static_rows": 1, "score_planes": 1, "full_scan": 1}, f"all stages per-pod {plaunch}")
     check(torch.equal(pchoices, choices) and torch.equal(pused, used), "all stages: per-pod route != rounds route")
+    # --- the rounds route on class state, counted: K3 (with eligibility), K10 over the class view, K4, K12 ---
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    inc = HoistCache().ensure(arr, meta, cfg)
+    ic, iu, io, i_s = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+    torch.cuda.synchronize()
+    ilaunch = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(ilaunch == {"class_static_hoist": 1, "score_planes": 1, "class_usage_hoist": 1, "rounds": 1},
+          f"all stages class state: launches {ilaunch}")
+    check(assign.TRACE_COUNTS["rounds_inc"] == 1, f"all stages class state: routes {assign.TRACE_COUNTS}")
+    check(torch.equal(ic, choices) and torch.equal(iu, used) and torch.equal(io, ords) and i_s == sweeps,
+          "all stages: the class-state rounds route != the dense rounds route")
+    r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
+    cv = class_view(arr, r_u)
+    planes_p = incremental._static_hoist_plain(cv, True, True, True)
+    k10u_err = sum(mismatch(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                            b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+                   for a, b in zip((inc.stat_u, inc.elig_u, inc.traw_u, inc.naraw_u), planes_p))
+    check(k10u_err == 0, f"all stages: class planes (K3 with eligibility, K10 over the class view) != plain "
+          f"({k10u_err})")
+    check(same(inc.img_u, arr.image_score[r_u]), "all stages: img_u != the class rows of image_score")
+    k10u_ms = cuda_ms(lambda: kernels.score_planes(cv), reps=20, warmup=2)
 
     # --- K10 against plain, bit for bit on both planes ---
     traw, naraw = kernels.score_planes(arr)
@@ -1186,12 +1250,296 @@ def phase_all_stages() -> list:
           f"scheduled {int((choices[:n] >= 0).sum())}/{n}, choices, sweeps ({sweeps}) and ordinals == JAX; "
           f"rounds == plain and full_scan == plain (choices, usage, ordinals, count planes); score_planes == "
           f"plain on both bf16 planes: {k10_ms:.4f} ms, plain {k10_plain:.4f} ms, torch.matmul of the "
-          f"node-affinity product {k10_lib:.4f} ms, bound {k10_bound:.6f} ms ({k10_by}: {k10_bytes} B)",
-          flush=True)
+          f"node-affinity product {k10_lib:.4f} ms, bound {k10_bound:.6f} ms ({k10_by}: {k10_bytes} B); class "
+          f"state ({ilaunch}): the same choices, usage, ordinals and sweeps, every class plane == plain, "
+          f"score_planes over the class view [{inc.req_u.shape[0]}, {N}] {k10u_ms:.4f} ms", flush=True)
     return [dict(name="score_planes", route="cuda", source="kubernetes_tpu_torch/csrc/score_planes.cu",
                  replaces="kubernetes_tpu/ops/scores.py:229", launches=launches["score_planes"],
                  max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain, bound_ms=k10_bound, bound_by=k10_by,
                  library_ms=k10_lib)], (k11_err, k12_err)
+
+
+def phase_config3_inc(c3) -> tuple:
+    """Config 3's cold step with class state: HoistCache.ensure (K3 with the
+    eligibility words, K4), then the rounds route in class mode (K12
+    class-row mode alone)."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import assign, incremental, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
+
+    arr, meta, cfg, rchoices, sfs, eligs, sfs_p, eligs_p, k_ops = c3
+    P, N = arr.P, arr.N
+    n = meta.n_pods
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    t0 = time.perf_counter()
+    cache = HoistCache()
+    inc = cache.ensure(arr, meta, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+    U1 = inc.req_u.shape[0]
+    print(f"[config3-inc] HoistCache.ensure {t1 - t0:.3f} s ({cache.last['action']}; U1={U1}, planes "
+          f"{[k for k in ('elig_u', 'traw_u', 'naraw_u', 'img_u') if getattr(inc, k) is not None]}), "
+          f"schedule_batch_ordinals(inc) {t2 - t1:.3f} s (first call): scheduled {int((choices[:n] >= 0).sum())}/{n}, "
+          f"sweeps {sweeps}, choices sha256 {digest(choices)}, ordinals sha256 {digest(ords)}, launches {launches}, "
+          f"routes {routes}", flush=True)
+    check(launches == {"class_static_hoist": 1, "class_usage_hoist": 1, "rounds": 1},
+          f"config 3 inc: launches {launches}")
+    check(routes == {"rounds_inc": 1}, f"config 3 inc: routes {routes}")
+    check(U1 == workloads.CONFIG3_CLASSES, f"config 3 inc: U1 {U1}")
+    check(int((choices[:n] >= 0).sum()) == workloads.CONFIG3_SCHEDULED, "config 3 inc: scheduled count")
+    check(digest(choices) == workloads.CONFIG3_CHOICES_SHA256, "config 3 inc: choices differ from JAX")
+    check(sweeps == workloads.CONFIG3_ROUNDS_SWEEPS, f"config 3 inc: sweeps {sweeps}")
+    check(digest(ords) == workloads.CONFIG3_ROUNDS_ORDINALS_SHA256, "config 3 inc: ordinals differ from JAX")
+    check(torch.equal(choices, rchoices), "config 3 inc: class state != dense rounds route")
+    step_rounds_inc_s = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        c2, _ = assign.schedule_batch(arr, cfg, inc=cache.ensure(arr, meta, cfg))
+        torch.cuda.synchronize()
+        step_rounds_inc_s = min(step_rounds_inc_s, time.perf_counter() - t0)
+    check(torch.equal(c2, choices) and cache.last["action"] == "hit", "config 3 inc: a repeated step differs")
+
+    # --- K3 with the eligibility words against plain over [U1, W] x 2 ---
+    r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
+    stat_p, elig_p, _, _ = incremental._static_hoist_plain(class_view(arr, r_u), True, False, False)
+    k3_err = mismatch(inc.stat_u, stat_p) + mismatch(inc.elig_u, elig_p)
+    check(k3_err == 0, f"config 3 inc: class_static_hoist (with eligibility) != plain ({k3_err} words)")
+    k3_ms = cuda_ms(lambda: kernels.class_static_hoist(arr, r_u, with_elig=True), reps=20, warmup=2)
+    k3_plain = cuda_ms(lambda: incremental._static_hoist_plain(class_view(arr, r_u), True, False, False), reps=5)
+    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
+    S, E_, L = arr.sel_mask.shape
+    W = -(-N // 32)
+    k3_bytes = N * (1 + T + L) + U1 * (T + 1 + 4 + 4 * TT + 8) + S * E_ * L + 4 * S * E_ + 2 * 4 * U1 * W
+    k3_bound, k3_by = bound(k3_bytes, U1 * N * (3 + T + TT))
+
+    # --- K12 class-row mode: == dense K12 == plain on the first chunks, then timed in turns with dense ---
+    npre = ROUNDS_PREFIX_CHUNKS * assign.RCHUNK
+    pre = arr.pod_prefix(npre)
+    inc_pre = inc._replace(cls=inc.cls[:npre].contiguous())
+    ki = kernels.rounds(pre, cfg, inc=inc_pre, with_state=True)
+    kd = kernels.rounds(pre, cfg, sfs[:npre].contiguous(), eligs[:npre].contiguous(), (None, None), with_state=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pi = assign.schedule_scan_rounds_plain(pre, cfg, inc=inc_pre, with_state=True)
+    torch.cuda.synchronize()
+    k12i_plain = (time.perf_counter() - t0) * 1e3
+    ksw = kernels.read_sweeps(ki[3])
+    k12i_err = (sum(mismatch(a, b) for a, b in zip(ki[:3], pi[:3])) + abs(ksw - pi[3]) + same_state(ki[4], pi[4])
+                + sum(mismatch(a, b) for a, b in zip(ki[:3], kd[:3])) + abs(ksw - kernels.read_sweeps(kd[3]))
+                + same_state(ki[4], kd[4]))
+    check(k12i_err == 0, f"config 3 inc: rounds (class rows) != plain / dense on the first {ROUNDS_PREFIX_CHUNKS} "
+          f"chunks ({k12i_err})")
+    out = {}
+
+    def run_inc():
+        out["i"] = kernels.rounds(arr, cfg, inc=inc)
+
+    def run_dense():
+        out["d"] = kernels.rounds(arr, cfg, sfs, eligs, (None, None))
+
+    dense_a = cuda_ms(run_dense, reps=2)
+    inc_a = cuda_ms(run_inc, reps=2)
+    inc_b = cuda_ms(run_inc, reps=2)
+    dense_b = cuda_ms(run_dense, reps=2)
+    k12i_ms = (inc_a + inc_b) / 2
+    check(torch.equal(out["i"][0], choices) and torch.equal(out["i"][2], ords), "config 3 inc: timed rounds != route")
+    k12_bytes = full_bytes(arr) - 2 * 4 * P * W + 2 * 4 * U1 * W + 4 * P  # class planes and the class index
+    k12_bound, k12_by = bound(k12_bytes, k_ops)
+    print(f"[config3-inc] class_static_hoist (with eligibility) == plain over [{U1}, {W}] x 2: {k3_ms:.4f} ms, "
+          f"plain {k3_plain:.4f} ms, bound {k3_bound:.6f} ms ({k3_by}); rounds class-row mode == plain == dense on "
+          f"the first {ROUNDS_PREFIX_CHUNKS} chunks ({pi[3]} rounds; plain {k12i_plain:.1f} ms, host clock); all "
+          f"chunks, in turns dense {dense_a:.3f} / class rows {inc_a:.3f} / class rows {inc_b:.3f} / dense "
+          f"{dense_b:.3f} ms, bound {k12_bound:.4f} ms ({k12_by}); step_rounds_inc_s {step_rounds_inc_s:.4f} "
+          f"(best of 3, ensure hit included)", flush=True)
+    rows = [dict(name="class_static_hoist+elig", route="cuda", source="kubernetes_tpu_torch/csrc/class_hoist.cu",
+                 replaces="kubernetes_tpu/ops/incremental.py:146", launches=launches["class_static_hoist"],
+                 max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by,
+                 library_ms=None),
+            dict(name="rounds_class_rows", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
+                 replaces="kubernetes_tpu/ops/assign.py:1464", launches=launches["rounds"], max_abs_err=k12i_err,
+                 ms=k12i_ms, plain_ms=k12i_plain, bound_ms=k12_bound, bound_by=k12_by, library_ms=None,
+                 plain_scope=f"first {ROUNDS_PREFIX_CHUNKS} chunks", dense_ms=(dense_a + dense_b) / 2)]
+    return (choices, meta), step_rounds_inc_s, rows
+
+
+def phase_config3_warm(cold) -> dict:
+    """Config 3's warm loop: bench.py's waves 2..7 over spread_affinity(5000,
+    10000) at depth 1 and 0, each step on the rounds route with class state
+    (K3 and K4 in the HoistCache, K12 in class-row mode)."""
+    from kubernetes_tpu_torch.bench import workloads
+
+    return run_warm_loop("config3-warm", workloads.spread_affinity(**workloads.CONFIG3), cold,
+                         workloads.CONFIG3_WARM_DIGESTS, workloads.CONFIG3_WARM_ACTIONS, workloads.CONFIG3_SCHEDULED,
+                         ("class_static_hoist", "class_usage_hoist", "rounds"), "rounds_inc")
+
+
+def gang_run(tag, spec, want) -> dict:
+    """One gang snapshot through both fixpoints, each counted on its own:
+    the host fixpoint on class state (the class-wave route, K3 + K4 in the
+    HoistCache, K5 + K6 per iteration) and the device fixpoint (K7 + K8 +
+    K13 queued G + 1 times).  `want`: the JAX numbers."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, gang, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    snap = workloads.gang(**spec)
+    enc = DeltaEncoder()
+    t0 = time.perf_counter()
+    arr, meta = enc.encode_device(snap)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    G = arr.group_min.shape[0]
+    check(assign.fit_only(cfg, arr) and assign._chunkable(arr, cfg), f"{tag}: {cfg}")
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    def groups_placed(c):
+        pg = arr.pod_group[:n].to(torch.int64)
+        placed = torch.bincount(pg[c[:n] >= 0], minlength=G)
+        return int((placed >= arr.group_min).sum())
+
+    # --- the host fixpoint on class state, counted ---
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    t0 = time.perf_counter()
+    cache = HoistCache()
+    inc = cache.ensure(arr, meta, cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    hc, hu, ho, hs = gang.schedule_with_gangs(arr, cfg, with_ordinals=True, inc=inc)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t1
+    hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    iters = assign.TRACE_COUNTS["chunked_inc"]
+    print(f"[{tag}] cold DeltaEncoder encode {encode_s:.3f} s: P={arr.P} N={arr.N} R={arr.R} G={G} "
+          f"U1={inc.req_u.shape[0]}; HoistCache.ensure {t1 - t0:.3f} s; host fixpoint (class-wave route) "
+          f"{host_s:.4f} s: {iters} iterations, scheduled {int((hc[:n] >= 0).sum())}/{n}, groups "
+          f"{groups_placed(hc)}/{G}, sweeps {hs}, choices sha256 {digest(hc)}, ordinals sha256 {digest(ho)}, "
+          f"launches {hl}", flush=True)
+    check(iters == want["iterations"], f"{tag}: host fixpoint iterations {iters}")
+    check(int((hc[:n] >= 0).sum()) == want["scheduled"] and groups_placed(hc) == want["groups"],
+          f"{tag}: host fixpoint placed pods / groups")
+    check(hs == want["sweeps"], f"{tag}: host fixpoint sweeps {hs}")
+    check(digest(hc) == want["choices"], f"{tag}: host fixpoint choices differ from JAX")
+    check(digest(ho) == want["ordinals"], f"{tag}: host fixpoint ordinals differ from JAX")
+    for k in WAVE_KERNELS:
+        check(hl.get(k, 0) > 0, f"{tag}: host fixpoint did not launch {k}: {hl}")
+
+    # --- the device fixpoint, counted ---
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    dc, du = gang.gang_fixpoint_device(arr, cfg, stats=stats)
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"[{tag}] device fixpoint (K7 + K8 + K13 queued {G + 1} times, one read at the end) {device_s:.4f} s, "
+          f"host enqueue {stats['enqueue_s']:.4f} s: {stats['iterations']} iterations, choices sha256 {digest(dc)}, "
+          f"launches {dl}", flush=True)
+    check(dl == {"packed_static_rows": G + 1, "chunk_rounds_dense": G + 1, "gang_quorum": G + 1},
+          f"{tag}: device fixpoint launches {dl}")
+    check(stats["iterations"] == want["iterations"], f"{tag}: device fixpoint iterations {stats['iterations']}")
+    check(torch.equal(dc, hc) and torch.equal(du, hu), f"{tag}: device fixpoint != host fixpoint")
+
+    # --- K13 against plain on the first iteration's inputs (every pod valid) ---
+    sfs = kernels.packed_static_rows(arr)
+    c1 = kernels.chunk_rounds_dense(arr, cfg, sfs)[0]
+    pv_k = arr.pod_valid.clone()
+    kq = kernels.gang_quorum(c1, arr.pod_group, pv_k, arr.group_min)
+    pq = gang.gang_quorum_plain(c1, arr.pod_group, arr.pod_valid, arr.group_min)
+    k13_err = (mismatch(kq[0], pq[0]) + mismatch(kq[1], pq[1]) + mismatch(kq[2], pq[2]) + mismatch(kq[3], pq[3])
+               + mismatch(pv_k, pq[4]) + int(bool(kq[4].item()) != pq[5]))
+    check(k13_err == 0, f"{tag}: gang_quorum != plain ({k13_err})")
+
+    # --- where the walls go: one iteration of each route's kernels, and the
+    # host cost of one gated iteration's three wrapper calls ---
+    wk = kernels.wave_commit(arr, inc, cfg)
+    k5_ms = cuda_ms(lambda: kernels.wave_commit(arr, inc, cfg), reps=2)
+    k6_ms = cuda_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], (wk[0], wk[1], wk[2], wk[5])), reps=2)
+    k7_ms = cuda_ms(lambda: kernels.packed_static_rows(arr), reps=5)
+    k8_ms = cuda_ms(lambda: kernels.chunk_rounds_dense(arr, cfg, sfs), reps=2)
+    done = torch.ones((1,), dtype=torch.int32, device=arr.device)
+    out = (torch.empty_like(c1), torch.empty_like(arr.node_used), torch.empty_like(c1),
+           torch.zeros((2,), dtype=torch.int32, device=arr.device))
+    pv_g = arr.pod_valid.clone()
+    torch.cuda.synchronize()
+    host_us = {}
+    for name, call in (("packed_static_rows", lambda: kernels.packed_static_rows(arr, done=done, out=sfs)),
+                       ("chunk_rounds_dense", lambda: kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out)),
+                       ("gang_quorum", lambda: kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done))):
+        t0 = time.perf_counter()
+        for _ in range(100):
+            call()
+        host_us[name] = (time.perf_counter() - t0) * 1e4
+    torch.cuda.synchronize()
+    gated_ms = cuda_ms(lambda: (kernels.packed_static_rows(arr, done=done, out=sfs),
+                                kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out),
+                                kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done)), reps=100)
+    check(torch.equal(pv_g, arr.pod_valid), f"{tag}: a gated gang_quorum launch moved pv")
+    print(f"[{tag}] one iteration's kernels: wave_commit {k5_ms:.3f} ms + chunk_rounds {k6_ms:.3f} ms (the host "
+          f"fixpoint's route), packed_static_rows {k7_ms:.3f} ms + chunk_rounds_dense {k8_ms:.3f} ms (the device "
+          f"fixpoint's); a gated iteration: host {sum(host_us.values()):.1f} us "
+          f"({', '.join(f'{k} {v:.1f}' for k, v in host_us.items())}), device {gated_ms * 1e3:.1f} us", flush=True)
+    return dict(arr=arr, c1=c1, G=G, host_s=host_s, device_s=device_s, enqueue_s=stats["enqueue_s"],
+                launches=dl, k13_err=k13_err, encode_s=encode_s)
+
+
+def phase_gang_small() -> None:
+    from kubernetes_tpu_torch.bench import workloads as w
+
+    gang_run("gang-small", w.GANG_SMALL, dict(
+        iterations=w.GANG_SMALL_ITERATIONS, scheduled=w.GANG_SMALL_SCHEDULED, groups=w.GANG_SMALL_GROUPS,
+        sweeps=w.GANG_SMALL_SWEEPS, choices=w.GANG_SMALL_CHOICES_SHA256, ordinals=w.GANG_SMALL_ORDINALS_SHA256))
+
+
+def phase_config5() -> list:
+    """BASELINE config 5, gang(1000, 64, 2000): both fixpoints, and K13 timed
+    beside its plain version and the one PyTorch call of its quorum count."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import gang, kernels
+
+    r = gang_run("config5", w.CONFIG5, dict(
+        iterations=w.CONFIG5_ITERATIONS, scheduled=w.CONFIG5_SCHEDULED, groups=w.CONFIG5_GROUPS,
+        sweeps=w.CONFIG5_SWEEPS, choices=w.CONFIG5_CHOICES_SHA256, ordinals=w.CONFIG5_ORDINALS_SHA256))
+    arr, c1, G = r["arr"], r["c1"], r["G"]
+    P = arr.P
+    pv = arr.pod_valid.clone()
+    k13_ms = cuda_ms(lambda: kernels.gang_quorum(c1, arr.pod_group, pv, arr.group_min), reps=50, warmup=3)
+    check(torch.equal(pv, arr.pod_valid), "config 5: a quorum check revoked a group")
+    k13_plain = cuda_ms(lambda: gang.gang_quorum_plain(c1, arr.pod_group, arr.pod_valid, arr.group_min), reps=10)
+    gidx = torch.where((arr.pod_group >= 0) & arr.pod_valid & (c1 >= 0), arr.pod_group, G).to(torch.int64)
+    k13_lib = cuda_ms(lambda: torch.bincount(gidx, minlength=G + 1), reps=50, warmup=3)
+    k13_bytes = 4 * P + 4 * P + 2 * P + 4 * G + 4 * G + 2 * G + 8
+    k13_bound, k13_by = bound(k13_bytes, 4 * P + 2 * G)
+    print(f"[config5] gang_quorum == plain: {k13_ms:.4f} ms over P={P}, G={G}, plain {k13_plain:.4f} ms, "
+          f"torch.bincount of the quorum count {k13_lib:.4f} ms, bound {k13_bound:.6f} ms ({k13_by}: {k13_bytes} B); "
+          f"walls: host fixpoint {r['host_s']:.4f} s, device fixpoint {r['device_s']:.4f} s (host enqueue "
+          f"{r['enqueue_s']:.4f} s)", flush=True)
+    return [dict(name="gang_quorum", route="cuda", source="kubernetes_tpu_torch/csrc/gang.cu",
+                 replaces="kubernetes_tpu/ops/gang.py:112", launches=r["launches"]["gang_quorum"],
+                 max_abs_err=r["k13_err"], ms=k13_ms, plain_ms=k13_plain, bound_ms=k13_bound, bound_by=k13_by,
+                 library_ms=k13_lib)]
 
 
 def choices_used(arr, choices, k: int):
@@ -1226,11 +1574,15 @@ def main() -> int:
     rows += phase_wide_planes()
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
+    cold3, _, inc_rows = phase_config3_inc(c3)
     del c3
+    phase_config3_warm(cold3)
     k10_rows, (k11_err, k12_err) = phase_all_stages()
     k11_row["max_abs_err"] += k11_err
     k12_row["max_abs_err"] += k12_err
-    rows += k10_rows + [k11_row, k12_row]
+    rows += k10_rows + [k11_row, k12_row] + inc_rows
+    phase_gang_small()
+    rows += phase_config5()
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,6 +21,8 @@ fit-only stage set (static feasibility + NodeResourcesFit +
 BalancedAllocation) on the per-pod, dense chunked and class-wave routes,
 and the full stage set (PodTopologySpread, InterPodAffinity, NodePorts,
 TaintToleration / NodeAffinity / ImageLocality scores) on the per-pod and
-rounds routes.  Volumes, resource claims and pod groups raise
-NotImplementedError (see ROADMAP.md queues A and B).
+rounds routes (the latter in dense and class-state mode), and gangs
+(all-or-nothing pod groups) through ops/gang.py's host and device
+fixpoints.  Volumes and resource claims raise NotImplementedError (see
+ROADMAP.md queues A and B).
 """

@@ -34,10 +34,13 @@ preferred-term owners) and host-port occupancy as counts, so a bind or a
 delete is a reversible scatter; a bound pod that brings a term or a port
 the vocabulary lacks falls back to a rebuild, as in the JAX package.
 
+Pod groups (gangs) become ``pod_group`` / ``group_min`` as in the JAX
+package (api/delta.py:1333-1348), and the groups' (name, minMember) pairs
+enter the pod side's cache key.
+
 Not ported here (each refused where it would be needed, never dropped):
 volumes and resource claims (the cluster side keeps no storage
-fingerprint), pod groups, the sidecar's ``encode_pregrouped``, and mesh
-placement.
+fingerprint), the sidecar's ``encode_pregrouped``, and mesh placement.
 """
 
 from __future__ import annotations
@@ -144,8 +147,6 @@ def wave_fingerprint(reps: Sequence[t.Pod], resources: Sequence[str]) -> WaveFin
 def _check_snapshot(snap) -> None:
     if snap.pvs or snap.pvcs or (snap.resource_slices and snap.device_classes):
         _refuse("volumes / resource slices", "queue A5, api/volumes.py")
-    if snap.pod_groups:
-        _refuse("pod groups", "queue A9, kernel B11")
 
 
 def _check_nodes(nodes) -> None:
@@ -156,8 +157,6 @@ def _check_nodes(nodes) -> None:
 def _check_pod(pod, pending: bool) -> None:
     if pod.pvcs or pod.resource_claims:
         _refuse(f"pod {pod.name!r}: volumes / resource claims", "queue A5")
-    if pending and pod.pod_group:
-        _refuse(f"pod {pod.name!r}: pod group", "queue A9, kernel B11")
 
 
 def _check_pending(reps, pending) -> None:
@@ -883,10 +882,10 @@ def _cached(cs: ClusterSide, name: str, key, builder):
     return a
 
 
-def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, N: int, T: int, L: int, req_s):
+def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, N: int, T: int, L: int, req_s, pod_groups):
     """Every wave-derived (pod-side) array, built per unique spec and
     scattered through inv; cached as a unit by _assemble (the JAX package's
-    api/delta.py:1228, without the gang part: pod groups are refused)."""
+    api/delta.py:1228)."""
     U = len(reps)
     R = len(cs.wfp.resources)
     Uq = max(1, U)
@@ -941,6 +940,25 @@ def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, N: int, T: int, L: int
             u_pref_terms[ui, a] = tid
             u_pref_weights[ui, a] = w
     sel_mask, sel_kind = table.encode(L)
+
+    # --- gangs (the JAX package's api/delta.py:1333-1348): group ids in
+    # first-occurrence order over the unique specs; a group the snapshot
+    # does not describe needs all its pods ---
+    group_ids = v.Interner()
+    u_group = np.full(Uq, -1, dtype=np.int32)
+    for ui, pod in enumerate(reps):
+        if pod.pod_group:
+            u_group[ui] = group_ids.intern(pod.pod_group)
+    pod_group = np.full(P, -1, dtype=np.int32)
+    if p:
+        pod_group[:p] = u_group[inv]
+    G = max(1, len(group_ids))
+    group_min = np.ones(G, dtype=np.int32)
+    if len(group_ids):
+        counts = np.bincount(pod_group[pod_group >= 0], minlength=G)
+        for gi, gname in enumerate(group_ids.items):
+            pg = pod_groups.get(gname)
+            group_min[gi] = pg.min_member if pg else int(counts[gi])
 
     # --- pairwise wave side against the resident vocabulary ---
     T2 = max(1, len(cs.voc.terms))
@@ -1024,7 +1042,7 @@ def _pod_side(cs: ClusterSide, reps, inv, p: int, P: int, N: int, T: int, L: int
         pod_pref_aff_w=rows(u_pref_w, 0, np.float32), pod_spread_terms=rows(u_spread_t, -1, np.int32),
         pod_spread_maxskew=rows(u_spread_skew, 0, np.int32), pod_spread_hard=rows(u_spread_hard, False, bool),
         pod_ports=rows(u_ports, False, bool),
-        pod_group=np.full(P, -1, dtype=np.int32), group_min=np.ones(1, dtype=np.int32),
+        pod_group=pod_group, group_min=group_min,
         image_score=_image_score_matrix(cs.nodes, reps, inv, N, P),
     )
 
@@ -1099,13 +1117,14 @@ def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, re
     node_taint_pref = _cached(cs, "node_taint_pref", N, lambda: _pad2(cs.node_taint_pref, bool))
 
     # --- pod side, per unique spec ---
-    pod_key = (rep_keys, inv.tobytes(), P, skey)
+    groups_key = tuple(sorted((g.name, g.min_member) for g in snap.pod_groups.values()))
+    pod_key = (rep_keys, inv.tobytes(), P, skey, groups_key)
     ent = cs.pad_cache.get("podside")
     if ent is not None and ent[0] == pod_key:
         ps = ent[1]
     else:
         req_s = -(-req_raw // scale)
-        ps = _pod_side(cs, reps, inv, p, P, N, T, L, req_s)
+        ps = _pod_side(cs, reps, inv, p, P, N, T, L, req_s, snap.pod_groups)
         cs.pad_cache["podside"] = (pod_key, ps)
 
     K = cs.node_dom.shape[0]

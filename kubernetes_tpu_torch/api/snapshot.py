@@ -31,7 +31,7 @@ tensor index == commit order in ops/assign.py.
 
 The pairwise, port, preferred-term and image fields are listed on
 ``ClusterArrays``.  A snapshot that needs what the port does not have yet
-(volumes, resource claims, pod groups) raises NotImplementedError in the
+(volumes, resource claims) raises NotImplementedError in the
 encoder (``_refuse``); it is never dropped.
 """
 
@@ -158,7 +158,7 @@ class ClusterArrays:
       pod_pref_aff_w[P, B]    f32   signed weights (anti-affinity negative)
       pod_spread_terms / pod_spread_maxskew[P, C] i32, pod_spread_hard[P, C] bool
       pod_ports[P, PT], node_ports0[N, PT] bool
-      pod_group[P] i32 (-1), group_min[1] i32: empty, pod groups are refused
+      pod_group[P] i32 (-1: none), group_min[G] i32 minMember per group (G >= 1)
       image_score             bf16  [P, N] ImageLocality scores, [P, 1] zeros
                                     when no pod and node share an image
     """

@@ -1,10 +1,11 @@
 """Seeded synthetic snapshots.
 
-``basic``, ``heterogeneous`` and ``spread_affinity`` are copies of the JAX
+``basic``, ``heterogeneous``, ``spread_affinity`` and ``gang`` are copies of the JAX
 package's ``bench/workloads.py`` generators: each draws from
 ``random.Random(seed)`` in the same order, so one seed builds the same
 snapshot in both packages.  ``spread_affinity(5000, 10000, seed=0)`` is
-BASELINE config 3 (P=10240, N=6144 after bucketing); ``all_stages`` turns
+BASELINE config 3 (P=10240, N=6144 after bucketing), ``gang(1000, 64, 2000,
+seed=0)`` BASELINE config 5 (P=65536, N=2048, G=1000); ``all_stages`` turns
 every optional score and filter stage on at once.
 ``heterogeneous(20000, 50000, seed=0)`` is the north-star shape (P=51200,
 N=20480, R=5 after bucketing).  ``mixed`` is a small snapshot that drives
@@ -95,6 +96,47 @@ ALL_STAGES_SCHEDULED = 510
 ALL_STAGES_CHOICES_SHA256 = "6518d422ee031a901d03bd5930f82657c0367789836ab29ee8a0d32d8e260fed"
 ALL_STAGES_ROUNDS_SWEEPS = 316
 ALL_STAGES_ROUNDS_ORDINALS_SHA256 = "0e41def53fba92103c3a7077e2b5817e309fd58c863d4a2e704570065bbebe16"
+# Config 3 with class state (the config3-inc leg: KTPU_FORCE_CHUNKED=1,
+# HoistCache.ensure, the rounds route's class mode schedule_scan_rounds(inc=),
+# U1 = 2423): the same sweeps, ordinals and choices as the dense rounds route.
+CONFIG3_CLASSES = 2423
+# Config 3's warm loop (the config3-warm leg: bench.py's waves 2..7 through
+# the JAX PipelinedBatchLoop at depth 0 under KTPU_FORCE_CHUNKED=1, each wave
+# on the rounds route with class state, every wave 10000/10000 scheduled):
+# wave -> wave_digest, and the HoistCache action per wave.  The JAX encoder
+# ran 1 full and 6 delta cycles.
+CONFIG3_WARM_DIGESTS: Dict[int, str] = {
+    2: "2a0d1ddf95d34f4a482505624b3f618ea75356365f00a521e5ba54de601b7cfa",
+    3: "2a0d1ddf95d34f4a482505624b3f618ea75356365f00a521e5ba54de601b7cfa",
+    4: "fcf8a05703661cc1b6386cab6628bd72fe9083798096d920f65ddac925132b0f",
+    5: "fcf8a05703661cc1b6386cab6628bd72fe9083798096d920f65ddac925132b0f",
+    6: "99d25b388106e45c7f621e9db8bef5889baa5a5856de2e1571d442f290a5ef0a",
+    7: "99d25b388106e45c7f621e9db8bef5889baa5a5856de2e1571d442f290a5ef0a",
+}
+CONFIG3_WARM_ACTIONS: List[str] = ["static_rebuild", "hit", "full", "hit", "full", "hit"]
+# Gangs (the gang-small and config5 legs, KTPU_FORCE_CHUNKED=1): the JAX
+# package's host fixpoint schedule_with_gangs(with_ordinals=True) on its
+# HoistCache class state (the class-wave route each iteration) -> the
+# iterations, placed pods and groups, the summed sweeps, the sha256 of
+# ordinals[:n_pods] and of choices[:n_pods]; its device fixpoint
+# gang_fixpoint_device gives the same choices.  BASELINE config 5 is
+# gang(1000, 64, 2000, seed=0): P=65536, N=2048, R=4, G=1000, U1=2001, fit-only;
+# ~128k cores for ~75k requested, so its fixpoint revokes nothing.
+GANG_SMALL = dict(n_groups=48, group_size=64, n_nodes=40, seed=0)
+GANG_SMALL_ITERATIONS = 13
+GANG_SMALL_SCHEDULED = 2304
+GANG_SMALL_GROUPS = 36
+GANG_SMALL_SWEEPS = 1916
+GANG_SMALL_ORDINALS_SHA256 = "8ff7be71e5f8c563292dd4a8811a298a0dd5a6f2c94f7e983cc8543f44fcb487"
+GANG_SMALL_CHOICES_SHA256 = "030c03aeff71937b42409729ed083b192f452e8f46cf71aff44305690db7116b"
+CONFIG5 = dict(n_groups=1000, group_size=64, n_nodes=2000, seed=0)
+CONFIG5_ITERATIONS = 1
+CONFIG5_SCHEDULED = 64000
+CONFIG5_GROUPS = 1000
+CONFIG5_CLASSES = 2001
+CONFIG5_SWEEPS = 2355
+CONFIG5_ORDINALS_SHA256 = "9ee94793846000839a150ec75c45adab5c1b2666baafae72c3a13241aa6812aa"
+CONFIG5_CHOICES_SHA256 = "6fda447d9c2e8d38713a71ea09d44e718f90587fbc1d13cfed27af19c9e66d30"
 
 
 def basic(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
@@ -119,6 +161,36 @@ def basic(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
         for i in range(n_pods)
     ]
     return Snapshot(nodes=nodes, pending_pods=pods)
+
+
+def gang(n_groups: int, group_size: int, n_nodes: int, seed: int = 0) -> Snapshot:
+    """BASELINE config 5: gang-scheduled ML jobs (PodGroups, all-or-nothing;
+    the JAX package's bench/workloads.py:99, draw for draw)."""
+    rng = random.Random(seed)
+    nodes = [
+        t.Node(
+            name=f"node-{i}",
+            allocatable={t.CPU: 64 * MILLI, t.MEMORY: 256 * GI, t.PODS: 256},
+            labels={t.LABEL_ZONE: f"zone-{i % 4}"},
+        )
+        for i in range(n_nodes)
+    ]
+    pods, groups = [], {}
+    for g in range(n_groups):
+        name = f"job-{g}"
+        groups[name] = t.PodGroup(name=name, min_member=group_size)
+        cpu = rng.choice([500, 1000, 2000])
+        for m in range(group_size):
+            pods.append(
+                t.Pod(
+                    name=f"{name}-w{m}",
+                    labels={"job": name},
+                    requests={t.CPU: cpu, t.MEMORY: 2 * GI},
+                    pod_group=name,
+                    priority=rng.choice([0, 10]),
+                )
+            )
+    return Snapshot(nodes=nodes, pending_pods=pods, pod_groups=groups)
 
 
 def heterogeneous(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:

@@ -3,10 +3,10 @@
 ``from_jax_arrays`` takes the JAX ``ClusterArrays`` fields as numpy arrays
 (``{f.name: np.asarray(getattr(arr, f.name)) for f in dataclasses.fields(arr)}``)
 and builds the port's ``ClusterArrays`` on `device`, every field carried (the
-bf16 image scores as their bit patterns).  Tests feed the JAX encoder's own
-output to the port's filters and kernels this way, so kernel parity does
-not rest on encoder parity.  Pod groups are the one thing the port does not
-have: arrays that carry one raise instead of being lost.
+bf16 image scores as their bit patterns; the gang fields pod_group and
+group_min too).  Tests feed the JAX encoder's own output to the port's
+filters and kernels this way, so kernel parity does not rest on encoder
+parity.
 
 ``from_jax_meta`` carries the JAX encoder's metadata across, with its class
 index (``pod_class`` / ``class_first_pod``), so the port's HoistCache and
@@ -23,11 +23,7 @@ from .api.snapshot import ClusterArrays, EncodingMeta
 
 
 def from_jax_arrays(fields: Dict[str, np.ndarray], device) -> ClusterArrays:
-    f = {k: np.asarray(x) for k, x in fields.items()}
-    if np.any(f["pod_group"] >= 0):
-        raise ValueError("arrays carry pod groups, which the port does not have yet "
-                         "(ROADMAP.md queue A9, kernel B11)")
-    return ClusterArrays.from_numpy(f, device)
+    return ClusterArrays.from_numpy({k: np.asarray(x) for k, x in fields.items()}, device)
 
 
 def from_jax_meta(meta) -> EncodingMeta:

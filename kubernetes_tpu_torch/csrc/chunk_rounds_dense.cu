@@ -68,7 +68,8 @@ struct DenseArgs {
   int32_t* choices;       // [P] out
   int32_t* used;          // [N, R] out: the running usage
   int32_t* ordinals;      // [P] out
-  int32_t* scal;          // [2] out: sweeps, status (1: round cap hit)
+  int32_t* scal;          // [2] out: sweeps, status (1: round cap hit; OR-ed into scal[1])
+  const int32_t* done;    // [1] or NULL: return at entry once set (the gang fixpoint's device loop)
   float* total0;          // [C, N] scratch: the chunk's masked scores
   float* topv;            // [C, K] scratch
   int32_t* topi;          // [C, K] scratch
@@ -468,6 +469,9 @@ __global__ void __launch_bounds__(NT, 1) chunk_rounds_dense_kernel(DenseArgs a) 
   extern __shared__ __align__(16) unsigned char dsm[];
   DenseSmem& s = *reinterpret_cast<DenseSmem*>(dsm);
   const int tid = threadIdx.x;
+  // every block reads the same word, written by an earlier launch: the
+  // whole grid returns together, before any grid barrier
+  if (a.done != nullptr && __ldcg(a.done)) return;
   const int64_t g0 = (int64_t)blockIdx.x * NT + tid, gs = (int64_t)gridDim.x * NT;
   for (int64_t i = g0; i < (int64_t)a.N * a.R; i += gs) a.used[i] = a.used_in[i];
   for (int64_t i = g0; i < a.W; i += gs) {
@@ -494,7 +498,7 @@ __global__ void __launch_bounds__(NT, 1) chunk_rounds_dense_kernel(DenseArgs a) 
   }
   if (blockIdx.x == 0 && tid == 0) {
     a.scal[0] = base;
-    a.scal[1] = s.status;
+    a.scal[1] |= s.status;  // a cap hit in any launch over one pair survives
   }
 }
 
@@ -504,8 +508,8 @@ __global__ void __launch_bounds__(NT, 1) chunk_rounds_dense_kernel(DenseArgs a) 
 extern "C" int ktt_chunk_rounds_dense(const void* preq, const void* pvalid, const void* alloc,
                                       const void* used_in, const void* sfs, void* choices, void* used,
                                       void* ordinals, void* scal, void* total0, void* topv, void* topi,
-                                      void* nf, void* bits, const int* ip, const float* fp, int P, int N,
-                                      int R, int C, int spec_iters, void* stream) {
+                                      void* nf, void* bits, const void* done, const int* ip, const float* fp,
+                                      int P, int N, int R, int C, int spec_iters, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   DenseArgs a;
   a.sp = ktt::make_score_params(ip, fp);
@@ -524,6 +528,7 @@ extern "C" int ktt_chunk_rounds_dense(const void* preq, const void* pvalid, cons
   a.used = static_cast<int32_t*>(used);
   a.ordinals = static_cast<int32_t*>(ordinals);
   a.scal = static_cast<int32_t*>(scal);
+  a.done = static_cast<const int32_t*>(done);
   a.total0 = static_cast<float*>(total0);
   a.topv = static_cast<float*>(topv);
   a.topi = static_cast<int32_t*>(topi);

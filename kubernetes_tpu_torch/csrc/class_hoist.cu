@@ -3,9 +3,13 @@
 // being the row any of its pods would get.
 //
 // K3 ktt_class_static_hoist replaces the JAX package's
-//   ops/incremental.py:146 _static_hoist (fit-only stage set):
+//   ops/incremental.py:146 _static_hoist (its packed planes; the bf16
+//   taint and node-affinity planes are K10's, score_planes.cu, over the
+//   class view's rows):
 //   stat_u[u] = pack(node_valid & taints_ok & nodesel & nodename_ok), for
-//   the class's first pod row r_u[u], WITHOUT pod_valid.  The taint and
+//   the class's first pod row r_u[u], WITHOUT pod_valid; with elig_u (the
+//   pairwise configs, want_elig) also elig_u[u] = pack(nodesel &
+//   node_valid), the same ballot as K7's eligibility plane.  The taint and
 //   selector tests are static_feasible.cu's integer ones (feasible.cuh:
 //   term_match_kernel, pack_bits_kernel); one thread per (class, node), and
 //   a warp ballot writes 32 nodes' bits as one word directly (tail bits
@@ -20,6 +24,9 @@
 //   >= 39 us at 3.35 TB/s): the words are the bound.  For the full stage
 //   set (:1616-1640) it also writes the eligibility plane
 //   eligs[p] = pack(nodesel & node_valid) that spread's minMatch reads.
+//   Its `done` word (or NULL) gates every launch: the gang fixpoint's
+//   device loop (ops/gang.py) queues K7 for each of its iterations, and the
+//   ones after the fixpoint return at entry.
 //
 // K4 ktt_class_usage_hoist replaces
 //   ops/incremental.py:188 _usage_hoist (cols == NULL: every column) and
@@ -62,7 +69,8 @@ __device__ __forceinline__ int64_t pod_row(const int64_t* r_u, int u) { return r
 // tolerations of each row's pod, as words: tol_w[u, TW]
 __global__ void class_tol_kernel(const uint8_t* __restrict__ pod_tol_ns,  // [P, T]
                                  const int64_t* __restrict__ r_u, int U1, int T, int TW,
-                                 uint32_t* __restrict__ tol_w) {
+                                 uint32_t* __restrict__ tol_w, const int32_t* __restrict__ done) {
+  if (done != nullptr && *done) return;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)U1 * TW) return;
   const int u = (int)(i / TW), w = (int)(i % TW);
@@ -88,7 +96,9 @@ __global__ void __launch_bounds__(NT) class_static_kernel(
     const uint8_t* __restrict__ pod_valid,     // [P] or NULL
     int U1, int N, int W, int TW, int TT,
     uint32_t* __restrict__ stat_u,   // [U1, W]
-    uint32_t* __restrict__ elig_u) {  // [U1, W] or NULL
+    uint32_t* __restrict__ elig_u,   // [U1, W] or NULL
+    const int32_t* __restrict__ done) {  // or NULL
+  if (done != nullptr && *done) return;
   const int n = blockIdx.x * NT + threadIdx.x;
   if (n >= W * 32) return;  // whole warps leave together (NT % 32 == 0)
   for (int u = blockIdx.y; u < U1; u += gridDim.y) {
@@ -125,19 +135,20 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
                  const void* pod_valid, const void* pod_tol_ns, const void* pod_nodename,
                  const void* pod_terms, const void* pod_has_sel, const void* sel_mask,
                  const void* sel_kind, const void* r_u, void* tm, void* taint_w, void* tol_w,
-                 void* stat_u, void* elig_u, int U1, int N, int T, int TT, int S, int E, int L,
-                 cudaStream_t st) {
+                 void* stat_u, void* elig_u, const void* done, int U1, int N, int T, int TT, int S,
+                 int E, int L, cudaStream_t st) {
+  const int32_t* dn = static_cast<const int32_t*>(done);
   if (U1 <= 0 || N <= 0) return (int)cudaGetLastError();
   const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
   const int W = (N + 31) / 32;
   term_match_kernel<<<blocks_for((int64_t)S * N, NT), NT, 0, st>>>(
       static_cast<const uint8_t*>(sel_mask), static_cast<const int32_t*>(sel_kind),
-      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm));
+      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm), dn);
   pack_bits_kernel<<<blocks_for((int64_t)N * TW, NT), NT, 0, st>>>(
-      static_cast<const uint8_t*>(node_taint_ns), N, T, TW, static_cast<uint32_t*>(taint_w));
+      static_cast<const uint8_t*>(node_taint_ns), N, T, TW, static_cast<uint32_t*>(taint_w), dn);
   class_tol_kernel<<<blocks_for((int64_t)U1 * TW, NT), NT, 0, st>>>(
       static_cast<const uint8_t*>(pod_tol_ns), static_cast<const int64_t*>(r_u), U1, T, TW,
-      static_cast<uint32_t*>(tol_w));
+      static_cast<uint32_t*>(tol_w), dn);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid(blocks_for((int64_t)W * 32, NT), U1 < MAX_GRID_Y ? U1 : MAX_GRID_Y);
@@ -147,7 +158,7 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
       static_cast<const int32_t*>(pod_terms), static_cast<const uint8_t*>(pod_has_sel),
       static_cast<const uint8_t*>(tm), static_cast<const int64_t*>(r_u),
       static_cast<const uint8_t*>(pod_valid), U1, N, W, TW, TT, static_cast<uint32_t*>(stat_u),
-      static_cast<uint32_t*>(elig_u));
+      static_cast<uint32_t*>(elig_u), dn);
   return (int)cudaGetLastError();
 }
 
@@ -204,25 +215,26 @@ extern "C" int ktt_class_static_hoist(const void* node_valid, const void* node_t
                                       const void* pod_nodename, const void* pod_terms,
                                       const void* pod_has_sel, const void* sel_mask,
                                       const void* sel_kind, const void* r_u, void* tm,
-                                      void* taint_w, void* tol_w, void* stat_u, int U1, int N,
-                                      int T, int TT, int S, int E, int L, void* stream) {
+                                      void* taint_w, void* tol_w, void* stat_u, void* elig_u, int U1,
+                                      int N, int T, int TT, int S, int E, int L, void* stream) {
   return static_plane(node_valid, node_taint_ns, node_labels, nullptr, pod_tol_ns, pod_nodename,
-                      pod_terms, pod_has_sel, sel_mask, sel_kind, r_u, tm, taint_w, tol_w, stat_u, nullptr,
-                      U1, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
+                      pod_terms, pod_has_sel, sel_mask, sel_kind, r_u, tm, taint_w, tol_w, stat_u, elig_u,
+                      nullptr, U1, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K7: every pod row, pod_valid included -> sfs [P, W]; eligs (or NULL) gets
-// the packed nodesel & node_valid plane the rounds and full scans read
+// the packed nodesel & node_valid plane the rounds and full scans read;
+// done (or NULL): a device word that makes every launch return at entry
 extern "C" int ktt_packed_static_rows(const void* node_valid, const void* node_taint_ns,
                                       const void* node_labels, const void* pod_valid,
                                       const void* pod_tol_ns, const void* pod_nodename,
                                       const void* pod_terms, const void* pod_has_sel,
                                       const void* sel_mask, const void* sel_kind, void* tm,
-                                      void* taint_w, void* tol_w, void* sfs, void* eligs, int P, int N,
-                                      int T, int TT, int S, int E, int L, void* stream) {
+                                      void* taint_w, void* tol_w, void* sfs, void* eligs, const void* done,
+                                      int P, int N, int T, int TT, int S, int E, int L, void* stream) {
   return static_plane(node_valid, node_taint_ns, node_labels, pod_valid, pod_tol_ns, pod_nodename,
                       pod_terms, pod_has_sel, sel_mask, sel_kind, nullptr, tm, taint_w, tol_w, sfs, eligs,
-                      P, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
+                      done, P, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ip / fp: the score parameters (score.cuh make_score_params), host memory

@@ -2,7 +2,9 @@
 // class_hoist.cu: the interned selector terms matched against node labels
 // (the JAX package's ops/filters.py:28 term_match, as integer literal counts)
 // and bool rows packed into 32-bit words (taints, tolerations), so the
-// taint filter (ops/filters.py:62 taints_ok) is an AND-NOT per word.
+// taint filter (ops/filters.py:62 taints_ok) is an AND-NOT per word.  Each
+// kernel takes a `done` word (or NULL) and returns at entry once it is set:
+// the gang fixpoint's queued iterations (ops/gang.py) stop that way.
 
 #pragma once
 
@@ -19,7 +21,9 @@ __global__ void term_match_kernel(const uint8_t* __restrict__ sel_mask,  // [S, 
                                   const int32_t* __restrict__ sel_kind,  // [S, E]
                                   const uint8_t* __restrict__ node_labels,  // [N, L]
                                   int S, int E, int L, int N,
-                                  uint8_t* __restrict__ tm) {  // [S, N]
+                                  uint8_t* __restrict__ tm,  // [S, N]
+                                  const int32_t* __restrict__ done) {
+  if (done != nullptr && *done) return;
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (int64_t)S * N) return;
   int s = (int)(i / N);
@@ -43,7 +47,9 @@ __global__ void term_match_kernel(const uint8_t* __restrict__ sel_mask,  // [S, 
 
 __global__ void pack_bits_kernel(const uint8_t* __restrict__ in,  // [rows, T]
                                  int64_t rows, int T, int TW,
-                                 uint32_t* __restrict__ out) {  // [rows, TW]
+                                 uint32_t* __restrict__ out,  // [rows, TW]
+                                 const int32_t* __restrict__ done) {
+  if (done != nullptr && *done) return;
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= rows * TW) return;
   const int64_t r = i / TW;

@@ -158,6 +158,7 @@ extern "C" int ktt_full_scan(const void* const* ptrs, const int* dims, const int
   a.pref = static_cast<float*>(const_cast<void*>(ptrs[23]));
   a.total_t = static_cast<float*>(const_cast<void*>(ptrs[24]));
   a.ports_used = static_cast<uint8_t*>(const_cast<void*>(ptrs[25]));
+  a.cls = nullptr;  // K11 reads pod rows only
   if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs))
     return (int)cudaErrorInvalidValue;
   if (a.P == 0) return (int)cudaGetLastError();

@@ -16,6 +16,14 @@
 // resident at config 3: 3 x 80 x 6144 x 4 B = 5.9 MB) and every read of
 // mutable state goes through __ldcg: other blocks of a cooperative grid
 // write it between grid barriers.
+//
+// Class-row mode (K12 on the resident class state, the JAX package's
+// schedule_scan_rounds(inc=), ops/assign.py:1613-1619, :1722-1753): with
+// `cls` set, the static, eligibility, taint, node-affinity and image planes
+// have one row per pod CLASS, and pod p reads row cls[p] of each
+// (PodSlots::prow).  The class static plane leaves pod_valid out; the
+// node_feasible test folds it back in per pod (ps.valid, :1741), as it
+// does in dense mode, where the plane already holds it.
 
 #pragma once
 
@@ -44,11 +52,13 @@ struct FullArgs {
   // pod side
   const int32_t* preq;    // [P, R]
   const uint8_t* pvalid;  // [P]
-  const uint32_t* sfs;    // [P, W] packed static feasibility (pod_valid included)
-  const uint32_t* eligs;  // [P, W] packed nodesel & node_valid (spread's minMatch)
-  const __nv_bfloat16* traw;   // [P, N] PreferNoSchedule counts, or NULL
-  const __nv_bfloat16* naraw;  // [P, N] preferred node-affinity weights, or NULL
-  const __nv_bfloat16* img_s;  // [P, N] image scores, or NULL
+  // the plane rows: pods, or classes when cls is set
+  const int32_t* cls;     // [P] class of each pod row, or NULL (dense mode)
+  const uint32_t* sfs;    // [rows, W] packed static feasibility (dense: pod_valid included)
+  const uint32_t* eligs;  // [rows, W] packed nodesel & node_valid (spread's minMatch)
+  const __nv_bfloat16* traw;   // [rows, N] PreferNoSchedule counts, or NULL
+  const __nv_bfloat16* naraw;  // [rows, N] preferred node-affinity weights, or NULL
+  const __nv_bfloat16* img_s;  // [rows, N] image scores, or NULL
   const int32_t* spread_t;  // [P, CS]
   const int32_t* skew;      // [P, CS]
   const uint8_t* hard;      // [P, CS]
@@ -73,6 +83,7 @@ struct FullArgs {
 
 // one pod's slots, compacted to the valid entries (a -1 slot adds nothing)
 struct PodSlots {
+  int64_t prow;  // the pod's row of the static and score planes
   int req[SCORE_MAX_R];
   int sp_t[PW_MAX_S], sp_skew[PW_MAX_S];
   uint8_t sp_hard[PW_MAX_S];
@@ -162,6 +173,7 @@ __device__ void load_pod(const FullArgs& a, int p, PodSlots& ps) {
   if (threadIdx.x != 0) return;
   for (int r = 0; r < a.R; ++r) ps.req[r] = a.preq[(int64_t)p * a.R + r];
   ps.valid = a.pvalid[p];
+  ps.prow = a.cls != nullptr ? (int64_t)a.cls[p] : (int64_t)p;
   ps.n_sp = ps.n_af = ps.n_an = ps.n_m = ps.n_pf = ps.n_port = 0;
   ps.self_all = 1;
   if (a.pw) {
@@ -220,7 +232,7 @@ __device__ void pod_scalars(const FullArgs& a, int p, PodSlots& ps, float* red) 
     const int t = ps.sp_t[c];
     float v[1] = {-INFINITY};
     for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-      if (pw_bit(a.eligs, p, a.W, n) && a.dbt[(int64_t)t * a.N + n] < a.D)
+      if (pw_bit(a.eligs, ps.prow, a.W, n) && a.dbt[(int64_t)t * a.N + n] < a.D)
         v[0] = fmaxf(v[0], -__ldcg(a.cnt + (int64_t)t * a.N + n));
     }
     block_max<1>(v, red);
@@ -237,7 +249,7 @@ __device__ void pod_scalars(const FullArgs& a, int p, PodSlots& ps, float* red) 
 // inter-pod preferred raw
 __device__ __forceinline__ bool node_feasible(const FullArgs& a, int p, const PodSlots& ps, int n,
                                               float& base, float& sraw, float& ipraw) {
-  if (!ps.valid || !pw_bit(a.sfs, p, a.W, n)) return false;
+  if (!ps.valid || !pw_bit(a.sfs, ps.prow, a.W, n)) return false;
   const int64_t nr = (int64_t)n * a.R;
   const int* req = ps.req;
   if (!fit_ok(a.R, [&](int r) { return req[r]; }, [&](int r) { return __ldcg(a.used + nr + r); },
@@ -328,7 +340,7 @@ __device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* 
     base_r[n] = base;
     sraw_r[n] = sraw;
     ipraw_r[n] = ipraw;
-    const int64_t pn = (int64_t)p * a.N + n;
+    const int64_t pn = ps.prow * a.N + n;
     if (a.taint) m[0] = fmaxf(m[0], bf(a.traw, pn));
     if (a.nap) m[1] = fmaxf(m[1], bf(a.naraw, pn));
     m[2] = fmaxf(m[2], sraw);
@@ -346,7 +358,7 @@ __device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* 
   int best_n = PW_IMAX;
   for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
     float total = -INFINITY;
-    if (feas_r[n]) total = node_total(a, sc, (int64_t)p * a.N + n, base_r[n], sraw_r[n], ipraw_r[n]);
+    if (feas_r[n]) total = node_total(a, sc, ps.prow * a.N + n, base_r[n], sraw_r[n], ipraw_r[n]);
     total_r[n] = total;
     if (total > best) {  // nodes ascend per thread: keeps the lowest index
       best = total;

@@ -1,7 +1,10 @@
-// K12 rounds: the rounds scan for the full stage set, dense mode.
+// K12 rounds: the rounds scan for the full stage set, dense and class-row
+// mode.
 //
 // Replaces the lax.scan(chunk, ...) of the JAX package's ops/assign.py:1464
-// schedule_scan_rounds (inc=None) with its body: per chunk of C = 16 pods
+// schedule_scan_rounds (inc=None, and inc= through the class index: the
+// class-row mode of pairwise.cuh, one kernel with an indirection) with its
+// body: per chunk of C = 16 pods
 // (KTPU_RCHUNK) the share incidence (:1771-1795), then the round loop
 // (:1830-2212) until every pod of the chunk is committed — the exact
 // re-hoist of each uncommitted pod against round-start state (:1832-1919),
@@ -11,8 +14,10 @@
 // divergence-only pod (:2062-2080) and the absorb into usage, ports and the
 // count planes (:2082-2211) — and the ordinals of :2225-2235 (the rounds of
 // the earlier chunks plus the pod's own round).  The base score is computed
-// against the current usage instead of being patched at committed columns:
-// both give the score of the same usage row, bit for bit.
+// against the current usage instead of being patched at committed columns
+// (dense mode: the [C, N] chunk hoist; class-row mode: the carried [U1, N]
+// class hoist, :1820-1826, :2199-2224): every form gives the score of the
+// same usage row, bit for bit, so the class-row mode reads no base_u.
 //
 // Design: one cooperative persistent launch of C blocks of 1024 threads
 // walks the P / C chunks in order, with no host synchronisation per chunk or
@@ -190,7 +195,7 @@ __device__ void repair(const FullArgs& a, const RoundsScratch& s, BlockSmem& m, 
       const bool f0 = __ldcg(feas_i + cn);
       const float sr = f0 ? __ldcg(sraw_i + cn) : 0.0f;
       const float ir = f0 ? __ldcg(ipraw_i + cn) : 0.0f;
-      const int64_t pn = p * a.N + cn;
+      const int64_t pn = m.ps.prow * a.N + cn;
       const float nt = ktt::node_total(a, rs, pn, baseij, sr, ir);
       mj = (f0 && fit) ? nt : -INFINITY;
       bn = cn;
@@ -390,7 +395,9 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
 
 }  // namespace
 
-// ptrs, dims, sw, wp, ip, fp: as ktt_full_scan's; sp: the scratch pointers
+// ptrs, dims, sw, wp, ip, fp: as ktt_full_scan's, and ptrs[26] the class of
+// each pod row i32[P] (class-row mode: the plane pointers are the class
+// planes [U1, *]) or NULL (dense mode); sp: the scratch pointers
 // (feas, base, sraw, ipraw, total, topv, topi, c0, c, t, hard, unc, ctrl,
 // ents, n_ents); C: pods per chunk (<= 32, dividing P); iters: repair
 // iterations per round
@@ -454,6 +461,7 @@ extern "C" int ktt_rounds(const void* const* ptrs, const int* dims, const int* s
   a.pref = static_cast<float*>(const_cast<void*>(q[23]));
   a.total_t = static_cast<float*>(const_cast<void*>(q[24]));
   a.ports_used = static_cast<uint8_t*>(const_cast<void*>(q[25]));
+  a.cls = static_cast<const int32_t*>(q[26]);
   if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs))
     return (int)cudaErrorInvalidValue;
   if (a.P == 0) return (int)cudaGetLastError();

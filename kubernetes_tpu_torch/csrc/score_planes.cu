@@ -68,11 +68,11 @@ extern "C" int ktt_score_planes(const void* node_taint_pref, const void* pod_tol
   const int TW = T > 32 ? (T + 31) / 32 : 1;
   term_match_kernel<<<blocks_for((int64_t)S * N, THREADS), THREADS, 0, st>>>(
       static_cast<const uint8_t*>(sel_mask), static_cast<const int32_t*>(sel_kind),
-      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm));
+      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm), nullptr);
   pack_bits_kernel<<<blocks_for((int64_t)N * TW, THREADS), THREADS, 0, st>>>(
-      static_cast<const uint8_t*>(node_taint_pref), N, T, TW, static_cast<uint32_t*>(taint_w));
+      static_cast<const uint8_t*>(node_taint_pref), N, T, TW, static_cast<uint32_t*>(taint_w), nullptr);
   pack_bits_kernel<<<blocks_for((int64_t)P * TW, THREADS), THREADS, 0, st>>>(
-      static_cast<const uint8_t*>(pod_tol_pref), P, T, TW, static_cast<uint32_t*>(tol_w));
+      static_cast<const uint8_t*>(pod_tol_pref), P, T, TW, static_cast<uint32_t*>(tol_w), nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid(blocks_for(N, THREADS), P < 65535 ? P : 65535);

@@ -1,8 +1,9 @@
 """Batched assignment with sequential-commit semantics — the port of the JAX
 package's ``ops/assign.py``: the per-pod scan ``schedule_scan`` over every
 stage, ``schedule_scan_chunked`` in both its modes (dense, and the
-incremental class-wave route) for the fit-only stage set, and the dense
-mode of ``schedule_scan_rounds`` for the full stage set.
+incremental class-wave route) for the fit-only stage set, and
+``schedule_scan_rounds`` in both its modes (dense, and on class state) for
+the full stage set.
 
 Static feasibility is evaluated for the whole batch up front ([P, N]); then
 pods commit one at a time in activeQ order (== tensor order).  Each step
@@ -43,23 +44,28 @@ The JAX package's wave knobs are keyword arguments here with the same
 defaults (``class_waves=False`` is its ``KTPU_CLASS_WAVES=0``; ``wave_k``,
 ``wave_block``).
 
-THE ROUNDS ROUTE (the full stage set, dense mode).  ``RCHUNK`` pods at a
+THE ROUNDS ROUTE (the full stage set).  ``RCHUNK`` pods at a
 time, every round re-hoists the chunk's uncommitted pods against exact
 round-start state (the per-pod scan's row functions, pod by pod), then
 dispersal speculation over each pod's top-32, the exact repair under the
 intra-round prefix, and the longest confirmed prefix commits, truncated at
 term sharing and at normalisation hazards (``schedule_scan_rounds_plain``;
-on the card K7, K10 and K12 ``rounds``, csrc/rounds.cu).  Its knobs
-``rchunk`` and ``repair_iters`` are keyword arguments with the JAX
-package's defaults (KTPU_RCHUNK=16, KTPU_REPAIR_ITERS=1).
+on the card K7, K10 and K12 ``rounds``, csrc/rounds.cu).  With class state
+the pods' static, eligibility, taint, node-affinity and image rows are the
+rows of the resident class planes (K12's class-row mode reads them through
+``inc.cls``; the plain version also carries the class base hoist across
+chunks, patched per round, as the JAX package does).  Its knobs ``rchunk``
+and ``repair_iters`` are keyword arguments with the JAX package's defaults
+(KTPU_RCHUNK=16, KTPU_REPAIR_ITERS=1).
 
 ROUTING (``dispatch``, the JAX package's schedule_batch_impl): class state
-that fits -> the class-wave route; else, on the card (on the CPU with
-chunked=True, the JAX package's KTPU_FORCE_CHUNKED=1), a chunkable batch
--> the dense chunked route and any other batch with P a multiple of RCHUNK
-(a fit-only batch of fewer than CHUNK pods too) -> the rounds route; else
-the per-pod route.  Decisions are the same on
-every route; commit ordinals and the sweep count are each route's own and
+that fits -> the class-wave route (a chunkable batch) or the rounds route in
+class mode (any other batch with P a multiple of RCHUNK); else, on the card
+(on the CPU with chunked=True, the JAX package's KTPU_FORCE_CHUNKED=1), a
+chunkable batch -> the dense chunked route and any other batch with P a
+multiple of RCHUNK (a fit-only batch of fewer than CHUNK pods too) -> the
+rounds route; else the per-pod route.  Decisions are the same on every
+route; commit ordinals and the sweep count are each route's own and
 equal the JAX route's.  ``dispatch`` launches without a host
 synchronisation; ``finish`` reads the sweep count and the round-cap status
 back and raises on the cap (``schedule_batch`` does both).
@@ -95,7 +101,7 @@ REPAIR_ITERS = 1  # speculate -> repair iterations per round (its KTPU_REPAIR_IT
 
 # Route counters, bumped per call (the JAX package bumps its TRACE_COUNTS
 # per trace; eager PyTorch has no trace, so a call is the unit here).
-TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0}
+TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0, "rounds_inc": 0}
 
 
 def reset_trace_counts() -> None:
@@ -997,9 +1003,15 @@ def _scatter_rows(state, dbt, ids, cn_final, w):
     return state.index_add(0, tids, wf[:, None] * same), tids, dcol, wf
 
 
-def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters):
-    """The round loop of one chunk (the JAX package's assign.py:1830-2212,
-    dense mode) -> (out i32[C], nrounds, ord_ i32[C], the state after)."""
+def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters, req_u=None):
+    """The round loop of one chunk (the JAX package's assign.py:1830-2212)
+    -> (out i32[C], nrounds, ord_ i32[C], the state after).  Dense mode
+    (req_u None): the chunk hoists its base scores and fit mask [C, N]
+    against chunk-start usage and patches them at committed columns.  Class
+    mode: st carries the class hoists base_u f32[U1, N] / fit_u bool[U1, N]
+    across chunks, each round reads the pods' rows through cx["cls"] and the
+    commit patches the committed columns at class level from the per-class
+    requests req_u (:1820-1826, :2090-2103)."""
     dev = alloc.device
     creq = cx["req"]
     C = creq.shape[0]
@@ -1013,8 +1025,9 @@ def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters):
     jlt = idxC[None, :] < idxC[:, None]  # [i, j]: j < i
     has_key_all = dbt < D
     share = chunk_share(cx, cfg, T)
-    base0 = _scores(creq, st["used"], alloc, cfg)
-    fit0 = fit_rows(creq, st["used"], alloc)
+    if req_u is None:
+        base0 = _scores(creq, st["used"], alloc, cfg)
+        fit0 = fit_rows(creq, st["used"], alloc)
     committed = torch.zeros(C, dtype=torch.bool, device=dev)
     out = torch.full((C,), -1, dtype=torch.int32, device=dev)
     ord_ = torch.zeros(C, dtype=torch.int32, device=dev)
@@ -1024,6 +1037,8 @@ def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters):
         if nrounds >= C:
             raise RuntimeError("rounds scan: a chunk exceeded its round cap (every round commits a pod)")
         unc = ~committed
+        if req_u is not None:  # the pods' rows of the patched class hoists
+            base0, fit0 = st["base_u"][cx["cls"]], st["fit_u"][cx["cls"]]
         feasible, total, c0, r = _round_start(cfg, cx, st, base0, fit0, has_key_all, nodes)
         # ---- dispersal speculation: pod i takes its rank-th best node,
         # rank = earlier uncommitted pods sharing its argmax ----
@@ -1059,12 +1074,20 @@ def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters):
         cols = cn_final.to(torch.int64)
         col_used = used[cols]
         col_alloc = alloc[cols]
-        col_fit = fit_rows(creq, col_used, col_alloc)
-        col_base = _scores(creq, col_used, col_alloc, cfg)
-        base0 = base0.clone()
-        fit0 = fit0.clone()
-        base0[:, cols[pact]] = col_base[:, pact]
-        fit0[:, cols[pact]] = col_fit[:, pact]
+        if req_u is None:
+            col_fit = fit_rows(creq, col_used, col_alloc)
+            col_base = _scores(creq, col_used, col_alloc, cfg)
+            base0 = base0.clone()
+            fit0 = fit0.clone()
+            base0[:, cols[pact]] = col_base[:, pact]
+            fit0[:, cols[pact]] = col_fit[:, pact]
+        else:  # one [U1, C] block at class level (duplicate columns write equal values)
+            col_fit = fit_rows(req_u, col_used, col_alloc)
+            col_base = _scores(req_u, col_used, col_alloc, cfg)
+            st["base_u"] = st["base_u"].clone()
+            st["fit_u"] = st["fit_u"].clone()
+            st["base_u"][:, cols[pact]] = col_base[:, pact]
+            st["fit_u"][:, cols[pact]] = col_fit[:, pact]
         if cfg.enable_ports:
             # two pods of a round may commit to one node: OR both in
             st["ports"] = st["ports"].to(torch.int32).index_add(
@@ -1086,17 +1109,31 @@ def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters):
     return out, nrounds, ord_, st
 
 
-def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes):
+def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, inc=None):
     """The per-pod inputs of the rounds scan: a function of a pod slice ->
-    the dict of its rows (masks unpacked, bf16 raws upcast to f32)."""
+    the dict of its rows (masks unpacked, bf16 raws upcast to f32).  With
+    class state `inc` the static, eligibility, taint, node-affinity and
+    image rows are class-row gathers through inc.cls, and pod_valid folds
+    back into the static rows (the class planes leave it out: the JAX
+    package's assign.py:1722-1753); sfs, eligs and planes are then unused."""
     N = arr.N
+    if inc is not None:
+        sfs, eligs, planes, img = inc.stat_u, inc.elig_u, (inc.traw_u, inc.naraw_u), inc.img_u
+    else:
+        img = arr.image_score if _image_on(arr, cfg) else None
     traw, naraw = planes
-    img_on = _image_on(arr, cfg)
 
     def rows(sl):
-        cx = {"req": arr.pod_req[sl], "valid": arr.pod_valid[sl], "sf": bitplane.unpack(sfs[sl], N)}
+        valid = arr.pod_valid[sl]
+        if inc is not None:
+            prow = inc.cls[sl].to(torch.int64)
+            cx = {"cls": prow, "sf": bitplane.unpack(sfs[prow], N) & valid[:, None]}
+        else:
+            prow = sl
+            cx = {"sf": bitplane.unpack(sfs[sl], N)}
+        cx.update(req=arr.pod_req[sl], valid=valid)
         if cfg.enable_pairwise:
-            cx.update(elig=bitplane.unpack(eligs[sl], N), spread_t=arr.pod_spread_terms[sl],
+            cx.update(elig=bitplane.unpack(eligs[prow], N), spread_t=arr.pod_spread_terms[sl],
                       skew=arr.pod_spread_maxskew[sl], hard=arr.pod_spread_hard[sl], aff=arr.pod_aff_terms[sl],
                       anti=arr.pod_anti_terms[sl], mt=arr.pod_match_terms[sl], mv=arr.pod_match_vals[sl],
                       aself=arr.pod_aff_self[sl])
@@ -1104,12 +1141,12 @@ def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torc
                 cx.update(pref_t=arr.pod_pref_aff_terms[sl], pref_w=arr.pod_pref_aff_w[sl])
         if cfg.enable_ports:
             cx["ports"] = arr.pod_ports[sl]
-        if traw is not None:
-            cx["traw"] = traw[sl].to(torch.float32)
-        if naraw is not None:
-            cx["naraw"] = naraw[sl].to(torch.float32)
-        if img_on:
-            cx["img"] = arr.image_score[sl].to(torch.float32)
+        if cfg.enable_taint_score:
+            cx["traw"] = traw[prow].to(torch.float32)
+        if cfg.enable_node_pref:
+            cx["naraw"] = naraw[prow].to(torch.float32)
+        if img is not None:
+            cx["img"] = img[prow].to(torch.float32)
         return cx
 
     return rows
@@ -1117,48 +1154,53 @@ def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torc
 
 def schedule_scan_rounds_plain(arr, cfg: ScoreConfig, sfs=None, eligs=None, planes=None, rchunk: int = None,
                                repair_iters: int = None, inc=None, with_state: bool = False):
-    """The dense mode of the JAX package's assign.py:1464
-    schedule_scan_rounds: chunks of `rchunk` pods (its KTPU_RCHUNK), each
-    re-hoisted against exact round-start state every round, committed by
-    dispersal speculation, exact repair (`repair_iters`, its
-    KTPU_REPAIR_ITERS) and the share / normalisation-hazard truncation.
-    `sfs`, `eligs` are K7's packed planes and `planes` score_planes' (the
-    plain versions when not given).
+    """The JAX package's assign.py:1464 schedule_scan_rounds: chunks of
+    `rchunk` pods (its KTPU_RCHUNK), each re-hoisted against exact
+    round-start state every round, committed by dispersal speculation,
+    exact repair (`repair_iters`, its KTPU_REPAIR_ITERS) and the share /
+    normalisation-hazard truncation.  Dense mode: `sfs`, `eligs` are K7's
+    packed planes and `planes` score_planes' (the plain versions when not
+    given).  Class mode (`inc`, ops/incremental.py — IncState): the pods'
+    usage-independent rows are class-row gathers, and the class base hoist
+    [U1, N] (inc.base_u / fit_u) is carried across the chunks and patched at
+    committed columns each round — bit-identical to the dense mode.
 
     -> (choices i32[P], used i32[N, R], ordinals i32[P], sweeps int): the
     ordinal is the rounds of the earlier chunks plus the pod's own round
     (:2225-2235), sweeps their total; with `with_state` also the final
     pairwise state {cnt, anti, pref, total, ports} (what kernel K12 is held
     to)."""
-    if inc is not None:
-        raise NotImplementedError(
-            "schedule_scan_rounds inc mode (the elig_u/traw_u/naraw_u/img_u class planes): "
-            "not ported to kubernetes_tpu_torch yet (ROADMAP.md queue B, B10 inc, slice 5)")
     rchunk = RCHUNK if rchunk is None else rchunk
     repair_iters = REPAIR_ITERS if repair_iters is None else repair_iters
     dev = arr.device
     P = arr.P
     if P % rchunk:
         raise ValueError(f"the rounds scan takes chunks of {rchunk} pods dividing P; got P={P}")
-    if sfs is None:
+    if inc is None and sfs is None:
         sfs, eligs = packed_static_rows_plain(arr, with_elig=True)
-    if planes is None:
+    if inc is None and planes is None:
         planes = score_planes(arr, cfg)
-    rows = rounds_inputs(arr, cfg, sfs, eligs, planes)
+    rows = rounds_inputs(arr, cfg, sfs, eligs, planes, inc)
     dbt, D = dom_by_term(arr)
     cnt, anti, pref, total = pairwise_state0(arr, dbt, D)
     st = {"used": arr.node_used.clone(), "cnt": cnt, "anti": anti, "pref": pref, "total": total,
           "ports": arr.node_ports0.clone()}
+    req_u = None
+    if inc is not None:
+        req_u = inc.req_u
+        st.update(base_u=inc.base_u, fit_u=bitplane.unpack(inc.fit_u, arr.N))
     nodes = torch.arange(arr.N, dtype=torch.int32, device=dev)
     outs, ords, rounds = [], [], []
     for ch in range(P // rchunk):
         o, nr, od, st = _rounds_chunk_plain(cfg, rows(slice(ch * rchunk, (ch + 1) * rchunk)), st,
-                                            arr.node_alloc, dbt, D, nodes, repair_iters)
+                                            arr.node_alloc, dbt, D, nodes, repair_iters, req_u)
         outs.append(o)
         ords.append(od)
         rounds.append(nr)
     base = torch.tensor([0] + rounds[:-1], dtype=torch.int64).cumsum(0).to(torch.int32).to(dev)
     ords_g = (base[:, None] + torch.stack(ords)).reshape(-1)
+    st.pop("base_u", None)
+    st.pop("fit_u", None)
     out = (torch.cat(outs), st.pop("used"), ords_g, sum(rounds))
     return out + (st,) if with_state else out
 
@@ -1166,12 +1208,16 @@ def schedule_scan_rounds_plain(arr, cfg: ScoreConfig, sfs=None, eligs=None, plan
 def schedule_scan_rounds(arr, cfg: ScoreConfig, inc=None, rchunk: int = None, repair_iters: int = None):
     """The rounds route: on CUDA tensors kernel K7 (packed static and
     eligibility planes), K10 (score planes, where a stage needs them) and
-    K12 (the rounds scan, one launch); on the CPU the plain versions."""
-    TRACE_COUNTS["rounds"] += 1
+    K12 (the rounds scan, one launch); with class state `inc` K12 alone, in
+    class-row mode over the resident class planes; on the CPU the plain
+    versions."""
+    TRACE_COUNTS["rounds_inc" if inc is not None else "rounds"] += 1
     if inc is not None:
-        raise NotImplementedError(
-            "schedule_scan_rounds inc mode (the elig_u/traw_u/naraw_u/img_u class planes): "
-            "not ported to kubernetes_tpu_torch yet (ROADMAP.md queue B, B10 inc, slice 5)")
+        if arr.device.type != "cpu":
+            from . import kernels
+
+            return kernels.rounds(arr, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
+        return schedule_scan_rounds_plain(arr, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
     sfs, eligs = packed_static_rows(arr, with_elig=True)
     planes = score_planes(arr, cfg)
     if arr.device.type != "cpu":
@@ -1195,11 +1241,10 @@ def _rounds_capable(arr, cfg: ScoreConfig) -> bool:
 
 
 def inc_route_applies(arr, cfg: ScoreConfig) -> bool:
-    """Whether (arr, cfg) routes a route that reads class state at all:
-    callers gate HoistCache.ensure() on it (the JAX package's
-    assign.py:2237).  The rounds route's inc mode is not ported (its class
-    planes wait for slice 5), so only the class-wave route counts."""
-    return _chunkable(arr, cfg)
+    """Whether (arr, cfg) routes a route that reads class state at all — the
+    class-wave route or the rounds route: callers gate HoistCache.ensure()
+    on it (the JAX package's assign.py:2237)."""
+    return _chunkable(arr, cfg) or _rounds_capable(arr, cfg)
 
 
 def inc_applicable(arr, cfg: ScoreConfig, inc):
@@ -1213,10 +1258,9 @@ def inc_applicable(arr, cfg: ScoreConfig, inc):
         return None
     if arr.P % INC_CHUNK:
         return None
-    if not fit_only(cfg, arr):
-        # the JAX package's gate on elig_u / traw_u / naraw_u / img_u: the
-        # port's IncState carries none of them yet
-        return None
+    if ((cfg.enable_pairwise and inc.elig_u is None) or (cfg.enable_taint_score and inc.traw_u is None)
+            or (cfg.enable_node_pref and inc.naraw_u is None) or (_image_on(arr, cfg) != (inc.img_u is not None))):
+        return None  # a class plane the config reads is missing (the JAX package's :2262-2269)
     return inc
 
 
@@ -1267,7 +1311,8 @@ def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[boo
     """Route and launch one step without a host synchronisation on the card
     (the pipeline's dispatch), as the JAX package's schedule_batch_impl
     routes off the CPU: with applicable class state `inc` the class-wave
-    route; else a chunkable batch (fit-only stages) takes the dense chunked
+    route for a chunkable batch, the rounds route in class mode for any
+    other batch whose P is a multiple of RCHUNK; else a chunkable batch (fit-only stages) takes the dense chunked
     route and any other batch whose P is a multiple of RCHUNK the rounds
     route — on the card by default, on the CPU only with chunked=True (the
     JAX package's KTPU_FORCE_CHUNKED=1); else the per-pod route.
@@ -1281,6 +1326,8 @@ def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[boo
     inc = inc_applicable(arr, cfg, inc)
     if inc is not None and _chunkable(arr, cfg):
         return Step(*schedule_scan_chunked(arr, cfg, inc, **knobs))
+    if inc is not None and _rounds_capable(arr, cfg):
+        return Step(*schedule_scan_rounds(arr, cfg, inc=inc, **knobs))
     routed = arr.device.type != "cpu" if chunked is None else chunked
     if routed and _chunkable(arr, cfg):
         return Step(*schedule_scan_chunked_dense(arr, cfg))

@@ -1,13 +1,18 @@
 """Incremental warm-cycle hoisting — equivalence classes and dirty-node
-rescoring; the port of the JAX package's ``ops/incremental.py`` for the
-fit-only stage set on one device.
+rescoring; the port of the JAX package's ``ops/incremental.py`` on one
+device.
 
 Pods with equal spec keys get identical rows (api/snapshot.py — the class
 index), so the [P, N] hoists collapse to [U1, N] class matrices (U1 =
 classes + one padding class): the static plane ``stat_u`` (node validity,
 taints, selectors, nodeName; packed words, WITHOUT pod_valid, which the
-kernels fold per pod), the fit plane ``fit_u`` (packed) and the f32 base
-scores ``base_u`` (fit + BalancedAllocation) against cycle-start usage.
+kernels fold per pod, so the state survives the gang fixpoint's
+revocations), the fit plane ``fit_u`` (packed) and the f32 base scores
+``base_u`` (fit + BalancedAllocation) against cycle-start usage; for the
+rounds route also the eligibility plane ``elig_u`` (packed nodesel &
+node_valid, pairwise configs), the bf16 PreferNoSchedule counts ``traw_u``
+and preferred node-affinity weights ``naraw_u``, and the class rows of the
+image scores ``img_u``, each only where the config reads it.
 ``HoistCache.ensure`` keeps them resident across cycles: the static side
 is rebuilt only when one of the tensors it reads is replaced (identity
 fingerprint), the usage side is patched at the node columns whose usage
@@ -18,8 +23,10 @@ nodes or more are dirty.  A patched cache is bit-identical to a fresh hoist
 Each hoist has a plain PyTorch version here (``_static_hoist_plain``,
 ``_usage_hoist_plain``, ``_patch_hoist_plain``), op for op after the JAX
 function; for CUDA tensors the hoists launch the kernels
-``class_static_hoist`` (csrc/class_hoist.cu, K3) and ``class_usage_hoist``
-(the same file, K4, full or column-list mode) or raise.
+``class_static_hoist`` (csrc/class_hoist.cu, K3, with the eligibility
+words when asked), ``score_planes`` (K10, over the class view's rows) and
+``class_usage_hoist`` (class_hoist.cu, K4, full or column-list mode) or
+raise.
 
 DONATION-ALIASING RULE (the JAX package's incremental.py:49-53): the
 kernels never write into a resident buffer.  A patch writes into a copy of
@@ -35,6 +42,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..api.snapshot import POD_FIELDS
 from ..device import h2d
 from . import bitplane, filters
 from .scores import ScoreConfig, balanced_allocation, check_config, fit_score
@@ -42,32 +50,28 @@ from .scores import ScoreConfig, balanced_allocation, check_config, fit_score
 
 class IncState(NamedTuple):
     """Device-side class state handed to the commit kernels.  Mask planes
-    are packed int32 words [U1, ceil(N/32)] (ops/bitplane.py).  The fit-only
-    slice leaves the rounds route's optional planes None."""
+    are packed int32 words [U1, ceil(N/32)] (ops/bitplane.py); the optional
+    planes are None where the config does not read them."""
 
     cls: Any      # i32[P] class of each pod row (U1-1 = the padding class)
     req_u: Any    # i32[U1, R] per-class requests
     stat_u: Any   # i32 words [U1, W] static feasibility per class
     base_u: Any   # f32[U1, N] fit + balanced base scores vs cycle-start usage
     fit_u: Any    # i32 words [U1, W] fit mask vs cycle-start usage
-    elig_u: Any = None
-    traw_u: Any = None
-    naraw_u: Any = None
-    img_u: Any = None
-
-
-# the port's pod-axis ClusterArrays fields (api/snapshot.py — POD_FIELDS)
-_POD_AXIS_FIELDS = (
-    "pod_valid", "pod_req", "pod_prio", "pod_tol_ns", "pod_nodename",
-    "pod_terms", "pod_has_sel",
-)
+    elig_u: Any = None   # i32 words [U1, W] nodesel & node_valid (pairwise)
+    traw_u: Any = None   # bf16[U1, N] PreferNoSchedule counts (taint score)
+    naraw_u: Any = None  # bf16[U1, N] preferred node-affinity weights
+    img_u: Any = None    # bf16[U1, N] image scores (ImageLocality on a real plane)
 
 
 def class_view(arr, r_u: torch.Tensor):
     """ClusterArrays whose pod axis is the CLASS axis: row u = the first pod
     of class u (rows within a class are identical, so which one is
-    immaterial)."""
-    return dataclasses.replace(arr, **{f: getattr(arr, f)[r_u].contiguous() for f in _POD_AXIS_FIELDS})
+    immaterial) — every pod-axis field, m_pend's columns and the image
+    score rows (the JAX package's incremental.py:110-131)."""
+    repl = {f: getattr(arr, f)[r_u].contiguous() for f in POD_FIELDS}
+    repl["m_pend"] = arr.m_pend[:, r_u].contiguous()
+    return dataclasses.replace(arr, **repl)
 
 
 def score_flat(requested: torch.Tensor, alloc: torch.Tensor, cfg: ScoreConfig) -> torch.Tensor:
@@ -92,14 +96,23 @@ def _scores(req: torch.Tensor, used: torch.Tensor, alloc: torch.Tensor, cfg: Sco
     return score_flat(reqd.reshape(-1, R), alloc[None].expand(U, D, R).reshape(-1, R), cfg).reshape(U, D)
 
 
-def _static_hoist_plain(cv) -> torch.Tensor:
-    """Packed [U1, W] static plane of a class view: node_valid & taints_ok &
-    nodesel & nodename_ok, without pod_valid (the JAX package's
-    incremental.py:146 _static_hoist, fit-only stage set)."""
+def _static_hoist_plain(cv, want_elig: bool = False, want_traw: bool = False, want_naraw: bool = False):
+    """The usage-independent class planes of a class view (the JAX package's
+    incremental.py:146 _static_hoist) -> (stat, elig, traw, naraw): stat the
+    packed [U1, W] node_valid & taints_ok & nodesel & nodename_ok, without
+    pod_valid; elig the packed nodesel & node_valid; traw / naraw the bf16
+    [U1, N] PreferNoSchedule counts and preferred node-affinity weights;
+    each of the last three None unless wanted."""
+    from .assign import preferred_node_affinity_raw_plain
+    from .scores import taint_prefer_counts_plain
+
     tm = filters.term_match(cv.sel_mask, cv.sel_kind, cv.node_labels)
     nodesel = filters.node_selection_ok_from(tm, cv)
     stat = cv.node_valid[None, :] & filters.taints_ok(cv) & nodesel & filters.nodename_ok(cv)
-    return bitplane.pack(stat)
+    elig = bitplane.pack(nodesel & cv.node_valid[None, :]) if want_elig else None
+    traw = taint_prefer_counts_plain(cv.pod_tol_pref, cv.node_taint_pref) if want_traw else None
+    naraw = preferred_node_affinity_raw_plain(cv.pod_pref_terms, cv.pod_pref_weights, tm) if want_naraw else None
+    return bitplane.pack(stat), elig, traw, naraw
 
 
 def _usage_hoist_plain(req_u, node_used, node_alloc, cfg: ScoreConfig):
@@ -128,14 +141,21 @@ def _patch_hoist_plain(base_u, fit_u, req_u, node_used, node_alloc, cols, cfg: S
     return base_u, fit_u
 
 
-def static_hoist(arr, r_u: torch.Tensor) -> torch.Tensor:
-    """The class static plane on arr's device: the plain version for CPU
-    tensors, kernel K3 for CUDA tensors."""
+def static_hoist(arr, r_u: torch.Tensor, want_elig: bool = False, want_traw: bool = False,
+                 want_naraw: bool = False):
+    """The class planes (stat, elig, traw, naraw) on arr's device: the plain
+    version for CPU tensors; for CUDA tensors kernel K3 (stat, and elig when
+    wanted) and kernel K10 over the class view's rows (traw, naraw)."""
     if arr.device.type == "cpu":
-        return _static_hoist_plain(class_view(arr, r_u))
+        return _static_hoist_plain(class_view(arr, r_u), want_elig, want_traw, want_naraw)
     from . import kernels
 
-    return kernels.class_static_hoist(arr, r_u)
+    stat, elig = kernels.class_static_hoist(arr, r_u, with_elig=True) if want_elig else (
+        kernels.class_static_hoist(arr, r_u), None)
+    traw = naraw = None
+    if want_traw or want_naraw:
+        traw, naraw = kernels.score_planes(class_view(arr, r_u))
+    return stat, elig, (traw if want_traw else None), (naraw if want_naraw else None)
 
 
 def usage_hoist(req_u, node_used, node_alloc, cfg: ScoreConfig):
@@ -168,8 +188,11 @@ class HoistCache:
     the class route does not apply (no class index, or the degenerate
     all-pods-unique wave, U1 >= P).  Two fingerprints drive residency:
 
-      static side — the identity of every tensor the static plane reads,
-        plus (U1, N, cfg).  Mismatch: full static re-hoist (K3).
+      static side — the identity of every tensor the class planes read
+        (the JAX package's whole static key, incremental.py:469-479: the
+        PreferNoSchedule taints and tolerations, the preferred terms and
+        the image scores too), plus (U1, N, cfg, the wanted planes).
+        Mismatch: full static re-hoist (K3, K10).
       usage side — node_alloc identity, equal per-class requests, (U1, N,
         cfg).  Mismatch: full usage re-hoist (K4).  Match: the rows of
         node_used that differ from the previous cycle's are patched (K4 on
@@ -190,7 +213,7 @@ class HoistCache:
 
     def __init__(self):
         self._static_key = None
-        self._stat = None
+        self._statics = None  # (stat, elig, traw, naraw, img)
         self._usage_key = None
         self._usage = None  # (base_u, fit_u)
         self._req_u_host = None
@@ -216,7 +239,7 @@ class HoistCache:
         """Forget every fingerprint and resident buffer: the next ensure()
         re-hoists in full."""
         self._static_key = None
-        self._stat = None
+        self._statics = None
         self._usage_key = None
         self._usage = None
         self._req_u_host = None
@@ -267,19 +290,24 @@ class HoistCache:
         r_u = self._on_device("_ru_ent", r_u_h, torch.int64, dev)
 
         # ---- static side (usage-independent; pod_valid excluded) ----
+        # the class planes the config reads (the JAX package's incremental.py:462-465)
+        want_elig, want_traw, want_naraw = cfg.enable_pairwise, cfg.enable_taint_score, cfg.enable_node_pref
+        want_img = cfg.enable_image and arr.image_score.shape[1] == N
         skey_arrays = (
-            pc, r_u_h, arr.pod_tol_ns, arr.pod_nodename, arr.pod_terms,
-            arr.pod_has_sel, arr.sel_mask, arr.sel_kind, arr.node_valid,
-            arr.node_labels, arr.node_taint_ns,
+            pc, r_u_h, arr.pod_tol_ns, arr.pod_tol_pref, arr.pod_nodename, arr.pod_terms,
+            arr.pod_has_sel, arr.sel_mask, arr.sel_kind, arr.pod_pref_terms, arr.pod_pref_weights,
+            arr.node_valid, arr.node_labels, arr.node_taint_ns, arr.node_taint_pref, arr.image_score,
         )
-        skey_meta = (u1, N, cfg, str(dev))
+        skey_meta = (u1, N, cfg, want_elig, want_traw, want_naraw, want_img, str(dev))
         action = None
         if not (
             self._static_key is not None
             and self._static_key[1] == skey_meta
             and all(a is b for a, b in zip(self._static_key[0], skey_arrays))
         ):
-            self._stat = static_hoist(arr, r_u)
+            planes = static_hoist(arr, r_u, want_elig, want_traw, want_naraw)
+            img = arr.image_score[r_u].contiguous() if want_img else None
+            self._statics = planes + (img,)
             self._static_key = (skey_arrays, skey_meta)
             self.stats["static_rebuilds"] += 1
             self._usage_key = None  # classes / N / cfg moved: rebuild below
@@ -328,7 +356,9 @@ class HoistCache:
 
         cls = self._on_device("_cls_ent", pc, torch.int32, dev)
         self._note(action, u1, frac, ncols)
-        return IncState(cls=cls, req_u=req_u, stat_u=self._stat, base_u=self._usage[0], fit_u=self._usage[1])
+        stat, elig, traw, naraw, img = self._statics
+        return IncState(cls=cls, req_u=req_u, stat_u=stat, base_u=self._usage[0], fit_u=self._usage[1],
+                        elig_u=elig, traw_u=traw, naraw_u=naraw, img_u=img)
 
 
 __all__ = [

@@ -14,8 +14,12 @@ Kernels (LAUNCHES keys) and their libraries: static_feasible and fit_scan
 class-wave route); packed_static_rows (K7, class_hoist.cu) and
 chunk_rounds_dense (K8) (the dense chunked route); unpack_planes (K9, the
 encoder's packed transfers); score_planes (K10), full_scan (K11, the
-per-pod route over the full stage set) and rounds (K12, the rounds route);
-K11 and K12 inline csrc/pairwise.cuh.
+per-pod route over the full stage set) and rounds (K12, the rounds route,
+dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh;
+gang_quorum (K13, gang.cu: the gang fixpoint's quorum check and
+revocation).  K7, K8 and K13 take an optional device ``done`` word that
+makes a launch return at entry: the gang fixpoint's device loop queues its
+iterations without reading anything back (ops/gang.py).
 
 No wrapper reads anything back: the chunk-scan kernels leave their sweep
 count and round-cap status in an int32[2] device pair, which read_sweeps
@@ -58,7 +62,7 @@ SOURCES = {
     "wave_commit": "wave_commit.cu", "chunk_rounds": "chunk_rounds.cu",
     "packed_static_rows": "class_hoist.cu", "chunk_rounds_dense": "chunk_rounds_dense.cu",
     "unpack_planes": "unpack_planes.cu", "score_planes": "score_planes.cu",
-    "full_scan": "full_scan.cu", "rounds": "rounds.cu",
+    "full_scan": "full_scan.cu", "rounds": "rounds.cu", "gang_quorum": "gang.cu",
 }
 
 _P = ctypes.c_void_p
@@ -69,16 +73,17 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "static_feasible": ("ktt_static_feasible", [_P] * 14 + [_I] * 7 + [_P]),
     "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P]),
-    "class_static_hoist": ("ktt_class_static_hoist", [_P] * 14 + [_I] * 7 + [_P]),
+    "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 7 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
     "chunk_rounds": ("ktt_chunk_rounds", [_P] * 23 + [_I] * 6 + [_P]),
-    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 15 + [_I] * 7 + [_P]),
-    "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 16 + [_I] * 5 + [_P]),
+    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 16 + [_I] * 7 + [_P]),
+    "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 17 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
     "score_planes": ("ktt_score_planes", [_P] * 12 + [_I] * 7 + [_P]),
     "full_scan": ("ktt_full_scan", [_P] * 9),
     "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
+    "gang_quorum": ("ktt_gang_quorum", [_P] * 9 + [_I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -316,9 +321,11 @@ def _need_cuda(dev, name: str) -> None:
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
 
 
-def class_static_hoist(arr, r_u: torch.Tensor) -> torch.Tensor:
+def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False):
     """K3 (csrc/class_hoist.cu): the packed class static plane int32 words
-    [U1, ceil(N/32)] for the classes whose first pod rows are r_u (i64)."""
+    [U1, ceil(N/32)] for the classes whose first pod rows are r_u (i64);
+    with `with_elig` also the packed eligibility plane nodesel & node_valid
+    -> (stat_u, elig_u)."""
     dev = arr.device
     _need_cuda(dev, "class_static_hoist")
     P, N = arr.P, arr.N
@@ -341,17 +348,18 @@ def class_static_hoist(arr, r_u: torch.Tensor) -> torch.Tensor:
     taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
     tol_w = torch.empty((U1, TW), dtype=torch.int32, device=dev)
     stat_u = torch.empty((U1, -(-N // 32)), dtype=torch.int32, device=dev)
+    elig_u = torch.empty_like(stat_u) if with_elig else None
     with torch.cuda.device(dev):
         err = fn(
             arr.node_valid.data_ptr(), arr.node_taint_ns.data_ptr(), arr.node_labels.data_ptr(),
             arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(), arr.pod_terms.data_ptr(),
             arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(), arr.sel_kind.data_ptr(),
             r_u.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), stat_u.data_ptr(),
-            U1, N, T, TT, S, E, L, _stream(dev),
+            None if elig_u is None else elig_u.data_ptr(), U1, N, T, TT, S, E, L, _stream(dev),
         )
     _raise_on(err, "class_static_hoist")
     LAUNCHES["class_static_hoist"] += 1
-    return stat_u
+    return (stat_u, elig_u) if with_elig else stat_u
 
 
 def class_usage_hoist(req_u, node_used, node_alloc, cfg, cols=None, base_u=None, fit_u=None):
@@ -516,11 +524,14 @@ def read_sweeps(scal: torch.Tensor) -> int:
 # the encoder's packed transfers (K9 unpack_planes)
 # ---------------------------------------------------------------------------
 
-def packed_static_rows(arr, with_elig: bool = False):
+def packed_static_rows(arr, with_elig: bool = False, done: Optional[torch.Tensor] = None,
+                       out: Optional[torch.Tensor] = None):
     """K7 (csrc/class_hoist.cu): static feasibility of every pod row,
     pod_valid included, as int32 words [P, ceil(N/32)] written by warp
     ballot (no dense bool plane); with `with_elig` also the eligibility
-    plane nodesel & node_valid -> (sfs, eligs)."""
+    plane nodesel & node_valid -> (sfs, eligs).  `done` (i32[1] on the
+    card): the launch returns at entry once it is set; `out`: the sfs
+    buffer to write (a fresh one when None)."""
     dev = arr.device
     _need_cuda(dev, "packed_static_rows")
     P, N = arr.P, arr.N
@@ -540,7 +551,12 @@ def packed_static_rows(arr, with_elig: bool = False):
     tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
     taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
     tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
-    sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=dev)
+    W = -(-N // 32)
+    if out is not None:
+        _check(out, "out", torch.int32, (P, W), dev)
+    if done is not None:
+        _check(done, "done", torch.int32, (1,), dev)
+    sfs = torch.empty((P, W), dtype=torch.int32, device=dev) if out is None else out
     eligs = torch.empty_like(sfs) if with_elig else None
     with torch.cuda.device(dev):
         err = fn(
@@ -548,18 +564,23 @@ def packed_static_rows(arr, with_elig: bool = False):
             arr.pod_valid.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
             arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sfs.data_ptr(),
-            None if eligs is None else eligs.data_ptr(), P, N, T, TT, S, E, L, _stream(dev),
+            None if eligs is None else eligs.data_ptr(), None if done is None else done.data_ptr(),
+            P, N, T, TT, S, E, L, _stream(dev),
         )
     _raise_on(err, "packed_static_rows")
     LAUNCHES["packed_static_rows"] += 1
     return (sfs, eligs) if with_elig else sfs
 
 
-def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor):
+def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor, done: Optional[torch.Tensor] = None, out=None):
     """K8 (csrc/chunk_rounds_dense.cu): the dense chunked scan in one
     launch, chunks of CHUNK pods, from the cycle start's usage and K7's
     packed static plane -> (choices i32[P], used i32[N, R], ordinals i32[P],
-    the int32[2] device pair (sweeps, status): read_sweeps)."""
+    the int32[2] device pair (sweeps, status): read_sweeps).  `done` (i32[1]
+    on the card): the launch returns at entry once it is set; `out`: the
+    four output buffers to write (fresh ones when None; the kernel ORs its
+    status into the pair's second word, so a round-cap hit in any launch
+    over one pair survives until read_sweeps)."""
     dev = arr.device
     _need_cuda(dev, "chunk_rounds_dense")
     P, N, R = arr.P, arr.N, arr.R
@@ -576,10 +597,15 @@ def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor):
     ip, fp = _score_params(cfg, R)
     fn = _fn("chunk_rounds_dense")
     K = min(C + 1, N)
-    choices = torch.empty((P,), dtype=torch.int32, device=dev)
-    used = torch.empty((N, R), dtype=torch.int32, device=dev)
-    ords = torch.empty((P,), dtype=torch.int32, device=dev)
-    scal = torch.zeros((2,), dtype=torch.int32, device=dev)
+    if out is None:
+        out = (torch.empty((P,), dtype=torch.int32, device=dev), torch.empty((N, R), dtype=torch.int32, device=dev),
+               torch.empty((P,), dtype=torch.int32, device=dev), torch.zeros((2,), dtype=torch.int32, device=dev))
+    choices, used, ords, scal = out
+    for name, t, dt, shape in (("choices", choices, torch.int32, (P,)), ("used", used, torch.int32, (N, R)),
+                               ("ordinals", ords, torch.int32, (P,)), ("scal", scal, torch.int32, (2,))):
+        _check(t, name, dt, shape, dev)
+    if done is not None:
+        _check(done, "done", torch.int32, (1,), dev)
     total0 = torch.empty((C, N), dtype=torch.float32, device=dev)
     topv = torch.empty((C, K), dtype=torch.float32, device=dev)
     topi = torch.empty((C, K), dtype=torch.int32, device=dev)
@@ -590,7 +616,7 @@ def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor):
             arr.pod_req.data_ptr(), arr.pod_valid.data_ptr(), arr.node_alloc.data_ptr(), arr.node_used.data_ptr(),
             sfs.data_ptr(), choices.data_ptr(), used.data_ptr(), ords.data_ptr(), scal.data_ptr(),
             total0.data_ptr(), topv.data_ptr(), topi.data_ptr(), nf.data_ptr(), bits.data_ptr(),
-            _host(ip), _host(fp), P, N, R, C, SPEC_ITERS, _stream(dev),
+            None if done is None else done.data_ptr(), _host(ip), _host(fp), P, N, R, C, SPEC_ITERS, _stream(dev),
         )
     _raise_on(err, "chunk_rounds_dense")
     LAUNCHES["chunk_rounds_dense"] += 1
@@ -661,18 +687,26 @@ def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
     return traw, naraw
 
 
-def _full_args(arr, cfg, sfs, eligs, planes):
+def _full_args(arr, cfg, sfs, eligs, planes, inc=None):
     """The inputs K11 and K12 share, checked, and the scan's working state
     (fresh tensors: the inputs are never written) -> (pointer array, dims,
     switches, weights, score params, state dict, the tensors to keep
-    alive)."""
+    alive).  With class state `inc` (K12's class-row mode) the planes are
+    inc's class planes [U1, *] (stat, elig, traw, naraw, img) and the last
+    pointer is the class index inc.cls (NULL otherwise)."""
     from .assign import _image_on, dom_by_term, pairwise_state0
 
     dev = arr.device
     P, N, R = arr.P, arr.N, arr.R
     W = -(-N // 32)
     traw, naraw = planes
-    img_on = _image_on(arr, cfg)
+    if inc is None:
+        rows, img = P, (arr.image_score if _image_on(arr, cfg) else None)
+    else:
+        rows, img = inc.req_u.shape[0], inc.img_u
+        sfs, eligs, traw, naraw = inc.stat_u, inc.elig_u, inc.traw_u, inc.naraw_u
+        _check(inc.cls, "inc.cls", torch.int32, (P,), dev)
+    img_on = img is not None
     pw = bool(cfg.enable_pairwise)
     T, D1 = arr.term_counts0.shape
     PT = arr.node_ports0.shape[1]
@@ -682,13 +716,13 @@ def _full_args(arr, cfg, sfs, eligs, planes):
         raise ValueError(f"the full-stage kernels take <= {MAX_SLOTS} slots, <= {MAX_MATCH} matched terms and "
                          f"<= {MAX_PORTS} host ports; got spread {CS}, affinity {A1}, anti {A2}, preferred {B}, "
                          f"matched {M}, ports {PT}")
-    _check(sfs, "sfs", torch.int32, (P, W), dev)
+    _check(sfs, "sfs", torch.int32, (rows, W), dev)
     if pw:
-        _check(eligs, "eligs", torch.int32, (P, W), dev)
+        _check(eligs, "eligs", torch.int32, (rows, W), dev)
     if cfg.enable_taint_score:
-        _check(traw, "traw", torch.bfloat16, (P, N), dev)
+        _check(traw, "traw", torch.bfloat16, (rows, N), dev)
     if cfg.enable_node_pref:
-        _check(naraw, "naraw", torch.bfloat16, (P, N), dev)
+        _check(naraw, "naraw", torch.bfloat16, (rows, N), dev)
     K = arr.node_dom.shape[0]
     for name, dt, shape in (
         ("pod_req", torch.int32, (P, R)), ("pod_valid", torch.bool, (P,)),
@@ -705,7 +739,7 @@ def _full_args(arr, cfg, sfs, eligs, planes):
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
     if img_on:
-        _check(arr.image_score, "image_score", torch.bfloat16, (P, N), dev)
+        _check(img, "image_score", torch.bfloat16, (rows, N), dev)
     ip, fp = _score_params(cfg, R)
     dbt, D = dom_by_term(arr)
     dbt = dbt.contiguous()
@@ -718,10 +752,11 @@ def _full_args(arr, cfg, sfs, eligs, planes):
 
     ptrs = np.array([ptr(x) for x in (
         arr.pod_req, arr.pod_valid, sfs, eligs if pw else None, traw if cfg.enable_taint_score else None,
-        naraw if cfg.enable_node_pref else None, arr.image_score if img_on else None, arr.pod_spread_terms,
+        naraw if cfg.enable_node_pref else None, img, arr.pod_spread_terms,
         arr.pod_spread_maxskew, arr.pod_spread_hard, arr.pod_aff_terms, arr.pod_aff_self, arr.pod_anti_terms,
         arr.pod_match_terms, arr.pod_match_vals, arr.pod_pref_aff_terms, arr.pod_pref_aff_w, arr.pod_ports,
         arr.node_alloc, st["used"], dbt, st["cnt"], st["anti"], st["pref"], st["total"], st["ports"],
+        None if inc is None else inc.cls,
     )], dtype=np.uint64)
     dims = np.array([P, N, R, T, D, PT, CS, A1, A2, B, M], dtype=np.int32)
     ips = pw and bool(cfg.enable_interpod_score)
@@ -754,14 +789,17 @@ def full_scan(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes
     return (choices, used, st) if with_state else (choices, used)
 
 
-def rounds(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, rchunk: Optional[int] = None,
-           repair_iters: Optional[int] = None, with_state: bool = False):
+def rounds(arr, cfg, sfs: Optional[torch.Tensor] = None, eligs: Optional[torch.Tensor] = None, planes=(None, None),
+           rchunk: Optional[int] = None, repair_iters: Optional[int] = None, with_state: bool = False, inc=None):
     """K12 (csrc/rounds.cu): the rounds scan over the full stage set in one
     cooperative launch, chunks of `rchunk` pods -> (choices i32[P], used
     i32[N, R], ordinals i32[P], the int32[2] device pair (sweeps, status):
     read_sweeps), and with `with_state` the final pairwise state.  Every
     round commits a pod, so a chunk takes at most `rchunk` rounds; the
-    kernel stops a chunk past that cap and reports it in the status."""
+    kernel stops a chunk past that cap and reports it in the status.  With
+    class state `inc` it runs in class-row mode over inc's class planes
+    (sfs, eligs and planes are not given), read through inc.cls, with
+    pod_valid folded in per pod."""
     from .assign import REPAIR_ITERS, RCHUNK
 
     dev = arr.device
@@ -772,7 +810,7 @@ def rounds(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, r
     if not 1 <= C <= MAX_RCHUNK or P % C or iters < 1:
         raise ValueError(f"rounds kernel takes chunks of 1..{MAX_RCHUNK} pods dividing P and repair_iters >= 1; "
                          f"got rchunk={C}, P={P}, repair_iters={iters}")
-    ptrs, dims, sw, wp, ip, fp, st, _dbt = _full_args(arr, cfg, sfs, eligs, planes)
+    ptrs, dims, sw, wp, ip, fp, st, _dbt = _full_args(arr, cfg, sfs, eligs, planes, inc)
     fn = _fn("rounds")
     n_ent = MAX_MATCH + 3 * MAX_SLOTS
     scratch = [
@@ -797,3 +835,38 @@ def rounds(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, r
     used = st.pop("used")
     out = (choices, used, ords, scal)
     return out + (st,) if with_state else out
+
+
+# ---------------------------------------------------------------------------
+# the gang fixpoint: K13 gang_quorum
+# ---------------------------------------------------------------------------
+
+def gang_quorum(choices: torch.Tensor, pod_group: torch.Tensor, pv: torch.Tensor, group_min: torch.Tensor,
+                done: Optional[torch.Tensor] = None):
+    """K13 (csrc/gang.cu): one iteration's quorum check and revocation of
+    the gang fixpoint.  `pv` (bool[P], the iteration's pod_valid) becomes
+    pv_next IN PLACE; `done` (i32[1] on the card, a fresh zero word when
+    None) gates the launch and is set when no group failed.  -> (sched
+    i32[G], present bool[G], bad bool[G], first i32[1]: the earliest pod of
+    a failed group or -1, done)."""
+    dev = choices.device
+    _need_cuda(dev, "gang_quorum")
+    P = choices.shape[0]
+    G = group_min.shape[0]
+    for name, t, dt, shape in (("choices", choices, torch.int32, (P,)), ("pod_group", pod_group, torch.int32, (P,)),
+                               ("pv", pv, torch.bool, (P,)), ("group_min", group_min, torch.int32, (G,))):
+        _check(t, name, dt, shape, dev)
+    if done is None:
+        done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    _check(done, "done", torch.int32, (1,), dev)
+    fn = _fn("gang_quorum")
+    sched = torch.empty((G,), dtype=torch.int32, device=dev)
+    present = torch.empty((G,), dtype=torch.bool, device=dev)
+    bad = torch.empty((G,), dtype=torch.bool, device=dev)
+    first = torch.empty((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(choices.data_ptr(), pod_group.data_ptr(), pv.data_ptr(), group_min.data_ptr(), sched.data_ptr(),
+                 present.data_ptr(), bad.data_ptr(), first.data_ptr(), done.data_ptr(), P, G, _stream(dev))
+    _raise_on(err, "gang_quorum")
+    LAUNCHES["gang_quorum"] += 1
+    return sched, present, bad, first, done

@@ -27,6 +27,7 @@ from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.convert import from_jax_arrays
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, schedule_batch
 from kubernetes_tpu_torch.ops.assign import schedule_scan_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 STRATEGIES = {
     "least": ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -99,7 +100,7 @@ def test_ties_go_to_the_lowest_node_index():
 def test_pairwise_snapshot_raises():
     """A pairwise snapshot no longer raises: the port's encoder and the JAX
     arrays carried across both give the JAX package's decisions; arrays that
-    carry a pod group (the one thing still missing) still raise."""
+    carry a pod group no longer raise either: the gang fields carry across."""
     snap = jw.spread_affinity(12, 40)
     ja, _ = jax_encode(snap)
     jc, ju = (np.array(x) for x in jax_schedule(ja, jax_infer(ja, JAX_DEFAULT)))
@@ -109,8 +110,10 @@ def test_pairwise_snapshot_raises():
         np.testing.assert_array_equal(tc.numpy(), jc)
         np.testing.assert_array_equal(tu.numpy(), ju)
     fields["pod_group"] = np.where(np.arange(len(fields["pod_group"])) < 3, 0, -1).astype(np.int32)
-    with pytest.raises(ValueError, match="pod group"):
-        from_jax_arrays(fields, "cpu")
+    fields["group_min"] = np.array([3], dtype=np.int32)
+    carried = from_jax_arrays(fields, "cpu")
+    np.testing.assert_array_equal(carried.pod_group.numpy(), fields["pod_group"])
+    np.testing.assert_array_equal(carried.group_min.numpy(), fields["group_min"])
 
 
 @pytest.mark.parametrize("flag", ["enable_pairwise", "enable_ports", "enable_taint_score",

@@ -12,6 +12,7 @@ import torch
 
 from kubernetes_tpu.ops import bitplane as jb
 from kubernetes_tpu_torch.ops import bitplane as tb
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SIZES = [1, 31, 32, 33, 100]
 

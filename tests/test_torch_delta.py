@@ -37,6 +37,7 @@ from kubernetes_tpu_torch.api.snapshot import ClusterArrays, decode_choices, enc
 from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, bitplane, infer_score_config, schedule_batch
 from kubernetes_tpu_torch.ops.incremental import HoistCache
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 GPU = (t.Toleration("gpu", "true", t.NO_SCHEDULE, "Equal"),)
 

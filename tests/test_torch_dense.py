@@ -42,6 +42,7 @@ from kubernetes_tpu_torch.api.snapshot import decode_choices
 from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.convert import from_jax_arrays
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, filters, infer_score_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 SNAPSHOTS = {
@@ -145,7 +146,8 @@ def test_routing():
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     assign.reset_trace_counts()
     c1, u1, o1, s1 = assign.schedule_batch_ordinals(arr, cfg, device="cpu")
-    assert assign.TRACE_COUNTS == {"plain": 1, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0}
+    assert assign.TRACE_COUNTS == {"plain": 1, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0,
+                                   "rounds_inc": 0}
     assert s1 == arr.P and torch.equal(o1, torch.arange(arr.P, dtype=torch.int32))
     c2, u2, o2, s2 = assign.schedule_batch_ordinals(arr, cfg, device="cpu", chunked=True)
     assert assign.TRACE_COUNTS["chunked"] == 1

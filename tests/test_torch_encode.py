@@ -23,6 +23,7 @@ from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.api.snapshot import ClusterArrays, Snapshot, decode_choices, encode_snapshot
 from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.ops import filters as tf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 CASES = {
     "basic-100x100": (lambda: jw.basic(100, 100), lambda: tw.basic(100, 100)),
@@ -103,10 +104,8 @@ REFUSED = {
     "pvcs": lambda: Snapshot([_node()], [_pod(pvcs=("claim",))]),
     "resource-claims": lambda: Snapshot([_node()], [_pod(resource_claims=(tt.ResourceClaimRef("gpu"),))]),
     "attach-limit": lambda: Snapshot([_node(volume_attach_limit=4)], [_pod()]),
-    "pod-group": lambda: Snapshot([_node()], [_pod(pod_group="g")]),
-    "pod-groups": lambda: Snapshot([_node()], [_pod()], pod_groups={"g": tt.PodGroup("g", 2)}),
 }
-# features the port refused before the full stage set was ported
+# features the port refused before the full stage set and the gangs were ported
 PORTED = {
     "pod-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(required_pod_affinity=(TERM,)))]),
     "pod-anti-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(required_pod_anti_affinity=(TERM,)))]),
@@ -118,6 +117,10 @@ PORTED = {
     "bound-host-ports": lambda: Snapshot([_node()], [_pod()], [tt.Pod(
         name="b", node_name="n", host_ports=(("TCP", 80),))]),
     "images": lambda: Snapshot([_node(images={"img": 500 * 2**20})], [_pod(images=("img",))]),
+    # gangs: a group without a PodGroup needs all its pods; a PodGroup whose
+    # pods are absent leaves group_min at its one-slot default
+    "pod-group": lambda: Snapshot([_node()], [_pod(pod_group="g")]),
+    "pod-groups": lambda: Snapshot([_node()], [_pod()], pod_groups={"g": tt.PodGroup("g", 2)}),
 }
 
 

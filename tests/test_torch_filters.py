@@ -20,6 +20,7 @@ from kubernetes_tpu.ops import filters as jf
 from kubernetes_tpu_torch.bench.workloads import heterogeneous, mixed
 from kubernetes_tpu_torch.convert import from_jax_arrays
 from kubernetes_tpu_torch.ops import filters as tf
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SNAPSHOTS = {
     "mixed": lambda: mixed(),

@@ -31,6 +31,7 @@ from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.convert import from_jax_arrays, from_jax_meta
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, incremental, infer_score_config
 from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 STRATEGIES = {
     "least": ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -95,7 +96,7 @@ def test_hoists_match_jax(carried, strategy):
     cfg = infer_score_config(arr, dataclasses.replace(DEFAULT_SCORE_CONFIG, fit_strategy=name, rtcr_shape=shape))
     r_u = np.asarray(jm.class_first_pod)
     stat_j = jinc._static_hoist(jinc.class_view(ja, r_u), False, False, False)[0]
-    stat_t = incremental._static_hoist_plain(class_view(arr, torch.from_numpy(r_u)))
+    stat_t = incremental._static_hoist_plain(class_view(arr, torch.from_numpy(r_u)))[0]
     _same(stat_t, stat_j)
     req_u = np.ascontiguousarray(ja.pod_req[r_u])
     base_j, fit_j = jinc._usage_hoist(jnp.asarray(req_u), jnp.asarray(ja.node_used), jnp.asarray(ja.node_alloc), jcfg)

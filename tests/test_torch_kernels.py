@@ -23,6 +23,7 @@ from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot
 from kubernetes_tpu_torch.bench.workloads import heterogeneous, mixed
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, filters, infer_score_config, kernels
 from kubernetes_tpu_torch.ops.assign import schedule_scan_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 pytestmark = pytest.mark.cuda
 
@@ -181,7 +182,7 @@ def test_class_hoists(card, U1, N, strategy):
     cfg = _cfg(strategy)
     inc = HoistCache().ensure(arr, meta, cfg)
     r_u = torch.as_tensor(meta.class_first_pod, device=card)
-    assert torch.equal(inc.stat_u, incremental._static_hoist_plain(class_view(arr, r_u)))
+    assert torch.equal(inc.stat_u, incremental._static_hoist_plain(class_view(arr, r_u))[0])
     base, fit = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
     assert _bitwise(inc.base_u, base) and torch.equal(inc.fit_u, fit)
     dirty = torch.randperm(N, generator=torch.Generator().manual_seed(U1))[: N // 3].sort().values.to(card)

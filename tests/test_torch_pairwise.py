@@ -33,6 +33,7 @@ import torch
 from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot, image_score_value
 from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.ops import assign, bitplane, filters, kernels, pairwise, scores
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEEDS = range(6)
 

@@ -32,6 +32,7 @@ from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, schedule_batch
 from kubernetes_tpu_torch.parallel import pipeline
 from kubernetes_tpu_torch.parallel.pipeline import PipelinedBatchLoop, run_serial
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -14,9 +14,14 @@ encoded by the port's encoder):
   ``schedule_scan_rounds`` in choices, final usage, commit ordinals and the
   sweep count (the JAX side in a fresh process with KTPU_RCHUNK=16 and
   KTPU_REPAIR_ITERS=1 pinned);
+- ``schedule_scan_rounds_plain(inc=)`` on the port's HoistCache class
+  state equals the JAX package's ``schedule_scan_rounds(inc=)`` (the JAX
+  HoistCache, where its inc_applicable admits the state, which the port's
+  gate matches) in choices, usage, ordinals and sweeps, and the port's
+  dense rounds scan;
 - ``dispatch`` routes a pairwise config to the rounds scan where the JAX
   package does (chunked=True on the CPU), to the per-pod scan otherwise,
-  and refuses the rounds scan's class-state mode.
+  and class state on a pairwise config to the rounds scan's class mode.
 
 The ``cuda`` legs import no JAX and skip without a card:
 
@@ -39,6 +44,7 @@ import torch_rounds_reference as ref
 from kubernetes_tpu_torch.api.snapshot import decode_choices, encode_snapshot
 from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, infer_score_config, kernels
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 NAMES = sorted(ref.SNAPSHOTS)
@@ -85,6 +91,28 @@ def test_per_pod_scan_matches_jax_and_oracle(name, jax_ref):
     np.testing.assert_array_equal(used.numpy(), jax_ref[f"{name}/used"])
     placed = decode_choices(choices, meta)
     assert [(n, placed[n]) for n in meta.pod_names] == oracle_schedule(snap, JAX_DEFAULT)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_rounds_scan_on_class_state_matches_jax(name, jax_ref):
+    """The port's own HoistCache class state through the rounds scan's class
+    mode equals the JAX package's schedule_scan_rounds(inc=) on its own
+    HoistCache state, and the dense rounds scan; where the JAX gate refuses
+    the state (the all-pods-unique waves), the port's refuses it too."""
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    _, arr, meta, cfg = port(name)
+    inc = assign.inc_applicable(arr, cfg, HoistCache().ensure(arr, meta, cfg))
+    assert (inc is not None) == bool(jax_ref[f"{name}/inc_applied"])
+    if inc is None:
+        return
+    choices, used, ords, sweeps = assign.schedule_scan_rounds_plain(arr, cfg, inc=inc)
+    np.testing.assert_array_equal(choices.numpy(), jax_ref[f"{name}/inc_choices"])
+    np.testing.assert_array_equal(used.numpy(), jax_ref[f"{name}/inc_used"])
+    np.testing.assert_array_equal(ords.numpy(), jax_ref[f"{name}/inc_ordinals"])
+    assert sweeps == int(jax_ref[f"{name}/inc_sweeps"])
+    np.testing.assert_array_equal(ords.numpy(), jax_ref[f"{name}/ordinals"])
+    np.testing.assert_array_equal(choices.numpy(), jax_ref[f"{name}/rounds_choices"])
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -140,23 +168,28 @@ def test_dispatch_routes_a_pairwise_config(chunked, route):
 
 
 def test_dispatch_ignores_class_state_on_a_pairwise_config():
-    """The port's class state carries no pairwise planes yet: it does not
-    apply (the JAX package's inc_applicable), the dense rounds route runs,
-    and the rounds scan's class-state mode raises naming slice 5."""
+    """Class state applies on a pairwise config once it carries the planes
+    the config reads (the JAX package's inc_applicable): the rounds route
+    takes it (`rounds_inc`), with the dense rounds scan's choices, usage,
+    ordinals and sweeps; state hoisted for the fit-only stage set lacks the
+    eligibility plane and does not apply, so the dense rounds route runs."""
     from kubernetes_tpu_torch.ops.incremental import HoistCache
 
     arr, meta = encode_snapshot(tw.spread_affinity(60, 256, seed=2), device="cpu")
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
-    inc = HoistCache().ensure(arr, meta, dataclasses.replace(
+    assert assign.inc_route_applies(arr, cfg)
+    fit_only = HoistCache().ensure(arr, meta, dataclasses.replace(
         cfg, enable_pairwise=False, enable_ports=False, enable_taint_score=False, enable_node_pref=False,
         enable_image=False, enable_interpod_score=False))
-    assert inc is not None and assign.inc_applicable(arr, cfg, inc) is None
-    assert not assign.inc_route_applies(arr, cfg)
-    c, _, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu", inc=inc, chunked=True)
+    assert fit_only is not None and assign.inc_applicable(arr, cfg, fit_only) is None
+    inc = HoistCache().ensure(arr, meta, cfg)
+    assert assign.inc_applicable(arr, cfg, inc) is inc and inc.elig_u is not None
     want = assign.schedule_scan_rounds_plain(arr, cfg)
-    assert torch.equal(c, want[0]) and torch.equal(o, want[2]) and s == want[3]
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        assign.schedule_scan_rounds_plain(arr, cfg, inc=inc)
+    for state, route in ((inc, "rounds_inc"), (fit_only, "rounds")):
+        assign.reset_trace_counts()
+        c, u, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu", inc=state, chunked=True)
+        assert assign.TRACE_COUNTS[route] == 1 and sum(assign.TRACE_COUNTS.values()) == 1
+        assert torch.equal(c, want[0]) and torch.equal(u, want[1]) and torch.equal(o, want[2]) and s == want[3]
 
 
 def test_a_batch_rounds_cannot_chunk_takes_the_per_pod_route():
@@ -248,3 +281,43 @@ def test_routes_launch_their_kernels(card):
     c2, _ = assign.schedule_batch(arr, cfg, chunked=False)
     assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"packed_static_rows": 1, "full_scan": 1}
     assert torch.equal(c, c2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CARD_SNAPSHOTS))
+def test_rounds_kernel_class_mode_matches_plain_and_dense(card, name):
+    """K12 in class-row mode (the class planes through inc.cls, pod_valid
+    folded per pod) == the plain class mode == K12 in dense mode."""
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = encode_snapshot(CARD_SNAPSHOTS[name](), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = assign.inc_applicable(arr, cfg, HoistCache().ensure(arr, meta, cfg))
+    assert inc is not None
+    kc, ku, ko, ks, kst = kernels.rounds(arr, cfg, with_state=True, inc=inc)
+    pc, pu, po, ps, pst = assign.schedule_scan_rounds_plain(arr, cfg, inc=inc, with_state=True)
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    dc, du, do, ds, dst = kernels.rounds(arr, cfg, sfs, eligs, assign.score_planes(arr, cfg), with_state=True)
+    assert torch.equal(kc, pc) and torch.equal(ku, pu) and torch.equal(ko, po)
+    assert kernels.read_sweeps(ks) == ps == kernels.read_sweeps(ds) and _state_equal(kst, pst)
+    assert torch.equal(kc, dc) and torch.equal(ku, du) and torch.equal(ko, do) and _state_equal(kst, dst)
+
+
+@pytest.mark.cuda
+def test_class_state_route_launches_k12_alone(card):
+    """With class state the rounds route launches K12 alone (the class planes
+    are the HoistCache's: K3, and K10 where a score plane is read)."""
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    arr, meta = encode_snapshot(tw.all_stages(), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    kernels.reset_launches()
+    inc = HoistCache().ensure(arr, meta, cfg)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {
+        "class_static_hoist": 1, "score_planes": 1, "class_usage_hoist": 1}
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    c, _, _, _ = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == {"rounds": 1}
+    assert assign.TRACE_COUNTS["rounds_inc"] == 1
+    assert torch.equal(c, assign.schedule_batch(arr, cfg)[0])

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "kubernetes_tpu_torch"
@@ -97,7 +98,7 @@ def test_reset_launches():
 
 @pytest.mark.parametrize("kernel", ["class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds",
                                     "packed_static_rows", "chunk_rounds_dense", "unpack_planes", "score_planes",
-                                    "full_scan", "rounds"])
+                                    "full_scan", "rounds", "gang_quorum"])
 def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
     """The class-wave, dense-route and transfer kernels' wrappers launch or
     raise: CPU tensors are refused before any build, never handed to a plain
@@ -122,6 +123,8 @@ def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
         "score_planes": lambda: kernels.score_planes(arr),
         "full_scan": lambda: kernels.full_scan(arr, cfg, *words, (None, None)),
         "rounds": lambda: kernels.rounds(arr, cfg, *words, (None, None)),
+        "gang_quorum": lambda: kernels.gang_quorum(arr.pod_req[:, 0].contiguous(), arr.pod_group, arr.pod_valid,
+                                                   arr.group_min),
     }
     words = [torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)] * 2
     with pytest.raises(ValueError, match="CUDA"):

@@ -12,6 +12,7 @@ import torch
 
 from kubernetes_tpu.ops import scores as js
 from kubernetes_tpu_torch.ops import scores as ts
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SHAPE_DEFAULT = ((0.0, 0.0), (100.0, 10.0))
 SHAPE_3 = ((0.0, 10.0), (50.0, 2.0), (100.0, 0.0))

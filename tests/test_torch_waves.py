@@ -43,6 +43,7 @@ from kubernetes_tpu_torch.api.snapshot import decode_choices
 from kubernetes_tpu_torch.convert import from_jax_arrays, from_jax_meta
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config
 from kubernetes_tpu_torch.ops.incremental import HoistCache
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 ROOT = Path(__file__).resolve().parent.parent
 ALL = sorted({(leg, name) for leg, (_, names, _) in ref.LEGS.items() for name in names})
@@ -175,9 +176,11 @@ def test_route_counts_and_fallback_to_the_per_pod_route():
     inc = HoistCache().ensure(arr, meta, cfg)
     assign.reset_trace_counts()
     assign.schedule_batch(arr, cfg, device="cpu", inc=inc)
-    assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 1, "class_waves": 1, "rounds": 0}
+    assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 1, "class_waves": 1, "rounds": 0,
+                                   "rounds_inc": 0}
     assign.schedule_batch(arr, cfg, device="cpu", inc=inc, class_waves=False)
-    assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 2, "class_waves": 1, "rounds": 0}
+    assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 2, "class_waves": 1, "rounds": 0,
+                                   "rounds_inc": 0}
     # class state that does not fit the arrays: the per-pod route
     assert assign.inc_applicable(arr.pod_prefix(64), cfg, inc) is None
     c, u, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu")

@@ -28,7 +28,16 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   the choices digest;
 - the all-stages leg: the port's all_stages snapshot through the JAX
   per-pod scan and rounds kernel -> scheduled count, choices digest, sweeps
-  and the ordinals digest.
+  and the ordinals digest;
+- the config3-inc leg: config 3 with HoistCache class state through the
+  rounds route (schedule_scan_rounds(inc=)) -> U1, sweeps and the digests;
+  the config3-warm leg: the warm leg's waves 2..7 over config 3 (each wave
+  on the rounds route with class state);
+- the gang-small and config5 legs: gang(48, 64, 40) and BASELINE config 5
+  gang(1000, 64, 2000) through the JAX host fixpoint on class state
+  (schedule_with_gangs with ordinals) and the device fixpoint
+  (gang_fixpoint_device) -> iterations, placed pods and groups, sweeps,
+  the ordinals and choices digests.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -37,11 +46,14 @@ there), the whole script about ten minutes and a few GB:
 
     JAX_PLATFORMS=cpu python tests/torch_north_star_digest.py [LEG ...]
 
-(LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds or
-all-stages runs only those legs.  The warm leg
-alone on a smaller heterogeneous(N_NODES, N_PODS), as tests/test_torch_pipeline.py
-runs it: KTPU_FORCE_CHUNKED=1 python tests/torch_north_star_digest.py --leg
-warm N_NODES N_PODS.)
+(LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds,
+all-stages, config3-inc, config3-warm, gang-small or config5 runs only those
+legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
+tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
+tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
+warm leg on spread_affinity(N_NODES, N_PODS) as tests/test_torch_rounds_inc.py
+runs it: --leg config3-warm N_NODES N_PODS; any gang(G, S, N): --leg gang G
+S N.)
 """
 
 import hashlib
@@ -109,35 +121,41 @@ def dense_leg() -> None:
           f"route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
 
 
-def warm_leg(n_nodes: int = 20000, n_pods: int = 50000) -> None:
+def warm_leg(n_nodes: int = 20000, n_pods: int = 50000, workload: str = "heterogeneous") -> None:
+    """bench.py's warm waves 2..7 through the JAX PipelinedBatchLoop at depth
+    0 after the cold step with class state, on `workload` (heterogeneous:
+    the north star; spread_affinity: config 3, where the rounds route takes
+    the class state) -> each wave's digest and the HoistCache actions."""
     from kubernetes_tpu.api.delta import DeltaEncoder
     from kubernetes_tpu.api.snapshot import Snapshot
-    from kubernetes_tpu.bench.workloads import heterogeneous
+    from kubernetes_tpu.bench import workloads
     from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
-    from kubernetes_tpu.ops.assign import schedule_batch_routed
+    from kubernetes_tpu.ops.assign import TRACE_COUNTS, schedule_batch_routed
     from kubernetes_tpu.ops.incremental import HoistCache
     from kubernetes_tpu.parallel.pipeline import PipelinedBatchLoop
     from kubernetes_tpu_torch.bench.workloads import verdicts_of, warm_waves, wave_digest
 
-    snap = heterogeneous(n_nodes, n_pods, seed=0)
+    name = "warm" if workload == "heterogeneous" else "config3-warm"
+    snap = getattr(workloads, workload)(n_nodes, n_pods, seed=0)
     enc = DeltaEncoder()
     arr, meta = enc.encode(snap)
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     inc = HoistCache().ensure(arr, meta, cfg)
     choices = np.asarray(schedule_batch_routed(arr, cfg, donate=False, inc=inc)[0])
-    print(f"warm: wave 1 choices sha256 {_sha(choices[: meta.n_pods])}", flush=True)
+    print(f"{name}: wave 1 choices sha256 {_sha(choices[: meta.n_pods])}", flush=True)
     loop = PipelinedBatchLoop(encoder=enc, donate=False, depth=0, memwatch=False)
     waves, fetched, *_ = warm_waves(snap, verdicts_of(choices, meta), loop.submit, loop.drain, Snapshot)
     names = [nd.name for nd in snap.nodes]
     digests = {w: wave_digest(waves[w], fetched[w], names) for w in sorted(fetched) if w >= 2}
     sched = {w: sum(1 for v in fetched[w].values() if v) for w in sorted(digests)}
-    print(f"warm: digests {digests}", flush=True)
-    print(f"warm: scheduled {sched}", flush=True)
-    print(f"warm: hoist actions {[h['action'] for h in loop.hoist.history]}", flush=True)
-    print(f"warm: encoder stats {enc.stats}", flush=True)
-    print("warm-json: " + json.dumps({"verdicts": {str(w): fetched[w] for w in sorted(digests)},
-                                      "actions": [h["action"] for h in loop.hoist.history],
-                                      "stats": enc.stats}), flush=True)
+    print(f"{name}: digests {digests}", flush=True)
+    print(f"{name}: scheduled {sched}", flush=True)
+    print(f"{name}: hoist actions {[h['action'] for h in loop.hoist.history]}", flush=True)
+    print(f"{name}: encoder stats {enc.stats}", flush=True)
+    print(f"{name}: route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
+    print(f"{name}-json: " + json.dumps({"verdicts": {str(w): fetched[w] for w in sorted(digests)},
+                                         "actions": [h["action"] for h in loop.hoist.history],
+                                         "stats": enc.stats}), flush=True)
 
 
 def wide_leg() -> None:
@@ -214,14 +232,82 @@ def all_stages_leg() -> None:
           f"sweeps {int(sweeps)} ordinals sha256 {_sha(np.asarray(ords)[:n])}", flush=True)
 
 
+def config3_inc_leg() -> None:
+    """Config 3 through the JAX package's rounds route with class state
+    (KTPU_FORCE_CHUNKED=1, HoistCache.ensure: schedule_scan_rounds(inc=))
+    -> the sweep count, the ordinals and choices digests and the route."""
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.bench.workloads import spread_affinity
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.assign import TRACE_COUNTS, schedule_batch_ordinals_routed
+    from kubernetes_tpu.ops.incremental import HoistCache
+
+    arr, meta = DeltaEncoder().encode(spread_affinity(5000, 10000, seed=0))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    choices, _, ords, sweeps = schedule_batch_ordinals_routed(arr, cfg, donate=False, inc=inc)
+    n = meta.n_pods
+    c = np.asarray(choices)[:n]
+    print(f"config3-inc: classes {meta.n_classes} U1 {inc.req_u.shape[0]} scheduled {int((c >= 0).sum())} "
+          f"sweeps {int(sweeps)} ordinals sha256 {_sha(np.asarray(ords)[:n])} choices sha256 {_sha(c)} "
+          f"route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
+
+
+def gang_leg(n_groups: int, group_size: int, n_nodes: int, name: str = "gang") -> None:
+    """gang(n_groups, group_size, n_nodes, seed=0) (BASELINE config 5 at
+    1000 x 64 on 2000 nodes) through the JAX package's host fixpoint
+    (KTPU_FORCE_CHUNKED=1, DeltaEncoder, HoistCache class state,
+    schedule_with_gangs with ordinals) and its device fixpoint
+    (gang_fixpoint_device) -> iterations, placed pods and groups, sweeps,
+    the ordinals and choices digests."""
+    import kubernetes_tpu.ops.assign as jassign
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.bench.workloads import gang
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.gang import gang_fixpoint_device, schedule_with_gangs
+    from kubernetes_tpu.ops.incremental import HoistCache
+
+    arr, meta = DeltaEncoder().encode(gang(n_groups, group_size, n_nodes, seed=0))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    calls = [0]
+    routed = jassign.schedule_batch_ordinals_routed
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return routed(*a, **k)
+
+    jassign.schedule_batch_ordinals_routed = counted
+    choices, _, ords, sweeps = schedule_with_gangs(arr, cfg, with_ordinals=True, inc=inc)
+    jassign.schedule_batch_ordinals_routed = routed
+    n = meta.n_pods
+    c = np.asarray(choices)[:n]
+    pg = np.asarray(arr.pod_group)
+    gm = np.asarray(arr.group_min)
+    placed = np.bincount(pg[:n][c >= 0], minlength=gm.shape[0])
+    dc = np.asarray(gang_fixpoint_device(arr, cfg)[0])[:n]
+    print(f"{name}: P {arr.P} N {arr.N} R {arr.R} G {gm.shape[0]} U1 {inc.req_u.shape[0]} "
+          f"fit-only {not (cfg.enable_pairwise or cfg.enable_taint_score or cfg.enable_node_pref)} "
+          f"iterations {calls[0]} scheduled {int((c >= 0).sum())} groups {int((placed >= gm).sum())} "
+          f"sweeps {int(sweeps)} ordinals sha256 {_sha(np.asarray(ords)[:n])} choices sha256 {_sha(c)} "
+          f"device choices sha256 {_sha(dc)} device==host {bool(np.array_equal(dc, c))}", flush=True)
+
+
 LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": config3_leg,
-        "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg}
+        "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg, "config3-inc": config3_inc_leg,
+        "config3-warm": lambda: warm_leg(5000, 10000, "spread_affinity"),
+        "gang-small": lambda: gang_leg(48, 64, 40, "gang-small"),
+        "config5": lambda: gang_leg(1000, 64, 2000, "config5")}
 
 
 def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--leg":
         if sys.argv[2] == "warm" and len(sys.argv) == 5:  # a smaller warm stream (the CPU tests')
             warm_leg(int(sys.argv[3]), int(sys.argv[4]))
+        elif sys.argv[2] == "config3-warm" and len(sys.argv) == 5:
+            warm_leg(int(sys.argv[3]), int(sys.argv[4]), "spread_affinity")
+        elif sys.argv[2] == "gang" and len(sys.argv) == 6:  # any gang(G, S, N)
+            gang_leg(*(int(x) for x in sys.argv[3:6]))
         else:
             LEGS.get(sys.argv[2], lambda: wave_leg(sys.argv[2]))()
         return
@@ -231,7 +317,8 @@ def main() -> None:
     runs = [("waves", {"KTPU_CLASS_WAVES": "1"}), ("waves-off", {"KTPU_CLASS_WAVES": "0"}),
             ("dense", {}), ("warm", {"KTPU_MEMWATCH": "0"}), ("wide", {"KTPU_FORCE_CHUNKED": "0"}),
             ("config3", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-rounds", {}),
-            ("all-stages", {"KTPU_FORCE_CHUNKED": "0"})]
+            ("all-stages", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-inc", {}),
+            ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {})]
     for name, extra in runs:
         if only and name not in only:
             continue

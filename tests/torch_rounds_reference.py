@@ -1,17 +1,23 @@
 """The JAX package's per-pod scan and rounds scan on the pairwise snapshots
 of tests/test_assign_parity.py, the all-stages snapshot and two fit-only
-batches too small to chunk, for tests/test_torch_rounds.py.
+batches too small to chunk, for tests/test_torch_rounds.py and
+tests/test_torch_rounds_inc.py.
 
 The JAX package reads the rounds kernel's knobs when it is imported
 (KTPU_RCHUNK, KTPU_REPAIR_ITERS), so this runs in a fresh process with them
 pinned:
 
-    KTPU_RCHUNK=16 KTPU_REPAIR_ITERS=1 JAX_PLATFORMS=cpu python tests/torch_rounds_reference.py OUT.npz
+    KTPU_RCHUNK=16 KTPU_REPAIR_ITERS=1 KTPU_FORCE_CHUNKED=1 JAX_PLATFORMS=cpu \
+        python tests/torch_rounds_reference.py OUT.npz
 
 For every snapshot (SNAPSHOTS) it encodes with the JAX DeltaEncoder and
 runs schedule_scan (-> "<name>/choices", "<name>/used") and
 schedule_scan_rounds with ordinals (-> "<name>/rounds_choices",
-"<name>/rounds_used", "<name>/ordinals", "<name>/sweeps").
+"<name>/rounds_used", "<name>/ordinals", "<name>/sweeps"); then the class
+state of its HoistCache and, where inc_applicable admits it
+("<name>/inc_applied"), schedule_scan_rounds(inc=) with ordinals (->
+"<name>/inc_choices", "<name>/inc_used", "<name>/inc_ordinals",
+"<name>/inc_sweeps").
 """
 
 import os
@@ -21,7 +27,7 @@ import sys
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PINNED = {"KTPU_RCHUNK": "16", "KTPU_REPAIR_ITERS": "1"}
+PINNED = {"KTPU_RCHUNK": "16", "KTPU_REPAIR_ITERS": "1", "KTPU_FORCE_CHUNKED": "1"}
 
 
 def _same_app_spread():
@@ -126,19 +132,26 @@ def main() -> None:
 
     from kubernetes_tpu.api.delta import DeltaEncoder
     from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
-    from kubernetes_tpu.ops.assign import schedule_scan, schedule_scan_rounds
+    from kubernetes_tpu.ops.assign import inc_applicable, schedule_scan, schedule_scan_rounds
+    from kubernetes_tpu.ops.incremental import HoistCache
 
     scan = jax.jit(schedule_scan, static_argnames=("cfg",))
     rounds = jax.jit(schedule_scan_rounds, static_argnames=("cfg", "with_ordinals"))
     res = {}
     for name in SNAPSHOTS:
-        arr, _ = DeltaEncoder().encode(snapshot(name))
+        arr, meta = DeltaEncoder().encode(snapshot(name))
         cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
         c, u = scan(arr, cfg)
         rc, ru, o, s = rounds(arr, cfg, with_ordinals=True)
         for field, x in (("choices", c), ("used", u), ("rounds_choices", rc), ("rounds_used", ru),
                          ("ordinals", o), ("sweeps", s)):
             res[f"{name}/{field}"] = np.asarray(x)
+        inc = inc_applicable(arr, cfg, HoistCache().ensure(arr, meta, cfg))
+        res[f"{name}/inc_applied"] = np.asarray(inc is not None)
+        if inc is not None:
+            ic, iu, io, i_s = rounds(arr, cfg, with_ordinals=True, inc=inc)
+            for field, x in (("inc_choices", ic), ("inc_used", iu), ("inc_ordinals", io), ("inc_sweeps", i_s)):
+                res[f"{name}/{field}"] = np.asarray(x)
     np.savez(out, **res)
 
 

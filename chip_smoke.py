@@ -8,7 +8,8 @@ once), then drives the port's fit-only routes and bench.py's warm loop at
 the north-star shape, heterogeneous(20000, 50000, seed=0) (P=51200,
 N=20480, R=5, U1=101), the full stage set on BASELINE config 3 (cold, with
 and without class state, and its warm loop) and an all-stages snapshot,
-and gangs on BASELINE config 5:
+gangs on BASELINE config 5, and the failure path (unschedulable diagnosis,
+batched preemption) on the JAX package's preemption bench cluster:
 
   [mixed]            static_feasible and fit_scan == their plain versions on
                      a small mixed snapshot, three fit strategies;
@@ -89,7 +90,26 @@ and gangs on BASELINE config 5:
                      N=2048, G=1000): both fixpoints as above with the JAX
                      digests, their walls and the device loop's host enqueue
                      time; gang_quorum timed beside its plain version and
-                     torch.bincount of the quorum count.
+                     torch.bincount of the quorum count;
+  [explain-north-star] the unschedulable diagnosis at the north star:
+                     explain_classes over the reps of all 100 pod classes (F
+                     padded to 128, N=20480, R=5) at the dense step's
+                     post-step usage, one explain_counts launch; the JAX
+                     digest; explain_counts == plain, timed beside torch.matmul
+                     of its taint count;
+  [preempt]          the failure path on the JAX package's preemption bench
+                     cluster, build(20000, 1000) (20000 full nodes, 40000
+                     bound fillers, 1000 priority-100 preemptors):
+                     failure_cycle on the card (DeltaEncoder, the dense step,
+                     diagnose_failed with explain_counts, BatchedPreemption
+                     with waves of class_static_hoist + preempt_eval at K =
+                     64): 1000 failed, the JAX diagnosis message, 1000
+                     nominations with the JAX decisions digest; every wave's
+                     preempt_eval output == plain on the same inputs; the
+                     time split (encode, step, explain, tables, each wave's
+                     kernel by CUDA events and its read back, decide and
+                     repair, apply_eviction); preempt_eval and explain_counts
+                     at F = 4 timed.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
@@ -771,7 +791,7 @@ def phase_north_star_dense() -> list:
           f"bound {k8_bound:.4f} ms ({k8_by}: {k8_bytes} B, {scored} scored pairs x {per_score} + "
           f"{P * N * (R + 1)} ops); step_dense_s {step_dense_s:.4f} (best of 3)", flush=True)
     common = dict(route="cuda", library_ms=None)
-    return step_dense_s, (choices, meta), [
+    return step_dense_s, (choices, meta), dict(arr=arr, meta=meta, used=used), [
         dict(name="packed_static_rows", source="kubernetes_tpu_torch/csrc/class_hoist.cu",
              replaces="kubernetes_tpu/ops/filters.py:92", launches=launches["packed_static_rows"],
              max_abs_err=k7_err, ms=k7_ms, plain_ms=k7_plain, bound_ms=k7_bound, bound_by=k7_by, **common),
@@ -1542,6 +1562,167 @@ def phase_config5() -> list:
                  library_ms=k13_lib)]
 
 
+def explain_bound(arr, F: int) -> tuple:
+    """K14's least time: every input read once (the node planes, the term
+    tables, F pod rows), the counts written once; the operations, per
+    (rep, node), the taint, term, pin and fit tests."""
+    N, R, P = arr.N, arr.R, arr.P
+    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
+    S, E, L = arr.sel_mask.shape
+    bytes_moved = (N * (2 + L + T + 8 * R) + S * E * L + 4 * S * E
+                   + F * (4 * R + T + 4 + 4 * TT + 1 + 8 + 1) + 4 * F * (4 + R + 1))
+    return bound(bytes_moved, F * N * (T + TT + 2 * R + 4))
+
+
+def phase_explain_north_star(ns) -> dict:
+    """explain_classes over every north-star class at the dense step's
+    post-step usage: the widest call a north-star cycle can make."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import class_groups
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import explain, kernels
+
+    arr, meta, used = ns["arr"], ns["meta"], ns["used"]
+    reps, _ = class_groups(meta, range(meta.n_pods))
+    check(reps.size == w.NORTH_STAR_EXPLAIN_REPS, f"explain-north-star: {reps.size} classes")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    counts = explain.explain_classes(arr, reps, used)
+    explain_s = time.perf_counter() - t0
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(launched == {"explain_counts": 1}, f"explain-north-star launches {launched}")
+    digest = hashlib.sha256(counts.astype("<i8").tobytes()).hexdigest()
+    check(digest == w.NORTH_STAR_EXPLAIN_SHA256, "explain-north-star: counts differ from JAX")
+    check(bool((counts.sum(axis=1) == meta.n_nodes).all()), "explain-north-star: a row misses nodes")
+    F = explain._pad_pow2(reps.size)
+    pr = torch.zeros(F, dtype=torch.int64, device=arr.device)
+    pr[: reps.size] = torch.from_numpy(reps).to(arr.device)
+    rv = torch.arange(F, device=arr.device) < reps.size
+    k = kernels.explain_counts(arr, used, pr, rv)
+    p = explain.explain_counts_plain(arr, used, pr, rv)
+    err = int((k - p).abs().max())
+    check(err == 0 and torch.equal(k[: reps.size].cpu().to(torch.int64), torch.from_numpy(counts)),
+          "explain-north-star: explain_counts != plain")
+    k14_ms = cuda_ms(lambda: kernels.explain_counts(arr, used, pr, rv), reps=50, warmup=3)
+    plain_ms = cuda_ms(lambda: explain.explain_counts_plain(arr, used, pr, rv), reps=5)
+    tol = (~arr.pod_tol_ns[pr]).to(torch.float32)
+    taint = arr.node_taint_ns.to(torch.float32)
+    lib_ms = cuda_ms(lambda: tol @ taint.T, reps=50, warmup=3)
+    k14_bound, k14_by = explain_bound(arr, F)
+    print(f"[explain-north-star] explain_classes over {reps.size} classes (F={F}, N={arr.N}, R={arr.R}) "
+          f"{explain_s:.4f} s: counts sha256 {digest} (JAX's); explain_counts == plain: {k14_ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, torch.matmul of the taint count {lib_ms:.4f} ms, bound {k14_bound:.6f} ms "
+          f"({k14_by})", flush=True)
+    return dict(ms=k14_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=k14_bound, bound_by=k14_by,
+                max_abs_err=err)
+
+
+def phase_preempt(k14: dict) -> list:
+    """The failure path at the JAX package's preemption bench size, on the
+    card, counted on its own; every wave's K15 output held to plain after
+    the run, on the inputs the WaveProbe kept."""
+    import numpy as np
+    import torch
+
+    from kubernetes_tpu_torch.bench import preempt_bench as pb
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops import preempt as tpre
+
+    t0 = time.perf_counter()
+    snap = pb.build(**w.PREEMPT)
+    build_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with pb.WaveProbe(keep=True) as probe:
+        r = pb.failure_cycle(snap)
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    calls = probe.calls
+    nwaves = len(calls)
+    victims = sum(len(v) for _, _, v in r["decisions"])
+    digest = pb.decisions_digest(r["decisions"])
+    msgs = sorted(set(r["messages"].values()))
+    print(f"[preempt] build(20000, 1000) {build_s:.3f} s; failure_cycle {wall_s:.3f} s: failed {len(r['failed'])}, "
+          f"diagnosis {msgs}, nominated {len(r['nominated'])}, victims {victims}, decisions sha256 {digest}; "
+          f"device evaluations {nwaves} (wave hits {r['wave_hits']}, single {r['single_hits']}); "
+          f"launches {launched}", flush=True)
+    check(len(r["failed"]) == w.PREEMPT_FAILED, "preempt: failed count")
+    check(msgs == [w.PREEMPT_MESSAGE], "preempt: diagnosis differs from JAX")
+    check(len(r["nominated"]) == w.PREEMPT_NOMINATED and victims == w.PREEMPT_VICTIMS, "preempt: nominations")
+    check(digest == w.PREEMPT_DECISIONS_SHA256, "preempt: decisions differ from JAX")
+    for name in ("packed_static_rows", "chunk_rounds_dense", "explain_counts", "class_static_hoist", "preempt_eval"):
+        check(launched.get(name, 0) > 0, f"preempt: {name} was not launched ({launched})")
+    check(launched["preempt_eval"] == nwaves and launched["explain_counts"] == 1, f"preempt: launches {launched}")
+    # every device evaluation's K15 output against plain on the same inputs
+    err = 0
+    for c in calls:
+        arr, idxs, *ins = c["inputs"]
+        idx = torch.from_numpy(idxs).to(arr.device)
+        dins = [torch.from_numpy(np.ascontiguousarray(x)).to(arr.device) for x in ins]
+        want = tpre.preempt_eval_plain(arr, idx, tpre.static_rows_plain(arr, idx), *dins)
+        if len(c["outputs"]) == 6:  # a single preemptor: preempt_eval's [N, ...] rows
+            want = [x[0] for x in want[:6]]
+        for h, x in zip(c["outputs"], want):
+            err = max(err, int((torch.from_numpy(np.asarray(h)).to(arr.device).long() - x.long()).abs().max()))
+    check(err == 0, f"preempt: preempt_eval != plain (max |kernel - plain| {err})")
+    tm = r["times"]
+    dev_s = sum(c["build_s"] if c["build_s"] is not None else c["launch_s"] + c["read_s"] for c in calls)
+    launch_s, read_s = sum(c["launch_s"] for c in calls), sum(c["read_s"] for c in calls)
+    ks = [c["kernel_ms"] for c in calls]
+    print(f"[preempt] split (host s): encode {tm['encode_s']:.3f}, step {tm['step_s']:.3f}, explain "
+          f"{tm['explain_s']:.4f}, BatchedPreemption + prefetch {tm['setup_s']:.3f}, loop {tm['loop_s']:.3f} = "
+          f"device evaluations {dev_s:.3f} (tables and state {dev_s - launch_s - read_s:.3f}, launch "
+          f"{launch_s:.4f}, read back {read_s:.4f}) + decide/repair {tm['evaluate_s'] - dev_s:.3f} + "
+          f"apply_eviction {tm['evict_s']:.3f}", flush=True)
+    print(f"[preempt] per wave (K, K padded, K15 ms by CUDA events, read back s): "
+          f"{[(c['k'], c['kp'], round(c['kernel_ms'], 4), round(c['read_s'], 5)) for c in calls]}", flush=True)
+
+    # K15 on the first wave's inputs: timed beside its plain version
+    arr, idxs, *ins = calls[0]["inputs"]
+    idx = torch.from_numpy(idxs).to(arr.device)
+    ins = [torch.from_numpy(np.ascontiguousarray(x)).to(arr.device) for x in ins]
+    del probe, calls
+    stat_w = kernels.class_static_hoist(arr, idx.long())
+    k15_ms = cuda_ms(lambda: kernels.preempt_eval(stat_w, arr.pod_req, idx, arr.node_alloc, *ins), reps=50, warmup=3)
+    st = tpre.static_rows_plain(arr, idx)
+    plain_ms = cuda_ms(lambda: tpre.preempt_eval_plain(arr, idx, st, *ins), reps=5)
+    K, N, R = idx.shape[0], arr.N, arr.R
+    V = ins[3].shape[1]
+    W = -(-N // 32)
+    k15_read = dict(
+        stat_w=4 * K * W, pod_rows=4 * K * R, pod_idxs=4 * K,
+        alloc_used_nom=3 * 4 * N * R, has_nom=N,
+        vict_req=4 * N * V * R, vict_prio=4 * N * V, vict_viol_valid=2 * N * V,
+    )
+    # cand, static_ok and is_victim bytes; nvio, vmax, vsum, vcnt int32
+    k15_write = K * N * (1 + 1 + V) + 4 * 4 * K * N
+    k15_bytes = sum(k15_read.values()) + k15_write
+    k15_ops = K * N * (V * R + 2 * R + 2 * R + 3 * V * R + 2 * R + 4 * V)
+    k15_bound, k15_by = bound(k15_bytes, k15_ops)
+    # K14 at the preempt cluster's call (F = 4: one failed class)
+    pr = torch.zeros(4, dtype=torch.int64, device=arr.device)
+    rv = torch.arange(4, device=arr.device) < 1
+    k14_small = cuda_ms(lambda: kernels.explain_counts(arr, arr.node_used, pr, rv), reps=50, warmup=3)
+    print(f"[preempt] preempt_eval == plain on all {nwaves} waves; at K={K}, N={N}, V={V}, R={R}: {k15_ms:.4f} ms "
+          f"(wave mean by events {sum(ks) / len(ks):.4f} ms), plain {plain_ms:.3f} ms, bound {k15_bound:.6f} ms "
+          f"({k15_by}: {k15_bytes} B = read {k15_read} + written {k15_write}); explain_counts at F=4 on this "
+          f"cluster {k14_small:.4f} ms", flush=True)
+    common = dict(route="cuda", library_ms=None)
+    return [
+        dict(name="explain_counts", source="kubernetes_tpu_torch/csrc/explain.cu",
+             replaces="kubernetes_tpu/ops/explain.py:86", launches=launched["explain_counts"],
+             max_abs_err=k14["max_abs_err"], ms=k14["ms"], plain_ms=k14["plain_ms"], bound_ms=k14["bound_ms"],
+             bound_by=k14["bound_by"], route="cuda", library_ms=k14["library_ms"],
+             scope="north star, F=128", ms_f4_preempt=k14_small),
+        dict(name="preempt_eval", source="kubernetes_tpu_torch/csrc/preempt.cu",
+             replaces="kubernetes_tpu/ops/preempt.py:52", launches=launched["preempt_eval"],
+             max_abs_err=err, ms=k15_ms, plain_ms=plain_ms, bound_ms=k15_bound, bound_by=k15_by, **common),
+    ]
+
+
 def choices_used(arr, choices, k: int):
     """node_used after the first k pods' placements."""
     import torch
@@ -1568,8 +1749,10 @@ def main() -> int:
     step_s, rows = phase_north_star()
     phase_waves_mixed()
     rows += phase_north_star_waves(step_s)
-    step_dense_s, cold, dense_rows = phase_north_star_dense()
+    step_dense_s, cold, ns, dense_rows = phase_north_star_dense()
     rows += dense_rows
+    k14 = phase_explain_north_star(ns)
+    del ns
     phase_warm_loop(cold)
     rows += phase_wide_planes()
     c3, _, k12_row = phase_config3()
@@ -1583,6 +1766,7 @@ def main() -> int:
     rows += k10_rows + [k11_row, k12_row] + inc_rows
     phase_gang_small()
     rows += phase_config5()
+    rows += phase_preempt(k14)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -23,6 +23,15 @@ and the full stage set (PodTopologySpread, InterPodAffinity, NodePorts,
 TaintToleration / NodeAffinity / ImageLocality scores) on the per-pod and
 rounds routes (the latter in dense and class-state mode), and gangs
 (all-or-nothing pod groups) through ops/gang.py's host and device
-fixpoints.  Volumes and resource claims raise NotImplementedError (see
-ROADMAP.md queues A and B).
+fixpoints.  The failure half of a cycle is ported too: the unschedulable
+diagnosis (ops/explain.py) and batched preemption (ops/preempt.py,
+scheduler/preemption.py's BatchedPreemption), driven as the scheduler's
+failure loop drives them by bench/preempt_bench.py:
+
+    from kubernetes_tpu_torch.bench.preempt_bench import build, failure_cycle
+    r = failure_cycle(build(50, 12), device="cpu")   # diagnosis + nominations
+
+Volumes and resource claims raise NotImplementedError; the Scheduler
+itself and the CPU PostFilter are not ported (see ROADMAP.md queues A and
+B).
 """

@@ -1164,3 +1164,26 @@ def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, re
         n_classes=int(class_first.shape[0]),
     )
     return arrays, meta
+
+
+def class_groups(meta, rows):
+    """Group device pod rows by equivalence class for the diagnosis plane
+    (ops/explain.py; the JAX package's api/delta.py:1190): every pod of a
+    class shares its spec, so one diagnosis per class serves all its pods.
+
+    -> (reps i64[F]: the first seen row of each distinct class, in order of
+    first appearance; {row: rep position}).  Without a class index (the
+    plain encode_snapshot path) every distinct row is its own class."""
+    first: dict = {}
+    group_of: dict = {}
+    reps: list = []
+    cls_of = meta.pod_class
+    for r in rows:
+        r = int(r)
+        c = int(cls_of[r]) if cls_of is not None else r
+        g = first.get(c)
+        if g is None:
+            g = first[c] = len(reps)
+            reps.append(r)
+        group_of[r] = g
+    return np.asarray(reps, dtype=np.int64), group_of

@@ -270,3 +270,32 @@ class Pod:
 class PodGroup:
     name: str
     min_member: int
+
+
+@dataclass
+class PodDisruptionBudget:
+    """policy/v1 — type PodDisruptionBudget, reduced to what the preemption
+    evaluator reads (the JAX package's api/types.py:548).
+
+    Exactly one of min_available / max_unavailable is meaningful; both are
+    absolute counts.  `disruptions_allowed` is status, maintained by the
+    disruption controller.
+    """
+
+    name: str
+    namespace: str = "default"
+    selector: Optional[LabelSelector] = None
+    min_available: Optional[int] = None
+    max_unavailable: Optional[int] = None
+    # status (pkg/controller/disruption — updatePdbStatus)
+    disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+    def matches(self, pod: "Pod") -> bool:
+        return pod.namespace == self.namespace and self.selector is not None and self.selector.matches(pod.labels)

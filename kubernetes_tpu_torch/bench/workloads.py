@@ -137,6 +137,25 @@ CONFIG5_CLASSES = 2001
 CONFIG5_SWEEPS = 2355
 CONFIG5_ORDINALS_SHA256 = "9ee94793846000839a150ec75c45adab5c1b2666baafae72c3a13241aa6812aa"
 CONFIG5_CHOICES_SHA256 = "6fda447d9c2e8d38713a71ea09d44e718f90587fbc1d13cfed27af19c9e66d30"
+# The failure path on the JAX package's preemption bench cluster,
+# bench/preempt_bench.py build(20000, 1000) (20000 full nodes, 1000
+# priority-100 preemptors), through the JAX encoder, batch step,
+# diagnose_failed and BatchedPreemption in failure_cycle's sequence, from
+# the same script's preempt leg: every preemptor fails the step with one
+# diagnosis, each is nominated with one victim, and the sha256 of the
+# [preemptor, node, sorted victims] list (preempt_bench.decisions_digest).
+PREEMPT = dict(n_nodes=20000, n_pre=1000)
+PREEMPT_FAILED = 1000
+PREEMPT_MESSAGE = "0/20000 nodes are available: 20000 Insufficient cpu."
+PREEMPT_NOMINATED = 1000
+PREEMPT_VICTIMS = 1000
+PREEMPT_DECISIONS_SHA256 = "760e98c8aace211b464a8018fd9f1d2acec444b46c060b2c812afaf99862a30f"
+# The diagnosis at the north star, from the same script's explain leg: the
+# JAX explain_classes over the reps of all 100 pod classes (F padded to
+# 128) at the dense step's post-step usage; the sha256 of the i64 counts
+# [100, 4 + 5 + 1] as little-endian bytes (every row sums to 20000).
+NORTH_STAR_EXPLAIN_REPS = 100
+NORTH_STAR_EXPLAIN_SHA256 = "214e9bb97dd5b9f4b48b9d859b644ab1611aad32291ebf6e6d25b2e75afa9ceb"
 
 
 def basic(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:

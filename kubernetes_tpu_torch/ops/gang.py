@@ -133,6 +133,10 @@ def gang_fixpoint_device(arr, cfg: ScoreConfig, device=None, stats: Optional[dic
     if arr.device.type != dev.type:
         arr = arr.to(dev)
     G = arr.group_min.shape[0]
+    if G == 0:  # no groups: the plain batch step, as the JAX package's gang.py:136
+        if stats is not None:
+            stats["iterations"] = 1
+        return finish(dispatch(arr, cfg, arr.device))[:2]
     if arr.device.type == "cpu":
         pv = arr.pod_valid
         for it in range(G + 1):

@@ -17,7 +17,9 @@ encoder's packed transfers); score_planes (K10), full_scan (K11, the
 per-pod route over the full stage set) and rounds (K12, the rounds route,
 dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh;
 gang_quorum (K13, gang.cu: the gang fixpoint's quorum check and
-revocation).  K7, K8 and K13 take an optional device ``done`` word that
+revocation); explain_counts (K14, explain.cu: the unschedulable
+diagnosis's reason counts) and preempt_eval (K15, preempt.cu: the batched
+preemption evaluation, phases A-C over a wave of preemptors).  K7, K8 and K13 take an optional device ``done`` word that
 makes a launch return at entry: the gang fixpoint's device loop queues its
 iterations without reading anything back (ops/gang.py).
 
@@ -29,7 +31,8 @@ Each wrapper checks device, dtype, shape and contiguity and raises on what
 its kernel does not take, raises when the C entry returns a CUDA error, and
 adds one to ``LAUNCHES[name]`` where it launches its kernel.  There is no
 fallback: the plain versions run only for CPU tensors, and that dispatch
-lives with the callers (ops/filters.py, ops/assign.py).
+lives with the callers (ops/filters.py, ops/assign.py, ops/explain.py,
+ops/preempt.py).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ SOURCES = {
     "packed_static_rows": "class_hoist.cu", "chunk_rounds_dense": "chunk_rounds_dense.cu",
     "unpack_planes": "unpack_planes.cu", "score_planes": "score_planes.cu",
     "full_scan": "full_scan.cu", "rounds": "rounds.cu", "gang_quorum": "gang.cu",
+    "explain_counts": "explain.cu", "preempt_eval": "preempt.cu",
 }
 
 _P = ctypes.c_void_p
@@ -84,6 +88,8 @@ _ARGTYPES = {
     "full_scan": ("ktt_full_scan", [_P] * 9),
     "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
     "gang_quorum": ("ktt_gang_quorum", [_P] * 9 + [_I, _I, _P]),
+    "explain_counts": ("ktt_explain_counts", [_P] * 19 + [_I] * 9 + [_P]),
+    "preempt_eval": ("ktt_preempt_eval", [_P] * 18 + [_I] * 4 + [_P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -870,3 +876,96 @@ def gang_quorum(choices: torch.Tensor, pod_group: torch.Tensor, pv: torch.Tensor
     _raise_on(err, "gang_quorum")
     LAUNCHES["gang_quorum"] += 1
     return sched, present, bad, first, done
+
+
+EXPLAIN_MAX_R = 32  # csrc/explain.cu
+PREEMPT_MAX_R = 16  # csrc/preempt.cu: the running usage is a register array
+
+
+def explain_counts(arr, node_used: torch.Tensor, reps: torch.Tensor, rep_valid: torch.Tensor) -> torch.Tensor:
+    """K14 (csrc/explain.cu): i32[F, 4+R+1] one-reason-per-node counts for
+    the pod rows `reps` (i64[F]) at usage `node_used` (i32[N, R]); rows
+    with `rep_valid` (bool[F]) false are zero."""
+    dev = arr.device
+    _need_cuda(dev, "explain_counts")
+    P, N, R = arr.P, arr.N, arr.R
+    T = arr.node_taint_ns.shape[1]
+    TT = arr.pod_terms.shape[1]
+    S, E, L = arr.sel_mask.shape
+    F = reps.shape[0]
+    if R > EXPLAIN_MAX_R:
+        raise ValueError(f"explain_counts takes at most {EXPLAIN_MAX_R} resources, got {R}")
+    for name, t, dt, shape in (
+        ("node_valid", arr.node_valid, torch.bool, (N,)), ("node_alloc", arr.node_alloc, torch.int32, (N, R)),
+        ("node_used", node_used, torch.int32, (N, R)), ("node_unsched", arr.node_unsched, torch.bool, (N,)),
+        ("node_labels", arr.node_labels, torch.bool, (N, L)), ("node_taint_ns", arr.node_taint_ns, torch.bool, (N, T)),
+        ("sel_mask", arr.sel_mask, torch.bool, (S, E, L)), ("sel_kind", arr.sel_kind, torch.int32, (S, E)),
+        ("pod_req", arr.pod_req, torch.int32, (P, R)), ("pod_tol_ns", arr.pod_tol_ns, torch.bool, (P, T)),
+        ("pod_nodename", arr.pod_nodename, torch.int32, (P,)), ("pod_terms", arr.pod_terms, torch.int32, (P, TT)),
+        ("pod_has_sel", arr.pod_has_sel, torch.bool, (P,)), ("reps", reps, torch.int64, (F,)),
+        ("rep_valid", rep_valid, torch.bool, (F,)),
+    ):
+        _check(t, name, dt, shape, dev)
+    fn = _fn("explain_counts")
+    TW = max(1, -(-T // 32))
+    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
+    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
+    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
+    out = torch.empty((F, 4 + R + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(
+            arr.node_valid.data_ptr(), arr.node_alloc.data_ptr(), node_used.data_ptr(), arr.node_unsched.data_ptr(),
+            arr.node_labels.data_ptr(), arr.node_taint_ns.data_ptr(), arr.sel_mask.data_ptr(),
+            arr.sel_kind.data_ptr(), arr.pod_req.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
+            arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), reps.data_ptr(), rep_valid.data_ptr(),
+            tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), out.data_ptr(), F, P, N, R, T, TT, S, E, L,
+            _stream(dev),
+        )
+    _raise_on(err, "explain_counts")
+    LAUNCHES["explain_counts"] += 1
+    return out
+
+
+def preempt_eval(stat_w: torch.Tensor, pod_req: torch.Tensor, pod_idxs: torch.Tensor, node_alloc: torch.Tensor,
+                 used_now: torch.Tensor, nom_extra: torch.Tensor, has_nom: torch.Tensor, vict_req: torch.Tensor,
+                 vict_prio: torch.Tensor, vict_viol: torch.Tensor, vict_valid: torch.Tensor):
+    """K15 (csrc/preempt.cu): phases A-C for the K preemptor rows
+    `pod_idxs` (i32[K]) whose packed static rows are `stat_w` (i32[K,
+    ceil(N/32)], K3's words) -> (cand bool[K, N], nvio, vmax, vsum, vcnt
+    i32[K, N], is_victim bool[K, N, V], static_ok bool[K, N]), all views of
+    one byte buffer (``out[0]._base``), so the caller reads a wave back with
+    one copy."""
+    dev = pod_req.device
+    _need_cuda(dev, "preempt_eval")
+    P, R = pod_req.shape
+    N, V = vict_prio.shape
+    K = pod_idxs.shape[0]
+    W = -(-N // 32)
+    if R > PREEMPT_MAX_R:
+        raise ValueError(f"preempt_eval takes at most {PREEMPT_MAX_R} resources, got {R}")
+    for name, t, dt, shape in (
+        ("stat_w", stat_w, torch.int32, (K, W)), ("pod_req", pod_req, torch.int32, (P, R)),
+        ("pod_idxs", pod_idxs, torch.int32, (K,)), ("node_alloc", node_alloc, torch.int32, (N, R)),
+        ("used_now", used_now, torch.int32, (N, R)), ("nom_extra", nom_extra, torch.int32, (N, R)),
+        ("has_nom", has_nom, torch.bool, (N,)), ("vict_req", vict_req, torch.int32, (N, V, R)),
+        ("vict_prio", vict_prio, torch.int32, (N, V)), ("vict_viol", vict_viol, torch.bool, (N, V)),
+        ("vict_valid", vict_valid, torch.bool, (N, V)),
+    ):
+        _check(t, name, dt, shape, dev)
+    fn = _fn("preempt_eval")
+    kn = K * N
+    buf = torch.empty((16 * kn + 2 * kn + kn * V,), dtype=torch.uint8, device=dev)
+    i32 = [buf[4 * i * kn:4 * (i + 1) * kn].view(torch.int32).view(K, N) for i in range(4)]
+    cand = buf[16 * kn:17 * kn].view(torch.bool).view(K, N)
+    static_ok = buf[17 * kn:18 * kn].view(torch.bool).view(K, N)
+    is_victim = buf[18 * kn:].view(torch.bool).view(K, N, V)
+    with torch.cuda.device(dev):
+        err = fn(
+            stat_w.data_ptr(), pod_req.data_ptr(), pod_idxs.data_ptr(), node_alloc.data_ptr(), used_now.data_ptr(),
+            nom_extra.data_ptr(), has_nom.data_ptr(), vict_req.data_ptr(), vict_prio.data_ptr(),
+            vict_viol.data_ptr(), vict_valid.data_ptr(), cand.data_ptr(), i32[0].data_ptr(), i32[1].data_ptr(),
+            i32[2].data_ptr(), i32[3].data_ptr(), is_victim.data_ptr(), static_ok.data_ptr(), K, N, V, R, _stream(dev),
+        )
+    _raise_on(err, "preempt_eval")
+    LAUNCHES["preempt_eval"] += 1
+    return (cand, *i32, is_victim, static_ok)

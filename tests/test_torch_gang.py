@@ -201,6 +201,27 @@ def test_gang_quorum_plain_revokes_the_earliest_failed_group(seed):
     np.testing.assert_array_equal(pv_next.numpy(), pv.numpy() & (pod_group.numpy() != pod_group.numpy()[f]))
 
 
+def _no_groups(arr):
+    """The arrays with no PodGroup at all: G = 0 (the encoder pads to G = 1)."""
+    return dataclasses.replace(arr, pod_group=torch.full_like(arr.pod_group, -1),
+                               group_min=arr.group_min[:0].contiguous())
+
+
+@pytest.mark.parametrize("n_pods", sorted(ref.NO_GROUPS.values()))
+def test_device_fixpoint_without_groups_is_the_plain_step(jax_ref, n_pods):
+    """G = 0: the plain batch step, as the JAX package's gang.py:136, and
+    the JAX gang_fixpoint_device's choices and usage on the same batch."""
+    arr, _ = encode_snapshot(tw.basic(24, n_pods, seed=n_pods), device="cpu")
+    arr0 = _no_groups(arr)
+    cfg = infer_score_config(arr0, DEFAULT_SCORE_CONFIG)
+    stats = {}
+    choices, used = gang.gang_fixpoint_device(arr0, cfg, device="cpu", stats=stats)
+    want = assign.schedule_batch(arr0, cfg, device="cpu")
+    assert torch.equal(choices, want[0]) and torch.equal(used, want[1]) and stats["iterations"] == 1
+    np.testing.assert_array_equal(choices.numpy(), jax_ref[f"basic-{n_pods}/device_choices"])
+    np.testing.assert_array_equal(used.numpy(), jax_ref[f"basic-{n_pods}/device_used"])
+
+
 # ---------------------------------------------------------------------------
 # on the card: K13 gang_quorum == plain, the device loop == the host fixpoint
 # ---------------------------------------------------------------------------
@@ -250,3 +271,19 @@ def test_device_loop_matches_host_fixpoint(card, name):
     assert torch.equal(dc, hc) and torch.equal(du, hu)
     dense = gang.schedule_with_gangs(arr, cfg, with_ordinals=True)
     assert torch.equal(dense[0], hc) and torch.equal(dense[1], hu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pods", [50, 300])
+def test_device_fixpoint_without_groups_on_the_card(card, n_pods):
+    """G = 0 on the card: the plain step before any gang launch, on a
+    chunkable batch (P = 512, the dense route) and on one that is not (P =
+    64, the rounds route), which raised before."""
+    arr, _ = encode_snapshot(tw.basic(24, n_pods, seed=n_pods), device=card)
+    arr0 = _no_groups(arr)
+    cfg = infer_score_config(arr0, DEFAULT_SCORE_CONFIG)
+    kernels.reset_launches()
+    choices, used = gang.gang_fixpoint_device(arr0, cfg)
+    assert kernels.LAUNCHES["gang_quorum"] == 0
+    want = assign.schedule_batch(arr0, cfg, device="cpu")
+    assert torch.equal(choices.cpu(), want[0]) and torch.equal(used.cpu(), want[1])

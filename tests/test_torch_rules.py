@@ -29,8 +29,10 @@ import kubernetes_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(kubernetes_tpu_torch.__path__, "kubernetes_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-# the encoder and the pipeline of the warm loop are among them
-assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline"} <= set(mods), mods
+# the encoder, the pipeline of the warm loop and the failure path are among them
+assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
+        "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
+        "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked
@@ -73,6 +75,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     sf = torch.ones((arr.P, arr.N), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.fit_scan(sf, arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
+    reps = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.explain_counts(arr, arr.node_used, reps, reps.bool())
+    words = torch.zeros((1, -(-arr.N // 32)), dtype=torch.int32)
+    vict = torch.zeros((arr.N, 1), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.preempt_eval(words, arr.pod_req, reps[:1].int(), arr.node_alloc, arr.node_used, arr.node_used,
+                             arr.node_valid, vict[:, :, None].expand(-1, -1, arr.R).contiguous(), vict,
+                             vict.bool(), vict.bool())
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):

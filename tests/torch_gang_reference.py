@@ -14,6 +14,10 @@ and runs schedule_with_gangs with ordinals on its HoistCache class state
 "inc_ordinals", "inc_sweeps"), without class state (the dense chunked
 route; -> "<name>/dense_choices", "dense_ordinals", "dense_sweeps") and
 gang_fixpoint_device (-> "<name>/device_choices", "<name>/device_used").
+For every NO_GROUPS batch (basic(24, n_pods, seed=n_pods), encoded by
+encode_snapshot, with every pod's group cleared and G = 0) it runs
+gang_fixpoint_device, which is the plain batch step there
+(-> "<name>/device_choices", "<name>/device_used").
 """
 
 import os
@@ -27,6 +31,8 @@ PINNED = {"KTPU_FORCE_CHUNKED": "1"}
 # of 8 on 12 nodes (every group fits), and 16 groups of 16 on 3 nodes (five
 # groups revoked, six fixpoint iterations)
 SNAPSHOTS = {"gang-24x8": (24, 8, 12, 11), "gang-16x16-tight": (16, 16, 3, 1)}
+# basic(24, n_pods, seed=n_pods) without a PodGroup: G = 0
+NO_GROUPS = {f"basic-{n}": n for n in (50, 300)}
 
 
 def main() -> None:
@@ -38,8 +44,13 @@ def main() -> None:
     from __graft_entry__ import force_cpu_platform
 
     force_cpu_platform(1)
+    import dataclasses
+
+    import jax.numpy as jnp
+
     from kubernetes_tpu.api.delta import DeltaEncoder
-    from kubernetes_tpu.bench.workloads import gang
+    from kubernetes_tpu.api.snapshot import encode_snapshot
+    from kubernetes_tpu.bench.workloads import basic, gang
     from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
     from kubernetes_tpu.ops.gang import gang_fixpoint_device, schedule_with_gangs
     from kubernetes_tpu.ops.incremental import HoistCache
@@ -62,6 +73,12 @@ def main() -> None:
         for field in ("pod_group", "group_min"):
             res[f"{name}/{field}"] = np.asarray(getattr(arr, field))
         res[f"{name}/pod_class"] = np.asarray(meta.pod_class)
+    for name, n in NO_GROUPS.items():
+        arr, _ = encode_snapshot(basic(24, n, seed=n))
+        arr = dataclasses.replace(arr, pod_group=jnp.full_like(arr.pod_group, -1), group_min=arr.group_min[:0])
+        dc, du = gang_fixpoint_device(arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
+        res[f"{name}/device_choices"] = np.asarray(dc)
+        res[f"{name}/device_used"] = np.asarray(du)
     np.savez(out, **res)
 
 

@@ -37,7 +37,16 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   gang(1000, 64, 2000) through the JAX host fixpoint on class state
   (schedule_with_gangs with ordinals) and the device fixpoint
   (gang_fixpoint_device) -> iterations, placed pods and groups, sweeps,
-  the ordinals and choices digests.
+  the ordinals and choices digests;
+- the preempt leg: the JAX package's bench/preempt_bench.py build(20000,
+  1000) through the JAX encoder, batch step, diagnose_failed and
+  BatchedPreemption in the port's failure_cycle sequence
+  (tests/torch_preempt_reference.py) -> the failed count, the diagnosis
+  message, the nominated and victim counts and the decisions digest
+  (kubernetes_tpu_torch/bench/preempt_bench.py decisions_digest);
+- the explain leg: the north star's class reps (every class of the
+  DeltaEncoder encode) through the JAX explain_classes at the dense step's
+  post-step usage -> F and the sha256 of the int64 counts.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -47,13 +56,13 @@ there), the whole script about ten minutes and a few GB:
     JAX_PLATFORMS=cpu python tests/torch_north_star_digest.py [LEG ...]
 
 (LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds,
-all-stages, config3-inc, config3-warm, gang-small or config5 runs only those
-legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
+all-stages, config3-inc, config3-warm, gang-small, config5, preempt or
+explain runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
 tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
 tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
 warm leg on spread_affinity(N_NODES, N_PODS) as tests/test_torch_rounds_inc.py
 runs it: --leg config3-warm N_NODES N_PODS; any gang(G, S, N): --leg gang G
-S N.)
+S N; any preempt build: --leg preempt N_NODES N_PRE.)
 """
 
 import hashlib
@@ -293,11 +302,43 @@ def gang_leg(n_groups: int, group_size: int, n_nodes: int, name: str = "gang") -
           f"device choices sha256 {_sha(dc)} device==host {bool(np.array_equal(dc, c))}", flush=True)
 
 
+def preempt_leg(n_nodes: int = 20000, n_pre: int = 1000) -> None:
+    """The failure path on the JAX package's preemption bench cluster."""
+    from torch_preempt_reference import jax_failure_cycle, jax_snapshot
+
+    from kubernetes_tpu_torch.bench.preempt_bench import decisions_digest
+
+    r = jax_failure_cycle(jax_snapshot(n_nodes, n_pre))
+    msgs = sorted(set(r["messages"].values()))
+    print(f"preempt: failed {len(r['failed'])} messages {json.dumps(msgs)} nominated {len(r['nominated'])} "
+          f"victims {sum(len(v) for _, _, v in r['decisions'])} waves {r['wave_hits']} single {r['single_hits']} "
+          f"decisions sha256 {decisions_digest(r['decisions'])}", flush=True)
+
+
+def explain_leg() -> None:
+    """The north star's class reps through explain_classes at the dense
+    step's post-step usage (every class diagnosed: the widest call)."""
+    from kubernetes_tpu.api.delta import DeltaEncoder, class_groups
+    from kubernetes_tpu.bench.workloads import heterogeneous
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.assign import schedule_batch_ordinals_routed
+    from kubernetes_tpu.ops.explain import explain_classes
+
+    arr, meta = DeltaEncoder().encode(heterogeneous(20000, 50000, seed=0))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    _, used, _, _ = schedule_batch_ordinals_routed(arr, cfg, donate=False)
+    reps, _ = class_groups(meta, range(meta.n_pods))
+    counts = explain_classes(arr, reps, np.asarray(used))
+    print(f"explain: F {reps.size} used sha256 {_sha(np.asarray(used))} counts sha256 "
+          f"{hashlib.sha256(counts.astype('<i8').tobytes()).hexdigest()} row sums {sorted(set(counts.sum(1).tolist()))}",
+          flush=True)
+
+
 LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": config3_leg,
         "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg, "config3-inc": config3_inc_leg,
         "config3-warm": lambda: warm_leg(5000, 10000, "spread_affinity"),
         "gang-small": lambda: gang_leg(48, 64, 40, "gang-small"),
-        "config5": lambda: gang_leg(1000, 64, 2000, "config5")}
+        "config5": lambda: gang_leg(1000, 64, 2000, "config5"), "preempt": preempt_leg, "explain": explain_leg}
 
 
 def main() -> None:
@@ -308,6 +349,8 @@ def main() -> None:
             warm_leg(int(sys.argv[3]), int(sys.argv[4]), "spread_affinity")
         elif sys.argv[2] == "gang" and len(sys.argv) == 6:  # any gang(G, S, N)
             gang_leg(*(int(x) for x in sys.argv[3:6]))
+        elif sys.argv[2] == "preempt" and len(sys.argv) == 5:
+            preempt_leg(int(sys.argv[3]), int(sys.argv[4]))
         else:
             LEGS.get(sys.argv[2], lambda: wave_leg(sys.argv[2]))()
         return
@@ -318,7 +361,7 @@ def main() -> None:
             ("dense", {}), ("warm", {"KTPU_MEMWATCH": "0"}), ("wide", {"KTPU_FORCE_CHUNKED": "0"}),
             ("config3", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-rounds", {}),
             ("all-stages", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-inc", {}),
-            ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {})]
+            ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {}), ("preempt", {}), ("explain", {})]
     for name, extra in runs:
         if only and name not in only:
             continue

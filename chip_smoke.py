@@ -91,6 +91,39 @@ batched preemption) on the JAX package's preemption bench cluster:
                      digests, their walls and the device loop's host enqueue
                      time; gang_quorum timed beside its plain version and
                      torch.bincount of the quorum count;
+  [gang-rounds]      config 3 in PodGroups of 64 (workloads.grouped: P=10240,
+                     N=6144, G=157) through the device fixpoint on the
+                     rounds route (K7 with the eligibility plane + K12 +
+                     K13 queued G + 1 times, one read at the end): the JAX
+                     choices and usage digests, == the host fixpoint; the
+                     wall, the host enqueue of a first and a second
+                     fixpoint, a gated iteration's card time;
+                     K12's gated mode == plain on the first chunks with
+                     `done` clear and writing nothing with it set;
+  [gang-contended]   workloads.gang_contended's four batches (the rounds
+                     route with pairwise stages and fit-only at P=64, the
+                     per-pod route fit-only and full-stage at P=8), each
+                     revoking groups, on their own 2-8 nodes and pinned to
+                     a pool of config 3's 5000 nodes (workloads.gang_pinned,
+                     N=6144): exact launch counts, iterations, the JAX
+                     digests, a gated iteration's card time; at N=6144 K1,
+                     K2, K11 and K12 in the gated mode == plain, nothing
+                     written when gated, timed;
+  [sidecar-north-star] runtime/sidecar.py _Engine(device="cuda") with a
+                     session built directly (no wire): the north star's
+                     pending set pregrouped through run_session (the dense
+                     route), then bench.py's wave 2 with wave 1 bound by
+                     clone_pod: the JAX engine's verdict digests; per wave
+                     sidecar_encode_seconds, sidecar_dispatch_seconds (both
+                     under the device lock) and sidecar_step_seconds (the
+                     read back, outside it); the cold pregrouped encode
+                     against encode_device on wave 1;
+  [sidecar-config5]  in a fresh process (this script, --sidecar-config5):
+                     one config-5 gang wave through run_session(gang=True):
+                     the device fixpoint's 1001 iterations queued under
+                     the lock, the JAX digest, the same three times; then
+                     the wave again on a new session: the lock's time on
+                     the first and on the second gang wave;
   [explain-north-star] the unschedulable diagnosis at the north star:
                      explain_classes over the reps of all 100 pod classes (F
                      padded to 128, N=20480, R=5) at the dense step's
@@ -116,6 +149,9 @@ before the route runs and read just after, and a kernel of the route that
 was not launched fails the run.  Kernel times come from CUDA events after
 a warm-up; step and loop times from the host clock around work that ends
 in torch.cuda.synchronize().
+
+An [env] line first says whether grpc and google.protobuf import here
+(no phase needs them).
 
 Prints one line per phase, then a JSON line of per-kernel numbers, the
 card's name and power limit as nvidia-smi gives them, and last
@@ -174,6 +210,36 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def card_ms(fn, reps: int) -> float:
+    """Mean card milliseconds of fn() where the host, not the card, would
+    set the pace of back-to-back calls (gated launches return at once):
+    the `reps` calls are queued behind a sleeping kernel that outlasts
+    their enqueue, and CUDA events time them on the card alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 10_000_000 / start.elapsed_time(end)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(cycles_per_ms * (2 * host_ms + 20)))
     start.record()
     for _ in range(reps):
         fn()
@@ -1468,12 +1534,14 @@ def gang_run(tag, spec, want) -> dict:
     torch.cuda.synchronize()
     stats = {}
     t0 = time.perf_counter()
-    dc, du = gang.gang_fixpoint_device(arr, cfg, stats=stats)
+    g = gang.gang_dispatch(arr, cfg)
+    enqueue_s = time.perf_counter() - t0
+    dc, du = gang.gang_finish(g, stats)
     torch.cuda.synchronize()
     device_s = time.perf_counter() - t0
     dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
     print(f"[{tag}] device fixpoint (K7 + K8 + K13 queued {G + 1} times, one read at the end) {device_s:.4f} s, "
-          f"host enqueue {stats['enqueue_s']:.4f} s: {stats['iterations']} iterations, choices sha256 {digest(dc)}, "
+          f"host enqueue {enqueue_s:.4f} s: {stats['iterations']} iterations, choices sha256 {digest(dc)}, "
           f"launches {dl}", flush=True)
     check(dl == {"packed_static_rows": G + 1, "chunk_rounds_dense": G + 1, "gang_quorum": G + 1},
           f"{tag}: device fixpoint launches {dl}")
@@ -1514,12 +1582,17 @@ def gang_run(tag, spec, want) -> dict:
     gated_ms = cuda_ms(lambda: (kernels.packed_static_rows(arr, done=done, out=sfs),
                                 kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out),
                                 kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done)), reps=100)
+    gated_card_ms = card_ms(lambda: (kernels.packed_static_rows(arr, done=done, out=sfs),
+                                     kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out),
+                                     kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done)),
+                            reps=100)
     check(torch.equal(pv_g, arr.pod_valid), f"{tag}: a gated gang_quorum launch moved pv")
     print(f"[{tag}] one iteration's kernels: wave_commit {k5_ms:.3f} ms + chunk_rounds {k6_ms:.3f} ms (the host "
           f"fixpoint's route), packed_static_rows {k7_ms:.3f} ms + chunk_rounds_dense {k8_ms:.3f} ms (the device "
           f"fixpoint's); a gated iteration: host {sum(host_us.values()):.1f} us "
-          f"({', '.join(f'{k} {v:.1f}' for k, v in host_us.items())}), device {gated_ms * 1e3:.1f} us", flush=True)
-    return dict(arr=arr, c1=c1, G=G, host_s=host_s, device_s=device_s, enqueue_s=stats["enqueue_s"],
+          f"({', '.join(f'{k} {v:.1f}' for k, v in host_us.items())}), device {gated_ms * 1e3:.1f} us back to "
+          f"back, {gated_card_ms * 1e3:.1f} us of card time queued behind a sleep", flush=True)
+    return dict(arr=arr, c1=c1, G=G, host_s=host_s, device_s=device_s, enqueue_s=enqueue_s,
                 launches=dl, k13_err=k13_err, encode_s=encode_s)
 
 
@@ -1560,6 +1633,401 @@ def phase_config5() -> list:
                  replaces="kubernetes_tpu/ops/gang.py:112", launches=r["launches"]["gang_quorum"],
                  max_abs_err=r["k13_err"], ms=k13_ms, plain_ms=k13_plain, bound_ms=k13_bound, bound_by=k13_by,
                  library_ms=k13_lib)]
+
+
+def phase_gang_rounds(k_ops3: int, k12_row: dict) -> dict:
+    """BASELINE config 3 in PodGroups of 64 through the device fixpoint on
+    the rounds route (K7 with the eligibility plane + K12 + K13 queued G + 1
+    times): the JAX digests, == the port's host fixpoint; K12's gated mode
+    == plain on the first chunks with `done` clear, writing nothing with it
+    set; the wall, the host enqueue of the first fixpoint and of a second
+    (steady) one, and a gated iteration's card time."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, gang, infer_score_config, kernels
+
+    snap = w.grouped(w.spread_affinity(**w.CONFIG3), 64)
+    t0 = time.perf_counter()
+    arr, meta = DeltaEncoder().encode_device(snap)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n, G, P, N = meta.n_pods, arr.group_min.shape[0], arr.P, arr.N
+    check(G == w.GANG_ROUNDS_GROUPS and not assign._chunkable(arr, cfg) and assign._rounds_capable(arr, cfg),
+          f"gang-rounds: G={G}, {cfg}")
+
+    def digest(x, k=None):
+        x = x if k is None else x[:k]
+        return hashlib.sha256(x.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    t0 = time.perf_counter()
+    hc, hu = gang.schedule_with_gangs(arr, cfg)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    g = gang.gang_dispatch(arr, cfg)
+    enqueue_s = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()  # the real K12 alone outlasts the enqueue
+    dc, du = gang.gang_finish(g, stats)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    g2 = gang.gang_dispatch(arr, cfg)
+    steady_enqueue_s = time.perf_counter() - t0
+    dc2, du2 = gang.gang_finish(g2)
+    want = {"packed_static_rows": G + 1, "rounds": G + 1, "gang_quorum": G + 1}
+    if cfg.enable_taint_score or cfg.enable_node_pref:
+        want["score_planes"] = 1
+    print(f"[gang-rounds] grouped(spread_affinity(5000, 10000), 64): P={P} N={N} G={G}, encode {encode_s:.3f} s; "
+          f"device fixpoint (route {stats['route']}, {G + 1} iterations queued) wall {wall_s:.4f} s, host "
+          f"enqueue {enqueue_s:.4f} s (a second fixpoint: {steady_enqueue_s:.4f} s): {stats['iterations']} "
+          f"iterations, scheduled {int((dc[:n] >= 0).sum())}/{n}, choices sha256 {digest(dc, n)}, used sha256 "
+          f"{digest(du)}, launches {dl}; host fixpoint {host_s:.4f} s", flush=True)
+    check(torch.equal(dc2, dc) and torch.equal(du2, du), "gang-rounds: a second fixpoint differs")
+    check(busy, "gang-rounds: gang_dispatch returned after the card had finished (a host read in the enqueue?)")
+    check(dl == want, f"gang-rounds: launches {dl}")
+    check(stats["route"] == "rounds" and stats["iterations"] == w.GANG_ROUNDS_ITERATIONS,
+          f"gang-rounds: {stats}")
+    check(digest(dc, n) == w.GANG_ROUNDS_CHOICES_SHA256 and digest(du) == w.GANG_ROUNDS_USED_SHA256,
+          "gang-rounds: the device fixpoint differs from JAX")
+    check(int((dc[:n] >= 0).sum()) == w.GANG_ROUNDS_SCHEDULED, "gang-rounds: scheduled count")
+    check(torch.equal(dc, hc) and torch.equal(du, hu), "gang-rounds: device fixpoint != host fixpoint")
+
+    # a gated iteration: K7 + K12 + K13 with `done` set (the fixpoint ended)
+    iterate, res, _, _, done = gang._card_loop(arr, cfg, "rounds")
+    done.fill_(1)
+    before = [x.clone() for x in res]
+    t0 = time.perf_counter()
+    for _ in range(100):
+        iterate()
+    gated_host_us = (time.perf_counter() - t0) * 1e4
+    gated_iter_ms = card_ms(iterate, reps=100)
+    check(all(torch.equal(a, b) for a, b in zip(before, res)), "gang-rounds: a gated iteration moved the result")
+
+    # K12's gated mode against plain on the first chunks, and timed at full size
+    npre = ROUNDS_PREFIX_CHUNKS * assign.RCHUNK
+    pre = arr.pod_prefix(npre)
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    sp, ep = sfs[:npre].contiguous(), eligs[:npre].contiguous()
+    zero = torch.zeros((1,), dtype=torch.int32, device=arr.device)
+    so = kernels.scan_out(pre, assign.RCHUNK)
+    kp = kernels.rounds(pre, cfg, sp, ep, (None, None), with_state=True, done=zero, out=so)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pp = assign.schedule_scan_rounds_plain(pre, cfg, sp, ep, (None, None), with_state=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = (sum(mismatch(a, b) for a, b in zip(kp[:3], pp[:3])) + abs(kernels.read_sweeps(kp[3]) - pp[3])
+           + same_state(kp[4], pp[4]))
+    check(err == 0, f"gang-rounds: rounds (gated mode, done clear) != plain on the first chunks ({err})")
+    before = [x.clone() for x in (so.choices, so.ordinals, so.scal, *so.state.values())]
+    one = torch.ones((1,), dtype=torch.int32, device=arr.device)
+    gated_ms = card_ms(lambda: kernels.rounds(pre, cfg, sp, ep, (None, None), done=one, out=so), reps=100)
+    moved = sum(mismatch(a, b) for a, b in zip(before, (so.choices, so.ordinals, so.scal, *so.state.values())))
+    check(moved == 0, f"gang-rounds: a gated rounds launch wrote {moved} entries")
+    so_full = kernels.scan_out(arr, assign.RCHUNK)
+    full_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, sfs, eligs, (None, None), done=zero, out=so_full), reps=2)
+    check(torch.equal(so_full.choices, dc), "gang-rounds: the gated-mode launch != the fixpoint's iteration")
+    k_bytes = full_bytes(arr)
+    b_ms, b_by = bound(k_bytes, k_ops3)
+    print(f"[gang-rounds] a gated iteration (K7 + K12 + K13, done set): card {gated_iter_ms * 1e3:.1f} us, host "
+          f"{gated_host_us:.1f} us; rounds in the gated mode: done clear == plain on the first "
+          f"{ROUNDS_PREFIX_CHUNKS} chunks (plain {plain_ms:.1f} ms, host clock), all chunks {full_ms:.3f} ms "
+          f"(ungated {k12_row['ms']:.3f} ms), bound {b_ms:.4f} ms ({b_by}); done set: {gated_ms * 1e3:.2f} us, "
+          f"nothing written", flush=True)
+    row = dict(name="rounds (gated mode)", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
+               replaces="kubernetes_tpu/ops/gang.py:112 (schedule_batch_impl per iteration)",
+               launches=dl["rounds"], max_abs_err=err + moved, ms=full_ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None, gated_ms=gated_ms, plain_scope=f"first {ROUNDS_PREFIX_CHUNKS} chunks")
+    return row
+
+
+def phase_gang_contended(k12_gated: dict) -> list:
+    """The contended gang batches off the dense route: rounds with pairwise
+    stages and fit-only at P = 64, the per-pod route at P = 8 fit-only (K1 +
+    K2 + K13) and with the full stage set (K7 + K11 + K13), first on their
+    own 2-8 nodes (bench/workloads.py gang_contended), then pinned to a pool
+    of BASELINE config 3's 5000 nodes (gang_pinned: the sidecar's wave
+    sizes against a cluster of real size, N = 6144), each through the
+    device fixpoint with exact launch counts, the JAX digests, == the host
+    fixpoint and a gated iteration's card time; at real size each gated
+    kernel of the route held against its plain version with `done` clear
+    and writing nothing with it set, and timed."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, filters, gang
+    from kubernetes_tpu_torch.ops import infer_score_config, kernels
+
+    per_route = {"rounds": ("packed_static_rows", "rounds"), "perpod-fit": ("static_feasible", "fit_scan"),
+                 "perpod-full": ("packed_static_rows", "full_scan")}
+    rows = {}
+    for scale, name in [(scale, name) for scale in (False, True) for name in w.GANG_CONTENDED]:
+        tag = f"{name} at N=6144" if scale else name
+        route, iters, sched, want_c, want_u = (w.GANG_PINNED_WANT if scale else w.GANG_CONTENDED_WANT)[name]
+        arr, meta = DeltaEncoder().encode_device((w.gang_pinned if scale else w.gang_contended)(name))
+        cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+        n, G = meta.n_pods, arr.group_min.shape[0]
+        hc, hu = gang.schedule_with_gangs(arr, cfg)
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        stats = {}
+        t0 = time.perf_counter()
+        g = gang.gang_dispatch(arr, cfg)
+        dc, du = gang.gang_finish(g, stats)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = {k: G + 1 for k in (*per_route[route], "gang_quorum")}
+        dig_c = hashlib.sha256(dc[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+        dig_u = hashlib.sha256(du.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+        iterate, res, _, _, done = gang._card_loop(arr, cfg, route)
+        done.fill_(1)
+        before = [x.clone() for x in res]
+        gated_iter_ms = card_ms(iterate, reps=50)
+        print(f"[gang-contended] {tag}: P={arr.P} N={arr.N} G={G}, route {stats['route']}, {stats['iterations']} "
+              f"iterations, scheduled {int((dc[:n] >= 0).sum())}/{n}, wall {wall_s:.4f} s, a gated iteration "
+              f"{gated_iter_ms * 1e3:.1f} us of card time, choices sha256 {dig_c}, launches {dl}", flush=True)
+        check(dl == want, f"gang-contended {tag}: launches {dl}")
+        check(stats["route"] == route and stats["iterations"] == iters, f"gang-contended {tag}: {stats}")
+        check(int((dc[:n] >= 0).sum()) == sched and dig_c == want_c and dig_u == want_u,
+              f"gang-contended {tag}: differs from JAX")
+        check(torch.equal(dc, hc) and torch.equal(du, hu), f"gang-contended {tag}: device != host fixpoint")
+        check(all(torch.equal(a, b) for a, b in zip(before, res)), f"gang-contended {tag}: a gated iteration wrote")
+        if not scale:
+            continue
+
+        # the route's gated kernels against plain (done clear), then done set
+        zero = torch.zeros((1,), dtype=torch.int32, device=arr.device)
+        one = torch.ones((1,), dtype=torch.int32, device=arr.device)
+        if route == "perpod-fit":
+            sf = torch.zeros((arr.P, arr.N), dtype=torch.bool, device=arr.device)
+            kernels.static_feasible(arr, done=zero, out=sf)
+            t0 = time.perf_counter()
+            sf_p = filters.static_feasible_plain(arr)
+            torch.cuda.synchronize()
+            k1_plain = (time.perf_counter() - t0) * 1e3
+            fo = kernels.fit_scan_out(arr, cfg)
+            ck, uk, n_scored = kernels.fit_scan(sf, arr, cfg, done=zero, out=fo)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp, up = assign.schedule_scan_plain(arr, cfg, sf=sf_p)
+            torch.cuda.synchronize()
+            k2_plain = (time.perf_counter() - t0) * 1e3
+            err1 = mismatch(sf, sf_p)
+            err2 = mismatch(ck, cp) + mismatch(uk.contiguous(), up)
+            k1_ms = cuda_ms(lambda: kernels.static_feasible(arr, done=zero, out=sf), reps=20)
+            k2_ms = cuda_ms(lambda: kernels.fit_scan(sf, arr, cfg, done=zero, out=fo), reps=20)
+            before = [x.clone() for x in (sf, fo.choices, fo.used_t, fo.n_scored)]
+            k1_gated = card_ms(lambda: kernels.static_feasible(arr, done=one, out=sf), reps=50)
+            k2_gated = card_ms(lambda: kernels.fit_scan(sf, arr, cfg, done=one, out=fo), reps=50)
+            moved = sum(mismatch(a, b) for a, b in zip(before, (sf, fo.choices, fo.used_t, fo.n_scored)))
+            check(err1 + err2 + moved == 0, f"gang-contended {tag}: K1/K2 gated mode ({err1}, {err2}, {moved})")
+            T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
+            S, E, L = arr.sel_mask.shape
+            P, N = arr.P, arr.N
+            b1 = bound((N * (2 + T + L) + P * (2 + T) + 4 * P * (1 + TT) + S * E * L + 4 * S * E) + P * N,
+                       P * N * (3 + T + TT))
+            b2 = bound(P * N + sum(t.numel() * t.element_size() for t in (arr.pod_req, arr.pod_valid,
+                                                                           arr.node_alloc, arr.node_used))
+                       + 4 * P + 4 * N * arr.R,  # the choices and the usage written
+                       f32_ops_per_scored_node(cfg) * int(n_scored.item()))
+            print(f"[gang-contended] {tag}: static_feasible / fit_scan in the gated mode == plain (done clear: "
+                  f"{k1_ms:.4f} / {k2_ms:.4f} ms; done set: {k1_gated * 1e3:.2f} / {k2_gated * 1e3:.2f} us, "
+                  f"nothing written)", flush=True)
+            for kname, src, rep_, lc, err, ms, pms, b, gms in (
+                    ("static_feasible", "static_feasible.cu", "kubernetes_tpu/ops/filters.py:81", dl["static_feasible"],
+                     err1, k1_ms, k1_plain, b1, k1_gated),
+                    ("fit_scan", "fit_scan.cu", "kubernetes_tpu/ops/assign.py:181", dl["fit_scan"], err2, k2_ms,
+                     k2_plain, b2, k2_gated)):
+                rows[kname] = dict(name=f"{kname} (gated mode)", route="cuda",
+                                   source=f"kubernetes_tpu_torch/csrc/{src}", replaces=rep_, launches=lc,
+                                   max_abs_err=err + moved, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                                   library_ms=None, gated_ms=gms, shape=f"P={arr.P} N={arr.N}")
+        else:
+            sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+            planes = assign.score_planes(arr, cfg)
+            scan = "rounds" if route == "rounds" else "full_scan"
+            so = kernels.scan_out(arr, assign.RCHUNK if scan == "rounds" else None)
+
+            def launch(done):
+                if scan == "rounds":
+                    return kernels.rounds(arr, cfg, sfs, eligs, planes, with_state=True, done=done, out=so)
+                return kernels.full_scan(arr, cfg, sfs, eligs, planes, with_state=True, done=done, out=so)
+
+            kr = launch(zero)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if scan == "rounds":
+                pr = assign.schedule_scan_rounds_plain(arr, cfg, sfs, eligs, planes, with_state=True)
+                err = (mismatch(kr[0], pr[0]) + mismatch(kr[1], pr[1]) + mismatch(kr[2], pr[2])
+                       + abs(kernels.read_sweeps(kr[3]) - pr[3]) + same_state(kr[4], pr[4]))
+            else:
+                pr = assign.schedule_scan_plain(arr, cfg, sf=bitplane.unpack(sfs, arr.N), planes=planes,
+                                                with_state=True)
+                err = mismatch(kr[0], pr[0]) + mismatch(kr[1], pr[1]) + same_state(kr[2], pr[2])
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            ms = cuda_ms(lambda: launch(zero), reps=20)
+            before = [x.clone() for x in (so.choices, so.ordinals, so.scal, *so.state.values())]
+            g_ms = card_ms(lambda: launch(one), reps=50)
+            moved = sum(mismatch(a, b) for a, b in zip(before, (so.choices, so.ordinals, so.scal,
+                                                                  *so.state.values())))
+            check(err + moved == 0, f"gang-contended {tag}: {scan} gated mode ({err}, {moved})")
+            print(f"[gang-contended] {tag}: {scan} in the gated mode == plain (done clear {ms:.4f} ms, plain "
+                  f"{p_ms:.1f} ms host clock; done set {g_ms * 1e3:.2f} us, nothing written)", flush=True)
+            if scan == "rounds":
+                k12_gated["max_abs_err"] += err + moved
+            else:
+                ops, _ = full_ops(arr, cfg, sfs, eligs, dc)
+                b = bound(full_bytes(arr), ops)
+                rows["full_scan"] = dict(name="full_scan (gated mode)", route="cuda",
+                                         source="kubernetes_tpu_torch/csrc/full_scan.cu",
+                                         replaces="kubernetes_tpu/ops/assign.py:181", launches=dl["full_scan"],
+                                         max_abs_err=err + moved, ms=ms, plain_ms=p_ms, bound_ms=b[0],
+                                         bound_by=b[1], library_ms=None, gated_ms=g_ms,
+                                         shape=f"P={arr.P} N={arr.N}")
+    return [rows["static_feasible"], rows["fit_scan"], rows["full_scan"]]
+
+
+def sidecar_run(tag: str, snap, gang_wave: bool, waves: int, want: list, want_launches) -> dict:
+    """The sidecar engine on the card, a session built directly (no wire):
+    workloads.session_waves, counted; each wave's verdicts == the JAX
+    engine's; the encode / dispatch (both under the device lock) / step
+    (the read back, outside it) split per wave."""
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import SpecInterner
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.runtime.convert import clone_pod
+    from kubernetes_tpu_torch.runtime.sidecar import _Engine, _Session
+
+    eng = _Engine(device="cuda")
+    seen = {}
+    observe = eng.metrics.observe
+
+    def record(name, v):
+        seen.setdefault(name, []).append(v)
+        observe(name, v)
+
+    eng.metrics.observe = record
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = w.session_waves(eng, lambda: _Session(1.0, "cuda"), clone_pod, SpecInterner(), snap, gang_wave, waves)
+    wall_s = time.perf_counter() - t0
+    dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    enc, disp, step = (seen[f"sidecar_{k}_seconds"] for k in ("encode", "dispatch", "step"))
+    for i, r in enumerate(res):
+        print(f"[{tag}] wave {i + 1}: scheduled {r['scheduled']}, verdicts sha256 {r['sha256']}; "
+              f"sidecar_encode_seconds {enc[i]:.4f}, sidecar_dispatch_seconds {disp[i]:.4f} (the lock held "
+              f"{enc[i] + disp[i]:.4f} s), sidecar_step_seconds {step[i]:.4f}", flush=True)
+    print(f"[{tag}] {waves} waves {wall_s:.3f} s (pregrouping included), launches {dl}", flush=True)
+    check([(r["scheduled"], r["sha256"]) for r in res] == [tuple(x) for x in want], f"{tag}: differs from JAX")
+    check(dl == want_launches, f"{tag}: launches {dl}")
+    return dict(engine=eng, dispatch=disp, launches=dl)
+
+
+def phase_sidecar_north_star() -> None:
+    """The sidecar engine at the north star: wave 1 the whole pending set
+    through run_session(gang=False) (the dense route), then bench.py's wave
+    2 with wave 1's placements bound; and the pregrouped encode against
+    encode_device on wave 1, each on a cold encoder."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.api.snapshot import SpecInterner
+    from kubernetes_tpu_torch.bench import workloads as w
+
+    snap = w.heterogeneous(**w.NORTH_STAR)
+    sidecar_run("sidecar-north-star", snap, False, 2, w.SIDECAR_NORTH_STAR_WAVES,
+                {"packed_static_rows": 2, "chunk_rounds_dense": 2})
+    t0 = time.perf_counter()
+    uids, reps, inv = w.pregroup(snap.pending_pods, SpecInterner())
+    t1 = time.perf_counter()
+    a1, m1 = DeltaEncoder().encode_device_pregrouped(snap.nodes, snap.bound_pods, snap.pod_groups, uids, reps, inv)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    a2, m2 = DeltaEncoder().encode_device(snap)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    check(all(torch.equal(getattr(a1, f), getattr(a2, f)) for f in type(a1).FIELDS),
+          "sidecar-north-star: the pregrouped encode != encode_device")
+    print(f"[sidecar-north-star] cold encodes of wave 1: encode_device_pregrouped {t2 - t1:.4f} s (+ the "
+          f"interning a wire client does, {t1 - t0:.4f} s) against encode_device {t3 - t2:.4f} s; arrays equal",
+          flush=True)
+
+
+def phase_sidecar_config5() -> None:
+    """The sidecar engine on BASELINE config 5, in a fresh process (this
+    script with --sidecar-config5): one gang wave through
+    run_session(gang=True), the device fixpoint on the dense route (1001
+    queued iterations under the lock), then the same wave again on a new
+    session.  In a fresh process the engine has loaded every route's
+    kernel modules when it started, so the first wave's dispatch under the
+    lock should be the enqueue alone, as the second's is."""
+    import torch
+
+    torch.cuda.empty_cache()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--sidecar-config5"], capture_output=True,
+                         text=True, timeout=600, cwd=HERE)
+    lines = run.stdout.splitlines()
+    ok = run.returncode == 0 and bool(lines) and lines[-1].startswith("{")
+    for line in lines[:-1] if ok else lines:
+        print(line, flush=True)
+    check(ok, f"sidecar-config5: the child failed ({run.returncode}): {run.stderr[-4000:]}")
+    r = json.loads(lines[-1])
+    print(f"[sidecar-config5] fresh process: the lock held for dispatch {r['dispatch'][0]:.4f} s on the first "
+          f"gang wave, {r['dispatch'][1]:.4f} s on the second (ratio {r['dispatch'][0] / r['dispatch'][1]:.3f}); "
+          f"engine start (build + module loads) {r['engine_start_s']:.3f} s", flush=True)
+
+
+def sidecar_config5_child() -> int:
+    """The child of phase_sidecar_config5: prints its phase lines, then one
+    JSON line (the dispatch seconds of both waves, the engine's start)."""
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import SpecInterner
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.runtime import sidecar
+
+    G = w.CONFIG5["n_groups"]
+    snap = w.gang(**w.CONFIG5)
+    t0 = time.perf_counter()
+    sidecar._Engine(device="cuda")  # a first engine: the build and the module loads
+    start_s = time.perf_counter() - t0
+    r = sidecar_run("sidecar-config5", snap, True, 1, w.SIDECAR_CONFIG5_WAVES,
+                    {"packed_static_rows": G + 1, "chunk_rounds_dense": G + 1, "gang_quorum": G + 1})
+    sess = sidecar._Session(1.0, "cuda")
+    sess.nodes, sess.pod_groups = list(snap.nodes), dict(snap.pod_groups)
+    choices, _ = r["engine"].run_session(sess, w.pregroup(snap.pending_pods, SpecInterner()), True)
+    torch.cuda.synchronize()
+    check(int((choices >= 0).sum()) == w.SIDECAR_CONFIG5_WAVES[0][0], "sidecar-config5: the second wave differs")
+    print(json.dumps({"dispatch": r["dispatch"], "engine_start_s": start_s}), flush=True)
+    return 0
+
+
+def phase_env() -> None:
+    """Whether the sidecar's wire modules exist on this machine (no phase
+    depends on it)."""
+    import importlib
+    import importlib.util
+
+    found = {}
+    for name, parent in (("grpc", None), ("google.protobuf", "google")):
+        ok = (parent is None or importlib.util.find_spec(parent) is not None) and \
+            importlib.util.find_spec(name) is not None
+        found[name] = getattr(importlib.import_module(name), "__version__", "?") if ok else None
+    print(f"[env] grpc {found['grpc'] or 'absent'}, google.protobuf {found['google.protobuf'] or 'absent'}",
+          flush=True)
 
 
 def explain_bound(arr, F: int) -> tuple:
@@ -1744,6 +2212,7 @@ def main() -> int:
         print("chip_smoke: kubernetes_tpu_torch is not beside this script", file=sys.stderr)
         return 2
     card, name = phase_card()
+    phase_env()
     phase_build()
     phase_mixed()
     step_s, rows = phase_north_star()
@@ -1758,6 +2227,7 @@ def main() -> int:
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
     cold3, _, inc_rows = phase_config3_inc(c3)
+    k_ops3 = c3[-1]
     del c3
     phase_config3_warm(cold3)
     k10_rows, (k11_err, k12_err) = phase_all_stages()
@@ -1766,6 +2236,10 @@ def main() -> int:
     rows += k10_rows + [k11_row, k12_row] + inc_rows
     phase_gang_small()
     rows += phase_config5()
+    k12_gated = phase_gang_rounds(k_ops3, k12_row)
+    rows += phase_gang_contended(k12_gated) + [k12_gated]
+    phase_sidecar_north_star()
+    phase_sidecar_config5()
     rows += phase_preempt(k14)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
@@ -1775,4 +2249,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(sidecar_config5_child() if sys.argv[1:] == ["--sidecar-config5"] else main())

@@ -31,7 +31,14 @@ failure loop drives them by bench/preempt_bench.py:
     from kubernetes_tpu_torch.bench.preempt_bench import build, failure_cycle
     r = failure_cycle(build(50, 12), device="cpu")   # diagnosis + nominations
 
+The sidecar's server side is ported too (runtime/sidecar.py: the session
+engine over DeltaEncoder.encode_pregrouped, gang waves through the device
+fixpoint on every route, and the gRPC TPUScoreServer on the JAX package's
+wire):
+
+    python -m kubernetes_tpu_torch.runtime.sidecar --listen 127.0.0.1:50151 [--device cpu]
+
 Volumes and resource claims raise NotImplementedError; the Scheduler
-itself and the CPU PostFilter are not ported (see ROADMAP.md queues A and
-B).
+itself, the sidecar's client and the CPU PostFilter are not ported (see
+ROADMAP.md queues A and B).
 """

@@ -38,9 +38,14 @@ Pod groups (gangs) become ``pod_group`` / ``group_min`` as in the JAX
 package (api/delta.py:1333-1348), and the groups' (name, minMember) pairs
 enter the pod side's cache key.
 
+The sidecar's session path (``encode_pregrouped``, the JAX package's
+api/delta.py:1033) encodes a wave that arrives interned -- spec reps, each
+pod's spec index and the uids -- without one pod object per pending pod;
+a bound copy the server clones from the rep is absorbed through the rep.
+
 Not ported here (each refused where it would be needed, never dropped):
 volumes and resource claims (the cluster side keeps no storage
-fingerprint), the sidecar's ``encode_pregrouped``, and mesh placement.
+fingerprint; the sidecar's wire carries neither) and mesh placement.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from .snapshot import (
     _bucket,
     _image_score_matrix,
     _node_taints,
+    _pod_spec_key,
     _refuse,
     _resource_axis,
     _round_up_pow2,
@@ -172,6 +178,23 @@ def _check_pending(reps, pending) -> None:
 # --------------------------------------------------------------------------
 # cluster side: resident, delta-updated state
 # --------------------------------------------------------------------------
+
+
+@dataclass
+class _WaveView:
+    """Snapshot-shaped view for the pregrouped (sidecar) encode: the wire
+    carries no PV, PVC, class or slice (constraints arrive resolved by the
+    client), so the storage fields stay empty."""
+
+    nodes: list
+    pending_pods: tuple
+    bound_pods: list
+    pod_groups: dict
+    pvs: tuple = ()
+    pvcs: dict = field(default_factory=dict)
+    storage_classes: dict = field(default_factory=dict)
+    resource_slices: tuple = ()
+    device_classes: dict = field(default_factory=dict)
 
 
 class _Fallback(Exception):
@@ -583,7 +606,10 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
             went = wave_store.get(wid)
             if went is not None:
                 i = packed & 0xFFFFFFFF
-                ent_wave = (went[0][i], went[1][went[2][i]])
+                rep_i = went[1][went[2][i]]
+                # a pregrouped wave stores no pod objects: its rep is the
+                # wave-time object (the server clones bound copies from it)
+                ent_wave = (went[0][i] if went[0] is not None else rep_i, rep_i)
                 went[3] -= 1  # drained waves release their pod lists
                 if went[3] <= 0:
                     del wave_store[wid]
@@ -714,6 +740,7 @@ class DeltaEncoder:
         # in-place mutation.
         self.debug_verify = debug_verify
         self._interner = SpecInterner()
+        self._rep_key_memo: Dict[int, Tuple] = {}  # id(rep) -> (spec key, rep): encode_pregrouped
         self._copy_stream = None
         self._staging = _Staging()
 
@@ -725,11 +752,55 @@ class DeltaEncoder:
         perm = activeq_order(pending)
         sorted_pending = [pending[i] for i in perm]
         reps, inv, rep_keys = self._interner.group(sorted_pending)
-        return self._encode_core(snap, reps, inv, perm, rep_keys, _resource_axis(snap), sorted_pending)
+        return self._encode_core(snap, reps, inv, perm, rep_keys, _resource_axis(snap),
+                                 [p.uid for p in sorted_pending], sorted_pending)
 
-    def _encode_core(self, snap, reps, inv, perm, rep_keys, resources, wave_pods):
+    def encode_pregrouped(self, nodes, bound_pods, pod_groups, uids, reps, inv):
+        """The sidecar's session path (the JAX package's api/delta.py:1033):
+        the wave arrives interned -- spec `reps`, each pod's spec index `inv`
+        and the `uids` (runtime/convert.py wave_parts_from_proto) -- and is
+        encoded without one pod object per pending pod; verdicts come back
+        by uid (meta.pod_names).  `reps` should be the same objects wave
+        after wave (the session's rep cache), so the rep-key memo and the
+        pod-side cache hit.  -> (ClusterArrays of host arrays, EncodingMeta)."""
+        inv = np.asarray(inv, dtype=np.int64)
+        # activeQ order from the reps' priorities (activeq_order reads the
+        # same field of every pod)
+        prio = (np.array([r.priority for r in reps], dtype=np.int64)[inv] if len(reps)
+                else np.zeros(len(uids), dtype=np.int64))
+        perm = np.argsort(-prio, kind="stable")
+        inv_sorted = inv[perm]
+        uids_sorted = [uids[i] for i in perm]
+        rep_keys = tuple(self._rep_key(r) for r in reps)
+        shim = _WaveView(nodes=nodes, pending_pods=(), bound_pods=bound_pods, pod_groups=pod_groups)
+        # the resource axis by the one first-seen rule, the reps standing in
+        # for the pending pods
+        resources = _resource_axis(_WaveView(nodes=nodes, pending_pods=tuple(reps), bound_pods=bound_pods,
+                                             pod_groups=pod_groups))
+        return self._encode_core(shim, reps, inv_sorted, perm, rep_keys, resources, uids_sorted, None)
+
+    def encode_device_pregrouped(self, nodes, bound_pods, pod_groups, uids, reps, inv):
+        """encode_pregrouped() with the arrays placed on the encoder's
+        device, reusing resident tensors as encode_device() does."""
+        return self._to_device(*self.encode_pregrouped(nodes, bound_pods, pod_groups, uids, reps, inv))
+
+    def _rep_key(self, rep):
+        """The canonical spec key of a rep, memoized by object identity (the
+        entry holds the rep, so a recycled id never aliases a live one)."""
+        ent = self._rep_key_memo.get(id(rep))
+        if ent is not None and ent[1] is rep:
+            return ent[0]
+        if len(self._rep_key_memo) > 65536:
+            self._rep_key_memo.clear()
+        key = _pod_spec_key(rep)
+        self._rep_key_memo[id(rep)] = (key, rep)
+        return key
+
+    def _encode_core(self, snap, reps, inv, perm, rep_keys, resources, wave_uids, wave_pods):
         """Cluster-side reuse or rebuild, bound-pod sync, the wave's
-        bind-absorb bookkeeping, assembly."""
+        bind-absorb bookkeeping, assembly.  `wave_pods` is None on the
+        pregrouped path: the bind-absorb then checks a bound copy against
+        its rep, and the meta's pod names are the uids."""
         raw_nodes_fp, _ = raw_fingerprints(snap)
         wfp = wave_fingerprint(reps, resources)
         cs = self._cs
@@ -751,25 +822,25 @@ class DeltaEncoder:
             cs.stats["rebuilds"] += 1
             self._cs = cs
             self.stats["full"] += 1
-        _check_pending(reps, wave_pods)
+        _check_pending(reps, wave_pods or ())
         # remember this wave's specs so the next cycle's bind-absorb is O(1)
         # per pod; size-capped so never-scheduled uids cannot pile up
-        if len(cs.wave_ix) > 4 * (len(cs.records) + len(wave_pods) + 1024):
+        if len(cs.wave_ix) > 4 * (len(cs.records) + len(wave_uids) + 1024):
             cs.wave_ix.clear()
             cs.wave_store.clear()
             cs.rep_bound_info.clear()
         wid = cs.wave_next
         cs.wave_next = wid + 1
-        cs.wave_store[wid] = [wave_pods, reps, inv.tolist(), len(wave_pods)]
+        cs.wave_store[wid] = [wave_pods, reps, inv.tolist(), len(wave_uids)]
         base = wid << 32
-        cs.wave_ix.update(zip((p.uid for p in wave_pods), map(base.__or__, range(len(wave_pods)))))
+        cs.wave_ix.update(zip(wave_uids, map(base.__or__, range(len(wave_uids)))))
         # a stable backlog re-pends the same uids each cycle: sweep the
         # waves no index entry references any more
         if len(cs.wave_store) > 8:
             live = {x >> 32 for x in cs.wave_ix.values()}
             for w in [w for w in cs.wave_store if w not in live]:
                 del cs.wave_store[w]
-        return _assemble(cs, snap, reps, inv, perm, rep_keys)
+        return _assemble(cs, snap, reps, inv, perm, rep_keys, wave_uids if wave_pods is None else None)
 
     @staticmethod
     def _verify_against_rebuild(cs: ClusterSide, snap) -> None:
@@ -1064,15 +1135,17 @@ def _class_index(inv: np.ndarray, U: int, p: int, P: int):
     return pc, first
 
 
-def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, rep_keys):
+def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, rep_keys,
+              wave_names: Optional[List[str]] = None):
     """The wave's arrays against the resident cluster side -> (ClusterArrays
     of host arrays, EncodingMeta).  While the wave's spec keys, inverse
     index, padding and scale are the previous cycle's, the whole pod side
-    is reused from the cache."""
+    is reused from the cache.  `wave_names`: a pregrouped wave's uids in
+    activeQ order, which stand for its pods (snap has none)."""
     nodes = cs.nodes
     pending = snap.pending_pods
     n = len(nodes)
-    p = len(pending)
+    p = len(wave_names) if wave_names is not None else len(pending)
     N = _bucket(n)
     P = _bucket(p)
     resources = list(cs.wfp.resources)
@@ -1151,7 +1224,7 @@ def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, re
     )
     meta = EncodingMeta(
         node_names=[nd.name for nd in nodes],
-        pod_names=[pending[i].name for i in perm],
+        pod_names=list(wave_names) if wave_names is not None else [pending[i].name for i in perm],
         pod_perm=perm,
         resources=resources,
         resource_scale=scale,

@@ -569,3 +569,200 @@ def all_stages(n_nodes: int = 240, n_pods: int = 512, seed: int = 99) -> Snapsho
             pod.images = ("registry/app:v1",)
         pods.append(pod)
     return Snapshot(nodes=nodes, pending_pods=pods)
+
+
+# ---------------------------------------------------------------------------
+# gangs off the dense route, and the sidecar's session waves
+# ---------------------------------------------------------------------------
+
+def grouped(snap, size: int = 64, group_cls=t.PodGroup):
+    """`snap` with its pending pods put into PodGroups of `size` in list
+    order (pg-0, pg-1, ...), each needing all its pods: the last group is
+    smaller and its min_member is its size.  `group_cls` is the PodGroup
+    type of the snapshot's package (the port's, or the JAX package's for
+    the reference), so one definition serves both."""
+    pods = snap.pending_pods
+    out, groups = [], dict(snap.pod_groups)
+    for g0 in range(0, len(pods), size):
+        name = f"pg-{g0 // size}"
+        members = pods[g0:g0 + size]
+        groups[name] = group_cls(name=name, min_member=len(members))
+        out.extend(dataclasses.replace(p, pod_group=name) for p in members)
+    return dataclasses.replace(snap, pending_pods=out, pod_groups=groups)
+
+
+def _job_pod(name: str, job: str, cpu: int, prio: int, **kw) -> t.Pod:
+    return t.Pod(name=name, labels={"job": job}, requests={t.CPU: cpu, t.MEMORY: GI}, pod_group=job,
+                 priority=prio, **kw)
+
+
+def gang_contended(name: str, seed: int = 0) -> Snapshot:
+    """Contended gang batches that revoke groups, one per route the device
+    fixpoint takes off the dense route (P after bucketing):
+
+    rounds-pairwise  P=64: 12 jobs of 4 on 8 nodes in 2 zones, each job
+                     one pod per node (hostname anti-affinity to itself)
+                     and spread over the zones (maxSkew 1);
+    rounds-fit       P=64, fit-only: 10 jobs of 5 on 4 nodes;
+    perpod-fit       P=8, fit-only: jobs of 3, 3 and 2 on 2 nodes;
+    perpod-full      P=8: two jobs of 4 with hostname anti-affinity to
+                     themselves on 3 nodes (the first needs all 4)."""
+    rng = random.Random(seed)
+
+    def nodes(n, cpu, zones=1):
+        return [t.Node(name=f"n{i}", allocatable={t.CPU: cpu, t.MEMORY: 64 * GI, t.PODS: 110},
+                       labels={t.LABEL_ZONE: f"z{i % zones}"}) for i in range(n)]
+
+    def anti(job):
+        return t.Affinity(required_pod_anti_affinity=(
+            t.PodAffinityTerm(topology_key=t.LABEL_HOSTNAME, label_selector=t.LabelSelector.of(job=job)),))
+
+    pods, groups = [], {}
+    if name == "rounds-pairwise":
+        ns = nodes(8, 4000, zones=2)
+        for g in range(12):
+            job = f"job-{g}"
+            groups[job] = t.PodGroup(job, 4 if g % 3 else 3)
+            spread = (t.TopologySpreadConstraint(max_skew=1, topology_key=t.LABEL_ZONE,
+                                                 label_selector=t.LabelSelector.of(job=job)),)
+            cpu, prio = rng.choice([1000, 1500, 2500]), rng.choice([0, 10])
+            pods += [_job_pod(f"{job}-w{m}", job, cpu, prio, affinity=anti(job), topology_spread=spread)
+                     for m in range(4)]
+    elif name == "rounds-fit":
+        ns = nodes(4, 4000)
+        for g in range(10):
+            job = f"job-{g}"
+            groups[job] = t.PodGroup(job, 5)
+            cpu, prio = rng.choice([500, 1000, 1500]), rng.choice([0, 10])
+            pods += [_job_pod(f"{job}-w{m}", job, cpu, prio) for m in range(5)]
+    elif name == "perpod-fit":
+        ns = nodes(2, 2000)
+        for g, size in enumerate((3, 3, 2)):
+            job = f"job-{g}"
+            groups[job] = t.PodGroup(job, size)
+            cpu, prio = rng.choice([600, 900]), rng.choice([0, 10])
+            pods += [_job_pod(f"{job}-w{m}", job, cpu, prio) for m in range(size)]
+    elif name == "perpod-full":
+        ns = nodes(3, 4000)
+        for g in range(2):
+            job = f"job-{g}"
+            groups[job] = t.PodGroup(job, 4 - g)
+            pods += [_job_pod(f"{job}-w{m}", job, 500, 0, affinity=anti(job)) for m in range(4)]
+    else:
+        raise KeyError(name)
+    return Snapshot(nodes=ns, pending_pods=pods, pod_groups=groups)
+
+
+GANG_CONTENDED = ("rounds-pairwise", "rounds-fit", "perpod-fit", "perpod-full")
+
+
+def gang_pinned(name: str, n_nodes: int = CONFIG3["n_nodes"], seed: int = 0) -> Snapshot:
+    """gang_contended(name)'s wave on BASELINE config 3's cluster
+    (spread_affinity(n_nodes, 0, seed)'s nodes: 32 CPUs each, zones i % 3),
+    each job pinned to a pool of the cluster's nodes, as a gang is pinned
+    to the nodes that hold its reservation: the small batch's k nodes become
+    the first k cluster nodes in zones 0 and 1 (alternating, as the small
+    batch's two zones), every pod gets required node affinity to their
+    hostnames, and its CPU request is scaled by 32000 / the small node's
+    CPU, so the contention is the small batch's.  The wave is as small as
+    the sidecar sends it (P = 64 or 8); every kernel runs over the whole
+    cluster."""
+    small = gang_contended(name, seed)
+    cluster = spread_affinity(n_nodes, 0, seed).nodes
+    pool = tuple(nd.name for nd in cluster if nd.labels[t.LABEL_ZONE] != "zone-2")[:len(small.nodes)]
+    pin = t.NodeSelectorTerm((t.NodeSelectorRequirement(t.LABEL_HOSTNAME, t.OP_IN, pool),))
+    scale = cluster[0].allocatable[t.CPU] // small.nodes[0].allocatable[t.CPU]
+    pods = []
+    for p in small.pending_pods:
+        aff = p.affinity or t.Affinity()
+        pods.append(dataclasses.replace(p, requests={**p.requests, t.CPU: p.requests[t.CPU] * scale},
+                                        affinity=dataclasses.replace(aff, required_node_terms=(pin,))))
+    return Snapshot(nodes=cluster, pending_pods=pods, pod_groups=small.pod_groups)
+
+
+def pregroup(pods, interner):
+    """A wave as the sidecar's wire carries it, interned by spec: (uids,
+    reps, inv) — `interner` is the package's SpecInterner."""
+    reps, inv, _ = interner.group(pods)
+    return [p.uid for p in pods], list(reps), np.asarray(inv, dtype=np.int64)
+
+
+def session_waves(engine, new_session: Callable, clone_pod, interner, snap, gang: bool,
+                  waves: int = 2) -> List[dict]:
+    """The sidecar engine's session path without the wire, the same for the
+    port and the JAX package (each passes its own _Engine, a factory of its
+    _Session at hardPodAffinityWeight 1, convert.clone_pod and
+    SpecInterner): wave 1 is the whole pending set,
+    pregrouped, through engine.run_session; wave w > 1 is bench.py's wave w
+    (mk_wave) with the placements of wave w - 1 bound as the server binds
+    them, clone_pod of the spec rep.  -> per wave {"verdicts": node index
+    per pod in request order (-1: unscheduled), "scheduled", "sha256"}."""
+    sess = new_session()
+    sess.nodes = list(snap.nodes)
+    sess.bound = {p.uid: p for p in snap.bound_pods}
+    sess.pod_groups = dict(snap.pod_groups)
+    names = [nd.name for nd in sess.nodes]
+    pods = snap.pending_pods
+    out = []
+    for w in range(1, waves + 1):
+        if w > 1:
+            pods = mk_wave(snap, w)
+        uids, reps, inv = pregroup(pods, interner)
+        choices, meta = engine.run_session(sess, (uids, reps, inv), gang)
+        v = np.full(meta.n_pods, -1, dtype=np.int64)
+        v[meta.pod_perm] = np.asarray(choices[: meta.n_pods], dtype=np.int64)
+        out.append({"verdicts": v, "scheduled": int((v >= 0).sum()),
+                    "sha256": hashlib.sha256(v.astype("<i4").tobytes()).hexdigest()})
+        sess.bound = {uid: clone_pod(reps[inv[k]], uid, uid, names[int(v[k])])
+                      for k, uid in enumerate(uids) if v[k] >= 0}
+    return out
+
+
+# The JAX package's numbers for the gangs off the dense route and the
+# sidecar's session path (tests/torch_north_star_digest.py, legs
+# gang-rounds, gang-contended, gang-pinned, sidecar-north-star and sidecar-config5,
+# KTPU_FORCE_CHUNKED=1 on the CPU).  gang-rounds: BASELINE config 3 in
+# PodGroups of 64 (grouped(spread_affinity(5000, 10000, seed=0))) through
+# the JAX gang_fixpoint_device, the rounds route each iteration: every
+# group placed, so one real iteration; the sha256 of choices[:n_pods] and
+# of the whole usage as little-endian int32.
+GANG_ROUNDS_GROUPS = 157
+GANG_ROUNDS_ITERATIONS = 1
+GANG_ROUNDS_SCHEDULED = 10000
+GANG_ROUNDS_CHOICES_SHA256 = "0ed727a5e4bec796440ebbc8497ada5a0e3f6bb9d0f4aff48a6e7dfb187b7db0"
+GANG_ROUNDS_USED_SHA256 = "4f2b32c56a4a2126c435b5683b21dc261e18c4aa68a891501778229e2fc33e14"
+# gang_contended(name) through the JAX device fixpoint: name -> (route,
+# iterations = 1 + revoked groups, scheduled pods, choices sha256, usage
+# sha256)
+GANG_CONTENDED_WANT = {
+    "rounds-pairwise": ("rounds", 8, 20, "449fac7eeaad99d362fa4de7dfea914c92fa2b6cc53d2225111f4fef8d7c760b",
+                        "bd053d36318ddb75c40e97cd3104c3ea24346735c586d212ff9f973880607110"),
+    "rounds-fit": ("rounds", 7, 20, "1267deeb7c051d7e87e9368e3dce7deccec6efb58b8b577f10869d19e12d4568",
+                   "66ac01511a08aa1b78beee13d3445aa580d70a2e40741c7983730696c34e4dc0"),
+    "perpod-fit": ("perpod-fit", 3, 3, "2b16db48fb6f31ff0dc873d36b7f4a54644bf7b5ae192c5bb53b786e318f3914",
+                   "417796b7de9ca40312e769a2a058b78a3de27f2032a7ed00d1f03936cee8b95e"),
+    "perpod-full": ("perpod-full", 2, 3, "f336f481e82e19a76f2daa26aac7a93f37d977c133b26934f5afb095cd01a8ed",
+                    "5297cc54611e13063e8db1b640fe04dd1bbbf3744ecec575c414e07781cb551a"),
+}
+# gang_pinned(name) (the same batches pinned to a pool of config 3's 5000
+# nodes: P = 64 or 8, N = 6144) through the JAX device fixpoint, as above
+GANG_PINNED_WANT = {
+    "rounds-pairwise": ("rounds", 8, 20, "9526714211eb3dc0f9d1b4ca150c84893f5711dec3f2b62554290a49ca631605",
+                        "eb3d6447a2d312c686dd313550029dc482da404ff293af6efc473bf18f5ef8c8"),
+    "rounds-fit": ("rounds", 7, 20, "99b94d93ca6d7b6529042e0310384a26dc5608d93c92fc01f536df039c06d97e",
+                   "cdd4fdad971709cbfecb814cd93b14b682e583712f891f65d8d022ca40190859"),
+    "perpod-fit": ("perpod-fit", 3, 3, "2b16db48fb6f31ff0dc873d36b7f4a54644bf7b5ae192c5bb53b786e318f3914",
+                   "203b4f0d6588c99df2f60ca6a2d20cd574a68c399d218f32b1212287c3a277e5"),
+    "perpod-full": ("perpod-full", 2, 3, "2624103bf017f0f785bd55a56499c5737c3066c5ab71b747566abdcaf70171b0",
+                    "6e9051228e82fb732014dcdac19746d599c222af6be2ae9c632b60384b8e1ef6"),
+}
+# The JAX sidecar engine's session path (session_waves, no wire): per wave
+# the scheduled count and the sha256 of the verdicts in request order.
+# North star: wave 1 the whole pending set (the dense route), wave 2
+# bench.py's wave 2 with wave 1's placements bound; config 5: one gang
+# wave (the device fixpoint on the dense route).
+SIDECAR_NORTH_STAR_WAVES = [
+    (50000, "89d013b3a52282f3779216d3c0b0eac07183cb544d6b431cc566b7218c8b57f9"),
+    (50000, "3cecc627ae03162d6ed3175e0a2840d7b79adc4ab20e548b878d36d2ba9fba4e"),
+]
+SIDECAR_CONFIG5_WAVES = [(64000, "c30542fc88c5fddd80e87efea50630cc738965afee72dba80cae17d71b523e64")]

@@ -37,6 +37,12 @@
 //     in ascending order), a warp shuffle tree and one shared-memory pass
 //     reduce the key, thread 0 commits to `used`, and the next pod starts
 //     after __syncthreads().
+// The launch copies its start usage `used_in` [n_real, R] into the running
+// state `used_t` itself (zero in the padding columns) and zeroes n_scored.
+// So the gang fixpoint's gated mode (ops/gang.py), which passes `done` (a
+// device word: the launch returns at entry once it is set) and the same
+// buffers to every iteration, leaves the last real launch's usage and
+// counts in place.
 // No grid-wide sync is needed; the rest of the card idles.  A multi-SM scan
 // (a cluster, or the chunked / wave algorithms of kernels B4/B5) is later
 // work.  The wrapper pads N to a multiple of 16 (cp.async moves 16 bytes).
@@ -163,7 +169,11 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
     const float* __restrict__ shape_xy,    // [2 * n_shape]: xs then ys
     Params prm, int P, int N, int R,
     int32_t* __restrict__ choices,  // [P]
-    unsigned long long* __restrict__ n_scored) {
+    unsigned long long* __restrict__ n_scored,
+    const int32_t* __restrict__ used_in,  // [n_real, R]
+    int n_real,
+    const int32_t* __restrict__ done) {  // or NULL
+  if (done != nullptr && *done) return;  // every thread reads the same word
   extern __shared__ __align__(16) uint8_t s_rows[];  // [2][N]: sf rows p, p+1
   __shared__ int s_req[MAX_R];
   __shared__ float s_xs[MAX_SHAPE];
@@ -174,6 +184,12 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  for (int64_t i = tid; i < (int64_t)R * N; i += NT) {  // the start state
+    const int r = (int)(i / N), n = (int)(i % N);
+    used_t[i] = n < n_real ? used_in[(int64_t)n * R + r] : 0;
+  }
+  if (tid == 0) *n_scored = 0;
+  __syncthreads();
   if (tid < prm.n_shape) {
     s_xs[tid] = shape_xy[tid];
     s_ys[tid] = shape_xy[prm.n_shape + tid];
@@ -186,7 +202,7 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
   const int4* used4 = reinterpret_cast<const int4*>(used_t);
   unsigned long long scored = 0;
 
-  prefetch_row(s_rows, sf, 0, N);
+  if (P > 0) prefetch_row(s_rows, sf, 0, N);
   for (int p = 0; p < P; ++p) {
     uint8_t* cur = s_rows + (p & 1) * N;
     // the other buffer was last read in pod p-1, before that pod's
@@ -289,7 +305,8 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
 template <int K>
 cudaError_t launch(const void* sf, const void* pod_req, const void* pod_valid, const void* alloc_t,
                    void* used_t, const void* score_idx, const void* shape_xy, const Params& prm,
-                   int P, int N, int R, void* choices, void* n_scored, cudaStream_t st) {
+                   int P, int N, int R, void* choices, void* n_scored, const void* used_in, int n_real,
+                   const void* done, cudaStream_t st) {
   const size_t smem = 2 * (size_t)N;
   cudaError_t err = cudaFuncSetAttribute(fit_scan_kernel<K>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -299,30 +316,32 @@ cudaError_t launch(const void* sf, const void* pod_req, const void* pod_valid, c
       static_cast<const uint8_t*>(pod_valid), static_cast<const int32_t*>(alloc_t),
       static_cast<int32_t*>(used_t), static_cast<const int32_t*>(score_idx),
       static_cast<const float*>(shape_xy), prm, P, N, R, static_cast<int32_t*>(choices),
-      static_cast<unsigned long long*>(n_scored));
+      static_cast<unsigned long long*>(n_scored), static_cast<const int32_t*>(used_in), n_real,
+      static_cast<const int32_t*>(done));
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // score_idx is on the device; score_mask holds the same resource ids as
-// bits, for the kernel's fit test
+// bits, for the kernel's fit test; used_in: the start usage [n_real, R];
+// done (or NULL): the gate above
 extern "C" int ktt_fit_scan(const void* sf, const void* pod_req, const void* pod_valid,
                             const void* alloc_t, void* used_t, const void* score_idx, int K,
                             unsigned score_mask, const void* shape_xy, int n_shape, int strategy,
                             float fit_w, float bal_w, int P, int N, int R, void* choices,
-                            void* n_scored, void* stream) {
+                            void* n_scored, const void* used_in, int n_real, const void* done,
+                            void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (R < 1 || R > MAX_R || K < 1 || K > MAX_K || n_shape < 1 || n_shape > MAX_SHAPE ||
-      N % 16 != 0)
+      N % 16 != 0 || n_real > N || used_in == nullptr || P < 0)
     return (int)cudaErrorInvalidValue;
-  if (P <= 0) return (int)cudaGetLastError();
   const Params prm{score_mask, 1.0f / (float)K, n_shape, strategy, fit_w, bal_w};
   switch (K) {
 #define KTT_CASE(k)                                                                            \
   case k:                                                                                      \
     return (int)launch<k>(sf, pod_req, pod_valid, alloc_t, used_t, score_idx, shape_xy, prm, P, \
-                          N, R, choices, n_scored, st);
+                          N, R, choices, n_scored, used_in, n_real, done, st);
     KTT_CASE(1) KTT_CASE(2) KTT_CASE(3) KTT_CASE(4)
     KTT_CASE(5) KTT_CASE(6) KTT_CASE(7) KTT_CASE(8)
 #undef KTT_CASE

@@ -23,6 +23,9 @@
 //      rows to the [T, N] count planes at the nodes of the chosen node's
 //      domains.
 // No grid-wide sync is needed; the rest of the card idles (as fit_scan).
+// The launch copies its start state into the running state itself
+// (pairwise.cuh copy_start_state), and in the gang fixpoint's gated mode
+// (FullArgs::done) returns at entry once the device word is set.
 //
 // Bounds on an H100 at config 3 (P = 10240, N = 6144, T = 80): the bytes
 // are the two packed planes (2 x 10240 x 192 words, 15.7 MB) and the pods'
@@ -60,6 +63,9 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, ScanS
   __shared__ CommitEnt ents[MAX_ENT];
   __shared__ int n_ent;
   __shared__ int s_choice;
+  if (a.done != nullptr && *a.done) return;  // every thread reads the same word
+  ktt::copy_start_state(a, threadIdx.x, blockDim.x);
+  __syncthreads();
   for (int p = 0; p < a.P; ++p) {
     ktt::load_pod(a, p, ps);
     __syncthreads();
@@ -99,7 +105,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, ScanS
 // wp: the stage weights (taint, node affinity, spread, inter-pod, image,
 // hardPodAffinityWeight); sw: the stage switches (pairwise, interpod score,
 // ports, taint, node affinity, image); dims: P, N, R, T, D, PT, CS, A1, A2,
-// B, M
+// B, M; ptrs[27..33]: done and the start state (pairwise.cuh read_gate)
 extern "C" int ktt_full_scan(const void* const* ptrs, const int* dims, const int* sw, const float* wp,
                              const int* ip, const float* fp, void* choices, void* scratch, void* stream) {
   FullArgs a;
@@ -159,9 +165,10 @@ extern "C" int ktt_full_scan(const void* const* ptrs, const int* dims, const int
   a.total_t = static_cast<float*>(const_cast<void*>(ptrs[24]));
   a.ports_used = static_cast<uint8_t*>(const_cast<void*>(ptrs[25]));
   a.cls = nullptr;  // K11 reads pod rows only
-  if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs))
+  ktt::read_gate(a, ptrs);
+  if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs) ||
+      !(a.used0 && a.cnt0 && a.anti0 && a.pref0 && a.total0 && a.ports0))
     return (int)cudaErrorInvalidValue;
-  if (a.P == 0) return (int)cudaGetLastError();
   ScanScratch s;
   uint8_t* base = static_cast<uint8_t*>(scratch);  // 4 f32 rows, then the byte row
   s.base = reinterpret_cast<float*>(base);

@@ -79,6 +79,18 @@ struct FullArgs {
   float* pref;
   float* total_t;        // [T]
   uint8_t* ports_used;   // [N, PT]
+  // the start state (used0 ... ports0), which a launch copies into the
+  // running state above itself, and the gang fixpoint's gated mode
+  // (ops/gang.py; NULL outside it): a launch returns at entry once *done is
+  // set, so the running state of the last real launch survives every
+  // gated one
+  const int32_t* done;   // [1]
+  const int32_t* used0;  // [N, R]
+  const float* cnt0;     // [T, N]
+  const float* anti0;    // [T, N]
+  const float* pref0;    // [T, N]
+  const float* total0;   // [T]
+  const uint8_t* ports0;  // [N, PT]
 };
 
 // one pod's slots, compacted to the valid entries (a -1 slot adds nothing)
@@ -112,6 +124,33 @@ struct CommitEnt {
   int plane, t, dcol;
   float w;
 };
+
+// the start state, copied by the threads i0, i0 + step, ... (the caller
+// synchronises before anything reads it)
+__device__ void copy_start_state(const FullArgs& a, int64_t i0, int64_t step) {
+  const int64_t nr = (int64_t)a.N * a.R, tn = (int64_t)a.T * a.N, np = (int64_t)a.N * a.PT;
+  for (int64_t i = i0; i < nr; i += step) a.used[i] = a.used0[i];
+  for (int64_t i = i0; i < tn; i += step) {
+    a.cnt[i] = a.cnt0[i];
+    a.antin[i] = a.anti0[i];
+    a.pref[i] = a.pref0[i];
+  }
+  for (int64_t i = i0; i < a.T; i += step) a.total_t[i] = a.total0[i];
+  for (int64_t i = i0; i < np; i += step) a.ports_used[i] = a.ports0[i];
+}
+
+// the pointer array of ktt_full_scan / ktt_rounds past the running state:
+// [26] the class index (K12), [27] done (NULL outside the gated mode),
+// [28..33] used0, cnt0, anti0, pref0, total0, ports0
+inline void read_gate(FullArgs& a, const void* const* q) {
+  a.done = static_cast<const int32_t*>(q[27]);
+  a.used0 = static_cast<const int32_t*>(q[28]);
+  a.cnt0 = static_cast<const float*>(q[29]);
+  a.anti0 = static_cast<const float*>(q[30]);
+  a.pref0 = static_cast<const float*>(q[31]);
+  a.total0 = static_cast<const float*>(q[32]);
+  a.ports0 = static_cast<const uint8_t*>(q[33]);
+}
 
 __device__ __forceinline__ bool pw_bit(const uint32_t* plane, int64_t row, int W, int n) {
   return (plane[row * W + (n >> 5)] >> (n & 31)) & 1u;

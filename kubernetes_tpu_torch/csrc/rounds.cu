@@ -296,6 +296,12 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
   const int b = blockIdx.x, tid = threadIdx.x;
   const int zr = a.N < ZR_MAX ? a.N : ZR_MAX;
   const bool mine = b < C;
+  // the gated mode: every block reads the same word, written by an earlier
+  // launch in stream order, so the whole grid leaves before its first
+  // barrier; a launch that passes writes its own start state
+  if (a.done != nullptr && __ldcg(a.done)) return;
+  ktt::copy_start_state(a, (int64_t)b * blockDim.x + tid, (int64_t)gridDim.x * blockDim.x);
+  grid.sync();
 #ifdef KTT_ROUNDS_PHASES
   long long ph_t = clock64();
 #endif
@@ -389,7 +395,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
   }
   if (b == 0 && tid == 0) {
     scal[0] = m.base_rounds;
-    scal[1] = m.status;
+    scal[1] |= m.status;  // a cap hit in any launch over one pair survives
   }
 }
 
@@ -397,7 +403,8 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
 
 // ptrs, dims, sw, wp, ip, fp: as ktt_full_scan's, and ptrs[26] the class of
 // each pod row i32[P] (class-row mode: the plane pointers are the class
-// planes [U1, *]) or NULL (dense mode); sp: the scratch pointers
+// planes [U1, *]) or NULL (dense mode); ptrs[27..33] done and the start state
+// (pairwise.cuh read_gate); scal[1] is ORed into, not written; sp: the scratch pointers
 // (feas, base, sraw, ipraw, total, topv, topi, c0, c, t, hard, unc, ctrl,
 // ents, n_ents); C: pods per chunk (<= 32, dividing P); iters: repair
 // iterations per round
@@ -462,9 +469,10 @@ extern "C" int ktt_rounds(const void* const* ptrs, const int* dims, const int* s
   a.total_t = static_cast<float*>(const_cast<void*>(q[24]));
   a.ports_used = static_cast<uint8_t*>(const_cast<void*>(q[25]));
   a.cls = static_cast<const int32_t*>(q[26]);
-  if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs))
+  ktt::read_gate(a, q);
+  if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs) ||
+      !(a.used0 && a.cnt0 && a.anti0 && a.pref0 && a.total0 && a.ports0))
     return (int)cudaErrorInvalidValue;
-  if (a.P == 0) return (int)cudaGetLastError();
   RoundsScratch s;
   s.feas = static_cast<uint8_t*>(sp[0]);
   s.base = static_cast<float*>(sp[1]);

@@ -28,6 +28,10 @@
 //                           row).  When N % 16 != 0 rows are not 16-byte
 //                           aligned and the bytes go out one by one.
 //
+// `done` (a device word, or NULL) gates every launch: once it is set each
+// kernel returns at entry, so the gang fixpoint's queued per-pod iterations
+// (ops/gang.py) stop that way without a host read.
+//
 // Bound on an H100: the output alone is P*N bytes (1.05 GB at the 50k x 20k
 // shape, P=51200, N=20480), >= 0.31 ms at 3.35 TB/s; the inputs are KBs.
 // Bit-packing the plane (kernel B6 of ROADMAP.md) would cut the write 8x and
@@ -67,7 +71,9 @@ __global__ void __launch_bounds__(THREADS) static_feasible_kernel(
     const uint8_t* __restrict__ pod_has_sel,  // [P]
     const uint8_t* __restrict__ tm,           // [S, N]
     int P, int N, int TW, int TT,
-    uint8_t* __restrict__ sf) {  // [P, N]
+    uint8_t* __restrict__ sf,  // [P, N]
+    const int32_t* __restrict__ done) {  // or NULL
+  if (done != nullptr && *done) return;
   const int n0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
   if (n0 >= N) return;
   const int cnt = min(VEC, N - n0);
@@ -149,23 +155,25 @@ __global__ void __launch_bounds__(THREADS) static_feasible_kernel(
 
 }  // namespace
 
+// done (or NULL): the gate above; every pointer else is device memory
 extern "C" int ktt_static_feasible(const void* node_valid, const void* node_taint_ns,
                                    const void* node_labels, const void* pod_valid,
                                    const void* pod_tol_ns, const void* pod_nodename,
                                    const void* pod_terms, const void* pod_has_sel,
                                    const void* sel_mask, const void* sel_kind, void* tm,
-                                   void* taint_w, void* tol_w, void* sf, int P, int N, int T,
-                                   int TT, int S, int E, int L, void* stream) {
+                                   void* taint_w, void* tol_w, void* sf, const void* done, int P, int N,
+                                   int T, int TT, int S, int E, int L, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (P <= 0 || N <= 0) return (int)cudaGetLastError();
   const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
+  const int32_t* dn = static_cast<const int32_t*>(done);
   term_match_kernel<<<blocks_for((int64_t)S * N, THREADS), THREADS, 0, st>>>(
       static_cast<const uint8_t*>(sel_mask), static_cast<const int32_t*>(sel_kind),
-      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm), nullptr);
+      static_cast<const uint8_t*>(node_labels), S, E, L, N, static_cast<uint8_t*>(tm), dn);
   pack_bits_kernel<<<blocks_for((int64_t)N * TW, THREADS), THREADS, 0, st>>>(
-      static_cast<const uint8_t*>(node_taint_ns), N, T, TW, static_cast<uint32_t*>(taint_w), nullptr);
+      static_cast<const uint8_t*>(node_taint_ns), N, T, TW, static_cast<uint32_t*>(taint_w), dn);
   pack_bits_kernel<<<blocks_for((int64_t)P * TW, THREADS), THREADS, 0, st>>>(
-      static_cast<const uint8_t*>(pod_tol_ns), P, T, TW, static_cast<uint32_t*>(tol_w), nullptr);
+      static_cast<const uint8_t*>(pod_tol_ns), P, T, TW, static_cast<uint32_t*>(tol_w), dn);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int groups = (N + VEC - 1) / VEC;
@@ -176,6 +184,6 @@ extern "C" int ktt_static_feasible(const void* node_valid, const void* node_tain
       static_cast<const uint8_t*>(pod_valid), static_cast<const uint32_t*>(tol_w),
       static_cast<const int32_t*>(pod_nodename), static_cast<const int32_t*>(pod_terms),
       static_cast<const uint8_t*>(pod_has_sel), static_cast<const uint8_t*>(tm), P, N, TW, TT,
-      static_cast<uint8_t*>(sf));
+      static_cast<uint8_t*>(sf), dn);
   return (int)cudaGetLastError();
 }

@@ -297,7 +297,8 @@ def _per_pod(arr, cfg: ScoreConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     from . import kernels
 
     if fit_only(cfg, arr):
-        return kernels.fit_scan(filters.static_feasible(arr), arr, cfg)[:2]
+        choices, used, _ = kernels.fit_scan(filters.static_feasible(arr), arr, cfg)
+        return choices, used.contiguous()
     sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
     return kernels.full_scan(arr, cfg, sfs, eligs, score_planes(arr, cfg))
 

@@ -19,32 +19,49 @@ Two fixpoints, decision-identical:
   the sweeps before it (``sweeps_prior``).
 
 ``gang_fixpoint_device`` — the device fixpoint, one device program in the
-  JAX package (a ``lax.while_loop``): each iteration is the batch step
-  WITHOUT class state plus the quorum check and revocation, kernel K13
-  ``gang_quorum`` (csrc/gang.cu).  On the card it takes design (b) of the
+  JAX package (a ``lax.while_loop`` whose body is the routed batch step
+  WITHOUT class state, then the quorum check and revocation, kernel K13
+  ``gang_quorum``, csrc/gang.cu).  On the card it takes design (b) of the
   port's plan: the host queues the G + 1 iterations the fixpoint is bounded
-  by, K7 + K8 + K13 each, and every launch takes a device ``done`` word and
-  returns at entry once K13 has set it, so nothing is read back between
-  iterations and the caller reads the verdicts once.  (Design (a), a CUDA
-  graph with a conditional WHILE node, was not taken: the kernels live in
-  separate libraries, each with its own static cudart, and K8 is a
-  cooperative launch; the queue needs neither capture nor graph support.)
-  On the card the iteration is the dense chunked route, which a fit-only
-  batch of a multiple of CHUNK pods takes; any other batch raises there.
-  On the CPU the plain version loops with a host check.
+  by, and every launch takes a device ``done`` word and returns at entry
+  once K13 has set it, so nothing is read back between iterations.  The
+  iteration is the route ``dispatch`` picks without class state
+  (``_route``):
+
+    dense    a chunkable batch: K7 + K8 (chunk_rounds_dense) + K13;
+    rounds   any other batch whose P is a multiple of RCHUNK: K7 with the
+             eligibility plane + K12 (rounds) + K13, K10 (score_planes)
+             launched ONCE before the loop where a taint or node-affinity
+             score is on -- its planes read neither pod_valid nor anything
+             the loop changes, so it needs no gate;
+    per-pod  else: K1 (static_feasible) + K2 (fit_scan) + K13 for the
+             fit-only stage set; K7 with the eligibility plane + K11
+             (full_scan) + K13 otherwise, K10 once before the loop as above.
+
+  The outputs and running state of each route's scan live in persistent
+  buffers that only a launch which passed the gate writes (ops/kernels.py,
+  the gated mode), and the round-cap status of every iteration is ORed
+  into one device pair.  ``gang_dispatch`` queues the loop and returns
+  without a host read, so a caller can enqueue under a lock and read the
+  verdicts outside it (the sidecar, runtime/sidecar.py); ``gang_finish``
+  makes the one read.  (Design (a), a CUDA graph with a conditional WHILE
+  node, was not taken: the kernels live in separate libraries, each with
+  its own static cudart, and K8 and K12 are cooperative launches; the
+  queue needs neither capture nor graph support.)  On the CPU the plain
+  version loops with a host check over the same route choice
+  (``chunked=True`` is the JAX package's KTPU_FORCE_CHUNKED=1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from ..device import h2d, resolve_device
-from .assign import _chunkable, _first, dispatch, finish
+from .assign import RCHUNK, _chunkable, _first, _rounds_capable, dispatch, finish, fit_only
 from .scores import ScoreConfig, check_config
 
 
@@ -117,64 +134,166 @@ def gang_quorum_plain(choices: torch.Tensor, pod_group: torch.Tensor, pv: torch.
     return sched, present, bad, first.reshape(1).to(torch.int32), pv & ~newly, False
 
 
-def gang_fixpoint_device(arr, cfg: ScoreConfig, device=None, stats: Optional[dict] = None):
-    """The device fixpoint (the JAX package's gang.py:112) -> (choices
-    i32[P], node_used i32[N, R]).  Each iteration is the batch step without
-    class state, then the quorum check and revocation; at most G + 1
-    iterations.  On the card: K7 + K8 + K13 per iteration, all queued with
-    no host read between them (module docstring); the round-cap status of
-    every iteration is read once at the end and raises.  On the CPU: the
-    plain route (dispatch) and gang_quorum_plain until no group fails.
-    `stats`, when given, gets "iterations" (the batch steps that ran: one
-    more than the groups revoked) and, on the card, "enqueue_s" (host
-    seconds to queue the G + 1 iterations)."""
+def _route(arr, cfg, chunked: Optional[bool]) -> str:
+    """The route dispatch takes without class state: "dense", "rounds",
+    "perpod-fit" or "perpod-full"."""
+    routed = arr.device.type != "cpu" if chunked is None else chunked
+    if routed and _chunkable(arr, cfg):
+        return "dense"
+    if routed and _rounds_capable(arr, cfg):
+        return "rounds"
+    return "perpod-fit" if fit_only(cfg, arr) else "perpod-full"
+
+
+@dataclasses.dataclass
+class GangDispatch:
+    """A dispatched device fixpoint.  On the card nothing has been read
+    back: `status` is the int32[2] (sweeps, round-cap status) pair of the
+    dense or rounds route (None on the per-pod routes) and `iterations` a
+    0-d device tensor, the batch steps that ran (one more than the groups
+    revoked).  On the CPU the plain loop has run and `iterations` is its
+    count."""
+
+    choices: torch.Tensor
+    used: torch.Tensor
+    status: Optional[torch.Tensor]
+    route: str
+    iterations: Union[int, torch.Tensor]
+
+
+def _card_loop(arr, cfg, route: str):
+    """The route's persistent buffers and its iteration on the card ->
+    (iterate: queues one iteration, a gated one once `done` is set;
+    (choices, used) of the last real iteration; the status pair or None;
+    pv, the device pod_valid the iterations revoke in place; done)."""
+    from . import kernels
+    from .assign import score_planes
+
+    P, N, R = arr.P, arr.N, arr.R
+    dev = arr.device
+    pv = arr.pod_valid.clone()
+    arr_i = dataclasses.replace(arr, pod_valid=pv)  # pv changes in place, launch by launch
+    done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if route == "dense":
+        sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=dev)
+        out = (torch.full((P,), -1, dtype=torch.int32, device=dev), torch.zeros((N, R), dtype=torch.int32, device=dev),
+               torch.zeros((P,), dtype=torch.int32, device=dev), torch.zeros((2,), dtype=torch.int32, device=dev))
+
+        def iterate():
+            kernels.packed_static_rows(arr_i, done=done, out=sfs)
+            kernels.chunk_rounds_dense(arr_i, cfg, sfs, done=done, out=out)
+            kernels.gang_quorum(out[0], arr.pod_group, pv, arr.group_min, done=done)
+
+        return iterate, out[:2], out[3], pv, done
+    if route == "perpod-fit":
+        sf = torch.empty((P, N), dtype=torch.bool, device=dev)
+        fo = kernels.fit_scan_out(arr, cfg)
+
+        def iterate():
+            kernels.static_feasible(arr_i, done=done, out=sf)
+            kernels.fit_scan(sf, arr_i, cfg, done=done, out=fo)
+            kernels.gang_quorum(fo.choices, arr.pod_group, pv, arr.group_min, done=done)
+
+        return iterate, (fo.choices, fo.used_t[:, :N].t()), None, pv, done
+    # the full stage set: K10 once (no pod_valid in its planes), K7 with
+    # the eligibility plane, then K12 or K11, then K13
+    planes = score_planes(arr, cfg)
+    sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=dev)
+    so = kernels.scan_out(arr, RCHUNK if route == "rounds" else None)
+
+    def iterate():
+        _, eligs = kernels.packed_static_rows(arr_i, with_elig=True, done=done, out=sfs)
+        if route == "rounds":
+            kernels.rounds(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
+        else:
+            kernels.full_scan(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
+        kernels.gang_quorum(so.choices, arr.pod_group, pv, arr.group_min, done=done)
+
+    return iterate, (so.choices, so.state["used"]), (so.scal if route == "rounds" else None), pv, done
+
+
+def _iterations(arr, pv: torch.Tensor) -> torch.Tensor:
+    """1 + the groups the loop revoked (their pods left `pv`), a 0-d tensor
+    on the card, queued after the loop: no host read (torch.bincount would
+    read its input's maximum back)."""
+    G = arr.group_min.shape[0]
+    revoked = arr.pod_valid & ~pv & (arr.pod_group >= 0)
+    gid = torch.where(revoked, arr.pod_group.to(torch.int64), G)
+    hit = torch.zeros((G + 1,), dtype=torch.bool, device=pv.device).index_fill_(0, gid, True)
+    return 1 + hit[:G].sum()
+
+
+def load_kernels(arr, cfg: ScoreConfig) -> None:
+    """Launch K10 once and one gated iteration of every route's kernels on
+    `arr` (a small batch with groups, on the card; `done` set before the
+    iteration, so nothing runs).  A process's first launch of a kernel
+    loads its module, and the load waits for whatever runs on the card
+    (torch's own kernels load so too, hence the count after the loop): a
+    caller that queues the fixpoint under a lock (the sidecar engine) calls
+    this at start, so that no dispatch waits so."""
+    from . import kernels
+
+    kernels.score_planes(arr)
+    for route in ("dense", "rounds", "perpod-fit", "perpod-full"):
+        iterate, _, _, pv, done = _card_loop(arr, cfg, route)
+        done.fill_(1)
+        iterate()
+        _iterations(arr, pv)
+
+
+def gang_dispatch(arr, cfg: ScoreConfig, device=None, chunked: Optional[bool] = None) -> GangDispatch:
+    """Queue the device fixpoint (the JAX package's gang.py:112) without a
+    host read on the card: at most G + 1 iterations of the batch step
+    without class state on the route _route picks, each followed by the
+    quorum check and revocation.  On the CPU: the plain route (dispatch,
+    with `chunked`) and gang_quorum_plain until no group fails."""
     dev = resolve_device(device)
     check_config(cfg)
     if arr.device.type != dev.type:
         arr = arr.to(dev)
     G = arr.group_min.shape[0]
+    route = _route(arr, cfg, chunked)
     if G == 0:  # no groups: the plain batch step, as the JAX package's gang.py:136
-        if stats is not None:
-            stats["iterations"] = 1
-        return finish(dispatch(arr, cfg, arr.device))[:2]
+        step = dispatch(arr, cfg, arr.device, chunked=chunked)
+        return GangDispatch(step.choices, step.used, None if isinstance(step.sweeps, int) else step.sweeps, route, 1)
     if arr.device.type == "cpu":
         pv = arr.pod_valid
         for it in range(G + 1):
-            step = finish(dispatch(dataclasses.replace(arr, pod_valid=pv), cfg, arr.device))
+            step = finish(dispatch(dataclasses.replace(arr, pod_valid=pv), cfg, arr.device, chunked=chunked))
             *_, pv, done = gang_quorum_plain(step.choices, arr.pod_group, pv, arr.group_min)
             if done:
                 break
-        if stats is not None:
-            stats["iterations"] = it + 1
-        return step.choices, step.used
-    if not _chunkable(arr, cfg):
-        raise NotImplementedError(
-            "gang_fixpoint_device on the card runs the dense chunked route (a fit-only batch of a multiple "
-            f"of 128 pods); got P={arr.P} with the stage set {cfg}: see ROADMAP.md queue A9")
-    from . import kernels
-
-    P, N, R = arr.P, arr.N, arr.R
-    pv = arr.pod_valid.clone()
-    arr_i = dataclasses.replace(arr, pod_valid=pv)  # pv changes in place, launch by launch
-    done = torch.zeros((1,), dtype=torch.int32, device=arr.device)
-    sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=arr.device)
-    out = (torch.full((P,), -1, dtype=torch.int32, device=arr.device),
-           torch.zeros((N, R), dtype=torch.int32, device=arr.device),
-           torch.zeros((P,), dtype=torch.int32, device=arr.device),
-           torch.zeros((2,), dtype=torch.int32, device=arr.device))
-    t0 = time.perf_counter()
+        return GangDispatch(step.choices, step.used, None, route, it + 1)
+    iterate, (choices, used), status, pv, _done = _card_loop(arr, cfg, route)
     for _ in range(G + 1):
-        kernels.packed_static_rows(arr_i, done=done, out=sfs)
-        kernels.chunk_rounds_dense(arr_i, cfg, sfs, done=done, out=out)
-        kernels.gang_quorum(out[0], arr.pod_group, pv, arr.group_min, done=done)
-    t1 = time.perf_counter()
-    kernels.read_sweeps(out[3])  # one host read: raises on a round-cap hit in any iteration
+        iterate()
+    return GangDispatch(choices, used, status, route, _iterations(arr, pv))
+
+
+def gang_finish(g: GangDispatch, stats: Optional[dict] = None):
+    """The dispatched fixpoint's (choices i32[P], node_used i32[N, R]) after
+    its one host read: the round-cap status of every iteration (raises on a
+    hit).  `stats`, when given, gets "iterations" (the batch steps that
+    ran: one more than the groups revoked) and "route"."""
+    if g.status is not None:
+        from . import kernels
+
+        kernels.read_sweeps(g.status)
     if stats is not None:
-        stats["enqueue_s"] = t1 - t0
-        revoked = (arr.pod_valid & ~pv & (arr.pod_group >= 0)).to(torch.int64)
-        gid = torch.where(revoked.bool(), arr.pod_group.to(torch.int64), G)
-        stats["iterations"] = 1 + int((torch.bincount(gid, minlength=G + 1)[:G] > 0).sum())
-    return out[0], out[1]
+        stats["route"] = g.route
+        stats["iterations"] = int(g.iterations)
+    used = g.used if g.used.is_contiguous() else g.used.contiguous()
+    return g.choices, used
 
 
-__all__ = ["failed_groups", "schedule_with_gangs", "gang_quorum_plain", "gang_fixpoint_device"]
+def gang_fixpoint_device(arr, cfg: ScoreConfig, device=None, stats: Optional[dict] = None,
+                         chunked: Optional[bool] = None):
+    """The device fixpoint (the JAX package's gang.py:112) -> (choices
+    i32[P], node_used i32[N, R]): gang_dispatch then gang_finish (the
+    module docstring).  `chunked` routes the CPU's plain version as
+    dispatch does (True: the JAX package's KTPU_FORCE_CHUNKED=1)."""
+    return gang_finish(gang_dispatch(arr, cfg, device, chunked), stats)
+
+
+__all__ = ["failed_groups", "schedule_with_gangs", "gang_quorum_plain", "GangDispatch", "load_kernels",
+           "gang_dispatch", "gang_finish", "gang_fixpoint_device"]

@@ -19,9 +19,19 @@ dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh;
 gang_quorum (K13, gang.cu: the gang fixpoint's quorum check and
 revocation); explain_counts (K14, explain.cu: the unschedulable
 diagnosis's reason counts) and preempt_eval (K15, preempt.cu: the batched
-preemption evaluation, phases A-C over a wave of preemptors).  K7, K8 and K13 take an optional device ``done`` word that
-makes a launch return at entry: the gang fixpoint's device loop queues its
-iterations without reading anything back (ops/gang.py).
+preemption evaluation, phases A-C over a wave of preemptors).
+
+The gated mode.  The kernels of every route the gang fixpoint's device loop
+takes (ops/gang.py) -- K1 static_feasible and K2 fit_scan, K7, K8, K11
+full_scan, K12 rounds, K13 -- take an optional device ``done`` word that
+makes a launch return at entry, so the loop queues its iterations without
+reading anything back.  Torch operations between launches are not gated,
+so K2, K8, K11 and K12 also take ``out``: persistent output and running-state
+buffers that only a launch which passed the gate writes, so the last real
+iteration's result survives every gated one.  K2, K11 and K12 always write
+such buffers (``fit_scan_out``, ``scan_out``; a fresh set when the caller
+passes none) and always copy their start state (node_used, the pairwise
+counts, the ports) into them themselves.
 
 No wrapper reads anything back: the chunk-scan kernels leave their sweep
 count and round-cap status in an int32[2] device pair, which read_sweeps
@@ -38,6 +48,7 @@ ops/preempt.py).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -75,8 +86,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # kernel -> (C entry, argtypes)
 _ARGTYPES = {
-    "static_feasible": ("ktt_static_feasible", [_P] * 14 + [_I] * 7 + [_P]),
-    "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P]),
+    "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 7 + [_P]),
+    "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _P]),
     "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 7 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
@@ -194,8 +205,19 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def static_feasible(arr) -> torch.Tensor:
-    """bool[P, N] static feasibility on the card (csrc/static_feasible.cu)."""
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _check_done(done: Optional[torch.Tensor], dev) -> None:
+    if done is not None:
+        _check(done, "done", torch.int32, (1,), dev)
+
+
+def static_feasible(arr, done: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """bool[P, N] static feasibility on the card (csrc/static_feasible.cu).
+    `done` (i32[1] on the card): the launch returns at entry once it is
+    set; `out`: the bool[P, N] buffer to write (a fresh one when None)."""
     dev = arr.device
     if dev.type != "cuda":
         raise ValueError(f"static_feasible kernel needs CUDA tensors, got {dev}")
@@ -216,7 +238,10 @@ def static_feasible(arr) -> torch.Tensor:
     tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
     taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
     tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
-    sf = torch.empty((P, N), dtype=torch.bool, device=dev)
+    if out is not None:
+        _check(out, "out", torch.bool, (P, N), dev)
+    _check_done(done, dev)
+    sf = torch.empty((P, N), dtype=torch.bool, device=dev) if out is None else out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -224,28 +249,37 @@ def static_feasible(arr) -> torch.Tensor:
             arr.pod_valid.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
             arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sf.data_ptr(),
-            P, N, T, TT, S, E, L, stream,
+            _ptr(done), P, N, T, TT, S, E, L, stream,
         )
     _raise_on(err, "static_feasible")
     LAUNCHES["static_feasible"] += 1
     return sf
 
 
-def fit_scan(sf: torch.Tensor, arr, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fit-only commit scan on the card (csrc/fit_scan.cu).
+@dataclasses.dataclass
+class FitOut:
+    """fit_scan's buffers: the choices, the running usage [R, Np] (Np: N
+    padded to 16, for the kernel's int4 loads), the scored-pair count, and
+    the inputs made once (allocatable [R, Np], score resource ids, the
+    RequestedToCapacityRatio shape), so a queued launch of the gated mode
+    needs no torch operation or host copy before it."""
 
-    -> (choices i32[P], node_used i32[N, R], n_scored i64[1]: the number of
-    (pod, node) pairs that passed fit and were scored)."""
-    dev = arr.device
-    if dev.type != "cuda":
-        raise ValueError(f"fit_scan kernel needs CUDA tensors, got {dev}")
+    choices: torch.Tensor
+    used_t: torch.Tensor
+    n_scored: torch.Tensor
+    alloc_t: torch.Tensor
+    score_idx: torch.Tensor
+    shape_xy: torch.Tensor
+
+
+def _fit_checks(arr, cfg) -> int:
+    """Check fit_scan's limits -> Np."""
     P, N, R = arr.P, arr.N, arr.R
-    _check(sf, "sf", torch.bool, (P, N), dev)
     for name, dt, shape in (
         ("pod_req", torch.int32, (P, R)), ("pod_valid", torch.bool, (P,)),
         ("node_alloc", torch.int32, (N, R)), ("node_used", torch.int32, (N, R)),
     ):
-        _check(getattr(arr, name), name, dt, shape, dev)
+        _check(getattr(arr, name), name, dt, shape, arr.device)
     if cfg.fit_strategy not in STRATEGY_CODES:
         raise ValueError(f"unknown fit scoringStrategy {cfg.fit_strategy!r}")
     K = len(cfg.score_resources)
@@ -258,33 +292,69 @@ def fit_scan(sf: torch.Tensor, arr, cfg) -> Tuple[torch.Tensor, torch.Tensor, to
     Np = -(-N // 16) * 16  # the kernel moves sf rows in 16-byte pieces
     if Np > MAX_SCAN_NODES:
         raise ValueError(f"fit_scan kernel takes at most {MAX_SCAN_NODES} nodes, got {N}")
-    fn = _fn("fit_scan")
-    # [R, N] for the kernel's int4 loads; padding nodes have no sf bit set,
-    # so they are never chosen
+    return Np
+
+
+def fit_scan_out(arr, cfg) -> FitOut:
+    """fit_scan's buffers over `arr`."""
+    dev = arr.device
+    _need_cuda(dev, "fit_scan")
+    Np = _fit_checks(arr, cfg)
+    P, N, R = arr.P, arr.N, arr.R
     alloc_t = torch.zeros((R, Np), dtype=torch.int32, device=dev)
     alloc_t[:, :N] = arr.node_alloc.t()
-    used_t = torch.zeros((R, Np), dtype=torch.int32, device=dev)  # the scan's running state
-    used_t[:, :N] = arr.node_used.t()
-    if Np != N:
+    shape = cfg.rtcr_shape
+    return FitOut(torch.full((P,), -1, dtype=torch.int32, device=dev),
+                  torch.zeros((R, Np), dtype=torch.int32, device=dev),
+                  torch.zeros((1,), dtype=torch.int64, device=dev), alloc_t,
+                  torch.tensor(cfg.score_resources, dtype=torch.int32, device=dev),
+                  torch.tensor([x for x, _ in shape] + [y for _, y in shape], dtype=torch.float32, device=dev))
+
+
+def fit_scan(sf: torch.Tensor, arr, cfg, done: Optional[torch.Tensor] = None,
+             out: Optional[FitOut] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fit-only commit scan on the card (csrc/fit_scan.cu).
+
+    -> (choices i32[P], node_used i32[N, R] (a view of out.used_t), n_scored
+    i64[1]: the number of (pod, node) pairs that passed fit and were
+    scored).  The kernel copies arr.node_used into out.used_t itself.
+    `done` (i32[1] on the card): the launch returns at entry once it is
+    set; `out` (fit_scan_out): the buffers to write, a fresh set when None
+    -- the gang fixpoint's gated mode passes the same set to every
+    iteration, so a gated launch leaves the last real one's result."""
+    dev = arr.device
+    if dev.type != "cuda":
+        raise ValueError(f"fit_scan kernel needs CUDA tensors, got {dev}")
+    P, N, R = arr.P, arr.N, arr.R
+    _check(sf, "sf", torch.bool, (P, N), dev)
+    Np = _fit_checks(arr, cfg)
+    _check_done(done, dev)
+    fn = _fn("fit_scan")
+    K = len(cfg.score_resources)
+    shape = cfg.rtcr_shape
+    if out is None:
+        out = fit_scan_out(arr, cfg)
+    for name, t, dt, shp in (("choices", out.choices, torch.int32, (P,)),
+                             ("used_t", out.used_t, torch.int32, (R, Np)),
+                             ("n_scored", out.n_scored, torch.int64, (1,)),
+                             ("alloc_t", out.alloc_t, torch.int32, (R, Np))):
+        _check(t, name, dt, shp, dev)
+    if Np != N:  # padding nodes have no sf bit set, so they are never chosen
         padded = torch.zeros((P, Np), dtype=torch.bool, device=dev)
         padded[:, :N] = sf
         sf = padded
-    score_idx = torch.tensor(cfg.score_resources, dtype=torch.int32, device=dev)
-    shape_xy = torch.tensor([x for x, _ in shape] + [y for _, y in shape], dtype=torch.float32, device=dev)
-    choices = torch.empty((P,), dtype=torch.int32, device=dev)
-    n_scored = torch.zeros((1,), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             sf.data_ptr(), arr.pod_req.data_ptr(), arr.pod_valid.data_ptr(),
-            alloc_t.data_ptr(), used_t.data_ptr(), score_idx.data_ptr(), K,
-            sum(1 << i for i in set(cfg.score_resources)), shape_xy.data_ptr(), len(shape), STRATEGY_CODES[cfg.fit_strategy],
-            float(cfg.fit_weight), float(cfg.balanced_weight), P, Np, R,
-            choices.data_ptr(), n_scored.data_ptr(), stream,
+            out.alloc_t.data_ptr(), out.used_t.data_ptr(), out.score_idx.data_ptr(), K,
+            sum(1 << i for i in set(cfg.score_resources)), out.shape_xy.data_ptr(), len(shape),
+            STRATEGY_CODES[cfg.fit_strategy], float(cfg.fit_weight), float(cfg.balanced_weight), P, Np, R,
+            out.choices.data_ptr(), out.n_scored.data_ptr(), arr.node_used.data_ptr(), N, _ptr(done), stream,
         )
     _raise_on(err, "fit_scan")
     LAUNCHES["fit_scan"] += 1
-    return choices, used_t[:, :N].t().contiguous(), n_scored
+    return out.choices, out.used_t[:, :N].t(), out.n_scored
 
 
 # ---------------------------------------------------------------------------
@@ -693,14 +763,68 @@ def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
     return traw, naraw
 
 
-def _full_args(arr, cfg, sfs, eligs, planes, inc=None):
-    """The inputs K11 and K12 share, checked, and the scan's working state
-    (fresh tensors: the inputs are never written) -> (pointer array, dims,
-    switches, weights, score params, state dict, the tensors to keep
-    alive).  With class state `inc` (K12's class-row mode) the planes are
-    inc's class planes [U1, *] (stat, elig, traw, naraw, img) and the last
-    pointer is the class index inc.cls (NULL otherwise)."""
-    from .assign import _image_on, dom_by_term, pairwise_state0
+@dataclasses.dataclass
+class ScanOut:
+    """K11 / K12's buffers (scan_out): the outputs and the running state
+    {used, cnt, anti, pref, total, ports}, which only a launch that passed
+    the gate writes; the start state the launch copies into it itself
+    (node_used, the pairwise counts gathered once, node_ports0); the domain
+    map; K12's scratch (None for K11).  The gang fixpoint's gated mode
+    passes one set to every iteration, so the last real launch's result
+    survives every gated one."""
+
+    choices: torch.Tensor
+    ordinals: torch.Tensor
+    scal: torch.Tensor
+    state: dict
+    start: tuple
+    dbt: torch.Tensor
+    scratch: Optional[list]
+
+
+def _rounds_scratch(C: int, N: int, dev) -> list:
+    n_ent = MAX_MATCH + 3 * MAX_SLOTS
+    return [
+        torch.empty((C, N), dtype=torch.uint8, device=dev),
+        *(torch.empty((C, N), dtype=torch.float32, device=dev) for _ in range(4)),
+        torch.empty((C, ZR_MAX), dtype=torch.float32, device=dev),
+        torch.empty((C, ZR_MAX), dtype=torch.int32, device=dev),
+        *(torch.empty((C,), dtype=torch.int32, device=dev) for _ in range(5)),
+        torch.zeros((2,), dtype=torch.int32, device=dev),
+        torch.empty((C * n_ent, 4), dtype=torch.int32, device=dev),
+        torch.zeros((1,), dtype=torch.int32, device=dev),
+    ]
+
+
+def scan_out(arr, rchunk: Optional[int] = None) -> ScanOut:
+    """The buffers of K11 (rchunk None) or K12 (chunks of `rchunk` pods)
+    over `arr`."""
+    from .assign import dom_by_term, pairwise_state0
+
+    dev = arr.device
+    _need_cuda(dev, "full_scan / rounds")
+    dbt, D = dom_by_term(arr)
+    dbt = dbt.contiguous()
+    cnt0, anti0, pref0, total0 = (x.contiguous() for x in pairwise_state0(arr, dbt, D))
+    state = dict(used=torch.empty_like(arr.node_used), cnt=torch.empty_like(cnt0), anti=torch.empty_like(anti0),
+                 pref=torch.empty_like(pref0), total=torch.empty_like(total0),
+                 ports=torch.empty_like(arr.node_ports0))
+    P = arr.P
+    return ScanOut(torch.full((P,), -1, dtype=torch.int32, device=dev), torch.zeros((P,), dtype=torch.int32, device=dev),
+                   torch.zeros((2,), dtype=torch.int32, device=dev), state,
+                   (arr.node_used, cnt0, anti0, pref0, total0, arr.node_ports0), dbt,
+                   None if rchunk is None else _rounds_scratch(rchunk, arr.N, dev))
+
+
+def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optional[torch.Tensor] = None):
+    """The inputs K11 and K12 share and out's buffers, checked -> (pointer
+    array, dims, switches, weights, score params).  The kernel fills out's
+    running state from out.start itself (the inputs are never written).
+    With class state `inc` (K12's class-row mode) the planes are inc's class
+    planes [U1, *] (stat, elig, traw, naraw, img) and pointer 26 is the
+    class index inc.cls (NULL otherwise); pointer 27 is `done` (NULL outside
+    the gated mode), pointers 28..33 out's start state."""
+    from .assign import _image_on
 
     dev = arr.device
     P, N, R = arr.P, arr.N, arr.R
@@ -715,6 +839,7 @@ def _full_args(arr, cfg, sfs, eligs, planes, inc=None):
     img_on = img is not None
     pw = bool(cfg.enable_pairwise)
     T, D1 = arr.term_counts0.shape
+    D = D1 - 1
     PT = arr.node_ports0.shape[1]
     CS, A1, A2 = arr.pod_spread_terms.shape[1], arr.pod_aff_terms.shape[1], arr.pod_anti_terms.shape[1]
     B, M = arr.pod_pref_aff_terms.shape[1], arr.pod_match_terms.shape[1]
@@ -746,23 +871,26 @@ def _full_args(arr, cfg, sfs, eligs, planes, inc=None):
         _check(getattr(arr, name), name, dt, shape, dev)
     if img_on:
         _check(img, "image_score", torch.bfloat16, (rows, N), dev)
+    _check_done(done, dev)
     ip, fp = _score_params(cfg, R)
-    dbt, D = dom_by_term(arr)
-    dbt = dbt.contiguous()
-    cnt, anti, pref, total_t = (x.contiguous() for x in pairwise_state0(arr, dbt, D))
-    st = dict(used=arr.node_used.clone(), cnt=cnt, anti=anti, pref=pref, total=total_t,
-              ports=arr.node_ports0.clone())
+    dbt, st, start = out.dbt, out.state, out.start
+    for name, t, dt, shape in (("out.choices", out.choices, torch.int32, (P,)),
+                               ("out.ordinals", out.ordinals, torch.int32, (P,)),
+                               ("out.scal", out.scal, torch.int32, (2,)), ("dbt", dbt, torch.int32, (T, N)),
+                               ("used", st["used"], torch.int32, (N, R)), ("cnt", st["cnt"], torch.float32, (T, N)),
+                               ("anti", st["anti"], torch.float32, (T, N)),
+                               ("pref", st["pref"], torch.float32, (T, N)),
+                               ("total", st["total"], torch.float32, (T,)),
+                               ("ports", st["ports"], torch.bool, (N, PT))):
+        _check(t, name, dt, shape, dev)
 
-    def ptr(x):
-        return 0 if x is None else x.data_ptr()
-
-    ptrs = np.array([ptr(x) for x in (
+    ptrs = np.array([0 if x is None else x.data_ptr() for x in (
         arr.pod_req, arr.pod_valid, sfs, eligs if pw else None, traw if cfg.enable_taint_score else None,
         naraw if cfg.enable_node_pref else None, img, arr.pod_spread_terms,
         arr.pod_spread_maxskew, arr.pod_spread_hard, arr.pod_aff_terms, arr.pod_aff_self, arr.pod_anti_terms,
         arr.pod_match_terms, arr.pod_match_vals, arr.pod_pref_aff_terms, arr.pod_pref_aff_w, arr.pod_ports,
         arr.node_alloc, st["used"], dbt, st["cnt"], st["anti"], st["pref"], st["total"], st["ports"],
-        None if inc is None else inc.cls,
+        None if inc is None else inc.cls, done, *start,
     )], dtype=np.uint64)
     dims = np.array([P, N, R, T, D, PT, CS, A1, A2, B, M], dtype=np.int32)
     ips = pw and bool(cfg.enable_interpod_score)
@@ -770,42 +898,51 @@ def _full_args(arr, cfg, sfs, eligs, planes, inc=None):
                    bool(cfg.enable_node_pref), img_on], dtype=np.int32)
     wp = np.array([cfg.taint_weight, cfg.node_affinity_weight, cfg.spread_weight, cfg.interpod_weight,
                    cfg.image_weight, cfg.hard_pod_affinity_weight], dtype=np.float32)
-    return ptrs, dims, sw, wp, ip, fp, st, dbt
+    return ptrs, dims, sw, wp, ip, fp
 
 
-def full_scan(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, with_state: bool = False):
+def full_scan(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, with_state: bool = False,
+              done: Optional[torch.Tensor] = None, out: Optional[ScanOut] = None):
     """K11 (csrc/full_scan.cu): the per-pod scan over the full stage set in
     one launch, from K7's packed static (and eligibility) planes and
     score_planes' (traw, naraw) -> (choices i32[P], used i32[N, R]), and
     with `with_state` the final pairwise state (cnt, anti, pref, total,
-    ports)."""
+    ports), views of out's buffers.  `done` (i32[1] on the card): the
+    launch returns at entry once it is set; `out` (scan_out(arr)): the
+    buffers to write, a fresh set when None."""
     dev = arr.device
     _need_cuda(dev, "full_scan")
-    ptrs, dims, sw, wp, ip, fp, st, _dbt = _full_args(arr, cfg, sfs, eligs, planes)
+    if out is None:
+        out = scan_out(arr)
+    ptrs, dims, sw, wp, ip, fp = _full_args(arr, cfg, sfs, eligs, planes, out, done=done)
     fn = _fn("full_scan")
     N = arr.N
-    choices = torch.empty((arr.P,), dtype=torch.int32, device=dev)
     scratch = torch.empty((4 * 4 * N + N,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
-        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), choices.data_ptr(),
+        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), out.choices.data_ptr(),
                  scratch.data_ptr(), _stream(dev))
     _raise_on(err, "full_scan")
     LAUNCHES["full_scan"] += 1
+    st = dict(out.state)
     used = st.pop("used")
-    return (choices, used, st) if with_state else (choices, used)
+    return (out.choices, used, st) if with_state else (out.choices, used)
 
 
 def rounds(arr, cfg, sfs: Optional[torch.Tensor] = None, eligs: Optional[torch.Tensor] = None, planes=(None, None),
-           rchunk: Optional[int] = None, repair_iters: Optional[int] = None, with_state: bool = False, inc=None):
+           rchunk: Optional[int] = None, repair_iters: Optional[int] = None, with_state: bool = False, inc=None,
+           done: Optional[torch.Tensor] = None, out: Optional[ScanOut] = None):
     """K12 (csrc/rounds.cu): the rounds scan over the full stage set in one
     cooperative launch, chunks of `rchunk` pods -> (choices i32[P], used
     i32[N, R], ordinals i32[P], the int32[2] device pair (sweeps, status):
     read_sweeps), and with `with_state` the final pairwise state.  Every
     round commits a pod, so a chunk takes at most `rchunk` rounds; the
-    kernel stops a chunk past that cap and reports it in the status.  With
+    kernel stops a chunk past that cap and ORs it into the status.  With
     class state `inc` it runs in class-row mode over inc's class planes
     (sfs, eligs and planes are not given), read through inc.cls, with
-    pod_valid folded in per pod."""
+    pod_valid folded in per pod.  `done` (i32[1] on the card): the whole
+    grid returns at entry, before its first barrier, once it is set;
+    `out` (scan_out(arr, rchunk)): the buffers to write, a fresh set when
+    None (the status word of out.scal gathers every launch's)."""
     from .assign import REPAIR_ITERS, RCHUNK
 
     dev = arr.device
@@ -816,31 +953,22 @@ def rounds(arr, cfg, sfs: Optional[torch.Tensor] = None, eligs: Optional[torch.T
     if not 1 <= C <= MAX_RCHUNK or P % C or iters < 1:
         raise ValueError(f"rounds kernel takes chunks of 1..{MAX_RCHUNK} pods dividing P and repair_iters >= 1; "
                          f"got rchunk={C}, P={P}, repair_iters={iters}")
-    ptrs, dims, sw, wp, ip, fp, st, _dbt = _full_args(arr, cfg, sfs, eligs, planes, inc)
+    if out is None:
+        out = scan_out(arr, C)
+    elif out.scratch is None or out.scratch[0].shape != (C, N):
+        raise ValueError(f"rounds: out was not made by scan_out(arr, rchunk={C})")
+    ptrs, dims, sw, wp, ip, fp = _full_args(arr, cfg, sfs, eligs, planes, out, inc, done=done)
     fn = _fn("rounds")
-    n_ent = MAX_MATCH + 3 * MAX_SLOTS
-    scratch = [
-        torch.empty((C, N), dtype=torch.uint8, device=dev),
-        *(torch.empty((C, N), dtype=torch.float32, device=dev) for _ in range(4)),
-        torch.empty((C, ZR_MAX), dtype=torch.float32, device=dev),
-        torch.empty((C, ZR_MAX), dtype=torch.int32, device=dev),
-        *(torch.empty((C,), dtype=torch.int32, device=dev) for _ in range(5)),
-        torch.zeros((2,), dtype=torch.int32, device=dev),
-        torch.empty((C * n_ent, 4), dtype=torch.int32, device=dev),
-        torch.zeros((1,), dtype=torch.int32, device=dev),
-    ]
-    sp = np.array([x.data_ptr() for x in scratch], dtype=np.uint64)
-    choices = torch.empty((P,), dtype=torch.int32, device=dev)
-    ords = torch.empty((P,), dtype=torch.int32, device=dev)
-    scal = torch.zeros((2,), dtype=torch.int32, device=dev)
+    sp = np.array([x.data_ptr() for x in out.scratch], dtype=np.uint64)
     with torch.cuda.device(dev):
-        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), choices.data_ptr(),
-                 ords.data_ptr(), scal.data_ptr(), _host(sp), C, iters, _stream(dev))
+        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), out.choices.data_ptr(),
+                 out.ordinals.data_ptr(), out.scal.data_ptr(), _host(sp), C, iters, _stream(dev))
     _raise_on(err, "rounds")
     LAUNCHES["rounds"] += 1
+    st = dict(out.state)
     used = st.pop("used")
-    out = (choices, used, ords, scal)
-    return out + (st,) if with_state else out
+    res = (out.choices, used, out.ordinals, out.scal)
+    return res + (st,) if with_state else res
 
 
 # ---------------------------------------------------------------------------

@@ -15,13 +15,23 @@ side in a fresh process with KTPU_FORCE_CHUNKED=1:
   and summed sweeps; on the per-pod route (the CPU default) its decisions;
   every decision equals oracle_schedule_with_gangs';
 - ``gang_fixpoint_device`` (its plain version) equals the JAX device
-  fixpoint and the host fixpoint;
+  fixpoint and the host fixpoint; off the dense route too
+  (``chunked=True``, the JAX package's KTPU_FORCE_CHUNKED=1): on the
+  port's contended batches (bench/workloads.py gang_contended: the rounds
+  route with pairwise stages and fit-only at P = 64, the per-pod route at
+  P = 8 fit-only and with the full stage set, each revoking groups) and on
+  tests/test_gang.py's eight random draws (P = 8, 16, 32), each against
+  the JAX device and host fixpoints;
 - ``gang_quorum_plain`` agrees with ``failed_groups`` and revokes the
   group of the earliest pod of a failed group.
 
 The ``cuda`` legs import no JAX and skip without a card: kernel K13 ==
-gang_quorum_plain on random groups, and the device loop (K7 + K8 + K13
-queued G + 1 times, nothing read back between them) == the host fixpoint:
+gang_quorum_plain on random groups; every gated kernel (K1, K2, K11, K12)
+== its plain version with ``done`` clear and writes nothing with it set;
+and the device loop on every route (the dense route's K7 + K8 + K13, the
+rounds route's K7 + K12 + K13, the per-pod routes' K1 + K2 + K13 and K7 +
+K11 + K13, each queued G + 1 times, K10 once where a score plane is on,
+nothing read back between them) == the host fixpoint and the plain loop:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_gang.py
 
@@ -39,11 +49,12 @@ import pytest
 import torch
 
 import torch_gang_reference as ref
+from torch_preempt_reference import to_port
 from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.api.delta import DeltaEncoder
 from kubernetes_tpu_torch.api.snapshot import encode_snapshot
 from kubernetes_tpu_torch.bench import workloads as tw
-from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, gang, infer_score_config, kernels
+from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, gang, infer_score_config, kernels
 from kubernetes_tpu_torch.ops.incremental import HoistCache
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -201,6 +212,20 @@ def test_gang_quorum_plain_revokes_the_earliest_failed_group(seed):
     np.testing.assert_array_equal(pv_next.numpy(), pv.numpy() & (pod_group.numpy() != pod_group.numpy()[f]))
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_iteration_count_after_the_loop(seed):
+    """gang._iterations, the count the card loop queues after its
+    iterations: 1 + the groups whose pods left pod_valid, whichever groups
+    were revoked (on the card, chip_smoke's [gang-rounds] fails if the
+    enqueue waits for the card)."""
+    arr, _ = encode_snapshot(_snap("gang-16x16-tight"), device="cpu")
+    G = arr.group_min.shape[0]
+    revoked = torch.randperm(G, generator=torch.Generator().manual_seed(seed))[:seed * 2 + 1]
+    pv = arr.pod_valid & ~torch.isin(arr.pod_group, revoked.to(arr.pod_group.dtype))
+    assert int(gang._iterations(arr, pv)) == 1 + revoked.numel()
+    assert int(gang._iterations(arr, arr.pod_valid)) == 1
+
+
 def _no_groups(arr):
     """The arrays with no PodGroup at all: G = 0 (the encoder pads to G = 1)."""
     return dataclasses.replace(arr, pod_group=torch.full_like(arr.pod_group, -1),
@@ -220,6 +245,65 @@ def test_device_fixpoint_without_groups_is_the_plain_step(jax_ref, n_pods):
     assert torch.equal(choices, want[0]) and torch.equal(used, want[1]) and stats["iterations"] == 1
     np.testing.assert_array_equal(choices.numpy(), jax_ref[f"basic-{n_pods}/device_choices"])
     np.testing.assert_array_equal(used.numpy(), jax_ref[f"basic-{n_pods}/device_used"])
+
+
+_ROUTE_OF = {"rounds-pairwise": "rounds", "rounds-fit": "rounds", "perpod-fit": "perpod-fit",
+             "perpod-full": "perpod-full"}
+
+
+def _jax_equal(jax_ref, name, c, u, kind="device"):
+    np.testing.assert_array_equal(c.numpy(), jax_ref[f"{name}/{kind}_choices"])
+    np.testing.assert_array_equal(u.numpy(), jax_ref[f"{name}/{kind}_used"])
+
+
+_SCALED = [*ref.CONTENDED, *(f"scale-{n}" for n in ref.AT_SCALE)]
+
+
+def _contended(name):
+    """gang_contended(name), or for "scale-<name>" the same batch pinned to
+    a pool of config 3's 5000 nodes (gang_pinned)."""
+    base = name.removeprefix("scale-")
+    return base, (tw.gang_contended(base) if base == name else tw.gang_pinned(base))
+
+
+@pytest.mark.parametrize("name", _SCALED)
+def test_device_fixpoint_off_the_dense_route_matches_jax(name, jax_ref):
+    """The plain device fixpoint on the rounds and per-pod routes (chunked=
+    True routes as the JAX package's KTPU_FORCE_CHUNKED=1) == the JAX
+    gang_fixpoint_device and host fixpoint, exactly; the batch revokes
+    groups, so more than one iteration runs.  The scale- batches are the
+    sidecar's wave sizes (P = 64 and 8) against 5000 nodes (N = 6144)."""
+    base, snap = _contended(name)
+    arr, _ = encode_snapshot(snap, device="cpu")
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    stats = {}
+    c, u = gang.gang_fixpoint_device(arr, cfg, device="cpu", stats=stats, chunked=True)
+    assert stats["route"] == _ROUTE_OF[base] and stats["iterations"] == tw.GANG_CONTENDED_WANT[base][1] > 1, stats
+    assert assign.fit_only(cfg, arr) == ("fit" in base)
+    assert arr.N == (6144 if base != name else 8), arr.N
+    _jax_equal(jax_ref, name, c, u)
+    _jax_equal(jax_ref, name, c, u, "host")
+    hc, hu = gang.schedule_with_gangs(arr, cfg, device="cpu", chunked=True)
+    assert torch.equal(c, hc) and torch.equal(u, hu)
+
+
+@pytest.mark.parametrize("seed", sorted(ref.RANDOM.values()))
+def test_device_fixpoint_matches_host_loop(seed, jax_ref):
+    """tests/test_gang.py's eight random gang draws (P = 8, 16 or 32 after
+    bucketing: the per-pod and rounds routes): the plain device fixpoint ==
+    the JAX device fixpoint == the JAX host loop, and the port's per-pod
+    route and host loop give the same."""
+    name = f"random-{seed}"
+    arr, _ = encode_snapshot(to_port(ref.random_gang(seed)), device="cpu")
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    stats = {}
+    c, u = gang.gang_fixpoint_device(arr, cfg, device="cpu", stats=stats, chunked=True)
+    assert stats["route"] == ("perpod-fit" if arr.P == 8 else "rounds"), (arr.P, stats)
+    _jax_equal(jax_ref, name, c, u)
+    _jax_equal(jax_ref, name, c, u, "host")
+    pc, pu = gang.gang_fixpoint_device(arr, cfg, device="cpu", chunked=False)
+    hc, hu = gang.schedule_with_gangs(arr, cfg, device="cpu", chunked=True)
+    assert torch.equal(c, pc) and torch.equal(u, pu) and torch.equal(c, hc) and torch.equal(u, hu)
 
 
 # ---------------------------------------------------------------------------
@@ -287,3 +371,137 @@ def test_device_fixpoint_without_groups_on_the_card(card, n_pods):
     assert kernels.LAUNCHES["gang_quorum"] == 0
     want = assign.schedule_batch(arr0, cfg, device="cpu")
     assert torch.equal(choices.cpu(), want[0]) and torch.equal(used.cpu(), want[1])
+
+
+# ---------------------------------------------------------------------------
+# on the card: the gated kernels, and the device loop on every route
+# ---------------------------------------------------------------------------
+
+GATED_KERNELS = ["packed_static_rows", "chunk_rounds_dense", "gang_quorum", "static_feasible", "fit_scan",
+                 "score_planes", "full_scan", "rounds"]
+
+
+@pytest.fixture
+def gcard():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card: python -m pytest --noconftest "
+                    "-m cuda tests/test_torch_gang.py")
+    kernels.build(GATED_KERNELS)
+    return torch.device("cuda")
+
+
+def _snapshot(card, snap):
+    arr, _ = encode_snapshot(snap, device=card)
+    return arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+
+
+def _unchanged(before, after):
+    return all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+@pytest.mark.cuda
+def test_gated_per_pod_fit_kernels(gcard):
+    """K1 static_feasible and K2 fit_scan: with `done` clear (and the gated
+    mode's buffers) == their plain versions; with it set nothing is
+    written."""
+    from kubernetes_tpu_torch.ops import filters
+
+    arr, cfg = _snapshot(gcard, tw.gang_contended("rounds-fit"))
+    done = torch.zeros((1,), dtype=torch.int32, device=gcard)
+    sf = torch.zeros((arr.P, arr.N), dtype=torch.bool, device=gcard)
+    kernels.static_feasible(arr, done=done, out=sf)
+    assert torch.equal(sf, filters.static_feasible_plain(arr))
+    fo = kernels.fit_scan_out(arr, cfg)
+    ck, uk, _ = kernels.fit_scan(sf, arr, cfg, done=done, out=fo)
+    cp, up = assign.schedule_scan_plain(arr, cfg, sf=sf)
+    assert torch.equal(ck, cp) and torch.equal(uk, up)
+    assert torch.equal(kernels.fit_scan(sf, arr, cfg)[1], up)  # the ungated launch is unchanged
+    done.fill_(1)
+    before = (sf.clone(), fo.choices.clone(), fo.used_t.clone(), fo.n_scored.clone())
+    kernels.static_feasible(dataclasses.replace(arr, pod_valid=torch.zeros_like(arr.pod_valid)), done=done, out=sf)
+    kernels.fit_scan(sf, dataclasses.replace(arr, node_used=torch.zeros_like(arr.node_used)), cfg, done=done,
+                     out=fo)
+    assert _unchanged(before, (sf, fo.choices, fo.used_t, fo.n_scored))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["full_scan", "rounds"])
+def test_gated_full_stage_kernels(gcard, scan):
+    """K11 full_scan and K12 rounds in the gated mode: with `done` clear ==
+    their plain versions (choices, usage, ordinals, sweeps, the count
+    state), twice over the same buffers (each launch copies its start
+    state itself); with it set nothing is written."""
+    arr, cfg = _snapshot(gcard, tw.gang_contended("rounds-pairwise"))
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    planes = assign.score_planes(arr, cfg)
+    done = torch.zeros((1,), dtype=torch.int32, device=gcard)
+    so = kernels.scan_out(arr, assign.RCHUNK if scan == "rounds" else None)
+    for _ in range(2):
+        if scan == "rounds":
+            kc, ku, ko, ks, kst = kernels.rounds(arr, cfg, sfs, eligs, planes, with_state=True, done=done, out=so)
+            pc, pu, po, ps, pst = assign.schedule_scan_rounds_plain(arr, cfg, sfs, eligs, planes, with_state=True)
+            assert torch.equal(ko, po) and int(ks[0]) == ps and int(ks[1]) == 0
+        else:
+            kc, ku, kst = kernels.full_scan(arr, cfg, sfs, eligs, planes, with_state=True, done=done, out=so)
+            pc, pu, pst = assign.schedule_scan_plain(arr, cfg, sf=bitplane.unpack(sfs, arr.N), planes=planes,
+                                                     with_state=True)
+        assert torch.equal(kc, pc) and torch.equal(ku, pu)
+        assert all(torch.equal(kst[k], pst[k]) for k in ("cnt", "anti", "pref", "total", "ports"))
+    done.fill_(1)
+    before = [so.choices.clone(), so.ordinals.clone(), so.scal.clone(), *(v.clone() for v in so.state.values())]
+    gated = dataclasses.replace(arr, pod_valid=torch.zeros_like(arr.pod_valid))
+    if scan == "rounds":
+        kernels.rounds(gated, cfg, sfs, eligs, planes, done=done, out=so)
+    else:
+        kernels.full_scan(gated, cfg, sfs, eligs, planes, done=done, out=so)
+    assert _unchanged(before, [so.choices, so.ordinals, so.scal, *so.state.values()])
+
+
+def _route_kernels(route, arr, cfg):
+    k10 = 1 if (cfg.enable_taint_score or cfg.enable_node_pref) else 0
+    return {"dense": {"packed_static_rows": 1, "chunk_rounds_dense": 1},
+            "rounds": {"packed_static_rows": 1, "rounds": 1},
+            "perpod-fit": {"static_feasible": 1, "fit_scan": 1},
+            "perpod-full": {"packed_static_rows": 1, "full_scan": 1}}[route], k10
+
+
+def _loop_on_card(card, snap, chunked=None):
+    """The device loop on the card, counted: exactly G + 1 launches of each
+    of its route's kernels and of K13 (K10 once where a score plane is on),
+    == the plain loop on the CPU over the same route and == the host
+    fixpoint; returns the route."""
+    arr, cfg = _snapshot(card, snap)
+    G = arr.group_min.shape[0]
+    kernels.reset_launches()
+    stats = {}
+    dc, du = gang.gang_fixpoint_device(arr, cfg, stats=stats, chunked=chunked)
+    per_iter, k10 = _route_kernels(stats["route"], arr, cfg)
+    want = {k: G + 1 for k in per_iter}
+    want["gang_quorum"] = G + 1
+    if k10:
+        want["score_planes"] = k10
+    assert {k: v for k, v in kernels.LAUNCHES.items() if v} == want
+    cpu = arr.to(torch.device("cpu"))
+    pstats = {}
+    pc, pu = gang.gang_fixpoint_device(cpu, cfg, device="cpu", stats=pstats,
+                                       chunked=True if chunked is None else chunked)
+    assert pstats["route"] == stats["route"] and pstats["iterations"] == stats["iterations"]
+    assert torch.equal(dc.cpu(), pc) and torch.equal(du.cpu(), pu)
+    hc, hu = gang.schedule_with_gangs(arr, cfg, chunked=chunked)
+    assert torch.equal(dc, hc) and torch.equal(du, hu)
+    return stats["route"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", _SCALED)
+def test_device_loop_on_every_route(gcard, name):
+    base, snap = _contended(name)
+    assert _loop_on_card(gcard, snap) == _ROUTE_OF[base]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunked,route", [(None, "rounds"), (False, "perpod-full")])
+def test_device_loop_with_score_planes(gcard, chunked, route):
+    """all_stages() in PodGroups of 64 (every optional stage on): K10 runs
+    once before the loop, on the rounds and the per-pod route."""
+    assert _loop_on_card(gcard, tw.grouped(tw.all_stages(), 64), chunked) == route

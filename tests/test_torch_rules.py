@@ -4,6 +4,10 @@
   subprocess imports every module of it with both blocked (a subprocess,
   because tests/conftest.py imports jax into every test process), and a
   source scan finds neither named in an import;
+- the sidecar's engine needs neither grpc nor protobuf: a second
+  subprocess blocks both (and JAX) and imports runtime.sidecar's _Engine
+  and _Session and runtime.convert's clone_pod, then runs a small session
+  on the CPU;
 - the kernel wrappers never fall back: a CPU tensor is refused, and a
   failed build raises.
 """
@@ -29,10 +33,14 @@ import kubernetes_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(kubernetes_tpu_torch.__path__, "kubernetes_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-# the encoder, the pipeline of the warm loop and the failure path are among them
+# the encoder, the pipeline of the warm loop, the failure path and the
+# sidecar (its wire, metrics, tracing and lock checker) are among them
 assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
         "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
-        "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench"} <= set(mods), mods
+        "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench",
+        "kubernetes_tpu_torch.runtime.sidecar", "kubernetes_tpu_torch.runtime.convert",
+        "kubernetes_tpu_torch.runtime.tpuscore_pb2", "kubernetes_tpu_torch.scheduler.metrics",
+        "kubernetes_tpu_torch.scheduler.tracing", "kubernetes_tpu_torch.analysis.lockcheck"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked
@@ -49,8 +57,36 @@ def test_port_imports_without_jax():
     assert int(out.stdout.strip()) >= 10  # every module of the package was imported
 
 
+_NO_WIRE = r"""
+import sys
+for name in ("jax", "jaxlib", "kubernetes_tpu", "grpc", "google.protobuf"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+from kubernetes_tpu_torch.runtime.sidecar import _Engine, _Session
+from kubernetes_tpu_torch.runtime.convert import clone_pod
+from kubernetes_tpu_torch.api.snapshot import SpecInterner
+from kubernetes_tpu_torch.bench.workloads import gang_contended, session_waves
+for gang in (False, True):
+    res = session_waves(_Engine(device="cpu"), lambda: _Session(1.0, "cpu"), clone_pod, SpecInterner(),
+                        gang_contended("perpod-fit"), gang, waves=2)
+    assert len(res) == 2 and res[0]["scheduled"] == (3 if gang else 4), (gang, res)
+leaked = sorted(k for k, v in sys.modules.items()
+                if v is not None and (k.split(".")[0] == "grpc" or k.startswith("google.protobuf")))
+assert not leaked, leaked
+print("ok")
+"""
+
+
+def test_sidecar_engine_imports_without_grpc_or_protobuf():
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_WIRE], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def _sources():
-    return sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h"))
+    return sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h", ".proto"))
 
 
 @pytest.mark.parametrize("pattern", [
@@ -138,6 +174,31 @@ def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
                                                    arr.group_min),
     }
     words = [torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)] * 2
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[kernel]()
+
+
+@pytest.mark.parametrize("kernel", ["static_feasible", "fit_scan", "fit_scan_out", "scan_out", "full_scan",
+                                    "rounds"])
+def test_gated_wrappers_refuse_cpu_tensors(kernel):
+    """The gated mode of the gang fixpoint's device loop (a `done` word and
+    persistent `out` buffers) launches or raises the same way."""
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench.workloads import gang_contended
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, kernels
+
+    arr, _ = encode_snapshot(gang_contended("rounds-pairwise"), device="cpu")
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    done = torch.zeros((1,), dtype=torch.int32)
+    words = [torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)] * 2
+    calls = {
+        "static_feasible": lambda: kernels.static_feasible(arr, done=done),
+        "fit_scan": lambda: kernels.fit_scan(torch.ones((arr.P, arr.N), dtype=torch.bool), arr, cfg, done=done),
+        "fit_scan_out": lambda: kernels.fit_scan_out(arr, cfg),
+        "scan_out": lambda: kernels.scan_out(arr, 16),
+        "full_scan": lambda: kernels.full_scan(arr, cfg, *words, (None, None), done=done),
+        "rounds": lambda: kernels.rounds(arr, cfg, *words, (None, None), done=done),
+    }
     with pytest.raises(ValueError, match="CUDA"):
         calls[kernel]()
 

@@ -18,6 +18,17 @@ For every NO_GROUPS batch (basic(24, n_pods, seed=n_pods), encoded by
 encode_snapshot, with every pod's group cleared and G = 0) it runs
 gang_fixpoint_device, which is the plain batch step there
 (-> "<name>/device_choices", "<name>/device_used").
+
+Off the dense route: for every CONTENDED snapshot (the port's
+bench/workloads.py gang_contended, built in the port's types and carried
+over by to_jax) and every RANDOM seed (tests/test_gang.py's
+test_device_fixpoint_matches_host_loop draws, built with tests/helpers.py)
+it runs gang_fixpoint_device, whose batch step takes the rounds route (P a
+multiple of 16) or the per-pod scan (P = 8), and the host fixpoint
+schedule_with_gangs (-> "<name>/device_choices", "<name>/device_used",
+"<name>/host_choices", "<name>/host_used"); the same for every AT_SCALE
+wave (the port's gang_pinned: the contended batch pinned to a pool of
+BASELINE config 3's 5000 nodes; keys "scale-<name>/...").
 """
 
 import os
@@ -33,6 +44,64 @@ PINNED = {"KTPU_FORCE_CHUNKED": "1"}
 SNAPSHOTS = {"gang-24x8": (24, 8, 12, 11), "gang-16x16-tight": (16, 16, 3, 1)}
 # basic(24, n_pods, seed=n_pods) without a PodGroup: G = 0
 NO_GROUPS = {f"basic-{n}": n for n in (50, 300)}
+# the port's contended gang batches off the dense route, and test_gang.py's
+# eight random gang draws
+CONTENDED = ("rounds-pairwise", "rounds-fit", "perpod-fit", "perpod-full")
+AT_SCALE = CONTENDED
+RANDOM = {f"random-{s}": s for s in range(8)}
+
+
+def to_jax(obj):
+    """A port-typed Node / Pod / Snapshot (or a container of them) as the
+    JAX package's types: the same field values."""
+    import dataclasses
+
+    from kubernetes_tpu.api import snapshot as jsnap
+    from kubernetes_tpu.api import types as jt
+
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_jax(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: to_jax(x) for k, x in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = getattr(jt, type(obj).__name__, None) or getattr(jsnap, type(obj).__name__)
+        return cls(**{f.name: to_jax(getattr(obj, f.name)) for f in dataclasses.fields(obj)})
+    return obj
+
+
+def contended(name: str):
+    """The JAX snapshot of the port's gang_contended(name)."""
+    from kubernetes_tpu_torch.bench.workloads import gang_contended
+
+    return to_jax(gang_contended(name))
+
+
+def pinned(name: str):
+    """The JAX snapshot of the port's gang_pinned(name)."""
+    from kubernetes_tpu_torch.bench.workloads import gang_pinned
+
+    return to_jax(gang_pinned(name))
+
+
+def random_gang(seed: int):
+    """tests/test_gang.py test_device_fixpoint_matches_host_loop's draw
+    (JAX types)."""
+    import random
+
+    sys.path.insert(0, HERE)
+    from helpers import mk_node, mk_pod
+    from kubernetes_tpu.api.snapshot import Snapshot
+
+    rng = random.Random(seed)
+    nodes = [mk_node(f"n{i}", cpu=rng.choice([1000, 2000, 4000])) for i in range(rng.randint(2, 5))]
+    pods = []
+    for g in range(rng.randint(1, 4)):
+        size = rng.randint(2, 5)
+        for i in range(size):
+            pods.append(mk_pod(f"g{g}-{i}", cpu=rng.choice([300, 600, 900]), pod_group=f"grp{g}"))
+    for i in range(rng.randint(0, 3)):
+        pods.append(mk_pod(f"solo{i}", cpu=rng.choice([200, 500])))
+    return Snapshot(nodes=nodes, pending_pods=pods)
 
 
 def main() -> None:
@@ -79,6 +148,16 @@ def main() -> None:
         dc, du = gang_fixpoint_device(arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
         res[f"{name}/device_choices"] = np.asarray(dc)
         res[f"{name}/device_used"] = np.asarray(du)
+    from kubernetes_tpu.api.snapshot import encode_snapshot as jencode
+
+    for name, snap in [*((n, contended(n)) for n in CONTENDED), *((n, random_gang(s)) for n, s in RANDOM.items()),
+                       *((f"scale-{n}", pinned(n)) for n in AT_SCALE)]:
+        arr, _ = jencode(snap)
+        cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+        dc, du = gang_fixpoint_device(arr, cfg)
+        hc, hu = schedule_with_gangs(arr, cfg)
+        for field, x in (("device_choices", dc), ("device_used", du), ("host_choices", hc), ("host_used", hu)):
+            res[f"{name}/{field}"] = np.asarray(x)
     np.savez(out, **res)
 
 

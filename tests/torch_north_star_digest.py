@@ -44,6 +44,21 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   (tests/torch_preempt_reference.py) -> the failed count, the diagnosis
   message, the nominated and victim counts and the decisions digest
   (kubernetes_tpu_torch/bench/preempt_bench.py decisions_digest);
+- the gang-rounds leg: BASELINE config 3 with its pending pods in
+  PodGroups of 64 (kubernetes_tpu_torch/bench/workloads.py grouped)
+  through the JAX gang_fixpoint_device, whose batch step is the rounds
+  route (KTPU_FORCE_CHUNKED=1) -> G, placed pods and groups, the choices
+  and usage digests; the gang-contended leg: the same for each of the
+  port's gang_contended batches (rounds with pairwise stages, rounds
+  fit-only, per-pod fit-only and per-pod full stage set); the gang-pinned
+  leg: the same batches pinned to a pool of config 3's 5000 nodes (the
+  port's workloads.gang_pinned);
+- the sidecar-north-star and sidecar-config5 legs: the JAX sidecar engine
+  (runtime/sidecar.py _Engine.run_session, no wire) on the north star
+  (wave 1 the whole pending set pregrouped, then bench.py's wave 2 with
+  wave 1's placements bound by clone_pod) and on config 5 (one gang wave:
+  the device fixpoint), through the port's workloads.session_waves ->
+  per wave the scheduled count and the verdicts digest;
 - the explain leg: the north star's class reps (every class of the
   DeltaEncoder encode) through the JAX explain_classes at the dense step's
   post-step usage -> F and the sha256 of the int64 counts.
@@ -56,8 +71,9 @@ there), the whole script about ten minutes and a few GB:
     JAX_PLATFORMS=cpu python tests/torch_north_star_digest.py [LEG ...]
 
 (LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds,
-all-stages, config3-inc, config3-warm, gang-small, config5, preempt or
-explain runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
+all-stages, config3-inc, config3-warm, gang-small, config5, gang-rounds,
+gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt or explain
+runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
 tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
 tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
 warm leg on spread_affinity(N_NODES, N_PODS) as tests/test_torch_rounds_inc.py
@@ -302,6 +318,70 @@ def gang_leg(n_groups: int, group_size: int, n_nodes: int, name: str = "gang") -
           f"device choices sha256 {_sha(dc)} device==host {bool(np.array_equal(dc, c))}", flush=True)
 
 
+def _gang_device(name: str, snap) -> None:
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.gang import gang_fixpoint_device
+
+    arr, meta = DeltaEncoder().encode(snap)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    c, u = (np.asarray(x) for x in gang_fixpoint_device(arr, cfg))
+    n = meta.n_pods
+    pg = np.asarray(arr.pod_group)
+    gm = np.asarray(arr.group_min)
+    placed = np.bincount(pg[:n][c[:n] >= 0], minlength=gm.shape[0])
+    print(f"{name}: P {arr.P} N {arr.N} G {gm.shape[0]} fit-only "
+          f"{not (cfg.enable_pairwise or cfg.enable_taint_score or cfg.enable_node_pref)} scheduled "
+          f"{int((c[:n] >= 0).sum())} groups {int((placed >= gm).sum())} revoked {int((placed == 0).sum())} "
+          f"choices sha256 {_sha(c[:n])} used sha256 {_sha(u)}", flush=True)
+
+
+def gang_rounds_leg() -> None:
+    """Config 3 in PodGroups of 64 through the JAX device fixpoint (the
+    rounds route each iteration)."""
+    from kubernetes_tpu.api.types import PodGroup
+    from kubernetes_tpu.bench.workloads import spread_affinity
+    from kubernetes_tpu_torch.bench.workloads import grouped
+
+    _gang_device("gang-rounds", grouped(spread_affinity(5000, 10000, seed=0), 64, PodGroup))
+
+
+def gang_contended_leg() -> None:
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_gang_reference import CONTENDED, contended
+
+    for name in CONTENDED:
+        _gang_device(f"gang-contended {name}", contended(name))
+
+
+def gang_pinned_leg() -> None:
+    """The contended batches pinned to a pool of config 3's 5000 nodes (the
+    port's workloads.gang_pinned)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_gang_reference import AT_SCALE, pinned
+
+    for name in AT_SCALE:
+        _gang_device(f"gang-pinned {name}", pinned(name))
+
+
+def sidecar_leg(name: str) -> None:
+    """The JAX sidecar engine's session path on the north star (two waves)
+    or config 5 (one gang wave)."""
+    from kubernetes_tpu.api.snapshot import SpecInterner
+    from kubernetes_tpu.bench import workloads
+    from kubernetes_tpu.runtime.convert import clone_pod
+    from kubernetes_tpu.runtime.sidecar import _Engine, _Session
+    from kubernetes_tpu_torch.bench.workloads import session_waves
+
+    if name == "sidecar-north-star":
+        snap, gang, waves = workloads.heterogeneous(20000, 50000, seed=0), False, 2
+    else:
+        snap, gang, waves = workloads.gang(1000, 64, 2000, seed=0), True, 1
+    for w, r in enumerate(session_waves(_Engine(), lambda: _Session(1.0), clone_pod, SpecInterner(), snap, gang,
+                                        waves), 1):
+        print(f"{name}: wave {w} scheduled {r['scheduled']} verdicts sha256 {r['sha256']}", flush=True)
+
+
 def preempt_leg(n_nodes: int = 20000, n_pre: int = 1000) -> None:
     """The failure path on the JAX package's preemption bench cluster."""
     from torch_preempt_reference import jax_failure_cycle, jax_snapshot
@@ -338,7 +418,10 @@ LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": confi
         "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg, "config3-inc": config3_inc_leg,
         "config3-warm": lambda: warm_leg(5000, 10000, "spread_affinity"),
         "gang-small": lambda: gang_leg(48, 64, 40, "gang-small"),
-        "config5": lambda: gang_leg(1000, 64, 2000, "config5"), "preempt": preempt_leg, "explain": explain_leg}
+        "config5": lambda: gang_leg(1000, 64, 2000, "config5"), "preempt": preempt_leg, "explain": explain_leg,
+        "gang-rounds": gang_rounds_leg, "gang-contended": gang_contended_leg, "gang-pinned": gang_pinned_leg,
+        "sidecar-north-star": lambda: sidecar_leg("sidecar-north-star"),
+        "sidecar-config5": lambda: sidecar_leg("sidecar-config5")}
 
 
 def main() -> None:
@@ -361,7 +444,8 @@ def main() -> None:
             ("dense", {}), ("warm", {"KTPU_MEMWATCH": "0"}), ("wide", {"KTPU_FORCE_CHUNKED": "0"}),
             ("config3", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-rounds", {}),
             ("all-stages", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-inc", {}),
-            ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {}), ("preempt", {}), ("explain", {})]
+            ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {}), ("preempt", {}), ("explain", {}),
+            ("gang-rounds", {}), ("gang-contended", {}), ("gang-pinned", {}), ("sidecar-north-star", {}), ("sidecar-config5", {})]
     for name, extra in runs:
         if only and name not in only:
             continue

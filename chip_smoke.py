@@ -44,6 +44,38 @@ batched preemption) on the JAX package's preemption bench cluster:
                      HoistCache actions, enc.stats["delta"] >= 3, delta_s,
                      end_to_end_s (median of the steady walls) and
                      overlap_fraction as bench.py computes them;
+  [mesh-north-star]  the node mesh (parallel/mesh.py) at the north star: a
+                     DeltaEncoder on make_mesh(4) ("4 shards on 1 card": every
+                     node-axis field resident per shard), the cold dense
+                     step (packed_static_rows once per shard with its base,
+                     the tiled all_gather, stitch_planes, chunk_rounds_dense)
+                     and the class-wave step (HoistCache(mesh=):
+                     class_static_hoist and class_usage_hoist once per
+                     shard, stitch_planes on both packed planes, then
+                     wave_commit and chunk_rounds), each counted on its own:
+                     the JAX digests, sweeps and ordinals of the single-device
+                     phases and their usage; then both on make_mesh(3): N
+                     pads to 20481, nl = 6827, so stitch_planes shifts
+                     across block boundaries at full width; stitch_planes ==
+                     plain on the class planes and the dense rows (timed),
+                     the per-shard K3, K4 and K7 == plain;
+  [mesh-warm-loop]   bench.py's warm waves 2..7 through PipelinedBatchLoop
+                     (depth 1, mesh=make_mesh(4)): the per-wave digests and
+                     HoistCache actions of [warm-loop], every step on the
+                     sharded class-wave route; end_to_end_s beside
+                     [warm-loop]'s;
+  [ring]             parallel/ring.py: ring_match of the north star's
+                     sel_mask / sel_kind (terms padded to a multiple of 4)
+                     against its node_labels [20480, L] on 4 shards (ring_match
+                     launched 4 x 4 times) == the ring on the CPU (the plain
+                     hop) == the dense term match; then of BASELINE config
+                     3's 80 pairwise terms against its 10000 pod label rows
+                     (api/pairwise.py match_inputs; [80, 2, 41] x [10000,
+                     41]) on 4 shards == the plain ring == the host match
+                     matrix; one hop of that ring == plain, timed beside
+                     torch.einsum of the counts (K16's row); then
+                     all_to_all_pods_to_nodes of a [10240, 6144] f32 plane
+                     (config 3's P x N) keeps every value;
   [wide-planes]      a snapshot with 80 distinct NoSchedule taints through
                      DeltaEncoder: its four 80-wide bool fields (the hard and
                      PreferNoSchedule taint and toleration planes) travel
@@ -185,6 +217,9 @@ DENSE_KERNELS = ("packed_static_rows", "chunk_rounds_dense")
 DENSE_PREFIX_CHUNKS = 8  # dense chunks held against the plain round loop
 ROUNDS_PREFIX_CHUNKS = 8  # config-3 rounds chunks held against the plain rounds scan
 PERPOD_PREFIX = 512  # config-3 pods of the full-stage per-pod scan held against plain
+MESH_DENSE_KERNELS = ("packed_static_rows", "stitch_planes", "chunk_rounds_dense")
+MESH_WAVE_KERNELS = ("class_static_hoist", "class_usage_hoist", "stitch_planes", "wave_commit", "chunk_rounds")
+STITCH_PLAIN_ROWS = 4096  # row block of the plain stitch (its int64 transient is ~0.7 GB)
 STRATEGIES = (
     ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
     ("MostAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -880,11 +915,13 @@ def phase_warm_loop(cold) -> dict:
     return res
 
 
-def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_kernels, route) -> dict:
+def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_kernels, route, mesh=None,
+                  depths=(1, 0)) -> dict:
     """bench.py's warm waves 2..7 over `snap` through PipelinedBatchLoop at
-    depth 1, then 0, each counted on its own: every wave's digest and the
-    HoistCache action as the JAX loop's, every kernel of `need_kernels`
-    launched, `route` taken by each of the six steps."""
+    each of `depths` (1, then 0), each counted on its own: every wave's
+    digest and the HoistCache action as the JAX loop's, every kernel of
+    `need_kernels` launched, `route` taken by each of the six steps; on
+    the node mesh `mesh` when given (the encoder and the loop take it)."""
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
@@ -897,11 +934,11 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
     first = workloads.verdicts_of(choices.cpu().numpy(), meta)
     names = [nd.name for nd in snap.nodes]
     res = {}
-    for depth in (1, 0):
-        enc = DeltaEncoder()
+    for depth in depths:
+        enc = DeltaEncoder(mesh=mesh)
         enc.encode_device(snap)  # the cold encode the loop's encoder carries on from, as in bench.py
         torch.cuda.synchronize()
-        loop = PipelinedBatchLoop(encoder=enc, depth=depth)
+        loop = PipelinedBatchLoop(encoder=enc, depth=depth, mesh=mesh)
         kernels.reset_launches()
         assign.reset_trace_counts()
         waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain, Snapshot)
@@ -936,9 +973,309 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
             check(launches.get(k, 0) > 0, f"{tag} depth {depth}: {k} was not launched: {launches}")
         res[depth] = dict(digests=digests, end_to_end_s=end_to_end_s, delta_s=delta_s, overlap=overlap,
                           walls=walls)
-    check(res[0]["digests"] == res[1]["digests"], f"{tag}: depth 0 != depth 1")
-    check(res[0]["overlap"] == 0.0, f"{tag}: overlap_fraction {res[0]['overlap']} at depth 0")
+    if 0 in res and 1 in res:
+        check(res[0]["digests"] == res[1]["digests"], f"{tag}: depth 0 != depth 1")
+    if 0 in res:
+        check(res[0]["overlap"] == 0.0, f"{tag}: overlap_fraction {res[0]['overlap']} at depth 0")
     return res
+
+
+def mesh_step(tag, arr, cfg, mesh, need, inc=None) -> tuple:
+    """One counted step on the mesh: launches of exactly `need`, the route's
+    outputs and its best-of-two step_s (host clock to a synchronise)."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import assign, kernels
+
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    out = assign.schedule_batch_ordinals(arr, cfg, inc=inc, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+    check(set(launches) == set(need), f"{tag}: launches {launches}, want {need}")
+    check(routes.get("sharded_chunked_inc" if inc is not None else "sharded_chunked") == 1, f"{tag}: routes {routes}")
+    step_s = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        assign.schedule_batch(arr, cfg, inc=inc, mesh=mesh)
+        torch.cuda.synchronize()
+        step_s = min(step_s, time.perf_counter() - t0)
+    return out, launches, routes, step_s
+
+
+def phase_mesh_north_star(used_sha: str) -> list:
+    """The north star on make_mesh(4) and make_mesh(3): the dense and the
+    class-wave step, each counted on its own, against the single-device
+    digests; K17 and the per-shard K3 / K4 / K7 against their plain versions."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, incremental, infer_score_config
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel.collectives import all_gather_nodes
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+
+    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
+    host, meta = DeltaEncoder().encode(snap)
+    n = meta.n_pods
+    N0 = host.N
+
+    def sha(x):
+        return hashlib.sha256(x.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    stitch = {"launches": 0}
+    for S in (4, 3):
+        mesh = make_mesh(S)
+        enc = DeltaEncoder(mesh=mesh)
+        t0 = time.perf_counter()
+        arr, _ = enc.to_device(host, meta)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        cfg = infer_score_config(host, DEFAULT_SCORE_CONFIG)
+        N, nl = arr.N, arr.nl
+        tag = f"mesh-north-star S={S}"
+        print(f"[mesh-north-star] {mesh}: N {N0} -> {N} ({N - N0} pad nodes), nl {nl}, node-axis fields resident "
+              f"per shard (to_device {place_s:.3f} s)", flush=True)
+        check(repr(mesh) == f"NodeMesh({S} shards on 1 card)", f"mesh repr {mesh!r}")
+        # --- the dense step ---
+        (c, u, o, sw), la, routes, dense_s = mesh_step(tag + " dense", arr, cfg, mesh, MESH_DENSE_KERNELS)
+        check(la["packed_static_rows"] == S and la["stitch_planes"] == 1 and la["chunk_rounds_dense"] == 1,
+              f"{tag} dense: launches {la}")
+        stitch["launches"] += la["stitch_planes"]
+        check(sha(c[:n]) == workloads.NORTH_STAR_CHOICES_SHA256, f"{tag} dense: choices differ from JAX")
+        check(sw == workloads.NORTH_STAR_DENSE_SWEEPS, f"{tag} dense: sweeps {sw}")
+        check(sha(o[:n]) == workloads.NORTH_STAR_DENSE_ORDINALS_SHA256, f"{tag} dense: ordinals differ from JAX")
+        check(sha(u[:N0]) == used_sha and not u[N0:].any(), f"{tag} dense: usage != the single-device step's")
+        print(f"[mesh-north-star] S={S} dense: sweeps {sw}, choices/ordinals/usage == single device, launches "
+              f"{la}, step_s {dense_s:.4f} (best of 2)", flush=True)
+        # --- the class-wave step ---
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        hc = HoistCache(mesh=mesh)
+        inc = hc.ensure(arr, meta, cfg, host=host)
+        torch.cuda.synchronize()
+        ensure_s = time.perf_counter() - t0
+        hoist_la = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(hoist_la == {"class_static_hoist": S, "class_usage_hoist": S, "stitch_planes": 2},
+              f"{tag}: HoistCache launches {hoist_la}")
+        check(inc.req_u.shape[0] == workloads.NORTH_STAR_CLASSES and inc.base_u.shape[1] == N, f"{tag}: IncState")
+        (c, u, o, sw), la, routes, wave_s = mesh_step(tag + " waves", arr, cfg, mesh, ("wave_commit", "chunk_rounds"),
+                                                      inc=inc)
+        check(routes.get("class_waves") == 1, f"{tag} waves: routes {routes}")
+        stitch["launches"] += hoist_la["stitch_planes"]
+        check(sha(c[:n]) == workloads.NORTH_STAR_CHOICES_SHA256, f"{tag} waves: choices differ from JAX")
+        check(sw == workloads.NORTH_STAR_WAVE_SWEEPS, f"{tag} waves: sweeps {sw}")
+        check(sha(o[:n]) == workloads.NORTH_STAR_WAVE_ORDINALS_SHA256, f"{tag} waves: ordinals differ from JAX")
+        check(sha(u[:N0]) == used_sha and not u[N0:].any(), f"{tag} waves: usage != the single-device step's")
+        print(f"[mesh-north-star] S={S} class waves: HoistCache.ensure {ensure_s:.4f} s ({hc.last['action']}, "
+              f"launches {hoist_la}), sweeps {sw}, choices/ordinals/usage == single device, step launches {la}, "
+              f"step_s {wave_s:.4f} (best of 2; the ensure not included)", flush=True)
+        # --- the kernels against their plain versions on this mesh's shapes ---
+        r_u = torch.as_tensor(meta.class_first_pod, device=arr.device)
+        err = 0
+        for j, sh in enumerate(arr.shards):
+            base = mesh.base(j, N)
+            if j == S - 1:  # one shard's K7 (~40 ms of plain each), the last: the largest base
+                err += mismatch(kernels.packed_static_rows(sh, base=base),
+                                assign.packed_static_rows_plain(sh, base=base))
+            err += mismatch(hc._blocks["stat"][j],
+                            incremental._static_hoist_plain(incremental.class_view(sh, r_u), base=base)[0])
+            bp, fp = incremental._usage_hoist_plain(inc.req_u, sh.node_used, sh.node_alloc, cfg)
+            err += mismatch(hc._blocks["usage"][j][0], bp) + mismatch(hc._blocks["usage"][j][1], fp)
+        check(err == 0, f"{tag}: per-shard K3 / K4 / K7 != plain ({err} entries)")
+        tiled = all_gather_nodes(hc._blocks["stat"], 1, arr.device)
+        k17_err = mismatch(kernels.stitch_planes(tiled, nl), bitplane.stitch_planes_plain(tiled, nl))
+        check(k17_err == 0 and same(inc.stat_u, kernels.stitch_planes(tiled, nl)), f"{tag}: stitch_planes != plain")
+        print(f"[mesh-north-star] S={S}: per-shard class_static_hoist, class_usage_hoist, packed_static_rows (shard "
+              f"{S - 1}, base {mesh.base(S - 1, N)}) == plain; stitch_planes == plain on the class planes "
+              f"[{tiled.shape[0]}, {tiled.shape[1]}] -> {inc.stat_u.shape[1]} words"
+              + (" (nl % 32 == 0: the two layouts coincide, the kernel was a copy)" if nl % 32 == 0 else ""),
+              flush=True)
+        if S == 3:
+            blocks = [kernels.packed_static_rows(sh, base=mesh.base(j, N)) for j, sh in enumerate(arr.shards)]
+            big = all_gather_nodes(blocks, 1, arr.device)
+            del blocks
+            flat = kernels.stitch_planes(big, nl)
+            rows = big.shape[0]
+            for r0 in range(0, rows, STITCH_PLAIN_ROWS):
+                k17_err += mismatch(flat[r0:r0 + STITCH_PLAIN_ROWS],
+                                    bitplane.stitch_planes_plain(big[r0:r0 + STITCH_PLAIN_ROWS], nl))
+            check(k17_err == 0, f"{tag}: stitch_planes != plain on the dense rows ({k17_err} words)")
+            k17_ms = cuda_ms(lambda: kernels.stitch_planes(big, nl), reps=20, warmup=2)
+
+            def plain_all():
+                for r0 in range(0, rows, STITCH_PLAIN_ROWS):
+                    bitplane.stitch_planes_plain(big[r0:r0 + STITCH_PLAIN_ROWS], nl)
+
+            k17_plain = cuda_ms(plain_all, reps=1)
+            k17_small = cuda_ms(lambda: kernels.stitch_planes(tiled, nl), reps=50, warmup=2)
+            k17_bytes = 4 * rows * (big.shape[1] + flat.shape[1])
+            k17_bound, k17_by = bound(k17_bytes, rows * flat.shape[1] * 8)
+            print(f"[mesh-north-star] stitch_planes == plain on the dense static rows [{rows}, {big.shape[1]}] -> "
+                  f"[{rows}, {flat.shape[1]}]: {k17_ms:.4f} ms, plain {k17_plain:.2f} ms (blocks of "
+                  f"{STITCH_PLAIN_ROWS} rows), bound {k17_bound:.5f} ms ({k17_by}: {k17_bytes} B); on the class "
+                  f"planes {k17_small:.4f} ms", flush=True)
+            stitch.update(max_abs_err=k17_err, ms=k17_ms, plain_ms=k17_plain, bound_ms=k17_bound, bound_by=k17_by,
+                          class_planes_ms=k17_small, shape=f"[{rows}, {big.shape[1]}] nl={nl}")
+            del big, flat
+        del arr, inc, hc
+        torch.cuda.empty_cache()
+    launches = stitch.pop("launches")
+    return [dict(name="stitch_planes", route="cuda", source="kubernetes_tpu_torch/csrc/stitch_planes.cu",
+                 replaces="kubernetes_tpu/ops/assign.py:1000-1010 (tiled all_gather of packed planes, "
+                          "ops/bitplane.py:100-175)",
+                 launches=launches, library_ms=None, **stitch)]
+
+
+def phase_mesh_warm_loop(cold, single) -> None:
+    """bench.py's warm loop at depth 1 on make_mesh(4), then once more on one
+    device, beside [warm-loop]'s (host time drifts within a run, so the
+    two forms run in turns: one device, the mesh, one device)."""
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+
+    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
+    want = (cold, workloads.NORTH_STAR_WARM_DIGESTS, workloads.NORTH_STAR_WARM_ACTIONS,
+            workloads.NORTH_STAR_SCHEDULED)
+    res = run_warm_loop("mesh-warm-loop", snap, *want, MESH_WAVE_KERNELS, "sharded_chunked_inc", mesh=make_mesh(4),
+                        depths=(1,))
+    again = run_warm_loop("mesh-warm-loop single", snap, *want, WAVE_KERNELS, "class_waves", depths=(1,))
+    print(f"[mesh-warm-loop] end_to_end_s {res[1]['end_to_end_s']:.4f} on 4 shards; one device "
+          f"{single[1]['end_to_end_s']:.4f} before it ([warm-loop]) and {again[1]['end_to_end_s']:.4f} after it; "
+          f"delta_s {res[1]['delta_s']:.4f} / {single[1]['delta_s']:.4f} / {again[1]['delta_s']:.4f}", flush=True)
+
+
+def ring_hop_ops(sel, kind, lab) -> int:
+    """Operations one ring_match hop does on these inputs: 2 per label
+    (compare and add) for each expression csrc/ring_match.cu evaluates --
+    the non-PAD expressions of a (term, row) up to and including its first
+    failing one (the kernel's loop ends there)."""
+    import torch
+
+    counts = torch.einsum("sel,bl->seb", (sel != 0).double().cpu(), (lab != 0).double().cpu())
+    k = kind.cpu()[:, :, None]
+    ok = torch.where(k == 1, counts > 0, torch.where(k == 2, counts == 0, k == 0)).int()
+    through = torch.cumprod(ok, dim=1)  # every expression ok up to and including e
+    reached = torch.cat([torch.ones_like(through[:, :1]), through[:, :-1]], dim=1).bool()
+    return 2 * sel.shape[2] * int((reached & (k != 0)).sum())
+
+
+def config3_match_inputs():
+    """BASELINE config 3's selector x pod-label match (spread_affinity(5000,
+    10000)): the batch's distinct pairwise terms against its pods' label
+    rows as api/pairwise.py match_inputs lowers them, and _match_matrix's
+    answer."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import _pod_pairwise_terms
+    from kubernetes_tpu_torch.api.pairwise import _match_matrix, match_inputs
+    from kubernetes_tpu_torch.bench import workloads
+
+    pods = workloads.spread_affinity(5000, 10000, seed=0).pending_pods
+    terms = {}
+    for pod in pods:
+        aff, anti, pref, spread = _pod_pairwise_terms(pod)
+        for k in (*aff, *anti, *(x[0] for x in pref), *(x[0] for x in spread)):
+            terms.setdefault(k, None)
+    terms = list(terms)
+    sel, kind, labels = (torch.from_numpy(x) for x in match_inputs(terms, pods))
+    return sel, kind, labels, torch.from_numpy(_match_matrix(terms, pods)).bool()
+
+
+def phase_ring() -> list:
+    """ring_match of the north star's selector terms against its node labels
+    on 4 shards (exactness), then of BASELINE config 3's 80 terms against
+    its 10000 pod label rows on 4 shards (K16's row: the matrix the ring
+    exists for); all_to_all_pods_to_nodes of a config-3-sized plane."""
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import filters, kernels
+    from kubernetes_tpu_torch.parallel import all_to_all_pods_to_nodes, make_mesh, ring_match
+    from kubernetes_tpu_torch.parallel.ring import match_block_plain
+
+    d = 4
+    mesh = make_mesh(d)
+    cpu_mesh = make_mesh(d, devices="cpu")
+    arr, _ = encode_snapshot(workloads.heterogeneous(**workloads.NORTH_STAR))
+    S0, E, L = arr.sel_mask.shape
+    S = -(-S0 // d) * d
+    sel = torch.zeros((S, E, L), dtype=torch.float32, device=arr.device)
+    sel[:S0] = arr.sel_mask.float()
+    kind = torch.zeros((S, E), dtype=torch.int32, device=arr.device)  # pad terms: PAD kinds (always true)
+    kind[:S0] = arr.sel_kind
+    labels = arr.node_labels.float()
+    kernels.reset_launches()
+    tiles = ring_match(sel, kind, labels, mesh)
+    torch.cuda.synchronize()
+    ns_launches = kernels.LAUNCHES["ring_match"]
+    check(ns_launches == d * d and sum(kernels.LAUNCHES.values()) == ns_launches,
+          f"ring: launches {kernels.LAUNCHES}")
+    got = torch.cat(tiles)
+    plain = torch.cat(ring_match(sel.cpu(), kind.cpu(), labels.cpu(), cpu_mesh))
+    tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
+    ns_err = mismatch(got.cpu(), plain) + mismatch(got[:S0], tm)
+    check(ns_err == 0 and bool(got[S0:].all()), "ring: ring_match != the plain ring / the dense term match")
+    print(f"[ring] north star: ring_match on {mesh}: node-selector terms {S0} padded to {S}, E={E}, L={L}, "
+          f"node label rows {labels.shape[0]}: {ns_launches} ring_match launches == the plain ring == the dense "
+          f"term match", flush=True)
+    del arr, sel, kind, labels, tiles, got
+
+    t0 = time.perf_counter()
+    sel, kind, labels, dense = config3_match_inputs()
+    build_s = time.perf_counter() - t0
+    S, E, L = sel.shape
+    P = labels.shape[0]
+    check(S == 80 and P == 10000, f"ring: config 3 gave {S} terms x {P} pods, not 80 x 10000")
+    plain = torch.cat(ring_match(sel, kind, labels, cpu_mesh))
+    sel, kind, labels = sel.cuda(), kind.cuda(), labels.cuda()
+    kernels.reset_launches()
+    tiles = ring_match(sel, kind, labels, mesh)
+    torch.cuda.synchronize()
+    launches = kernels.LAUNCHES["ring_match"]
+    check(launches == d * d and sum(kernels.LAUNCHES.values()) == launches, f"ring: launches {kernels.LAUNCHES}")
+    got = torch.cat(tiles).cpu()
+    k16_err = ns_err + mismatch(got, plain) + mismatch(got, dense)
+    check(k16_err == 0, "ring: config 3 ring_match != the plain ring / the host match matrix")
+    # one hop at the ring's shape: shard 0's terms x one pod label block
+    sl, pl = S // d, P // d
+    hs, hk, hl = sel[:sl].contiguous(), kind[:sl].contiguous(), labels[:pl].contiguous()
+    hop_err = mismatch(kernels.ring_match(hs, hk, hl), match_block_plain(hs, hk, hl))
+    check(hop_err == 0, "ring: one ring_match hop != plain")
+    k16_ms = cuda_ms(lambda: kernels.ring_match(hs, hk, hl), reps=200, warmup=5)
+    k16_card = card_ms(lambda: kernels.ring_match(hs, hk, hl), reps=200)
+    k16_plain = cuda_ms(lambda: match_block_plain(hs, hk, hl), reps=20, warmup=2)
+    lib_ms = cuda_ms(lambda: torch.einsum("sel,bl->seb", hs, hl), reps=200, warmup=5)
+    k16_ops = ring_hop_ops(hs, hk, hl)
+    k16_bytes = 4 * (sl * E * L + sl * E + pl * L) + sl * pl
+    k16_bound, k16_by = bound(k16_bytes, k16_ops)
+    ring_ms = cuda_ms(lambda: ring_match(sel, kind, labels, mesh), reps=20, warmup=2)
+    print(f"[ring] config 3: {S} terms x {P} pod label rows (E={E}, L={L}; built on the host in {build_s:.3f} s), "
+          f"{dense.sum().item()} matches: ring_match on {mesh}: {launches} ring_match launches == the plain ring "
+          f"== the host match matrix (api/pairwise.py _match_matrix); the whole ring {ring_ms:.4f} ms; one hop "
+          f"[{sl}, {E}, {L}] x [{pl}, {L}]: {k16_ms:.4f} ms back to back ({k16_card:.4f} ms of card time, queued "
+          f"behind a sleep), plain {k16_plain:.4f} ms, torch.einsum of the counts {lib_ms:.4f} ms, bound "
+          f"{k16_bound:.6f} ms ({k16_by}: {k16_bytes} B, {k16_ops} operations evaluated of "
+          f"{2 * sl * E * L * pl} at most)", flush=True)
+    del sel, kind, labels, tiles, hs, hk, hl
+    x = torch.randn((10240, 6144), generator=torch.Generator().manual_seed(0)).to("cuda")
+    blocks = all_to_all_pods_to_nodes(x, mesh)
+    torch.cuda.synchronize()
+    check(all(tuple(b.shape) == (10240, 6144 // d) for b in blocks), "all_to_all: block shapes")
+    check(torch.equal(torch.cat(blocks, dim=1), x), "all_to_all: values not preserved")
+    a2a_ms = cuda_ms(lambda: all_to_all_pods_to_nodes(x, mesh), reps=10, warmup=2)
+    print(f"[ring] all_to_all_pods_to_nodes of [10240, 6144] f32 on {mesh}: values preserved, node-sharded "
+          f"blocks [10240, {6144 // d}]; {a2a_ms:.4f} ms (on one card the pod blocks are row views of the "
+          f"plane, the exchange reads and writes {2 * x.numel() * 4 / 1e6:.0f} MB)", flush=True)
+    return [dict(name="ring_match", route="cuda", source="kubernetes_tpu_torch/csrc/ring_match.cu",
+                 replaces="kubernetes_tpu/parallel/ring.py:35 (_eval_block, in ring_match :47)", launches=launches,
+                 max_abs_err=k16_err + hop_err, ms=k16_ms, plain_ms=k16_plain, bound_ms=k16_bound, bound_by=k16_by,
+                 library_ms=lib_ms, card_ms=k16_card, ring_ms=ring_ms, a2a_ms=a2a_ms,
+                 shape=f"[{sl}, {E}, {L}] x [{pl}, {L}]")]
 
 
 def phase_wide_planes() -> list:
@@ -2221,8 +2558,12 @@ def main() -> int:
     step_dense_s, cold, ns, dense_rows = phase_north_star_dense()
     rows += dense_rows
     k14 = phase_explain_north_star(ns)
+    used_sha = hashlib.sha256(ns["used"].cpu().numpy().astype("<i4").tobytes()).hexdigest()
     del ns
-    phase_warm_loop(cold)
+    warm = phase_warm_loop(cold)
+    rows += phase_mesh_north_star(used_sha)
+    phase_mesh_warm_loop(cold, warm)
+    rows += phase_ring()
     rows += phase_wide_planes()
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)

@@ -38,6 +38,13 @@ wire):
 
     python -m kubernetes_tpu_torch.runtime.sidecar --listen 127.0.0.1:50151 [--device cpu]
 
+The 1-D node mesh is ported for the chunked routes (parallel/: the node
+axis on S shards held by one process, decisions equal to one device's),
+with the ring layer:
+
+    from kubernetes_tpu_torch.parallel import make_mesh
+    choices, used = schedule_batch(arr, cfg, mesh=make_mesh(4))  # used on the padded axis
+
 Volumes and resource claims raise NotImplementedError; the Scheduler
 itself, the sidecar's client and the CPU PostFilter are not ported (see
 ROADMAP.md queues A and B).

@@ -43,9 +43,19 @@ api/delta.py:1033) encodes a wave that arrives interned -- spec reps, each
 pod's spec index and the uids -- without one pod object per pending pod;
 a bound copy the server clones from the rep is absorbed through the rep.
 
+On a node mesh (``DeltaEncoder(mesh=)`` / ``set_mesh``, parallel/mesh.py;
+the JAX package's api/delta.py:884-1000) every node-axis field is resident
+PER SHARD, each shard's rows its own tensor on the shard's device, and every
+other field once per device.  A node count the mesh does not divide is
+padded host-side with permanently invalid nodes (``_pad_for_mesh``, the
+rules of parallel/mesh.py -- pad_field), memoized by the host array's
+identity, so the resident-reuse check still hits; a warm delta re-places
+only the shards whose rows changed.  The arrays come back as a
+``ShardedArrays``.  Changing the mesh drops the resident tensors.
+
 Not ported here (each refused where it would be needed, never dropped):
 volumes and resource claims (the cluster side keeps no storage
-fingerprint; the sidecar's wire carries neither) and mesh placement.
+fingerprint; the sidecar's wire carries neither).
 """
 
 from __future__ import annotations
@@ -726,13 +736,16 @@ class DeltaEncoder:
     `device` (the card unless the caller passes device="cpu"),
     ``encode_device`` does both.  ``stats`` counts full and delta cycles."""
 
-    def __init__(self, device=None, *, hard_pod_affinity_weight: float = 1.0, debug_verify: bool = False):
+    def __init__(self, device=None, *, hard_pod_affinity_weight: float = 1.0, debug_verify: bool = False,
+                 mesh=None):
         self.device = resolve_device(device)
         # bound pods' required-affinity terms score toward incoming pods at
         # this weight (the JAX DeltaEncoder's hard_pod_affinity_weight)
         self.hpaw = hard_pod_affinity_weight
         self._cs: Optional[ClusterSide] = None
-        self._dev: Dict[str, Tuple] = {}  # field -> (host array, device tensor)
+        # field (on a mesh: (field, shard) or (field, device)) -> (host array,
+        # the block of it placed, device tensor)
+        self._dev: Dict[object, Tuple] = {}
         self.stats = {"full": 0, "delta": 0, "verified": 0}
         # Cache validity rests on OBJECT IDENTITY (node fingerprint, record
         # `is` checks) under copy-on-write Node/Pod objects; debug_verify
@@ -741,8 +754,11 @@ class DeltaEncoder:
         self.debug_verify = debug_verify
         self._interner = SpecInterner()
         self._rep_key_memo: Dict[int, Tuple] = {}  # id(rep) -> (spec key, rep): encode_pregrouped
-        self._copy_stream = None
+        self._copy_streams: Dict[torch.device, object] = {}  # card -> its copy stream
         self._staging = _Staging()
+        self._mesh = None
+        self._pad_memo: Dict[str, Tuple] = {}  # field -> (host array, padded array)
+        self.set_mesh(mesh)
 
     # -- host side --
     def encode(self, snap):
@@ -872,70 +888,148 @@ class DeltaEncoder:
         """Forget every resident tensor (the next placement copies all)."""
         self._dev.clear()
 
-    def _h2d(self, a: np.ndarray) -> torch.Tensor:
-        """One host array into a NEW device tensor: a CPU copy on the CPU; on
-        the card through pinned staging on the copy stream (the caller
-        makes the compute stream wait)."""
+    def set_mesh(self, mesh) -> None:
+        """Place every later encode on the node mesh `mesh` (None, or a
+        one-shard mesh: one device).  Changing the mesh drops the resident
+        tensors (the JAX package's delta.py:884)."""
+        if mesh is not None and mesh.size <= 1:
+            mesh = None
+        if mesh is not None and any(d.type != self.device.type for d in mesh.devices):
+            raise ValueError(f"{mesh} does not sit on the encoder's device type {self.device.type}")
+        if mesh != self._mesh:
+            self._mesh = mesh
+            self._dev.clear()
+            self._pad_memo.clear()
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    def _pad_for_mesh(self, name: str, a: np.ndarray, pad: int, d_sentinel: int, n: int) -> np.ndarray:
+        """A field's node axis padded for the mesh (parallel/mesh.py --
+        pad_field), memoized by the input array's identity: an unchanged
+        field keeps one padded object across cycles, which the
+        resident-reuse check keys on (the JAX package's delta.py:902)."""
+        from ..parallel.mesh import pad_field
+
+        memo = self._pad_memo.get(name)
+        if memo is not None and memo[0] is a:
+            return memo[1]
+        p = pad_field(name, a, pad, d_sentinel, n)
+        if p is not a:
+            self._pad_memo[name] = (a, p)
+        return p
+
+    def _h2d(self, a: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
+        """One host array into a NEW tensor on `device` (the encoder's when
+        None): a CPU copy on the CPU; on the card through pinned staging on
+        that card's copy stream (the caller makes the compute stream wait)."""
+        device = self.device if device is None else device
         a = np.ascontiguousarray(a)
         if a.dtype in _BITS_OF:
             carrier, dt = _BITS_OF[a.dtype]
             a = a.view(carrier)
         else:
             dt = _TORCH_OF[a.dtype]
-        if self.device.type == "cpu":
+        if device.type == "cpu":
             return torch.from_numpy(a.copy()).view(dt)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
+        stream = self._copy_streams.get(device)
+        if stream is None:
+            stream = self._copy_streams[device] = torch.cuda.Stream(device)
         ent = self._staging.take(a.nbytes)
         host = ent[0][: a.nbytes]
         host.numpy()[:] = a.reshape(-1).view(np.uint8)
-        with torch.cuda.stream(self._copy_stream):
-            d = torch.empty(a.shape, dtype=dt, device=self.device)
+        with torch.cuda.stream(stream):
+            d = torch.empty(a.shape, dtype=dt, device=device)
             d.view(torch.uint8).view(-1).copy_(host, non_blocking=True)
             ev = torch.cuda.Event()
-            ev.record(self._copy_stream)
+            ev.record(stream)
         ent[1] = ev
         # d was allocated on the copy stream and is read on the compute
         # stream: its memory is reused only after the compute stream is done
-        d.record_stream(torch.cuda.current_stream(self.device))
+        d.record_stream(torch.cuda.current_stream(device))
         return d
 
-    def _packed_put(self, a: np.ndarray) -> torch.Tensor:
+    def _packed_put(self, a: np.ndarray, device: Optional[torch.device] = None) -> torch.Tensor:
         """A wide bool matrix as packed words, unpacked on the device (the
         JAX package's delta.py:922): host-to-device bytes drop 8x, the
         resident tensor is the dense bool plane the kernels read.  On the
         card kernel K9 unpack_planes, on the CPU its plain version."""
         from ..ops import bitplane
 
-        words = self._h2d(bitplane.np_pack_lastaxis(a))
-        if self.device.type != "cpu":
+        device = self.device if device is None else device
+        words = self._h2d(bitplane.np_pack_lastaxis(a), device)
+        if device.type != "cpu":
             self._fence()
         return bitplane.unpack_planes(words, a.shape[-1])
 
     def _fence(self) -> None:
-        """The compute stream waits for every copy issued so far."""
-        if self._copy_stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(self._copy_stream)
+        """The compute stream of each card waits for every copy issued so far
+        to it."""
+        for device, stream in self._copy_streams.items():
+            torch.cuda.current_stream(device).wait_stream(stream)
+
+    def _put(self, key, a: np.ndarray, blk: np.ndarray, device) -> Tuple[torch.Tensor, bool]:
+        """The resident tensor of `blk` (the whole field, or a shard's rows of
+        it) under `key`: reused when its field `a` is the same object as
+        last time or the block is equal in value, else copied -> (tensor,
+        copied)."""
+        ent = self._dev.get(key)
+        if ent is not None and (
+            ent[0] is a
+            # value dedup: waves from one template family give bit-identical
+            # pod-side arrays; a host compare is far cheaper than a copy, and
+            # keeps the tensor's identity
+            or (ent[1].shape == blk.shape and ent[1].dtype == blk.dtype and np.array_equal(ent[1], blk))
+        ):
+            return ent[2], False
+        d = self._packed_put(blk, device) if _packable(blk) else self._h2d(blk, device)
+        self._dev[key] = (a, blk, d)
+        return d, True
+
+    def _to_mesh(self, arr, meta):
+        """Place host arrays on the node mesh: each node-axis field padded
+        and cut into the shards' rows, each block resident on its shard's
+        device; every other field resident once per device."""
+        from ..parallel.mesh import ShardedArrays
+        from ..parallel.partition_rules import node_axis_of
+
+        mesh = self._mesh
+        n = arr.N
+        pad = (-n) % mesh.size
+        nl = (n + pad) // mesh.size
+        d_sentinel = arr.term_counts0.shape[1] - 1
+        shards = [{} for _ in mesh.devices]
+        copied = False
+        for name in ClusterArrays.FIELDS:
+            a = getattr(arr, name)
+            axis = node_axis_of(name, np.shape(a), n)
+            if axis is None:
+                placed = {}
+                for s, dev in enumerate(mesh.devices):
+                    if dev not in placed:
+                        placed[dev], c = self._put((name, dev), a, a, dev)
+                        copied |= c
+                    shards[s][name] = placed[dev]
+                continue
+            a = self._pad_for_mesh(name, a, pad, d_sentinel, n)
+            for s, dev in enumerate(mesh.devices):
+                blk = a[s * nl:(s + 1) * nl] if axis == 0 else a[:, s * nl:(s + 1) * nl]
+                shards[s][name], c = self._put((name, s), a, blk, dev)
+                copied |= c
+        if copied and self.device.type != "cpu":
+            self._fence()
+        return ShardedArrays(mesh, tuple(ClusterArrays(**f) for f in shards)), meta
 
     def _to_device(self, arr, meta):
+        if self._mesh is not None:
+            return self._to_mesh(arr, meta)
         out = {}
         copied = False
         for name in ClusterArrays.FIELDS:
             a = getattr(arr, name)
-            ent = self._dev.get(name)
-            if ent is not None and (
-                ent[0] is a
-                # value dedup: waves from one template family give
-                # bit-identical pod-side arrays; a host compare is far
-                # cheaper than a copy, and keeps the tensor's identity
-                or (ent[0].shape == a.shape and ent[0].dtype == a.dtype and np.array_equal(ent[0], a))
-            ):
-                out[name] = ent[1]
-                continue
-            d = self._packed_put(a) if _packable(a) else self._h2d(a)
-            copied = True
-            self._dev[name] = (a, d)
-            out[name] = d
+            out[name], c = self._put(name, a, a, self.device)
+            copied |= c
         if copied and self.device.type != "cpu":
             self._fence()
         return ClusterArrays(**out), meta

@@ -7,7 +7,8 @@ The cluster-side state the plugins need then collapses to per-(term,
 domain) counts (domain = an interned (key, value); column D = "the node
 lacks the key"), which ops/pairwise.py carries per node through the scan.
 Selector-vs-pod matching is one host-side 0/1 product over a pod-label
-literal vocabulary (``_match_matrix``).
+literal vocabulary (``_match_matrix``); ``match_inputs`` hands the same
+masks to the ring matcher (parallel/ring.py).
 """
 
 from __future__ import annotations
@@ -61,19 +62,18 @@ def _matches(term: TermKey, pod) -> bool:
 _NS_KEY = "\x00ns"  # pseudo label key carrying the pod's namespace
 
 
-def _match_matrix(terms: List[TermKey], pods: Sequence) -> np.ndarray:
-    """f32[T, P] 0/1 selector + namespace matches, as _matches decides them.
+def _lowered(terms: List[TermKey], pods: Sequence):
+    """(mask [S, E, L], kind [S, E], labels f32[P, L], ids[T]): the distinct
+    lowered selectors of `terms` (term t is row ids[t]) and the pods' label
+    rows over one literal vocabulary.
 
     The AnyOf/NoneOf lowering of node terms (api/vocab.py) over a pod-label
     literal vocabulary, with the namespace test as one more AnyOf over
-    pseudo-literals: a few numpy products instead of T x P selector calls."""
-    T, P = len(terms), len(pods)
-    if T == 0 or P == 0:
-        return np.zeros((max(1, T), max(1, P)), dtype=np.float32)
+    pseudo-literals."""
     voc = v.LabelVocab()
     pod_lits = [voc.add_labels({**pod.labels, _NS_KEY: pod.namespace}) for pod in pods]
     L = max(1, len(voc))
-    labels = np.zeros((P, L), dtype=np.float32)
+    labels = np.zeros((len(pods), L), dtype=np.float32)
     for i, lits in enumerate(pod_lits):
         labels[i, lits] = 1.0
 
@@ -92,10 +92,30 @@ def _match_matrix(terms: List[TermKey], pods: Sequence) -> np.ndarray:
                 lowered = tuple(sorted([*lowered, (v.KIND_ANY, ns_lits)], key=lambda e: (e[0], sorted(e[1]))))
         ids.append(table.intern(lowered))
     mask, kind = table.encode(L)  # [S, E, L], [S, E]
+    return mask, kind, labels, np.array(ids)
+
+
+def match_inputs(terms: List[TermKey], pods: Sequence):
+    """The selector x pod-label match of `terms` and `pods` as the ring
+    matcher's inputs (parallel/ring.py ring_match): f32 0/1 masks [T, E, L]
+    and kinds i32[T, E], one row per term, and f32 0/1 label rows [P, L].
+    _match_matrix is their dense evaluation."""
+    mask, kind, labels, ids = _lowered(terms, pods)
+    return mask[ids].astype(np.float32), kind[ids].astype(np.int32), labels
+
+
+def _match_matrix(terms: List[TermKey], pods: Sequence) -> np.ndarray:
+    """f32[T, P] 0/1 selector + namespace matches, as _matches decides them:
+    a few numpy products over the lowered selectors (_lowered) instead of
+    T x P selector calls."""
+    T, P = len(terms), len(pods)
+    if T == 0 or P == 0:
+        return np.zeros((max(1, T), max(1, P)), dtype=np.float32)
+    mask, kind, labels, ids = _lowered(terms, pods)
     counts = np.einsum("sel,pl->sep", mask.astype(np.float32), labels)
     ok = np.where(
         kind[:, :, None] == v.KIND_ANY,
         counts > 0,
         np.where(kind[:, :, None] == v.KIND_NONE, counts == 0, kind[:, :, None] == v.KIND_PAD),
     ).all(axis=1)  # [S, P]
-    return ok[np.array(ids)].astype(np.float32)
+    return ok[ids].astype(np.float32)

@@ -94,7 +94,7 @@ __global__ void __launch_bounds__(NT) class_static_kernel(
     const uint8_t* __restrict__ tm,            // [S, N]
     const int64_t* __restrict__ r_u,           // [U1] or NULL
     const uint8_t* __restrict__ pod_valid,     // [P] or NULL
-    int U1, int N, int W, int TW, int TT,
+    int U1, int N, int W, int TW, int TT, int base,
     uint32_t* __restrict__ stat_u,   // [U1, W]
     uint32_t* __restrict__ elig_u,   // [U1, W] or NULL
     const int32_t* __restrict__ done) {  // or NULL
@@ -109,7 +109,9 @@ __global__ void __launch_bounds__(NT) class_static_kernel(
       if (taint_w[(int64_t)n * TW + w] & ~tol_w[(int64_t)u * TW + w]) ok = false;
     }
     const int pin = pod_nodename[p];
-    if (pin != -1) ok = ok && pin == n;  // -2: the named node is missing
+    // the pin is a GLOBAL node id; a node shard's launch numbers its nodes
+    // from its first id `base` (the JAX package's my_nodes = base + arange)
+    if (pin != -1) ok = ok && pin == base + n;  // -2: the named node is missing
     bool sel = true;
     if ((ok || (elig_u != nullptr && node_ok)) && pod_has_sel[p]) {
       bool any = false;
@@ -136,7 +138,7 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
                  const void* pod_terms, const void* pod_has_sel, const void* sel_mask,
                  const void* sel_kind, const void* r_u, void* tm, void* taint_w, void* tol_w,
                  void* stat_u, void* elig_u, const void* done, int U1, int N, int T, int TT, int S,
-                 int E, int L, cudaStream_t st) {
+                 int E, int L, int base, cudaStream_t st) {
   const int32_t* dn = static_cast<const int32_t*>(done);
   if (U1 <= 0 || N <= 0) return (int)cudaGetLastError();
   const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
@@ -157,7 +159,7 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
       static_cast<const uint32_t*>(tol_w), static_cast<const int32_t*>(pod_nodename),
       static_cast<const int32_t*>(pod_terms), static_cast<const uint8_t*>(pod_has_sel),
       static_cast<const uint8_t*>(tm), static_cast<const int64_t*>(r_u),
-      static_cast<const uint8_t*>(pod_valid), U1, N, W, TW, TT, static_cast<uint32_t*>(stat_u),
+      static_cast<const uint8_t*>(pod_valid), U1, N, W, TW, TT, base, static_cast<uint32_t*>(stat_u),
       static_cast<uint32_t*>(elig_u), dn);
   return (int)cudaGetLastError();
 }
@@ -216,25 +218,29 @@ extern "C" int ktt_class_static_hoist(const void* node_valid, const void* node_t
                                       const void* pod_has_sel, const void* sel_mask,
                                       const void* sel_kind, const void* r_u, void* tm,
                                       void* taint_w, void* tol_w, void* stat_u, void* elig_u, int U1,
-                                      int N, int T, int TT, int S, int E, int L, void* stream) {
+                                      int N, int T, int TT, int S, int E, int L, int base, void* stream) {
   return static_plane(node_valid, node_taint_ns, node_labels, nullptr, pod_tol_ns, pod_nodename,
                       pod_terms, pod_has_sel, sel_mask, sel_kind, r_u, tm, taint_w, tol_w, stat_u, elig_u,
-                      nullptr, U1, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
+                      nullptr, U1, N, T, TT, S, E, L, base, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // K7: every pod row, pod_valid included -> sfs [P, W]; eligs (or NULL) gets
 // the packed nodesel & node_valid plane the rounds and full scans read;
-// done (or NULL): a device word that makes every launch return at entry
+// done (or NULL): a device word that makes every launch return at entry.
+// K3 and K7 take `base`, the first global node id of the node block they
+// see (0 on one device; a node shard's s * nl on the mesh, where they launch
+// once per shard over its rows, parallel/sharded.py)
 extern "C" int ktt_packed_static_rows(const void* node_valid, const void* node_taint_ns,
                                       const void* node_labels, const void* pod_valid,
                                       const void* pod_tol_ns, const void* pod_nodename,
                                       const void* pod_terms, const void* pod_has_sel,
                                       const void* sel_mask, const void* sel_kind, void* tm,
                                       void* taint_w, void* tol_w, void* sfs, void* eligs, const void* done,
-                                      int P, int N, int T, int TT, int S, int E, int L, void* stream) {
+                                      int P, int N, int T, int TT, int S, int E, int L, int base,
+                                      void* stream) {
   return static_plane(node_valid, node_taint_ns, node_labels, pod_valid, pod_tol_ns, pod_nodename,
                       pod_terms, pod_has_sel, sel_mask, sel_kind, nullptr, tm, taint_w, tol_w, sfs, eligs,
-                      done, P, N, T, TT, S, E, L, reinterpret_cast<cudaStream_t>(stream));
+                      done, P, N, T, TT, S, E, L, base, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // ip / fp: the score parameters (score.cuh make_score_params), host memory

@@ -101,7 +101,8 @@ REPAIR_ITERS = 1  # speculate -> repair iterations per round (its KTPU_REPAIR_IT
 
 # Route counters, bumped per call (the JAX package bumps its TRACE_COUNTS
 # per trace; eager PyTorch has no trace, so a call is the unit here).
-TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0, "rounds_inc": 0}
+TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0, "rounds_inc": 0,
+                "sharded_chunked": 0, "sharded_chunked_inc": 0}
 
 
 def reset_trace_counts() -> None:
@@ -729,16 +730,18 @@ def schedule_scan_chunked_plain(arr, cfg: ScoreConfig, inc, used0, t0u0, wave=No
     return torch.cat(outs), used, ords_g, sweeps
 
 
-def packed_static_rows_plain(arr, with_elig: bool = False):
+def packed_static_rows_plain(arr, with_elig: bool = False, base: int = 0):
     """int32 words [P, ceil(N/32)]: static feasibility of every pod row,
     pod_valid included, packed per block of CHUNK rows (the JAX package's
     lax.map of _sf_block, assign.py:1014-1053 and :1616-1640) -> the plain
     version of kernel K7 packed_static_rows.  With `with_elig` also the
     packed eligibility plane nodesel & node_valid that spread's minMatch
-    reads -> (sfs, eligs)."""
+    reads -> (sfs, eligs).  On a node shard's arrays `base` is its first
+    global node id, which a nodeName pin is compared against (the JAX
+    package's my_nodes, assign.py:969)."""
     P, N = arr.P, arr.N
     tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
-    nodes = torch.arange(N, dtype=torch.int32, device=arr.device)
+    nodes = base + torch.arange(N, dtype=torch.int32, device=arr.device)
     blocks, eblocks = [], []
     for b0 in range(0, P, CHUNK):
         sl = slice(b0, min(P, b0 + CHUNK))
@@ -753,15 +756,15 @@ def packed_static_rows_plain(arr, with_elig: bool = False):
     return torch.cat(blocks)
 
 
-def packed_static_rows(arr, with_elig: bool = False):
+def packed_static_rows(arr, with_elig: bool = False, base: int = 0):
     """The packed [P, W] static plane (and with `with_elig` the eligibility
     plane) on arr's device: the plain version for CPU tensors, kernel K7 for
-    CUDA tensors."""
+    CUDA tensors; `base` as in packed_static_rows_plain."""
     if arr.device.type == "cpu":
-        return packed_static_rows_plain(arr, with_elig)
+        return packed_static_rows_plain(arr, with_elig, base)
     from . import kernels
 
-    return kernels.packed_static_rows(arr, with_elig)
+    return kernels.packed_static_rows(arr, with_elig, base=base)
 
 
 def _dense_chunk_plain(cfg, creq, csf, cvalid, used0, alloc, C, K, Z):
@@ -1272,6 +1275,14 @@ def schedule_scan_chunked(arr, cfg: ScoreConfig, inc, class_waves: bool = CLASS_
     tensors the t0u prologue and stage A run in kernel K5, stage B in K6;
     on the CPU the plain versions."""
     TRACE_COUNTS["chunked_inc"] += 1
+    return chunked_inc(arr, cfg, inc, class_waves, wave_k, wave_block)
+
+
+def chunked_inc(arr, cfg: ScoreConfig, inc, class_waves: bool = CLASS_WAVES, wave_k: int = WAVE_K,
+                wave_block: int = WAVE_BLOCK):
+    """The class-wave route's stages, counted by the caller
+    (schedule_scan_chunked on one device, parallel/sharded.py on the node
+    mesh, which hands it the stitched class planes)."""
     if class_waves:
         TRACE_COUNTS["class_waves"] += 1
     if arr.device.type != "cpu":
@@ -1308,7 +1319,8 @@ class Step(NamedTuple):
     sweeps: Any  # int, or the int32[2] device pair
 
 
-def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[bool] = None, **knobs) -> Step:
+def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[bool] = None, mesh=None,
+             **knobs) -> Step:
     """Route and launch one step without a host synchronisation on the card
     (the pipeline's dispatch), as the JAX package's schedule_batch_impl
     routes off the CPU: with applicable class state `inc` the class-wave
@@ -1319,9 +1331,20 @@ def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[boo
     JAX package's KTPU_FORCE_CHUNKED=1); else the per-pod route.
     chunked=False keeps the per-pod route.  `knobs` are the route's keyword
     arguments (schedule_scan_chunked's, or schedule_scan_rounds' rchunk /
-    repair_iters)."""
+    repair_iters).
+
+    `mesh` (parallel/mesh.py -- NodeMesh, more than one shard), or arrays
+    already placed on one (ShardedArrays): the chunked route node-sharded,
+    with the same decisions (parallel/sharded.py -- sharded_dispatch, the
+    JAX package's schedule_batch_routed(mesh=)); a batch the chunked route
+    does not take raises there."""
     dev = resolve_device(device)
     check_config(cfg)
+    mesh = mesh if mesh is not None else getattr(arr, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharded import sharded_dispatch
+
+        return sharded_dispatch(arr, cfg, mesh, dev, inc=inc, chunked=chunked, **knobs)
     if arr.device.type != dev.type:
         arr = arr.to(dev)
     inc = inc_applicable(arr, cfg, inc)

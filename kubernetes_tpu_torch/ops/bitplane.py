@@ -24,9 +24,15 @@ kernel K9 ``unpack_planes`` (csrc/unpack_planes.cu) unpacks it on the card
 (api/delta.py — DeltaEncoder._packed_put).  They give uint32 words, the
 JAX package's bytes.
 
-Only one block of ``nl == n`` bits per row (one device) is ported; the
-per-shard block layout (``pack_blocks`` / ``unpack_blocks`` with s > 1)
-comes with the multi-GPU slice, and the wrappers below refuse s > 1.
+Per-shard blocks (the node mesh, parallel/mesh.py): a plane of S shards'
+rows is stored TILED, ``S * words(nl)`` words per row, shard s's block
+``[s * Wl, (s + 1) * Wl)`` the packed form of its own ``nl`` nodes with
+its own zero tail bits -- the layout of the JAX package's tiled all_gather
+of packed planes.  ``pack_blocks`` / ``unpack_blocks`` / ``test_cols`` /
+``set_cols`` / ``assign_cols`` take it (``nl`` is the block width; one
+block is the plain layout), and ``stitch_planes`` turns it into the flat
+layout of ``S * nl`` bits (kernel K17, csrc/stitch_planes.cu, on the card),
+which the commit kernels read.
 """
 
 from __future__ import annotations
@@ -69,34 +75,38 @@ def unpack(w: torch.Tensor, n: int) -> torch.Tensor:
     return bits.reshape(w.shape[:-1] + (-1,))[..., :n].to(torch.bool)
 
 
-def _single_block(s: int) -> None:
-    if s != 1:
-        raise NotImplementedError(
-            "per-shard packed blocks (s > 1) are not ported to kubernetes_tpu_torch yet "
-            "(ROADMAP.md queue A12)"
-        )
-
-
 def pack_blocks(x: torch.Tensor, s: int = 1) -> torch.Tensor:
-    """pack() in `s` per-shard blocks; one device: s == 1 is plain pack()."""
-    _single_block(s)
-    return pack(x)
+    """bool [..., S*nl] -> int32 words [..., S*words(nl)] packed in per-shard
+    blocks: each of the `s` equal slices of the last axis packs on its own
+    (the JAX package's bitplane.py:100).  s == 1 is pack()."""
+    if s == 1:
+        return pack(x)
+    n = x.shape[-1] // s
+    return pack(x.reshape(x.shape[:-1] + (s, n))).reshape(x.shape[:-1] + (s * words_for(n),))
 
 
 def unpack_blocks(w: torch.Tensor, nl: int) -> torch.Tensor:
-    """unpack() of a plane of per-shard blocks of `nl` bits; one device:
-    the plane is one block."""
-    _single_block(w.shape[-1] // words_for(nl))
-    return unpack(w, nl)
+    """int32 words [..., S*words(nl)] in per-shard blocks of `nl` bits ->
+    bool [..., S*nl]; each block unpacks on its own, so its tail bits never
+    reach the dense view (the JAX package's bitplane.py:113).  One block is
+    unpack(w, nl)."""
+    wl = words_for(nl)
+    s = w.shape[-1] // wl
+    if s == 1:
+        return unpack(w, nl)
+    return unpack(w.reshape(w.shape[:-1] + (s, wl)), nl).reshape(w.shape[:-1] + (s * nl,))
 
 
 def test_cols(w: torch.Tensor, cols: torch.Tensor, nl: int) -> torch.Tensor:
-    """Bit test at node ids `cols` (in [0, nl)): bool with shape
-    w.shape[:-1] + cols.shape, the packed ``dense[..., cols]``."""
-    _single_block(w.shape[-1] // words_for(nl))
+    """Bit test at GLOBAL node ids `cols` in [0, S*nl) of a plane of blocks
+    of `nl` bits: bool with shape w.shape[:-1] + cols.shape, the packed
+    ``dense[..., cols]`` (the JAX package's bitplane.py:127; with one block
+    the shard term vanishes)."""
     cols = cols.to(torch.int64)
-    word = torch.div(cols, WORD_BITS, rounding_mode="floor")
-    bit = cols % WORD_BITS
+    s = torch.div(cols, nl, rounding_mode="floor")
+    loc = cols - s * nl
+    word = s * words_for(nl) + torch.div(loc, WORD_BITS, rounding_mode="floor")
+    bit = loc % WORD_BITS
     return ((w[..., word] >> bit.to(torch.int32)) & 1).to(torch.bool)
 
 
@@ -119,31 +129,51 @@ def any_bits(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
 
 
 def set_cols(w: torch.Tensor, cols: torch.Tensor, on: torch.Tensor, nl: int) -> torch.Tensor:
-    """Set bit ``cols[i]`` where ``on[i]`` (OR semantics: duplicate columns are
-    fine); ids == n are dropped, as in the JAX version's scatter."""
-    n = (w.shape[-1] // words_for(nl)) * nl
-    _single_block(w.shape[-1] // words_for(nl))
+    """Set bit ``cols[i]`` (global ids) where ``on[i]`` on a plane of blocks
+    of `nl` bits (OR semantics: duplicate columns are fine); ids == S*nl
+    are dropped, as in the JAX version's scatter (bitplane.py:161).  The
+    new bits pack per block, so block tail bits stay zero."""
+    s = w.shape[-1] // words_for(nl)
+    n = s * nl
     dense = torch.zeros(w.shape[:-1] + (n + 1,), dtype=torch.bool, device=w.device)
     tgt = torch.where(on, cols.to(torch.int64), n)
     dense[..., tgt] = True
-    return w | pack(dense[..., :n])
+    return w | pack_blocks(dense[..., :n], s)
 
 
 def assign_cols(w: torch.Tensor, cols: torch.Tensor, on: torch.Tensor, nl: int) -> torch.Tensor:
-    """Column ASSIGNMENT: bit ``cols[i]`` := ``on[..., i]``.  Ids == n are
-    dropped (the kernels' sentinel); duplicate columns must carry equal
-    values.  ``(w & ~touched) | new`` over packed touched/new word masks."""
-    n = (w.shape[-1] // words_for(nl)) * nl
-    _single_block(w.shape[-1] // words_for(nl))
+    """Column ASSIGNMENT: bit ``cols[i]`` := ``on[..., i]`` on a plane of
+    blocks of `nl` bits (the JAX package's bitplane.py:175).  Ids == S*nl
+    are dropped (the kernels' sentinel); duplicate columns must carry equal
+    values.  ``(w & ~touched) | new`` over touched/new word masks packed per
+    block."""
+    s = w.shape[-1] // words_for(nl)
+    n = s * nl
     tgt = torch.clamp(cols.to(torch.int64), 0, n)
     touched = torch.zeros((n + 1,), dtype=torch.bool, device=w.device)
     touched[tgt] = True
     newbits = torch.zeros(w.shape[:-1] + (n + 1,), dtype=torch.bool, device=w.device)
     # duplicates carry equal values, so which write lands is immaterial
     newbits[..., tgt] = on
-    tw = pack(touched[:n])
-    nw = pack(newbits[..., :n])
+    tw = pack_blocks(touched[:n], s)
+    nw = pack_blocks(newbits[..., :n], s)
     return (w & ~tw) | nw
+
+
+def stitch_planes_plain(w: torch.Tensor, nl: int) -> torch.Tensor:
+    """Tiled blocks of `nl` bits [..., S*words(nl)] -> the flat layout
+    [..., words(S*nl)]: the plain version of kernel K17 stitch_planes."""
+    return pack(unpack_blocks(w, nl))
+
+
+def stitch_planes(w: torch.Tensor, nl: int) -> torch.Tensor:
+    """stitch_planes_plain on w's device: the plain version for CPU tensors,
+    kernel K17 (csrc/stitch_planes.cu) for CUDA tensors."""
+    if w.device.type == "cpu":
+        return stitch_planes_plain(w, nl)
+    from . import kernels
+
+    return kernels.stitch_planes(w, nl)
 
 
 def unpack_planes(w: torch.Tensor, n: int) -> torch.Tensor:

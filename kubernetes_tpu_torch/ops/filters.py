@@ -56,9 +56,11 @@ def taints_ok(arr) -> torch.Tensor:
     return intolerable == 0
 
 
-def nodename_ok(arr) -> torch.Tensor:
-    """bool[P, N]: spec.nodeName pinning (-1 unset, -2 named node missing)."""
-    n_idx = torch.arange(arr.N, dtype=torch.int32, device=arr.pod_nodename.device)[None, :]
+def nodename_ok(arr, base: int = 0) -> torch.Tensor:
+    """bool[P, N]: spec.nodeName pinning (-1 unset, -2 named node missing).
+    The pin is a GLOBAL node id: a node shard's arrays (parallel/mesh.py)
+    pass their first id `base`, as the JAX package's my_nodes does."""
+    n_idx = base + torch.arange(arr.N, dtype=torch.int32, device=arr.pod_nodename.device)[None, :]
     pin = arr.pod_nodename[:, None]
     return (pin == -1) | (pin == n_idx)
 

@@ -80,13 +80,18 @@ def failed_groups(choices: np.ndarray, pod_group: np.ndarray, group_min: np.ndar
     return present & (sched < group_min)
 
 
-def schedule_with_gangs(arr, cfg: ScoreConfig, with_ordinals: bool = False, inc=None, device=None, **knobs):
+def schedule_with_gangs(arr, cfg: ScoreConfig, with_ordinals: bool = False, inc=None, device=None, mesh=None,
+                        **knobs):
     """The host fixpoint (the JAX package's gang.py:47) -> (choices i32[P]
     with revoked gangs at -1, node_used i32[N, R]); with `with_ordinals`
     also (ordinals i32[P], sweeps int): the ordinals of the last iteration
     offset by the sweeps of the earlier ones, sweeps the total.  `inc` is
     the class state (HoistCache.ensure), reused by every iteration;
-    `knobs` go to dispatch (chunked=, the route's knobs)."""
+    `knobs` go to dispatch (chunked=, the route's knobs).  Gangs on a node
+    mesh (`mesh` of more than one shard) are not ported and raise."""
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError("gangs on a node mesh are not ported to kubernetes_tpu_torch "
+                                  "(ROADMAP.md queue A12)")
     dev = resolve_device(device)
     if arr.device.type != dev.type:
         arr = arr.to(dev)

@@ -96,19 +96,21 @@ def _scores(req: torch.Tensor, used: torch.Tensor, alloc: torch.Tensor, cfg: Sco
     return score_flat(reqd.reshape(-1, R), alloc[None].expand(U, D, R).reshape(-1, R), cfg).reshape(U, D)
 
 
-def _static_hoist_plain(cv, want_elig: bool = False, want_traw: bool = False, want_naraw: bool = False):
+def _static_hoist_plain(cv, want_elig: bool = False, want_traw: bool = False, want_naraw: bool = False,
+                        base: int = 0):
     """The usage-independent class planes of a class view (the JAX package's
     incremental.py:146 _static_hoist) -> (stat, elig, traw, naraw): stat the
     packed [U1, W] node_valid & taints_ok & nodesel & nodename_ok, without
     pod_valid; elig the packed nodesel & node_valid; traw / naraw the bf16
     [U1, N] PreferNoSchedule counts and preferred node-affinity weights;
-    each of the last three None unless wanted."""
+    each of the last three None unless wanted.  On a node shard's arrays
+    `base` is its first global node id (the nodeName pin's)."""
     from .assign import preferred_node_affinity_raw_plain
     from .scores import taint_prefer_counts_plain
 
     tm = filters.term_match(cv.sel_mask, cv.sel_kind, cv.node_labels)
     nodesel = filters.node_selection_ok_from(tm, cv)
-    stat = cv.node_valid[None, :] & filters.taints_ok(cv) & nodesel & filters.nodename_ok(cv)
+    stat = cv.node_valid[None, :] & filters.taints_ok(cv) & nodesel & filters.nodename_ok(cv, base)
     elig = bitplane.pack(nodesel & cv.node_valid[None, :]) if want_elig else None
     traw = taint_prefer_counts_plain(cv.pod_tol_pref, cv.node_taint_pref) if want_traw else None
     naraw = preferred_node_affinity_raw_plain(cv.pod_pref_terms, cv.pod_pref_weights, tm) if want_naraw else None
@@ -142,16 +144,17 @@ def _patch_hoist_plain(base_u, fit_u, req_u, node_used, node_alloc, cols, cfg: S
 
 
 def static_hoist(arr, r_u: torch.Tensor, want_elig: bool = False, want_traw: bool = False,
-                 want_naraw: bool = False):
+                 want_naraw: bool = False, base: int = 0):
     """The class planes (stat, elig, traw, naraw) on arr's device: the plain
     version for CPU tensors; for CUDA tensors kernel K3 (stat, and elig when
-    wanted) and kernel K10 over the class view's rows (traw, naraw)."""
+    wanted) and kernel K10 over the class view's rows (traw, naraw).  `base`:
+    a node shard's first global node id."""
     if arr.device.type == "cpu":
-        return _static_hoist_plain(class_view(arr, r_u), want_elig, want_traw, want_naraw)
+        return _static_hoist_plain(class_view(arr, r_u), want_elig, want_traw, want_naraw, base)
     from . import kernels
 
-    stat, elig = kernels.class_static_hoist(arr, r_u, with_elig=True) if want_elig else (
-        kernels.class_static_hoist(arr, r_u), None)
+    stat, elig = kernels.class_static_hoist(arr, r_u, with_elig=True, base=base) if want_elig else (
+        kernels.class_static_hoist(arr, r_u, base=base), None)
     traw = naraw = None
     if want_traw or want_naraw:
         traw, naraw = kernels.score_planes(class_view(arr, r_u))
@@ -181,6 +184,29 @@ def _round_up_pow2(x: int, minimum: int = 16) -> int:
     return v
 
 
+# the arrays the static class planes read (the JAX package's static key,
+# incremental.py:469-479), besides the class index itself
+_STATIC_FIELDS = (
+    "pod_tol_ns", "pod_tol_pref", "pod_nodename", "pod_terms", "pod_has_sel", "sel_mask", "sel_kind",
+    "pod_pref_terms", "pod_pref_weights", "node_valid", "node_labels", "node_taint_ns", "node_taint_pref",
+    "image_score",
+)
+
+
+def _fields(arr, names):
+    """The tensors of `names` in arr, for identity keys: a node mesh's
+    ShardedArrays gives every shard's (parallel/mesh.py)."""
+    shards = getattr(arr, "shards", None)
+    if shards is None:
+        return tuple(getattr(arr, f) for f in names)
+    return tuple(getattr(sh, f) for f in names for sh in shards)
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    """Zero rows appended up to n (the node mesh's pad nodes: no usage)."""
+    return a if a.shape[0] >= n else np.pad(a, ((0, n - a.shape[0]), (0, 0)))
+
+
 class HoistCache:
     """Host-side manager of the resident class matrices.
 
@@ -207,19 +233,37 @@ class HoistCache:
     synchronisation on the card).  The column list goes to the device by an
     explicit copy from pinned memory.
 
+    ON A NODE MESH (``mesh``, parallel/mesh.py; the JAX package's
+    HoistCache(mesh=), incremental.py:309-361): N is the padded node count
+    and the planes are per shard -- stat_u and fit_u packed [U1, words(nl)],
+    base_u [U1, nl] -- K3 and K4 launching once per shard over its node
+    block (K3 with the shard's first global node id).  A dirty column is
+    patched by the shard that owns it only, with its local column id
+    (``shard_cols`` lists them for the latest cycle).  The IncState handed
+    out carries the stitched planes, stitched once per cycle where a side
+    changed (the tiled all_gather, then K17 for the packed planes).  The
+    mesh takes `arr` as the encoder places it (ShardedArrays) or arrays on
+    one device, which it pads and cuts itself.  Only the fit-only planes
+    are hoisted there: a config that reads the eligibility, taint,
+    node-affinity or image planes (the rounds route) raises (ROADMAP.md
+    queue A12).
+
     ``stats`` counts actions, ``last`` describes the latest, ``history``
     keeps up to 512 of them, ``summary()`` is the bench triple.
     """
 
-    def __init__(self):
+    def __init__(self, mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._static_key = None
-        self._statics = None  # (stat, elig, traw, naraw, img)
+        self._statics = None  # (stat, elig, traw, naraw, img); stat stitched on a mesh
         self._usage_key = None
-        self._usage = None  # (base_u, fit_u)
+        self._usage = None  # (base_u, fit_u); stitched on a mesh
+        self._blocks = None  # a mesh's per-shard planes: {"stat": [...], "usage": [(base, fit), ...]}
         self._req_u_host = None
         self._prev_used = None
         self._cls_ent = None  # (host array, device tensor)
         self._ru_ent = None
+        self.shard_cols = []  # a mesh's latest patch: each shard's local column ids
         self.stats = {
             "hits": 0, "patched": 0, "full": 0, "static_rebuilds": 0,
             "disabled": 0, "skipped": 0, "patched_cols": 0,
@@ -242,6 +286,7 @@ class HoistCache:
         self._statics = None
         self._usage_key = None
         self._usage = None
+        self._blocks = None
         self._req_u_host = None
         self._prev_used = None
         self._cls_ent = None
@@ -269,10 +314,57 @@ class HoistCache:
         setattr(self, name, (host, d))
         return d
 
+    # -- the node mesh's per-shard planes --
+    def _shards(self, arr):
+        from ..parallel.mesh import shard_arrays
+
+        return arr.shards if hasattr(arr, "shards") else shard_arrays(arr, self.mesh).shards
+
+    def _stitch(self, plane: str, blocks, nl: int) -> torch.Tensor:
+        """A class plane's shard blocks stitched on the mesh's first device:
+        the tiled all_gather along its node axis, then K17 for a packed one."""
+        from ..parallel.collectives import all_gather_nodes
+        from ..parallel.partition_rules import INC_NODE_AXIS
+
+        full = all_gather_nodes(blocks, INC_NODE_AXIS[plane], self.mesh.devices[0])
+        return full if plane == "base_u" else bitplane.stitch_planes(full, nl)
+
+    def _mesh_static(self, arr, r_u: torch.Tensor, n: int) -> torch.Tensor:
+        shards = self._shards(arr)
+        blocks = [static_hoist(sh, r_u.to(sh.device), base=self.mesh.base(s, n))[0] for s, sh in enumerate(shards)]
+        self._blocks["stat"] = blocks
+        return self._stitch("stat_u", blocks, shards[0].N)
+
+    def _mesh_usage(self, arr, req_u: torch.Tensor, cfg: ScoreConfig, dirty=None):
+        """Per-shard usage planes (full, or with the global `dirty` ids
+        patched by their owners) -> the stitched (base_u, fit_u)."""
+        shards = self._shards(arr)
+        nl = shards[0].N
+        self.shard_cols = []
+        if dirty is None:
+            self._blocks["usage"] = [usage_hoist(req_u.to(sh.device), sh.node_used, sh.node_alloc, cfg)
+                                     for sh in shards]
+        else:
+            out = []
+            for s, sh in enumerate(shards):
+                own = dirty[(dirty >= s * nl) & (dirty < (s + 1) * nl)] - s * nl
+                self.shard_cols.append(own)
+                if not len(own):
+                    out.append(self._blocks["usage"][s])
+                    continue
+                cols_h = np.full(_round_up_pow2(len(own)), nl, dtype=np.int32)
+                cols_h[:len(own)] = own
+                base_s, fit_s = self._blocks["usage"][s]
+                out.append(patch_hoist(base_s, fit_s, req_u.to(sh.device), sh.node_used, sh.node_alloc,
+                                       h2d(cols_h, sh.device), cfg))
+            self._blocks["usage"] = out
+        blocks = self._blocks["usage"]
+        return self._stitch("base_u", [b for b, _ in blocks], nl), self._stitch("fit_u", [f for _, f in blocks], nl)
+
     def ensure(self, arr, meta, cfg: ScoreConfig, host=None) -> Optional[IncState]:
-        """This cycle's IncState for the arrays `arr` (on their device);
-        `host` are the same arrays on the host (numpy), when the caller has
-        them."""
+        """This cycle's IncState for the arrays `arr` (on their device, or
+        on the node mesh); `host` are the same arrays on the host (numpy),
+        when the caller has them."""
         check_config(cfg)
         pc = getattr(meta, "pod_class", None)
         r_u_h = getattr(meta, "class_first_pod", None)
@@ -285,53 +377,73 @@ class HoistCache:
             self.stats["skipped"] += 1
             self._note("skipped_degenerate", u1, 1.0, 0)
             return None
+        mesh = self.mesh
         dev = arr.device
-        N = arr.N
+        # on a mesh the node axis is padded to a multiple of its shards (the
+        # JAX package's np_nodes)
+        N = arr.N + ((-arr.N) % mesh.size if mesh is not None else 0)
+        pods = arr.shards[0] if hasattr(arr, "shards") else arr
         r_u = self._on_device("_ru_ent", r_u_h, torch.int64, dev)
 
         # ---- static side (usage-independent; pod_valid excluded) ----
         # the class planes the config reads (the JAX package's incremental.py:462-465)
         want_elig, want_traw, want_naraw = cfg.enable_pairwise, cfg.enable_taint_score, cfg.enable_node_pref
-        want_img = cfg.enable_image and arr.image_score.shape[1] == N
-        skey_arrays = (
-            pc, r_u_h, arr.pod_tol_ns, arr.pod_tol_pref, arr.pod_nodename, arr.pod_terms,
-            arr.pod_has_sel, arr.sel_mask, arr.sel_kind, arr.pod_pref_terms, arr.pod_pref_weights,
-            arr.node_valid, arr.node_labels, arr.node_taint_ns, arr.node_taint_pref, arr.image_score,
-        )
+        want_img = cfg.enable_image and pods.image_score.shape[1] == pods.N
+        if mesh is not None and (want_elig or want_traw or want_naraw or want_img):
+            raise NotImplementedError(
+                "the rounds route's class planes (eligibility, taint, node-affinity, image) on a node mesh are "
+                "not ported to kubernetes_tpu_torch (ROADMAP.md queue A12)")
+        skey_arrays = (pc, r_u_h) + _fields(arr, _STATIC_FIELDS)
         skey_meta = (u1, N, cfg, want_elig, want_traw, want_naraw, want_img, str(dev))
         action = None
         if not (
             self._static_key is not None
             and self._static_key[1] == skey_meta
+            and len(self._static_key[0]) == len(skey_arrays)
             and all(a is b for a, b in zip(self._static_key[0], skey_arrays))
         ):
-            planes = static_hoist(arr, r_u, want_elig, want_traw, want_naraw)
-            img = arr.image_score[r_u].contiguous() if want_img else None
-            self._statics = planes + (img,)
+            if mesh is not None:
+                self._blocks = {}
+                self._statics = (self._mesh_static(arr, r_u, N), None, None, None, None)
+            else:
+                planes = static_hoist(arr, r_u, want_elig, want_traw, want_naraw)
+                img = arr.image_score[r_u].contiguous() if want_img else None
+                self._statics = planes + (img,)
             self._static_key = (skey_arrays, skey_meta)
             self.stats["static_rebuilds"] += 1
             self._usage_key = None  # classes / N / cfg moved: rebuild below
             action = "static_rebuild"
 
         # ---- usage side ----
-        req_u = arr.pod_req[r_u].contiguous()
-        pod_req_h = host.pod_req if host is not None else arr.pod_req.cpu().numpy()
-        used_h = host.node_used if host is not None else arr.node_used.cpu().numpy()
+        req_u = pods.pod_req[r_u].contiguous()
+        pod_req_h = host.pod_req if host is not None else pods.pod_req.cpu().numpy()
+        if host is not None:
+            used_h = host.node_used
+        elif hasattr(arr, "shards"):
+            used_h = torch.cat([sh.node_used.cpu() for sh in arr.shards]).numpy()
+        else:
+            used_h = arr.node_used.cpu().numpy()
+        if mesh is not None:
+            used_h = _pad_rows(used_h, N)
         req_u_h = np.ascontiguousarray(pod_req_h[r_u_h])
         ukey_meta = (u1, N, cfg, str(dev))
+        alloc_key = _fields(arr, ("node_alloc",))
         usage_ok = (
             self._usage_key is not None
             and self._usage_key[1] == ukey_meta
-            and self._usage_key[0] is arr.node_alloc
+            and len(self._usage_key[0]) == len(alloc_key)
+            and all(a is b for a, b in zip(self._usage_key[0], alloc_key))
             and np.array_equal(self._req_u_host, req_u_h)
         )
-        used = arr.node_used
         n_dirty, dirty = 0, None
         if usage_ok and used_h is not self._prev_used:
             dirty = np.flatnonzero((used_h != self._prev_used).any(axis=1))
             n_dirty = len(dirty)
         if not usage_ok or 2 * n_dirty >= N:
-            self._usage = usage_hoist(req_u, used, arr.node_alloc, cfg)
+            if mesh is not None:
+                self._usage = self._mesh_usage(arr, req_u, cfg)
+            else:
+                self._usage = usage_hoist(req_u, arr.node_used, arr.node_alloc, cfg)
             self.stats["full"] += 1
             frac, ncols = 1.0, N
             action = action or "full"
@@ -340,17 +452,21 @@ class HoistCache:
             frac, ncols = 0.0, 0
             action = action or "hit"
         else:
-            cols_h = np.full(_round_up_pow2(n_dirty), N, dtype=np.int32)
-            cols_h[:n_dirty] = dirty
-            cols = h2d(cols_h, dev)
-            self._usage = patch_hoist(self._usage[0], self._usage[1], req_u, used, arr.node_alloc, cols, cfg)
+            if mesh is not None:
+                self._usage = self._mesh_usage(arr, req_u, cfg, dirty)
+            else:
+                cols_h = np.full(_round_up_pow2(n_dirty), N, dtype=np.int32)
+                cols_h[:n_dirty] = dirty
+                cols = h2d(cols_h, dev)
+                self._usage = patch_hoist(self._usage[0], self._usage[1], req_u, arr.node_used, arr.node_alloc,
+                                          cols, cfg)
             self.stats["hits"] += 1
             self.stats["patched"] += 1
             self.stats["patched_cols"] += n_dirty
             n_real = getattr(meta, "n_nodes", 0) or N
             frac, ncols = n_dirty / max(1, n_real), n_dirty
             action = action or "patch"
-        self._usage_key = (arr.node_alloc, ukey_meta)
+        self._usage_key = (alloc_key, ukey_meta)
         self._req_u_host = req_u_h
         self._prev_used = used_h
 

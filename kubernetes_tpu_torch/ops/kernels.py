@@ -19,7 +19,10 @@ dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh;
 gang_quorum (K13, gang.cu: the gang fixpoint's quorum check and
 revocation); explain_counts (K14, explain.cu: the unschedulable
 diagnosis's reason counts) and preempt_eval (K15, preempt.cu: the batched
-preemption evaluation, phases A-C over a wave of preemptors).
+preemption evaluation, phases A-C over a wave of preemptors); ring_match
+(K16, ring_match.cu: one hop of the ring matcher, parallel/ring.py) and
+stitch_planes (K17, stitch_planes.cu: per-shard packed blocks -> the flat
+packed layout, the node mesh's stitch, parallel/sharded.py).
 
 The gated mode.  The kernels of every route the gang fixpoint's device loop
 takes (ops/gang.py) -- K1 static_feasible and K2 fit_scan, K7, K8, K11
@@ -78,6 +81,7 @@ SOURCES = {
     "unpack_planes": "unpack_planes.cu", "score_planes": "score_planes.cu",
     "full_scan": "full_scan.cu", "rounds": "rounds.cu", "gang_quorum": "gang.cu",
     "explain_counts": "explain.cu", "preempt_eval": "preempt.cu",
+    "ring_match": "ring_match.cu", "stitch_planes": "stitch_planes.cu",
 }
 
 _P = ctypes.c_void_p
@@ -88,11 +92,11 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 7 + [_P]),
     "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _P]),
-    "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 7 + [_P]),
+    "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 8 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
     "chunk_rounds": ("ktt_chunk_rounds", [_P] * 23 + [_I] * 6 + [_P]),
-    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 16 + [_I] * 7 + [_P]),
+    "packed_static_rows": ("ktt_packed_static_rows", [_P] * 16 + [_I] * 8 + [_P]),
     "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 17 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
     "score_planes": ("ktt_score_planes", [_P] * 12 + [_I] * 7 + [_P]),
@@ -101,6 +105,8 @@ _ARGTYPES = {
     "gang_quorum": ("ktt_gang_quorum", [_P] * 9 + [_I, _I, _P]),
     "explain_counts": ("ktt_explain_counts", [_P] * 19 + [_I] * 9 + [_P]),
     "preempt_eval": ("ktt_preempt_eval", [_P] * 18 + [_I] * 4 + [_P]),
+    "ring_match": ("ktt_ring_match", [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] * 2 + [_P]),
+    "stitch_planes": ("ktt_stitch_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -397,11 +403,12 @@ def _need_cuda(dev, name: str) -> None:
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
 
 
-def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False):
+def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False, base: int = 0):
     """K3 (csrc/class_hoist.cu): the packed class static plane int32 words
     [U1, ceil(N/32)] for the classes whose first pod rows are r_u (i64);
     with `with_elig` also the packed eligibility plane nodesel & node_valid
-    -> (stat_u, elig_u)."""
+    -> (stat_u, elig_u).  `base`: the first global node id of arr's nodes (a
+    node shard's; the nodeName pin is a global id)."""
     dev = arr.device
     _need_cuda(dev, "class_static_hoist")
     P, N = arr.P, arr.N
@@ -431,7 +438,7 @@ def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False):
             arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(), arr.pod_terms.data_ptr(),
             arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(), arr.sel_kind.data_ptr(),
             r_u.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), stat_u.data_ptr(),
-            None if elig_u is None else elig_u.data_ptr(), U1, N, T, TT, S, E, L, _stream(dev),
+            None if elig_u is None else elig_u.data_ptr(), U1, N, T, TT, S, E, L, base, _stream(dev),
         )
     _raise_on(err, "class_static_hoist")
     LAUNCHES["class_static_hoist"] += 1
@@ -601,13 +608,14 @@ def read_sweeps(scal: torch.Tensor) -> int:
 # ---------------------------------------------------------------------------
 
 def packed_static_rows(arr, with_elig: bool = False, done: Optional[torch.Tensor] = None,
-                       out: Optional[torch.Tensor] = None):
+                       out: Optional[torch.Tensor] = None, base: int = 0):
     """K7 (csrc/class_hoist.cu): static feasibility of every pod row,
     pod_valid included, as int32 words [P, ceil(N/32)] written by warp
     ballot (no dense bool plane); with `with_elig` also the eligibility
     plane nodesel & node_valid -> (sfs, eligs).  `done` (i32[1] on the
     card): the launch returns at entry once it is set; `out`: the sfs
-    buffer to write (a fresh one when None)."""
+    buffer to write (a fresh one when None); `base`: the first global node
+    id of arr's nodes (a node shard's)."""
     dev = arr.device
     _need_cuda(dev, "packed_static_rows")
     P, N = arr.P, arr.N
@@ -641,7 +649,7 @@ def packed_static_rows(arr, with_elig: bool = False, done: Optional[torch.Tensor
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
             arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sfs.data_ptr(),
             None if eligs is None else eligs.data_ptr(), None if done is None else done.data_ptr(),
-            P, N, T, TT, S, E, L, _stream(dev),
+            P, N, T, TT, S, E, L, base, _stream(dev),
         )
     _raise_on(err, "packed_static_rows")
     LAUNCHES["packed_static_rows"] += 1
@@ -1097,3 +1105,54 @@ def preempt_eval(stat_w: torch.Tensor, pod_req: torch.Tensor, pod_idxs: torch.Te
     _raise_on(err, "preempt_eval")
     LAUNCHES["preempt_eval"] += 1
     return (cand, *i32, is_victim, static_ok)
+
+
+# ---------------------------------------------------------------------------
+# the node mesh: K16 ring_match, K17 stitch_planes
+# ---------------------------------------------------------------------------
+
+def ring_match(sel: torch.Tensor, kind: torch.Tensor, lab: torch.Tensor, out: Optional[torch.Tensor] = None,
+               col0: int = 0) -> torch.Tensor:
+    """K16 (csrc/ring_match.cu): selector terms sel f32[Sl, E, L] (0/1) with
+    kinds kind i32[Sl, E] against label rows lab f32[B, L] (0/1) -> the
+    match tile bool[Sl, B], written into columns [col0, col0 + B) of `out`
+    bool[Sl, M] (a fresh [Sl, B] when None); returns `out`."""
+    dev = sel.device
+    _need_cuda(dev, "ring_match")
+    Sl, E, L = sel.shape
+    B = lab.shape[0]
+    _check(sel, "sel", torch.float32, (Sl, E, L), dev)
+    _check(kind, "kind", torch.int32, (Sl, E), dev)
+    _check(lab, "lab", torch.float32, (B, L), dev)
+    if out is None:
+        out = torch.empty((Sl, B), dtype=torch.bool, device=dev)
+    _check(out, "out", torch.bool, (Sl, out.shape[1]), dev)
+    if not 0 <= col0 <= out.shape[1] - B:
+        raise ValueError(f"ring_match: columns [{col0}, {col0 + B}) outside out's {out.shape[1]}")
+    fn = _fn("ring_match")
+    with torch.cuda.device(dev):
+        err = fn(sel.data_ptr(), kind.data_ptr(), lab.data_ptr(), out.data_ptr(), Sl, E, L, B, out.shape[1], col0,
+                 _stream(dev))
+    _raise_on(err, "ring_match")
+    LAUNCHES["ring_match"] += 1
+    return out
+
+
+def stitch_planes(words: torch.Tensor, nl: int) -> torch.Tensor:
+    """K17 (csrc/stitch_planes.cu): int32 words [rows, S * ceil(nl/32)] in
+    per-shard blocks of `nl` bits (the tiled layout) -> the flat layout
+    [rows, ceil(S * nl / 32)] of ops/bitplane.py."""
+    dev = words.device
+    _need_cuda(dev, "stitch_planes")
+    wl = -(-nl // 32)
+    if words.dim() != 2 or words.dtype != torch.int32 or not words.is_contiguous() or words.shape[1] % wl:
+        raise ValueError(f"stitch_planes: expected contiguous int32 words [rows, S * {wl}], got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    rows, S = words.shape[0], words.shape[1] // wl
+    out = torch.empty((rows, -(-(S * nl) // 32)), dtype=torch.int32, device=dev)
+    fn = _fn("stitch_planes")
+    with torch.cuda.device(dev):
+        err = fn(words.data_ptr(), out.data_ptr(), rows, S, nl, _stream(dev))
+    _raise_on(err, "stitch_planes")
+    LAUNCHES["stitch_planes"] += 1
+    return out

@@ -1,0 +1,58 @@
+"""Which arrays carry the node axis, and where -- the port's copy of the JAX
+package's ``parallel/partition_rules.py`` reduced to data.
+
+The JAX package resolves every placement through a regex -> PartitionSpec
+table.  The port's 1-D node mesh (``parallel/mesh.py`` -- ``NodeMesh``) needs
+only the facts that table encodes for the node axis:
+
+- ``NODE_AXIS_FIELDS``: each ``ClusterArrays`` field that carries the node
+  axis, its position and the fill its padding rows take (``None``: the
+  per-array "key absent" domain sentinel D).  The JAX package derives the
+  same dict from its table (``node_axis_fields``, :361); image_score is left
+  out there too, because only its real [P, N] form carries the node axis
+  (``parallel/mesh.py`` -- ``pad_field`` takes that case).
+- ``INC_NODE_AXIS``: the ``IncState`` class planes that ``HoistCache(mesh=)``
+  builds per shard and the axis each shards on (the table's ``inc.*_u``
+  rows): per shard, ``stat_u`` / ``fit_u`` are ``[U1, words(nl)]`` packed
+  words and ``base_u`` is ``[U1, nl]``.
+
+The outputs of the sharded routed step are replicated on the chunked route
+(the JAX table's ``out.*`` rows): the commit runs once on stitched values,
+so ``node_used`` comes back whole, on the padded node axis.
+
+There are no PartitionSpecs: the port's shards are a list of per-shard
+tensors, and the node-axis rows above say how a field is cut.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+# field -> (node axis, pad fill); fill None: the domain sentinel D
+NODE_AXIS_FIELDS: Dict[str, Tuple[int, Optional[int]]] = {
+    "node_valid": (0, 0),
+    "node_alloc": (0, 0),
+    "node_used": (0, 0),
+    "node_unsched": (0, 0),
+    "node_labels": (0, 0),
+    "node_taint_ns": (0, 0),
+    "node_taint_pref": (0, 0),
+    "node_dom": (1, None),
+    "node_ports0": (0, 0),
+}
+
+# IncState class plane -> the axis its node dimension lies on (packed
+# planes: the word axis, in per-shard blocks of words(nl))
+INC_NODE_AXIS: Dict[str, int] = {"stat_u": 1, "base_u": 1, "fit_u": 1}
+
+
+def node_axis_of(name: str, shape: Tuple[int, ...], n: int) -> Optional[int]:
+    """The node axis of field `name` with `shape` in arrays of `n` nodes, or
+    None: the table's rows, plus image_score when it is a real [P, N]
+    matrix (its [P, 1] broadcast form carries no node axis)."""
+    ent = NODE_AXIS_FIELDS.get(name)
+    if ent is not None:
+        return ent[0]
+    if name == "image_score" and len(shape) == 2 and shape[1] == n:
+        return 1
+    return None

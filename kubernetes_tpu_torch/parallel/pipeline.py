@@ -32,6 +32,10 @@ on, an unchanged field is the resident tensor of the cycle before, and no
 step, hoist or copy ever writes a tensor a step in flight reads.  So two
 generations live on the card at once and neither disturbs the other.
 
+``mesh`` (parallel/mesh.py -- NodeMesh): the loop's encoder and HoistCache
+take it, and each step runs node-sharded (parallel/sharded.py), the JAX
+package's PipelinedBatchLoop(mesh=) (its pipeline.py:78-88).
+
 ``overlap_fraction()`` is the share of host pipeline work (encode and
 decode) that ran while a dispatched step was still running on the card,
 probed with the step's event (``query()``): 0.0 at depth 0, and 0.0 on the
@@ -70,13 +74,21 @@ class PipelinedBatchLoop:
         base_config: ScoreConfig = DEFAULT_SCORE_CONFIG,
         depth: int = 1,
         device=None,
+        mesh=None,
     ):
         self.enc = encoder or DeltaEncoder(device)
         self.device = self.enc.device
         self.base_config = base_config
         self.depth = depth
+        # the node mesh of the sharded step (parallel/sharded.py): the
+        # encoder keeps each node-axis field resident per shard, and the
+        # class state is hoisted per shard and stitched once per cycle; an
+        # encoder already on a mesh keeps it
+        if mesh is not None:
+            self.enc.set_mesh(mesh)
+        self.mesh = self.enc.mesh
         # the resident class state, across cycles
-        self.hoist = HoistCache()
+        self.hoist = HoistCache(mesh=self.mesh)
         # (step, meta, choices on the host, sweeps on the host, done event,
         # t_dispatch, snapshot) of the dispatched wave
         self._inflight = None
@@ -131,9 +143,10 @@ class PipelinedBatchLoop:
         ta = time.perf_counter()
         arr, meta = self.enc.to_device(host, meta)
         tb = time.perf_counter()
-        inc = self.hoist.ensure(arr, meta, cfg, host=host) if inc_route_applies(arr, cfg) else None
+        pods = arr.shards[0] if self.mesh is not None else arr
+        inc = self.hoist.ensure(arr, meta, cfg, host=host) if inc_route_applies(pods, cfg) else None
         tc = time.perf_counter()
-        step = dispatch(arr, cfg, device=self.device, inc=inc)
+        step = dispatch(arr, cfg, device=self.device, inc=inc, mesh=self.mesh)
         done = None
         ch_host, sw_host = step.choices, step.sweeps
         if self.device.type == "cuda":

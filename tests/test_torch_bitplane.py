@@ -84,8 +84,13 @@ def test_assign_cols_duplicates_and_sentinel(n):
 
 
 def test_multi_block_layout_refused():
-    w = tb.pack(torch.ones((2, 64), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tb.pack_blocks(torch.ones((2, 64), dtype=torch.bool), s=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tb.unpack_blocks(w, 32)
+    """The per-shard block layout was refused before the node mesh was
+    ported; now each block of 32 bits packs and unpacks on its own."""
+    x = torch.ones((2, 64), dtype=torch.bool)
+    x[1, 40] = False
+    w = tb.pack_blocks(x, s=2)
+    np.testing.assert_array_equal(w.numpy(), tb.pack(x).numpy())  # 32-bit blocks: the flat layout
+    np.testing.assert_array_equal(tb.unpack_blocks(w, 32).numpy(), x.numpy())
+    w5 = tb.pack_blocks(x[:, :10], s=2)  # two blocks of 5 bits, one word each
+    assert w5.shape == (2, 2) and int(w5[0, 0]) == 31 and int(w5[0, 1]) == 31
+    np.testing.assert_array_equal(tb.unpack_blocks(w5, 5).numpy(), x[:, :10].numpy())

@@ -303,7 +303,8 @@ def test_wide_taint_vocabulary_travels_packed(monkeypatch):
     snap = tw.wide_taints(200, 400)
     packed = []
     real = DeltaEncoder._packed_put
-    monkeypatch.setattr(DeltaEncoder, "_packed_put", lambda self, a: packed.append(a.shape) or real(self, a))
+    monkeypatch.setattr(DeltaEncoder, "_packed_put",
+                        lambda self, a, *dev: packed.append(a.shape) or real(self, a, *dev))
     enc = DeltaEncoder("cpu")
     host, meta = enc.encode(snap)
     arr, meta = enc.to_device(host, meta)

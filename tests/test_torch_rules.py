@@ -33,14 +33,19 @@ import kubernetes_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(kubernetes_tpu_torch.__path__, "kubernetes_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
-# the encoder, the pipeline of the warm loop, the failure path and the
-# sidecar (its wire, metrics, tracing and lock checker) are among them
+# the encoder, the pipeline of the warm loop, the failure path, the
+# sidecar (its wire, metrics, tracing and lock checker) and the node mesh
+# (its request grammar, padding, collectives, sharded step and ring layer)
+# are among them
 assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
         "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
         "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench",
         "kubernetes_tpu_torch.runtime.sidecar", "kubernetes_tpu_torch.runtime.convert",
         "kubernetes_tpu_torch.runtime.tpuscore_pb2", "kubernetes_tpu_torch.scheduler.metrics",
-        "kubernetes_tpu_torch.scheduler.tracing", "kubernetes_tpu_torch.analysis.lockcheck"} <= set(mods), mods
+        "kubernetes_tpu_torch.scheduler.tracing", "kubernetes_tpu_torch.analysis.lockcheck",
+        "kubernetes_tpu_torch.meshreq", "kubernetes_tpu_torch.parallel.mesh",
+        "kubernetes_tpu_torch.parallel.partition_rules", "kubernetes_tpu_torch.parallel.collectives",
+        "kubernetes_tpu_torch.parallel.sharded", "kubernetes_tpu_torch.parallel.ring"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked
@@ -145,7 +150,7 @@ def test_reset_launches():
 
 @pytest.mark.parametrize("kernel", ["class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds",
                                     "packed_static_rows", "chunk_rounds_dense", "unpack_planes", "score_planes",
-                                    "full_scan", "rounds", "gang_quorum"])
+                                    "full_scan", "rounds", "gang_quorum", "ring_match", "stitch_planes"])
 def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
     """The class-wave, dense-route and transfer kernels' wrappers launch or
     raise: CPU tensors are refused before any build, never handed to a plain
@@ -172,6 +177,8 @@ def test_class_wave_wrappers_refuse_cpu_tensors(kernel):
         "rounds": lambda: kernels.rounds(arr, cfg, *words, (None, None)),
         "gang_quorum": lambda: kernels.gang_quorum(arr.pod_req[:, 0].contiguous(), arr.pod_group, arr.pod_valid,
                                                    arr.group_min),
+        "ring_match": lambda: kernels.ring_match(arr.sel_mask.float(), arr.sel_kind, arr.node_labels.float()),
+        "stitch_planes": lambda: kernels.stitch_planes(torch.zeros((3, 4), dtype=torch.int32), 37),
     }
     words = [torch.zeros((arr.P, -(-arr.N // 32)), dtype=torch.int32)] * 2
     with pytest.raises(ValueError, match="CUDA"):

@@ -18,6 +18,15 @@ batched preemption) on the JAX package's preemption bench cluster:
                      50000/50000 scheduled, the JAX package's choices digest,
                      static_feasible == plain over [P, N], fit_scan == plain
                      on the first 8192 pods;
+  [mesh-north-star-perpod] the same per-pod route on make_mesh(4) (the
+                     node mesh's per-step collectives, parallel/sharded.py):
+                     static_feasible once per shard with its base (the
+                     pinned node is a global id), then fit_scan in shard
+                     mode (one cooperative launch of 4 blocks, one grid
+                     barrier a pod): [north-star]'s choices and usage;
+                     static_feasible (base) == plain per shard, fit_scan's
+                     shard mode == the plain sharded scan on the first 1024
+                     pods; both timed, the one-device launch beside;
   [waves-mixed]      the class-wave kernels (class_static_hoist,
                      class_usage_hoist full and column-list, wave_commit,
                      chunk_rounds) == their plain versions on the card, bit
@@ -101,11 +110,28 @@ batched preemption) on the JAX package's preemption bench cluster:
                      class_static_hoist == plain on both planes, rounds in
                      class-row mode == plain == dense on the first 8 chunks,
                      timed in turns with the dense mode; step_rounds_inc_s;
+  [mesh-config3]     config 3 on make_mesh(4) (nl 1536) and make_mesh(5) (N
+                     pads to 6145, nl 1229), each route counted on its own:
+                     the rounds route dense (packed_static_rows x S, rounds
+                     in shard mode), on class state (HoistCache(mesh=):
+                     class_static_hoist x S, class_usage_hoist x S; rounds
+                     in shard class-row mode) and the per-pod route
+                     (packed_static_rows x S, full_scan in shard mode):
+                     the [config3] / [config3-inc] / [config3-perpod]
+                     digests, 1691 sweeps and usage; rounds' shard modes ==
+                     the plain sharded scan on the first 4 chunks (choices,
+                     usage, ordinals, count planes), full_scan's on the
+                     first 128 pods; each timed over all pods beside the
+                     one-device rounds;
   [config3-warm]     bench.py's waves 2..7 over config 3 through
                      PipelinedBatchLoop at depth 1 and 0, every step on the
                      rounds route with class state: per-wave digests and
                      HoistCache actions as the JAX loop's, end_to_end_s,
                      delta_s, overlap_fraction;
+  [mesh-config3-warm] the same waves through PipelinedBatchLoop(depth=1,
+                     mesh=make_mesh(4)): every step the sharded rounds
+                     route on class state; [config3-warm]'s digests and
+                     actions, end_to_end_s beside its one;
   [all-stages]       all_stages() (every optional stage on): the rounds and
                      the per-pod routes equal the JAX digests (choices,
                      sweeps, ordinals), score_planes == plain on both bf16
@@ -132,6 +158,10 @@ batched preemption) on the JAX package's preemption bench cluster:
                      fixpoint, a gated iteration's card time;
                      K12's gated mode == plain on the first chunks with
                      `done` clear and writing nothing with it set;
+  [mesh-gangs]       schedule_with_gangs(mesh=make_mesh(4)) on [gang-rounds]'s
+                     batch (each iteration the sharded rounds route) and on
+                     config 5 with HoistCache(mesh=) (the sharded class-wave
+                     route): the host fixpoints' digests;
   [gang-contended]   workloads.gang_contended's four batches (the rounds
                      route with pairwise stages and fit-only at P=64, the
                      per-pod route fit-only and full-stage at P=8), each
@@ -466,7 +496,7 @@ def phase_north_star() -> list:
              replaces="kubernetes_tpu/ops/assign.py:181", launches=launches["fit_scan"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
              library_ms=None, plain_scope=f"first {PLAIN_PODS} pods"),
-    ]
+    ], (arr, meta, cfg, choices, used)
 
 
 def f32_bits(x):
@@ -1081,12 +1111,12 @@ def phase_mesh_north_star(used_sha: str) -> list:
             if j == S - 1:  # one shard's K7 (~40 ms of plain each), the last: the largest base
                 err += mismatch(kernels.packed_static_rows(sh, base=base),
                                 assign.packed_static_rows_plain(sh, base=base))
-            err += mismatch(hc._blocks["stat"][j],
+            err += mismatch(inc.shards[j].stat_u,
                             incremental._static_hoist_plain(incremental.class_view(sh, r_u), base=base)[0])
             bp, fp = incremental._usage_hoist_plain(inc.req_u, sh.node_used, sh.node_alloc, cfg)
-            err += mismatch(hc._blocks["usage"][j][0], bp) + mismatch(hc._blocks["usage"][j][1], fp)
+            err += mismatch(inc.shards[j].base_u, bp) + mismatch(inc.shards[j].fit_u, fp)
         check(err == 0, f"{tag}: per-shard K3 / K4 / K7 != plain ({err} entries)")
-        tiled = all_gather_nodes(hc._blocks["stat"], 1, arr.device)
+        tiled = all_gather_nodes([x.stat_u for x in inc.shards], 1, arr.device)
         k17_err = mismatch(kernels.stitch_planes(tiled, nl), bitplane.stitch_planes_plain(tiled, nl))
         check(k17_err == 0 and same(inc.stat_u, kernels.stitch_planes(tiled, nl)), f"{tag}: stitch_planes != plain")
         print(f"[mesh-north-star] S={S}: per-shard class_static_hoist, class_usage_hoist, packed_static_rows (shard "
@@ -2528,6 +2558,334 @@ def phase_preempt(k14: dict) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# the node mesh's per-step collectives: the shard modes of K2, K11 and K12
+# ---------------------------------------------------------------------------
+
+MESH_PERPOD_PREFIX = 1024  # north-star pods of K2's shard mode held against the plain sharded scan
+MESH_ROUNDS_PREFIX_CHUNKS = 4  # config-3 chunks of K12's shard mode held against the plain sharded scan
+MESH_FULL_PREFIX = 128  # config-3 pods of K11's shard mode held against the plain sharded scan
+
+
+def sharded_counted(tag, fn, need: dict, route: str):
+    """fn() on the mesh with every count set to 0 just before it: exactly the
+    launches `need` and the route `route`, once."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import assign, kernels
+
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+    check(launches == need, f"{tag}: launches {launches}, want {need}")
+    check(routes == {route: 1}, f"{tag}: routes {routes}")
+    return out, launches, first_s
+
+
+def shard_x_bytes(kind: str, P: int, S: int, rounds: int = 0, C: int = 16, kl: int = 32) -> int:
+    """Bytes a shard-mode launch writes to its exchange: per pod (K2: a
+    (score, id) slot; K11: the minMatch, five scalars, the best and its
+    commit entries, 80 of 16 B at most) or per round and chunk pod (K12:
+    minMatch, scalars, best, the top-kl list, the repair's five words, and
+    the commit entries)."""
+    if kind == "fit":
+        return P * S * 8
+    if kind == "full":
+        return P * S * (4 * 16 + 4 * 5 + 8 + 4 + 16 * 80)
+    return rounds * C * S * (4 * 16 + 4 * 5 + 8 + 8 * kl + 20) + P * 16 * 80
+
+
+def phase_mesh_north_star_perpod(ns) -> list:
+    """The north star's per-pod route on make_mesh(4): K1 x 4 with each
+    shard's base, then K2 in shard mode; == [north-star]'s choices and usage;
+    K1 (base) == plain per shard, K2's shard mode == the plain sharded scan
+    on the first MESH_PERPOD_PREFIX pods."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import assign, filters, kernels
+    from kubernetes_tpu_torch.parallel import mesh as tm
+    from kubernetes_tpu_torch.parallel import sharded
+
+    arr, meta, cfg, choices, used = ns
+    m = tm.make_mesh(4)
+    sa = tm.shard_arrays(arr, m)
+    P, N, nl, R = sa.P, sa.N, sa.nl, arr.R
+    n = meta.n_pods
+    step, launches, first_s = sharded_counted(
+        "mesh-north-star-perpod", lambda: assign.finish(assign.dispatch(sa, cfg, mesh=m, chunked=False)),
+        {"static_feasible": 4, "fit_scan_shard": 1}, "sharded_plain")
+    digest = hashlib.sha256(step.choices[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+    check(digest == workloads.NORTH_STAR_CHOICES_SHA256, "mesh-north-star-perpod: choices differ from JAX")
+    check(torch.equal(step.choices, choices) and torch.equal(step.used[:arr.N], used),
+          "mesh-north-star-perpod: != [north-star]")
+    step_s = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        assign.finish(assign.dispatch(sa, cfg, mesh=m, chunked=False))
+        torch.cuda.synchronize()
+        step_s = min(step_s, time.perf_counter() - t0)
+    print(f"[mesh-north-star-perpod] {m}: P={P} N={N} nl={nl}; dispatch(chunked=False) {first_s:.3f} s (first "
+          f"call), step_s {step_s:.4f} (best of 2): choices sha256 {digest} == [north-star], usage == "
+          f"[north-star]'s, launches {launches}", flush=True)
+    # K1 with the base against plain, every shard
+    bases = [m.base(s, N) for s in range(4)]
+    sfs = [kernels.static_feasible(sh, base=b) for sh, b in zip(sa.shards, bases)]
+    k1_err = sum(int((k != filters.static_feasible_plain(sh, base=b)).any()) for k, sh, b in zip(sfs, sa.shards, bases))
+    check(k1_err == 0, "mesh-north-star-perpod: static_feasible (base) != plain")
+    k1_ms = cuda_ms(lambda: [kernels.static_feasible(sh, base=b) for sh, b in zip(sa.shards, bases)], reps=5)
+    k1_plain = cuda_ms(lambda: [filters.static_feasible_plain(sh, base=b) for sh, b in zip(sa.shards, bases)], reps=2)
+    sh0 = sa.shards[0]
+    T, TT = sh0.node_taint_ns.shape[1], sh0.pod_terms.shape[1]
+    S_, E, L = sh0.sel_mask.shape
+    k1_bytes = 4 * (nl * (2 + T + L) + P * (2 + T) + 4 * P * (1 + TT) + S_ * E * L + 4 * S_ * E) + P * N
+    k1_bound, k1_by = bound(k1_bytes, P * N * (3 + T + TT))
+    # K2's shard mode against the plain sharded scan on a prefix, and timed
+    k = MESH_PERPOD_PREFIX
+    pre = sa.pod_prefix(k)
+    sf_pre = [x[:k].contiguous() for x in sfs]
+    ck, uk = kernels.fit_scan_shard(sf_pre, pre, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cp, up = sharded.sharded_schedule_scan_plain(pre, cfg, sfs=sf_pre, planes=[(None, None)] * 4)
+    torch.cuda.synchronize()
+    k2_plain = (time.perf_counter() - t0) * 1e3
+    k2_err = mismatch(ck, cp) + mismatch(uk, up)
+    check(k2_err == 0, f"mesh-north-star-perpod: fit_scan_shard != plain on the first {k} pods ({k2_err})")
+    check(torch.equal(ck, choices[:k]), "mesh-north-star-perpod: prefix != full run")
+    k2_ms = cuda_ms(lambda: kernels.fit_scan_shard(sfs, sa, cfg), reps=2)
+    one_ms = cuda_ms(lambda: kernels.fit_scan(kernels.static_feasible(arr), arr, cfg), reps=1)
+    k2_bytes = P * N + 4 * P * R + P + 3 * 4 * N * R + 4 * P + shard_x_bytes("fit", P, 4)
+    n_scored = int(kernels.fit_scan(kernels.static_feasible(arr), arr, cfg)[2].item())
+    k2_bound, k2_by = bound(k2_bytes, n_scored * f32_ops_per_scored_node(cfg))
+    print(f"[mesh-north-star-perpod] static_feasible (base) x 4 == plain per shard: {k1_ms:.4f} ms the four, "
+          f"plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); fit_scan_shard == plain sharded scan on the "
+          f"first {k} pods (plain {k2_plain:.1f} ms, host clock): {k2_ms:.3f} ms over all {P} pods "
+          f"({k2_ms / P * 1e3:.3f} us per pod; one device: static_feasible + fit_scan {one_ms:.3f} ms, same "
+          f"call), bound {k2_bound:.4f} ms ({k2_by})", flush=True)
+    return [
+        dict(name="static_feasible (base)", route="cuda", source="kubernetes_tpu_torch/csrc/static_feasible.cu",
+             replaces="kubernetes_tpu/ops/assign.py:189 (schedule_scan's my_nodes under shard_map)",
+             launches=launches["static_feasible"], max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+             bound_ms=k1_bound, bound_by=k1_by, library_ms=None, scope="4 shards of the north star"),
+        dict(name="fit_scan (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/fit_scan.cu",
+             replaces="kubernetes_tpu/ops/assign.py:181 (axis_name; :320-326)", launches=launches["fit_scan_shard"],
+             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
+             plain_scope=f"first {k} pods", one_device_ms=one_ms),
+    ]
+
+
+def phase_mesh_config3(c3, k12_row: dict, k11_row: dict) -> list:
+    """BASELINE config 3 on make_mesh(4) (nl 1536) and make_mesh(5) (N pads
+    to 6145, nl 1229): the rounds route dense (K7 x S with eligibility, K12
+    in shard mode), on class state (HoistCache(mesh=): K3 x S, K4 x S; K12
+    in shard class-row mode) and the per-pod route (K7 x S, K11 in shard
+    mode), each counted on its own, against the single-device digests,
+    sweeps and usage; K12 (both modes) and K11 in shard mode == their plain
+    sharded versions on a prefix, timed."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import assign, bitplane, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel import mesh as tm
+    from kubernetes_tpu_torch.parallel import sharded
+
+    arr, meta, cfg, choices, sfs1, eligs1, _, _, k_ops = c3
+    n, P = meta.n_pods, arr.P
+    used1 = choices_used(arr, choices, P)
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    def same(tag, step, sweeps=True):
+        check(digest(step.choices) == w.CONFIG3_CHOICES_SHA256, f"{tag}: choices differ from JAX")
+        check(torch.equal(step.used[:arr.N], used1) and not step.used[arr.N:].any(), f"{tag}: usage")
+        if sweeps:
+            check(step.sweeps == w.CONFIG3_ROUNDS_SWEEPS, f"{tag}: sweeps {step.sweeps}")
+            check(digest(step.ordinals) == w.CONFIG3_ROUNDS_ORDINALS_SHA256, f"{tag}: ordinals differ from JAX")
+
+    rows = []
+    for S in (4, 5):
+        m = tm.make_mesh(S)
+        sa = tm.shard_arrays(arr, m)
+        nl, N = sa.nl, sa.N
+        tag = f"mesh-config3 S={S}"
+        # the rounds route, dense
+        d, dl, d_first = sharded_counted(tag, lambda: assign.finish(assign.dispatch(sa, cfg, mesh=m)),
+                                         {"packed_static_rows": S, "rounds_shard": 1}, "sharded_rounds")
+        same(tag + " rounds", d)
+        # the rounds route on class state
+        cache = HoistCache(mesh=m)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        inc = cache.ensure(sa, meta, cfg)
+        torch.cuda.synchronize()
+        ensure_s = time.perf_counter() - t0
+        hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(hl == {"class_static_hoist": S, "class_usage_hoist": S}, f"{tag}: HoistCache launches {hl}")
+        ci, il, i_first = sharded_counted(tag, lambda: assign.finish(assign.dispatch(sa, cfg, inc=inc, mesh=m)),
+                                          {"rounds_shard": 1}, "sharded_rounds_inc")
+        same(tag + " rounds_inc", ci)
+        # the per-pod route
+        pp, pl, p_first = sharded_counted(tag, lambda: assign.finish(assign.dispatch(sa, cfg, mesh=m, chunked=False)),
+                                          {"packed_static_rows": S, "full_scan_shard": 1}, "sharded_plain")
+        same(tag + " per-pod", pp, sweeps=False)
+        print(f"[mesh-config3] {m}: N={N} nl={nl}; rounds dense {d_first:.3f} s, launches {dl}; HoistCache.ensure "
+              f"{ensure_s:.4f} s ({hl}), rounds on class state {i_first:.3f} s, launches {il}; per-pod "
+              f"{p_first:.3f} s, launches {pl}: choices, usage, ordinals and sweeps ({w.CONFIG3_ROUNDS_SWEEPS}) == "
+              f"[config3] / [config3-inc] / [config3-perpod]", flush=True)
+        # the kernels against their plain sharded versions on a prefix, and timed
+        bases = [m.base(s, N) for s in range(S)]
+        planes = [assign.packed_static_rows(sh, with_elig=True, base=b) for sh, b in zip(sa.shards, bases)]
+        sfs, eligs = [p_[0] for p_ in planes], [p_[1] for p_ in planes]
+        npre = MESH_ROUNDS_PREFIX_CHUNKS * assign.RCHUNK
+        pre = sa.pod_prefix(npre)
+        sp, ep = [x[:npre].contiguous() for x in sfs], [x[:npre].contiguous() for x in eligs]
+        nn = [(None, None)] * S
+        kd = kernels.rounds_shard(pre, cfg, sp, ep, nn, with_state=True)
+        inc_pre = inc._replace(cls=inc.cls[:npre].contiguous(),
+                               shards=tuple(x._replace(cls=x.cls[:npre].contiguous()) for x in inc.shards))
+        ki = kernels.rounds_shard(pre, cfg, inc=inc_pre, with_state=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pd = sharded.sharded_schedule_scan_rounds_plain(pre, cfg, sp, ep, nn, with_state=True)
+        torch.cuda.synchronize()
+        k12_plain = (time.perf_counter() - t0) * 1e3
+        pi = sharded.sharded_schedule_scan_rounds_plain(pre, cfg, inc=inc_pre, with_state=True)
+        errs = []
+        for kk, pp_ in ((kd, pd), (ki, pi)):
+            errs.append(sum(mismatch(a, b) for a, b in zip(kk[:3], pp_[:3])) + abs(kernels.read_sweeps(kk[3]) - pp_[3])
+                        + same_state(kk[4], pp_[4]))
+        check(errs == [0, 0], f"{tag}: rounds_shard (dense, class rows) != plain on the first chunks {errs}")
+        check(torch.equal(kd[0], choices[:npre]) and torch.equal(ki[0], choices[:npre]), f"{tag}: prefix != full")
+        fpre = sa.pod_prefix(MESH_FULL_PREFIX)
+        kf = kernels.full_scan_shard(fpre, cfg, [x[:MESH_FULL_PREFIX].contiguous() for x in sfs],
+                                     [x[:MESH_FULL_PREFIX].contiguous() for x in eligs], nn, with_state=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pf = sharded.sharded_schedule_scan_plain(fpre, cfg, sfs=[bitplane.unpack(x[:MESH_FULL_PREFIX], nl) for x in sfs],
+                                                 planes=nn, with_state=True)
+        torch.cuda.synchronize()
+        k11_plain = (time.perf_counter() - t0) * 1e3
+        k11_err = mismatch(kf[0], pf[0]) + mismatch(kf[1], pf[1]) + same_state(kf[2], pf[2])
+        check(k11_err == 0, f"{tag}: full_scan_shard != plain on the first {MESH_FULL_PREFIX} pods ({k11_err})")
+        kd_ms = cuda_ms(lambda: kernels.rounds_shard(sa, cfg, sfs, eligs, nn), reps=3)
+        ki_ms = cuda_ms(lambda: kernels.rounds_shard(sa, cfg, inc=inc), reps=3)
+        one_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, sfs1, eligs1, (None, None)), reps=2)
+        kf_ms = cuda_ms(lambda: kernels.full_scan_shard(sa, cfg, sfs, eligs, nn), reps=1)
+        k_bytes = full_bytes(arr)
+        sw_ = w.CONFIG3_ROUNDS_SWEEPS
+        kl = min(32, nl)
+        b12, b12_by = bound(k_bytes + shard_x_bytes("rounds", P, S, sw_, kl=kl), k_ops)
+        b11, b11_by = bound(k_bytes + shard_x_bytes("full", P, S), k_ops)
+        print(f"[mesh-config3] {m}: rounds_shard dense / class rows == plain on the first "
+              f"{MESH_ROUNDS_PREFIX_CHUNKS} chunks (plain {k12_plain:.1f} ms, host clock), full_scan_shard == plain "
+              f"on the first {MESH_FULL_PREFIX} pods (plain {k11_plain:.1f} ms); all pods: rounds_shard dense "
+              f"{kd_ms:.3f} ms ({kd_ms / sw_ * 1e3:.1f} us per round), class rows {ki_ms:.3f} ms, one-device "
+              f"rounds {one_ms:.3f} ms (same call; [config3] {k12_row['ms']:.3f}), full_scan_shard {kf_ms:.3f} ms "
+              f"({kf_ms / P * 1e3:.2f} us per pod; [config3-perpod] full_scan {k11_row['ms']:.3f}); bounds "
+              f"{b12:.4f} ms ({b12_by}) / {b11:.4f} ms ({b11_by})", flush=True)
+        if S == 4:
+            rows += [
+                dict(name="rounds (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
+                     replaces="kubernetes_tpu/ops/assign.py:1464 (axis_name; :56-110)", launches=dl["rounds_shard"],
+                     max_abs_err=errs[0], ms=kd_ms, plain_ms=k12_plain, bound_ms=b12, bound_by=b12_by,
+                     library_ms=None, plain_scope=f"first {MESH_ROUNDS_PREFIX_CHUNKS} chunks", shards=S,
+                     one_device_ms=one_ms),
+                dict(name="rounds (shard, class rows)", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
+                     replaces="kubernetes_tpu/ops/assign.py:1464 (axis_name, inc=)", launches=il["rounds_shard"],
+                     max_abs_err=errs[1], ms=ki_ms, plain_ms=k12_plain, bound_ms=b12, bound_by=b12_by,
+                     library_ms=None, plain_scope=f"first {MESH_ROUNDS_PREFIX_CHUNKS} chunks (dense plain)", shards=S),
+                dict(name="full_scan (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/full_scan.cu",
+                     replaces="kubernetes_tpu/ops/assign.py:181 (axis_name; :252-344), ops/pairwise.py:56",
+                     launches=pl["full_scan_shard"], max_abs_err=k11_err, ms=kf_ms, plain_ms=k11_plain,
+                     bound_ms=b11, bound_by=b11_by, library_ms=None, plain_scope=f"first {MESH_FULL_PREFIX} pods",
+                     shards=S),
+            ]
+        del sa, inc, cache
+    return rows
+
+
+def phase_mesh_config3_warm(cold3, single) -> None:
+    """bench.py's warm waves on config 3 through PipelinedBatchLoop(depth=1,
+    mesh=make_mesh(4)): every step the sharded rounds route on class state
+    (K3 / K4 per shard in the HoistCache, K12 in shard class-row mode); the
+    digests and HoistCache actions of [config3-warm]."""
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+
+    res = run_warm_loop("mesh-config3-warm", w.spread_affinity(**w.CONFIG3), cold3, w.CONFIG3_WARM_DIGESTS,
+                        w.CONFIG3_WARM_ACTIONS, w.CONFIG3_SCHEDULED,
+                        ("class_static_hoist", "class_usage_hoist", "rounds_shard"), "sharded_rounds_inc",
+                        mesh=make_mesh(4), depths=(1,))
+    print(f"[mesh-config3-warm] end_to_end_s {res[1]['end_to_end_s']:.4f} on 4 shards; one device "
+          f"{single[1]['end_to_end_s']:.4f} ([config3-warm], depth 1); delta_s {res[1]['delta_s']:.4f} / "
+          f"{single[1]['delta_s']:.4f}", flush=True)
+
+
+def phase_mesh_gangs() -> None:
+    """schedule_with_gangs(mesh=make_mesh(4)): [gang-rounds]'s batch (config
+    3 in PodGroups of 64; each iteration the sharded rounds route) and
+    config 5 on class state (each iteration the sharded class-wave route);
+    each == the host fixpoint's digests."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, gang, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+
+    m = make_mesh(4)
+
+    def digest(x, k=None):
+        x = x if k is None else x[:k]
+        return hashlib.sha256(x.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    arr, meta = DeltaEncoder().encode_device(w.grouped(w.spread_affinity(**w.CONFIG3), 64))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    t0 = time.perf_counter()
+    c, u = gang.schedule_with_gangs(arr, cfg, mesh=m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+    print(f"[mesh-gangs] gang-rounds on {m}: {wall:.4f} s, routes {routes}, launches {launches}, choices sha256 "
+          f"{digest(c, n)}, used sha256 {digest(u[:arr.N])}", flush=True)
+    check(routes == {"sharded_rounds": w.GANG_ROUNDS_ITERATIONS}, f"mesh-gangs rounds: routes {routes}")
+    check(launches.get("rounds_shard") == w.GANG_ROUNDS_ITERATIONS, f"mesh-gangs rounds: launches {launches}")
+    check(digest(c, n) == w.GANG_ROUNDS_CHOICES_SHA256 and digest(u[:arr.N]) == w.GANG_ROUNDS_USED_SHA256,
+          "mesh-gangs: the gang-rounds decisions differ from the host fixpoint's")
+    del arr, c, u
+    arr, meta = DeltaEncoder().encode_device(w.gang(**w.CONFIG5))
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    t0 = time.perf_counter()
+    inc = HoistCache(mesh=m).ensure(arr, meta, cfg)
+    hc, hu, ho, hs = gang.schedule_with_gangs(arr, cfg, with_ordinals=True, inc=inc, mesh=m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+    print(f"[mesh-gangs] config 5 on {m}, class state: {wall:.4f} s (HoistCache.ensure included), routes {routes}, "
+          f"launches {launches}, sweeps {hs}, choices sha256 {digest(hc, n)}, ordinals sha256 {digest(ho, n)}",
+          flush=True)
+    check(routes.get("sharded_chunked_inc") == w.CONFIG5_ITERATIONS, f"mesh-gangs config 5: routes {routes}")
+    check(digest(hc, n) == w.CONFIG5_CHOICES_SHA256 and digest(ho, n) == w.CONFIG5_ORDINALS_SHA256
+          and hs == w.CONFIG5_SWEEPS, "mesh-gangs: config 5 differs from the host fixpoint's")
+
+
 def choices_used(arr, choices, k: int):
     """node_used after the first k pods' placements."""
     import torch
@@ -2552,7 +2910,9 @@ def main() -> int:
     phase_env()
     phase_build()
     phase_mixed()
-    step_s, rows = phase_north_star()
+    step_s, rows, ns_pp = phase_north_star()
+    rows += phase_mesh_north_star_perpod(ns_pp)
+    del ns_pp
     phase_waves_mixed()
     rows += phase_north_star_waves(step_s)
     step_dense_s, cold, ns, dense_rows = phase_north_star_dense()
@@ -2568,16 +2928,19 @@ def main() -> int:
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
     cold3, _, inc_rows = phase_config3_inc(c3)
+    mesh3_rows = phase_mesh_config3(c3, k12_row, k11_row)
     k_ops3 = c3[-1]
     del c3
-    phase_config3_warm(cold3)
+    warm3 = phase_config3_warm(cold3)
+    phase_mesh_config3_warm(cold3, warm3)
     k10_rows, (k11_err, k12_err) = phase_all_stages()
     k11_row["max_abs_err"] += k11_err
     k12_row["max_abs_err"] += k12_err
-    rows += k10_rows + [k11_row, k12_row] + inc_rows
+    rows += k10_rows + [k11_row, k12_row] + inc_rows + mesh3_rows
     phase_gang_small()
     rows += phase_config5()
     k12_gated = phase_gang_rounds(k_ops3, k12_row)
+    phase_mesh_gangs()
     rows += phase_gang_contended(k12_gated) + [k12_gated]
     phase_sidecar_north_star()
     phase_sidecar_config5()

@@ -1019,7 +1019,8 @@ class DeltaEncoder:
                 copied |= c
         if copied and self.device.type != "cpu":
             self._fence()
-        return ShardedArrays(mesh, tuple(ClusterArrays(**f) for f in shards)), meta
+        image_sharded = np.shape(arr.image_score)[1] == n
+        return ShardedArrays(mesh, tuple(ClusterArrays(**f) for f in shards), image_sharded), meta
 
     def _to_device(self, arr, meta):
         if self._mesh is not None:

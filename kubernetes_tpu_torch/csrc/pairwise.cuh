@@ -24,6 +24,20 @@
 // (PodSlots::prow).  The class static plane leaves pod_valid out; the
 // node_feasible test folds it back in per pod (ps.valid, :1741), as it
 // does in dense mode, where the plane already holds it.
+//
+// Shard mode (K2, K11 and K12 on a node mesh, parallel/sharded.py; the JAX
+// package's sharded scans, ops/assign.py:56-110): a block works for one
+// node shard and sees it through shard_view -- a copy of the launch's
+// FullArgs whose node-side pointers and N are the shard's (ShardPtrs), so
+// every device function below runs on the shard's local node ids 0..nl and
+// reads node-axis data only through that shard's pointers.  The pieces a
+// shard contributes to a cross-shard reduction are split out:
+// pod_scalars_partial / pod_scalars_finish (the spread minMatch: the
+// partial maxima of -count, combined across shards before inf -> 0, as the
+// JAX package takes the pmin before it, pairwise.py:54-58), row_feas /
+// row_scalars / row_total (the normalisation maxima, then the total row and
+// its argmax with the global ids id_base + n) and commit_entries with no
+// total_t (each shard keeps its own copy and adds the winner's entries).
 
 #pragma once
 
@@ -93,6 +107,96 @@ struct FullArgs {
   const uint8_t* ports0;  // [N, PT]
 };
 
+constexpr int PW_MAX_SHARDS = 8;  // node shards of a shard-mode launch
+
+// one node shard's node-axis pointers (shard mode): its planes, state and
+// start state, its first global node id and its node count
+struct ShardPtrs {
+  const uint32_t* sfs;
+  const uint32_t* eligs;
+  const __nv_bfloat16* traw;
+  const __nv_bfloat16* naraw;
+  const __nv_bfloat16* img_s;
+  const int32_t* alloc;
+  int32_t* used;
+  const int32_t* dbt;
+  float* cnt;
+  float* antin;
+  float* pref;
+  float* total_t;  // the shard's own copy of the replicated [T]
+  uint8_t* ports_used;
+  const int32_t* used0;
+  const float* cnt0;
+  const float* anti0;
+  const float* pref0;
+  const uint8_t* ports0;
+  int base, nl;
+};
+constexpr int PW_SHARD_PTRS = 18;  // pointers per shard in the host table
+
+struct ShardTable {
+  int S;
+  ShardPtrs sh[PW_MAX_SHARDS];
+};
+
+// host side: the table from S rows of PW_SHARD_PTRS pointers (ShardPtrs'
+// order); shard s owns the global ids [s * nl, (s + 1) * nl)
+inline ShardTable make_shard_table(const void* const* q, int S, int nl) {
+  ShardTable t{};
+  t.S = S;
+  for (int s = 0; s < S; ++s) {
+    const void* const* r = q + (int64_t)s * PW_SHARD_PTRS;
+    ShardPtrs& p = t.sh[s];
+    p.sfs = static_cast<const uint32_t*>(r[0]);
+    p.eligs = static_cast<const uint32_t*>(r[1]);
+    p.traw = static_cast<const __nv_bfloat16*>(r[2]);
+    p.naraw = static_cast<const __nv_bfloat16*>(r[3]);
+    p.img_s = static_cast<const __nv_bfloat16*>(r[4]);
+    p.alloc = static_cast<const int32_t*>(r[5]);
+    p.used = static_cast<int32_t*>(const_cast<void*>(r[6]));
+    p.dbt = static_cast<const int32_t*>(r[7]);
+    p.cnt = static_cast<float*>(const_cast<void*>(r[8]));
+    p.antin = static_cast<float*>(const_cast<void*>(r[9]));
+    p.pref = static_cast<float*>(const_cast<void*>(r[10]));
+    p.total_t = static_cast<float*>(const_cast<void*>(r[11]));
+    p.ports_used = static_cast<uint8_t*>(const_cast<void*>(r[12]));
+    p.used0 = static_cast<const int32_t*>(r[13]);
+    p.cnt0 = static_cast<const float*>(r[14]);
+    p.anti0 = static_cast<const float*>(r[15]);
+    p.pref0 = static_cast<const float*>(r[16]);
+    p.ports0 = static_cast<const uint8_t*>(r[17]);
+    p.base = s * nl;
+    p.nl = nl;
+  }
+  return t;
+}
+
+// the launch's arguments as shard p sees them (thread 0 writes `a`, the
+// caller syncs): N is the shard's node count, the node-side pointers its own
+__device__ __forceinline__ void shard_view(const FullArgs& g, const ShardPtrs& p, FullArgs& a) {
+  a = g;
+  a.N = p.nl;
+  a.W = (p.nl + 31) / 32;
+  a.sfs = p.sfs;
+  a.eligs = p.eligs;
+  a.traw = p.traw;
+  a.naraw = p.naraw;
+  a.img_s = p.img_s;
+  a.alloc = p.alloc;
+  a.used = p.used;
+  a.dbt = p.dbt;
+  a.cnt = p.cnt;
+  a.antin = p.antin;
+  a.pref = p.pref;
+  a.total_t = p.total_t;
+  a.ports_used = p.ports_used;
+  a.used0 = p.used0;
+  a.cnt0 = p.cnt0;
+  a.anti0 = p.anti0;
+  a.pref0 = p.pref0;
+  a.ports0 = p.ports0;
+}
+
 // one pod's slots, compacted to the valid entries (a -1 slot adds nothing)
 struct PodSlots {
   int64_t prow;  // the pod's row of the static and score planes
@@ -150,6 +254,74 @@ inline void read_gate(FullArgs& a, const void* const* q) {
   a.pref0 = static_cast<const float*>(q[31]);
   a.total0 = static_cast<const float*>(q[32]);
   a.ports0 = static_cast<const uint8_t*>(q[33]);
+}
+
+// host side: the FullArgs of the C entries of K11 and K12 from their host
+// arrays (ptrs: see read_gate; ptrs[26] the class index or NULL) -> 0, or
+// the CUDA error of an argument the kernels do not take
+inline int read_full_args(const void* const* ptrs, const int* dims, const int* sw, const float* wp, const int* ip,
+                          const float* fp, FullArgs& a) {
+  a.sp = make_score_params(ip, fp);
+  a.P = dims[0];
+  a.N = dims[1];
+  a.R = dims[2];
+  a.T = dims[3];
+  a.D = dims[4];
+  a.PT = dims[5];
+  a.CS = dims[6];
+  a.A1 = dims[7];
+  a.A2 = dims[8];
+  a.B = dims[9];
+  a.M = dims[10];
+  a.W = (a.N + 31) / 32;
+  a.pw = sw[0];
+  a.ips = sw[1];
+  a.ports = sw[2];
+  a.taint = sw[3];
+  a.nap = sw[4];
+  a.img = sw[5];
+  a.tw = wp[0];
+  a.naw = wp[1];
+  a.sw = wp[2];
+  a.ipw = wp[3];
+  a.iw = wp[4];
+  a.hpaw = wp[5];
+  if (!score_params_ok(a.sp, a.R) || a.N <= 0 || a.P < 0 || a.T < 1 || a.CS > PW_MAX_S ||
+      a.A1 > PW_MAX_S || a.A2 > PW_MAX_S || a.B > PW_MAX_S || a.M > PW_MAX_M ||
+      a.PT > PW_MAX_PT)
+    return (int)cudaErrorInvalidValue;
+  a.preq = static_cast<const int32_t*>(ptrs[0]);
+  a.pvalid = static_cast<const uint8_t*>(ptrs[1]);
+  a.sfs = static_cast<const uint32_t*>(ptrs[2]);
+  a.eligs = static_cast<const uint32_t*>(ptrs[3]);
+  a.traw = static_cast<const __nv_bfloat16*>(ptrs[4]);
+  a.naraw = static_cast<const __nv_bfloat16*>(ptrs[5]);
+  a.img_s = static_cast<const __nv_bfloat16*>(ptrs[6]);
+  a.spread_t = static_cast<const int32_t*>(ptrs[7]);
+  a.skew = static_cast<const int32_t*>(ptrs[8]);
+  a.hard = static_cast<const uint8_t*>(ptrs[9]);
+  a.aff = static_cast<const int32_t*>(ptrs[10]);
+  a.aself = static_cast<const uint8_t*>(ptrs[11]);
+  a.anti = static_cast<const int32_t*>(ptrs[12]);
+  a.mt = static_cast<const int32_t*>(ptrs[13]);
+  a.mv = static_cast<const float*>(ptrs[14]);
+  a.pref_t = static_cast<const int32_t*>(ptrs[15]);
+  a.pref_w = static_cast<const float*>(ptrs[16]);
+  a.pod_ports = static_cast<const uint8_t*>(ptrs[17]);
+  a.alloc = static_cast<const int32_t*>(ptrs[18]);
+  a.used = static_cast<int32_t*>(const_cast<void*>(ptrs[19]));
+  a.dbt = static_cast<const int32_t*>(ptrs[20]);
+  a.cnt = static_cast<float*>(const_cast<void*>(ptrs[21]));
+  a.antin = static_cast<float*>(const_cast<void*>(ptrs[22]));
+  a.pref = static_cast<float*>(const_cast<void*>(ptrs[23]));
+  a.total_t = static_cast<float*>(const_cast<void*>(ptrs[24]));
+  a.ports_used = static_cast<uint8_t*>(const_cast<void*>(ptrs[25]));
+  a.cls = static_cast<const int32_t*>(ptrs[26]);
+  read_gate(a, ptrs);
+  if ((a.taint && !a.traw) || (a.nap && !a.naraw) || (a.img && !a.img_s) || (a.pw && !a.eligs) ||
+      !(a.used0 && a.cnt0 && a.anti0 && a.pref0 && a.total0 && a.ports0))
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 __device__ __forceinline__ bool pw_bit(const uint32_t* plane, int64_t row, int W, int n) {
@@ -256,18 +428,19 @@ __device__ void load_pod(const FullArgs& a, int p, PodSlots& ps) {
       if (a.pod_ports[(int64_t)p * a.PT + q]) ps.port[ps.n_port++] = q;
 }
 
-// the round-start pairwise scalars of the loaded pod: the required-affinity
-// waiver (no match anywhere and the pod matches its own terms) and each
-// spread slot's minMatch over the keyed eligible nodes (inf -> 0).  Every
-// thread calls it.
-__device__ void pod_scalars(const FullArgs& a, int p, PodSlots& ps, float* red) {
+// the round-start pairwise scalars of the loaded pod, partial: the
+// required-affinity waiver (no match anywhere and the pod matches its own
+// terms) and, per spread slot, the block's max of -count over the keyed
+// eligible nodes into ps.sp_mm (-inf: none; min as -max(-x), the inf
+// sentinel kept).  Every thread calls it; it ends with a barrier.
+__device__ void pod_scalars_partial(const FullArgs& a, int p, PodSlots& ps, float* red) {
   if (!a.pw) return;
   if (threadIdx.x == 0) {
     float total_any = 0.0f;
     for (int k = 0; k < ps.n_af; ++k) total_any += __ldcg(a.total_t + ps.af_t[k]);
     ps.waiver = ps.n_af > 0 && total_any == 0.0f && ps.self_all;
   }
-  for (int c = 0; c < ps.n_sp; ++c) {  // min as -max(-x), the inf sentinel kept
+  for (int c = 0; c < ps.n_sp; ++c) {
     const int t = ps.sp_t[c];
     float v[1] = {-INFINITY};
     for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
@@ -275,11 +448,25 @@ __device__ void pod_scalars(const FullArgs& a, int p, PodSlots& ps, float* red) 
         v[0] = fmaxf(v[0], -__ldcg(a.cnt + (int64_t)t * a.N + n));
     }
     block_max<1>(v, red);
-    if (threadIdx.x == 0) {
-      const float mm = -v[0];
-      ps.sp_mm[c] = isinf(mm) ? 0.0f : mm;
-    }
+    if (threadIdx.x == 0) ps.sp_mm[c] = v[0];
   }
+  __syncthreads();
+}
+
+// thread 0: each slot's minMatch from the (combined) max of -count, inf -> 0
+__device__ __forceinline__ void pod_scalars_finish(PodSlots& ps) {
+  for (int c = 0; c < ps.n_sp; ++c) {
+    const float mm = -ps.sp_mm[c];
+    ps.sp_mm[c] = isinf(mm) ? 0.0f : mm;
+  }
+}
+
+// the round-start pairwise scalars of the loaded pod on one device.  Every
+// thread calls it.
+__device__ void pod_scalars(const FullArgs& a, int p, PodSlots& ps, float* red) {
+  if (!a.pw) return;
+  pod_scalars_partial(a, p, ps, red);
+  if (threadIdx.x == 0) pod_scalars_finish(ps);
   __syncthreads();
 }
 
@@ -365,12 +552,17 @@ __device__ __forceinline__ float node_total(const FullArgs& a, const RowScalars&
   return total;
 }
 
-// one pod's row (pod_scalars already run): feasibility and raws per node
-// into the row scratch, the normalisation scalars, the masked total row and
-// its argmax (s.best, s.best_n).  Every thread calls it.
-__device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* feas_r, float* base_r,
-                         float* sraw_r, float* ipraw_r, float* total_r, RowScalars& s, float* red, int* redi) {
-  float m[5] = {0.0f, 0.0f, 0.0f, -INFINITY, -INFINITY};
+// one pod's row, first pass (pod_scalars already run): feasibility and
+// raws per node into the row scratch, and in m[5] the block's maxima of the
+// taint, node-affinity and spread raws and of +-the inter-pod raw over the
+// feasible nodes (every thread gets them).  Every thread calls it.
+__device__ void row_feas(const FullArgs& a, int p, const PodSlots& ps, uint8_t* feas_r, float* base_r,
+                         float* sraw_r, float* ipraw_r, float (&m)[5], float* red) {
+  m[0] = 0.0f;
+  m[1] = 0.0f;
+  m[2] = 0.0f;
+  m[3] = -INFINITY;
+  m[4] = -INFINITY;
   for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
     float base = 0.0f, sraw = 0.0f, ipraw = 0.0f;
     const bool f = node_feasible(a, p, ps, n, base, sraw, ipraw);
@@ -387,12 +579,27 @@ __device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* 
     m[4] = fmaxf(m[4], -ipraw);
   }
   block_max<5>(m, red);
+}
+
+// the normalisation scalars from the (combined) maxima of row_feas
+__device__ __forceinline__ RowScalars row_scalars(const float (&m)[5]) {
   RowScalars sc;
   sc.t_mx = m[0];
   sc.na_mx = m[1];
   sc.s_mx = m[2];
   sc.ip_mx = m[3];
   sc.ip_mn = -m[4];
+  sc.best = -INFINITY;
+  sc.best_n = PW_IMAX;
+  return sc;
+}
+
+// one pod's row, second pass: the masked total row and its argmax (value
+// desc, lowest id) into s, with s.best_n the global id id_base + n.  Every
+// thread calls it; it ends with a barrier.
+__device__ void row_total(const FullArgs& a, const PodSlots& ps, RowScalars sc, const uint8_t* feas_r,
+                          const float* base_r, const float* sraw_r, const float* ipraw_r, float* total_r, int id_base,
+                          RowScalars& s, float* red, int* redi) {
   float best = -INFINITY;
   int best_n = PW_IMAX;
   for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
@@ -407,17 +614,27 @@ __device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* 
   block_argmax(best, best_n, red, redi);
   if (threadIdx.x == 0) {
     sc.best = best;
-    sc.best_n = best_n;
+    sc.best_n = best_n == PW_IMAX ? PW_IMAX : id_base + best_n;
     s = sc;
   }
   __syncthreads();
 }
 
+// one pod's row on one device (pod_scalars already run): row_feas, the
+// scalars, row_total.  Every thread calls it.
+__device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* feas_r, float* base_r,
+                         float* sraw_r, float* ipraw_r, float* total_r, RowScalars& s, float* red, int* redi) {
+  float m[5];
+  row_feas(a, p, ps, feas_r, base_r, sraw_r, ipraw_r, m, red);
+  row_total(a, ps, row_scalars(m), feas_r, base_r, sraw_r, ipraw_r, total_r, 0, s, red, redi);
+}
+
 // commit entries of pod p placed on node `choice` (thread 0 only):
-// matched terms into cnt (and total_t, where the key is present), its own
-// anti terms into anti, with the interpod score its preferred terms and, at
-// hardPodAffinityWeight, its required-affinity terms into pref
-__device__ int commit_entries(const FullArgs& a, int p, int choice, CommitEnt* out) {
+// matched terms into cnt (and into total_t where the key is present, unless
+// total_t is NULL), its own anti terms into anti, with the interpod score
+// its preferred terms and, at hardPodAffinityWeight, its required-affinity
+// terms into pref
+__device__ int commit_entries(const FullArgs& a, int p, int choice, CommitEnt* out, float* total_t) {
   int n = 0;
   if (!a.pw) return 0;
   for (int c = 0; c < a.M; ++c) {
@@ -426,7 +643,7 @@ __device__ int commit_entries(const FullArgs& a, int p, int choice, CommitEnt* o
     const int d = a.dbt[(int64_t)t * a.N + choice];
     const float w = a.mv[(int64_t)p * a.M + c];
     out[n++] = CommitEnt{0, t, d, w};
-    if (d < a.D) a.total_t[t] = __ldcg(a.total_t + t) + w;
+    if (total_t != nullptr && d < a.D) total_t[t] = __ldcg(total_t + t) + w;
   }
   for (int c = 0; c < a.A2; ++c) {
     const int t = a.anti[(int64_t)p * a.A2 + c];
@@ -444,6 +661,12 @@ __device__ int commit_entries(const FullArgs& a, int p, int choice, CommitEnt* o
       }
   }
   return n;
+}
+
+// a commit entry written by another block, read through L2 as one int4
+__device__ __forceinline__ CommitEnt load_ent(const CommitEnt* e) {
+  const int4 v = __ldcg(reinterpret_cast<const int4*>(e));
+  return CommitEnt{v.x, v.y, v.z, __int_as_float(v.w)};
 }
 
 // apply one commit entry at node n: its row gains the weight where the node

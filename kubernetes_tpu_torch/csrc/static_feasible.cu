@@ -22,11 +22,16 @@
 //                           pod ahead of their use, then per pod
 //                           node_valid & pod_valid & no untolerated hard
 //                           taint & (no selector | OR over the pod's term ids
-//                           of tm) & (no pin | pin == n) is a 16-bit mask,
+//                           of tm) & (no pin | pin == base + n) is a 16-bit mask,
 //                           widened to 16 bytes and written as one 16-byte
 //                           store (a warp writes 512 contiguous bytes of the
 //                           row).  When N % 16 != 0 rows are not 16-byte
 //                           aligned and the bytes go out one by one.
+//
+// `base` is the first GLOBAL node id of the launch's nodes: 0 on one
+// device, s * nl for node shard s of a mesh (parallel/sharded.py), since a
+// nodeName pin is a global node id (the JAX package's my_nodes,
+// ops/assign.py:189).
 //
 // `done` (a device word, or NULL) gates every launch: once it is set each
 // kernel returns at entry, so the gang fixpoint's queued per-pod iterations
@@ -70,7 +75,7 @@ __global__ void __launch_bounds__(THREADS) static_feasible_kernel(
     const int32_t* __restrict__ pod_terms,    // [P, TT]
     const uint8_t* __restrict__ pod_has_sel,  // [P]
     const uint8_t* __restrict__ tm,           // [S, N]
-    int P, int N, int TW, int TT,
+    int P, int N, int TW, int TT, int base,
     uint8_t* __restrict__ sf,  // [P, N]
     const int32_t* __restrict__ done) {  // or NULL
   if (done != nullptr && *done) return;
@@ -101,7 +106,7 @@ __global__ void __launch_bounds__(THREADS) static_feasible_kernel(
   }
   for (; p < P; p += gridDim.y) {
     const uint32_t pod_ok = nx_valid, has_sel = nx_sel, tol0 = nx_tol0;
-    const int pin = nx_pin;  // -1 none, -2 a missing node: never
+    const int pin = nx_pin;  // -1 none, -2 a missing node: never; else a global id
     const int pn = p + gridDim.y;
     if (pn < P) {
       nx_valid = pod_valid[pn];
@@ -123,7 +128,7 @@ __global__ void __launch_bounds__(THREADS) static_feasible_kernel(
           if (taint[w] & ~tol[w]) ok &= ~(1u << k);
         }
       }
-      if (pin != -1) ok &= (pin >= n0 && pin < n0 + cnt) ? (1u << (pin - n0)) : 0u;
+      if (pin != -1) ok &= (pin >= base + n0 && pin < base + n0 + cnt) ? (1u << (pin - base - n0)) : 0u;
       if (ok && has_sel) {
         uint32_t any = 0;
         const int32_t* terms = pod_terms + (int64_t)p * TT;
@@ -155,14 +160,15 @@ __global__ void __launch_bounds__(THREADS) static_feasible_kernel(
 
 }  // namespace
 
-// done (or NULL): the gate above; every pointer else is device memory
+// base: the first global node id of the nodes (the pin's); done (or
+// NULL): the gate above; every pointer else is device memory
 extern "C" int ktt_static_feasible(const void* node_valid, const void* node_taint_ns,
                                    const void* node_labels, const void* pod_valid,
                                    const void* pod_tol_ns, const void* pod_nodename,
                                    const void* pod_terms, const void* pod_has_sel,
                                    const void* sel_mask, const void* sel_kind, void* tm,
                                    void* taint_w, void* tol_w, void* sf, const void* done, int P, int N,
-                                   int T, int TT, int S, int E, int L, void* stream) {
+                                   int T, int TT, int S, int E, int L, int base, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (P <= 0 || N <= 0) return (int)cudaGetLastError();
   const int TW = T > 32 ? (T + 31) / 32 : 1;  // T == 0 packs to one zero word
@@ -183,7 +189,7 @@ extern "C" int ktt_static_feasible(const void* node_valid, const void* node_tain
       static_cast<const uint8_t*>(node_valid), static_cast<const uint32_t*>(taint_w),
       static_cast<const uint8_t*>(pod_valid), static_cast<const uint32_t*>(tol_w),
       static_cast<const int32_t*>(pod_nodename), static_cast<const int32_t*>(pod_terms),
-      static_cast<const uint8_t*>(pod_has_sel), static_cast<const uint8_t*>(tm), P, N, TW, TT,
+      static_cast<const uint8_t*>(pod_has_sel), static_cast<const uint8_t*>(tm), P, N, TW, TT, base,
       static_cast<uint8_t*>(sf), dn);
   return (int)cudaGetLastError();
 }

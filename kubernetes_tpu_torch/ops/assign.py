@@ -78,10 +78,9 @@ from typing import Any, NamedTuple, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from . import bitplane, filters, pairwise
+from . import bitplane, filters
 from .incremental import _scores, fit_rows, score_flat
-from .scores import (MAX_NODE_SCORE, ScoreConfig, balanced_allocation, check_config, fit_score,
-                     normalize_reverse, taint_prefer_counts_plain)
+from .scores import ScoreConfig, check_config, taint_prefer_counts_plain
 
 _INT_MAX = 2**31 - 1
 
@@ -102,7 +101,8 @@ REPAIR_ITERS = 1  # speculate -> repair iterations per round (its KTPU_REPAIR_IT
 # Route counters, bumped per call (the JAX package bumps its TRACE_COUNTS
 # per trace; eager PyTorch has no trace, so a call is the unit here).
 TRACE_COUNTS = {"plain": 0, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0, "rounds_inc": 0,
-                "sharded_chunked": 0, "sharded_chunked_inc": 0}
+                "sharded_chunked": 0, "sharded_chunked_inc": 0, "sharded_rounds": 0, "sharded_rounds_inc": 0,
+                "sharded_plain": 0}
 
 
 def reset_trace_counts() -> None:
@@ -119,7 +119,12 @@ def fit_only(cfg: ScoreConfig, arr) -> bool:
 
 def _image_on(arr, cfg: ScoreConfig) -> bool:
     """Whether the ImageLocality stage has a real [P, N] matrix (the JAX
-    package's assign.py:168)."""
+    package's assign.py:168).  Arrays on a node mesh (ShardedArrays) carry
+    the verdict taken at global shape, ``image_sharded``: a shard's width
+    can equal the [P, 1] broadcast form's."""
+    sharded = getattr(arr, "image_sharded", None)
+    if sharded is not None:
+        return cfg.enable_image and sharded
     return cfg.enable_image and arr.image_score.shape[1] == arr.N
 
 
@@ -178,6 +183,15 @@ def pairwise_state0(arr, dbt: torch.Tensor, D: int):
             torch.gather(arr.pref_own0, 1, idx), arr.term_counts0[:, :D].sum(dim=1))
 
 
+def one_shard(arr):
+    """Arrays on one device as a node mesh of one shard, without a copy: the
+    plain scans below run parallel/sharded.py's bodies over it, whose
+    cross-shard reductions are then the single-device ones."""
+    from ..parallel.mesh import NodeMesh, ShardedArrays
+
+    return ShardedArrays(NodeMesh((arr.device,)), (arr,), arr.image_score.shape[1] == arr.N)
+
+
 def schedule_scan_plain(arr, cfg: ScoreConfig, sf: torch.Tensor = None, planes=None, with_state: bool = False):
     """-> (choices i32[P] node index or -1, node_used i32[N, R]), the plain
     per-pod scan over every stage cfg enables: the JAX package's
@@ -191,101 +205,12 @@ def schedule_scan_plain(arr, cfg: ScoreConfig, sf: torch.Tensor = None, planes=N
     own op order; the argmax takes the lowest node index; the commit adds
     the request, the pairwise counts and the host ports.  With `with_state`
     also the final pairwise state {cnt, anti, pref, total, ports} (what
-    kernel K11 is held to)."""
-    if sf is None:
-        sf = filters.static_feasible_plain(arr)
-    dev = arr.device
-    alloc = arr.node_alloc
-    used = arr.node_used.clone()
-    nodes = torch.arange(arr.N, dtype=torch.int32, device=dev)
-    int_max = torch.tensor(_INT_MAX, dtype=torch.int32, device=dev)
-    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    choices = torch.full((arr.P,), -1, dtype=torch.int32, device=dev)
-    valid = arr.pod_valid.cpu().tolist()
-    pw = cfg.enable_pairwise
-    ips = pw and cfg.enable_interpod_score
-    img_on = _image_on(arr, cfg)
-    if planes is None:
-        planes = score_planes(arr, cfg)
-    traw, naraw = planes
-    if pw:
-        tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
-        elig = filters.node_selection_ok_from(tm, arr) & arr.node_valid[None, :]
-        dbt, D = dom_by_term(arr)
-        has_key_all = dbt < D
-        cnt_node, anti_node, pref_node, total_t = pairwise_state0(arr, dbt, D)
-    if cfg.enable_ports:
-        ports_used = arr.node_ports0.clone()
-    for p in range(arr.P):
-        if not valid[p]:
-            continue  # a padding or gated pod: its sf row is all False
-        req = arr.pod_req[p]
-        feasible = sf[p] & filters.fit_ok(req, used, alloc)
-        if cfg.enable_ports:
-            feasible = feasible & pairwise.ports_ok(ports_used, arr.pod_ports[p])
-        if pw:
-            spread_ok, spread_raw = pairwise.spread_step(
-                cnt_node, has_key_all, arr.pod_spread_terms[p], arr.pod_spread_maxskew[p],
-                arr.pod_spread_hard[p], elig[p])
-            feasible = feasible & spread_ok & pairwise.interpod_required_ok(
-                cnt_node, anti_node, total_t, has_key_all, arr.pod_aff_terms[p], arr.pod_anti_terms[p],
-                arr.pod_match_terms[p], arr.pod_match_vals[p], arr.pod_aff_self[p])
-        requested = used + req[None, :]
-        total = cfg.fit_weight * fit_score(requested, alloc, cfg) + cfg.balanced_weight * balanced_allocation(
-            requested, alloc, cfg.score_resources
-        )
-        if traw is not None:
-            total = total + cfg.taint_weight * normalize_reverse(traw[p], feasible)
-        if naraw is not None:
-            na_row = naraw[p].to(torch.float32)
-            na_max = torch.where(feasible, na_row, zero).max()
-            total = total + cfg.node_affinity_weight * torch.where(
-                na_max > 0, na_row * MAX_NODE_SCORE / na_max, zero)
-        if pw:
-            total = total + cfg.spread_weight * normalize_reverse(spread_raw, feasible)
-        if ips:
-            ip_raw = pairwise.interpod_pref_raw(
-                cnt_node, pref_node, has_key_all, arr.pod_pref_aff_terms[p], arr.pod_pref_aff_w[p],
-                arr.pod_match_terms[p], arr.pod_match_vals[p])
-            mx = torch.where(feasible, ip_raw, neg_inf).max()
-            mn = -torch.where(feasible, -ip_raw, neg_inf).max()
-            total = total + cfg.interpod_weight * torch.where(
-                mx > mn, MAX_NODE_SCORE * (ip_raw - mn) / (mx - mn), zero)
-        if img_on:
-            total = total + cfg.image_weight * arr.image_score[p].to(torch.float32)
-        total = torch.where(feasible, total, neg_inf)
-        best = total.max()
-        if not bool(best > neg_inf):
-            continue
-        choice = int(torch.where((total == best) & feasible, nodes, int_max).min())
-        choices[p] = choice
-        used[choice] += req
-        if pw:
-            dom_col = dbt[:, choice]
-            cnt_node, anti_node, total_t = pairwise.commit_counts(
-                cnt_node, anti_node, total_t, dbt, D, choice, dom_col, arr.pod_match_terms[p],
-                arr.pod_match_vals[p], arr.pod_anti_terms[p])
-            if ips:
-                # the committed pod's preferred terms, and its required
-                # affinity terms at hardPodAffinityWeight (assign.py:349-368)
-                at = torch.tensor([choice], dtype=torch.int32, device=dev)
-                pt = arr.pod_pref_aff_terms[p]
-                pref_node = _scatter_rows(pref_node, dbt, pt[None], at,
-                                          torch.where(pt >= 0, arr.pod_pref_aff_w[p], zero)[None])[0]
-                if cfg.hard_pod_affinity_weight:
-                    aff = arr.pod_aff_terms[p]
-                    hw = torch.tensor(float(cfg.hard_pod_affinity_weight), dtype=torch.float32, device=dev)
-                    pref_node = _scatter_rows(pref_node, dbt, aff[None], at, torch.where(aff >= 0, hw, zero)[None])[0]
-        if cfg.enable_ports:
-            ports_used[choice] |= arr.pod_ports[p]
-    if not with_state:
-        return choices, used
-    if not pw:
-        dbt, D = dom_by_term(arr)
-        cnt_node, anti_node, pref_node, total_t = pairwise_state0(arr, dbt, D)
-    return choices, used, dict(cnt=cnt_node, anti=anti_node, pref=pref_node, total=total_t,
-                               ports=ports_used if cfg.enable_ports else arr.node_ports0.clone())
+    kernel K11 is held to).  The body is the node mesh's
+    (parallel/sharded.py -- sharded_schedule_scan_plain) on one shard."""
+    from ..parallel.sharded import sharded_schedule_scan_plain
+
+    return sharded_schedule_scan_plain(one_shard(arr), cfg, None if sf is None else [sf],
+                                       None if planes is None else [planes], with_state)
 
 
 def _per_pod(arr, cfg: ScoreConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -329,6 +254,82 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     keys -> (values, int32 indices)."""
     idx = torch.sort(_ord_key(x), dim=-1, descending=True).indices[..., :k]
     return torch.gather(x, -1, idx), idx.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# the node-axis reductions of the sharded scans (the JAX package's
+# assign.py:56-110) over per-shard lists: xs[s] is shard s's [*, nl] block,
+# base s * nl its first global node id; each result is replicated, one copy
+# per shard's device (parallel/collectives.py).  With one shard each is the
+# single-device operation.
+# ---------------------------------------------------------------------------
+
+def _rmax(xs):
+    """Reduce-max over the node axis (last), then across the shards."""
+    from ..parallel.collectives import pmax
+
+    return pmax([x.max(dim=-1).values for x in xs])
+
+
+def _rmin(xs):
+    from ..parallel.collectives import pmin
+
+    return pmin([x.min(dim=-1).values for x in xs])
+
+
+def _gather_cols(xs, cols: torch.Tensor, nl: int):
+    """x[:, cols] for node-sharded blocks xs[s] [C, nl] and GLOBAL column ids
+    cols [D] -> [C, D], replicated: the owner shard contributes its columns,
+    the others zeros, and the psum adds them (a bool plane goes through
+    int32 and > 0, as the JAX package's does)."""
+    from ..parallel.collectives import psum
+
+    isbool = xs[0].dtype == torch.bool
+    parts = []
+    for s, x in enumerate(xs):
+        c = cols.to(x.device)
+        mine = (c >= s * nl) & (c < (s + 1) * nl)
+        lc = torch.where(mine, c - s * nl, 0).to(torch.int64)
+        xv = x.to(torch.int32) if isbool else x
+        v = torch.gather(xv, 1, lc[None, :].expand(x.shape[0], -1))
+        parts.append(torch.where(mine[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device)))
+    out = psum(parts)
+    return [o > 0 for o in out] if isbool else out
+
+
+def _gather_at_nodes(xs, rows: torch.Tensor, nodes: torch.Tensor, nl: int):
+    """x[rows, nodes] for node-sharded blocks xs[s] [T, nl] and GLOBAL node
+    ids: the owner shard's value, the psum broadcast."""
+    from ..parallel.collectives import psum
+
+    parts = []
+    for s, x in enumerate(xs):
+        r, n = rows.to(x.device).to(torch.int64), nodes.to(x.device)
+        mine = (n >= s * nl) & (n < (s + 1) * nl)
+        v = x[r, torch.where(mine, n - s * nl, 0).to(torch.int64)]
+        parts.append(torch.where(mine, v, torch.zeros((), dtype=v.dtype, device=v.device)))
+    return psum(parts)
+
+
+def _global_top_k(xs, k: int):
+    """top_k over the GLOBAL node axis of node-sharded blocks xs[s] [C, nl]
+    -> (values [C, k], GLOBAL ids [C, k]), replicated: each shard's local
+    top-kl (kl = min(k, nl)), its ids made global, gathered in shard order,
+    then a top-k of the S * kl candidates with lowest-position ties -- the
+    shard order is the global index order, so the result is top_k of the
+    whole row (the JAX package's assign.py:91)."""
+    from ..parallel.collectives import all_gather_nodes
+
+    nl = xs[0].shape[-1]
+    kl = min(k, nl)
+    loc = [top_k(x, kl) for x in xs]
+    out = []
+    for s, x in enumerate(xs):
+        av = all_gather_nodes([v for v, _ in loc], 1, x.device)
+        ai = all_gather_nodes([i + j * nl for j, (_, i) in enumerate(loc)], 1, x.device)
+        mv, mp = top_k(av, k)
+        out.append((mv, torch.gather(ai, 1, mp.to(torch.int64))))
+    return [v for v, _ in out], [i for _, i in out]
 
 
 def _first(mask: torch.Tensor) -> torch.Tensor:
@@ -873,258 +874,35 @@ def chunk_share(cx, cfg: ScoreConfig, T: int) -> torch.Tensor:
     return share
 
 
-def _round_start(cfg, cx, st, base0, fit0, has_key_all, nodes):
-    """The exact re-hoist of a round against round-start state: feasibility,
-    the per-pod normalisation scalars and raws, the masked total [C, N] and
-    each pod's argmax (the JAX package's assign.py:1832-1919)."""
-    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=base0.device)
-    zero = torch.zeros((), dtype=torch.float32, device=base0.device)
-    C = base0.shape[0]
-    pw = cfg.enable_pairwise
-    ips = pw and cfg.enable_interpod_score
-    r = {}
-    feasible = cx["sf"] & fit0
-    if cfg.enable_ports:
-        feasible = feasible & ~(st["ports"][None, :, :] & cx["ports"][:, None, :]).any(dim=2)
-    if pw:
-        oks, raws, ipoks = [], [], []
-        for i in range(C):
-            ok_i, raw_i = pairwise.spread_step(st["cnt"], has_key_all, cx["spread_t"][i], cx["skew"][i],
-                                               cx["hard"][i], cx["elig"][i])
-            oks.append(ok_i)
-            raws.append(raw_i)
-            ipoks.append(pairwise.interpod_required_ok(
-                st["cnt"], st["anti"], st["total"], has_key_all, cx["aff"][i], cx["anti"][i], cx["mt"][i],
-                cx["mv"][i], cx["aself"][i]))
-        r["spread_raw"] = torch.stack(raws)
-        feasible = feasible & torch.stack(oks) & torch.stack(ipoks)
-    total = base0
-    if cfg.enable_taint_score:
-        r["t_mx"] = torch.where(feasible, cx["traw"], zero).max(dim=1).values
-        total = total + cfg.taint_weight * torch.where(
-            (r["t_mx"] > 0)[:, None], MAX_NODE_SCORE - MAX_NODE_SCORE * cx["traw"] / r["t_mx"][:, None],
-            torch.full_like(total, MAX_NODE_SCORE))
-    if cfg.enable_node_pref:
-        r["na_mx"] = torch.where(feasible, cx["naraw"], zero).max(dim=1).values
-        total = total + cfg.node_affinity_weight * torch.where(
-            (r["na_mx"] > 0)[:, None], cx["naraw"] * MAX_NODE_SCORE / r["na_mx"][:, None], zero)
-    if pw:
-        r["s_mx"] = torch.where(feasible, r["spread_raw"], zero).max(dim=1).values
-        total = total + cfg.spread_weight * torch.where(
-            (r["s_mx"] > 0)[:, None], MAX_NODE_SCORE - MAX_NODE_SCORE * r["spread_raw"] / r["s_mx"][:, None],
-            torch.full_like(total, MAX_NODE_SCORE))
-    if ips:
-        r["ip_raw"] = torch.stack([pairwise.interpod_pref_raw(
-            st["cnt"], st["pref"], has_key_all, cx["pref_t"][i], cx["pref_w"][i], cx["mt"][i], cx["mv"][i])
-            for i in range(C)])
-        r["ip_mx"] = torch.where(feasible, r["ip_raw"], neg_inf).max(dim=1).values
-        r["ip_mn"] = -torch.where(feasible, -r["ip_raw"], neg_inf).max(dim=1).values
-        total = total + cfg.interpod_weight * torch.where(
-            (r["ip_mx"] > r["ip_mn"])[:, None],
-            MAX_NODE_SCORE * (r["ip_raw"] - r["ip_mn"][:, None]) / (r["ip_mx"][:, None] - r["ip_mn"][:, None]),
-            zero)
-    if "img" in cx:
-        total = total + cfg.image_weight * cx["img"]
-    total = torch.where(feasible, total, neg_inf)
-    best = total.max(dim=1).values
-    imax = torch.tensor(_INT_MAX, dtype=torch.int32, device=total.device)
-    cand = torch.where((total == best[:, None]) & feasible, nodes[None, :], imax).min(dim=1).values
-    c0 = torch.where((best > neg_inf) & cx["valid"], cand, -1)
-    return feasible, total, c0, r
-
-
-def _repair(cfg, cx, r, feasible, total, share, c, unc, used, alloc, nodes, jlt):
-    """(t, hard) for the speculation c: t_i = pod i's true sequential argmax
-    given that the pods j < i commit c_j; hard_i = the repair's premises are
-    void for i (the JAX package's assign.py:1938-2056)."""
-    dev = total.device
-    C, N = total.shape
-    R = used.shape[1]
-    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    imax = torch.tensor(_INT_MAX, dtype=torch.int32, device=dev)
-    creq = cx["req"]
-    act = unc & (c >= 0)
-    cn = torch.clamp_min(c, 0)
-    cn64 = cn.to(torch.int64)
-    E = (c[:, None] == c[None, :]) & act[:, None]  # [C(k), C(j)]
-    T3 = E[:, :, None].to(torch.int32) * creq[:, None, :]  # [k, j, R]
-    cum = torch.cumsum(T3, dim=0, dtype=torch.int32) - T3  # int32: any order is the same sum
-    ca = alloc[cn64]  # [C(j), R]
-    uij = used[cn64][None, :, :] + cum  # [C(i), C(j), R]
-    fitij = ((creq[:, None, :] == 0) | (creq[:, None, :] <= ca[None] - uij)).all(dim=2)
-    reqij = uij + creq[:, None, :]
-    baseij = score_flat(reqij.reshape(-1, R), ca[None].expand(C, C, R).reshape(-1, R), cfg).reshape(C, C)
-    feas0_at = feasible[:, cn64]
-    newtot = baseij
-    extreme_at = torch.zeros((C, C), dtype=torch.bool, device=dev)
-    if cfg.enable_taint_score:
-        r_at, mx = cx["traw"][:, cn64], r["t_mx"][:, None]
-        newtot = newtot + cfg.taint_weight * torch.where(
-            mx > 0, MAX_NODE_SCORE - MAX_NODE_SCORE * r_at / mx, torch.full_like(newtot, MAX_NODE_SCORE))
-        extreme_at = extreme_at | ((mx > 0) & (r_at == mx))
-    if cfg.enable_node_pref:
-        r_at, mx = cx["naraw"][:, cn64], r["na_mx"][:, None]
-        newtot = newtot + cfg.node_affinity_weight * torch.where(mx > 0, r_at * MAX_NODE_SCORE / mx, zero)
-        extreme_at = extreme_at | ((mx > 0) & (r_at == mx))
-    if cfg.enable_pairwise:
-        r_at, mx = r["spread_raw"][:, cn64], r["s_mx"][:, None]
-        newtot = newtot + cfg.spread_weight * torch.where(
-            mx > 0, MAX_NODE_SCORE - MAX_NODE_SCORE * r_at / mx, torch.full_like(newtot, MAX_NODE_SCORE))
-        extreme_at = extreme_at | ((mx > 0) & (r_at == mx))
-        if cfg.enable_interpod_score:
-            r_at, mx, mn = r["ip_raw"][:, cn64], r["ip_mx"][:, None], r["ip_mn"][:, None]
-            newtot = newtot + cfg.interpod_weight * torch.where(
-                mx > mn, MAX_NODE_SCORE * (r_at - mn) / (mx - mn), zero)
-            extreme_at = extreme_at | ((mx > mn) & ((r_at == mx) | (r_at == mn)))
-    if "img" in cx:
-        newtot = newtot + cfg.image_weight * cx["img"][:, cn64]
-    newtot = torch.where(feas0_at & fitij, newtot, neg_inf)
-    dropped = feas0_at & ~fitij
-    hard = ((share | (dropped & extreme_at)) & jlt & act[None, :]).any(dim=1)
-    # unpicked nodes keep round-start scores; picked nodes take newtot
-    O = ((c[:, None] == nodes[None, :]) & act[:, None]).to(torch.float32)  # [C(j), N]
-    picked_before = (jlt.to(torch.float32) @ O) > 0.0  # [C(i), N]
-    av = torch.where(picked_before, neg_inf, total).max(dim=1).values
-    a_n = torch.where((total == av[:, None]) & ~picked_before, nodes[None, :], imax).min(dim=1).values
-    Mj = torch.where(act[None, :] & jlt, newtot, neg_inf)
-    vb = Mj.max(dim=1).values
-    b_n = torch.where(Mj == vb[:, None], cn[None, :], imax).min(dim=1).values
-    t_val = torch.maximum(av, vb)
-    t_n = torch.where(vb > av, b_n, torch.where(av > vb, a_n, torch.minimum(a_n, b_n)))
-    t = torch.where((t_val > neg_inf) & cx["valid"], t_n, -1).to(torch.int32)
-    return t, hard
-
-
-def _scatter_rows(state, dbt, ids, cn_final, w):
+def _scatter_rows(state, dbt, ids, cn_final, w, dcol=None):
     """state[T, N] += w * (node's domain == the chosen node's domain) over
-    the (pod, slot) rows -> (state, tids, dcol, wf)."""
+    the (pod, slot) rows -> (state, tids, dcol, wf).  On a node shard the
+    chosen nodes' domains `dcol` come from their owner shards
+    (_gather_at_nodes)."""
     tids = torch.clamp_min(ids, 0).to(torch.int64).reshape(-1)
-    nodes = cn_final.to(torch.int64)[:, None].expand(ids.shape).reshape(-1)
     wf = w.reshape(-1)
-    dcol = dbt[tids, nodes]
+    if dcol is None:
+        nodes = cn_final.to(torch.int64)[:, None].expand(ids.shape).reshape(-1)
+        dcol = dbt[tids, nodes]
     same = dbt[tids] == dcol[:, None]
     return state.index_add(0, tids, wf[:, None] * same), tids, dcol, wf
 
 
-def _rounds_chunk_plain(cfg, cx, st, alloc, dbt, D, nodes, repair_iters, req_u=None):
-    """The round loop of one chunk (the JAX package's assign.py:1830-2212)
-    -> (out i32[C], nrounds, ord_ i32[C], the state after).  Dense mode
-    (req_u None): the chunk hoists its base scores and fit mask [C, N]
-    against chunk-start usage and patches them at committed columns.  Class
-    mode: st carries the class hoists base_u f32[U1, N] / fit_u bool[U1, N]
-    across chunks, each round reads the pods' rows through cx["cls"] and the
-    commit patches the committed columns at class level from the per-class
-    requests req_u (:1820-1826, :2090-2103)."""
-    dev = alloc.device
-    creq = cx["req"]
-    C = creq.shape[0]
-    N, R = alloc.shape
-    T = dbt.shape[0]
-    pw = cfg.enable_pairwise
-    ips = pw and cfg.enable_interpod_score
-    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    idxC = torch.arange(C, dtype=torch.int32, device=dev)
-    jlt = idxC[None, :] < idxC[:, None]  # [i, j]: j < i
-    has_key_all = dbt < D
-    share = chunk_share(cx, cfg, T)
-    if req_u is None:
-        base0 = _scores(creq, st["used"], alloc, cfg)
-        fit0 = fit_rows(creq, st["used"], alloc)
-    committed = torch.zeros(C, dtype=torch.bool, device=dev)
-    out = torch.full((C,), -1, dtype=torch.int32, device=dev)
-    ord_ = torch.zeros(C, dtype=torch.int32, device=dev)
-    nrounds = 0
-    Zr = min(32, N)
-    while not bool(committed.all()):
-        if nrounds >= C:
-            raise RuntimeError("rounds scan: a chunk exceeded its round cap (every round commits a pod)")
-        unc = ~committed
-        if req_u is not None:  # the pods' rows of the patched class hoists
-            base0, fit0 = st["base_u"][cx["cls"]], st["fit_u"][cx["cls"]]
-        feasible, total, c0, r = _round_start(cfg, cx, st, base0, fit0, has_key_all, nodes)
-        # ---- dispersal speculation: pod i takes its rank-th best node,
-        # rank = earlier uncommitted pods sharing its argmax ----
-        same0 = (c0[:, None] == c0[None, :]) & (c0[None, :] >= 0) & unc[None, :]
-        rank = (same0 & jlt).sum(dim=1).to(torch.int32)
-        topv, topi = top_k(total, Zr)
-        sel = torch.clamp_max(rank, Zr - 1).to(torch.int64)[:, None]
-        v_sel = torch.gather(topv, 1, sel)[:, 0]
-        c_sp = torch.gather(topi, 1, sel)[:, 0]
-        c = torch.where(unc & (c0 >= 0) & (rank > 0) & (rank < Zr) & (v_sel > neg_inf), c_sp, c0)
-        # ---- exact repair under the intra-round prefix ----
-        for _ in range(repair_iters - 1):
-            t, hard = _repair(cfg, cx, r, feasible, total, share, c, unc, st["used"], alloc, nodes, jlt)
-            c = torch.where(unc, t, c)
-        t, hard = _repair(cfg, cx, r, feasible, total, share, c, unc, st["used"], alloc, nodes, jlt)
-        # ---- commit the longest confirmed prefix, plus the first
-        # divergence-only pod at its exact t ----
-        bad = unc & (hard | (t != c))
-        firstbad = int(_first(bad)) if bool(bad.any()) else C
-        fb_commit = (idxC == firstbad) & unc & ~hard
-        c_final = torch.where(fb_commit, t, c)
-        prefix = unc & (idxC < firstbad)
-        commit_set = prefix | fb_commit
-        pact = commit_set & (c_final >= 0)
-        cn_final = torch.clamp_min(c_final, 0)
-        out = torch.where(commit_set, c_final, out)
-        ord_ = torch.where(commit_set, torch.tensor(nrounds, dtype=torch.int32, device=dev), ord_)
-        committed = committed | commit_set
-        # ---- absorb the committed picks into the live state ----
-        used = st["used"].clone()
-        used.index_add_(0, c_final[pact].to(torch.int64), creq[pact])
-        st["used"] = used
-        cols = cn_final.to(torch.int64)
-        col_used = used[cols]
-        col_alloc = alloc[cols]
-        if req_u is None:
-            col_fit = fit_rows(creq, col_used, col_alloc)
-            col_base = _scores(creq, col_used, col_alloc, cfg)
-            base0 = base0.clone()
-            fit0 = fit0.clone()
-            base0[:, cols[pact]] = col_base[:, pact]
-            fit0[:, cols[pact]] = col_fit[:, pact]
-        else:  # one [U1, C] block at class level (duplicate columns write equal values)
-            col_fit = fit_rows(req_u, col_used, col_alloc)
-            col_base = _scores(req_u, col_used, col_alloc, cfg)
-            st["base_u"] = st["base_u"].clone()
-            st["fit_u"] = st["fit_u"].clone()
-            st["base_u"][:, cols[pact]] = col_base[:, pact]
-            st["fit_u"][:, cols[pact]] = col_fit[:, pact]
-        if cfg.enable_ports:
-            # two pods of a round may commit to one node: OR both in
-            st["ports"] = st["ports"].to(torch.int32).index_add(
-                0, cols[pact], cx["ports"][pact].to(torch.int32)) > 0
-        if pw:
-            w_mt = torch.where((cx["mt"] >= 0) & pact[:, None], cx["mv"], zero)
-            st["cnt"], tids_mt, dcol_mt, wf_mt = _scatter_rows(st["cnt"], dbt, cx["mt"], cn_final, w_mt)
-            st["total"] = st["total"].index_add(0, tids_mt, wf_mt * (dcol_mt < D))
-            w_an = ((cx["anti"] >= 0) & pact[:, None]).to(torch.float32)
-            st["anti"] = _scatter_rows(st["anti"], dbt, cx["anti"], cn_final, w_an)[0]
-            if ips:
-                w_pf = torch.where((cx["pref_t"] >= 0) & pact[:, None], cx["pref_w"], zero)
-                st["pref"] = _scatter_rows(st["pref"], dbt, cx["pref_t"], cn_final, w_pf)[0]
-                if cfg.hard_pod_affinity_weight:
-                    hw = torch.tensor(float(cfg.hard_pod_affinity_weight), dtype=torch.float32, device=dev)
-                    w_ha = torch.where((cx["aff"] >= 0) & pact[:, None], hw, zero)
-                    st["pref"] = _scatter_rows(st["pref"], dbt, cx["aff"], cn_final, w_ha)[0]
-        nrounds += 1
-    return out, nrounds, ord_, st
-
-
-def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, inc=None):
+def rounds_inputs(arr, cfg: ScoreConfig, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, inc=None,
+                  img_on: Optional[bool] = None):
     """The per-pod inputs of the rounds scan: a function of a pod slice ->
     the dict of its rows (masks unpacked, bf16 raws upcast to f32).  With
     class state `inc` the static, eligibility, taint, node-affinity and
     image rows are class-row gathers through inc.cls, and pod_valid folds
     back into the static rows (the class planes leave it out: the JAX
-    package's assign.py:1722-1753); sfs, eligs and planes are then unused."""
+    package's assign.py:1722-1753); sfs, eligs and planes are then unused.
+    On a node shard's arrays `img_on` is the verdict of _image_on at
+    global shape."""
     N = arr.N
     if inc is not None:
         sfs, eligs, planes, img = inc.stat_u, inc.elig_u, (inc.traw_u, inc.naraw_u), inc.img_u
     else:
-        img = arr.image_score if _image_on(arr, cfg) else None
+        img = arr.image_score if (_image_on(arr, cfg) if img_on is None else img_on) else None
     traw, naraw = planes
 
     def rows(sl):
@@ -1173,40 +951,16 @@ def schedule_scan_rounds_plain(arr, cfg: ScoreConfig, sfs=None, eligs=None, plan
     ordinal is the rounds of the earlier chunks plus the pod's own round
     (:2225-2235), sweeps their total; with `with_state` also the final
     pairwise state {cnt, anti, pref, total, ports} (what kernel K12 is held
-    to)."""
-    rchunk = RCHUNK if rchunk is None else rchunk
-    repair_iters = REPAIR_ITERS if repair_iters is None else repair_iters
-    dev = arr.device
-    P = arr.P
-    if P % rchunk:
-        raise ValueError(f"the rounds scan takes chunks of {rchunk} pods dividing P; got P={P}")
-    if inc is None and sfs is None:
-        sfs, eligs = packed_static_rows_plain(arr, with_elig=True)
-    if inc is None and planes is None:
-        planes = score_planes(arr, cfg)
-    rows = rounds_inputs(arr, cfg, sfs, eligs, planes, inc)
-    dbt, D = dom_by_term(arr)
-    cnt, anti, pref, total = pairwise_state0(arr, dbt, D)
-    st = {"used": arr.node_used.clone(), "cnt": cnt, "anti": anti, "pref": pref, "total": total,
-          "ports": arr.node_ports0.clone()}
-    req_u = None
-    if inc is not None:
-        req_u = inc.req_u
-        st.update(base_u=inc.base_u, fit_u=bitplane.unpack(inc.fit_u, arr.N))
-    nodes = torch.arange(arr.N, dtype=torch.int32, device=dev)
-    outs, ords, rounds = [], [], []
-    for ch in range(P // rchunk):
-        o, nr, od, st = _rounds_chunk_plain(cfg, rows(slice(ch * rchunk, (ch + 1) * rchunk)), st,
-                                            arr.node_alloc, dbt, D, nodes, repair_iters, req_u)
-        outs.append(o)
-        ords.append(od)
-        rounds.append(nr)
-    base = torch.tensor([0] + rounds[:-1], dtype=torch.int64).cumsum(0).to(torch.int32).to(dev)
-    ords_g = (base[:, None] + torch.stack(ords)).reshape(-1)
-    st.pop("base_u", None)
-    st.pop("fit_u", None)
-    out = (torch.cat(outs), st.pop("used"), ords_g, sum(rounds))
-    return out + (st,) if with_state else out
+    to).  The body is the node mesh's (parallel/sharded.py --
+    sharded_schedule_scan_rounds_plain) on one shard."""
+    from ..parallel.sharded import sharded_schedule_scan_rounds_plain
+
+    def one(x):
+        return None if x is None else [x]
+
+    return sharded_schedule_scan_rounds_plain(one_shard(arr), cfg, one(sfs), one(eligs), one(planes), rchunk,
+                                              repair_iters, None if inc is None else inc._replace(shards=(inc,)),
+                                              with_state)
 
 
 def schedule_scan_rounds(arr, cfg: ScoreConfig, inc=None, rchunk: int = None, repair_iters: int = None):

@@ -65,14 +65,16 @@ def nodename_ok(arr, base: int = 0) -> torch.Tensor:
     return (pin == -1) | (pin == n_idx)
 
 
-def static_feasible_plain(arr) -> torch.Tensor:
-    """bool[P, N]: all capacity-independent filters, one batched evaluation."""
+def static_feasible_plain(arr, base: int = 0) -> torch.Tensor:
+    """bool[P, N]: all capacity-independent filters, one batched evaluation.
+    On a node shard's arrays `base` is its first global node id (the
+    nodeName pin's)."""
     return (
         arr.node_valid[None, :]
         & arr.pod_valid[:, None]
         & taints_ok(arr)
         & node_selection_ok(arr)
-        & nodename_ok(arr)
+        & nodename_ok(arr, base)
     )
 
 
@@ -95,14 +97,15 @@ def static_feasible_rows(tm: torch.Tensor, node_valid: torch.Tensor, node_taint_
     return sf, nodesel
 
 
-def static_feasible(arr) -> torch.Tensor:
+def static_feasible(arr, base: int = 0) -> torch.Tensor:
     """bool[P, N] on arr's device: the plain version for CPU tensors, the
-    static-feasibility kernel for CUDA tensors."""
+    static-feasibility kernel K1 for CUDA tensors; `base` as in
+    static_feasible_plain."""
     if arr.device.type == "cpu":
-        return static_feasible_plain(arr)
+        return static_feasible_plain(arr, base)
     from . import kernels
 
-    return kernels.static_feasible(arr)
+    return kernels.static_feasible(arr, base=base)
 
 
 def fit_ok(pod_req: torch.Tensor, node_used: torch.Tensor, node_alloc: torch.Tensor) -> torch.Tensor:

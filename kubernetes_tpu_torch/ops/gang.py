@@ -87,21 +87,37 @@ def schedule_with_gangs(arr, cfg: ScoreConfig, with_ordinals: bool = False, inc=
     also (ordinals i32[P], sweeps int): the ordinals of the last iteration
     offset by the sweeps of the earlier ones, sweeps the total.  `inc` is
     the class state (HoistCache.ensure), reused by every iteration;
-    `knobs` go to dispatch (chunked=, the route's knobs).  Gangs on a node
-    mesh (`mesh` of more than one shard) are not ported and raise."""
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError("gangs on a node mesh are not ported to kubernetes_tpu_torch "
-                                  "(ROADMAP.md queue A12)")
+    `knobs` go to dispatch (chunked=, the route's knobs).  On a node mesh
+    (`mesh` of more than one shard, or arrays placed on one) every
+    iteration is the routed step on the mesh (parallel/sharded.py), as in
+    the JAX package (its gang.py:47-90); each iteration's pod_valid is
+    replaced on every shard."""
     dev = resolve_device(device)
-    if arr.device.type != dev.type:
-        arr = arr.to(dev)
-    pod_group = arr.pod_group.cpu().numpy()
-    group_min = arr.group_min.cpu().numpy()
-    pv = arr.pod_valid.cpu().numpy().copy()
-    pod_valid = arr.pod_valid
+    mesh = mesh if mesh is not None else getattr(arr, "mesh", None)
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.mesh import shard_arrays
+
+        if not hasattr(arr, "shards"):
+            arr = shard_arrays(arr if arr.device.type == dev.type else arr.to(dev), mesh)
+        pods = arr.shards[0]
+
+        def with_valid(pv_t):
+            return arr.replace_pods(pod_valid=pv_t)
+    else:
+        mesh = None
+        if arr.device.type != dev.type:
+            arr = arr.to(dev)
+        pods = arr
+
+        def with_valid(pv_t):
+            return dataclasses.replace(arr, pod_valid=pv_t)
+    pod_group = pods.pod_group.cpu().numpy()
+    group_min = pods.group_min.cpu().numpy()
+    pv = pods.pod_valid.cpu().numpy().copy()
+    pod_valid = pods.pod_valid
     sweeps_prior = 0
     while True:
-        step = finish(dispatch(dataclasses.replace(arr, pod_valid=pod_valid), cfg, dev, inc, **knobs))
+        step = finish(dispatch(with_valid(pod_valid), cfg, dev, inc, mesh=mesh, **knobs))
         choices = step.choices.cpu().numpy()
         bad = failed_groups(choices, pod_group, group_min, active=pv)
         if not bad.any():

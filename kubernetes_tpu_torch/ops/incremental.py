@@ -62,6 +62,7 @@ class IncState(NamedTuple):
     traw_u: Any = None   # bf16[U1, N] PreferNoSchedule counts (taint score)
     naraw_u: Any = None  # bf16[U1, N] preferred node-affinity weights
     img_u: Any = None    # bf16[U1, N] image scores (ImageLocality on a real plane)
+    shards: Any = None   # on a node mesh: one IncState per shard with its own planes
 
 
 def class_view(arr, r_u: torch.Tensor):
@@ -235,18 +236,19 @@ class HoistCache:
 
     ON A NODE MESH (``mesh``, parallel/mesh.py; the JAX package's
     HoistCache(mesh=), incremental.py:309-361): N is the padded node count
-    and the planes are per shard -- stat_u and fit_u packed [U1, words(nl)],
-    base_u [U1, nl] -- K3 and K4 launching once per shard over its node
-    block (K3 with the shard's first global node id).  A dirty column is
-    patched by the shard that owns it only, with its local column id
-    (``shard_cols`` lists them for the latest cycle).  The IncState handed
-    out carries the stitched planes, stitched once per cycle where a side
-    changed (the tiled all_gather, then K17 for the packed planes).  The
-    mesh takes `arr` as the encoder places it (ShardedArrays) or arrays on
-    one device, which it pads and cuts itself.  Only the fit-only planes
-    are hoisted there: a config that reads the eligibility, taint,
-    node-affinity or image planes (the rounds route) raises (ROADMAP.md
-    queue A12).
+    and the planes are per shard -- stat_u, fit_u and elig_u packed [U1,
+    words(nl)], base_u [U1, nl], traw_u / naraw_u / img_u [U1, nl] -- K3
+    (with the shard's first global node id, and the eligibility words
+    where wanted), K10 over the class view and K4 launching once per shard
+    over its node block.  A dirty column is patched by the shard that owns
+    it only, with its local column id (``shard_cols`` lists them for the
+    latest cycle).  The IncState handed out carries the per-shard planes as
+    one IncState per shard in ``shards`` (what the sharded rounds route
+    reads); for a batch the class-wave route takes (fit-only, a multiple of
+    128 pods) also the stitched stat_u / base_u / fit_u, stitched once per
+    cycle where a side changed (the tiled all_gather, then K17 for the
+    packed planes).  The mesh takes `arr` as the encoder places it
+    (ShardedArrays) or arrays on one device, which it pads and cuts itself.
 
     ``stats`` counts actions, ``last`` describes the latest, ``history``
     keeps up to 512 of them, ``summary()`` is the bench triple.
@@ -255,10 +257,12 @@ class HoistCache:
     def __init__(self, mesh=None):
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self._static_key = None
-        self._statics = None  # (stat, elig, traw, naraw, img); stat stitched on a mesh
+        self._statics = None  # (stat, elig, traw, naraw, img); on a mesh the stitched stat (or None)
         self._usage_key = None
-        self._usage = None  # (base_u, fit_u); stitched on a mesh
-        self._blocks = None  # a mesh's per-shard planes: {"stat": [...], "usage": [(base, fit), ...]}
+        self._usage = None  # (base_u, fit_u); on a mesh stitched (or None)
+        # a mesh's per-shard planes: {"stitch": bool, "static": [(stat, elig, traw, naraw, img), ...],
+        # "usage": [(base, fit), ...]}
+        self._blocks = None
         self._req_u_host = None
         self._prev_used = None
         self._cls_ent = None  # (host array, device tensor)
@@ -329,11 +333,17 @@ class HoistCache:
         full = all_gather_nodes(blocks, INC_NODE_AXIS[plane], self.mesh.devices[0])
         return full if plane == "base_u" else bitplane.stitch_planes(full, nl)
 
-    def _mesh_static(self, arr, r_u: torch.Tensor, n: int) -> torch.Tensor:
+    def _mesh_static(self, arr, r_u: torch.Tensor, n: int, wants, want_img: bool, stitch: bool):
+        """Each shard's static class planes (stat, elig, traw, naraw, img)
+        -> the stitched stat_u, or None unless `stitch`."""
         shards = self._shards(arr)
-        blocks = [static_hoist(sh, r_u.to(sh.device), base=self.mesh.base(s, n))[0] for s, sh in enumerate(shards)]
-        self._blocks["stat"] = blocks
-        return self._stitch("stat_u", blocks, shards[0].N)
+        blocks = []
+        for s, sh in enumerate(shards):
+            ru = r_u.to(sh.device)
+            img = sh.image_score[ru].contiguous() if want_img else None
+            blocks.append(static_hoist(sh, ru, *wants, base=self.mesh.base(s, n)) + (img,))
+        self._blocks["static"] = blocks
+        return self._stitch("stat_u", [b[0] for b in blocks], shards[0].N) if stitch else None
 
     def _mesh_usage(self, arr, req_u: torch.Tensor, cfg: ScoreConfig, dirty=None):
         """Per-shard usage planes (full, or with the global `dirty` ids
@@ -359,6 +369,8 @@ class HoistCache:
                                        h2d(cols_h, sh.device), cfg))
             self._blocks["usage"] = out
         blocks = self._blocks["usage"]
+        if not self._blocks["stitch"]:
+            return None, None
         return self._stitch("base_u", [b for b, _ in blocks], nl), self._stitch("fit_u", [f for _, f in blocks], nl)
 
     def ensure(self, arr, meta, cfg: ScoreConfig, host=None) -> Optional[IncState]:
@@ -388,13 +400,15 @@ class HoistCache:
         # ---- static side (usage-independent; pod_valid excluded) ----
         # the class planes the config reads (the JAX package's incremental.py:462-465)
         want_elig, want_traw, want_naraw = cfg.enable_pairwise, cfg.enable_taint_score, cfg.enable_node_pref
-        want_img = cfg.enable_image and pods.image_score.shape[1] == pods.N
-        if mesh is not None and (want_elig or want_traw or want_naraw or want_img):
-            raise NotImplementedError(
-                "the rounds route's class planes (eligibility, taint, node-affinity, image) on a node mesh are "
-                "not ported to kubernetes_tpu_torch (ROADMAP.md queue A12)")
+        img_real = getattr(arr, "image_sharded", None)
+        if img_real is None:
+            img_real = pods.image_score.shape[1] == pods.N
+        want_img = cfg.enable_image and img_real
+        # on a mesh the class-wave route reads the planes stitched
+        stitch = mesh is not None and not (want_elig or want_traw or want_naraw or want_img or cfg.enable_ports) \
+            and arr.P >= 128 and arr.P % 128 == 0
         skey_arrays = (pc, r_u_h) + _fields(arr, _STATIC_FIELDS)
-        skey_meta = (u1, N, cfg, want_elig, want_traw, want_naraw, want_img, str(dev))
+        skey_meta = (u1, N, cfg, want_elig, want_traw, want_naraw, want_img, stitch, str(dev))
         action = None
         if not (
             self._static_key is not None
@@ -403,8 +417,9 @@ class HoistCache:
             and all(a is b for a, b in zip(self._static_key[0], skey_arrays))
         ):
             if mesh is not None:
-                self._blocks = {}
-                self._statics = (self._mesh_static(arr, r_u, N), None, None, None, None)
+                self._blocks = {"stitch": stitch}
+                self._statics = (self._mesh_static(arr, r_u, N, (want_elig, want_traw, want_naraw), want_img, stitch),
+                                 None, None, None, None)
             else:
                 planes = static_hoist(arr, r_u, want_elig, want_traw, want_naraw)
                 img = arr.image_score[r_u].contiguous() if want_img else None
@@ -473,8 +488,14 @@ class HoistCache:
         cls = self._on_device("_cls_ent", pc, torch.int32, dev)
         self._note(action, u1, frac, ncols)
         stat, elig, traw, naraw, img = self._statics
+        per_shard = None
+        if mesh is not None:
+            per_shard = tuple(
+                IncState(cls=cls.to(st[0].device), req_u=req_u.to(st[0].device), stat_u=st[0], base_u=us[0],
+                         fit_u=us[1], elig_u=st[1], traw_u=st[2], naraw_u=st[3], img_u=st[4])
+                for st, us in zip(self._blocks["static"], self._blocks["usage"]))
         return IncState(cls=cls, req_u=req_u, stat_u=stat, base_u=self._usage[0], fit_u=self._usage[1],
-                        elig_u=elig, traw_u=traw, naraw_u=naraw, img_u=img)
+                        elig_u=elig, traw_u=traw, naraw_u=naraw, img_u=img, shards=per_shard)
 
 
 __all__ = [

@@ -24,6 +24,16 @@ preemption evaluation, phases A-C over a wave of preemptors); ring_match
 stitch_planes (K17, stitch_planes.cu: per-shard packed blocks -> the flat
 packed layout, the node mesh's stitch, parallel/sharded.py).
 
+The shard modes (the node mesh's per-pod and rounds routes,
+parallel/sharded.py): fit_scan_shard (K2, fit_scan.cu), full_scan_shard
+(K11, full_scan.cu) and rounds_shard (K12, rounds.cu) each take a table of
+every shard's node-side pointers and an exchange buffer, one slot per
+shard per quantity, and launch one cooperative grid (S blocks for K2 and
+K11, C * S for K12) on the card that holds every shard; each counts under
+its own LAUNCHES key.  They refuse the gated mode, more than MAX_SHARDS
+shards, a grid the card cannot hold resident, and shards on more than one
+card (shard_grid_check), naming ROADMAP.md queue A12.
+
 The gated mode.  The kernels of every route the gang fixpoint's device loop
 takes (ops/gang.py) -- K1 static_feasible and K2 fit_scan, K7, K8, K11
 full_scan, K12 rounds, K13 -- take an optional device ``done`` word that
@@ -82,6 +92,7 @@ SOURCES = {
     "full_scan": "full_scan.cu", "rounds": "rounds.cu", "gang_quorum": "gang.cu",
     "explain_counts": "explain.cu", "preempt_eval": "preempt.cu",
     "ring_match": "ring_match.cu", "stitch_planes": "stitch_planes.cu",
+    "fit_scan_shard": "fit_scan.cu", "full_scan_shard": "full_scan.cu", "rounds_shard": "rounds.cu",
 }
 
 _P = ctypes.c_void_p
@@ -90,7 +101,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # kernel -> (C entry, argtypes)
 _ARGTYPES = {
-    "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 7 + [_P]),
+    "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 8 + [_P]),
     "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _P]),
     "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 8 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
@@ -107,6 +118,10 @@ _ARGTYPES = {
     "preempt_eval": ("ktt_preempt_eval", [_P] * 18 + [_I] * 4 + [_P]),
     "ring_match": ("ktt_ring_match", [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] * 2 + [_P]),
     "stitch_planes": ("ktt_stitch_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
+    "fit_scan_shard": ("ktt_fit_scan_shard", [_P, _I, _I, _P, _P, _P, _I, _U, _P, _I, _I, _F, _F, _I, _I, _I]
+                       + [_P] * 5),
+    "full_scan_shard": ("ktt_full_scan_shard", [_P] * 7 + [_I] + [_P] * 4),
+    "rounds_shard": ("ktt_rounds_shard", [_P] * 7 + [_I, _I] + [_P] * 5 + [_I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -220,10 +235,13 @@ def _check_done(done: Optional[torch.Tensor], dev) -> None:
         _check(done, "done", torch.int32, (1,), dev)
 
 
-def static_feasible(arr, done: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def static_feasible(arr, done: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
+                    base: int = 0) -> torch.Tensor:
     """bool[P, N] static feasibility on the card (csrc/static_feasible.cu).
     `done` (i32[1] on the card): the launch returns at entry once it is
-    set; `out`: the bool[P, N] buffer to write (a fresh one when None)."""
+    set; `out`: the bool[P, N] buffer to write (a fresh one when None);
+    `base`: the first global node id of arr's nodes (a node shard's; the
+    nodeName pin is a global id)."""
     dev = arr.device
     if dev.type != "cuda":
         raise ValueError(f"static_feasible kernel needs CUDA tensors, got {dev}")
@@ -255,7 +273,7 @@ def static_feasible(arr, done: Optional[torch.Tensor] = None, out: Optional[torc
             arr.pod_valid.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
             arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sf.data_ptr(),
-            _ptr(done), P, N, T, TT, S, E, L, stream,
+            _ptr(done), P, N, T, TT, S, E, L, base, stream,
         )
     _raise_on(err, "static_feasible")
     LAUNCHES["static_feasible"] += 1
@@ -824,7 +842,8 @@ def scan_out(arr, rchunk: Optional[int] = None) -> ScanOut:
                    None if rchunk is None else _rounds_scratch(rchunk, arr.N, dev))
 
 
-def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optional[torch.Tensor] = None):
+def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optional[torch.Tensor] = None,
+               img_on: Optional[bool] = None):
     """The inputs K11 and K12 share and out's buffers, checked -> (pointer
     array, dims, switches, weights, score params).  The kernel fills out's
     running state from out.start itself (the inputs are never written).
@@ -839,7 +858,7 @@ def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optio
     W = -(-N // 32)
     traw, naraw = planes
     if inc is None:
-        rows, img = P, (arr.image_score if _image_on(arr, cfg) else None)
+        rows, img = P, (arr.image_score if (_image_on(arr, cfg) if img_on is None else img_on) else None)
     else:
         rows, img = inc.req_u.shape[0], inc.img_u
         sfs, eligs, traw, naraw = inc.stat_u, inc.elig_u, inc.traw_u, inc.naraw_u
@@ -1156,3 +1175,196 @@ def stitch_planes(words: torch.Tensor, nl: int) -> torch.Tensor:
     _raise_on(err, "stitch_planes")
     LAUNCHES["stitch_planes"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the shard modes of K2, K11 and K12 (the node mesh's per-step collectives)
+# ---------------------------------------------------------------------------
+
+MAX_SHARDS = 8  # csrc/pairwise.cuh PW_MAX_SHARDS, fit_scan.cu MAX_SHARDS
+_A12 = "ROADMAP.md queue A12"
+# ShardPtrs' order (csrc/pairwise.cuh): the node-side entries of _full_args' pointer array
+_SHARD_PTRS = (2, 3, 4, 5, 6, 18, 19, 20, 21, 22, 23, 24, 25, 28, 29, 30, 31, 33)
+_MAX_ENT = MAX_MATCH + 3 * MAX_SLOTS
+
+
+def shard_grid_check(S: int, blocks: int, n_sm: int) -> None:
+    """Refuse a shard-mode launch of `S` shards whose cooperative grid of
+    `blocks` blocks of 1024 threads (one per SM) the card's `n_sm` SMs
+    cannot hold resident: never cut quietly to fewer shards."""
+    if not 1 <= S <= MAX_SHARDS:
+        raise NotImplementedError(f"a shard-mode launch takes 1..{MAX_SHARDS} node shards, got {S}; more shards "
+                                  f"on one card are not ported to kubernetes_tpu_torch ({_A12})")
+    if blocks > n_sm:
+        raise NotImplementedError(f"a shard-mode launch of {S} shards needs {blocks} resident blocks of 1024 threads; "
+                                  f"this card has {n_sm} SMs ({_A12})")
+
+
+def _shard_checks(sa, name: str, done, blocks: int) -> torch.device:
+    if done is not None:
+        raise NotImplementedError(f"{name}: the gated mode is not taken in shard mode (the device gang fixpoint "
+                                  f"runs on one device, as in the JAX package; {_A12})")
+    dev = sa.device
+    _need_cuda(dev, name)
+    if any(d != dev for d in sa.mesh.devices):
+        raise NotImplementedError(f"{name}: a shard-mode launch holds every shard on one card; {sa.mesh} spans "
+                                  f"several (the multi-card form is not ported, {_A12})")
+    shard_grid_check(sa.mesh.size, blocks, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return dev
+
+
+def _table(rows) -> np.ndarray:
+    return np.array([0 if x is None else x for r in rows for x in r], dtype=np.uint64)
+
+
+def fit_scan_shard(sfs, sa, cfg, done: Optional[torch.Tensor] = None):
+    """K2 in shard mode (csrc/fit_scan.cu fit_scan_shard_kernel): the fit-only
+    per-pod scan over arrays on a node mesh (parallel/mesh.py ShardedArrays)
+    from each shard's static rows sfs[s] bool[P, nl] (K1 with its base) ->
+    (choices i32[P] global node ids, used i32[N, R] gathered on the padded
+    axis)."""
+    S, nl, P = sa.mesh.size, sa.nl, sa.P
+    dev = _shard_checks(sa, "fit_scan_shard", done, S)
+    sh0 = sa.shards[0]
+    R = sh0.R
+    rows, keep = [], []
+    for s, sh in enumerate(sa.shards):
+        Np = _fit_checks(sh, cfg)
+        _check(sfs[s], f"sfs[{s}]", torch.bool, (P, nl), dev)
+        sf = sfs[s]
+        if Np != nl:  # padding columns have no sf bit set, so they are never chosen
+            sf = torch.zeros((P, Np), dtype=torch.bool, device=dev)
+            sf[:, :nl] = sfs[s]
+        alloc_t = torch.zeros((R, Np), dtype=torch.int32, device=dev)
+        alloc_t[:, :nl] = sh.node_alloc.t()
+        used_t = torch.empty((R, Np), dtype=torch.int32, device=dev)
+        rows.append((sf.data_ptr(), alloc_t.data_ptr(), used_t.data_ptr(), sh.node_used.data_ptr()))
+        keep.append((sf, alloc_t, used_t))
+    fn = _fn("fit_scan_shard")
+    K = len(cfg.score_resources)
+    shape = cfg.rtcr_shape
+    score_idx = torch.tensor(cfg.score_resources, dtype=torch.int32, device=dev)
+    shape_xy = torch.tensor([x for x, _ in shape] + [y for _, y in shape], dtype=torch.float32, device=dev)
+    choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    n_scored = torch.zeros((1,), dtype=torch.int64, device=dev)
+    xv = torch.empty((2 * S,), dtype=torch.float32, device=dev)
+    xi = torch.empty((2 * S,), dtype=torch.int32, device=dev)
+    table = _table(rows)
+    with torch.cuda.device(dev):
+        err = fn(_host(table), S, nl, sh0.pod_req.data_ptr(), sh0.pod_valid.data_ptr(), score_idx.data_ptr(), K,
+                 sum(1 << i for i in set(cfg.score_resources)), shape_xy.data_ptr(), len(shape),
+                 STRATEGY_CODES[cfg.fit_strategy], float(cfg.fit_weight), float(cfg.balanced_weight), P, Np, R,
+                 choices.data_ptr(), n_scored.data_ptr(), xv.data_ptr(), xi.data_ptr(), _stream(dev))
+    _raise_on(err, "fit_scan_shard")
+    LAUNCHES["fit_scan_shard"] += 1
+    return choices, torch.cat([u[:, :nl].t() for _, _, u in keep])
+
+
+def _shard_args(sa, cfg, sfs, eligs, planes, inc, used_rep=None):
+    """Each shard's buffers (scan_out) and checked arguments (_full_args) ->
+    (outs, shard 0's argument arrays, the ShardPtrs table).  With
+    `used_rep` = (used, used0) [N, R] (K12) each shard's usage and start
+    usage are its slices of the replicated pair."""
+    from .assign import _image_on
+
+    img_on = _image_on(sa, cfg)
+    nl = sa.nl
+    outs, rows, args0 = [], [], None
+    for s, sh in enumerate(sa.shards):
+        out = scan_out(sh)
+        if used_rep is not None:
+            sl = slice(s * nl, (s + 1) * nl)
+            out.state["used"] = used_rep[0][sl]
+            out = dataclasses.replace(out, start=(used_rep[1][sl],) + tuple(out.start[1:]))
+        ishard = None if inc is None else inc.shards[s]
+        pl = (None, None) if planes is None else planes[s]
+        args = _full_args(sh, cfg, None if sfs is None else sfs[s], None if eligs is None else eligs[s], pl, out,
+                          ishard, img_on=img_on)
+        if s == 0:
+            args0 = args
+        rows.append([int(args[0][i]) for i in _SHARD_PTRS])
+        outs.append(out)
+    return outs, args0, _table(rows)
+
+
+def _gathered_state(sa, outs) -> dict:
+    st = {k: torch.cat([o.state[k] for o in outs], dim=1) for k in ("cnt", "anti", "pref")}
+    st["total"] = outs[0].state["total"]
+    st["ports"] = torch.cat([o.state["ports"] for o in outs])
+    return st
+
+
+def full_scan_shard(sa, cfg, sfs, eligs, planes, with_state: bool = False, done: Optional[torch.Tensor] = None):
+    """K11 in shard mode (csrc/full_scan.cu full_scan_shard_kernel): the
+    per-pod scan over the full stage set on a node mesh, from each shard's
+    K7 planes (sfs[s], eligs[s]: [P, words(nl)], with its base) and K10
+    planes (planes[s]) -> (choices i32[P] global ids, used i32[N, R]
+    gathered), and with `with_state` the final pairwise state gathered."""
+    S, nl, P = sa.mesh.size, sa.nl, sa.P
+    dev = _shard_checks(sa, "full_scan_shard", done, S)
+    outs, (ptrs, dims, sw, wp, ip, fp), table = _shard_args(sa, cfg, sfs, eligs, planes, None)
+    fn = _fn("full_scan_shard")
+    feas = torch.empty((S * nl,), dtype=torch.uint8, device=dev)
+    rowf = torch.empty((4, S * nl), dtype=torch.float32, device=dev)
+    xf = torch.empty((S * (MAX_SLOTS + 5 + 1),), dtype=torch.float32, device=dev)
+    xi = torch.empty((S * (4 * _MAX_ENT + 2),), dtype=torch.int32, device=dev)  # ents first: int4-aligned
+    rows = np.array([feas.data_ptr()] + [rowf[k].data_ptr() for k in range(4)], dtype=np.uint64)
+    fo, io = xf.data_ptr(), xi.data_ptr()
+    ie = io + 4 * S * 4 * _MAX_ENT
+    xs = np.array([fo, fo + 4 * S * MAX_SLOTS, fo + 4 * S * (MAX_SLOTS + 5), ie, io, ie + 4 * S], dtype=np.uint64)
+    choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), _host(table), S,
+                 choices.data_ptr(), _host(rows), _host(xs), _stream(dev))
+    _raise_on(err, "full_scan_shard")
+    LAUNCHES["full_scan_shard"] += 1
+    used = torch.cat([o.state["used"] for o in outs])
+    return (choices, used, _gathered_state(sa, outs)) if with_state else (choices, used)
+
+
+def rounds_shard(sa, cfg, sfs=None, eligs=None, planes=None, inc=None, rchunk: Optional[int] = None,
+                 repair_iters: Optional[int] = None, with_state: bool = False, done: Optional[torch.Tensor] = None):
+    """K12 in shard mode (csrc/rounds.cu rounds_shard_kernel): the rounds
+    scan on a node mesh in one cooperative launch of C * S blocks, dense
+    (each shard's K7 planes sfs[s] / eligs[s] and K10 planes planes[s]) or
+    in class-row mode (`inc`: HoistCache(mesh=)'s state, each shard's class
+    planes in inc.shards[s]) -> (choices i32[P], used i32[N, R] (the
+    replicated usage), ordinals i32[P], the int32[2] device pair (sweeps,
+    status): read_sweeps), and with `with_state` the final pairwise state
+    gathered."""
+    from .assign import REPAIR_ITERS, RCHUNK
+
+    C = RCHUNK if rchunk is None else rchunk
+    iters = REPAIR_ITERS if repair_iters is None else repair_iters
+    S, nl, N, P = sa.mesh.size, sa.nl, sa.N, sa.P
+    if not 1 <= C <= MAX_RCHUNK or P % C or iters < 1:
+        raise ValueError(f"rounds kernel takes chunks of 1..{MAX_RCHUNK} pods dividing P and repair_iters >= 1; "
+                         f"got rchunk={C}, P={P}, repair_iters={iters}")
+    dev = _shard_checks(sa, "rounds_shard", done, C * S)
+    R = sa.shards[0].R
+    used = torch.empty((N, R), dtype=torch.int32, device=dev)
+    outs, (ptrs, dims, sw, wp, ip, fp), table = _shard_args(sa, cfg, sfs, eligs, planes, inc,
+                                                            used_rep=(used, sa.gather("node_used")))
+    fn = _fn("rounds_shard")
+    CS = C * S
+    feas = torch.empty((CS * nl,), dtype=torch.uint8, device=dev)
+    rowf = torch.empty((4, CS * nl), dtype=torch.float32, device=dev)
+    sizes_f = (CS * MAX_SLOTS, CS * 5, CS, CS * ZR_MAX, 2 * CS * 2)  # mm, sc, bv, tv, rv
+    sizes_i = (S * C * _MAX_ENT * 4, CS, CS * ZR_MAX, 2 * CS * 3, S)  # ents (first: int4-aligned), bn, ti, ri, n_ents
+    xf = torch.empty((sum(sizes_f),), dtype=torch.float32, device=dev)
+    xi = torch.empty((sum(sizes_i),), dtype=torch.int32, device=dev)
+    of = [int(x) for x in np.cumsum((0,) + sizes_f[:-1]) * 4 + xf.data_ptr()]
+    oi = [int(x) for x in np.cumsum((0,) + sizes_i[:-1]) * 4 + xi.data_ptr()]
+    xs = np.array([of[0], of[1], of[2], oi[1], of[3], oi[2], of[4], oi[3], oi[0], oi[4]], dtype=np.uint64)
+    rows = np.array([feas.data_ptr()] + [rowf[k].data_ptr() for k in range(4)], dtype=np.uint64)
+    choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    ordinals = torch.zeros((P,), dtype=torch.int32, device=dev)
+    scal = torch.zeros((2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), _host(table), S, N,
+                 choices.data_ptr(), ordinals.data_ptr(), scal.data_ptr(), _host(rows), _host(xs), C, iters,
+                 _stream(dev))
+    _raise_on(err, "rounds_shard")
+    LAUNCHES["rounds_shard"] += 1
+    res = (choices, used, ordinals, scal)
+    return res + (_gathered_state(sa, outs),) if with_state else res

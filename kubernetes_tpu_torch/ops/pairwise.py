@@ -37,17 +37,28 @@ def _rows(state_node: torch.Tensor, has_key_all: torch.Tensor, term_ids: torch.T
     return state_node[tids], has_key_all[tids], valid
 
 
-def spread_step(cnt_node, has_key_all, spread_terms, maxskew, hard, eligible) -> Tuple[torch.Tensor, torch.Tensor]:
+def spread_min(cnt_node, has_key_all, spread_terms, eligible) -> torch.Tensor:
+    """f32[CS]: each spread slot's min count over the keyed nodes passing
+    the pod's node-affinity filter (`eligible`), inf where there is none --
+    before the inf -> 0 of spread_step, so a node shard's partial joins the
+    pmin of the others first (the JAX package's pairwise.py:54-58)."""
+    cnt, has_key, _ = _rows(cnt_node, has_key_all, spread_terms)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=cnt.device)
+    return torch.where(eligible[None, :] & has_key, cnt, inf).min(dim=1).values
+
+
+def spread_step(cnt_node, has_key_all, spread_terms, maxskew, hard, eligible,
+                min_match=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (ok bool[N] hard-constraint feasibility, raw f32[N] score counts).
 
     A DoNotSchedule constraint keeps count(domain) + 1 - minMatch <=
     maxSkew, minMatch the min count over the keyed nodes passing the pod's
     node-affinity filter (`eligible`; inf when there is none -> 0); nodes
-    without the key fail it (podtopologyspread/filtering.go)."""
+    without the key fail it (podtopologyspread/filtering.go).  On a node
+    shard `min_match` is the pmin of every shard's spread_min (inf kept)."""
     cnt, has_key, valid = _rows(cnt_node, has_key_all, spread_terms)
-    elig = eligible[None, :] & has_key
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=cnt.device)
-    min_match = torch.where(elig, cnt, inf).min(dim=1).values
+    if min_match is None:
+        min_match = spread_min(cnt_node, has_key_all, spread_terms, eligible)
     min_match = torch.where(torch.isinf(min_match), torch.zeros_like(min_match), min_match)
     ok_c = has_key & (cnt + 1.0 - min_match[:, None] <= maxskew[:, None].to(torch.float32))
     ok_c = torch.where((valid & hard)[:, None], ok_c, torch.ones_like(ok_c))

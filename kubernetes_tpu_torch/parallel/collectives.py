@@ -10,11 +10,18 @@ only, as NCCL's collectives are: a copy of every shard's block into its
 destination -- on one card a device-to-device copy, across cards a peer
 copy -- queued on the destination's current stream.  Nothing else in the
 port moves data between shards.
+
+``pmax``, ``pmin`` and ``psum`` are the reductions of ``lax.pmax``,
+``lax.pmin`` and ``lax.psum``: the per-shard partials combined in shard
+order, the result left on every shard's device (JAX replicates it).  They
+are the plain versions of what the shard modes of kernels K2, K11 and K12
+(csrc/fit_scan.cu, full_scan.cu, rounds.cu) do through their exchange
+buffer, and run on the CPU path and in the tests.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
@@ -64,3 +71,28 @@ def all_to_all(blocks: Sequence[torch.Tensor], split_dim: int, concat_dim: int,
     w = blocks[0].shape[split_dim] // d
     return [all_gather_nodes([b.narrow(split_dim, j * w, w) for b in blocks], concat_dim, devices[j])
             for j in range(d)]
+
+
+def _reduce(parts: Sequence[torch.Tensor], op: Callable) -> List[torch.Tensor]:
+    """The partials combined in shard order with `op`, one copy of the
+    result on each shard's device."""
+    acc = parts[0]
+    for x in parts[1:]:
+        acc = op(acc, x.to(acc.device, non_blocking=True))
+    return [acc if x.device == acc.device else acc.to(x.device, non_blocking=True) for x in parts]
+
+
+def pmax(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``lax.pmax``: the elementwise max of the per-shard tensors."""
+    return _reduce(parts, torch.maximum)
+
+
+def pmin(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``lax.pmin``: the elementwise min of the per-shard tensors."""
+    return _reduce(parts, torch.minimum)
+
+
+def psum(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``lax.psum``: the elementwise sum of the per-shard tensors, added in
+    shard order."""
+    return _reduce(parts, torch.add)

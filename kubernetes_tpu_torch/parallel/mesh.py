@@ -167,10 +167,14 @@ def pad_nodes(arr, n_shards: int):
 class ShardedArrays:
     """A ClusterArrays on a node mesh: ``shards[s]`` holds shard s's rows of
     every node-axis field and the whole pod-axis and vocabulary fields, all
-    on ``mesh.devices[s]``.  The node axis is padded: N = S * nl."""
+    on ``mesh.devices[s]``.  The node axis is padded: N = S * nl.
+    ``image_sharded``: whether image_score is a real [P, N] plane (cut per
+    shard) or the [P, 1] broadcast form, decided at global shape (a
+    shard's width may equal 1; the JAX package's image_sharded)."""
 
     mesh: NodeMesh
     shards: Tuple[ClusterArrays, ...]
+    image_sharded: bool = False
 
     @property
     def P(self) -> int:
@@ -193,6 +197,24 @@ class ShardedArrays:
         tiled all_gather of its shard blocks."""
         axis = node_axis_of(name, tuple(getattr(self.shards[0], name).shape), self.nl)
         return all_gather_nodes([getattr(sh, name) for sh in self.shards], axis, self.device)
+
+    def pod_prefix(self, k: int) -> "ShardedArrays":
+        """The first k pods on every shard (ClusterArrays.pod_prefix)."""
+        return dataclasses.replace(self, shards=tuple(sh.pod_prefix(k) for sh in self.shards))
+
+    def replace_pods(self, **fields) -> "ShardedArrays":
+        """The arrays with replicated (pod-axis) fields replaced on every
+        shard, one copy per device (the gang fixpoint's pod_valid)."""
+        for name in fields:
+            if node_axis_of(name, tuple(getattr(self.shards[0], name).shape), self.nl) is not None:
+                raise ValueError(f"{name} carries the node axis: replace it per shard")
+        placed: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        shards = []
+        for sh, dev in zip(self.shards, self.mesh.devices):
+            if dev not in placed:
+                placed[dev] = {k: v.to(dev) for k, v in fields.items()}
+            shards.append(dataclasses.replace(sh, **placed[dev]))
+        return dataclasses.replace(self, shards=tuple(shards))
 
     def commit_view(self) -> ClusterArrays:
         """The arrays the chunked route's commit kernels read, on
@@ -217,6 +239,7 @@ def shard_arrays(arr: ClusterArrays, mesh: NodeMesh) -> ShardedArrays:
     """Place arrays held on one device on `mesh`: pad the node axis
     (pad_nodes), give shard s its rows of every node-axis field and a copy
     of every other field on its device (one copy per device)."""
+    image_sharded = arr.image_score.shape[1] == arr.N
     arr, _ = pad_nodes(arr, mesh.size)
     nl = mesh.nl(arr.N)
     rep: Dict[torch.device, Dict[str, torch.Tensor]] = {}
@@ -233,7 +256,7 @@ def shard_arrays(arr: ClusterArrays, mesh: NodeMesh) -> ShardedArrays:
             axis = node_axis_of(f, tuple(a.shape), arr.N)
             fields[f] = a.narrow(axis, s * nl, nl).contiguous().to(dev)
         shards.append(ClusterArrays(**fields))
-    return ShardedArrays(mesh, tuple(shards))
+    return ShardedArrays(mesh, tuple(shards), image_sharded)
 
 
 def shard_hbm_estimate(n_pods: int, n_nodes: int, n_shards: int, n_res: int = 4,

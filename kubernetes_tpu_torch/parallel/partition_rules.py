@@ -13,12 +13,15 @@ only the facts that table encodes for the node axis:
   (``parallel/mesh.py`` -- ``pad_field`` takes that case).
 - ``INC_NODE_AXIS``: the ``IncState`` class planes that ``HoistCache(mesh=)``
   builds per shard and the axis each shards on (the table's ``inc.*_u``
-  rows): per shard, ``stat_u`` / ``fit_u`` are ``[U1, words(nl)]`` packed
-  words and ``base_u`` is ``[U1, nl]``.
+  rows): per shard, ``stat_u`` / ``fit_u`` / ``elig_u`` are ``[U1,
+  words(nl)]`` packed words and ``base_u`` / ``traw_u`` / ``naraw_u`` /
+  ``img_u`` are ``[U1, nl]`` (parallel/sharded.py -- inc_applicable reads
+  the table to gate a state's shapes).
 
-The outputs of the sharded routed step are replicated on the chunked route
-(the JAX table's ``out.*`` rows): the commit runs once on stitched values,
-so ``node_used`` comes back whole, on the padded node axis.
+The outputs of the sharded routed step come back whole, on the padded
+node axis: the chunked route commits once on stitched values, the rounds
+route carries the usage replicated, and the per-pod scan's per-shard
+usage is gathered (the JAX table's ``out.*`` rows).
 
 There are no PartitionSpecs: the port's shards are a list of per-shard
 tensors, and the node-axis rows above say how a field is cut.
@@ -43,7 +46,8 @@ NODE_AXIS_FIELDS: Dict[str, Tuple[int, Optional[int]]] = {
 
 # IncState class plane -> the axis its node dimension lies on (packed
 # planes: the word axis, in per-shard blocks of words(nl))
-INC_NODE_AXIS: Dict[str, int] = {"stat_u": 1, "base_u": 1, "fit_u": 1}
+INC_NODE_AXIS: Dict[str, int] = {"stat_u": 1, "base_u": 1, "fit_u": 1, "elig_u": 1, "traw_u": 1, "naraw_u": 1,
+                                 "img_u": 1}
 
 
 def node_axis_of(name: str, shape: Tuple[int, ...], n: int) -> Optional[int]:

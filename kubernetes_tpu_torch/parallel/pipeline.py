@@ -33,8 +33,10 @@ step, hoist or copy ever writes a tensor a step in flight reads.  So two
 generations live on the card at once and neither disturbs the other.
 
 ``mesh`` (parallel/mesh.py -- NodeMesh): the loop's encoder and HoistCache
-take it, and each step runs node-sharded (parallel/sharded.py), the JAX
-package's PipelinedBatchLoop(mesh=) (its pipeline.py:78-88).
+take it, and each step runs node-sharded on the route dispatch picks
+(parallel/sharded.py; config 3's warm waves: the rounds route on class
+state), the JAX package's PipelinedBatchLoop(mesh=) (its
+pipeline.py:78-88).
 
 ``overlap_fraction()`` is the share of host pipeline work (encode and
 decode) that ran while a dispatched step was still running on the card,
@@ -143,8 +145,7 @@ class PipelinedBatchLoop:
         ta = time.perf_counter()
         arr, meta = self.enc.to_device(host, meta)
         tb = time.perf_counter()
-        pods = arr.shards[0] if self.mesh is not None else arr
-        inc = self.hoist.ensure(arr, meta, cfg, host=host) if inc_route_applies(pods, cfg) else None
+        inc = self.hoist.ensure(arr, meta, cfg, host=host) if inc_route_applies(arr, cfg) else None
         tc = time.perf_counter()
         step = dispatch(arr, cfg, device=self.device, inc=inc, mesh=self.mesh)
         done = None

@@ -147,7 +147,8 @@ def test_routing():
     assign.reset_trace_counts()
     c1, u1, o1, s1 = assign.schedule_batch_ordinals(arr, cfg, device="cpu")
     assert assign.TRACE_COUNTS == {"plain": 1, "chunked": 0, "chunked_inc": 0, "class_waves": 0, "rounds": 0,
-                                   "rounds_inc": 0, "sharded_chunked": 0, "sharded_chunked_inc": 0}
+                                   "rounds_inc": 0, "sharded_chunked": 0, "sharded_chunked_inc": 0,
+                                   "sharded_rounds": 0, "sharded_rounds_inc": 0, "sharded_plain": 0}
     assert s1 == arr.P and torch.equal(o1, torch.arange(arr.P, dtype=torch.int32))
     c2, u2, o2, s2 = assign.schedule_batch_ordinals(arr, cfg, device="cpu", chunked=True)
     assert assign.TRACE_COUNTS["chunked"] == 1

@@ -28,8 +28,10 @@ On the CPU:
   patched by the shard that owns it;
 - PipelinedBatchLoop(mesh=) equals run_serial and the JAX loop's verdicts,
   with every node-axis field resident per shard; a warm delta re-places
-  only the changed shard;
-- a batch the chunked route does not take raises on a mesh.
+  only the changed shard.
+
+The rounds and per-pod routes on the mesh, and what the mesh still
+refuses, are tests/test_torch_mesh_steps.py's.
 
 The ``cuda`` legs import no JAX and skip without a card: K17 stitch_planes
 == its plain version; K3, K4 and K7 launched per shard with the shard's
@@ -509,30 +511,6 @@ def test_delta_encoder_on_mesh_replaces_only_changed_shards():
     enc.set_mesh(_cpu_mesh(2))
     assert not enc._dev
     assert enc.to_device(host, meta)[0].nl == 32
-
-
-def test_mesh_refuses_what_the_chunked_route_does_not_take():
-    from kubernetes_tpu_torch.ops import gang
-
-    m = _cpu_mesh(2)
-    arr, meta = encode_snapshot(tw.spread_affinity(40, 64), device="cpu")  # the rounds route's batch
-    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
-    with pytest.raises(NotImplementedError, match="A12"):
-        dispatch(arr, cfg, "cpu", mesh=m)
-    with pytest.raises(NotImplementedError, match="A12"):
-        HoistCache(mesh=m).ensure(arr, meta, cfg)  # the rounds route's class planes
-    arr, meta = encode_snapshot(tw.heterogeneous(30, 200), device="cpu")
-    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
-    with pytest.raises(NotImplementedError, match="A12"):
-        dispatch(arr, cfg, "cpu", mesh=m, chunked=False)  # the per-pod route
-    small = arr.pod_prefix(64)  # fit-only, not a multiple of 128 pods
-    with pytest.raises(NotImplementedError, match="A12"):
-        dispatch(small, cfg, "cpu", mesh=m)
-    with pytest.raises(NotImplementedError, match="A12"):
-        gang.schedule_with_gangs(arr, cfg, device="cpu", mesh=m)
-    # a one-shard mesh is one device
-    assert torch.equal(finish(dispatch(arr, cfg, "cpu", mesh=_cpu_mesh(1), chunked=True)).choices,
-                       finish(dispatch(arr, cfg, "cpu", chunked=True)).choices)
 
 
 # ---------------------------------------------------------------------------

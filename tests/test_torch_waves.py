@@ -177,10 +177,12 @@ def test_route_counts_and_fallback_to_the_per_pod_route():
     assign.reset_trace_counts()
     assign.schedule_batch(arr, cfg, device="cpu", inc=inc)
     assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 1, "class_waves": 1, "rounds": 0,
-                                   "rounds_inc": 0, "sharded_chunked": 0, "sharded_chunked_inc": 0}
+                                   "rounds_inc": 0, "sharded_chunked": 0, "sharded_chunked_inc": 0,
+                                   "sharded_rounds": 0, "sharded_rounds_inc": 0, "sharded_plain": 0}
     assign.schedule_batch(arr, cfg, device="cpu", inc=inc, class_waves=False)
     assert assign.TRACE_COUNTS == {"plain": 0, "chunked": 0, "chunked_inc": 2, "class_waves": 1, "rounds": 0,
-                                   "rounds_inc": 0, "sharded_chunked": 0, "sharded_chunked_inc": 0}
+                                   "rounds_inc": 0, "sharded_chunked": 0, "sharded_chunked_inc": 0,
+                                   "sharded_rounds": 0, "sharded_rounds_inc": 0, "sharded_plain": 0}
     # class state that does not fit the arrays: the per-pod route
     assert assign.inc_applicable(arr.pod_prefix(64), cfg, inc) is None
     c, u, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu")

@@ -73,6 +73,21 @@ batched preemption) on the JAX package's preemption bench cluster:
                      HoistCache actions of [warm-loop], every step on the
                      sharded class-wave route; end_to_end_s beside
                      [warm-loop]'s;
+  [mesh2d-north-star] the pods x nodes grid, make_mesh(shape=(2, 4)) of
+                     cuda:0, through DeltaEncoder(mesh=): pod-axis fields
+                     resident per pod row, node-axis fields per node column;
+                     the dense step (the entry gather of the pod rows, then
+                     the 1-D mesh's launches: packed_static_rows x 4,
+                     stitch_planes, chunk_rounds_dense) and the class-wave
+                     step (HoistCache(mesh=): class_static_hoist x 4,
+                     class_usage_hoist x 4, stitch_planes x 2; wave_commit,
+                     chunk_rounds): [north-star-dense] / [north-star-waves]'s
+                     choices, usage, ordinals and sweeps; step_s, the entry
+                     gather's CUDA-event time and bytes, the peak device
+                     memory beside shard_hbm_estimate(pod_shards=2);
+  [mesh2d-warm-loop] bench.py's warm waves 2..7 through PipelinedBatchLoop
+                     (depth 1, mesh=make_mesh(shape=(2, 4))): [warm-loop]'s
+                     digests and HoistCache actions;
   [ring]             parallel/ring.py: ring_match of the north star's
                      sel_mask / sel_kind (terms padded to a multiple of 4)
                      against its node_labels [20480, L] on 4 shards (ring_match
@@ -123,6 +138,14 @@ batched preemption) on the JAX package's preemption bench cluster:
                      usage, ordinals, count planes), full_scan's on the
                      first 128 pods; each timed over all pods beside the
                      one-device rounds;
+  [mesh2d-config3]   config 3 on make_mesh(shape=(2, 4)): the rounds route
+                     dense (packed_static_rows x 4, rounds in shard mode),
+                     on class rows (HoistCache(mesh=): class_static_hoist x
+                     4, class_usage_hoist x 4; rounds in shard class-row
+                     mode) and the per-pod route (packed_static_rows x 4,
+                     full_scan in shard mode), each after the entry gather:
+                     [config3] / [config3-inc] / [config3-perpod]'s digests,
+                     1691 sweeps and usage;
   [config3-warm]     bench.py's waves 2..7 over config 3 through
                      PipelinedBatchLoop at depth 1 and 0, every step on the
                      rounds route with class state: per-wave digests and
@@ -204,7 +227,18 @@ batched preemption) on the JAX package's preemption bench cluster:
                      time split (encode, step, explain, tables, each wave's
                      kernel by CUDA events and its read back, decide and
                      repair, apply_eviction); preempt_eval and explain_counts
-                     at F = 4 timed.
+                     at F = 4 timed;
+  [dcn]              two torch.distributed ranks on the one card, this
+                     script re-invoked as two workers (--dcn-worker RANK
+                     PORT SHAPE) after [build], backend gloo with the CUDA
+                     tensors staged through host memory (NCCL refuses two
+                     ranks on one card; not NCCL, not a scale-out): the 1-D
+                     mesh of 2 ranks x 2 node shards on the north star's
+                     dense chunked and class-wave routes, and the 2x2 grid
+                     with the pod axis across the ranks on the same two
+                     routes and config 3's rounds route; each rank's choices
+                     sha256, usage, ordinals and sweeps == the single
+                     process's, its step_s and cross-rank gather seconds.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
@@ -2567,9 +2601,10 @@ MESH_ROUNDS_PREFIX_CHUNKS = 4  # config-3 chunks of K12's shard mode held agains
 MESH_FULL_PREFIX = 128  # config-3 pods of K11's shard mode held against the plain sharded scan
 
 
-def sharded_counted(tag, fn, need: dict, route: str):
+def sharded_counted(tag, fn, need: dict, route):
     """fn() on the mesh with every count set to 0 just before it: exactly the
-    launches `need` and the route `route`, once."""
+    launches `need` and the route `route` once (a dict: exactly those route
+    counts)."""
     import torch
 
     from kubernetes_tpu_torch.ops import assign, kernels
@@ -2583,7 +2618,7 @@ def sharded_counted(tag, fn, need: dict, route: str):
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
     check(launches == need, f"{tag}: launches {launches}, want {need}")
-    check(routes == {route: 1}, f"{tag}: routes {routes}")
+    check(routes == (route if isinstance(route, dict) else {route: 1}), f"{tag}: routes {routes}")
     return out, launches, first_s
 
 
@@ -2886,6 +2921,324 @@ def phase_mesh_gangs() -> None:
           and hs == w.CONFIG5_SWEEPS, "mesh-gangs: config 5 differs from the host fixpoint's")
 
 
+MESH2D = (2, 4)  # the pods x nodes grid of the mesh2d phases: 2 pod rows x 4 node shards
+DCN_SHAPES = {"1d": None, "2x2": (2, 2)}  # the [dcn] runs: two ranks x 2 positions of the one card
+DCN_TIMEOUT_S = 300  # one [dcn] run's two workers
+
+
+def sha_i32(x) -> str:
+    return hashlib.sha256(x.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+
+def best_step_s(fn, reps: int = 2) -> float:
+    """Best of `reps` host-clock times of fn() to a synchronise."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def entry_gather(ga, inc=None) -> tuple:
+    """The grid's entry gather (ops/assign.py pod_unshard) -> (CUDA-event ms,
+    bytes it writes: each gathered pod-axis tensor and the class index once,
+    per bytes of the arrays a pod row carries)."""
+    from kubernetes_tpu_torch.ops import assign
+
+    ms = cuda_ms(lambda: assign.pod_unshard(ga, inc), reps=10)
+    sa, full = assign.pod_unshard(ga, inc)
+    from kubernetes_tpu_torch.parallel.partition_rules import POD_AXIS_FIELDS
+
+    out = {id(t): t.numel() * t.element_size() for sh in sa.shards
+           for t in (getattr(sh, f) for f in (*POD_AXIS_FIELDS, "image_score"))}
+    nbytes = sum(out.values()) + (0 if full is None else full.cls.numel() * 4)
+    return ms, nbytes, nbytes // sa.P
+
+
+def phase_mesh2d_north_star(used_sha: str) -> None:
+    """The north star on make_mesh(shape=(2, 4)) of cuda:0, through
+    DeltaEncoder(mesh=): pod-axis fields resident per pod row, node-axis
+    fields per node column; the dense step (the entry gather, then K7 x 4 +
+    K17 + K8: the 1-D mesh's launches) and the class-wave step
+    (HoistCache(mesh=): K3 x 4 + K4 x 4 + K17 x 2, then K5 + K6) against
+    [north-star-dense] / [north-star-waves]; the entry gather's time and
+    bytes; the peak device memory beside shard_hbm_estimate(pod_shards=2)."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel import mesh as tm
+
+    snap = w.heterogeneous(**w.NORTH_STAR)
+    host, meta = DeltaEncoder().encode(snap)
+    n, N0 = meta.n_pods, host.N
+    g = tm.make_mesh(shape=MESH2D)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    enc = DeltaEncoder(mesh=g)
+    t0 = time.perf_counter()
+    ga, _ = enc.to_device(host, meta)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    check(isinstance(ga, tm.GridArrays) and repr(g) == "GridMesh(2x4 on 1 card)", f"mesh2d-north-star: {g!r}")
+    cfg = infer_score_config(host, DEFAULT_SCORE_CONFIG)
+    P, N, pl, nl, R = ga.P, ga.N, ga.pl, ga.nl, host.R
+    print(f"[mesh2d-north-star] {g}: P {P} (pl {pl} a pod row), N {N} (nl {nl} a node column); pod-axis fields "
+          f"resident per pod row, node-axis fields per node column (to_device {place_s:.3f} s)", flush=True)
+    tag = "mesh2d-north-star"
+
+    def same(t, step, sweeps, ords):
+        check(sha_i32(step.choices[:n]) == w.NORTH_STAR_CHOICES_SHA256, f"{t}: choices differ from JAX")
+        check(step.sweeps == sweeps and sha_i32(step.ordinals[:n]) == ords, f"{t}: sweeps {step.sweeps} / ordinals")
+        check(sha_i32(step.used[:N0]) == used_sha and not step.used[N0:].any(), f"{t}: usage != one device's")
+
+    d, dl, d_first = sharded_counted(tag + " dense", lambda: assign.finish(assign.dispatch(ga, cfg, mesh=g)),
+                                     {"packed_static_rows": 4, "stitch_planes": 1, "chunk_rounds_dense": 1},
+                                     "sharded_chunked")
+    same(tag + " dense", d, w.NORTH_STAR_DENSE_SWEEPS, w.NORTH_STAR_DENSE_ORDINALS_SHA256)
+    dense_s = best_step_s(lambda: assign.finish(assign.dispatch(ga, cfg, mesh=g)))
+    g_ms, g_bytes, row_bytes = entry_gather(ga)
+    print(f"[mesh2d-north-star] dense: {d_first:.3f} s (first call), step_s {dense_s:.4f} (best of 2), launches "
+          f"{dl} (as on make_mesh(4)); choices, usage, ordinals and {d.sweeps} sweeps == [north-star-dense]; entry "
+          f"gather {g_ms:.4f} ms (CUDA events), {g_bytes} B ({row_bytes} B a pod)", flush=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hc = HoistCache(mesh=g)
+    inc = hc.ensure(ga, meta, cfg, host=host)
+    torch.cuda.synchronize()
+    ensure_s = time.perf_counter() - t0
+    hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(hl == {"class_static_hoist": 4, "class_usage_hoist": 4, "stitch_planes": 2}, f"{tag}: HoistCache {hl}")
+    check(isinstance(inc.cls, tuple) and [c.shape[0] for c in inc.cls] == [pl, pl], f"{tag}: the class index")
+    v, vl, v_first = sharded_counted(tag + " waves",
+                                     lambda: assign.finish(assign.dispatch(ga, cfg, inc=inc, mesh=g)),
+                                     {"wave_commit": 1, "chunk_rounds": 1},
+                                     {"sharded_chunked_inc": 1, "class_waves": 1})
+    same(tag + " waves", v, w.NORTH_STAR_WAVE_SWEEPS, w.NORTH_STAR_WAVE_ORDINALS_SHA256)
+    waves_s = best_step_s(lambda: assign.finish(assign.dispatch(ga, cfg, inc=inc, mesh=g)))
+    gi_ms, gi_bytes, _ = entry_gather(ga, inc)
+    peak = torch.cuda.max_memory_allocated() - base_mem
+    est = tm.shard_hbm_estimate(P, N, MESH2D[1], n_res=R, u_classes=w.NORTH_STAR_CLASSES, pod_shards=MESH2D[0],
+                                pod_row_bytes=row_bytes)
+    print(f"[mesh2d-north-star] class waves: HoistCache.ensure {ensure_s:.4f} s ({hc.last['action']}, launches "
+          f"{hl}), {v_first:.3f} s (first call), step_s {waves_s:.4f} (best of 2; the ensure not included), "
+          f"launches {vl}; choices, usage, ordinals and {v.sweeps} sweeps == [north-star-waves]; entry gather with "
+          f"the class index {gi_ms:.4f} ms, {gi_bytes} B", flush=True)
+    print(f"[mesh2d-north-star] device memory: peak {peak} B above the phase's start (every position on the one "
+          f"card); shard_hbm_estimate(pod_shards=2) a position {est}, x 8 positions {8 * est['total']} B",
+          flush=True)
+    del ga, inc, hc, enc
+    torch.cuda.empty_cache()
+
+
+def phase_mesh2d_config3(c3) -> None:
+    """BASELINE config 3 on make_mesh(shape=(2, 4)): the rounds route dense
+    (the entry gather, K7 x 4 + K12 in shard mode), on class rows
+    (HoistCache(mesh=): K3 x 4 + K4 x 4, then K12 shard class rows) and the
+    per-pod route (K7 x 4 + K11 in shard mode): [config3] / [config3-inc] /
+    [config3-perpod]'s choices, usage, ordinals and sweeps."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel import mesh as tm
+
+    arr, meta, cfg, choices = c3[:4]
+    n, P = meta.n_pods, arr.P
+    used1 = choices_used(arr, choices, P)
+    g = tm.make_mesh(shape=MESH2D)
+    ga = tm.grid_arrays(arr, g)
+    tag = "mesh2d-config3"
+
+    def same(t, step, sweeps=True):
+        check(sha_i32(step.choices[:n]) == w.CONFIG3_CHOICES_SHA256, f"{t}: choices differ from JAX")
+        check(torch.equal(step.used[:arr.N], used1) and not step.used[arr.N:].any(), f"{t}: usage")
+        if sweeps:
+            check(step.sweeps == w.CONFIG3_ROUNDS_SWEEPS, f"{t}: sweeps {step.sweeps}")
+            check(sha_i32(step.ordinals[:n]) == w.CONFIG3_ROUNDS_ORDINALS_SHA256, f"{t}: ordinals differ from JAX")
+
+    def run(**kw):
+        return assign.finish(assign.dispatch(ga, cfg, mesh=g, **kw))
+
+    d, dl, d_first = sharded_counted(tag, run, {"packed_static_rows": 4, "rounds_shard": 1}, "sharded_rounds")
+    same(tag + " rounds", d)
+    d_s = best_step_s(run)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    inc = HoistCache(mesh=g).ensure(ga, meta, cfg)
+    torch.cuda.synchronize()
+    ensure_s = time.perf_counter() - t0
+    hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(hl == {"class_static_hoist": 4, "class_usage_hoist": 4}, f"{tag}: HoistCache launches {hl}")
+    ci, il, i_first = sharded_counted(tag, lambda: run(inc=inc), {"rounds_shard": 1}, "sharded_rounds_inc")
+    same(tag + " rounds_inc", ci)
+    i_s = best_step_s(lambda: run(inc=inc))
+    pp, pl_, p_first = sharded_counted(tag, lambda: run(chunked=False), {"packed_static_rows": 4, "full_scan_shard": 1},
+                                       "sharded_plain")
+    same(tag + " per-pod", pp, sweeps=False)
+    g_ms, g_bytes, _ = entry_gather(ga, inc)
+    print(f"[mesh2d-config3] {g}: P {ga.P} (pl {ga.pl}), N {ga.N} (nl {ga.nl}); rounds dense {d_first:.3f} s first, "
+          f"step_rounds_s {d_s:.4f} (best of 2), launches {dl}; HoistCache.ensure {ensure_s:.4f} s ({hl}), rounds "
+          f"on class rows {i_first:.3f} s first, step_rounds_inc_s {i_s:.4f}, launches {il}; per-pod "
+          f"{p_first:.3f} s, launches {pl_}: choices, usage, ordinals and sweeps ({w.CONFIG3_ROUNDS_SWEEPS}) == "
+          f"[config3] / [config3-inc] / [config3-perpod]; entry gather {g_ms:.4f} ms, {g_bytes} B", flush=True)
+    del ga, inc
+    torch.cuda.empty_cache()
+
+
+def phase_mesh2d_warm_loop(cold, single) -> None:
+    """bench.py's warm waves 2..7 through PipelinedBatchLoop(depth=1,
+    mesh=make_mesh(shape=(2, 4))): the [warm-loop] digests and HoistCache
+    actions, every step the class-wave route after the entry gather."""
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.parallel.mesh import make_mesh
+
+    snap = workloads.heterogeneous(**workloads.NORTH_STAR)
+    want = (cold, workloads.NORTH_STAR_WARM_DIGESTS, workloads.NORTH_STAR_WARM_ACTIONS,
+            workloads.NORTH_STAR_SCHEDULED)
+    res = run_warm_loop("mesh2d-warm-loop", snap, *want, MESH_WAVE_KERNELS, "sharded_chunked_inc",
+                        mesh=make_mesh(shape=MESH2D), depths=(1,))
+    print(f"[mesh2d-warm-loop] end_to_end_s {res[1]['end_to_end_s']:.4f} on the 2x4 grid; one device "
+          f"{single[1]['end_to_end_s']:.4f} ([warm-loop], depth 1); delta_s {res[1]['delta_s']:.4f} / "
+          f"{single[1]['delta_s']:.4f}", flush=True)
+
+
+def phase_dcn(ns_used_sha: str, c3_used_sha: str) -> None:
+    """Two torch.distributed ranks on the one card: this script re-invoked
+    as two worker processes (--dcn-worker RANK PORT SHAPE, each a fresh
+    interpreter), after [build], so no worker builds.  Backend gloo with
+    CUDA tensors, staged through host memory by parallel/collectives.py
+    (NCCL refuses two ranks on one card); not NCCL and not a scale-out: the
+    two ranks time-slice the card.  1d: the node mesh of 2 ranks x 2 shards
+    on the north star's dense chunked route (K7 per shard, the stitch's
+    gather across the ranks, K17, K8 on each rank) and its class-wave route
+    (HoistCache(mesh=): K3 and K4 per shard, the class planes' stitch
+    across the ranks, K17 x 2; K5 + K6 on each rank); 2x2: the grid with the
+    pod axis across the ranks (the entry gather across them, then each
+    rank's row of 2 node shards) on the same two routes and config 3's
+    rounds route (K7 x 2 + K12 in shard mode).  Every rank's choices, usage,
+    ordinals and sweeps == the single process's; a worker that fails or
+    outlasts DCN_TIMEOUT_S fails the phase."""
+    import socket
+
+    import torch
+
+    torch.cuda.empty_cache()
+    want = {"north-star": ns_used_sha, "north-star-waves": ns_used_sha, "config3": c3_used_sha}
+    for shape in DCN_SHAPES:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dcn-worker", str(r), str(port), shape],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=HERE)
+                 for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DCN_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.wait()
+            raise SmokeFailure(f"dcn {shape}: the workers did not finish within {DCN_TIMEOUT_S} s")
+        results = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            for line in out.splitlines():
+                print(f"[dcn {shape} rank {r}] {line}", flush=True)
+            check(p.returncode == 0, f"dcn {shape}: rank {r} exited {p.returncode}")
+            res = [json.loads(x[len("DCN-RESULT "):]) for x in out.splitlines() if x.startswith("DCN-RESULT ")]
+            check(len(res) == (2 if shape == "1d" else 3), f"dcn {shape}: rank {r} printed {len(res)} results")
+            results.append(res)
+        for r, res in enumerate(results):
+            for x in res:
+                check(x["used_sha"] == want[x["cell"]], f"dcn {shape} rank {r} {x['cell']}: usage != one process's")
+        print(f"[dcn] {shape}: both ranks' choices, usage, ordinals and sweeps == the single process's; per rank "
+              + "; ".join(f"rank {r}: " + ", ".join(f"{x['cell']} step_s {x['step_s']:.4f} (cross-rank gathers "
+                                                    f"{x['gather_s']:.4f} s, {x['exchanges']} exchanges, "
+                                                    f"{x['staged_bytes']} B staged)" for x in res)
+                          for r, res in enumerate(results))
+              + " (gloo on one card, the ranks time-sliced: not NCCL, not a scale-out)", flush=True)
+
+
+def dcn_worker(rank: int, port: int, shape: str) -> int:
+    """One rank of phase_dcn: joins the gloo group, places its blocks through
+    DeltaEncoder(mesh=), runs the cell's steps, checks the single-process
+    digests and prints one DCN-RESULT JSON line per cell."""
+    import torch
+    import torch.distributed as dist
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel.mesh import init_distributed
+
+    mesh = init_distributed(f"127.0.0.1:{port}", 2, rank, mesh_shape=DCN_SHAPES[shape], backend="gloo",
+                            devices=["cuda:0"] * 2)
+    span = mesh.span
+    print(f"{mesh}: backend {dist.get_backend()}, CUDA tensors staged through host memory for gloo", flush=True)
+    cells = [("north-star", w.heterogeneous(**w.NORTH_STAR), w.NORTH_STAR_CHOICES_SHA256, w.NORTH_STAR_DENSE_SWEEPS,
+              w.NORTH_STAR_DENSE_ORDINALS_SHA256, {"packed_static_rows": 2, "stitch_planes": 1,
+                                                   "chunk_rounds_dense": 1})]
+    if shape != "1d":
+        cells.append(("config3", w.spread_affinity(**w.CONFIG3), w.CONFIG3_CHOICES_SHA256, w.CONFIG3_ROUNDS_SWEEPS,
+                      w.CONFIG3_ROUNDS_ORDINALS_SHA256, {"packed_static_rows": 2, "rounds_shard": 1}))
+    def run(cell, step_fn, need, want_c, want_sw, want_o, n, n_nodes):
+        kernels.reset_launches()
+        step = step_fn()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(launches == need, f"dcn {shape} {cell}: launches {launches}, want {need}")
+        digest = sha_i32(step.choices[:n])
+        check(digest == want_c, f"dcn {shape} {cell}: choices differ from JAX")
+        check(step.sweeps == want_sw and sha_i32(step.ordinals[:n]) == want_o, f"dcn {shape} {cell}: ordinals")
+        stats0 = dict(span.stats)
+        step_s = best_step_s(step_fn)
+        st = span.stats
+        calls = st["calls"] - stats0["calls"]
+        gather_s = (st["seconds"] - stats0["seconds"]) / 2
+        print(f"{cell}: choices sha256 {digest}, sweeps {step.sweeps}, launches {launches}, step_s {step_s:.4f} "
+              f"(best of 2), cross-rank gathers {gather_s:.4f} s a step ({calls // 2} exchanges)", flush=True)
+        print("DCN-RESULT " + json.dumps(dict(cell=cell, choices_sha=digest, used_sha=sha_i32(step.used[:n_nodes]),
+                                              step_s=step_s, gather_s=gather_s, exchanges=calls // 2,
+                                              staged_bytes=(st["staged_bytes"] - stats0["staged_bytes"]) // 2)),
+              flush=True)
+
+    for cell, snap, want_c, want_sw, want_o, need in cells:
+        enc = DeltaEncoder(mesh=mesh)
+        host, meta = enc.encode(snap)
+        arr, _ = enc.to_device(host, meta)
+        cfg = infer_score_config(host, DEFAULT_SCORE_CONFIG)
+        n = meta.n_pods
+        run(cell, lambda: assign.finish(assign.dispatch(arr, cfg, mesh=mesh)), need, want_c, want_sw, want_o, n,
+            host.N)
+        if cell == "north-star":
+            kernels.reset_launches()
+            inc = HoistCache(mesh=mesh).ensure(arr, meta, cfg, host=host)
+            torch.cuda.synchronize()
+            hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            check(hl == {"class_static_hoist": 2, "class_usage_hoist": 2, "stitch_planes": 2},
+                  f"dcn {shape}: HoistCache launches {hl}")
+            run("north-star-waves", lambda: assign.finish(assign.dispatch(arr, cfg, inc=inc, mesh=mesh)),
+                {"wave_commit": 1, "chunk_rounds": 1}, want_c, w.NORTH_STAR_WAVE_SWEEPS,
+                w.NORTH_STAR_WAVE_ORDINALS_SHA256, n, host.N)
+            del inc
+        del arr, enc
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+
 def choices_used(arr, choices, k: int):
     """node_used after the first k pods' placements."""
     import torch
@@ -2923,12 +3276,16 @@ def main() -> int:
     warm = phase_warm_loop(cold)
     rows += phase_mesh_north_star(used_sha)
     phase_mesh_warm_loop(cold, warm)
+    phase_mesh2d_north_star(used_sha)
+    phase_mesh2d_warm_loop(cold, warm)
     rows += phase_ring()
     rows += phase_wide_planes()
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
     cold3, _, inc_rows = phase_config3_inc(c3)
     mesh3_rows = phase_mesh_config3(c3, k12_row, k11_row)
+    phase_mesh2d_config3(c3)
+    c3_used_sha = sha_i32(choices_used(c3[0], c3[3], c3[0].P)[:c3[0].N])
     k_ops3 = c3[-1]
     del c3
     warm3 = phase_config3_warm(cold3)
@@ -2945,6 +3302,7 @@ def main() -> int:
     phase_sidecar_north_star()
     phase_sidecar_config5()
     rows += phase_preempt(k14)
+    phase_dcn(used_sha, c3_used_sha)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2953,4 +3311,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dcn-worker"]:
+        sys.exit(dcn_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(sidecar_config5_child() if sys.argv[1:] == ["--sidecar-config5"] else main())

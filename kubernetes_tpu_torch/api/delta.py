@@ -51,7 +51,12 @@ padded host-side with permanently invalid nodes (``_pad_for_mesh``, the
 rules of parallel/mesh.py -- pad_field), memoized by the host array's
 identity, so the resident-reuse check still hits; a warm delta re-places
 only the shards whose rows changed.  The arrays come back as a
-``ShardedArrays``.  Changing the mesh drops the resident tensors.
+``ShardedArrays``.  Changing the mesh drops the resident tensors.  On a
+pods x nodes grid (parallel/mesh.py -- GridMesh; the JAX package's
+api/delta.py:900-921, :960-962) the pod axis is padded too (invalid pods)
+and every pod-axis field is resident per pod row on that row's devices,
+beside the node columns: the arrays come back as a ``GridArrays``.  Across
+ranks (a mesh of init_distributed) each rank places only its own blocks.
 
 Not ported here (each refused where it would be needed, never dropped):
 volumes and resource claims (the cluster side keeps no storage
@@ -905,17 +910,19 @@ class DeltaEncoder:
     def mesh(self):
         return self._mesh
 
-    def _pad_for_mesh(self, name: str, a: np.ndarray, pad: int, d_sentinel: int, n: int) -> np.ndarray:
-        """A field's node axis padded for the mesh (parallel/mesh.py --
-        pad_field), memoized by the input array's identity: an unchanged
-        field keeps one padded object across cycles, which the
-        resident-reuse check keys on (the JAX package's delta.py:902)."""
-        from ..parallel.mesh import pad_field
+    def _pad_for_mesh(self, name: str, a: np.ndarray, pad: int, d_sentinel: int, n: int,
+                      pod_pad: int = 0) -> np.ndarray:
+        """A field's pod and node axes padded for the mesh (parallel/mesh.py
+        -- pad_pod_field, pad_field), memoized by the input array's
+        identity: an unchanged field keeps one padded object across cycles,
+        which the resident-reuse check keys on (the JAX package's
+        delta.py:902)."""
+        from ..parallel.mesh import pad_field, pad_pod_field
 
         memo = self._pad_memo.get(name)
         if memo is not None and memo[0] is a:
             return memo[1]
-        p = pad_field(name, a, pad, d_sentinel, n)
+        p = pad_field(name, pad_pod_field(name, a, pod_pad), pad, d_sentinel, n)
         if p is not a:
             self._pad_memo[name] = (a, p)
         return p
@@ -988,39 +995,52 @@ class DeltaEncoder:
         return d, True
 
     def _to_mesh(self, arr, meta):
-        """Place host arrays on the node mesh: each node-axis field padded
-        and cut into the shards' rows, each block resident on its shard's
-        device; every other field resident once per device."""
-        from ..parallel.mesh import ShardedArrays
-        from ..parallel.partition_rules import node_axis_of
+        """Place host arrays on the node mesh (or the grid): each node-axis
+        field padded and cut into the node columns' rows, on a grid each
+        pod-axis field padded and cut into the pod rows' blocks, each block
+        resident on its position's device; every other field resident once
+        per device.  Resident keys: a node block (field, shard) on a 1-D
+        mesh, (field, shard, device) on a grid; a pod block (field, "pods",
+        row[, shard], device); a whole field (field, device)."""
+        from ..parallel.mesh import GridArrays, GridMesh, ShardedArrays, mesh_axis_shards
+        from ..parallel.partition_rules import node_axis_of, pod_axis_of
 
         mesh = self._mesh
-        n = arr.N
-        pad = (-n) % mesh.size
-        nl = (n + pad) // mesh.size
+        grid = isinstance(mesh, GridMesh)
+        rows = mesh.rows if grid else (mesh,)
+        pod_shards, node_shards = mesh_axis_shards(mesh)
+        n, p = arr.N, arr.P
+        pad, pod_pad = (-n) % node_shards, (-p) % pod_shards
+        nl, pl = (n + pad) // node_shards, (p + pod_pad) // pod_shards
         d_sentinel = arr.term_counts0.shape[1] - 1
-        shards = [{} for _ in mesh.devices]
+        cells = [[{} for _ in row.devices] for row in rows]
         copied = False
         for name in ClusterArrays.FIELDS:
             a = getattr(arr, name)
-            axis = node_axis_of(name, np.shape(a), n)
-            if axis is None:
-                placed = {}
-                for s, dev in enumerate(mesh.devices):
-                    if dev not in placed:
-                        placed[dev], c = self._put((name, dev), a, a, dev)
-                        copied |= c
-                    shards[s][name] = placed[dev]
-                continue
-            a = self._pad_for_mesh(name, a, pad, d_sentinel, n)
-            for s, dev in enumerate(mesh.devices):
-                blk = a[s * nl:(s + 1) * nl] if axis == 0 else a[:, s * nl:(s + 1) * nl]
-                shards[s][name], c = self._put((name, s), a, blk, dev)
-                copied |= c
+            naxis = node_axis_of(name, np.shape(a), n)
+            paxis = pod_axis_of(name) if grid else None
+            if naxis is not None or paxis is not None:
+                a = self._pad_for_mesh(name, a, pad, d_sentinel, n, pod_pad if grid else 0)
+            for i, (r, row) in enumerate(zip(mesh.row_ids if grid else (0,), rows)):
+                for j, (s, dev) in enumerate(zip(row.ids, row.devices)):
+                    blk, key = a, (name,)
+                    if paxis is not None:
+                        blk = blk[(slice(None),) * paxis + (slice(r * pl, (r + 1) * pl),)]
+                        key += ("pods", r)
+                    if naxis is not None:
+                        blk = blk[(slice(None),) * naxis + (slice(s * nl, (s + 1) * nl),)]
+                        key += (s,)
+                    if grid or naxis is None:
+                        key += (dev,)
+                    cells[i][j][name], c = self._put(key, a, blk, dev)
+                    copied |= c
         if copied and self.device.type != "cpu":
             self._fence()
         image_sharded = np.shape(arr.image_score)[1] == n
-        return ShardedArrays(mesh, tuple(ClusterArrays(**f) for f in shards), image_sharded), meta
+        cells = tuple(tuple(ClusterArrays(**f) for f in row) for row in cells)
+        if grid:
+            return GridArrays(mesh, cells, image_sharded), meta
+        return ShardedArrays(mesh, cells[0], image_sharded), meta
 
     def _to_device(self, arr, meta):
         if self._mesh is not None:

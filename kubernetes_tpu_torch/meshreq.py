@@ -3,10 +3,8 @@
 
 ``KTPU_MESH`` / ``KTPU_MESH_PODS`` / ``KTPU_MESH_NODES`` parse here exactly
 as in the JAX package: a 1-D node-axis count, or a (pods, nodes) pair for a
-2-D grid.  The port builds only the 1-D node mesh
-(``parallel/mesh.py`` -- ``make_mesh`` / ``mesh_from_env``); a 2-D request
-parses and is then refused there (ROADMAP.md queue A12).  Importing this
-module touches no backend.
+2-D grid, which ``parallel/mesh.py`` -- ``make_mesh`` / ``mesh_from_env``
+builds.  Importing this module touches no backend.
 """
 
 from __future__ import annotations

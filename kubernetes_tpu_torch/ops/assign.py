@@ -73,6 +73,7 @@ back and raises on the cap (``schedule_batch`` does both).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
@@ -258,78 +259,122 @@ def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 # ---------------------------------------------------------------------------
 # the node-axis reductions of the sharded scans (the JAX package's
-# assign.py:56-110) over per-shard lists: xs[s] is shard s's [*, nl] block,
-# base s * nl its first global node id; each result is replicated, one copy
-# per shard's device (parallel/collectives.py).  With one shard each is the
-# single-device operation.
+# assign.py:56-110) over per-shard lists: xs[i] is local shard i's [*, nl]
+# block, g * nl the first global node id of its global id g (shard_ids:
+# the list index in one process; across ranks, `span`, the rank's run);
+# each result is replicated, one copy per local shard's device
+# (parallel/collectives.py).  With one shard each is the single-device
+# operation.
 # ---------------------------------------------------------------------------
 
-def _rmax(xs):
+def _rmax(xs, span=None):
     """Reduce-max over the node axis (last), then across the shards."""
     from ..parallel.collectives import pmax
 
-    return pmax([x.max(dim=-1).values for x in xs])
+    return pmax([x.max(dim=-1).values for x in xs], span)
 
 
-def _rmin(xs):
+def _rmin(xs, span=None):
     from ..parallel.collectives import pmin
 
-    return pmin([x.min(dim=-1).values for x in xs])
+    return pmin([x.min(dim=-1).values for x in xs], span)
 
 
-def _gather_cols(xs, cols: torch.Tensor, nl: int):
-    """x[:, cols] for node-sharded blocks xs[s] [C, nl] and GLOBAL column ids
+def _gather_cols(xs, cols: torch.Tensor, nl: int, span=None):
+    """x[:, cols] for node-sharded blocks xs[i] [C, nl] and GLOBAL column ids
     cols [D] -> [C, D], replicated: the owner shard contributes its columns,
     the others zeros, and the psum adds them (a bool plane goes through
     int32 and > 0, as the JAX package's does)."""
-    from ..parallel.collectives import psum
+    from ..parallel.collectives import psum, shard_ids
 
     isbool = xs[0].dtype == torch.bool
     parts = []
-    for s, x in enumerate(xs):
+    for s, x in zip(shard_ids(len(xs), span), xs):
         c = cols.to(x.device)
         mine = (c >= s * nl) & (c < (s + 1) * nl)
         lc = torch.where(mine, c - s * nl, 0).to(torch.int64)
         xv = x.to(torch.int32) if isbool else x
         v = torch.gather(xv, 1, lc[None, :].expand(x.shape[0], -1))
         parts.append(torch.where(mine[None, :], v, torch.zeros((), dtype=v.dtype, device=v.device)))
-    out = psum(parts)
+    out = psum(parts, span)
     return [o > 0 for o in out] if isbool else out
 
 
-def _gather_at_nodes(xs, rows: torch.Tensor, nodes: torch.Tensor, nl: int):
-    """x[rows, nodes] for node-sharded blocks xs[s] [T, nl] and GLOBAL node
+def _gather_at_nodes(xs, rows: torch.Tensor, nodes: torch.Tensor, nl: int, span=None):
+    """x[rows, nodes] for node-sharded blocks xs[i] [T, nl] and GLOBAL node
     ids: the owner shard's value, the psum broadcast."""
-    from ..parallel.collectives import psum
+    from ..parallel.collectives import psum, shard_ids
 
     parts = []
-    for s, x in enumerate(xs):
+    for s, x in zip(shard_ids(len(xs), span), xs):
         r, n = rows.to(x.device).to(torch.int64), nodes.to(x.device)
         mine = (n >= s * nl) & (n < (s + 1) * nl)
         v = x[r, torch.where(mine, n - s * nl, 0).to(torch.int64)]
         parts.append(torch.where(mine, v, torch.zeros((), dtype=v.dtype, device=v.device)))
-    return psum(parts)
+    return psum(parts, span)
 
 
-def _global_top_k(xs, k: int):
-    """top_k over the GLOBAL node axis of node-sharded blocks xs[s] [C, nl]
+def _global_top_k(xs, k: int, span=None):
+    """top_k over the GLOBAL node axis of node-sharded blocks xs[i] [C, nl]
     -> (values [C, k], GLOBAL ids [C, k]), replicated: each shard's local
     top-kl (kl = min(k, nl)), its ids made global, gathered in shard order,
     then a top-k of the S * kl candidates with lowest-position ties -- the
     shard order is the global index order, so the result is top_k of the
     whole row (the JAX package's assign.py:91)."""
-    from ..parallel.collectives import all_gather_nodes
+    from ..parallel.collectives import all_gather_nodes, shard_ids
 
     nl = xs[0].shape[-1]
     kl = min(k, nl)
     loc = [top_k(x, kl) for x in xs]
+    ids = shard_ids(len(xs), span)
     out = []
-    for s, x in enumerate(xs):
-        av = all_gather_nodes([v for v, _ in loc], 1, x.device)
-        ai = all_gather_nodes([i + j * nl for j, (_, i) in enumerate(loc)], 1, x.device)
+    for x in xs:
+        av = all_gather_nodes([v for v, _ in loc], 1, x.device, span)
+        ai = all_gather_nodes([i + g * nl for g, (_, i) in zip(ids, loc)], 1, x.device, span)
         mv, mp = top_k(av, k)
         out.append((mv, torch.gather(ai, 1, mp.to(torch.int64))))
     return [v for v, _ in out], [i for _, i in out]
+
+
+def pod_unshard(ga, inc=None):
+    """The entry stage of every route on a pods x nodes grid (the JAX
+    package's assign.py:114): the pod-axis fields of arrays placed on the
+    grid (parallel/mesh.py -- GridArrays) gathered back to the whole pod
+    axis, one tiled gather per field along its own pod axis (m_pend's is
+    axis 1; parallel/collectives.py -- all_gather_nodes), onto each device
+    of the first pod row this process holds -> (ShardedArrays of that row
+    on its NodeMesh, inc).  The node-axis routes then run on it unchanged.
+
+    Every pod row would compute the same program on the same node shards
+    (the JAX package's docstring, :118-133), so a controller runs it once,
+    on its first row; across ranks (the grid's span) the gather is the
+    cross-rank exchange and each rank runs its own first row.  `inc` (a
+    grid HoistCache's class state) has its pod-aligned class index gathered
+    too, one block per pod row in ``inc.cls``; the [U1, *] class planes are
+    class-aligned and never cut by pods."""
+    from ..parallel.collectives import all_gather_nodes
+    from ..parallel.mesh import ShardedArrays
+    from ..parallel.partition_rules import POD_AXIS_FIELDS, pod_axis_of
+
+    mesh = ga.mesh
+    row = mesh.rows[0]
+    gathered = {}
+    shards = []
+    for s, dev in enumerate(row.devices):
+        repl = {}
+        for name in (*POD_AXIS_FIELDS, "image_score"):
+            key = (name, dev, s if name == "image_score" and ga.image_sharded else None)
+            if key not in gathered:
+                gathered[key] = all_gather_nodes([getattr(c[s], name) for c in ga.cells], pod_axis_of(name), dev,
+                                                 mesh.span)
+            repl[name] = gathered[key]
+        shards.append(dataclasses.replace(ga.cells[0][s], **repl))
+    sa = ShardedArrays(row, tuple(shards), ga.image_sharded)
+    if inc is not None and isinstance(inc.cls, tuple):
+        cls = {dev: all_gather_nodes(list(inc.cls), 0, dev, mesh.span) for dev in set(row.devices)}
+        inc = inc._replace(cls=cls[row.devices[0]],
+                           shards=tuple(x._replace(cls=cls[d]) for x, d in zip(inc.shards, row.devices)))
+    return sa, inc
 
 
 def _first(mask: torch.Tensor) -> torch.Tensor:
@@ -1087,15 +1132,15 @@ def dispatch(arr, cfg: ScoreConfig, device=None, inc=None, chunked: Optional[boo
     arguments (schedule_scan_chunked's, or schedule_scan_rounds' rchunk /
     repair_iters).
 
-    `mesh` (parallel/mesh.py -- NodeMesh, more than one shard), or arrays
-    already placed on one (ShardedArrays): the chunked route node-sharded,
-    with the same decisions (parallel/sharded.py -- sharded_dispatch, the
-    JAX package's schedule_batch_routed(mesh=)); a batch the chunked route
-    does not take raises there."""
+    `mesh` (parallel/mesh.py -- a NodeMesh of more than one shard, or a
+    pods x nodes GridMesh), or arrays already placed on one (ShardedArrays,
+    GridArrays): the same routes on the mesh, with the same decisions
+    (parallel/sharded.py -- sharded_dispatch, the JAX package's
+    schedule_batch_routed(mesh=))."""
     dev = resolve_device(device)
     check_config(cfg)
     mesh = mesh if mesh is not None else getattr(arr, "mesh", None)
-    if mesh is not None and mesh.size > 1:
+    if mesh is not None and (mesh.size > 1 or hasattr(arr, "mesh")):  # placed arrays: even on one shard
         from ..parallel.sharded import sharded_dispatch
 
         return sharded_dispatch(arr, cfg, mesh, dev, inc=inc, chunked=chunked, **knobs)

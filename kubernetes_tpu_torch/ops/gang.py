@@ -91,10 +91,20 @@ def schedule_with_gangs(arr, cfg: ScoreConfig, with_ordinals: bool = False, inc=
     (`mesh` of more than one shard, or arrays placed on one) every
     iteration is the routed step on the mesh (parallel/sharded.py), as in
     the JAX package (its gang.py:47-90); each iteration's pod_valid is
-    replaced on every shard."""
+    replaced on every shard.  On a pods x nodes grid the fixpoint runs on
+    the first held pod row after the entry gather (ops/assign.py --
+    pod_unshard), its outputs sliced back to the caller's P."""
     dev = resolve_device(device)
     mesh = mesh if mesh is not None else getattr(arr, "mesh", None)
-    if mesh is not None and mesh.size > 1:
+    from ..parallel.mesh import GridMesh
+
+    if isinstance(mesh, GridMesh):
+        from ..parallel.sharded import _unshard
+
+        sa, inc, p = _unshard(arr, mesh, dev, inc)
+        out = schedule_with_gangs(sa, cfg, with_ordinals, inc, dev, sa.mesh, **knobs)
+        return (out[0][:p], out[1]) + ((out[2][:p], out[3]) if with_ordinals else ())
+    if mesh is not None and (mesh.size > 1 or hasattr(arr, "shards")):
         from ..parallel.mesh import shard_arrays
 
         if not hasattr(arr, "shards"):

@@ -196,7 +196,11 @@ _STATIC_FIELDS = (
 
 def _fields(arr, names):
     """The tensors of `names` in arr, for identity keys: a node mesh's
-    ShardedArrays gives every shard's (parallel/mesh.py)."""
+    ShardedArrays gives every shard's, a grid's GridArrays every
+    position's (parallel/mesh.py)."""
+    cells = getattr(arr, "cells", None)
+    if cells is not None:
+        return tuple(getattr(c, f) for f in names for row in cells for c in row)
     shards = getattr(arr, "shards", None)
     if shards is None:
         return tuple(getattr(arr, f) for f in names)
@@ -249,13 +253,28 @@ class HoistCache:
     cycle where a side changed (the tiled all_gather, then K17 for the
     packed planes).  The mesh takes `arr` as the encoder places it
     (ShardedArrays) or arrays on one device, which it pads and cuts itself.
+    Across ranks (the mesh's span) each rank hoists its own shards and the
+    stitch gathers across the ranks.
+
+    ON A PODS x NODES GRID (parallel/mesh.py -- GridMesh; the JAX package's
+    incremental.py:455-457, :562-568): the planes are those of the node
+    mesh of one pod row, hoisted after the entry gather of the pod rows
+    (ops/assign.py -- pod_unshard; the fingerprints read the placed,
+    ungathered tensors); the class index is padded to a multiple of the
+    pod rows with class 0 (padded pods are invalid) and kept one block per
+    pod row, ``cls`` a tuple that pod_unshard gathers at the step's entry.
 
     ``stats`` counts actions, ``last`` describes the latest, ``history``
     keeps up to 512 of them, ``summary()`` is the bench triple.
     """
 
     def __init__(self, mesh=None):
+        from ..parallel.mesh import GridMesh
+
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._grid = self.mesh if isinstance(self.mesh, GridMesh) else None
+        # the node mesh whose shards hold the planes (a grid: its first held row)
+        self._nodes = self._grid.rows[0] if self._grid is not None else self.mesh
         self._static_key = None
         self._statics = None  # (stat, elig, traw, naraw, img); on a mesh the stitched stat (or None)
         self._usage_key = None
@@ -265,8 +284,7 @@ class HoistCache:
         self._blocks = None
         self._req_u_host = None
         self._prev_used = None
-        self._cls_ent = None  # (host array, device tensor)
-        self._ru_ent = None
+        self._memo = {}  # key -> (host array, device tensor): the class index and class rows
         self.shard_cols = []  # a mesh's latest patch: each shard's local column ids
         self.stats = {
             "hits": 0, "patched": 0, "full": 0, "static_rebuilds": 0,
@@ -293,8 +311,7 @@ class HoistCache:
         self._blocks = None
         self._req_u_host = None
         self._prev_used = None
-        self._cls_ent = None
-        self._ru_ent = None
+        self._memo = {}
 
     def summary(self) -> dict:
         fr = sorted(
@@ -307,22 +324,22 @@ class HoistCache:
             "hoist_cache_full": self.stats["full"] + self.stats["static_rebuilds"],
         }
 
-    def _on_device(self, name: str, host: np.ndarray, dtype, device) -> torch.Tensor:
+    def _on_device(self, key, host: np.ndarray, dtype, device) -> torch.Tensor:
         """Device copy memoized by host identity or equal value."""
-        ent = getattr(self, name)
+        ent = self._memo.get(key)
         if ent is not None and ent[1].device == device and (
             ent[0] is host or (ent[0].shape == host.shape and np.array_equal(ent[0], host))
         ):
             return ent[1]
         d = h2d(host, device, dtype)
-        setattr(self, name, (host, d))
+        self._memo[key] = (host, d)
         return d
 
     # -- the node mesh's per-shard planes --
     def _shards(self, arr):
         from ..parallel.mesh import shard_arrays
 
-        return arr.shards if hasattr(arr, "shards") else shard_arrays(arr, self.mesh).shards
+        return arr.shards if hasattr(arr, "shards") else shard_arrays(arr, self._nodes).shards
 
     def _stitch(self, plane: str, blocks, nl: int) -> torch.Tensor:
         """A class plane's shard blocks stitched on the mesh's first device:
@@ -330,7 +347,7 @@ class HoistCache:
         from ..parallel.collectives import all_gather_nodes
         from ..parallel.partition_rules import INC_NODE_AXIS
 
-        full = all_gather_nodes(blocks, INC_NODE_AXIS[plane], self.mesh.devices[0])
+        full = all_gather_nodes(blocks, INC_NODE_AXIS[plane], self._nodes.devices[0], self._nodes.span)
         return full if plane == "base_u" else bitplane.stitch_planes(full, nl)
 
     def _mesh_static(self, arr, r_u: torch.Tensor, n: int, wants, want_img: bool, stitch: bool):
@@ -338,10 +355,10 @@ class HoistCache:
         -> the stitched stat_u, or None unless `stitch`."""
         shards = self._shards(arr)
         blocks = []
-        for s, sh in enumerate(shards):
+        for s, sh in zip(self._nodes.ids, shards):
             ru = r_u.to(sh.device)
             img = sh.image_score[ru].contiguous() if want_img else None
-            blocks.append(static_hoist(sh, ru, *wants, base=self.mesh.base(s, n)) + (img,))
+            blocks.append(static_hoist(sh, ru, *wants, base=self._nodes.base(s, n)) + (img,))
         self._blocks["static"] = blocks
         return self._stitch("stat_u", [b[0] for b in blocks], shards[0].N) if stitch else None
 
@@ -356,15 +373,15 @@ class HoistCache:
                                      for sh in shards]
         else:
             out = []
-            for s, sh in enumerate(shards):
+            for j, (s, sh) in enumerate(zip(self._nodes.ids, shards)):
                 own = dirty[(dirty >= s * nl) & (dirty < (s + 1) * nl)] - s * nl
                 self.shard_cols.append(own)
                 if not len(own):
-                    out.append(self._blocks["usage"][s])
+                    out.append(self._blocks["usage"][j])
                     continue
                 cols_h = np.full(_round_up_pow2(len(own)), nl, dtype=np.int32)
                 cols_h[:len(own)] = own
-                base_s, fit_s = self._blocks["usage"][s]
+                base_s, fit_s = self._blocks["usage"][j]
                 out.append(patch_hoist(base_s, fit_s, req_u.to(sh.device), sh.node_used, sh.node_alloc,
                                        h2d(cols_h, sh.device), cfg))
             self._blocks["usage"] = out
@@ -383,19 +400,27 @@ class HoistCache:
         if pc is None or r_u_h is None:
             self.stats["skipped"] += 1
             return None
+        grid, mesh = self._grid, self._nodes
+        keyed = placed = arr  # the fingerprints read the caller's tensors, never the gathered ones
+        if grid is not None:
+            from ..parallel.mesh import GridArrays, grid_arrays
+            from .assign import pod_unshard
+
+            placed = arr if isinstance(arr, GridArrays) else grid_arrays(arr, grid)
         u1 = int(r_u_h.shape[0])
-        if u1 >= arr.P:
+        if u1 >= placed.P:
             # the all-pods-unique wave: the class route would be a no-op
             self.stats["skipped"] += 1
             self._note("skipped_degenerate", u1, 1.0, 0)
             return None
-        mesh = self.mesh
+        if grid is not None:
+            arr = pod_unshard(placed)[0]  # the first held pod row, all pods gathered
         dev = arr.device
         # on a mesh the node axis is padded to a multiple of its shards (the
         # JAX package's np_nodes)
         N = arr.N + ((-arr.N) % mesh.size if mesh is not None else 0)
         pods = arr.shards[0] if hasattr(arr, "shards") else arr
-        r_u = self._on_device("_ru_ent", r_u_h, torch.int64, dev)
+        r_u = self._on_device("r_u", r_u_h, torch.int64, dev)
 
         # ---- static side (usage-independent; pod_valid excluded) ----
         # the class planes the config reads (the JAX package's incremental.py:462-465)
@@ -407,7 +432,7 @@ class HoistCache:
         # on a mesh the class-wave route reads the planes stitched
         stitch = mesh is not None and not (want_elig or want_traw or want_naraw or want_img or cfg.enable_ports) \
             and arr.P >= 128 and arr.P % 128 == 0
-        skey_arrays = (pc, r_u_h) + _fields(arr, _STATIC_FIELDS)
+        skey_arrays = (pc, r_u_h) + _fields(keyed, _STATIC_FIELDS)
         skey_meta = (u1, N, cfg, want_elig, want_traw, want_naraw, want_img, stitch, str(dev))
         action = None
         if not (
@@ -435,14 +460,14 @@ class HoistCache:
         if host is not None:
             used_h = host.node_used
         elif hasattr(arr, "shards"):
-            used_h = torch.cat([sh.node_used.cpu() for sh in arr.shards]).numpy()
+            used_h = arr.gather("node_used").cpu().numpy()
         else:
             used_h = arr.node_used.cpu().numpy()
         if mesh is not None:
             used_h = _pad_rows(used_h, N)
         req_u_h = np.ascontiguousarray(pod_req_h[r_u_h])
         ukey_meta = (u1, N, cfg, str(dev))
-        alloc_key = _fields(arr, ("node_alloc",))
+        alloc_key = _fields(keyed, ("node_alloc",))
         usage_ok = (
             self._usage_key is not None
             and self._usage_key[1] == ukey_meta
@@ -485,14 +510,22 @@ class HoistCache:
         self._req_u_host = req_u_h
         self._prev_used = used_h
 
-        cls = self._on_device("_cls_ent", pc, torch.int32, dev)
+        if grid is None:
+            cls = self._on_device("cls", pc, torch.int32, dev)
+        else:
+            # one block per held pod row, padded with class 0 to the rows
+            pl = grid.pl(pc.shape[0])
+            cls_h = np.pad(pc, (0, pl * grid.pods - pc.shape[0]))
+            cls = tuple(self._on_device(("cls", r), cls_h[r * pl:(r + 1) * pl], torch.int32, row.devices[0])
+                        for r, row in zip(grid.row_ids, grid.rows))
         self._note(action, u1, frac, ncols)
         stat, elig, traw, naraw, img = self._statics
         per_shard = None
         if mesh is not None:
             per_shard = tuple(
-                IncState(cls=cls.to(st[0].device), req_u=req_u.to(st[0].device), stat_u=st[0], base_u=us[0],
-                         fit_u=us[1], elig_u=st[1], traw_u=st[2], naraw_u=st[3], img_u=st[4])
+                IncState(cls=None if grid is not None else cls.to(st[0].device), req_u=req_u.to(st[0].device),
+                         stat_u=st[0], base_u=us[0], fit_u=us[1], elig_u=st[1], traw_u=st[2], naraw_u=st[3],
+                         img_u=st[4])
                 for st, us in zip(self._blocks["static"], self._blocks["usage"]))
         return IncState(cls=cls, req_u=req_u, stat_u=stat, base_u=self._usage[0], fit_u=self._usage[1],
                         elig_u=elig, traw_u=traw, naraw_u=naraw, img_u=img, shards=per_shard)

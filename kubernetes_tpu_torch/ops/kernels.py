@@ -32,7 +32,7 @@ shard per quantity, and launch one cooperative grid (S blocks for K2 and
 K11, C * S for K12) on the card that holds every shard; each counts under
 its own LAUNCHES key.  They refuse the gated mode, more than MAX_SHARDS
 shards, a grid the card cannot hold resident, and shards on more than one
-card (shard_grid_check), naming ROADMAP.md queue A12.
+card or rank (shard_grid_check, _shard_checks), naming ROADMAP.md queue A12.
 
 The gated mode.  The kernels of every route the gang fixpoint's device loop
 takes (ops/gang.py) -- K1 static_feasible and K2 fit_scan, K7, K8, K11
@@ -1204,6 +1204,9 @@ def _shard_checks(sa, name: str, done, blocks: int) -> torch.device:
     if done is not None:
         raise NotImplementedError(f"{name}: the gated mode is not taken in shard mode (the device gang fixpoint "
                                   f"runs on one device, as in the JAX package; {_A12})")
+    if sa.mesh.span is not None:
+        raise NotImplementedError(f"{name}: a shard-mode launch holds every shard in one process; {sa.mesh} spans "
+                                  f"several ranks (an exchange across processes is not ported, {_A12})")
     dev = sa.device
     _need_cuda(dev, name)
     if any(d != dev for d in sa.mesh.devices):

@@ -32,10 +32,11 @@ on, an unchanged field is the resident tensor of the cycle before, and no
 step, hoist or copy ever writes a tensor a step in flight reads.  So two
 generations live on the card at once and neither disturbs the other.
 
-``mesh`` (parallel/mesh.py -- NodeMesh): the loop's encoder and HoistCache
-take it, and each step runs node-sharded on the route dispatch picks
-(parallel/sharded.py; config 3's warm waves: the rounds route on class
-state), the JAX package's PipelinedBatchLoop(mesh=) (its
+``mesh`` (parallel/mesh.py -- a NodeMesh, or a pods x nodes GridMesh): the
+loop's encoder and HoistCache take it, and each step runs sharded on the
+route dispatch picks (parallel/sharded.py; config 3's warm waves: the
+rounds route on class state; on a grid the pod rows are gathered at the
+step's entry), the JAX package's PipelinedBatchLoop(mesh=) (its
 pipeline.py:78-88).
 
 ``overlap_fraction()`` is the share of host pipeline work (encode and
@@ -82,10 +83,11 @@ class PipelinedBatchLoop:
         self.device = self.enc.device
         self.base_config = base_config
         self.depth = depth
-        # the node mesh of the sharded step (parallel/sharded.py): the
-        # encoder keeps each node-axis field resident per shard, and the
-        # class state is hoisted per shard and stitched once per cycle; an
-        # encoder already on a mesh keeps it
+        # the mesh of the sharded step (parallel/sharded.py): the encoder
+        # keeps each node-axis field resident per shard (on a grid each
+        # pod-axis field per pod row too), and the class state is hoisted
+        # per shard and stitched once per cycle; an encoder already on a
+        # mesh keeps it
         if mesh is not None:
             self.enc.set_mesh(mesh)
         self.mesh = self.enc.mesh

@@ -62,6 +62,9 @@ def _match_into(out: torch.Tensor, col0: int, sel, kind, lab) -> None:
 
 
 def _blocks(x: torch.Tensor, mesh: NodeMesh) -> List[torch.Tensor]:
+    if not isinstance(mesh, NodeMesh) or mesh.span is not None:
+        raise NotImplementedError(f"the ring runs on a node mesh held by one process, not on {mesh} "
+                                  "(ROADMAP.md queue A12)")
     d = mesh.size
     w = x.shape[0] // d
     return [x[j * w:(j + 1) * w].contiguous().to(mesh.devices[j]) for j in range(d)]

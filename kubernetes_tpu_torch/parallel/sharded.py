@@ -44,6 +44,17 @@ route's on every one:
   usage replicated (the JAX package gathers it once per step); the per-pod
   scan keeps it per shard.
 
+ON THE PODS x NODES GRID (parallel/mesh.py -- GridMesh) the pod axis is
+padded too, before the route is chosen, the pod-axis fields are gathered
+once at entry (ops/assign.py -- pod_unshard) and one pod row's node mesh
+runs the step above: no other kernel and no other collective.  ACROSS
+RANKS (the mesh's span) every collective above exchanges through the
+process group; a grid whose rows span the ranks exchanges at the entry
+gather only.  The shard modes of K2, K11 and K12 hold every shard on one
+card, so across ranks the card runs the chunked route (K7 per shard, the
+stitch's gather across ranks, K17, then K8 or K5/K6) and the other routes
+raise there; the CPU runs every route.
+
 The usage comes back gathered on the padded node axis; its pad rows are
 zero.  ``TRACE_COUNTS`` counts ``sharded_chunked``,
 ``sharded_chunked_inc``, ``sharded_rounds``, ``sharded_rounds_inc`` and
@@ -60,7 +71,7 @@ from ..ops.assign import (_INT_MAX, INC_CHUNK, RCHUNK, REPAIR_ITERS, Step, TRACE
 from ..ops.incremental import _scores, fit_rows, score_flat
 from ..ops.scores import MAX_NODE_SCORE, balanced_allocation, fit_score
 from .collectives import all_gather_nodes, pmin, psum
-from .mesh import NodeMesh, ShardedArrays, shard_arrays
+from .mesh import GridArrays, GridMesh, ShardedArrays, grid_arrays, shard_arrays
 from .partition_rules import INC_NODE_AXIS
 
 
@@ -68,12 +79,13 @@ def static_rows(sa: ShardedArrays) -> torch.Tensor:
     """The flat packed static plane [P, words(N)] of arrays on the mesh: K7
     per shard over its rows (with its base), the tiled all_gather, K17 (on
     the CPU their plain versions)."""
-    blocks = [assign.packed_static_rows(sh, base=sa.mesh.base(s, sa.N)) for s, sh in enumerate(sa.shards)]
-    return bitplane.stitch_planes(all_gather_nodes(blocks, 1, sa.device), sa.nl)
+    blocks = [assign.packed_static_rows(sh, base=b) for sh, b in zip(sa.shards, _bases(sa))]
+    return bitplane.stitch_planes(all_gather_nodes(blocks, 1, sa.device, sa.mesh.span), sa.nl)
 
 
 def _bases(sa: ShardedArrays):
-    return [s * sa.nl for s in range(sa.mesh.size)]
+    """Each local shard's first global node id."""
+    return [s * sa.nl for s in sa.mesh.ids]
 
 
 def _nodes(sa: ShardedArrays):
@@ -117,7 +129,8 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
     padded node axis); with `with_state` also the final pairwise state
     (cnt, anti, pref gathered [T, N], total [T], ports gathered [N, PT])."""
     shards = sa.shards
-    S, nl = sa.mesh.size, sa.nl
+    S, nl, span = len(sa.shards), sa.nl, sa.mesh.span
+    first = sa.mesh.ids[0]
     bases, nodes = _bases(sa), _nodes(sa)
     if sfs is None:
         sfs = [filters.static_feasible_plain(sh, base=b) for sh, b in zip(shards, bases)]
@@ -150,7 +163,7 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
             feas.append(f)
         if pw:
             mm = pmin([pairwise.spread_min(st[s]["cnt"], st[s]["hk"], sh.pod_spread_terms[p], st[s]["elig"][p])
-                       for s, sh in enumerate(shards)])
+                       for s, sh in enumerate(shards)], span)
             sraw = []
             for s, sh in enumerate(shards):
                 ok, raw = pairwise.spread_step(st[s]["cnt"], st[s]["hk"], sh.pod_spread_terms[p],
@@ -167,7 +180,7 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
                           + cfg.balanced_weight * balanced_allocation(requested, sh.node_alloc, cfg.score_resources))
 
         def norm_reverse(rows):
-            mx = _rmax([torch.where(f, r, z) for f, r, z in zip(feas, rows, zero)])
+            mx = _rmax([torch.where(f, r, z) for f, r, z in zip(feas, rows, zero)], span)
             return [torch.where(m > 0, MAX - MAX * r / m, torch.full_like(r, MAX)) for r, m in zip(rows, mx)]
 
         if planes[0][0] is not None:
@@ -175,7 +188,7 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
                 totals[s] = totals[s] + cfg.taint_weight * v
         if planes[0][1] is not None:
             na = [pl[1][p].to(torch.float32) for pl in planes]
-            na_max = _rmax([torch.where(f, r, z) for f, r, z in zip(feas, na, zero)])
+            na_max = _rmax([torch.where(f, r, z) for f, r, z in zip(feas, na, zero)], span)
             for s in range(S):
                 totals[s] = totals[s] + cfg.node_affinity_weight * torch.where(
                     na_max[s] > 0, na[s] * MAX / na_max[s], zero[s])
@@ -186,8 +199,8 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
             ip = [pairwise.interpod_pref_raw(st[s]["cnt"], st[s]["pref"], st[s]["hk"], sh.pod_pref_aff_terms[p],
                                              sh.pod_pref_aff_w[p], sh.pod_match_terms[p], sh.pod_match_vals[p])
                   for s, sh in enumerate(shards)]
-            mx = _rmax([torch.where(f, r, n) for f, r, n in zip(feas, ip, ninf)])
-            mn = [-x for x in _rmax([torch.where(f, -r, n) for f, r, n in zip(feas, ip, ninf)])]
+            mx = _rmax([torch.where(f, r, n) for f, r, n in zip(feas, ip, ninf)], span)
+            mn = [-x for x in _rmax([torch.where(f, -r, n) for f, r, n in zip(feas, ip, ninf)], span)]
             for s in range(S):
                 totals[s] = totals[s] + cfg.interpod_weight * torch.where(
                     mx[s] > mn[s], MAX * (ip[s] - mn[s]) / (mx[s] - mn[s]), zero[s])
@@ -195,20 +208,22 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
             for s, sh in enumerate(shards):
                 totals[s] = totals[s] + cfg.image_weight * sh.image_score[p].to(torch.float32)
         totals = [torch.where(f, t, n) for f, t, n in zip(feas, totals, ninf)]
-        best = _rmax(totals)
+        best = _rmax(totals, span)
         if not bool(best[0] > ninf[0]):
             continue
         choice = int(_rmin([torch.where((t == b) & f, nd, im)
-                            for t, b, f, nd, im in zip(totals, best, feas, nodes, imax)])[0])
+                            for t, b, f, nd, im in zip(totals, best, feas, nodes, imax)], span)[0])
         choices[p] = choice
         own, lc = divmod(choice, nl)
-        st[own]["used"][lc] += shards[own].pod_req[p]
-        if cfg.enable_ports:
-            st[own]["ports"][lc] |= shards[own].pod_ports[p]
+        own -= first  # the owner's local index (another rank's shard: out of range)
+        if 0 <= own < S:
+            st[own]["used"][lc] += shards[own].pod_req[p]
+            if cfg.enable_ports:
+                st[own]["ports"][lc] |= shards[own].pod_ports[p]
         if pw:
             # the committed domain column: the owner shard's, the psum broadcast
             cols = psum([x["dbt"][:, lc] if s == own else torch.zeros_like(x["dbt"][:, 0])
-                         for s, x in enumerate(st)])
+                         for s, x in enumerate(st)], span)
             for s, sh in enumerate(shards):
                 x, dcol = st[s], cols[s]
                 x["cnt"], x["anti"], x["total"] = pairwise.commit_counts(
@@ -224,16 +239,17 @@ def sharded_schedule_scan_plain(sa: ShardedArrays, cfg, sfs=None, planes=None, w
                         bids = torch.clamp_min(ids, 0).to(torch.int64)
                         bw = torch.where(ids >= 0, w, zero[s])
                         x["pref"] = x["pref"].index_add(0, bids, bw[:, None] * (x["dbt"][bids] == dcol[bids][:, None]))
-    used = all_gather_nodes([x["used"] for x in st], 0, sa.device)
+    used = all_gather_nodes([x["used"] for x in st], 0, sa.device, span)
     if not with_state:
         return choices, used
     return choices, used, _gathered_state(sa, st)
 
 
 def _gathered_state(sa, st) -> dict:
-    g = {k: all_gather_nodes([x[k] for x in st], 1, sa.device) for k in ("cnt", "anti", "pref")}
+    span = sa.mesh.span
+    g = {k: all_gather_nodes([x[k] for x in st], 1, sa.device, span) for k in ("cnt", "anti", "pref")}
     g["total"] = _on(st[0]["total"], sa.device)
-    g["ports"] = all_gather_nodes([x["ports"] for x in st], 0, sa.device)
+    g["ports"] = all_gather_nodes([x["ports"] for x in st], 0, sa.device, span)
     return g
 
 
@@ -241,7 +257,7 @@ def _gathered_state(sa, st) -> dict:
 # the sharded rounds scan (the JAX package's schedule_scan_rounds(axis_name=))
 # ---------------------------------------------------------------------------
 
-def _round_start(cfg, cxs, sts, tot, base0, fit0, nodes):
+def _round_start(cfg, cxs, sts, tot, base0, fit0, nodes, span):
     """The exact re-hoist of a round on every shard (assign.py:1832-1919
     with its collectives) -> (feasible, total per shard, c0, r: the
     normalisation scalars (replicated, one copy on shard 0's device) and
@@ -264,7 +280,7 @@ def _round_start(cfg, cxs, sts, tot, base0, fit0, nodes):
         raws = [[] for _ in range(S)]
         for i in range(C):
             mm = pmin([pairwise.spread_min(st["cnt"], st["hk"], cx["spread_t"][i], cx["elig"][i])
-                       for st, cx in zip(sts, cxs)])
+                       for st, cx in zip(sts, cxs)], span)
             for s, (st, cx) in enumerate(zip(sts, cxs)):
                 ok, raw = pairwise.spread_step(st["cnt"], st["hk"], cx["spread_t"][i], cx["skew"][i], cx["hard"][i],
                                                cx["elig"][i], min_match=mm[s])
@@ -282,7 +298,7 @@ def _round_start(cfg, cxs, sts, tot, base0, fit0, nodes):
             total[s] = total[s] + w * terms[s]
 
     def scal(rows, fill):
-        return _rmax([torch.where(f, x, fl) for f, x, fl in zip(feas, rows, fill)])
+        return _rmax([torch.where(f, x, fl) for f, x, fl in zip(feas, rows, fill)], span)
 
     if cfg.enable_taint_score:
         mx = scal([cx["traw"] for cx in cxs], zero)
@@ -311,15 +327,15 @@ def _round_start(cfg, cxs, sts, tot, base0, fit0, nodes):
     if "img" in cxs[0]:
         add(cfg.image_weight, [cx["img"] for cx in cxs])
     total = [torch.where(f, t, n) for f, t, n in zip(feas, total, ninf)]
-    best = _rmax(total)
+    best = _rmax(total, span)
     imax = [torch.tensor(_INT_MAX, dtype=torch.int32, device=d) for d in devs]
     cand = _rmin([torch.where((t == b[:, None]) & f, nd[None, :], im)
-                  for t, b, f, nd, im in zip(total, best, feas, nodes, imax)])
+                  for t, b, f, nd, im in zip(total, best, feas, nodes, imax)], span)
     c0 = torch.where((best[0] > ninf[0]) & cxs[0]["valid"], cand[0], -1)
     return feas, total, c0, r
 
 
-def _repair(cfg, cxs, r, feas, total, share, c, unc, used, alloc, nodes, jlt, nl):
+def _repair(cfg, cxs, r, feas, total, share, c, unc, used, alloc, nodes, jlt, nl, span):
     """(t, hard) for the speculation c (assign.py:1938-2056 with its
     collectives): the candidate columns of the round-start rows through
     _gather_cols, the best unpicked node through _rmax / _rmin."""
@@ -344,7 +360,7 @@ def _repair(cfg, cxs, r, feas, total, share, c, unc, used, alloc, nodes, jlt, nl
     baseij = score_flat(reqij.reshape(-1, R), ca[None].expand(C, C, R).reshape(-1, R), cfg).reshape(C, C)
 
     def cols(xs):
-        return _gather_cols(xs, cn, nl)[0]
+        return _gather_cols(xs, cn, nl, span)[0]
 
     feas0_at = cols(feas)
     newtot = baseij
@@ -376,10 +392,10 @@ def _repair(cfg, cxs, r, feas, total, share, c, unc, used, alloc, nodes, jlt, nl
     for nd in nodes:
         O = ((_on(c, nd.device)[:, None] == nd[None, :]) & _on(act, nd.device)[:, None]).to(torch.float32)
         pb.append((_on(jlt, nd.device).to(torch.float32) @ O) > 0.0)
-    av = _rmax([torch.where(p_, torch.tensor(float("-inf"), device=t.device), t) for p_, t in zip(pb, total)])
+    av = _rmax([torch.where(p_, torch.tensor(float("-inf"), device=t.device), t) for p_, t in zip(pb, total)], span)
     a_n = _rmin([torch.where((t == a[:, None]) & ~p_, nd[None, :], torch.tensor(_INT_MAX, dtype=torch.int32,
                                                                                   device=t.device))
-                 for t, a, p_, nd in zip(total, av, pb, nodes)])[0]
+                 for t, a, p_, nd in zip(total, av, pb, nodes)], span)[0]
     av = av[0]
     Mj = torch.where(act[None, :] & jlt, newtot, neg_inf)
     vb = Mj.max(dim=1).values
@@ -390,11 +406,12 @@ def _repair(cfg, cxs, r, feas, total, share, c, unc, used, alloc, nodes, jlt, nl
     return t, hard
 
 
-def _rounds_chunk(cfg, cxs, sts, tot, alloc, D, nodes, repair_iters, nl, req_u=None):
+def _rounds_chunk(cfg, cxs, sts, tot, alloc, D, nodes, repair_iters, nl, bases, span, req_u=None):
     """The round loop of one chunk on the mesh (assign.py:1830-2212 under
-    shard_map) -> (out, nrounds, ord_).  `sts` hold each shard's [T, nl]
-    count planes and ports (and in class mode its [U1, nl] class base and
-    fit hoists), `tot` the replicated usage [N, R] and total_t."""
+    shard_map) -> (out, nrounds, ord_).  `sts` hold each local shard's [T,
+    nl] count planes and ports (and in class mode its [U1, nl] class base
+    and fit hoists), `bases` their first global node ids, `tot` the
+    replicated usage [N, R] and total_t."""
     S = len(cxs)
     dev = tot["used"].device
     creq = cxs[0]["req"]
@@ -406,7 +423,6 @@ def _rounds_chunk(cfg, cxs, sts, tot, alloc, D, nodes, repair_iters, nl, req_u=N
     idxC = torch.arange(C, dtype=torch.int32, device=dev)
     jlt = idxC[None, :] < idxC[:, None]
     share = assign.chunk_share(cxs[0], cfg, T)
-    bases = [s * nl for s in range(S)]
     if req_u is None:
         base0, fit0 = [], []
         for s, (cx, st) in enumerate(zip(cxs, sts)):
@@ -425,18 +441,18 @@ def _rounds_chunk(cfg, cxs, sts, tot, alloc, D, nodes, repair_iters, nl, req_u=N
         if req_u is not None:
             base0 = [st["base_u"][cx["cls"]] for st, cx in zip(sts, cxs)]
             fit0 = [st["fit_u"][cx["cls"]] for st, cx in zip(sts, cxs)]
-        feas, total, c0, r = _round_start(cfg, cxs, sts, tot, base0, fit0, nodes)
+        feas, total, c0, r = _round_start(cfg, cxs, sts, tot, base0, fit0, nodes, span)
         same0 = (c0[:, None] == c0[None, :]) & (c0[None, :] >= 0) & unc[None, :]
         rank = (same0 & jlt).sum(dim=1).to(torch.int32)
-        topv, topi = (x[0] for x in _global_top_k(total, Zr))
+        topv, topi = (x[0] for x in _global_top_k(total, Zr, span))
         sel = torch.clamp_max(rank, Zr - 1).to(torch.int64)[:, None]
         v_sel = torch.gather(topv, 1, sel)[:, 0]
         c_sp = torch.gather(topi, 1, sel)[:, 0]
         c = torch.where(unc & (c0 >= 0) & (rank > 0) & (rank < Zr) & (v_sel > float("-inf")), c_sp, c0)
         for _ in range(repair_iters - 1):
-            t, hard = _repair(cfg, cxs, r, feas, total, share, c, unc, tot["used"], alloc, nodes, jlt, nl)
+            t, hard = _repair(cfg, cxs, r, feas, total, share, c, unc, tot["used"], alloc, nodes, jlt, nl, span)
             c = torch.where(unc, t, c)
-        t, hard = _repair(cfg, cxs, r, feas, total, share, c, unc, tot["used"], alloc, nodes, jlt, nl)
+        t, hard = _repair(cfg, cxs, r, feas, total, share, c, unc, tot["used"], alloc, nodes, jlt, nl, span)
         bad = unc & (hard | (t != c))
         firstbad = int(assign._first(bad)) if bool(bad.any()) else C
         fb_commit = (idxC == firstbad) & unc & ~hard
@@ -482,7 +498,7 @@ def _rounds_chunk(cfg, cxs, sts, tot, alloc, D, nodes, repair_iters, nl, req_u=N
                 tids = torch.clamp_min(ids, 0).to(torch.int64).reshape(-1)
                 nds = cn_final.to(torch.int64)[:, None].expand(ids.shape).reshape(-1)
                 wf = w.reshape(-1)
-                dcol = _gather_at_nodes([st["dbt"] for st in sts], tids, nds, nl)
+                dcol = _gather_at_nodes([st["dbt"] for st in sts], tids, nds, nl, span)
                 for s, st in enumerate(sts):
                     d = st["dbt"].device
                     st[key] = _scatter_rows(st[key], st["dbt"], ids.to(d), None, _on(w, d), dcol=dcol[s])[0]
@@ -547,7 +563,8 @@ def sharded_schedule_scan_rounds_plain(sa: ShardedArrays, cfg, sfs=None, eligs=N
     outs, ords, rounds = [], [], []
     for ch in range(P // rchunk):
         sl = slice(ch * rchunk, (ch + 1) * rchunk)
-        o, nr, od = _rounds_chunk(cfg, [rw(sl) for rw in rows], sts, tot, alloc, D, nodes, repair_iters, nl, req_u)
+        o, nr, od = _rounds_chunk(cfg, [rw(sl) for rw in rows], sts, tot, alloc, D, nodes, repair_iters, nl, bases,
+                                  sa.mesh.span, req_u)
         outs.append(o)
         ords.append(od)
         rounds.append(nr)
@@ -566,13 +583,26 @@ def sharded_schedule_scan_rounds_plain(sa: ShardedArrays, cfg, sfs=None, eligs=N
 # routing
 # ---------------------------------------------------------------------------
 
-def _placed(arr, mesh: NodeMesh, device) -> ShardedArrays:
-    sa = arr if isinstance(arr, ShardedArrays) else shard_arrays(arr, mesh)
+def _placed(arr, mesh, device):
+    """`arr` on `mesh` (a NodeMesh -> ShardedArrays, a GridMesh ->
+    GridArrays): placed arrays are checked, a ClusterArrays is padded and
+    placed."""
+    kind, place = (GridArrays, grid_arrays) if isinstance(mesh, GridMesh) else (ShardedArrays, shard_arrays)
+    sa = arr if isinstance(arr, kind) else place(arr, mesh)
     if sa.mesh != mesh:
         raise ValueError(f"arrays placed on {sa.mesh}, step asked on {mesh}")
     if sa.device.type != device.type:
         raise ValueError(f"arrays on the mesh's {sa.device}, step asked on {device}")
     return sa
+
+
+def _unshard(arr, mesh: GridMesh, device, inc=None):
+    """Arrays on the grid -> (the first held pod row's ShardedArrays after
+    the entry gather, inc gathered too, the caller's P: the per-pod
+    outputs are sliced back to it)."""
+    ga = _placed(arr, mesh, device)
+    sa, inc = assign.pod_unshard(ga, inc)
+    return sa, inc, arr.P
 
 
 def inc_applicable(sa: ShardedArrays, cfg, inc):
@@ -583,7 +613,7 @@ def inc_applicable(sa: ShardedArrays, cfg, inc):
     sh = inc.shards[0]
     if inc.req_u.shape[0] >= sa.P or inc.cls.shape[0] != sa.P or sa.P % INC_CHUNK:
         return None
-    if inc.req_u.shape[1] != sa.shards[0].R or len(inc.shards) != sa.mesh.size:
+    if inc.req_u.shape[1] != sa.shards[0].R or len(inc.shards) != len(sa.shards):
         return None
     for plane, axis in INC_NODE_AXIS.items():  # each shard's planes span its nl nodes
         x = getattr(sh, plane)
@@ -596,14 +626,23 @@ def inc_applicable(sa: ShardedArrays, cfg, inc):
     return inc
 
 
-def sharded_dispatch(arr, cfg, mesh: NodeMesh, device, inc=None, chunked=None, **knobs) -> Step:
+def sharded_dispatch(arr, cfg, mesh, device, inc=None, chunked=None, **knobs) -> Step:
     """Route and launch one step on `mesh` (ops/assign.py -- dispatch with
-    mesh=): `arr` is a ShardedArrays on the mesh, or a ClusterArrays, which
-    is padded and placed first (shard_arrays).  The routes of dispatch, in
-    its order, on the padded arrays: class state -> the class-wave route
-    (a chunkable batch) or the rounds route in class mode; else the dense
-    chunked route or the dense rounds route, on the CPU too; with
-    chunked=False, or a batch neither takes, the per-pod scan."""
+    mesh=): `arr` is a ShardedArrays on the node mesh (a GridArrays on the
+    grid), or a ClusterArrays, which is padded and placed first.  The
+    routes of dispatch, in its order, on the padded arrays: class state ->
+    the class-wave route (a chunkable batch) or the rounds route in class
+    mode; else the dense chunked route or the dense rounds route, on the
+    CPU too; with chunked=False, or a batch neither takes, the per-pod
+    scan.  On the grid the pod axis is padded before the route is chosen
+    (a 64-pod batch on 3 pod rows runs 66 pods: not the rounds route), the
+    pod-axis fields are gathered at entry (pod_unshard) and the node mesh
+    of one row runs the step; choices and ordinals come back sliced to the
+    caller's P (the JAX package's sharded.py:213-257)."""
+    if isinstance(mesh, GridMesh):
+        sa, inc, p = _unshard(arr, mesh, device, inc)
+        step = sharded_dispatch(sa, cfg, sa.mesh, device, inc, chunked, **knobs)
+        return step if p == sa.P else step._replace(choices=step.choices[:p], ordinals=step.ordinals[:p])
     sa = _placed(arr, mesh, device)
     inc = inc_applicable(sa, cfg, inc)
     chunkable = assign._chunkable(sa, cfg)
@@ -664,20 +703,25 @@ def _per_pod(sa: ShardedArrays, cfg):
     return kernels.full_scan_shard(sa, cfg, sfs, eligs, [assign.score_planes(sh, cfg) for sh in sa.shards])
 
 
-def sharded_schedule_batch(arr, cfg, mesh: NodeMesh, device=None):
+def sharded_schedule_batch(arr, cfg, mesh, device=None):
     """The JAX package's sharded_schedule_batch (its sharded.py:56): the
-    unrouted per-pod scan on the mesh -> (choices i32[P], used i32[N, R] on
-    the padded axis).  The JAX function takes node counts the mesh divides
-    only; the port pads the rest, as the routed step does."""
+    unrouted per-pod scan on the mesh or the grid -> (choices i32[P],
+    used i32[N, R] on the padded node axis).  The JAX function takes node
+    and pod counts the mesh divides only; the port pads the rest, as the
+    routed step does."""
     from ..device import resolve_device
 
     dev = resolve_device(device)
     assign.check_config(cfg)
     TRACE_COUNTS["sharded_plain"] += 1
+    if isinstance(mesh, GridMesh):
+        sa, _, p = _unshard(arr, mesh, dev)
+        choices, used = _per_pod(sa, cfg)
+        return choices[:p], used
     return _per_pod(_placed(arr, mesh, dev), cfg)
 
 
-def sharded_schedule_batch_routed(arr, cfg, mesh: NodeMesh, device=None, with_ordinals: bool = False, inc=None,
+def sharded_schedule_batch_routed(arr, cfg, mesh, device=None, with_ordinals: bool = False, inc=None,
                                   **knobs):
     """The JAX package's sharded_schedule_batch_routed: -> (choices, used)
     or, with `with_ordinals`, (choices, used, ordinals, sweeps), used on the

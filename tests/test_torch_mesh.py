@@ -199,8 +199,8 @@ def test_mesh_from_env_validates_and_clamps(monkeypatch):
     """test_sharded_routed.py's cases: unset / 1 -> None, garbage raises; a
     request beyond the device count builds the shards asked for (the JAX
     package clamps to its devices, one shard each; the port's shards share
-    devices), without a warning; a 2-D request parses and is refused
-    (ROADMAP A12)."""
+    devices), without a warning; a 2-D request builds the pods x nodes grid
+    (tests/test_torch_mesh_2d.py holds it to the JAX package's)."""
     for k in ("KTPU_MESH", "KTPU_MESH_PODS", "KTPU_MESH_NODES"):
         monkeypatch.delenv(k, raising=False)
     assert tm.mesh_from_env(devices="cpu") is None
@@ -221,8 +221,8 @@ def test_mesh_from_env_validates_and_clamps(monkeypatch):
         m = tm.mesh_from_env(devices="cpu")
     assert m.size == 16 and repr(m) == "NodeMesh(16 shards on 1 device)"
     monkeypatch.setenv("KTPU_MESH", "2x4")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tm.mesh_from_env(devices="cpu")
+    m = tm.mesh_from_env(devices="cpu")
+    assert isinstance(m, tm.GridMesh) and m.shape == (2, 4)
     # the shard counts of the JAX package's mesh over its 8 CPU devices, up
     # to its device count
     from kubernetes_tpu.parallel.mesh import mesh_from_env as jax_mesh_from_env
@@ -237,8 +237,7 @@ def test_make_mesh_places_shards_and_refuses():
     assert m.size == 3 and m.nl(20480) == 6827 and m.base(2, 20480) == 2 * 6827
     assert tm.make_mesh(devices=["cpu", "cpu"]).size == 2
     assert tm.mesh_axis_shards(m) == (1, 3) and tm.mesh_axis_shards(None) == (1, 1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tm.make_mesh(shape=(2, 4), devices="cpu")
+    assert tm.make_mesh(shape=(2, 4), devices="cpu").shape == (2, 4)
     assert tm.make_mesh(shape=(1, 4), devices="cpu").size == 4
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="devices='cpu'"):

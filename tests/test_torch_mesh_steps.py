@@ -34,8 +34,8 @@ On the CPU:
 - PipelinedBatchLoop(mesh=) over config-3-shaped warm waves
   (spread_affinity(24, 64), the rounds route on class state) == run_serial
   == the one-device loop;
-- the refusals that stay: a 2-D mesh, a gated shard-mode launch, more
-  shards or blocks than a card holds.
+- the refusals that stay: a gated shard-mode launch, more shards or
+  blocks than a card holds, shards spread over several ranks.
 
 The ``cuda`` legs import no JAX and skip without a card: K1 with its base
 == plain with pins in every shard; K2, K11 and K12 (dense and class-row) in
@@ -331,10 +331,6 @@ def test_inc_node_axis_table_matches_jax():
 
 def test_mesh_refusals_that_stay():
     with pytest.raises(NotImplementedError, match="A12"):
-        tm.make_mesh(devices="cpu", shape=(2, 4))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tm.mesh_from_env("2x4", devices="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
         kernels.shard_grid_check(kernels.MAX_SHARDS + 1, kernels.MAX_SHARDS + 1, 132)
     with pytest.raises(NotImplementedError, match="A12"):
         kernels.shard_grid_check(8, 16 * 9, 132)  # C * S past the card's SMs
@@ -351,6 +347,15 @@ def test_mesh_refusals_that_stay():
     # without the gate, CPU tensors are refused: a shard mode launches or raises
     with pytest.raises(ValueError, match="CUDA"):
         kernels.rounds_shard(sa, cfg)
+    # shards on several ranks: the shard modes exchange within one process only
+    from kubernetes_tpu_torch.parallel.collectives import RankSpan
+
+    spread = dataclasses.replace(sa, mesh=tm.NodeMesh(sa.mesh.devices, RankSpan(0, 2, "gloo")))
+    for launch in (lambda: kernels.rounds_shard(spread, cfg),
+                   lambda: kernels.full_scan_shard(spread, cfg, None, None, None),
+                   lambda: kernels.fit_scan_shard(None, spread, cfg)):
+        with pytest.raises(NotImplementedError, match="ranks.*A12"):
+            launch()
 
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,23 @@ boundaries and +-inf, the JAX package's _rmax, _rmin, _gather_cols (f32 and
 bool), _gather_at_nodes and _global_top_k, and spread_step with a shard
 where no node is eligible, each under the same shard_map
 ("helpers/s<S>-nl<nl>/<name>", inputs included).
+
+THE PODS x NODES GRID (``--grid OUT.npz``, for tests/test_torch_mesh_2d.py):
+for every snapshot of GRID_SNAPSHOTS (``grid_snapshot``; DeltaEncoder(
+bucket=False)) the JAX single-device routed step, dense and with
+HoistCache.ensure's class state ("<snap>/single/<mode>/<field>"), and for
+every grid (p, n) of GRIDS the JAX 2-D program:
+
+    jax.shard_map(body, mesh=make_mesh(shape=(p, n)), in_specs=(
+                  clusterarrays_specs(img, pod_sharded=True)[, incstate_specs(
+                  ..., pod_sharded=True)]), out_specs=..., check_vma=False)
+
+with ``body`` = ``pod_unshard(a[, inc], axis_name="pods")`` followed by the
+route the JAX package's sharded_schedule_batch_routed picks on the padded
+arrays (pad_nodes, then pad_pods; schedule_scan_chunked,
+schedule_scan_rounds or schedule_scan), its per-pod outputs sliced back to
+the caller's P ("<snap>/g<p>x<n>/<mode>/<field>", and ".../route"), the
+class state from the JAX HoistCache(mesh=grid).
 """
 
 import dataclasses
@@ -61,6 +78,17 @@ PIN_NODES = (1, 4, 7, 10, 13, 16, 19, 22, 24)
 GANGS = ("gang-16x8", "rounds-fit", "rounds-pairwise")
 HELPER_S = (2, 4, 8)
 HELPER_NL = (5, 40)
+# the pods x nodes grids, and their snapshots: name -> (what, nodes, pods).
+# het: fit-only, the chunked routes (P 256 on 3 rows pads to 258: the
+# per-pod scan); rnd: test_sharded_routed.py's rounds snapshot (every stage,
+# 48 pods: the rounds route on 3 rows too); sa: spread_affinity with pins,
+# the rounds route dense and on class state (64 pods on 3 rows: 66, the
+# per-pod scan); pad: test_mesh_2d.py's pod-padding snapshot (51 pods on 2
+# rows: 52)
+GRIDS = ((2, 4), (2, 2), (3, 2))
+GRID_SNAPSHOTS = {"het": ("heterogeneous", 48, 256), "rnd": ("rounds_snap", 27, 48),
+                  "sa": ("spread_affinity", 25, 64), "pad": ("random_cluster", 24, 51)}
+GRID_WITH_INC = ("het", "sa")
 
 
 def pinned(workloads, gen: str, n_nodes: int, n_pods: int):
@@ -160,8 +188,96 @@ def _gangs(res) -> None:
             res[f"gang/{name}/{field}"] = np.asarray(x)
 
 
+def grid_snapshot(name: str):
+    """GRID_SNAPSHOTS[name] in the JAX package's types."""
+    import random
+
+    from kubernetes_tpu.bench import workloads
+
+    sys.path.insert(0, HERE)
+    from helpers import random_cluster
+
+    what, n, p = GRID_SNAPSHOTS[name]
+    if what == "heterogeneous":
+        return workloads.heterogeneous(n, p, seed=3)
+    if what == "spread_affinity":
+        return pinned(workloads, what, n, p)
+    if what == "rounds_snap":
+        return random_cluster(random.Random(9), n_nodes=n, n_pods=p, with_taints=True, with_selectors=True,
+                              with_pairwise=True)
+    return random_cluster(random.Random(77), n_nodes=n, n_pods=p)
+
+
+def _grid(res) -> None:
+    import jax
+    import jax.numpy as jnp
+
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops import assign as A
+    from kubernetes_tpu.ops.assign import schedule_batch_ordinals_routed
+    from kubernetes_tpu.ops.incremental import HoistCache
+    from kubernetes_tpu.parallel.mesh import make_mesh, pad_nodes, pad_pods
+    from kubernetes_tpu.parallel.partition_rules import clusterarrays_specs, incstate_specs
+    from kubernetes_tpu.parallel.sharded import _out_spec
+
+    fields = ("choices", "used", "ordinals", "sweeps")
+    for name in GRID_SNAPSHOTS:
+        arr, meta = DeltaEncoder(bucket=False).encode(grid_snapshot(name))
+        cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+        modes = ("dense", "inc") if name in GRID_WITH_INC else ("dense",)
+        for mode in modes:
+            inc = HoistCache().ensure(arr, meta, cfg) if mode == "inc" else None
+            assert mode == "dense" or A.inc_applicable(arr, cfg, inc) is not None, name
+            for field, x in zip(fields, schedule_batch_ordinals_routed(arr, cfg, donate=False, inc=inc)):
+                res[f"{name}/single/{mode}/{field}"] = np.asarray(x)
+        for p, n in GRIDS:
+            mesh = make_mesh(shape=(p, n))
+            padded, _ = pad_nodes(arr, n)
+            padded, p0 = pad_pods(padded, p)
+            img = padded.image_score.shape[1] == padded.N
+            kind = "chunked" if A._chunk_routed(padded, cfg) else "rounds" if A._rounds_routed(padded, cfg) else "scan"
+            for mode in modes:
+                inc = HoistCache(mesh=mesh).ensure(arr, meta, cfg) if mode == "inc" else None
+                inc = A.inc_applicable(padded, cfg, inc) if kind != "scan" else None
+                key = f"{name}/g{p}x{n}/{mode}"
+                if mode == "inc" and inc is None:  # the class state does not apply: the dense program
+                    for field in fields:
+                        res[f"{key}/{field}"] = res[f"{name}/g{p}x{n}/dense/{field}"]
+                    res[f"{key}/route"] = np.asarray(kind)
+                    continue
+
+                def body(a, i=None, kind=kind, img=img, n=n):
+                    a, i = A.pod_unshard(a, i, axis_name="pods")
+                    if kind == "scan":
+                        c, u = A.schedule_scan(a, cfg=cfg, axis_name="nodes", image_sharded=img)
+                        return c, u, jnp.arange(a.P, dtype=jnp.int32), jnp.int32(a.P)
+                    kern = A.schedule_scan_chunked if kind == "chunked" else A.schedule_scan_rounds
+                    extra = {} if i is None else {"inc": i}
+                    return kern(a, cfg=cfg, with_ordinals=True, axis_name="nodes", axis_size=n, image_sharded=img,
+                                **extra)
+
+                in_specs = (clusterarrays_specs(img, pod_sharded=True),)
+                args = (padded,)
+                if inc is not None:
+                    sig = (inc.elig_u is not None, inc.traw_u is not None, inc.naraw_u is not None,
+                           inc.img_u is not None)
+                    in_specs += (incstate_specs(*sig, pod_sharded=True),)
+                    args += (inc,)
+                used = _out_spec("out.node_used_scan" if kind == "scan" else "out.node_used", mesh)
+                out_specs = (_out_spec("out.assignment", mesh), used, _out_spec("out.ordinals", mesh),
+                             _out_spec("out.n_commits", mesh))
+                fn = jax.jit(jax.shard_map(body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                                           check_vma=False))
+                c, u, o, sw = fn(*args)
+                for field, x in zip(fields, (np.asarray(c)[:p0], u, np.asarray(o)[:p0], sw)):
+                    res[f"{key}/{field}"] = np.asarray(x)
+                res[f"{key}/route"] = np.asarray(kind)
+
+
 def main() -> None:
-    out = sys.argv[1]
+    grid = sys.argv[1] == "--grid"
+    out = sys.argv[-1]
     for k, v in PINNED.items():
         if os.environ.get(k) != v:
             raise SystemExit(f"run with {k}={v}")
@@ -170,6 +286,12 @@ def main() -> None:
 
     force_cpu_platform(8)
     import jax
+
+    if grid:
+        res = {}
+        _grid(res)
+        np.savez(out, **res)
+        return
 
     from kubernetes_tpu.api.delta import DeltaEncoder
     from kubernetes_tpu.bench import workloads

@@ -20,15 +20,19 @@
 
 namespace ktt {
 
-constexpr int TOPK_MAX = 256;  // largest k (the sort buffer is 256 keys)
+constexpr int TOPK_MAX = 256;  // largest k of TopkScratch (its sort buffer)
 
-struct TopkScratch {
+// block_topk's shared scratch for k <= MAXK (a power of two)
+template <int MAXK_>
+struct TopkScratchT {
+  static constexpr int MAXK = MAXK_;
   int hist[256];
-  unsigned long long keys[TOPK_MAX];
+  unsigned long long keys[MAXK_];
   int sel_digit;
   int sel_rem;
   int count;
 };
+using TopkScratch = TopkScratchT<TOPK_MAX>;
 
 __device__ __forceinline__ unsigned long long topk_key(float v, int idx) {
   const uint32_t b = __float_as_uint(v);
@@ -40,12 +44,12 @@ __device__ __forceinline__ int topk_index(unsigned long long key) {
   return (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull));
 }
 
-// The k (<= TOPK_MAX, <= n, <= blockDim.x) largest entries of row[0..n) ->
+// The k (<= S::MAXK, <= n, <= blockDim.x) largest entries of row[0..n) ->
 // out_v[k], out_i[k] (global or shared), sorted; returns how many of them
 // are > -inf.  Every thread of the block calls it; it begins and ends with
 // a block barrier.
-__device__ int block_topk(const float* row, int n, int k, float* out_v, int* out_i,
-                           TopkScratch& s) {
+template <class S>
+__device__ int block_topk(const float* row, int n, int k, float* out_v, int* out_i, S& s) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5;
   unsigned long long prefix = 0, pmask = 0;

@@ -15,30 +15,45 @@
 //     class rows (row u on block u % G) and runs the exact top-KW selection
 //     of topk.cuh over its row of t0u; grid.sync() before and after.  One
 //     block alone would walk U1 x N = 2.1 M entries per refresh.
-//   - (B)..(H), one block of E pods: block 0 alone, between grid syncs.  Its
-//     per-pod work is [E, KW] (pointer walk, bit masks of the candidate
-//     lists in shared memory, a warp per pod row), [U1, E] (the s2 columns)
-//     and one N-wide rescore for the fallback pod (1024 threads, a
-//     shuffle-tree argmax).  cm, the earliest block pod per node, is an
-//     N-int array in shared memory kept at INT_MAX between uses; claimed is
-//     the packed [ceil(N/32)] word register of the epoch.
-//   - the other blocks wait at the grid barrier while block 0 works; the
-//     loop's control (frontier, block count, refresh flag) goes through
-//     global memory and every block reads it after each barrier, so all
+//   - (B)..(G), one block of E pods: block 0 alone.  Its per-pod work is
+//     [E, KW] (pointer walk, bit masks of the candidate lists in shared
+//     memory, a warp per pod row, the lists read in 16-byte vectors; the
+//     dispersal stops at its fixpoint, which the later steps would only
+//     repeat) and [E, E] post-placement scores: the s2
+//     columns of the block's own classes only, which (E)..(G) read.  The
+//     fallback (G) scores nothing: t0u[u, n] stays where(stat_u & fit(used),
+//     score(used + req_u[u]), -inf) at every node (the prologue makes it so,
+//     and (H) patches exactly the columns a block changes), and a pod's
+//     request is its class's req_u (the class partition keys on it), so the
+//     first uncertified pod's N-wide rescore is the lexmax of its class row
+//     with the block's placed columns read from s2: one coalesced pass over
+//     80 KB.  cm, the earliest block pod per node, is an N-int array in
+//     shared memory kept at INT_MAX between uses (it also marks the placed
+//     columns for the fallback); claimed is the packed [ceil(N/32)] word
+//     register of the epoch.  Block 0 leaves the block's placements in a
+//     small record in global memory; grid.sync().
+//   - (H), the U1-wide part, on the whole grid (a warp per class row): the
+//     s2 column of every placed pod for the class, the register fold, the
+//     t0u patch at the placed columns and the fallback's; grid.sync().  At
+//     BASELINE config 5 (U1 = 2001) that is 96 k scores a block, which one
+//     block's 1024 threads took ~400 us to do alone.
+//   - the loop's control (frontier, block count, refresh flag) goes through
+//     global memory and every block reads it at the step's start, so all
 //     blocks take the same branches and barriers.  It is double-buffered by
 //     the parity of the loop step: block 0 writes the next step's slot, so a
 //     block still reading this step's slot never sees it change.
-// Arrays other blocks write (t0u, the lists) are read through L2 (__ldcg):
-// L1 is not coherent across SMs.  The inputs are never written: used and
-// t0u are fresh buffers (the donation-aliasing rule).
+// Arrays other blocks write (t0u, the lists, the registers, the record) are
+// read through L2 (__ldcg): L1 is not coherent across SMs.  The inputs are
+// never written: used and t0u are fresh buffers (the donation-aliasing
+// rule).
 //
 // Bounds on an H100 (north star: P = 51200, N = 20480, R = 5, U1 = 101,
 // 1319 blocks, 86 refreshes): the bytes are the inputs read once and the
 // outputs written once, ~17 MB, >= 5 us at 3.35 TB/s; the operations are
 // dominated by the refreshes' selection (8 radix passes over U1 x N keys per
-// refresh) and the fallback rescores, priced by chip_smoke.py from this
-// run's counts.  The block loop is a chain of dependent steps, so the
-// barrier latency per block is the practical floor.
+// refresh) and the s2 columns, priced by chip_smoke.py from this run's
+// counts.  The block loop is a chain of dependent steps, so the two grid
+// barriers and block 0's walk per block are the practical floor.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,7 +90,7 @@ struct WaveArgs {
   float* tv;                // [U1, KW] scratch: the epoch's lists
   int32_t* ti;              // [U1, KW]
   int32_t* nf;              // [U1]
-  float* s2;                // [U1, E]
+  int32_t* rec;             // [2 + 3 E + E R + R] the block record (Rec; the buffer may be longer)
   float* bmax;              // [U1]
   int32_t* bnode;           // [U1]
   int32_t* ctrl;            // [2, 4]: frontier, blocks, refresh flag (by step parity)
@@ -115,6 +130,29 @@ __device__ __forceinline__ bool lexbetter(float v, int n, float cv, int cn) {
   return v > cv || (v == cv && n < cn);
 }
 
+// the block record block 0 leaves for (H): int32 words of a.rec
+struct Rec {
+  int* q;       // [1] the first uncertified pod (E: none)
+  int* tfb;     // [1] the fallback's node (-1: none)
+  int* place;   // [E] placed
+  int* nd;      // [E] the pod's node (N: no pick)
+  int* s2n;     // [E] the node of its s2 column (INT_MAX: not picked)
+  int* pused;   // [E, R] a placed pod's node's usage after the block's placements
+  int* fused;   // [R] the fallback node's usage after the fallback
+};
+
+__device__ __forceinline__ Rec rec_view(int32_t* w, int E, int R) {
+  Rec r;
+  r.q = w;
+  r.tfb = w + 1;
+  r.place = w + 2;
+  r.nd = r.place + E;
+  r.s2n = r.nd + E;
+  r.pused = r.s2n + E;
+  r.fused = r.pused + E * R;
+  return r;
+}
+
 __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -144,7 +182,11 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
   int* s2n = prefix_ok + E;
   int* cpick = s2n + E;
   int* place = cpick + E;
+  int* nub = place + E;                                     // [E, R] usage at nd[i] after pod i
+  int* alb = nub + E * R;                                   // [E, R] allocation at nd[i]
+  float* s2c = reinterpret_cast<float*>(alb + E * R);       // [E, E] s2[bcls[i], j], j < i
   const ktt::ScoreParams& sp = a.sp;
+  const Rec rc = rec_view(a.rec, E, R);
 #ifdef KTT_WAVE_PHASES
   long long ph_t = clock64();
 #endif
@@ -220,17 +262,43 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
       for (int i = warp; i < E; i += NT / 32) {
         const int c = bcls[i];
         const bool lv = live[i];
-        for (int wd = 0; wd < KWW; ++wd) {
-          const int k = wd * 32 + lane;
-          bool av = false;
-          if (k < KW) {
-            const int node = __ldcg(a.ti + (int64_t)c * KW + k);
-            tib[i * KW + k] = node;
-            av = lv && __ldcg(a.tv + (int64_t)c * KW + k) > -INFINITY &&
-                 !((claimed[node >> 5] >> (node & 31)) & 1u);
+        if ((KW & 3) == 0) {  // 16-byte reads: lane l takes entries 4l..4l+3 of each 128
+          const int4* ti4 = reinterpret_cast<const int4*>(a.ti + (int64_t)c * KW);
+          const float4* tv4 = reinterpret_cast<const float4*>(a.tv + (int64_t)c * KW);
+          for (int h = 0; h < KW; h += 128) {
+            const int k = h + 4 * lane;
+            uint32_t nib = 0;
+            if (k < KW) {
+              const int4 nv = __ldcg(ti4 + k / 4);
+              const float4 vv = __ldcg(tv4 + k / 4);
+              const int nn[4] = {nv.x, nv.y, nv.z, nv.w};
+              const float vs[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+              for (int b = 0; b < 4; ++b) {
+                tib[i * KW + k + b] = nn[b];
+                const bool av = lv && vs[b] > -INFINITY && !((claimed[nn[b] >> 5] >> (nn[b] & 31)) & 1u);
+                nib |= (uint32_t)av << b;
+              }
+            }
+            uint32_t w = nib << (4 * (lane & 7));  // 8 lanes make a 32-entry word
+            w |= __shfl_xor_sync(FULL, w, 1);
+            w |= __shfl_xor_sync(FULL, w, 2);
+            w |= __shfl_xor_sync(FULL, w, 4);
+            if ((lane & 7) == 0 && k < KW) availw[i * KWW + k / 32] = w;
           }
-          const uint32_t m = __ballot_sync(FULL, av);
-          if (lane == 0) availw[i * KWW + wd] = m;
+        } else {
+          for (int wd = 0; wd < KWW; ++wd) {
+            const int k = wd * 32 + lane;
+            bool av = false;
+            if (k < KW) {
+              const int node = __ldcg(a.ti + (int64_t)c * KW + k);
+              tib[i * KW + k] = node;
+              av = lv && __ldcg(a.tv + (int64_t)c * KW + k) > -INFINITY &&
+                   !((claimed[node >> 5] >> (node & 31)) & 1u);
+            }
+            const uint32_t m = __ballot_sync(FULL, av);
+            if (lane == 0) availw[i * KWW + wd] = m;
+          }
         }
       }
       __syncthreads();
@@ -256,6 +324,7 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
         __syncthreads();
         if (it == a.iters) break;  // the final claims stay for the checks
         // jump to the first usable entry no earlier pod points at
+        bool moved = false;
         for (int i = warp; i < E; i += NT / 32) {
           int np = KW;
           for (int wd = 0; wd < KWW && np == KW; ++wd) {
@@ -265,9 +334,14 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
             const uint32_t m = __ballot_sync(FULL, el);
             if (m) np = wd * 32 + __ffs(m) - 1;
           }
-          if (lane == 0) pos[i] = np;
+          if (lane == 0) {
+            moved = moved || np != pos[i];
+            pos[i] = np;
+          }
         }
-        __syncthreads();
+        // a step that moves no pointer is a fixpoint: the later steps repeat
+        // it, so the final claims follow at once
+        if (!__syncthreads_or(moved)) it = a.iters - 1;
         if (tid < E && nd[tid] < N) cm[nd[tid]] = IMAX;
         __syncthreads();
       }
@@ -292,25 +366,32 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
         }
       }
       __syncthreads();
-      KTT_PHASE(PH_WALK);
-      // ---- (D) post-placement snapshot columns s2[U1, E] ----
-      for (int idx = tid; idx < U1 * E; idx += NT) {
-        const int u = idx / E, i = idx % E;
-        float v = -INFINITY;
+      for (int idx = tid; idx < E * R; idx += NT) {  // the picked nodes' rows
+        const int i = idx / R, r = idx % R;
         if (picked[i]) {
-          const int n = nd[i];
-          if (ktt::bit_at(a.stat_u, u, W, n)) {
-            const int32_t* ur = a.used + (int64_t)n * R;
-            const int32_t* ar = a.alloc + (int64_t)n * R;
+          const int64_t o = (int64_t)nd[i] * R + r;
+          nub[idx] = ktt::wadd(__ldcg(a.used + o), breq[idx]);
+          alb[idx] = a.alloc[o];
+        }
+      }
+      __syncthreads();
+      KTT_PHASE(PH_WALK);
+      // ---- (D) the s2 columns of the block's classes: s2[bcls[i], j], j < i ----
+      for (int idx = tid; idx < E * E; idx += NT) {
+        const int i = idx / E, j = idx % E;
+        if (j >= i) continue;
+        float v = -INFINITY;
+        if (picked[j]) {
+          const int u = bcls[i];
+          if (ktt::bit_at(a.stat_u, u, W, nd[j])) {
             const int32_t* rq = a.req_u + (int64_t)u * R;
-            const int* bq = breq + i * R;
-            auto nu = [&](int r) { return ktt::wadd(__ldcg(ur + r), bq[r]); };
-            auto al = [&](int r) { return ar[r]; };
-            if (ktt::fit_ok(R, [&](int r) { return rq[r]; }, nu, al))
-              v = ktt::score_flat(sp, [&](int r) { return ktt::wadd(nu(r), rq[r]); }, al);
+            const int* nu = nub + j * R;
+            const int* al = alb + j * R;
+            if (ktt::fit_ok(R, [&](int r) { return rq[r]; }, [&](int r) { return nu[r]; }, [&](int r) { return al[r]; }))
+              v = ktt::score_flat(sp, [&](int r) { return ktt::wadd(nu[r], rq[r]); }, [&](int r) { return al[r]; });
           }
         }
-        a.s2[(int64_t)u * E + i] = v;
+        s2c[idx] = v;
       }
       __syncthreads();
       KTT_PHASE(PH_S2);
@@ -320,7 +401,7 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
         float cv = __ldcg(a.bmax + c);
         int cn = __ldcg(a.bnode + c);
         for (int j = 0; j < i; ++j) {
-          const float bv = a.s2[(int64_t)c * E + j];
+          const float bv = s2c[i * E + j];
           if (lexbetter(bv, s2n[j], cv, cn)) {
             cv = bv;
             cn = s2n[j];
@@ -341,6 +422,9 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
         const bool cb = active[i] && i < q;
         const bool pl = cb && cpick[i];
         place[i] = pl;
+        rc.place[i] = pl;
+        rc.nd[i] = nd[i];
+        rc.s2n[i] = s2n[i];
         if (cb) {
           const int p = start + i;
           a.out[p] = pl ? nd[i] : -1;
@@ -349,31 +433,44 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
         }
         if (pl) {
           int32_t* ur = a.used + (int64_t)nd[i] * R;
-          for (int r = 0; r < R; ++r) ur[r] = ktt::wadd(__ldcg(ur + r), breq[i * R + r]);
+          for (int r = 0; r < R; ++r) {
+            ur[r] = nub[i * R + r];
+            rc.pused[i * R + r] = nub[i * R + r];
+          }
         }
       }
       __syncthreads();
       KTT_PHASE(PH_CERTIFY);
-      // ---- (G) fallback: one exact N-wide rescore of the first uncertified pod ----
+      // ---- (G) fallback: the first uncertified pod's lexmax over its class
+      // row, the block's placed columns (cm marks them) read from s2 ----
       const bool do_fb = q < E;
       int t_fb = -1;
       if (do_fb) {
         const int fcls = bcls[q];
-        const int* fq = breq + q * R;
+        const float* s2q = s2c + q * E;
         float best = -INFINITY;
         int bn = IMAX;
-        for (int n = tid; n < N; n += NT) {
-          if (!ktt::bit_at(a.stat_u, fcls, W, n)) continue;
-          const int32_t* ur = a.used + (int64_t)n * R;
-          const int32_t* ar = a.alloc + (int64_t)n * R;
-          auto al = [&](int r) { return ar[r]; };
-          auto us = [&](int r) { return __ldcg(ur + r); };
-          if (!ktt::fit_ok(R, [&](int r) { return fq[r]; }, us, al)) continue;
-          const float v = ktt::score_flat(sp, [&](int r) { return ktt::wadd(us(r), fq[r]); }, al);
+        auto take = [&](int n, float v, int owner) {
+          if (owner != IMAX && place[owner]) v = s2q[owner];
           if (v > best) {  // nodes ascend per thread: the first maximum
             best = v;
             bn = n;
           }
+        };
+        const float* row = a.t0u + (int64_t)fcls * N;
+        if ((N & 3) == 0) {
+          const float4* row4 = reinterpret_cast<const float4*>(row);
+          const int4* cm4 = reinterpret_cast<const int4*>(cm);
+          for (int k = tid; k < N / 4; k += NT) {
+            const float4 v = __ldcg(row4 + k);
+            const int4 o = cm4[k];
+            take(4 * k, v.x, o.x);
+            take(4 * k + 1, v.y, o.y);
+            take(4 * k + 2, v.z, o.z);
+            take(4 * k + 3, v.w, o.w);
+          }
+        } else {
+          for (int n = tid; n < N; n += NT) take(n, __ldcg(row + n), cm[n]);
         }
         for (int off = 16; off > 0; off >>= 1) {
           const float ob = __shfl_down_sync(FULL, best, off);
@@ -408,7 +505,12 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
             a.ordn[p] = blocks;
             if (t >= 0) {
               int32_t* ur = a.used + (int64_t)t * R;
-              for (int r = 0; r < R; ++r) ur[r] = ktt::wadd(__ldcg(ur + r), fq[r]);
+              const int* fq = breq + q * R;
+              for (int r = 0; r < R; ++r) {
+                const int v = ktt::wadd(__ldcg(ur + r), fq[r]);
+                ur[r] = v;
+                rc.fused[r] = v;
+              }
             }
           }
         }
@@ -417,62 +519,91 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
         KTT_PHASE(PH_FALLBACK);
       }
       const bool fb_ok = do_fb && t_fb >= 0;
-      // ---- (H) absorb: claims, register fold, t0u patch ----
+      // ---- (H), block 0's part: claims, loop control, the record ----
       if (tid < E && place[tid]) atomicOr(&claimed[nd[tid] >> 5], 1u << (nd[tid] & 31));
       __syncthreads();
       if (tid == 0) {
         // a fallback STACKS when it lands on a node this epoch touched
         s_stacked = fb_ok && ((claimed[t_fb >> 5] >> (t_fb & 31)) & 1u);
         if (fb_ok) claimed[t_fb >> 5] |= 1u << (t_fb & 31);
-      }
-      __syncthreads();
-      for (int u = tid; u < U1; u += NT) {
-        const float* s2u = a.s2 + (int64_t)u * E;
-        float m = -INFINITY;
-        for (int i = 0; i < q; ++i) m = fmaxf(m, s2u[i]);
-        int mn = IMAX;
-        for (int i = 0; i < q; ++i)
-          if (s2u[i] == m && s2n[i] < mn) mn = s2n[i];
-        float bm = __ldcg(a.bmax + u);
-        int bnd = __ldcg(a.bnode + u);
-        if (lexbetter(m, mn, bm, bnd)) {
-          bm = m;
-          bnd = mn;
-        }
-        float* row = a.t0u + (int64_t)u * N;
-        for (int i = 0; i < q; ++i)
-          if (place[i]) row[nd[i]] = s2u[i];
-        if (fb_ok) {  // the fallback column last: it may stack on a prefix node
-          const int32_t* ur = a.used + (int64_t)t_fb * R;
-          const int32_t* ar = a.alloc + (int64_t)t_fb * R;
-          const int32_t* rq = a.req_u + (int64_t)u * R;
-          auto us = [&](int r) { return __ldcg(ur + r); };
-          auto al = [&](int r) { return ar[r]; };
-          float fcv = -INFINITY;
-          if (ktt::bit_at(a.stat_u, u, W, t_fb) && ktt::fit_ok(R, [&](int r) { return rq[r]; }, us, al))
-            fcv = ktt::score_flat(sp, [&](int r) { return ktt::wadd(us(r), rq[r]); }, al);
-          row[t_fb] = fcv;
-          if (lexbetter(fcv, t_fb, bm, bnd)) {
-            bm = fcv;
-            bnd = t_fb;
-          }
-        }
-        a.bmax[u] = bm;
-        a.bnode[u] = bnd;
-      }
-      if (tid < E && nd[tid] < N) cm[nd[tid]] = IMAX;
-      if (tid == 0) {
         const int ep = (do_fb && (s_stacked || q < E / 8)) ? 1 : 0;
         epochs += ep;
         int32_t* nxt = a.ctrl + 4 * ((step + 1) & 1);
         nxt[0] = q == E ? start + E : start + q + 1;
         nxt[1] = blocks + 1;
         nxt[2] = ep;
+        *rc.q = q;
+        *rc.tfb = fb_ok ? t_fb : -1;
         __threadfence();
       }
+      if (tid < E && nd[tid] < N) cm[nd[tid]] = IMAX;
       __syncthreads();
       KTT_PHASE(PH_ABSORB);
     }
+    grid.sync();
+    KTT_PHASE(PH_BARRIER);
+    // ---- (H) on the whole grid, a warp per class: the s2 column of every
+    // placed pod for the class, the register fold, the t0u patch at the
+    // placed columns, the fallback column last (it may stack on one) ----
+    {
+      const int q = __ldcg(rc.q), tf = __ldcg(rc.tfb);
+      for (int u = blockIdx.x * (NT / 32) + warp; u < U1; u += gridDim.x * (NT / 32)) {
+        const int32_t* rq = a.req_u + (int64_t)u * R;
+        float* row = a.t0u + (int64_t)u * N;
+        float m = -INFINITY;
+        int mn = IMAX;
+        for (int i = lane; i < q; i += 32) {
+          float v = -INFINITY;
+          const int n2 = __ldcg(rc.s2n + i);
+          if (__ldcg(rc.place + i)) {
+            const int n = __ldcg(rc.nd + i);
+            const int* pu = rc.pused + i * R;
+            const int32_t* ar = a.alloc + (int64_t)n * R;
+            auto us = [&](int r) { return __ldcg(pu + r); };
+            auto al = [&](int r) { return ar[r]; };
+            if (ktt::bit_at(a.stat_u, u, W, n) && ktt::fit_ok(R, [&](int r) { return rq[r]; }, us, al))
+              v = ktt::score_flat(sp, [&](int r) { return ktt::wadd(us(r), rq[r]); }, al);
+            if (n != tf) row[n] = v;
+          }
+          if (lexbetter(v, n2, m, mn)) {
+            m = v;
+            mn = n2;
+          }
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          const float om = __shfl_xor_sync(FULL, m, off);
+          const int on = __shfl_xor_sync(FULL, mn, off);
+          if (lexbetter(om, on, m, mn)) {
+            m = om;
+            mn = on;
+          }
+        }
+        if (lane == 0) {
+          float bm = __ldcg(a.bmax + u);
+          int bnd = __ldcg(a.bnode + u);
+          if (lexbetter(m, mn, bm, bnd)) {
+            bm = m;
+            bnd = mn;
+          }
+          if (tf >= 0) {
+            const int32_t* ar = a.alloc + (int64_t)tf * R;
+            auto us = [&](int r) { return __ldcg(rc.fused + r); };
+            auto al = [&](int r) { return ar[r]; };
+            float fcv = -INFINITY;
+            if (ktt::bit_at(a.stat_u, u, W, tf) && ktt::fit_ok(R, [&](int r) { return rq[r]; }, us, al))
+              fcv = ktt::score_flat(sp, [&](int r) { return ktt::wadd(us(r), rq[r]); }, al);
+            row[tf] = fcv;
+            if (lexbetter(fcv, tf, bm, bnd)) {
+              bm = fcv;
+              bnd = tf;
+            }
+          }
+          a.bmax[u] = bm;
+          a.bnode[u] = bnd;
+        }
+      }
+    }
+    KTT_PHASE(PH_ABSORB);
     grid.sync();
     KTT_PHASE(PH_BARRIER);
   }
@@ -484,8 +615,10 @@ __global__ void __launch_bounds__(NT, 1) wave_commit_kernel(WaveArgs a) {
 
 size_t smem_bytes(int N, int W, int E, int KW, int R) {
   const int KWW = (KW + 31) / 32;
-  return 4 * ((size_t)N + W + (size_t)E * KW + (size_t)E * KWW + (size_t)E * (R + 13));
+  return 4 * ((size_t)N + W + (size_t)E * KW + (size_t)E * KWW + (size_t)E * (R + 13) + (size_t)2 * E * R +
+              (size_t)E * E);
 }
+
 
 }  // namespace
 
@@ -494,7 +627,7 @@ extern "C" int ktt_wave_commit(const void* cls, const void* pvalid, const void* 
                                const void* used_in, const void* stat_u, const void* fit_u,
                                const void* base_u, const void* alloc, const void* req_u,
                                void* committed, void* out, void* ordn, void* used, void* t0u,
-                               void* tv, void* ti, void* nf, void* s2, void* bmax, void* bnode,
+                               void* tv, void* ti, void* nf, void* rec, void* bmax, void* bnode,
                                void* ctrl, void* scal, const int* ip, const float* fp, int P,
                                int N, int R, int U1, int E, int KW, int iters, int max_blocks,
                                void* stream) {
@@ -521,7 +654,7 @@ extern "C" int ktt_wave_commit(const void* cls, const void* pvalid, const void* 
   a.tv = static_cast<float*>(tv);
   a.ti = static_cast<int32_t*>(ti);
   a.nf = static_cast<int32_t*>(nf);
-  a.s2 = static_cast<float*>(s2);
+  a.rec = static_cast<int32_t*>(rec);
   a.bmax = static_cast<float*>(bmax);
   a.bnode = static_cast<int32_t*>(bnode);
   a.ctrl = static_cast<int32_t*>(ctrl);

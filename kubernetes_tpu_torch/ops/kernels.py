@@ -537,7 +537,10 @@ def wave_commit(arr, inc, cfg, wave_k: int = WAVE_K, wave_block: int = WAVE_BLOC
     tv = torch.empty((U1, KW), dtype=torch.float32, device=dev)
     ti = torch.empty((U1, KW), dtype=torch.int32, device=dev)
     nf = torch.empty((U1,), dtype=torch.int32, device=dev)
-    s2 = torch.empty((U1, E), dtype=torch.float32, device=dev)
+    # the block record K5's block 0 leaves for the grid (csrc/wave_commit.cu
+    # Rec); at least U1 * E words, the earlier design's s2 columns, which
+    # bench/wave_phases.py --parent runs through this wrapper
+    rec = torch.empty((max(U1 * E, 2 + 3 * E + E * R + R),), dtype=torch.int32, device=dev)
     bmax = torch.empty((U1,), dtype=torch.float32, device=dev)
     bnode = torch.empty((U1,), dtype=torch.int32, device=dev)
     ctrl = torch.zeros((2, 4), dtype=torch.int32, device=dev)  # by loop-step parity
@@ -548,7 +551,7 @@ def wave_commit(arr, inc, cfg, wave_k: int = WAVE_K, wave_block: int = WAVE_BLOC
             inc.cls.data_ptr(), arr.pod_valid.data_ptr(), arr.pod_req.data_ptr(), arr.node_used.data_ptr(),
             inc.stat_u.data_ptr(), inc.fit_u.data_ptr(), inc.base_u.data_ptr(), arr.node_alloc.data_ptr(),
             inc.req_u.data_ptr(), committed.data_ptr(), out.data_ptr(), ordn.data_ptr(), used.data_ptr(),
-            t0u.data_ptr(), tv.data_ptr(), ti.data_ptr(), nf.data_ptr(), s2.data_ptr(), bmax.data_ptr(),
+            t0u.data_ptr(), tv.data_ptr(), ti.data_ptr(), nf.data_ptr(), rec.data_ptr(), bmax.data_ptr(),
             bnode.data_ptr(), ctrl.data_ptr(), scal.data_ptr(), _host(ip), _host(fp),
             P, N, R, U1, E, KW, WAVE_ITERS, max_blocks, _stream(dev),
         )
@@ -708,16 +711,22 @@ def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor, done: Optional[torch.Tensor]
         _check(t, name, dt, shape, dev)
     if done is not None:
         _check(done, "done", torch.int32, (1,), dev)
-    total0 = torch.empty((C, N), dtype=torch.float32, device=dev)
-    topv = torch.empty((C, K), dtype=torch.float32, device=dev)
-    topi = torch.empty((C, K), dtype=torch.int32, device=dev)
+    # scratch (csrc/chunk_rounds_dense.cu): the masked scores of a chunk and
+    # of the next; the lists, then the next chunk's stale top-(K + C) lists;
+    # a chunk's dirty slots (count, nodes, usage; at least 2 W words, the
+    # earlier design's node bitmaps, which bench/dense_phases.py --parent
+    # runs through this wrapper)
+    KL = min(K + C, N)
+    total0 = torch.empty((2, C, N), dtype=torch.float32, device=dev)
+    topv = torch.empty((C, K + KL), dtype=torch.float32, device=dev)
+    topi = torch.empty((C, K + KL), dtype=torch.int32, device=dev)
     nf = torch.empty((C,), dtype=torch.int32, device=dev)
-    bits = torch.empty((2, W), dtype=torch.int32, device=dev)
+    dirty = torch.empty((max(2 * W, 1 + C + C * R),), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(
             arr.pod_req.data_ptr(), arr.pod_valid.data_ptr(), arr.node_alloc.data_ptr(), arr.node_used.data_ptr(),
             sfs.data_ptr(), choices.data_ptr(), used.data_ptr(), ords.data_ptr(), scal.data_ptr(),
-            total0.data_ptr(), topv.data_ptr(), topi.data_ptr(), nf.data_ptr(), bits.data_ptr(),
+            total0.data_ptr(), topv.data_ptr(), topi.data_ptr(), nf.data_ptr(), dirty.data_ptr(),
             None if done is None else done.data_ptr(), _host(ip), _host(fp), P, N, R, C, SPEC_ITERS, _stream(dev),
         )
     _raise_on(err, "chunk_rounds_dense")

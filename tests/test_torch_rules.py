@@ -9,7 +9,9 @@
   and _Session and runtime.convert's clone_pod, then runs a small session
   on the CPU;
 - the kernel wrappers never fall back: a CPU tensor is refused, and a
-  failed build raises.
+  failed build raises;
+- each phase tool's PHASES tuple names the PH_* enum of its kernel's
+  source, in order (a source scan: the counters are indexed by the enum).
 """
 
 import os
@@ -228,3 +230,15 @@ def test_wrappers_refuse_a_tensor_off_the_launch_device():
         kernels._check(tensor("cuda:0"), "x", torch.int32, (4,), torch.device("cuda:1"))
     kernels._check(tensor("cuda:1"), "x", torch.int32, (4,), torch.device("cuda:1"))
     kernels._check(tensor("cuda:0"), "x", torch.int32, (4,), torch.device("cuda:0"))
+
+
+@pytest.mark.parametrize("tool,source", [("dense_phases", "chunk_rounds_dense.cu"),
+                                         ("wave_phases", "wave_commit.cu"), ("rounds_phases", "rounds.cu")])
+def test_phase_tools_name_their_kernel_enum(tool, source):
+    import importlib
+
+    mod = importlib.import_module(f"kubernetes_tpu_torch.bench.{tool}")
+    enum = re.search(r"enum\s*\{([^}]*)\}", (PKG / "csrc" / source).read_text()).group(1)
+    names = [n.strip() for n in enum.split(",") if n.strip()]
+    assert names[-1] == "PH_N"
+    assert [f"PH_{name.upper()}" for name, _ in mod.PHASES] == names[:-1]

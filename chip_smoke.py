@@ -755,6 +755,11 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     print(f"[north-star-waves] wave_commit == plain over the whole wave ({n_blocks} blocks, {epochs} epochs, "
           f"{placed} placed): {k5_ms:.3f} ms, plain {k5_plain:.1f} ms (host clock), bound {k5_bound:.5f} ms "
           f"({k5_by}: {k5_bytes} B, {k5_ops} ops)", flush=True)
+    # K6 as the default class-wave step runs it: stage B after the wave
+    k6_stage_b_ms = cuda_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], (wk[0], wk[1], wk[2], wk[5])),
+                            reps=5)
+    print(f"[north-star-waves] chunk_rounds as the class-wave step's stage B (after the wave): {k6_stage_b_ms:.3f} ms",
+          flush=True)
 
     # --- the route with class_waves=False: chunk_rounds carries every chunk ---
     kernels.reset_launches()
@@ -833,7 +838,8 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
         dict(name="chunk_rounds", source="kubernetes_tpu_torch/csrc/chunk_rounds.cu",
              replaces="kubernetes_tpu/ops/assign.py:1093", launches=launches["chunk_rounds"],
              max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound, bound_by=k6_by,
-             plain_scope=f"first {WAVE_PREFIX_CHUNKS} chunks", all_chunks_ms=k6_full_ms, **common),
+             plain_scope=f"first {WAVE_PREFIX_CHUNKS} chunks", all_chunks_ms=k6_full_ms,
+             stage_b_ms=k6_stage_b_ms, **common),
     ]
 
 
@@ -862,7 +868,7 @@ def phase_north_star_dense() -> list:
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import static_rows, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
 
     snap = workloads.heterogeneous(**workloads.NORTH_STAR)
@@ -915,10 +921,8 @@ def phase_north_star_dense() -> list:
     check(k7_err == 0, f"north-star: packed_static_rows != plain ({k7_err} words)")
     k7_ms = cuda_ms(lambda: kernels.packed_static_rows(arr), reps=10, warmup=2)
     k7_plain = cuda_ms(lambda: assign.packed_static_rows_plain(arr), reps=2)
-    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
-    S, E_, L = arr.sel_mask.shape
-    k7_bytes = N * (1 + T + L) + P * (1 + T + 4 + 4 * TT + 1) + S * E_ * L + 4 * S * E_ + 4 * P * W
-    k7_bound, k7_by = bound(k7_bytes, P * N * (3 + T + TT))
+    k7_bytes, k7_ops = static_rows.k7_work(arr, False)
+    k7_bound, k7_by = bound(k7_bytes, k7_ops)
     print(f"[north-star-dense] packed_static_rows == plain over [{P}, {W}]: {k7_ms:.4f} ms, plain "
           f"{k7_plain:.3f} ms, bound {k7_bound:.4f} ms ({k7_by}: {k7_bytes} B)", flush=True)
 
@@ -1988,13 +1992,26 @@ def gang_run(tag, spec, want) -> dict:
                                      kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done)),
                             reps=100)
     check(torch.equal(pv_g, arr.pod_valid), f"{tag}: a gated gang_quorum launch moved pv")
+    # K7 alone in the gated mode (done set): its card time, nothing written;
+    # and with done clear against its plain version
+    sfs_real = kernels.packed_static_rows(arr)
+    k7_gated_ms = card_ms(lambda: kernels.packed_static_rows(arr, done=done, out=sfs), reps=100)
+    k7_moved = mismatch(sfs, sfs_real)
+    check(k7_moved == 0, f"{tag}: a gated packed_static_rows launch wrote {k7_moved} words")
+    k7_err = mismatch(kernels.packed_static_rows(arr, done=torch.zeros_like(done), out=sfs),
+                      assign.packed_static_rows_plain(arr))
+    check(k7_err == 0, f"{tag}: packed_static_rows (done clear) != plain ({k7_err} words)")
+    k7_plain = cuda_ms(lambda: assign.packed_static_rows_plain(arr), reps=2)
+    print(f"[{tag}] packed_static_rows (done clear) == plain over [{arr.P}, {sfs.shape[1]}]; done set: "
+          f"{k7_gated_ms * 1e3:.2f} us of card time, nothing written", flush=True)
     print(f"[{tag}] one iteration's kernels: wave_commit {k5_ms:.3f} ms + chunk_rounds {k6_ms:.3f} ms (the host "
           f"fixpoint's route), packed_static_rows {k7_ms:.3f} ms + chunk_rounds_dense {k8_ms:.3f} ms (the device "
           f"fixpoint's); a gated iteration: host {sum(host_us.values()):.1f} us "
           f"({', '.join(f'{k} {v:.1f}' for k, v in host_us.items())}), device {gated_ms * 1e3:.1f} us back to "
           f"back, {gated_card_ms * 1e3:.1f} us of card time queued behind a sleep", flush=True)
     return dict(arr=arr, c1=c1, G=G, host_s=host_s, device_s=device_s, enqueue_s=enqueue_s,
-                launches=dl, k13_err=k13_err, encode_s=encode_s)
+                launches=dl, k13_err=k13_err, encode_s=encode_s, k7_ms=k7_ms, k7_gated_ms=k7_gated_ms,
+                k7_err=k7_err + k7_moved, k7_plain=k7_plain)
 
 
 def phase_gang_small() -> None:
@@ -2010,6 +2027,7 @@ def phase_config5() -> list:
     beside its plain version and the one PyTorch call of its quorum count."""
     import torch
 
+    from kubernetes_tpu_torch.bench import static_rows
     from kubernetes_tpu_torch.bench import workloads as w
     from kubernetes_tpu_torch.ops import gang, kernels
 
@@ -2030,10 +2048,17 @@ def phase_config5() -> list:
           f"torch.bincount of the quorum count {k13_lib:.4f} ms, bound {k13_bound:.6f} ms ({k13_by}: {k13_bytes} B); "
           f"walls: host fixpoint {r['host_s']:.4f} s, device fixpoint {r['device_s']:.4f} s (host enqueue "
           f"{r['enqueue_s']:.4f} s)", flush=True)
+    k7_bound, k7_by = bound(*static_rows.k7_work(arr, False))
     return [dict(name="gang_quorum", route="cuda", source="kubernetes_tpu_torch/csrc/gang.cu",
                  replaces="kubernetes_tpu/ops/gang.py:112", launches=r["launches"]["gang_quorum"],
                  max_abs_err=r["k13_err"], ms=k13_ms, plain_ms=k13_plain, bound_ms=k13_bound, bound_by=k13_by,
-                 library_ms=k13_lib)]
+                 library_ms=k13_lib),
+            dict(name="packed_static_rows (gated mode)", route="cuda",
+                 source="kubernetes_tpu_torch/csrc/class_hoist.cu",
+                 replaces="kubernetes_tpu/ops/filters.py:92 (per gang-fixpoint iteration, kubernetes_tpu/ops/gang.py:112)",
+                 launches=r["launches"]["packed_static_rows"], max_abs_err=r["k7_err"], ms=r["k7_ms"],
+                 plain_ms=r["k7_plain"], bound_ms=k7_bound, bound_by=k7_by, library_ms=None,
+                 gated_ms=r["k7_gated_ms"])]
 
 
 def phase_gang_rounds(k_ops3: int, k12_row: dict) -> dict:

@@ -17,17 +17,9 @@ constexpr int KIND_PAD = 0;
 constexpr int KIND_ANY = 1;
 constexpr int KIND_NONE = 2;
 
-__global__ void term_match_kernel(const uint8_t* __restrict__ sel_mask,  // [S, E, L]
-                                  const int32_t* __restrict__ sel_kind,  // [S, E]
-                                  const uint8_t* __restrict__ node_labels,  // [N, L]
-                                  int S, int E, int L, int N,
-                                  uint8_t* __restrict__ tm,  // [S, N]
-                                  const int32_t* __restrict__ done) {
-  if (done != nullptr && *done) return;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)S * N) return;
-  int s = (int)(i / N);
-  int n = (int)(i % N);
+// does node n's label row satisfy interned selector term s?
+__device__ __forceinline__ bool term_ok(const uint8_t* __restrict__ sel_mask, const int32_t* __restrict__ sel_kind,
+                                        const uint8_t* __restrict__ node_labels, int s, int n, int E, int L) {
   const uint8_t* lab = node_labels + (int64_t)n * L;
   bool ok = true;
   for (int e = 0; e < E && ok; ++e) {
@@ -42,7 +34,19 @@ __global__ void term_match_kernel(const uint8_t* __restrict__ sel_mask,  // [S, 
     for (int l = 0; l < L; ++l) cnt += (m[l] & lab[l]);
     ok = (kind == KIND_ANY) ? (cnt > 0) : (cnt == 0);
   }
-  tm[i] = ok ? 1 : 0;
+  return ok;
+}
+
+__global__ void term_match_kernel(const uint8_t* __restrict__ sel_mask,  // [S, E, L]
+                                  const int32_t* __restrict__ sel_kind,  // [S, E]
+                                  const uint8_t* __restrict__ node_labels,  // [N, L]
+                                  int S, int E, int L, int N,
+                                  uint8_t* __restrict__ tm,  // [S, N]
+                                  const int32_t* __restrict__ done) {
+  if (done != nullptr && *done) return;
+  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (int64_t)S * N) return;
+  tm[i] = term_ok(sel_mask, sel_kind, node_labels, (int)(i / N), (int)(i % N), E, L) ? 1 : 0;
 }
 
 __global__ void pack_bits_kernel(const uint8_t* __restrict__ in,  // [rows, T]

@@ -12,6 +12,14 @@
 //
 // Bound: 8 passes x N loads per row; at N = 20480 about 160k L2 loads for
 // a row, spread over the block's threads.
+//
+// block_top32 (rounds.cu, k <= 32 over a slice of about one entry a thread,
+// where block_topk's ~45 block barriers and not its loads set the time)
+// keeps the same order with warp shuffles: each warp sorts its 32-entry
+// chunks of keys by a bitonic network and folds them into a running top-32
+// (the elementwise max of a descending list and a reversed one is bitonic
+// and holds the top 32 of both; five more compare steps sort it), then the
+// warps' lists fold pairwise in shared memory, log2(warps) barriers.
 
 #pragma once
 
@@ -131,6 +139,73 @@ __device__ int block_topk(const float* row, int n, int k, float* out_v, int* out
     finite = v > -INFINITY;
   }
   return __syncthreads_count(finite);
+}
+
+__device__ __forceinline__ unsigned long long key_max(unsigned long long a, unsigned long long b) {
+  return a > b ? a : b;
+}
+
+// a warp's 32 keys, one a lane, into descending order by a bitonic network
+__device__ __forceinline__ unsigned long long warp_sort_desc(unsigned long long x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(0xffffffffu, x, stride);
+      const bool desc = (lane & size) == 0 || size == 32;
+      const bool lower = (lane & stride) == 0;
+      x = (lower == desc) ? key_max(x, o) : (x < o ? x : o);
+    }
+  }
+  return x;
+}
+
+// a bitonic sequence of 32 keys, one a lane, into descending order
+__device__ __forceinline__ unsigned long long warp_merge_desc(unsigned long long x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const unsigned long long o = __shfl_xor_sync(0xffffffffu, x, stride);
+    x = (lane & stride) == 0 ? key_max(x, o) : (x < o ? x : o);
+  }
+  return x;
+}
+
+// the top 32 of a warp's descending list `run` (lane l: its l-th key) and
+// another descending list `other` -> descending, lane l its l-th key
+__device__ __forceinline__ unsigned long long warp_fold(unsigned long long run, unsigned long long other) {
+  const unsigned long long rev = __shfl_sync(0xffffffffu, other, 31 - (threadIdx.x & 31));
+  return warp_merge_desc(key_max(run, rev));
+}
+
+// The 32 largest keys (topk_key; 0 below every key, where n < 32) of
+// row[0..n), in block_topk's order, into keys[0..32): shared scratch of 32
+// per warp.  Every thread of the block calls it (blockDim a multiple of
+// 32); it ends with a block barrier.
+__device__ void block_top32(const float* row, int n, unsigned long long* keys) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  unsigned long long run = 0ull;
+  for (int c0 = warp * 32; c0 < n; c0 += blockDim.x) {
+    const int i = c0 + lane;
+    const unsigned long long key = i < n ? topk_key(__ldcg(row + i), i) : 0ull;
+    run = warp_fold(run, warp_sort_desc(key));
+  }
+  keys[warp * 32 + lane] = run;
+  for (int width = 1; width < nw; width <<= 1) {
+    __syncthreads();
+    if ((warp & (2 * width - 1)) == 0 && warp + width < nw) {
+      run = warp_fold(run, keys[(warp + width) * 32 + lane]);
+      keys[warp * 32 + lane] = run;
+    }
+  }
+  __syncthreads();
+}
+
+// the f32 of a key (topk_key's sign fold, undone)
+__device__ __forceinline__ float key_value(unsigned long long key) {
+  const uint32_t o = (uint32_t)(key >> 32);
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
 }
 
 }  // namespace ktt

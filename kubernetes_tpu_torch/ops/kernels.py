@@ -421,6 +421,17 @@ def _need_cuda(dev, name: str) -> None:
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
 
 
+def _static_scratch(S: int, N: int, T: int, rows: int, dev) -> tuple:
+    """K3's and K7's scratch (csrc/class_hoist.cu static_plane): the term
+    match words [S, W], the node words (node-valid [W], the OR of each node
+    word's taints [W, TW], the transposed taint words [32 TW, W]) and the
+    rows' toleration words [rows, TW]."""
+    W, TW = -(-N // 32), max(1, -(-T // 32))
+    return (torch.empty((S, W), dtype=torch.int32, device=dev),
+            torch.empty((W * (1 + 33 * TW),), dtype=torch.int32, device=dev),
+            torch.empty((rows, TW), dtype=torch.int32, device=dev))
+
+
 def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False, base: int = 0):
     """K3 (csrc/class_hoist.cu): the packed class static plane int32 words
     [U1, ceil(N/32)] for the classes whose first pod rows are r_u (i64);
@@ -444,10 +455,7 @@ def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False, base: in
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
     fn = _fn("class_static_hoist")
-    TW = max(1, -(-T // 32))
-    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
-    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
-    tol_w = torch.empty((U1, TW), dtype=torch.int32, device=dev)
+    tm, taint_w, tol_w = _static_scratch(S, N, T, U1, dev)
     stat_u = torch.empty((U1, -(-N // 32)), dtype=torch.int32, device=dev)
     elig_u = torch.empty_like(stat_u) if with_elig else None
     with torch.cuda.device(dev):
@@ -631,8 +639,8 @@ def read_sweeps(scal: torch.Tensor) -> int:
 def packed_static_rows(arr, with_elig: bool = False, done: Optional[torch.Tensor] = None,
                        out: Optional[torch.Tensor] = None, base: int = 0):
     """K7 (csrc/class_hoist.cu): static feasibility of every pod row,
-    pod_valid included, as int32 words [P, ceil(N/32)] written by warp
-    ballot (no dense bool plane); with `with_elig` also the eligibility
+    pod_valid included, as int32 words [P, ceil(N/32)] assembled word by
+    word (no dense bool plane); with `with_elig` also the eligibility
     plane nodesel & node_valid -> (sfs, eligs).  `done` (i32[1] on the
     card): the launch returns at entry once it is set; `out`: the sfs
     buffer to write (a fresh one when None); `base`: the first global node
@@ -652,10 +660,7 @@ def packed_static_rows(arr, with_elig: bool = False, done: Optional[torch.Tensor
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
     fn = _fn("packed_static_rows")
-    TW = max(1, -(-T // 32))
-    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
-    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
-    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
+    tm, taint_w, tol_w = _static_scratch(S, N, T, P, dev)
     W = -(-N // 32)
     if out is not None:
         _check(out, "out", torch.int32, (P, W), dev)
@@ -818,6 +823,10 @@ class ScanOut:
 
 
 def _rounds_scratch(C: int, N: int, dev) -> list:
+    """K12's scratch pointers (csrc/rounds.cu ktt_rounds): the [C, N] row
+    scratch, the [C, 32] top lists, the [C] argmaxes, the exchange; the four
+    [C], the [2] and the [1] word arrays are the first design's, which the
+    phase tools' --parent builds still read."""
     n_ent = MAX_MATCH + 3 * MAX_SLOTS
     return [
         torch.empty((C, N), dtype=torch.uint8, device=dev),

@@ -242,3 +242,12 @@ def test_phase_tools_name_their_kernel_enum(tool, source):
     names = [n.strip() for n in enum.split(",") if n.strip()]
     assert names[-1] == "PH_N"
     assert [f"PH_{name.upper()}" for name, _ in mod.PHASES] == names[:-1]
+
+
+def test_rounds_phases_names_every_barrier_site():
+    """bench/rounds_phases.py reads the grid barriers' log by the BS_* enum
+    of csrc/rounds.cu and says what each site waits for."""
+    from kubernetes_tpu_torch.bench import rounds_phases
+
+    sites = rounds_phases.site_names((PKG / "csrc" / "rounds.cu").read_text())
+    assert sites and sites == tuple(rounds_phases.SITE_WAITS)

@@ -136,8 +136,15 @@ batched preemption) on the JAX package's preemption bench cluster:
                      digests, 1691 sweeps and usage; rounds' shard modes ==
                      the plain sharded scan on the first 4 chunks (choices,
                      usage, ordinals, count planes), full_scan's on the
-                     first 128 pods; each timed over all pods beside the
-                     one-device rounds;
+                     first 128 pods; each timed over all pods, rounds'
+                     dense and class-row shard modes beside the same
+                     call's one-device rounds in the same mode; first, the
+                     frac-weights case of
+                     tests/torch_rounds_contended_reference.py on
+                     make_mesh(2) (non-integer preferred weights beside
+                     hardPodAffinityWeight on one term: ROADMAP C4):
+                     rounds' shard modes == the plain sharded scan, every
+                     count plane as bits;
   [mesh2d-config3]   config 3 on make_mesh(shape=(2, 4)): the rounds route
                      dense (packed_static_rows x 4, rounds in shard mode),
                      on class rows (HoistCache(mesh=): class_static_hoist x
@@ -2647,17 +2654,61 @@ def sharded_counted(tag, fn, need: dict, route):
     return out, launches, first_s
 
 
-def shard_x_bytes(kind: str, P: int, S: int, rounds: int = 0, C: int = 16, kl: int = 32) -> int:
-    """Bytes a shard-mode launch writes to its exchange: per pod (K2: a
-    (score, id) slot; K11: the minMatch, five scalars, the best and its
-    commit entries, 80 of 16 B at most) or per round and chunk pod (K12:
-    minMatch, scalars, best, the top-kl list, the repair's five words, and
-    the commit entries)."""
+def shard_x_bytes(kind: str, P: int, S: int) -> int:
+    """Bytes a shard-mode launch of K2 or K11 writes to its exchange, per
+    pod (K2: a (score, id) slot; K11: the minMatch, five scalars, the best
+    and its commit entries, 80 of 16 B at most).  K12's shard mode has no
+    exchange of its own: it is the one-device launch over every shard."""
     if kind == "fit":
         return P * S * 8
-    if kind == "full":
-        return P * S * (4 * 16 + 4 * 5 + 8 + 4 + 16 * 80)
-    return rounds * C * S * (4 * 16 + 4 * 5 + 8 + 8 * kl + 20) + P * 16 * 80
+    return P * S * (4 * 16 + 4 * 5 + 8 + 4 + 16 * 80)
+
+
+def mesh_frac_weights(S: int = 2) -> int:
+    """tests/torch_rounds_contended_reference.py's frac-weights case
+    (non-integer preferred inter-pod weights beside hardPodAffinityWeight on
+    one term: the commit's add order, ROADMAP C4) on make_mesh(S): K12's
+    shard mode, dense and class rows, against the plain sharded scan on the
+    same card tensors -> the entries that differ in choices, usage,
+    ordinals, sweeps and the pairwise state (every count plane, pref
+    included, as bit patterns; the ports)."""
+    import importlib.util
+
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel import mesh as tm
+    from kubernetes_tpu_torch.parallel import sharded
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_rounds_contended_reference", os.path.join(HERE, "tests", "torch_rounds_contended_reference.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    arr, meta, cfg, iters = ref.port_arrays("frac-weights", "cuda")
+    m = tm.make_mesh(S)
+    sa = tm.shard_arrays(arr, m)
+    rows = [assign.packed_static_rows(sh, with_elig=True, base=m.base(j, sa.N)) for j, sh in enumerate(sa.shards)]
+    sfs, eligs = [r[0] for r in rows], [r[1] for r in rows]
+    planes = [assign.score_planes(sh, cfg) for sh in sa.shards]
+    inc = sharded.inc_applicable(sa, cfg, HoistCache(mesh=m).ensure(arr, meta, cfg))
+    check(inc is not None, "mesh-frac-weights: the class state does not apply")
+    errs = []
+    for mode, k, p in (
+        ("dense", lambda: kernels.rounds_shard(sa, cfg, sfs, eligs, planes, repair_iters=iters, with_state=True),
+         lambda: sharded.sharded_schedule_scan_rounds_plain(sa, cfg, sfs, eligs, planes, repair_iters=iters,
+                                                            with_state=True)),
+        ("class rows", lambda: kernels.rounds_shard(sa, cfg, inc=inc, repair_iters=iters, with_state=True),
+         lambda: sharded.sharded_schedule_scan_rounds_plain(sa, cfg, repair_iters=iters, inc=inc, with_state=True))):
+        kk, pp = k(), p()
+        e = (sum(mismatch(a, b) for a, b in zip(kk[:3], pp[:3])) + abs(kernels.read_sweeps(kk[3]) - pp[3])
+             + same_state(kk[4], pp[4]))
+        check(e == 0, f"mesh-frac-weights {mode}: rounds_shard != plain on {S} shards ({e} entries; pref "
+                      f"{mismatch(kk[4]['pref'], pp[4]['pref'])})")
+        errs.append(e)
+    print(f"[mesh-frac-weights] {m}: P={arr.P} N={sa.N} nl={sa.nl}, hardPodAffinityWeight "
+          f"{cfg.hard_pod_affinity_weight} beside non-integer preferred weights on one term: rounds_shard dense and "
+          f"class rows == the plain sharded scan (choices, usage, ordinals, sweeps, cnt / anti / pref / total_t "
+          f"as bits, ports)", flush=True)
+    return sum(errs)
 
 
 def phase_mesh_north_star_perpod(ns) -> list:
@@ -2759,6 +2810,8 @@ def phase_mesh_config3(c3, k12_row: dict, k11_row: dict) -> list:
     arr, meta, cfg, choices, sfs1, eligs1, _, _, k_ops = c3
     n, P = meta.n_pods, arr.P
     used1 = choices_used(arr, choices, P)
+    inc1 = HoistCache().ensure(arr, meta, cfg)  # one device's class state, for the shard mode's yardstick
+    frac_err = mesh_frac_weights()
 
     def digest(x):
         return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
@@ -2835,33 +2888,36 @@ def phase_mesh_config3(c3, k12_row: dict, k11_row: dict) -> list:
         k11_plain = (time.perf_counter() - t0) * 1e3
         k11_err = mismatch(kf[0], pf[0]) + mismatch(kf[1], pf[1]) + same_state(kf[2], pf[2])
         check(k11_err == 0, f"{tag}: full_scan_shard != plain on the first {MESH_FULL_PREFIX} pods ({k11_err})")
+        # the shard mode beside the same call's one-device K12, each mode in turns
         kd_ms = cuda_ms(lambda: kernels.rounds_shard(sa, cfg, sfs, eligs, nn), reps=3)
+        one_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, sfs1, eligs1, (None, None)), reps=3)
+        one_i_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, inc=inc1), reps=3)
         ki_ms = cuda_ms(lambda: kernels.rounds_shard(sa, cfg, inc=inc), reps=3)
-        one_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, sfs1, eligs1, (None, None)), reps=2)
         kf_ms = cuda_ms(lambda: kernels.full_scan_shard(sa, cfg, sfs, eligs, nn), reps=1)
         k_bytes = full_bytes(arr)
         sw_ = w.CONFIG3_ROUNDS_SWEEPS
-        kl = min(32, nl)
-        b12, b12_by = bound(k_bytes + shard_x_bytes("rounds", P, S, sw_, kl=kl), k_ops)
+        b12, b12_by = bound(k_bytes, k_ops)  # the one-device function's: no exchange of its own
         b11, b11_by = bound(k_bytes + shard_x_bytes("full", P, S), k_ops)
         print(f"[mesh-config3] {m}: rounds_shard dense / class rows == plain on the first "
               f"{MESH_ROUNDS_PREFIX_CHUNKS} chunks (plain {k12_plain:.1f} ms, host clock), full_scan_shard == plain "
               f"on the first {MESH_FULL_PREFIX} pods (plain {k11_plain:.1f} ms); all pods: rounds_shard dense "
-              f"{kd_ms:.3f} ms ({kd_ms / sw_ * 1e3:.1f} us per round), class rows {ki_ms:.3f} ms, one-device "
-              f"rounds {one_ms:.3f} ms (same call; [config3] {k12_row['ms']:.3f}), full_scan_shard {kf_ms:.3f} ms "
+              f"{kd_ms:.3f} ms ({kd_ms / sw_ * 1e3:.1f} us per round) beside the same call's one-device rounds "
+              f"{one_ms:.3f} ms ({kd_ms / one_ms:.3f}x; [config3] {k12_row['ms']:.3f}), class rows {ki_ms:.3f} ms "
+              f"beside one device's {one_i_ms:.3f} ms ({ki_ms / one_i_ms:.3f}x), full_scan_shard {kf_ms:.3f} ms "
               f"({kf_ms / P * 1e3:.2f} us per pod; [config3-perpod] full_scan {k11_row['ms']:.3f}); bounds "
               f"{b12:.4f} ms ({b12_by}) / {b11:.4f} ms ({b11_by})", flush=True)
         if S == 4:
             rows += [
                 dict(name="rounds (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
                      replaces="kubernetes_tpu/ops/assign.py:1464 (axis_name; :56-110)", launches=dl["rounds_shard"],
-                     max_abs_err=errs[0], ms=kd_ms, plain_ms=k12_plain, bound_ms=b12, bound_by=b12_by,
-                     library_ms=None, plain_scope=f"first {MESH_ROUNDS_PREFIX_CHUNKS} chunks", shards=S,
-                     one_device_ms=one_ms),
+                     max_abs_err=errs[0] + frac_err, ms=kd_ms, plain_ms=k12_plain, bound_ms=b12, bound_by=b12_by,
+                     library_ms=None, plain_scope=f"first {MESH_ROUNDS_PREFIX_CHUNKS} chunks; frac-weights on 2 "
+                     f"shards", shards=S, one_device_ms=one_ms),
                 dict(name="rounds (shard, class rows)", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
                      replaces="kubernetes_tpu/ops/assign.py:1464 (axis_name, inc=)", launches=il["rounds_shard"],
                      max_abs_err=errs[1], ms=ki_ms, plain_ms=k12_plain, bound_ms=b12, bound_by=b12_by,
-                     library_ms=None, plain_scope=f"first {MESH_ROUNDS_PREFIX_CHUNKS} chunks (dense plain)", shards=S),
+                     library_ms=None, plain_scope=f"first {MESH_ROUNDS_PREFIX_CHUNKS} chunks (dense plain)", shards=S,
+                     one_device_ms=one_i_ms),
                 dict(name="full_scan (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/full_scan.cu",
                      replaces="kubernetes_tpu/ops/assign.py:181 (axis_name; :252-344), ops/pairwise.py:56",
                      launches=pl["full_scan_shard"], max_abs_err=k11_err, ms=kf_ms, plain_ms=k11_plain,

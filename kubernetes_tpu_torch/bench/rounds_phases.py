@@ -1,17 +1,19 @@
 """Where kernel K12 rounds' time goes on BASELINE config 3, phase by phase
 and barrier by barrier, on one card.
 
-    python3 -m kubernetes_tpu_torch.bench.rounds_phases [--parent DIR]
+    python3 -m kubernetes_tpu_torch.bench.rounds_phases [--mesh S] [--parent DIR]
 
 Builds csrc/rounds.cu a second time with -DKTT_ROUNDS_PHASES: thread 0 of
 every block then adds the SM cycles (clock64) between the round loop's
 phase boundaries into device counters (bench/wave_phases.py's method), and
 logs each grid barrier's wait per block, tagged with the barrier's site.
 Runs that build on config 3, spread_affinity(5000, 10000, seed=0), through
-the usual wrapper in both of K12's single-device modes -- dense (after K7's
-static and eligibility planes) and class-row (after HoistCache.ensure) --
-checks its outputs equal the normal build's bit for bit, and prints per
-cell:
+the usual wrapper in K12's single-device modes -- dense (after K7's static
+and eligibility planes), class-row (after HoistCache.ensure) and gated
+(dense with a clear `done` word) -- or, with --mesh S, in its shard mode
+on make_mesh(S) -- dense (after K7 per shard with its base) and class-row
+(after HoistCache(mesh=).ensure) -- checks its outputs equal the normal
+build's bit for bit, and prints per cell:
 
 - block 0's phase split (its cycles per phase, their share, that share of
   the instrumented launch's time, how often the phase ran);
@@ -20,15 +22,19 @@ cell:
   that arrived last, which waited for nobody), the blocks' mean wait past
   that latency (waiting for the slowest block), and which blocks arrived
   last most often; then the barrier time of the mean block split into the
-  latency and the work it waited for.
+  latency and the work it waited for;
+- with --mesh, the same call's one-device K12 on the unsharded arrays
+  (the same mode), timed after the shard mode.
 
 The normal build is timed before and after, so the counters' cost shows.
 With --parent DIR (a directory holding an earlier csrc/, e.g. a git
 archive of the parent commit under the git-ignored _parent/) the earlier
 rounds.cu is built too, checked bit-equal, split by its own phase enum and
-timed against the current one in turns (old, new, new, old).  Ends with
-one JSON line and the card's name and power limit as nvidia-smi gives
-them.  Needs one card.
+timed against the current one in turns (old, new, new, old); an earlier
+shard mode of the first design (rounds_shard_kernel: C * S blocks and an
+exchange buffer, another C interface) is driven through an adapter that
+allocates its buffers, and only timed.  Ends with one JSON line and the
+card's name and power limit as nvidia-smi gives them.  Needs one card.
 """
 
 from __future__ import annotations
@@ -38,10 +44,11 @@ import ctypes
 import json
 import re
 import sys
+from pathlib import Path
 
 import numpy as np
 
-from .wave_phases import card_name, split_cell, variants
+from .wave_phases import build_variant, card_name, phase_names, split_cell, timed, variants
 
 PHASES = (  # the order of the PH_* enum in csrc/rounds.cu
     ("chunk", "a chunk's start: its pod's slots, share row and the chunk state"),
@@ -78,7 +85,7 @@ def site_names(text: str):
     return tuple(n[3:].lower() for n in names if n.startswith("BS_") and n != "BS_N")
 
 
-def barrier_split(tag: str, run, phase_fn, lib, n_phases: int, phases, sites, cap: int) -> dict:
+def barrier_split(tag: str, kernel: str, run, phase_fn, lib, n_phases: int, phases, sites, cap: int) -> dict:
     """One launch of run() through the instrumented entry `phase_fn` with
     the barrier log set: every block's own cycles per phase and each
     barrier site's latency, waits and last arrivers."""
@@ -98,15 +105,15 @@ def barrier_split(tag: str, run, phase_fn, lib, n_phases: int, phases, sites, ca
     if blocks(cyc.ctypes.data) or set_log(log.data_ptr(), cap):
         raise RuntimeError("setting the rounds barrier log failed")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    normal = kernels._fn("rounds")
-    kernels._FNS["rounds"] = phase_fn
+    normal = kernels._fn(kernel)
+    kernels._FNS[kernel] = phase_fn
     try:
         start.record()
         run()
         end.record()
         torch.cuda.synchronize()
     finally:
-        kernels._FNS["rounds"] = normal
+        kernels._FNS[kernel] = normal
     ms = start.elapsed_time(end)
     err = blocks(cyc.ctypes.data) or set_log(None, 0)
     if err:
@@ -158,22 +165,72 @@ def barrier_split(tag: str, run, phase_fn, lib, n_phases: int, phases, sites, ca
     return dict(blocks=nb, barriers=n_bar, ms=ms, cycles_per_us=per_ms / 1e3, own=own, sites=rows, split=groups)
 
 
+def first_shard_design(parent_dir: str):
+    """The shard mode of an earlier rounds.cu of the first design
+    (rounds_shard_kernel: C * S blocks, a row scratch [S, C, nl] and an
+    exchange buffer) -> (None, None, an entry taking the current C
+    interface's arguments, its phase names), or None when the earlier
+    source has the current design."""
+    import torch
+
+    from ..ops import kernels
+
+    psrc = Path(parent_dir) / "csrc" / SRC
+    if not psrc.exists():
+        psrc = Path(parent_dir) / SRC
+    if "rounds_shard_kernel" not in psrc.read_text():
+        return None
+    _, old = build_variant("rounds_shard", psrc, tag="parent")
+    P_, I_ = ctypes.c_void_p, ctypes.c_int
+    old.argtypes = [P_] * 7 + [I_, I_] + [P_] * 5 + [I_, I_, P_]
+    keep = {}
+
+    def entry(ptrs, dims, sw, wp, ip, fp, table, S, N, ch, od, sc, sp, C, iters, stream):
+        key = (S, N, C)
+        if key not in keep:  # the first design's buffers (its wrapper's layout), held across calls
+            nl, CS, ms, ent = N // S, C * S, kernels.MAX_SLOTS, kernels._MAX_ENT
+            feas = torch.empty((CS * nl,), dtype=torch.uint8, device="cuda")
+            rowf = torch.empty((4, CS * nl), dtype=torch.float32, device="cuda")
+            sizes_f = (CS * ms, CS * 5, CS, CS * kernels.ZR_MAX, 2 * CS * 2)
+            sizes_i = (S * C * ent * 4, CS, CS * kernels.ZR_MAX, 2 * CS * 3, S)
+            xf = torch.empty((sum(sizes_f),), dtype=torch.float32, device="cuda")
+            xi = torch.empty((sum(sizes_i),), dtype=torch.int32, device="cuda")
+            of = [int(x) for x in np.cumsum((0,) + sizes_f[:-1]) * 4 + xf.data_ptr()]
+            oi = [int(x) for x in np.cumsum((0,) + sizes_i[:-1]) * 4 + xi.data_ptr()]
+            xs = np.array([of[0], of[1], of[2], oi[1], of[3], oi[2], of[4], oi[3], oi[0], oi[4]], dtype=np.uint64)
+            rows = np.array([feas.data_ptr()] + [rowf[k].data_ptr() for k in range(4)], dtype=np.uint64)
+            keep[key] = (feas, rowf, xf, xi, xs, rows)
+        _, _, _, _, xs, rows = keep[key]
+        return old(ptrs, dims, sw, wp, ip, fp, table, S, N, ch, od, sc, rows.ctypes.data, xs.ctypes.data, C, iters,
+                   stream)
+
+    return None, None, entry, phase_names(psrc)
+
+
 def main(argv=None) -> int:
     import torch
 
     from ..api.delta import DeltaEncoder
     from ..ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
     from ..ops.incremental import HoistCache
+    from ..parallel import mesh as tm
     from . import workloads
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default="", help="a directory holding an earlier csrc/ to time in turns")
+    ap.add_argument("--mesh", type=int, default=0, help="S > 1: K12's shard mode on make_mesh(S) (on the one card)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("rounds_phases: no CUDA device", file=sys.stderr)
         return 2
     card = card_name()
-    phase, parent = variants("rounds", "KTT_ROUNDS_PHASES", "ktt_rounds_phases", args.parent, PHASES)
+    S = args.mesh
+    kernel = "rounds_shard" if S > 1 else "rounds"
+    old_shard = first_shard_design(args.parent) if S > 1 and args.parent else None
+    phase, parent = variants(kernel, "KTT_ROUNDS_PHASES", "ktt_rounds_phases",
+                             "" if old_shard is not None else args.parent, PHASES)
+    if old_shard is not None:
+        parent = old_shard
     lib = ctypes.CDLL(str(kernels.BUILD_DIR / "librounds-phases.so"))
     for ln in kernels.BUILD_LOG.get(SRC, "").splitlines():  # ptxas -v: registers, shared memory, spills
         if re.search(r"registers|spill", ln):
@@ -184,19 +241,39 @@ def main(argv=None) -> int:
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
     inc = HoistCache().ensure(arr, meta, cfg)
-    cells = {"dense": lambda: kernels.rounds(arr, cfg, sfs, eligs, (None, None)),
-             "class-row": lambda: kernels.rounds(arr, cfg, inc=inc)}
-    result = dict(card=card, cells={})
+    one = {"dense": lambda: kernels.rounds(arr, cfg, sfs, eligs, (None, None)),
+           "class-row": lambda: kernels.rounds(arr, cfg, inc=inc)}
+    if S > 1:
+        m = tm.make_mesh(S)
+        sa = tm.shard_arrays(arr, m)
+        planes = [assign.packed_static_rows(sh, with_elig=True, base=m.base(s, sa.N)) for s, sh in enumerate(sa.shards)]
+        sfs_m, eligs_m = [x[0] for x in planes], [x[1] for x in planes]
+        nn = [(None, None)] * S
+        inc_m = HoistCache(mesh=m).ensure(sa, meta, cfg)
+        cells = {"dense": lambda: kernels.rounds_shard(sa, cfg, sfs_m, eligs_m, nn),
+                 "class-row": lambda: kernels.rounds_shard(sa, cfg, inc=inc_m)}
+        where = f"{m}, N={sa.N} nl={sa.nl}"
+    else:
+        out = kernels.scan_out(arr, assign.RCHUNK)
+        done = torch.zeros((1,), dtype=torch.int32, device=arr.device)
+        cells = dict(one, gated=lambda: tuple(x.clone() for x in kernels.rounds(arr, cfg, sfs, eligs, (None, None),
+                                                                                done=done, out=out)))
+        where = "one device"
+    result = dict(card=card, mesh=S, cells={})
     for cell, run in cells.items():
         ref = run()
         sweeps = kernels.read_sweeps(ref[3])
-        tag = f"rounds-phases {cell}"
-        print(f"[{tag}] {card} | config 3 P={arr.P} N={arr.N} T={arr.term_counts0.shape[0]}: "
+        tag = f"rounds-phases{f' mesh{S}' if S > 1 else ''} {cell}"
+        print(f"[{tag}] {card} | config 3 P={arr.P} N={arr.N} T={arr.term_counts0.shape[0]} on {where}: "
               f"{arr.P // assign.RCHUNK} chunks, {sweeps} rounds", flush=True)
-        res = split_cell(tag, "rounds", run, names, phase, parent, dict(P=arr.P, N=arr.N, rounds=sweeps))
+        res = split_cell(tag, kernel, run, names, phase, parent, dict(P=arr.P, N=arr.N, rounds=sweeps))
         cap = 8 * sweeps + 2 * (arr.P // assign.RCHUNK) + 8
-        res["barriers"] = barrier_split(tag, run, phase[1], lib, len(PHASES), PHASES,
-                                        sites, cap)
+        res["barriers"] = barrier_split(tag, kernel, run, phase[1], lib, len(PHASES), PHASES, sites, cap)
+        if S > 1:
+            _, one_ms = timed("rounds", kernels._fn("rounds"), one[cell])
+            res["one_device_ms"] = one_ms
+            print(f"[{tag}] the same call's one-device rounds ({cell}): {one_ms:.3f} ms; shard mode "
+                  f"{res['ms_normal'][1]:.3f} ms ({res['ms_normal'][1] / one_ms:.3f}x)", flush=True)
         result["cells"][cell] = res
         torch.cuda.empty_cache()
     print(json.dumps(result), flush=True)

@@ -26,11 +26,12 @@
 // does in dense mode, where the plane already holds it.
 //
 // Shard mode (K2, K11 and K12 on a node mesh, parallel/sharded.py; the JAX
-// package's sharded scans, ops/assign.py:56-110): a block works for one
-// node shard and sees it through shard_view -- a copy of the launch's
-// FullArgs whose node-side pointers and N are the shard's (ShardPtrs), so
-// every device function below runs on the shard's local node ids 0..nl and
-// reads node-axis data only through that shard's pointers.  The pieces a
+// package's sharded scans, ops/assign.py:56-110): K2 and K11 give a block
+// one node shard, K12 a run of nodes that may span shards; either sees a
+// shard through shard_view -- a copy of the launch's FullArgs whose
+// node-side pointers and N are the shard's (ShardPtrs), so every device
+// function below runs on the shard's local node ids 0..nl and reads
+// node-axis data only through that shard's pointers.  The pieces a
 // shard contributes to a cross-shard reduction are split out:
 // pod_scalars_partial / pod_scalars_finish (the spread minMatch: the
 // partial maxima of -count, combined across shards before inf -> 0, as the

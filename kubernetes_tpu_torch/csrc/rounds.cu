@@ -23,13 +23,14 @@
 // order, with no host synchronisation per chunk or per round.  The grid is
 // C thread-block clusters of kc blocks of 1024 threads: the widest cluster
 // (<= 8) of which the card holds C at once, as the cooperative launch
-// needs, and no more than one block per 32 nodes.  Cluster b holds pod b of the chunk; block (b, q)
-// works on the q-th 32-node-aligned slice of the columns, and the cluster
-// combines through distributed shared memory.  Every block keeps the
-// chunk's state (committed, out, ordinals, argmaxes, speculation, repair)
-// in its shared memory, alike, so only the writes to the shared state need
-// a single writer.  A round:
-//   A. (cluster b, pod b uncommitted) the exact re-hoist on the slices:
+// needs, and no more than one block per 32 nodes.  Cluster b holds pod b
+// of the chunk; block (b, q) works on the q-th of kc near-equal runs of the
+// node axis (at config 3 1024 nodes, one a thread), and the cluster
+// combines through distributed shared memory.  Every block keeps the chunk's state
+// (committed, out, ordinals, argmaxes, speculation, repair) in its shared
+// memory, alike, so only the writes to the shared state need a single
+// writer.  A round:
+//   A. (cluster b, pod b uncommitted) the exact re-hoist on the runs:
 //      the spread minMatch partials -> cluster barrier -> their max (order
 //      free); feasibility and raws into the [C, N] row scratch, the five
 //      normalisation maxima -> cluster barrier -> their max; the masked
@@ -43,7 +44,7 @@
 //   C. cluster b repairs pod b: the leader rescoring the candidate
 //      columns c_j, a warp each (any block's columns: the row scratch is
 //      read through L2), under the exact int32 prefix usage, every block the best
-//      unpicked round-start score of its slice -> an exchange slot each (by
+//      unpicked round-start score of its run -> an exchange slot each (by
 //      iteration parity) -> grid barrier -> every block alike: t and the
 //      hazard of every pod;
 //   D. every block alike: the commit prefix (a ballot finds the first
@@ -64,46 +65,32 @@
 // config 3 the mean block's barrier time was 44% the slowest pod's 6144-node
 // row pass and 24% block 0's serial commit (bench/rounds_phases.py).
 //
-// SHARD MODE (rounds_shard_kernel; the JAX package's schedule_scan_rounds
+// SHARD MODE (rounds_kernel<true>; the JAX package's schedule_scan_rounds
 // under shard_map, axis_name set: ops/assign.py:1464, collectives at
 // :1586-1592, :1803-1812, :1864-1911, :1933, :1966-2034, :2115-2145), dense
-// and class-row: a cooperative grid of C * S blocks, block (b, s) = blockIdx
-// s * C + b holding pod b of the chunk on node shard s, through that
-// shard's pointers (pairwise.cuh shard_view: its planes, count planes,
-// ports, its own copy of total_t and its rows [C, nl] of the row scratch).
-// The usage is replicated, one copy [N, R] (the JAX package all-gathers it
-// once per step and carries it replicated); every block keeps the chunk
-// state (committed, out, ordinals, the speculation and the repair) in its
-// shared memory, all alike.  The only memory the shards share is the
-// exchange RoundsX, one slot per (pod, shard) per quantity, each written by
-// its block only; after a grid barrier the readers combine the S slots in
-// shard order.  A round:
-//   A1. (pairwise) each slot's partial max of -count -> barrier -> the max
-//       over shards, inf -> 0 (the JAX pmin taken first);
-//   A2. row_feas -> the five partial maxima -> barrier -> their max;
-//   A3. row_total (the shard's best (score, global id)) and block_topk over
-//       the shard's nl nodes: kl = min(Zr, nl) entries with global ids ->
-//       barrier;
-//   B.  every block alike: each pod's argmax from the S slots (_rmax, then
-//       _rmin of the ids), the rank, and the rank-th entry of the S * kl
-//       candidates merged in shard order (ties: the lower global id, i.e.
-//       the lower position, as _global_top_k's lax.top_k);
-//   C.  block (i, s) repairs pod i on its shard: warp 0 rescoring the
-//       candidate columns c_j that shard s owns (the owner's feasibility,
-//       raws and allocatable; the replicated usage), the block the best
-//       unpicked node among its nodes -> barrier (slots by iteration
-//       parity) -> every block combines (t, hard) per pod;
-//   D.  every block alike: the commit prefix; block (0, 0) adds the picks
-//       to the replicated usage, block (0, s) writes the ports and the
-//       commit entries (the domain columns from its dbt) of the picks on
-//       its nodes -> barrier;
-//   E.  every block applies all shards' entries to its share of its shard's
-//       columns, block (0, s) to its total_t copy -> barrier.
-// Six grid barriers a round (five without the pairwise stages); its
-// commit entries keep the first design's order (pod by pod, which equals
-// the JAX absorb's wherever the weights are integers).  With one shard the
-// launch is rounds_kernel above.  The gated mode is refused
-// here.
+// and class-row: the same kernel over S node shards of nl nodes, shard s
+// owning the global ids [s * nl, (s + 1) * nl).  A block's run is one
+// range of global ids and may span shards, or start inside a shard's
+// packed word (nl need not divide by 32: the per-shard packed planes pack
+// per shard); the cut is by node count, not by words, so on 5 shards of
+// config 3 (N pads to 6145) one run holds 1025 nodes, its last the invalid
+// pad, where 33-word runs would hold up to 1037 and take a second node on
+// some threads.  A node is read through its shard's view (pairwise.cuh
+// shard_view: its planes, count planes, ports, alloc and its own total_t
+// copy, at local ids), one FullArgs a shard in shared memory; the row
+// scratch, the usage (one replicated [N, R] copy, which the JAX package
+// all-gathers once per step and carries replicated) and the exchange are
+// indexed by global id.  So each JAX collective becomes the single-device
+// combination: the spread pmin and _rmax are the cluster's maxima (order
+// free), _global_top_k the fold of the kc top-32 lists (keys carry the
+// global id: ties to the lower id, the lower shard position), _gather_cols
+// the candidate's owner view, _gather_at_nodes the commit's domain column
+// from the owner's dbt; the commit entries are section-major as on one
+// device (the pod-major order of the first shard design was ROADMAP C4),
+// and every shard's total_t copy takes the same adds in the same order.
+// The launch's own node-side pointers are NULL in shard mode, except the
+// replicated usage and shard 0's total_t (the waiver reads it).  The gated
+// mode is refused here.
 //
 // Bounds on an H100 at config 3 (640 chunks, 1691 rounds in the JAX run):
 // the bytes are the packed static and eligibility planes and the pod
@@ -244,30 +231,53 @@ __device__ bool share_of(const FullArgs& a, int64_t i, int64_t j) {
   return s;
 }
 
-// candidate column c_j in the repair of pod i: node cl of the block's view
-// (global id `id`) rescored under the exact prefix usage (used_at(r): the
-// node's usage plus the int32 adds of the earlier active pods that picked
-// it), with pod i's round-start raws and scalars -> (mj, bn = id, hard: a
-// shared term, or a fit drop at a normalisation extreme)
+// The node axis: N global ids over S shards of nl nodes (shard s owns
+// [s * nl, (s + 1) * nl); one device: S = 1, nl = N), cut into kc
+// near-equal runs of ids, one a cluster rank (a run may span shards).
+struct Axis {
+  int N, S, nl;
+  __device__ int run_lo(int q, int kc) const { return (int)((int64_t)q * N / kc); }
+};
+
+// node n's view (the launch's arguments on one device, its shard's in
+// shard mode) and its id l there
+template <bool SH>
+__device__ __forceinline__ const FullArgs& view_at(const FullArgs& a, const FullArgs* views, int nl, int n, int& l) {
+  if constexpr (SH) {
+    const int s = n / nl;
+    l = n - s * nl;
+    return views[s];
+  } else {
+    l = n;
+    return a;
+  }
+}
+
+// candidate column c_j in the repair of pod i: node cl of view v (global
+// id `id`, its row scratch column) rescored under the exact prefix usage
+// (used_at(r): the node's usage plus the int32 adds of the earlier active
+// pods that picked it), with pod i's round-start raws and scalars -> (mj,
+// bn = id, hard: a shared term, or a fit drop at a normalisation extreme)
 template <class UsedAt>
-__device__ __forceinline__ void rescore_at(const FullArgs& a, const RowScalars& rs, const PodSlots& ps, int share_j,
-                                           const uint8_t* feas_i, const float* sraw_i, const float* ipraw_i, int cl,
-                                           int id, UsedAt used_at, float& mj, int& bn, int& hard) {
+__device__ __forceinline__ void rescore_at(const FullArgs& a, const FullArgs& v, const RowScalars& rs,
+                                           const PodSlots& ps, int share_j, const uint8_t* feas_i,
+                                           const float* sraw_i, const float* ipraw_i, int cl, int id, UsedAt used_at,
+                                           float& mj, int& bn, int& hard) {
   const int64_t nr = (int64_t)cl * a.R;
   const int* req = ps.req;
-  const bool fit = ktt::fit_ok(a.R, [&](int r) { return req[r]; }, used_at, [&](int r) { return a.alloc[nr + r]; });
+  const bool fit = ktt::fit_ok(a.R, [&](int r) { return req[r]; }, used_at, [&](int r) { return v.alloc[nr + r]; });
   const float baseij = ktt::score_flat(a.sp, [&](int r) { return ktt::wadd(used_at(r), req[r]); },
-                                       [&](int r) { return a.alloc[nr + r]; });
-  const bool f0 = __ldcg(feas_i + cl);
-  const float sr = f0 ? __ldcg(sraw_i + cl) : 0.0f;
-  const float ir = f0 ? __ldcg(ipraw_i + cl) : 0.0f;
-  const int64_t pn = ps.prow * a.N + cl;
-  const float nt = ktt::node_total(a, rs, pn, baseij, sr, ir);
+                                       [&](int r) { return v.alloc[nr + r]; });
+  const bool f0 = __ldcg(feas_i + id);
+  const float sr = f0 ? __ldcg(sraw_i + id) : 0.0f;
+  const float ir = f0 ? __ldcg(ipraw_i + id) : 0.0f;
+  const int64_t pn = ps.prow * v.N + cl;
+  const float nt = ktt::node_total(v, rs, pn, baseij, sr, ir);
   mj = (f0 && fit) ? nt : -INFINITY;
   bn = id;
   bool extreme = false;
-  if (a.taint) extreme = extreme || (rs.t_mx > 0.0f && ktt::bf(a.traw, pn) == rs.t_mx);
-  if (a.nap) extreme = extreme || (rs.na_mx > 0.0f && ktt::bf(a.naraw, pn) == rs.na_mx);
+  if (a.taint) extreme = extreme || (rs.t_mx > 0.0f && ktt::bf(v.traw, pn) == rs.t_mx);
+  if (a.nap) extreme = extreme || (rs.na_mx > 0.0f && ktt::bf(v.naraw, pn) == rs.na_mx);
   if (a.pw) extreme = extreme || (rs.s_mx > 0.0f && sr == rs.s_mx);
   if (a.ips) extreme = extreme || (rs.ip_mx > rs.ip_mn && (ir == rs.ip_mx || ir == rs.ip_mn));
   hard = share_j || (f0 && !fit && extreme);
@@ -276,15 +286,16 @@ __device__ __forceinline__ void rescore_at(const FullArgs& a, const RowScalars& 
 // rescore_at with the prefix usage of column cl in an int[SCORE_MAX_R] row
 // (same(k): pod k of the chunk is active on this column)
 template <class Same>
-__device__ __forceinline__ void rescore(const FullArgs& a, const RowScalars& rs, const PodSlots& ps, int share_j,
-                                        const uint8_t* feas_i, const float* sraw_i, const float* ipraw_i, int c0p,
-                                        int i, int cl, int id, Same same, float& mj, int& bn, int& hard) {
+__device__ __forceinline__ void rescore(const FullArgs& a, const FullArgs& v, const RowScalars& rs,
+                                        const PodSlots& ps, int share_j, const uint8_t* feas_i, const float* sraw_i,
+                                        const float* ipraw_i, int c0p, int i, int cl, int id, Same same, float& mj,
+                                        int& bn, int& hard) {
   int uij[ktt::SCORE_MAX_R];
-  for (int r = 0; r < a.R; ++r) uij[r] = __ldcg(a.used + (int64_t)cl * a.R + r);
+  for (int r = 0; r < a.R; ++r) uij[r] = __ldcg(v.used + (int64_t)cl * a.R + r);
   for (int k = 0; k < i; ++k)
     if (same(k))
       for (int r = 0; r < a.R; ++r) uij[r] = ktt::wadd(uij[r], a.preq[(c0p + k) * a.R + r]);
-  rescore_at(a, rs, ps, share_j, feas_i, sraw_i, ipraw_i, cl, id, [&](int r) { return uij[r]; }, mj, bn, hard);
+  rescore_at(a, v, rs, ps, share_j, feas_i, sraw_i, ipraw_i, cl, id, [&](int r) { return uij[r]; }, mj, bn, hard);
 }
 
 constexpr int RESCORE_R = 8;  // resources rescore_regs keeps in registers
@@ -293,14 +304,14 @@ constexpr int RESCORE_R = 8;  // resources rescore_regs keeps in registers
 // the unrolled row where rescore indexes an int[SCORE_MAX_R] array: that
 // array lives in local memory, and 1024 threads' frames do not stay in L1)
 template <class Same>
-__device__ __forceinline__ void rescore_regs(const FullArgs& a, const RowScalars& rs, const PodSlots& ps,
-                                             int share_j, const uint8_t* feas_i, const float* sraw_i,
-                                             const float* ipraw_i, int c0p, int i, int cl, int id, Same same,
-                                             float& mj, int& bn, int& hard) {
+__device__ __forceinline__ void rescore_regs(const FullArgs& a, const FullArgs& v, const RowScalars& rs,
+                                             const PodSlots& ps, int share_j, const uint8_t* feas_i,
+                                             const float* sraw_i, const float* ipraw_i, int c0p, int i, int cl,
+                                             int id, Same same, float& mj, int& bn, int& hard) {
   const int64_t nr = (int64_t)cl * a.R;
   int u[RESCORE_R];
 #pragma unroll
-  for (int r = 0; r < RESCORE_R; ++r) u[r] = r < a.R ? __ldcg(a.used + nr + r) : 0;
+  for (int r = 0; r < RESCORE_R; ++r) u[r] = r < a.R ? __ldcg(v.used + nr + r) : 0;
   for (int k = 0; k < i; ++k)
     if (same(k)) {
       const int32_t* rq = a.preq + (int64_t)(c0p + k) * a.R;
@@ -309,13 +320,13 @@ __device__ __forceinline__ void rescore_regs(const FullArgs& a, const RowScalars
         if (r < a.R) u[r] = ktt::wadd(u[r], rq[r]);
     }
   auto used_at = [&](int r) {
-    int v = 0;
+    int x0 = 0;
 #pragma unroll
     for (int x = 0; x < RESCORE_R; ++x)
-      if (x == r) v = u[x];
-    return v;
+      if (x == r) x0 = u[x];
+    return x0;
   };
-  rescore_at(a, rs, ps, share_j, feas_i, sraw_i, ipraw_i, cl, id, used_at, mj, bn, hard);
+  rescore_at(a, v, rs, ps, share_j, feas_i, sraw_i, ipraw_i, cl, id, used_at, mj, bn, hard);
 }
 
 constexpr int MAX_ENT = ktt::PW_MAX_M + 3 * ktt::PW_MAX_S;  // commit entries of one pod
@@ -328,7 +339,7 @@ struct ClusterSmem {
   RowScalars rs;  // cluster: the round-start normalisation scalars
   float red[ktt::PW_MAX_S * 32];
   int redi[32];
-  unsigned long long topk_keys[ktt::PW_NWARP * 32];  // block_top32's scratch; A3: [0, 32) its slice's top keys
+  unsigned long long topk_keys[ktt::PW_NWARP * 32];  // block_top32's scratch; A3: [0, 32) its run's top keys
   // read by the cluster's other blocks through distributed shared memory
   float part[ktt::PW_MAX_S];  // A1: this block's max of -count per spread slot
   float part5[5];             // A2: its normalisation maxima
@@ -341,6 +352,7 @@ struct ClusterSmem {
   int newly[MAXC], cf[MAXC];
   int cnt[4 * MAXC], off[4 * MAXC];  // commit entries per (section, pod), their first slots
   int nrounds, base_rounds, status, cont, n_ents, n_lead;
+  int rlo[MAX_KC];  // the first global id of each block's run in the cluster
 };
 
 // the repair's exchange (the scratch's sp[13]: the commit entries live in
@@ -459,7 +471,9 @@ __device__ void block_max_into(float (&v)[KR], int n, float* red, float* out) {
 // A1: the pod's required-affinity waiver (thread 0) and, per spread slot,
 // this block's max of -count over its keyed eligible nodes [lo, hi) ->
 // m.part (the JAX pmin's partial, combined across the cluster)
-__device__ void slice_spread(const FullArgs& a, ClusterSmem& m, int lo, int hi) {
+template <bool SH>
+__device__ void slice_spread(const FullArgs& a, const FullArgs* views, const Axis& ax, ClusterSmem& m, int lo,
+                             int hi) {
   const PodSlots& ps = m.ps;
   if (threadIdx.x == 0) {
     float total_any = 0.0f;
@@ -470,37 +484,42 @@ __device__ void slice_spread(const FullArgs& a, ClusterSmem& m, int lo, int hi) 
 #pragma unroll
   for (int c = 0; c < ktt::PW_MAX_S; ++c) v[c] = -INFINITY;
   for (int n = lo + threadIdx.x; n < hi; n += blockDim.x) {
-    if (!ktt::pw_bit(a.eligs, ps.prow, a.W, n)) continue;
+    int l;
+    const FullArgs& g = view_at<SH>(a, views, ax.nl, n, l);
+    if (!ktt::pw_bit(g.eligs, ps.prow, g.W, l)) continue;
 #pragma unroll
     for (int c = 0; c < ktt::PW_MAX_S; ++c) {
       if (c >= ps.n_sp) break;
-      const int64_t i = (int64_t)ps.sp_t[c] * a.N + n;
-      if (a.dbt[i] < a.D) v[c] = fmaxf(v[c], -__ldcg(a.cnt + i));
+      const int64_t i = (int64_t)ps.sp_t[c] * g.N + l;
+      if (g.dbt[i] < a.D) v[c] = fmaxf(v[c], -__ldcg(g.cnt + i));
     }
   }
   block_max_into(v, ps.n_sp, m.red, m.part);
 }
 
-// A2 and A3 on the slice [lo, hi): feasibility, raws and the five maxima
+// A2 and A3 on the run [lo, hi): feasibility, raws and the five maxima
 // (combined across the cluster), then the masked total row and this block's
-// top-32 keys (lax.top_k's order; the ids local to the slice)
-__device__ void slice_rows(const FullArgs& a, ClusterSmem& m, cg::cluster_group& cl, int kc, int p, int lo,
-                           int hi, uint8_t* feas_r, float* base_r, float* sraw_r, float* ipraw_r, float* total_r
-                           KTT_PH_PARAM) {
+// top-32 keys (lax.top_k's order; the ids local to the run)
+template <bool SH>
+__device__ void slice_rows(const FullArgs& a, const FullArgs* views, const Axis& ax, ClusterSmem& m,
+                           cg::cluster_group& cl, int kc, int p, int lo, int hi, uint8_t* feas_r, float* base_r,
+                           float* sraw_r, float* ipraw_r, float* total_r KTT_PH_PARAM) {
   const PodSlots& ps = m.ps;
   const int tid = threadIdx.x;
   float mx[5] = {0.0f, 0.0f, 0.0f, -INFINITY, -INFINITY};
   for (int n = lo + tid; n < hi; n += blockDim.x) {
+    int l;
+    const FullArgs& g = view_at<SH>(a, views, ax.nl, n, l);
     float base = 0.0f, sraw = 0.0f, ipraw = 0.0f;
-    const bool f = ktt::node_feasible(a, p, ps, n, base, sraw, ipraw);
+    const bool f = ktt::node_feasible(g, p, ps, l, base, sraw, ipraw);
     feas_r[n] = f;
     if (!f) continue;
     base_r[n] = base;
     sraw_r[n] = sraw;
     ipraw_r[n] = ipraw;
-    const int64_t pn = ps.prow * a.N + n;
-    if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(a.traw, pn));
-    if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(a.naraw, pn));
+    const int64_t pn = ps.prow * g.N + l;
+    if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(g.traw, pn));
+    if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(g.naraw, pn));
     mx[2] = fmaxf(mx[2], sraw);
     mx[3] = fmaxf(mx[3], ipraw);
     mx[4] = fmaxf(mx[4], -ipraw);
@@ -520,21 +539,24 @@ __device__ void slice_rows(const FullArgs& a, ClusterSmem& m, cg::cluster_group&
   if (tid == 0) m.rs = sc;
   for (int n = lo + tid; n < hi; n += blockDim.x) {
     float total = -INFINITY;
-    if (feas_r[n]) total = ktt::node_total(a, sc, ps.prow * a.N + n, base_r[n], sraw_r[n], ipraw_r[n]);
+    if (feas_r[n]) {
+      int l;
+      const FullArgs& g = view_at<SH>(a, views, ax.nl, n, l);
+      total = ktt::node_total(g, sc, ps.prow * g.N + l, base_r[n], sraw_r[n], ipraw_r[n]);
+    }
     total_r[n] = total;
   }
   KTT_PHASE(PH_TOTAL);
-  ktt::block_top32(total_r + lo, hi > lo ? hi - lo : 0, m.topk_keys);  // local ids
+  ktt::block_top32(total_r + lo, hi > lo ? hi - lo : 0, m.topk_keys);  // ids local to the run
   KTT_PHASE(PH_TOPK);
 }
 
 // A3's merge on the cluster's leader, warp 0: the kc blocks' top-32 keys
 // (each list in key order; a key holds its node id, so keys are distinct;
-// block r's ids shifted by its first column r * cw) folded pairwise into
-// the top-zr of the pod's row in the scratch's [C, ZR_MAX] row b, and its
+// block r's ids shifted by its run's first id) folded pairwise into the
+// top-zr of the pod's row in the scratch's [C, ZR_MAX] row b, and its
 // argmax c0 (the first entry: the highest score, ties to the lower node)
-__device__ void merge_top(ClusterSmem& m, cg::cluster_group& cl, int kc, int cw, const RoundsScratch& s, int b,
-                          int zr) {
+__device__ void merge_top(ClusterSmem& m, cg::cluster_group& cl, int kc, const RoundsScratch& s, int b, int zr) {
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;
   unsigned long long keys[MAX_KC];
@@ -544,7 +566,7 @@ __device__ void merge_top(ClusterSmem& m, cg::cluster_group& cl, int kc, int cw,
 #pragma unroll
   for (int r = 0; r < MAX_KC; ++r)
     if (r < kc && keys[r] != 0ull)
-      keys[r] = ktt::topk_key(ktt::key_value(keys[r]), ktt::topk_index(keys[r]) + r * cw);
+      keys[r] = ktt::topk_key(ktt::key_value(keys[r]), ktt::topk_index(keys[r]) + m.rlo[r]);
 #pragma unroll
   for (int w = 1; w < MAX_KC; w <<= 1)
 #pragma unroll
@@ -581,13 +603,15 @@ __device__ void speculate(ClusterSmem& m, const RoundsScratch& s, int C, int zr)
 
 __device__ __forceinline__ bool active(const ClusterSmem& m, int j) { return !m.committed[j] && m.c[j] >= 0; }
 
-// C for pod i = b on the slice [lo, hi): on the leader, lane 0 of warp j
+// C for pod i = b on the run [lo, hi): on the leader, lane 0 of warp j
 // rescoring the candidate column c_j of each earlier active pod j under the
 // exact prefix usage (a warp each, so the candidates' branches do not
-// serialise one warp), every block the best unpicked round-start score of
-// its slice -> the exchange
-__device__ void slice_repair(const FullArgs& a, ClusterSmem& m, const RoundsScratch& s, const RepairX& x, int c0p,
-                             int i, int q, int lo, int hi, int par KTT_PH_PARAM) {
+// serialise one warp; the column read through its owner's view), every
+// block the best unpicked round-start score of its run -> the exchange
+template <bool SH>
+__device__ void slice_repair(const FullArgs& a, const FullArgs* views, const Axis& ax, ClusterSmem& m,
+                             const RoundsScratch& s, const RepairX& x, int c0p, int i, int q, int lo, int hi,
+                             int par KTT_PH_PARAM) {
   const int tid = threadIdx.x, j = tid >> 5;
   const int64_t row = (int64_t)i * a.N;
   if (q == 0 && (tid & 31) == 0 && j < i) {  // lane 0 of warp j: no two candidates share a warp
@@ -596,13 +620,15 @@ __device__ void slice_repair(const FullArgs& a, ClusterSmem& m, const RoundsScra
     int hard = 0;
     if (active(m, j)) {
       const int cn = m.c[j];
+      int cl;
+      const FullArgs& g = view_at<SH>(a, views, ax.nl, cn, cl);
       auto same = [&](int k) { return active(m, k) && m.c[k] == cn; };
       if (a.R <= RESCORE_R)
-        rescore_regs(a, m.rs, m.ps, m.share[j], s.feas + row, s.sraw + row, s.ipraw + row, c0p, i, cn, cn, same,
-                     mj, bn, hard);
+        rescore_regs(a, g, m.rs, m.ps, m.share[j], s.feas + row, s.sraw + row, s.ipraw + row, c0p, i, cl, cn,
+                     same, mj, bn, hard);
       else
-        rescore(a, m.rs, m.ps, m.share[j], s.feas + row, s.sraw + row, s.ipraw + row, c0p, i, cn, cn, same, mj,
-                bn, hard);
+        rescore(a, g, m.rs, m.ps, m.share[j], s.feas + row, s.sraw + row, s.ipraw + row, c0p, i, cl, cn, same,
+                mj, bn, hard);
     }
     m.rv[j] = mj;
     m.rn[j] = bn;
@@ -683,8 +709,12 @@ __device__ void repaired(const FullArgs& a, ClusterSmem& m, const RepairX& x, in
 // and, at hardPodAffinityWeight, the required-affinity terms (pref), each
 // pod's valid slots in slot order; the slots come from an exclusive prefix
 // over the (section, pod) counts.  Only the f32 adds to one address need
-// that order, and entries of one plane and term keep it.
-__device__ void commit(const FullArgs& a, ClusterSmem& m, CommitEnt* ents, int c0p, int C) {
+// that order, and entries of one plane and term keep it.  The domain
+// column of an entry comes from the chosen node's view (its owner shard's
+// dbt in shard mode).
+template <bool SH>
+__device__ void commit(const FullArgs& a, const FullArgs* views, const Axis& ax, ClusterSmem& m, CommitEnt* ents,
+                       int c0p, int C) {
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   if (tid < 32) {
     const int i = lane;
@@ -737,7 +767,8 @@ __device__ void commit(const FullArgs& a, ClusterSmem& m, CommitEnt* ents, int c
   }
   __syncthreads();
   if (mine) {
-    const int cf = m.cf[w];
+    int cl;
+    const FullArgs& g = view_at<SH>(a, views, ax.nl, m.cf[w], cl);
     const unsigned lt = (1u << lane) - 1u;
     for (int k = 0; k < 4; ++k) {
       if (!((sec[k] >> lane) & 1u)) continue;
@@ -757,7 +788,7 @@ __device__ void commit(const FullArgs& a, ClusterSmem& m, CommitEnt* ents, int c
         wt = a.hpaw;
       }
       ents[m.off[k * MAXC + w] + __popc(sec[k] & lt)] =
-          CommitEnt{k < 2 ? k : 2, t, a.dbt[(int64_t)t * a.N + cf], wt};
+          CommitEnt{k < 2 ? k : 2, t, g.dbt[(int64_t)t * g.N + cl], wt};
     }
   }
   __syncthreads();
@@ -765,21 +796,31 @@ __device__ void commit(const FullArgs& a, ClusterSmem& m, CommitEnt* ents, int c
 
 // D's writes to the shared state, one writer each: block i adds pod i's
 // request to its node's usage (atomically: two pods of a round may share a
-// node) and sets its host ports; block 0's warp 1 adds the matched weights
-// to total_t, lane l the terms t = l mod 32, each term's adds in entry order
-__device__ void commit_state(const FullArgs& a, const ClusterSmem& m, const CommitEnt* ents, int c0p, int C) {
+// node; the usage is indexed by global id in both modes) and sets its host
+// ports; block 0's warp 1 + s adds the matched weights to view s's total_t
+// (one device: the launch's), lane l the terms t = l mod 32, each term's
+// adds in entry order
+template <bool SH>
+__device__ void commit_state(const FullArgs& a, const FullArgs* views, const Axis& ax, const ClusterSmem& m,
+                             const CommitEnt* ents, int c0p, int C) {
   const int tid = threadIdx.x;
   const int i = blockIdx.x;
   if (i < C && m.newly[i] && m.cf[i] >= 0) {
     const int64_t p = c0p + i, cf = m.cf[i];
     if (tid < a.R) atomicAdd(a.used + cf * a.R + tid, a.preq[p * a.R + tid]);
-    if (a.ports && tid < a.PT && a.pod_ports[p * a.PT + tid]) a.ports_used[cf * a.PT + tid] = 1;
+    if (a.ports && tid < a.PT && a.pod_ports[p * a.PT + tid]) {
+      int cl;
+      const FullArgs& g = view_at<SH>(a, views, ax.nl, (int)cf, cl);
+      g.ports_used[(int64_t)cl * a.PT + tid] = 1;
+    }
   }
-  if (i == 0 && tid >= 32 && tid < 64) {
-    const int l = tid - 32;
+  const int w = tid >> 5;
+  if (i == 0 && w >= 1 && w <= ax.S) {
+    float* tt = SH ? views[w - 1].total_t : a.total_t;
+    const int l = tid & 31;
     for (int k = 0; k < m.n_ents; ++k) {
       const CommitEnt e = ents[k];
-      if (e.plane == 0 && e.dcol < a.D && (e.t & 31) == l) a.total_t[e.t] = __ldcg(a.total_t + e.t) + e.w;
+      if (e.plane == 0 && e.dcol < a.D && (e.t & 31) == l) tt[e.t] = __ldcg(tt + e.t) + e.w;
     }
   }
 }
@@ -788,7 +829,9 @@ __device__ void commit_state(const FullArgs& a, const ClusterSmem& m, const Comm
 // Only entries of one (plane, term) touch one address, so each item is a
 // (column, first entry of a (plane, term)) pair that adds that group's
 // weights in entry order where the column shares the entry's domain
-__device__ void apply(const FullArgs& a, ClusterSmem& m, const CommitEnt* ents, int* nxt, int* lead) {
+template <bool SH>
+__device__ void apply(const FullArgs& a, const FullArgs* views, const Axis& ax, ClusterSmem& m,
+                      const CommitEnt* ents, int* nxt, int* lead) {
   const int tid = threadIdx.x, n_ents = m.n_ents;
   for (int k = tid; k < n_ents; k += blockDim.x) {
     const CommitEnt e = ents[k];
@@ -804,19 +847,20 @@ __device__ void apply(const FullArgs& a, ClusterSmem& m, const CommitEnt* ents, 
     if (first) lead[atomicAdd(&m.n_lead, 1)] = k;
   }
   __syncthreads();
-  const int nl = m.n_lead;
+  const int n_lead = m.n_lead;
   const int G = gridDim.x;
   const int ew = (a.N + G - 1) / G;
   const int elo = blockIdx.x * ew;
   const int ncol = min(a.N, elo + ew) - elo;
-  if (ncol <= 0 || nl == 0) return;
-  for (int it = tid; it < ncol * nl; it += blockDim.x) {
-    const int n = elo + it / nl;
-    const int k0 = lead[it % nl];
+  if (ncol <= 0 || n_lead == 0) return;
+  for (int it = tid; it < ncol * n_lead; it += blockDim.x) {
+    int cl;
+    const FullArgs& g = view_at<SH>(a, views, ax.nl, elo + it / n_lead, cl);
+    const int k0 = lead[it % n_lead];
     const CommitEnt e0 = ents[k0];
-    const int64_t i = (int64_t)e0.t * a.N + n;
-    const int d = a.dbt[i];
-    float* plane = e0.plane == 0 ? a.cnt : (e0.plane == 1 ? a.antin : a.pref);
+    const int64_t i = (int64_t)e0.t * g.N + cl;
+    const int d = g.dbt[i];
+    float* plane = e0.plane == 0 ? g.cnt : (e0.plane == 1 ? g.antin : g.pref);
     bool has = false;
     float v = 0.0f;
     for (int k = k0; k >= 0; k = nxt[k]) {
@@ -831,19 +875,28 @@ __device__ void apply(const FullArgs& a, ClusterSmem& m, const CommitEnt* ents, 
   }
 }
 
-__global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsScratch s, int C, int iters,
-                                                            int32_t* choices, int32_t* ordinals, int32_t* scal) {
+// one device (SH false: `a` holds every node, tab is not read) or shard
+// mode (SH true: `a` the pod side with N the global node count, tab the S
+// shards' node-side pointers)
+template <bool SH>
+__global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, ktt::ShardTable tab, RoundsScratch s, int C,
+                                                            int iters, int32_t* choices, int32_t* ordinals,
+                                                            int32_t* scal) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cl = cg::this_cluster();
   __shared__ ClusterSmem m;
+  __shared__ FullArgs views[SH ? ktt::PW_MAX_SHARDS : 1];  // shard mode: each shard's view
   extern __shared__ int4 dyn[];
   const int tid = threadIdx.x;
   const int kc = (int)cl.num_blocks(), q = (int)cl.block_rank();
   const int b = blockIdx.x / kc;  // the cluster's pod of the chunk
-  const int zr = a.N < ZR_MAX ? a.N : ZR_MAX;
-  // the cluster's column slices, 32-node aligned
-  const int cw = (((a.N + kc - 1) / kc + 31) / 32) * 32;
-  const int lo = min(a.N, q * cw), hi = min(a.N, lo + cw);
+  const int zr = a.N < ZR_MAX ? a.N : ZR_MAX;  // Zr = min(32, N) over the global N
+  Axis ax;
+  ax.N = a.N;
+  ax.S = SH ? tab.S : 1;
+  ax.nl = SH ? tab.sh[0].nl : a.N;
+  // the block's run of the node axis
+  const int lo = ax.run_lo(q, kc), hi = ax.run_lo(q + 1, kc);
   const int ent_cap = C * MAX_ENT;
   CommitEnt* ents = reinterpret_cast<CommitEnt*>(dyn);
   int* nxt = reinterpret_cast<int*>(ents + ent_cap);
@@ -856,11 +909,19 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
 #ifdef KTT_ROUNDS_PHASES
   int bar_i = 0;
 #endif
-  ktt::copy_start_state(a, (int64_t)blockIdx.x * blockDim.x + tid, (int64_t)gridDim.x * blockDim.x);
+  const int64_t gt = (int64_t)blockIdx.x * blockDim.x + tid, gs = (int64_t)gridDim.x * blockDim.x;
+  if constexpr (SH) {
+    if (tid < ax.S) ktt::shard_view(a, tab.sh[tid], views[tid]);
+    __syncthreads();
+    for (int sh = 0; sh < ax.S; ++sh) ktt::copy_start_state(views[sh], gt, gs);
+  } else {
+    ktt::copy_start_state(a, gt, gs);
+  }
   if (tid == 0) {
     m.base_rounds = 0;
     m.status = 0;
   }
+  if (tid < kc) m.rlo[tid] = ax.run_lo(tid, kc);
   KTT_GRID_SYNC(BS_START);
 #ifdef KTT_ROUNDS_PHASES
   long long ph_t = clock64();
@@ -878,12 +939,12 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
     __syncthreads();
     KTT_PHASE(PH_CHUNK);
     for (;;) {
-      // A. the exact re-hoist of pod b over the cluster's slices (the
+      // A. the exact re-hoist of pod b over the cluster's runs (the
       // cluster's blocks see the same committed flag: all or none)
       if (!m.committed[b]) {
         const int64_t row = (int64_t)b * a.N;
         if (a.pw) {
-          slice_spread(a, m, lo, hi);
+          slice_spread<SH>(a, views, ax, m, lo, hi);
           KTT_PHASE(PH_SPREAD);
           cl.sync();
           KTT_PHASE(PH_CLUSTER);
@@ -896,11 +957,11 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
           __syncthreads();
           KTT_PHASE(PH_SPREAD);
         }
-        slice_rows(a, m, cl, kc, p, lo, hi, s.feas + row, s.base + row, s.sraw + row, s.ipraw + row,
-                   s.total + row KTT_PH_ARG);
+        slice_rows<SH>(a, views, ax, m, cl, kc, p, lo, hi, s.feas + row, s.base + row, s.sraw + row, s.ipraw + row,
+                       s.total + row KTT_PH_ARG);
         cl.sync();
         KTT_PHASE(PH_CLUSTER);
-        if (q == 0) merge_top(m, cl, kc, cw, s, b, zr);
+        if (q == 0) merge_top(m, cl, kc, s, b, zr);
         KTT_PHASE(PH_MERGE);
       }
       KTT_GRID_SYNC(BS_ROWS);
@@ -911,7 +972,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
       // C. the exact repair (and its iterations)
       for (int it = 0; it < iters; ++it) {
         const int par = it & 1;
-        if (!m.committed[b]) slice_repair(a, m, s, x, c0p, b, q, lo, hi, par KTT_PH_ARG);
+        if (!m.committed[b]) slice_repair<SH>(a, views, ax, m, s, x, c0p, b, q, lo, hi, par KTT_PH_ARG);
         KTT_PHASE(PH_REPAIR);
         KTT_GRID_SYNC(BS_REPAIRED);
         KTT_PHASE(PH_BARRIER);
@@ -923,11 +984,11 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
         KTT_PHASE(PH_REPAIR);
       }
       // D. commit, alike; the shared state's writes, one writer each
-      commit(a, m, ents, c0p, C);
-      commit_state(a, m, ents, c0p, C);
+      commit<SH>(a, views, ax, m, ents, c0p, C);
+      commit_state<SH>(a, views, ax, m, ents, c0p, C);
       KTT_PHASE(PH_COMMIT);
       // E. the count planes, every block on its share of the nodes
-      apply(a, m, ents, nxt, lead);
+      apply<SH>(a, views, ax, m, ents, nxt, lead);
       KTT_PHASE(PH_APPLY);
       KTT_GRID_SYNC(BS_ROUND);
       KTT_PHASE(PH_BARRIER);
@@ -950,355 +1011,67 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, RoundsSc
 // their next-of-the-same-(plane, term) links and the group leaders
 inline size_t rounds_dyn_smem(int C) { return (size_t)C * MAX_ENT * (sizeof(CommitEnt) + 2 * sizeof(int)); }
 
-// the exchange of shard mode: slot q = b * S + s of pod b on shard s
-struct RoundsX {
-  float* mm;        // [C * S, PW_MAX_S] partial spread maxima of -count
-  float* sc;        // [C * S, 5] partial normalisation maxima
-  float* bv;        // [C * S] the shard's best total
-  int32_t* bn;      // [C * S] its global id
-  float* tv;        // [C * S, ZR_MAX] the shard's top-kl values
-  int32_t* ti;      // [C * S, ZR_MAX] their global ids
-  float* rv;        // [2, C * S, 2] the repair's vb, av (by iteration parity)
-  int32_t* ri;      // [2, C * S, 3] its bn, an, hard
-  CommitEnt* ents;  // [S, C * MAX_ENT] the commit entries of each shard's nodes
-  int32_t* n_ents;  // [S]
-};
-
-// the row scratch of shard mode: [S, C, nl] per row
-struct ShardRows {
-  uint8_t* feas;
-  float* base;
-  float* sraw;
-  float* ipraw;
-  float* total;
-};
-
-struct ShardSmem {
-  FullArgs a;  // this block's shard view
-  PodSlots ps;
-  RowScalars rs;
-  float red[5 * 32];
-  int redi[32];
-  ktt::TopkScratch tks;
-  int share[MAXC];
-  // the chunk state, alike in every block
-  int committed[MAXC];
-  int out[MAXC];
-  int ord[MAXC];
-  int c0[MAXC];
-  int c[MAXC];
-  int t[MAXC];
-  int hard[MAXC];
-  int nrounds, base_rounds, status, cont;
-  float vb;
-  int bn, hardw;
-};
-
-// phase C on shard s for pod i = b (uncommitted): the partials of its repair
-__device__ void repair_shard(const FullArgs& g, ShardSmem& m, const RoundsX& x, const uint8_t* feas_i,
-                             const float* sraw_i, const float* ipraw_i, const float* total_i, int c0p, int S, int s,
-                             int i, int base, int par) {
-  const FullArgs& a = m.a;
-  const int tid = threadIdx.x, nl = a.N;
-  const RowScalars rs = m.rs;
-  if (tid < 32) {  // warp 0: lane j rescored the candidate column c_j, if this shard owns it
-    float mj = -INFINITY;
-    int bn = ktt::PW_IMAX;
-    int hard = 0;
-    const int j = tid;
-    const int cn = j < MAXC ? m.c[j] : -1;
-    if (j < i && !m.committed[j] && cn >= base && cn < base + nl)  // this shard owns c_j
-      rescore(a, rs, m.ps, m.share[j], feas_i, sraw_i, ipraw_i, c0p, i, cn - base, cn,
-              [&](int k) { return !m.committed[k] && m.c[k] == cn; }, mj, bn, hard);
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(ktt::PW_FULL, mj, off);
-      const int on = __shfl_xor_sync(ktt::PW_FULL, bn, off);
-      if (ktt::pw_better(ov, on, mj, bn)) {
-        mj = ov;
-        bn = on;
-      }
-      hard |= __shfl_xor_sync(ktt::PW_FULL, hard, off);
-    }
-    if (tid == 0) {
-      m.vb = mj;
-      m.bn = bn;
-      m.hardw = hard;
-    }
-  }
-  // the best round-start score over this shard's nodes no earlier active pod picked
-  float av = -INFINITY;
-  int an = ktt::PW_IMAX;
-  for (int n = tid; n < nl; n += blockDim.x) {
-    const int gid = base + n;
-    bool picked = false;
-    for (int j = 0; j < i && !picked; ++j) picked = !m.committed[j] && m.c[j] >= 0 && m.c[j] == gid;
-    if (picked) continue;
-    const float v = __ldcg(total_i + n);
-    if (ktt::pw_better(v, gid, av, an)) {
-      av = v;
-      an = gid;
-    }
-  }
-  ktt::block_argmax(av, an, m.red, m.redi);
-  if (tid == 0) {
-    const int64_t q = (int64_t)par * gridDim.x + (int64_t)i * S + s;
-    x.rv[q * 2] = m.vb;
-    x.rv[q * 2 + 1] = av;
-    x.ri[q * 3] = m.bn;
-    x.ri[q * 3 + 1] = an;
-    x.ri[q * 3 + 2] = m.hardw;
-  }
+// the scratch from ktt_rounds' sp (sp[8..12] and sp[14] are not read)
+RoundsScratch read_scratch(void* const* sp) {
+  RoundsScratch s;
+  s.feas = static_cast<uint8_t*>(sp[0]);
+  s.base = static_cast<float*>(sp[1]);
+  s.sraw = static_cast<float*>(sp[2]);
+  s.ipraw = static_cast<float*>(sp[3]);
+  s.total = static_cast<float*>(sp[4]);
+  s.topv = static_cast<float*>(sp[5]);
+  s.topi = static_cast<int32_t*>(sp[6]);
+  s.c0 = static_cast<int32_t*>(sp[7]);
+  s.x = static_cast<int32_t*>(sp[13]);
+  return s;
 }
 
-// phase D (thread 0 of every block, alike): the commit prefix into the
-// block's chunk state; block (0, 0) adds the picks to the replicated usage,
-// block (0, s) writes the ports and the commit entries of the picks on its
-// nodes
-__device__ void commit_shard(const FullArgs& g, ShardSmem& m, const RoundsX& x, int c0p, int C, int s, int b,
-                             int base) {
-  const FullArgs& a = m.a;
-  const int nl = a.N;
-  int firstbad = C;
-  for (int i = 0; i < C; ++i) {
-    if (m.committed[i]) continue;
-    if (m.hard[i] || m.t[i] != m.c[i]) {
-      firstbad = i;
-      break;
-    }
+// the cooperative launch of C clusters: the widest cluster (<= 8 blocks,
+// <= one per 32 nodes of the node axis) of which the card holds all C at
+// once, as the cooperative launch needs (with one block
+// an SM, an H100's GPCs hold fewer than 16 clusters of 8)
+template <bool SH>
+int launch_rounds(const FullArgs& a, const ktt::ShardTable& tab, const RoundsScratch& s, int C, int iters,
+                  void* choices, void* ordinals, void* scal, void* stream) {
+  int dev = 0, nsm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  const size_t dyn = rounds_dyn_smem(C);
+  err = cudaFuncSetAttribute(rounds_kernel<SH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(ktt::PW_NT);
+  cfg.dynamicSmemBytes = dyn;
+  cfg.stream = reinterpret_cast<cudaStream_t>(stream);
+  cfg.attrs = at;
+  int kc = 0;
+  for (int k = MAX_KC; k >= 1 && kc == 0; --k) {
+    if (k > 1 && (k > (a.N + 31) / 32 || C * k > nsm)) continue;
+    at[0].val.clusterDim.x = k;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C * k);
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, (void*)rounds_kernel<SH>, &cfg) == cudaSuccess && clusters >= C)
+      kc = k;
+    cudaGetLastError();  // a refused query leaves no error behind
   }
-  int n_ents = 0;
-  for (int i = 0; i < C; ++i) {
-    if (m.committed[i]) continue;
-    const bool fb = i == firstbad && !m.hard[i];
-    const int cf = fb ? m.t[i] : m.c[i];
-    if (!(i < firstbad || fb)) continue;
-    m.out[i] = cf;
-    m.ord[i] = m.nrounds;
-    m.committed[i] = 1;
-    if (cf < 0) continue;
-    const int64_t p = c0p + i;
-    if (b == 0 && s == 0)
-      for (int r = 0; r < a.R; ++r) {
-        int32_t* u = g.used + (int64_t)cf * a.R + r;
-        *u = ktt::wadd(__ldcg(u), a.preq[p * a.R + r]);
-      }
-    if (b == 0 && cf >= base && cf < base + nl) {
-      const int cl = cf - base;
-      if (a.ports)
-        for (int q = 0; q < a.PT; ++q)
-          if (a.pod_ports[p * a.PT + q]) a.ports_used[(int64_t)cl * a.PT + q] = 1;
-      n_ents += ktt::commit_entries(a, (int)p, cl, x.ents + (int64_t)s * C * MAX_ENT + n_ents, nullptr);
-    }
-  }
-  if (b == 0) x.n_ents[s] = n_ents;
-  ++m.nrounds;
-  int any = 0;
-  for (int i = 0; i < C; ++i) any |= !m.committed[i];
-  m.cont = any && m.nrounds < C;
-  if (any && !m.cont) m.status = 1;  // the round cap: never on state the algorithm admits
-}
-
-__global__ void __launch_bounds__(ktt::PW_NT) rounds_shard_kernel(FullArgs g, ktt::ShardTable tab, ShardRows rows,
-                                                                  RoundsX x, int C, int iters, int n_glob,
-                                                                  int32_t* choices, int32_t* ordinals,
-                                                                  int32_t* scal) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ ShardSmem m;
-  const int S = tab.S;
-  const int s = blockIdx.x / C, b = blockIdx.x % C, tid = threadIdx.x;
-  const int base = tab.sh[s].base, nl = tab.sh[s].nl;
-  const int zr = n_glob < ZR_MAX ? n_glob : ZR_MAX;  // Zr = min(32, N) over the global N
-  const int kl = nl < zr ? nl : zr;
-  if (tid == 0) ktt::shard_view(g, tab.sh[s], m.a);
-  __syncthreads();
-  const FullArgs& a = m.a;
-  // the start state: the C blocks of shard s copy its share (its slice of
-  // the replicated usage included)
-  ktt::copy_start_state(a, (int64_t)b * blockDim.x + tid, (int64_t)C * blockDim.x);
-  if (tid == 0) {
-    m.base_rounds = 0;
-    m.status = 0;
-  }
-  grid.sync();
-  const int64_t row = ((int64_t)s * C + b) * nl;
-  uint8_t* feas_b = rows.feas + row;
-  float* base_b = rows.base + row;
-  float* sraw_b = rows.sraw + row;
-  float* ipraw_b = rows.ipraw + row;
-  float* total_b = rows.total + row;
-  const int q = b * S + s;
-  for (int c0p = 0; c0p < a.P; c0p += C) {
-    const int p = c0p + b;
-    load_pod_warps(a, p, m.ps);
-    if (tid < C) {
-      m.committed[tid] = 0;
-      m.out[tid] = -1;
-      m.ord[tid] = 0;
-      m.share[tid] = share_of(a, p, c0p + tid);
-    }
-    if (tid == 0) m.nrounds = 0;
-    __syncthreads();
-    for (int rnd = 0;; ++rnd) {
-      const bool unc = !m.committed[b];
-      // A1. the spread minMatch
-      if (a.pw) {
-        if (unc) {
-          ktt::pod_scalars_partial(a, p, m.ps, m.red);
-          if (tid < m.ps.n_sp) x.mm[q * ktt::PW_MAX_S + tid] = m.ps.sp_mm[tid];
-        }
-        grid.sync();
-        if (unc) {
-          if (tid < m.ps.n_sp) {
-            float v = -INFINITY;
-            for (int s2 = 0; s2 < S; ++s2) v = fmaxf(v, __ldcg(x.mm + (b * S + s2) * ktt::PW_MAX_S + tid));
-            m.ps.sp_mm[tid] = v;
-          }
-          __syncthreads();
-          if (tid == 0) ktt::pod_scalars_finish(m.ps);
-          __syncthreads();
-        }
-      }
-      // A2. the normalisation scalars
-      float mx[5];
-      if (unc) {
-        ktt::row_feas(a, p, m.ps, feas_b, base_b, sraw_b, ipraw_b, mx, m.red);
-        if (tid == 0)
-          for (int k = 0; k < 5; ++k) x.sc[q * 5 + k] = mx[k];
-      }
-      grid.sync();
-      // A3. the total row, its argmax and its top-kl
-      if (unc) {
-        for (int k = 0; k < 5; ++k) {
-          float v = -INFINITY;
-          for (int s2 = 0; s2 < S; ++s2) v = fmaxf(v, __ldcg(x.sc + (b * S + s2) * 5 + k));
-          mx[k] = v;
-        }
-        ktt::row_total(a, m.ps, ktt::row_scalars(mx), feas_b, base_b, sraw_b, ipraw_b, total_b, base, m.rs, m.red,
-                       m.redi);
-        ktt::block_topk(total_b, nl, kl, x.tv + q * ZR_MAX, x.ti + q * ZR_MAX, m.tks);
-        if (tid < kl) x.ti[q * ZR_MAX + tid] += base;  // this thread's own entry
-        if (tid == 0) {
-          x.bv[q] = m.rs.best;
-          x.bn[q] = m.rs.best_n;
-        }
-      }
-      grid.sync();
-      // B. the argmax of every pod, then the dispersal speculation
-      if (tid < C) {
-        int c0 = -1;
-        if (!m.committed[tid]) {
-          float v = -INFINITY;
-          int n = ktt::PW_IMAX;
-          for (int s2 = 0; s2 < S; ++s2) {
-            const float v2 = __ldcg(x.bv + tid * S + s2);
-            const int n2 = __ldcg(x.bn + tid * S + s2);
-            if (ktt::pw_better(v2, n2, v, n)) {
-              v = v2;
-              n = n2;
-            }
-          }
-          c0 = (v > -INFINITY && a.pvalid[c0p + tid]) ? n : -1;
-        }
-        m.c0[tid] = c0;
-      }
-      __syncthreads();
-      if (tid < C) {
-        const int i = tid;
-        const int c0 = m.c0[i];
-        int rank = 0;
-        for (int j = 0; j < i; ++j)
-          if (!m.committed[j] && m.c0[j] == c0 && c0 >= 0) ++rank;
-        int c = c0;
-        if (!m.committed[i] && c0 >= 0 && rank > 0 && rank < zr) {
-          int ptr[ktt::PW_MAX_SHARDS];
-          for (int s2 = 0; s2 < S; ++s2) ptr[s2] = 0;
-          float v = -INFINITY;
-          int id = -1;
-          for (int k = 0; k <= rank; ++k) {  // the merge, in shard order
-            int bs = -1;
-            unsigned long long bk = 0;
-            for (int s2 = 0; s2 < S; ++s2) {
-              if (ptr[s2] >= kl) continue;
-              const int64_t o = (int64_t)(i * S + s2) * ZR_MAX + ptr[s2];
-              const unsigned long long key = ktt::topk_key(__ldcg(x.tv + o), __ldcg(x.ti + o));
-              if (bs < 0 || key > bk) {
-                bk = key;
-                bs = s2;
-              }
-            }
-            const int64_t o = (int64_t)(i * S + bs) * ZR_MAX + ptr[bs];
-            v = __ldcg(x.tv + o);
-            id = __ldcg(x.ti + o);
-            ++ptr[bs];
-          }
-          if (v > -INFINITY) c = id;
-        }
-        m.c[i] = c;
-      }
-      __syncthreads();
-      // C. the exact repair (and its iterations)
-      for (int it = 0; it < iters; ++it) {
-        const int par = it & 1;
-        if (unc) repair_shard(g, m, x, feas_b, sraw_b, ipraw_b, total_b, c0p, S, s, b, base, par);
-        grid.sync();
-        if (tid < C && !m.committed[tid]) {
-          float vb = -INFINITY, av = -INFINITY;
-          int bn = ktt::PW_IMAX, an = ktt::PW_IMAX, hard = 0;
-          for (int s2 = 0; s2 < S; ++s2) {
-            const int64_t q2 = (int64_t)par * gridDim.x + (int64_t)tid * S + s2;
-            const float v1 = __ldcg(x.rv + q2 * 2), v2 = __ldcg(x.rv + q2 * 2 + 1);
-            const int n1 = __ldcg(x.ri + q2 * 3), n2 = __ldcg(x.ri + q2 * 3 + 1);
-            hard |= __ldcg(x.ri + q2 * 3 + 2);
-            if (ktt::pw_better(v1, n1, vb, bn)) {
-              vb = v1;
-              bn = n1;
-            }
-            if (ktt::pw_better(v2, n2, av, an)) {
-              av = v2;
-              an = n2;
-            }
-          }
-          const float t_val = fmaxf(av, vb);
-          const int t_n = vb > av ? bn : (av > vb ? an : min(an, bn));
-          m.t[tid] = (t_val > -INFINITY && a.pvalid[c0p + tid]) ? t_n : -1;
-          m.hard[tid] = hard;
-        }
-        __syncthreads();
-        if (it + 1 < iters) {
-          if (tid < C && !m.committed[tid]) m.c[tid] = m.t[tid];
-          __syncthreads();
-        }
-      }
-      // D. commit
-      if (tid == 0) commit_shard(g, m, x, c0p, C, s, b, base);
-      grid.sync();
-      // E. the count planes: every block on its share of its shard's nodes
-      for (int s2 = 0; s2 < S; ++s2) {
-        const int ne = __ldcg(x.n_ents + s2);
-        const CommitEnt* ents = x.ents + (int64_t)s2 * C * MAX_ENT;
-        for (int n = b * blockDim.x + tid; n < nl; n += C * blockDim.x)
-          for (int k = 0; k < ne; ++k) ktt::apply_entry(a, ktt::load_ent(ents + k), n);
-        if (b == 0 && tid == 0)
-          for (int k = 0; k < ne; ++k) {  // this shard's copy of total_t
-            const CommitEnt e = ktt::load_ent(ents + k);
-            if (e.plane == 0 && e.dcol < a.D) a.total_t[e.t] = __ldcg(a.total_t + e.t) + e.w;
-          }
-      }
-      grid.sync();
-      if (!m.cont) break;
-    }
-    if (s == 0 && b == 0 && tid < C) {
-      choices[c0p + tid] = m.out[tid];
-      ordinals[c0p + tid] = m.base_rounds + m.ord[tid];
-    }
-    __syncthreads();
-    if (tid == 0) m.base_rounds += m.nrounds;
-    __syncthreads();
-  }
-  if (s == 0 && b == 0 && tid == 0) {
-    scal[0] = m.base_rounds;
-    scal[1] |= m.status;
-  }
+  if (kc == 0) return (int)cudaErrorInvalidConfiguration;
+  at[0].val.clusterDim.x = kc;
+  cfg.gridDim = dim3(C * kc);
+  cfg.numAttrs = 2;
+  err = cudaLaunchKernelEx(&cfg, rounds_kernel<SH>, a, tab, s, C, iters, static_cast<int32_t*>(choices),
+                           static_cast<int32_t*>(ordinals), static_cast<int32_t*>(scal));
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1318,58 +1091,8 @@ extern "C" int ktt_rounds(const void* const* ptrs, const int* dims, const int* s
   const int bad = ktt::read_full_args(ptrs, dims, sw, wp, ip, fp, a);
   if (bad) return bad;
   if (C < 1 || C > MAXC || a.P % C != 0 || iters < 1) return (int)cudaErrorInvalidValue;
-  RoundsScratch s;
-  s.feas = static_cast<uint8_t*>(sp[0]);
-  s.base = static_cast<float*>(sp[1]);
-  s.sraw = static_cast<float*>(sp[2]);
-  s.ipraw = static_cast<float*>(sp[3]);
-  s.total = static_cast<float*>(sp[4]);
-  s.topv = static_cast<float*>(sp[5]);
-  s.topi = static_cast<int32_t*>(sp[6]);
-  s.c0 = static_cast<int32_t*>(sp[7]);
-  s.x = static_cast<int32_t*>(sp[13]);
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  int dev = 0, nsm = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  const size_t dyn = rounds_dyn_smem(C);
-  err = cudaFuncSetAttribute(rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-  if (err != cudaSuccess) return (int)err;
-  // the widest cluster (<= 8 blocks, <= one per 32 nodes) of which the card
-  // holds all C at once, as the cooperative launch needs (with one block an
-  // SM, an H100's GPCs hold fewer than 16 clusters of 8)
-  cudaLaunchAttribute at[2];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[1].id = cudaLaunchAttributeCooperative;
-  at[1].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(ktt::PW_NT);
-  cfg.dynamicSmemBytes = dyn;
-  cfg.stream = st;
-  cfg.attrs = at;
-  int kc = 0;
-  for (int k = MAX_KC; k >= 1 && kc == 0; --k) {
-    if (k > 1 && (k > (a.N + 31) / 32 || C * k > nsm)) continue;
-    at[0].val.clusterDim.x = k;
-    at[0].val.clusterDim.y = 1;
-    at[0].val.clusterDim.z = 1;
-    cfg.gridDim = dim3(C * k);
-    cfg.numAttrs = 1;
-    int clusters = 0;
-    if (cudaOccupancyMaxActiveClusters(&clusters, (void*)rounds_kernel, &cfg) == cudaSuccess && clusters >= C) kc = k;
-    cudaGetLastError();  // a refused query leaves no error behind
-  }
-  if (kc == 0) return (int)cudaErrorInvalidConfiguration;
-  at[0].val.clusterDim.x = kc;
-  cfg.gridDim = dim3(C * kc);
-  cfg.numAttrs = 2;
-  err = cudaLaunchKernelEx(&cfg, rounds_kernel, a, s, C, iters, static_cast<int32_t*>(choices),
-                           static_cast<int32_t*>(ordinals), static_cast<int32_t*>(scal));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const ktt::ShardTable tab{};
+  return launch_rounds<false>(a, tab, read_scratch(sp), C, iters, choices, ordinals, scal, stream);
 }
 
 #ifdef KTT_ROUNDS_PHASES
@@ -1406,42 +1129,30 @@ extern "C" int ktt_rounds_log(void* log, int cap) {
 // arrays (the pod side; dims[1] = nl; ptrs[19] and [28] the replicated usage
 // and its start [N, R]; done NULL); shard_ptrs: S rows of pairwise.cuh
 // ShardPtrs' 18 pointers (their used / used0: the shard's slice of the
-// replicated usage); rows: the row scratch (feas [S, C, nl] bytes; base,
-// sraw, ipraw, total [S, C, nl] f32); xs: the exchange (RoundsX's order);
-// n_glob: the global (padded) node count.  A cooperative launch of C * S
-// blocks.
+// replicated usage); n_glob = S * nl, the global (padded) node count; sp:
+// ktt_rounds' scratch at the global node count.  rounds_kernel<true>: the
+// same cooperative launch of C clusters as one device's.
 extern "C" int ktt_rounds_shard(const void* const* ptrs, const int* dims, const int* sw, const float* wp,
                                 const int* ip, const float* fp, const void* const* shard_ptrs, int S, int n_glob,
-                                void* choices, void* ordinals, void* scal, void* const* rows, void* const* xs, int C,
-                                int iters, void* stream) {
-  FullArgs g;
-  const int bad = ktt::read_full_args(ptrs, dims, sw, wp, ip, fp, g);
+                                void* choices, void* ordinals, void* scal, void* const* sp, int C, int iters,
+                                void* stream) {
+  FullArgs a;
+  const int bad = ktt::read_full_args(ptrs, dims, sw, wp, ip, fp, a);
   if (bad) return bad;
-  if (C < 1 || C > MAXC || g.P % C != 0 || iters < 1 || S < 1 || S > ktt::PW_MAX_SHARDS || g.done != nullptr ||
-      n_glob != S * g.N)
+  if (C < 1 || C > MAXC || a.P % C != 0 || iters < 1 || S < 1 || S > ktt::PW_MAX_SHARDS || a.done != nullptr ||
+      n_glob != S * a.N)
     return (int)cudaErrorInvalidValue;
-  ktt::ShardTable tab = ktt::make_shard_table(shard_ptrs, S, g.N);
-  ShardRows r{static_cast<uint8_t*>(rows[0]), static_cast<float*>(rows[1]), static_cast<float*>(rows[2]),
-              static_cast<float*>(rows[3]), static_cast<float*>(rows[4])};
-  RoundsX x{static_cast<float*>(xs[0]),   static_cast<float*>(xs[1]),   static_cast<float*>(xs[2]),
-            static_cast<int32_t*>(xs[3]), static_cast<float*>(xs[4]),   static_cast<int32_t*>(xs[5]),
-            static_cast<float*>(xs[6]),   static_cast<int32_t*>(xs[7]), static_cast<CommitEnt*>(xs[8]),
-            static_cast<int32_t*>(xs[9])};
-  int dev = 0, nsm = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, rounds_shard_kernel, ktt::PW_NT, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1 || nsm * per_sm < C * S) return (int)cudaErrorInvalidConfiguration;
-  int32_t* ch = static_cast<int32_t*>(choices);
-  int32_t* od = static_cast<int32_t*>(ordinals);
-  int32_t* sc = static_cast<int32_t*>(scal);
-  void* args[] = {&g, &tab, &r, &x, &C, &iters, &n_glob, &ch, &od, &sc};
-  err = cudaLaunchCooperativeKernel((void*)rounds_shard_kernel, dim3(C * S), dim3(ktt::PW_NT), args, 0,
-                                    reinterpret_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const ktt::ShardTable tab = ktt::make_shard_table(shard_ptrs, S, a.N);
+  a.N = n_glob;
+  a.W = (n_glob + 31) / 32;
+  // every node-side read goes through a shard's view: the launch keeps the
+  // replicated usage (global ids) and shard 0's total_t (the waiver's)
+  a.sfs = a.eligs = nullptr;
+  a.traw = a.naraw = a.img_s = nullptr;
+  a.alloc = a.dbt = nullptr;
+  a.cnt = a.antin = a.pref = nullptr;
+  a.ports_used = nullptr;
+  a.cnt0 = a.anti0 = a.pref0 = nullptr;
+  a.ports0 = nullptr;
+  return launch_rounds<true>(a, tab, read_scratch(sp), C, iters, choices, ordinals, scal, stream);
 }

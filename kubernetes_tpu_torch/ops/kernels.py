@@ -27,9 +27,10 @@ packed layout, the node mesh's stitch, parallel/sharded.py).
 The shard modes (the node mesh's per-pod and rounds routes,
 parallel/sharded.py): fit_scan_shard (K2, fit_scan.cu), full_scan_shard
 (K11, full_scan.cu) and rounds_shard (K12, rounds.cu) each take a table of
-every shard's node-side pointers and an exchange buffer, one slot per
-shard per quantity, and launch one cooperative grid (S blocks for K2 and
-K11, C * S for K12) on the card that holds every shard; each counts under
+every shard's node-side pointers and launch one cooperative grid on the
+card that holds every shard: K2 and K11 S blocks and an exchange buffer,
+one slot per shard per quantity; K12 the one-device launch of C clusters
+over every shard's nodes, with the one-device scratch.  Each counts under
 its own LAUNCHES key.  They refuse the gated mode, more than MAX_SHARDS
 shards, a grid the card cannot hold resident, and shards on more than one
 card or rank (shard_grid_check, _shard_checks), naming ROADMAP.md queue A12.
@@ -121,7 +122,7 @@ _ARGTYPES = {
     "fit_scan_shard": ("ktt_fit_scan_shard", [_P, _I, _I, _P, _P, _P, _I, _U, _P, _I, _I, _F, _F, _I, _I, _I]
                        + [_P] * 5),
     "full_scan_shard": ("ktt_full_scan_shard", [_P] * 7 + [_I] + [_P] * 4),
-    "rounds_shard": ("ktt_rounds_shard", [_P] * 7 + [_I, _I] + [_P] * 5 + [_I, _I, _P]),
+    "rounds_shard": ("ktt_rounds_shard", [_P] * 7 + [_I, _I] + [_P] * 4 + [_I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
@@ -1345,46 +1346,38 @@ def full_scan_shard(sa, cfg, sfs, eligs, planes, with_state: bool = False, done:
 
 def rounds_shard(sa, cfg, sfs=None, eligs=None, planes=None, inc=None, rchunk: Optional[int] = None,
                  repair_iters: Optional[int] = None, with_state: bool = False, done: Optional[torch.Tensor] = None):
-    """K12 in shard mode (csrc/rounds.cu rounds_shard_kernel): the rounds
-    scan on a node mesh in one cooperative launch of C * S blocks, dense
-    (each shard's K7 planes sfs[s] / eligs[s] and K10 planes planes[s]) or
-    in class-row mode (`inc`: HoistCache(mesh=)'s state, each shard's class
-    planes in inc.shards[s]) -> (choices i32[P], used i32[N, R] (the
-    replicated usage), ordinals i32[P], the int32[2] device pair (sweeps,
-    status): read_sweeps), and with `with_state` the final pairwise state
+    """K12 in shard mode (csrc/rounds.cu rounds_kernel<true>): the rounds
+    scan on a node mesh in the one-device launch (C clusters of kc blocks
+    over the shard-major sequence of every shard's 32-node words; each node
+    read through its shard's pointers), dense (each shard's K7 planes
+    sfs[s] / eligs[s] and K10 planes planes[s]) or in class-row mode
+    (`inc`: HoistCache(mesh=)'s state, each shard's class planes in
+    inc.shards[s]) -> (choices i32[P], used i32[N, R] (the replicated
+    usage), ordinals i32[P], the int32[2] device pair (sweeps, status):
+    read_sweeps), and with `with_state` the final pairwise state
     gathered."""
     from .assign import REPAIR_ITERS, RCHUNK
 
     C = RCHUNK if rchunk is None else rchunk
     iters = REPAIR_ITERS if repair_iters is None else repair_iters
-    S, nl, N, P = sa.mesh.size, sa.nl, sa.N, sa.P
+    S, N, P = sa.mesh.size, sa.N, sa.P
     if not 1 <= C <= MAX_RCHUNK or P % C or iters < 1:
         raise ValueError(f"rounds kernel takes chunks of 1..{MAX_RCHUNK} pods dividing P and repair_iters >= 1; "
                          f"got rchunk={C}, P={P}, repair_iters={iters}")
-    dev = _shard_checks(sa, "rounds_shard", done, C * S)
+    dev = _shard_checks(sa, "rounds_shard", done, C)  # its grid is C clusters, whatever S: at least C blocks
     R = sa.shards[0].R
     used = torch.empty((N, R), dtype=torch.int32, device=dev)
     outs, (ptrs, dims, sw, wp, ip, fp), table = _shard_args(sa, cfg, sfs, eligs, planes, inc,
                                                             used_rep=(used, sa.gather("node_used")))
     fn = _fn("rounds_shard")
-    CS = C * S
-    feas = torch.empty((CS * nl,), dtype=torch.uint8, device=dev)
-    rowf = torch.empty((4, CS * nl), dtype=torch.float32, device=dev)
-    sizes_f = (CS * MAX_SLOTS, CS * 5, CS, CS * ZR_MAX, 2 * CS * 2)  # mm, sc, bv, tv, rv
-    sizes_i = (S * C * _MAX_ENT * 4, CS, CS * ZR_MAX, 2 * CS * 3, S)  # ents (first: int4-aligned), bn, ti, ri, n_ents
-    xf = torch.empty((sum(sizes_f),), dtype=torch.float32, device=dev)
-    xi = torch.empty((sum(sizes_i),), dtype=torch.int32, device=dev)
-    of = [int(x) for x in np.cumsum((0,) + sizes_f[:-1]) * 4 + xf.data_ptr()]
-    oi = [int(x) for x in np.cumsum((0,) + sizes_i[:-1]) * 4 + xi.data_ptr()]
-    xs = np.array([of[0], of[1], of[2], oi[1], of[3], oi[2], of[4], oi[3], oi[0], oi[4]], dtype=np.uint64)
-    rows = np.array([feas.data_ptr()] + [rowf[k].data_ptr() for k in range(4)], dtype=np.uint64)
+    scratch = _rounds_scratch(C, N, dev)  # held past the launch
+    sp = np.array([x.data_ptr() for x in scratch], dtype=np.uint64)
     choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
     ordinals = torch.zeros((P,), dtype=torch.int32, device=dev)
     scal = torch.zeros((2,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), _host(table), S, N,
-                 choices.data_ptr(), ordinals.data_ptr(), scal.data_ptr(), _host(rows), _host(xs), C, iters,
-                 _stream(dev))
+                 choices.data_ptr(), ordinals.data_ptr(), scal.data_ptr(), _host(sp), C, iters, _stream(dev))
     _raise_on(err, "rounds_shard")
     LAUNCHES["rounds_shard"] += 1
     res = (choices, used, ordinals, scal)

@@ -18,10 +18,19 @@ from its own ordinals).  Both sides read the JAX encoder's arrays
 (convert.from_jax_arrays), with the case's patch applied.  Tolerance:
 none (f32 planes compared as bit patterns).
 
+On a node mesh (ROADMAP C4: the shard mode's commit order) every case also
+runs through the port's ``sharded_schedule_scan_rounds_plain`` on 2 and 3
+CPU shards (3: nl not a multiple of 32), dense and on ``HoistCache(mesh=)``
+class state, held to the same JAX results (usage on the padded axis, the
+pad rows zero; the count planes' real columns).
+
 The ``cuda`` legs hold kernel K12 -- dense, class-row and gated (``done``
-set: nothing written) -- to the plain scan on the same inputs, the cases
-encoded by the port's encoder (cut back to the case's own nodes); they
-import no JAX and skip without a card:
+set: nothing written) -- to the plain scan on the same inputs, and K12's
+shard mode (``kernels.rounds_shard``, dense and class rows) on 2, 3 and 5
+shards of the card to the plain sharded scan on CPU shards, every count
+plane and the ports included; ``frac-weights`` there pins C4.  The cases
+are encoded by the port's encoder (cut back to the case's own nodes); the
+legs import no JAX and skip without a card:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_rounds_contended.py
 """
@@ -42,6 +51,9 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch th
 ROOT = Path(__file__).resolve().parent.parent
 CASES = sorted(ref.CASES)
 PLANES = ("cnt", "anti", "pref", "total")
+MESH_S = [2, 3]  # CPU shards: 3 leaves nl off a multiple of 32
+CARD_MESH_S = [2, 3, 5]
+MODES = ["dense", "class-rows"]
 
 
 @pytest.fixture(scope="module")
@@ -146,6 +158,41 @@ def test_rounds_scan_on_class_state_matches_jax(jax_rounds, name):
         np.testing.assert_array_equal(bits(st[k]), jax_rounds[f"{name}/{k}"].view(np.int32), err_msg=k)
 
 
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("s", MESH_S)
+@pytest.mark.parametrize("name", CASES)
+def test_sharded_rounds_scan_matches_jax(jax_rounds, name, s, mode):
+    """The plain sharded rounds scan on s CPU shards == the JAX rounds route
+    on one device, bit for bit (the JAX sharded program computes the same:
+    test_torch_mesh_steps holds the two to each other)."""
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel import mesh as tm
+    from kubernetes_tpu_torch.parallel import sharded
+
+    arr, meta, cfg, iters = _arrays(name)
+    m = tm.make_mesh(s, devices="cpu")
+    sa = tm.shard_arrays(arr, m)
+    inc, pre = None, ""
+    if mode == "class-rows":
+        inc = sharded.inc_applicable(sa, cfg, HoistCache(mesh=m).ensure(arr, meta, cfg))
+        assert (inc is not None) == bool(jax_rounds[f"{name}/inc_applied"])
+        if inc is None:
+            return
+        pre = "inc_"
+    c, u, o, sw, st = sharded.sharded_schedule_scan_rounds_plain(sa, cfg, repair_iters=iters, inc=inc,
+                                                                  with_state=True)
+    N = arr.N
+    assert sa.N == s * sa.nl >= N
+    np.testing.assert_array_equal(c.numpy(), jax_rounds[f"{name}/{pre}choices"])
+    np.testing.assert_array_equal(u[:N].numpy(), jax_rounds[f"{name}/{pre}used"])
+    assert not u[N:].any()
+    np.testing.assert_array_equal(o.numpy(), jax_rounds[f"{name}/{pre}ordinals"])
+    assert sw == int(jax_rounds[f"{name}/{pre}sweeps"])
+    for k in PLANES:  # the class mode leaves the dense route's state
+        got = st[k] if k == "total" else st[k][:, :N]
+        np.testing.assert_array_equal(bits(got.contiguous()), jax_rounds[f"{name}/{k}"].view(np.int32), err_msg=k)
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -154,30 +201,7 @@ def card():
     return torch.device("cuda")
 
 
-def port_inputs(name, device):
-    """The case through the port's encoder (no JAX on the card's machine),
-    cut back from its bucketed node count to the case's own, with the
-    case's patch -> (arrays on `device`, metadata, score config, repair
-    iterations)."""
-    from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot
-    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config
-    from kubernetes_tpu_torch.parallel.partition_rules import node_axis_of
-
-    snap = ref.snapshot(name, "kubernetes_tpu_torch")
-    arr, meta = encode_snapshot(snap, device="cpu")
-    n = len(snap.nodes)
-    fields = {}
-    for f in dataclasses.fields(arr):
-        x = getattr(arr, f.name)
-        if not isinstance(x, torch.Tensor):
-            continue
-        ax = node_axis_of(f.name, tuple(x.shape), arr.N)
-        if ax is not None:
-            x = x.narrow(ax, 0, n)
-        fields[f.name] = (x.view(torch.int16).numpy().view(np.uint16) if x.dtype == torch.bfloat16 else x.numpy())
-    arr = ClusterArrays.from_numpy(ref.patched(name, fields), device)
-    _, over, _, iters = ref.CASES[name]
-    return arr, meta, infer_score_config(arr, dataclasses.replace(DEFAULT_SCORE_CONFIG, **over)), iters
+port_inputs = ref.port_arrays  # the case through the port's encoder, on `device`
 
 
 def _same(got, want) -> None:
@@ -237,3 +261,45 @@ def test_rounds_kernel_gated_mode(card, name):
     kernels.rounds(*args, repair_iters=iters, done=done, out=out)
     after = (out.choices, out.ordinals, out.scal, *out.state.values())
     assert all(torch.equal(a, b) for a, b in zip(before, after))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("s", CARD_MESH_S)
+@pytest.mark.parametrize("name", CASES)
+def test_rounds_shard_kernel_matches_plain(card, name, s, mode):
+    """K12's shard mode on s shards of the card == the plain sharded scan on
+    s CPU shards: choices, the replicated usage, ordinals, sweeps, every
+    count plane (pref included: frac-weights is C4's pin) and the ports."""
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.parallel import mesh as tm
+    from kubernetes_tpu_torch.parallel import sharded
+
+    cpu, meta, cfg, iters = port_inputs(name, "cpu")
+    d, _, _, _ = port_inputs(name, card)
+    mc, md = tm.make_mesh(s, devices="cpu"), tm.make_mesh(s)
+    sc, sd = tm.shard_arrays(cpu, mc), tm.shard_arrays(d, md)
+    if mode == "dense":
+        rows = [assign.packed_static_rows_plain(sh, with_elig=True, base=mc.base(j, sc.N))
+                for j, sh in enumerate(sc.shards)]
+        sfs, eligs = [r[0] for r in rows], [r[1] for r in rows]
+        planes = [assign.score_planes(sh, cfg) for sh in sc.shards]
+        want = sharded.sharded_schedule_scan_rounds_plain(sc, cfg, sfs, eligs, planes, repair_iters=iters,
+                                                          with_state=True)
+        kernels.reset_launches()
+        got = kernels.rounds_shard(sd, cfg, [x.to(card) for x in sfs], [x.to(card) for x in eligs],
+                                   [tuple(None if x is None else x.to(card) for x in pl) for pl in planes],
+                                   repair_iters=iters, with_state=True)
+    else:
+        inc_c = sharded.inc_applicable(sc, cfg, HoistCache(mesh=mc).ensure(cpu, meta, cfg))
+        inc_d = sharded.inc_applicable(sd, cfg, HoistCache(mesh=md).ensure(d, meta, cfg))
+        assert (inc_c is None) == (inc_d is None)
+        if inc_d is None:
+            return
+        want = sharded.sharded_schedule_scan_rounds_plain(sc, cfg, repair_iters=iters, inc=inc_c, with_state=True)
+        kernels.reset_launches()
+        got = kernels.rounds_shard(sd, cfg, inc=inc_d, repair_iters=iters, with_state=True)
+    assert kernels.LAUNCHES["rounds_shard"] == 1
+    _same(got, want)
+    assert torch.equal(got[4]["ports"].cpu(), want[4]["ports"])

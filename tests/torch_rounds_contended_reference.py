@@ -207,6 +207,36 @@ def patched(name: str, fields: dict) -> dict:
     return out
 
 
+def port_arrays(name: str, device):
+    """The case through the port's encoder (no JAX: the card's machine has
+    none), cut back from its bucketed node count to the case's own, with
+    the case's patch -> (the port's arrays on `device`, its metadata, the
+    score config, the repair iterations)."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu_torch.parallel.partition_rules import node_axis_of
+
+    snap = snapshot(name, "kubernetes_tpu_torch")
+    arr, meta = encode_snapshot(snap, device="cpu")
+    n = len(snap.nodes)
+    fields = {}
+    for f in dataclasses.fields(arr):
+        x = getattr(arr, f.name)
+        if not isinstance(x, torch.Tensor):
+            continue
+        ax = node_axis_of(f.name, tuple(x.shape), arr.N)
+        if ax is not None:
+            x = x.narrow(ax, 0, n)
+        fields[f.name] = (x.view(torch.int16).numpy().view(np.uint16) if x.dtype == torch.bfloat16 else x.numpy())
+    arr = ClusterArrays.from_numpy(patched(name, fields), device)
+    _, over, _, iters = CASES[name]
+    return arr, meta, infer_score_config(arr, dataclasses.replace(DEFAULT_SCORE_CONFIG, **over)), iters
+
+
 def count_planes(arr, cfg, choices, ordinals):
     """The count planes (cnt, anti, pref, total) the JAX rounds route leaves:
     its absorb replayed per round, in round order, from its own choices and

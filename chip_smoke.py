@@ -38,7 +38,9 @@ batched preemption) on the JAX package's preemption bench cluster:
   [north-star-waves] HoistCache.ensure -> schedule_batch(inc=...): the same
                      choices digest, the JAX route's sweep count and ordinal
                      digest, every kernel == plain at full size (chunk_rounds
-                     on the first 64 chunks), then the route with
+                     as stage B after the wave, by card time beside stage
+                     B's byte bound, and on the first 64 chunks with the
+                     waves off), then the route with
                      class_waves=False (chunk_rounds carries all 1600 chunks)
                      and a warm cycle that patches the dirty columns;
   [north-star-dense] a cold DeltaEncoder encode, then the dense chunked
@@ -173,7 +175,9 @@ batched preemption) on the JAX package's preemption bench cluster:
                      (class-wave route per iteration) and the device
                      fixpoint (K7 + K8 + K13 queued G + 1 times): 13
                      iterations, 36 groups, the JAX digests, ordinals and
-                     sweeps; gang_quorum == plain;
+                     sweeps; gang_quorum == plain; chunk_rounds as the
+                     first iteration's stage B == plain, by card time
+                     beside its byte bound;
   [config5]          BASELINE config 5, gang(1000, 64, 2000) (P=65536,
                      N=2048, G=1000): both fixpoints as above with the JAX
                      digests, their walls and the device loop's host enqueue
@@ -233,8 +237,11 @@ batched preemption) on the JAX package's preemption bench cluster:
                      preempt_eval output == plain on the same inputs; the
                      time split (encode, step, explain, tables, each wave's
                      kernel by CUDA events and its read back, decide and
-                     repair, apply_eviction); preempt_eval and explain_counts
-                     at F = 4 timed;
+                     repair, apply_eviction); preempt_eval (card time and
+                     back to back) and explain_counts at F = 4 timed; a
+                     first preempt_eval launch before the cycle, timed
+                     (the module's lazy load); ptxas's stack frames of
+                     preempt_eval (which must be 0) and chunk_rounds;
   [dcn]              two torch.distributed ranks on the one card, this
                      script re-invoked as two workers (--dcn-worker RANK
                      PORT SHAPE) after [build], backend gloo with the CUDA
@@ -256,7 +263,9 @@ in torch.cuda.synchronize().
 An [env] line first says whether grpc and google.protobuf import here
 (no phase needs them).
 
-Prints one line per phase, then a JSON line of per-kernel numbers, the
+Prints one line per phase, then a JSON line of per-kernel numbers (with
+launches_run: the kernel's launches over every counted run that takes a
+default route, summed phase by phase, the child processes' included), the
 card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}.  Exits non-zero, with no result, when there
 is no CUDA device, when the port is not beside this script, or when any
@@ -291,6 +300,11 @@ PERPOD_PREFIX = 512  # config-3 pods of the full-stage per-pod scan held against
 MESH_DENSE_KERNELS = ("packed_static_rows", "stitch_planes", "chunk_rounds_dense")
 MESH_WAVE_KERNELS = ("class_static_hoist", "class_usage_hoist", "stitch_planes", "wave_commit", "chunk_rounds")
 STITCH_PLAIN_ROWS = 4096  # row block of the plain stitch (its int64 transient is ~0.7 GB)
+# kernel -> launches of every counted run that takes a default route (what
+# dispatch takes with chunked=None; the encoder, the class cache, the gang
+# fixpoints, the sidecar, the failure path, the ring), summed phase by
+# phase, the child processes' included: the kernels line's launches_run
+RUN_LAUNCHES: dict = {}
 STRATEGIES = (
     ("LeastAllocated", ((0.0, 0.0), (100.0, 10.0))),
     ("MostAllocated", ((0.0, 0.0), (100.0, 10.0))),
@@ -305,6 +319,23 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def add_launches(launches: dict) -> None:
+    for k, v in launches.items():
+        RUN_LAUNCHES[k] = RUN_LAUNCHES.get(k, 0) + v
+
+
+def counted(default: bool = True) -> dict:
+    """The launches since the last kernels.reset_launches() (a phase's
+    counted run), of the kernels it launched; added into RUN_LAUNCHES when
+    the run took a default route."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if default:
+        add_launches(launches)
+    return launches
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -654,6 +685,34 @@ def phase_waves_mixed() -> None:
               flush=True)
 
 
+def stage_b(arr, inc, cfg, wk, per_score: int) -> tuple:
+    """K6 as the class-wave step runs it, after K5's wave `wk`, and its plain
+    version on the same inputs -> (K6's outputs, plain's, K6 ms, plain ms,
+    stage B's bound ms and its kind, the bytes, the chunks that need
+    rounds, K6's back-to-back ms).  K6's ms is its card time (card_ms: the
+    wrapper's host call, not the card, paces back-to-back calls when the
+    wave leaves nothing).  The bound: bench/stage_b_preempt.py
+    stage_b_bytes, and per chunk that needs rounds a selection over a class
+    row a pod and its placements' columns scored for every class."""
+    from kubernetes_tpu_torch.bench.stage_b_preempt import open_pods, stage_b_bytes
+    from kubernetes_tpu_torch.ops import assign, kernels
+
+    C = assign.INC_CHUNK
+    U1 = inc.req_u.shape[0]
+    wave = (wk[0], wk[1], wk[2], wk[5])
+    pwave = (wk[0], wk[1], wk[2], int(wk[5]))
+    k = kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], wave)
+    p = assign.schedule_scan_chunked_plain(arr, cfg, inc, wk[3], wk[4], pwave)
+    b2b = cuda_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], wave), reps=20, warmup=2)
+    ms = card_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], wave), reps=20)
+    plain = cuda_ms(lambda: assign.schedule_scan_chunked_plain(arr, cfg, inc, wk[3], wk[4], pwave), reps=3)
+    listed = open_pods(wk[0], C)
+    placed = int(((p[0] >= 0) & ~wk[0]).sum())
+    nbytes = stage_b_bytes(arr.P, arr.N, arr.R, U1, listed)
+    b_ms, b_by = bound(nbytes, listed * arr.N + U1 * placed * per_score)
+    return k, p, ms, plain, b_ms, b_by, nbytes, listed // C, b2b
+
+
 def phase_north_star_waves(per_pod_step_s: float) -> list:
     import torch
 
@@ -682,6 +741,7 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    counted()
     launches = {k: v for k, v in kernels.LAUNCHES.items() if k in WAVE_KERNELS}
     check(all(v > 0 for v in launches.values()), f"a kernel of the class-wave route was not launched: {launches}")
     U1 = inc.req_u.shape[0]
@@ -762,11 +822,16 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     print(f"[north-star-waves] wave_commit == plain over the whole wave ({n_blocks} blocks, {epochs} epochs, "
           f"{placed} placed): {k5_ms:.3f} ms, plain {k5_plain:.1f} ms (host clock), bound {k5_bound:.5f} ms "
           f"({k5_by}: {k5_bytes} B, {k5_ops} ops)", flush=True)
-    # K6 as the default class-wave step runs it: stage B after the wave
-    k6_stage_b_ms = cuda_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], (wk[0], wk[1], wk[2], wk[5])),
-                            reps=5)
-    print(f"[north-star-waves] chunk_rounds as the class-wave step's stage B (after the wave): {k6_stage_b_ms:.3f} ms",
-          flush=True)
+    # K6 as the default class-wave step runs it: stage B after the wave,
+    # == plain (the JAX skip where the wave committed every pod), beside
+    # stage B's own bound
+    sb_k, sb_p, sb_ms, sb_plain, sb_bound, sb_by, sb_bytes, sb_chunks, sb_b2b = stage_b(arr, inc, cfg, wk, per_score)
+    sb_err = sum(mismatch(a, b) for a, b in zip(sb_k[:3], sb_p[:3])) + abs(kernels.read_sweeps(sb_k[3]) - sb_p[3])
+    check(sb_err == 0, "north-star: chunk_rounds as stage B != plain")
+    print(f"[north-star-waves] chunk_rounds as the class-wave step's stage B (after the wave; {sb_chunks} of "
+          f"{P // assign.INC_CHUNK} chunks need rounds, {sb_p[3]} sweeps) == plain: {sb_ms:.4f} ms of card time "
+          f"({sb_b2b:.4f} ms back to back, paced by the wrapper's host call), plain "
+          f"{sb_plain:.4f} ms, stage B's bound {sb_bound:.6f} ms ({sb_by}: {sb_bytes} B)", flush=True)
 
     # --- the route with class_waves=False: chunk_rounds carries every chunk ---
     kernels.reset_launches()
@@ -812,6 +877,7 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     arr2 = dataclasses.replace(arr, node_used=choices_used(arr, choices, 2048))
     kernels.reset_launches()
     inc2 = cache.ensure(arr2, meta, cfg)
+    counted()
     check(cache.last["action"] == "patch" and kernels.LAUNCHES["class_usage_hoist"] == 1,
           f"warm cycle: action {cache.last['action']}, launches {kernels.LAUNCHES}")
     bf, ff = kernels.class_usage_hoist(inc2.req_u, arr2.node_used, arr2.node_alloc, cfg)
@@ -844,9 +910,12 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
              max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound, bound_by=k5_by, **common),
         dict(name="chunk_rounds", source="kubernetes_tpu_torch/csrc/chunk_rounds.cu",
              replaces="kubernetes_tpu/ops/assign.py:1093", launches=launches["chunk_rounds"],
-             max_abs_err=k6_err, ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound, bound_by=k6_by,
-             plain_scope=f"first {WAVE_PREFIX_CHUNKS} chunks", all_chunks_ms=k6_full_ms,
-             stage_b_ms=k6_stage_b_ms, **common),
+             max_abs_err=k6_err + sb_err, ms=sb_ms, plain_ms=sb_plain, bound_ms=sb_bound, bound_by=sb_by,
+             scope="stage B after the wave, the class-wave step's default; card time", stage_b_bytes=sb_bytes,
+             ms_back_to_back=sb_b2b,
+             waves_off_prefix_ms=k6_ms, waves_off_prefix_plain_ms=k6_plain, waves_off_prefix_bound_ms=k6_bound,
+             waves_off_prefix_scope=f"first {WAVE_PREFIX_CHUNKS} chunks", waves_off_all_chunks_ms=k6_full_ms,
+             **common),
     ]
 
 
@@ -902,6 +971,7 @@ def phase_north_star_dense() -> list:
     choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    counted()
     launches = {k: v for k, v in kernels.LAUNCHES.items() if k in DENSE_KERNELS}
     check(all(v > 0 for v in launches.values()), f"a kernel of the dense route was not launched: {launches}")
     check(sum(kernels.LAUNCHES.values()) == sum(launches.values()), f"dense route launches {kernels.LAUNCHES}")
@@ -1018,7 +1088,7 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
         assign.reset_trace_counts()
         waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain, Snapshot)
         torch.cuda.synchronize()
-        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        launches = counted()
         routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
         digests = {w: workloads.wave_digest(waves[w], fetched[w], names) for w in sorted(fetched) if w >= 2}
         actions = [h["action"] for h in loop.hoist.history]
@@ -1066,7 +1136,7 @@ def mesh_step(tag, arr, cfg, mesh, need, inc=None) -> tuple:
     assign.reset_trace_counts()
     out = assign.schedule_batch_ordinals(arr, cfg, inc=inc, mesh=mesh)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted()
     routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
     check(set(launches) == set(need), f"{tag}: launches {launches}, want {need}")
     check(routes.get("sharded_chunked_inc" if inc is not None else "sharded_chunked") == 1, f"{tag}: routes {routes}")
@@ -1133,7 +1203,7 @@ def phase_mesh_north_star(used_sha: str) -> list:
         inc = hc.ensure(arr, meta, cfg, host=host)
         torch.cuda.synchronize()
         ensure_s = time.perf_counter() - t0
-        hoist_la = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        hoist_la = counted()
         check(hoist_la == {"class_static_hoist": S, "class_usage_hoist": S, "stitch_planes": 2},
               f"{tag}: HoistCache launches {hoist_la}")
         check(inc.req_u.shape[0] == workloads.NORTH_STAR_CLASSES and inc.base_u.shape[1] == N, f"{tag}: IncState")
@@ -1287,6 +1357,7 @@ def phase_ring() -> list:
     kernels.reset_launches()
     tiles = ring_match(sel, kind, labels, mesh)
     torch.cuda.synchronize()
+    counted()
     ns_launches = kernels.LAUNCHES["ring_match"]
     check(ns_launches == d * d and sum(kernels.LAUNCHES.values()) == ns_launches,
           f"ring: launches {kernels.LAUNCHES}")
@@ -1311,6 +1382,7 @@ def phase_ring() -> list:
     kernels.reset_launches()
     tiles = ring_match(sel, kind, labels, mesh)
     torch.cuda.synchronize()
+    counted()
     launches = kernels.LAUNCHES["ring_match"]
     check(launches == d * d and sum(kernels.LAUNCHES.values()) == launches, f"ring: launches {kernels.LAUNCHES}")
     got = torch.cat(tiles).cpu()
@@ -1366,6 +1438,7 @@ def phase_wide_planes() -> list:
     kernels.reset_launches()
     arr, meta = enc.to_device(host, meta)
     torch.cuda.synchronize()
+    counted()
     launches = kernels.LAUNCHES["unpack_planes"]
     wide = ("node_taint_ns", "pod_tol_ns", "node_taint_pref", "pod_tol_pref")
     check(launches == len(wide), f"wide planes: unpack_planes launched {launches} times ({', '.join(wide)})")
@@ -1528,7 +1601,7 @@ def phase_config3() -> tuple:
     choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted()
     check(launches == {"packed_static_rows": 1, "rounds": 1}, f"config 3 rounds route launches {launches}")
     scheduled = int((choices[:n] >= 0).sum())
     print(f"[config3] schedule_batch_ordinals (rounds) {first_s:.3f} s (first call): scheduled {scheduled}/{n}, "
@@ -1608,7 +1681,7 @@ def phase_config3_perpod(c3) -> tuple:
     choices, used = assign.schedule_batch(arr, cfg, chunked=False)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted(default=False)
     check(launches == {"packed_static_rows": 1, "full_scan": 1}, f"config 3 per-pod route launches {launches}")
     digest = hashlib.sha256(choices[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
     print(f"[config3-perpod] schedule_batch(chunked=False) {first_s:.3f} s (first call): scheduled "
@@ -1673,7 +1746,7 @@ def phase_all_stages() -> list:
     kernels.reset_launches()
     choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
     torch.cuda.synchronize()
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted()
     check(launches == {"packed_static_rows": 1, "score_planes": 1, "rounds": 1}, f"all stages rounds {launches}")
     check(int((choices[:n] >= 0).sum()) == workloads.ALL_STAGES_SCHEDULED, "all stages: scheduled count")
     check(digest(choices) == workloads.ALL_STAGES_CHOICES_SHA256, "all stages: choices differ from JAX")
@@ -1683,7 +1756,7 @@ def phase_all_stages() -> list:
     kernels.reset_launches()
     pchoices, pused = assign.schedule_batch(arr, cfg, chunked=False)
     torch.cuda.synchronize()
-    plaunch = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    plaunch = counted(default=False)  # chunked=False
     check(plaunch == {"packed_static_rows": 1, "score_planes": 1, "full_scan": 1}, f"all stages per-pod {plaunch}")
     check(torch.equal(pchoices, choices) and torch.equal(pused, used), "all stages: per-pod route != rounds route")
     # --- the rounds route on class state, counted: K3 (with eligibility), K10 over the class view, K4, K12 ---
@@ -1692,7 +1765,7 @@ def phase_all_stages() -> list:
     inc = HoistCache().ensure(arr, meta, cfg)
     ic, iu, io, i_s = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
     torch.cuda.synchronize()
-    ilaunch = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    ilaunch = counted()
     check(ilaunch == {"class_static_hoist": 1, "score_planes": 1, "class_usage_hoist": 1, "rounds": 1},
           f"all stages class state: launches {ilaunch}")
     check(assign.TRACE_COUNTS["rounds_inc"] == 1, f"all stages class state: routes {assign.TRACE_COUNTS}")
@@ -1784,7 +1857,7 @@ def phase_config3_inc(c3) -> tuple:
     choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted()
     routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
     U1 = inc.req_u.shape[0]
     print(f"[config3-inc] HoistCache.ensure {t1 - t0:.3f} s ({cache.last['action']}; U1={U1}, planes "
@@ -1925,7 +1998,7 @@ def gang_run(tag, spec, want) -> dict:
     hc, hu, ho, hs = gang.schedule_with_gangs(arr, cfg, with_ordinals=True, inc=inc)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t1
-    hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    hl = counted()
     iters = assign.TRACE_COUNTS["chunked_inc"]
     print(f"[{tag}] cold DeltaEncoder encode {encode_s:.3f} s: P={arr.P} N={arr.N} R={arr.R} G={G} "
           f"U1={inc.req_u.shape[0]}; HoistCache.ensure {t1 - t0:.3f} s; host fixpoint (class-wave route) "
@@ -1951,7 +2024,7 @@ def gang_run(tag, spec, want) -> dict:
     dc, du = gang.gang_finish(g, stats)
     torch.cuda.synchronize()
     device_s = time.perf_counter() - t0
-    dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    dl = counted()
     print(f"[{tag}] device fixpoint (K7 + K8 + K13 queued {G + 1} times, one read at the end) {device_s:.4f} s, "
           f"host enqueue {enqueue_s:.4f} s: {stats['iterations']} iterations, choices sha256 {digest(dc)}, "
           f"launches {dl}", flush=True)
@@ -1974,7 +2047,10 @@ def gang_run(tag, spec, want) -> dict:
     # host cost of one gated iteration's three wrapper calls ---
     wk = kernels.wave_commit(arr, inc, cfg)
     k5_ms = cuda_ms(lambda: kernels.wave_commit(arr, inc, cfg), reps=2)
-    k6_ms = cuda_ms(lambda: kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], (wk[0], wk[1], wk[2], wk[5])), reps=2)
+    sb_k, sb_p, k6_ms, _, sb_bound, sb_by, sb_bytes, sb_chunks, _ = stage_b(arr, inc, cfg, wk,
+                                                                          f32_ops_per_scored_node(cfg))
+    check(all(same(a, b) for a, b in zip(sb_k[:3], sb_p[:3])) and kernels.read_sweeps(sb_k[3]) == sb_p[3],
+          f"{tag}: chunk_rounds as stage B != plain")
     k7_ms = cuda_ms(lambda: kernels.packed_static_rows(arr), reps=5)
     k8_ms = cuda_ms(lambda: kernels.chunk_rounds_dense(arr, cfg, sfs), reps=2)
     done = torch.ones((1,), dtype=torch.int32, device=arr.device)
@@ -2011,8 +2087,9 @@ def gang_run(tag, spec, want) -> dict:
     k7_plain = cuda_ms(lambda: assign.packed_static_rows_plain(arr), reps=2)
     print(f"[{tag}] packed_static_rows (done clear) == plain over [{arr.P}, {sfs.shape[1]}]; done set: "
           f"{k7_gated_ms * 1e3:.2f} us of card time, nothing written", flush=True)
-    print(f"[{tag}] one iteration's kernels: wave_commit {k5_ms:.3f} ms + chunk_rounds {k6_ms:.3f} ms (the host "
-          f"fixpoint's route), packed_static_rows {k7_ms:.3f} ms + chunk_rounds_dense {k8_ms:.3f} ms (the device "
+    print(f"[{tag}] one iteration's kernels: wave_commit {k5_ms:.3f} ms + chunk_rounds {k6_ms:.4f} ms of card time "
+          f"(the host fixpoint's route; stage B: {sb_chunks} of {arr.P // assign.INC_CHUNK} chunks need rounds, == plain, "
+          f"bound {sb_bound:.6f} ms ({sb_by}: {sb_bytes} B)), packed_static_rows {k7_ms:.3f} ms + chunk_rounds_dense {k8_ms:.3f} ms (the device "
           f"fixpoint's); a gated iteration: host {sum(host_us.values()):.1f} us "
           f"({', '.join(f'{k} {v:.1f}' for k, v in host_us.items())}), device {gated_ms * 1e3:.1f} us back to "
           f"back, {gated_card_ms * 1e3:.1f} us of card time queued behind a sleep", flush=True)
@@ -2109,7 +2186,7 @@ def phase_gang_rounds(k_ops3: int, k12_row: dict) -> dict:
     dc, du = gang.gang_finish(g, stats)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    dl = counted()
     t0 = time.perf_counter()
     g2 = gang.gang_dispatch(arr, cfg)
     steady_enqueue_s = time.perf_counter() - t0
@@ -2217,7 +2294,7 @@ def phase_gang_contended(k12_gated: dict) -> list:
         dc, du = gang.gang_finish(g, stats)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-        dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        dl = counted()
         want = {k: G + 1 for k in (*per_route[route], "gang_quorum")}
         dig_c = hashlib.sha256(dc[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
         dig_u = hashlib.sha256(du.cpu().numpy().astype("<i4").tobytes()).hexdigest()
@@ -2357,7 +2434,7 @@ def sidecar_run(tag: str, snap, gang_wave: bool, waves: int, want: list, want_la
     t0 = time.perf_counter()
     res = w.session_waves(eng, lambda: _Session(1.0, "cuda"), clone_pod, SpecInterner(), snap, gang_wave, waves)
     wall_s = time.perf_counter() - t0
-    dl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    dl = counted()
     enc, disp, step = (seen[f"sidecar_{k}_seconds"] for k in ("encode", "dispatch", "step"))
     for i, r in enumerate(res):
         print(f"[{tag}] wave {i + 1}: scheduled {r['scheduled']}, verdicts sha256 {r['sha256']}; "
@@ -2418,6 +2495,7 @@ def phase_sidecar_config5() -> None:
         print(line, flush=True)
     check(ok, f"sidecar-config5: the child failed ({run.returncode}): {run.stderr[-4000:]}")
     r = json.loads(lines[-1])
+    add_launches(r["launches"])
     print(f"[sidecar-config5] fresh process: the lock held for dispatch {r['dispatch'][0]:.4f} s on the first "
           f"gang wave, {r['dispatch'][1]:.4f} s on the second (ratio {r['dispatch'][0] / r['dispatch'][1]:.3f}); "
           f"engine start (build + module loads) {r['engine_start_s']:.3f} s", flush=True)
@@ -2444,7 +2522,7 @@ def sidecar_config5_child() -> int:
     choices, _ = r["engine"].run_session(sess, w.pregroup(snap.pending_pods, SpecInterner()), True)
     torch.cuda.synchronize()
     check(int((choices >= 0).sum()) == w.SIDECAR_CONFIG5_WAVES[0][0], "sidecar-config5: the second wave differs")
-    print(json.dumps({"dispatch": r["dispatch"], "engine_start_s": start_s}), flush=True)
+    print(json.dumps({"dispatch": r["dispatch"], "engine_start_s": start_s, "launches": RUN_LAUNCHES}), flush=True)
     return 0
 
 
@@ -2491,7 +2569,7 @@ def phase_explain_north_star(ns) -> dict:
     t0 = time.perf_counter()
     counts = explain.explain_classes(arr, reps, used)
     explain_s = time.perf_counter() - t0
-    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launched = counted()
     check(launched == {"explain_counts": 1}, f"explain-north-star launches {launched}")
     digest = hashlib.sha256(counts.astype("<i8").tobytes()).hexdigest()
     check(digest == w.NORTH_STAR_EXPLAIN_SHA256, "explain-north-star: counts differ from JAX")
@@ -2519,6 +2597,40 @@ def phase_explain_north_star(ns) -> dict:
                 max_abs_err=err)
 
 
+def stack_frames(src: str) -> list:
+    """ptxas's stack frame bytes of each kernel of `src`, from its build log."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    return [int(x) for x in re.findall(r"(\d+) bytes stack frame", kernels.BUILD_LOG.get(src, ""))]
+
+
+def first_k15_launches() -> tuple:
+    """CUDA-event ms of two preempt_eval launches on a wave of one preemptor
+    over 8 nodes: the process's first launch of the kernel (its module
+    loads then) and the next."""
+    import torch
+
+    from kubernetes_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    N, V, R = 8, 2, 4
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (torch.zeros((1, 1), **i32), torch.ones((1, R), **i32), torch.zeros((1,), **i32), torch.ones((N, R), **i32),
+            torch.zeros((N, R), **i32), torch.zeros((N, R), **i32), torch.zeros((N,), dtype=torch.bool, device=dev),
+            torch.zeros((N, V, R), **i32), torch.zeros((N, V), **i32),
+            torch.zeros((N, V), dtype=torch.bool, device=dev), torch.zeros((N, V), dtype=torch.bool, device=dev))
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        kernels.preempt_eval(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        out.append(ev[0].elapsed_time(ev[1]))
+    return tuple(out)
+
+
 def phase_preempt(k14: dict) -> list:
     """The failure path at the JAX package's preemption bench size, on the
     card, counted on its own; every wave's K15 output held to plain after
@@ -2534,13 +2646,14 @@ def phase_preempt(k14: dict) -> list:
     t0 = time.perf_counter()
     snap = pb.build(**w.PREEMPT)
     build_s = time.perf_counter() - t0
+    first_ms = first_k15_launches()
     kernels.reset_launches()
     t0 = time.perf_counter()
     with pb.WaveProbe(keep=True) as probe:
         r = pb.failure_cycle(snap)
         torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launched = counted()
     calls = probe.calls
     nwaves = len(calls)
     victims = sum(len(v) for _, _, v in r["decisions"])
@@ -2580,6 +2693,9 @@ def phase_preempt(k14: dict) -> list:
           f"apply_eviction {tm['evict_s']:.3f}", flush=True)
     print(f"[preempt] per wave (K, K padded, K15 ms by CUDA events, read back s): "
           f"{[(c['k'], c['kp'], round(c['kernel_ms'], 4), round(c['read_s'], 5)) for c in calls]}", flush=True)
+    print(f"[preempt] the process's first preempt_eval launches, before the cycle, on a one-preemptor wave of 8 "
+          f"nodes: {first_ms[0]:.4f} ms (the module's lazy load), then {first_ms[1]:.4f} ms; the cycle's first wave "
+          f"{ks[0]:.4f} ms against a median of {sorted(ks)[len(ks) // 2]:.4f} ms over its {nwaves} waves", flush=True)
 
     # K15 on the first wave's inputs: timed beside its plain version
     arr, idxs, *ins = calls[0]["inputs"]
@@ -2587,7 +2703,9 @@ def phase_preempt(k14: dict) -> list:
     ins = [torch.from_numpy(np.ascontiguousarray(x)).to(arr.device) for x in ins]
     del probe, calls
     stat_w = kernels.class_static_hoist(arr, idx.long())
-    k15_ms = cuda_ms(lambda: kernels.preempt_eval(stat_w, arr.pod_req, idx, arr.node_alloc, *ins), reps=50, warmup=3)
+    k15_b2b = cuda_ms(lambda: kernels.preempt_eval(stat_w, arr.pod_req, idx, arr.node_alloc, *ins), reps=50, warmup=3)
+    # the wrapper's host call paces back-to-back calls: the card time is K15's
+    k15_ms = card_ms(lambda: kernels.preempt_eval(stat_w, arr.pod_req, idx, arr.node_alloc, *ins), reps=50)
     st = tpre.static_rows_plain(arr, idx)
     plain_ms = cuda_ms(lambda: tpre.preempt_eval_plain(arr, idx, st, *ins), reps=5)
     K, N, R = idx.shape[0], arr.N, arr.R
@@ -2607,7 +2725,12 @@ def phase_preempt(k14: dict) -> list:
     pr = torch.zeros(4, dtype=torch.int64, device=arr.device)
     rv = torch.arange(4, device=arr.device) < 1
     k14_small = cuda_ms(lambda: kernels.explain_counts(arr, arr.node_used, pr, rv), reps=50, warmup=3)
+    frames = {src: stack_frames(src) for src in ("preempt.cu", "chunk_rounds.cu")}
+    check(frames["preempt.cu"] and not any(frames["preempt.cu"]),
+          f"preempt.cu: ptxas reports a stack frame ({frames['preempt.cu']} bytes)")
+    print(f"[preempt] ptxas stack frames (bytes, per kernel): {frames}", flush=True)
     print(f"[preempt] preempt_eval == plain on all {nwaves} waves; at K={K}, N={N}, V={V}, R={R}: {k15_ms:.4f} ms "
+          f"of card time ({k15_b2b:.4f} ms back to back) "
           f"(wave mean by events {sum(ks) / len(ks):.4f} ms), plain {plain_ms:.3f} ms, bound {k15_bound:.6f} ms "
           f"({k15_by}: {k15_bytes} B = read {k15_read} + written {k15_write}); explain_counts at F=4 on this "
           f"cluster {k14_small:.4f} ms", flush=True)
@@ -2620,7 +2743,8 @@ def phase_preempt(k14: dict) -> list:
              scope="north star, F=128", ms_f4_preempt=k14_small),
         dict(name="preempt_eval", source="kubernetes_tpu_torch/csrc/preempt.cu",
              replaces="kubernetes_tpu/ops/preempt.py:52", launches=launched["preempt_eval"],
-             max_abs_err=err, ms=k15_ms, plain_ms=plain_ms, bound_ms=k15_bound, bound_by=k15_by, **common),
+             max_abs_err=err, ms=k15_ms, plain_ms=plain_ms, bound_ms=k15_bound, bound_by=k15_by,
+             ms_back_to_back=k15_b2b, scope="one failure-cycle wave; card time", **common),
     ]
 
 
@@ -2633,10 +2757,10 @@ MESH_ROUNDS_PREFIX_CHUNKS = 4  # config-3 chunks of K12's shard mode held agains
 MESH_FULL_PREFIX = 128  # config-3 pods of K11's shard mode held against the plain sharded scan
 
 
-def sharded_counted(tag, fn, need: dict, route):
+def sharded_counted(tag, fn, need: dict, route, default: bool = True):
     """fn() on the mesh with every count set to 0 just before it: exactly the
     launches `need` and the route `route` once (a dict: exactly those route
-    counts)."""
+    counts); `default`: fn takes a default route (see counted)."""
     import torch
 
     from kubernetes_tpu_torch.ops import assign, kernels
@@ -2647,7 +2771,7 @@ def sharded_counted(tag, fn, need: dict, route):
     out = fn()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted(default)
     routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
     check(launches == need, f"{tag}: launches {launches}, want {need}")
     check(routes == (route if isinstance(route, dict) else {route: 1}), f"{tag}: routes {routes}")
@@ -2730,7 +2854,7 @@ def phase_mesh_north_star_perpod(ns) -> list:
     n = meta.n_pods
     step, launches, first_s = sharded_counted(
         "mesh-north-star-perpod", lambda: assign.finish(assign.dispatch(sa, cfg, mesh=m, chunked=False)),
-        {"static_feasible": 4, "fit_scan_shard": 1}, "sharded_plain")
+        {"static_feasible": 4, "fit_scan_shard": 1}, "sharded_plain", default=False)
     digest = hashlib.sha256(step.choices[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
     check(digest == workloads.NORTH_STAR_CHOICES_SHA256, "mesh-north-star-perpod: choices differ from JAX")
     check(torch.equal(step.choices, choices) and torch.equal(step.used[:arr.N], used),
@@ -2840,14 +2964,15 @@ def phase_mesh_config3(c3, k12_row: dict, k11_row: dict) -> list:
         inc = cache.ensure(sa, meta, cfg)
         torch.cuda.synchronize()
         ensure_s = time.perf_counter() - t0
-        hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        hl = counted()
         check(hl == {"class_static_hoist": S, "class_usage_hoist": S}, f"{tag}: HoistCache launches {hl}")
         ci, il, i_first = sharded_counted(tag, lambda: assign.finish(assign.dispatch(sa, cfg, inc=inc, mesh=m)),
                                           {"rounds_shard": 1}, "sharded_rounds_inc")
         same(tag + " rounds_inc", ci)
         # the per-pod route
         pp, pl, p_first = sharded_counted(tag, lambda: assign.finish(assign.dispatch(sa, cfg, mesh=m, chunked=False)),
-                                          {"packed_static_rows": S, "full_scan_shard": 1}, "sharded_plain")
+                                          {"packed_static_rows": S, "full_scan_shard": 1}, "sharded_plain",
+                                          default=False)
         same(tag + " per-pod", pp, sweeps=False)
         print(f"[mesh-config3] {m}: N={N} nl={nl}; rounds dense {d_first:.3f} s, launches {dl}; HoistCache.ensure "
               f"{ensure_s:.4f} s ({hl}), rounds on class state {i_first:.3f} s, launches {il}; per-pod "
@@ -2973,7 +3098,7 @@ def phase_mesh_gangs() -> None:
     c, u = gang.schedule_with_gangs(arr, cfg, mesh=m)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted()
     routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
     print(f"[mesh-gangs] gang-rounds on {m}: {wall:.4f} s, routes {routes}, launches {launches}, choices sha256 "
           f"{digest(c, n)}, used sha256 {digest(u[:arr.N])}", flush=True)
@@ -2992,7 +3117,7 @@ def phase_mesh_gangs() -> None:
     hc, hu, ho, hs = gang.schedule_with_gangs(arr, cfg, with_ordinals=True, inc=inc, mesh=m)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = counted()
     routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
     print(f"[mesh-gangs] config 5 on {m}, class state: {wall:.4f} s (HoistCache.ensure included), routes {routes}, "
           f"launches {launches}, sweeps {hs}, choices sha256 {digest(hc, n)}, ordinals sha256 {digest(ho, n)}",
@@ -3095,7 +3220,7 @@ def phase_mesh2d_north_star(used_sha: str) -> None:
     inc = hc.ensure(ga, meta, cfg, host=host)
     torch.cuda.synchronize()
     ensure_s = time.perf_counter() - t0
-    hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    hl = counted()
     check(hl == {"class_static_hoist": 4, "class_usage_hoist": 4, "stitch_planes": 2}, f"{tag}: HoistCache {hl}")
     check(isinstance(inc.cls, tuple) and [c.shape[0] for c in inc.cls] == [pl, pl], f"{tag}: the class index")
     v, vl, v_first = sharded_counted(tag + " waves",
@@ -3157,13 +3282,13 @@ def phase_mesh2d_config3(c3) -> None:
     inc = HoistCache(mesh=g).ensure(ga, meta, cfg)
     torch.cuda.synchronize()
     ensure_s = time.perf_counter() - t0
-    hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    hl = counted()
     check(hl == {"class_static_hoist": 4, "class_usage_hoist": 4}, f"{tag}: HoistCache launches {hl}")
     ci, il, i_first = sharded_counted(tag, lambda: run(inc=inc), {"rounds_shard": 1}, "sharded_rounds_inc")
     same(tag + " rounds_inc", ci)
     i_s = best_step_s(lambda: run(inc=inc))
     pp, pl_, p_first = sharded_counted(tag, lambda: run(chunked=False), {"packed_static_rows": 4, "full_scan_shard": 1},
-                                       "sharded_plain")
+                                       "sharded_plain", default=False)
     same(tag + " per-pod", pp, sweeps=False)
     g_ms, g_bytes, _ = entry_gather(ga, inc)
     print(f"[mesh2d-config3] {g}: P {ga.P} (pl {ga.pl}), N {ga.N} (nl {ga.nl}); rounds dense {d_first:.3f} s first, "
@@ -3236,6 +3361,9 @@ def phase_dcn(ns_used_sha: str, c3_used_sha: str) -> None:
                 print(f"[dcn {shape} rank {r}] {line}", flush=True)
             check(p.returncode == 0, f"dcn {shape}: rank {r} exited {p.returncode}")
             res = [json.loads(x[len("DCN-RESULT "):]) for x in out.splitlines() if x.startswith("DCN-RESULT ")]
+            for x in out.splitlines():
+                if x.startswith("DCN-LAUNCHES "):
+                    add_launches(json.loads(x[len("DCN-LAUNCHES "):]))
             check(len(res) == (2 if shape == "1d" else 3), f"dcn {shape}: rank {r} printed {len(res)} results")
             results.append(res)
         for r, res in enumerate(results):
@@ -3276,7 +3404,7 @@ def dcn_worker(rank: int, port: int, shape: str) -> int:
         kernels.reset_launches()
         step = step_fn()
         torch.cuda.synchronize()
-        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        launches = counted()
         check(launches == need, f"dcn {shape} {cell}: launches {launches}, want {need}")
         digest = sha_i32(step.choices[:n])
         check(digest == want_c, f"dcn {shape} {cell}: choices differ from JAX")
@@ -3305,7 +3433,7 @@ def dcn_worker(rank: int, port: int, shape: str) -> int:
             kernels.reset_launches()
             inc = HoistCache(mesh=mesh).ensure(arr, meta, cfg, host=host)
             torch.cuda.synchronize()
-            hl = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            hl = counted()
             check(hl == {"class_static_hoist": 2, "class_usage_hoist": 2, "stitch_planes": 2},
                   f"dcn {shape}: HoistCache launches {hl}")
             run("north-star-waves", lambda: assign.finish(assign.dispatch(arr, cfg, inc=inc, mesh=mesh)),
@@ -3316,6 +3444,7 @@ def dcn_worker(rank: int, port: int, shape: str) -> int:
         torch.cuda.empty_cache()
     dist.barrier()
     dist.destroy_process_group()
+    print("DCN-LAUNCHES " + json.dumps(RUN_LAUNCHES), flush=True)
     return 0
 
 
@@ -3329,6 +3458,13 @@ def choices_used(arr, choices, k: int):
     m = c >= 0
     used.index_add_(0, c[m], arr.pod_req[:k][m])
     return used
+
+
+def launch_key(name: str) -> str:
+    """The LAUNCHES key of a kernels-line row (a mode's row: its kernel's)."""
+    shard = {"fit_scan (shard)": "fit_scan_shard", "full_scan (shard)": "full_scan_shard",
+             "rounds (shard)": "rounds_shard", "rounds (shard, class rows)": "rounds_shard"}
+    return shard.get(name) or re.split(r"[ +]", name)[0].replace("rounds_class_rows", "rounds")
 
 
 def main() -> int:
@@ -3384,6 +3520,8 @@ def main() -> int:
     phase_sidecar_config5()
     rows += phase_preempt(k14)
     phase_dcn(used_sha, c3_used_sha)
+    for row in rows:
+        row["launches_run"] = RUN_LAUNCHES.get(launch_key(row["name"]), 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

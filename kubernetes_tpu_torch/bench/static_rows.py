@@ -126,21 +126,22 @@ def first_design_scratch(fn):
     return entry
 
 
-def in_turns(tag: str, what: str, timer, entries, check) -> dict:
+def in_turns(tag: str, what: str, timer, entries, check, kernel: str = "packed_static_rows") -> dict:
     """`timer()` with each entry of `entries` ((who, C entry) in turn order)
-    installed as K7's; `check()` after each turn.  -> {who: [ms, ...]}."""
+    installed as `kernel`'s C entry; `check(who)` after each turn.  -> {who:
+    [ms, ...]}."""
     from ..ops import kernels
 
-    normal = kernels._fn("packed_static_rows")
+    normal = kernels._fn(kernel)
     out = {}
     try:
         for who, fn in entries:
-            kernels._FNS["packed_static_rows"] = fn
+            kernels._FNS[kernel] = fn
             ms = timer()
             check(who)
             out.setdefault(who, []).append(ms)
     finally:
-        kernels._FNS["packed_static_rows"] = normal
+        kernels._FNS[kernel] = normal
     print(f"[{tag}] {what}: " + "; ".join(f"{who} " + " / ".join(f"{x:.4f}" for x in v) + " ms"
                                          for who, v in out.items()), flush=True)
     return out

@@ -13,24 +13,36 @@
 // Also the t0u prologue (:992-997) when no wave ran, and the ordinals of
 // :1422-1440 (wave blocks, then stage-B rounds numbered on from n_blocks).
 //
-// Design: a cooperative persistent grid walks the chunks in order, one
-// launch, no host synchronisation per chunk or per round.
-//   - per chunk, block b computes the top-K list of pod b's class row
-//     (topk.cuh, exact order), then grid.sync();
-//   - block 0 runs the round loop with the chunk in shared memory, one warp
-//     per pod (C <= 32, lanes over the chunk's pods, dirty slots or list
-//     entries), then the usage update (atomics: pods may share a node) and
-//     the [U1, C] t0u patch, then grid.sync() so the next chunk's lists see
-//     the patched rows;
-//   - a chunk the wave committed whole is skipped by every block alike
-//     (its choices and ordinals are the wave's), with no barrier.
+// Design: one cooperative launch of the whole resident grid (one
+// 1024-thread block an SM), no host synchronisation per chunk or round.
+//   1. The chunk classes, in parallel: block 0 classifies every chunk
+//      (warp w of a tile of 1024 chunks reads its 32 chunks' committed
+//      flags coalesced, one ballot a chunk) and compacts the chunks that
+//      need rounds -- some pod the wave did not commit; every chunk when no
+//      wave ran -- in order into a device list with its count (ballots and
+//      a prefix sum over the warps).  Meanwhile the other blocks copy the
+//      usage and write the choices and ordinals of the chunks the wave
+//      committed whole from its decisions, a warp a chunk.
+//   2. One grid barrier; every block reads the count.  A count of 0 is the
+//      JAX _skip branch: sweeps = n_blocks, and every block returns alike
+//      (no barrier sits under a flag blocks could read differently).
+//   3. Otherwise the grid copies t0u (or builds it: the prologue), and the
+//      listed chunks are walked in list order: block b computes the top-K
+//      list of pod b's class row (topk.cuh, exact order), grid.sync();
+//      block 0 runs the round loop with the chunk in shared memory, one
+//      warp per pod (C <= 32, lanes over the chunk's pods, dirty slots or
+//      list entries), then the usage update (atomics: pods may share a
+//      node) and the [U1, C] t0u patch, grid.sync() so the next chunk's
+//      lists see the patched rows.  Rounds count only over listed chunks.
 // Rows other blocks patch are read through L2 (__ldcg).  Inputs are never
 // written; used and t0u are fresh buffers.
 //
-// Bounds on an H100 (north star, waves off: 1600 chunks, 2635 rounds): the
-// bytes are the inputs read once and the outputs written once (~17 MB,
-// >= 5 us at 3.35 TB/s); the chain of 1600 dependent chunk steps and their
-// two grid barriers each is the practical floor.
+// Bounds on an H100: when the wave committed every pod, the committed
+// flags, decisions and ordinals in, the usage copied and the decisions
+// out (17 P + 8 N R bytes, ~1.7 MB or ~0.5 us at the north star); with
+// the waves off (1600 chunks, 2635 rounds) ~17 MB, >= 5 us at 3.35 TB/s,
+// where the chain of 1600 dependent chunk steps and their two grid
+// barriers each is the practical floor.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,6 +85,7 @@ struct ChunkArgs {
   int32_t* scal;           // [2] out: sweeps, status (1: round cap hit)
   float* topv;             // [C, K] scratch
   int32_t* topi;           // [C, K] scratch
+  int32_t* clist;          // [P / C + 1] scratch: the chunks that need rounds, then their count
   ktt::ScoreParams sp;
   int P, N, R, U1, W, C, K, Z, spec_iters;
 };
@@ -408,14 +421,75 @@ __device__ void chunk_step(const ChunkArgs& a, ChunkSmem& s, int c0, int base, i
   __syncthreads();
 }
 
+// block 0: the chunks that need rounds, in order, into clist, their count
+// at clist[P / C]; a tile of NT chunks at a time, warp w holding 32 of them
+__device__ void list_chunks(const ChunkArgs& a, int* woff) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int C = a.C, nch = a.P / a.C;
+  int total = 0;
+  for (int t0 = 0; t0 < nch; t0 += NT) {
+    const int cw = t0 + 32 * warp;
+    unsigned need = 0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int ci = cw + j;
+      const bool open = ci < nch && lane < C && !(a.wcom && a.wcom[(int64_t)ci * C + lane]);
+      need |= (__ballot_sync(FULL, open) ? 1u : 0u) << j;
+    }
+    if (lane == 0) woff[warp] = __popc(need);
+    __syncthreads();
+    if (warp == 0) {  // exclusive prefix of the warps' counts; the tile's total last
+      const int v = woff[lane];
+      int incl = v;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(FULL, incl, off);
+        if (lane >= off) incl += y;
+      }
+      woff[lane] = incl - v;
+      if (lane == 31) woff[32] = incl;
+    }
+    __syncthreads();
+    if ((need >> lane) & 1u) a.clist[total + woff[warp] + __popc(need & ((1u << lane) - 1u))] = cw + lane;
+    total += woff[32];
+    __syncthreads();  // woff is rewritten by the next tile
+  }
+  if (tid == 0) a.clist[nch] = total;
+}
+
 __global__ void __launch_bounds__(NT, 1) chunk_rounds_kernel(ChunkArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ ktt::TopkScratch tks;
   __shared__ ChunkSmem s;
-  const int tid = threadIdx.x;
-  const int N = a.N, R = a.R, U1 = a.U1, W = a.W, C = a.C, K = a.K;
-  const int64_t g0 = (int64_t)blockIdx.x * NT + tid, gs = (int64_t)gridDim.x * NT;
+  __shared__ int woff[33];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int N = a.N, R = a.R, U1 = a.U1, W = a.W, C = a.C, K = a.K, G = gridDim.x;
+  const int nch = a.P / C;
+  const int64_t g0 = (int64_t)blockIdx.x * NT + tid, gs = (int64_t)G * NT;
+  const int nblk = a.wscal ? a.wscal[0] : 0;
+  // ---- 1. the chunk classes; the usage copy and the wave's whole chunks ----
   for (int64_t i = g0; i < (int64_t)N * R; i += gs) a.used[i] = a.used_in[i];
+  if (blockIdx.x == 0) list_chunks(a, woff);
+  if (a.wcom && (G == 1 || blockIdx.x > 0)) {
+    const int b = G == 1 ? 0 : blockIdx.x - 1, nb = G == 1 ? 1 : G - 1;
+    for (int ci = b * (NT / 32) + (tid >> 5); ci < nch; ci += nb * (NT / 32)) {
+      const int64_t p = (int64_t)ci * C + lane;
+      if (__all_sync(FULL, lane >= C || a.wcom[p]) && lane < C) {
+        a.choices[p] = a.wout[p];
+        a.ordinals[p] = a.wordn[p];
+      }
+    }
+  }
+  grid.sync();
+  // ---- 2. the skip: the wave committed every pod ----
+  const int nlist = __ldcg(a.clist + nch);
+  if (nlist == 0) {
+    if (blockIdx.x == 0 && tid == 0) {
+      a.scal[0] = nblk;
+      a.scal[1] = 0;
+    }
+    return;
+  }
+  // ---- 3. the listed chunks' rounds, from the wave's class rows ----
   for (int64_t i = g0; i < (int64_t)U1 * N; i += gs) {
     if (a.t0u_in) {
       a.t0u[i] = a.t0u_in[i];
@@ -427,19 +501,11 @@ __global__ void __launch_bounds__(NT, 1) chunk_rounds_kernel(ChunkArgs a) {
     }
   }
   if (tid == 0) s.status = 0;
-  const int nblk = a.wscal ? a.wscal[0] : 0;
   int base = 0;
   grid.sync();
-  for (int c0 = 0; c0 < a.P; c0 += C) {
-    if (a.wcom && __syncthreads_and(tid >= C || a.wcom[c0 + tid])) {
-      // committed whole by the wave: zero rounds, the wave's decisions
-      if (blockIdx.x == 0 && tid < C) {
-        a.choices[c0 + tid] = a.wout[c0 + tid];
-        a.ordinals[c0 + tid] = a.wordn[c0 + tid];
-      }
-      continue;
-    }
-    for (int i = blockIdx.x; i < C; i += gridDim.x) {
+  for (int j = 0; j < nlist; ++j) {
+    const int c0 = __ldcg(a.clist + j) * C;
+    for (int i = blockIdx.x; i < C; i += G) {
       const int u = a.cls[c0 + i];
       ktt::block_topk(a.t0u + (int64_t)u * N, N, K, a.topv + (int64_t)i * K, a.topi + (int64_t)i * K, tks);
     }
@@ -465,7 +531,7 @@ extern "C" int ktt_chunk_rounds(const void* preq, const void* pvalid, const void
                                 const void* t0u_in, const void* wcom, const void* wout,
                                 const void* wordn, const void* wscal, void* choices, void* used,
                                 void* t0u, void* ordinals, void* scal, void* topv, void* topi,
-                                const int* ip, const float* fp, int P, int N, int R, int U1,
+                                void* clist, const int* ip, const float* fp, int P, int N, int R, int U1,
                                 int C, int spec_iters, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   ChunkArgs a;
@@ -496,6 +562,7 @@ extern "C" int ktt_chunk_rounds(const void* preq, const void* pvalid, const void
   a.scal = static_cast<int32_t*>(scal);
   a.topv = static_cast<float*>(topv);
   a.topi = static_cast<int32_t*>(topi);
+  a.clist = static_cast<int32_t*>(clist);
   a.P = P;
   a.N = N;
   a.R = R;
@@ -514,7 +581,7 @@ extern "C" int ktt_chunk_rounds(const void* preq, const void* pvalid, const void
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, chunk_rounds_kernel, NT, 0);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int grid = C < nsm * per_sm ? C : nsm * per_sm;
+  const int grid = nsm * per_sm;  // the whole resident grid: the classes, copies and t0u
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel((void*)chunk_rounds_kernel, dim3(grid), dim3(NT), args, 0, st);
   if (err != cudaSuccess) return (int)err;

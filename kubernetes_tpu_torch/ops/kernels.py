@@ -107,7 +107,7 @@ _ARGTYPES = {
     "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 8 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
-    "chunk_rounds": ("ktt_chunk_rounds", [_P] * 23 + [_I] * 6 + [_P]),
+    "chunk_rounds": ("ktt_chunk_rounds", [_P] * 24 + [_I] * 6 + [_P]),
     "packed_static_rows": ("ktt_packed_static_rows", [_P] * 16 + [_I] * 8 + [_P]),
     "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 17 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
@@ -575,9 +575,11 @@ def chunk_rounds(arr, inc, cfg, used_w, t0u_w, wave):
     (committed, out, ordinal, n_blocks) of wave_commit) or, with wave None,
     from the cycle start (used_w = arr.node_used, t0u_w None: the kernel
     builds t0u) -> (choices i32[P], used i32[N, R], ordinals i32[P], the
-    int32[2] device pair (sweeps, status): read_sweeps).  Every round
-    commits a pod, so a chunk takes at most INC_CHUNK rounds; the kernel
-    stops a chunk past that cap and reports it in the status."""
+    int32[2] device pair (sweeps, status): read_sweeps).  Only the chunks
+    the wave did not commit whole run rounds; when it committed every pod
+    the launch is the JAX skip (the wave's decisions and usage).  Every
+    round commits a pod, so a chunk takes at most INC_CHUNK rounds; the
+    kernel stops a chunk past that cap and reports it in the status."""
     dev = arr.device
     _need_cuda(dev, "chunk_rounds")
     P, N, R = arr.P, arr.N, arr.R
@@ -604,16 +606,18 @@ def chunk_rounds(arr, inc, cfg, used_w, t0u_w, wave):
     used = torch.empty((N, R), dtype=torch.int32, device=dev)
     t0u = torch.empty((U1, N), dtype=torch.float32, device=dev)
     ords = torch.empty((P,), dtype=torch.int32, device=dev)
-    scal = torch.zeros((2,), dtype=torch.int32, device=dev)
+    scal = torch.empty((2,), dtype=torch.int32, device=dev)  # the kernel writes both on every path
     topv = torch.empty((C, K), dtype=torch.float32, device=dev)
     topi = torch.empty((C, K), dtype=torch.int32, device=dev)
+    clist = torch.empty((P // C + 1,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = fn(
             arr.pod_req.data_ptr(), arr.pod_valid.data_ptr(), inc.cls.data_ptr(), arr.node_alloc.data_ptr(),
             inc.req_u.data_ptr(), inc.stat_u.data_ptr(), inc.fit_u.data_ptr(), inc.base_u.data_ptr(),
             used_w.data_ptr(), None if t0u_w is None else t0u_w.data_ptr(), *wptrs,
             choices.data_ptr(), used.data_ptr(), t0u.data_ptr(), ords.data_ptr(), scal.data_ptr(),
-            topv.data_ptr(), topi.data_ptr(), _host(ip), _host(fp), P, N, R, U1, C, SPEC_ITERS, _stream(dev),
+            topv.data_ptr(), topi.data_ptr(), clist.data_ptr(), _host(ip), _host(fp), P, N, R, U1, C, SPEC_ITERS,
+            _stream(dev),
         )
     _raise_on(err, "chunk_rounds")
     LAUNCHES["chunk_rounds"] += 1

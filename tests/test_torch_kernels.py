@@ -23,6 +23,7 @@ from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot
 from kubernetes_tpu_torch.bench.workloads import heterogeneous, mixed
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, filters, infer_score_config, kernels
 from kubernetes_tpu_torch.ops.assign import schedule_scan_plain
+import torch_stage_b_cases as sb
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 pytestmark = pytest.mark.cuda
@@ -245,6 +246,62 @@ def test_class_wave_route_counts_launches(card):
                                 "class_usage_hoist": 1, "wave_commit": 1, "chunk_rounds": 1}
     cp, up = schedule_scan_plain(arr, cfg)
     assert torch.equal(choices, cp) and torch.equal(used, up)
+
+
+@pytest.mark.parametrize("case", sb.CASES)
+def test_chunk_rounds_on_stage_b_classes(card, case):
+    """K6 == the plain stage B (and its walk's emulation) on each chunk
+    class: the skip, a partial wave with pad pods in its last chunks, listed
+    chunks with whole ones between them, and no wave."""
+    from kubernetes_tpu_torch.ops import assign
+
+    arr, cfg, inc, used0, t0u0, wave = sb.build_case(case, device=card)
+    kwave = None if wave is None else (*wave[:3], torch.tensor(wave[3], dtype=torch.int32, device=card))
+    ck = kernels.chunk_rounds(arr, inc, cfg, used0, None if wave is None else t0u0, kwave)
+    cp = assign.schedule_scan_chunked_plain(arr, cfg, inc, used0, t0u0, wave)
+    for a, b in zip(ck[:3], cp[:3]):
+        assert torch.equal(a, b)
+    assert kernels.read_sweeps(ck[3]) == cp[3]
+    em = sb.emulate_walk(arr, cfg, inc, used0, t0u0, wave)
+    for a, b in zip(ck[:3], em[:3]):
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.parametrize("case", ["skip", "reopened", "no-wave"])
+def test_chunk_rounds_stage_b_at_the_north_star(card, case):
+    """K6 == plain at the north star (P = 51200, 1600 chunks): after the
+    wave, which commits every pod (the skip); with three chunks taken back
+    out of it, far apart (one pod of chunk 500, all of chunks 7 and 1201);
+    and with no wave over the first 64 chunks."""
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import assign
+    from kubernetes_tpu_torch.ops.incremental import HoistCache, IncState
+
+    arr, meta = encode_snapshot(heterogeneous(**workloads.NORTH_STAR), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    C = assign.INC_CHUNK
+    if case == "no-wave":
+        n = 64 * C
+        pre = arr.pod_prefix(n)
+        inc_pre = IncState(cls=inc.cls[:n].contiguous(), req_u=inc.req_u, stat_u=inc.stat_u, base_u=inc.base_u,
+                           fit_u=inc.fit_u)
+        ck = kernels.chunk_rounds(pre, inc_pre, cfg, arr.node_used, None, None)
+        cp = assign.schedule_scan_chunked_plain(pre, cfg, inc_pre, arr.node_used,
+                                                assign.t0u_prologue(inc, arr.N), None)
+    else:
+        wk = kernels.wave_commit(arr, inc, cfg)
+        wcom, wout, wordn = wk[0].clone(), wk[1].clone(), wk[2].clone()
+        assert bool(wcom.all())
+        if case == "reopened":
+            idx = torch.cat([torch.arange(7 * C, 8 * C), torch.tensor([500 * C + 5]),
+                             torch.arange(1201 * C, 1202 * C)]).to(card)
+            wcom[idx], wout[idx], wordn[idx] = False, -1, 0
+        ck = kernels.chunk_rounds(arr, inc, cfg, wk[3], wk[4], (wcom, wout, wordn, wk[5]))
+        cp = assign.schedule_scan_chunked_plain(arr, cfg, inc, wk[3], wk[4], (wcom, wout, wordn, int(wk[5])))
+    for a, b in zip(ck[:3], cp[:3]):
+        assert torch.equal(a, b)
+    assert kernels.read_sweeps(ck[3]) == cp[3]
 
 
 def test_chunk_rounds_raises_at_its_round_cap(card):

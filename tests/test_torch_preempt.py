@@ -9,6 +9,8 @@ On the CPU:
   carried across (convert.from_jax_arrays), random victim tables with V in
   {1, 2, 8}, K in {1, 3, 64} preemptors, mixed has_nom and vict_viol, and
   priorities that are negative, zero and near INT32_MAX (vsum wraps);
+  and over R in {1, 5, 16} resources (the same clusters with their resource
+  columns rebuilt) at V in {1, 8}, with nodes that hold no valid victim;
 - ``failure_cycle`` with the port's BatchedPreemption equals the same
   sequence with the JAX one (tests/torch_preempt_reference.py) on the same
   snapshot, PDBs and carried nominations: every decision (node and victims),
@@ -24,7 +26,9 @@ On the CPU:
 
 The ``cuda`` legs import no JAX and skip without a card: kernel K15
 preempt_eval (with K3's static words) == the plain version on the port's
-own encodings, and failure_cycle on the card == on the CPU:
+own encodings, also over R in {1, 4, 5, 16}, V in {1, 2, 8, 3}, K in {1, 7,
+64, 65} on 300 nodes (N not a multiple of K15's node tile) with edge_tables'
+wrapping sums, and failure_cycle on the card == on the CPU:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_preempt.py
 
@@ -114,6 +118,59 @@ def test_preempt_eval_wave_matches_jax(jx, seed, V, K):
     one = [np.asarray(x) for x in jx["pre"].preempt_eval(ja, np.int32(idxs[0]), *ins)]
     for g, w in zip(tpre.to_host(tpre.preempt_eval(carry(ja), int(idxs[0]), *ins)), one):
         np.testing.assert_array_equal(g, w)
+
+
+def with_resources(rng, alloc: np.ndarray, req: np.ndarray, R: int):
+    """R resource columns built from the encoded ones: column r is column r
+    mod R0 scaled by 1 + r // R0, with some requests zeroed (the fit test
+    skips a zero request) -> (alloc i32[N, R], req i32[P, R])."""
+    R0 = alloc.shape[1]
+    cols = np.arange(R) % R0
+    scale = 1 + np.arange(R) // R0
+    a = (alloc[:, cols].astype(np.int64) * scale).clip(0, 2**31 - 1).astype(np.int32)
+    q = (req[:, cols].astype(np.int64) * scale).clip(0, 2**31 - 1)
+    q[rng.random(q.shape) < 0.15] = 0
+    return np.ascontiguousarray(a), np.ascontiguousarray(q.astype(np.int32))
+
+
+def edge_tables(rng, alloc: np.ndarray, V: int):
+    """victim_tables with edges: the first quarter of the nodes holds no
+    valid victim; on the upper half every valid victim fills its node (the
+    usage is theirs), so each stays evicted wherever the preemptor fits and
+    two priorities of 2**31 - 9 wrap the int32 sum."""
+    used, nom, has_nom, vreq, prio, viol, valid = victim_tables(rng, alloc, V)
+    N = alloc.shape[0]
+    valid[: N // 4] = False
+    vreq[~valid] = 0
+    h = N // 2
+    vreq[h:] = np.where(valid[h:, :, None], alloc[h:, None, :], 0)
+    used[h:] = alloc[h:] * valid[h:].sum(axis=1, keepdims=True)
+    prio[h:] = 2**31 - 9
+    return used, nom, has_nom, vreq, prio, viol, valid
+
+
+@pytest.mark.parametrize("V", [1, 8])
+@pytest.mark.parametrize("R", [1, 5, 16])
+def test_preempt_eval_wave_matches_jax_over_resources(jx, R, V):
+    """The plain phases A-C == the JAX preempt_eval_wave at R resources:
+    K = 64 preemptors, priorities whose sums wrap int32 (V = 8), nodes with
+    no valid victim and nodes with nominated pods."""
+    ja, jm = _random_cluster(jx, 20 + R + V)
+    rng = np.random.default_rng(R * 10 + V)
+    alloc, req = with_resources(rng, np.asarray(ja.node_alloc), np.asarray(ja.pod_req), R)
+    ja = dataclasses.replace(ja, node_alloc=alloc, pod_req=req, node_used=np.zeros_like(alloc))
+    ins = edge_tables(rng, alloc, V)
+    used, nom, has_nom, vreq, prio, viol, valid = ins
+    idxs = rng.choice(jm.n_pods, size=64, replace=True).astype(np.int32)
+    want = [np.asarray(x) for x in jx["pre"].preempt_eval_wave(ja, idxs, *ins)]
+    got = tpre.to_host(tpre.preempt_eval_wave(carry(ja), idxs, *ins))
+    for name, g, w in zip(("cand", "nvio", "vmax", "vsum", "vcnt", "is_victim", "static_ok"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert has_nom.any() and want[0].any() and (want[4][:, : ja.N // 4] == 0).all()
+    if V == 8:  # the victims' priority sums wrapped int32 somewhere
+        wide = np.where(want[5], prio[None].astype(np.int64), 0).sum(axis=2)
+        assert ((wide > 2**31 - 1) | (wide < -(2**31))).any()
 
 
 def _dirty_repair(jx):
@@ -270,6 +327,39 @@ def test_kernel_matches_plain(card, seed, V, K):
     host = tpre.to_host(got)
     for h, w in zip(host, want):
         np.testing.assert_array_equal(h, w.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [1, 2, 8, 3])
+@pytest.mark.parametrize("R", [1, 4, 5, 16])
+def test_kernel_matches_plain_over_the_grid(card, R, V):
+    """K15 over resource counts (one kernel instantiation each), victim
+    slot counts (one is_victim store a (k, n) for V = 1, 2, 8; bytes for
+    V = 3), preemptor counts around its slice of 8, and 300 nodes (N a
+    partial node tile)."""
+    arr, meta = encode_snapshot(tw.mixed(300, 160, seed=R * 10 + V), device=card)
+    rng = np.random.default_rng(R * 10 + V)
+    alloc, req = with_resources(rng, arr.node_alloc[:300].cpu().numpy(), arr.pod_req.cpu().numpy(), R)
+    nodes = {f.name: getattr(arr, f.name)[:300].contiguous() for f in dataclasses.fields(arr)
+             if f.name.startswith("node_")}  # the encoder pads N to 384: cut the pad nodes
+    arr = dataclasses.replace(arr, **{**nodes, "node_alloc": torch.from_numpy(alloc).to(card),
+                                      "pod_req": torch.from_numpy(req).to(card),
+                                      "node_used": torch.zeros((300, R), dtype=torch.int32, device=card)})
+    assert arr.N == 300
+    ins = edge_tables(rng, alloc, V)
+    dev_ins = [torch.from_numpy(np.ascontiguousarray(x)).to(card) for x in ins]
+    cands = wraps = 0
+    for K in (1, 7, 64, 65):
+        idxs = rng.choice(meta.n_pods, size=K).astype(np.int32)
+        got = tpre.preempt_eval_wave(arr, idxs, *ins)
+        idx = torch.from_numpy(idxs).to(card)
+        want = tpre.preempt_eval_plain(arr, idx, tpre.static_rows_plain(arr, idx), *dev_ins)
+        for name, g, w in zip(("cand", "nvio", "vmax", "vsum", "vcnt", "is_victim", "static_ok"), got, want):
+            assert torch.equal(g, w), (K, name)
+        cands += int(want[0].sum())
+        wide = torch.where(want[5], dev_ins[4][None].long(), 0).sum(dim=2)
+        wraps += int(((wide > 2**31 - 1) | (wide < -(2**31))).sum())
+    assert cands > 0 and (wraps > 0) == (V > 1)
 
 
 @pytest.mark.cuda

@@ -10,7 +10,13 @@
   two-entry lists in 64-pod blocks, where the wave's block budget runs out
   and stage B carries the rest.  The JAX side runs in fresh processes
   (tests/torch_waves_reference.py): its knobs are read at import;
-- decoded choices equal the serial oracle's.
+- decoded choices equal the serial oracle's;
+- stage B on its chunk classes (tests/torch_stage_b_cases.py): a numpy
+  emulation of kernel K6's walk (classify the chunks, compact the ones that
+  need rounds, the skip, rounds counted over listed chunks only) equals
+  ``schedule_scan_chunked_plain``, and the plain stage B after the plain
+  wave equals the JAX route on a wave that commits every pod, a partial
+  wave and no wave.
 
 Both sides read the JAX encoder's arrays and class index
 (convert.from_jax_arrays / from_jax_meta).  Tolerance: none.
@@ -29,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_stage_b_cases as sb
 import torch_waves_reference as ref
 from kubernetes_tpu.api.delta import DeltaEncoder
 from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG as JAX_DEFAULT
@@ -188,3 +195,55 @@ def test_route_counts_and_fallback_to_the_per_pod_route():
     c, u, o, s = assign.schedule_batch_ordinals(arr, cfg, device="cpu")
     assert assign.TRACE_COUNTS["plain"] == 1
     assert s == arr.P and torch.equal(o, torch.arange(arr.P, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("case", sb.CASES)
+def test_stage_b_walk_emulation_matches_plain(case):
+    """K6's walk, emulated, == the plain stage B, which runs every chunk."""
+    arr, cfg, inc, used0, t0u0, wave = sb.build_case(case)
+    c, u, o, s, listed = sb.emulate_walk(arr, cfg, inc, used0, t0u0, wave)
+    want = assign.schedule_scan_chunked_plain(arr, cfg, inc, used0, t0u0, wave)
+    np.testing.assert_array_equal(c, want[0].numpy())
+    np.testing.assert_array_equal(u, want[1].numpy())
+    np.testing.assert_array_equal(o, want[2].numpy())
+    assert s == want[3]
+    nch = arr.P // assign.INC_CHUNK
+    if case == "skip":
+        assert listed.size == 0
+    elif case == "no-wave":
+        np.testing.assert_array_equal(listed, np.arange(nch))
+    else:
+        gaps = np.diff(listed) > 1
+        assert listed[0] > 0 and listed[-1] == nch - 1 and gaps.any() == (case == "reopened")
+        assert not arr.pod_valid[-assign.INC_CHUNK:].any()  # the last chunk: invalid pad pods
+        assert s > wave[3]  # listed chunks ran rounds
+
+
+# the JAX route's leg and snapshot for each real stage-B class
+STAGE_B_JAX = {"skip": ("waves", "heterogeneous"), "partial": ("truncated", "basic-truncated"),
+               "no-wave": ("waves-off", "heterogeneous")}
+
+
+@pytest.mark.parametrize("case", sorted(STAGE_B_JAX))
+def test_stage_b_plain_matches_jax(jax_route, case):
+    """The plain stage B after the plain wave == the JAX program's stage B
+    (its route under KTPU_FORCE_CHUNKED=1): choices, usage, ordinals, sweeps."""
+    leg, name = STAGE_B_JAX[case]
+    _, _, _, arr, meta = _encode(name)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    t0u = assign.t0u_prologue(inc, arr.N)
+    knobs = {k: v for k, v in ref.LEGS[leg][2].items() if k != "class_waves"}
+    wave = None
+    used0 = arr.node_used
+    if case != "no-wave":
+        w = assign.wave_commit_plain(inc.cls, arr.pod_valid, arr.pod_req, arr.node_used, t0u, inc.stat_u,
+                                     arr.node_alloc, inc.req_u, cfg, **knobs)
+        assert bool(w[0].all()) == (case == "skip")
+        wave, used0, t0u = (w[0], w[1], w[2], w[5]), w[3], w[4]
+    c, u, o, s = assign.schedule_scan_chunked_plain(arr, cfg, inc, used0, t0u, wave)
+    want = jax_route[leg]
+    np.testing.assert_array_equal(c.numpy(), want[f"{name}/choices"])
+    np.testing.assert_array_equal(u.numpy(), want[f"{name}/used"])
+    np.testing.assert_array_equal(o.numpy(), want[f"{name}/ordinals"])
+    assert s == int(want[f"{name}/sweeps"])

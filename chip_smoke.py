@@ -1728,7 +1728,7 @@ def phase_all_stages() -> list:
     import torch
 
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, filters, incremental, infer_score_config, kernels
     from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
 
@@ -1781,6 +1781,7 @@ def phase_all_stages() -> list:
           f"({k10u_err})")
     check(same(inc.img_u, arr.image_score[r_u]), "all stages: img_u != the class rows of image_score")
     k10u_ms = cuda_ms(lambda: kernels.score_planes(cv), reps=20, warmup=2)
+    k10u_card, k10u_host = score_explain.card_host(lambda: kernels.score_planes(cv), reps=50)
 
     # --- K10 against plain, bit for bit on both planes ---
     traw, naraw = kernels.score_planes(arr)
@@ -1789,6 +1790,8 @@ def phase_all_stages() -> list:
         naraw.view(torch.int16), naraw_p.view(torch.int16))
     check(k10_err == 0, f"all stages: score_planes != plain ({k10_err} entries)")
     k10_ms = cuda_ms(lambda: kernels.score_planes(arr), reps=20, warmup=2)
+    # back to back the wrapper's host call paces a launch this small: card and host time apart
+    k10_card, k10_host = score_explain.card_host(lambda: kernels.score_planes(arr), reps=50)
     k10_plain = cuda_ms(lambda: assign.score_planes_plain(arr), reps=5)
     tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels).to(torch.float32)
     S = tm.shape[0]
@@ -1798,11 +1801,20 @@ def phase_all_stages() -> list:
                     torch.where(arr.pod_pref_terms >= 0, arr.pod_pref_weights, torch.zeros_like(arr.pod_pref_weights)),
                     accumulate=True)
     k10_lib = cuda_ms(lambda: torch.matmul(W_na, tm), reps=20, warmup=2)
-    T = arr.node_taint_pref.shape[1]
-    PW = arr.pod_pref_terms.shape[1]
-    Se, E_, L = arr.sel_mask.shape
-    k10_bytes = N * T + P * T + P * PW * 8 + Se * E_ * L + 4 * Se * E_ + N * L + 2 * 2 * P * N
-    k10_bound, k10_by = bound(k10_bytes, P * N * (T + PW))
+    k10_lib_card = score_explain.card_host(lambda: torch.matmul(W_na, tm), reps=50)[0]
+    # the whole function in the fewest torch calls: both f32 products, each cast to bf16
+    tolf = (~arr.pod_tol_pref).to(torch.float32)
+    taint_t = arr.node_taint_pref.to(torch.float32).T.contiguous()
+
+    def whole():
+        return torch.matmul(tolf, taint_t).to(torch.bfloat16), torch.matmul(W_na, tm).to(torch.bfloat16)
+
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16)) for a, b in zip(whole(), (traw, naraw))),
+          "all stages: the torch products != score_planes")
+    k10_whole = cuda_ms(whole, reps=20, warmup=2)
+    k10_whole_card = score_explain.card_host(whole, reps=50)[0]
+    k10_bytes, k10_ops = score_explain.k10_work(arr)
+    k10_bound, k10_by = bound(k10_bytes, k10_ops)
 
     # --- K12 and K11 against plain over the whole snapshot ---
     sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
@@ -1820,14 +1832,19 @@ def phase_all_stages() -> list:
     print(f"[all-stages] P={P} N={N}, every stage on: rounds route ({launches}) and per-pod route ({plaunch}): "
           f"scheduled {int((choices[:n] >= 0).sum())}/{n}, choices, sweeps ({sweeps}) and ordinals == JAX; "
           f"rounds == plain and full_scan == plain (choices, usage, ordinals, count planes); score_planes == "
-          f"plain on both bf16 planes: {k10_ms:.4f} ms, plain {k10_plain:.4f} ms, torch.matmul of the "
-          f"node-affinity product {k10_lib:.4f} ms, bound {k10_bound:.6f} ms ({k10_by}: {k10_bytes} B); class "
-          f"state ({ilaunch}): the same choices, usage, ordinals and sweeps, every class plane == plain, "
-          f"score_planes over the class view [{inc.req_u.shape[0]}, {N}] {k10u_ms:.4f} ms", flush=True)
+          f"plain on both bf16 planes: {k10_ms:.4f} ms back to back, {k10_card:.4f} ms of card time, "
+          f"{k10_host:.1f} us of host time a call; plain {k10_plain:.4f} ms; torch.matmul of the node-affinity "
+          f"product {k10_lib:.4f} ms ({k10_lib_card:.4f} of card time), the whole function in torch (two "
+          f"products cast to bf16) {k10_whole:.4f} ms ({k10_whole_card:.4f}); bound {k10_bound:.6f} ms "
+          f"({k10_by}: {k10_bytes} B); class state ({ilaunch}): the same choices, usage, ordinals and sweeps, "
+          f"every class plane == plain, score_planes over the class view [{inc.req_u.shape[0]}, {N}] "
+          f"{k10u_ms:.4f} ms ({k10u_card:.4f} of card time, {k10u_host:.1f} us host)", flush=True)
     return [dict(name="score_planes", route="cuda", source="kubernetes_tpu_torch/csrc/score_planes.cu",
                  replaces="kubernetes_tpu/ops/scores.py:229", launches=launches["score_planes"],
-                 max_abs_err=k10_err, ms=k10_ms, plain_ms=k10_plain, bound_ms=k10_bound, bound_by=k10_by,
-                 library_ms=k10_lib)], (k11_err, k12_err)
+                 max_abs_err=k10_err, ms=k10_ms, card_ms=k10_card, host_us=k10_host, plain_ms=k10_plain,
+                 bound_ms=k10_bound, bound_by=k10_by, library_ms=k10_lib, library_card_ms=k10_lib_card,
+                 library_whole_ms=k10_whole, library_whole_card_ms=k10_whole_card,
+                 class_view_ms=k10u_ms, class_view_card_ms=k10u_card)], (k11_err, k12_err)
 
 
 def phase_config3_inc(c3) -> tuple:
@@ -2544,13 +2561,10 @@ def phase_env() -> None:
 def explain_bound(arr, F: int) -> tuple:
     """K14's least time: every input read once (the node planes, the term
     tables, F pod rows), the counts written once; the operations, per
-    (rep, node), the taint, term, pin and fit tests."""
-    N, R, P = arr.N, arr.R, arr.P
-    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
-    S, E, L = arr.sel_mask.shape
-    bytes_moved = (N * (2 + L + T + 8 * R) + S * E * L + 4 * S * E
-                   + F * (4 * R + T + 4 + 4 * TT + 1 + 8 + 1) + 4 * F * (4 + R + 1))
-    return bound(bytes_moved, F * N * (T + TT + 2 * R + 4))
+    (rep, node), the taint, term, pin and fit tests (score_explain.k14_work)."""
+    from kubernetes_tpu_torch.bench.score_explain import k14_work
+
+    return bound(*k14_work(arr, F))
 
 
 def phase_explain_north_star(ns) -> dict:
@@ -2559,6 +2573,7 @@ def phase_explain_north_star(ns) -> dict:
     import torch
 
     from kubernetes_tpu_torch.api.delta import class_groups
+    from kubernetes_tpu_torch.bench import score_explain
     from kubernetes_tpu_torch.bench import workloads as w
     from kubernetes_tpu_torch.ops import explain, kernels
 
@@ -2584,17 +2599,21 @@ def phase_explain_north_star(ns) -> dict:
     check(err == 0 and torch.equal(k[: reps.size].cpu().to(torch.int64), torch.from_numpy(counts)),
           "explain-north-star: explain_counts != plain")
     k14_ms = cuda_ms(lambda: kernels.explain_counts(arr, used, pr, rv), reps=50, warmup=3)
+    # back to back the wrapper's host call paces a launch this small: card and host time apart
+    k14_card, k14_host = score_explain.card_host(lambda: kernels.explain_counts(arr, used, pr, rv), reps=50)
     plain_ms = cuda_ms(lambda: explain.explain_counts_plain(arr, used, pr, rv), reps=5)
     tol = (~arr.pod_tol_ns[pr]).to(torch.float32)
     taint = arr.node_taint_ns.to(torch.float32)
     lib_ms = cuda_ms(lambda: tol @ taint.T, reps=50, warmup=3)
+    lib_card = score_explain.card_host(lambda: tol @ taint.T, reps=50)[0]
     k14_bound, k14_by = explain_bound(arr, F)
     print(f"[explain-north-star] explain_classes over {reps.size} classes (F={F}, N={arr.N}, R={arr.R}) "
-          f"{explain_s:.4f} s: counts sha256 {digest} (JAX's); explain_counts == plain: {k14_ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, torch.matmul of the taint count {lib_ms:.4f} ms, bound {k14_bound:.6f} ms "
-          f"({k14_by})", flush=True)
-    return dict(ms=k14_ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=k14_bound, bound_by=k14_by,
-                max_abs_err=err)
+          f"{explain_s:.4f} s: counts sha256 {digest} (JAX's); explain_counts == plain: {k14_ms:.4f} ms back to "
+          f"back, {k14_card:.4f} ms of card time, {k14_host:.1f} us of host time a call; plain {plain_ms:.3f} ms; "
+          f"torch.matmul of the taint count {lib_ms:.4f} ms ({lib_card:.4f} of card time); bound "
+          f"{k14_bound:.6f} ms ({k14_by})", flush=True)
+    return dict(ms=k14_ms, card_ms=k14_card, host_us=k14_host, plain_ms=plain_ms, library_ms=lib_ms,
+                library_card_ms=lib_card, bound_ms=k14_bound, bound_by=k14_by, max_abs_err=err)
 
 
 def stack_frames(src: str) -> list:
@@ -2639,8 +2658,9 @@ def phase_preempt(k14: dict) -> list:
     import torch
 
     from kubernetes_tpu_torch.bench import preempt_bench as pb
+    from kubernetes_tpu_torch.bench import score_explain
     from kubernetes_tpu_torch.bench import workloads as w
-    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.ops import explain, kernels
     from kubernetes_tpu_torch.ops import preempt as tpre
 
     t0 = time.perf_counter()
@@ -2725,6 +2745,11 @@ def phase_preempt(k14: dict) -> list:
     pr = torch.zeros(4, dtype=torch.int64, device=arr.device)
     rv = torch.arange(4, device=arr.device) < 1
     k14_small = cuda_ms(lambda: kernels.explain_counts(arr, arr.node_used, pr, rv), reps=50, warmup=3)
+    k14_small_card, k14_small_host = score_explain.card_host(
+        lambda: kernels.explain_counts(arr, arr.node_used, pr, rv), reps=50)
+    check(torch.equal(kernels.explain_counts(arr, arr.node_used, pr, rv),
+                      explain.explain_counts_plain(arr, arr.node_used, pr, rv)),
+          "preempt: explain_counts != plain at F=4")
     frames = {src: stack_frames(src) for src in ("preempt.cu", "chunk_rounds.cu")}
     check(frames["preempt.cu"] and not any(frames["preempt.cu"]),
           f"preempt.cu: ptxas reports a stack frame ({frames['preempt.cu']} bytes)")
@@ -2732,15 +2757,17 @@ def phase_preempt(k14: dict) -> list:
     print(f"[preempt] preempt_eval == plain on all {nwaves} waves; at K={K}, N={N}, V={V}, R={R}: {k15_ms:.4f} ms "
           f"of card time ({k15_b2b:.4f} ms back to back) "
           f"(wave mean by events {sum(ks) / len(ks):.4f} ms), plain {plain_ms:.3f} ms, bound {k15_bound:.6f} ms "
-          f"({k15_by}: {k15_bytes} B = read {k15_read} + written {k15_write}); explain_counts at F=4 on this "
-          f"cluster {k14_small:.4f} ms", flush=True)
+          f"({k15_by}: {k15_bytes} B = read {k15_read} + written {k15_write}); explain_counts == plain at F=4 "
+          f"on this cluster: {k14_small:.4f} ms back to back, {k14_small_card:.4f} ms of card time, "
+          f"{k14_small_host:.1f} us host", flush=True)
     common = dict(route="cuda", library_ms=None)
     return [
         dict(name="explain_counts", source="kubernetes_tpu_torch/csrc/explain.cu",
              replaces="kubernetes_tpu/ops/explain.py:86", launches=launched["explain_counts"],
-             max_abs_err=k14["max_abs_err"], ms=k14["ms"], plain_ms=k14["plain_ms"], bound_ms=k14["bound_ms"],
-             bound_by=k14["bound_by"], route="cuda", library_ms=k14["library_ms"],
-             scope="north star, F=128", ms_f4_preempt=k14_small),
+             max_abs_err=k14["max_abs_err"], ms=k14["ms"], card_ms=k14["card_ms"], host_us=k14["host_us"],
+             plain_ms=k14["plain_ms"], bound_ms=k14["bound_ms"], bound_by=k14["bound_by"], route="cuda",
+             library_ms=k14["library_ms"], library_card_ms=k14["library_card_ms"], scope="north star, F=128",
+             ms_f4_preempt=k14_small, card_ms_f4_preempt=k14_small_card, host_us_f4_preempt=k14_small_host),
         dict(name="preempt_eval", source="kubernetes_tpu_torch/csrc/preempt.cu",
              replaces="kubernetes_tpu/ops/preempt.py:52", launches=launched["preempt_eval"],
              max_abs_err=err, ms=k15_ms, plain_ms=plain_ms, bound_ms=k15_bound, bound_by=k15_by,

@@ -10,7 +10,7 @@
 //   the class's first pod row r_u[u], WITHOUT pod_valid; with elig_u (the
 //   pairwise configs, want_elig) also elig_u[u] = pack(nodesel &
 //   node_valid), the same words as K7's eligibility plane.  The selector
-//   test is static_feasible.cu's integer one (feasible.cuh term_ok); K3
+//   test is static_feasible.cu's integer one (terms.cuh term_ok); K3
 //   and K7 share static_plane below, which packs along the nodes once and
 //   then assembles each (row, 32 nodes) word with word operations, never
 //   a bool plane (tail bits past N are zero).

@@ -1,8 +1,8 @@
 // Capacity-independent filter pieces shared by static_feasible.cu and
 // class_hoist.cu: the interned selector terms matched against node labels
-// (the JAX package's ops/filters.py:28 term_match, as integer literal counts)
-// and bool rows packed into 32-bit words (taints, tolerations), so the
-// taint filter (ops/filters.py:62 taints_ok) is an AND-NOT per word.  Each
+// (terms.cuh term_ok over [S, N]) and bool rows packed into 32-bit words
+// (taints, tolerations), so the taint filter (ops/filters.py:62
+// taints_ok) is an AND-NOT per word.  Each
 // kernel takes a `done` word (or NULL) and returns at entry once it is set:
 // the gang fixpoint's queued iterations (ops/gang.py) stop that way.
 
@@ -11,31 +11,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "terms.cuh"
+
 namespace {
-
-constexpr int KIND_PAD = 0;
-constexpr int KIND_ANY = 1;
-constexpr int KIND_NONE = 2;
-
-// does node n's label row satisfy interned selector term s?
-__device__ __forceinline__ bool term_ok(const uint8_t* __restrict__ sel_mask, const int32_t* __restrict__ sel_kind,
-                                        const uint8_t* __restrict__ node_labels, int s, int n, int E, int L) {
-  const uint8_t* lab = node_labels + (int64_t)n * L;
-  bool ok = true;
-  for (int e = 0; e < E && ok; ++e) {
-    int kind = sel_kind[s * E + e];
-    if (kind == KIND_PAD) continue;
-    if (kind != KIND_ANY && kind != KIND_NONE) {
-      ok = false;
-      break;
-    }
-    const uint8_t* m = sel_mask + ((int64_t)s * E + e) * L;
-    int cnt = 0;
-    for (int l = 0; l < L; ++l) cnt += (m[l] & lab[l]);
-    ok = (kind == KIND_ANY) ? (cnt > 0) : (cnt == 0);
-  }
-  return ok;
-}
 
 __global__ void term_match_kernel(const uint8_t* __restrict__ sel_mask,  // [S, E, L]
                                   const int32_t* __restrict__ sel_kind,  // [S, E]

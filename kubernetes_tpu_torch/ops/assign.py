@@ -137,6 +137,8 @@ def preferred_node_affinity_raw_plain(pod_pref_terms, pod_pref_weights, tm: torc
     stored on the bf16 lattice."""
     P = pod_pref_terms.shape[0]
     S = tm.shape[0]
+    if S == 0:  # no terms: every slot is -1 (JAX's scatter drops it, index_put_ refuses it)
+        return bitplane.quantize_scores(torch.zeros((P, tm.shape[1]), dtype=torch.float32, device=tm.device))
     ids = torch.clamp_min(pod_pref_terms, 0).to(torch.int64)
     zero = torch.zeros((), dtype=torch.float32, device=tm.device)
     w = torch.where(pod_pref_terms >= 0, pod_pref_weights, zero)

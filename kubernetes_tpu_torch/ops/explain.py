@@ -100,9 +100,12 @@ def explain_counts_plain(arr, node_used: torch.Tensor, reps: torch.Tensor, rep_v
         cols.append(claim.sum(dim=1))
         claimed = claimed | claim
     fit_claim = fit_bad & ~claimed & valid
-    first_r = short.to(torch.uint8).argmax(dim=2)  # the first insufficient resource
-    onehot = (torch.arange(R, device=dev)[None, None, :] == first_r[:, :, None]) & fit_claim[:, :, None]
-    fit_counts = onehot.sum(dim=1)
+    if R:
+        first_r = short.to(torch.uint8).argmax(dim=2)  # the first insufficient resource
+        onehot = (torch.arange(R, device=dev)[None, None, :] == first_r[:, :, None]) & fit_claim[:, :, None]
+        fit_counts = onehot.sum(dim=1)
+    else:  # no resources: no fit column (an argmax over none is refused)
+        fit_counts = torch.zeros((reps.shape[0], 0), dtype=torch.int64, device=dev)
     claimed = claimed | fit_claim
     feasible = (valid & ~claimed).sum(dim=1)
     out = torch.cat([torch.stack(cols, dim=1), fit_counts, feasible[:, None]], dim=1).to(torch.int32)

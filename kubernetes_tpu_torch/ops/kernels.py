@@ -61,6 +61,7 @@ ops/preempt.py).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -111,11 +112,11 @@ _ARGTYPES = {
     "packed_static_rows": ("ktt_packed_static_rows", [_P] * 16 + [_I] * 8 + [_P]),
     "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 17 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
-    "score_planes": ("ktt_score_planes", [_P] * 12 + [_I] * 7 + [_P]),
+    "score_planes": ("ktt_score_planes", [_P] * 9 + [_I] * 7 + [_P]),
     "full_scan": ("ktt_full_scan", [_P] * 9),
     "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
     "gang_quorum": ("ktt_gang_quorum", [_P] * 9 + [_I, _I, _P]),
-    "explain_counts": ("ktt_explain_counts", [_P] * 19 + [_I] * 9 + [_P]),
+    "explain_counts": ("ktt_explain_counts", [_P] * 17 + [_I] * 9 + [_P]),
     "preempt_eval": ("ktt_preempt_eval", [_P] * 18 + [_I] * 4 + [_P]),
     "ring_match": ("ktt_ring_match", [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] * 2 + [_P]),
     "stitch_planes": ("ktt_stitch_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
@@ -420,6 +421,14 @@ def _stream(dev) -> int:
 def _need_cuda(dev, name: str) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
+
+
+def _on(dev):
+    """torch.cuda.device(dev) where `dev` is not the current card, else no
+    context at all (entering one costs host time on every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _static_scratch(S: int, N: int, T: int, rows: int, dev) -> tuple:
@@ -775,7 +784,7 @@ MAX_SLOTS, MAX_MATCH, MAX_PORTS, MAX_RCHUNK, ZR_MAX = 16, 32, 64, 32, 32
 def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10 (csrc/score_planes.cu): (traw, naraw) bf16[P, N], the
     PreferNoSchedule count plane and the preferred node-affinity weight
-    plane."""
+    plane: the two halves of one [2, P, N] buffer, written by one launch."""
     dev = arr.device
     _need_cuda(dev, "score_planes")
     P, N = arr.P, arr.N
@@ -790,18 +799,14 @@ def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
     fn = _fn("score_planes")
-    TW = max(1, -(-T // 32))
-    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
-    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
-    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
-    traw = torch.empty((P, N), dtype=torch.bfloat16, device=dev)
-    naraw = torch.empty((P, N), dtype=torch.bfloat16, device=dev)
-    with torch.cuda.device(dev):
+    traw, naraw = torch.empty((2, P, N), dtype=torch.bfloat16, device=dev).unbind(0)
+    if P == 0 or N == 0:
+        return traw, naraw
+    with _on(dev):
         err = fn(
             arr.node_taint_pref.data_ptr(), arr.pod_tol_pref.data_ptr(), arr.pod_pref_terms.data_ptr(),
             arr.pod_pref_weights.data_ptr(), arr.sel_mask.data_ptr(), arr.sel_kind.data_ptr(),
-            arr.node_labels.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), traw.data_ptr(),
-            naraw.data_ptr(), P, N, T, PW, S, E, L, _stream(dev),
+            arr.node_labels.data_ptr(), traw.data_ptr(), naraw.data_ptr(), P, N, T, PW, S, E, L, _stream(dev),
         )
     _raise_on(err, "score_planes")
     LAUNCHES["score_planes"] += 1
@@ -1057,6 +1062,7 @@ def gang_quorum(choices: torch.Tensor, pod_group: torch.Tensor, pv: torch.Tensor
 
 
 EXPLAIN_MAX_R = 32  # csrc/explain.cu
+EXPLAIN_COPIES = 8  # csrc/explain.cu COPIES: the accumulator's copies of the counts
 PREEMPT_MAX_R = 16  # csrc/preempt.cu: the running usage is a register array
 
 
@@ -1085,23 +1091,40 @@ def explain_counts(arr, node_used: torch.Tensor, reps: torch.Tensor, rep_valid: 
     ):
         _check(t, name, dt, shape, dev)
     fn = _fn("explain_counts")
-    TW = max(1, -(-T // 32))
-    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
-    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
-    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
-    out = torch.empty((F, 4 + R + 1), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    K = 4 + R + 1
+    out = torch.empty((F, K), dtype=torch.int32, device=dev)
+    if F == 0:
+        return out
+    with _on(dev):
+        stream = _stream(dev)
+        acc = _explain_acc(dev, stream, F, R)
         err = fn(
             arr.node_valid.data_ptr(), arr.node_alloc.data_ptr(), node_used.data_ptr(), arr.node_unsched.data_ptr(),
             arr.node_labels.data_ptr(), arr.node_taint_ns.data_ptr(), arr.sel_mask.data_ptr(),
             arr.sel_kind.data_ptr(), arr.pod_req.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), reps.data_ptr(), rep_valid.data_ptr(),
-            tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), out.data_ptr(), F, P, N, R, T, TT, S, E, L,
-            _stream(dev),
+            acc.data_ptr(), out.data_ptr(), F, P, N, R, T, TT, S, E, L, stream,
         )
     _raise_on(err, "explain_counts")
     LAUNCHES["explain_counts"] += 1
     return out
+
+
+# K14's accumulators, one per (card, stream): int32, zero between launches
+_EXPLAIN_ACC: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _explain_acc(dev, stream: int, F: int, R: int) -> torch.Tensor:
+    """K14's accumulator on `dev` for launches on `stream` with F reps and
+    R resources (its tickets and copies of the counts, csrc/explain.cu):
+    made zero once and kept across calls (each launch leaves it zero: its
+    last block moves the counts out), grown when a call needs more."""
+    n = 1 + EXPLAIN_COPIES + EXPLAIN_COPIES * F * (4 + R + 1)
+    key = (dev.index, stream)
+    acc = _EXPLAIN_ACC.get(key)
+    if acc is None or acc.numel() < n:
+        acc = _EXPLAIN_ACC[key] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    return acc
 
 
 def preempt_eval(stat_w: torch.Tensor, pod_req: torch.Tensor, pod_idxs: torch.Tensor, node_alloc: torch.Tensor,

@@ -20,7 +20,9 @@ inputs:
 The ``cuda`` legs import no JAX and skip without a card: kernel K14
 explain_counts == the plain version on the port's own encodings (mixed,
 wide taints through the DeltaEncoder's packed transfer and K9) at random
-usage:
+usage, and == the plain version and the numpy replay of its decomposition
+(tests/torch_score_explain_cases.py) at the edge shapes and past each of
+its staging limits, one launch a call:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_explain.py
 
@@ -40,6 +42,7 @@ from kubernetes_tpu_torch.bench import workloads as tw
 from kubernetes_tpu_torch.convert import from_jax_arrays, from_jax_meta
 from kubernetes_tpu_torch.ops import explain as tex
 from kubernetes_tpu_torch.ops import kernels
+import torch_score_explain_cases as cases
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 
@@ -251,6 +254,36 @@ def test_kernel_matches_plain_wide_taints(card):
     reps, _ = class_groups(meta, range(meta.n_pods))
     got = tex.explain_classes(arr, reps, arr.node_used)
     np.testing.assert_array_equal(got, tex.explain_oracle(arr, reps, arr.node_used))
+
+
+# the card's own staging limits (csrc/explain.cu): 256 taints, 256 named
+# terms, a bitmap of 8192 terms; past each the kernel's per-pair fallback
+CARD_EXPLAIN_CASES = {
+    **{name: (kw, F) for name, (kw, F, knobs) in cases.EXPLAIN_CASES.items() if not knobs},
+    "direct-taint": (dict(seed=41, N=300, P=60, T=300), 9),
+    "direct-terms": (dict(seed=42, N=300, P=400, S=600, TT=8, E=1), 300),
+    "wide-S": (dict(seed=43, N=200, P=60, S=9000, E=1, L=6), 12),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_EXPLAIN_CASES))
+def test_kernel_matches_plain_edges(card, name):
+    """K14 == plain == the numpy replay of its decomposition at the edge
+    shapes, one launch a call; a second call (the accumulator the first
+    left) gives the same counts."""
+    kw, F = CARD_EXPLAIN_CASES[name]
+    h = cases.cluster(**kw)
+    reps, valid = cases.reps_of(kw["seed"], kw["P"], F)
+    arr = cases.arrays(h, card)
+    r, v = torch.from_numpy(reps).to(card), torch.from_numpy(valid).to(card)
+    before = kernels.LAUNCHES["explain_counts"]
+    got = kernels.explain_counts(arr, arr.node_used, r, v)
+    assert kernels.LAUNCHES["explain_counts"] == before + 1
+    assert torch.equal(got, tex.explain_counts_plain(arr, arr.node_used, r, v))
+    np.testing.assert_array_equal(got.cpu().numpy(), cases.replay_explain(h, h["node_used"], reps, valid)[0])
+    assert torch.equal(kernels.explain_counts(arr, arr.node_used, r, v), got)
+    assert kernels.LAUNCHES["explain_counts"] == before + 2
 
 
 @pytest.mark.cuda

@@ -17,7 +17,10 @@ planes, -1 padded slots, keyless nodes, repeated terms):
 - ops/bitplane.py's bf16 storage and api/snapshot.py ``image_score_value``
   equal the JAX package's (ml_dtypes) rounding.
 
-The ``cuda`` legs import no JAX and skip without a card:
+The ``cuda`` legs import no JAX and skip without a card: K10 == plain on
+random arrays (config 3's padded size among them) and at the edge shapes
+of tests/torch_score_explain_cases.py and past each staging limit, one
+launch a call:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_pairwise.py
 
@@ -30,9 +33,11 @@ import numpy as np
 import pytest
 import torch
 
-from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot, image_score_value
+from kubernetes_tpu_torch.api.snapshot import encode_snapshot, image_score_value
 from kubernetes_tpu_torch.bench import workloads as tw
+from kubernetes_tpu_torch.bench.score_explain import random_score_arrays
 from kubernetes_tpu_torch.ops import assign, bitplane, filters, kernels, pairwise, scores
+import torch_score_explain_cases as cases
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 SEEDS = range(6)
@@ -266,19 +271,7 @@ def card():
 
 
 def _random_score_arrays(seed: int, P: int, N: int, T: int, PW: int, S: int = 11, E: int = 3, L: int = 40):
-    rng = np.random.default_rng(seed)
-    terms = rng.integers(-1, S, (P, PW)).astype(np.int32)
-    return ClusterArrays.from_numpy(dict(
-        node_valid=rng.random(N) < 0.95, node_alloc=rng.integers(1, 5000, (N, 4)).astype(np.int32),
-        node_used=np.zeros((N, 4), np.int32), node_unsched=np.zeros(N, bool), node_labels=rng.random((N, L)) < 0.2,
-        node_taint_ns=rng.random((N, T)) < 0.02, node_taint_pref=rng.random((N, T)) < 0.1,
-        pod_valid=rng.random(P) < 0.97, pod_req=rng.integers(0, 300, (P, 4)).astype(np.int32),
-        pod_prio=np.zeros(P, np.int32), pod_tol_ns=rng.random((P, T)) < 0.5, pod_tol_pref=rng.random((P, T)) < 0.5,
-        pod_nodename=np.full(P, -1, np.int32), pod_terms=rng.integers(-1, S, (P, 2)).astype(np.int32),
-        pod_has_sel=rng.random(P) < 0.5, sel_mask=rng.random((S, E, L)) < 0.1,
-        sel_kind=rng.integers(0, 4, (S, E)).astype(np.int32), pod_pref_terms=terms,
-        pod_pref_weights=rng.integers(1, 101, (P, PW)).astype(np.float32),
-    ), "cuda")
+    return random_score_arrays(seed, P, N, T, PW, S, E, L, device="cuda")
 
 
 def _bits16(x):
@@ -286,12 +279,47 @@ def _bits16(x):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed,P,N,T,PW", [(0, 300, 997, 5, 3), (1, 64, 2048, 70, 1), (2, 513, 4099, 33, 6)])
+@pytest.mark.parametrize("seed,P,N,T,PW", [(0, 300, 997, 5, 3), (1, 64, 2048, 70, 1), (2, 513, 4099, 33, 6),
+                                          (3, 10240, 6144, 5, 3)])  # the last: config 3's padded size
 def test_score_planes_kernel_matches_plain(card, seed, P, N, T, PW):
     arr = _random_score_arrays(seed, P, N, T, PW)
+    before = kernels.LAUNCHES["score_planes"]
     traw, naraw = kernels.score_planes(arr)
+    assert kernels.LAUNCHES["score_planes"] == before + 1
     traw_p, naraw_p = assign.score_planes_plain(arr)
     assert torch.equal(_bits16(traw), _bits16(traw_p)) and torch.equal(_bits16(naraw), _bits16(naraw_p))
+
+
+# the card's own staging limits (csrc/score_planes.cu): 512 taints, 512
+# named terms a block, a bitmap of 8192 terms, pod rows of 2 KB; past each
+# the kernel's fallback
+CARD_SCORE_CASES = {
+    **{name: kw for name, (kw, knobs) in cases.SCORE_CASES.items() if not knobs},
+    "direct-taint": dict(seed=51, N=300, P=60, T=600),
+    "direct-terms": dict(seed=52, N=6144, P=2000, S=2000, E=1, PW=8),
+    "wide-S": dict(seed=53, N=200, P=60, S=9000, E=1, L=6),
+    "unstaged-rows": dict(seed=54, N=300, P=40, S=20, PW=2100),  # 16.8 KB a row
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(CARD_SCORE_CASES))
+def test_score_planes_kernel_matches_plain_edges(card, name):
+    """K10 == plain on both bf16 planes at the edge shapes and past each
+    staging limit, one launch a call; == the numpy replay of its
+    decomposition where that is quick."""
+    h = cases.cluster(**CARD_SCORE_CASES[name])
+    arr = cases.arrays(h, card)
+    before = kernels.LAUNCHES["score_planes"]
+    traw, naraw = kernels.score_planes(arr)
+    assert kernels.LAUNCHES["score_planes"] == before + 1
+    assert traw.data_ptr() + 2 * traw.numel() == naraw.data_ptr()  # one [2, P, N] buffer
+    traw_p, naraw_p = assign.score_planes_plain(arr)
+    assert torch.equal(_bits16(traw), _bits16(traw_p)) and torch.equal(_bits16(naraw), _bits16(naraw_p))
+    if name != "direct-terms":
+        rt, rn = cases.replay_score_planes(h)
+        np.testing.assert_array_equal(_bits16(traw).cpu().numpy(), rt)
+        np.testing.assert_array_equal(_bits16(naraw).cpu().numpy(), rn)
 
 
 @pytest.mark.cuda

@@ -717,7 +717,7 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     import torch
 
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, incremental, infer_score_config, kernels
     from kubernetes_tpu_torch.ops.incremental import HoistCache, IncState, class_view
 
@@ -782,6 +782,8 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
                     warmup=2)
     k4_plain = cuda_ms(lambda: incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg),
                        reps=5)
+    k4_card, k4_host = score_explain.card_host(
+        lambda: kernels.class_usage_hoist(inc.req_u, arr.node_used, arr.node_alloc, cfg), reps=50)
     T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
     S, E_, L = arr.sel_mask.shape
     W = -(-N // 32)
@@ -791,8 +793,9 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     k4_bytes = 4 * U1 * R + 2 * 4 * N * R + 4 * U1 * N + 4 * U1 * W
     k4_bound, k4_by = bound(k4_bytes, U1 * N * per_score)
     print(f"[north-star-waves] class_static_hoist == plain over [{U1}, {N}]: {k3_ms:.4f} ms, plain "
-          f"{k3_plain:.4f} ms, bound {k3_bound:.5f} ms ({k3_by}); class_usage_hoist == plain: {k4_ms:.4f} ms, "
-          f"plain {k4_plain:.4f} ms, bound {k4_bound:.5f} ms ({k4_by}: {k4_bytes} B, {U1 * N} scores)", flush=True)
+          f"{k3_plain:.4f} ms, bound {k3_bound:.5f} ms ({k3_by}); class_usage_hoist == plain: {k4_ms:.4f} ms "
+          f"back to back, {k4_card:.4f} ms of card time, {k4_host:.1f} us host a call, plain {k4_plain:.4f} ms, "
+          f"bound {k4_bound:.5f} ms ({k4_by}: {k4_bytes} B, {U1 * N} scores)", flush=True)
 
     # --- K5 against plain over the whole wave ---
     out = {}
@@ -890,11 +893,15 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
     check(same(inc2.base_u, bp) and same(inc2.fit_u, fp), "warm cycle: patched != plain patch")
     kp_ms = cuda_ms(lambda: kernels.class_usage_hoist(inc.req_u, arr2.node_used, arr.node_alloc, cfg, cols=cols,
                                                       base_u=inc.base_u, fit_u=inc.fit_u), reps=20, warmup=2)
+    kp_card, kp_host = score_explain.card_host(
+        lambda: kernels.class_usage_hoist(inc.req_u, arr2.node_used, arr.node_alloc, cfg, cols=cols,
+                                          base_u=inc.base_u, fit_u=inc.fit_u), reps=50)
     c2, u2 = assign.schedule_batch(arr2, cfg, inc=inc2)
     c3, u3 = assign.schedule_batch(arr2, cfg)
     check(torch.equal(c2, c3) and torch.equal(u2, u3), "warm cycle: class-wave route != per-pod route")
     print(f"[north-star-waves] warm cycle: {dirty} dirty columns patched ({len(cols)} in the list) == a full "
-          f"hoist == plain, {kp_ms:.4f} ms with the copy of the resident pair; route == per-pod route "
+          f"hoist == plain, {kp_ms:.4f} ms back to back ({kp_card:.4f} ms of card time, {kp_host:.1f} us host) with "
+          f"the copy of the resident pair; route == per-pod route "
           f"({int((c2[:n] >= 0).sum())} scheduled)", flush=True)
     common = dict(route="cuda", library_ms=None)
     return [
@@ -903,8 +910,9 @@ def phase_north_star_waves(per_pod_step_s: float) -> list:
              max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain, bound_ms=k3_bound, bound_by=k3_by, **common),
         dict(name="class_usage_hoist", source="kubernetes_tpu_torch/csrc/class_hoist.cu",
              replaces="kubernetes_tpu/ops/incremental.py:188", launches=launches["class_usage_hoist"],
-             max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bound, bound_by=k4_by,
-             patch_ms=kp_ms, **common),
+             max_abs_err=k4_err, ms=k4_ms, card_ms=k4_card, host_us=k4_host, plain_ms=k4_plain,
+             bound_ms=k4_bound, bound_by=k4_by, patch_ms=kp_ms, patch_card_ms=kp_card, patch_host_us=kp_host,
+             **common),
         dict(name="wave_commit", source="kubernetes_tpu_torch/csrc/wave_commit.cu",
              replaces="kubernetes_tpu/ops/assign.py:530", launches=launches["wave_commit"],
              max_abs_err=k5_err, ms=k5_ms, plain_ms=k5_plain, bound_ms=k5_bound, bound_by=k5_by, **common),
@@ -1156,7 +1164,7 @@ def phase_mesh_north_star(used_sha: str) -> list:
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, incremental, infer_score_config
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.ops.incremental import HoistCache
@@ -1257,14 +1265,18 @@ def phase_mesh_north_star(used_sha: str) -> list:
 
             k17_plain = cuda_ms(plain_all, reps=1)
             k17_small = cuda_ms(lambda: kernels.stitch_planes(tiled, nl), reps=50, warmup=2)
+            k17_card, k17_host = score_explain.card_host(lambda: kernels.stitch_planes(big, nl), reps=20)
+            k17_small_card = score_explain.card_host(lambda: kernels.stitch_planes(tiled, nl), reps=50)[0]
             k17_bytes = 4 * rows * (big.shape[1] + flat.shape[1])
             k17_bound, k17_by = bound(k17_bytes, rows * flat.shape[1] * 8)
             print(f"[mesh-north-star] stitch_planes == plain on the dense static rows [{rows}, {big.shape[1]}] -> "
-                  f"[{rows}, {flat.shape[1]}]: {k17_ms:.4f} ms, plain {k17_plain:.2f} ms (blocks of "
-                  f"{STITCH_PLAIN_ROWS} rows), bound {k17_bound:.5f} ms ({k17_by}: {k17_bytes} B); on the class "
-                  f"planes {k17_small:.4f} ms", flush=True)
-            stitch.update(max_abs_err=k17_err, ms=k17_ms, plain_ms=k17_plain, bound_ms=k17_bound, bound_by=k17_by,
-                          class_planes_ms=k17_small, shape=f"[{rows}, {big.shape[1]}] nl={nl}")
+                  f"[{rows}, {flat.shape[1]}]: {k17_ms:.4f} ms back to back, {k17_card:.4f} ms of card time, "
+                  f"{k17_host:.1f} us host, plain {k17_plain:.2f} ms (blocks of {STITCH_PLAIN_ROWS} rows), bound "
+                  f"{k17_bound:.5f} ms ({k17_by}: {k17_bytes} B); on the class planes {k17_small:.4f} ms back to "
+                  f"back, {k17_small_card:.4f} of card time", flush=True)
+            stitch.update(max_abs_err=k17_err, ms=k17_ms, card_ms=k17_card, host_us=k17_host, plain_ms=k17_plain,
+                          bound_ms=k17_bound, bound_by=k17_by, class_planes_ms=k17_small,
+                          class_planes_card_ms=k17_small_card, shape=f"[{rows}, {big.shape[1]}] nl={nl}")
             del big, flat
         del arr, inc, hc
         torch.cuda.empty_cache()
@@ -1853,7 +1865,7 @@ def phase_config3_inc(c3) -> tuple:
     class-row mode alone)."""
     import torch
 
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import assign, incremental, kernels
     from kubernetes_tpu_torch.ops.incremental import HoistCache, class_view
 
@@ -1911,6 +1923,19 @@ def phase_config3_inc(c3) -> tuple:
     W = -(-N // 32)
     k3_bytes = N * (1 + T + L) + U1 * (T + 1 + 4 + 4 * TT + 8) + S * E_ * L + 4 * S * E_ + 2 * 4 * U1 * W
     k3_bound, k3_by = bound(k3_bytes, U1 * N * (3 + T + TT))
+    # --- K4 at config 3's class state, the largest full hoist the port runs ---
+    base_p, fit_p = incremental._usage_hoist_plain(inc.req_u, arr.node_used, arr.node_alloc, cfg)
+    k4_err = mismatch(inc.base_u, base_p) + mismatch(inc.fit_u, fit_p)
+    check(k4_err == 0, f"config 3 inc: class_usage_hoist != plain ({k4_err} entries)")
+    del base_p, fit_p
+    k4_card, k4_host = score_explain.card_host(
+        lambda: kernels.class_usage_hoist(inc.req_u, arr.node_used, arr.node_alloc, cfg), reps=20)
+    R = arr.R
+    k4_bound = bound(4 * U1 * R + 2 * 4 * N * R + 4 * U1 * N + 4 * U1 * W, U1 * N * f32_ops_per_scored_node(cfg))
+    print(f"[config3-inc] class_usage_hoist == plain over [{U1}, {N}], R={R}: {k4_card:.4f} ms of card time, "
+          f"{k4_host:.1f} us host a call, bound {k4_bound[0]:.6f} ms ({k4_bound[1]})", flush=True)
+    k4_c3 = dict(config3_card_ms=k4_card, config3_host_us=k4_host, config3_bound_ms=k4_bound[0],
+                 config3_shape=f"[{U1}, {N}] R={R}", max_abs_err=k4_err)
 
     # --- K12 class-row mode: == dense K12 == plain on the first chunks, then timed in turns with dense ---
     npre = ROUNDS_PREFIX_CHUNKS * assign.RCHUNK
@@ -1959,7 +1984,7 @@ def phase_config3_inc(c3) -> tuple:
                  replaces="kubernetes_tpu/ops/assign.py:1464", launches=launches["rounds"], max_abs_err=k12i_err,
                  ms=k12i_ms, plain_ms=k12i_plain, bound_ms=k12_bound, bound_by=k12_by, library_ms=None,
                  plain_scope=f"first {ROUNDS_PREFIX_CHUNKS} chunks", dense_ms=(dense_a + dense_b) / 2)]
-    return (choices, meta), step_rounds_inc_s, rows
+    return (choices, meta), step_rounds_inc_s, rows, k4_c3
 
 
 def phase_config3_warm(cold) -> dict:
@@ -3526,7 +3551,10 @@ def main() -> int:
     rows += phase_wide_planes()
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
-    cold3, _, inc_rows = phase_config3_inc(c3)
+    cold3, _, inc_rows, k4_c3 = phase_config3_inc(c3)
+    k4_row = next(r for r in rows if r["name"] == "class_usage_hoist")
+    k4_row["max_abs_err"] += k4_c3.pop("max_abs_err")
+    k4_row.update(k4_c3)
     mesh3_rows = phase_mesh_config3(c3, k12_row, k11_row)
     phase_mesh2d_config3(c3)
     c3_used_sha = sha_i32(choices_used(c3[0], c3[3], c3[0].P)[:c3[0].N])

@@ -34,22 +34,48 @@
 //
 // K4 ktt_class_usage_hoist replaces
 //   ops/incremental.py:188 _usage_hoist (cols == NULL: every column) and
-//   ops/incremental.py:214 _patch_hoist (cols: a pow2 column list padded
-//   with the sentinel N, which is skipped):
+//   ops/incremental.py:214 _patch_hoist (cols: a column list padded with
+//   the sentinel N; entries outside [0, N) are skipped):
 //   base_u[u, n] = fit_w * fit_score + bal_w * balanced of used[n] + req_u[u]
 //   fit_u[u] bit n = fit_ok (subtraction form) of req_u[u] at node n.
-//   Full mode packs the fit bits by warp ballot; column mode writes each
-//   dirty column's bit with one atomicOr (fits) or atomicAnd (does not),
-//   which is the exact (w & ~touched) | new assignment of the JAX package's
-//   bitplane.assign_cols even when several dirty columns share a word
-//   (duplicate columns carry equal values).  Column mode updates the
-//   buffers it is given in place: the wrapper hands it a copy of the
-//   resident generation (the donation-aliasing rule).
+//   Both modes are one launch over node-major tiles: a block owns UT = 256
+//   nodes (a thread each) and a slice of the classes, the slices sized so
+//   the grid is one wave of the blocks an SM holds
+//   (occupancy.cuh; 6 at the north star).
+//   Each is built for every strategy and for K = 1..4 scored resources
+//   (and one for any K), so a kernel issues only its own strategy's
+//   divisions and no guard for absent resources (score.cuh score_pre: the
+//   same arithmetic in the same order).  Full mode (usage_full_kernel)
+//   reads the tile's used and alloc rows once, coalesced, through shared
+//   memory; each thread keeps its node's alloc - used in shared memory and
+//   the node-only part of the score (score.cuh ScoreNode: the scored
+//   allocatables as f32, the count of the present ones) and the scored
+//   usage in registers for every class of the slice; the classes' request
+//   rows and scored requests are staged in shared memory UCB at a time;
+//   each class row's fit bits are one warp ballot and one store, and
+//   base_u's stores coalesce along n.  Column mode (usage_patch_kernel)
+//   writes a NEW generation in the same launch: each block copies its
+//   tile of the resident base_in / fit_in for PCB classes at a time into
+//   shared memory (cp.async) while it reads the whole column list
+//   (SCAN_BATCH loads in flight a thread), marks and compacts its tile's
+//   listed columns (a repeated column is one column; the list needs no
+//   order), stages their node rows and scores the (class, column) pairs
+//   over all its threads into the copies; then it stores the tile, and the
+//   warp that owns a fit word writes it whole as (old & ~touched) | new,
+//   the exact column assignment of the JAX package's
+//   bitplane.assign_cols.  No atomics, no copy launch; the resident pair
+//   is only read (the donation-aliasing rule).
 //
-// Bounds on an H100 at U1 = 102, N = 20480, R = 5: K3 writes 102 x 640
-// words and reads KBs; K4 reads 2 x N x R int32 and writes U1 x N f32 +
-// U1 x W words (~8.6 MB, >= 2.6 us at 3.35 TB/s) and does ~45 f32
-// operations per (class, node) (~94 M, >= 1.4 us at 67 TFLOP/s).
+// Bounds on an H100 at U1 = 101, N = 20480, R = 5: K3 writes 101 x 640
+// words and reads KBs; K4's full mode reads 2 x N x R int32 and writes U1 x
+// N f32 + U1 x W words (~9.4 MB, >= 2.8 us at 3.35 TB/s) and does ~28 f32
+// operations per (class, node) at K = 2 (~58 M, >= 0.9 us at 67 TFLOP/s).
+// The floor is the issue rate: a pair executes ~220 SASS instructions at
+// K = 2, R = 5 (the fit test over R ~55; the score ~160, six IEEE
+// divisions and a sqrtf, each a reciprocal and correction sequence with a
+// slow-path check), ~15 us at 132 SMs x 128 instructions a clock at 1.755
+// GHz.  Column mode moves the resident pair twice (read, write: ~17 MB,
+// >= 5.1 us).
 //
 // Built by ops/kernels.py with nvcc -gencode arch=compute_90a,code=sm_90a
 // -O3 -fmad=false; called through ctypes (plain C interface below).
@@ -58,11 +84,11 @@
 #include <stdint.h>
 
 #include "feasible.cuh"
+#include "occupancy.cuh"
 #include "score.cuh"
 
 namespace {
 
-constexpr int NT = 256;
 constexpr int ROWS_NT = 256;
 
 // row u's pod row: the class's first pod r_u[u], or u itself (r_u NULL)
@@ -272,49 +298,205 @@ int static_plane(const void* node_valid, const void* node_taint_ns, const void* 
   return (int)cudaGetLastError();
 }
 
-// one thread per (class, node column): full mode over every column (cols
-// == NULL, packing by ballot), column mode over the list
-__global__ void __launch_bounds__(NT) class_usage_kernel(
+// K4: UT nodes a tile, one a thread; full mode stages UCB classes' request
+// rows at a time, column mode PCB (its scores of the listed columns sit in
+// shared memory until the tile is copied)
+constexpr int UT = 256;
+constexpr int UCB = 32;
+constexpr int PCB = 16;
+constexpr int SCAN_BATCH = 8;  // column-list loads a thread keeps in flight
+constexpr int SMAX_K = ktt::SCORE_MAX_K;
+
+// a chunk of cb classes from uc: their request rows [cb, R] into rq and
+// their scored requests [cb, SMAX_K] into rqk
+__device__ __forceinline__ void stage_requests(const int32_t* __restrict__ req_u, const ktt::ScoreParams& sp, int R,
+                                               int uc, int cb, int32_t* rq, int32_t* rqk) {
+  for (int i = threadIdx.x; i < cb * R; i += UT) rq[i] = req_u[(int64_t)uc * R + i];
+  for (int i = threadIdx.x; i < cb * SMAX_K; i += UT) {
+    const int c = i / SMAX_K, k = i - c * SMAX_K;
+    rqk[i] = k < sp.k ? req_u[(int64_t)(uc + c) * R + sp.idx[k]] : 0;
+  }
+}
+
+// full mode: node-major.  STRAT / KT: the fit strategy and the number of
+// scored resources (score.cuh; KT 0 reads sp.k).  Dynamic shared memory:
+// the tile's used rows, its alloc rows ([UT * R] int32 each, node-major as
+// they are read) and its alloc - used ([R][UT], one word a thread a
+// resource).
+template <int STRAT, int KT>
+__global__ void __launch_bounds__(UT) usage_full_kernel(
     const int32_t* __restrict__ req_u,  // [U1, R]
     const int32_t* __restrict__ used,   // [N, R]
     const int32_t* __restrict__ alloc,  // [N, R]
-    const int32_t* __restrict__ cols,   // [D] or NULL
-    int D, ktt::ScoreParams sp, int N, int W, int R,
-    float* __restrict__ base_u,    // [U1, N]
+    ktt::ScoreParams sp, int U1, int N, int W, int R, int cs,
+    float* __restrict__ base_u,      // [U1, N]
     uint32_t* __restrict__ fit_u) {  // [U1, W]
-  const int t = blockIdx.x * NT + threadIdx.x;
-  const int u = blockIdx.y;
-  const int32_t* rq = req_u + (int64_t)u * R;
-  if (cols == nullptr) {
-    if (t >= W * 32) return;  // whole warps
-    bool fit = false;
-    if (t < N) {
-      const int32_t* un = used + (int64_t)t * R;
-      const int32_t* an = alloc + (int64_t)t * R;
-      fit = ktt::fit_ok(R, [&](int r) { return rq[r]; }, [&](int r) { return un[r]; },
-                        [&](int r) { return an[r]; });
-      base_u[(int64_t)u * N + t] = ktt::score_flat(
-          sp, [&](int r) { return ktt::wadd(un[r], rq[r]); }, [&](int r) { return an[r]; });
-    }
-    const uint32_t word = __ballot_sync(0xffffffffu, fit);
-    if ((threadIdx.x & 31) == 0) fit_u[(int64_t)u * W + (t >> 5)] = word;
-    return;
+  extern __shared__ int32_t node_sm[];
+  __shared__ int32_t rq_sm[UCB * ktt::SCORE_MAX_R];
+  __shared__ int32_t rqk_sm[UCB * SMAX_K];
+  constexpr int KS = ktt::k_slots<KT>();
+  const int kk = KT > 0 ? KT : sp.k;
+  const int t = threadIdx.x;
+  const int n0 = blockIdx.x * UT, n = n0 + t;
+  const int nodes = min(UT, N - n0);
+  const int64_t row0 = (int64_t)n0 * R;
+  int32_t* avail = node_sm + 2 * UT * R;
+  for (int i = t; i < nodes * R; i += UT) {
+    node_sm[i] = used[row0 + i];
+    node_sm[UT * R + i] = alloc[row0 + i];
   }
-  if (t >= D) return;
-  const int c = cols[t];
-  if (c < 0 || c >= N) return;  // the sentinel N pads the list
-  const int32_t* un = used + (int64_t)c * R;
-  const int32_t* an = alloc + (int64_t)c * R;
-  const bool fit = ktt::fit_ok(R, [&](int r) { return rq[r]; }, [&](int r) { return un[r]; },
-                               [&](int r) { return an[r]; });
-  base_u[(int64_t)u * N + c] = ktt::score_flat(
-      sp, [&](int r) { return ktt::wadd(un[r], rq[r]); }, [&](int r) { return an[r]; });
-  uint32_t* word = fit_u + (int64_t)u * W + (c >> 5);
-  const uint32_t bit = 1u << (c & 31);
-  if (fit) {
-    atomicOr(word, bit);
-  } else {
-    atomicAnd(word, ~bit);
+  __syncthreads();
+  const bool live = t < nodes;
+  // whole warps: a warp whose word is past W has no node below N
+  const bool warp_live = n0 + (t & ~31) < N;
+  int uk[KS];  // the scored resources' usage
+  ktt::ScoreNode nd{};
+#pragma unroll
+  for (int k = 0; k < KS; ++k) uk[k] = 0;
+  if (live) {
+    const int32_t* un = node_sm + t * R;
+    const int32_t* an = node_sm + UT * R + t * R;
+    for (int r = 0; r < R; ++r) avail[r * UT + t] = ktt::wsub(an[r], un[r]);
+    nd = ktt::score_node<KT>(sp, [&](int r) { return an[r]; });
+#pragma unroll
+    for (int k = 0; k < KS; ++k)
+      if (k < kk) uk[k] = un[sp.idx[k]];
+  }
+  const int ua = blockIdx.y * cs, ub = min(U1, ua + cs);
+  for (int uc = ua; uc < ub; uc += UCB) {
+    const int cb = min(UCB, ub - uc);
+    __syncthreads();  // the previous chunk's reads of the staged requests are done
+    stage_requests(req_u, sp, R, uc, cb, rq_sm, rqk_sm);
+    __syncthreads();
+    if (!warp_live) continue;
+    for (int c = 0; c < cb; ++c) {
+      bool fit = false;
+      if (live) {
+        const int32_t* rq = rq_sm + c * R;
+        fit = true;
+#pragma unroll 4
+        for (int r = 0; r < R; ++r) {
+          const int q = rq[r];
+          if (q != 0 && !(q <= avail[r * UT + t])) fit = false;
+        }
+        float fq[KS];
+#pragma unroll
+        for (int k = 0; k < KS; ++k) fq[k] = (k < kk) ? (float)ktt::wadd(uk[k], rqk_sm[c * SMAX_K + k]) : 0.0f;
+        base_u[(int64_t)(uc + c) * N + n] = ktt::score_pre<STRAT, KT>(sp, nd, fq);
+      }
+      const uint32_t word = __ballot_sync(0xffffffffu, fit);
+      if ((t & 31) == 0) fit_u[(int64_t)(uc + c) * W + (n >> 5)] = word;
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem));
+}
+
+// column mode: the new generation of the block's tile and class slice, the
+// listed columns rescored.  The resident rows of each chunk of classes are
+// copied into shared memory asynchronously (cp.async) while the block reads
+// the list (SCAN_BATCH loads in flight a thread), stages the listed
+// columns' node rows (dynamic shared memory, [UT][2 R] int32 at most) and
+// scores them, which it then writes over the copies.
+template <int STRAT, int KT>
+__global__ void __launch_bounds__(UT) usage_patch_kernel(
+    const int32_t* __restrict__ req_u,  // [U1, R]
+    const int32_t* __restrict__ used,   // [N, R]
+    const int32_t* __restrict__ alloc,  // [N, R]
+    const int32_t* __restrict__ cols,   // [D]
+    int D, ktt::ScoreParams sp, int U1, int N, int W, int R, int cs,
+    const float* __restrict__ base_in,     // [U1, N], the resident generation
+    const uint32_t* __restrict__ fit_in,   // [U1, W]
+    float* __restrict__ base_u,            // [U1, N], the new one
+    uint32_t* __restrict__ fit_u) {        // [U1, W]
+  __shared__ int listed_sm[UT];  // node t of the tile is listed (1) or not (0)
+  __shared__ int dcol[UT];       // the tile's listed columns (tile-local ids), ascending
+  __shared__ int warp_cnt[UT / 32];
+  __shared__ int32_t rq_sm[PCB * ktt::SCORE_MAX_R];
+  __shared__ int32_t rqk_sm[PCB * SMAX_K];
+  __shared__ float tile_sm[PCB][UT];           // the chunk's base_u rows of the tile
+  __shared__ uint32_t word_sm[PCB][UT / 32];   // their resident fit words
+  __shared__ uint8_t res_fit[PCB][UT];         // the listed columns' fit bits
+  extern __shared__ int32_t rows_sm[];         // the listed columns' node rows
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int n0 = blockIdx.x * UT, n = n0 + t;
+  const int end = min(n0 + UT, N);
+  const int ua = blockIdx.y * cs, ub = min(U1, ua + cs);
+  auto fetch = [&](int uc, int cb) {
+    if (n < N)
+      for (int c = 0; c < cb; ++c) cp_async4(&tile_sm[c][t], base_in + (int64_t)(uc + c) * N + n);
+    if (t < cb * (UT / 32)) {
+      const int c = t / (UT / 32), j = t - c * (UT / 32), w = (n0 >> 5) + j;
+      if (w < W) cp_async4(&word_sm[c][j], fit_in + (int64_t)(uc + c) * W + w);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  if (ua < ub) {  // the first chunk's rows and requests load while the list is read
+    fetch(ua, min(PCB, ub - ua));
+    stage_requests(req_u, sp, R, ua, min(PCB, ub - ua), rq_sm, rqk_sm);
+  }
+  listed_sm[t] = 0;
+  __syncthreads();
+  for (int i0 = 0; i0 < D; i0 += SCAN_BATCH * UT) {  // the list's loads in flight a batch at a time
+    int c[SCAN_BATCH];
+#pragma unroll
+    for (int k = 0; k < SCAN_BATCH; ++k) c[k] = i0 + k * UT + t < D ? __ldg(cols + i0 + k * UT + t) : -1;
+#pragma unroll
+    for (int k = 0; k < SCAN_BATCH; ++k)
+      if (c[k] >= n0 && c[k] < end) listed_sm[c[k] - n0] = 1;  // a repeated column marks it again
+  }
+  __syncthreads();
+  const bool listed = listed_sm[t] != 0;
+  const uint32_t mine = __ballot_sync(0xffffffffu, listed);
+  if (lane == 0) warp_cnt[warp] = __popc(mine);
+  __syncthreads();
+  int before = 0, nlisted = 0;
+#pragma unroll
+  for (int j = 0; j < UT / 32; ++j) {
+    before += j < warp ? warp_cnt[j] : 0;
+    nlisted += warp_cnt[j];
+  }
+  const int my = listed ? before + __popc(mine & ((1u << lane) - 1u)) : -1;
+  if (listed) dcol[my] = t;
+  __syncthreads();
+  // the listed columns' used and alloc rows, [nlisted][2 R]
+  for (int k = t; k < nlisted * R; k += UT) {
+    const int i = k / R, r = k - i * R;
+    const int64_t g = (int64_t)(n0 + dcol[i]) * R + r;
+    rows_sm[i * 2 * R + r] = __ldg(used + g);
+    rows_sm[i * 2 * R + R + r] = __ldg(alloc + g);
+  }
+  const bool warp_live = n0 + (t & ~31) < N;
+  const uint32_t touched = mine;  // listed columns are below N
+  for (int uc = ua; uc < ub; uc += PCB) {
+    const int cb = min(PCB, ub - uc);
+    __syncthreads();  // the listed rows are staged; the previous chunk's reads are done
+    if (uc != ua) {
+      fetch(uc, cb);
+      stage_requests(req_u, sp, R, uc, cb, rq_sm, rqk_sm);
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    for (int p = t; p < cb * nlisted; p += UT) {
+      const int c = p / nlisted, i = p - c * nlisted;
+      const int32_t* un = rows_sm + i * 2 * R;
+      const int32_t* an = un + R;
+      const int32_t* rq = rq_sm + c * R;
+      res_fit[c][i] = ktt::fit_ok(R, [&](int r) { return rq[r]; }, [&](int r) { return un[r]; },
+                                  [&](int r) { return an[r]; });
+      tile_sm[c][dcol[i]] = ktt::score_flat<STRAT, KT>(sp, [&](int r) { return ktt::wadd(un[r], rq[r]); },
+                                                        [&](int r) { return an[r]; });
+    }
+    __syncthreads();
+    if (!warp_live) continue;
+    for (int c = 0; c < cb; ++c) {
+      const int64_t u = uc + c;
+      if (n < N) base_u[u * N + n] = tile_sm[c][t];
+      const uint32_t fresh = __ballot_sync(0xffffffffu, my >= 0 && res_fit[c][my]);
+      if (lane == 0) fit_u[u * W + (n >> 5)] = (word_sm[c][warp] & ~touched) | fresh;
+    }
   }
 }
 
@@ -351,22 +533,108 @@ extern "C" int ktt_packed_static_rows(const void* node_valid, const void* node_t
                       done, P, N, T, TT, S, E, L, base, reinterpret_cast<cudaStream_t>(stream));
 }
 
-// ip / fp: the score parameters (score.cuh make_score_params), host memory
+namespace {
+
+struct UsageArgs {
+  const int32_t* req_u;
+  const int32_t* used;
+  const int32_t* alloc;
+  const int32_t* cols;
+  int D;
+  ktt::ScoreParams sp;
+  int U1, N, W, R, dev, nsm;
+  const float* base_in;
+  const uint32_t* fit_in;
+  float* base_u;
+  uint32_t* fit_u;
+};
+
+// one wave: the node tiles times as many class slices as the card holds
+// blocks of this kernel beside them
+template <class Kernel>
+cudaError_t usage_grid(ktt::Occupancy& memo, Kernel kernel, size_t smem, const UsageArgs& a, dim3* grid, int* cs) {
+  int per_sm = 0;
+  const cudaError_t err = ktt::blocks_per_sm(memo, kernel, a.dev, UT, smem, &per_sm);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.N + UT - 1) / UT;
+  int slices = per_sm * a.nsm / tiles;
+  if (slices > a.U1) slices = a.U1;
+  if (slices < 1) slices = 1;
+  *cs = (a.U1 + slices - 1) / slices;
+  *grid = dim3(tiles, (a.U1 + *cs - 1) / *cs);
+  return cudaSuccess;
+}
+
+// K4's one launch for strategy STRAT and KT scored resources (0: any)
+template <int STRAT, int KT>
+cudaError_t launch_usage(const UsageArgs& a, cudaStream_t st) {
+  static ktt::Occupancy patch_memo, full_memo;
+  dim3 grid;
+  int cs = 0;
+  cudaError_t err;
+  if (a.cols != nullptr) {
+    const size_t rows = (size_t)2 * UT * a.R * sizeof(int32_t);
+    if (a.R > 8) {  // past 16 KB of listed rows: above the 48 KB default with the static arrays
+      err = cudaFuncSetAttribute(usage_patch_kernel<STRAT, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows);
+      if (err != cudaSuccess) return err;
+    }
+    err = usage_grid(patch_memo, usage_patch_kernel<STRAT, KT>, rows, a, &grid, &cs);
+    if (err != cudaSuccess) return err;
+    usage_patch_kernel<STRAT, KT><<<grid, UT, rows, st>>>(a.req_u, a.used, a.alloc, a.cols, a.D, a.sp, a.U1, a.N,
+                                                          a.W, a.R, cs, a.base_in, a.fit_in, a.base_u, a.fit_u);
+    return cudaGetLastError();
+  }
+  const size_t smem = (size_t)3 * UT * a.R * sizeof(int32_t);
+  if (smem > 48 * 1024) {  // R > 16: up to 96 KB at SCORE_MAX_R = 32
+    err = cudaFuncSetAttribute(usage_full_kernel<STRAT, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = usage_grid(full_memo, usage_full_kernel<STRAT, KT>, smem, a, &grid, &cs);
+  if (err != cudaSuccess) return err;
+  usage_full_kernel<STRAT, KT><<<grid, UT, smem, st>>>(a.req_u, a.used, a.alloc, a.sp, a.U1, a.N, a.W, a.R, cs,
+                                                       a.base_u, a.fit_u);
+  return cudaGetLastError();
+}
+
+// the kernels of strategy STRAT: one a small K, one for any K
+template <int STRAT>
+cudaError_t launch_usage_k(const UsageArgs& a, cudaStream_t st) {
+  switch (a.sp.k) {
+    case 1: return launch_usage<STRAT, 1>(a, st);
+    case 2: return launch_usage<STRAT, 2>(a, st);
+    case 3: return launch_usage<STRAT, 3>(a, st);
+    case 4: return launch_usage<STRAT, 4>(a, st);
+    default: return launch_usage<STRAT, 0>(a, st);
+  }
+}
+
+}  // namespace
+
+// ip / fp: the score parameters (score.cuh make_score_params), host memory.
+// cols == NULL: full mode into base_u / fit_u (base_in, fit_in unused);
+// else column mode: base_u / fit_u get the resident base_in / fit_in with
+// the D listed columns rescored (all four buffers [U1, N] f32 / [U1, W]
+// words, the outputs not the inputs).
 extern "C" int ktt_class_usage_hoist(const void* req_u, const void* used, const void* alloc,
                                      const void* cols, int D, const int* ip, const float* fp,
-                                     void* base_u, void* fit_u, int U1, int N, int R,
-                                     void* stream) {
+                                     const void* base_in, const void* fit_in, void* base_u, void* fit_u,
+                                     int U1, int N, int R, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const ktt::ScoreParams sp = ktt::make_score_params(ip, fp);
   if (!ktt::score_params_ok(sp, R)) return (int)cudaErrorInvalidValue;
+  if (cols != nullptr && (base_in == nullptr || fit_in == nullptr || D < 0)) return (int)cudaErrorInvalidValue;
   if (U1 <= 0 || N <= 0) return (int)cudaGetLastError();
+  int dev = 0, nsm = 0;
+  const cudaError_t err = ktt::device_sms(&dev, &nsm);
+  if (err != cudaSuccess) return (int)err;
   const int W = (N + 31) / 32;
-  const int64_t work = cols ? (int64_t)D : (int64_t)W * 32;
-  if (work <= 0) return (int)cudaGetLastError();
-  dim3 grid(blocks_for(work, NT), U1);
-  class_usage_kernel<<<grid, NT, 0, st>>>(
-      static_cast<const int32_t*>(req_u), static_cast<const int32_t*>(used),
-      static_cast<const int32_t*>(alloc), static_cast<const int32_t*>(cols), D, sp, N, W, R,
-      static_cast<float*>(base_u), static_cast<uint32_t*>(fit_u));
-  return (int)cudaGetLastError();
+  const UsageArgs args{static_cast<const int32_t*>(req_u), static_cast<const int32_t*>(used),
+                       static_cast<const int32_t*>(alloc), static_cast<const int32_t*>(cols), D, sp, U1, N, W, R, dev, nsm,
+                       static_cast<const float*>(base_in), static_cast<const uint32_t*>(fit_in),
+                       static_cast<float*>(base_u), static_cast<uint32_t*>(fit_u)};
+  switch (sp.strategy) {
+    case ktt::LEAST_ALLOCATED: return (int)launch_usage_k<ktt::LEAST_ALLOCATED>(args, st);
+    case ktt::MOST_ALLOCATED: return (int)launch_usage_k<ktt::MOST_ALLOCATED>(args, st);
+    default: return (int)launch_usage_k<ktt::REQUESTED_TO_CAPACITY_RATIO>(args, st);
+  }
 }

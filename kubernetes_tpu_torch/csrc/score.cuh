@@ -89,29 +89,56 @@ __device__ __forceinline__ bool fit_ok(int R, Req req, Used used, Alloc alloc) {
   return true;
 }
 
-// fit_w * fit_score + bal_w * balanced_allocation of the requested vector
-// q(r) (usage + request, already summed) against alloc(r)
-template <class Q, class Alloc>
-__device__ __forceinline__ float score_flat(const ScoreParams& sp, Q q, Alloc alloc) {
-  float fa[SCORE_MAX_K], fq[SCORE_MAX_K];
+// The node-only part of a score: the scored resources' allocatable as f32
+// and the f32 count of the present ones (alloc > 0, at least 1), which
+// score_pre reads for every request scored against the node.  A kernel
+// that scores many requests against one node (K4's class hoist) makes it
+// once a node; the values are the ones score_flat makes for each pair.
+struct ScoreNode {
+  float fa[SCORE_MAX_K];
+  float cntf;
+};
+
+// Compile-time forms: STRAT, the fit strategy, or -1 to read sp.strategy;
+// KT, the number of scored resources (1..SCORE_MAX_K), or 0 to read sp.k.
+// K4 builds a kernel for each strategy and small K, so it issues only the
+// work of its own strategy and resources; the arithmetic, and its order,
+// is the same in every form.
+template <int KT>
+__host__ __device__ constexpr int k_slots() { return KT > 0 ? KT : SCORE_MAX_K; }
+
+template <int KT = 0, class Alloc>
+__device__ __forceinline__ ScoreNode score_node(const ScoreParams& sp, Alloc alloc) {
+  const int kk = KT > 0 ? KT : sp.k;
+  ScoreNode nd;
+  int cnt = 0;
 #pragma unroll
-  for (int k = 0; k < SCORE_MAX_K; ++k) {
-    fa[k] = 0.0f;
-    fq[k] = 0.0f;
-    if (k < sp.k) {
-      fa[k] = (float)alloc(sp.idx[k]);
-      fq[k] = (float)q(sp.idx[k]);
+  for (int k = 0; k < k_slots<KT>(); ++k) {
+    nd.fa[k] = 0.0f;
+    if (k < kk) {
+      nd.fa[k] = (float)alloc(sp.idx[k]);
+      cnt += nd.fa[k] > 0.0f ? 1 : 0;
     }
   }
+  nd.cntf = (float)(cnt > 1 ? cnt : 1);
+  return nd;
+}
+
+// fit_w * fit_score + bal_w * balanced_allocation of the requested vector
+// fq[k] (usage + request of scored resource k, as f32) against the node nd
+template <int STRAT = -1, int KT = 0>
+__device__ __forceinline__ float score_pre(const ScoreParams& sp, const ScoreNode& nd, const float* fq) {
+  const int strategy = STRAT >= 0 ? STRAT : sp.strategy;
+  const int kk = KT > 0 ? KT : sp.k;
   float fit = 0.0f;
 #pragma unroll
-  for (int k = 0; k < SCORE_MAX_K; ++k) {
-    if (k < sp.k) {
-      const float a = fa[k], r = fq[k];
+  for (int k = 0; k < k_slots<KT>(); ++k) {
+    if (k < kk) {
+      const float a = nd.fa[k], r = fq[k];
       float x;
-      if (sp.strategy == LEAST_ALLOCATED) {
+      if (strategy == LEAST_ALLOCATED) {
         x = (a > 0.0f) ? fmaxf(0.0f, (a - r) * 100.0f / a) : 0.0f;
-      } else if (sp.strategy == MOST_ALLOCATED) {
+      } else if (strategy == MOST_ALLOCATED) {
         x = (a > 0.0f && r <= a) ? r * 100.0f / a : 0.0f;
       } else {
         const float util = (a > 0.0f) ? r * 100.0f / a : 100.0f;
@@ -123,31 +150,39 @@ __device__ __forceinline__ float score_flat(const ScoreParams& sp, Q q, Alloc al
   fit = fit * sp.inv_k;
   float fr[SCORE_MAX_K];
   float fsum = 0.0f;
-  int cnt = 0;
 #pragma unroll
-  for (int k = 0; k < SCORE_MAX_K; ++k) {
+  for (int k = 0; k < k_slots<KT>(); ++k) {
     fr[k] = 0.0f;
-    if (k < sp.k) {
-      const bool present = fa[k] > 0.0f;
-      fr[k] = present ? fminf(1.0f, fq[k] / fa[k]) : 0.0f;
+    if (k < kk) {
+      fr[k] = (nd.fa[k] > 0.0f) ? fminf(1.0f, fq[k] / nd.fa[k]) : 0.0f;
       fsum = (k == 0) ? fr[k] : fsum + fr[k];
-      cnt += present ? 1 : 0;
     }
   }
-  const float cntf = (float)(cnt > 1 ? cnt : 1);
-  const float mean = fsum / cntf;
+  const float mean = fsum / nd.cntf;
   float var = 0.0f;
 #pragma unroll
-  for (int k = 0; k < SCORE_MAX_K; ++k) {
-    if (k < sp.k) {
+  for (int k = 0; k < k_slots<KT>(); ++k) {
+    if (k < kk) {
       const float d = fr[k] - mean;
-      const float sq = (fa[k] > 0.0f) ? d * d : 0.0f;
+      const float sq = (nd.fa[k] > 0.0f) ? d * d : 0.0f;
       var = (k == 0) ? sq : var + sq;
     }
   }
-  var = var / cntf;
+  var = var / nd.cntf;
   const float bal = (1.0f - sqrtf(var)) * 100.0f;
   return sp.fit_w * fit + sp.bal_w * bal;
+}
+
+// fit_w * fit_score + bal_w * balanced_allocation of the requested vector
+// q(r) (usage + request, already summed) against alloc(r)
+template <int STRAT = -1, int KT = 0, class Q, class Alloc>
+__device__ __forceinline__ float score_flat(const ScoreParams& sp, Q q, Alloc alloc) {
+  const int kk = KT > 0 ? KT : sp.k;
+  const ScoreNode nd = score_node<KT>(sp, alloc);
+  float fq[SCORE_MAX_K];
+#pragma unroll
+  for (int k = 0; k < k_slots<KT>(); ++k) fq[k] = (k < kk) ? (float)q(sp.idx[k]) : 0.0f;
+  return score_pre<STRAT, KT>(sp, nd, fq);
 }
 
 // packed plane bit test: bit n of row `row` (W words per row)

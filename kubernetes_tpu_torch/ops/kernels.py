@@ -106,7 +106,7 @@ _ARGTYPES = {
     "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 8 + [_P]),
     "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _P]),
     "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 8 + [_P]),
-    "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I, _P, _P, _P, _P] + [_I] * 3 + [_P]),
+    "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
     "chunk_rounds": ("ktt_chunk_rounds", [_P] * 24 + [_I] * 6 + [_P]),
     "packed_static_rows": ("ktt_packed_static_rows", [_P] * 16 + [_I] * 8 + [_P]),
@@ -482,10 +482,11 @@ def class_static_hoist(arr, r_u: torch.Tensor, with_elig: bool = False, base: in
 
 
 def class_usage_hoist(req_u, node_used, node_alloc, cfg, cols=None, base_u=None, fit_u=None):
-    """K4 (csrc/class_hoist.cu): -> (base_u f32[U1, N], fit_u int32 words
-    [U1, W]).  With `cols` (i32, padded with the sentinel N) only those
-    columns are recomputed, into COPIES of base_u / fit_u: the resident
-    buffers are never written."""
+    """K4 (csrc/class_hoist.cu), one launch: -> (base_u f32[U1, N], fit_u
+    int32 words [U1, W]).  With `cols` (i32, padded with the sentinel N; any
+    order) only those columns are recomputed: the launch writes a NEW
+    generation, the resident base_u / fit_u with those columns replaced,
+    and never writes the resident buffers."""
     dev = node_used.device
     _need_cuda(dev, "class_usage_hoist")
     U1, R = req_u.shape
@@ -497,19 +498,18 @@ def class_usage_hoist(req_u, node_used, node_alloc, cfg, cols=None, base_u=None,
     ip, fp = _score_params(cfg, R)
     fn = _fn("class_usage_hoist")
     if cols is None:
-        base = torch.empty((U1, N), dtype=torch.float32, device=dev)
-        fit = torch.empty((U1, W), dtype=torch.int32, device=dev)
-        D, cols_ptr = 0, None
+        D, cols_ptr, base_in, fit_in = 0, None, None, None
     else:
         _check(cols, "cols", torch.int32, (cols.shape[0],), dev)
         _check(base_u, "base_u", torch.float32, (U1, N), dev)
         _check(fit_u, "fit_u", torch.int32, (U1, W), dev)
-        base, fit = base_u.clone(), fit_u.clone()  # the donation-aliasing rule
-        D, cols_ptr = cols.shape[0], cols.data_ptr()
-    with torch.cuda.device(dev):
+        D, cols_ptr, base_in, fit_in = cols.shape[0], cols.data_ptr(), base_u.data_ptr(), fit_u.data_ptr()
+    base = torch.empty((U1, N), dtype=torch.float32, device=dev)
+    fit = torch.empty((U1, W), dtype=torch.int32, device=dev)
+    with _on(dev):
         err = fn(
-            req_u.data_ptr(), node_used.data_ptr(), node_alloc.data_ptr(), cols_ptr, D,
-            _host(ip), _host(fp), base.data_ptr(), fit.data_ptr(), U1, N, R, _stream(dev),
+            req_u.data_ptr(), node_used.data_ptr(), node_alloc.data_ptr(), cols_ptr, D, _host(ip), _host(fp),
+            base_in, fit_in, base.data_ptr(), fit.data_ptr(), U1, N, R, _stream(dev),
         )
     _raise_on(err, "class_usage_hoist")
     LAUNCHES["class_usage_hoist"] += 1

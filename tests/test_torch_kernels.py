@@ -23,6 +23,7 @@ from kubernetes_tpu_torch.api.snapshot import ClusterArrays, encode_snapshot
 from kubernetes_tpu_torch.bench.workloads import heterogeneous, mixed
 from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, filters, infer_score_config, kernels
 from kubernetes_tpu_torch.ops.assign import schedule_scan_plain
+import torch_hoist_stitch_cases as hs
 import torch_stage_b_cases as sb
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
@@ -196,6 +197,49 @@ def test_class_hoists(card, U1, N, strategy):
     bp, fp = incremental._patch_hoist_plain(inc.base_u, inc.fit_u, inc.req_u, used2, arr.node_alloc, cols, cfg)
     assert _bitwise(bk, bp) and torch.equal(fk, fp)
     assert _bitwise(inc.base_u, base)  # the resident buffers were not written
+
+
+@pytest.mark.parametrize("U1,N", [(u, n) for n in (1, 31, 32, 33, 77, 997, 6144) for u in (1, 2, 102)] + [(2423, 6144)])
+def test_class_usage_hoist_edges(card, U1, N):
+    """K4's full mode and column mode == the plain hoist and patch bit for
+    bit over R in {1, 5, 8, 12, 32} (every register width the kernel is
+    built for), every strategy, K in {1, R} (at most 8); the patched
+    generation == a full hoist at the new usage; the resident pair is never
+    written; one launch a call."""
+    from kubernetes_tpu_torch.ops import incremental
+
+    rng = np.random.default_rng(U1 * 1000 + N)
+    for R in (1, 5, 8, 12, 32):
+        req, used, alloc = hs.usage_inputs(U1 + N + R, U1, N, R, card)
+        used2 = used.clone()
+        rows = torch.from_numpy(rng.choice(N, max(1, N // 2), replace=False)).to(card)
+        used2[rows] = used2[rows] + 17
+        lists = {k: torch.from_numpy(v).to(card) for k, v in hs.col_lists(N, rng).items()}
+        for strategy in sorted(STRATEGIES):
+            for K in sorted({1, min(R, 8)}):
+                name, shape = STRATEGIES[strategy]
+                cfg = dataclasses.replace(DEFAULT_SCORE_CONFIG, fit_strategy=name, rtcr_shape=shape,
+                                          score_resources=tuple(range(K)), fit_weight=1.3, balanced_weight=0.7)
+                what = f"R={R} {strategy} K={K}"
+                kernels.reset_launches()
+                base, fit = kernels.class_usage_hoist(req, used, alloc, cfg)
+                assert kernels.LAUNCHES["class_usage_hoist"] == 1
+                bp, fp = incremental._usage_hoist_plain(req, used, alloc, cfg)
+                assert _bitwise(base, bp) and torch.equal(fit, fp), what
+                keep = (base.clone(), fit.clone())
+                full2 = incremental._usage_hoist_plain(req, used2, alloc, cfg)
+                for lname, cols in lists.items():
+                    kernels.reset_launches()
+                    bk, fk = kernels.class_usage_hoist(req, used2, alloc, cfg, cols=cols, base_u=base, fit_u=fit)
+                    assert kernels.LAUNCHES["class_usage_hoist"] == 1
+                    want = incremental._patch_hoist_plain(base, fit, req, used2, alloc, cols, cfg)
+                    assert _bitwise(bk, want[0]) and torch.equal(fk, want[1]), (what, lname)
+                    assert _bitwise(base, keep[0]) and torch.equal(fit, keep[1]), (what, lname, "resident written")
+                # every dirty column listed: the new generation is a full hoist at the new usage
+                cols = torch.full((max(16, 1 << (rows.numel() - 1).bit_length()),), N, dtype=torch.int32, device=card)
+                cols[: rows.numel()] = rows.sort().values.to(torch.int32)
+                bk, fk = kernels.class_usage_hoist(req, used2, alloc, cfg, cols=cols, base_u=base, fit_u=fit)
+                assert _bitwise(bk, full2[0]) and torch.equal(fk, full2[1]), (what, "== a full hoist")
 
 
 @pytest.mark.parametrize("U1,N", [(2, 997), (33, 1001), (102, 77)])

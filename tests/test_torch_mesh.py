@@ -528,15 +528,25 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nl", [5, 32, 37, 6827])
-@pytest.mark.parametrize("s", [1, 2, 3, 4])
-def test_stitch_planes_kernel(card, s, nl):
+@pytest.mark.parametrize("rows", [1, 7, 4097])
+@pytest.mark.parametrize("nl", [1, 5, 31, 32, 33, 37, 5120, 6827])
+@pytest.mark.parametrize("s", range(1, 9))
+def test_stitch_planes_kernel(card, s, nl, rows):
+    """K17 == plain == the flat packing of the same bits, over every shard
+    count up to MAX_SHARDS; on words whose block tails are set too, == plain
+    (which reads only each block's nl bits); one launch a call."""
     from kubernetes_tpu_torch.ops import kernels
 
-    x = torch.from_numpy(_bools(s * nl, (7, s * nl))).to(card)
+    gen = torch.Generator(device=card).manual_seed(s * 100003 + nl * 11 + rows)
+    x = torch.rand((rows, s * nl), generator=gen, device=card) < 0.4
     w = bitplane.pack_blocks(x, s)
-    assert torch.equal(kernels.stitch_planes(w, nl), bitplane.stitch_planes_plain(w, nl))
-    assert torch.equal(kernels.stitch_planes(w, nl), bitplane.pack(x))
+    kernels.reset_launches()
+    got = kernels.stitch_planes(w, nl)
+    assert kernels.LAUNCHES["stitch_planes"] == 1
+    assert torch.equal(got, bitplane.stitch_planes_plain(w, nl))
+    assert torch.equal(got, bitplane.pack(x))
+    junk = torch.randint(-2**31, 2**31, w.shape, generator=gen, device=card, dtype=torch.int64).to(torch.int32)
+    assert torch.equal(kernels.stitch_planes(junk, nl), bitplane.stitch_planes_plain(junk, nl))
 
 
 @pytest.mark.cuda

@@ -17,7 +17,8 @@ batched preemption) on the JAX package's preemption bench cluster:
                      (chunked=False):
                      50000/50000 scheduled, the JAX package's choices digest,
                      static_feasible == plain over [P, N], fit_scan == plain
-                     on the first 8192 pods;
+                     on the first 8192 pods; fit_scan's time, its cluster
+                     width and its floor (no node feasible);
   [mesh-north-star-perpod] the same per-pod route on make_mesh(4) (the
                      node mesh's per-step collectives, parallel/sharded.py):
                      static_feasible once per shard with its base (the
@@ -119,6 +120,15 @@ batched preemption) on the JAX package's preemption bench cluster:
   [config3-perpod]   the same arrays with chunked=False: packed_static_rows
                      and full_scan over all pods, the same choices digest,
                      full_scan == plain on the first 512 pods, step_perpod_s;
+                     full_scan's time, its cluster width and its floor;
+  [perpod-small]     a scheduling cycle of 8 pending pods (the encoder's
+                     smallest bucket, so the card's default route is the
+                     per-pod one) through schedule_batch on the north
+                     star's nodes (fit-only: static_feasible + fit_scan)
+                     and on config 3's (packed_static_rows + full_scan):
+                     exact launch counts, the JAX choices digest, choices
+                     and usage == the plain route on the CPU, the step's
+                     wall time;
   [config3-inc]      the same arrays with class state: HoistCache.ensure
                      (class_static_hoist with the eligibility words,
                      class_usage_hoist), then the rounds route in class mode
@@ -530,6 +540,7 @@ def phase_north_star() -> list:
         out["k"] = kernels.fit_scan(sf, arr, cfg)
 
     k2_ms = cuda_ms(run_kernel, reps=3)
+    k2_kc = kernels.LAST_CLUSTER["fit_scan"]
     ck, uk, n_scored = out["k"]
     check(torch.equal(ck, choices), "north-star: timed fit_scan != the main path's")
     # the plain scan over all pods takes ~70 s; a prefix of the scan is a
@@ -554,8 +565,8 @@ def phase_north_star() -> list:
     k2_ops = n_scored * f32_ops_per_scored_node(cfg)
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     print(f"[north-star] fit_scan: kernel == plain on the first {PLAIN_PODS} pods; kernel {k2_ms:.3f} ms "
-          f"over all {P} ({k2_ms / P * 1e3:.3f} us per pod; with no feasible node {floor_ms:.3f} ms, "
-          f"{floor_ms / P * 1e3:.3f} us per pod: the {P} block reductions and barriers), "
+          f"over all {P} ({k2_ms / P * 1e3:.3f} us per pod, one cluster of {k2_kc} blocks; with no feasible node "
+          f"{floor_ms:.3f} ms, {floor_ms / P * 1e3:.3f} us per pod: the {P} cluster reductions and barriers), "
           f"plain {k2_plain_ms:.1f} ms on {PLAIN_PODS} pods (host clock), bound {k2_bound:.4f} ms "
           f"({k2_by}: {k2_bytes} B, {n_scored} scored pairs x {f32_ops_per_scored_node(cfg)} f32 ops)",
           flush=True)
@@ -567,7 +578,7 @@ def phase_north_star() -> list:
         dict(name="fit_scan", route="cuda", source="kubernetes_tpu_torch/csrc/fit_scan.cu",
              replaces="kubernetes_tpu/ops/assign.py:181", launches=launches["fit_scan"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
-             library_ms=None, plain_scope=f"first {PLAIN_PODS} pods"),
+             library_ms=None, plain_scope=f"first {PLAIN_PODS} pods", kc=k2_kc, floor_ms=floor_ms),
     ], (arr, meta, cfg, choices, used)
 
 
@@ -1708,6 +1719,11 @@ def phase_config3_perpod(c3) -> tuple:
         step_perpod_s = min(step_perpod_s, time.perf_counter() - t0)
     check(torch.equal(c2, choices), "config 3 per-pod: a repeated step differs")
     k11_ms = cuda_ms(lambda: kernels.full_scan(arr, cfg, sfs, eligs, (None, None)), reps=2)
+    k11_kc = kernels.LAST_CLUSTER["full_scan"]
+    # the scan's floor: the same launch with every static bit clear
+    empty = torch.zeros_like(sfs)
+    floor_ms = cuda_ms(lambda: kernels.full_scan(arr, cfg, empty, eligs, (None, None)), reps=2)
+    del empty
     pre = arr.pod_prefix(PERPOD_PREFIX)
     kp = kernels.full_scan(pre, cfg, sfs[:PERPOD_PREFIX].contiguous(), eligs[:PERPOD_PREFIX].contiguous(),
                            (None, None), with_state=True)
@@ -1723,14 +1739,59 @@ def phase_config3_perpod(c3) -> tuple:
     k_bytes = full_bytes(arr)
     k11_bound, k11_by = bound(k_bytes, k_ops)
     print(f"[config3-perpod] full_scan == plain on the first {PERPOD_PREFIX} pods (choices, usage, count "
-          f"planes); kernel {k11_ms:.3f} ms over all {P} ({k11_ms / P * 1e3:.2f} us per pod), plain {k11_plain:.1f} "
-          f"ms on {PERPOD_PREFIX} pods (host clock), bound {k11_bound:.4f} ms ({k11_by}); step_perpod_s "
-          f"{step_perpod_s:.4f} (best of 2)", flush=True)
+          f"planes); kernel {k11_ms:.3f} ms over all {P} ({k11_ms / P * 1e3:.2f} us per pod, one cluster of "
+          f"{k11_kc} blocks; with no feasible node {floor_ms:.3f} ms, {floor_ms / P * 1e3:.2f} us per pod), plain "
+          f"{k11_plain:.1f} ms on {PERPOD_PREFIX} pods (host clock), bound {k11_bound:.4f} ms ({k11_by}); "
+          f"step_perpod_s {step_perpod_s:.4f} (best of 2)", flush=True)
     row = dict(name="full_scan", route="cuda", source="kubernetes_tpu_torch/csrc/full_scan.cu",
                replaces="kubernetes_tpu/ops/assign.py:181", launches=launches["full_scan"], max_abs_err=k11_err,
                ms=k11_ms, plain_ms=k11_plain, bound_ms=k11_bound, bound_by=k11_by, library_ms=None,
-               plain_scope=f"first {PERPOD_PREFIX} pods")
+               plain_scope=f"first {PERPOD_PREFIX} pods", kc=k11_kc, floor_ms=floor_ms)
     return step_perpod_s, row
+
+
+def phase_perpod_small() -> None:
+    """A scheduling cycle of 8 pending pods through schedule_batch, the
+    card's default route, on the north star's and on config 3's nodes:
+    exact launch counts, == the plain route on the CPU, the step's wall."""
+    import torch
+
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, kernels, schedule_batch
+
+    for tag, snap in (("north star", workloads.heterogeneous(**workloads.NORTH_STAR)),
+                      ("config 3", workloads.spread_affinity(**workloads.CONFIG3))):
+        snap = dataclasses.replace(snap, pending_pods=snap.pending_pods[:workloads.PERPOD_SMALL_PODS])
+        arr, meta = encode_snapshot(snap)
+        cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+        kernels.reset_launches()
+        choices, used = schedule_batch(arr, cfg)
+        torch.cuda.synchronize()
+        launches = counted()
+        fit = tag == "north star"
+        want = ({"static_feasible": 1, "fit_scan": 1} if fit else
+                {"packed_static_rows": 1, "full_scan": 1,
+                 **({"score_planes": 1} if cfg.enable_taint_score or cfg.enable_node_pref else {})})
+        check(arr.P == workloads.PERPOD_SMALL_PODS and launches == want,
+              f"perpod-small {tag}: P={arr.P}, launches {launches}")
+        digest = hashlib.sha256(choices[:meta.n_pods].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+        check(digest == workloads.PERPOD_SMALL_CHOICES_SHA256[tag], f"perpod-small {tag}: choices differ from JAX")
+        arr_cpu, _ = encode_snapshot(snap, device="cpu")
+        cp, up = schedule_batch(arr_cpu, infer_score_config(arr_cpu, DEFAULT_SCORE_CONFIG), device="cpu")
+        check(torch.equal(choices.cpu(), cp) and torch.equal(used.cpu(), up), f"perpod-small {tag}: card != CPU")
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            c2, _ = schedule_batch(arr, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        check(torch.equal(c2, choices), f"perpod-small {tag}: a repeated step differs")
+        kc = kernels.LAST_CLUSTER["fit_scan" if fit else "full_scan"]
+        print(f"[perpod-small] {tag}: P={arr.P} ({meta.n_pods} pending) N={arr.N}, launches {launches}, "
+              f"{'fit_scan' if fit else 'full_scan'} one cluster of {kc} blocks; choices {choices.tolist()} (the JAX "
+              f"digest) and usage == the plain route on the CPU; step wall "
+              f"{min(walls) * 1e3:.3f} ms (best of 3; {[round(w * 1e3, 3) for w in walls]})", flush=True)
 
 
 def phase_all_stages() -> list:
@@ -3551,6 +3612,7 @@ def main() -> int:
     rows += phase_wide_planes()
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
+    phase_perpod_small()
     cold3, _, inc_rows, k4_c3 = phase_config3_inc(c3)
     k4_row = next(r for r in rows if r["name"] == "class_usage_hoist")
     k4_row["max_abs_err"] += k4_c3.pop("max_abs_err")

@@ -89,6 +89,16 @@ CONFIG3_SCHEDULED = 10000
 CONFIG3_CHOICES_SHA256 = "0ed727a5e4bec796440ebbc8497ada5a0e3f6bb9d0f4aff48a6e7dfb187b7db0"
 CONFIG3_ROUNDS_SWEEPS = 1691
 CONFIG3_ROUNDS_ORDINALS_SHA256 = "9a80440cacec0772c847cf9bc518a7f41b5d4f494b6c7c254e0de048f88f04b8"
+# A scheduling cycle of the first PERPOD_SMALL_PODS pending pods of the north
+# star and of config 3, each on its cluster (P buckets to 8: the per-pod
+# scan on every route), through the JAX package's encoder and
+# schedule_batch (the same script's perpod-small leg) -> the sha256 of each
+# one's choices.
+PERPOD_SMALL_PODS = 8
+PERPOD_SMALL_CHOICES_SHA256 = {
+    "north star": "44ddea9fe9bba0725fa1b284a55e3cc75f0481ae45257987f29d412b7a811dc8",
+    "config 3": "ff1f6ee5d67458cfac950f62e93042e21fcb867e2234dcc8721801231064ad40",
+}
 # all_stages() (P=512, N=256, every optional stage on) through the JAX
 # package's encoder, per-pod scan and rounds kernel (the all-stages leg):
 # scheduled count, choices digest, sweeps and ordinals digest.

@@ -17,36 +17,55 @@
 // division and sqrtf, so totals are bitwise those of the plain versions and
 // ties (hence choices) do not move.
 //
-// Design: ONE persistent block of 1024 threads walks all P pods in order.
-// Each pod depends on the previous pod's commit, so the scan is a chain of
-// P block-wide reductions:
-//   - the sf row of pod p+1 streams into shared memory (cp.async, double
-//     buffered) while pod p is scored, so no thread waits on device memory
-//     for the mask;
-//   - each thread takes 4 consecutive nodes at a time (one 4-byte word of
-//     the row; words tid, tid+1024, ...) and loads their allocatable and
-//     usage as int4 for every requested resource at once, with no early
-//     exit, so a batch costs one L2 round trip instead of one per resource;
-//     `alloc` and `used` arrive transposed ([R, N]) for those loads and stay
-//     resident in L2 (2 x 410 KB at N=20480, R=5);
-//   - the K scored resources' int4 pairs are always loaded and stay in
-//     registers: the scores of the batch's nodes are computed from them,
-//     with no further load (the kernel is a template on K, 1..8, so those
-//     registers have a fixed count);
-//   - each thread keeps its best (score desc, index asc; it visits its nodes
-//     in ascending order), a warp shuffle tree and one shared-memory pass
-//     reduce the key, thread 0 commits to `used`, and the next pod starts
-//     after __syncthreads().
-// The launch copies its start usage `used_in` [n_real, R] into the running
-// state `used_t` itself (zero in the padding columns) and zeroes n_scored.
-// So the gang fixpoint's gated mode (ops/gang.py), which passes `done` (a
-// device word: the launch returns at entry once it is set) and the same
-// buffers to every iteration, leaves the last real launch's usage and
-// counts in place.
-// No grid-wide sync is needed; the rest of the card idles.  A multi-SM scan
-// (a cluster, or the chunked / wave algorithms of kernels B4/B5) is later
-// work.  The wrapper pads N to a multiple of 16 (cp.async moves 16 bytes).
-//
+// Design: ONE thread-block cluster of kc blocks of 1024 threads walks all P
+// pods in order (each pod depends on the previous pod's commit), kc the
+// widest cluster the card schedules, up to 16 (a non-portable size;
+// ops/kernels.py SCAN_CLUSTER caps it), and no more blocks than 16-node
+// runs of the node axis.  Block q owns the nodes [lo(q), lo(q + 1)),
+// lo(q) = 16 * floor(q * (N / 16) / kc): near-equal runs of whole 16-node
+// units, so the wrapper pads N to 16 only.  Per block:
+//   - its run's allocatable and running usage stay in shared memory for
+//     the whole scan ([R, run] each, the transposed layout; 51 KB at the
+//     north star's kc = 16, R = 5), written back once at the end; where
+//     they do not fit (a wide R on few blocks) they stay in the global
+//     [R, N] arrays, the block's own columns only;
+//   - its slice of pod p+1's sf row streams into shared memory (cp.async,
+//     double buffered) while pod p is scored;
+//   - one node a thread (nodes lo + tid, lo + tid + 1024, ...): the fit
+//     test against the running usage, then for a node that passes the
+//     total of fit_total, a template on the strategy and K (one kernel a
+//     (strategy, K) pair: no run-time branch on the strategy, the K scored
+//     resources in registers); each thread keeps its best (score desc,
+//     index asc; its nodes ascend), a warp shuffle tree and one
+//     shared-memory pass reduce the block's key;
+//   - the key goes to the block's exchange slot (shared memory, two slots
+//     by the parity of the cluster barriers passed); after ONE cluster
+//     barrier warp 0 of every block reads the kc slots through distributed
+//     shared memory (map_shared_rank) and takes their best: the keys are
+//     (score, node id), so the best is the whole row's "highest score,
+//     lowest index" whatever the order it is folded in; the block whose run
+//     holds the choice adds the request to its usage.  A slot is rewritten
+//     two barriers later, after every block has passed the barrier between,
+//     so no block overwrites a slot another still reads.
+// Two block barriers and one cluster barrier a pod.  Measured against it
+// on the card (bench/perpod_scan.py): every warp reading the kc slots with
+// no block barrier after (512 reads of each block's slot a pod) took 1.8x
+// the time; a warp a segment of the run, each queueing its feasible nodes
+// so no lane idles in the scoring, gained ~4% of the scoring and lost more
+// in the per-pod floor.
+// An invalid pod (padding: its sf row is all 0) is decided alike in every
+// block without a barrier.  The launch copies its start usage `used_in`
+// [n_real, R] into the running state itself (zero in the padding columns)
+// and zeroes n_scored before its first cluster barrier; each warp adds its
+// scored pairs once at the end.  So the gang fixpoint's gated mode
+// (ops/gang.py), which passes `done` (a device word: every block returns at
+// entry once it is set, before any barrier) and the same buffers to every
+// iteration, leaves the last real launch's usage and counts in place.  The
+// launch is refused (an error, no other kernel) when the card schedules no
+// cluster.  The first design, one block on one SM with the strategy a
+// run-time branch, spent ~20.7 us a pod at the north star issuing ~200
+// instructions a node on one SM's four schedulers.
+
 // SHARD MODE (fit_scan_shard_kernel; the JAX package's schedule_scan under
 // shard_map with every optional stage off): a cooperative grid of S
 // blocks, block s scanning node shard s's columns through its own pointers
@@ -62,15 +81,18 @@
 //
 // Bounds on an H100: the bytes are sf read once (P*N, 1.05 GB at the
 // 50k x 20k shape) plus the small [N, R] / [P, R] arrays, >= 0.31 ms at
-// 3.35 TB/s; the dependency floor is P sequential block reductions.  The
-// kernel also counts the (pod, node) pairs it scored (n_scored) so the
-// caller can state the f32 operation bound of this run's data.
+// 3.35 TB/s; the dependency floor is P sequential cluster-wide reductions
+// (the same launch with no feasible node).  The kernel also counts the
+// (pod, node) pairs it scored (n_scored) so the caller can state the f32
+// operation bound of this run's data.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "occupancy.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -81,6 +103,10 @@ constexpr int MAX_SHARDS = 8;
 constexpr int MAX_R = 32;
 constexpr int MAX_K = 8;
 constexpr int MAX_SHAPE = 16;
+constexpr int MAX_KC = 16;  // blocks per cluster: the widest an H100 schedules
+constexpr int UNIT = 16;    // nodes per unit of a block's run (cp.async moves 16 sf bytes)
+// dynamic shared memory a block may take beside its static buffers
+constexpr size_t SMEM_CAP = 232448 - 2048;
 
 enum Strategy { LEAST_ALLOCATED = 0, MOST_ALLOCATED = 1, REQUESTED_TO_CAPACITY_RATIO = 2 };
 
@@ -113,28 +139,26 @@ __device__ __forceinline__ int lane_of(const int4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// fit_w * fit_score + bal_w * balanced_allocation of node j (0..3) of a batch
-// whose scored resources' allocatable and usage are sa / su, for the pod
-// whose request of scored resource k is rqk[k] (a node that passed fit, so
-// used + req cannot wrap)
-template <int K>
-__device__ __forceinline__ float node_total(const int4 (&sa)[K], const int4 (&su)[K],
-                                            const int (&rqk)[K], int j, const float* s_xs,
-                                            const float* s_ys, const Params& prm) {
+// fit_w * fit_score + bal_w * balanced_allocation of a node whose scored
+// resources' allocatable are al[k] and usage plus the pod's request uq[k]
+// (a node that passed fit, so the sum cannot wrap), strategy S
+template <int S, int K>
+__device__ __forceinline__ float fit_total(const int (&al)[K], const int (&uq)[K], const float* s_xs,
+                                           const float* s_ys, const Params& prm) {
   float fa[K], fq[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    fa[k] = (float)lane_of(sa[k], j);
-    fq[k] = (float)(lane_of(su[k], j) + rqk[k]);
+    fa[k] = (float)al[k];
+    fq[k] = (float)uq[k];
   }
   float fit = 0.0f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const float a = fa[k], q = fq[k];
     float x;
-    if (prm.strategy == LEAST_ALLOCATED) {
+    if constexpr (S == LEAST_ALLOCATED) {
       x = (a > 0.0f) ? fmaxf(0.0f, (a - q) * 100.0f / a) : 0.0f;
-    } else if (prm.strategy == MOST_ALLOCATED) {
+    } else if constexpr (S == MOST_ALLOCATED) {
       x = (a > 0.0f && q <= a) ? q * 100.0f / a : 0.0f;
     } else {
       const float util = (a > 0.0f) ? q * 100.0f / a : 100.0f;
@@ -165,6 +189,24 @@ __device__ __forceinline__ float node_total(const int4 (&sa)[K], const int4 (&su
   var = var / cntf;
   const float bal = (1.0f - sqrtf(var)) * 100.0f;
   return prm.fit_w * fit + prm.bal_w * bal;
+}
+
+// fit_total of node j (0..3) of a batch whose scored resources' allocatable
+// and usage are sa / su, for the pod whose request of scored resource k is
+// rqk[k], the strategy read at run time (the shard mode)
+template <int K>
+__device__ __forceinline__ float node_total(const int4 (&sa)[K], const int4 (&su)[K],
+                                            const int (&rqk)[K], int j, const float* s_xs,
+                                            const float* s_ys, const Params& prm) {
+  int al[K], uq[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    al[k] = lane_of(sa[k], j);
+    uq[k] = lane_of(su[k], j) + rqk[k];
+  }
+  if (prm.strategy == LEAST_ALLOCATED) return fit_total<LEAST_ALLOCATED, K>(al, uq, s_xs, s_ys, prm);
+  if (prm.strategy == MOST_ALLOCATED) return fit_total<MOST_ALLOCATED, K>(al, uq, s_xs, s_ys, prm);
+  return fit_total<REQUESTED_TO_CAPACITY_RATIO, K>(al, uq, s_xs, s_ys, prm);
 }
 
 // cp.async row `row` of sf into shared buffer `dst` (N bytes, N % 16 == 0)
@@ -264,13 +306,51 @@ __device__ __forceinline__ void pod_best(const uint8_t* cur, int NQ, const int4*
   }
 }
 
-template <int K>
+// the first node of block q's run: whole UNIT-node units, near-equal
+// (N a multiple of UNIT)
+__host__ __device__ __forceinline__ int run_lo(int q, int kc, int N) {
+  return UNIT * (int)((int64_t)q * (N / UNIT) / kc);
+}
+
+// the longest run of a cluster of kc blocks
+inline int run_max(int kc, int N) { return UNIT * ((N / UNIT + kc - 1) / kc); }
+
+// cp.async of the `ns` bytes from node lo of sf row `row` into `dst` (lo
+// and ns multiples of 16)
+__device__ __forceinline__ void prefetch_run(uint8_t* dst, const uint8_t* __restrict__ sf, int row, int N,
+                                             int lo, int ns) {
+  const uint8_t* src = sf + (int64_t)row * N + lo;
+  for (int i = threadIdx.x * 16; i < ns; i += NT * 16) __pipeline_memcpy_async(dst + i, src + i, 16);
+  __pipeline_commit();
+}
+
+// a block's best (score, node id), its exchange slot's content
+struct Key {
+  float v;
+  int n;
+};
+
+__device__ __forceinline__ void warp_best(float& v, int& n) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int on = __shfl_xor_sync(0xffffffffu, n, off);
+    if (better(ov, on, v, n)) {
+      v = ov;
+      n = on;
+    }
+  }
+}
+
+// the one-device scan: one cluster of kc blocks, block q on its run of the
+// node axis (the design above); `resident`: the run's allocatable and usage
+// live in shared memory (else in alloc_t / used_t, the run's columns)
+template <int S, int K>
 __global__ void __launch_bounds__(NT) fit_scan_kernel(
     const uint8_t* __restrict__ sf,        // [P, N]
     const int32_t* __restrict__ pod_req,   // [P, R]
     const uint8_t* __restrict__ pod_valid,  // [P]
     const int32_t* __restrict__ alloc_t,   // [R, N]
-    int32_t* used_t,                       // [R, N], updated in place
+    int32_t* used_t,                       // [R, N], the final usage
     const int32_t* __restrict__ score_idx,  // [K]
     const float* __restrict__ shape_xy,    // [2 * n_shape]: xs then ys
     Params prm, int P, int N, int R,
@@ -278,22 +358,40 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
     unsigned long long* __restrict__ n_scored,
     const int32_t* __restrict__ used_in,  // [n_real, R]
     int n_real,
-    const int32_t* __restrict__ done) {  // or NULL
-  if (done != nullptr && *done) return;  // every thread reads the same word
-  extern __shared__ __align__(16) uint8_t s_rows[];  // [2][N]: sf rows p, p+1
-  __shared__ int s_req[MAX_R];
+    const int32_t* __restrict__ done,  // or NULL
+    int resident) {
+  if (done != nullptr && *done) return;  // every thread of every block reads the same word
+  cg::cluster_group cl = cg::this_cluster();
+  const int kc = (int)cl.num_blocks(), q = (int)cl.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lo = run_lo(q, kc, N), ns = run_lo(q + 1, kc, N) - lo;
+  extern __shared__ __align__(16) uint8_t dyn[];  // [2][ns] sf bytes; resident: alloc, used [R][ns]
+  __shared__ int s_req[2][MAX_R];  // pods p, p+1
+  __shared__ int s_valid[2];
   __shared__ float s_xs[MAX_SHAPE];
   __shared__ float s_ys[MAX_SHAPE];
-  __shared__ float s_best[NT / 32];
-  __shared__ int s_node[NT / 32];
-
-  const int tid = threadIdx.x;
-  for (int64_t i = tid; i < (int64_t)R * N; i += NT) {  // the start state
-    const int r = (int)(i / N), n = (int)(i % N);
-    used_t[i] = n < n_real ? used_in[(int64_t)n * R + r] : 0;
+  __shared__ float s_bv[NT / 32];
+  __shared__ int s_bn[NT / 32];
+  __shared__ Key slot[2];  // the exchange, by barrier parity
+  uint8_t* rows = dyn;
+  int* al;
+  int* us;
+  int ld;
+  if (resident) {
+    al = reinterpret_cast<int*>(dyn + 2 * ns);
+    us = al + R * ns;
+    ld = ns;
+  } else {
+    al = const_cast<int*>(alloc_t) + lo;
+    us = used_t + lo;
+    ld = N;
   }
-  if (tid == 0) *n_scored = 0;
-  __syncthreads();
+  for (int i = tid; i < R * ns; i += NT) {  // the start state of the run
+    const int r = i / ns, j = i - r * ns, n = lo + j;
+    us[r * ld + j] = n < n_real ? used_in[(int64_t)n * R + r] : 0;
+    if (resident) al[r * ld + j] = alloc_t[(int64_t)r * N + n];
+  }
+  if (q == 0 && tid == 0) *n_scored = 0;
   if (tid < prm.n_shape) {
     s_xs[tid] = shape_xy[tid];
     s_ys[tid] = shape_xy[prm.n_shape + tid];
@@ -301,59 +399,149 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
   int sidx[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) sidx[k] = score_idx[k];
-  const int NQ = N >> 2;
-  const int4* alloc4 = reinterpret_cast<const int4*>(alloc_t);
-  const int4* used4 = reinterpret_cast<const int4*>(used_t);
   unsigned long long scored = 0;
-
-  if (P > 0) prefetch_row(s_rows, sf, 0, N);
+  if (P > 0) {
+    prefetch_run(rows, sf, 0, N, lo, ns);
+    if (tid < R) s_req[0][tid] = pod_req[tid];
+    if (tid == 0) s_valid[0] = pod_valid[0];
+  }
+  // n_scored is zeroed and every block of the cluster runs (its slots are
+  // readable) before any block goes on
+  cl.sync();
+  int nb = 0;  // cluster barriers passed in the pod loop
   for (int p = 0; p < P; ++p) {
-    uint8_t* cur = s_rows + (p & 1) * N;
-    // the other buffer was last read in pod p-1, before that pod's
-    // reduction barrier, so it is free to refill
+    const uint8_t* cur = rows + (p & 1) * ns;
+    // the other buffer was last read in pod p-1, before its block barrier
     if (p + 1 < P) {
-      prefetch_row(s_rows + ((p + 1) & 1) * N, sf, p + 1, N);
+      prefetch_run(rows + ((p + 1) & 1) * ns, sf, p + 1, N, lo, ns);
     } else {
       __pipeline_commit();
     }
     __pipeline_wait_prior(1);  // this thread's part of row p has landed
-    if (tid < R) s_req[tid] = pod_req[(int64_t)p * R + tid];
-    __syncthreads();  // row p and s_req visible; the previous commit too
-    float best;
-    int best_n;
-    pod_best<K>(cur, NQ, alloc4, used4, sidx, s_req, R, s_xs, s_ys, prm, pod_valid[p], 0, scored, s_best, s_node,
-                best, best_n);
-    if (tid == 0) {
-      const int choice = (best > -INFINITY && pod_valid[p]) ? best_n : -1;
-      choices[p] = choice;
-      if (choice >= 0) {
-        for (int r = 0; r < R; ++r) used_t[(int64_t)r * N + choice] += s_req[r];
+    __syncthreads();  // row p, request p and the last commit visible
+    const int* req = s_req[p & 1];
+    const int valid = s_valid[p & 1];
+    // pod p+1's request, by the warp with the fewest nodes: its buffer was
+    // last read by pod p-1's commit, before the barrier above
+    if (p + 1 < P && warp == NT / 32 - 1) {
+      if (lane < R) s_req[(p + 1) & 1][lane] = pod_req[(int64_t)(p + 1) * R + lane];
+      if (lane == 31) s_valid[(p + 1) & 1] = pod_valid[p + 1];
+    }
+    if (!valid) {  // alike in every block: no exchange
+      if (q == 0 && tid == 0) choices[p] = -1;
+      continue;
+    }
+    int rqk[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) rqk[k] = req[sidx[k]];
+    float best = -INFINITY;
+    int best_n = INT32_MAX;
+    for (int j = tid; j < ns; j += NT) {
+      if (!cur[j]) continue;
+      int ak[K], uq[K];
+      bool ok = true;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int a = al[sidx[k] * ld + j], u = us[sidx[k] * ld + j];
+        if (rqk[k] != 0) ok &= rqk[k] <= a - u;  // a resource the pod does not request never blocks
+        ak[k] = a;
+        uq[k] = u + rqk[k];
+      }
+      for (int r = 0; r < R; ++r) {  // the requested resources not scored
+        const int rq = req[r];
+        if (rq == 0 || ((prm.score_mask >> r) & 1u)) continue;
+        ok &= rq <= al[r * ld + j] - us[r * ld + j];
+      }
+      if (!ok) continue;
+      ++scored;
+      const float total = fit_total<S, K>(ak, uq, s_xs, s_ys, prm);
+      if (total > best) {  // nodes ascend per thread: keeps the lowest index
+        best = total;
+        best_n = lo + j;
       }
     }
-    // orders this commit before any thread reads `used` for the next pod,
-    // and s_req's reads before it is overwritten
+    warp_best(best, best_n);
+    if (lane == 0) {
+      s_bv[warp] = best;
+      s_bn[warp] = best_n;
+    }
     __syncthreads();
+    if (warp == 0) {
+      best = s_bv[lane];
+      best_n = s_bn[lane];
+      warp_best(best, best_n);
+      if (lane == 0) slot[nb & 1] = Key{best, best_n};
+    }
+    cl.sync();
+    if (warp == 0) {  // the kc blocks' keys (warp 0 alone reads them), then the owner's commit
+      Key k{-INFINITY, INT32_MAX};
+      if (lane < kc) k = *cl.map_shared_rank(&slot[nb & 1], lane);
+      warp_best(k.v, k.n);
+      const int choice = k.v > -INFINITY ? k.n : -1;
+      if (q == 0 && lane == 0) choices[p] = choice;
+      if (choice >= lo && choice < lo + ns)
+        for (int r = lane; r < R; r += 32) us[r * ld + (choice - lo)] += req[r];
+    }
+    ++nb;
   }
-  atomicAdd(n_scored, scored);
+  for (int off = 16; off > 0; off >>= 1) scored += __shfl_down_sync(0xffffffffu, scored, off);
+  if (lane == 0 && scored) atomicAdd(n_scored, scored);
+  if (resident) {
+    __syncthreads();  // the last commit
+    for (int i = tid; i < R * ns; i += NT) {
+      const int r = i / ns, j = i - r * ns;
+      used_t[(int64_t)r * N + lo + j] = us[r * ns + j];
+    }
+  }
+  cl.sync();  // no block leaves while another may read its slots
 }
 
-template <int K>
+// the launch's cluster, per kernel: asked of the runtime again only when
+// the device, N, R or the cap changes (each query costs host time)
+struct ClusterChoice {
+  int dev = -1, N = 0, R = 0, max_kc = 0;
+  int kc = 0, resident = 0;
+  size_t smem = 0;
+};
+
+template <int S, int K>
 cudaError_t launch(const void* sf, const void* pod_req, const void* pod_valid, const void* alloc_t,
                    void* used_t, const void* score_idx, const void* shape_xy, const Params& prm,
                    int P, int N, int R, void* choices, void* n_scored, const void* used_in, int n_real,
-                   const void* done, cudaStream_t st) {
-  const size_t smem = 2 * (size_t)N;
-  cudaError_t err = cudaFuncSetAttribute(fit_scan_kernel<K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   const void* done, int max_kc, int* kc_out, cudaStream_t st) {
+  static ClusterChoice memo;
+  auto kernel = fit_scan_kernel<S, K>;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  fit_scan_kernel<K><<<1, NT, smem, st>>>(
-      static_cast<const uint8_t*>(sf), static_cast<const int32_t*>(pod_req),
-      static_cast<const uint8_t*>(pod_valid), static_cast<const int32_t*>(alloc_t),
-      static_cast<int32_t*>(used_t), static_cast<const int32_t*>(score_idx),
-      static_cast<const float*>(shape_xy), prm, P, N, R, static_cast<int32_t*>(choices),
-      static_cast<unsigned long long*>(n_scored), static_cast<const int32_t*>(used_in), n_real,
-      static_cast<const int32_t*>(done));
-  return cudaGetLastError();
+  if (memo.dev != dev || memo.N != N || memo.R != R || memo.max_kc != max_kc) {
+    ClusterChoice c;
+    for (int k = max_kc < N / UNIT ? max_kc : N / UNIT; k >= 1 && c.kc == 0; --k) {
+      const size_t rows = 2 * (size_t)run_max(k, N), state = 8 * (size_t)R * run_max(k, N);
+      const int res = rows + state <= SMEM_CAP;
+      const size_t smem = res ? rows + state : rows;
+      if (smem <= SMEM_CAP && ktt::cluster_fits(kernel, k, NT, smem)) {
+        c.kc = k;
+        c.resident = res;
+        c.smem = smem;
+      }
+    }
+    if (c.kc == 0) return cudaErrorInvalidConfiguration;  // refused: the card schedules no such cluster
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+    if (err != cudaSuccess) return err;
+    c.dev = dev;
+    c.N = N;
+    c.R = R;
+    c.max_kc = max_kc;
+    memo = c;
+  }
+  if (kc_out != nullptr) *kc_out = memo.kc;
+  return ktt::launch_cluster(
+      kernel, memo.kc, NT, memo.smem, st, static_cast<const uint8_t*>(sf), static_cast<const int32_t*>(pod_req),
+      static_cast<const uint8_t*>(pod_valid), static_cast<const int32_t*>(alloc_t), static_cast<int32_t*>(used_t),
+      static_cast<const int32_t*>(score_idx), static_cast<const float*>(shape_xy), prm, P, N, R,
+      static_cast<int32_t*>(choices), static_cast<unsigned long long*>(n_scored),
+      static_cast<const int32_t*>(used_in), n_real, static_cast<const int32_t*>(done), memo.resident);
 }
 
 
@@ -492,25 +680,29 @@ cudaError_t launch_shard(const FitShards& tab, int S, int nl, const void* pod_re
 
 // score_idx is on the device; score_mask holds the same resource ids as
 // bits, for the kernel's fit test; used_in: the start usage [n_real, R];
-// done (or NULL): the gate above
+// done (or NULL): the gate above; max_kc: the widest cluster to take
+// (1..16); kc_out (host, or NULL): the cluster width launched
 extern "C" int ktt_fit_scan(const void* sf, const void* pod_req, const void* pod_valid,
                             const void* alloc_t, void* used_t, const void* score_idx, int K,
                             unsigned score_mask, const void* shape_xy, int n_shape, int strategy,
                             float fit_w, float bal_w, int P, int N, int R, void* choices,
                             void* n_scored, const void* used_in, int n_real, const void* done,
-                            void* stream) {
+                            int max_kc, int* kc_out, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (R < 1 || R > MAX_R || K < 1 || K > MAX_K || n_shape < 1 || n_shape > MAX_SHAPE ||
-      N % 16 != 0 || n_real > N || used_in == nullptr || P < 0)
+      N % UNIT != 0 || N < UNIT || n_real > N || used_in == nullptr || P < 0 || max_kc < 1 || max_kc > MAX_KC ||
+      strategy < LEAST_ALLOCATED || strategy > REQUESTED_TO_CAPACITY_RATIO)
     return (int)cudaErrorInvalidValue;
   const Params prm{score_mask, 1.0f / (float)K, n_shape, strategy, fit_w, bal_w};
-  switch (K) {
-#define KTT_CASE(k)                                                                            \
-  case k:                                                                                      \
-    return (int)launch<k>(sf, pod_req, pod_valid, alloc_t, used_t, score_idx, shape_xy, prm, P, \
-                          N, R, choices, n_scored, used_in, n_real, done, st);
-    KTT_CASE(1) KTT_CASE(2) KTT_CASE(3) KTT_CASE(4)
-    KTT_CASE(5) KTT_CASE(6) KTT_CASE(7) KTT_CASE(8)
+  switch (strategy * 16 + K) {
+#define KTT_CASE(s, k)                                                                                  \
+  case s * 16 + k:                                                                                      \
+    return (int)launch<s, k>(sf, pod_req, pod_valid, alloc_t, used_t, score_idx, shape_xy, prm, P, N, R, \
+                             choices, n_scored, used_in, n_real, done, max_kc, kc_out, st);
+#define KTT_CASES(s) \
+  KTT_CASE(s, 1) KTT_CASE(s, 2) KTT_CASE(s, 3) KTT_CASE(s, 4) KTT_CASE(s, 5) KTT_CASE(s, 6) KTT_CASE(s, 7) KTT_CASE(s, 8)
+    KTT_CASES(0) KTT_CASES(1) KTT_CASES(2)
+#undef KTT_CASES
 #undef KTT_CASE
   }
   return (int)cudaErrorInvalidValue;

@@ -1,5 +1,7 @@
 // The card's SM count and the blocks an SM holds of a kernel, for grids
-// sized to one wave (class_hoist.cu K4, stitch_planes.cu K17).  The
+// sized to one wave (class_hoist.cu K4, stitch_planes.cu K17), and the
+// widest thread-block cluster the card schedules (fit_scan.cu K2,
+// full_scan.cu K11).  The
 // runtime's answers are kept (the SM count per device, the occupancy per
 // launch site in a static Occupancy beside the launch, asked again only
 // when the device, the block size or the dynamic shared memory changes):
@@ -51,6 +53,55 @@ cudaError_t blocks_per_sm(Occupancy& memo, Kernel kernel, int dev, int threads, 
   }
   *per_sm = memo.per_sm;
   return cudaSuccess;
+}
+
+// Whether the card schedules one cluster of kc blocks of `threads` threads
+// with `smem` bytes of dynamic shared memory each of `kernel` (a launch
+// that allows non-portable cluster sizes, above 8).  A refused query
+// leaves no error behind.
+template <class Kernel>
+bool cluster_fits(Kernel kernel, int kc, int threads, size_t smem) {
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess) {
+    cudaGetLastError();
+    return false;
+  }
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kc;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kc);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const bool ok = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg) == cudaSuccess && clusters >= 1;
+  cudaGetLastError();
+  return ok;
+}
+
+// One thread-block cluster of kc blocks on the stream: the launch of K2's
+// and K11's one-device scans.
+template <class Kernel, class... Args>
+cudaError_t launch_cluster(Kernel kernel, int kc, int threads, size_t smem, cudaStream_t st, Args... args) {
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kc;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kc);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace ktt

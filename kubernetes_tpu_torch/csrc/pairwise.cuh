@@ -15,7 +15,10 @@
 // -fmad=false.  The state planes are [T, N] f32 in global memory (L2
 // resident at config 3: 3 x 80 x 6144 x 4 B = 5.9 MB) and every read of
 // mutable state goes through __ldcg: other blocks of a cooperative grid
-// write it between grid barriers.
+// write it between grid barriers.  K11 (one cluster) and K12's re-hoist
+// (a cluster a pod) walk a block's run of the node axis with the per-node
+// functions below, load a pod's slots a warp a section (load_pod_warps) and
+// combine each block's maxima across the cluster (block_max_into).
 //
 // Class-row mode (K12 on the resident class state, the JAX package's
 // schedule_scan_rounds(inc=), ops/assign.py:1613-1619, :1722-1753): with
@@ -380,6 +383,109 @@ __device__ void block_argmax(float& v, int& i, float* redv, int* redi) {
     }
 }
 
+// load_pod's slots of pod p, a warp a section (lanes over the slots, a
+// ballot's prefix keeping the slot order), warps w0 .. w0 + 6 of the block:
+// the request and flags, spread, required affinity (and whether the pod
+// matches all of it), anti, matched terms, preferred terms, host ports.
+// The caller synchronises.
+__device__ void load_pod_warps(const FullArgs& a, int p, PodSlots& ps, int w0 = 0) {
+  const int lane = threadIdx.x & 31, w = (int)(threadIdx.x >> 5) - w0;
+  const int64_t q = p;
+  const unsigned lt = (1u << lane) - 1u;
+  if (w == 0) {
+    for (int r = lane; r < a.R; r += 32) ps.req[r] = a.preq[q * a.R + r];
+    if (lane == 0) {
+      ps.valid = a.pvalid[p];
+      ps.prow = a.cls != nullptr ? (int64_t)a.cls[p] : q;
+      if (!a.pw) {
+        ps.n_sp = ps.n_af = ps.n_an = ps.n_m = 0;
+        ps.self_all = 1;
+      }
+      if (!a.pw || !a.ips) ps.n_pf = 0;
+      if (!a.ports) ps.n_port = 0;
+    }
+  } else if (a.pw && w == 1) {
+    const int t = lane < a.CS ? a.spread_t[q * a.CS + lane] : -1;
+    const unsigned b = __ballot_sync(PW_FULL, t >= 0);
+    if (t >= 0) {
+      const int k = __popc(b & lt);
+      ps.sp_t[k] = t;
+      ps.sp_skew[k] = a.skew[q * a.CS + lane];
+      ps.sp_hard[k] = a.hard[q * a.CS + lane];
+    }
+    if (lane == 0) ps.n_sp = __popc(b);
+  } else if (a.pw && w == 2) {
+    const int t = lane < a.A1 ? a.aff[q * a.A1 + lane] : -1;
+    const unsigned b = __ballot_sync(PW_FULL, t >= 0);
+    const unsigned other = __ballot_sync(PW_FULL, t >= 0 && !a.aself[q * a.A1 + lane]);
+    if (t >= 0) ps.af_t[__popc(b & lt)] = t;
+    if (lane == 0) {
+      ps.n_af = __popc(b);
+      ps.self_all = other == 0u;
+    }
+  } else if (a.pw && w == 3) {
+    const int t = lane < a.A2 ? a.anti[q * a.A2 + lane] : -1;
+    const unsigned b = __ballot_sync(PW_FULL, t >= 0);
+    if (t >= 0) ps.an_t[__popc(b & lt)] = t;
+    if (lane == 0) ps.n_an = __popc(b);
+  } else if (a.pw && w == 4) {
+    const int t = lane < a.M ? a.mt[q * a.M + lane] : -1;
+    const unsigned b = __ballot_sync(PW_FULL, t >= 0);
+    if (t >= 0) {
+      const int k = __popc(b & lt);
+      ps.m_t[k] = t;
+      ps.m_v[k] = a.mv[q * a.M + lane];
+    }
+    if (lane == 0) ps.n_m = __popc(b);
+  } else if (a.pw && a.ips && w == 5) {
+    const int t = lane < a.B ? a.pref_t[q * a.B + lane] : -1;
+    const unsigned b = __ballot_sync(PW_FULL, t >= 0);
+    if (t >= 0) {
+      const int k = __popc(b & lt);
+      ps.pf_t[k] = t;
+      ps.pf_w[k] = a.pref_w[q * a.B + lane];
+    }
+    if (lane == 0) ps.n_pf = __popc(b);
+  } else if (a.ports && w == 6) {
+    int n = 0;
+    for (int c0 = 0; c0 < a.PT; c0 += 32) {
+      const int c = c0 + lane;
+      const bool on = c < a.PT && a.pod_ports[q * a.PT + c];
+      const unsigned b = __ballot_sync(PW_FULL, on);
+      if (on) ps.port[n + __popc(b & lt)] = c;
+      n += __popc(b);
+    }
+    if (lane == 0) ps.n_port = n;
+  }
+}
+
+// the block's max of v[0..n) (n <= KR, the same in every thread) into
+// out[0..n) in shared memory: a warp shuffle per value, then thread k over
+// the warps' maxima of value k, in warp order.  Every thread calls it; it
+// begins and ends with a barrier.
+template <int KR>
+__device__ void block_max_into(float (&v)[KR], int n, float* red, float* out) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+#pragma unroll
+  for (int k = 0; k < KR; ++k) {
+    if (k >= n) break;
+    for (int off = 16; off > 0; off >>= 1) v[k] = fmaxf(v[k], __shfl_xor_sync(PW_FULL, v[k], off));
+  }
+  __syncthreads();
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < KR; ++k)
+      if (k < n) red[k * 32 + warp] = v[k];
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < n) {
+    float x = -INFINITY;
+    for (int w = 0; w < nw; ++w) x = fmaxf(x, red[threadIdx.x * 32 + w]);
+    out[threadIdx.x] = x;
+  }
+  __syncthreads();
+}
+
 // load pod p's request and slots into ps (thread 0); the caller syncs
 __device__ void load_pod(const FullArgs& a, int p, PodSlots& ps) {
   if (threadIdx.x != 0) return;
@@ -462,28 +568,23 @@ __device__ __forceinline__ void pod_scalars_finish(PodSlots& ps) {
   }
 }
 
-// the round-start pairwise scalars of the loaded pod on one device.  Every
-// thread calls it.
-__device__ void pod_scalars(const FullArgs& a, int p, PodSlots& ps, float* red) {
-  if (!a.pw) return;
-  pod_scalars_partial(a, p, ps, red);
-  if (threadIdx.x == 0) pod_scalars_finish(ps);
-  __syncthreads();
-}
-
 // node n's feasibility for the loaded pod (fit against the running usage,
 // ports, spread, inter-pod required), with its base score, spread raw and
-// inter-pod preferred raw
+// inter-pod preferred raw.  After the static bit no load waits on another
+// test's outcome (every test is folded into one flag, every load issued
+// unconditionally): a node costs about two L2 round trips instead of one a
+// test, where one node a thread leaves the row pass latency-bound (K11's
+// feasibility pass took 7.9 -> 4.7 us a pod at config 3).  The values, and
+// the op order of every sum, are the early-exit form's.
 __device__ __forceinline__ bool node_feasible(const FullArgs& a, int p, const PodSlots& ps, int n,
                                               float& base, float& sraw, float& ipraw) {
   if (!ps.valid || !pw_bit(a.sfs, ps.prow, a.W, n)) return false;
   const int64_t nr = (int64_t)n * a.R;
   const int* req = ps.req;
-  if (!fit_ok(a.R, [&](int r) { return req[r]; }, [&](int r) { return __ldcg(a.used + nr + r); },
-              [&](int r) { return a.alloc[nr + r]; }))
-    return false;
-  for (int k = 0; k < ps.n_port; ++k)
-    if (__ldcg(a.ports_used + (int64_t)n * a.PT + ps.port[k])) return false;
+  bool ok = true;
+  for (int r = 0; r < a.R; ++r)  // fit_ok
+    ok &= req[r] == 0 || req[r] <= wsub(a.alloc[nr + r], __ldcg(a.used + nr + r));
+  for (int k = 0; k < ps.n_port; ++k) ok &= !__ldcg(a.ports_used + (int64_t)n * a.PT + ps.port[k]);
   sraw = 0.0f;
   ipraw = 0.0f;
   if (a.pw) {
@@ -492,38 +593,49 @@ __device__ __forceinline__ bool node_feasible(const FullArgs& a, int p, const Po
       const int64_t i = (int64_t)ps.sp_t[c] * N + n;
       const bool hk = a.dbt[i] < D;
       const float cnt = __ldcg(a.cnt + i);
-      if (ps.sp_hard[c] && !(hk && cnt + 1.0f - ps.sp_mm[c] <= (float)ps.sp_skew[c])) return false;
+      if (ps.sp_hard[c]) ok &= hk && cnt + 1.0f - ps.sp_mm[c] <= (float)ps.sp_skew[c];
       sraw += hk ? cnt : 0.0f;
     }
     bool aff_all = true;
     for (int k = 0; k < ps.n_af; ++k) {
       const int64_t i = (int64_t)ps.af_t[k] * N + n;
-      aff_all = aff_all && a.dbt[i] < D && __ldcg(a.cnt + i) > 0.0f;
+      const bool hk = a.dbt[i] < D;
+      const float cnt = __ldcg(a.cnt + i);
+      aff_all = aff_all && hk && cnt > 0.0f;
     }
-    if (!(aff_all || ps.waiver)) return false;
+    ok &= aff_all || ps.waiver;
     for (int k = 0; k < ps.n_an; ++k) {
       const int64_t i = (int64_t)ps.an_t[k] * N + n;
-      if (a.dbt[i] < D && __ldcg(a.cnt + i) > 0.0f) return false;
+      const bool hk = a.dbt[i] < D;
+      const float cnt = __ldcg(a.cnt + i);
+      ok &= !(hk && cnt > 0.0f);
     }
     float blocked = 0.0f;
     for (int k = 0; k < ps.n_m; ++k) {
       const int64_t i = (int64_t)ps.m_t[k] * N + n;
-      blocked += (a.dbt[i] < D ? __ldcg(a.antin + i) : 0.0f) * ps.m_v[k];
+      const bool hk = a.dbt[i] < D;
+      const float x = __ldcg(a.antin + i);
+      blocked += (hk ? x : 0.0f) * ps.m_v[k];
     }
-    if (blocked != 0.0f) return false;
+    ok &= blocked == 0.0f;
     if (a.ips) {
       float own = 0.0f, sym = 0.0f;
       for (int k = 0; k < ps.n_pf; ++k) {
         const int64_t i = (int64_t)ps.pf_t[k] * N + n;
-        own += (a.dbt[i] < D ? __ldcg(a.cnt + i) : 0.0f) * ps.pf_w[k];
+        const bool hk = a.dbt[i] < D;
+        const float x = __ldcg(a.cnt + i);
+        own += (hk ? x : 0.0f) * ps.pf_w[k];
       }
       for (int k = 0; k < ps.n_m; ++k) {
         const int64_t i = (int64_t)ps.m_t[k] * N + n;
-        sym += (a.dbt[i] < D ? __ldcg(a.pref + i) : 0.0f) * ps.m_v[k];
+        const bool hk = a.dbt[i] < D;
+        const float x = __ldcg(a.pref + i);
+        sym += (hk ? x : 0.0f) * ps.m_v[k];
       }
       ipraw = own + sym;
     }
   }
+  if (!ok) return false;
   base = score_flat(a.sp, [&](int r) { return wadd(__ldcg(a.used + nr + r), req[r]); },
                     [&](int r) { return a.alloc[nr + r]; });
   return true;
@@ -553,7 +665,7 @@ __device__ __forceinline__ float node_total(const FullArgs& a, const RowScalars&
   return total;
 }
 
-// one pod's row, first pass (pod_scalars already run): feasibility and
+// one pod's row, first pass (the pod's scalars already combined): feasibility and
 // raws per node into the row scratch, and in m[5] the block's maxima of the
 // taint, node-affinity and spread raws and of +-the inter-pod raw over the
 // feasible nodes (every thread gets them).  Every thread calls it.
@@ -619,15 +731,6 @@ __device__ void row_total(const FullArgs& a, const PodSlots& ps, RowScalars sc, 
     s = sc;
   }
   __syncthreads();
-}
-
-// one pod's row on one device (pod_scalars already run): row_feas, the
-// scalars, row_total.  Every thread calls it.
-__device__ void row_pass(const FullArgs& a, int p, const PodSlots& ps, uint8_t* feas_r, float* base_r,
-                         float* sraw_r, float* ipraw_r, float* total_r, RowScalars& s, float* red, int* redi) {
-  float m[5];
-  row_feas(a, p, ps, feas_r, base_r, sraw_r, ipraw_r, m, red);
-  row_total(a, ps, row_scalars(m), feas_r, base_r, sraw_r, ipraw_r, total_r, 0, s, red, redi);
 }
 
 // commit entries of pod p placed on node `choice` (thread 0 only):

@@ -366,108 +366,6 @@ struct RepairX {
   __device__ int32_t* best(int par, int i, int q) const { return x + 6 * C + (((int64_t)par * C + i) * kc + q) * 2; }
 };
 
-// pairwise.cuh load_pod's slots of pod p, a warp a section (lanes over the
-// slots, a ballot's prefix keeping the slot order): the request and flags,
-// spread, required affinity (and whether the pod matches all of it), anti,
-// matched terms, preferred terms, host ports.  The caller synchronises.
-__device__ void load_pod_warps(const FullArgs& a, int p, PodSlots& ps) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int64_t q = p;
-  const unsigned lt = (1u << lane) - 1u;
-  if (w == 0) {
-    for (int r = lane; r < a.R; r += 32) ps.req[r] = a.preq[q * a.R + r];
-    if (lane == 0) {
-      ps.valid = a.pvalid[p];
-      ps.prow = a.cls != nullptr ? (int64_t)a.cls[p] : q;
-      if (!a.pw) {
-        ps.n_sp = ps.n_af = ps.n_an = ps.n_m = 0;
-        ps.self_all = 1;
-      }
-      if (!a.pw || !a.ips) ps.n_pf = 0;
-      if (!a.ports) ps.n_port = 0;
-    }
-  } else if (a.pw && w == 1) {
-    const int t = lane < a.CS ? a.spread_t[q * a.CS + lane] : -1;
-    const unsigned b = __ballot_sync(ktt::PW_FULL, t >= 0);
-    if (t >= 0) {
-      const int k = __popc(b & lt);
-      ps.sp_t[k] = t;
-      ps.sp_skew[k] = a.skew[q * a.CS + lane];
-      ps.sp_hard[k] = a.hard[q * a.CS + lane];
-    }
-    if (lane == 0) ps.n_sp = __popc(b);
-  } else if (a.pw && w == 2) {
-    const int t = lane < a.A1 ? a.aff[q * a.A1 + lane] : -1;
-    const unsigned b = __ballot_sync(ktt::PW_FULL, t >= 0);
-    const unsigned other = __ballot_sync(ktt::PW_FULL, t >= 0 && !a.aself[q * a.A1 + lane]);
-    if (t >= 0) ps.af_t[__popc(b & lt)] = t;
-    if (lane == 0) {
-      ps.n_af = __popc(b);
-      ps.self_all = other == 0u;
-    }
-  } else if (a.pw && w == 3) {
-    const int t = lane < a.A2 ? a.anti[q * a.A2 + lane] : -1;
-    const unsigned b = __ballot_sync(ktt::PW_FULL, t >= 0);
-    if (t >= 0) ps.an_t[__popc(b & lt)] = t;
-    if (lane == 0) ps.n_an = __popc(b);
-  } else if (a.pw && w == 4) {
-    const int t = lane < a.M ? a.mt[q * a.M + lane] : -1;
-    const unsigned b = __ballot_sync(ktt::PW_FULL, t >= 0);
-    if (t >= 0) {
-      const int k = __popc(b & lt);
-      ps.m_t[k] = t;
-      ps.m_v[k] = a.mv[q * a.M + lane];
-    }
-    if (lane == 0) ps.n_m = __popc(b);
-  } else if (a.pw && a.ips && w == 5) {
-    const int t = lane < a.B ? a.pref_t[q * a.B + lane] : -1;
-    const unsigned b = __ballot_sync(ktt::PW_FULL, t >= 0);
-    if (t >= 0) {
-      const int k = __popc(b & lt);
-      ps.pf_t[k] = t;
-      ps.pf_w[k] = a.pref_w[q * a.B + lane];
-    }
-    if (lane == 0) ps.n_pf = __popc(b);
-  } else if (a.ports && w == 6) {
-    int n = 0;
-    for (int c0 = 0; c0 < a.PT; c0 += 32) {
-      const int c = c0 + lane;
-      const bool on = c < a.PT && a.pod_ports[q * a.PT + c];
-      const unsigned b = __ballot_sync(ktt::PW_FULL, on);
-      if (on) ps.port[n + __popc(b & lt)] = c;
-      n += __popc(b);
-    }
-    if (lane == 0) ps.n_port = n;
-  }
-}
-
-// the block's max of v[0..n) (n <= KR, the same in every thread) into
-// out[0..n) in shared memory: a warp shuffle per value, then thread k over
-// the warps' maxima of value k, in warp order.  Every thread calls it; it
-// begins and ends with a barrier.
-template <int KR>
-__device__ void block_max_into(float (&v)[KR], int n, float* red, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < KR; ++k) {
-    if (k >= n) break;
-    for (int off = 16; off > 0; off >>= 1) v[k] = fmaxf(v[k], __shfl_xor_sync(ktt::PW_FULL, v[k], off));
-  }
-  __syncthreads();
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < KR; ++k)
-      if (k < n) red[k * 32 + warp] = v[k];
-  }
-  __syncthreads();
-  if ((int)threadIdx.x < n) {
-    float x = -INFINITY;
-    for (int w = 0; w < nw; ++w) x = fmaxf(x, red[threadIdx.x * 32 + w]);
-    out[threadIdx.x] = x;
-  }
-  __syncthreads();
-}
-
 // A1: the pod's required-affinity waiver (thread 0) and, per spread slot,
 // this block's max of -count over its keyed eligible nodes [lo, hi) ->
 // m.part (the JAX pmin's partial, combined across the cluster)
@@ -494,7 +392,7 @@ __device__ void slice_spread(const FullArgs& a, const FullArgs* views, const Axi
       if (g.dbt[i] < a.D) v[c] = fmaxf(v[c], -__ldcg(g.cnt + i));
     }
   }
-  block_max_into(v, ps.n_sp, m.red, m.part);
+  ktt::block_max_into(v, ps.n_sp, m.red, m.part);
 }
 
 // A2 and A3 on the run [lo, hi): feasibility, raws and the five maxima
@@ -524,7 +422,7 @@ __device__ void slice_rows(const FullArgs& a, const FullArgs* views, const Axis&
     mx[3] = fmaxf(mx[3], ipraw);
     mx[4] = fmaxf(mx[4], -ipraw);
   }
-  block_max_into(mx, 5, m.red, m.part5);
+  ktt::block_max_into(mx, 5, m.red, m.part5);
   KTT_PHASE(PH_FEAS);
   cl.sync();
   KTT_PHASE(PH_CLUSTER);
@@ -928,7 +826,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) rounds_kernel(FullArgs a, ktt::Sha
 #endif
   for (int c0p = 0; c0p < a.P; c0p += C) {
     const int p = c0p + b;
-    load_pod_warps(a, p, m.ps);
+    ktt::load_pod_warps(a, p, m.ps);
     if (tid < C) {
       m.committed[tid] = 0;
       m.out[tid] = -1;

@@ -15,7 +15,8 @@ class-wave route); packed_static_rows (K7, class_hoist.cu) and
 chunk_rounds_dense (K8) (the dense chunked route); unpack_planes (K9, the
 encoder's packed transfers); score_planes (K10), full_scan (K11, the
 per-pod route over the full stage set) and rounds (K12, the rounds route,
-dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh;
+dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh; K2 and
+K11 on one device are one thread-block cluster each (SCAN_CLUSTER);
 gang_quorum (K13, gang.cu: the gang fixpoint's quorum check and
 revocation); explain_counts (K14, explain.cu: the unschedulable
 diagnosis's reason counts) and preempt_eval (K15, preempt.cu: the batched
@@ -104,7 +105,7 @@ _F = ctypes.c_float
 # kernel -> (C entry, argtypes)
 _ARGTYPES = {
     "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 8 + [_P]),
-    "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _P]),
+    "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P]),
     "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 8 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P]),
     "wave_commit": ("ktt_wave_commit", [_P] * 24 + [_I] * 8 + [_P]),
@@ -113,7 +114,7 @@ _ARGTYPES = {
     "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 17 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
     "score_planes": ("ktt_score_planes", [_P] * 9 + [_I] * 7 + [_P]),
-    "full_scan": ("ktt_full_scan", [_P] * 9),
+    "full_scan": ("ktt_full_scan", [_P] * 7 + [_I, _P, _P]),
     "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
     "gang_quorum": ("ktt_gang_quorum", [_P] * 9 + [_I, _I, _P]),
     "explain_counts": ("ktt_explain_counts", [_P] * 17 + [_I] * 9 + [_P]),
@@ -127,9 +128,19 @@ _ARGTYPES = {
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
 MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
-# fit_scan double-buffers two sf rows in shared memory: 2 * N bytes of the
-# 227 KB a block may have, less what its static buffers take
-MAX_SCAN_NODES = (232448 - 1024) // 2
+# fit_scan double-buffers its run of two sf rows in shared memory: at a
+# cluster of one block 2 * N bytes of the 227 KB a block may have, less what
+# its static buffers take
+MAX_SCAN_NODES = (232448 - 2048) // 2
+# the one-device per-pod scans K2 and K11 (csrc/fit_scan.cu, full_scan.cu)
+# run as one thread-block cluster: the widest the card schedules up to the
+# kernel's cap, 16 blocks for K2 (a non-portable size on an H100), 8 for K11
+# (three cluster barriers a pod: measured faster at 8 than at 16 on an H100,
+# PERF.md); the C entries refuse more than MAX_CLUSTER.  LAST_CLUSTER holds
+# the width of each one's last launch.
+MAX_CLUSTER = 16
+SCAN_CLUSTER: Dict[str, int] = {"fit_scan": 16, "full_scan": 8}
+LAST_CLUSTER: Dict[str, int] = {"fit_scan": 0, "full_scan": 0}
 
 # limits of the class-wave kernels (csrc/wave_commit.cu, topk.cuh): wave
 # block <= 64 pods, candidate lists <= 256 entries.  wave_commit's shared
@@ -337,9 +348,19 @@ def fit_scan_out(arr, cfg) -> FitOut:
                   torch.tensor([x for x, _ in shape] + [y for _, y in shape], dtype=torch.float32, device=dev))
 
 
-def fit_scan(sf: torch.Tensor, arr, cfg, done: Optional[torch.Tensor] = None,
-             out: Optional[FitOut] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The fit-only commit scan on the card (csrc/fit_scan.cu).
+def _cluster_arg(name: str, cluster: Optional[int]) -> int:
+    kc = SCAN_CLUSTER[name] if cluster is None else int(cluster)
+    if not 1 <= kc <= MAX_CLUSTER:
+        raise ValueError(f"the per-pod scans take a cluster of 1..{MAX_CLUSTER} blocks, got {cluster}")
+    return kc
+
+
+def fit_scan(sf: torch.Tensor, arr, cfg, done: Optional[torch.Tensor] = None, out: Optional[FitOut] = None,
+             cluster: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fit-only commit scan on the card (csrc/fit_scan.cu): one
+    thread-block cluster, the widest the card schedules up to `cluster`
+    blocks (SCAN_CLUSTER["fit_scan"] when None; LAST_CLUSTER["fit_scan"]
+    the width launched).
 
     -> (choices i32[P], node_used i32[N, R] (a view of out.used_t), n_scored
     i64[1]: the number of (pod, node) pairs that passed fit and were
@@ -355,6 +376,7 @@ def fit_scan(sf: torch.Tensor, arr, cfg, done: Optional[torch.Tensor] = None,
     _check(sf, "sf", torch.bool, (P, N), dev)
     Np = _fit_checks(arr, cfg)
     _check_done(done, dev)
+    max_kc = _cluster_arg("fit_scan", cluster)
     fn = _fn("fit_scan")
     K = len(cfg.score_resources)
     shape = cfg.rtcr_shape
@@ -369,17 +391,19 @@ def fit_scan(sf: torch.Tensor, arr, cfg, done: Optional[torch.Tensor] = None,
         padded = torch.zeros((P, Np), dtype=torch.bool, device=dev)
         padded[:, :N] = sf
         sf = padded
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    kc = ctypes.c_int(0)
+    with _on(dev):
         err = fn(
             sf.data_ptr(), arr.pod_req.data_ptr(), arr.pod_valid.data_ptr(),
             out.alloc_t.data_ptr(), out.used_t.data_ptr(), out.score_idx.data_ptr(), K,
             sum(1 << i for i in set(cfg.score_resources)), out.shape_xy.data_ptr(), len(shape),
             STRATEGY_CODES[cfg.fit_strategy], float(cfg.fit_weight), float(cfg.balanced_weight), P, Np, R,
-            out.choices.data_ptr(), out.n_scored.data_ptr(), arr.node_used.data_ptr(), N, _ptr(done), stream,
+            out.choices.data_ptr(), out.n_scored.data_ptr(), arr.node_used.data_ptr(), N, _ptr(done), max_kc,
+            ctypes.byref(kc), _stream(dev),
         )
     _raise_on(err, "fit_scan")
     LAUNCHES["fit_scan"] += 1
+    LAST_CLUSTER["fit_scan"] = kc.value
     return out.choices, out.used_t[:, :N].t(), out.n_scored
 
 
@@ -957,27 +981,30 @@ def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optio
 
 
 def full_scan(arr, cfg, sfs: torch.Tensor, eligs: Optional[torch.Tensor], planes, with_state: bool = False,
-              done: Optional[torch.Tensor] = None, out: Optional[ScanOut] = None):
+              done: Optional[torch.Tensor] = None, out: Optional[ScanOut] = None, cluster: Optional[int] = None):
     """K11 (csrc/full_scan.cu): the per-pod scan over the full stage set in
-    one launch, from K7's packed static (and eligibility) planes and
-    score_planes' (traw, naraw) -> (choices i32[P], used i32[N, R]), and
-    with `with_state` the final pairwise state (cnt, anti, pref, total,
-    ports), views of out's buffers.  `done` (i32[1] on the card): the
+    one launch of one thread-block cluster (the widest the card schedules
+    up to `cluster` blocks: SCAN_CLUSTER["full_scan"] when None;
+    LAST_CLUSTER["full_scan"] the width launched), from K7's packed static
+    (and eligibility) planes and score_planes' (traw, naraw) -> (choices
+    i32[P], used i32[N, R]), and with `with_state` the final pairwise state
+    (cnt, anti, pref, total, ports), views of out's buffers.  `done` (i32[1] on the card): the
     launch returns at entry once it is set; `out` (scan_out(arr)): the
     buffers to write, a fresh set when None."""
     dev = arr.device
     _need_cuda(dev, "full_scan")
+    max_kc = _cluster_arg("full_scan", cluster)
     if out is None:
         out = scan_out(arr)
     ptrs, dims, sw, wp, ip, fp = _full_args(arr, cfg, sfs, eligs, planes, out, done=done)
     fn = _fn("full_scan")
-    N = arr.N
-    scratch = torch.empty((4 * 4 * N + N,), dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
+    kc = ctypes.c_int(0)
+    with _on(dev):
         err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), out.choices.data_ptr(),
-                 scratch.data_ptr(), _stream(dev))
+                 max_kc, ctypes.byref(kc), _stream(dev))
     _raise_on(err, "full_scan")
     LAUNCHES["full_scan"] += 1
+    LAST_CLUSTER["full_scan"] = kc.value
     st = dict(out.state)
     used = st.pop("used")
     return (out.choices, used, st) if with_state else (out.choices, used)

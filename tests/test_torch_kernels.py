@@ -132,6 +132,90 @@ def test_wrappers_refuse_bad_inputs(card):
         kernels.fit_scan(sf, arr, dataclasses.replace(cfg, score_resources=(0, 9)))
 
 
+def _fit_cfg(strategy, score_resources):
+    name, shape = STRATEGIES[strategy]
+    return dataclasses.replace(
+        DEFAULT_SCORE_CONFIG, fit_strategy=name, rtcr_shape=shape, enable_pairwise=False, enable_ports=False,
+        enable_taint_score=False, enable_node_pref=False, enable_image=False, score_resources=score_resources,
+        fit_weight=1.3, balanced_weight=0.7)
+
+
+@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+def test_fit_scan_every_strategy_and_k(card, strategy, K):
+    """One kernel a (strategy, K) pair: each == plain."""
+    arr = _random_arrays(10 + K, P=64, N=700, R=8)
+    _check_fit_scan(arr, _check_static_feasible(arr), _fit_cfg(strategy, tuple(range(K))))
+
+
+@pytest.mark.parametrize("P", [1, 8, 512])
+@pytest.mark.parametrize("N,cluster", [(997, 16), (997, 7), (4000, 16), (4000, 3), (40, 16), (1300, 1)])
+def test_fit_scan_cluster_shapes(card, P, N, cluster):
+    """Runs of whole 16-node units over N padded to 16 (997 -> 1008: no
+    multiple of kc x 16), every cluster cap, P = 1, 8 and 512."""
+    import torch_perpod_cases as pc
+
+    arr = _random_arrays(P + N, P=P, N=N)
+    sf = _check_static_feasible(arr)
+    cfg = _fit_cfg("least", (0, 1, 3))
+    ck, uk, _ = kernels.fit_scan(sf, arr, cfg, cluster=cluster)
+    cp, up = schedule_scan_plain(arr, cfg, sf=sf)
+    assert torch.equal(ck, cp) and torch.equal(uk, up)
+    assert 1 <= kernels.LAST_CLUSTER["fit_scan"] <= pc.fit_width(cluster, -(-N // 16) * 16)
+
+
+def test_fit_scan_runs_without_feasible_nodes_and_boundary_ties(card):
+    """A block's run with no feasible node; equal top scores on the two sides
+    of every run boundary (identical nodes: the lower id wins)."""
+    import torch_perpod_cases as pc
+
+    P, N = 48, 4096
+    arr = _random_arrays(3, P=P, N=N)
+    sf = _check_static_feasible(arr)
+    cfg = _fit_cfg("most", (0, 1))
+    kernels.fit_scan(sf, arr, cfg)
+    kc = kernels.LAST_CLUSTER["fit_scan"]
+    bounds = [pc.fit_run_lo(q, kc, N) for q in range(kc + 1)]
+    dead = sf.clone()
+    dead[:, bounds[0]:bounds[1]] = False  # the first block sees no feasible node
+    if kc > 2:
+        dead[:, bounds[2]:bounds[3]] = False
+    ck, uk, _ = kernels.fit_scan(dead, arr, cfg)
+    cp, up = schedule_scan_plain(arr, cfg, sf=dead)
+    assert torch.equal(ck, cp) and torch.equal(uk, up)
+    same = dataclasses.replace(arr, node_alloc=torch.full_like(arr.node_alloc, 4000),
+                               node_used=torch.zeros_like(arr.node_used),
+                               pod_req=torch.full_like(arr.pod_req, 10), pod_valid=torch.ones_like(arr.pod_valid))
+    for b in bounds[1:-1]:
+        edge = torch.zeros((P, N), dtype=torch.bool, device=card)
+        edge[:, b - 1:b + 1] = True  # the last node of one run and the first of the next
+        ck, uk, _ = kernels.fit_scan(edge, same, cfg)
+        cp, up = schedule_scan_plain(same, cfg, sf=edge)
+        assert torch.equal(ck, cp) and torch.equal(uk, up)
+        assert int(ck[0]) == b - 1
+
+
+@pytest.mark.parametrize("N,cluster", [(1008, 1), (20000, 16)])
+def test_fit_scan_wide_r_off_the_shared_memory(card, N, cluster):
+    """R = 32 over a run too long for its usage and allocatable to stay in
+    shared memory (8 R bytes a node): the global columns."""
+    arr = _random_arrays(7, P=40, N=N, R=32)
+    sf = _check_static_feasible(arr)
+    cfg = _fit_cfg("rtcr", (0, 5, 31))
+    ck, uk, n = kernels.fit_scan(sf, arr, cfg, cluster=cluster)
+    cp, up = schedule_scan_plain(arr, cfg, sf=sf)
+    assert torch.equal(ck, cp) and torch.equal(uk, up) and int(n.item()) > 0
+
+
+def test_fit_scan_refuses_a_cluster_cap_out_of_range(card):
+    arr, _ = encode_snapshot(mixed(), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    sf = kernels.static_feasible(arr)
+    for cap in (0, kernels.MAX_CLUSTER + 1):
+        with pytest.raises(ValueError, match="cluster"):
+            kernels.fit_scan(sf, arr, cfg, cluster=cap)
+
+
 # ---------------------------------------------------------------------------
 # the class-wave kernels: class_static_hoist, class_usage_hoist (full and
 # column list), wave_commit, chunk_rounds, each against its plain version

@@ -270,6 +270,59 @@ def test_rounds_kernel_matches_plain(card, name, rchunk, repair_iters):
     assert kernels.read_sweeps(ks) == ps and _state_equal(kst, pst)
 
 
+def _full_case(arr, cfg, cluster=None, sfs=None):
+    if sfs is None:
+        sfs, _ = kernels.packed_static_rows(arr, with_elig=True)
+    eligs = kernels.packed_static_rows(arr, with_elig=True)[1]
+    planes = assign.score_planes(arr, cfg)
+    kc, ku, kst = kernels.full_scan(arr, cfg, sfs, eligs, planes, with_state=True, cluster=cluster)
+    pc, pu, pst = assign.schedule_scan_plain(arr, cfg, sf=bitplane.unpack(sfs, arr.N), planes=planes,
+                                             with_state=True)
+    assert torch.equal(kc, pc) and torch.equal(ku, pu) and _state_equal(kst, pst)
+    return kc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 8, 512])
+@pytest.mark.parametrize("cluster", [16, 5, 1])
+def test_full_scan_cluster_shapes(card, P, cluster):
+    """Runs of near-equal node counts (N = 301: no multiple of kc), every
+    cluster cap, P = 1, 8 and 512."""
+    import torch_perpod_cases as pc
+
+    arr, _ = encode_snapshot(tw.spread_affinity(301, 600, seed=4), device=card)
+    arr = arr.pod_prefix(P)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    _full_case(arr, cfg, cluster)
+    assert 1 <= kernels.LAST_CLUSTER["full_scan"] <= pc.full_width(cluster, arr.N)
+
+
+@pytest.mark.cuda
+def test_full_scan_runs_without_feasible_nodes_and_boundary_ties(card):
+    """A block's run with no feasible node (its static bits cleared); equal
+    top scores on the two sides of every run boundary (identical nodes, the
+    fit stages alone: the lower id wins)."""
+    import torch_perpod_cases as pc
+
+    arr, _ = encode_snapshot(tw.spread_affinity(700, 256, seed=5), device=card)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    _full_case(arr, cfg)
+    kc, N, P = kernels.LAST_CLUSTER["full_scan"], arr.N, arr.P
+    bounds = [pc.full_run_lo(q, kc, N) for q in range(kc + 1)]
+    sf = bitplane.unpack(kernels.packed_static_rows(arr), N)
+    sf[:, bounds[0]:bounds[1]] = False
+    _full_case(arr, cfg, sfs=bitplane.pack(sf))
+    fit = dataclasses.replace(cfg, enable_pairwise=False, enable_ports=False, enable_taint_score=False,
+                              enable_node_pref=False, enable_image=False, enable_interpod_score=False)
+    same = dataclasses.replace(arr, node_alloc=torch.full_like(arr.node_alloc, 10**6),
+                               node_used=torch.zeros_like(arr.node_used))
+    for b in bounds[1:-1]:
+        edge = torch.zeros((P, N), dtype=torch.bool, device=card)
+        edge[:, b - 1:b + 1] = True
+        kc_ = _full_case(same, fit, sfs=bitplane.pack(edge & arr.pod_valid[:, None]))
+        assert int(kc_[0]) == b - 1
+
+
 @pytest.mark.cuda
 def test_routes_launch_their_kernels(card):
     arr, _ = encode_snapshot(tw.spread_affinity(300, 1000, seed=1), device=card)

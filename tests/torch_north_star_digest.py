@@ -61,7 +61,10 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   per wave the scheduled count and the verdicts digest;
 - the explain leg: the north star's class reps (every class of the
   DeltaEncoder encode) through the JAX explain_classes at the dense step's
-  post-step usage -> F and the sha256 of the int64 counts.
+  post-step usage -> F and the sha256 of the int64 counts;
+- the perpod-small leg: cycles of the first 8 pending pods of the north
+  star and of config 3 on their clusters (P = 8: the per-pod scan) -> the
+  sha256 of each one's choices.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -72,8 +75,8 @@ there), the whole script about ten minutes and a few GB:
 
 (LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds,
 all-stages, config3-inc, config3-warm, gang-small, config5, gang-rounds,
-gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt or explain
-runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
+gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt, explain or
+perpod-small runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
 tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
 tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
 warm leg on spread_affinity(N_NODES, N_PODS) as tests/test_torch_rounds_inc.py
@@ -110,6 +113,25 @@ def per_pod_leg() -> None:
     choices, _ = schedule_batch(arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
     c = np.asarray(choices)[: meta.n_pods]
     print("per-pod: scheduled", int((c >= 0).sum()), "sha256", _sha(c), flush=True)
+
+
+def perpod_small_leg() -> None:
+    """A cycle of 8 pending pods (the first 8 of the north star's and of
+    config 3's, each on its cluster's nodes and bound pods): the JAX
+    package's schedule_batch (P = 8: its per-pod scan on every route) ->
+    the sha256 of each one's choices."""
+    import dataclasses
+
+    from kubernetes_tpu.api.snapshot import encode_snapshot
+    from kubernetes_tpu.bench.workloads import heterogeneous, spread_affinity
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config, schedule_batch
+
+    for tag, snap in (("north star", heterogeneous(20000, 50000, seed=0)),
+                      ("config 3", spread_affinity(5000, 10000, seed=0))):
+        arr, meta = encode_snapshot(dataclasses.replace(snap, pending_pods=snap.pending_pods[:8]))
+        choices, _ = schedule_batch(arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
+        c = np.asarray(choices)[: meta.n_pods]
+        print(f"perpod-small {tag}: P {arr.P} N {arr.N} choices {c.tolist()} sha256 {_sha(c)}", flush=True)
 
 
 def wave_leg(name: str) -> None:
@@ -421,7 +443,7 @@ LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": confi
         "config5": lambda: gang_leg(1000, 64, 2000, "config5"), "preempt": preempt_leg, "explain": explain_leg,
         "gang-rounds": gang_rounds_leg, "gang-contended": gang_contended_leg, "gang-pinned": gang_pinned_leg,
         "sidecar-north-star": lambda: sidecar_leg("sidecar-north-star"),
-        "sidecar-config5": lambda: sidecar_leg("sidecar-config5")}
+        "sidecar-config5": lambda: sidecar_leg("sidecar-config5"), "perpod-small": perpod_small_leg}
 
 
 def main() -> None:
@@ -445,7 +467,8 @@ def main() -> None:
             ("config3", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-rounds", {}),
             ("all-stages", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-inc", {}),
             ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {}), ("preempt", {}), ("explain", {}),
-            ("gang-rounds", {}), ("gang-contended", {}), ("gang-pinned", {}), ("sidecar-north-star", {}), ("sidecar-config5", {})]
+            ("gang-rounds", {}), ("gang-contended", {}), ("gang-pinned", {}), ("sidecar-north-star", {}), ("sidecar-config5", {}),
+            ("perpod-small", {})]
     for name, extra in runs:
         if only and name not in only:
             continue

@@ -365,6 +365,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns_ms(a, b, reps: int = 1) -> tuple:
+    """(a's, b's) mean milliseconds by cuda_ms, timed in turns a, b, b, a."""
+    ta, tb, tb2, ta2 = (cuda_ms(f, reps=reps) for f in (a, b, b, a))
+    return (ta + ta2) / 2, (tb + tb2) / 2
+
+
 def card_ms(fn, reps: int) -> float:
     """Mean card milliseconds of fn() where the host, not the card, would
     set the pace of back-to-back calls (gated launches return at once):
@@ -1753,12 +1759,15 @@ def phase_config3_perpod(c3) -> tuple:
 def phase_perpod_small() -> None:
     """A scheduling cycle of 8 pending pods through schedule_batch, the
     card's default route, on the north star's and on config 3's nodes:
-    exact launch counts, == the plain route on the CPU, the step's wall."""
+    exact launch counts, == the plain route on the CPU, the step's wall;
+    then the same cycle on make_mesh(4) (K1 x 4 + K2 in shard mode, or K7 x
+    4 + K11 in shard mode): == the one-device cycle and the JAX digest."""
     import torch
 
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
     from kubernetes_tpu_torch.bench import workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, kernels, schedule_batch
+    from kubernetes_tpu_torch.parallel import mesh as tm
 
     for tag, snap in (("north star", workloads.heterogeneous(**workloads.NORTH_STAR)),
                       ("config 3", workloads.spread_affinity(**workloads.CONFIG3))):
@@ -1792,6 +1801,25 @@ def phase_perpod_small() -> None:
               f"{'fit_scan' if fit else 'full_scan'} one cluster of {kc} blocks; choices {choices.tolist()} (the JAX "
               f"digest) and usage == the plain route on the CPU; step wall "
               f"{min(walls) * 1e3:.3f} ms (best of 3; {[round(w * 1e3, 3) for w in walls]})", flush=True)
+        # the same cycle on a node mesh of 4 shards: the shard mode of the per-pod scan
+        m = tm.make_mesh(4)
+        mtag = f"perpod-small {tag} {m}"
+        mkey = "fit_scan_shard" if fit else "full_scan_shard"
+        per = {k: 4 for k in want if not k.endswith("_scan")} | {mkey: 1}
+        (mc, mu), ml, m_first = sharded_counted(mtag, lambda: schedule_batch(arr, cfg, mesh=m), per, "sharded_plain")
+        digest_m = hashlib.sha256(mc[:meta.n_pods].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+        check(digest_m == workloads.PERPOD_SMALL_CHOICES_SHA256[tag], f"{mtag}: choices differ from JAX")
+        check(torch.equal(mc, choices) and torch.equal(mu[:arr.N], used) and not mu[arr.N:].any(),
+              f"{mtag}: != the one-device cycle")
+        mwalls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            schedule_batch(arr, cfg, mesh=m)
+            torch.cuda.synchronize()
+            mwalls.append(time.perf_counter() - t0)
+        print(f"[perpod-small] {tag} on {m}: launches {ml}, {mkey} one cluster of {kernels.LAST_CLUSTER[mkey]} "
+              f"blocks over the 4 shards' nodes; choices (the JAX digest) and usage == the one-device cycle; "
+              f"first call {m_first:.3f} s, step wall {min(mwalls) * 1e3:.3f} ms (best of 3)", flush=True)
 
 
 def phase_all_stages() -> list:
@@ -2891,16 +2919,6 @@ def sharded_counted(tag, fn, need: dict, route, default: bool = True):
     return out, launches, first_s
 
 
-def shard_x_bytes(kind: str, P: int, S: int) -> int:
-    """Bytes a shard-mode launch of K2 or K11 writes to its exchange, per
-    pod (K2: a (score, id) slot; K11: the minMatch, five scalars, the best
-    and its commit entries, 80 of 16 B at most).  K12's shard mode has no
-    exchange of its own: it is the one-device launch over every shard."""
-    if kind == "fit":
-        return P * S * 8
-    return P * S * (4 * 16 + 4 * 5 + 8 + 4 + 16 * 80)
-
-
 def mesh_frac_weights(S: int = 2) -> int:
     """tests/torch_rounds_contended_reference.py's frac-weights case
     (non-integer preferred inter-pod weights beside hardPodAffinityWeight on
@@ -3006,16 +3024,22 @@ def phase_mesh_north_star_perpod(ns) -> list:
     k2_err = mismatch(ck, cp) + mismatch(uk, up)
     check(k2_err == 0, f"mesh-north-star-perpod: fit_scan_shard != plain on the first {k} pods ({k2_err})")
     check(torch.equal(ck, choices[:k]), "mesh-north-star-perpod: prefix != full run")
-    k2_ms = cuda_ms(lambda: kernels.fit_scan_shard(sfs, sa, cfg), reps=2)
-    one_ms = cuda_ms(lambda: kernels.fit_scan(kernels.static_feasible(arr), arr, cfg), reps=1)
-    k2_bytes = P * N + 4 * P * R + P + 3 * 4 * N * R + 4 * P + shard_x_bytes("fit", P, 4)
-    n_scored = int(kernels.fit_scan(kernels.static_feasible(arr), arr, cfg)[2].item())
+    # the shard mode beside the same call's one-device K2, in turns
+    sf1 = kernels.static_feasible(arr)
+    k2_ms, one_ms = in_turns_ms(lambda: kernels.fit_scan_shard(sfs, sa, cfg), lambda: kernels.fit_scan(sf1, arr, cfg))
+    k2_kc = kernels.LAST_CLUSTER["fit_scan_shard"]
+    runs = kernels.scan_runs("fit_scan", 4, nl, k2_kc)
+    # the one-device function's bytes: the shard mode has no exchange of its own
+    k2_bytes = P * N + 4 * P * R + P + 3 * 4 * N * R + 4 * P
+    n_scored = int(kernels.fit_scan(sf1, arr, cfg)[2].item())
+    del sf1
     k2_bound, k2_by = bound(k2_bytes, n_scored * f32_ops_per_scored_node(cfg))
     print(f"[mesh-north-star-perpod] static_feasible (base) x 4 == plain per shard: {k1_ms:.4f} ms the four, "
           f"plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); fit_scan_shard == plain sharded scan on the "
           f"first {k} pods (plain {k2_plain:.1f} ms, host clock): {k2_ms:.3f} ms over all {P} pods "
-          f"({k2_ms / P * 1e3:.3f} us per pod; one device: static_feasible + fit_scan {one_ms:.3f} ms, same "
-          f"call), bound {k2_bound:.4f} ms ({k2_by})", flush=True)
+          f"({k2_ms / P * 1e3:.3f} us per pod), one cluster of {k2_kc} blocks ({sum(len(r) > 1 for r in runs)} of "
+          f"{len(runs)} runs span shards), beside the same call's one-device fit_scan {one_ms:.3f} ms in turns: "
+          f"shard / one device {k2_ms / one_ms:.3f}x; bound {k2_bound:.4f} ms ({k2_by})", flush=True)
     return [
         dict(name="static_feasible (base)", route="cuda", source="kubernetes_tpu_torch/csrc/static_feasible.cu",
              replaces="kubernetes_tpu/ops/assign.py:189 (schedule_scan's my_nodes under shard_map)",
@@ -3024,7 +3048,8 @@ def phase_mesh_north_star_perpod(ns) -> list:
         dict(name="fit_scan (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/fit_scan.cu",
              replaces="kubernetes_tpu/ops/assign.py:181 (axis_name; :320-326)", launches=launches["fit_scan_shard"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
-             plain_scope=f"first {k} pods", one_device_ms=one_ms),
+             plain_scope=f"first {k} pods", one_device_ms=one_ms, shard_over_one_device=k2_ms / one_ms,
+             cluster=k2_kc),
     ]
 
 
@@ -3131,19 +3156,24 @@ def phase_mesh_config3(c3, k12_row: dict, k11_row: dict) -> list:
         one_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, sfs1, eligs1, (None, None)), reps=3)
         one_i_ms = cuda_ms(lambda: kernels.rounds(arr, cfg, inc=inc1), reps=3)
         ki_ms = cuda_ms(lambda: kernels.rounds_shard(sa, cfg, inc=inc), reps=3)
-        kf_ms = cuda_ms(lambda: kernels.full_scan_shard(sa, cfg, sfs, eligs, nn), reps=1)
+        kf_ms, one_f_ms = in_turns_ms(lambda: kernels.full_scan_shard(sa, cfg, sfs, eligs, nn),
+                                      lambda: kernels.full_scan(arr, cfg, sfs1, eligs1, (None, None)))
+        kf_kc = kernels.LAST_CLUSTER["full_scan_shard"]
+        runs = kernels.scan_runs("full_scan", S, nl, kf_kc)
         k_bytes = full_bytes(arr)
         sw_ = w.CONFIG3_ROUNDS_SWEEPS
-        b12, b12_by = bound(k_bytes, k_ops)  # the one-device function's: no exchange of its own
-        b11, b11_by = bound(k_bytes + shard_x_bytes("full", P, S), k_ops)
+        # the one-device function's bound, K12's and K11's: no shard mode has an exchange of its own
+        b12, b12_by = bound(k_bytes, k_ops)
         print(f"[mesh-config3] {m}: rounds_shard dense / class rows == plain on the first "
               f"{MESH_ROUNDS_PREFIX_CHUNKS} chunks (plain {k12_plain:.1f} ms, host clock), full_scan_shard == plain "
               f"on the first {MESH_FULL_PREFIX} pods (plain {k11_plain:.1f} ms); all pods: rounds_shard dense "
               f"{kd_ms:.3f} ms ({kd_ms / sw_ * 1e3:.1f} us per round) beside the same call's one-device rounds "
               f"{one_ms:.3f} ms ({kd_ms / one_ms:.3f}x; [config3] {k12_row['ms']:.3f}), class rows {ki_ms:.3f} ms "
               f"beside one device's {one_i_ms:.3f} ms ({ki_ms / one_i_ms:.3f}x), full_scan_shard {kf_ms:.3f} ms "
-              f"({kf_ms / P * 1e3:.2f} us per pod; [config3-perpod] full_scan {k11_row['ms']:.3f}); bounds "
-              f"{b12:.4f} ms ({b12_by}) / {b11:.4f} ms ({b11_by})", flush=True)
+              f"({kf_ms / P * 1e3:.2f} us per pod), one cluster of {kf_kc} blocks ({sum(len(r) > 1 for r in runs)} "
+              f"of {len(runs)} runs span shards), beside the same call's one-device full_scan {one_f_ms:.3f} ms in "
+              f"turns ({kf_ms / one_f_ms:.3f}x; [config3-perpod] full_scan {k11_row['ms']:.3f}); bound "
+              f"{b12:.4f} ms ({b12_by})", flush=True)
         if S == 4:
             rows += [
                 dict(name="rounds (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/rounds.cu",
@@ -3159,8 +3189,8 @@ def phase_mesh_config3(c3, k12_row: dict, k11_row: dict) -> list:
                 dict(name="full_scan (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/full_scan.cu",
                      replaces="kubernetes_tpu/ops/assign.py:181 (axis_name; :252-344), ops/pairwise.py:56",
                      launches=pl["full_scan_shard"], max_abs_err=k11_err, ms=kf_ms, plain_ms=k11_plain,
-                     bound_ms=b11, bound_by=b11_by, library_ms=None, plain_scope=f"first {MESH_FULL_PREFIX} pods",
-                     shards=S),
+                     bound_ms=b12, bound_by=b12_by, library_ms=None, plain_scope=f"first {MESH_FULL_PREFIX} pods",
+                     shards=S, one_device_ms=one_f_ms, shard_over_one_device=kf_ms / one_f_ms, cluster=kf_kc),
             ]
         del sa, inc, cache
     return rows

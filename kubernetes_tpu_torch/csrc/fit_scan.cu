@@ -36,14 +36,14 @@
 //     total of fit_total, a template on the strategy and K (one kernel a
 //     (strategy, K) pair: no run-time branch on the strategy, the K scored
 //     resources in registers); each thread keeps its best (score desc,
-//     index asc; its nodes ascend), a warp shuffle tree and one
+//     position asc; its nodes ascend), a warp shuffle tree and one
 //     shared-memory pass reduce the block's key;
 //   - the key goes to the block's exchange slot (shared memory, two slots
 //     by the parity of the cluster barriers passed); after ONE cluster
 //     barrier warp 0 of every block reads the kc slots through distributed
 //     shared memory (map_shared_rank) and takes their best: the keys are
-//     (score, node id), so the best is the whole row's "highest score,
-//     lowest index" whatever the order it is folded in; the block whose run
+//     (score, axis position), so the best is the whole row's "highest
+//     score, lowest index" whatever the order it is folded in; the block whose run
 //     holds the choice adds the request to its usage.  A slot is rewritten
 //     two barriers later, after every block has passed the barrier between,
 //     so no block overwrites a slot another still reads.
@@ -66,18 +66,26 @@
 // run-time branch, spent ~20.7 us a pod at the north star issuing ~200
 // instructions a node on one SM's four schedulers.
 
-// SHARD MODE (fit_scan_shard_kernel; the JAX package's schedule_scan under
-// shard_map with every optional stage off): a cooperative grid of S
-// blocks, block s scanning node shard s's columns through its own pointers
-// (its sf rows, allocatable and running usage [R, Np], its first global
-// node id).  Per pod each block reduces its shard's best (score, global
-// id) as above and writes it to its slot of the exchange (xv, xi; two
-// slots per shard, by pod parity); after ONE grid barrier every block
-// takes the best of the S slots in shard order (the max of (score, -global
-// id): the JAX package's pmax of the best, then pmin of the ids that attain
-// it) and the owner shard adds the request to its column.  A pod's slot is
-// rewritten two pods later, after the next pod's barrier, so no block
-// overwrites a slot another still reads.
+// SHARD MODE (ktt_fit_scan_shard; the JAX package's schedule_scan under
+// shard_map with every optional stage off, ops/assign.py:181 with
+// axis_name, its _rmax then _rmin at :320-326): the same kernel, one
+// cluster, over the shard-major sequence of every shard's columns, each
+// shard's nl nodes padded to Np (a multiple of 16; a padding column has no
+// sf bit, so it is never chosen).  Block q's run is cut from that sequence
+// as above, so it may span shards or hold part of one: its sf pieces
+// stream from each shard's own rows (each thread's first piece found once
+// a launch) and its start usage comes from each shard's used_in, a node
+// read through its shard's pointers at its local column; the allocatable
+// and the usage are [R, S * Np] on the axis (shard s's columns a block the
+// wrapper lays out), so a run's state stays resident as on one device and
+// its columns are written back in place.  The keys
+// carry the axis position s * Np + j, which orders the real nodes as their
+// global ids s * nl + j do, so the cluster's fold picks "highest score,
+// lowest global id", the JAX pmax then pmin; the choice is written as the
+// global id.  The first shard mode, a cooperative grid of one block a
+// shard joined by a grid barrier and a global exchange every pod, ran the
+// north star on 4 shards on 4 SMs at 2.4x the one-device cluster's time.
+// The gated mode is refused in shard mode.
 //
 // Bounds on an H100: the bytes are sf read once (P*N, 1.05 GB at the
 // 50k x 20k shape) plus the small [N, R] / [P, R] arrays, >= 0.31 ms at
@@ -135,10 +143,6 @@ __device__ __forceinline__ float interp_shape(float util, const float* xs, const
   return out;
 }
 
-__device__ __forceinline__ int lane_of(const int4& v, int j) {
-  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
-}
-
 // fit_w * fit_score + bal_w * balanced_allocation of a node whose scored
 // resources' allocatable are al[k] and usage plus the pod's request uq[k]
 // (a node that passed fit, so the sum cannot wrap), strategy S
@@ -191,122 +195,34 @@ __device__ __forceinline__ float fit_total(const int (&al)[K], const int (&uq)[K
   return prm.fit_w * fit + prm.bal_w * bal;
 }
 
-// fit_total of node j (0..3) of a batch whose scored resources' allocatable
-// and usage are sa / su, for the pod whose request of scored resource k is
-// rqk[k], the strategy read at run time (the shard mode)
-template <int K>
-__device__ __forceinline__ float node_total(const int4 (&sa)[K], const int4 (&su)[K],
-                                            const int (&rqk)[K], int j, const float* s_xs,
-                                            const float* s_ys, const Params& prm) {
-  int al[K], uq[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    al[k] = lane_of(sa[k], j);
-    uq[k] = lane_of(su[k], j) + rqk[k];
-  }
-  if (prm.strategy == LEAST_ALLOCATED) return fit_total<LEAST_ALLOCATED, K>(al, uq, s_xs, s_ys, prm);
-  if (prm.strategy == MOST_ALLOCATED) return fit_total<MOST_ALLOCATED, K>(al, uq, s_xs, s_ys, prm);
-  return fit_total<REQUESTED_TO_CAPACITY_RATIO, K>(al, uq, s_xs, s_ys, prm);
+// The node axis: S shards of Np columns (Np a multiple of UNIT), shard s
+// the positions [s * Np, (s + 1) * Np), of which the first nl are its nodes
+// (global ids s * nl + j; the rest are padding, whose sf bit is never set).
+// One device: S = 1, Np = N, nl = the real node count.
+struct Axis {
+  int S, nl, Np;
+};
+
+// one node shard's own arrays (one device: the whole axis)
+struct FitShard {
+  const uint8_t* sf;       // [P, Np] its static rows
+  const int32_t* used_in;  // [nl, R] its start usage
+};
+
+struct FitShards {
+  FitShard sh[MAX_SHARDS];
+};
+
+// the shard of axis position g
+__device__ __forceinline__ int shard_of(int g, const Axis& ax) { return ax.S > 1 ? g / ax.Np : 0; }
+
+// the global node id of axis position g (g holds a node, not padding)
+__device__ __forceinline__ int global_id(int g, const Axis& ax) {
+  const int s = shard_of(g, ax);
+  return s * ax.nl + (g - s * ax.Np);
 }
 
-// cp.async row `row` of sf into shared buffer `dst` (N bytes, N % 16 == 0)
-__device__ __forceinline__ void prefetch_row(uint8_t* dst, const uint8_t* __restrict__ sf,
-                                             int row, int N) {
-  const uint8_t* src = sf + (int64_t)row * N;
-  for (int i = threadIdx.x * 16; i < N; i += NT * 16) __pipeline_memcpy_async(dst + i, src + i, 16);
-  __pipeline_commit();
-}
-
-// the best (score desc, node id asc) feasible node of the pod whose sf
-// row is `cur` and whose request is s_req: each thread keeps its best (it
-// visits its nodes in ascending order), a warp shuffle tree and one
-// shared-memory pass reduce the key, and warp 0 ends holding it (lane 0
-// the block's).  Node ids are id_base + n.
-template <int K>
-__device__ __forceinline__ void pod_best(const uint8_t* cur, int NQ, const int4* alloc4, const int4* used4,
-                                         const int (&sidx)[K], const int* s_req, int R, const float* s_xs,
-                                         const float* s_ys, const Params& prm, bool valid, int id_base,
-                                         unsigned long long& scored, float* s_best, int* s_node, float& best,
-                                         int& best_n) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  best = -INFINITY;
-  best_n = INT32_MAX;
-  if (valid) {
-    int rqk[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) rqk[k] = s_req[sidx[k]];
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(cur);
-    for (int q = tid; q < NQ; q += NT) {
-      const uint32_t m = words[q];
-      if (m == 0) continue;
-      bool ok0 = (m & 0xffu) != 0, ok1 = (m & 0xff00u) != 0;
-      bool ok2 = (m & 0xff0000u) != 0, ok3 = (m & 0xff000000u) != 0;
-      int4 sa[K], su[K];
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        sa[k] = alloc4[(int64_t)sidx[k] * NQ + q];
-        su[k] = used4[(int64_t)sidx[k] * NQ + q];
-        const int rq = rqk[k];
-        if (rq != 0) {  // a resource the pod does not request never blocks
-          ok0 &= rq <= sa[k].x - su[k].x;
-          ok1 &= rq <= sa[k].y - su[k].y;
-          ok2 &= rq <= sa[k].z - su[k].z;
-          ok3 &= rq <= sa[k].w - su[k].w;
-        }
-      }
-      for (int r = 0; r < R; ++r) {  // the requested resources not scored
-        const int rq = s_req[r];
-        if (rq == 0 || ((prm.score_mask >> r) & 1u)) continue;
-        const int4 a = alloc4[(int64_t)r * NQ + q];
-        const int4 u = used4[(int64_t)r * NQ + q];
-        ok0 &= rq <= a.x - u.x;
-        ok1 &= rq <= a.y - u.y;
-        ok2 &= rq <= a.z - u.z;
-        ok3 &= rq <= a.w - u.w;
-      }
-      const bool ok[4] = {ok0, ok1, ok2, ok3};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!ok[j]) continue;
-        ++scored;
-        const float total = node_total<K>(sa, su, rqk, j, s_xs, s_ys, prm);
-        if (total > best) {  // nodes ascend per thread: keeps the lowest index
-          best = total;
-          best_n = id_base + 4 * q + j;
-        }
-      }
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(0xffffffffu, best, off);
-    const int on = __shfl_down_sync(0xffffffffu, best_n, off);
-    if (better(ob, on, best, best_n)) {
-      best = ob;
-      best_n = on;
-    }
-  }
-  if (lane == 0) {
-    s_best[warp] = best;
-    s_node[warp] = best_n;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    best = s_best[lane];
-    best_n = s_node[lane];
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ob = __shfl_down_sync(0xffffffffu, best, off);
-      const int on = __shfl_down_sync(0xffffffffu, best_n, off);
-      if (better(ob, on, best, best_n)) {
-        best = ob;
-        best_n = on;
-      }
-    }
-  }
-}
-
-// the first node of block q's run: whole UNIT-node units, near-equal
+// the first position of block q's run: whole UNIT-node units, near-equal
 // (N a multiple of UNIT)
 __host__ __device__ __forceinline__ int run_lo(int q, int kc, int N) {
   return UNIT * (int)((int64_t)q * (N / UNIT) / kc);
@@ -315,16 +231,27 @@ __host__ __device__ __forceinline__ int run_lo(int q, int kc, int N) {
 // the longest run of a cluster of kc blocks
 inline int run_max(int kc, int N) { return UNIT * ((N / UNIT + kc - 1) / kc); }
 
-// cp.async of the `ns` bytes from node lo of sf row `row` into `dst` (lo
-// and ns multiples of 16)
-__device__ __forceinline__ void prefetch_run(uint8_t* dst, const uint8_t* __restrict__ sf, int row, int N,
-                                             int lo, int ns) {
-  const uint8_t* src = sf + (int64_t)row * N + lo;
-  for (int i = threadIdx.x * 16; i < ns; i += NT * 16) __pipeline_memcpy_async(dst + i, src + i, 16);
+// row 0's byte at run position i (a multiple of 16), in its shard's own sf
+// rows: a 16-byte piece never straddles two shards, Np being a multiple of 16
+__device__ __forceinline__ const uint8_t* sf_piece(const FitShard* sh, const Axis& ax, int lo, int i) {
+  const int g = lo + i, s = shard_of(g, ax);
+  return sh[s].sf + (g - s * ax.Np);
+}
+
+// cp.async of sf row `row` at the `ns` positions from lo into `dst` (lo and
+// ns multiples of 16); src0: this thread's first piece in row 0 (NULL past
+// the run), worked out once a launch, so a run of at most NT pieces costs
+// no shard lookup a pod
+__device__ __forceinline__ void prefetch_run(uint8_t* dst, const uint8_t* src0, const FitShard* sh,
+                                             const Axis& ax, int row, int lo, int ns) {
+  const int64_t off = (int64_t)row * ax.Np;
+  const int i0 = threadIdx.x * 16;
+  if (src0 != nullptr) __pipeline_memcpy_async(dst + i0, src0 + off, 16);
+  for (int i = i0 + NT * 16; i < ns; i += NT * 16) __pipeline_memcpy_async(dst + i, sf_piece(sh, ax, lo, i) + off, 16);
   __pipeline_commit();
 }
 
-// a block's best (score, node id), its exchange slot's content
+// a block's best (score, axis position), its exchange slot's content
 struct Key {
   float v;
   int n;
@@ -341,31 +268,32 @@ __device__ __forceinline__ void warp_best(float& v, int& n) {
   }
 }
 
-// the one-device scan: one cluster of kc blocks, block q on its run of the
-// node axis (the design above); `resident`: the run's allocatable and usage
-// live in shared memory (else in alloc_t / used_t, the run's columns)
-template <int S, int K>
+// The scan: one cluster of kc blocks, block q on its run of the node axis
+// (the design above), one device or shard mode alike; `resident`: the
+// run's allocatable and usage live in shared memory (else in alloc_t /
+// used_t, the run's columns)
+template <int ST, int K>
 __global__ void __launch_bounds__(NT) fit_scan_kernel(
-    const uint8_t* __restrict__ sf,        // [P, N]
+    FitShards tab, Axis ax,
     const int32_t* __restrict__ pod_req,   // [P, R]
     const uint8_t* __restrict__ pod_valid,  // [P]
-    const int32_t* __restrict__ alloc_t,   // [R, N]
-    int32_t* used_t,                       // [R, N], the final usage
+    const int32_t* __restrict__ alloc_t,   // [R, N] on the axis
+    int32_t* used_t,                       // [R, N] on the axis, the final usage
     const int32_t* __restrict__ score_idx,  // [K]
     const float* __restrict__ shape_xy,    // [2 * n_shape]: xs then ys
-    Params prm, int P, int N, int R,
-    int32_t* __restrict__ choices,  // [P]
+    Params prm, int P, int R,
+    int32_t* __restrict__ choices,  // [P] global node ids
     unsigned long long* __restrict__ n_scored,
-    const int32_t* __restrict__ used_in,  // [n_real, R]
-    int n_real,
     const int32_t* __restrict__ done,  // or NULL
     int resident) {
   if (done != nullptr && *done) return;  // every thread of every block reads the same word
   cg::cluster_group cl = cg::this_cluster();
   const int kc = (int)cl.num_blocks(), q = (int)cl.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int N = ax.S * ax.Np;
   const int lo = run_lo(q, kc, N), ns = run_lo(q + 1, kc, N) - lo;
   extern __shared__ __align__(16) uint8_t dyn[];  // [2][ns] sf bytes; resident: alloc, used [R][ns]
+  __shared__ FitShard s_sh[MAX_SHARDS];
   __shared__ int s_req[2][MAX_R];  // pods p, p+1
   __shared__ int s_valid[2];
   __shared__ float s_xs[MAX_SHAPE];
@@ -386,10 +314,15 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
     us = used_t + lo;
     ld = N;
   }
-  for (int i = tid; i < R * ns; i += NT) {  // the start state of the run
-    const int r = i / ns, j = i - r * ns, n = lo + j;
-    us[r * ld + j] = n < n_real ? used_in[(int64_t)n * R + r] : 0;
-    if (resident) al[r * ld + j] = alloc_t[(int64_t)r * N + n];
+#pragma unroll
+  for (int s = 0; s < MAX_SHARDS; ++s)  // static indices: a dynamic one copies the table to local memory
+    if (tid == s && s < ax.S) s_sh[s] = tab.sh[s];
+  __syncthreads();
+  const uint8_t* src0 = tid * 16 < ns ? sf_piece(s_sh, ax, lo, tid * 16) : nullptr;
+  for (int i = tid; i < R * ns; i += NT) {  // the start state of the run, each node's from its shard
+    const int r = i / ns, j = i - r * ns, g = lo + j, s = shard_of(g, ax), c = g - s * ax.Np;
+    us[r * ld + j] = c < ax.nl ? s_sh[s].used_in[(int64_t)c * R + r] : 0;
+    if (resident) al[r * ld + j] = alloc_t[(int64_t)r * N + g];
   }
   if (q == 0 && tid == 0) *n_scored = 0;
   if (tid < prm.n_shape) {
@@ -401,7 +334,7 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
   for (int k = 0; k < K; ++k) sidx[k] = score_idx[k];
   unsigned long long scored = 0;
   if (P > 0) {
-    prefetch_run(rows, sf, 0, N, lo, ns);
+    prefetch_run(rows, src0, s_sh, ax, 0, lo, ns);
     if (tid < R) s_req[0][tid] = pod_req[tid];
     if (tid == 0) s_valid[0] = pod_valid[0];
   }
@@ -413,7 +346,7 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
     const uint8_t* cur = rows + (p & 1) * ns;
     // the other buffer was last read in pod p-1, before its block barrier
     if (p + 1 < P) {
-      prefetch_run(rows + ((p + 1) & 1) * ns, sf, p + 1, N, lo, ns);
+      prefetch_run(rows + ((p + 1) & 1) * ns, src0, s_sh, ax, p + 1, lo, ns);
     } else {
       __pipeline_commit();
     }
@@ -454,8 +387,8 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
       }
       if (!ok) continue;
       ++scored;
-      const float total = fit_total<S, K>(ak, uq, s_xs, s_ys, prm);
-      if (total > best) {  // nodes ascend per thread: keeps the lowest index
+      const float total = fit_total<ST, K>(ak, uq, s_xs, s_ys, prm);
+      if (total > best) {  // positions ascend per thread: keeps the lowest
         best = total;
         best_n = lo + j;
       }
@@ -477,8 +410,8 @@ __global__ void __launch_bounds__(NT) fit_scan_kernel(
       Key k{-INFINITY, INT32_MAX};
       if (lane < kc) k = *cl.map_shared_rank(&slot[nb & 1], lane);
       warp_best(k.v, k.n);
-      const int choice = k.v > -INFINITY ? k.n : -1;
-      if (q == 0 && lane == 0) choices[p] = choice;
+      const int choice = k.v > -INFINITY ? k.n : -1;  // an axis position
+      if (q == 0 && lane == 0) choices[p] = choice >= 0 ? global_id(choice, ax) : -1;
       if (choice >= lo && choice < lo + ns)
         for (int r = lane; r < R; r += 32) us[r * ld + (choice - lo)] += req[r];
     }
@@ -504,13 +437,14 @@ struct ClusterChoice {
   size_t smem = 0;
 };
 
-template <int S, int K>
-cudaError_t launch(const void* sf, const void* pod_req, const void* pod_valid, const void* alloc_t,
-                   void* used_t, const void* score_idx, const void* shape_xy, const Params& prm,
-                   int P, int N, int R, void* choices, void* n_scored, const void* used_in, int n_real,
-                   const void* done, int max_kc, int* kc_out, cudaStream_t st) {
+template <int ST, int K>
+cudaError_t launch(const FitShards& tab, const Axis& ax, const void* pod_req, const void* pod_valid,
+                   const void* alloc_t, void* used_t, const void* score_idx, const void* shape_xy, const Params& prm,
+                   int P, int R, void* choices, void* n_scored, const void* done, int max_kc, int* kc_out,
+                   cudaStream_t st) {
   static ClusterChoice memo;
-  auto kernel = fit_scan_kernel<S, K>;
+  auto kernel = fit_scan_kernel<ST, K>;
+  const int N = ax.S * ax.Np;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -536,144 +470,40 @@ cudaError_t launch(const void* sf, const void* pod_req, const void* pod_valid, c
     memo = c;
   }
   if (kc_out != nullptr) *kc_out = memo.kc;
-  return ktt::launch_cluster(
-      kernel, memo.kc, NT, memo.smem, st, static_cast<const uint8_t*>(sf), static_cast<const int32_t*>(pod_req),
-      static_cast<const uint8_t*>(pod_valid), static_cast<const int32_t*>(alloc_t), static_cast<int32_t*>(used_t),
-      static_cast<const int32_t*>(score_idx), static_cast<const float*>(shape_xy), prm, P, N, R,
-      static_cast<int32_t*>(choices), static_cast<unsigned long long*>(n_scored),
-      static_cast<const int32_t*>(used_in), n_real, static_cast<const int32_t*>(done), memo.resident);
+  return ktt::launch_cluster(kernel, memo.kc, NT, memo.smem, st, tab, ax, static_cast<const int32_t*>(pod_req),
+                             static_cast<const uint8_t*>(pod_valid), static_cast<const int32_t*>(alloc_t),
+                             static_cast<int32_t*>(used_t), static_cast<const int32_t*>(score_idx),
+                             static_cast<const float*>(shape_xy), prm, P, R, static_cast<int32_t*>(choices),
+                             static_cast<unsigned long long*>(n_scored), static_cast<const int32_t*>(done),
+                             memo.resident);
 }
 
-
-// one node shard of a shard-mode launch
-struct FitShard {
-  const uint8_t* sf;       // [P, Np] the shard's static rows
-  const int32_t* alloc_t;  // [R, Np]
-  int32_t* used_t;         // [R, Np] its running usage
-  const int32_t* used_in;  // [nl, R] its start usage
-};
-
-struct FitShards {
-  FitShard sh[MAX_SHARDS];
-};
-
-template <int K>
-__global__ void __launch_bounds__(NT) fit_scan_shard_kernel(
-    FitShards tab, int S, int nl,
-    const int32_t* __restrict__ pod_req,   // [P, R]
-    const uint8_t* __restrict__ pod_valid,  // [P]
-    const int32_t* __restrict__ score_idx,  // [K]
-    const float* __restrict__ shape_xy,    // [2 * n_shape]
-    Params prm, int P, int N, int R,       // N: the shard's columns padded to 16
-    int32_t* __restrict__ choices,         // [P] global node ids
-    unsigned long long* __restrict__ n_scored,
-    float* xv, int32_t* xi) {              // [2, S] the exchange
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ __align__(16) uint8_t s_rows[];  // [2][N]: sf rows p, p+1
-  __shared__ int s_req[MAX_R];
-  __shared__ float s_xs[MAX_SHAPE];
-  __shared__ float s_ys[MAX_SHAPE];
-  __shared__ float s_best[NT / 32];
-  __shared__ int s_node[NT / 32];
-
-  const int s = blockIdx.x;
-  const FitShard sh = tab.sh[s];
-  const uint8_t* __restrict__ sf = sh.sf;
-  int32_t* used_t = sh.used_t;
-  const int base = s * nl;
-  const int tid = threadIdx.x;
-  for (int64_t i = tid; i < (int64_t)R * N; i += NT) {  // the shard's start state
-    const int r = (int)(i / N), n = (int)(i % N);
-    used_t[i] = n < nl ? sh.used_in[(int64_t)n * R + r] : 0;
-  }
-  if (s == 0 && tid == 0) *n_scored = 0;
-  if (tid < prm.n_shape) {
-    s_xs[tid] = shape_xy[tid];
-    s_ys[tid] = shape_xy[prm.n_shape + tid];
-  }
-  grid.sync();
-  int sidx[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) sidx[k] = score_idx[k];
-  const int NQ = N >> 2;
-  const int4* alloc4 = reinterpret_cast<const int4*>(sh.alloc_t);
-  const int4* used4 = reinterpret_cast<const int4*>(used_t);
-  unsigned long long scored = 0;
-
-  if (P > 0) prefetch_row(s_rows, sf, 0, N);
-  for (int p = 0; p < P; ++p) {
-    uint8_t* cur = s_rows + (p & 1) * N;
-    if (p + 1 < P) {
-      prefetch_row(s_rows + ((p + 1) & 1) * N, sf, p + 1, N);
-    } else {
-      __pipeline_commit();
-    }
-    __pipeline_wait_prior(1);
-    if (tid < R) s_req[tid] = pod_req[(int64_t)p * R + tid];
-    __syncthreads();
-    float best;
-    int best_n;
-    pod_best<K>(cur, NQ, alloc4, used4, sidx, s_req, R, s_xs, s_ys, prm, pod_valid[p], base, scored, s_best, s_node,
-                best, best_n);
-    if (tid == 0) {
-      xv[(p & 1) * S + s] = best;
-      xi[(p & 1) * S + s] = best_n;
-    }
-    grid.sync();
-    if (tid == 0) {
-      float v = -INFINITY;
-      int n = INT32_MAX;
-      for (int s2 = 0; s2 < S; ++s2) {  // shard order
-        const float v2 = __ldcg(xv + (p & 1) * S + s2);
-        const int n2 = __ldcg(xi + (p & 1) * S + s2);
-        if (better(v2, n2, v, n)) {
-          v = v2;
-          n = n2;
-        }
-      }
-      const int choice = (v > -INFINITY && pod_valid[p]) ? n : -1;
-      if (s == 0) choices[p] = choice;
-      if (choice >= base && choice < base + nl)  // the owner's column
-        for (int r = 0; r < R; ++r) used_t[(int64_t)r * N + (choice - base)] += s_req[r];
-    }
-    // orders the owner's commit before its threads read `used` for the next
-    // pod, and s_req's reads before it is overwritten
-    __syncthreads();
-  }
-  atomicAdd(n_scored, scored);
+// the limits both entries check -> 0, or cudaErrorInvalidValue
+int bad_args(int R, int K, int n_shape, int strategy, int P, int max_kc) {
+  return (R < 1 || R > MAX_R || K < 1 || K > MAX_K || n_shape < 1 || n_shape > MAX_SHAPE || P < 0 || max_kc < 1 ||
+          max_kc > MAX_KC || strategy < LEAST_ALLOCATED || strategy > REQUESTED_TO_CAPACITY_RATIO)
+             ? (int)cudaErrorInvalidValue
+             : 0;
 }
 
-template <int K>
-cudaError_t launch_shard(const FitShards& tab, int S, int nl, const void* pod_req, const void* pod_valid,
-                         const void* score_idx, const void* shape_xy, const Params& prm, int P, int N, int R,
-                         void* choices, void* n_scored, void* xv, void* xi, cudaStream_t st) {
-  const size_t smem = 2 * (size_t)N;
-  cudaError_t err = cudaFuncSetAttribute(fit_scan_shard_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, nsm = 0, coop = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fit_scan_shard_kernel<K>, NT, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1 || nsm * per_sm < S) return cudaErrorInvalidConfiguration;
-  const int32_t* rq = static_cast<const int32_t*>(pod_req);
-  const uint8_t* pv = static_cast<const uint8_t*>(pod_valid);
-  const int32_t* si = static_cast<const int32_t*>(score_idx);
-  const float* sxy = static_cast<const float*>(shape_xy);
-  int32_t* ch = static_cast<int32_t*>(choices);
-  unsigned long long* ns = static_cast<unsigned long long*>(n_scored);
-  float* xvp = static_cast<float*>(xv);
-  int32_t* xip = static_cast<int32_t*>(xi);
-  FitShards t = tab;
-  Params pr = prm;
-  void* args[] = {&t, &S, &nl, &rq, &pv, &si, &sxy, &pr, &P, &N, &R, &ch, &ns, &xvp, &xip};
-  err = cudaLaunchCooperativeKernel((void*)fit_scan_shard_kernel<K>, dim3(S), dim3(NT), args, smem, st);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+// the launch of the (strategy, K) pair's kernel
+int launch_any(const FitShards& tab, const Axis& ax, const void* pod_req, const void* pod_valid,
+               const void* alloc_t, void* used_t, const void* score_idx, int K, unsigned score_mask,
+               const void* shape_xy, int n_shape, int strategy, float fit_w, float bal_w, int P, int R, void* choices,
+               void* n_scored, const void* done, int max_kc, int* kc_out, cudaStream_t st) {
+  const Params prm{score_mask, 1.0f / (float)K, n_shape, strategy, fit_w, bal_w};
+  switch (strategy * 16 + K) {
+#define KTT_CASE(s, k)                                                                                             \
+  case s * 16 + k:                                                                                                 \
+    return (int)launch<s, k>(tab, ax, pod_req, pod_valid, alloc_t, used_t, score_idx, shape_xy, prm, P, R, choices, \
+                             n_scored, done, max_kc, kc_out, st);
+#define KTT_CASES(s) \
+  KTT_CASE(s, 1) KTT_CASE(s, 2) KTT_CASE(s, 3) KTT_CASE(s, 4) KTT_CASE(s, 5) KTT_CASE(s, 6) KTT_CASE(s, 7) KTT_CASE(s, 8)
+    KTT_CASES(0) KTT_CASES(1) KTT_CASES(2)
+#undef KTT_CASES
+#undef KTT_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -688,52 +518,34 @@ extern "C" int ktt_fit_scan(const void* sf, const void* pod_req, const void* pod
                             float fit_w, float bal_w, int P, int N, int R, void* choices,
                             void* n_scored, const void* used_in, int n_real, const void* done,
                             int max_kc, int* kc_out, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (R < 1 || R > MAX_R || K < 1 || K > MAX_K || n_shape < 1 || n_shape > MAX_SHAPE ||
-      N % UNIT != 0 || N < UNIT || n_real > N || used_in == nullptr || P < 0 || max_kc < 1 || max_kc > MAX_KC ||
-      strategy < LEAST_ALLOCATED || strategy > REQUESTED_TO_CAPACITY_RATIO)
-    return (int)cudaErrorInvalidValue;
-  const Params prm{score_mask, 1.0f / (float)K, n_shape, strategy, fit_w, bal_w};
-  switch (strategy * 16 + K) {
-#define KTT_CASE(s, k)                                                                                  \
-  case s * 16 + k:                                                                                      \
-    return (int)launch<s, k>(sf, pod_req, pod_valid, alloc_t, used_t, score_idx, shape_xy, prm, P, N, R, \
-                             choices, n_scored, used_in, n_real, done, max_kc, kc_out, st);
-#define KTT_CASES(s) \
-  KTT_CASE(s, 1) KTT_CASE(s, 2) KTT_CASE(s, 3) KTT_CASE(s, 4) KTT_CASE(s, 5) KTT_CASE(s, 6) KTT_CASE(s, 7) KTT_CASE(s, 8)
-    KTT_CASES(0) KTT_CASES(1) KTT_CASES(2)
-#undef KTT_CASES
-#undef KTT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  const int bad = bad_args(R, K, n_shape, strategy, P, max_kc);
+  if (bad || N % UNIT != 0 || N < UNIT || n_real > N || used_in == nullptr) return bad ? bad : (int)cudaErrorInvalidValue;
+  FitShards tab{};
+  tab.sh[0] = FitShard{static_cast<const uint8_t*>(sf), static_cast<const int32_t*>(used_in)};
+  return launch_any(tab, Axis{1, n_real, N}, pod_req, pod_valid, alloc_t, used_t, score_idx, K, score_mask, shape_xy,
+                    n_shape, strategy, fit_w, bal_w, P, R, choices, n_scored, done, max_kc, kc_out,
+                    reinterpret_cast<cudaStream_t>(stream));
 }
 
-// shard mode: shard_ptrs holds S rows of (sf [P, Np], alloc_t [R, Np],
-// used_t [R, Np], used_in [nl, R]); shard s owns the global ids
-// [s * nl, (s + 1) * nl); Np: nl padded to 16; xv / xi: the exchange [2, S]
+// shard mode: the same kernel over every shard's columns; shard_ptrs holds S
+// rows of (sf [P, Np], used_in [nl, R]); shard s owns the global ids
+// [s * nl, (s + 1) * nl); Np: nl padded to 16; alloc_t / used_t [R, S * Np]:
+// the allocatable and the final usage on the axis (shard s's columns
+// [s * Np, (s + 1) * Np)); max_kc / kc_out as ktt_fit_scan's.  No gated
+// mode.
 extern "C" int ktt_fit_scan_shard(const void* const* shard_ptrs, int S, int nl, const void* pod_req,
-                                  const void* pod_valid, const void* score_idx, int K, unsigned score_mask,
-                                  const void* shape_xy, int n_shape, int strategy, float fit_w, float bal_w, int P,
-                                  int Np, int R, void* choices, void* n_scored, void* xv, void* xi, void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (R < 1 || R > MAX_R || K < 1 || K > MAX_K || n_shape < 1 || n_shape > MAX_SHAPE || Np % 16 != 0 ||
-      nl > Np || S < 1 || S > MAX_SHARDS || P < 0)
-    return (int)cudaErrorInvalidValue;
+                                  const void* pod_valid, const void* alloc_t, void* used_t, const void* score_idx,
+                                  int K, unsigned score_mask, const void* shape_xy, int n_shape, int strategy,
+                                  float fit_w, float bal_w, int P, int Np, int R, void* choices, void* n_scored,
+                                  int max_kc, int* kc_out, void* stream) {
+  const int bad = bad_args(R, K, n_shape, strategy, P, max_kc);
+  if (bad || Np % UNIT != 0 || Np < UNIT || nl < 1 || nl > Np || S < 1 || S > MAX_SHARDS)
+    return bad ? bad : (int)cudaErrorInvalidValue;
   FitShards tab{};
-  for (int s = 0; s < S; ++s) {
-    const void* const* r = shard_ptrs + 4 * s;
-    tab.sh[s] = FitShard{static_cast<const uint8_t*>(r[0]), static_cast<const int32_t*>(r[1]),
-                         static_cast<int32_t*>(const_cast<void*>(r[2])), static_cast<const int32_t*>(r[3])};
-  }
-  const Params prm{score_mask, 1.0f / (float)K, n_shape, strategy, fit_w, bal_w};
-  switch (K) {
-#define KTT_CASE(k)                                                                                    \
-  case k:                                                                                              \
-    return (int)launch_shard<k>(tab, S, nl, pod_req, pod_valid, score_idx, shape_xy, prm, P, Np, R, choices, \
-                                n_scored, xv, xi, st);
-    KTT_CASE(1) KTT_CASE(2) KTT_CASE(3) KTT_CASE(4)
-    KTT_CASE(5) KTT_CASE(6) KTT_CASE(7) KTT_CASE(8)
-#undef KTT_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < S; ++s)
+    tab.sh[s] = FitShard{static_cast<const uint8_t*>(shard_ptrs[2 * s]),
+                         static_cast<const int32_t*>(shard_ptrs[2 * s + 1])};
+  return launch_any(tab, Axis{S, nl, Np}, pod_req, pod_valid, alloc_t, used_t, score_idx, K, score_mask, shape_xy,
+                    n_shape, strategy, fit_w, bal_w, P, R, choices, n_scored, nullptr, max_kc, kc_out,
+                    reinterpret_cast<cudaStream_t>(stream));
 }

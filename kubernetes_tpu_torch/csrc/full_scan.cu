@@ -60,26 +60,27 @@
 // thread 0 alone building the commit, took ~55 us a pod at config 3, 42 of
 // them in the feasibility pass (bench/perpod_scan.py --phases).
 
-// SHARD MODE (full_scan_shard_kernel, the JAX package's schedule_scan
+// SHARD MODE (full_scan_kernel<true>, the JAX package's schedule_scan
 // under shard_map, ops/assign.py:181 with axis_name, collectives at
-// :252-344): a cooperative grid of S blocks, block s working for node shard
-// s through its own pointers (pairwise.cuh shard_view; per shard its
-// planes, usage [nl, R], count planes, ports and its own copy of total_t).
-// The only memory the shards share is the exchange FullX, one slot per
-// shard per quantity; each shard writes only its own, and after a grid
-// barrier every block combines the S slots in shard order.  Per pod:
-//   1. (pairwise) each slot's partial max of -count -> barrier -> the max
-//      over shards, then inf -> 0 (the JAX pmin taken before it);
-//   2. row_feas -> the five partial maxima -> barrier -> their max: the
-//      normalisation scalars (_rmax);
-//   3. row_total: the shard's best (score, global id), and the commit
-//      entries its best node would make (the domain columns from its own
-//      dbt) -> barrier -> every block takes the best of the S slots (the
-//      max of (score, -global id): _rmax then _rmin), the owner adds the
-//      request and ports to its node, every block adds the winner's
-//      entries to its own count columns and its total_t copy.
-// Three grid barriers a pod (two without the pairwise stages).  A block
-// reads node-axis data only through its shard's pointers.
+// :252-344): the same kernel, one cluster, over S node shards of nl nodes,
+// shard s owning the global ids [s * nl, (s + 1) * nl).  A block's run is
+// one range of global ids cut as above and may span shards or hold part of
+// one.  A node is read and written through its shard's view (pairwise.cuh
+// shard_view / view_at: its planes, usage, count planes, ports and its own
+// total_t copy, at local ids), one FullArgs a shard in shared memory; the
+// row scratch is the block's shared memory by global id, as on one device.
+// Each JAX collective becomes the cluster's own combination: the spread
+// pmin and the five normalisation maxima (_rmax) are the cluster maxima
+// (order free); the keys carry the global id, so the fold is _rmax then
+// _rmin; the winner's commit entries take their domain columns from the
+// owner shard's dbt (_gather_at_nodes); the block whose run holds the
+// winner adds the usage and ports at its local id; every block applies the
+// entries to its run's count planes, and at the end every shard's total_t
+// copy takes the one sequence of adds.  The launch's own node-side
+// pointers are NULL in shard mode.  The first shard mode, a cooperative
+// grid of one block a shard joined by three grid barriers and a global
+// exchange a pod, took 2.1-2.4x the one-device cluster's time at config 3
+// on 4 / 5 shards.  The gated mode is refused in shard mode.
 //
 // Bounds on an H100 at config 3 (P = 10240, N = 6144, T = 80): the bytes
 // are the two packed planes (2 x 10240 x 192 words, 15.7 MB) and the pods'
@@ -189,21 +190,23 @@ __device__ __forceinline__ void waiver(PodSlots& ps, const float* tt) {
 
 // per hard spread slot of the loaded pod, this thread's max of -count over
 // its keyed eligible nodes among lo + i, i = tid, tid + nt, ... < ns (-inf:
-// none; min as -max(-x))
-__device__ __forceinline__ void spread_partial(const FullArgs& a, const PodSlots& ps, int lo, int ns,
-                                               float (&v)[ktt::PW_MAX_S]) {
+// none; min as -max(-x)), each node read through its view
+template <bool SH>
+__device__ __forceinline__ void spread_partial(const FullArgs& a, const FullArgs* views, int nl, const PodSlots& ps,
+                                               int lo, int ns, float (&v)[ktt::PW_MAX_S]) {
 #pragma unroll
   for (int c = 0; c < ktt::PW_MAX_S; ++c) v[c] = -INFINITY;
   if (!a.pw || !ps.valid || !has_hard(ps)) return;
   for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-    const int n = lo + i;
-    if (!ktt::pw_bit(a.eligs, ps.prow, a.W, n)) continue;
+    int l;
+    const FullArgs& g = ktt::view_at<SH>(a, views, nl, lo + i, l);
+    if (!ktt::pw_bit(g.eligs, ps.prow, g.W, l)) continue;
 #pragma unroll
     for (int c = 0; c < ktt::PW_MAX_S; ++c) {
       if (c >= ps.n_sp) break;
       if (!ps.sp_hard[c]) continue;
-      const int64_t j = (int64_t)ps.sp_t[c] * a.N + n;
-      if (a.dbt[j] < a.D) v[c] = fmaxf(v[c], -__ldcg(a.cnt + j));
+      const int64_t j = (int64_t)ps.sp_t[c] * g.N + l;
+      if (g.dbt[j] < a.D) v[c] = fmaxf(v[c], -__ldcg(g.cnt + j));
     }
   }
 }
@@ -228,20 +231,33 @@ __device__ __forceinline__ void block_max_to(float (&v)[KR], int n, float* red, 
   }
 }
 
-__global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32_t* choices) {
+// One device (SH false: `a` holds every node, tab is not read) or shard
+// mode (SH true: `a` the pod side with N the global node count S * nl, tab
+// the S shards' node-side pointers, each node read through its shard's
+// view at its local id)
+template <bool SH>
+__global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, ktt::ShardTable tab, int32_t* choices) {
   __shared__ ScanSmem m;
+  __shared__ FullArgs views[SH ? ktt::PW_MAX_SHARDS : 1];  // shard mode: each shard's view
   extern __shared__ __align__(16) float dyn[];
   if (a.done != nullptr && *a.done) return;  // every thread of every block reads the same word
   cg::cluster_group cl = cg::this_cluster();
   const int kc = (int)cl.num_blocks(), q = (int)cl.block_rank();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = blockDim.x, nw = nt >> 5;
   const int lo = run_lo(q, kc, a.N), ns = run_lo(q + 1, kc, a.N) - lo;
+  const int nl = SH ? tab.sh[0].nl : a.N;
   float* tt = dyn;  // this block's copy of total_t
   float* base_r = tt + a.T;
   float* sraw_r = base_r + ns;
   float* ipraw_r = sraw_r + ns;
   uint8_t* feas_r = reinterpret_cast<uint8_t*>(ipraw_r + ns);
-  ktt::copy_start_state(a, (int64_t)q * nt + tid, (int64_t)kc * nt);
+  if constexpr (SH) {
+    if (tid < tab.S) ktt::shard_view(a, tab.sh[tid], views[tid]);
+    __syncthreads();
+    for (int s = 0; s < tab.S; ++s) ktt::copy_start_state(views[s], (int64_t)q * nt + tid, (int64_t)kc * nt);
+  } else {
+    ktt::copy_start_state(a, (int64_t)q * nt + tid, (int64_t)kc * nt);
+  }
   for (int t = tid; t < a.T; t += nt) tt[t] = a.total0[t];
   if (a.P > 0) ktt::load_pod_warps(a, 0, m.ps[0]);
   KTT_PHASE_START;
@@ -251,7 +267,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
   float v[ktt::PW_MAX_S];  // the next pod's spread partials, this thread's
   if (a.P > 0) {
     if (tid == 0 && a.pw) waiver(m.ps[0], tt);
-    spread_partial(a, m.ps[0], lo, ns, v);
+    spread_partial<SH>(a, views, nl, m.ps[0], lo, ns, v);
   }
   __syncthreads();
   for (int p = 0; p < a.P; ++p) {
@@ -267,7 +283,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
       __syncthreads();  // pod p+1's slots
       if (p + 1 < a.P) {
         if (tid == 0 && a.pw) waiver(nx, tt);
-        spread_partial(a, nx, lo, ns, v);
+        spread_partial<SH>(a, views, nl, nx, lo, ns, v);
       }
       __syncthreads();  // its waiver
       KTT_PHASE(PH_APPLY);
@@ -290,17 +306,18 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
     // 2. feasibility, raws and the five maxima over the run
     float mx[5] = {0.0f, 0.0f, 0.0f, -INFINITY, -INFINITY};
     for (int i = tid; i < ns; i += nt) {
-      const int n = lo + i;
+      int l;
+      const FullArgs& g = ktt::view_at<SH>(a, views, nl, lo + i, l);
       float base = 0.0f, sraw = 0.0f, ipraw = 0.0f;
-      const bool f = ktt::node_feasible(a, p, ps, n, base, sraw, ipraw);
+      const bool f = ktt::node_feasible(g, p, ps, l, base, sraw, ipraw);
       feas_r[i] = f;
       if (!f) continue;
       base_r[i] = base;
       sraw_r[i] = sraw;
       ipraw_r[i] = ipraw;
-      const int64_t pn = ps.prow * a.N + n;
-      if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(a.traw, pn));
-      if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(a.naraw, pn));
+      const int64_t pn = ps.prow * g.N + l;
+      if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(g.traw, pn));
+      if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(g.naraw, pn));
       mx[2] = fmaxf(mx[2], sraw);
       mx[3] = fmaxf(mx[3], ipraw);
       mx[4] = fmaxf(mx[4], -ipraw);
@@ -323,7 +340,9 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
     for (int i = tid; i < ns; i += nt) {
       if (!feas_r[i]) continue;
       const int n = lo + i;
-      const float total = ktt::node_total(a, sc, ps.prow * a.N + n, base_r[i], sraw_r[i], ipraw_r[i]);
+      int l;
+      const FullArgs& g = ktt::view_at<SH>(a, views, nl, n, l);
+      const float total = ktt::node_total(g, sc, ps.prow * g.N + l, base_r[i], sraw_r[i], ipraw_r[i]);
       if (total > best) {  // nodes ascend per thread: keeps the lowest index
         best = total;
         best_n = n;
@@ -355,12 +374,14 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
       if (q == 0 && lane == 0) choices[p] = choice;
       int n_ent = 0;
       if (choice >= 0) {
+        int cn;  // the chosen node's id in its view (its owner shard's)
+        const FullArgs& g = ktt::view_at<SH>(a, views, nl, choice, cn);
         if (choice >= lo && choice < lo + ns) {  // the owner: usage and ports of its node
           for (int r = lane; r < a.R; r += 32) {
-            int32_t* u = a.used + (int64_t)choice * a.R + r;
+            int32_t* u = g.used + (int64_t)cn * a.R + r;
             *u = ktt::wadd(__ldcg(u), ps.req[r]);
           }
-          for (int c = lane; c < ps.n_port; c += 32) a.ports_used[(int64_t)choice * a.PT + ps.port[c]] = 1;
+          for (int c = lane; c < ps.n_port; c += 32) g.ports_used[(int64_t)cn * a.PT + ps.port[c]] = 1;
         }
         const int nm = ps.n_m, na = ps.n_an, npf = a.ips ? ps.n_pf : 0;
         const int naf = a.ips && a.hpaw != 0.0f ? ps.n_af : 0;
@@ -377,7 +398,7 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
           } else {
             ce = CommitEnt{2, ps.af_t[e - npf], 0, a.hpaw};
           }
-          ce.dcol = a.dbt[(int64_t)ce.t * a.N + choice];
+          ce.dcol = g.dbt[(int64_t)ce.t * g.N + cn];  // the owner's domain column (_gather_at_nodes)
           m.ents[e0] = ce;
         }
         __syncwarp();
@@ -398,142 +419,71 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, int32
     // spread partials at the same nodes (each node's planes are its
     // thread's alone: no barrier between)
     const int n_ent = m.n_ent;
-    for (int i = tid; i < ns; i += nt)
-      for (int e = 0; e < n_ent; ++e) ktt::apply_entry(a, m.ents[e], lo + i);
-    if (p + 1 < a.P) spread_partial(a, nx, lo, ns, v);
+    if (n_ent > 0)
+      for (int i = tid; i < ns; i += nt) {
+        int l;
+        const FullArgs& g = ktt::view_at<SH>(a, views, nl, lo + i, l);
+        for (int e = 0; e < n_ent; ++e) ktt::apply_entry(g, m.ents[e], l);
+      }
+    if (p + 1 < a.P) spread_partial<SH>(a, views, nl, nx, lo, ns, v);
     KTT_PHASE(PH_APPLY);
   }
   __syncthreads();
-  if (q == 0)
-    for (int t = tid; t < a.T; t += nt) a.total_t[t] = tt[t];
+  if (q == 0) {  // total_t: every shard's copy takes the same values
+    if constexpr (SH) {
+      for (int s = 0; s < tab.S; ++s)
+        for (int t = tid; t < a.T; t += nt) views[s].total_t[t] = tt[t];
+    } else {
+      for (int t = tid; t < a.T; t += nt) a.total_t[t] = tt[t];
+    }
+  }
   cl.sync();  // no block leaves while another may read its exchange
 }
 
-// the exchange of shard mode: one slot per shard per quantity
-struct FullX {
-  float* mm;        // [S, PW_MAX_S] each spread slot's partial max of -count
-  float* sc;        // [S, 5] the partial normalisation maxima
-  float* bv;        // [S] the shard's best total
-  int32_t* bn;      // [S] its global node id
-  CommitEnt* ents;  // [S, MAX_ENT] the commit entries at the shard's best node
-  int32_t* n_ent;   // [S]
-};
-
-// the row scratch of shard mode: [S, nl] per row
-struct ShardRows {
-  uint8_t* feas;
-  float* base;
-  float* sraw;
-  float* ipraw;
-  float* total;
-};
-
-__global__ void __launch_bounds__(ktt::PW_NT) full_scan_shard_kernel(FullArgs g, ktt::ShardTable tab, ShardRows rows,
-                                                                     FullX x, int32_t* choices) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ FullArgs a;
-  __shared__ PodSlots ps;
-  __shared__ RowScalars rs;
-  __shared__ float red[5 * 32];
-  __shared__ int redi[32];
-  __shared__ int s_win, s_nent;
-  const int s = blockIdx.x, S = tab.S, tid = threadIdx.x;
-  const int base = tab.sh[s].base, nl = tab.sh[s].nl;
-  if (tid == 0) ktt::shard_view(g, tab.sh[s], a);
-  __syncthreads();
-  ktt::copy_start_state(a, tid, blockDim.x);
-  __syncthreads();
-  const int64_t row = (int64_t)s * nl;
-  uint8_t* feas = rows.feas + row;
-  float* base_r = rows.base + row;
-  float* sraw = rows.sraw + row;
-  float* ipraw = rows.ipraw + row;
-  float* total = rows.total + row;
-  for (int p = 0; p < a.P; ++p) {
-    ktt::load_pod(a, p, ps);
-    __syncthreads();
-    if (!ps.valid) {  // the same pod on every shard: a uniform branch
-      if (s == 0 && tid == 0) choices[p] = -1;
-      __syncthreads();
-      continue;
-    }
-    if (a.pw) {  // 1. the spread minMatch
-      ktt::pod_scalars_partial(a, p, ps, red);
-      if (tid < ps.n_sp) x.mm[s * ktt::PW_MAX_S + tid] = ps.sp_mm[tid];
-      grid.sync();
-      if (tid < ps.n_sp) {
-        float v = -INFINITY;
-        for (int s2 = 0; s2 < S; ++s2) v = fmaxf(v, __ldcg(x.mm + s2 * ktt::PW_MAX_S + tid));
-        ps.sp_mm[tid] = v;
-      }
-      __syncthreads();
-      if (tid == 0) ktt::pod_scalars_finish(ps);
-      __syncthreads();
-    }
-    float m[5];  // 2. the normalisation scalars
-    ktt::row_feas(a, p, ps, feas, base_r, sraw, ipraw, m, red);
-    if (tid == 0)
-      for (int k = 0; k < 5; ++k) x.sc[s * 5 + k] = m[k];
-    grid.sync();
-    for (int k = 0; k < 5; ++k) {
-      float v = -INFINITY;
-      for (int s2 = 0; s2 < S; ++s2) v = fmaxf(v, __ldcg(x.sc + s2 * 5 + k));
-      m[k] = v;
-    }
-    // 3. the argmax and the commit
-    ktt::row_total(a, ps, ktt::row_scalars(m), feas, base_r, sraw, ipraw, total, base, rs, red, redi);
-    if (tid == 0) {
-      x.bv[s] = rs.best;
-      x.bn[s] = rs.best_n;
-      x.n_ent[s] = rs.best > -INFINITY ? ktt::commit_entries(a, p, rs.best_n - base, x.ents + s * MAX_ENT, nullptr)
-                                       : 0;
-    }
-    grid.sync();
-    if (tid == 0) {
-      float v = -INFINITY;
-      int n = ktt::PW_IMAX, w = -1;
-      for (int s2 = 0; s2 < S; ++s2) {
-        const float v2 = __ldcg(x.bv + s2);
-        const int n2 = __ldcg(x.bn + s2);
-        if (ktt::pw_better(v2, n2, v, n)) {
-          v = v2;
-          n = n2;
-          w = s2;
-        }
-      }
-      const int choice = v > -INFINITY ? n : -1;
-      if (s == 0) choices[p] = choice;
-      s_win = choice >= 0 ? w : -1;
-      s_nent = choice >= 0 ? __ldcg(x.n_ent + w) : 0;
-      if (choice >= 0 && w == s) {  // the owner: usage and ports of its node
-        const int cl = choice - base;
-        for (int r = 0; r < a.R; ++r) {
-          int32_t* u = a.used + (int64_t)cl * a.R + r;
-          *u = ktt::wadd(__ldcg(u), ps.req[r]);
-        }
-        for (int k = 0; k < ps.n_port; ++k) a.ports_used[(int64_t)cl * a.PT + ps.port[k]] = 1;
-      }
-      for (int k = 0; k < s_nent; ++k) {  // this shard's copy of total_t
-        const CommitEnt e = ktt::load_ent(x.ents + w * MAX_ENT + k);
-        if (e.plane == 0 && e.dcol < a.D) a.total_t[e.t] = __ldcg(a.total_t + e.t) + e.w;
-      }
-    }
-    __syncthreads();
-    if (s_win >= 0)
-      for (int n = tid; n < nl; n += blockDim.x)
-        for (int k = 0; k < s_nent; ++k) ktt::apply_entry(a, ktt::load_ent(x.ents + s_win * MAX_ENT + k), n);
-    // the commit lands before any thread reads the state for the next pod
-    __syncthreads();
-  }
-}
-
-// the launch's cluster: asked of the runtime again only when the device,
-// N, T or the cap changes (each query costs host time)
+// the launch's cluster, per mode: asked of the runtime again only when the
+// device, N, T or the cap changes (each query costs host time)
 struct ClusterChoice {
   int dev = -1, N = 0, T = 0, max_kc = 0;
   int kc = 0;
   size_t smem = 0;
 };
+
+// one cluster of the widest width <= max_kc (and <= one block per MIN_RUN
+// nodes of a.N) that the card schedules; refused when none
+template <bool SH>
+int launch_full(const FullArgs& a, const ktt::ShardTable& tab, void* choices, int max_kc, int* kc_out,
+                void* stream) {
+  static ClusterChoice memo;
+  auto kernel = full_scan_kernel<SH>;
+  // the dynamic shared memory a block may take beside its static buffers
+  constexpr size_t cap_smem = SMEM_CAP - (SH ? ktt::PW_MAX_SHARDS * sizeof(FullArgs) : 0);
+  if (max_kc < 1 || max_kc > MAX_KC) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (memo.dev != dev || memo.N != a.N || memo.T != a.T || memo.max_kc != max_kc) {
+    ClusterChoice c;
+    const int cap = a.N / MIN_RUN < max_kc ? a.N / MIN_RUN : max_kc;
+    for (int k = cap > 1 ? cap : 1; k >= 1 && c.kc == 0; --k) {
+      const size_t smem = dyn_smem(a.T, (a.N + k - 1) / k);
+      if (smem <= cap_smem && ktt::cluster_fits(kernel, k, ktt::PW_NT, smem)) {
+        c.kc = k;
+        c.smem = smem;
+      }
+    }
+    if (c.kc == 0) return (int)cudaErrorInvalidConfiguration;  // refused: the card schedules no such cluster
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+    if (err != cudaSuccess) return (int)err;
+    c.dev = dev;
+    c.N = a.N;
+    c.T = a.T;
+    c.max_kc = max_kc;
+    memo = c;
+  }
+  if (kc_out != nullptr) *kc_out = memo.kc;
+  return (int)ktt::launch_cluster(kernel, memo.kc, ktt::PW_NT, memo.smem, reinterpret_cast<cudaStream_t>(stream), a,
+                                  tab, static_cast<int32_t*>(choices));
+}
 
 }  // namespace
 
@@ -546,70 +496,40 @@ struct ClusterChoice {
 // cluster width launched
 extern "C" int ktt_full_scan(const void* const* ptrs, const int* dims, const int* sw, const float* wp,
                              const int* ip, const float* fp, void* choices, int max_kc, int* kc_out, void* stream) {
-  static ClusterChoice memo;
   FullArgs a;
   const int bad = ktt::read_full_args(ptrs, dims, sw, wp, ip, fp, a);
   if (bad) return bad;
-  if (max_kc < 1 || max_kc > MAX_KC) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (memo.dev != dev || memo.N != a.N || memo.T != a.T || memo.max_kc != max_kc) {
-    ClusterChoice c;
-    const int cap = a.N / MIN_RUN < max_kc ? a.N / MIN_RUN : max_kc;
-    for (int k = cap > 1 ? cap : 1; k >= 1 && c.kc == 0; --k) {
-      const size_t smem = dyn_smem(a.T, (a.N + k - 1) / k);
-      if (smem <= SMEM_CAP && ktt::cluster_fits(full_scan_kernel, k, ktt::PW_NT, smem)) {
-        c.kc = k;
-        c.smem = smem;
-      }
-    }
-    if (c.kc == 0) return (int)cudaErrorInvalidConfiguration;  // refused: the card schedules no such cluster
-    err = cudaFuncSetAttribute(full_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
-    if (err != cudaSuccess) return (int)err;
-    c.dev = dev;
-    c.N = a.N;
-    c.T = a.T;
-    c.max_kc = max_kc;
-    memo = c;
-  }
-  if (kc_out != nullptr) *kc_out = memo.kc;
-  return (int)ktt::launch_cluster(full_scan_kernel, memo.kc, ktt::PW_NT, memo.smem,
-                                  reinterpret_cast<cudaStream_t>(stream), a, static_cast<int32_t*>(choices));
+  const ktt::ShardTable tab{};
+  return launch_full<false>(a, tab, choices, max_kc, kc_out, stream);
 }
 
 // shard mode: ptrs / dims / sw / wp / ip / fp as ktt_full_scan's for shard
-// 0's arrays (the pod side; dims[1] = nl), done NULL; shard_ptrs: S rows of
-// pairwise.cuh ShardPtrs' 18 pointers; rows: the row scratch (feas [S, nl]
-// bytes; base, sraw, ipraw, total [S, nl] f32); xs: the exchange (mm, sc,
-// bv, bn, ents, n_ent).  A cooperative launch of S blocks.
+// 0's arrays (the pod side; dims[1] = nl; done NULL); shard_ptrs: S rows of
+// pairwise.cuh ShardPtrs' 18 pointers; max_kc / kc_out as ktt_full_scan's.
+// full_scan_kernel<true>: the one-device launch of one cluster over the
+// S * nl global ids.
 extern "C" int ktt_full_scan_shard(const void* const* ptrs, const int* dims, const int* sw, const float* wp,
                                    const int* ip, const float* fp, const void* const* shard_ptrs, int S,
-                                   void* choices, void* const* rows, void* const* xs, void* stream) {
-  FullArgs g;
-  const int bad = ktt::read_full_args(ptrs, dims, sw, wp, ip, fp, g);
+                                   void* choices, int max_kc, int* kc_out, void* stream) {
+  FullArgs a;
+  const int bad = ktt::read_full_args(ptrs, dims, sw, wp, ip, fp, a);
   if (bad) return bad;
-  if (S < 1 || S > ktt::PW_MAX_SHARDS || g.done != nullptr) return (int)cudaErrorInvalidValue;
-  ktt::ShardTable tab = ktt::make_shard_table(shard_ptrs, S, g.N);
-  ShardRows r{static_cast<uint8_t*>(rows[0]), static_cast<float*>(rows[1]), static_cast<float*>(rows[2]),
-              static_cast<float*>(rows[3]), static_cast<float*>(rows[4])};
-  FullX x{static_cast<float*>(xs[0]), static_cast<float*>(xs[1]), static_cast<float*>(xs[2]),
-          static_cast<int32_t*>(xs[3]), static_cast<CommitEnt*>(xs[4]), static_cast<int32_t*>(xs[5])};
-  int dev = 0, nsm = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, full_scan_shard_kernel, ktt::PW_NT, 0);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1 || nsm * per_sm < S) return (int)cudaErrorInvalidConfiguration;
-  int32_t* ch = static_cast<int32_t*>(choices);
-  void* args[] = {&g, &tab, &r, &x, &ch};
-  err = cudaLaunchCooperativeKernel((void*)full_scan_shard_kernel, dim3(S), dim3(ktt::PW_NT), args, 0,
-                                    reinterpret_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (S < 1 || S > ktt::PW_MAX_SHARDS || a.done != nullptr) return (int)cudaErrorInvalidValue;
+  const ktt::ShardTable tab = ktt::make_shard_table(shard_ptrs, S, a.N);
+  a.N = S * a.N;
+  a.W = (a.N + 31) / 32;
+  // every node-side access goes through a shard's view: the launch keeps the
+  // pod side and the replicated total0 only
+  a.sfs = a.eligs = nullptr;
+  a.traw = a.naraw = a.img_s = nullptr;
+  a.alloc = a.dbt = nullptr;
+  a.used = nullptr;
+  a.cnt = a.antin = a.pref = a.total_t = nullptr;
+  a.ports_used = nullptr;
+  a.used0 = nullptr;
+  a.cnt0 = a.anti0 = a.pref0 = nullptr;
+  a.ports0 = nullptr;
+  return launch_full<true>(a, tab, choices, max_kc, kc_out, stream);
 }
 
 #ifdef KTT_FULL_PHASES

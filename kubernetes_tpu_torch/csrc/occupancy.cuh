@@ -84,7 +84,7 @@ bool cluster_fits(Kernel kernel, int kc, int threads, size_t smem) {
 }
 
 // One thread-block cluster of kc blocks on the stream: the launch of K2's
-// and K11's one-device scans.
+// and K11's scans, on one device and in shard mode.
 template <class Kernel, class... Args>
 cudaError_t launch_cluster(Kernel kernel, int kc, int threads, size_t smem, cudaStream_t st, Args... args) {
   cudaLaunchAttribute at[1];

@@ -28,20 +28,13 @@
 // node_feasible test folds it back in per pod (ps.valid, :1741), as it
 // does in dense mode, where the plane already holds it.
 //
-// Shard mode (K2, K11 and K12 on a node mesh, parallel/sharded.py; the JAX
-// package's sharded scans, ops/assign.py:56-110): K2 and K11 give a block
-// one node shard, K12 a run of nodes that may span shards; either sees a
-// shard through shard_view -- a copy of the launch's FullArgs whose
-// node-side pointers and N are the shard's (ShardPtrs), so every device
+// Shard mode (K11 and K12 on a node mesh, parallel/sharded.py; the JAX
+// package's sharded scans, ops/assign.py:56-110): a block's run of the
+// global node ids may span shards; a node is seen through its shard's
+// shard_view -- a copy of the launch's FullArgs whose node-side pointers
+// and N are the shard's (ShardPtrs) -- picked by view_at, so every device
 // function below runs on the shard's local node ids 0..nl and reads
-// node-axis data only through that shard's pointers.  The pieces a
-// shard contributes to a cross-shard reduction are split out:
-// pod_scalars_partial / pod_scalars_finish (the spread minMatch: the
-// partial maxima of -count, combined across shards before inf -> 0, as the
-// JAX package takes the pmin before it, pairwise.py:54-58), row_feas /
-// row_scalars / row_total (the normalisation maxima, then the total row and
-// its argmax with the global ids id_base + n) and commit_entries with no
-// total_t (each shard keeps its own copy and adds the winner's entries).
+// node-axis data only through that shard's pointers.
 
 #pragma once
 
@@ -201,6 +194,21 @@ __device__ __forceinline__ void shard_view(const FullArgs& g, const ShardPtrs& p
   a.ports0 = p.ports0;
 }
 
+// node n's view (the launch's arguments on one device, its shard's in
+// shard mode, views[s] the shard_view of shard s) and its id l there; shard
+// s holds the global ids [s * nl, (s + 1) * nl)
+template <bool SH>
+__device__ __forceinline__ const FullArgs& view_at(const FullArgs& a, const FullArgs* views, int nl, int n, int& l) {
+  if constexpr (SH) {
+    const int s = n / nl;
+    l = n - s * nl;
+    return views[s];
+  } else {
+    l = n;
+    return a;
+  }
+}
+
 // one pod's slots, compacted to the valid entries (a -1 slot adds nothing)
 struct PodSlots {
   int64_t prow;  // the pod's row of the static and score planes
@@ -222,8 +230,6 @@ struct PodSlots {
 
 struct RowScalars {
   float t_mx, na_mx, s_mx, ip_mx, ip_mn;
-  float best;
-  int best_n;
 };
 
 // a commit-list entry: plane (0 cnt, 1 anti, 2 pref), term row, the chosen
@@ -334,27 +340,6 @@ __device__ __forceinline__ bool pw_bit(const uint32_t* plane, int64_t row, int W
 
 __device__ __forceinline__ bool pw_better(float v, int i, float v2, int i2) {
   return v > v2 || (v == v2 && i < i2);
-}
-
-// block-wide max of KR values (every thread gets the results); red holds
-// KR * 32 floats; begins and ends with a barrier-safe use of red
-template <int KR>
-__device__ void block_max(float (&v)[KR], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < KR; ++k)
-    for (int off = 16; off > 0; off >>= 1) v[k] = fmaxf(v[k], __shfl_xor_sync(PW_FULL, v[k], off));
-  __syncthreads();
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < KR; ++k) red[k * 32 + warp] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < KR; ++k) {
-    float x = -INFINITY;
-    for (int w = 0; w < nw; ++w) x = fmaxf(x, red[k * 32 + w]);
-    v[k] = x;
-  }
 }
 
 // block-wide (value desc, index asc) best; every thread gets it
@@ -486,88 +471,6 @@ __device__ void block_max_into(float (&v)[KR], int n, float* red, float* out) {
   __syncthreads();
 }
 
-// load pod p's request and slots into ps (thread 0); the caller syncs
-__device__ void load_pod(const FullArgs& a, int p, PodSlots& ps) {
-  if (threadIdx.x != 0) return;
-  for (int r = 0; r < a.R; ++r) ps.req[r] = a.preq[(int64_t)p * a.R + r];
-  ps.valid = a.pvalid[p];
-  ps.prow = a.cls != nullptr ? (int64_t)a.cls[p] : (int64_t)p;
-  ps.n_sp = ps.n_af = ps.n_an = ps.n_m = ps.n_pf = ps.n_port = 0;
-  ps.self_all = 1;
-  if (a.pw) {
-    for (int c = 0; c < a.CS; ++c) {
-      const int t = a.spread_t[(int64_t)p * a.CS + c];
-      if (t < 0) continue;
-      ps.sp_t[ps.n_sp] = t;
-      ps.sp_skew[ps.n_sp] = a.skew[(int64_t)p * a.CS + c];
-      ps.sp_hard[ps.n_sp] = a.hard[(int64_t)p * a.CS + c];
-      ++ps.n_sp;
-    }
-    for (int c = 0; c < a.A1; ++c) {
-      const int t = a.aff[(int64_t)p * a.A1 + c];
-      if (t < 0) continue;
-      ps.af_t[ps.n_af++] = t;
-      if (!a.aself[(int64_t)p * a.A1 + c]) ps.self_all = 0;
-    }
-    for (int c = 0; c < a.A2; ++c) {
-      const int t = a.anti[(int64_t)p * a.A2 + c];
-      if (t >= 0) ps.an_t[ps.n_an++] = t;
-    }
-    for (int c = 0; c < a.M; ++c) {
-      const int t = a.mt[(int64_t)p * a.M + c];
-      if (t < 0) continue;
-      ps.m_t[ps.n_m] = t;
-      ps.m_v[ps.n_m] = a.mv[(int64_t)p * a.M + c];
-      ++ps.n_m;
-    }
-    if (a.ips) {
-      for (int c = 0; c < a.B; ++c) {
-        const int t = a.pref_t[(int64_t)p * a.B + c];
-        if (t < 0) continue;
-        ps.pf_t[ps.n_pf] = t;
-        ps.pf_w[ps.n_pf] = a.pref_w[(int64_t)p * a.B + c];
-        ++ps.n_pf;
-      }
-    }
-  }
-  if (a.ports)
-    for (int q = 0; q < a.PT; ++q)
-      if (a.pod_ports[(int64_t)p * a.PT + q]) ps.port[ps.n_port++] = q;
-}
-
-// the round-start pairwise scalars of the loaded pod, partial: the
-// required-affinity waiver (no match anywhere and the pod matches its own
-// terms) and, per spread slot, the block's max of -count over the keyed
-// eligible nodes into ps.sp_mm (-inf: none; min as -max(-x), the inf
-// sentinel kept).  Every thread calls it; it ends with a barrier.
-__device__ void pod_scalars_partial(const FullArgs& a, int p, PodSlots& ps, float* red) {
-  if (!a.pw) return;
-  if (threadIdx.x == 0) {
-    float total_any = 0.0f;
-    for (int k = 0; k < ps.n_af; ++k) total_any += __ldcg(a.total_t + ps.af_t[k]);
-    ps.waiver = ps.n_af > 0 && total_any == 0.0f && ps.self_all;
-  }
-  for (int c = 0; c < ps.n_sp; ++c) {
-    const int t = ps.sp_t[c];
-    float v[1] = {-INFINITY};
-    for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-      if (pw_bit(a.eligs, ps.prow, a.W, n) && a.dbt[(int64_t)t * a.N + n] < a.D)
-        v[0] = fmaxf(v[0], -__ldcg(a.cnt + (int64_t)t * a.N + n));
-    }
-    block_max<1>(v, red);
-    if (threadIdx.x == 0) ps.sp_mm[c] = v[0];
-  }
-  __syncthreads();
-}
-
-// thread 0: each slot's minMatch from the (combined) max of -count, inf -> 0
-__device__ __forceinline__ void pod_scalars_finish(PodSlots& ps) {
-  for (int c = 0; c < ps.n_sp; ++c) {
-    const float mm = -ps.sp_mm[c];
-    ps.sp_mm[c] = isinf(mm) ? 0.0f : mm;
-  }
-}
-
 // node n's feasibility for the loaded pod (fit against the running usage,
 // ports, spread, inter-pod required), with its base score, spread raw and
 // inter-pod preferred raw.  After the static bit no load waits on another
@@ -665,35 +568,6 @@ __device__ __forceinline__ float node_total(const FullArgs& a, const RowScalars&
   return total;
 }
 
-// one pod's row, first pass (the pod's scalars already combined): feasibility and
-// raws per node into the row scratch, and in m[5] the block's maxima of the
-// taint, node-affinity and spread raws and of +-the inter-pod raw over the
-// feasible nodes (every thread gets them).  Every thread calls it.
-__device__ void row_feas(const FullArgs& a, int p, const PodSlots& ps, uint8_t* feas_r, float* base_r,
-                         float* sraw_r, float* ipraw_r, float (&m)[5], float* red) {
-  m[0] = 0.0f;
-  m[1] = 0.0f;
-  m[2] = 0.0f;
-  m[3] = -INFINITY;
-  m[4] = -INFINITY;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    float base = 0.0f, sraw = 0.0f, ipraw = 0.0f;
-    const bool f = node_feasible(a, p, ps, n, base, sraw, ipraw);
-    feas_r[n] = f;
-    if (!f) continue;
-    base_r[n] = base;
-    sraw_r[n] = sraw;
-    ipraw_r[n] = ipraw;
-    const int64_t pn = ps.prow * a.N + n;
-    if (a.taint) m[0] = fmaxf(m[0], bf(a.traw, pn));
-    if (a.nap) m[1] = fmaxf(m[1], bf(a.naraw, pn));
-    m[2] = fmaxf(m[2], sraw);
-    m[3] = fmaxf(m[3], ipraw);
-    m[4] = fmaxf(m[4], -ipraw);
-  }
-  block_max<5>(m, red);
-}
-
 // the normalisation scalars from the (combined) maxima of row_feas
 __device__ __forceinline__ RowScalars row_scalars(const float (&m)[5]) {
   RowScalars sc;
@@ -702,75 +576,7 @@ __device__ __forceinline__ RowScalars row_scalars(const float (&m)[5]) {
   sc.s_mx = m[2];
   sc.ip_mx = m[3];
   sc.ip_mn = -m[4];
-  sc.best = -INFINITY;
-  sc.best_n = PW_IMAX;
   return sc;
-}
-
-// one pod's row, second pass: the masked total row and its argmax (value
-// desc, lowest id) into s, with s.best_n the global id id_base + n.  Every
-// thread calls it; it ends with a barrier.
-__device__ void row_total(const FullArgs& a, const PodSlots& ps, RowScalars sc, const uint8_t* feas_r,
-                          const float* base_r, const float* sraw_r, const float* ipraw_r, float* total_r, int id_base,
-                          RowScalars& s, float* red, int* redi) {
-  float best = -INFINITY;
-  int best_n = PW_IMAX;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    float total = -INFINITY;
-    if (feas_r[n]) total = node_total(a, sc, ps.prow * a.N + n, base_r[n], sraw_r[n], ipraw_r[n]);
-    total_r[n] = total;
-    if (total > best) {  // nodes ascend per thread: keeps the lowest index
-      best = total;
-      best_n = n;
-    }
-  }
-  block_argmax(best, best_n, red, redi);
-  if (threadIdx.x == 0) {
-    sc.best = best;
-    sc.best_n = best_n == PW_IMAX ? PW_IMAX : id_base + best_n;
-    s = sc;
-  }
-  __syncthreads();
-}
-
-// commit entries of pod p placed on node `choice` (thread 0 only):
-// matched terms into cnt (and into total_t where the key is present, unless
-// total_t is NULL), its own anti terms into anti, with the interpod score
-// its preferred terms and, at hardPodAffinityWeight, its required-affinity
-// terms into pref
-__device__ int commit_entries(const FullArgs& a, int p, int choice, CommitEnt* out, float* total_t) {
-  int n = 0;
-  if (!a.pw) return 0;
-  for (int c = 0; c < a.M; ++c) {
-    const int t = a.mt[(int64_t)p * a.M + c];
-    if (t < 0) continue;
-    const int d = a.dbt[(int64_t)t * a.N + choice];
-    const float w = a.mv[(int64_t)p * a.M + c];
-    out[n++] = CommitEnt{0, t, d, w};
-    if (total_t != nullptr && d < a.D) total_t[t] = __ldcg(total_t + t) + w;
-  }
-  for (int c = 0; c < a.A2; ++c) {
-    const int t = a.anti[(int64_t)p * a.A2 + c];
-    if (t >= 0) out[n++] = CommitEnt{1, t, a.dbt[(int64_t)t * a.N + choice], 1.0f};
-  }
-  if (a.ips) {
-    for (int c = 0; c < a.B; ++c) {
-      const int t = a.pref_t[(int64_t)p * a.B + c];
-      if (t >= 0) out[n++] = CommitEnt{2, t, a.dbt[(int64_t)t * a.N + choice], a.pref_w[(int64_t)p * a.B + c]};
-    }
-    if (a.hpaw != 0.0f)
-      for (int c = 0; c < a.A1; ++c) {
-        const int t = a.aff[(int64_t)p * a.A1 + c];
-        if (t >= 0) out[n++] = CommitEnt{2, t, a.dbt[(int64_t)t * a.N + choice], a.hpaw};
-      }
-  }
-  return n;
-}
-
-// a commit entry written by another block, read through L2 as one int4
-__device__ __forceinline__ CommitEnt load_ent(const CommitEnt* e) {
-  const int4 v = __ldcg(reinterpret_cast<const int4*>(e));
-  return CommitEnt{v.x, v.y, v.z, __int_as_float(v.w)};
 }
 
 // apply one commit entry at node n: its row gains the weight where the node

@@ -239,19 +239,7 @@ struct Axis {
   __device__ int run_lo(int q, int kc) const { return (int)((int64_t)q * N / kc); }
 };
 
-// node n's view (the launch's arguments on one device, its shard's in
-// shard mode) and its id l there
-template <bool SH>
-__device__ __forceinline__ const FullArgs& view_at(const FullArgs& a, const FullArgs* views, int nl, int n, int& l) {
-  if constexpr (SH) {
-    const int s = n / nl;
-    l = n - s * nl;
-    return views[s];
-  } else {
-    l = n;
-    return a;
-  }
-}
+using ktt::view_at;
 
 // candidate column c_j in the repair of pod i: node cl of view v (global
 // id `id`, its row scratch column) rescored under the exact prefix usage

@@ -28,13 +28,15 @@ packed layout, the node mesh's stitch, parallel/sharded.py).
 The shard modes (the node mesh's per-pod and rounds routes,
 parallel/sharded.py): fit_scan_shard (K2, fit_scan.cu), full_scan_shard
 (K11, full_scan.cu) and rounds_shard (K12, rounds.cu) each take a table of
-every shard's node-side pointers and launch one cooperative grid on the
-card that holds every shard: K2 and K11 S blocks and an exchange buffer,
-one slot per shard per quantity; K12 the one-device launch of C clusters
-over every shard's nodes, with the one-device scratch.  Each counts under
-its own LAUNCHES key.  They refuse the gated mode, more than MAX_SHARDS
-shards, a grid the card cannot hold resident, and shards on more than one
-card or rank (shard_grid_check, _shard_checks), naming ROADMAP.md queue A12.
+every shard's node-side pointers and run the one-device launch over every
+shard's nodes on the card that holds every shard, each node read through
+its shard's pointers: K2 and K11 one thread-block cluster (the run cut of
+scan_runs, up to SCAN_CLUSTER blocks; LAST_CLUSTER holds the width), K12 a
+cooperative launch of C clusters with the one-device scratch.  Each counts
+under its own LAUNCHES key.  They refuse the gated mode, more than
+MAX_SHARDS shards, more blocks than the card's SMs, and shards on more than
+one card or rank (shard_grid_check, _shard_checks), naming ROADMAP.md queue
+A12; a card that schedules no cluster fails the launch.
 
 The gated mode.  The kernels of every route the gang fixpoint's device loop
 takes (ops/gang.py) -- K1 static_feasible and K2 fit_scan, K7, K8, K11
@@ -121,9 +123,9 @@ _ARGTYPES = {
     "preempt_eval": ("ktt_preempt_eval", [_P] * 18 + [_I] * 4 + [_P]),
     "ring_match": ("ktt_ring_match", [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] * 2 + [_P]),
     "stitch_planes": ("ktt_stitch_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
-    "fit_scan_shard": ("ktt_fit_scan_shard", [_P, _I, _I, _P, _P, _P, _I, _U, _P, _I, _I, _F, _F, _I, _I, _I]
-                       + [_P] * 5),
-    "full_scan_shard": ("ktt_full_scan_shard", [_P] * 7 + [_I] + [_P] * 4),
+    "fit_scan_shard": ("ktt_fit_scan_shard", [_P, _I, _I] + [_P] * 5 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I]
+                       + [_P, _P, _I, _P, _P]),
+    "full_scan_shard": ("ktt_full_scan_shard", [_P] * 7 + [_I, _P, _I, _P, _P]),
     "rounds_shard": ("ktt_rounds_shard", [_P] * 7 + [_I, _I] + [_P] * 4 + [_I, _I, _P]),
 }
 STRATEGY_CODES = {"LeastAllocated": 0, "MostAllocated": 1, "RequestedToCapacityRatio": 2}
@@ -132,15 +134,16 @@ MAX_R, MAX_K, MAX_SHAPE = 32, 8, 16  # csrc/fit_scan.cu limits
 # cluster of one block 2 * N bytes of the 227 KB a block may have, less what
 # its static buffers take
 MAX_SCAN_NODES = (232448 - 2048) // 2
-# the one-device per-pod scans K2 and K11 (csrc/fit_scan.cu, full_scan.cu)
-# run as one thread-block cluster: the widest the card schedules up to the
-# kernel's cap, 16 blocks for K2 (a non-portable size on an H100), 8 for K11
-# (three cluster barriers a pod: measured faster at 8 than at 16 on an H100,
-# PERF.md); the C entries refuse more than MAX_CLUSTER.  LAST_CLUSTER holds
-# the width of each one's last launch.
+# the per-pod scans K2 and K11 (csrc/fit_scan.cu, full_scan.cu), on one
+# device and in shard mode, run as one thread-block cluster: the widest the
+# card schedules up to the kernel's cap, 16 blocks for K2 (a non-portable
+# size on an H100), 8 for K11 (three cluster barriers a pod: measured faster
+# at 8 than at 16 on an H100, PERF.md); the C entries refuse more than
+# MAX_CLUSTER.  LAST_CLUSTER holds the width of each launch's last call.
 MAX_CLUSTER = 16
 SCAN_CLUSTER: Dict[str, int] = {"fit_scan": 16, "full_scan": 8}
-LAST_CLUSTER: Dict[str, int] = {"fit_scan": 0, "full_scan": 0}
+LAST_CLUSTER: Dict[str, int] = {"fit_scan": 0, "full_scan": 0, "fit_scan_shard": 0, "full_scan_shard": 0}
+SCAN_UNIT = 16  # csrc/fit_scan.cu UNIT: a K2 run is whole units of 16 columns
 
 # limits of the class-wave kernels (csrc/wave_commit.cu, topk.cuh): wave
 # block <= 64 pods, candidate lists <= 256 entries.  wave_commit's shared
@@ -1258,13 +1261,13 @@ MAX_SHARDS = 8  # csrc/pairwise.cuh PW_MAX_SHARDS, fit_scan.cu MAX_SHARDS
 _A12 = "ROADMAP.md queue A12"
 # ShardPtrs' order (csrc/pairwise.cuh): the node-side entries of _full_args' pointer array
 _SHARD_PTRS = (2, 3, 4, 5, 6, 18, 19, 20, 21, 22, 23, 24, 25, 28, 29, 30, 31, 33)
-_MAX_ENT = MAX_MATCH + 3 * MAX_SLOTS
 
 
 def shard_grid_check(S: int, blocks: int, n_sm: int) -> None:
-    """Refuse a shard-mode launch of `S` shards whose cooperative grid of
-    `blocks` blocks of 1024 threads (one per SM) the card's `n_sm` SMs
-    cannot hold resident: never cut quietly to fewer shards."""
+    """Refuse a shard-mode launch of `S` shards that needs `blocks` resident
+    blocks of 1024 threads (one per SM; K12: its C clusters, at least C
+    blocks; K2 / K11: their cluster's cap) on a card of `n_sm` SMs: never
+    cut quietly to fewer shards."""
     if not 1 <= S <= MAX_SHARDS:
         raise NotImplementedError(f"a shard-mode launch takes 1..{MAX_SHARDS} node shards, got {S}; more shards "
                                   f"on one card are not ported to kubernetes_tpu_torch ({_A12})")
@@ -1293,14 +1296,42 @@ def _table(rows) -> np.ndarray:
     return np.array([0 if x is None else x for r in rows for x in r], dtype=np.uint64)
 
 
-def fit_scan_shard(sfs, sa, cfg, done: Optional[torch.Tensor] = None):
-    """K2 in shard mode (csrc/fit_scan.cu fit_scan_shard_kernel): the fit-only
+def scan_runs(name: str, S: int, nl: int, kc: int) -> list:
+    """The cut of a per-pod scan's node axis over a cluster of kc blocks,
+    as its kernel makes it, one device (S = 1) or shard mode: for each block
+    q in rank order, its run as segments (shard, first local column, end
+    local column) in axis order.  K2 ("fit_scan", csrc/fit_scan.cu run_lo)
+    cuts the S shards' columns, each shard's nl nodes padded to 16, in whole
+    16-column units; K11 ("full_scan", csrc/full_scan.cu run_lo) cuts the
+    S * nl global ids.  A run may span shards, and a shard hold several
+    runs."""
+    if name == "fit_scan":
+        width = -(-nl // SCAN_UNIT) * SCAN_UNIT
+        units = S * width // SCAN_UNIT
+        los = [SCAN_UNIT * (q * units // kc) for q in range(kc + 1)]
+    elif name == "full_scan":
+        width = nl
+        los = [q * S * nl // kc for q in range(kc + 1)]
+    else:
+        raise ValueError(f"scan_runs: fit_scan or full_scan, got {name!r}")
+    runs = []
+    for lo, hi in zip(los, los[1:]):
+        runs.append([(s, max(lo, s * width) - s * width, min(hi, (s + 1) * width) - s * width)
+                     for s in range(lo // width, -(-hi // width)) if max(lo, s * width) < min(hi, (s + 1) * width)])
+    return runs
+
+
+def fit_scan_shard(sfs, sa, cfg, done: Optional[torch.Tensor] = None, cluster: Optional[int] = None):
+    """K2 in shard mode (csrc/fit_scan.cu, ktt_fit_scan_shard): the fit-only
     per-pod scan over arrays on a node mesh (parallel/mesh.py ShardedArrays)
-    from each shard's static rows sfs[s] bool[P, nl] (K1 with its base) ->
-    (choices i32[P] global node ids, used i32[N, R] gathered on the padded
-    axis)."""
+    from each shard's static rows sfs[s] bool[P, nl] (K1 with its base), in
+    one thread-block cluster over every shard's columns (the widest the card
+    schedules up to `cluster` blocks, SCAN_CLUSTER["fit_scan"] when None;
+    LAST_CLUSTER["fit_scan_shard"] the width launched) -> (choices i32[P]
+    global node ids, used i32[N, R] gathered on the padded axis)."""
     S, nl, P = sa.mesh.size, sa.nl, sa.P
-    dev = _shard_checks(sa, "fit_scan_shard", done, S)
+    max_kc = _cluster_arg("fit_scan", cluster)
+    dev = _shard_checks(sa, "fit_scan_shard", done, max_kc)
     sh0 = sa.shards[0]
     R = sh0.R
     rows, keep = [], []
@@ -1308,14 +1339,15 @@ def fit_scan_shard(sfs, sa, cfg, done: Optional[torch.Tensor] = None):
         Np = _fit_checks(sh, cfg)
         _check(sfs[s], f"sfs[{s}]", torch.bool, (P, nl), dev)
         sf = sfs[s]
-        if Np != nl:  # padding columns have no sf bit set, so they are never chosen
+        if Np != nl or sf.data_ptr() % 16:  # padding columns have no sf bit set, so they are never chosen
             sf = torch.zeros((P, Np), dtype=torch.bool, device=dev)
             sf[:, :nl] = sfs[s]
-        alloc_t = torch.zeros((R, Np), dtype=torch.int32, device=dev)
-        alloc_t[:, :nl] = sh.node_alloc.t()
-        used_t = torch.empty((R, Np), dtype=torch.int32, device=dev)
-        rows.append((sf.data_ptr(), alloc_t.data_ptr(), used_t.data_ptr(), sh.node_used.data_ptr()))
-        keep.append((sf, alloc_t, used_t))
+        rows.append((sf.data_ptr(), sh.node_used.data_ptr()))
+        keep.append(sf)
+    # the allocatable and the usage on the axis: shard s's columns [s * Np, (s + 1) * Np)
+    alloc_t = torch.zeros((R, S, Np), dtype=torch.int32, device=dev)
+    alloc_t[:, :, :nl] = torch.stack([sh.node_alloc.t() for sh in sa.shards], dim=1)
+    used_t = torch.empty((R, S, Np), dtype=torch.int32, device=dev)
     fn = _fn("fit_scan_shard")
     K = len(cfg.score_resources)
     shape = cfg.rtcr_shape
@@ -1323,17 +1355,18 @@ def fit_scan_shard(sfs, sa, cfg, done: Optional[torch.Tensor] = None):
     shape_xy = torch.tensor([x for x, _ in shape] + [y for _, y in shape], dtype=torch.float32, device=dev)
     choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
     n_scored = torch.zeros((1,), dtype=torch.int64, device=dev)
-    xv = torch.empty((2 * S,), dtype=torch.float32, device=dev)
-    xi = torch.empty((2 * S,), dtype=torch.int32, device=dev)
     table = _table(rows)
+    kc = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        err = fn(_host(table), S, nl, sh0.pod_req.data_ptr(), sh0.pod_valid.data_ptr(), score_idx.data_ptr(), K,
-                 sum(1 << i for i in set(cfg.score_resources)), shape_xy.data_ptr(), len(shape),
-                 STRATEGY_CODES[cfg.fit_strategy], float(cfg.fit_weight), float(cfg.balanced_weight), P, Np, R,
-                 choices.data_ptr(), n_scored.data_ptr(), xv.data_ptr(), xi.data_ptr(), _stream(dev))
+        err = fn(_host(table), S, nl, sh0.pod_req.data_ptr(), sh0.pod_valid.data_ptr(), alloc_t.data_ptr(),
+                 used_t.data_ptr(), score_idx.data_ptr(), K, sum(1 << i for i in set(cfg.score_resources)),
+                 shape_xy.data_ptr(), len(shape), STRATEGY_CODES[cfg.fit_strategy], float(cfg.fit_weight),
+                 float(cfg.balanced_weight), P, Np, R, choices.data_ptr(), n_scored.data_ptr(), max_kc,
+                 ctypes.byref(kc), _stream(dev))
     _raise_on(err, "fit_scan_shard")
     LAUNCHES["fit_scan_shard"] += 1
-    return choices, torch.cat([u[:, :nl].t() for _, _, u in keep])
+    LAST_CLUSTER["fit_scan_shard"] = kc.value
+    return choices, used_t[:, :, :nl].reshape(R, S * nl).t()
 
 
 def _shard_args(sa, cfg, sfs, eligs, planes, inc, used_rep=None):
@@ -1370,30 +1403,29 @@ def _gathered_state(sa, outs) -> dict:
     return st
 
 
-def full_scan_shard(sa, cfg, sfs, eligs, planes, with_state: bool = False, done: Optional[torch.Tensor] = None):
-    """K11 in shard mode (csrc/full_scan.cu full_scan_shard_kernel): the
+def full_scan_shard(sa, cfg, sfs, eligs, planes, with_state: bool = False, done: Optional[torch.Tensor] = None,
+                    cluster: Optional[int] = None):
+    """K11 in shard mode (csrc/full_scan.cu full_scan_kernel<true>): the
     per-pod scan over the full stage set on a node mesh, from each shard's
     K7 planes (sfs[s], eligs[s]: [P, words(nl)], with its base) and K10
-    planes (planes[s]) -> (choices i32[P] global ids, used i32[N, R]
+    planes (planes[s]), in one thread-block cluster over every shard's
+    nodes (the widest the card schedules up to `cluster` blocks,
+    SCAN_CLUSTER["full_scan"] when None; LAST_CLUSTER["full_scan_shard"]
+    the width launched) -> (choices i32[P] global ids, used i32[N, R]
     gathered), and with `with_state` the final pairwise state gathered."""
-    S, nl, P = sa.mesh.size, sa.nl, sa.P
-    dev = _shard_checks(sa, "full_scan_shard", done, S)
+    S = sa.mesh.size
+    max_kc = _cluster_arg("full_scan", cluster)
+    dev = _shard_checks(sa, "full_scan_shard", done, max_kc)
     outs, (ptrs, dims, sw, wp, ip, fp), table = _shard_args(sa, cfg, sfs, eligs, planes, None)
     fn = _fn("full_scan_shard")
-    feas = torch.empty((S * nl,), dtype=torch.uint8, device=dev)
-    rowf = torch.empty((4, S * nl), dtype=torch.float32, device=dev)
-    xf = torch.empty((S * (MAX_SLOTS + 5 + 1),), dtype=torch.float32, device=dev)
-    xi = torch.empty((S * (4 * _MAX_ENT + 2),), dtype=torch.int32, device=dev)  # ents first: int4-aligned
-    rows = np.array([feas.data_ptr()] + [rowf[k].data_ptr() for k in range(4)], dtype=np.uint64)
-    fo, io = xf.data_ptr(), xi.data_ptr()
-    ie = io + 4 * S * 4 * _MAX_ENT
-    xs = np.array([fo, fo + 4 * S * MAX_SLOTS, fo + 4 * S * (MAX_SLOTS + 5), ie, io, ie + 4 * S], dtype=np.uint64)
-    choices = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    choices = torch.full((sa.P,), -1, dtype=torch.int32, device=dev)
+    kc = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = fn(_host(ptrs), _host(dims), _host(sw), _host(wp), _host(ip), _host(fp), _host(table), S,
-                 choices.data_ptr(), _host(rows), _host(xs), _stream(dev))
+                 choices.data_ptr(), max_kc, ctypes.byref(kc), _stream(dev))
     _raise_on(err, "full_scan_shard")
     LAUNCHES["full_scan_shard"] += 1
+    LAST_CLUSTER["full_scan_shard"] = kc.value
     used = torch.cat([o.state["used"] for o in outs])
     return (choices, used, _gathered_state(sa, outs)) if with_state else (choices, used)
 

@@ -30,8 +30,8 @@ ranks included).
 ``pmax``, ``pmin`` and ``psum`` combine the per-shard partials in shard
 order and leave the result on every local shard's device (JAX replicates
 it).  They are the plain versions of what the shard modes of kernels K2,
-K11 and K12 (csrc/fit_scan.cu, full_scan.cu, rounds.cu) do through their
-exchange buffer on one card, and run on the CPU path, in the tests and
+K11 and K12 (csrc/fit_scan.cu, full_scan.cu, rounds.cu) do across one
+card's thread-block clusters, and run on the CPU path, in the tests and
 across ranks.
 """
 

@@ -37,8 +37,8 @@ route's on every one:
   schedule_scan_plain and schedule_scan_rounds_plain call them through
   ``assign.one_shard``, where every collective is the single-device
   reduction); on the card the shard modes of kernels K2 ``fit_scan``, K11
-  ``full_scan`` and K12 ``rounds`` do it in one cooperative launch through
-  an exchange buffer (ops/kernels.py), after K1 ``static_feasible`` (fit-
+  ``full_scan`` and K12 ``rounds`` do it in the one-device launch over
+  every shard's nodes (ops/kernels.py), after K1 ``static_feasible`` (fit-
   only per-pod) or K7 with the eligibility plane and K10 ``score_planes``,
   each launched per shard with its base.  The rounds route carries the
   usage replicated (the JAX package gathers it once per step); the per-pod

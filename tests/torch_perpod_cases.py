@@ -9,6 +9,12 @@ the threads' (score, node id) keys, and the combine of the kc blocks'
 keys read in rank order.  The tests hold the result to a plain argmax
 with ties (the highest score, the lowest index; -1 where no node is
 feasible).
+
+The shard modes run the same cluster over the shard-major sequence of
+every shard's nodes (shard_axis): K2 over each shard's nl nodes padded to
+whole units (a padding column never passes), K11 over the S * nl global
+ids; the keys carry the axis position, written out as the global id
+s * nl + j (shard_cluster_choice).
 """
 
 from __future__ import annotations
@@ -75,3 +81,28 @@ def cluster_choice(total, kc: int, run_lo, nt: int = NT) -> int:
 def plain_argmax(total) -> int:
     best = max(total, default=-math.inf)
     return total.index(best) if best > -math.inf else -1
+
+
+def shard_width(kernel: str, nl: int) -> int:
+    """A shard's columns on the kernel's node axis: K2 pads nl to the unit."""
+    return -(-nl // UNIT) * UNIT if kernel == "fit_scan" else nl
+
+
+def shard_axis(kernel: str, total, S: int, nl: int):
+    """The global row `total` (S * nl values) laid on the kernel's node axis:
+    shard by shard, each padded to shard_width with -inf."""
+    w = shard_width(kernel, nl)
+    return [x for s in range(S) for x in list(total[s * nl:(s + 1) * nl]) + [-math.inf] * (w - nl)]
+
+
+def shard_cluster_choice(kernel: str, total, S: int, nl: int, cap: int, nt: int = NT) -> int:
+    """The shard mode's choice: the cluster over shard_axis (the width the
+    launch tries first), its axis position written out as the global id."""
+    axis = shard_axis(kernel, total, S, nl)
+    N = len(axis)
+    kc, run_lo = (fit_width(cap, N), fit_run_lo) if kernel == "fit_scan" else (full_width(cap, N), full_run_lo)
+    g = cluster_choice(axis, kc, run_lo, nt)
+    if g < 0:
+        return -1
+    w = shard_width(kernel, nl)
+    return (g // w) * nl + g % w

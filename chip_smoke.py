@@ -99,8 +99,9 @@ batched preemption) on the JAX package's preemption bench cluster:
                      3's 80 pairwise terms against its 10000 pod label rows
                      (api/pairwise.py match_inputs; [80, 2, 41] x [10000,
                      41]) on 4 shards == the plain ring == the host match
-                     matrix; one hop of that ring == plain, timed beside
-                     torch.einsum of the counts (K16's row); then
+                     matrix; one hop of each ring == plain, timed (card
+                     and host time a call) beside torch.einsum of the
+                     counts (K16's row); then
                      all_to_all_pods_to_nodes of a [10240, 6144] f32 plane
                      (config 3's P x N) keeps every value;
   [wide-planes]      a snapshot with 80 distinct NoSchedule taints through
@@ -129,6 +130,14 @@ batched preemption) on the JAX package's preemption bench cluster:
                      exact launch counts, the JAX choices digest, choices
                      and usage == the plain route on the CPU, the step's
                      wall time;
+  [k1-pinned]        static_feasible at a label vocabulary as wide as the
+                     cluster: gang_pinned('perpod-fit') (P = 8, N = 6144,
+                     L = 5000, a hostname In over a pool of config 3's
+                     nodes) as one cycle through schedule_batch (launches
+                     exactly K1 + K2, == the CPU route); K1 == plain, its
+                     card and host time a call, at most two device
+                     operations a call, beside the term match's
+                     torch.einsum of the float masks and the bound;
   [config3-inc]      the same arrays with class state: HoistCache.ensure
                      (class_static_hoist with the eligibility words,
                      class_usage_hoist), then the rounds route in class mode
@@ -401,6 +410,33 @@ def card_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def term_match_library(arrs, reps: int) -> tuple:
+    """K1's library yardstick: torch.einsum of the float selector masks
+    against the float label rows (the term match's share of its work, as
+    XLA lowers it), once per arrays in `arrs`, the operands made before the
+    timing -> (back-to-back ms, card ms) of the calls."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import score_explain
+
+    ops = [(a.sel_mask.float(), a.node_labels.float()) for a in arrs]
+
+    def lib():
+        return [torch.einsum("sel,nl->sen", s, lab) for s, lab in ops]
+
+    return cuda_ms(lib, reps=reps, warmup=2), score_explain.card_host(lib, reps=reps)[0]
+
+
+def k1_calls_checked(fn, tag: str) -> int:
+    """The device operations one K1 call runs (torch.profiler), checked to
+    be at most its two launches; 0 where the profiler sees none."""
+    from kubernetes_tpu_torch.bench import score_explain
+
+    ops = score_explain.device_ops(fn)
+    check(len(ops) <= 2, f"{tag}: one static_feasible call ran {ops}")
+    return len(ops)
+
+
 def f32_ops_per_scored_node(cfg) -> int:
     """f32 operations csrc/fit_scan.cu does for one (pod, node) pair that
     passes fit: the fit strategy and BalancedAllocation over K scored
@@ -420,6 +456,19 @@ def bound(bytes_moved: float, ops: float) -> tuple:
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = ops / H100_F32_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(arr) -> tuple:
+    """(bytes, operations) of K1 on these arrays: every input read once --
+    of each label row only the bytes of the literals some mask sets (the
+    rest cannot change a count), the masks whole -- and the [P, N] plane
+    written once; the integer tests a pair, priced at the f32 rate."""
+    P, N = arr.P, arr.N
+    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
+    S, E, L = arr.sel_mask.shape
+    lits = int(arr.sel_mask.reshape(-1, L).any(dim=0).sum()) if S * E else 0
+    return (N * (2 + T + lits) + P * (2 + T) + 4 * P * (1 + TT) + S * E * L + 4 * S * E + P * N,
+            P * N * (3 + T + TT))
 
 
 def phase_card() -> tuple:
@@ -483,7 +532,7 @@ def phase_north_star() -> list:
     import torch
 
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, infer_score_config, schedule_batch
     from kubernetes_tpu_torch.ops import filters, kernels
     from kubernetes_tpu_torch.ops.assign import schedule_scan_plain
@@ -522,14 +571,15 @@ def phase_north_star() -> list:
     check(k1_err == 0, "north-star: static_feasible kernel != plain")
     del sf_p
     k1_ms = cuda_ms(lambda: kernels.static_feasible(arr), reps=10, warmup=2)
+    k1_card, k1_host = score_explain.card_host(lambda: kernels.static_feasible(arr), reps=10)
+    k1_lib, k1_lib_card = term_match_library([arr], reps=10)
+    k1_ops = k1_calls_checked(lambda: kernels.static_feasible(arr), "north-star")
     k1_plain_ms = cuda_ms(lambda: filters.static_feasible_plain(arr), reps=3)
-    T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
-    S, E, L = arr.sel_mask.shape
-    k1_bytes = (N * (2 + T + L) + P * (2 + T) + 4 * P * (1 + TT) + S * E * L + 4 * S * E) + P * N
-    k1_ops = P * N * (3 + T + TT)  # integer tests, priced at the f32 rate
-    k1_bound, k1_by = bound(k1_bytes, k1_ops)
-    print(f"[north-star] static_feasible: kernel == plain over [{P}, {N}]; kernel {k1_ms:.4f} ms, "
-          f"plain {k1_plain_ms:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}: {k1_bytes} B)", flush=True)
+    k1_bound, k1_by = bound(*k1_work(arr))
+    print(f"[north-star] static_feasible: kernel == plain over [{P}, {N}]; kernel {k1_ms:.4f} ms back to back, "
+          f"{k1_card:.4f} ms of card time, host {k1_host:.1f} us a call, {k1_ops} device operations a call; the "
+          f"term match's torch.einsum {k1_lib:.4f} ms ({k1_lib_card:.4f} card); plain {k1_plain_ms:.4f} ms, bound "
+          f"{k1_bound:.4f} ms ({k1_by})", flush=True)
 
     # --- kernel 2 against its plain version: the first PREFIX pods, then all ---
     pre = arr.pod_prefix(PREFIX)
@@ -579,8 +629,9 @@ def phase_north_star() -> list:
     return step_s, [
         dict(name="static_feasible", route="cuda", source="kubernetes_tpu_torch/csrc/static_feasible.cu",
              replaces="kubernetes_tpu/ops/filters.py:81", launches=launches["static_feasible"],
-             max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by,
-             library_ms=None),
+             max_abs_err=k1_err, ms=k1_ms, card_ms=k1_card, host_us=k1_host, plain_ms=k1_plain_ms,
+             bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib, library_card_ms=k1_lib_card,
+             device_ops=k1_ops),
         dict(name="fit_scan", route="cuda", source="kubernetes_tpu_torch/csrc/fit_scan.cu",
              replaces="kubernetes_tpu/ops/assign.py:181", launches=launches["fit_scan"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
@@ -1367,7 +1418,7 @@ def phase_ring() -> list:
     import torch
 
     from kubernetes_tpu_torch.api.snapshot import encode_snapshot
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import filters, kernels
     from kubernetes_tpu_torch.parallel import all_to_all_pods_to_nodes, make_mesh, ring_match
     from kubernetes_tpu_torch.parallel.ring import match_block_plain
@@ -1395,10 +1446,16 @@ def phase_ring() -> list:
     tm = filters.term_match(arr.sel_mask, arr.sel_kind, arr.node_labels)
     ns_err = mismatch(got.cpu(), plain) + mismatch(got[:S0], tm)
     check(ns_err == 0 and bool(got[S0:].all()), "ring: ring_match != the plain ring / the dense term match")
+    # one hop at the north star's shape: shard 0's terms x one node label block
+    ns_hop = (sel[:S // d].contiguous(), kind[:S // d].contiguous(), labels[:labels.shape[0] // d].contiguous())
+    ns_hop_err = mismatch(kernels.ring_match(*ns_hop), match_block_plain(*ns_hop))
+    check(ns_hop_err == 0, "ring: one north-star ring_match hop != plain")
+    ns_hop_card = card_ms(lambda: kernels.ring_match(*ns_hop), reps=200)
     print(f"[ring] north star: ring_match on {mesh}: node-selector terms {S0} padded to {S}, E={E}, L={L}, "
           f"node label rows {labels.shape[0]}: {ns_launches} ring_match launches == the plain ring == the dense "
-          f"term match", flush=True)
-    del arr, sel, kind, labels, tiles, got
+          f"term match; one hop [{S // d}, {E}, {L}] x [{labels.shape[0] // d}, {L}] == plain, "
+          f"{ns_hop_card:.4f} ms of card time", flush=True)
+    del arr, sel, kind, labels, tiles, got, ns_hop
 
     t0 = time.perf_counter()
     sel, kind, labels, dense = config3_match_inputs()
@@ -1423,9 +1480,10 @@ def phase_ring() -> list:
     hop_err = mismatch(kernels.ring_match(hs, hk, hl), match_block_plain(hs, hk, hl))
     check(hop_err == 0, "ring: one ring_match hop != plain")
     k16_ms = cuda_ms(lambda: kernels.ring_match(hs, hk, hl), reps=200, warmup=5)
-    k16_card = card_ms(lambda: kernels.ring_match(hs, hk, hl), reps=200)
+    k16_card, k16_host = score_explain.card_host(lambda: kernels.ring_match(hs, hk, hl), reps=200)
     k16_plain = cuda_ms(lambda: match_block_plain(hs, hk, hl), reps=20, warmup=2)
     lib_ms = cuda_ms(lambda: torch.einsum("sel,bl->seb", hs, hl), reps=200, warmup=5)
+    lib_card = score_explain.card_host(lambda: torch.einsum("sel,bl->seb", hs, hl), reps=200)[0]
     k16_ops = ring_hop_ops(hs, hk, hl)
     k16_bytes = 4 * (sl * E * L + sl * E + pl * L) + sl * pl
     k16_bound, k16_by = bound(k16_bytes, k16_ops)
@@ -1434,7 +1492,8 @@ def phase_ring() -> list:
           f"{dense.sum().item()} matches: ring_match on {mesh}: {launches} ring_match launches == the plain ring "
           f"== the host match matrix (api/pairwise.py _match_matrix); the whole ring {ring_ms:.4f} ms; one hop "
           f"[{sl}, {E}, {L}] x [{pl}, {L}]: {k16_ms:.4f} ms back to back ({k16_card:.4f} ms of card time, queued "
-          f"behind a sleep), plain {k16_plain:.4f} ms, torch.einsum of the counts {lib_ms:.4f} ms, bound "
+          f"behind a sleep; host {k16_host:.1f} us a call), plain {k16_plain:.4f} ms, torch.einsum of the counts "
+          f"{lib_ms:.4f} ms ({lib_card:.4f} card), bound "
           f"{k16_bound:.6f} ms ({k16_by}: {k16_bytes} B, {k16_ops} operations evaluated of "
           f"{2 * sl * E * L * pl} at most)", flush=True)
     del sel, kind, labels, tiles, hs, hk, hl
@@ -1449,9 +1508,10 @@ def phase_ring() -> list:
           f"plane, the exchange reads and writes {2 * x.numel() * 4 / 1e6:.0f} MB)", flush=True)
     return [dict(name="ring_match", route="cuda", source="kubernetes_tpu_torch/csrc/ring_match.cu",
                  replaces="kubernetes_tpu/parallel/ring.py:35 (_eval_block, in ring_match :47)", launches=launches,
-                 max_abs_err=k16_err + hop_err, ms=k16_ms, plain_ms=k16_plain, bound_ms=k16_bound, bound_by=k16_by,
-                 library_ms=lib_ms, card_ms=k16_card, ring_ms=ring_ms, a2a_ms=a2a_ms,
-                 shape=f"[{sl}, {E}, {L}] x [{pl}, {L}]")]
+                 max_abs_err=k16_err + hop_err + ns_hop_err, ms=k16_ms, plain_ms=k16_plain, bound_ms=k16_bound,
+                 bound_by=k16_by,
+                 library_ms=lib_ms, card_ms=k16_card, host_us=k16_host, library_card_ms=lib_card, ring_ms=ring_ms,
+                 a2a_ms=a2a_ms, north_star_hop_card_ms=ns_hop_card, shape=f"[{sl}, {E}, {L}] x [{pl}, {L}]")]
 
 
 def phase_wide_planes() -> list:
@@ -1820,6 +1880,59 @@ def phase_perpod_small() -> None:
         print(f"[perpod-small] {tag} on {m}: launches {ml}, {mkey} one cluster of {kernels.LAST_CLUSTER[mkey]} "
               f"blocks over the 4 shards' nodes; choices (the JAX digest) and usage == the one-device cycle; "
               f"first call {m_first:.3f} s, step wall {min(mwalls) * 1e3:.3f} ms (best of 3)", flush=True)
+
+
+def phase_k1_pinned() -> dict:
+    """K1 at a label vocabulary as wide as the cluster: the pinned gang wave
+    gang_pinned('perpod-fit') (P = 8, N = 6144, L = 5000: a hostname In over
+    a pool of config 3's 5000 nodes) as one fit-only cycle through
+    schedule_batch, the card's default route, counted (K1 + K2), == the
+    plain route on the CPU; K1 == plain; its back-to-back, card and host
+    time a call, its device operations a call (at most its two launches),
+    the term match's library call (torch.einsum of the float masks alone)
+    and the bound."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import score_explain
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, filters, infer_score_config, kernels, schedule_batch
+
+    snap = w.gang_pinned("perpod-fit")
+    arr, meta = DeltaEncoder().encode_device(snap)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    P, N, L = arr.P, arr.N, arr.sel_mask.shape[2]
+    check((P, N, L) == (8, 6144, 5000), f"k1-pinned: P={P} N={N} L={L}")
+    kernels.reset_launches()
+    choices, used = schedule_batch(arr, cfg)
+    torch.cuda.synchronize()
+    launches = counted()
+    check(launches == {"static_feasible": 1, "fit_scan": 1}, f"k1-pinned: launches {launches}")
+    arr_cpu, _ = DeltaEncoder(device="cpu").encode_device(snap)
+    cp, up = schedule_batch(arr_cpu, infer_score_config(arr_cpu, DEFAULT_SCORE_CONFIG), device="cpu")
+    check(torch.equal(choices.cpu(), cp) and torch.equal(used.cpu(), up), "k1-pinned: card != the CPU route")
+    sf = kernels.static_feasible(arr)
+    t0 = time.perf_counter()
+    sf_p = filters.static_feasible_plain(arr)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = mismatch(sf, sf_p)
+    check(err == 0, "k1-pinned: static_feasible kernel != plain")
+    ms = cuda_ms(lambda: kernels.static_feasible(arr), reps=100, warmup=5)
+    card, host = score_explain.card_host(lambda: kernels.static_feasible(arr), reps=100)
+    ops = k1_calls_checked(lambda: kernels.static_feasible(arr), "k1-pinned")
+    lib_ms, lib_card = term_match_library([arr], reps=100)
+    b, by = bound(*k1_work(arr))
+    print(f"[k1-pinned] gang_pinned('perpod-fit'): P={P} N={N} L={L}, {int(arr.sel_mask.sum())} literals; "
+          f"schedule_batch launches {launches}, choices {choices[:meta.n_pods].tolist()} == the CPU route; "
+          f"static_feasible == plain: {ms:.4f} ms back to back, {card:.4f} ms of card time, host {host:.1f} us a "
+          f"call, {ops} device operations a call; the term match's torch.einsum {lib_ms:.4f} ms ({lib_card:.4f} "
+          f"card); plain {plain_ms:.3f} ms (host clock); bound {b:.6f} ms ({by})", flush=True)
+    return dict(name="static_feasible (wide vocabulary)", route="cuda",
+                source="kubernetes_tpu_torch/csrc/static_feasible.cu", replaces="kubernetes_tpu/ops/filters.py:81",
+                launches=launches["static_feasible"], max_abs_err=err, ms=ms, card_ms=card, host_us=host,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms, library_card_ms=lib_card,
+                device_ops=ops, shape=f"P={P} N={N} L={L}")
 
 
 def phase_all_stages() -> list:
@@ -2403,6 +2516,7 @@ def phase_gang_contended(k12_gated: dict) -> list:
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import score_explain
     from kubernetes_tpu_torch.bench import workloads as w
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, filters, gang
     from kubernetes_tpu_torch.ops import infer_score_config, kernels
@@ -2465,24 +2579,24 @@ def phase_gang_contended(k12_gated: dict) -> list:
             err1 = mismatch(sf, sf_p)
             err2 = mismatch(ck, cp) + mismatch(uk.contiguous(), up)
             k1_ms = cuda_ms(lambda: kernels.static_feasible(arr, done=zero, out=sf), reps=20)
+            k1_card, k1_host = score_explain.card_host(lambda: kernels.static_feasible(arr, done=zero, out=sf), reps=50)
+            k1_lib, k1_lib_card = term_match_library([arr], reps=50)
             k2_ms = cuda_ms(lambda: kernels.fit_scan(sf, arr, cfg, done=zero, out=fo), reps=20)
             before = [x.clone() for x in (sf, fo.choices, fo.used_t, fo.n_scored)]
             k1_gated = card_ms(lambda: kernels.static_feasible(arr, done=one, out=sf), reps=50)
             k2_gated = card_ms(lambda: kernels.fit_scan(sf, arr, cfg, done=one, out=fo), reps=50)
             moved = sum(mismatch(a, b) for a, b in zip(before, (sf, fo.choices, fo.used_t, fo.n_scored)))
             check(err1 + err2 + moved == 0, f"gang-contended {tag}: K1/K2 gated mode ({err1}, {err2}, {moved})")
-            T, TT = arr.node_taint_ns.shape[1], arr.pod_terms.shape[1]
-            S, E, L = arr.sel_mask.shape
             P, N = arr.P, arr.N
-            b1 = bound((N * (2 + T + L) + P * (2 + T) + 4 * P * (1 + TT) + S * E * L + 4 * S * E) + P * N,
-                       P * N * (3 + T + TT))
+            b1 = bound(*k1_work(arr))
             b2 = bound(P * N + sum(t.numel() * t.element_size() for t in (arr.pod_req, arr.pod_valid,
                                                                            arr.node_alloc, arr.node_used))
                        + 4 * P + 4 * N * arr.R,  # the choices and the usage written
                        f32_ops_per_scored_node(cfg) * int(n_scored.item()))
             print(f"[gang-contended] {tag}: static_feasible / fit_scan in the gated mode == plain (done clear: "
                   f"{k1_ms:.4f} / {k2_ms:.4f} ms; done set: {k1_gated * 1e3:.2f} / {k2_gated * 1e3:.2f} us, "
-                  f"nothing written)", flush=True)
+                  f"nothing written); static_feasible done clear {k1_card:.4f} ms of card time, host {k1_host:.1f} "
+                  f"us a call, the term match's torch.einsum {k1_lib_card:.4f} ms of card time", flush=True)
             for kname, src, rep_, lc, err, ms, pms, b, gms in (
                     ("static_feasible", "static_feasible.cu", "kubernetes_tpu/ops/filters.py:81", dl["static_feasible"],
                      err1, k1_ms, k1_plain, b1, k1_gated),
@@ -2492,6 +2606,8 @@ def phase_gang_contended(k12_gated: dict) -> list:
                                    source=f"kubernetes_tpu_torch/csrc/{src}", replaces=rep_, launches=lc,
                                    max_abs_err=err + moved, ms=ms, plain_ms=pms, bound_ms=b[0], bound_by=b[1],
                                    library_ms=None, gated_ms=gms, shape=f"P={arr.P} N={arr.N}")
+            rows["static_feasible"].update(card_ms=k1_card, host_us=k1_host, library_ms=k1_lib,
+                                           library_card_ms=k1_lib_card)
         else:
             sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
             planes = assign.score_planes(arr, cfg)
@@ -2973,7 +3089,7 @@ def phase_mesh_north_star_perpod(ns) -> list:
     on the first MESH_PERPOD_PREFIX pods."""
     import torch
 
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import score_explain, workloads
     from kubernetes_tpu_torch.ops import assign, filters, kernels
     from kubernetes_tpu_torch.parallel import mesh as tm
     from kubernetes_tpu_torch.parallel import sharded
@@ -3005,12 +3121,12 @@ def phase_mesh_north_star_perpod(ns) -> list:
     k1_err = sum(int((k != filters.static_feasible_plain(sh, base=b)).any()) for k, sh, b in zip(sfs, sa.shards, bases))
     check(k1_err == 0, "mesh-north-star-perpod: static_feasible (base) != plain")
     k1_ms = cuda_ms(lambda: [kernels.static_feasible(sh, base=b) for sh, b in zip(sa.shards, bases)], reps=5)
+    k1_card, k1_host = score_explain.card_host(
+        lambda: [kernels.static_feasible(sh, base=b) for sh, b in zip(sa.shards, bases)], reps=10)
+    k1_lib, k1_lib_card = term_match_library(sa.shards, reps=10)
     k1_plain = cuda_ms(lambda: [filters.static_feasible_plain(sh, base=b) for sh, b in zip(sa.shards, bases)], reps=2)
-    sh0 = sa.shards[0]
-    T, TT = sh0.node_taint_ns.shape[1], sh0.pod_terms.shape[1]
-    S_, E, L = sh0.sel_mask.shape
-    k1_bytes = 4 * (nl * (2 + T + L) + P * (2 + T) + 4 * P * (1 + TT) + S_ * E * L + 4 * S_ * E) + P * N
-    k1_bound, k1_by = bound(k1_bytes, P * N * (3 + T + TT))
+    k1_bytes, k1_ops = (sum(x) for x in zip(*(k1_work(sh) for sh in sa.shards)))
+    k1_bound, k1_by = bound(k1_bytes, k1_ops)
     # K2's shard mode against the plain sharded scan on a prefix, and timed
     k = MESH_PERPOD_PREFIX
     pre = sa.pod_prefix(k)
@@ -3035,7 +3151,9 @@ def phase_mesh_north_star_perpod(ns) -> list:
     del sf1
     k2_bound, k2_by = bound(k2_bytes, n_scored * f32_ops_per_scored_node(cfg))
     print(f"[mesh-north-star-perpod] static_feasible (base) x 4 == plain per shard: {k1_ms:.4f} ms the four, "
-          f"plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); fit_scan_shard == plain sharded scan on the "
+          f"{k1_card:.4f} ms of card time, host {k1_host:.1f} us the four calls; the term match's torch.einsum "
+          f"x 4 {k1_lib_card:.4f} ms of card time; plain {k1_plain:.4f} ms, bound {k1_bound:.4f} ms ({k1_by}); "
+          f"fit_scan_shard == plain sharded scan on the "
           f"first {k} pods (plain {k2_plain:.1f} ms, host clock): {k2_ms:.3f} ms over all {P} pods "
           f"({k2_ms / P * 1e3:.3f} us per pod), one cluster of {k2_kc} blocks ({sum(len(r) > 1 for r in runs)} of "
           f"{len(runs)} runs span shards), beside the same call's one-device fit_scan {one_ms:.3f} ms in turns: "
@@ -3043,8 +3161,9 @@ def phase_mesh_north_star_perpod(ns) -> list:
     return [
         dict(name="static_feasible (base)", route="cuda", source="kubernetes_tpu_torch/csrc/static_feasible.cu",
              replaces="kubernetes_tpu/ops/assign.py:189 (schedule_scan's my_nodes under shard_map)",
-             launches=launches["static_feasible"], max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-             bound_ms=k1_bound, bound_by=k1_by, library_ms=None, scope="4 shards of the north star"),
+             launches=launches["static_feasible"], max_abs_err=k1_err, ms=k1_ms, card_ms=k1_card, host_us=k1_host,
+             plain_ms=k1_plain, bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib, library_card_ms=k1_lib_card,
+             scope="4 shards of the north star"),
         dict(name="fit_scan (shard)", route="cuda", source="kubernetes_tpu_torch/csrc/fit_scan.cu",
              replaces="kubernetes_tpu/ops/assign.py:181 (axis_name; :320-326)", launches=launches["fit_scan_shard"],
              max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain, bound_ms=k2_bound, bound_by=k2_by, library_ms=None,
@@ -3643,6 +3762,7 @@ def main() -> int:
     c3, _, k12_row = phase_config3()
     _, k11_row = phase_config3_perpod(c3)
     phase_perpod_small()
+    rows.append(phase_k1_pinned())
     cold3, _, inc_rows, k4_c3 = phase_config3_inc(c3)
     k4_row = next(r for r in rows if r["name"] == "class_usage_hoist")
     k4_row["max_abs_err"] += k4_c3.pop("max_abs_err")

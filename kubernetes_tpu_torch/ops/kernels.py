@@ -106,7 +106,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # kernel -> (C entry, argtypes)
 _ARGTYPES = {
-    "static_feasible": ("ktt_static_feasible", [_P] * 15 + [_I] * 8 + [_P]),
+    "static_feasible": ("ktt_static_feasible", [_P] * 13 + [_I] * 8 + [_P]),
     "fit_scan": ("ktt_fit_scan", [_P] * 6 + [_I, _U, _P, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P]),
     "class_static_hoist": ("ktt_class_static_hoist", [_P] * 15 + [_I] * 8 + [_P]),
     "class_usage_hoist": ("ktt_class_usage_hoist", [_P] * 4 + [_I] + [_P] * 6 + [_I] * 3 + [_P]),
@@ -253,14 +253,15 @@ def _check_done(done: Optional[torch.Tensor], dev) -> None:
 
 def static_feasible(arr, done: Optional[torch.Tensor] = None, out: Optional[torch.Tensor] = None,
                     base: int = 0) -> torch.Tensor:
-    """bool[P, N] static feasibility on the card (csrc/static_feasible.cu).
-    `done` (i32[1] on the card): the launch returns at entry once it is
-    set; `out`: the bool[P, N] buffer to write (a fresh one when None);
-    `base`: the first global node id of arr's nodes (a node shard's; the
-    nodeName pin is a global id)."""
+    """bool[P, N] static feasibility on the card (csrc/static_feasible.cu:
+    a set-up launch over the node axis, then the row pass).  `done` (i32[1]
+    on the card): both launches return at entry once it is set; `out`: the
+    bool[P, N] buffer to write (a fresh one when None); `base`: the first
+    global node id of arr's nodes (a node shard's; the nodeName pin is a
+    global id).  The set-up's words live in a buffer kept per card and
+    stream (_kept)."""
     dev = arr.device
-    if dev.type != "cuda":
-        raise ValueError(f"static_feasible kernel needs CUDA tensors, got {dev}")
+    _need_cuda(dev, "static_feasible")
     P, N = arr.P, arr.N
     T = arr.node_taint_ns.shape[1]
     TT = arr.pod_terms.shape[1]
@@ -274,26 +275,39 @@ def static_feasible(arr, done: Optional[torch.Tensor] = None, out: Optional[torc
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
     fn = _fn("static_feasible")
-    TW = max(1, -(-T // 32))  # taints and tolerations as 32-bit words
-    tm = torch.empty((S, N), dtype=torch.uint8, device=dev)
-    taint_w = torch.empty((N, TW), dtype=torch.int32, device=dev)
-    tol_w = torch.empty((P, TW), dtype=torch.int32, device=dev)
     if out is not None:
         _check(out, "out", torch.bool, (P, N), dev)
     _check_done(done, dev)
     sf = torch.empty((P, N), dtype=torch.bool, device=dev) if out is None else out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with _on(dev):
+        stream = _stream(dev)
+        # csrc/static_feasible.cu's words: tmw [S, W], nw [W], orw [W, TW], ttw [32 TW, W]
+        scratch = _kept("static_feasible", dev, stream, -(-N // 32) * (S + 1 + 33 * max(1, -(-T // 32))))
         err = fn(
             arr.node_valid.data_ptr(), arr.node_taint_ns.data_ptr(), arr.node_labels.data_ptr(),
             arr.pod_valid.data_ptr(), arr.pod_tol_ns.data_ptr(), arr.pod_nodename.data_ptr(),
             arr.pod_terms.data_ptr(), arr.pod_has_sel.data_ptr(), arr.sel_mask.data_ptr(),
-            arr.sel_kind.data_ptr(), tm.data_ptr(), taint_w.data_ptr(), tol_w.data_ptr(), sf.data_ptr(),
-            _ptr(done), P, N, T, TT, S, E, L, base, stream,
+            arr.sel_kind.data_ptr(), scratch.data_ptr(), sf.data_ptr(), _ptr(done), P, N, T, TT, S, E, L, base,
+            stream,
         )
     _raise_on(err, "static_feasible")
     LAUNCHES["static_feasible"] += 1
     return sf
+
+
+# buffers kept across calls, one per (kernel, card, stream): K1's set-up
+# words, K14's accumulator; a launch on one stream never overlaps the next
+_KEPT: Dict[Tuple[str, int, int], torch.Tensor] = {}
+
+
+def _kept(name: str, dev, stream: int, n: int, zero: bool = False) -> torch.Tensor:
+    """int32[>= n] on `dev` for `name`'s launches on `stream`: made once
+    (zero-filled when `zero`) and kept, grown when a call needs more."""
+    key = (name, dev.index, stream)
+    buf = _KEPT.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _KEPT[key] = (torch.zeros if zero else torch.empty)((max(1, n),), dtype=torch.int32, device=dev)
+    return buf
 
 
 @dataclasses.dataclass
@@ -1140,21 +1154,12 @@ def explain_counts(arr, node_used: torch.Tensor, reps: torch.Tensor, rep_valid: 
     return out
 
 
-# K14's accumulators, one per (card, stream): int32, zero between launches
-_EXPLAIN_ACC: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
 def _explain_acc(dev, stream: int, F: int, R: int) -> torch.Tensor:
     """K14's accumulator on `dev` for launches on `stream` with F reps and
     R resources (its tickets and copies of the counts, csrc/explain.cu):
     made zero once and kept across calls (each launch leaves it zero: its
     last block moves the counts out), grown when a call needs more."""
-    n = 1 + EXPLAIN_COPIES + EXPLAIN_COPIES * F * (4 + R + 1)
-    key = (dev.index, stream)
-    acc = _EXPLAIN_ACC.get(key)
-    if acc is None or acc.numel() < n:
-        acc = _EXPLAIN_ACC[key] = torch.zeros((n,), dtype=torch.int32, device=dev)
-    return acc
+    return _kept("explain_counts", dev, stream, 1 + EXPLAIN_COPIES + EXPLAIN_COPIES * F * (4 + R + 1), zero=True)
 
 
 def preempt_eval(stat_w: torch.Tensor, pod_req: torch.Tensor, pod_idxs: torch.Tensor, node_alloc: torch.Tensor,
@@ -1225,7 +1230,7 @@ def ring_match(sel: torch.Tensor, kind: torch.Tensor, lab: torch.Tensor, out: Op
     if not 0 <= col0 <= out.shape[1] - B:
         raise ValueError(f"ring_match: columns [{col0}, {col0 + B}) outside out's {out.shape[1]}")
     fn = _fn("ring_match")
-    with torch.cuda.device(dev):
+    with _on(dev):
         err = fn(sel.data_ptr(), kind.data_ptr(), lab.data_ptr(), out.data_ptr(), Sl, E, L, B, out.shape[1], col0,
                  _stream(dev))
     _raise_on(err, "ring_match")

@@ -17,7 +17,7 @@ import torch
 from helpers import random_cluster
 from kubernetes_tpu.api.snapshot import encode_snapshot as jax_encode
 from kubernetes_tpu.ops import filters as jf
-from kubernetes_tpu_torch.bench.workloads import heterogeneous, mixed
+from kubernetes_tpu_torch.bench.workloads import gang_pinned, heterogeneous, mixed
 from kubernetes_tpu_torch.convert import from_jax_arrays
 from kubernetes_tpu_torch.ops import filters as tf
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
@@ -28,6 +28,13 @@ SNAPSHOTS = {
     "heterogeneous": lambda: heterogeneous(64, 256),
     "random-taints-selectors": lambda: random_cluster(
         random.Random(11), n_nodes=24, n_pods=80, with_taints=True, with_selectors=True),
+    # hostname pins on a few hundred nodes: a label vocabulary as wide as
+    # the cluster (L = 300 and 333, not multiples of 32), the shape of
+    # kernel K1's term match at a pinned gang wave
+    "gang-pinned-perpod-fit-300": lambda: gang_pinned("perpod-fit", n_nodes=300),
+    "gang-pinned-perpod-full-333": lambda: gang_pinned("perpod-full", n_nodes=333),
+    "gang-pinned-rounds-fit-300": lambda: gang_pinned("rounds-fit", n_nodes=300),
+    "gang-pinned-rounds-pairwise-333": lambda: gang_pinned("rounds-pairwise", n_nodes=333),
 }
 
 
@@ -73,6 +80,24 @@ def test_static_feasible(pair):
     j = jf.static_feasible(ja)
     _eq(j, tf.static_feasible_plain(ta))
     _eq(j, tf.static_feasible(ta))  # the dispatching wrapper, CPU tensors
+
+
+@pytest.mark.parametrize("n_nodes", [300, 333])
+def test_static_feasible_on_a_wide_label_vocabulary(n_nodes):
+    """A hostname-pinned wave: L is the cluster's width, in the hundreds and
+    not a multiple of 32; the port's plain static feasibility on the port's
+    own encode == the JAX static_feasible on the JAX encode, and some but
+    not all nodes pass the pin."""
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot as port_encode
+
+    snap = gang_pinned("perpod-fit", n_nodes=n_nodes)
+    ja, _ = jax_encode(snap)
+    ta, _ = port_encode(snap, device="cpu")
+    S, E, L = ta.sel_mask.shape
+    assert L == n_nodes and L % 32 != 0 and tuple(ja.sel_mask.shape) == (S, E, L)
+    j = jf.static_feasible(ja)
+    _eq(j, tf.static_feasible_plain(ta))
+    assert 0 < int(np.asarray(j).sum()) < ta.P * n_nodes
 
 
 def test_fit_ok_rows(pair):

@@ -140,6 +140,107 @@ def _fit_cfg(strategy, score_resources):
         fit_weight=1.3, balanced_weight=0.7)
 
 
+# K1's term match at the label widths around a 32-bit word and at a
+# cluster-wide vocabulary; N % 16 != 0 and N % 32 != 0 (997) beside 1024;
+# T = 40 > 32 taints (two taint words)
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 70, 5000])
+@pytest.mark.parametrize("N", [997, 1024])
+def test_static_feasible_label_widths(card, L, N):
+    arr = _random_arrays(10 + L % 7, P=40, N=N, L=L)
+    _check_static_feasible(arr)
+
+
+def _pins(arr, seed: int, base: int):
+    """arr with global nodeName pins around [base, base + N): unset, missing
+    (-2), in range, and just outside it on either side."""
+    rng = np.random.default_rng(seed)
+    P, N = arr.P, arr.N
+    pin = np.where(rng.random(P) < 0.5, rng.integers(base - 3, base + N + 3, P), -1)
+    pin[rng.random(P) < 0.05] = -2
+    pin[:4] = [base, base + N - 1, base - 1, base + N]
+    return dataclasses.replace(arr, pod_nodename=torch.from_numpy(pin.astype(np.int32)).to(arr.pod_nodename.device))
+
+
+@pytest.mark.parametrize("base", [0, 997, 5000])
+def test_static_feasible_pins_with_base(card, base):
+    """A node shard's launch (base > 0: its first global node id) == the
+    plain version with the same base."""
+    arr = _pins(_random_arrays(30, P=64, N=997, L=33), 31, base)
+    sf = kernels.static_feasible(arr, base=base)
+    assert torch.equal(sf, filters.static_feasible_plain(arr, base=base))
+    assert sf.any() and not sf.all()
+
+
+@pytest.mark.parametrize("N", [997, 6144])
+def test_static_feasible_gated(card, N):
+    """done clear: the plane == plain; done set: nothing written."""
+    arr = _random_arrays(40, P=8, N=N, L=5000)
+    zero = torch.zeros((1,), dtype=torch.int32, device=card)
+    one = torch.ones((1,), dtype=torch.int32, device=card)
+    out = torch.zeros((arr.P, arr.N), dtype=torch.bool, device=card)
+    kernels.static_feasible(arr, done=zero, out=out)
+    assert torch.equal(out, filters.static_feasible_plain(arr))
+    before = torch.rand((arr.P, arr.N), generator=torch.Generator().manual_seed(0)).lt(0.5).to(card)
+    out.copy_(before)
+    kernels.static_feasible(arr, done=one, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, before)
+
+
+@pytest.mark.parametrize("S,E,L,N", [
+    (80, 4, 1000, 997),  # 10240 mask words: past the staged masks, each ballotted as needed
+    (3, 2, 60000, 100),  # a row's words too many for 32 rows a block: tiles of fewer rows
+    (1, 1, 5000, 6143),  # one sparse term over a wide vocabulary, N odd
+])
+def test_static_feasible_match_plans(card, S, E, L, N):
+    arr = _random_arrays(50 + S, P=24, N=N, S=S, E=E, L=L)
+    _check_static_feasible(arr)
+
+
+def _literal_arrays(seed: int, counts, kinds, N: int = 997, L: int = 5000) -> ClusterArrays:
+    """_random_arrays with S x E masks of exactly counts[s][e] set literals
+    and the given kinds: K1 lists the literals when every ANY / NONE
+    expression has at most 32, else it packs the label rows."""
+    arr = _random_arrays(seed, P=48, N=N, S=len(counts), E=len(counts[0]), L=L)
+    rng = np.random.default_rng(seed + 1)
+    mask = np.zeros((len(counts), len(counts[0]), L), bool)
+    for s, row in enumerate(counts):
+        for e, c in enumerate(row):
+            mask[s, e, rng.choice(L, size=c, replace=False)] = True
+    dev = arr.sel_mask.device
+    return dataclasses.replace(arr, sel_mask=torch.from_numpy(mask).to(dev),
+                               sel_kind=torch.tensor(kinds, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("case", ["listed", "listed-32", "packed-33", "pad-and-false-dense"])
+def test_static_feasible_listed_and_packed(card, case):
+    """The listed-literal match (every ANY / NONE expression <= 32 literals)
+    and the packed one (an ANY with 33) both == plain; a PAD or
+    constant-false expression's literals never force the packed match."""
+    counts, kinds = {
+        "listed": ([[1, 5, 0], [20, 3, 9], [2, 2, 2], [7, 0, 1]], [[1, 2, 0], [1, 1, 2], [2, 1, 1], [1, 0, 3]]),
+        "listed-32": ([[32, 32, 1], [32, 1, 32]], [[1, 1, 2], [1, 2, 1]]),
+        "packed-33": ([[33, 4, 1], [3, 1, 8]], [[1, 2, 1], [2, 1, 1]]),
+        "pad-and-false-dense": ([[4000, 3, 2], [5, 4000, 1]], [[0, 1, 2], [1, 3, 1]]),
+    }[case]
+    arr = _literal_arrays(60 + len(case), counts, kinds)
+    sf = _check_static_feasible(arr)
+    assert sf.any() and not sf.all()
+
+
+def test_static_feasible_at_gang_pinned(card):
+    """The pinned gang wave on BASELINE config 3's 5000 nodes (P = 8, N =
+    6144, L = 5000, a hostname In over a pool): one wrapper call == plain."""
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads
+
+    arr, _ = DeltaEncoder().encode_device(workloads.gang_pinned("perpod-fit"))
+    assert tuple(arr.node_labels.shape) == (6144, 5000)
+    kernels.reset_launches()
+    sf = _check_static_feasible(arr)
+    assert kernels.LAUNCHES["static_feasible"] == 1 and 0 < int(sf.sum()) < arr.P * 5000
+
+
 @pytest.mark.parametrize("K", range(1, 9))
 @pytest.mark.parametrize("strategy", sorted(STRATEGIES))
 def test_fit_scan_every_strategy_and_k(card, strategy, K):

@@ -91,6 +91,37 @@ def test_match_block_plain_equals_eval_block(case):
                                                               jnp.array(labels[:13]))))
 
 
+# (seed, S, E, L, B): label vocabularies of a thousand and more, kinds 0-3
+WIDE = {"l1000": (21, 6, 3, 1000, 40), "l1337": (22, 4, 2, 1337, 33), "l5000": (23, 3, 4, 5000, 20)}
+
+
+def _wide_inputs(seed, S, E, L, B):
+    """Masks from a few literals to dense ones, label rows from empty to
+    dense, every kind 0-3 (3: KIND_FALSE)."""
+    rng = np.random.default_rng(seed)
+    dens = rng.choice([0.0005, 0.003, 0.05, 0.5], size=(S, E, 1))
+    sel_mask = (rng.random((S, E, L)) < dens).astype(np.float32)
+    sel_kind = rng.choice(4, size=(S, E), p=[0.3, 0.3, 0.3, 0.1]).astype(np.int32)
+    labels = (rng.random((B, L)) < rng.choice([0.0, 0.01, 0.2], size=(B, 1))).astype(np.float32)
+    return sel_mask, sel_kind, labels
+
+
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_match_block_plain_equals_eval_block_wide(case):
+    """The plain hop == the JAX _eval_block at L >= 1000, exactly, and the
+    cases are not degenerate (some tiles true, some false)."""
+    import jax.numpy as jnp
+
+    from kubernetes_tpu.parallel.ring import _eval_block
+
+    sel_mask, sel_kind, labels = _wide_inputs(*WIDE[case])
+    got = match_block_plain(_port(sel_mask), _port(sel_kind), _port(labels)).numpy()
+    want = np.asarray(_eval_block(jnp.array(sel_mask), jnp.array(sel_kind), jnp.array(labels)))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _dense(sel_mask, sel_kind, labels))
+    assert 0 < got.sum() < got.size
+
+
 def _pod_label_inputs(n_nodes, n_pods):
     """BASELINE config 3's selector x pod-label match (spread_affinity): the
     batch's distinct pairwise terms against its pods' label rows, as
@@ -192,6 +223,34 @@ def test_ring_match_kernel(card, case):
     lab = (torch.rand((300, 5000), generator=torch.Generator().manual_seed(1)) < 0.3).float().to(card)
     kind = torch.tensor([[1, 2, 0]] * 4, dtype=torch.int32, device=card)
     assert torch.equal(kernels.ring_match(big, kind, lab), match_block_plain(big, kind, lab))
+
+
+# (seed, Sl, E, L, B): the label widths around a word and a wide one (E x L
+# above the old kernel's 12 K floats of shared memory), B not a multiple of
+# the 32-row tile; 64 x 4 terms' masks past the staged words; a row's words
+# too many for 32 rows a block; one term (a block of one warp), at the
+# north star's hop and at a ragged width
+KERNEL_SHAPES = [(31, 5, 3, 1, 77), (32, 5, 3, 31, 77), (33, 5, 3, 32, 70), (34, 5, 3, 33, 65),
+                 (35, 5, 3, 5000, 45), (36, 64, 4, 1100, 40), (37, 2, 2, 60000, 45), (38, 1, 1, 1, 5120),
+                 (39, 1, 3, 33, 65)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", KERNEL_SHAPES, ids=lambda x: "x".join(map(str, x[1:])))
+def test_ring_match_kernel_shapes(card, shape):
+    """K16 == match_block_plain, alone and at col0 = 19 of a wider output
+    (nothing else written)."""
+    from kubernetes_tpu_torch.ops import kernels
+
+    sel_mask, sel_kind, labels = (_port(a).to(card) for a in _wide_inputs(*shape))
+    want = match_block_plain(sel_mask, sel_kind, labels)
+    assert torch.equal(kernels.ring_match(sel_mask, sel_kind, labels), want)
+    wide = torch.zeros((sel_mask.shape[0], labels.shape[0] + 40), dtype=torch.bool, device=card)
+    kernels.reset_launches()
+    kernels.ring_match(sel_mask, sel_kind, labels, out=wide, col0=19)
+    assert kernels.LAUNCHES["ring_match"] == 1
+    assert torch.equal(wide[:, 19:19 + labels.shape[0]], want)
+    assert not wide[:, :19].any() and not wide[:, 19 + labels.shape[0]:].any()
 
 
 @pytest.mark.cuda

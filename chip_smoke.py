@@ -108,7 +108,8 @@ batched preemption) on the JAX package's preemption bench cluster:
                      DeltaEncoder: its four 80-wide bool fields (the hard and
                      PreferNoSchedule taint and toleration planes) travel
                      packed and unpack_planes (== plain) unpacks them;
-                     decisions == the JAX package's;
+                     decisions == the JAX package's; unpack_planes' card
+                     and host time a call;
   [config3]          BASELINE config 3, spread_affinity(5000, 10000, seed=0)
                      (P=10240, N=6144, 80 terms, 5003 domains): a cold
                      DeltaEncoder encode, then schedule_batch_ordinals on the
@@ -194,14 +195,18 @@ batched preemption) on the JAX package's preemption bench cluster:
                      (class-wave route per iteration) and the device
                      fixpoint (K7 + K8 + K13 queued G + 1 times): 13
                      iterations, 36 groups, the JAX digests, ordinals and
-                     sweeps; gang_quorum == plain; chunk_rounds as the
-                     first iteration's stage B == plain, by card time
-                     beside its byte bound;
+                     sweeps; gang_quorum == plain on the first
+                     iteration's choices and on them with groups G/2 and
+                     G-1 unplaced (a revocation), its card and host time a
+                     call on both with the fixpoint's out buffers, and
+                     gated; chunk_rounds as the first iteration's stage B
+                     == plain, by card time beside its byte bound;
   [config5]          BASELINE config 5, gang(1000, 64, 2000) (P=65536,
                      N=2048, G=1000): both fixpoints as above with the JAX
                      digests, their walls and the device loop's host enqueue
-                     time; gang_quorum timed beside its plain version and
-                     torch.bincount of the quorum count;
+                     time; gang_quorum (card time) beside its plain version,
+                     torch.zeros(G + 1).index_add_ of the quorum count (card
+                     time) and torch.bincount (back to back);
   [gang-rounds]      config 3 in PodGroups of 64 (workloads.grouped: P=10240,
                      N=6144, G=157) through the device fixpoint on the
                      rounds route (K7 with the eligibility plane + K12 +
@@ -1518,7 +1523,7 @@ def phase_wide_planes() -> list:
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import gang_unpack, score_explain, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, bitplane, infer_score_config, kernels, schedule_batch
 
     snap = workloads.wide_taints(**workloads.WIDE_TAINTS)
@@ -1538,11 +1543,12 @@ def phase_wide_planes() -> list:
     n_w = host.pod_tol_ns.shape[1]
     k9_err = mismatch(kernels.unpack_planes(words, n_w), bitplane.unpack(words, n_w))
     check(k9_err == 0, "wide planes: unpack_planes != plain")
-    k9_ms = cuda_ms(lambda: kernels.unpack_planes(words, n_w), reps=50, warmup=3)
+    k9_b2b = cuda_ms(lambda: kernels.unpack_planes(words, n_w), reps=50, warmup=3)
+    k9_ms, k9_host = score_explain.card_host(lambda: kernels.unpack_planes(words, n_w), reps=50)
     k9_plain = cuda_ms(lambda: bitplane.unpack(words, n_w), reps=10)
     rows = words.shape[0]
-    k9_bytes = rows * (4 * words.shape[1] + n_w)
-    k9_bound, k9_by = bound(k9_bytes, rows * n_w)
+    k9_bytes, k9_ops = gang_unpack.k9_work(rows, n_w)
+    k9_bound, k9_by = bound(k9_bytes, k9_ops)
     cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
     choices, _ = schedule_batch(arr, cfg)
     c = choices[: meta.n_pods].cpu().numpy().astype("<i4")
@@ -1554,11 +1560,13 @@ def phase_wide_planes() -> list:
           f"{tuple(arr.node_taint_ns.shape)}, pod_tol_ns {tuple(arr.pod_tol_ns.shape)} and their "
           f"PreferNoSchedule twins sent packed, "
           f"unpack_planes x{launches} == host == plain; scheduled {scheduled}/{meta.n_pods}, choices == JAX; "
-          f"unpack_planes [{rows}, {n_w}]: {k9_ms:.4f} ms, plain {k9_plain:.4f} ms, bound {k9_bound:.6f} ms "
+          f"unpack_planes [{rows}, {n_w}]: {k9_ms:.4f} ms of card time, {k9_host:.1f} us host a call "
+          f"({k9_b2b:.4f} ms back to back), plain {k9_plain:.4f} ms, bound {k9_bound:.6f} ms "
           f"({k9_by}: {k9_bytes} B)", flush=True)
     return [dict(name="unpack_planes", route="cuda", source="kubernetes_tpu_torch/csrc/unpack_planes.cu",
                  replaces="kubernetes_tpu/api/delta.py:922", launches=launches, max_abs_err=k9_err, ms=k9_ms,
-                 plain_ms=k9_plain, bound_ms=k9_bound, bound_by=k9_by, library_ms=None)]
+                 plain_ms=k9_plain, bound_ms=k9_bound, bound_by=k9_by, library_ms=None, host_us=k9_host,
+                 b2b_ms=k9_b2b)]
 
 
 def full_bytes(arr) -> int:
@@ -2208,7 +2216,7 @@ def gang_run(tag, spec, want) -> dict:
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
-    from kubernetes_tpu_torch.bench import workloads
+    from kubernetes_tpu_torch.bench import gang_unpack, score_explain, workloads
     from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, gang, infer_score_config, kernels
     from kubernetes_tpu_torch.ops.incremental import HoistCache
 
@@ -2277,15 +2285,38 @@ def gang_run(tag, spec, want) -> dict:
     check(stats["iterations"] == want["iterations"], f"{tag}: device fixpoint iterations {stats['iterations']}")
     check(torch.equal(dc, hc) and torch.equal(du, hu), f"{tag}: device fixpoint != host fixpoint")
 
-    # --- K13 against plain on the first iteration's inputs (every pod valid) ---
+    # --- K13 against plain on the first iteration's inputs (every pod valid),
+    # and on the revocation path (groups G/2 and G-1 unplaced); its card and
+    # host time a call on both, with the fixpoint's persistent outputs ---
     sfs = kernels.packed_static_rows(arr)
     c1 = kernels.chunk_rounds_dense(arr, cfg, sfs)[0]
-    pv_k = arr.pod_valid.clone()
-    kq = kernels.gang_quorum(c1, arr.pod_group, pv_k, arr.group_min)
-    pq = gang.gang_quorum_plain(c1, arr.pod_group, arr.pod_valid, arr.group_min)
-    k13_err = (mismatch(kq[0], pq[0]) + mismatch(kq[1], pq[1]) + mismatch(kq[2], pq[2]) + mismatch(kq[3], pq[3])
-               + mismatch(pv_k, pq[4]) + int(bool(kq[4].item()) != pq[5]))
+    c_rev = gang_unpack.revocation_choices(arr, c1)
+    k13_err, k13_done = 0, []
+    for ch in (c1, c_rev):
+        pv_k = arr.pod_valid.clone()
+        kq = kernels.gang_quorum(ch, arr.pod_group, pv_k, arr.group_min)
+        pq = gang.gang_quorum_plain(ch, arr.pod_group, arr.pod_valid, arr.group_min)
+        k13_err += (mismatch(kq[0], pq[0]) + mismatch(kq[1], pq[1]) + mismatch(kq[2], pq[2])
+                    + mismatch(kq[3], pq[3]) + mismatch(pv_k, pq[4]) + int(bool(kq[4].item()) != pq[5]))
+        k13_done.append(pq[5])
     check(k13_err == 0, f"{tag}: gang_quorum != plain ({k13_err})")
+    check(not k13_done[1], f"{tag}: no group failed on the revocation input")
+    qo = kernels.gang_quorum_out(G, arr.device)
+    k13_card = {}
+    for mode, ch in (("first", c1), ("revocation", c_rev)):
+        pool = gang_unpack.Pool(arr.pod_valid, gang_unpack.pool_size(100))
+
+        def k13(ch=ch, pool=pool):
+            pv_i, done_i = pool.next()
+            return kernels.gang_quorum(ch, arr.pod_group, pv_i, arr.group_min, done=done_i, out=qo)
+
+        k13_card[mode] = score_explain.card_host(k13, reps=100)
+    k13_kc = kernels.LAST_CLUSTER["gang_quorum"]
+    print(f"[{tag}] gang_quorum == plain on the first iteration ({'no' if k13_done[0] else 'a'} group failing) "
+          f"and revoking group {G // 2}; one cluster of {k13_kc} "
+          f"blocks; card {k13_card['first'][0] * 1e3:.2f} us, host {k13_card['first'][1]:.1f} us a call "
+          f"(revocation: card {k13_card['revocation'][0] * 1e3:.2f} us, host {k13_card['revocation'][1]:.1f} us), "
+          f"with the fixpoint's out buffers", flush=True)
 
     # --- where the walls go: one iteration of each route's kernels, and the
     # host cost of one gated iteration's three wrapper calls ---
@@ -2305,7 +2336,8 @@ def gang_run(tag, spec, want) -> dict:
     host_us = {}
     for name, call in (("packed_static_rows", lambda: kernels.packed_static_rows(arr, done=done, out=sfs)),
                        ("chunk_rounds_dense", lambda: kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out)),
-                       ("gang_quorum", lambda: kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done))):
+                       ("gang_quorum", lambda: kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done,
+                                                                   out=qo))):
         t0 = time.perf_counter()
         for _ in range(100):
             call()
@@ -2313,11 +2345,14 @@ def gang_run(tag, spec, want) -> dict:
     torch.cuda.synchronize()
     gated_ms = cuda_ms(lambda: (kernels.packed_static_rows(arr, done=done, out=sfs),
                                 kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out),
-                                kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done)), reps=100)
+                                kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done, out=qo)),
+                       reps=100)
     gated_card_ms = card_ms(lambda: (kernels.packed_static_rows(arr, done=done, out=sfs),
                                      kernels.chunk_rounds_dense(arr, cfg, sfs, done=done, out=out),
-                                     kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done)),
+                                     kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done, out=qo)),
                             reps=100)
+    k13_gated = score_explain.card_host(
+        lambda: kernels.gang_quorum(c1, arr.pod_group, pv_g, arr.group_min, done=done, out=qo), reps=100)
     check(torch.equal(pv_g, arr.pod_valid), f"{tag}: a gated gang_quorum launch moved pv")
     # K7 alone in the gated mode (done set): its card time, nothing written;
     # and with done clear against its plain version
@@ -2336,10 +2371,12 @@ def gang_run(tag, spec, want) -> dict:
           f"bound {sb_bound:.6f} ms ({sb_by}: {sb_bytes} B)), packed_static_rows {k7_ms:.3f} ms + chunk_rounds_dense {k8_ms:.3f} ms (the device "
           f"fixpoint's); a gated iteration: host {sum(host_us.values()):.1f} us "
           f"({', '.join(f'{k} {v:.1f}' for k, v in host_us.items())}), device {gated_ms * 1e3:.1f} us back to "
-          f"back, {gated_card_ms * 1e3:.1f} us of card time queued behind a sleep", flush=True)
+          f"back, {gated_card_ms * 1e3:.1f} us of card time queued behind a sleep; gang_quorum gated alone "
+          f"{k13_gated[0] * 1e3:.2f} us of card time, {k13_gated[1]:.1f} us host", flush=True)
     return dict(arr=arr, c1=c1, G=G, host_s=host_s, device_s=device_s, enqueue_s=enqueue_s,
                 launches=dl, k13_err=k13_err, encode_s=encode_s, k7_ms=k7_ms, k7_gated_ms=k7_gated_ms,
-                k7_err=k7_err + k7_moved, k7_plain=k7_plain)
+                k7_err=k7_err + k7_moved, k7_plain=k7_plain, k13_card=k13_card, k13_gated=k13_gated, k13_kc=k13_kc,
+                gated_host_us=host_us)
 
 
 def phase_gang_small() -> None:
@@ -2355,7 +2392,7 @@ def phase_config5() -> list:
     beside its plain version and the one PyTorch call of its quorum count."""
     import torch
 
-    from kubernetes_tpu_torch.bench import static_rows
+    from kubernetes_tpu_torch.bench import gang_unpack, score_explain, static_rows
     from kubernetes_tpu_torch.bench import workloads as w
     from kubernetes_tpu_torch.ops import gang, kernels
 
@@ -2365,22 +2402,31 @@ def phase_config5() -> list:
     arr, c1, G = r["arr"], r["c1"], r["G"]
     P = arr.P
     pv = arr.pod_valid.clone()
-    k13_ms = cuda_ms(lambda: kernels.gang_quorum(c1, arr.pod_group, pv, arr.group_min), reps=50, warmup=3)
+    qo = kernels.gang_quorum_out(G, arr.device)
+    k13_b2b = cuda_ms(lambda: kernels.gang_quorum(c1, arr.pod_group, pv, arr.group_min, out=qo), reps=50, warmup=3)
     check(torch.equal(pv, arr.pod_valid), "config 5: a quorum check revoked a group")
     k13_plain = cuda_ms(lambda: gang.gang_quorum_plain(c1, arr.pod_group, arr.pod_valid, arr.group_min), reps=10)
     gidx = torch.where((arr.pod_group >= 0) & arr.pod_valid & (c1 >= 0), arr.pod_group, G).to(torch.int64)
-    k13_lib = cuda_ms(lambda: torch.bincount(gidx, minlength=G + 1), reps=50, warmup=3)
-    k13_bytes = 4 * P + 4 * P + 2 * P + 4 * G + 4 * G + 2 * G + 8
-    k13_bound, k13_by = bound(k13_bytes, 4 * P + 2 * G)
-    print(f"[config5] gang_quorum == plain: {k13_ms:.4f} ms over P={P}, G={G}, plain {k13_plain:.4f} ms, "
-          f"torch.bincount of the quorum count {k13_lib:.4f} ms, bound {k13_bound:.6f} ms ({k13_by}: {k13_bytes} B); "
-          f"walls: host fixpoint {r['host_s']:.4f} s, device fixpoint {r['device_s']:.4f} s (host enqueue "
-          f"{r['enqueue_s']:.4f} s)", flush=True)
+    ones = torch.ones((P,), dtype=torch.int32, device=arr.device)
+    k13_lib = score_explain.card_host(
+        lambda: torch.zeros((G + 1,), dtype=torch.int32, device=arr.device).index_add_(0, gidx, ones), reps=50)[0]
+    k13_bincount = cuda_ms(lambda: torch.bincount(gidx, minlength=G + 1), reps=50, warmup=3)
+    k13_bytes, k13_ops = gang_unpack.k13_work(P, G)
+    k13_bound, k13_by = bound(k13_bytes, k13_ops)
+    k13_ms, k13_host = r["k13_card"]["first"]
+    print(f"[config5] gang_quorum == plain: {k13_ms:.4f} ms of card time over P={P}, G={G} (one cluster of "
+          f"{r['k13_kc']} blocks; {k13_b2b:.4f} ms back to back; revocation {r['k13_card']['revocation'][0]:.4f} ms), "
+          f"plain {k13_plain:.4f} ms, torch.zeros(G + 1).index_add_ of the quorum count {k13_lib:.4f} ms of card "
+          f"time (torch.bincount {k13_bincount:.4f} ms back to back, a host read), bound {k13_bound:.6f} ms "
+          f"({k13_by}: {k13_bytes} B); walls: host fixpoint {r['host_s']:.4f} s, device fixpoint {r['device_s']:.4f} s "
+          f"(host enqueue {r['enqueue_s']:.4f} s, {r['enqueue_s'] / (G + 1) * 1e6:.1f} us an iteration)", flush=True)
     k7_bound, k7_by = bound(*static_rows.k7_work(arr, False))
     return [dict(name="gang_quorum", route="cuda", source="kubernetes_tpu_torch/csrc/gang.cu",
                  replaces="kubernetes_tpu/ops/gang.py:112", launches=r["launches"]["gang_quorum"],
                  max_abs_err=r["k13_err"], ms=k13_ms, plain_ms=k13_plain, bound_ms=k13_bound, bound_by=k13_by,
-                 library_ms=k13_lib),
+                 library_ms=k13_lib, host_us=k13_host, b2b_ms=k13_b2b, revocation_ms=r["k13_card"]["revocation"][0],
+                 gated_ms=r["k13_gated"][0], gated_host_us=r["k13_gated"][1], cluster=r["k13_kc"],
+                 bincount_b2b_ms=k13_bincount),
             dict(name="packed_static_rows (gated mode)", route="cuda",
                  source="kubernetes_tpu_torch/csrc/class_hoist.cu",
                  replaces="kubernetes_tpu/ops/filters.py:92 (per gang-fixpoint iteration, kubernetes_tpu/ops/gang.py:112)",

@@ -9,9 +9,8 @@
 //   present[g] = group g has a valid pod;
 //   bad[g]     = present[g] & sched[g] < group_min[g];
 //   first      = the lowest pod index p with pv[p], pod_group[p] >= 0 and
-//                bad[pod_group[p]] (an atomicMin over pod indices: the first
-//                True that the JAX argmax returns, so no tie can arise),
-//                or -1 when no group failed;
+//                bad[pod_group[p]] (the first True that the JAX argmax
+//                returns), or -1 when no group failed;
 //   pv        &= ~(pod_group == pod_group[first]) where a group failed
 //                (pv_next, written in place);
 //   done       = no group failed.
@@ -20,96 +19,332 @@
 // change nothing (ops/gang.py, design (b): no host read between
 // iterations).
 //
-// Design: one block of 1024 threads walks the pods in strides, with a block
-// barrier between the phases; the group arrays live in global memory (G can
-// exceed what shared memory would hold comfortably at 1000s of groups and
-// the phases are tiny).  A single block sees its own global writes after
-// __syncthreads.
+// Design: ONE thread-block cluster of kc blocks of 1024 threads (kc up to
+// 16, a non-portable size: enough blocks that a thread takes one unit of
+// 4 pods, or that the group counters fit; the widest the card schedules
+// below that, memoised like fit_scan.cu's; one block is a plain launch,
+// whose implicit cluster is that block).  Block q takes the pods
+// [q * chunk, (q + 1) * chunk) (chunk a multiple of 4) and owns the groups
+// [q * gs, (q + 1) * gs), gs = ceil(G / kc): their counters, placed pods
+// and the lowest valid pod, live in its shared memory (8 bytes a group), so
+// G is capped by the cluster's shared memory, not by one block's.
+//   1. every block reads `done` (one word, written by this launch only
+//      after its last cluster barrier: the read is the same in every
+//      block) and returns if it is set; the owners reset their counters;
+//      cluster barrier;
+//   2. count: a thread loads a unit of 4 pods (16-byte loads of choices
+//      and pod_group, a 4-byte load of pv, where the pointers are aligned
+//      and the unit whole) and folds its valid pods into runs of one group;
+//      a run that ends inside the unit goes straight to its owner
+//      (atomicAdd of the placed count and atomicMin of the run's first pod,
+//      native where this block owns the group, else through distributed
+//      shared memory); the unit's last run is
+//      combined across the warp first (a gang's pods are consecutive, so
+//      a warp's 128 pods touch one to three groups): the lanes of one
+//      group are __match_any_sync peers, their placed sum comes from three
+//      ballots (a run of at most 4 pods places at most 4), and the lowest
+//      peer, whose run starts first, sends it; cluster barrier;
+//   3. judge: each owner writes sched, present, bad of its groups (the
+//      group_min it reads loaded before step 1) and takes the least
+//      lowest valid pod over its bad groups (first = min over the bad
+//      groups of their lowest valid pod, which is the JAX argmax);
+//      threads 0..kc-1 push it into every block's slot (atomicMin
+//      through distributed shared memory); cluster barrier;
+//   4. every block reads its own slot: no failed group -> nothing to do;
+//      else it reads the failed group, pod_group[first], and revokes the
+//      group's valid pods in its own pod slice (the groups of its first
+//      pass of units kept in registers).  Rank 0 writes first and done.
+// No block touches another's shared memory after the last barrier, so
+// blocks may leave at once; pv is read in step 2 only, before the barrier
+// that precedes every revocation.  Where G exceeds what the cluster's
+// shared memory holds, the counters live in a global scratch [2, G]
+// instead (the same steps; the owners reset their ranges before the first
+// barrier, the judge reads them past L1).
 //
-// Bounds on an H100 at BASELINE config 5 (P = 65536, G = 1000): it reads
-// choices, pod_group and pv (~0.6 MB) once or twice and the group arrays;
-// >= 0.2 us at 3.35 TB/s.  One block at ~2 bytes a cycle per SM keeps it
-// near 10-30 us: it is a launch-sized kernel next to the batch step.
+// Bounds on an H100 at BASELINE config 5 (P = 65536, G = 1000): choices,
+// pod_group and pv read once (~0.6 MB), the group arrays written once;
+// 0.2 us at 3.35 TB/s.  It is a launch and three cluster barriers.
+// Measured on an H100 (bench/gang_unpack.py, card time at config 5): 16
+// blocks 7.1 us, 8 blocks 8.4, 4 11.6, one 26.0; at gang-small (P = 4096,
+// one block) a plain launch 4.6 us where a cluster launch of one took 6.4.
 //
 // Built by ops/kernels.py with nvcc -gencode arch=compute_90a,code=sm_90a
 // -O3 -fmad=false; called through ctypes (plain C interface below).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "occupancy.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NT = 1024;
+constexpr int UNIT = 4;  // pods a thread loads at once
+constexpr int MAX_KC = 16;
 constexpr int IMAX = 0x7fffffff;
+constexpr unsigned FULL = 0xffffffffu;
+// dynamic shared memory a block may take for its counters (227 KB less
+// the static words)
+constexpr size_t SMEM_CAP = 232448 - 1024;
 
+// a run of `placed` placed pods of group g whose lowest pod is `low`, into
+// the group's counters: its owner's shared memory (a native shared atomic
+// where the owner is this block, else through distributed shared memory),
+// or the global scratch
+template <bool GM>
+__device__ __forceinline__ void flush(cg::cluster_group& cl, uint32_t* placed_c, int32_t* low_c, int q, int gs,
+                                      int g, uint32_t placed, int low) {
+  if (GM) {
+    if (placed) atomicAdd(placed_c + g, placed);
+    atomicMin(low_c + g, low);
+    return;
+  }
+  const int r = (int)((unsigned)g / (unsigned)gs);
+  const int i = g - r * gs;
+  if (r == q) {
+    if (placed) atomicAdd(placed_c + i, placed);
+    atomicMin(low_c + i, low);
+  } else {
+    if (placed) atomicAdd(cl.map_shared_rank(placed_c, r) + i, placed);
+    atomicMin(cl.map_shared_rank(low_c, r) + i, low);
+  }
+}
+
+// one unit of 4 pods from p0: its valid pods' groups (-1 where the pod is
+// past the slice or not valid: no group, pv clear, or a group outside
+// [0, G)) and placed flags
+__device__ __forceinline__ void load_unit(const int32_t* __restrict__ choices, const int32_t* __restrict__ pod_group,
+                                          const uint8_t* pv, int p0, int hi, int G, bool vec, int (&g)[UNIT],
+                                          bool (&placed)[UNIT]) {
+  if (vec && p0 + UNIT <= hi) {
+    const int4 gg = *reinterpret_cast<const int4*>(pod_group + p0);
+    const int4 cc = *reinterpret_cast<const int4*>(choices + p0);
+    const uint32_t vv = *reinterpret_cast<const uint32_t*>(pv + p0);
+    g[0] = gg.x, g[1] = gg.y, g[2] = gg.z, g[3] = gg.w;
+    placed[0] = cc.x >= 0, placed[1] = cc.y >= 0, placed[2] = cc.z >= 0, placed[3] = cc.w >= 0;
+#pragma unroll
+    for (int k = 0; k < UNIT; ++k)
+      if (!((vv >> (8 * k)) & 0xffu) || (unsigned)g[k] >= (unsigned)G) g[k] = -1;
+  } else {
+#pragma unroll
+    for (int k = 0; k < UNIT; ++k) {
+      const int p = p0 + k;
+      g[k] = -1;
+      placed[k] = false;
+      if (p < hi) {
+        const int gk = pod_group[p];
+        if ((unsigned)gk < (unsigned)G && pv[p]) {
+          g[k] = gk;
+          placed[k] = choices[p] >= 0;
+        }
+      }
+    }
+  }
+}
+
+template <bool GM>
 __global__ void __launch_bounds__(NT) gang_quorum_kernel(
     const int32_t* __restrict__ choices,    // [P]
     const int32_t* __restrict__ pod_group,  // [P] group id or -1
-    uint8_t* __restrict__ pv,               // [P] pod_valid, updated in place
+    uint8_t* pv,                            // [P] pod_valid, updated in place
     const int32_t* __restrict__ group_min,  // [G]
-    int P, int G,
+    int P, int G, int gs, int chunk, int vec,
     int32_t* __restrict__ sched,    // [G] out
     uint8_t* __restrict__ present,  // [G] out
     uint8_t* __restrict__ bad,      // [G] out
     int32_t* __restrict__ first,    // [1] out
-    int32_t* done) {                // [1] in: gate; out: no group failed
-  __shared__ int anybad, firstp;
-  if (*done) return;  // every thread reads the same word
-  const int tid = threadIdx.x;
-  for (int g = tid; g < G; g += NT) {
-    sched[g] = 0;
-    present[g] = 0;
+    int32_t* done,                  // [1] in: gate; out: no group failed
+    int32_t* __restrict__ scratch) {  // [2, G] the counters where GM
+  extern __shared__ uint32_t smem[];
+  // the lowest valid pod of a failed group: the block's, and the
+  // cluster's that every block receives
+  __shared__ int slot, blockmin;
+  if (*done) return;  // every block reads the same word
+  cg::cluster_group cl = cg::this_cluster();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q = (int)cl.block_rank(), kc = (int)cl.num_blocks();
+  uint32_t* placed_c = GM ? reinterpret_cast<uint32_t*>(scratch) : smem;
+  int32_t* low_c = GM ? scratch + G : reinterpret_cast<int32_t*>(smem + gs);
+  const int g0 = q * gs, ng = max(0, min(G, g0 + gs) - g0);
+  const int gmin0 = tid < ng ? group_min[g0 + tid] : 0;  // read early, used by the judgement
+  // 1. reset
+  for (int i = tid; i < ng; i += NT) {
+    placed_c[GM ? g0 + i : i] = 0;
+    low_c[GM ? g0 + i : i] = IMAX;
   }
   if (tid == 0) {
-    anybad = 0;
-    firstp = IMAX;
+    slot = IMAX;
+    blockmin = IMAX;
   }
-  __syncthreads();
-  for (int p = tid; p < P; p += NT) {
-    const int g = pod_group[p];
-    if (g < 0 || !pv[p]) continue;
-    present[g] = 1;
-    if (choices[p] >= 0) atomicAdd(sched + g, 1);
+  // [lo, hi): a multiple of 4 or P (an empty slice past the end)
+  const int lo = (int)min((int64_t)P, (int64_t)q * chunk), hi = (int)min((int64_t)P, (int64_t)lo + chunk);
+  const int u0 = (lo + UNIT - 1) / UNIT, u1 = (hi + UNIT - 1) / UNIT;
+  cl.sync();
+  // 2. count; the first pass's groups stay in registers for the revocation
+  int kept[UNIT] = {-1, -1, -1, -1};
+  for (int base = u0; base < u1; base += NT) {
+    const int u = base + tid;
+    int g[UNIT];
+    bool placed[UNIT];
+    if (u < u1) {
+      load_unit(choices, pod_group, pv, u * UNIT, hi, G, vec, g, placed);
+    } else {
+#pragma unroll
+      for (int k = 0; k < UNIT; ++k) g[k] = -1, placed[k] = false;
+    }
+    if (base == u0) {
+#pragma unroll
+      for (int k = 0; k < UNIT; ++k) kept[k] = g[k];
+    }
+    int key = -1, low = 0;
+    uint32_t n = 0;
+#pragma unroll
+    for (int k = 0; k < UNIT; ++k) {
+      if (g[k] < 0) continue;
+      if (g[k] != key) {
+        if (key >= 0) flush<GM>(cl, placed_c, low_c, q, gs, key, n, low);
+        key = g[k];
+        low = u * UNIT + k;
+        n = 0;
+      }
+      n += placed[k];
+    }
+    const unsigned peers = __match_any_sync(FULL, key);
+    const unsigned b0 = __ballot_sync(FULL, n & 1u), b1 = __ballot_sync(FULL, n & 2u),
+                   b2 = __ballot_sync(FULL, n & 4u);
+    if (key >= 0 && lane == __ffs(peers) - 1)
+      flush<GM>(cl, placed_c, low_c, q, gs, key,
+                __popc(b0 & peers) + 2 * __popc(b1 & peers) + 4 * __popc(b2 & peers), low);
   }
-  __syncthreads();
-  for (int g = tid; g < G; g += NT) {
-    const bool b = present[g] && sched[g] < group_min[g];
+  cl.sync();
+  // 3. judge the owned groups; the block's least lowest pod over its
+  // failed groups goes to every block's slot
+  int mine = IMAX;
+  for (int i = tid; i < ng; i += NT) {
+    const int g = g0 + i;
+    const uint32_t pl = GM ? __ldcg(placed_c + g) : placed_c[i];
+    const int lw = GM ? __ldcg(low_c + g) : low_c[i];
+    const bool pres = lw != IMAX;
+    const bool b = pres && (int)pl < (i == tid ? gmin0 : group_min[g]);
+    sched[g] = (int32_t)pl;
+    present[g] = pres;
     bad[g] = b;
-    if (b) anybad = 1;
+    if (b) mine = min(mine, lw);
   }
+  mine = __reduce_min_sync(FULL, mine);
+  if (lane == 0 && mine != IMAX) atomicMin(&blockmin, mine);
   __syncthreads();
-  if (anybad) {
-    for (int p = tid; p < P; p += NT) {
-      const int g = pod_group[p];
-      if (g >= 0 && pv[p] && bad[g]) {
-        atomicMin(&firstp, p);
-        break;  // this thread's later pods are larger
+  if (tid < kc && blockmin != IMAX) atomicMin(cl.map_shared_rank(&slot, tid), blockmin);
+  cl.sync();
+  // 4. revoke in the own slice (the valid pods of the failed group: the
+  // others are clear already or in no group); rank 0 writes first and done
+  const int f = slot;
+  if (f != IMAX) {
+    const int fg = pod_group[f];
+    for (int u = u0 + tid, pass = 0; u < u1; u += NT, ++pass) {
+      const int p0 = u * UNIT;
+      if (pass == 0) {
+#pragma unroll
+        for (int k = 0; k < UNIT; ++k)
+          if (kept[k] == fg) pv[p0 + k] = 0;
+      } else {
+        for (int p = p0; p < min(hi, p0 + UNIT); ++p)
+          if (pod_group[p] == fg) pv[p] = 0;
       }
     }
   }
-  __syncthreads();
-  if (anybad) {
-    const int fg = pod_group[firstp];
-    for (int p = tid; p < P; p += NT)
-      if (pod_group[p] == fg) pv[p] = 0;
+  if (q == 0 && tid == 0) {
+    *first = f != IMAX ? f : -1;
+    *done = f == IMAX;
   }
-  if (tid == 0) {
-    *first = anybad ? firstp : -1;
-    *done = !anybad;
+}
+
+// the launch's cluster: asked of the runtime again only when the device,
+// P, G or the cap changes (each query costs host time)
+struct ClusterChoice {
+  int dev = -1, P = -1, G = 0, max_kc = 0;
+  int kc = 0, gm = 0, gs = 0, chunk = 0;
+  size_t smem = 0;
+};
+
+cudaError_t choose(ClusterChoice& memo, int dev, int P, int G, int max_kc) {
+  ClusterChoice c;
+  const int kp = (P + NT * UNIT - 1) / (NT * UNIT);  // blocks for one unit a thread
+  const int want = min(max_kc, max(1, kp));
+  // the fewest blocks >= want whose shared memory holds the counters, else
+  // the widest below want that the card schedules
+  for (int i = 0; i < max_kc && c.kc == 0; ++i) {
+    const int k = want + i <= max_kc ? want + i : max_kc - i;
+    const int gs = (G + k - 1) / k;
+    const size_t smem = 8 * (size_t)gs;
+    if (smem <= SMEM_CAP && ktt::cluster_fits(gang_quorum_kernel<false>, k, NT, smem)) {
+      c.kc = k;
+      c.gs = gs;
+      c.smem = smem;
+    }
   }
+  if (c.kc == 0) {  // the counters in the global scratch: the widest cluster <= want
+    for (int k = want; k >= 1 && c.kc == 0; --k)
+      if (ktt::cluster_fits(gang_quorum_kernel<true>, k, NT, 0)) c.kc = k;
+    if (c.kc == 0) return cudaErrorInvalidConfiguration;  // the card schedules no such cluster
+    c.gm = 1;
+    c.gs = (G + c.kc - 1) / c.kc;
+  } else {
+    const cudaError_t err =
+        cudaFuncSetAttribute(gang_quorum_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)c.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int per = (P + c.kc - 1) / c.kc;
+  c.chunk = (per + UNIT - 1) / UNIT * UNIT;
+  c.dev = dev;
+  c.P = P;
+  c.G = G;
+  c.max_kc = max_kc;
+  memo = c;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// every pointer is device memory; done is read first (a set word makes the
-// launch return at entry) and written last
+// every pointer is device memory but kc_out (host, may be NULL); done is
+// read first (a set word makes the launch return at entry) and written
+// last; scratch ([2, G] int32) is used only where the cluster's shared
+// memory cannot hold G groups' counters
 extern "C" int ktt_gang_quorum(const void* choices, const void* pod_group, void* pv, const void* group_min,
-                               void* sched, void* present, void* bad, void* first, void* done, int P, int G,
-                               void* stream) {
-  if (P < 0 || G < 1) return (int)cudaErrorInvalidValue;
-  gang_quorum_kernel<<<1, NT, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(choices), static_cast<const int32_t*>(pod_group), static_cast<uint8_t*>(pv),
-      static_cast<const int32_t*>(group_min), P, G, static_cast<int32_t*>(sched), static_cast<uint8_t*>(present),
-      static_cast<uint8_t*>(bad), static_cast<int32_t*>(first), static_cast<int32_t*>(done));
-  return (int)cudaGetLastError();
+                               void* sched, void* present, void* bad, void* first, void* done, void* scratch, int P,
+                               int G, int max_kc, int* kc_out, void* stream) {
+  static ClusterChoice memo;
+  if (P < 0 || G < 1 || max_kc < 1 || max_kc > MAX_KC) return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (memo.dev != dev || memo.P != P || memo.G != G || memo.max_kc != max_kc) {
+    err = choose(memo, dev, P, G, max_kc);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (memo.gm && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  if (kc_out != nullptr) *kc_out = memo.kc;
+  const int vec = ((reinterpret_cast<uintptr_t>(choices) | reinterpret_cast<uintptr_t>(pod_group)) & 15) == 0 &&
+                  (reinterpret_cast<uintptr_t>(pv) & 3) == 0;
+  auto kernel = memo.gm ? gang_quorum_kernel<true> : gang_quorum_kernel<false>;
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int32_t* ch = static_cast<const int32_t*>(choices);
+  const int32_t* pg = static_cast<const int32_t*>(pod_group);
+  uint8_t* v = static_cast<uint8_t*>(pv);
+  const int32_t* gm = static_cast<const int32_t*>(group_min);
+  int32_t* sc = static_cast<int32_t*>(sched);
+  uint8_t* pr = static_cast<uint8_t*>(present);
+  uint8_t* bd = static_cast<uint8_t*>(bad);
+  int32_t* fi = static_cast<int32_t*>(first);
+  int32_t* dn = static_cast<int32_t*>(done);
+  int32_t* sx = static_cast<int32_t*>(scratch);
+  if (memo.kc == 1) {  // one block: a plain launch, its implicit cluster of one
+    kernel<<<1, NT, memo.smem, st>>>(ch, pg, v, gm, P, G, memo.gs, memo.chunk, vec, sc, pr, bd, fi, dn, sx);
+    return (int)cudaGetLastError();
+  }
+  return (int)ktt::launch_cluster(kernel, memo.kc, NT, memo.smem, st, ch, pg, v, gm, P, G, memo.gs, memo.chunk, vec,
+                                  sc, pr, bd, fi, dn, sx);
 }

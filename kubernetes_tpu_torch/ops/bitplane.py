@@ -72,7 +72,7 @@ def pack(x: torch.Tensor) -> torch.Tensor:
 def unpack(w: torch.Tensor, n: int) -> torch.Tensor:
     """int32 words [..., words_for(n)] -> bool [..., n] (the pack inverse)."""
     bits = (w[..., None].to(torch.int64) >> _bits(n, w.device)) & 1
-    return bits.reshape(w.shape[:-1] + (-1,))[..., :n].to(torch.bool)
+    return bits.reshape(w.shape[:-1] + (w.shape[-1] * WORD_BITS,))[..., :n].to(torch.bool)  # 0 rows too
 
 
 def pack_blocks(x: torch.Tensor, s: int = 1) -> torch.Tensor:

@@ -193,7 +193,8 @@ class GangDispatch:
 
 
 def _card_loop(arr, cfg, route: str):
-    """The route's persistent buffers and its iteration on the card ->
+    """The route's persistent buffers (K13's outputs among them) and its
+    iteration on the card ->
     (iterate: queues one iteration, a gated one once `done` is set;
     (choices, used) of the last real iteration; the status pair or None;
     pv, the device pod_valid the iterations revoke in place; done)."""
@@ -205,6 +206,7 @@ def _card_loop(arr, cfg, route: str):
     pv = arr.pod_valid.clone()
     arr_i = dataclasses.replace(arr, pod_valid=pv)  # pv changes in place, launch by launch
     done = torch.zeros((1,), dtype=torch.int32, device=dev)
+    qo = kernels.gang_quorum_out(arr.group_min.shape[0], dev)  # K13's outputs: a queued call allocates nothing
     if route == "dense":
         sfs = torch.empty((P, -(-N // 32)), dtype=torch.int32, device=dev)
         out = (torch.full((P,), -1, dtype=torch.int32, device=dev), torch.zeros((N, R), dtype=torch.int32, device=dev),
@@ -213,7 +215,7 @@ def _card_loop(arr, cfg, route: str):
         def iterate():
             kernels.packed_static_rows(arr_i, done=done, out=sfs)
             kernels.chunk_rounds_dense(arr_i, cfg, sfs, done=done, out=out)
-            kernels.gang_quorum(out[0], arr.pod_group, pv, arr.group_min, done=done)
+            kernels.gang_quorum(out[0], arr.pod_group, pv, arr.group_min, done=done, out=qo)
 
         return iterate, out[:2], out[3], pv, done
     if route == "perpod-fit":
@@ -223,7 +225,7 @@ def _card_loop(arr, cfg, route: str):
         def iterate():
             kernels.static_feasible(arr_i, done=done, out=sf)
             kernels.fit_scan(sf, arr_i, cfg, done=done, out=fo)
-            kernels.gang_quorum(fo.choices, arr.pod_group, pv, arr.group_min, done=done)
+            kernels.gang_quorum(fo.choices, arr.pod_group, pv, arr.group_min, done=done, out=qo)
 
         return iterate, (fo.choices, fo.used_t[:, :N].t()), None, pv, done
     # the full stage set: K10 once (no pod_valid in its planes), K7 with
@@ -238,7 +240,7 @@ def _card_loop(arr, cfg, route: str):
             kernels.rounds(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
         else:
             kernels.full_scan(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
-        kernels.gang_quorum(so.choices, arr.pod_group, pv, arr.group_min, done=done)
+        kernels.gang_quorum(so.choices, arr.pod_group, pv, arr.group_min, done=done, out=qo)
 
     return iterate, (so.choices, so.state["used"]), (so.scal if route == "rounds" else None), pv, done
 

@@ -18,10 +18,10 @@ per-pod route over the full stage set) and rounds (K12, the rounds route,
 dense or class-row mode); K11 and K12 inline csrc/pairwise.cuh; K2 and
 K11 on one device are one thread-block cluster each (SCAN_CLUSTER);
 gang_quorum (K13, gang.cu: the gang fixpoint's quorum check and
-revocation); explain_counts (K14, explain.cu: the unschedulable
-diagnosis's reason counts) and preempt_eval (K15, preempt.cu: the batched
-preemption evaluation, phases A-C over a wave of preemptors); ring_match
-(K16, ring_match.cu: one hop of the ring matcher, parallel/ring.py) and
+revocation, one thread-block cluster, QUORUM_CLUSTER); explain_counts
+(K14, explain.cu: the unschedulable diagnosis's reason counts) and
+preempt_eval (K15, preempt.cu: the batched preemption evaluation, phases
+A-C over a wave of preemptors); ring_match (K16, ring_match.cu: one hop of the ring matcher, parallel/ring.py) and
 stitch_planes (K17, stitch_planes.cu: per-shard packed blocks -> the flat
 packed layout, the node mesh's stitch, parallel/sharded.py).
 
@@ -43,9 +43,10 @@ takes (ops/gang.py) -- K1 static_feasible and K2 fit_scan, K7, K8, K11
 full_scan, K12 rounds, K13 -- take an optional device ``done`` word that
 makes a launch return at entry, so the loop queues its iterations without
 reading anything back.  Torch operations between launches are not gated,
-so K2, K8, K11 and K12 also take ``out``: persistent output and running-state
-buffers that only a launch which passed the gate writes, so the last real
-iteration's result survives every gated one.  K2, K11 and K12 always write
+so K2, K8, K11, K12 and K13 also take ``out``: persistent output and
+running-state buffers that only a launch which passed the gate writes, so
+the last real iteration's result survives every gated one (and a queued
+K13 call allocates nothing).  K2, K11 and K12 always write
 such buffers (``fit_scan_out``, ``scan_out``; a fresh set when the caller
 passes none) and always copy their start state (node_used, the pairwise
 counts, the ports) into them themselves.
@@ -118,7 +119,7 @@ _ARGTYPES = {
     "score_planes": ("ktt_score_planes", [_P] * 9 + [_I] * 7 + [_P]),
     "full_scan": ("ktt_full_scan", [_P] * 7 + [_I, _P, _P]),
     "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
-    "gang_quorum": ("ktt_gang_quorum", [_P] * 9 + [_I, _I, _P]),
+    "gang_quorum": ("ktt_gang_quorum", [_P] * 10 + [_I, _I, _I, _P, _P]),
     "explain_counts": ("ktt_explain_counts", [_P] * 17 + [_I] * 9 + [_P]),
     "preempt_eval": ("ktt_preempt_eval", [_P] * 18 + [_I] * 4 + [_P]),
     "ring_match": ("ktt_ring_match", [_P] * 4 + [_I] * 4 + [ctypes.c_longlong] * 2 + [_P]),
@@ -142,7 +143,8 @@ MAX_SCAN_NODES = (232448 - 2048) // 2
 # MAX_CLUSTER.  LAST_CLUSTER holds the width of each launch's last call.
 MAX_CLUSTER = 16
 SCAN_CLUSTER: Dict[str, int] = {"fit_scan": 16, "full_scan": 8}
-LAST_CLUSTER: Dict[str, int] = {"fit_scan": 0, "full_scan": 0, "fit_scan_shard": 0, "full_scan_shard": 0}
+LAST_CLUSTER: Dict[str, int] = {"fit_scan": 0, "full_scan": 0, "fit_scan_shard": 0, "full_scan_shard": 0,
+                                "gang_quorum": 0}
 SCAN_UNIT = 16  # csrc/fit_scan.cu UNIT: a K2 run is whole units of 16 columns
 
 # limits of the class-wave kernels (csrc/wave_commit.cu, topk.cuh): wave
@@ -796,7 +798,8 @@ def chunk_rounds_dense(arr, cfg, sfs: torch.Tensor, done: Optional[torch.Tensor]
 
 def unpack_planes(words: torch.Tensor, n: int) -> torch.Tensor:
     """K9 (csrc/unpack_planes.cu): int32 words [..., ceil(n/32)] -> bool
-    [..., n], the packed layout of ops/bitplane.py."""
+    [..., n], the packed layout of ops/bitplane.py (a thread a half word,
+    16-byte stores where a row's bytes are 16-aligned)."""
     dev = words.device
     _need_cuda(dev, "unpack_planes")
     W = -(-n // 32)
@@ -806,7 +809,7 @@ def unpack_planes(words: torch.Tensor, n: int) -> torch.Tensor:
     fn = _fn("unpack_planes")
     out = torch.empty(tuple(words.shape[:-1]) + (n,), dtype=torch.bool, device=dev)
     rows = words.numel() // W if W else 0
-    with torch.cuda.device(dev):
+    with _on(dev):
         err = fn(words.data_ptr(), out.data_ptr(), rows, W, n, _stream(dev))
     _raise_on(err, "unpack_planes")
     LAUNCHES["unpack_planes"] += 1
@@ -1074,35 +1077,88 @@ def rounds(arr, cfg, sfs: Optional[torch.Tensor] = None, eligs: Optional[torch.T
 # the gang fixpoint: K13 gang_quorum
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass
+class QuorumOut:
+    """gang_quorum's outputs, made once (gang_quorum_out) and passed as
+    `out` to every call, so a queued call allocates
+    nothing: sched i32[G], present and bad bool[G], first i32[1], and the
+    counters' scratch int32[2, G] (used only where the cluster's shared
+    memory cannot hold G groups' counters).  `bound` holds the last call's
+    tensors and C arguments: a call with the very same tensors (the gang
+    fixpoint's queued iterations) reuses them, unchecked."""
+
+    sched: torch.Tensor
+    present: torch.Tensor
+    bad: torch.Tensor
+    first: torch.Tensor
+    scratch: torch.Tensor
+    bound: Optional[tuple] = dataclasses.field(default=None, repr=False)
+
+
+def gang_quorum_out(G: int, dev) -> QuorumOut:
+    return QuorumOut(torch.empty((G,), dtype=torch.int32, device=dev), torch.empty((G,), dtype=torch.bool, device=dev),
+                     torch.empty((G,), dtype=torch.bool, device=dev), torch.empty((1,), dtype=torch.int32, device=dev),
+                     torch.empty((2, G), dtype=torch.int32, device=dev))
+
+
+# K13's cluster: at most this many blocks (csrc/gang.cu MAX_KC; a
+# non-portable size above 8; faster than 8 at config 5, PERF.md);
+# LAST_CLUSTER["gang_quorum"] the width launched
+QUORUM_CLUSTER = 16
+_QUORUM_KC = ctypes.c_int(0)
+_QUORUM_KC_REF = ctypes.byref(_QUORUM_KC)
+
+
 def gang_quorum(choices: torch.Tensor, pod_group: torch.Tensor, pv: torch.Tensor, group_min: torch.Tensor,
-                done: Optional[torch.Tensor] = None):
+                done: Optional[torch.Tensor] = None, out: Optional[QuorumOut] = None, cluster: Optional[int] = None):
     """K13 (csrc/gang.cu): one iteration's quorum check and revocation of
-    the gang fixpoint.  `pv` (bool[P], the iteration's pod_valid) becomes
-    pv_next IN PLACE; `done` (i32[1] on the card, a fresh zero word when
-    None) gates the launch and is set when no group failed.  -> (sched
-    i32[G], present bool[G], bad bool[G], first i32[1]: the earliest pod of
-    a failed group or -1, done)."""
-    dev = choices.device
-    _need_cuda(dev, "gang_quorum")
-    P = choices.shape[0]
-    G = group_min.shape[0]
-    for name, t, dt, shape in (("choices", choices, torch.int32, (P,)), ("pod_group", pod_group, torch.int32, (P,)),
-                               ("pv", pv, torch.bool, (P,)), ("group_min", group_min, torch.int32, (G,))):
-        _check(t, name, dt, shape, dev)
-    if done is None:
-        done = torch.zeros((1,), dtype=torch.int32, device=dev)
-    _check(done, "done", torch.int32, (1,), dev)
+    the gang fixpoint, one thread-block cluster of up to `cluster` blocks
+    (QUORUM_CLUSTER when None).  `pv` (bool[P], the iteration's pod_valid)
+    becomes pv_next IN PLACE; `done` (i32[1] on the card, a fresh zero word
+    when None) gates the launch and is set when no group failed; `out`
+    (gang_quorum_out): the buffers to write, a fresh set when None.  ->
+    (sched i32[G], present bool[G], bad bool[G], first i32[1]: the earliest
+    pod of a failed group or -1, done)."""
+    bound = None if out is None else out.bound
+    if (bound is not None and bound[0] is choices and bound[1] is pod_group and bound[2] is pv
+            and bound[3] is group_min and bound[4] is done and bound[5] == cluster):
+        dev, args = bound[6], bound[7]
+    else:
+        dev = choices.device
+        _need_cuda(dev, "gang_quorum")
+        P = choices.shape[0]
+        G = group_min.shape[0]
+        for name, t, dt, shape in (("choices", choices, torch.int32, (P,)), ("pod_group", pod_group, torch.int32, (P,)),
+                                   ("pv", pv, torch.bool, (P,)), ("group_min", group_min, torch.int32, (G,))):
+            _check(t, name, dt, shape, dev)
+        if done is not None:
+            _check(done, "done", torch.int32, (1,), dev)
+        kc = QUORUM_CLUSTER if cluster is None else int(cluster)
+        if not 1 <= kc <= QUORUM_CLUSTER:
+            raise ValueError(f"gang_quorum takes a cluster of 1..{QUORUM_CLUSTER} blocks, got {cluster}")
+        if out is None:
+            out = gang_quorum_out(G, dev)
+        else:
+            for name, t, dt, shape in (("sched", out.sched, torch.int32, (G,)),
+                                       ("present", out.present, torch.bool, (G,)), ("bad", out.bad, torch.bool, (G,)),
+                                       ("first", out.first, torch.int32, (1,)),
+                                       ("scratch", out.scratch, torch.int32, (2, G))):
+                _check(t, name, dt, shape, dev)
+        d = torch.zeros((1,), dtype=torch.int32, device=dev) if done is None else done
+        args = (choices.data_ptr(), pod_group.data_ptr(), pv.data_ptr(), group_min.data_ptr(), out.sched.data_ptr(),
+                out.present.data_ptr(), out.bad.data_ptr(), out.first.data_ptr(), d.data_ptr(),
+                out.scratch.data_ptr(), P, G, kc, _QUORUM_KC_REF)
+        if done is None:
+            done = d
+        else:  # the next call with these tensors skips the checks
+            out.bound = (choices, pod_group, pv, group_min, done, cluster, dev, args)
     fn = _fn("gang_quorum")
-    sched = torch.empty((G,), dtype=torch.int32, device=dev)
-    present = torch.empty((G,), dtype=torch.bool, device=dev)
-    bad = torch.empty((G,), dtype=torch.bool, device=dev)
-    first = torch.empty((1,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = fn(choices.data_ptr(), pod_group.data_ptr(), pv.data_ptr(), group_min.data_ptr(), sched.data_ptr(),
-                 present.data_ptr(), bad.data_ptr(), first.data_ptr(), done.data_ptr(), P, G, _stream(dev))
+    with _on(dev):
+        err = fn(*args, _stream(dev))
     _raise_on(err, "gang_quorum")
     LAUNCHES["gang_quorum"] += 1
-    return sched, present, bad, first, done
+    LAST_CLUSTER["gang_quorum"] = _QUORUM_KC.value
+    return out.sched, out.present, out.bad, out.first, done
 
 
 EXPLAIN_MAX_R = 32  # csrc/explain.cu

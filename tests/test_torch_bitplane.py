@@ -2,7 +2,9 @@
 against the JAX package's ops/bitplane.py, on seeded numpy bools.
 
 Words are compared as bit patterns (the port keeps them in int32, the JAX
-package in uint32); tail bits past n must be zero.  Tolerance: none.
+package in uint32); tail bits past n must be zero.  Kernel K9's index
+logic and stores (tests/torch_gang_unpack_cases.py replay_unpack) are held
+to the JAX unpack at the widths it treats apart.  Tolerance: none.
 """
 
 import jax.numpy as jnp
@@ -12,9 +14,10 @@ import torch
 
 from kubernetes_tpu.ops import bitplane as jb
 from kubernetes_tpu_torch.ops import bitplane as tb
+import torch_gang_unpack_cases as qc
 from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
-SIZES = [1, 31, 32, 33, 100]
+SIZES = [1, 31, 32, 33, 64, 80, 96, 100, 1000]
 
 
 def _bools(seed, shape, p=0.4):
@@ -94,3 +97,33 @@ def test_multi_block_layout_refused():
     w5 = tb.pack_blocks(x[:, :10], s=2)  # two blocks of 5 bits, one word each
     assert w5.shape == (2, 2) and int(w5[0, 0]) == 31 and int(w5[0, 1]) == 31
     np.testing.assert_array_equal(tb.unpack_blocks(w5, 5).numpy(), x[:, :10].numpy())
+
+
+@pytest.mark.parametrize("base", [0, 5, "batches"])
+@pytest.mark.parametrize("shape", [(0, 80), (1, 7), (1, 80), (3, 31), (3, 32), (3, 33), (5, 64), (6, 80), (2, 7, 96),
+                                   (4, 100), (3, 1000), (2, 2048), (37, 65)])
+def test_unpack_planes_replay(shape, base):
+    """K9 (csrc/unpack_planes.cu) replayed: every byte of [..., n] written
+    once, none past a row's n, == the JAX unpack and the port's plain one;
+    with the output 16-aligned and n % 16 == 0 every store is one 16-byte
+    store, otherwise the 4-byte stores are 4-aligned (replay_unpack asserts
+    it).  `base`: the output's byte address mod 16; "batches": rows in
+    y-batches of 4."""
+    n = shape[-1]
+    x = _bools(sum(shape), shape)
+    w = tb.pack(torch.from_numpy(x))
+    rows = w.reshape(-1, w.shape[-1]).numpy()
+    if base == "batches":  # the grid's y axis: row batches of at most 4 words' halves
+        r = qc.replay_unpack(rows, n, 0, batch_halves=8 * rows.shape[1])
+        assert x.size == 0 or r["grid"][1] == -(-rows.shape[0] // 4)
+        base = 0
+    else:
+        r = qc.replay_unpack(rows, n, base)
+    assert (r["writes"] == 1).all()
+    got = r["out"].reshape(shape)
+    np.testing.assert_array_equal(got, x)
+    np.testing.assert_array_equal(got, tb.unpack(w, n).numpy())
+    if x.size:  # the JAX unpack reshapes by its element count
+        np.testing.assert_array_equal(got, np.asarray(jb.unpack(jnp.asarray(w.numpy().view(np.uint32)), n)))
+    if base == 0 and n % 16 == 0 and x.size:
+        assert r["stores"][4] == r["stores"][1] == 0 and r["stores"][16] == x.size // 16

@@ -49,6 +49,7 @@ import pytest
 import torch
 
 import torch_gang_reference as ref
+import torch_gang_unpack_cases as qc
 from torch_preempt_reference import to_port
 from kubernetes_tpu_torch.api import types as tt
 from kubernetes_tpu_torch.api.delta import DeltaEncoder
@@ -196,13 +197,38 @@ def _random_groups(seed, P=300, G=17):
     return choices.to(torch.int32), pod_group, pv, group_min
 
 
-@pytest.mark.parametrize("seed", range(4))
+def _quorum_inputs(case):
+    """A K13 input set: _random_groups(seed) for an int, else the named
+    shape of tests/torch_gang_unpack_cases.py (more groups than a block's
+    share, G = P, ragged P, a group across two blocks' slices, the first
+    failing pod in the last slice, -1 groups and clear pv mixed in, config
+    5's shape with and without a failing group, more groups than P, more
+    than the cluster's shared memory holds)."""
+    if isinstance(case, int):
+        return _random_groups(case)
+    return tuple(torch.from_numpy(x) for x in qc.quorum_case(case))
+
+
+QUORUM_SHAPES = [0, 1, 2, 3, *qc.QUORUM_CASES]
+
+
+@pytest.mark.parametrize("seed", QUORUM_SHAPES)
 def test_gang_quorum_plain_revokes_the_earliest_failed_group(seed):
-    choices, pod_group, pv, group_min = _random_groups(seed)
+    """gang_quorum_plain == the port's failed_groups == the JAX package's
+    failed_groups (its gang.py:33) and its revocation (gang.py:103-107:
+    np.argmax over in_bad, the first pod's group leaves pod_valid)."""
+    from kubernetes_tpu.ops.gang import failed_groups as jax_failed_groups
+
+    choices, pod_group, pv, group_min = _quorum_inputs(seed)
     sched, present, bad, first, pv_next, done = gang.gang_quorum_plain(choices, pod_group, pv, group_min)
     want_bad = gang.failed_groups(choices.numpy(), pod_group.numpy(), group_min.numpy(), active=pv.numpy())
     np.testing.assert_array_equal(bad.numpy(), want_bad)
     assert done == (not want_bad.any())
+    jbad, jfirst, jpv, jdone = qc.jax_rule(choices.numpy(), pod_group.numpy(), pv.numpy(), group_min.numpy(),
+                                           jax_failed_groups)
+    np.testing.assert_array_equal(bad.numpy(), jbad)
+    assert done == jdone and int(first) == jfirst
+    np.testing.assert_array_equal(pv_next.numpy(), jpv)
     if done:
         assert int(first) == -1 and torch.equal(pv_next, pv)
         return
@@ -210,6 +236,51 @@ def test_gang_quorum_plain_revokes_the_earliest_failed_group(seed):
     f = int(np.flatnonzero(in_bad)[0])
     assert int(first) == f
     np.testing.assert_array_equal(pv_next.numpy(), pv.numpy() & (pod_group.numpy() != pod_group.numpy()[f]))
+
+
+@pytest.mark.parametrize("mode", ["card", "one-block", "16-blocks", "global-counters"])
+@pytest.mark.parametrize("case", QUORUM_SHAPES)
+def test_gang_quorum_replay_matches_plain_and_jax(case, mode):
+    """K13's index logic (tests/torch_gang_unpack_cases.py replay_quorum:
+    the pod slices, the group owners, the runs, the warp's combined last
+    runs, the judgement, the revocation) == gang_quorum_plain == the JAX
+    package's rule, at the cluster csrc/gang.cu chooses and at forced
+    widths and counter places; every pod lies in one slice."""
+    from kubernetes_tpu.ops.gang import failed_groups as jax_failed_groups
+
+    choices, pod_group, pv, group_min = (x.numpy() for x in _quorum_inputs(case))
+    P, G = pod_group.shape[0], group_min.shape[0]
+    kc, gm, gs, chunk = qc.quorum_cluster(P, G)
+    kc, gm = {"card": (kc, gm), "one-block": (1, 8 * G > qc.Q_SMEM_CAP), "16-blocks": (16, 8 * -(-G // 16) > qc.Q_SMEM_CAP),
+              "global-counters": (kc, True)}[mode]
+    r = qc.replay_quorum(choices, pod_group, pv, group_min, kc, gm)
+    assert sum(hi - lo for lo, hi, _, _ in r["slices"]) == P
+    want = gang.gang_quorum_plain(*(torch.from_numpy(x) for x in (choices, pod_group, pv, group_min)))
+    for k, w in zip(("sched", "present", "bad"), want[:3]):
+        np.testing.assert_array_equal(r[k], w.numpy(), err_msg=k)
+    assert r["first"] == int(want[3]) and r["done"] == want[5]
+    np.testing.assert_array_equal(r["pv"], want[4].numpy())
+    jbad, jfirst, jpv, _ = qc.jax_rule(choices, pod_group, pv, group_min, jax_failed_groups)
+    np.testing.assert_array_equal(r["bad"], jbad)
+    assert r["first"] == jfirst
+    np.testing.assert_array_equal(r["pv"], jpv)
+
+
+def test_gang_quorum_cluster_choice():
+    """csrc/gang.cu's cluster choice as the replay reads it: one unit of 4
+    pods a thread up to 16 blocks (config 5: 16 blocks of 4096 pods, 63
+    groups a block), more blocks where the counters need the shared memory,
+    the global scratch past 16 blocks' worth, the widest cluster the card
+    schedules below that; and the replay's constants are the source's."""
+    assert qc.source_constants() == dict(Q_NT=qc.Q_NT, Q_UNIT=qc.Q_UNIT, Q_MAX_KC=qc.Q_MAX_KC,
+                                         Q_SMEM_CAP=qc.Q_SMEM_CAP, U_NT=qc.U_NT, U_BATCH_HALVES=qc.U_BATCH_HALVES)
+    assert qc.quorum_cluster(65536, 1000) == (16, False, 63, 4096)
+    assert qc.quorum_cluster(3072, 48) == (1, False, 48, 3072)
+    assert qc.quorum_cluster(7, 1) == (1, False, 1, 8)
+    assert qc.quorum_cluster(4000, 40000)[:2] == (2, False)
+    assert qc.quorum_cluster(9000, 470000)[:2] == (3, True)
+    assert qc.quorum_cluster(65536, 1000, fits=lambda k: k <= 8) == (8, False, 125, 8192)
+    assert kernels.QUORUM_CLUSTER == qc.Q_MAX_KC
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -320,20 +391,84 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed", range(6))
-def test_gang_quorum_kernel_matches_plain(card, seed):
-    choices, pod_group, pv, group_min = (x.to(card) for x in _random_groups(seed, P=5000, G=300 + seed))
-    want = gang.gang_quorum_plain(choices, pod_group, pv, group_min)
-    pv_k = pv.clone()
-    sched, present, bad, first, done = kernels.gang_quorum(choices, pod_group, pv_k, group_min)
+def _card_quorum_inputs(card, case):
+    if isinstance(case, int):
+        return tuple(x.to(card) for x in _random_groups(case, P=5000, G=300 + case))
+    return tuple(x.to(card) for x in _quorum_inputs(case))
+
+
+def _quorum_equal(got, want, pv_k):
+    sched, present, bad, first, done = got
     assert torch.equal(sched, want[0]) and torch.equal(present, want[1]) and torch.equal(bad, want[2])
     assert torch.equal(first, want[3]) and torch.equal(pv_k, want[4]) and bool(done.item()) == want[5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [*range(6), *qc.QUORUM_CASES])
+def test_gang_quorum_kernel_matches_plain(card, seed):
+    """K13 == gang_quorum_plain on random groups and on every named shape
+    of tests/torch_gang_unpack_cases.py (more groups than a block's share,
+    G = P, ragged P, a group across two blocks' slices, the first failing
+    pod in the last slice, -1 groups and clear pv, config 5's shape with
+    and without a failing group, the counters in the global scratch), at
+    the cluster the replay predicts; a set done word writes nothing."""
+    choices, pod_group, pv, group_min = _card_quorum_inputs(card, seed)
+    want = gang.gang_quorum_plain(choices, pod_group, pv, group_min)
+    pv_k = pv.clone()
+    got = kernels.gang_quorum(choices, pod_group, pv_k, group_min)
+    _quorum_equal(got, want, pv_k)
+    assert kernels.LAST_CLUSTER["gang_quorum"] == qc.quorum_cluster(pv.shape[0], group_min.shape[0])[0]
     # a set done word gates the launch: nothing moves
+    done = got[4]
     pv_again = pv_k.clone()
+    before = [t.clone() for t in got[:4]]
     done.fill_(1)
-    kernels.gang_quorum(choices, pod_group, pv_again, group_min, done=done)
+    kernels.gang_quorum(choices, pod_group, pv_again, group_min, done=done,
+                        out=kernels.QuorumOut(*got[:4], torch.empty((2, group_min.shape[0]), dtype=torch.int32,
+                                                                    device=card)))
     assert torch.equal(pv_again, pv_k) and int(done.item()) == 1
+    assert all(torch.equal(a, b) for a, b in zip(before, got[:4]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 5, 8, 16])
+@pytest.mark.parametrize("case", ["config5-revoke", "groups-5000", "ragged-4999", "straddle"])
+def test_gang_quorum_kernel_cluster_caps(card, case, cluster):
+    """K13 capped at 1..16 blocks (fewer blocks: more units a thread, more
+    groups a block) == plain."""
+    choices, pod_group, pv, group_min = _card_quorum_inputs(card, case)
+    want = gang.gang_quorum_plain(choices, pod_group, pv, group_min)
+    pv_k = pv.clone()
+    _quorum_equal(kernels.gang_quorum(choices, pod_group, pv_k, group_min, cluster=cluster), want, pv_k)
+    assert 1 <= kernels.LAST_CLUSTER["gang_quorum"] <= cluster
+
+
+@pytest.mark.cuda
+def test_gang_quorum_out_reused(card):
+    """The fixpoint's use: the same out buffers and done word over three
+    calls (config 5's shape with groups G/2 and G-1 failing: the first
+    call revokes G/2, the second G-1, the third finds none and sets done),
+    each == plain on the previous pv, no tensor allocated by any call; a
+    fourth, gated, writes nothing."""
+    choices, pod_group, pv, group_min = _card_quorum_inputs(card, "config5-revoke")
+    G = group_min.shape[0]
+    out = kernels.gang_quorum_out(G, card)
+    done = torch.zeros((1,), dtype=torch.int32, device=card)
+    pv_k = pv.clone()
+    kernels.gang_quorum(choices, pod_group, pv_k.clone(), group_min, done=torch.zeros_like(done), out=out)
+    firsts = []
+    for _ in range(3):
+        want = gang.gang_quorum_plain(choices, pod_group, pv_k.clone(), group_min)
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        got = kernels.gang_quorum(choices, pod_group, pv_k, group_min, done=done, out=out)
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+        _quorum_equal(got, want, pv_k)
+        firsts.append(int(got[3]))
+    assert firsts[2] == -1 and int(done.item()) == 1
+    assert {int(pod_group[firsts[0]]), int(pod_group[firsts[1]])} == {G // 2, G - 1}
+    before = [t.clone() for t in (out.sched, out.present, out.bad, out.first, pv_k)]
+    kernels.gang_quorum(choices, pod_group, pv_k, group_min, done=done, out=out)
+    assert all(torch.equal(a, b) for a, b in zip(before, (out.sched, out.present, out.bad, out.first, pv_k)))
 
 
 CARD_GANGS = {"gang-24x8": (24, 8, 12, 11), "gang-16x16-tight": (16, 16, 3, 1), "gang-48x64": (48, 64, 40, 0)}

@@ -623,13 +623,20 @@ def test_dense_route_on_snapshots(card):
         assert torch.equal(c, c1) and torch.equal(u, u1)
 
 
-@pytest.mark.parametrize("shape", [(3, 64), (5, 65), (2, 7, 100), (1, 1000), (40, 2048)])
+@pytest.mark.parametrize("shape", [(3, 64), (5, 65), (2, 7, 100), (1, 1000), (40, 2048),
+                                   (0, 80), (1, 80), (1, 7), (6, 64), (6, 80), (6, 96), (6, 100), (4, 1000),
+                                   (3, 2048), (2, 3, 80), (65, 7), (37, 33), (6144, 80), (65536, 1024)])
 def test_unpack_planes(card, shape):
+    """K9 == the plain unpack == the host bools: n in {7, 33, 64, 65, 80,
+    96, 100, 1000, 2048} (16-byte stores where n % 16 == 0, narrower
+    ones else), 0 and 1 rows, 3-D shapes, the [wide-planes] field and a
+    large plane."""
     from kubernetes_tpu_torch.ops import bitplane
 
     rng = np.random.default_rng(sum(shape))
     dense = rng.random(shape) < 0.4
     words = torch.from_numpy(bitplane.np_pack_lastaxis(dense).view(np.int32)).to(card)
     got = kernels.unpack_planes(words, shape[-1])
+    assert got.shape == shape
     assert torch.equal(got, bitplane.unpack(words, shape[-1]))
     assert torch.equal(got.cpu(), torch.from_numpy(dense))

@@ -244,6 +244,37 @@ batched preemption) on the JAX package's preemption bench cluster:
                      the lock, the JAX digest, the same three times; then
                      the wave again on a new session: the lock's time on
                      the first and on the second gang wave;
+  [config4s]         BASELINE Config4S, heterogeneous_storage(20000, 20000,
+                     seed=0): volumes and claims resolved by the encoder
+                     (api/volumes.py; R = 6, the last resource
+                     attachable-volumes-csi; P = N = 20480, U1 = 315), then
+                     the dense step (packed_static_rows + chunk_rounds_dense)
+                     and the class-wave step (HoistCache.ensure:
+                     class_static_hoist + class_usage_hoist, then wave_commit
+                     + chunk_rounds), each counted: exactly those launches,
+                     20000/20000, the JAX choices digest, each route's sweeps
+                     and ordinals digest; encode_s (resolution included) and
+                     resolve_snapshot alone, step_s of each route;
+  [config4s-warm]    bench.py's waves 2..7 over the storage-carrying snapshots
+                     (workloads.StorageWaves: one PVC replaced from wave 5 on)
+                     through PipelinedBatchLoop at depth 1 and 0: the JAX
+                     loop's digests and HoistCache actions, the encoder's
+                     full / delta counts as the JAX encoder's (one rebuild,
+                     at the PVC change);
+  [config4s-sidecar] the port's TPUScoreClient in session mode against the
+                     port's TPUScoreServer(engine=_Engine(device="cuda")) on
+                     loopback over wave 1 and the same waves 2..7: the
+                     in-process verdicts, the client's full / delta calls
+                     (one more full at the PVC change), the server's device
+                     fixpoint a call (gang=True, G = 1: K7 + K8 + K13, one
+                     real and one gated iteration); the
+                     client's wall a call beside the server's
+                     sidecar_*_seconds;
+  [dra-small]        workloads.dra_small (device claims through
+                     ResourceSlices and two overlapping DeviceClasses, a
+                     ReadWriteOncePod claim shared by three pods) on the
+                     default route (dense) and the per-pod route: the JAX
+                     choices digest;
   [explain-north-star] the unschedulable diagnosis at the north star:
                      explain_classes over the reps of all 100 pod classes (F
                      padded to 128, N=20480, R=5) at the dense step's
@@ -1142,12 +1173,15 @@ def phase_warm_loop(cold) -> dict:
 
 
 def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_kernels, route, mesh=None,
-                  depths=(1, 0)) -> dict:
+                  depths=(1, 0), waves_cls=None, want_stats=None) -> dict:
     """bench.py's warm waves 2..7 over `snap` through PipelinedBatchLoop at
     each of `depths` (1, then 0), each counted on its own: every wave's
     digest and the HoistCache action as the JAX loop's, every kernel of
     `need_kernels` launched, `route` taken by each of the six steps; on
-    the node mesh `mesh` when given (the encoder and the loop take it)."""
+    the node mesh `mesh` when given (the encoder and the loop take it).
+    `waves_cls`: a factory of warm_waves' snapshot_cls, made anew for each
+    depth (default Snapshot); `want_stats`: the encoder's full and delta
+    counts after the cold encode and the six waves."""
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
@@ -1167,7 +1201,8 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
         loop = PipelinedBatchLoop(encoder=enc, depth=depth, mesh=mesh)
         kernels.reset_launches()
         assign.reset_trace_counts()
-        waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain, Snapshot)
+        waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain,
+                                                              waves_cls() if waves_cls else Snapshot)
         torch.cuda.synchronize()
         launches = counted()
         routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
@@ -1193,6 +1228,8 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
         check(digests == want_digests, f"{tag} depth {depth}: choices differ from JAX")
         check(actions == want_actions, f"{tag} depth {depth}: HoistCache actions {actions}")
         check(enc.stats["delta"] >= 3, f"{tag}: delta path did not engage: {enc.stats}")
+        if want_stats is not None:
+            check({k: enc.stats[k] for k in want_stats} == want_stats, f"{tag}: encoder {enc.stats}")
         check(all(x == want_sched for x in sched), f"{tag}: scheduled {sched}")
         check(routes.get(route, 0) == len(walls), f"{tag} depth {depth}: routes {routes}")
         for k in need_kernels:
@@ -2819,6 +2856,193 @@ def sidecar_config5_child() -> int:
     return 0
 
 
+def phase_config4s() -> tuple:
+    """BASELINE Config4S, heterogeneous_storage(20000, 20000, seed=0): the
+    storage state resolved by the encoder (api/volumes.py: R = 6, the last
+    resource attachable-volumes-csi), then the dense step (K7 + K8) and the
+    class-wave step (HoistCache.ensure: K3 + K4, then K5 + K6), each counted
+    on its own: the JAX digests, sweeps and ordinals."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.api.volumes import resolve_snapshot
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+
+    snap = w.heterogeneous_storage(**w.CONFIG4S)
+    t0 = time.perf_counter()
+    resolve_snapshot(snap)
+    resolve_s = time.perf_counter() - t0
+    enc = DeltaEncoder()
+    t0 = time.perf_counter()
+    host, meta = enc.encode(snap)
+    t1 = time.perf_counter()
+    arr, meta = enc.to_device(host, meta)
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    print(f"[config4s] heterogeneous_storage(20000, 20000): P {arr.P}, N {arr.N}, R {arr.R} {meta.resources}, "
+          f"{len(snap.pvs)} PVs, {len(snap.pvcs)} PVCs; cold encode_s {encode_s:.3f} (resolution included: host "
+          f"encode {t1 - t0:.3f} s, to_device {encode_s - (t1 - t0):.3f} s); resolve_snapshot alone "
+          f"{resolve_s:.3f} s", flush=True)
+    check(list(meta.resources) == w.CONFIG4S_RESOURCES, f"config4s: resources {meta.resources}")
+
+    def digest(x):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    out = {}
+    for route, need in (("dense", DENSE_KERNELS), ("class-wave", WAVE_KERNELS)):
+        kernels.reset_launches()
+        assign.reset_trace_counts()
+        t0 = time.perf_counter()
+        inc = HoistCache().ensure(arr, meta, cfg) if route == "class-wave" else None
+        choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = counted()
+        routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+        scheduled = int((choices[:n] >= 0).sum())
+        step_s = float("inf")
+        for _ in range(3):  # the best of three, the class state kept
+            t0 = time.perf_counter()
+            c2, _ = assign.schedule_batch(arr, cfg, inc=inc)
+            torch.cuda.synchronize()
+            step_s = min(step_s, time.perf_counter() - t0)
+        u1 = inc.req_u.shape[0] if inc is not None else meta.n_classes
+        print(f"[config4s] {route}: {first_s:.3f} s (first call), step_s {step_s:.4f} (best of 3), U1 {u1}, "
+              f"scheduled {scheduled}/{n}, sweeps {sweeps}, choices sha256 {digest(choices)}, ordinals sha256 "
+              f"{digest(ords)}, launches {launches}, routes {routes}", flush=True)
+        want = (w.CONFIG4S_DENSE_SWEEPS, w.CONFIG4S_DENSE_ORDINALS_SHA256) if route == "dense" else \
+            (w.CONFIG4S_WAVE_SWEEPS, w.CONFIG4S_WAVE_ORDINALS_SHA256)
+        check(set(launches) == set(need) and all(v == 1 for v in launches.values()),
+              f"config4s {route}: launches {launches}")
+        check(scheduled == w.CONFIG4S_SCHEDULED, f"config4s {route}: scheduled {scheduled}")
+        check(digest(choices) == w.CONFIG4S_CHOICES_SHA256, f"config4s {route}: choices differ from JAX")
+        check((sweeps, digest(ords)) == want, f"config4s {route}: sweeps / ordinals differ from JAX ({sweeps})")
+        check(u1 == w.CONFIG4S_CLASSES, f"config4s: U1 {u1}")
+        check(torch.equal(c2, choices), f"config4s {route}: a repeated step differs")
+        out[route] = dict(step_s=step_s, choices=choices)
+    return snap, (out["class-wave"]["choices"], meta)
+
+
+def phase_config4s_warm(snap, cold) -> dict:
+    """Config4S's warm loop: bench.py's waves 2..7 over the storage-carrying
+    snapshots (workloads.StorageWaves: the PVC default/claim-wffc-0 replaced
+    from wave 5 on) at depth 1 and 0: the JAX loop's digests and HoistCache
+    actions; the encoder on the delta path but for one rebuild, at wave 5."""
+    from kubernetes_tpu_torch.bench import workloads as w
+
+    return run_warm_loop("config4s-warm", snap, cold, w.CONFIG4S_WARM_DIGESTS, w.CONFIG4S_WARM_ACTIONS,
+                         w.CONFIG4S_SCHEDULED, WAVE_KERNELS, "class_waves", waves_cls=lambda: w.StorageWaves(snap),
+                         want_stats=w.CONFIG4S_WARM_STATS)
+
+
+def phase_config4s_sidecar(snap, cold) -> None:
+    """Config4S through the wire: the port's TPUScoreClient (session mode;
+    it resolves volumes before the wire and fingerprints the raw storage
+    state) against the port's TPUScoreServer(engine=_Engine(device="cuda"))
+    on loopback, wave 1 and then [config4s-warm]'s waves 2..7 (each submit
+    returns the previous wave's verdicts, as the loop's).  Verdicts: wave 1
+    == the in-process dense step's, waves 2..7 == [config4s-warm]'s digests;
+    the client's calls: full, delta x 3, full at the PVC change, delta x 2;
+    each call the server's device fixpoint (the client's gang=True)."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.runtime.client import TPUScoreClient
+    from kubernetes_tpu_torch.runtime.sidecar import TPUScoreServer, _Engine
+
+    # a threshold above any wave: every cold session is served inline (no
+    # not_ready round trip)
+    eng = _Engine(warmup_threshold=1 << 62, device="cuda")
+    seen = {}
+    observe = eng.metrics.observe
+
+    def record(name, v):
+        seen.setdefault(name, []).append(v)
+        observe(name, v)
+
+    eng.metrics.observe = record
+    srv = TPUScoreServer(engine=eng)
+    srv.start()
+    client = TPUScoreClient(f"127.0.0.1:{srv.port}")
+    walls, pending = [], []
+    try:
+        def call(s):
+            t0 = time.perf_counter()
+            v = client.schedule(s, deadline_ms=600_000)
+            walls.append(time.perf_counter() - t0)
+            return {p.name: v[p.uid] for p in s.pending_pods}
+
+        kernels.reset_launches()
+        first = call(snap)
+        check(first == w.verdicts_of(cold[0].cpu().numpy(), cold[1]), "config4s-sidecar: wave 1 != the card route")
+        stats1 = dict(client.stats)
+
+        def submit(s):
+            pending.append(call(s))
+            return pending[-2] if len(pending) > 1 else None
+
+        waves, fetched, _, _ = w.warm_waves(snap, first, submit, lambda: pending[-1], w.StorageWaves(snap))
+        torch.cuda.synchronize()
+        launches = counted()
+    finally:
+        client.close()
+        srv.stop()
+    names = [nd.name for nd in snap.nodes]
+    digests = {k: w.wave_digest(waves[k], fetched[k], names) for k in sorted(fetched) if k >= 2}
+    st = client.stats
+    print(f"[config4s-sidecar] client stats after wave 1 {stats1}, after wave 7 {st}; launches {launches}; "
+          f"digests {digests}", flush=True)
+    keys = ("decode", "encode", "dispatch", "step", "schedule")
+    for i, wall in enumerate(walls):
+        parts = ", ".join(f"sidecar_{k}_seconds {seen[f'sidecar_{k}_seconds'][i]:.4f}" for k in keys
+                          if len(seen.get(f"sidecar_{k}_seconds", ())) > i)
+        print(f"[config4s-sidecar] wave {i + 1}: client wall {wall:.4f} s ({'full' if i in (0, 4) else 'delta'}); "
+              f"server: {parts}", flush=True)
+    check(digests == w.CONFIG4S_WARM_DIGESTS, "config4s-sidecar: waves 2..7 differ from [config4s-warm]")
+    check((stats1["full"], stats1["delta"]) == (1, 0) and (st["full"], st["delta"]) == (2, 5)
+          and st["resync"] == st["not_ready"] == 0, f"config4s-sidecar: client stats {st}")
+    # the client's gang=True (its default, as a scheduler sends it): the
+    # server's device fixpoint on the dense route, G = 1 (no groups), so one
+    # real and one gated iteration a call
+    check(launches == {k: 2 * len(walls) for k in (*DENSE_KERNELS, "gang_quorum")},
+          f"config4s-sidecar: launches {launches}")
+
+
+def phase_dra_small() -> None:
+    """Device claims on the card: workloads.dra_small (ResourceSlices, two
+    overlapping DeviceClasses, a ReadWriteOncePod claim shared by three
+    pods) resolved by the encoder, then its default route (dense: K7 + K8)
+    and the per-pod route (chunked=False: K1 + K2), each counted: the JAX
+    choices digest."""
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, infer_score_config, kernels
+
+    arr, meta = DeltaEncoder().encode_device(w.dra_small())
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    check(list(meta.resources) == w.DRA_SMALL_RESOURCES, f"dra-small: resources {meta.resources}")
+    for route, kw, need in (("default", {}, DENSE_KERNELS), ("per-pod", dict(chunked=False), PER_POD_KERNELS)):
+        kernels.reset_launches()
+        c, _ = assign.schedule_batch(arr, cfg, **kw)
+        torch.cuda.synchronize()
+        launches = counted(default=not kw)
+        sha = hashlib.sha256(c[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+        scheduled = int((c[:n] >= 0).sum())
+        print(f"[dra-small] {route} route: P {arr.P}, N {arr.N}, R {arr.R}, scheduled {scheduled}/{n}, "
+              f"choices sha256 {sha}, launches {launches}", flush=True)
+        check(set(launches) == set(need), f"dra-small {route}: launches {launches}")
+        check((scheduled, sha) == (w.DRA_SMALL_SCHEDULED, w.DRA_SMALL_CHOICES_SHA256),
+              f"dra-small {route}: differs from JAX")
+
+
 def phase_env() -> None:
     """Whether the sidecar's wire modules exist on this machine (no phase
     depends on it)."""
@@ -3831,6 +4055,11 @@ def main() -> int:
     rows += phase_gang_contended(k12_gated) + [k12_gated]
     phase_sidecar_north_star()
     phase_sidecar_config5()
+    snap4s, cold4s = phase_config4s()
+    phase_config4s_warm(snap4s, cold4s)
+    phase_config4s_sidecar(snap4s, cold4s)
+    del snap4s, cold4s
+    phase_dra_small()
     rows += phase_preempt(k14)
     phase_dcn(used_sha, c3_used_sha)
     for row in rows:

@@ -45,7 +45,16 @@ with the ring layer:
     from kubernetes_tpu_torch.parallel import make_mesh
     choices, used = schedule_batch(arr, cfg, mesh=make_mesh(4))  # used on the padded axis
 
-Volumes and resource claims raise NotImplementedError; the Scheduler
-itself, the sidecar's client and the CPU PostFilter are not ported (see
-ROADMAP.md queues A and B).
+Volumes and resource claims (PVs, PVCs, StorageClasses, attach limits,
+ResourceSlices, DeviceClasses) are resolved into node-affinity terms and
+extra resources before encoding (api/volumes.py), so the kernels serve
+them unchanged.  The sidecar's client is ported too (runtime/client.py:
+sessions, bind compression, retries and the failure budget, with chaos/'s
+fault sites); it resolves before the wire:
+
+    from kubernetes_tpu_torch.runtime.client import TPUScoreClient
+    verdicts = TPUScoreClient("127.0.0.1:50151").schedule(snap)  # uid -> node or None
+
+The Scheduler itself and the CPU PostFilter are not ported (see ROADMAP.md
+queue A).
 """

@@ -58,9 +58,16 @@ and every pod-axis field is resident per pod row on that row's devices,
 beside the node columns: the arrays come back as a ``GridArrays``.  Across
 ranks (a mesh of init_distributed) each rank places only its own blocks.
 
-Not ported here (each refused where it would be needed, never dropped):
-volumes and resource claims (the cluster side keeps no storage
-fingerprint; the sidecar's wire carries neither).
+Volumes and resource claims (the JAX package's api/delta.py:266-295,
+:715-730, :1015-1030): ``encode`` fingerprints the RAW snapshot -- the node
+objects and the identity of every PV, PVC, StorageClass, ResourceSlice and
+DeviceClass (``raw_fingerprints``) -- then resolves it (api/volumes.py) and
+encodes the result.  Resolution builds new node objects every cycle, so the
+cluster side is conditioned on the raw fingerprints: it stays on the delta
+path while the storage state is stable and rebuilds when any of it is
+replaced.  A bound pod with claims re-absorbs on the slow path (its
+resolved spec is recomputed, never taken from its wave's rep).  The
+sidecar's wire arrives resolved, so ``encode_pregrouped`` does not resolve.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from ..device import resolve_device
 from . import types as t
 from . import vocab as v
 from .pairwise import HARD, SOFT, PairwiseVocab, TermKey, _match_matrix, _term_of_affinity, _term_of_spread
+from .volumes import resolve_snapshot
 from .snapshot import (
     _DEFAULT_POD_LIMIT,
     ClusterArrays,
@@ -84,7 +92,6 @@ from .snapshot import (
     _image_score_matrix,
     _node_taints,
     _pod_spec_key,
-    _refuse,
     _resource_axis,
     _round_up_pow2,
     _scale_for,
@@ -161,36 +168,6 @@ def wave_fingerprint(reps: Sequence[t.Pod], resources: Sequence[str]) -> WaveFin
 
 
 # --------------------------------------------------------------------------
-# what the port refuses
-# --------------------------------------------------------------------------
-
-
-def _check_snapshot(snap) -> None:
-    if snap.pvs or snap.pvcs or (snap.resource_slices and snap.device_classes):
-        _refuse("volumes / resource slices", "queue A5, api/volumes.py")
-
-
-def _check_nodes(nodes) -> None:
-    if any(nd.volume_attach_limit for nd in nodes):
-        _refuse("volume attach limits", "queue A5, api/volumes.py")
-
-
-def _check_pod(pod, pending: bool) -> None:
-    if pod.pvcs or pod.resource_claims:
-        _refuse(f"pod {pod.name!r}: volumes / resource claims", "queue A5")
-
-
-def _check_pending(reps, pending) -> None:
-    """The pod group is part of the spec key, so the unique specs stand for
-    their pods; volumes and claims are checked per pod."""
-    for pod in reps:
-        _check_pod(pod, True)
-    for pod in pending:
-        if pod.pvcs or pod.resource_claims:
-            _check_pod(pod, True)
-
-
-# --------------------------------------------------------------------------
 # cluster side: resident, delta-updated state
 # --------------------------------------------------------------------------
 
@@ -199,7 +176,7 @@ def _check_pending(reps, pending) -> None:
 class _WaveView:
     """Snapshot-shaped view for the pregrouped (sidecar) encode: the wire
     carries no PV, PVC, class or slice (constraints arrive resolved by the
-    client), so the storage fields stay empty."""
+    client, runtime/client.py), so the storage fields stay empty."""
 
     nodes: list
     pending_pods: tuple
@@ -291,7 +268,10 @@ class ClusterSide:
     wave_next: int = 0
     # bound-side info per wave rep: id(rep) -> (rep, (req row, spec row, port ids))
     rep_bound_info: Dict[int, Tuple] = field(default_factory=dict)
+    # the PRE-resolution conditioning (raw_fingerprints): the raw node set's
+    # identity and the storage state's; raw_refs pins every object they id()
     raw_nodes_fp: Tuple = ()
+    storage_fp: Tuple = ()
     raw_refs: Tuple = ()
     # node rows whose bound-pod contributions changed in the last sync_bound
     # (None after a rebuild: everything)
@@ -303,15 +283,31 @@ def _nodes_fp(nodes: Sequence[t.Node]) -> Tuple:
 
 
 def raw_fingerprints(snap) -> Tuple:
-    """(nodes fingerprint, storage fingerprint) the cache is conditioned on.
-    Volumes are refused, so the storage fingerprint is empty."""
-    return (_nodes_fp(snap.nodes), ())
+    """(nodes fingerprint, storage fingerprint): the PRE-resolution cache
+    conditioning, shared by the encoder and the sidecar's client
+    (runtime/client.py) so the two cannot drift."""
+    return (_nodes_fp(snap.nodes), _storage_fp(snap))
 
 
 def raw_keepalive_refs(snap) -> Tuple:
     """Containers pinning every object the fingerprints id(): built only on
-    a rebuild."""
-    return (list(snap.nodes),)
+    a rebuild (copying a 20k-node list every cycle is measurable)."""
+    return (list(snap.nodes), list(snap.pvs), dict(snap.pvcs), dict(snap.storage_classes),
+            list(snap.resource_slices), dict(snap.device_classes))
+
+
+def _storage_fp(snap) -> Tuple:
+    """Identity fingerprint of every input of volumes.resolve_snapshot
+    besides nodes and pods: PVs, PVCs, StorageClasses, ResourceSlices,
+    DeviceClasses.  Objects are copy-on-write, so a state change replaces
+    the object."""
+    return (
+        tuple(id(pv) for pv in snap.pvs),
+        tuple((k, id(v)) for k, v in snap.pvcs.items()),
+        tuple(sorted((k, id(v)) for k, v in snap.storage_classes.items())),
+        tuple(id(sl) for sl in snap.resource_slices),
+        tuple(sorted((k, id(v)) for k, v in snap.device_classes.items())),
+    )
 
 
 def _bound_spec_key(q) -> Tuple:
@@ -353,7 +349,6 @@ def _bound_term_ids(voc: PairwiseVocab, pod, hpaw: float, intern: bool):
 
 def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: WaveFingerprint,
                        hpaw: float) -> ClusterSide:
-    _check_nodes(nodes)
     n = len(nodes)
     resources = list(wfp.resources)
     R = len(resources)
@@ -445,7 +440,6 @@ def build_cluster_side(nodes: Sequence[t.Node], bound: Sequence[t.Pod], wfp: Wav
     rec_req: List[int] = []
     rec_spec: List[int] = []
     for q in bound:
-        _check_pod(q, False)
         ni = node_index.get(q.node_name)
         if ni is None:
             continue
@@ -546,10 +540,9 @@ def _apply_bound_batch(cs: ClusterSide, ni: np.ndarray, req_u: np.ndarray, spec_
 
 def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
     """Absorb the bound-pod diff (binds + deletes since the last cycle) into
-    the resident cluster side.  Raises _Fallback when a new bound pod needs a
-    vocabulary entry the cache lacks (a term, a host port, a resource kind),
-    and NotImplementedError (through _refuse) before anything moves when it
-    brings a feature the port does not have."""
+    the resident cluster side.  Raises _Fallback, before anything moves,
+    when a new bound pod needs a vocabulary entry the cache lacks (a term, a
+    host port, a resource kind)."""
     cur: Dict[str, t.Pod] = {}
     for q in bound:
         if q.node_name in cs.node_index:
@@ -571,9 +564,6 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
     if not gone and not new:
         cs.last_dirty_nodes = _EMPTY_DIRTY
         return
-    for q in new:
-        if q.pvcs or q.resource_claims:
-            _check_pod(q, False)
     resources = list(cs.wfp.resources)
     res_set = set(resources)
     fresh_specs: List[t.Pod] = []
@@ -630,6 +620,8 @@ def sync_bound(cs: ClusterSide, bound: Sequence[t.Pod]) -> None:
                     del wave_store[wid]
         if (
             ent_wave is not None
+            # a pod with claims takes the slow path: its RESOLVED spec can
+            # change between pending and bound as the PVC / PV state moves
             and not q.pvcs
             and not q.resource_claims
             # the wave-time spec stands in for the bound copy only while
@@ -767,13 +759,17 @@ class DeltaEncoder:
 
     # -- host side --
     def encode(self, snap):
-        """-> (ClusterArrays of host numpy arrays, EncodingMeta)."""
-        _check_snapshot(snap)
+        """-> (ClusterArrays of host numpy arrays, EncodingMeta).  The raw
+        snapshot is fingerprinted, then resolved (api/volumes.py), then
+        encoded."""
+        fps = raw_fingerprints(snap)
+        raw_snap = snap
+        snap = resolve_snapshot(snap)
         pending = snap.pending_pods
         perm = activeq_order(pending)
         sorted_pending = [pending[i] for i in perm]
         reps, inv, rep_keys = self._interner.group(sorted_pending)
-        return self._encode_core(snap, reps, inv, perm, rep_keys, _resource_axis(snap),
+        return self._encode_core(snap, fps, raw_snap, reps, inv, perm, rep_keys, _resource_axis(snap),
                                  [p.uid for p in sorted_pending], sorted_pending)
 
     def encode_pregrouped(self, nodes, bound_pods, pod_groups, uids, reps, inv):
@@ -798,7 +794,8 @@ class DeltaEncoder:
         # for the pending pods
         resources = _resource_axis(_WaveView(nodes=nodes, pending_pods=tuple(reps), bound_pods=bound_pods,
                                              pod_groups=pod_groups))
-        return self._encode_core(shim, reps, inv_sorted, perm, rep_keys, resources, uids_sorted, None)
+        return self._encode_core(shim, raw_fingerprints(shim), shim, reps, inv_sorted, perm, rep_keys, resources,
+                                 uids_sorted, None)
 
     def encode_device_pregrouped(self, nodes, bound_pods, pod_groups, uids, reps, inv):
         """encode_pregrouped() with the arrays placed on the encoder's
@@ -817,15 +814,18 @@ class DeltaEncoder:
         self._rep_key_memo[id(rep)] = (key, rep)
         return key
 
-    def _encode_core(self, snap, reps, inv, perm, rep_keys, resources, wave_uids, wave_pods):
+    def _encode_core(self, snap, fps, raw_snap, reps, inv, perm, rep_keys, resources, wave_uids, wave_pods):
         """Cluster-side reuse or rebuild, bound-pod sync, the wave's
-        bind-absorb bookkeeping, assembly.  `wave_pods` is None on the
-        pregrouped path: the bind-absorb then checks a bound copy against
-        its rep, and the meta's pod names are the uids."""
-        raw_nodes_fp, _ = raw_fingerprints(snap)
+        bind-absorb bookkeeping, assembly.  `snap` is the resolved snapshot,
+        `fps` the raw one's fingerprints and `raw_snap` the raw snapshot
+        (a rebuild pins its objects).  `wave_pods` is None on the pregrouped
+        path: the bind-absorb then checks a bound copy against its rep, and
+        the meta's pod names are the uids."""
+        raw_nodes_fp, storage_fp = fps
         wfp = wave_fingerprint(reps, resources)
         cs = self._cs
-        if cs is not None and cs.hpaw == self.hpaw and cs.raw_nodes_fp == raw_nodes_fp and _wave_compatible(cs, wfp):
+        if (cs is not None and cs.hpaw == self.hpaw and cs.raw_nodes_fp == raw_nodes_fp
+                and cs.storage_fp == storage_fp and _wave_compatible(cs, wfp)):
             try:
                 sync_bound(cs, snap.bound_pods)
                 self.stats["delta"] += 1
@@ -839,11 +839,11 @@ class DeltaEncoder:
         if cs is None:
             cs = build_cluster_side(snap.nodes, snap.bound_pods, wfp, self.hpaw)
             cs.raw_nodes_fp = raw_nodes_fp
-            cs.raw_refs = raw_keepalive_refs(snap)
+            cs.storage_fp = storage_fp
+            cs.raw_refs = raw_keepalive_refs(raw_snap)
             cs.stats["rebuilds"] += 1
             self._cs = cs
             self.stats["full"] += 1
-        _check_pending(reps, wave_pods or ())
         # remember this wave's specs so the next cycle's bind-absorb is O(1)
         # per pod; size-capped so never-scheduled uids cannot pile up
         if len(cs.wave_ix) > 4 * (len(cs.records) + len(wave_uids) + 1024):

@@ -30,9 +30,8 @@ Pending pods are sorted into activeQ order (priority desc, then arrival), so
 tensor index == commit order in ops/assign.py.
 
 The pairwise, port, preferred-term and image fields are listed on
-``ClusterArrays``.  A snapshot that needs what the port does not have yet
-(volumes, resource claims) raises NotImplementedError in the
-encoder (``_refuse``); it is never dropped.
+``ClusterArrays``.  Volumes and resource claims are resolved into
+node-affinity terms and extra resources before encoding (api/volumes.py).
 """
 
 from __future__ import annotations
@@ -402,12 +401,6 @@ def _pod_spec_key(pod) -> Tuple:
         pod.scheduling_gates,
         pod.pod_group,
         pod.images,
-    )
-
-
-def _refuse(what: str, queue: str) -> None:
-    raise NotImplementedError(
-        f"{what}: not ported to kubernetes_tpu_torch yet (ROADMAP.md {queue})"
     )
 
 

@@ -31,6 +31,15 @@ NO_SCHEDULE = "NoSchedule"
 PREFER_NO_SCHEDULE = "PreferNoSchedule"
 NO_EXECUTE = "NoExecute"
 
+# Pod phases (core/v1/types.go — type PodPhase); "" on a Pod means the phase
+# machinery is not in play (bound implies running).  Volume resolution
+# (api/volumes.py) reads the terminal two: a finished pod releases its
+# ReadWriteOncePod claim.
+PHASE_PENDING = "Pending"
+PHASE_RUNNING = "Running"
+PHASE_SUCCEEDED = "Succeeded"
+PHASE_FAILED = "Failed"
+
 # Selector operators (core/v1/types.go — NodeSelectorOperator).
 OP_IN = "In"
 OP_NOT_IN = "NotIn"
@@ -245,6 +254,7 @@ class Pod:
     pvcs: Tuple[str, ...] = ()
     resource_claims: Tuple[ResourceClaimRef, ...] = ()
     uid: str = ""
+    phase: str = ""  # status.phase
 
     def __post_init__(self) -> None:
         if not self.uid:

@@ -267,6 +267,111 @@ def heterogeneous(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
     return Snapshot(nodes=nodes, pending_pods=pods)
 
 
+def heterogeneous_storage(n_nodes: int, n_pods: int, seed: int = 0) -> Snapshot:
+    """Config 4 + storage (the JAX package's bench/workloads.py:173): the
+    heterogeneous shape where a slice of pods claim volumes -- some bound to
+    zone-restricted static PVs, some unbound through a WaitForFirstConsumer
+    StorageClass with zone topology -- plus CSI attach limits on a slice of
+    nodes.  heterogeneous_storage(20000, 20000) is BASELINE Config4S."""
+    from ..api.cluster import StorageClass
+
+    snap = heterogeneous(n_nodes, n_pods, seed=seed)
+    snap.storage_classes["fast-wffc"] = StorageClass(
+        name="fast-wffc",
+        provisioner="csi.example.com",
+        volume_binding_mode="WaitForFirstConsumer",
+        allowed_topology=((t.LABEL_ZONE, "zone-0"), (t.LABEL_ZONE, "zone-1")),
+    )
+    # static zone-pinned PVs, one per 40 nodes, pre-bound to claims
+    n_static = max(1, n_nodes // 40)
+    for v in range(n_static):
+        snap.pvs.append(t.PersistentVolume(
+            name=f"pv-{v}", capacity=100 * GI, storage_class="static",
+            allowed_topology=((t.LABEL_ZONE, f"zone-{v % 9}"),), claim_ref=f"default/claim-static-{v}"))
+        snap.pvcs[f"default/claim-static-{v}"] = t.PersistentVolumeClaim(
+            name=f"claim-static-{v}", request=50 * GI, storage_class="static", volume_name=f"pv-{v}")
+    # unbound WFFC claims for a slice of pods
+    n_wffc = max(1, n_pods // 50)
+    for c in range(n_wffc):
+        snap.pvcs[f"default/claim-wffc-{c}"] = t.PersistentVolumeClaim(
+            name=f"claim-wffc-{c}", request=10 * GI, storage_class="fast-wffc", wait_for_first_consumer=True)
+    # attach limits on a slice of nodes
+    for i, nd in enumerate(snap.nodes):
+        if i % 7 == 0:
+            nd.volume_attach_limit = 16
+    # pods claiming volumes: every 50th pod a WFFC claim, every 97th a
+    # static claim (claims may be shared: ReadWriteMany semantics)
+    for i, p in enumerate(snap.pending_pods):
+        if i % 50 == 0:
+            p.pvcs = (f"claim-wffc-{(i // 50) % n_wffc}",)
+        elif i % 97 == 0:
+            p.pvcs = (f"claim-static-{(i // 97) % n_static}",)
+    return snap
+
+
+def dra_small(n_nodes: int = 48, n_pods: int = 160, seed: int = 0) -> Snapshot:
+    """Test and smoke data for device claims (after tests/test_sidecar.py's
+    DRA case): heterogeneous(n_nodes, n_pods) with ResourceSlices on every
+    third node (four devices each, of type gpu, half of them also fast=yes),
+    two DeviceClasses whose selectors overlap ("gpu": type=gpu, "fast":
+    fast=yes; a device matching both counts for "fast", the first class by
+    name), pods claiming one or two devices of either class, and a
+    ReadWriteOncePod claim shared by three pending pods (the first keeps it,
+    the other two fold an unsatisfiable term)."""
+    from ..api.cluster import DeviceClass, DeviceSelector, DraDevice, ResourceSlice
+
+    snap = heterogeneous(n_nodes, n_pods, seed=seed)
+    snap.device_classes = {
+        "gpu": DeviceClass(name="gpu", selector=DeviceSelector(terms=(("type", "gpu"),))),
+        "fast": DeviceClass(name="fast", selector=DeviceSelector(terms=(("fast", "yes"),))),
+    }
+    for i, nd in enumerate(snap.nodes):
+        if i % 3 == 0:
+            devs = tuple(DraDevice(f"{nd.name}-d{k}", attributes=(("type", "gpu"),) + ((("fast", "yes"),)
+                                                                                      if k % 2 else ()))
+                         for k in range(4))
+            snap.resource_slices.append(ResourceSlice(name=f"{nd.name}-gpus", node_name=nd.name,
+                                                      driver="gpu.example.com", devices=devs))
+    rwop = t.PersistentVolumeClaim(name="rwop-0", request=GI, read_write_once_pod=True,
+                                   wait_for_first_consumer=True)
+    snap.pvcs[rwop.key] = rwop
+    for i, p in enumerate(snap.pending_pods):
+        if i in (1, 2, 3):
+            p.pvcs = ("rwop-0",)
+        if i % 5 == 0:
+            p.resource_claims = (t.ResourceClaimRef("gpu", 1 + (i // 5) % 2),)
+        elif i % 7 == 0:
+            p.resource_claims = (t.ResourceClaimRef("fast", 1),)
+    return snap
+
+
+class StorageWaves:
+    """A `snapshot_cls` for warm_waves over a storage-carrying snapshot: each
+    wave's snapshot carries `snap`'s PVs, PVCs, StorageClasses,
+    ResourceSlices and DeviceClasses (a bare Snapshot(nodes=, pending_pods=,
+    bound_pods=) would drop them, and every claim pod would resolve
+    "missing claim").  From wave 5 on, the PVC default/claim-wffc-0 is
+    replaced by a copy with its request doubled (dataclasses.replace: a
+    storage state change the encoder's fingerprint sees).  warm_waves calls
+    it once a wave, from wave 2."""
+
+    PVC = "default/claim-wffc-0"
+    CHANGE_AT = 5
+
+    def __init__(self, snap, snapshot_cls=Snapshot):
+        self.snap, self.cls, self.wave = snap, snapshot_cls, 2
+        pvc = snap.pvcs[self.PVC]
+        self.changed = {**snap.pvcs, self.PVC: dataclasses.replace(pvc, request=2 * pvc.request)}
+
+    def __call__(self, nodes, pending_pods, bound_pods):
+        s = self.snap
+        pvcs = self.changed if self.wave >= self.CHANGE_AT else s.pvcs
+        self.wave += 1
+        return self.cls(nodes=nodes, pending_pods=pending_pods, bound_pods=bound_pods, pvs=s.pvs, pvcs=pvcs,
+                        storage_classes=s.storage_classes, resource_slices=s.resource_slices,
+                        device_classes=s.device_classes)
+
+
 def mixed(n_nodes: int = 40, n_pods: int = 160, seed: int = 0) -> Snapshot:
     """Every filter of the fit-only slice on a small, crowded cluster."""
     rng = random.Random(seed)
@@ -366,6 +471,47 @@ def interference(n_nodes: int = 8, n_big: int = 240, n_small: int = 16) -> Snaps
     pods += [t.Pod(name=f"q{i}", requests={t.CPU: 500, t.MEMORY: 128 * 1024**2}) for i in range(n_small)]
     return Snapshot(nodes=nodes, pending_pods=pods)
 
+# BASELINE Config4S, heterogeneous_storage(20000, 20000, seed=0): volumes
+# resolved (R=6, the last resource attachable-volumes-csi; P=20480,
+# N=20480, U1=315), through the JAX package's encoder and, under
+# KTPU_FORCE_CHUNKED=1, its dense chunked route and its class-wave route
+# (HoistCache.ensure), from the same script's config4s leg: each route's
+# sweep count and sha256 of ordinals[:n_pods]; both routes' choices hash
+# to CONFIG4S_CHOICES_SHA256.  The config4s-warm leg: bench.py's waves 2..7
+# over the storage-carrying snapshots (StorageWaves: the PVC
+# default/claim-wffc-0 replaced from wave 5 on) through the JAX
+# PipelinedBatchLoop at depth 0 -> each wave's wave_digest (every wave
+# schedules 20000/20000), the HoistCache action per wave, and the encoder's
+# stats (the cold encode, then a rebuild at wave 5 only).
+CONFIG4S = dict(n_nodes=20000, n_pods=20000, seed=0)
+CONFIG4S_SCHEDULED = 20000
+CONFIG4S_CLASSES = 315
+CONFIG4S_RESOURCES = ["cpu", "memory", "pods", "ephemeral-storage", "example.com/accel", "attachable-volumes-csi"]
+CONFIG4S_CHOICES_SHA256 = "73eeccab01af3011d7d970f6d4c17a4480c1831f0769fe87aa12cf4517197ade"
+CONFIG4S_DENSE_SWEEPS = 890
+CONFIG4S_DENSE_ORDINALS_SHA256 = "2ada252e60ac6bf503d3e61f6f614507beeeea9bed50287dd59fb4a3d9805767"
+CONFIG4S_WAVE_SWEEPS = 565
+CONFIG4S_WAVE_ORDINALS_SHA256 = "cdc07d5298f8552bc4de861744136da3d4d042ee5c128ac94b8135be1eee1254"
+CONFIG4S_WARM_DIGESTS: Dict[int, str] = {
+    2: "69fd60db8c5ab233b0df08bacf1bb14b0a3df0fc6aceb398460ce5cdb05c0f6f",
+    3: "69fd60db8c5ab233b0df08bacf1bb14b0a3df0fc6aceb398460ce5cdb05c0f6f",
+    4: "269aff7bd05dd668b9a542ae3db18756101575d1dbdff8b53e9b891df9bef47f",
+    5: "269aff7bd05dd668b9a542ae3db18756101575d1dbdff8b53e9b891df9bef47f",
+    6: "680dd605984d93190bfe6c640952fbfb74321e6191c0e5d6a4c851432aac62b2",
+    7: "680dd605984d93190bfe6c640952fbfb74321e6191c0e5d6a4c851432aac62b2",
+}
+CONFIG4S_WARM_ACTIONS: List[str] = ["static_rebuild", "hit", "full", "static_rebuild", "full", "hit"]
+CONFIG4S_WARM_STATS = {"full": 2, "delta": 5}
+
+# dra_small() (device claims through ResourceSlices and two overlapping
+# DeviceClasses, a ReadWriteOncePod claim shared by three pods) through the
+# JAX package's encoder (its resolution) and per-pod scan, from the same
+# script's dra-small leg: the resolved resource axis, the scheduled count and
+# the sha256 of choices[:n_pods] (P=256, N=64).
+DRA_SMALL_RESOURCES = ["cpu", "memory", "pods", "ephemeral-storage", "example.com/accel",
+                       "attachable-volumes-csi", "claim/gpu", "claim/fast"]
+DRA_SMALL_SCHEDULED = 146
+DRA_SMALL_CHOICES_SHA256 = "ab2aee700a050ead0c99299dde60bd9c25bb7eafea2e2b4a4639a41b6c273e46"
 
 # ---------------------------------------------------------------------------
 # bench.py's warm loop (bench.py:283-327), shared by chip_smoke.py and the

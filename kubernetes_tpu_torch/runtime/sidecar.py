@@ -316,8 +316,9 @@ class _Engine:
 
 
 def _parent_ctx(context):
-    """The client-stamped span context from the gRPC metadata (the JAX
-    package's runtime/client.py _trace_metadata) -> a SpanContext or None;
+    """The client-stamped span context from the gRPC metadata
+    (_trace_metadata of client.py, as of the JAX package's client) -> a
+    SpanContext or None;
     with it the server-side schedule span joins the client's trace."""
     from ..scheduler.tracing import SpanContext
 

@@ -1,8 +1,10 @@
 """End-to-end span tracing — the part of the JAX package's
-``scheduler/tracing.py`` span layer that the sidecar server
-(runtime/sidecar.py TPUScoreServer) uses: its schedule span joins the
-client's trace through the span context the client stamps into the gRPC
-metadata.
+``scheduler/tracing.py`` span layer that the sidecar uses: the server's
+schedule span (runtime/sidecar.py TPUScoreServer) joins the client's trace
+through the span context the client (runtime/client.py) reads with
+``current_span`` and stamps into the gRPC metadata; the chaos injector
+(chaos/plan.py) records its fault and recovery spans with
+``Tracer.record_span``.
 
   Span            trace_id / span_id / parent_id / attributes over a
                   perf_counter interval, tagged with the emitting component.
@@ -64,13 +66,14 @@ class Span:
         trace_id: str = "",
         parent_id: str = "",
         attributes: Optional[Dict[str, object]] = None,
+        start: Optional[float] = None,
     ):
         self.name = name
         self.component = component
         self.trace_id = trace_id or _new_id()
         self.span_id = _new_id()
         self.parent_id = parent_id
-        self.start = time.perf_counter()
+        self.start = time.perf_counter() if start is None else start
         self.end: Optional[float] = None
         self.attributes: Dict[str, object] = attributes or {}
 
@@ -78,8 +81,8 @@ class Span:
     def context(self) -> SpanContext:
         return SpanContext(self.trace_id, self.span_id)
 
-    def finish(self) -> None:
-        self.end = time.perf_counter()
+    def finish(self, end: Optional[float] = None) -> None:
+        self.end = time.perf_counter() if end is None else end
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (
@@ -91,6 +94,17 @@ class Span:
 
 # same-thread parentage (OTel context API reduced to one contextvar)
 _CURRENT: ContextVar[Optional[Span]] = ContextVar("ktpu_current_span", default=None)
+
+
+def current_span() -> Optional[Span]:
+    """The thread/task-local active span (None outside any span)."""
+    return _CURRENT.get()
+
+
+def current_trace_id() -> str:
+    """The active span's trace id ("" outside any span / tracing off)."""
+    s = _CURRENT.get()
+    return s.trace_id if s is not None else ""
 
 
 class TraceCollector:
@@ -172,3 +186,26 @@ class Tracer:
             _CURRENT.reset(token)
             sp.finish()
             self.collector.add(sp)
+
+    def record_span(self, name: str, start: float, end: Optional[float] = None,
+                    parent: ParentLike = None, **attributes: object) -> Optional[Span]:
+        """Record an already-elapsed interval as a finished span (parent: the
+        explicit context, else the current span, else a new trace root)."""
+        if not self.collector.enabled:
+            return None
+        ctx = _resolve_parent(parent)
+        if ctx is None:
+            cur = _CURRENT.get()
+            if cur is not None:
+                ctx = cur.context
+        sp = Span(
+            name,
+            component=self.component,
+            trace_id=ctx.trace_id if ctx else "",
+            parent_id=ctx.span_id if ctx else "",
+            attributes=dict(attributes) if attributes else None,
+            start=start,
+        )
+        sp.finish(end)
+        self.collector.add(sp)
+        return sp

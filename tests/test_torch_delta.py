@@ -8,7 +8,8 @@ tests/test_delta_encoder.py, with fit-only pod templates).
 - the fallbacks: a wave bringing a new referenced label key, a replaced
   node; the fast path on same-template waves; debug_verify catching an
   in-place mutation of a bound pod; a duplicate bound uid;
-- a delta that brings a feature the slice refuses raises, it is not dropped;
+- a delta that brings a host port, an affinity term or a claim the cluster
+  side lacks rebuilds and encodes as the JAX encoder does;
 - the host pack/unpack give the JAX package's bytes, and a snapshot whose
   taint vocabulary is 64 or more wide travels packed and decides as the
   JAX package does;
@@ -168,10 +169,10 @@ def test_duplicate_bound_uid_rejected():
 
 @pytest.mark.parametrize("feature", ["host-ports", "pod-affinity", "pvcs"])
 def test_delta_bringing_a_refused_feature_raises(feature):
-    """A bound pod arriving in a delta with a feature the port does not have
-    (volumes) raises and the encoder's resident state does not move; one
-    that brings a host port or an affinity term the vocabulary lacks now
-    falls back to a rebuild, as the JAX encoder does, and encodes as it."""
+    """A bound pod arriving in a delta with a host port or an affinity term
+    the vocabulary lacks falls back to a rebuild, as the JAX encoder does,
+    and encodes as it; one bringing a claim (a PVC the snapshot holds, a
+    new resource kind for the attach count) does the same."""
     nodes = cluster_nodes(6)
     enc, jax_enc = DeltaEncoder("cpu"), JaxDeltaEncoder()
     first = Snapshot(nodes=nodes, pending_pods=[template("a", 0)])
@@ -182,13 +183,9 @@ def test_delta_bringing_a_refused_feature_raises(feature):
              "pod-affinity": dict(affinity=t.Affinity(required_pod_affinity=(term,))),
              "pvcs": dict(pvcs=("claim",))}[feature]
     bad = dataclasses.replace(mk_pod("b", node_name="n2"), **extra)
-    snap = Snapshot(nodes=nodes, pending_pods=[template("c", 0)], bound_pods=[bad])
-    if feature == "pvcs":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            enc.encode(snap)
-        assert enc.stats == {"full": 1, "delta": 0, "verified": 0}
-        assert not enc._cs.records
-        return
+    pvc = t.PersistentVolumeClaim(name="claim", request=1, wait_for_first_consumer=True)
+    snap = Snapshot(nodes=nodes, pending_pods=[template("c", 0)], bound_pods=[bad],
+                    pvcs={pvc.key: pvc} if feature == "pvcs" else {})
     assert_same_encoding(*enc.encode(snap), *jax_enc.encode(snap))
     assert enc.stats == jax_enc.stats == {"full": 2, "delta": 0, "verified": 0}
 

@@ -99,14 +99,28 @@ def _node(**kw):
     return tt.Node(name="n", allocatable={tt.CPU: 1000}, **kw)
 
 
+def _gpu_slice():
+    from kubernetes_tpu_torch.api.cluster import DraDevice, ResourceSlice
+
+    return ResourceSlice(name="s", node_name="n", devices=(DraDevice("d0", attributes=(("type", "gpu"),)),))
+
+
+def _gpu_class():
+    from kubernetes_tpu_torch.api.cluster import DeviceClass, DeviceSelector
+
+    return DeviceClass(name="gpu", selector=DeviceSelector(terms=(("type", "gpu"),)))
+
+
 TERM = tt.PodAffinityTerm(topology_key=tt.LABEL_ZONE, label_selector=tt.LabelSelector.of(app="a"))
-REFUSED = {
-    "pvcs": lambda: Snapshot([_node()], [_pod(pvcs=("claim",))]),
-    "resource-claims": lambda: Snapshot([_node()], [_pod(resource_claims=(tt.ResourceClaimRef("gpu"),))]),
-    "attach-limit": lambda: Snapshot([_node(volume_attach_limit=4)], [_pod()]),
-}
-# features the port refused before the full stage set and the gangs were ported
+# features the port refused before the full stage set, the gangs and the
+# volumes and claims were ported (a claim resolves against the snapshot's
+# storage state: a WaitForFirstConsumer PVC, a ResourceSlice of its class)
 PORTED = {
+    "pvcs": lambda: Snapshot([_node()], [_pod(pvcs=("claim",))], pvcs={"default/claim": tt.PersistentVolumeClaim(
+        name="claim", request=1, wait_for_first_consumer=True)}),
+    "resource-claims": lambda: Snapshot([_node()], [_pod(resource_claims=(tt.ResourceClaimRef("gpu"),))],
+                                        resource_slices=[_gpu_slice()], device_classes={"gpu": _gpu_class()}),
+    "attach-limit": lambda: Snapshot([_node(volume_attach_limit=4)], [_pod()]),
     "pod-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(required_pod_affinity=(TERM,)))]),
     "pod-anti-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(required_pod_anti_affinity=(TERM,)))]),
     "preferred-pod-affinity": lambda: Snapshot([_node()], [_pod(affinity=tt.Affinity(
@@ -122,12 +136,6 @@ PORTED = {
     "pod-group": lambda: Snapshot([_node()], [_pod(pod_group="g")]),
     "pod-groups": lambda: Snapshot([_node()], [_pod()], pod_groups={"g": tt.PodGroup("g", 2)}),
 }
-
-
-@pytest.mark.parametrize("case", sorted(REFUSED))
-def test_unported_features_raise(case):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_snapshot(REFUSED[case](), device="cpu")
 
 
 def _assert_all_fields_equal(ta, ja):

@@ -12,8 +12,9 @@ On the CPU:
   ``TPUScoreServer(engine=_Engine(device="cpu"))`` over loopback, and the
   verdicts equal the JAX server's on the same calls and, where
   tests/test_sidecar.py holds them so, the oracle's: every case of that
-  file that ships no volume state (stateless, gang, the session delta
-  stream, bind compression, label drift, bound-pod updates, a node change,
+  file that needs no Scheduler (stateless, gang, the session delta
+  stream, the session over volume state, bind compression, label drift,
+  bound-pod updates, a node change,
   a resync after a restart, health, zpages, a zero hard-pod-affinity
   weight, preferred affinity and images, the cold large session) and the
   JAX Scheduler offloading to it.  The wire (tpuscore.proto) is shared byte
@@ -273,6 +274,41 @@ def test_session_delta_stream_matches_stateless(servers):
         assert client.stats["full"] == 1 and client.stats["delta"] == 3, client.stats
         client.close()
         stateless.close()
+        return out
+
+    _on_both(servers, case)
+
+
+def test_session_deltas_survive_volume_state(servers):
+    """tests/test_sidecar.py's volume case: the JAX client resolves volumes
+    before the wire and fingerprints the raw storage state, so a stable PVC
+    state stays on the delta path and a replaced PVC resyncs; the port's
+    server gives the JAX server's verdicts throughout."""
+    from helpers import mk_node, mk_pod
+    from kubernetes_tpu.api import types as jt
+    from kubernetes_tpu.api.snapshot import Snapshot
+
+    pvc = jt.PersistentVolumeClaim(name="claim", request=1, wait_for_first_consumer=True)
+    nodes = []
+    for i in range(4):
+        nd = mk_node(f"n{i}", cpu=4000)
+        nd.volume_attach_limit = 8
+        nodes.append(nd)
+    waves = [_wave(3, f"v{c}") + [dataclasses.replace(mk_pod(f"vol-{c}", cpu=100), pvcs=("claim",))]
+             for c in range(3)]
+    pvc2 = dataclasses.replace(pvc, request=2)
+
+    def case(srv):
+        client, out = _client(srv), []
+        for wave in waves:
+            out.append(client.schedule(Snapshot(nodes=nodes, pending_pods=wave, pvcs={pvc.key: pvc}),
+                                       deadline_ms=DEADLINE))
+            assert any(out[-1].values())
+        assert client.stats["full"] == 1 and client.stats["delta"] == 2, client.stats
+        out.append(client.schedule(Snapshot(nodes=nodes, pending_pods=_wave(2, "after"), pvcs={pvc2.key: pvc2}),
+                                   deadline_ms=DEADLINE))
+        assert client.stats["full"] == 2, client.stats
+        client.close()
         return out
 
     _on_both(servers, case)

@@ -64,7 +64,20 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   post-step usage -> F and the sha256 of the int64 counts;
 - the perpod-small leg: cycles of the first 8 pending pods of the north
   star and of config 3 on their clusters (P = 8: the per-pod scan) -> the
-  sha256 of each one's choices.
+  sha256 of each one's choices;
+- the config4s leg: BASELINE Config4S, heterogeneous_storage(20000, 20000,
+  seed=0) (volumes resolved by the JAX encoder), through the dense chunked
+  route and then the class-wave route (HoistCache.ensure) under
+  KTPU_FORCE_CHUNKED=1 -> P, N, R, U1, the scheduled count, and each
+  route's sweeps, ordinals digest and choices digest; the config4s-warm
+  leg: the warm leg's waves 2..7 at depth 0 over the storage-carrying
+  snapshots (kubernetes_tpu_torch/bench/workloads.py StorageWaves: one PVC
+  replaced from wave 5 on) -> each wave's digest, the HoistCache actions
+  and the encoder's stats;
+- the dra-small leg: the port's dra_small snapshot (device claims through
+  ResourceSlices and two overlapping DeviceClasses, a ReadWriteOncePod
+  claim shared by three pods) through the JAX encoder and per-pod scan ->
+  the resources, the scheduled count and the choices digest.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -75,13 +88,15 @@ there), the whole script about ten minutes and a few GB:
 
 (LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds,
 all-stages, config3-inc, config3-warm, gang-small, config5, gang-rounds,
-gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt, explain or
-perpod-small runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
+gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt, explain,
+perpod-small, config4s, config4s-warm or dra-small runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
 tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
 tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
 warm leg on spread_affinity(N_NODES, N_PODS) as tests/test_torch_rounds_inc.py
 runs it: --leg config3-warm N_NODES N_PODS; any gang(G, S, N): --leg gang G
-S N; any preempt build: --leg preempt N_NODES N_PRE.)
+S N; any preempt build: --leg preempt N_NODES N_PRE; Config4S at any
+size, as tests/test_torch_volumes.py runs it: --leg config4s N_NODES
+N_PODS, --leg config4s-warm N_NODES N_PODS.)
 """
 
 import hashlib
@@ -172,7 +187,9 @@ def warm_leg(n_nodes: int = 20000, n_pods: int = 50000, workload: str = "heterog
     """bench.py's warm waves 2..7 through the JAX PipelinedBatchLoop at depth
     0 after the cold step with class state, on `workload` (heterogeneous:
     the north star; spread_affinity: config 3, where the rounds route takes
-    the class state) -> each wave's digest and the HoistCache actions."""
+    the class state; heterogeneous_storage: Config4S, each wave carrying the
+    storage state, one PVC replaced from wave 5 on) -> each wave's digest
+    and the HoistCache actions."""
     from kubernetes_tpu.api.delta import DeltaEncoder
     from kubernetes_tpu.api.snapshot import Snapshot
     from kubernetes_tpu.bench import workloads
@@ -180,9 +197,10 @@ def warm_leg(n_nodes: int = 20000, n_pods: int = 50000, workload: str = "heterog
     from kubernetes_tpu.ops.assign import TRACE_COUNTS, schedule_batch_routed
     from kubernetes_tpu.ops.incremental import HoistCache
     from kubernetes_tpu.parallel.pipeline import PipelinedBatchLoop
-    from kubernetes_tpu_torch.bench.workloads import verdicts_of, warm_waves, wave_digest
+    from kubernetes_tpu_torch.bench.workloads import StorageWaves, verdicts_of, warm_waves, wave_digest
 
-    name = "warm" if workload == "heterogeneous" else "config3-warm"
+    name = {"heterogeneous": "warm", "spread_affinity": "config3-warm",
+            "heterogeneous_storage": "config4s-warm"}[workload]
     snap = getattr(workloads, workload)(n_nodes, n_pods, seed=0)
     enc = DeltaEncoder()
     arr, meta = enc.encode(snap)
@@ -191,7 +209,8 @@ def warm_leg(n_nodes: int = 20000, n_pods: int = 50000, workload: str = "heterog
     choices = np.asarray(schedule_batch_routed(arr, cfg, donate=False, inc=inc)[0])
     print(f"{name}: wave 1 choices sha256 {_sha(choices[: meta.n_pods])}", flush=True)
     loop = PipelinedBatchLoop(encoder=enc, donate=False, depth=0, memwatch=False)
-    waves, fetched, *_ = warm_waves(snap, verdicts_of(choices, meta), loop.submit, loop.drain, Snapshot)
+    snapshot_cls = StorageWaves(snap, Snapshot) if workload == "heterogeneous_storage" else Snapshot
+    waves, fetched, *_ = warm_waves(snap, verdicts_of(choices, meta), loop.submit, loop.drain, snapshot_cls)
     names = [nd.name for nd in snap.nodes]
     digests = {w: wave_digest(waves[w], fetched[w], names) for w in sorted(fetched) if w >= 2}
     sched = {w: sum(1 for v in fetched[w].values() if v) for w in sorted(digests)}
@@ -436,6 +455,50 @@ def explain_leg() -> None:
           flush=True)
 
 
+def config4s_leg(n_nodes: int = 20000, n_pods: int = 20000) -> None:
+    """Config4S through the JAX encoder (volumes resolved), the dense chunked
+    route, then the class-wave route on HoistCache class state."""
+    import time
+
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.bench.workloads import heterogeneous_storage
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config
+    from kubernetes_tpu.ops.assign import TRACE_COUNTS, schedule_batch_ordinals_routed
+    from kubernetes_tpu.ops.incremental import HoistCache
+
+    t0 = time.perf_counter()
+    arr, meta = DeltaEncoder().encode(heterogeneous_storage(n_nodes, n_pods, seed=0))
+    print(f"config4s: encode {time.perf_counter() - t0:.2f} s, P {arr.P} N {arr.N} R {arr.R} "
+          f"resources {list(meta.resources)} classes {meta.n_classes}", flush=True)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    choices, _, ords, sweeps = schedule_batch_ordinals_routed(arr, cfg, donate=False)
+    c = np.asarray(choices)[:n]
+    print(f"config4s dense: scheduled {int((c >= 0).sum())} sweeps {int(sweeps)} ordinals sha256 "
+          f"{_sha(np.asarray(ords)[:n])} choices sha256 {_sha(c)} "
+          f"route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
+    inc = HoistCache().ensure(arr, meta, cfg)
+    choices, _, ords, sweeps = schedule_batch_ordinals_routed(arr, cfg, donate=False, inc=inc)
+    c = np.asarray(choices)[:n]
+    print(f"config4s waves: U1 {inc.req_u.shape[0]} scheduled {int((c >= 0).sum())} sweeps {int(sweeps)} "
+          f"ordinals sha256 {_sha(np.asarray(ords)[:n])} choices sha256 {_sha(c)} "
+          f"route {dict((k, v) for k, v in TRACE_COUNTS.items() if v)}", flush=True)
+
+
+def dra_small_leg() -> None:
+    """The port's dra_small snapshot through the JAX encoder (the JAX
+    resolution reads the port's objects as they are) and its per-pod scan."""
+    from kubernetes_tpu.api.delta import DeltaEncoder
+    from kubernetes_tpu.ops import DEFAULT_SCORE_CONFIG, infer_score_config, schedule_batch
+    from kubernetes_tpu_torch.bench.workloads import dra_small
+
+    arr, meta = DeltaEncoder().encode(dra_small())
+    choices, _ = schedule_batch(arr, infer_score_config(arr, DEFAULT_SCORE_CONFIG))
+    c = np.asarray(choices)[: meta.n_pods]
+    print(f"dra-small: P {arr.P} N {arr.N} resources {list(meta.resources)} scheduled {int((c >= 0).sum())} "
+          f"sha256 {_sha(c)}", flush=True)
+
+
 LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": config3_leg,
         "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg, "config3-inc": config3_inc_leg,
         "config3-warm": lambda: warm_leg(5000, 10000, "spread_affinity"),
@@ -443,7 +506,9 @@ LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": confi
         "config5": lambda: gang_leg(1000, 64, 2000, "config5"), "preempt": preempt_leg, "explain": explain_leg,
         "gang-rounds": gang_rounds_leg, "gang-contended": gang_contended_leg, "gang-pinned": gang_pinned_leg,
         "sidecar-north-star": lambda: sidecar_leg("sidecar-north-star"),
-        "sidecar-config5": lambda: sidecar_leg("sidecar-config5"), "perpod-small": perpod_small_leg}
+        "sidecar-config5": lambda: sidecar_leg("sidecar-config5"), "perpod-small": perpod_small_leg,
+        "config4s": config4s_leg, "config4s-warm": lambda: warm_leg(20000, 20000, "heterogeneous_storage"),
+        "dra-small": dra_small_leg}
 
 
 def main() -> None:
@@ -454,6 +519,10 @@ def main() -> None:
             warm_leg(int(sys.argv[3]), int(sys.argv[4]), "spread_affinity")
         elif sys.argv[2] == "gang" and len(sys.argv) == 6:  # any gang(G, S, N)
             gang_leg(*(int(x) for x in sys.argv[3:6]))
+        elif sys.argv[2] == "config4s" and len(sys.argv) == 5:
+            config4s_leg(int(sys.argv[3]), int(sys.argv[4]))
+        elif sys.argv[2] == "config4s-warm" and len(sys.argv) == 5:
+            warm_leg(int(sys.argv[3]), int(sys.argv[4]), "heterogeneous_storage")
         elif sys.argv[2] == "preempt" and len(sys.argv) == 5:
             preempt_leg(int(sys.argv[3]), int(sys.argv[4]))
         else:
@@ -468,7 +537,8 @@ def main() -> None:
             ("all-stages", {"KTPU_FORCE_CHUNKED": "0"}), ("config3-inc", {}),
             ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {}), ("preempt", {}), ("explain", {}),
             ("gang-rounds", {}), ("gang-contended", {}), ("gang-pinned", {}), ("sidecar-north-star", {}), ("sidecar-config5", {}),
-            ("perpod-small", {})]
+            ("perpod-small", {}), ("config4s", {}), ("config4s-warm", {"KTPU_MEMWATCH": "0"}),
+            ("dra-small", {"KTPU_FORCE_CHUNKED": "0"})]
     for name, extra in runs:
         if only and name not in only:
             continue

@@ -275,6 +275,39 @@ batched preemption) on the JAX package's preemption bench cluster:
                      ReadWriteOncePod claim shared by three pods) on the
                      default route (dense) and the per-pod route: the JAX
                      choices digest;
+  [scheduler-config4] the Scheduler itself (scheduler/scheduler.py), as
+                     users run it: BASELINE Config4, heterogeneous(20000,
+                     20000, seed=0), loaded into a ClusterStore and driven
+                     by run_until_idle (bench/harness.py
+                     run_snapshot_workload(..., "tpu")), traced by a
+                     TraceCollector(enabled=True): one batch cycle on the
+                     class-wave route (class_static_hoist, class_usage_hoist,
+                     wave_commit, chunk_rounds, each at least once), the JAX
+                     Scheduler's Scheduled / FailedScheduling counts, batch
+                     count and bindings digest; wall, pods/s, the span split
+                     (batch.encode / batch.kernel / batch.commit, the
+                     deferred binds' publication), the routes; once with
+                     GangScheduling off (the routed non-gang branch, the
+                     binds deferred to the drain); then the commit overlap:
+                     the pods split between two profiles, the gate off, so
+                     the second profile's device window publishes the
+                     first one's deferred binds (bench/harness.py
+                     overlapped_binds > 0): at heterogeneous(2000, 2000)
+                     the JAX Scheduler's digest and overlapped binds, at
+                     full size the same bindings as with pipeline_commit
+                     off;
+  [scheduler-config5] the same for BASELINE Config5, gang(1000, 64, 2000,
+                     seed=0): the gang branch, the host fixpoint on class
+                     state;
+  [scheduler-preempt] the preemption bench's build(20000, 1000) in a store,
+                     one Scheduler.schedule_batch() under KTPU_EXPLAIN=1:
+                     every preemptor fails the class-wave step, the
+                     diagnosis (explain_counts) and BatchedPreemption's
+                     waves (class_static_hoist + preempt_eval) evict 1000
+                     fillers and nominate 1000 nodes: the JAX Scheduler's
+                     evictions, nominations and FailedScheduling messages
+                     (bench/harness.py failure_outcome digest); wall, the
+                     span split;
   [explain-north-star] the unschedulable diagnosis at the north star:
                      explain_classes over the reps of all 100 pod classes (F
                      padded to 128, N=20480, R=5) at the dense step's
@@ -348,6 +381,7 @@ PLAIN_PODS = 8192  # pods of the north-star scan the plain scan re-runs in full
 WAVE_PREFIX_CHUNKS = 64  # stage-B chunks held against the plain round loop
 PER_POD_KERNELS = ("static_feasible", "fit_scan")
 WAVE_KERNELS = ("class_static_hoist", "class_usage_hoist", "wave_commit", "chunk_rounds")
+NO_GANGS = (("GangScheduling", False),)  # the Scheduler's non-gang batch branch
 DENSE_KERNELS = ("packed_static_rows", "chunk_rounds_dense")
 DENSE_PREFIX_CHUNKS = 8  # dense chunks held against the plain round loop
 ROUNDS_PREFIX_CHUNKS = 8  # config-3 rounds chunks held against the plain rounds scan
@@ -3043,6 +3077,244 @@ def phase_dra_small() -> None:
               f"dra-small {route}: differs from JAX")
 
 
+SPLIT_SPANS = ("batch.cycle", "batch.encode", "batch.kernel", "batch.commit", "batch.explain", "commit_overlap")
+
+
+def span_split(col) -> dict:
+    """Host seconds summed per span name over a traced Scheduler run: the
+    cycles, their encode (host encode + to_device), kernel (class state,
+    dispatch, the commit overlap, finish and the one read back) and commit
+    (binds, or their deferral, and the failure loop: diagnosis, preemption)
+    spans, the diagnosis inside the commit, and the deferred binds'
+    publication (commit_overlap: inside the next cycle's kernel span, or at
+    run_until_idle's end)."""
+    out = dict.fromkeys(SPLIT_SPANS, 0.0)
+    for sp in col.spans():
+        if sp.name in out and sp.end is not None:
+            out[sp.name] += sp.end - sp.start
+    check(col.spans_dropped == 0, f"the trace ring wrapped ({col.spans_dropped} spans dropped)")
+    return out
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+
+
+def scheduler_run(tag: str, snap_fn, want: dict, need, card: str) -> None:
+    """A snapshot through the port's Scheduler on the card, as users run it:
+    bench/harness.py run_snapshot_workload(..., "tpu") (setup_cluster, then
+    run_until_idle), twice on fresh stores: untraced, as the harness runs it
+    by default (every count set to 0 just before: the kernels `need`
+    launched), then traced by a TraceCollector(enabled=True) for the span
+    split.  Each run gives the JAX Scheduler's Scheduled / FailedScheduling
+    counts, batch cycles and bindings digest."""
+    import torch
+
+    from kubernetes_tpu_torch.bench.harness import run_snapshot_workload
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.scheduler.tracing import TraceCollector
+
+    runs = {}
+    for traced in (False, True):
+        snap = snap_fn()
+        col = TraceCollector(capacity=1 << 19, enabled=True) if traced else None
+        kernels.reset_launches()
+        assign.reset_trace_counts()
+        r = run_snapshot_workload(tag, snap, "tpu", device="cuda", collector=col)
+        torch.cuda.synchronize()
+        launches = counted(default=not traced)
+        routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+        sched = r.pop("scheduler")
+        hoist = sched._hoist_cache.history if sched._hoist_cache is not None else []
+        got = dict(scheduled=r["scheduled"], unschedulable=r["unschedulable"], batches=r["batches"],
+                   bindings=r["bindings_sha256"])
+        print(f"[{tag}] {'traced' if traced else 'untraced'}: {len(snap.nodes)} nodes, {len(snap.pending_pods)} "
+              f"pods: run_until_idle wall {r['wall_s']:.3f} s, {r['pods_per_sec']:.1f} pods/s, batches "
+              f"{r['batches']} (batch p50 {r['batch_p50_ms']:.1f} ms, p99 {r['batch_p99_ms']:.1f} ms), scheduled "
+              f"{r['scheduled']}, unschedulable {r['unschedulable']}, bindings sha256 {r['bindings_sha256']}; encoder "
+              f"{sched._delta_enc.stats}, HoistCache {[h['action'] for h in hoist]}; routes {routes}, launches "
+              f"{launches}; {card}", flush=True)
+        check(got == want, f"{tag}: {got} differs from the JAX Scheduler's {want}")
+        check(set(need) <= set(launches), f"{tag}: launches {launches}, want every one of {need}")
+        runs[traced] = r
+        if traced:
+            split = span_split(col)
+            print(f"[{tag}] span split (host s, traced): {split_text(split)}; outside the cycles' spans (the "
+                  f"queue's pop_all, the drain) {r['wall_s'] - split['batch.cycle'] - split['commit_overlap']:.3f}; "
+                  f"tracing cost {r['wall_s'] - runs[False]['wall_s']:.3f} s of wall", flush=True)
+        del snap, sched, r
+
+
+def phase_scheduler_config4(card: str) -> None:
+    """BASELINE Config4, heterogeneous(20000, 20000, seed=0), not cut, through
+    the Scheduler: one batch cycle on the class-wave route (K3 + K4 by
+    HoistCache.ensure, then K5 + K6); with the default GangScheduling gate
+    on, the cycle takes the gang fixpoint and binds synchronously (as in
+    the JAX package).  Then once more with the gate off: the routed
+    non-gang branch (dispatch, the deferred binds' flush, finish, one read
+    back), its 20000 binds deferred into the drain at run_until_idle's end.
+    Then the commit overlap itself (scheduler_two_profiles)."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.bench.harness import run_snapshot_workload
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler import SchedulerConfiguration
+
+    scheduler_run("scheduler-config4", lambda: w.heterogeneous(**w.SCHEDULER_CONFIG4), w.SCHEDULER_CONFIG4_WANT,
+                  WAVE_KERNELS, card)
+    kernels.reset_launches()
+    r = run_snapshot_workload("scheduler-config4", w.heterogeneous(**w.SCHEDULER_CONFIG4), "tpu", device="cuda",
+                              config=SchedulerConfiguration(mode="tpu", feature_gates=NO_GANGS))
+    torch.cuda.synchronize()
+    launches = counted()
+    flush = r.pop("scheduler").metrics.hists.get("pipeline_deferred_commit_seconds")
+    got = dict(scheduled=r["scheduled"], unschedulable=r["unschedulable"], batches=r["batches"],
+               bindings=r["bindings_sha256"])
+    print(f"[scheduler-config4] GangScheduling off (the non-gang branch): wall {r['wall_s']:.3f} s, "
+          f"{r['pods_per_sec']:.1f} pods/s, bindings sha256 {r['bindings_sha256']}; deferred flushes "
+          f"{flush.count if flush else 0}, {flush.sum if flush else 0.0:.3f} s publishing; launches {launches}",
+          flush=True)
+    check(got == w.SCHEDULER_CONFIG4_WANT, f"scheduler-config4 (gangs off): {got}")
+    check(flush is not None and flush.count == 1, "scheduler-config4 (gangs off): the binds were not deferred")
+    check(set(WAVE_KERNELS) <= set(launches), f"scheduler-config4 (gangs off): launches {launches}")
+    scheduler_two_profiles(card)
+
+
+
+def scheduler_two_profiles(card: str) -> None:
+    """The commit overlap on the card: Config4's pods split between two
+    profiles (bench/workloads.py two_profile_split), GangScheduling off, so
+    each batch cycle runs the two profiles' programs back to back and the
+    second one's device window (dispatch, the flush, finish) publishes the
+    first one's deferred binds.  At heterogeneous(2000, 2000, seed=0),
+    traced: the JAX Scheduler's counts, bindings digest and overlapped
+    binds.  At Config4's full size, traced, with the overlap and without it
+    (pipeline_commit=False, the binds synchronous): the same bindings, and
+    the overlap's pods inside the second kernel span."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.bench.harness import overlapped_binds, run_snapshot_workload
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.scheduler import Profile, SchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler.tracing import TraceCollector
+
+    cfg = SchedulerConfiguration(mode="tpu", feature_gates=NO_GANGS,
+                                 profiles=(Profile(), Profile(scheduler_name=w.SECOND_PROFILE)))
+    full = {}
+    for size, pipeline_commit in ((w.SCHEDULER_TWO_PROFILES, True), (w.SCHEDULER_CONFIG4, True),
+                                  (w.SCHEDULER_CONFIG4, False)):
+        snap = w.two_profile_split(w.heterogeneous(**size))
+        col = TraceCollector(capacity=1 << 19, enabled=True)
+        kernels.reset_launches()
+        assign.reset_trace_counts()
+        r = run_snapshot_workload("scheduler-two-profiles", snap, "tpu", device="cuda", collector=col,
+                                  config=dataclasses.replace(cfg, pipeline_commit=pipeline_commit))
+        torch.cuda.synchronize()
+        launches = counted()
+        routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+        r.pop("scheduler")
+        got = dict(scheduled=r["scheduled"], unschedulable=r["unschedulable"], batches=r["batches"],
+                   overlapped=overlapped_binds(col), bindings=r["bindings_sha256"])
+        split = span_split(col)
+        print(f"[scheduler-config4] two profiles, GangScheduling off, {len(snap.nodes)} nodes, "
+              f"{len(snap.pending_pods)} pods, {'overlapped commit' if pipeline_commit else 'synchronous binds'}, traced: "
+              f"run_until_idle wall {r['wall_s']:.3f} s, {r['pods_per_sec']:.1f} pods/s, {got}; routes {routes}, "
+              f"launches {launches}; span split (host s): {split_text(split)}; {card}",
+              flush=True)
+        check(set(WAVE_KERNELS) <= set(launches), f"scheduler-two-profiles: launches {launches}")
+        if size is w.SCHEDULER_TWO_PROFILES:
+            check(got == w.SCHEDULER_TWO_PROFILES_WANT, f"scheduler-two-profiles: {got} differs from the JAX "
+                  f"Scheduler's {w.SCHEDULER_TWO_PROFILES_WANT}")
+            continue
+        full[pipeline_commit] = got
+        del snap, r
+    check(full[True]["overlapped"] > 0, "scheduler-two-profiles: no bind was published inside a kernel span")
+    check(full[False]["overlapped"] == 0 and {k: v for k, v in full[True].items() if k != "overlapped"}
+          == {k: v for k, v in full[False].items() if k != "overlapped"},
+          f"scheduler-two-profiles: the overlapped run {full[True]} differs from the synchronous one {full[False]}")
+
+
+def phase_scheduler_config5(card: str) -> None:
+    """BASELINE Config5, gang(1000, 64, 2000, seed=0), not cut, through the
+    Scheduler: the gang branch, the host fixpoint on class state (one
+    iteration: K3 + K4, K5 + K6)."""
+    from kubernetes_tpu_torch.bench import workloads as w
+
+    scheduler_run("scheduler-config5", lambda: w.gang(**w.SCHEDULER_CONFIG5), w.SCHEDULER_CONFIG5_WANT, WAVE_KERNELS,
+                  card)
+
+
+def phase_scheduler_preempt(card: str) -> None:
+    """The preemption bench's build(20000, 1000) loaded into a store as the
+    JAX bench builds it (nodes, the 40000 bound fillers, the 1000
+    preemptors), then the Scheduler, then one schedule_batch() cycle under
+    KTPU_EXPLAIN=1, untraced (counted) and then traced on a fresh store:
+    the class-wave step (K3 + K4, K5 + K6) fails every preemptor, the
+    diagnosis (K14) and BatchedPreemption's waves (K3 + K15) evict 1000
+    fillers and nominate 1000 nodes: the JAX Scheduler's failure_outcome
+    digest."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import preempt_bench as pb
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.bench.harness import failure_outcome
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.scheduler import ClusterStore, Scheduler, SchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler.tracing import TraceCollector
+
+    need = WAVE_KERNELS + ("explain_counts", "preempt_eval")
+    old = os.environ.get("KTPU_EXPLAIN")
+    os.environ["KTPU_EXPLAIN"] = "1"
+    walls = {}
+    try:
+        for traced in (False, True):
+            snap = pb.build(**w.PREEMPT)
+            store = ClusterStore()
+            for nd in snap.nodes:
+                store.add_node(nd)
+            for p in snap.bound_pods + snap.pending_pods:
+                store.add_pod(p)
+            col = TraceCollector(capacity=1 << 19, enabled=traced)
+            sched = Scheduler(store, SchedulerConfiguration(mode="tpu"), collector=col, device="cuda")
+            before = [p.name for p in store.pods.values()]
+            kernels.reset_launches()
+            assign.reset_trace_counts()
+            t0 = time.perf_counter()
+            sched.schedule_batch()
+            torch.cuda.synchronize()
+            wall = walls[traced] = time.perf_counter() - t0
+            launches = counted(default=not traced)
+            routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+            out = failure_outcome(before, sched)
+            print(f"[scheduler-preempt] {'traced' if traced else 'untraced'}: build(20000, 1000), one "
+                  f"schedule_batch() under KTPU_EXPLAIN=1: wall {wall:.3f} s, {w.PREEMPT['n_pre'] / wall:.1f} "
+                  f"preemptors/s (scheduled {len(sched.events.by_reason('Scheduled'))}), evicted "
+                  f"{len(out['evicted'])}, nominated {len(out['nominated'])}, messages {out['messages']}, "
+                  f"preemption_victims {sched.metrics.counters.get('preemption_victims', 0)}, outcome sha256 "
+                  f"{out['sha256']}; routes {routes}, launches {launches}; {card}", flush=True)
+            check(len(out["evicted"]) == w.SCHEDULER_PREEMPT_EVICTED, "scheduler-preempt: evictions")
+            check(len(out["nominated"]) == w.SCHEDULER_PREEMPT_NOMINATED, "scheduler-preempt: nominations")
+            check(out["messages"] == w.SCHEDULER_PREEMPT_MESSAGES, f"scheduler-preempt: messages {out['messages']}")
+            check(out["sha256"] == w.SCHEDULER_PREEMPT_OUTCOME_SHA256,
+                  "scheduler-preempt: outcome differs from the JAX one")
+            check(set(need) <= set(launches), f"scheduler-preempt: launches {launches}, want every one of {need}")
+            if traced:
+                split = span_split(col)
+                print(f"[scheduler-preempt] span split (host s, traced): {split_text(split)}; the failure loop "
+                      f"(commit less the diagnosis) {split['batch.commit'] - split['batch.explain']:.3f}; tracing "
+                      f"cost {wall - walls[False]:.3f} s of wall", flush=True)
+            del snap, store, sched
+    finally:
+        if old is None:
+            os.environ.pop("KTPU_EXPLAIN")
+        else:
+            os.environ["KTPU_EXPLAIN"] = old
+
+
 def phase_env() -> None:
     """Whether the sidecar's wire modules exist on this machine (no phase
     depends on it)."""
@@ -4060,6 +4332,11 @@ def main() -> int:
     phase_config4s_sidecar(snap4s, cold4s)
     del snap4s, cold4s
     phase_dra_small()
+    t0 = time.perf_counter()
+    phase_scheduler_config4(card)
+    phase_scheduler_config5(card)
+    phase_scheduler_preempt(card)
+    print(f"[scheduler] the three Scheduler phases took {time.perf_counter() - t0:.1f} s", flush=True)
     rows += phase_preempt(k14)
     phase_dcn(used_sha, c3_used_sha)
     for row in rows:

@@ -55,6 +55,18 @@ fault sites); it resolves before the wire:
     from kubernetes_tpu_torch.runtime.client import TPUScoreClient
     verdicts = TPUScoreClient("127.0.0.1:50151").schedule(snap)  # uid -> node or None
 
-The Scheduler itself and the CPU PostFilter are not ported (see ROADMAP.md
-queue A).
+The Scheduler is ported (scheduler/: the store, queue and cache, the
+per-pod plugin cycle with the CPU PostFilter, and the batch cycle that
+drains the queue onto the kernels above, with its failure loop); users run
+it, and bench/harness.py measures it, as:
+
+    from kubernetes_tpu_torch.scheduler import ClusterStore, Scheduler, SchedulerConfiguration
+    store = ClusterStore()
+    sched = Scheduler(store, SchedulerConfiguration(mode="tpu"))  # device="cpu" for the plain path
+    store.add_node(node); store.add_pod(pod)
+    sched.run_until_idle()                                     # binds land in the store
+
+Not ported (ROADMAP.md queue A): the crash-restart checkpoint, leases and
+HTTP extenders (A14), the device-memory ledger and the flight recorder
+(A13), mode="native" (A15).
 """

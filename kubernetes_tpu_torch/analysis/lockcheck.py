@@ -1,6 +1,6 @@
-"""The named lock the port's host modules take (``scheduler/metrics.py``,
-the sidecar engine) — the part of the JAX package's
-``analysis/lockcheck.py`` they use.  The JAX package's runtime lock-order
+"""The named locks the port's host modules take (``scheduler/metrics.py``,
+the sidecar engine, the Scheduler's store, queue and cache) — the part of
+the JAX package's ``analysis/lockcheck.py`` they use.  The JAX package's runtime lock-order
 checker (KTPU_LOCK_CHECK) is not ported: nothing in the port reads it."""
 
 from __future__ import annotations
@@ -15,4 +15,11 @@ def make_lock(name: str) -> threading.Lock:
     return threading.Lock()
 
 
-__all__ = ["make_lock"]
+def make_rlock(name: str) -> threading.RLock:
+    """A plain re-entrant lock (the store's and the queue's: watchers run
+    under the store lock and may read back)."""
+    del name
+    return threading.RLock()
+
+
+__all__ = ["make_lock", "make_rlock"]

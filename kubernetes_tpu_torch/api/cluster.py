@@ -1,9 +1,11 @@
-"""Storage and DRA object types — the part of the JAX package's
-``api/cluster.py`` (its lines 467-558) that volume resolution reads
-(api/volumes.py): ``StorageClass``, ``DraDevice``, ``ResourceSlice``,
-``DeviceSelector`` and ``DeviceClass``.  The rest of that file (workload,
-network, policy and flow-control objects) belongs to the control plane,
-which the port does not have."""
+"""Storage, DRA and event object types — the part of the JAX package's
+``api/cluster.py`` that the port reads: ``StorageClass``, ``DraDevice``,
+``ResourceSlice``, ``DeviceSelector`` and ``DeviceClass`` (its lines
+467-558; volume resolution, api/volumes.py), and ``ClusterEvent`` (its
+line 319; the Scheduler's event recorder publishes one per event,
+scheduler/events.py).  The rest of that file (workload, network, policy
+and flow-control objects) belongs to the control plane, which the port
+does not have."""
 
 from __future__ import annotations
 
@@ -95,3 +97,30 @@ class DeviceClass:
     @property
     def key(self) -> str:
         return self.name
+
+
+@dataclass
+class ClusterEvent:
+    """core/v1 — type Event (kind "Event"), reduced to the scheduling event
+    surface with the reference's count-based aggregation: repeated identical
+    events bump `count`/`last_seen` instead of creating new objects
+    (client-go tools/record — EventAggregator)."""
+
+    name: str
+    namespace: str = "default"
+    reason: str = ""  # Scheduled | FailedScheduling | Preempted | ...
+    involved_object: str = ""  # "Pod/<ns>/<name>"
+    node: str = ""
+    message: str = ""
+    count: int = 1
+    first_seen: float = 0.0
+    last_seen: float = 0.0
+    uid: str = ""
+
+    def __post_init__(self) -> None:
+        if not self.uid:
+            self.uid = f"ev/{self.namespace}/{self.name}"
+
+    @property
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"

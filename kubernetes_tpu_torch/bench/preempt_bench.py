@@ -16,14 +16,16 @@ of its failure loop, :1569-1690):
 3. the failed rows in device row order (activeQ order);
 4. diagnose_failed at post-cycle usage (cycle-start node_used plus the
    requests of the pods this cycle placed): K14 on the card;
-5. BatchedPreemption over the post-bind snapshot, a store stub (``pdbs``)
-   and a queue stub (``nominated``), then prefetch of the failed pods whose
-   priority is above the lowest bound priority;
-6. per failed pod in order: evaluate (waves of K15 on the card),
-   apply_eviction, note_nomination_cleared, the nomination.
-
-A pod outside BatchedPreemption's gate raises NotImplementedError: the CPU
-PostFilter is not ported (ROADMAP.md A11).
+5. BatchedPreemption over the post-bind snapshot, a store stub (``pdbs``
+   and the bound pods) and a queue stub (``nominated``), then prefetch of
+   the failed pods whose priority is above the lowest bound priority;
+6. per failed pod in order: inside BatchedPreemption's gate, evaluate
+   (waves of K15 on the card), the evictions, apply_eviction,
+   note_nomination_cleared, the nomination; outside it (pairwise terms,
+   host ports, claims), the CPU PostFilter (scheduler/plugins/cpu.py —
+   DefaultPreemption) over a what-if state of the current bound pods, and
+   after a CPU eviction a fresh BatchedPreemption for the rest, as the
+   scheduler's failure loop does.
 
     python -m kubernetes_tpu_torch.bench.preempt_bench [n_nodes] [n_preemptors]
 
@@ -77,18 +79,53 @@ def build(n_nodes: int, n_pre: int) -> Snapshot:
 
 
 class PdbStore:
-    """The store as BatchedPreemption reads it: ``pdbs`` (key -> PDB)."""
+    """The store as the failure loop reads it: ``pdbs`` (key -> PDB) and
+    the bound ``pods`` (uid -> pod), which ``delete_pod`` evicts from."""
 
-    def __init__(self, pdbs=()):
+    def __init__(self, pdbs=(), pods=()):
         self.pdbs = {p.key: p for p in pdbs}
+        self.pods: Dict[str, t.Pod] = {p.uid: p for p in pods}
+
+    def delete_pod(self, uid: str) -> None:
+        self.pods.pop(uid, None)
 
 
 class NominationQueue:
-    """The queue as BatchedPreemption reads it: ``nominated`` (uid -> (pod,
+    """The queue as the failure loop reads it: ``nominated`` (uid -> (pod,
     node name))."""
 
     def __init__(self):
         self.nominated: Dict[str, Tuple[t.Pod, str]] = {}
+
+    def nominated_pods_for_node(self, node_name: str) -> List[t.Pod]:
+        return [p for p, n in self.nominated.values() if n == node_name]
+
+
+def cpu_postfilter(store, queue):
+    """The CPU PostFilter of the default profile over `store` and `queue`:
+    a Framework of default_plugins whose DefaultPreemption filters through
+    the same framework -> a callable (snap, pod) -> (node or None, victim
+    names), snap being the resolved snapshot of the current bound pods."""
+    from ..api.volumes import resolve_snapshot
+    from ..scheduler.cache import node_infos
+    from ..scheduler.framework import CycleState, Framework
+    from ..scheduler.plugins.cpu import default_plugins
+    from ..scheduler.state import ScaledState
+
+    fw = Framework(default_plugins(store, filter_fn=lambda st, sn, p, info: fw.run_filters(st, sn, p, info),
+                                   nominated_fn=queue.nominated_pods_for_node))
+
+    def run(snap, pod):
+        snap = resolve_snapshot(snap)
+        state = CycleState()
+        state.data["scaled"] = ScaledState(snap, node_infos(snap))
+        before = dict(store.pods)
+        node, st = fw.run_post_filters(state, snap, pod, {})
+        if not (st.ok and node):
+            return None, []
+        return node, [q.name for uid, q in before.items() if uid not in store.pods]
+
+    return run
 
 
 def decisions_digest(decisions) -> str:
@@ -182,9 +219,12 @@ def failure_cycle(snap: Snapshot, device=None, pdbs=(), nominated=()) -> dict:
     names in row order, "messages" / "dominant": name -> diagnosis message /
     dominant reason, "records": the per-class diagnosis records,
     "decisions": [(preemptor, node, victim names)] in evaluation order,
-    "nominated": uid -> node, "wave_hits", "single_hits", "times": host
-    seconds of each step, with the failure loop's split into evaluate and
-    apply_eviction}.  `pdbs` go to the store stub; `nominated` lists
+    "nominated": uid -> node, "outside_gate": the preemptors that
+    BatchedPreemption's gate refused, which the CPU PostFilter served, in
+    order, "wave_hits", "single_hits" (summed over the
+    BatchedPreemption instances of the loop), "times": host seconds of each
+    step, with the failure loop's split into evaluate, apply_eviction and
+    the CPU PostFilter}.  `pdbs` go to the store stub; `nominated` lists
     (pending pod name, node) nominations carried from an earlier cycle into
     the queue stub."""
     dev = resolve_device(device)
@@ -216,30 +256,56 @@ def failure_cycle(snap: Snapshot, device=None, pdbs=(), nominated=()) -> dict:
     bound = list(snap.bound_pods) + [
         dataclasses.replace(pods[k], node_name=meta.node_names[int(c[k])]) for k in placed
     ]
-    snap2 = Snapshot(nodes=snap.nodes, bound_pods=bound)
-    store, queue = PdbStore(pdbs), NominationQueue()
+    store, queue = PdbStore(pdbs, bound), NominationQueue()
     by_name = {p.name: p for p in snap.pending_pods}
     for name, node in nominated:
         queue.nominated[by_name[name].uid] = (by_name[name], node)
     failed = [pods[k] for k in rows]
-    bound_prios = Counter(q.priority for q in bound)
-    min_bound = min(bound_prios) if bound_prios else None
-    batched = BatchedPreemption(arr, meta, snap2, store, queue)
-    if min_bound is not None:
-        batched.prefetch([q for q in failed if q.priority > min_bound])
+    cpu = None  # the CPU PostFilter, built when a pod first falls outside the gate
+    wave_hits = single_hits = 0
+
+    def rebuild(suffix):
+        """The bound view, its priorities and a BatchedPreemption over it,
+        prefetching the preemptors of `suffix`."""
+        bp = BatchedPreemption(arr, meta, Snapshot(nodes=snap.nodes, bound_pods=list(store.pods.values())),
+                               store, queue)
+        prios = Counter(q.priority for q in store.pods.values())
+        low = min(prios) if prios else None
+        if low is not None:
+            bp.prefetch([q for q in suffix if q.priority > low])
+        return bp, prios, low
+
+    batched, bound_prios, min_bound = rebuild(failed)
     t4 = time.perf_counter()
     times["setup_s"] = t4 - t3
     decisions: List[Tuple[str, str, List[str]]] = []
-    evaluate_s = evict_s = 0.0
-    for pod in failed:
+    outside_gate: List[str] = []
+    evaluate_s = evict_s = cpu_s = 0.0
+    for pod_i, pod in enumerate(failed):
+        if batched is None:
+            # the scheduler's failure loop after a CPU-path eviction: the
+            # bound view and BatchedPreemption are rebuilt for the rest
+            batched, bound_prios, min_bound = rebuild(failed[pod_i:])
         if min_bound is None or pod.priority <= min_bound:
             batched.note_nomination_cleared(pod)
             queue.nominated.pop(pod.uid, None)
             continue
         if not batched.applicable(pod):
-            raise NotImplementedError(
-                f"pod {pod.name} is outside the batched preemption gate and the CPU PostFilter is not "
-                "ported: see ROADMAP.md A11")
+            outside_gate.append(pod.name)
+            e0 = time.perf_counter()
+            cpu = cpu or cpu_postfilter(store, queue)
+            node_name, victims = cpu(Snapshot(nodes=snap.nodes, bound_pods=list(store.pods.values())), pod)
+            cpu_s += time.perf_counter() - e0
+            if node_name is None:
+                batched.note_nomination_cleared(pod)
+                queue.nominated.pop(pod.uid, None)
+                continue
+            queue.nominated[pod.uid] = (pod, node_name)
+            decisions.append((pod.name, node_name, victims))
+            # evicted outside BatchedPreemption's ledger: rebuild it
+            wave_hits, single_hits = wave_hits + batched.wave_hits, single_hits + batched.single_hits
+            batched = None
+            continue
         e0 = time.perf_counter()
         res = batched.evaluate(pod)
         e1 = time.perf_counter()
@@ -250,6 +316,7 @@ def failure_cycle(snap: Snapshot, device=None, pdbs=(), nominated=()) -> dict:
             continue
         node_name, victims = res
         for q in victims:
+            store.delete_pod(q.uid)
             bound_prios[q.priority] -= 1
             if bound_prios[q.priority] <= 0:
                 del bound_prios[q.priority]
@@ -260,7 +327,7 @@ def failure_cycle(snap: Snapshot, device=None, pdbs=(), nominated=()) -> dict:
         batched.note_nomination_cleared(pod)
         queue.nominated[pod.uid] = (pod, node_name)
         decisions.append((pod.name, node_name, [q.name for q in victims]))
-    times.update(loop_s=time.perf_counter() - t4, evaluate_s=evaluate_s, evict_s=evict_s)
+    times.update(loop_s=time.perf_counter() - t4, evaluate_s=evaluate_s, evict_s=evict_s, cpu_postfilter_s=cpu_s)
     return {
         "failed": [p.name for p in failed],
         "messages": {pods[r].name: m for r, m in messages.items()},
@@ -268,8 +335,9 @@ def failure_cycle(snap: Snapshot, device=None, pdbs=(), nominated=()) -> dict:
         "records": records,
         "decisions": decisions,
         "nominated": {uid: node for uid, (_, node) in queue.nominated.items()},
-        "wave_hits": batched.wave_hits,
-        "single_hits": batched.single_hits,
+        "outside_gate": outside_gate,
+        "wave_hits": wave_hits + (batched.wave_hits if batched is not None else 0),
+        "single_hits": single_hits + (batched.single_hits if batched is not None else 0),
         "times": times,
     }
 

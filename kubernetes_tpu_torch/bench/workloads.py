@@ -513,6 +513,45 @@ DRA_SMALL_RESOURCES = ["cpu", "memory", "pods", "ephemeral-storage", "example.co
 DRA_SMALL_SCHEDULED = 146
 DRA_SMALL_CHOICES_SHA256 = "ab2aee700a050ead0c99299dde60bd9c25bb7eafea2e2b4a4639a41b6c273e46"
 
+# The Scheduler itself, from the same script's scheduler-* legs: BASELINE
+# Config4 (heterogeneous(20000, 20000, seed=0)) and Config5 (gang(1000, 64,
+# 2000, seed=0)) through the JAX Scheduler's run_until_idle (its harness's
+# _setup_cluster, mode="tpu"): the Scheduled / FailedScheduling counts, the
+# batch cycles and bench/harness.py bindings_digest over the store; the
+# preemption bench's build(20000, 1000) store through one JAX
+# Scheduler.schedule_batch() under KTPU_EXPLAIN=1: bench/harness.py
+# failure_outcome (the 1000 evicted fillers, the 1000 nominations, the one
+# FailedScheduling message, the bindings) and its sha256.
+SCHEDULER_CONFIG4 = dict(n_nodes=20000, n_pods=20000, seed=0)
+SCHEDULER_CONFIG4_WANT = dict(scheduled=20000, unschedulable=0, batches=1,
+                              bindings="732cb57d3d52667fad49618058f027502b5fd16aa38c04480e502554b702308f")
+SCHEDULER_CONFIG5 = dict(n_groups=1000, group_size=64, n_nodes=2000, seed=0)
+SCHEDULER_CONFIG5_WANT = dict(scheduled=64000, unschedulable=0, batches=1,
+                              bindings="6734d9c3eeb5b93fcbcff6e9805b0047c1bbb359a67b18e805eba35224bd8cdb")
+SCHEDULER_PREEMPT_EVICTED = 1000
+SCHEDULER_PREEMPT_NOMINATED = 1000
+SCHEDULER_PREEMPT_MESSAGES = {"0/20000 nodes are available: 20000 Insufficient cpu.": 1000}
+SCHEDULER_PREEMPT_OUTCOME_SHA256 = "7a6748cbbf84580cb1fa3a347b5b22e1cc312b09e7c8891f7bb279d438071791"
+# Config4's pods split between two profiles (every odd pod names the second
+# one, SECOND_PROFILE), GangScheduling off: each batch cycle runs the two
+# profiles' programs back to back, and the second one's device window
+# publishes the first one's deferred binds (the commit overlap).  From the
+# same script's scheduler-two-profiles leg, at heterogeneous(2000, 2000,
+# seed=0): the counts, the bindings digest and the binds the overlap
+# published.
+SECOND_PROFILE = "second"
+SCHEDULER_TWO_PROFILES = dict(n_nodes=2000, n_pods=2000, seed=0)
+SCHEDULER_TWO_PROFILES_WANT = dict(scheduled=2000, unschedulable=0, batches=1, overlapped=1000,
+                                   bindings="51abed5fe6aa34053ff0e74b785402f23dda91dd3080fbc7f2ad51133f7eb907")
+
+
+def two_profile_split(snap):
+    """`snap` with every odd pending pod sent to SECOND_PROFILE (works on
+    either package's Snapshot: it reads only dataclass fields)."""
+    pods = [dataclasses.replace(p, scheduler_name=SECOND_PROFILE) if i % 2 else p
+            for i, p in enumerate(snap.pending_pods)]
+    return dataclasses.replace(snap, pending_pods=pods)
+
 # ---------------------------------------------------------------------------
 # bench.py's warm loop (bench.py:283-327), shared by chip_smoke.py and the
 # JAX reference script so both drive the same dataflow

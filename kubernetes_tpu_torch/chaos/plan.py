@@ -5,17 +5,21 @@ The port's copy of the JAX package's ``chaos/plan.py``.  A seeded
 the `ChaosInjector` fires it deterministically, so a chaos parity test can
 assert that under an injected plan the verdicts are the fault-free ones.
 
-Hook sites.  In the port only the sidecar client's have callers:
+Hook sites with callers in the port:
 
   sidecar.rpc      runtime/client.py — the Schedule RPC: drop (error), hang
                    (sleep then error), partial (truncated response)
   sidecar.health   runtime/client.py — the Health RPC: drop
+  scheduler.step   scheduler/scheduler.py — the batch step: error, nan
+                   (poisoned verdicts); recovered by the serial replay
+  host.stall       scheduler/scheduler.py — inside the encode window
+  kill.post_assume, kill.post_checkpoint, kill.mid_flush, kill.mid_step
+                   scheduler/ — the bind path's process-death points
 
-The rest of the JAX package's site table (pipeline.step, scheduler.step,
-compile.cache, host.stall, kubelet.sync and the kill.* points) is kept
-whole, so a plan parses and a seed draws the same faults as there; their
-callers (the scheduler, the pipeline's kill points) are not ported
-(ROADMAP A11, A14).
+The rest of the JAX package's site table (pipeline.step, compile.cache,
+kubelet.sync, the streaming kill points) is kept whole, so a plan parses
+and a seed draws the same faults as there; their callers are not ported,
+and nothing restarts a killed scheduler yet (ROADMAP A14).
 
 Every fired fault emits a `fault_injected` span + a
 `framework_fault_injected_total{site,action}` counter; every recovery the

@@ -52,7 +52,9 @@ LBL_FEASIBLE = "node(s) were otherwise feasible (blocked in-scan: capacity race,
 
 
 def explain_enabled() -> bool:
-    """KTPU_EXPLAIN=1 arms the diagnosis plane (default off)."""
+    """KTPU_EXPLAIN=1 arms the diagnosis plane (default off): the
+    Scheduler's batch cycle then diagnoses its failed pods
+    (scheduler/scheduler.py — _diagnose_failed)."""
     return os.environ.get("KTPU_EXPLAIN", "") == "1"
 
 

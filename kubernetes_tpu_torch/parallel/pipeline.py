@@ -46,8 +46,10 @@ CPU, where a step has ended when dispatch returns.
 
 Not ported here: the commit callback, the chaos kill points and wave
 recovery, the stream WAL, tracer spans, metrics and the memory ledger,
-``PipelinedRunner`` and ``run_stream_restartable`` (ROADMAP.md queue A11,
-A13, A14).
+``PipelinedRunner`` and ``run_stream_restartable`` (ROADMAP.md queue A13,
+A14).  The Scheduler's batch cycle (scheduler/scheduler.py) keeps its own
+commit overlap: a cycle's deferred binds are published while the next
+cycle's step runs.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ from typing import Dict, List, Optional, Tuple
 
 from ..api import types as t
 from ..api.snapshot import Snapshot
+from ..api.types import pod_clone
 
 
 def _pb():
@@ -127,18 +128,6 @@ def node_to_proto(n: t.Node) -> "pb.Node":
         unschedulable=n.unschedulable,
         images=[pb.ImageEntry(name=k, size_bytes=v) for k, v in n.images.items()],
     )
-
-
-def pod_clone(pod: t.Pod, **overrides) -> t.Pod:
-    """Shallow Pod clone: __new__ + __dict__ copy (about 4x cheaper than
-    copy.copy at wave and bind rates), with field objects SHARED with the
-    source: the invariant the encoder's identity-level interning and
-    bind-absorb `is` checks rest on (the JAX package's types.pod_clone)."""
-    q = t.Pod.__new__(t.Pod)
-    d = pod.__dict__.copy()
-    d.update(overrides)
-    q.__dict__ = d
-    return q
 
 
 def clone_pod(rep: t.Pod, name: str, uid: str, node_name: str = "") -> t.Pod:

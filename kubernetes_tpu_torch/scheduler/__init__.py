@@ -1,7 +1,35 @@
-"""The scheduler's host orchestration around the device kernels.
+"""The scheduler's host orchestration around the device kernels — the port
+of the JAX package's ``scheduler/`` runtime.
 
-Ported so far: ``preemption.BatchedPreemption``, the failure loop's batched
-victim search; ``metrics.Metrics`` and ``tracing`` (the registry and the
-span layer the sidecar server uses).  The ``Scheduler`` itself, the CPU
-PostFilter and events are still to port (ROADMAP.md A11).
+``Scheduler`` (scheduler.py) runs the batch cycle (mode="tpu": the
+activeQ drained into one batch, encoded onto the card, scheduled by the
+routed kernels, bound, and its failures diagnosed and preempted) and the
+per-pod cycle (mode="cpu": the plugin framework, plugins/cpu.py, with the
+CPU PostFilter ``DefaultPreemption``) over a ``ClusterStore`` watch, a
+``PriorityQueue`` and a ``SchedulerCache``:
+
+    store = ClusterStore()
+    sched = Scheduler(store, SchedulerConfiguration(mode="tpu"))  # the card
+    sched = Scheduler(store, SchedulerConfiguration(mode="tpu"), device="cpu")
+    store.add_node(node); store.add_pod(pod)
+    sched.run_until_idle()
+
+Also here: ``preemption.BatchedPreemption`` (the failure loop's batched
+victim search), ``metrics.Metrics`` and ``tracing``.  The crash-restart
+checkpoint, leases and HTTP extenders (ROADMAP.md A14), the device-memory
+ledger and the flight recorder (A13) and mode="native" (A15) are not
+ported.
 """
+
+from .cache import SchedulerCache  # noqa: F401
+from .config import Profile, SchedulerConfiguration  # noqa: F401
+from .framework import CycleState, Framework, Status  # noqa: F401
+from .plugins.cpu import default_plugins, default_registry  # noqa: F401
+from .scheduler import (  # noqa: F401
+    Scheduler,
+    reincarnate,
+    restart_scheduler,
+    run_ha_restartable,
+    run_restartable,
+)
+from .store import ClusterStore  # noqa: F401

@@ -11,7 +11,8 @@ pickOneNodeForPreemption's lexicographic key.
 
 Scope gate (`applicable`): pods whose Filter outcome could depend on
 pairwise state, host ports, or volume/claim topology belong to the CPU
-evaluator, which the port does not have yet (ROADMAP.md A11).
+evaluator (scheduler/plugins/cpu.py — DefaultPreemption), which the
+Scheduler's failure loop runs for them.
 
 State is incremental across one failure loop: an eviction updates the
 victim node's row and usage in place; PDB-budget changes are fingerprinted

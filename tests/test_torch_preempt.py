@@ -18,11 +18,16 @@ On the CPU:
   (several waves of one priority, K padded) and waves off (_WAVE = 0, every
   evaluation single).  The scenarios: the JAX test's dirty-node repair
   (tests/test_preemption_batched.py:129), random clusters with PDB-violating
-  victims, two priorities, node selectors, taints and a pinned preemptor;
+  victims, two priorities, node selectors, taints and a pinned preemptor,
+  and the same with preemptors outside the batched gate (host ports,
+  spread, anti-affinity; or an anti-affinity bound pod), which take the CPU
+  PostFilter (scheduler/plugins/cpu.py DefaultPreemption) against the JAX
+  one;
 - ``failure_cycle`` on build(50, 12) gives the JAX Scheduler's Preempted
   nominations and surviving fillers (BatchedPreemption on, the first run
   of the JAX preempt_bench.py's _parity_cross_check);
-- a preemptor outside the gate raises NotImplementedError.
+- a preemptor outside the gate is served by the CPU PostFilter (it raised
+  NotImplementedError before the CPU PostFilter was ported).
 
 The ``cuda`` legs import no JAX and skip without a card: kernel K15
 preempt_eval (with K3's static words) == the plain version on the port's
@@ -210,8 +215,35 @@ def _random_scenario(jx, seed):
     return jx["Snapshot"](nodes=nodes, pending_pods=pend, bound_pods=bound), pdbs, (("hi0", f"n{n - 1}"),)
 
 
+def _outside_gate(jx, seed):
+    """The random scenario with preemptors the batched gate refuses (host
+    ports, a topology-spread constraint, a required pod anti-affinity term)
+    mixed in: they take the CPU PostFilter, and each CPU eviction rebuilds
+    BatchedPreemption for the pods after it; with seed 4 a bound pod holds
+    an anti-affinity term, so every preemptor takes the CPU PostFilter
+    until that pod is evicted."""
+    t, h = jx["t"], jx["h"]
+    snap, pdbs, nominated = _random_scenario(jx, seed)
+    term = t.PodAffinityTerm(topology_key="zone", label_selector=t.LabelSelector.of(app="db"))
+    pend = list(snap.pending_pods)
+    for k, p in enumerate(pend[:-1]):
+        if k % 3 == 0:
+            pend[k] = dataclasses.replace(p, host_ports=(("TCP", 8080 + k % 2),))
+        elif k % 3 == 1 and k % 2:
+            pend[k] = dataclasses.replace(p, topology_spread=(t.TopologySpreadConstraint(
+                max_skew=1, topology_key="zone", when_unsatisfiable=t.DO_NOT_SCHEDULE,
+                label_selector=t.LabelSelector.of(app="web")),), labels={"app": "web"})
+        elif k % 3 == 2:
+            pend[k] = dataclasses.replace(p, affinity=t.Affinity(required_pod_anti_affinity=(term,)))
+    bound = list(snap.bound_pods)
+    if seed == 4:
+        bound[0] = dataclasses.replace(bound[0], affinity=t.Affinity(required_pod_anti_affinity=(term,)))
+    return jx["Snapshot"](nodes=snap.nodes, pending_pods=pend, bound_pods=bound), pdbs, nominated
+
+
 SCENARIOS = {"dirty-repair": _dirty_repair, **{f"random-{s}": (lambda jx, s=s: _random_scenario(jx, s))
-                                               for s in (1, 2, 3, 5, 8)}}
+                                               for s in (1, 2, 3, 5, 8)},
+             **{f"outside-gate-{s}": (lambda jx, s=s: _outside_gate(jx, s)) for s in (1, 2, 4)}}
 
 
 @pytest.mark.parametrize("wave", [64, 2, 0])
@@ -225,7 +257,11 @@ def test_failure_cycle_matches_jax_batched_preemption(jx, monkeypatch, name, wav
     for key in ("failed", "messages", "dominant", "records", "decisions", "nominated", "wave_hits", "single_hits"):
         assert got[key] == want[key], key
     assert want["decisions"], "no preemption happened"
-    if wave == 0:
+    if name.startswith("outside-gate"):  # some preemption through the CPU PostFilter
+        outside = {p.name for p in snap.pending_pods if p.host_ports or p.topology_spread or p.affinity}
+        assert outside & {d[0] for d in got["decisions"]} or name == "outside-gate-4"
+        assert got["times"]["cpu_postfilter_s"] > 0
+    elif wave == 0:
         assert got["wave_hits"] == 0 and got["single_hits"] > 0
     else:
         assert got["wave_hits"] > 0
@@ -283,11 +319,22 @@ def test_wave_probe_records_every_evaluation(monkeypatch, wave):
             np.testing.assert_array_equal(h, w.numpy())
 
 
-def test_failure_cycle_refuses_pods_outside_the_gate():
+def test_failure_cycle_refuses_pods_outside_the_gate(jx):
+    """BatchedPreemption's gate refuses a preemptor with host ports (its
+    pairwise/ports terms are outside the batched evaluator), and the
+    failure cycle then serves it through the CPU PostFilter
+    (DefaultPreemption), as the JAX scheduler's failure loop does, with the
+    decisions of the JAX sequence."""
     snap = pb.build(6, 2)
     snap.pending_pods[1] = dataclasses.replace(snap.pending_pods[1], host_ports=(("TCP", 80),))
-    with pytest.raises(NotImplementedError, match="A11"):
-        pb.failure_cycle(snap, device="cpu")
+    got = pb.failure_cycle(snap, device="cpu")
+    jsnap = ref.jax_snapshot(6, 2)
+    jsnap.pending_pods[1] = dataclasses.replace(jsnap.pending_pods[1], host_ports=(("TCP", 80),))
+    want = ref.jax_failure_cycle(jsnap)
+    assert got["decisions"] == want["decisions"] and got["nominated"] == want["nominated"]
+    assert got["outside_gate"] == ["hi-1"]  # the gate refused it
+    assert [d[0] for d in got["decisions"]] == ["hi-0", "hi-1"]  # hi-1 through the CPU PostFilter
+    assert got["times"]["cpu_postfilter_s"] > 0
 
 
 def test_build_matches_the_jax_build(jx):

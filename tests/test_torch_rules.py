@@ -36,9 +36,10 @@ mods = [m.name for m in pkgutil.walk_packages(kubernetes_tpu_torch.__path__, "ku
 for m in mods:
     importlib.import_module(m)
 # the encoder, the pipeline of the warm loop, the failure path, the
-# sidecar (its wire, metrics, tracing and lock checker) and the node mesh
+# sidecar (its wire, metrics, tracing and lock checker), the node mesh
 # (its request grammar, padding, collectives, sharded step and ring layer)
-# are among them
+# and the Scheduler (its store, queue, cache, CPU plugins with the oracle's
+# helpers, and the harness that measures it) are among them
 assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
         "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
         "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench",
@@ -47,7 +48,11 @@ assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipelin
         "kubernetes_tpu_torch.scheduler.tracing", "kubernetes_tpu_torch.analysis.lockcheck",
         "kubernetes_tpu_torch.meshreq", "kubernetes_tpu_torch.parallel.mesh",
         "kubernetes_tpu_torch.parallel.partition_rules", "kubernetes_tpu_torch.parallel.collectives",
-        "kubernetes_tpu_torch.parallel.sharded", "kubernetes_tpu_torch.parallel.ring"} <= set(mods), mods
+        "kubernetes_tpu_torch.parallel.sharded", "kubernetes_tpu_torch.parallel.ring",
+        "kubernetes_tpu_torch.scheduler.scheduler", "kubernetes_tpu_torch.scheduler.store",
+        "kubernetes_tpu_torch.scheduler.queue", "kubernetes_tpu_torch.scheduler.cache",
+        "kubernetes_tpu_torch.scheduler.plugins.cpu", "kubernetes_tpu_torch.oracle.reference",
+        "kubernetes_tpu_torch.bench.harness"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked

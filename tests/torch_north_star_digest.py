@@ -77,7 +77,21 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
 - the dra-small leg: the port's dra_small snapshot (device claims through
   ResourceSlices and two overlapping DeviceClasses, a ReadWriteOncePod
   claim shared by three pods) through the JAX encoder and per-pod scan ->
-  the resources, the scheduled count and the choices digest.
+  the resources, the scheduled count and the choices digest;
+- the scheduler-config4 and scheduler-config5 legs: BASELINE Config4
+  (heterogeneous(20000, 20000, seed=0)) and Config5 (gang(1000, 64, 2000,
+  seed=0)) through the JAX Scheduler, its bench/harness.py _setup_cluster
+  (snap, "tpu") + run_until_idle -> the Scheduled and FailedScheduling
+  counts, the batch count and kubernetes_tpu_torch/bench/harness.py's
+  bindings digest; the scheduler-preempt leg: the JAX preemption bench's
+  build(20000, 1000) store, one Scheduler.schedule_batch() cycle under
+  KTPU_EXPLAIN=1 -> harness.failure_outcome (evictions, nominations,
+  FailedScheduling messages) and its digest; the scheduler-two-profiles
+  leg: Config4's generator at heterogeneous(2000, 2000, seed=0), its pods
+  split between two profiles (bench/workloads.py two_profile_split),
+  GangScheduling off, through the JAX Scheduler's run_until_idle traced ->
+  the counts, the batch count, the binds the commit overlap published
+  (harness.overlapped_binds) and the bindings digest.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -89,14 +103,20 @@ there), the whole script about ten minutes and a few GB:
 (LEG: waves, waves-off, dense, warm, wide, config3, config3-rounds,
 all-stages, config3-inc, config3-warm, gang-small, config5, gang-rounds,
 gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt, explain,
-perpod-small, config4s, config4s-warm or dra-small runs only those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
+perpod-small, config4s, config4s-warm, dra-small, scheduler-config4,
+scheduler-config5, scheduler-preempt or scheduler-two-profiles runs only
+those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
 tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
 tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
 warm leg on spread_affinity(N_NODES, N_PODS) as tests/test_torch_rounds_inc.py
 runs it: --leg config3-warm N_NODES N_PODS; any gang(G, S, N): --leg gang G
 S N; any preempt build: --leg preempt N_NODES N_PRE; Config4S at any
 size, as tests/test_torch_volumes.py runs it: --leg config4s N_NODES
-N_PODS, --leg config4s-warm N_NODES N_PODS.)
+N_PODS, --leg config4s-warm N_NODES N_PODS; the Scheduler's at any size,
+as tests/test_torch_scheduler.py runs them: --leg scheduler-config4 N_NODES
+N_PODS, --leg scheduler-config5 GROUPS SIZE N_NODES, --leg
+scheduler-preempt N_NODES N_PRE, --leg scheduler-two-profiles N_NODES
+N_PODS.)
 """
 
 import hashlib
@@ -499,6 +519,67 @@ def dra_small_leg() -> None:
           f"sha256 {_sha(c)}", flush=True)
 
 
+def scheduler_leg(name: str, *size: int) -> None:
+    """A BASELINE config through the JAX Scheduler's run_until_idle (the JAX
+    harness's _setup_cluster), or the preemption bench's one failing
+    cycle."""
+    import time
+
+    from kubernetes_tpu.bench import workloads
+    from kubernetes_tpu.bench.harness import _setup_cluster
+    from kubernetes_tpu_torch.bench.harness import bindings_digest, failure_outcome
+
+    t0 = time.perf_counter()
+    if name == "scheduler-preempt":
+        from kubernetes_tpu.bench.preempt_bench import build
+        from kubernetes_tpu.scheduler import Scheduler, SchedulerConfiguration
+        from kubernetes_tpu.scheduler.tracing import TraceCollector
+
+        store = build(*(size or (20000, 1000)))
+        sched = Scheduler(store, SchedulerConfiguration(mode="tpu"), collector=TraceCollector(enabled=False))
+        before = [p.name for p in store.pods.values()]
+        sched.schedule_batch()
+        out = failure_outcome(before, sched)
+        print(f"{name}: {time.perf_counter() - t0:.1f} s, scheduled {len(sched.events.by_reason('Scheduled'))} "
+              f"evicted {len(out['evicted'])} nominated {len(out['nominated'])} messages "
+              f"{json.dumps(out['messages'])} outcome sha256 {out['sha256']}", flush=True)
+        return
+    if name == "scheduler-two-profiles":
+        from kubernetes_tpu.scheduler import ClusterStore, Scheduler, SchedulerConfiguration
+        from kubernetes_tpu.scheduler.config import Profile
+        from kubernetes_tpu.scheduler.tracing import TraceCollector
+        from kubernetes_tpu_torch.bench.harness import overlapped_binds
+        from kubernetes_tpu_torch.bench.workloads import SECOND_PROFILE, two_profile_split
+
+        snap = two_profile_split(workloads.heterogeneous(*(size or (2000, 2000)), seed=0))
+        store = ClusterStore()
+        for nd in snap.nodes:
+            store.add_node(nd)
+        col = TraceCollector(capacity=1 << 19, enabled=True)
+        sched = Scheduler(store, SchedulerConfiguration(mode="tpu", feature_gates=(("GangScheduling", False),),
+                                                        profiles=(Profile(), Profile(scheduler_name=SECOND_PROFILE))),
+                          collector=col)
+        for p in snap.pending_pods:
+            store.add_pod(p)
+        sched.run_until_idle()
+        hist = sched.metrics.hists.get("batch_scheduling_duration_seconds")
+        print(f"{name}: {time.perf_counter() - t0:.1f} s, scheduled {len(sched.events.by_reason('Scheduled'))} "
+              f"failed {len(sched.events.by_reason('FailedScheduling'))} batches {hist.count if hist else 0} "
+              f"overlapped {overlapped_binds(col)} bindings sha256 {bindings_digest(sched.store.pods.values())}",
+              flush=True)
+        return
+    if name == "scheduler-config4":
+        snap = workloads.heterogeneous(*(size or (20000, 20000)), seed=0)
+    else:
+        snap = workloads.gang(*(size or (1000, 64, 2000)), seed=0)
+    sched = _setup_cluster(snap, "tpu")
+    sched.run_until_idle()
+    hist = sched.metrics.hists.get("batch_scheduling_duration_seconds")
+    print(f"{name}: {time.perf_counter() - t0:.1f} s, scheduled {len(sched.events.by_reason('Scheduled'))} "
+          f"failed {len(sched.events.by_reason('FailedScheduling'))} batches {hist.count if hist else 0} "
+          f"bindings sha256 {bindings_digest(sched.store.pods.values())}", flush=True)
+
+
 LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": config3_leg,
         "config3-rounds": config3_rounds_leg, "all-stages": all_stages_leg, "config3-inc": config3_inc_leg,
         "config3-warm": lambda: warm_leg(5000, 10000, "spread_affinity"),
@@ -508,7 +589,10 @@ LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": confi
         "sidecar-north-star": lambda: sidecar_leg("sidecar-north-star"),
         "sidecar-config5": lambda: sidecar_leg("sidecar-config5"), "perpod-small": perpod_small_leg,
         "config4s": config4s_leg, "config4s-warm": lambda: warm_leg(20000, 20000, "heterogeneous_storage"),
-        "dra-small": dra_small_leg}
+        "dra-small": dra_small_leg, "scheduler-config4": lambda: scheduler_leg("scheduler-config4"),
+        "scheduler-config5": lambda: scheduler_leg("scheduler-config5"),
+        "scheduler-preempt": lambda: scheduler_leg("scheduler-preempt"),
+        "scheduler-two-profiles": lambda: scheduler_leg("scheduler-two-profiles")}
 
 
 def main() -> None:
@@ -523,6 +607,8 @@ def main() -> None:
             config4s_leg(int(sys.argv[3]), int(sys.argv[4]))
         elif sys.argv[2] == "config4s-warm" and len(sys.argv) == 5:
             warm_leg(int(sys.argv[3]), int(sys.argv[4]), "heterogeneous_storage")
+        elif sys.argv[2].startswith("scheduler-") and len(sys.argv) > 3:
+            scheduler_leg(sys.argv[2], *(int(x) for x in sys.argv[3:]))
         elif sys.argv[2] == "preempt" and len(sys.argv) == 5:
             preempt_leg(int(sys.argv[3]), int(sys.argv[4]))
         else:
@@ -538,7 +624,10 @@ def main() -> None:
             ("config3-warm", {"KTPU_MEMWATCH": "0"}), ("gang-small", {}), ("config5", {}), ("preempt", {}), ("explain", {}),
             ("gang-rounds", {}), ("gang-contended", {}), ("gang-pinned", {}), ("sidecar-north-star", {}), ("sidecar-config5", {}),
             ("perpod-small", {}), ("config4s", {}), ("config4s-warm", {"KTPU_MEMWATCH": "0"}),
-            ("dra-small", {"KTPU_FORCE_CHUNKED": "0"})]
+            ("dra-small", {"KTPU_FORCE_CHUNKED": "0"}), ("scheduler-config4", {"KTPU_MEMWATCH": "0"}),
+            ("scheduler-config5", {"KTPU_MEMWATCH": "0"}),
+            ("scheduler-preempt", {"KTPU_MEMWATCH": "0", "KTPU_EXPLAIN": "1"}),
+            ("scheduler-two-profiles", {"KTPU_MEMWATCH": "0"})]
     for name, extra in runs:
         if only and name not in only:
             continue

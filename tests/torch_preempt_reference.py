@@ -9,8 +9,10 @@ kubernetes_tpu_torch/bench/preempt_bench.py's failure_cycle with the JAX
 package's modules: DeltaEncoder, schedule_batch, diagnose_failed at
 post-cycle usage, BatchedPreemption with a store stub and a queue stub,
 prefetch, then per failed pod in row order evaluate, apply_eviction,
-note_nomination_cleared and the nomination; `nominated` lists (pending
-pod name, node) nominations carried from an earlier cycle.  Its dict has the same keys as
+note_nomination_cleared and the nomination, or for a pod outside the
+batched gate the JAX CPU PostFilter (DefaultPreemption) and a fresh
+BatchedPreemption after its eviction; `nominated` lists (pending pod name,
+node) nominations carried from an earlier cycle.  Its dict has the same keys as
 the port's (failed, messages, dominant, decisions, nominated, wave_hits,
 single_hits).  ``to_port`` rebuilds JAX-typed objects (nodes, pods, PDBs,
 snapshots) as the port's types, field for field.  The store and queue
@@ -25,19 +27,10 @@ import numpy as np
 
 def to_port(obj):
     """A JAX-typed Node / Pod / PDB / Snapshot (or a container of them) as
-    the port's types: the port's fields, the same values."""
-    from kubernetes_tpu_torch.api import snapshot as tsnap
-    from kubernetes_tpu_torch.api import types as tt
+    the port's types (the port's convert.from_jax_objects)."""
+    from kubernetes_tpu_torch.convert import from_jax_objects
 
-    if isinstance(obj, (list, tuple)):
-        return type(obj)(to_port(x) for x in obj)
-    if isinstance(obj, dict):
-        return {k: to_port(x) for k, x in obj.items()}
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        cls = getattr(tt, type(obj).__name__, None) or getattr(tsnap, type(obj).__name__)
-        names = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{f.name: to_port(getattr(obj, f.name)) for f in dataclasses.fields(obj) if f.name in names})
-    return obj
+    return from_jax_objects(obj)
 
 
 def jax_snapshot(n_nodes: int, n_pre: int):
@@ -50,19 +43,67 @@ def jax_snapshot(n_nodes: int, n_pre: int):
                     bound_pods=[p for p in pods if p.node_name])
 
 
-def run_loop(batched, queue, failed, bound_prios):
-    """The batched branch of the JAX scheduler's failure loop
-    (scheduler.py:1569-1690) over `failed` -> decisions."""
-    min_bound = min(bound_prios) if bound_prios else None
-    if min_bound is not None:
-        batched.prefetch([q for q in failed if q.priority > min_bound])
+def jax_cpu_postfilter(store, queue):
+    """The JAX package's CPU PostFilter (its plugins/cpu.py DefaultPreemption
+    in a default-plugins Framework) over the port's store and queue stubs ->
+    (snap, pod) -> (node or None, victim names): the JAX scheduler's CPU
+    branch of the failure loop (scheduler.py:1685-1714)."""
+    from kubernetes_tpu.api.volumes import resolve_snapshot
+    from kubernetes_tpu.scheduler.cache import SchedulerCache
+    from kubernetes_tpu.scheduler.framework import CycleState, Framework
+    from kubernetes_tpu.scheduler.plugins.cpu import default_plugins
+    from kubernetes_tpu.scheduler.state import ScaledState
+
+    fw = Framework(default_plugins(store, filter_fn=lambda st, sn, p, info: fw.run_filters(st, sn, p, info),
+                                   nominated_fn=queue.nominated_pods_for_node))
+
+    def run(snap, pod):
+        snap = resolve_snapshot(snap)
+        state = CycleState()
+        state.data["scaled"] = ScaledState(snap, SchedulerCache.node_infos(None, snap))
+        before = dict(store.pods)
+        node, st = fw.run_post_filters(state, snap, pod, {})
+        if not (st.ok and node):
+            return None, []
+        return node, [q.name for uid, q in before.items() if uid not in store.pods]
+
+    return run
+
+
+def run_loop(make_batched, store, queue, failed, nodes):
+    """The JAX scheduler's failure loop (scheduler.py:1569-1714) over
+    `failed` -> (decisions, wave_hits, single_hits): the batched branch for
+    pods inside the gate, the CPU PostFilter for the rest, and after a CPU
+    eviction a fresh BatchedPreemption (`make_batched(bound snapshot)`)."""
+    from kubernetes_tpu.api.snapshot import Snapshot
+
+    cpu = jax_cpu_postfilter(store, queue)
     decisions = []
-    for pod in failed:
+    hits = [0, 0]
+    batched = None
+    for i, pod in enumerate(failed):
+        if batched is None:
+            bound = Snapshot(nodes=nodes, bound_pods=list(store.pods.values()))
+            batched = make_batched(bound)
+            bound_prios = Counter(q.priority for q in bound.bound_pods)
+            min_bound = min(bound_prios) if bound_prios else None
+            if min_bound is not None:
+                batched.prefetch([q for q in failed[i:] if q.priority > min_bound])
         if min_bound is None or pod.priority <= min_bound:
             batched.note_nomination_cleared(pod)
             queue.nominated.pop(pod.uid, None)
             continue
-        assert batched.applicable(pod), pod.name
+        if not batched.applicable(pod):
+            node_name, victims = cpu(Snapshot(nodes=nodes, bound_pods=list(store.pods.values())), pod)
+            if node_name is None:
+                batched.note_nomination_cleared(pod)
+                queue.nominated.pop(pod.uid, None)
+                continue
+            queue.nominated[pod.uid] = (pod, node_name)
+            decisions.append((pod.name, node_name, victims))
+            hits = [hits[0] + batched.wave_hits, hits[1] + batched.single_hits]
+            batched = None
+            continue
         res = batched.evaluate(pod)
         if res is None:
             batched.note_nomination_cleared(pod)
@@ -70,6 +111,7 @@ def run_loop(batched, queue, failed, bound_prios):
             continue
         node_name, victims = res
         for q in victims:
+            store.delete_pod(q.uid)
             bound_prios[q.priority] -= 1
             if bound_prios[q.priority] <= 0:
                 del bound_prios[q.priority]
@@ -78,7 +120,9 @@ def run_loop(batched, queue, failed, bound_prios):
         batched.note_nomination_cleared(pod)
         queue.nominated[pod.uid] = (pod, node_name)
         decisions.append((pod.name, node_name, [q.name for q in victims]))
-    return decisions
+    if batched is not None:
+        hits = [hits[0] + batched.wave_hits, hits[1] + batched.single_hits]
+    return decisions, hits[0], hits[1]
 
 
 def jax_failure_cycle(snap, pdbs=(), nominated=()):
@@ -104,13 +148,13 @@ def jax_failure_cycle(snap, pdbs=(), nominated=()):
     bound = list(snap.bound_pods) + [
         dataclasses.replace(pods[k], node_name=meta.node_names[int(c[k])]) for k in placed
     ]
-    store, queue = PdbStore(pdbs), NominationQueue()
+    store, queue = PdbStore(pdbs, bound), NominationQueue()
     by_name = {p.name: p for p in snap.pending_pods}
     for name, node in nominated:
         queue.nominated[by_name[name].uid] = (by_name[name], node)
-    batched = BatchedPreemption(arr, meta, Snapshot(nodes=snap.nodes, bound_pods=bound), store, queue)
     failed = [pods[k] for k in rows]
-    decisions = run_loop(batched, queue, failed, Counter(q.priority for q in bound))
+    decisions, wave_hits, single_hits = run_loop(lambda b: BatchedPreemption(arr, meta, b, store, queue), store,
+                                                 queue, failed, snap.nodes)
     return {
         "failed": [p.name for p in failed],
         "messages": {pods[r].name: m for r, m in messages.items()},
@@ -118,6 +162,6 @@ def jax_failure_cycle(snap, pdbs=(), nominated=()):
         "records": records,
         "decisions": decisions,
         "nominated": {uid: node for uid, (_, node) in queue.nominated.items()},
-        "wave_hits": batched.wave_hits,
-        "single_hits": batched.single_hits,
+        "wave_hits": wave_hits,
+        "single_hits": single_hits,
     }

@@ -9,8 +9,20 @@ the north-star shape, heterogeneous(20000, 50000, seed=0) (P=51200,
 N=20480, R=5, U1=101), the full stage set on BASELINE config 3 (cold, with
 and without class state, and its warm loop) and an all-stages snapshot,
 gangs on BASELINE config 5, and the failure path (unschedulable diagnosis,
-batched preemption) on the JAX package's preemption bench cluster:
+batched preemption) on the JAX package's preemption bench cluster; the
+host libraries of native/ (the C spec interner under every encode, the
+C++ engine of the Scheduler's mode="native") are built with them:
 
+  [interner]         the spec interner at the north star's 50000 pending
+                     pods: SpecInterner's C path (native/interner.c), cold
+                     (a fresh table) and warm (bench.py's next waves,
+                     clones that share the field objects), against its
+                     Python loop on the same pods: equal reps, inv and
+                     rep_keys, both times; the encoders of
+                     [north-star-dense], the warm loops, [config3],
+                     [config4s] and the Scheduler phases and
+                     [config4s-sidecar]'s client are checked to be on the
+                     C path;
   [mixed]            static_feasible and fit_scan == their plain versions on
                      a small mixed snapshot, three fit strategies;
   [north-star]       the per-pod route, encode_snapshot -> schedule_batch
@@ -299,6 +311,21 @@ batched preemption) on the JAX package's preemption bench cluster:
   [scheduler-config5] the same for BASELINE Config5, gang(1000, 64, 2000,
                      seed=0): the gang branch, the host fixpoint on class
                      state;
+  [scheduler-native] BASELINE Config1 (basic(100, 100)), Config2 (basic(1000,
+                     5000)) and Config3 (spread_affinity(5000, 10000)),
+                     seed 0, not cut, through run_until_idle in
+                     mode="native" (the C++ engine on the cycle's host
+                     arrays: no launch, untraced and traced) and in
+                     mode="tpu" (class-wave route for 1 and 2, rounds on
+                     class state for 3): each run the JAX Scheduler's
+                     counts, batch count and bindings digest
+                     (workloads.SCHEDULER_BASELINE, from the JAX Scheduler
+                     in mode="native"); wall, pods/s, the span split; then
+                     [scheduler-preempt]'s failing cycle in mode="native":
+                     the engine fails every preemptor on the host, the
+                     diagnosis (explain_counts) and BatchedPreemption's
+                     waves (class_static_hoist + preempt_eval) run on the
+                     arrays placed for them: the JAX outcome digest;
   [scheduler-preempt] the preemption bench's build(20000, 1000) in a store,
                      one Scheduler.schedule_batch() under KTPU_EXPLAIN=1:
                      every preemptor fails the class-wave step, the
@@ -557,16 +584,71 @@ def phase_card() -> tuple:
 
 
 def phase_build() -> None:
+    """nvcc for every kernel source and g++ / gcc for native/'s two host
+    libraries (the C++ engine, the C interner), all started at once."""
+    import threading
+
+    from kubernetes_tpu_torch import native
     from kubernetes_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
+    host = {}
+
+    def build_host():
+        try:
+            native.build()
+            host["s"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — re-raised below, after nvcc
+            host["error"] = e
+
+    th = threading.Thread(target=build_host)
+    th.start()
     kernels.build()
     dt = time.perf_counter() - t0
+    th.join()
+    if "error" in host:
+        raise host["error"]
     for name, log in kernels.BUILD_LOG.items():
         info = [ln.strip() for ln in log.splitlines() if re.search(r"registers|Used|spill", ln)]
         print(f"[build] {name}: " + " | ".join(info), flush=True)
     print(f"[build] {len(set(kernels.SOURCES.values()))} kernel libraries ({len(kernels.SOURCES)} kernels) "
-          f"in {dt:.2f} s", flush=True)
+          f"in {dt:.2f} s; native/ host libraries (scheduler.cpp, interner.c) in {host['s']:.2f} s "
+          f"into {native.BUILD_DIR.name}/", flush=True)
+
+
+def on_c_path(interner, tag: str) -> None:
+    check(interner.path == "c", f"{tag}: the spec interner is on its {interner.path} path, not C")
+
+
+def phase_interner() -> None:
+    """SpecInterner at the north star's 50000 pending pods (activeQ order, as
+    DeltaEncoder.encode groups them): the C path's cold group (a fresh
+    table) and warm groups (bench.py's waves 2 and 3: clones sharing the
+    field objects) against the Python loop's (SpecInterner(native=False))
+    on the same pods; the outputs equal."""
+    from kubernetes_tpu_torch.api.snapshot import SpecInterner, activeq_order
+    from kubernetes_tpu_torch.bench import workloads as w
+
+    snap = w.heterogeneous(20000, 50000, seed=0)
+    waves = [snap.pending_pods] + [w.mk_wave(snap, k) for k in (2, 3)]
+    waves = [[ps[i] for i in activeq_order(ps)] for ps in waves]
+    times = {"c": [], "python": []}
+    outs = {}
+    for path in ("c", "python"):
+        it = SpecInterner(native=path == "c")
+        check(it.path == path, f"interner: asked for the {path} path, got {it.path}")
+        for pods in waves:
+            t0 = time.perf_counter()
+            reps, inv, keys = it.group(pods)
+            times[path].append(time.perf_counter() - t0)
+            pos = {id(p): i for i, p in enumerate(pods)}
+            outs.setdefault(path, []).append(([pos[id(r)] for r in reps], inv.tobytes(), keys))
+        check(it.path == path, f"interner: the {path} interner left its path")
+    check(outs["c"] == outs["python"], "interner: the C path's groups differ from the Python loop's")
+    c, py = times["c"], times["python"]
+    print(f"[interner] {len(waves[0])} pods, {len(outs['c'][0][0])} specs: C path cold {c[0]:.4f} s, warm "
+          f"{c[1]:.4f} / {c[2]:.4f} s; Python loop cold {py[0]:.4f} s, warm {py[1]:.4f} / {py[2]:.4f} s "
+          f"(host clock); reps, inv and rep_keys equal on all three", flush=True)
 
 
 def phase_mixed() -> None:
@@ -1095,6 +1177,7 @@ def phase_north_star_dense() -> list:
 
     snap = workloads.heterogeneous(**workloads.NORTH_STAR)
     enc = DeltaEncoder()
+    on_c_path(enc._interner, "north-star-dense")
     t0 = time.perf_counter()
     host, meta = enc.encode(snap)
     t1 = time.perf_counter()
@@ -1230,6 +1313,7 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
     res = {}
     for depth in depths:
         enc = DeltaEncoder(mesh=mesh)
+        on_c_path(enc._interner, tag)
         enc.encode_device(snap)  # the cold encode the loop's encoder carries on from, as in bench.py
         torch.cuda.synchronize()
         loop = PipelinedBatchLoop(encoder=enc, depth=depth, mesh=mesh)
@@ -1745,6 +1829,7 @@ def phase_config3() -> tuple:
 
     snap = workloads.spread_affinity(**workloads.CONFIG3)
     enc = DeltaEncoder()
+    on_c_path(enc._interner, "config3")
     t0 = time.perf_counter()
     host, meta = enc.encode(snap)
     t1 = time.perf_counter()
@@ -2909,6 +2994,7 @@ def phase_config4s() -> tuple:
     resolve_snapshot(snap)
     resolve_s = time.perf_counter() - t0
     enc = DeltaEncoder()
+    on_c_path(enc._interner, "config4s")
     t0 = time.perf_counter()
     host, meta = enc.encode(snap)
     t1 = time.perf_counter()
@@ -3003,6 +3089,7 @@ def phase_config4s_sidecar(snap, cold) -> None:
     srv = TPUScoreServer(engine=eng)
     srv.start()
     client = TPUScoreClient(f"127.0.0.1:{srv.port}")
+    on_c_path(client._interner, "config4s-sidecar")
     walls, pending = [], []
     try:
         def call(s):
@@ -3100,14 +3187,17 @@ def split_text(split: dict) -> str:
     return ", ".join(f"{k} {v:.3f}" for k, v in split.items())
 
 
-def scheduler_run(tag: str, snap_fn, want: dict, need, card: str) -> None:
+def scheduler_run(tag: str, snap_fn, want: dict, need, card: str, mode: str = "tpu",
+                  traced_runs: tuple = (False, True)) -> dict:
     """A snapshot through the port's Scheduler on the card, as users run it:
-    bench/harness.py run_snapshot_workload(..., "tpu") (setup_cluster, then
-    run_until_idle), twice on fresh stores: untraced, as the harness runs it
-    by default (every count set to 0 just before: the kernels `need`
-    launched), then traced by a TraceCollector(enabled=True) for the span
-    split.  Each run gives the JAX Scheduler's Scheduled / FailedScheduling
-    counts, batch cycles and bindings digest."""
+    bench/harness.py run_snapshot_workload(..., mode) (setup_cluster, then
+    run_until_idle), on a fresh store for each of `traced_runs`: untraced,
+    as the harness runs it by default (every count set to 0 just before:
+    the kernels `need` launched; in mode="native" none, a successful cycle
+    places nothing on the card), then traced by a TraceCollector(enabled=
+    True) for the span split.  Each run gives the JAX Scheduler's Scheduled
+    / FailedScheduling counts, batch cycles and bindings digest.  -> the
+    runs' results by traced."""
     import torch
 
     from kubernetes_tpu_torch.bench.harness import run_snapshot_workload
@@ -3115,12 +3205,12 @@ def scheduler_run(tag: str, snap_fn, want: dict, need, card: str) -> None:
     from kubernetes_tpu_torch.scheduler.tracing import TraceCollector
 
     runs = {}
-    for traced in (False, True):
+    for traced in traced_runs:
         snap = snap_fn()
         col = TraceCollector(capacity=1 << 19, enabled=True) if traced else None
         kernels.reset_launches()
         assign.reset_trace_counts()
-        r = run_snapshot_workload(tag, snap, "tpu", device="cuda", collector=col)
+        r = run_snapshot_workload(tag, snap, mode, device="cuda", collector=col)
         torch.cuda.synchronize()
         launches = counted(default=not traced)
         routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
@@ -3128,21 +3218,29 @@ def scheduler_run(tag: str, snap_fn, want: dict, need, card: str) -> None:
         hoist = sched._hoist_cache.history if sched._hoist_cache is not None else []
         got = dict(scheduled=r["scheduled"], unschedulable=r["unschedulable"], batches=r["batches"],
                    bindings=r["bindings_sha256"])
-        print(f"[{tag}] {'traced' if traced else 'untraced'}: {len(snap.nodes)} nodes, {len(snap.pending_pods)} "
-              f"pods: run_until_idle wall {r['wall_s']:.3f} s, {r['pods_per_sec']:.1f} pods/s, batches "
+        print(f"[{tag}] mode={mode} {'traced' if traced else 'untraced'}: {len(snap.nodes)} nodes, "
+              f"{len(snap.pending_pods)} pods: run_until_idle wall {r['wall_s']:.3f} s, {r['pods_per_sec']:.1f} pods/s, batches "
               f"{r['batches']} (batch p50 {r['batch_p50_ms']:.1f} ms, p99 {r['batch_p99_ms']:.1f} ms), scheduled "
               f"{r['scheduled']}, unschedulable {r['unschedulable']}, bindings sha256 {r['bindings_sha256']}; encoder "
               f"{sched._delta_enc.stats}, HoistCache {[h['action'] for h in hoist]}; routes {routes}, launches "
               f"{launches}; {card}", flush=True)
         check(got == want, f"{tag}: {got} differs from the JAX Scheduler's {want}")
-        check(set(need) <= set(launches), f"{tag}: launches {launches}, want every one of {need}")
+        on_c_path(sched._delta_enc._interner, tag)
+        if mode == "native":
+            check(not launches, f"{tag}: a native cycle with no failed pod launched {launches}")
+            check(sched._hoist_cache is None, f"{tag}: native mode built class state")
+        else:
+            check(set(need) <= set(launches), f"{tag}: launches {launches}, want every one of {need}")
         runs[traced] = r
         if traced:
             split = span_split(col)
-            print(f"[{tag}] span split (host s, traced): {split_text(split)}; outside the cycles' spans (the "
-                  f"queue's pop_all, the drain) {r['wall_s'] - split['batch.cycle'] - split['commit_overlap']:.3f}; "
-                  f"tracing cost {r['wall_s'] - runs[False]['wall_s']:.3f} s of wall", flush=True)
+            print(f"[{tag}] mode={mode} span split (host s, traced): {split_text(split)}; outside the cycles' "
+                  f"spans (the queue's pop_all, the drain) "
+                  f"{r['wall_s'] - split['batch.cycle'] - split['commit_overlap']:.3f}"
+                  + (f"; tracing cost {r['wall_s'] - runs[False]['wall_s']:.3f} s of wall" if False in runs else ""),
+                  flush=True)
         del snap, sched, r
+    return runs
 
 
 def phase_scheduler_config4(card: str) -> None:
@@ -3248,15 +3346,15 @@ def phase_scheduler_config5(card: str) -> None:
                   card)
 
 
-def phase_scheduler_preempt(card: str) -> None:
+def phase_scheduler_preempt(card: str, mode: str = "tpu") -> None:
     """The preemption bench's build(20000, 1000) loaded into a store as the
     JAX bench builds it (nodes, the 40000 bound fillers, the 1000
     preemptors), then the Scheduler, then one schedule_batch() cycle under
     KTPU_EXPLAIN=1, untraced (counted) and then traced on a fresh store:
-    the class-wave step (K3 + K4, K5 + K6) fails every preemptor, the
-    diagnosis (K14) and BatchedPreemption's waves (K3 + K15) evict 1000
-    fillers and nominate 1000 nodes: the JAX Scheduler's failure_outcome
-    digest."""
+    the class-wave step (K3 + K4, K5 + K6; in mode="native" the C++ engine
+    on the host arrays, no launch) fails every preemptor, the diagnosis
+    (K14) and BatchedPreemption's waves (K3 + K15) evict 1000 fillers and
+    nominate 1000 nodes: the JAX Scheduler's failure_outcome digest."""
     import torch
 
     from kubernetes_tpu_torch.bench import preempt_bench as pb
@@ -3266,7 +3364,10 @@ def phase_scheduler_preempt(card: str) -> None:
     from kubernetes_tpu_torch.scheduler import ClusterStore, Scheduler, SchedulerConfiguration
     from kubernetes_tpu_torch.scheduler.tracing import TraceCollector
 
-    need = WAVE_KERNELS + ("explain_counts", "preempt_eval")
+    need = ("class_static_hoist", "explain_counts", "preempt_eval")
+    if mode == "tpu":
+        need = WAVE_KERNELS + need
+    tag = "scheduler-preempt" if mode == "tpu" else "scheduler-native"
     old = os.environ.get("KTPU_EXPLAIN")
     os.environ["KTPU_EXPLAIN"] = "1"
     walls = {}
@@ -3279,7 +3380,7 @@ def phase_scheduler_preempt(card: str) -> None:
             for p in snap.bound_pods + snap.pending_pods:
                 store.add_pod(p)
             col = TraceCollector(capacity=1 << 19, enabled=traced)
-            sched = Scheduler(store, SchedulerConfiguration(mode="tpu"), collector=col, device="cuda")
+            sched = Scheduler(store, SchedulerConfiguration(mode=mode), collector=col, device="cuda")
             before = [p.name for p in store.pods.values()]
             kernels.reset_launches()
             assign.reset_trace_counts()
@@ -3290,21 +3391,24 @@ def phase_scheduler_preempt(card: str) -> None:
             launches = counted(default=not traced)
             routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
             out = failure_outcome(before, sched)
-            print(f"[scheduler-preempt] {'traced' if traced else 'untraced'}: build(20000, 1000), one "
+            print(f"[{tag}] mode={mode} {'traced' if traced else 'untraced'}: build(20000, 1000), one "
                   f"schedule_batch() under KTPU_EXPLAIN=1: wall {wall:.3f} s, {w.PREEMPT['n_pre'] / wall:.1f} "
                   f"preemptors/s (scheduled {len(sched.events.by_reason('Scheduled'))}), evicted "
                   f"{len(out['evicted'])}, nominated {len(out['nominated'])}, messages {out['messages']}, "
                   f"preemption_victims {sched.metrics.counters.get('preemption_victims', 0)}, outcome sha256 "
                   f"{out['sha256']}; routes {routes}, launches {launches}; {card}", flush=True)
-            check(len(out["evicted"]) == w.SCHEDULER_PREEMPT_EVICTED, "scheduler-preempt: evictions")
-            check(len(out["nominated"]) == w.SCHEDULER_PREEMPT_NOMINATED, "scheduler-preempt: nominations")
-            check(out["messages"] == w.SCHEDULER_PREEMPT_MESSAGES, f"scheduler-preempt: messages {out['messages']}")
-            check(out["sha256"] == w.SCHEDULER_PREEMPT_OUTCOME_SHA256,
-                  "scheduler-preempt: outcome differs from the JAX one")
-            check(set(need) <= set(launches), f"scheduler-preempt: launches {launches}, want every one of {need}")
+            check(len(out["evicted"]) == w.SCHEDULER_PREEMPT_EVICTED, f"{tag}: evictions")
+            check(len(out["nominated"]) == w.SCHEDULER_PREEMPT_NOMINATED, f"{tag}: nominations")
+            check(out["messages"] == w.SCHEDULER_PREEMPT_MESSAGES, f"{tag}: messages {out['messages']}")
+            check(out["sha256"] == w.SCHEDULER_PREEMPT_OUTCOME_SHA256, f"{tag}: outcome differs from the JAX one")
+            check(set(need) <= set(launches), f"{tag}: launches {launches}, want every one of {need}")
+            on_c_path(sched._delta_enc._interner, tag)
+            if mode == "native":
+                check(not set(launches) & {"class_usage_hoist", "wave_commit", "chunk_rounds"},
+                      f"{tag}: the engine's cycle launched a commit kernel: {launches}")
             if traced:
                 split = span_split(col)
-                print(f"[scheduler-preempt] span split (host s, traced): {split_text(split)}; the failure loop "
+                print(f"[{tag}] mode={mode} span split (host s, traced): {split_text(split)}; the failure loop "
                       f"(commit less the diagnosis) {split['batch.commit'] - split['batch.explain']:.3f}; tracing "
                       f"cost {wall - walls[False]:.3f} s of wall", flush=True)
             del snap, store, sched
@@ -3313,6 +3417,30 @@ def phase_scheduler_preempt(card: str) -> None:
             os.environ.pop("KTPU_EXPLAIN")
         else:
             os.environ["KTPU_EXPLAIN"] = old
+
+
+def phase_scheduler_native(card: str) -> None:
+    """BASELINE Config1, Config2 and Config3 (workloads.SCHEDULER_BASELINE),
+    seed 0, not cut, through run_until_idle: in mode="native" untraced and
+    traced (the C++ engine; no launch), then in mode="tpu" untraced (the
+    class-wave route for 1 and 2: K3 + K4, K5 + K6; rounds on class state
+    for 3: K3 + K4, K12); every run the JAX Scheduler's digest.  Then the
+    failing cycle of [scheduler-preempt] in mode="native"."""
+    from kubernetes_tpu_torch.bench import workloads as w
+
+    need = {"config1": WAVE_KERNELS, "config2": WAVE_KERNELS,
+            "config3": ("class_static_hoist", "class_usage_hoist", "rounds")}
+    for key, (gen, args, want) in w.SCHEDULER_BASELINE.items():
+        def snap_fn(gen=gen, args=args):
+            return getattr(w, gen)(*args, seed=0)
+
+        nat = scheduler_run(f"scheduler-native {key}", snap_fn, want, (), card, mode="native")
+        tpu = scheduler_run(f"scheduler-native {key}", snap_fn, want, need[key], card, mode="tpu",
+                            traced_runs=(False,))
+        print(f"[scheduler-native] {key} {gen}{args}: untraced wall native {nat[False]['wall_s']:.3f} s "
+              f"({nat[False]['pods_per_sec']:.1f} pods/s), tpu {tpu[False]['wall_s']:.3f} s "
+              f"({tpu[False]['pods_per_sec']:.1f} pods/s); both the JAX digest; {card}", flush=True)
+    phase_scheduler_preempt(card, mode="native")
 
 
 def phase_env() -> None:
@@ -4283,6 +4411,7 @@ def main() -> int:
     card, name = phase_card()
     phase_env()
     phase_build()
+    phase_interner()
     phase_mixed()
     step_s, rows, ns_pp = phase_north_star()
     rows += phase_mesh_north_star_perpod(ns_pp)
@@ -4336,7 +4465,8 @@ def main() -> int:
     phase_scheduler_config4(card)
     phase_scheduler_config5(card)
     phase_scheduler_preempt(card)
-    print(f"[scheduler] the three Scheduler phases took {time.perf_counter() - t0:.1f} s", flush=True)
+    phase_scheduler_native(card)
+    print(f"[scheduler] the four Scheduler phases took {time.perf_counter() - t0:.1f} s", flush=True)
     rows += phase_preempt(k14)
     phase_dcn(used_sha, c3_used_sha)
     for row in rows:

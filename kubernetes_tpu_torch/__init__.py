@@ -57,8 +57,10 @@ fault sites); it resolves before the wire:
 
 The Scheduler is ported (scheduler/: the store, queue and cache, the
 per-pod plugin cycle with the CPU PostFilter, and the batch cycle that
-drains the queue onto the kernels above, with its failure loop); users run
-it, and bench/harness.py measures it, as:
+drains the queue onto the kernels above, with its failure loop;
+mode="native" runs that cycle on the host's C++ engine, native/, whose C
+spec interner also groups the pods of every encode); users run it, and
+bench/harness.py measures it, as:
 
     from kubernetes_tpu_torch.scheduler import ClusterStore, Scheduler, SchedulerConfiguration
     store = ClusterStore()
@@ -68,5 +70,5 @@ it, and bench/harness.py measures it, as:
 
 Not ported (ROADMAP.md queue A): the crash-restart checkpoint, leases and
 HTTP extenders (A14), the device-memory ledger and the flight recorder
-(A13), mode="native" (A15).
+(A13).
 """

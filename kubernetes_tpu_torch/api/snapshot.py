@@ -417,18 +417,58 @@ def _identity_key(pod) -> Tuple:
 
 
 class SpecInterner:
-    """A PERSISTENT two-level interner (the JAX package's api/snapshot.py:346,
-    its Python path): identity profile -> canonical spec key survives across
-    calls, so waves stamped from the same objects cost O(P) dict hits, not
-    O(P) sorted canonicalizations.  Values keep the keyed pod alive, so a
-    recycled id never aliases a live entry."""
+    """A PERSISTENT two-level interner (the JAX package's api/snapshot.py:346):
+    identity profile -> canonical spec key survives across calls, so waves
+    stamped from the same objects cost O(P) table hits, not O(P) sorted
+    canonicalizations.  Entries keep the keyed pod alive, so a recycled id
+    never aliases a live entry.
 
-    def __init__(self):
+    The identity-profile pass runs in C (native/interner.c, loaded by
+    native/pyintern.py), as in the JAX package; its build failing raises.
+    ``native=False`` runs the Python loop, the plain version the C path is
+    held to; grouping is identical on either path.  Two latches hand a
+    workload the C pass cannot serve to the Python loop for good: pods
+    whose profile fields are not identity-stable (three batches in a row
+    with forced misses), or a slow path that keeps failing between lookup
+    and insert (three batches in a row leaving provisional entries).
+    ``path`` says which path the interner is on ("c" or "python")."""
+
+    def __init__(self, native: bool = True):
         self._keys: Dict[Tuple, Tuple] = {}
+        self._lib = self._h = None
+        if native:
+            from ..native import pyintern
+
+            self._lib = pyintern.load()
+            self._h = self._lib.interner_new()
+            if not self._h:
+                raise MemoryError("interner_new failed")
+            self._canon: Dict[Tuple, int] = {}  # spec key -> persistent kid
+            self._key_by_kid: List[Tuple] = []
+            self._thrash_prov = 0
+            self._thrash_forced = 0
+
+    @property
+    def path(self) -> str:
+        return "c" if self._h else "python"
+
+    def _release(self) -> None:
+        """Free the C table (its pins on pods) and leave the C path."""
+        if self._h:
+            self._lib.interner_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self._release()
+        except Exception:  # noqa: BLE001 — interpreter shutdown
+            pass
 
     def group(self, pods: Sequence):
         """-> (reps, inv, rep_keys): the same reps and inv as group_by_spec,
         plus each rep's canonical key."""
+        if self._h:
+            return self._group_native(pods)
         if len(self._keys) > 2 * (len(pods) + 1024):
             self._keys.clear()
         cache = self._keys
@@ -449,6 +489,76 @@ class SpecInterner:
                 rep_keys.append(k)
             inv[i] = su
         return reps, inv, tuple(rep_keys)
+
+    def _group_native(self, pods: Sequence):
+        """The JAX package's _group_native (api/snapshot.py:408-505)."""
+        lib, h = self._lib, self._h
+        if not isinstance(pods, list):
+            pods = list(pods)
+        n = len(pods)
+        if int(lib.interner_prov(h)) != 0:
+            # a prior batch left unresolved provisional entries: its slow
+            # path raised, or a pod's profile fields are not identity-stable.
+            # interner_lookup wipes the table once; if it keeps happening the
+            # C pass cannot help this workload.  Counted apart from the
+            # forced latch below: provisional leftovers come with zero forced
+            # misses, so a shared counter would be reset and never latch.
+            self._thrash_prov += 1
+            if self._thrash_prov >= 3:
+                self._release()
+                return self.group(pods)
+        else:
+            # only a streak latches: isolated events never disable the C pass
+            self._thrash_prov = 0
+        # the Python loop's bounded-memory policy: the profile table and the
+        # spec-key registry clear together (C entries hold kid indices into
+        # _key_by_kid); kids restart from 0
+        if int(lib.interner_count(h)) > 2 * (n + 1024) or len(self._key_by_kid) > 2 * (n + 1024):
+            lib.interner_clear(h)
+            self._canon.clear()
+            self._key_by_kid.clear()
+        keyid = np.empty(n, dtype=np.int64)
+        miss = np.empty(n, dtype=np.int64)
+        # PyDLL raises the pending Python exception after a call that set one
+        n_miss = int(lib.interner_lookup(h, pods, keyid.ctypes.data, miss.ctypes.data))
+        latch_forced = False
+        if int(lib.interner_forced(h)) != 0:
+            # identity-unstable pods bypass the pointer table: they resolve
+            # through the value slow path below with no dedup in the batch;
+            # a streak of such batches latches onto the Python loop
+            self._thrash_forced += 1
+            latch_forced = self._thrash_forced >= 3
+        else:
+            # a clean batch resets the FORCED streak only: provisional
+            # strikes come in batches with zero forced misses by nature
+            self._thrash_forced = 0
+        if n_miss:
+            # miss holds only UNIQUE missing profiles (duplicates in the
+            # batch resolved to provisional markers in C), so the sorted
+            # canonicalization runs once per distinct spec
+            canon = self._canon
+            kids = np.empty(n_miss, dtype=np.int64)
+            for k in range(n_miss):
+                key = _pod_spec_key(pods[int(miss[k])])
+                kid = canon.get(key)
+                if kid is None:
+                    kid = canon[key] = len(self._key_by_kid)
+                    self._key_by_kid.append(key)
+                kids[k] = kid
+            lib.interner_insert(h, pods, miss.ctypes.data, kids.ctypes.data, n_miss)
+            # resolve the provisional markers -(m)-2 -> kids[m]
+            neg = keyid < -1
+            keyid[neg] = kids[-keyid[neg] - 2]
+        percall = np.full(len(self._key_by_kid), -1, dtype=np.int64)
+        inv = np.empty(n, dtype=np.int64)
+        rep_idx = np.empty(n, dtype=np.int64)
+        n_reps = int(lib.interner_canonicalize(keyid.ctypes.data, n, percall.ctypes.data,
+                                               inv.ctypes.data, rep_idx.ctypes.data))
+        reps = [pods[int(j)] for j in rep_idx[:n_reps]]
+        rep_keys = tuple(self._key_by_kid[int(keyid[int(j)])] for j in rep_idx[:n_reps])
+        if latch_forced:
+            self._release()
+        return reps, inv, rep_keys
 
 
 def group_by_spec(pods: Sequence) -> Tuple[List, np.ndarray]:

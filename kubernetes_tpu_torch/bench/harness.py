@@ -4,8 +4,9 @@
 ``run_snapshot_workload``) that measures pods/s through the path users run.
 
     from kubernetes_tpu_torch.bench.harness import run_snapshot_workload
-    from kubernetes_tpu_torch.bench.workloads import heterogeneous
+    from kubernetes_tpu_torch.bench.workloads import basic, heterogeneous
     r = run_snapshot_workload("Config4", heterogeneous(20000, 20000), "tpu")
+    r = run_snapshot_workload("Config2", basic(1000, 5000), "native")  # the C++ engine
 
 The JAX harness's AOT warm-up, device trace, HA restarts, YAML workloads
 and artifact fields are not here (ROADMAP A14): the first cycle of a run

@@ -543,6 +543,20 @@ SECOND_PROFILE = "second"
 SCHEDULER_TWO_PROFILES = dict(n_nodes=2000, n_pods=2000, seed=0)
 SCHEDULER_TWO_PROFILES_WANT = dict(scheduled=2000, unschedulable=0, batches=1, overlapped=1000,
                                    bindings="51abed5fe6aa34053ff0e74b785402f23dda91dd3080fbc7f2ad51133f7eb907")
+# BASELINE Config1 (basic(100, 100, seed=0)), Config2 (basic(1000, 5000,
+# seed=0)) and Config3 (spread_affinity(5000, 10000, seed=0)) through the
+# JAX Scheduler's run_until_idle in mode="native" (the same script's
+# scheduler-config1 / -config2 / -config3 legs): (generator, its arguments,
+# the counts, the batch cycles and the bindings digest).  Every route gives
+# these decisions, so the port's mode="tpu" is held to them too.
+SCHEDULER_BASELINE = {
+    "config1": ("basic", (100, 100), dict(scheduled=100, unschedulable=0, batches=1,
+                bindings="0d2108a05f240de80ffcf517fdbae91d9f59d11374d54d4dcd4e4f667810b67f")),
+    "config2": ("basic", (1000, 5000), dict(scheduled=5000, unschedulable=0, batches=1,
+                bindings="4870f4213ae2e2b4a8ce258752bfeec1d33f109463fce31458d365984a3b1fbd")),
+    "config3": ("spread_affinity", (5000, 10000), dict(scheduled=10000, unschedulable=0, batches=1,
+                bindings="79cb820f4b69e14067fb1c68bef2d054ea97e424d81757f795a6e0c9fec70328")),
+}
 
 
 def two_profile_split(snap):

@@ -17,8 +17,8 @@ CPU PostFilter ``DefaultPreemption``) over a ``ClusterStore`` watch, a
 Also here: ``preemption.BatchedPreemption`` (the failure loop's batched
 victim search), ``metrics.Metrics`` and ``tracing``.  The crash-restart
 checkpoint, leases and HTTP extenders (ROADMAP.md A14), the device-memory
-ledger and the flight recorder (A13) and mode="native" (A15) are not
-ported.
+ledger and the flight recorder (A13) are not ported.  mode="native" runs
+the batch cycle on the host's C++ engine (native/).
 """
 
 from .cache import SchedulerCache  # noqa: F401

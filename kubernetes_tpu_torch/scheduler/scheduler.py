@@ -14,13 +14,18 @@ schedule_one.go (ScheduleOne: schedulingCycle + bindingCycle):
               ops/gang.py, for pod groups) on the hand-written kernels, bind
               all placements.  Decision-identical to cpu mode (both tie-break
               to the lowest node index).
+  mode="native"  the batch cycle on the host: the same encode, then the
+              sequential C++ engine (native/: schedule_batch_native, the
+              gang fixpoint over it) reads the host arrays; no class state.
+              A failing cycle's diagnosis and BatchedPreemption run on the
+              device as in mode="tpu", on the arrays placed for them then.
 
 The device.  ``Scheduler(..., device=None)`` resolves the card in
-mode="tpu" (device.resolve_device) and raises without one; the tests pass
-device="cpu", which runs every kernel's plain version.  The encoder returns
-host arrays and their placement on the device; every host read of a cycle's
-arrays (the diagnosis' usage, the verdicts) reads the host arrays or one
-explicit copy back.  The commit overlap of the JAX package is kept: the
+mode="tpu" and mode="native" (device.resolve_device) and raises without
+one; the tests pass device="cpu", which runs every kernel's plain
+version.  The encoder returns host arrays and their placement on the
+device; every host read of a cycle's arrays (the diagnosis' usage, the
+verdicts) reads the host arrays or one explicit copy back.  The commit overlap of the JAX package is kept: the
 step is dispatched without a host synchronisation, an earlier program's
 deferred binds are published while it runs, and only then is the step
 finished and its choices and ordinals copied back once.  Binds are
@@ -47,11 +52,10 @@ event kinds.
 Not ported, each refused with NotImplementedError naming its ROADMAP item:
 the crash-restart checkpoint and its protocol (checkpoint_dir /
 KTPU_CHECKPOINT_DIR, restore, reincarnate, restart_scheduler,
-run_restartable, run_ha_restartable, ha_takeover: A14), mode="native"
-(A15) and HTTP extenders (A14).  The device-memory ledger and the decision
-flight recorder are A13: KTPU_MEMWATCH has no reader yet, and a cycle's
-flight record is skipped as the JAX package skips it without a checkpoint
-directory.  The JAX package's persistent compile cache (ops/aot.py) has no
+run_restartable, run_ha_restartable, ha_takeover: A14) and HTTP extenders
+(A14).  The device-memory ledger and the decision flight recorder are A13:
+KTPU_MEMWATCH has no reader yet, and a cycle's flight record is skipped as
+the JAX package skips it without a checkpoint directory.  The JAX package's persistent compile cache (ops/aot.py) has no
 counterpart: the kernels are built once per process (ops/kernels.py).
 """
 
@@ -108,15 +112,15 @@ class Scheduler:
 
         if checkpoint_dir or os.environ.get("KTPU_CHECKPOINT_DIR"):
             raise _not_ported("the crash-restart checkpoint (checkpoint_dir / KTPU_CHECKPOINT_DIR)", "A14")
-        if config.mode == "native":
-            raise _not_ported('mode="native" (the C++ batch engine)', "A15")
         if config.extenders:
             raise _not_ported("an HTTP scheduler extender (HTTPExtender)", "A14")
         # the batch cycle's device: the card unless the caller passes
         # device="cpu" (device.resolve_device raises without a card); the
-        # per-pod cycle touches no tensor
+        # per-pod cycle touches no tensor.  The native engine reads host
+        # arrays, but a failing cycle's diagnosis and BatchedPreemption run
+        # on the device, as in the JAX package's native mode
         self.device = None
-        if config.mode == "tpu":
+        if config.mode in ("tpu", "native"):
             from ..device import resolve_device
 
             self.device = resolve_device(device)
@@ -746,9 +750,9 @@ class Scheduler:
     def _schedule_profile_batch(
         self, profile_name: str, batch: List[t.Pod]
     ) -> Tuple[Dict[str, Optional[str]], int]:
-        """One profile's slice of the cycle: encode → kernel (or sidecar) →
-        bind → preempt-on-failure.  Returns (pod name -> node | None,
-        #unschedulable).  Bindings apply to the store/cache synchronously,
+        """One profile's slice of the cycle: encode → kernel (or sidecar /
+        native engine) → bind → preempt-on-failure.  Returns (pod name ->
+        node | None, #unschedulable).  Bindings apply to the store/cache synchronously,
         so the next profile's update_snapshot sees them."""
         snap = self.cache.update_snapshot()
         bound_uids = {p.uid for p in snap.bound_pods}
@@ -824,6 +828,7 @@ class Scheduler:
                     n_unbound += result[pod.name] is None
                 return result, n_unbound
         arr = host = meta = None  # the cycle's arrays (batched preemption reuses them)
+        native = self.config.mode == "native"
         # only the routed non-gang step has the async window the NEXT
         # cycle's deferred fan-out hides under
         async_window = False
@@ -841,7 +846,8 @@ class Scheduler:
                 )
             with self.tracer.span("batch.encode", profile=profile_name):
                 host, meta = self._delta_enc.encode(snap)
-                arr, meta = self._delta_enc.to_device(host, meta)
+                if not native:
+                    arr, meta = self._delta_enc.to_device(host, meta)
             if chaos.enabled():
                 # slow-host stall inside the encode window: latency only
                 chaos.poke("host.stall", tracer=self.tracer,
@@ -849,11 +855,12 @@ class Scheduler:
             cfg = infer_score_config(host, base_cfg)
             # resident class state (ops/incremental.py): serves the gang
             # fixpoint too — revocations only mask pod_valid, which the
-            # class state leaves out.  Recovery replays run without it.
+            # class state leaves out.  The native engine keeps none;
+            # recovery replays run without it.
             from ..ops.assign import inc_route_applies
 
             inc = None
-            if inc_route_applies(host, cfg):
+            if not native and inc_route_applies(host, cfg):
                 if self._hoist_cache is None:
                     from ..ops.incremental import HoistCache
 
@@ -869,7 +876,20 @@ class Scheduler:
                    else {}),
             ):
                 t_k0 = time.perf_counter()
-                if gang:
+                if native:
+                    from ..native import schedule_batch_native, schedule_with_gangs_native
+
+                    # synchronous host engine: no async window — commit the
+                    # previous cycle's deferred fan-out before it runs
+                    self._flush_deferred_binds()
+                    fn = schedule_with_gangs_native if gang else schedule_batch_native
+                    choices = fn(host, cfg)[0]
+                    if not gang:
+                        # the engine commits strictly in pod order: the
+                        # ordinal IS the index, and every pod is one sweep
+                        ords = np.arange(meta.n_pods, dtype=np.int64)
+                        sweeps = meta.n_pods
+                elif gang:
                     # the gang fixpoint reads its verdicts back between
                     # iterations, so there is no single-dispatch window:
                     # flush first
@@ -973,10 +993,19 @@ class Scheduler:
         # releases them
         assumed_now: List[str] = []
         done: set = set()  # pod names whose commit disposition fully landed
+
+        def placed():
+            """The cycle's arrays on the device; the native engine read the
+            host arrays, so its cycle places them only for the failure path."""
+            nonlocal arr
+            if arr is None:
+                arr, _ = self._delta_enc.to_device(host, meta)
+            return arr
+
         try:
             self._commit_profile_batch(
                 profile_name, snap, verdicts, result, failed, defer_ok,
-                assumed_now, done, arr, host, meta, batch_fw,
+                assumed_now, done, placed, host, meta, batch_fw,
             )
         except Exception:
             self._release_crashed_commit(snap, done, assumed_now)
@@ -1039,8 +1068,11 @@ class Scheduler:
 
     def _commit_profile_batch(
         self, profile_name, snap, verdicts, result, failed, defer_ok,
-        assumed_now, done, arr, host, meta, batch_fw,
+        assumed_now, done, placed, host, meta, batch_fw,
     ) -> None:
+        """The bind fan-out and the failure loop.  `host` is the cycle's host
+        arrays (None on the sidecar's verdicts), `placed()` the same on the
+        device, placed at its first call."""
         with self.tracer.span("batch.commit", profile=profile_name), \
                 self._coalesced_moves():
             for pod in snap.pending_pods:
@@ -1078,12 +1110,12 @@ class Scheduler:
             # failing cycles pay, and only for the failed classes
             diag_msgs: Dict[str, str] = {}
             self._last_diagnosis = []
-            if failed and arr is not None:
+            if failed and host is not None:
                 from ..ops.explain import explain_enabled
 
                 if explain_enabled():
                     diag_msgs = self._diagnose_failed(
-                        snap, result, arr, host, meta, failed
+                        snap, result, placed(), host, meta, failed
                     )
             # failure path: preemption, then requeue.  Three lazily
             # maintained pieces, each invalidated only by what stales it:
@@ -1104,7 +1136,7 @@ class Scheduler:
             snap2_fresh = False
             batched = None
             use_batched = (
-                arr is not None
+                host is not None
                 and self.features.enabled("BatchedPreemption")
                 and self.features.enabled("DefaultPreemption")
             )
@@ -1127,7 +1159,7 @@ class Scheduler:
                         from .preemption import BatchedPreemption
 
                         batched = BatchedPreemption(
-                            arr, meta, snap2, self.store, self.queue
+                            placed(), meta, snap2, self.store, self.queue
                         )
                         # evaluate-many: batch the gate-passing preemptors
                         # of the unprocessed suffix into device waves
@@ -1426,7 +1458,7 @@ class Scheduler:
             cycles += 1
             # progress = a pod bound, or the activeQ net-shrank
             q_before = len(self.queue)
-            if self.config.mode == "tpu":
+            if self.config.mode in ("tpu", "native"):
                 result = self.schedule_batch()
                 scheduled = any(v is not None for v in result.values())
                 if not result:

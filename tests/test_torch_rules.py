@@ -38,8 +38,10 @@ for m in mods:
 # the encoder, the pipeline of the warm loop, the failure path, the
 # sidecar (its wire, metrics, tracing and lock checker), the node mesh
 # (its request grammar, padding, collectives, sharded step and ring layer)
-# and the Scheduler (its store, queue, cache, CPU plugins with the oracle's
-# helpers, and the harness that measures it) are among them
+# the Scheduler (its store, queue, cache, CPU plugins with the oracle's
+# helpers, and the harness that measures it) and the host-side native code
+# (the C++ engine's loader, its static stage, the C interner's loader) are
+# among them
 assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
         "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
         "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench",
@@ -52,7 +54,8 @@ assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipelin
         "kubernetes_tpu_torch.scheduler.scheduler", "kubernetes_tpu_torch.scheduler.store",
         "kubernetes_tpu_torch.scheduler.queue", "kubernetes_tpu_torch.scheduler.cache",
         "kubernetes_tpu_torch.scheduler.plugins.cpu", "kubernetes_tpu_torch.oracle.reference",
-        "kubernetes_tpu_torch.bench.harness"} <= set(mods), mods
+        "kubernetes_tpu_torch.bench.harness", "kubernetes_tpu_torch.native",
+        "kubernetes_tpu_torch.native.static_np", "kubernetes_tpu_torch.native.pyintern"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked
@@ -98,7 +101,7 @@ def test_sidecar_engine_imports_without_grpc_or_protobuf():
 
 
 def _sources():
-    return sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h", ".proto"))
+    return sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".h", ".c", ".cpp", ".proto"))
 
 
 @pytest.mark.parametrize("pattern", [

@@ -23,7 +23,8 @@ two CPU shards (KTPU_MESH=2) against the JAX Scheduler on one device (the
 JAX package's own sharded entry points fail on this JAX, ROADMAP C3).  The
 refusals: mode="tpu" without a card and without device=; a checkpoint
 directory (argument or KTPU_CHECKPOINT_DIR), the restart protocol's entry
-points and an HTTP extender (ROADMAP A14); mode="native" (A15).
+points and an HTTP extender (ROADMAP A14).  mode="native" runs: its cases
+are in tests/test_torch_native.py.
 
 The batched preemption, explain and failure-path cases are in
 tests/test_torch_scheduler_preempt.py.
@@ -787,8 +788,6 @@ def test_refusals():
             x.S.Scheduler(store, x.cfg("tpu"))
     with pytest.raises(NotImplementedError, match="A14"):
         x.S.Scheduler(store, x.cfg("tpu"), device="cpu", checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="A15"):
-        x.S.Scheduler(store, x.cfg("native"), device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         x.S.Scheduler(store, x.cfg("tpu", extenders=(ExtenderConfig(url_prefix="http://127.0.0.1:1"),)),
                       device="cpu")

@@ -91,7 +91,13 @@ At heterogeneous(20000, 50000, seed=0) on the CPU:
   split between two profiles (bench/workloads.py two_profile_split),
   GangScheduling off, through the JAX Scheduler's run_until_idle traced ->
   the counts, the batch count, the binds the commit overlap published
-  (harness.overlapped_binds) and the bindings digest.
+  (harness.overlapped_binds) and the bindings digest; the
+  scheduler-config1, -config2 and -config3 legs: BASELINE Config1
+  (basic(100, 100, seed=0)), Config2 (basic(1000, 5000, seed=0)) and
+  Config3 (spread_affinity(5000, 10000, seed=0)) through the JAX
+  Scheduler in mode="native" (_setup_cluster(snap, "native") +
+  run_until_idle; the C++ engine, seconds on the CPU) -> the counts, the
+  batch count and the bindings digest.
 
 kubernetes_tpu_torch/bench/workloads.py keeps these numbers and
 chip_smoke.py holds the port's routes on the card against them.  The
@@ -104,7 +110,8 @@ there), the whole script about ten minutes and a few GB:
 all-stages, config3-inc, config3-warm, gang-small, config5, gang-rounds,
 gang-contended, gang-pinned, sidecar-north-star, sidecar-config5, preempt, explain,
 perpod-small, config4s, config4s-warm, dra-small, scheduler-config4,
-scheduler-config5, scheduler-preempt or scheduler-two-profiles runs only
+scheduler-config5, scheduler-preempt, scheduler-two-profiles,
+scheduler-config1, scheduler-config2 or scheduler-config3 runs only
 those legs.  The warm leg alone on a smaller heterogeneous(N_NODES, N_PODS), as
 tests/test_torch_pipeline.py runs it: KTPU_FORCE_CHUNKED=1 python
 tests/torch_north_star_digest.py --leg warm N_NODES N_PODS; the config-3
@@ -116,7 +123,7 @@ N_PODS, --leg config4s-warm N_NODES N_PODS; the Scheduler's at any size,
 as tests/test_torch_scheduler.py runs them: --leg scheduler-config4 N_NODES
 N_PODS, --leg scheduler-config5 GROUPS SIZE N_NODES, --leg
 scheduler-preempt N_NODES N_PRE, --leg scheduler-two-profiles N_NODES
-N_PODS.)
+N_PODS, --leg scheduler-config1 / -config2 / -config3 N_NODES N_PODS.)
 """
 
 import hashlib
@@ -568,11 +575,18 @@ def scheduler_leg(name: str, *size: int) -> None:
               f"overlapped {overlapped_binds(col)} bindings sha256 {bindings_digest(sched.store.pods.values())}",
               flush=True)
         return
+    mode = "tpu"
     if name == "scheduler-config4":
         snap = workloads.heterogeneous(*(size or (20000, 20000)), seed=0)
-    else:
+    elif name == "scheduler-config5":
         snap = workloads.gang(*(size or (1000, 64, 2000)), seed=0)
-    sched = _setup_cluster(snap, "tpu")
+    else:  # BASELINE configs 1-3 in native mode (the C++ engine, fast on the CPU)
+        mode = "native"
+        gen, default = {"scheduler-config1": (workloads.basic, (100, 100)),
+                        "scheduler-config2": (workloads.basic, (1000, 5000)),
+                        "scheduler-config3": (workloads.spread_affinity, (5000, 10000))}[name]
+        snap = gen(*(size or default), seed=0)
+    sched = _setup_cluster(snap, mode)
     sched.run_until_idle()
     hist = sched.metrics.hists.get("batch_scheduling_duration_seconds")
     print(f"{name}: {time.perf_counter() - t0:.1f} s, scheduled {len(sched.events.by_reason('Scheduled'))} "
@@ -590,6 +604,9 @@ LEGS = {"dense": dense_leg, "warm": warm_leg, "wide": wide_leg, "config3": confi
         "sidecar-config5": lambda: sidecar_leg("sidecar-config5"), "perpod-small": perpod_small_leg,
         "config4s": config4s_leg, "config4s-warm": lambda: warm_leg(20000, 20000, "heterogeneous_storage"),
         "dra-small": dra_small_leg, "scheduler-config4": lambda: scheduler_leg("scheduler-config4"),
+        "scheduler-config1": lambda: scheduler_leg("scheduler-config1"),
+        "scheduler-config2": lambda: scheduler_leg("scheduler-config2"),
+        "scheduler-config3": lambda: scheduler_leg("scheduler-config3"),
         "scheduler-config5": lambda: scheduler_leg("scheduler-config5"),
         "scheduler-preempt": lambda: scheduler_leg("scheduler-preempt"),
         "scheduler-two-profiles": lambda: scheduler_leg("scheduler-two-profiles")}
@@ -627,7 +644,9 @@ def main() -> None:
             ("dra-small", {"KTPU_FORCE_CHUNKED": "0"}), ("scheduler-config4", {"KTPU_MEMWATCH": "0"}),
             ("scheduler-config5", {"KTPU_MEMWATCH": "0"}),
             ("scheduler-preempt", {"KTPU_MEMWATCH": "0", "KTPU_EXPLAIN": "1"}),
-            ("scheduler-two-profiles", {"KTPU_MEMWATCH": "0"})]
+            ("scheduler-two-profiles", {"KTPU_MEMWATCH": "0"}),
+            ("scheduler-config1", {"KTPU_MEMWATCH": "0"}), ("scheduler-config2", {"KTPU_MEMWATCH": "0"}),
+            ("scheduler-config3", {"KTPU_MEMWATCH": "0"})]
     for name, extra in runs:
         if only and name not in only:
             continue

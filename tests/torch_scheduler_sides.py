@@ -6,8 +6,8 @@ mk_node / mk_pod, random_cluster), drives them, and returns what it saw.
 ``Side("jax")`` runs the JAX package's Scheduler as it is;
 ``Side("port")`` runs the port's, the objects carried across by
 kubernetes_tpu_torch/convert.py from_jax_objects as they enter the store,
-its batch cycle on the CPU (device="cpu").  The tests hold the two returns
-equal, exactly.
+its batch cycle (mode="tpu" or "native") on the CPU (device="cpu").  The
+tests hold the two returns equal, exactly.
 
 ``observe(store, sched)`` is what every case returns at its checkpoints:
 the store's pods with their nodes and nominations; the event log (reason,
@@ -66,7 +66,7 @@ class Side:
 
     def scheduler(self, store, config, **kw):
         """A Scheduler over the raw store `store` (the port's on the CPU)."""
-        return self.S.Scheduler(store, config, **(self.dev if config.mode == "tpu" else {}), **kw)
+        return self.S.Scheduler(store, config, **(self.dev if config.mode in ("tpu", "native") else {}), **kw)
 
     def cluster(self, mode: str = "tpu", nodes=(), clock=None, config=None, **kw):
         """(converting store, Scheduler) with `nodes` added first."""

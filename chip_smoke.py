@@ -367,7 +367,38 @@ C++ engine of the Scheduler's mode="native") are built with them:
                      with the pod axis across the ranks on the same two
                      routes and config 3's rounds route; each rank's choices
                      sha256, usage, ordinals and sweeps == the single
-                     process's, its step_s and cross-rank gather seconds.
+                     process's, its step_s and cross-rank gather seconds;
+  [scheduler-restart] the crash restart of the Scheduler on the card: BASELINE
+                     Config4 (heterogeneous(20000, 20000)) crash-only (no
+                     checkpoint dir) through run_restartable under
+                     kill.post_assume@10000 (mid-commit) and kill.mid_step@0:
+                     one restart each, 20000 scheduled, the JAX Scheduler's
+                     bindings digest; the replacement's first cycle a full
+                     hoist (HoistCache static_rebuild) and class_static_hoist,
+                     class_usage_hoist, wave_commit and chunk_rounds launched
+                     again after the restore; the restore report, restore's
+                     wall, the replacement's wall, the run's beside
+                     [scheduler-config4]'s un-killed one.  Then Config1
+                     (basic(100, 100)) armed with a checkpoint dir, killed
+                     at each kill.* site of the bind path (@0; kill.mid_flush
+                     with GangScheduling off): the JAX digest, each restore
+                     report; once more under run_ha_restartable with two
+                     kills: the digest and ha_fields.  Then the price of
+                     arming: basic(1000, 1000) un-killed, unarmed and armed,
+                     both walls, the checkpoint saves and ms a save;
+  [stream-restart]   bench.py's warm waves 2..7 of the north star as
+                     [warm-loop] builds them (their snapshots then fixed)
+                     through run_stream_restartable at depth 1 with a
+                     CheckpointManager, un-killed and under kill.submit@2,
+                     kill.dispatch@2, kill.collect@2 and kill.drain@0: every
+                     wave's digest the JAX loop's
+                     (workloads.NORTH_STAR_WARM_DIGESTS), one restart, the
+                     stream WAL holding waves 0..5, six commits, one
+                     failover_duration_seconds observation; each run's wall
+                     beside the un-killed one's; then pipeline.step error@2
+                     and nan@2 through PipelinedBatchLoop alone: one wave
+                     recovered by the serial replay on the card (the dense
+                     route), the same digests.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
@@ -389,13 +420,16 @@ phase fails.  Needs one card and no network.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3243,7 +3277,7 @@ def scheduler_run(tag: str, snap_fn, want: dict, need, card: str, mode: str = "t
     return runs
 
 
-def phase_scheduler_config4(card: str) -> None:
+def phase_scheduler_config4(card: str) -> float:
     """BASELINE Config4, heterogeneous(20000, 20000, seed=0), not cut, through
     the Scheduler: one batch cycle on the class-wave route (K3 + K4 by
     HoistCache.ensure, then K5 + K6); with the default GangScheduling gate
@@ -3259,8 +3293,8 @@ def phase_scheduler_config4(card: str) -> None:
     from kubernetes_tpu_torch.ops import kernels
     from kubernetes_tpu_torch.scheduler import SchedulerConfiguration
 
-    scheduler_run("scheduler-config4", lambda: w.heterogeneous(**w.SCHEDULER_CONFIG4), w.SCHEDULER_CONFIG4_WANT,
-                  WAVE_KERNELS, card)
+    runs = scheduler_run("scheduler-config4", lambda: w.heterogeneous(**w.SCHEDULER_CONFIG4),
+                         w.SCHEDULER_CONFIG4_WANT, WAVE_KERNELS, card)
     kernels.reset_launches()
     r = run_snapshot_workload("scheduler-config4", w.heterogeneous(**w.SCHEDULER_CONFIG4), "tpu", device="cuda",
                               config=SchedulerConfiguration(mode="tpu", feature_gates=NO_GANGS))
@@ -3277,6 +3311,7 @@ def phase_scheduler_config4(card: str) -> None:
     check(flush is not None and flush.count == 1, "scheduler-config4 (gangs off): the binds were not deferred")
     check(set(WAVE_KERNELS) <= set(launches), f"scheduler-config4 (gangs off): launches {launches}")
     scheduler_two_profiles(card)
+    return runs[False]["wall_s"]
 
 
 
@@ -3289,7 +3324,8 @@ def scheduler_two_profiles(card: str) -> None:
     traced: the JAX Scheduler's counts, bindings digest and overlapped
     binds.  At Config4's full size, traced, with the overlap and without it
     (pipeline_commit=False, the binds synchronous): the same bindings, and
-    the overlap's pods inside the second kernel span."""
+    the overlap's pods inside the second kernel span.  -> the un-killed
+    untraced run's wall."""
     import dataclasses
 
     import torch
@@ -3441,6 +3477,294 @@ def phase_scheduler_native(card: str) -> None:
               f"({nat[False]['pods_per_sec']:.1f} pods/s), tpu {tpu[False]['wall_s']:.3f} s "
               f"({tpu[False]['pods_per_sec']:.1f} pods/s); both the JAX digest; {card}", flush=True)
     phase_scheduler_preempt(card, mode="native")
+
+
+@contextlib.contextmanager
+def env_var(name: str, value):
+    """os.environ[name] = value (None: unset) inside the block."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+@contextlib.contextmanager
+def restore_probe():
+    """Records each Scheduler.restore while open: its report, its wall, the
+    launch counts just before it and the instance restored."""
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    seen = []
+    orig = Scheduler.restore
+
+    def restore(self, killed_site=None):
+        at = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        rep = orig(self, killed_site=killed_site)
+        t1 = time.perf_counter()
+        seen.append(dict(report=rep, restore_s=t1 - t0, t_end=t1, launches=at, sched=self))
+        return rep
+
+    Scheduler.restore = restore
+    try:
+        yield seen
+    finally:
+        Scheduler.restore = orig
+
+
+def restart_run(tag: str, snap, want: dict, spec: str, card: str, config=None, armed=False, ha=False,
+                need=WAVE_KERNELS, unkilled_s=None) -> dict:
+    """One snapshot through setup_cluster, then run_restartable (ha: the
+    standby takeover, run_ha_restartable) under the kill plan `spec`, every
+    count set to 0 just before: the restarts the plan makes, the JAX
+    Scheduler's bindings digest and Scheduled count, every kernel of `need`
+    launched again after the last restore, the replacement's first
+    HoistCache action a full hoist.  `armed`: a checkpoint dir in a fresh
+    temporary directory (KTPU_CHECKPOINT_DIR), else crash-only."""
+    import torch
+
+    from kubernetes_tpu_torch import chaos
+    from kubernetes_tpu_torch.bench.harness import bindings_digest, ha_fields, setup_cluster
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.scheduler import run_ha_restartable, run_restartable
+
+    ckpt = tempfile.mkdtemp(prefix="ktpu-ckpt-") if armed else None
+    try:
+        with env_var("KTPU_CHECKPOINT_DIR", ckpt):
+            sched = setup_cluster(snap, "tpu", device="cuda", config=config)
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            with restore_probe() as seen, chaos.chaos_plan(chaos.FaultPlan.parse(spec)):
+                t0 = time.perf_counter()
+                if ha:
+                    final, restarts = run_ha_restartable(sched)
+                else:
+                    final, restarts = run_restartable(sched)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = counted()
+    finally:
+        if ckpt is not None:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    last = seen[-1] if seen else None
+    after = {k: v - last["launches"].get(k, 0) for k, v in kernels.LAUNCHES.items()} if last else {}
+    hoist = [h["action"] for h in final._hoist_cache.history] if final._hoist_cache is not None else []
+    got = dict(scheduled=len(final.events.by_reason("Scheduled")),
+               unschedulable=len(final.events.by_reason("FailedScheduling")),
+               bindings=bindings_digest(final.store.pods.values()))
+    want_got = {k: want[k] for k in got}
+    repl_s = wall - (last["t_end"] - t0) if last else 0.0
+    reports = [(x["report"], round(x["restore_s"], 4)) for x in seen]
+    print(f"[{tag}] {spec}{' (armed)' if armed else ' (crash-only)'}{' (HA takeover)' if ha else ''}: "
+          f"restarts {restarts}, {got}; run wall {wall:.3f} s"
+          + (f" (un-killed {unkilled_s:.3f} s)" if unkilled_s is not None else "")
+          + f", restore reports and walls (s) {reports}, the replacement's run {repl_s:.3f} s; HoistCache "
+          f"{hoist}; launches {launches}, after the last restore "
+          f"{ {k: v for k, v in after.items() if v} }; {card}", flush=True)
+    if ha:
+        print(f"[{tag}] ha_fields {ha_fields(final.metrics)}; {card}", flush=True)
+    check(got == want_got, f"{tag} {spec}: {got} differs from the JAX Scheduler's {want_got}")
+    check(restarts == spec.count(";") + 1 and len(seen) == restarts, f"{tag} {spec}: restarts {restarts}")
+    if need:  # the replacement ran a cycle (after a kill mid-flush the WAL replay may publish every pod)
+        check(hoist[:1] == ["static_rebuild"], f"{tag} {spec}: the replacement's first HoistCache action {hoist[:1]}")
+    for k in need:
+        check(after.get(k, 0) > 0, f"{tag} {spec}: {k} was not launched after the restore: {after}")
+    return dict(wall=wall, restarts=restarts, reports=reports, replacement_s=repl_s, restore_s=last["restore_s"],
+                metrics=final.metrics)
+
+
+def phase_scheduler_restart(card: str, unkilled_s: float) -> None:
+    """The Scheduler's crash restart on the card (see the module docstring):
+    BASELINE Config4 crash-only, Config1 armed and under HA takeover, and
+    basic(1000, 1000) armed beside unarmed, each held to the JAX
+    Scheduler's digest."""
+    import torch
+
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.bench.harness import ha_fields, run_snapshot_workload
+    from kubernetes_tpu_torch.scheduler import SchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler import checkpoint as ck
+
+    t_phase = time.perf_counter()
+    c4, price = w.SCHEDULER_CONFIG4, (1000, 1000)
+    for spec in (f"kill.post_assume:kill@{c4['n_pods'] // 2}", "kill.mid_step:kill@0"):
+        restart_run("scheduler-restart", w.heterogeneous(**c4), w.SCHEDULER_CONFIG4_WANT, spec, card,
+                    unkilled_s=unkilled_s)
+    gen, args, want_c1 = w.SCHEDULER_BASELINE["config1"]
+    for site in RESTART_SITES:
+        # one batch cycle: kill.mid_step's first poke is the only one, so
+        # every site is killed @0; the deferred flush needs the gang gate off
+        # (the WAL replay then publishes every deferred bind: the
+        # replacement may have nothing left to schedule)
+        flush = site == "kill.mid_flush"
+        cfg = SchedulerConfiguration(mode="tpu", feature_gates=NO_GANGS) if flush else None
+        r = restart_run("scheduler-restart", getattr(w, gen)(*args, seed=0), want_c1, f"{site}:kill@0", card,
+                        config=cfg, armed=True, need=() if flush else WAVE_KERNELS)
+        rep = r["reports"][-1][0]
+        print(f"[scheduler-restart] config1 armed {site}: wal_applied {rep['wal_applied']}, wal_skipped "
+              f"{rep['wal_skipped']}, reconciled_assumed {rep['reconciled_assumed']}, wave_requeued "
+              f"{rep['wave_requeued']}; {card}", flush=True)
+    ha = restart_run("scheduler-restart", getattr(w, gen)(*args, seed=0), want_c1,
+                     "kill.post_assume:kill@0;kill.post_checkpoint:kill@30", card, armed=True, ha=True)
+    block = ha_fields(ha["metrics"])
+    check(block["failover_count"] == 2 and block["leader_election_transitions_total"] == 2
+          and block["failover_p99_ms"] > 0, f"scheduler-restart HA: {block}")
+    # the price of arming: every assume (and WAL append, wave clear, flush)
+    # saves the whole ledger and arrival table, fsync'd
+    saves = {"n": 0, "s": 0.0}
+    orig = ck.CheckpointManager.save
+
+    def timed_save(self, name, data):
+        t = time.perf_counter()
+        orig(self, name, data)
+        saves["n"] += 1
+        saves["s"] += time.perf_counter() - t
+
+    walls = {}
+    ck.CheckpointManager.save = timed_save
+    try:
+        for armed in (False, True):
+            d = tempfile.mkdtemp(prefix="ktpu-ckpt-") if armed else None
+            try:
+                with env_var("KTPU_CHECKPOINT_DIR", d):
+                    r = run_snapshot_workload("price", w.basic(*price, seed=0), "tpu", device="cuda")
+                    torch.cuda.synchronize()
+            finally:
+                if d is not None:
+                    shutil.rmtree(d, ignore_errors=True)
+            check(r["scheduled"] == price[1], f"scheduler-restart price: scheduled {r['scheduled']}")
+            walls[armed] = (r["wall_s"], r["bindings_sha256"])
+    finally:
+        ck.CheckpointManager.save = orig
+    check(walls[True][1] == walls[False][1], "scheduler-restart price: armed and unarmed bindings differ")
+    print(f"[scheduler-restart] price of arming, basic{price} un-killed: wall unarmed {walls[False][0]:.3f} s, armed "
+          f"{walls[True][0]:.3f} s, {saves['n']} checkpoint saves, {saves['s']:.3f} s saving, "
+          f"{1e3 * saves['s'] / max(1, saves['n']):.3f} ms a save; {card}", flush=True)
+    print(f"[scheduler-restart] phase {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
+RESTART_SITES = ("kill.post_assume", "kill.post_checkpoint", "kill.mid_flush", "kill.mid_step")
+STREAM_SITES = ("kill.submit@2", "kill.dispatch@2", "kill.collect@2", "kill.drain@0")
+
+
+def phase_stream_restart(cold, card: str) -> None:
+    """run_stream_restartable over bench.py's warm waves of the north star
+    (see the module docstring), held to the JAX loop's digests; `cold` is
+    wave 1's (choices, meta)."""
+    import torch
+
+    from kubernetes_tpu_torch import chaos
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.api.snapshot import Snapshot
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import kernels
+    from kubernetes_tpu_torch.parallel.pipeline import PipelinedBatchLoop, load_stream_wal, run_stream_restartable
+    from kubernetes_tpu_torch.scheduler.checkpoint import CheckpointManager
+    from kubernetes_tpu_torch.scheduler.metrics import Metrics
+
+    t_phase = time.perf_counter()
+    snap, want = w.heterogeneous(**w.NORTH_STAR), w.NORTH_STAR_WARM_DIGESTS
+    names = [nd.name for nd in snap.nodes]
+    choices, meta = cold
+    first = w.verdicts_of(torch.as_tensor(choices).cpu().numpy(), meta)
+    enc = DeltaEncoder("cuda")
+    enc.encode_device(snap)
+    loop = PipelinedBatchLoop(encoder=enc, depth=1)
+    snaps = []
+
+    def submit(sw):
+        snaps.append(sw)
+        return loop.submit(sw)
+
+    waves, fetched, _, _ = w.warm_waves(snap, first, submit, loop.drain, Snapshot)
+    torch.cuda.synchronize()
+    del loop, enc, waves
+
+    def digests(results) -> dict:
+        return {k + 2: w.wave_digest(sw.pending_pods, v, names) for k, (sw, v) in enumerate(zip(snaps, results))}
+
+    check(digests([fetched[k] for k in range(2, 8)]) == want, "stream-restart: the built waves differ from JAX")
+
+    def stream(spec):
+        d = tempfile.mkdtemp(prefix="ktpu-stream-")
+        ckpt, metrics, commits, loops = CheckpointManager(d), Metrics(), [], []
+
+        def make(commit, wal):
+            def commit_once(v):
+                commits.append(1)
+                commit(v)
+            loops.append(PipelinedBatchLoop(depth=1, commit=commit_once, wal=wal, metrics=metrics, device="cuda"))
+            return loops[-1]
+
+        kernels.reset_launches()
+        try:
+            with chaos.chaos_plan(chaos.FaultPlan.parse(spec)) if spec else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                results, restarts = run_stream_restartable(snaps, make, checkpoint=ckpt, metrics=metrics)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            ledger = load_stream_wal(ckpt)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        launches = counted()
+        h = metrics.hists.get("failover_duration_seconds")
+        blackouts = h.count if h is not None else 0
+        check(digests(results) == want, f"stream-restart {spec}: wave digests differ from the JAX loop's")
+        check(sorted(ledger) == list(range(len(snaps))) and len(commits) == len(snaps),
+              f"stream-restart {spec}: stream WAL {sorted(ledger)}, {len(commits)} commits")
+        check(restarts == (1 if spec else 0) and blackouts == restarts,
+              f"stream-restart {spec}: restarts {restarts}, failover observations {blackouts}")
+        # no pipeline.step fault is injected here: a wave replayed on the
+        # dense route would hide a faulty class-wave kernel
+        recovered = [lp.stats["recovered"] for lp in loops]
+        check(not any(recovered), f"stream-restart {spec}: waves recovered {recovered}")
+        return wall, launches, (h.sum if h is not None else 0.0)
+
+    base, launches, _ = stream(None)
+    print(f"[stream-restart] un-killed: {len(snaps)} fixed warm waves through run_stream_restartable (depth 1, "
+          f"armed): wall {base:.3f} s, launches {launches}; {card}", flush=True)
+    walls = {}
+    for site in STREAM_SITES:
+        spec = site.replace("@", ":kill@")
+        wall, launches, blackout = stream(spec)
+        walls[spec] = wall
+        print(f"[stream-restart] {spec}: restarts 1, the JAX digests, stream WAL waves 0..{len(snaps) - 1} once, "
+              f"wall {wall:.3f} s (un-killed {base:.3f} s: the kill costs {wall - base:.3f} s), blackout "
+              f"{blackout:.4f} s; launches {launches}; {card}", flush=True)
+    again, _, _ = stream(None)
+    print(f"[stream-restart] un-killed again: wall {again:.3f} s (first {base:.3f} s); the kills cost "
+          f"{ {k: round(v - (base + again) / 2, 3) for k, v in walls.items()} } s over their mean; {card}",
+          flush=True)
+    plain = None
+    for action in (None, "error", "nan"):
+        loop = PipelinedBatchLoop(depth=1, device="cuda", metrics=Metrics())
+        kernels.reset_launches()
+        spec = f"pipeline.step:{action}@2" if action else None
+        with chaos.chaos_plan(chaos.FaultPlan.parse(spec)) if spec else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            results = list(loop.run(snaps))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counted()
+        check(loop.stats["recovered"] == (1 if action else 0) and digests(results) == want,
+              f"stream-restart {spec}: recovered {loop.stats['recovered']}")
+        if action is None:
+            plain = wall
+            print(f"[stream-restart] the same waves through PipelinedBatchLoop.run, no fault: wall {wall:.3f} s; "
+                  f"launches {launches}; {card}", flush=True)
+            continue
+        print(f"[stream-restart] {spec} through PipelinedBatchLoop.run: recovered 1 (serial replay), the JAX "
+              f"digests, wall {wall:.3f} s (no fault {plain:.3f} s); launches {launches}; {card}", flush=True)
+    print(f"[stream-restart] phase {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
 
 
 def phase_env() -> None:
@@ -4462,13 +4786,15 @@ def main() -> int:
     del snap4s, cold4s
     phase_dra_small()
     t0 = time.perf_counter()
-    phase_scheduler_config4(card)
+    unkilled4_s = phase_scheduler_config4(card)
     phase_scheduler_config5(card)
     phase_scheduler_preempt(card)
     phase_scheduler_native(card)
     print(f"[scheduler] the four Scheduler phases took {time.perf_counter() - t0:.1f} s", flush=True)
     rows += phase_preempt(k14)
     phase_dcn(used_sha, c3_used_sha)
+    phase_scheduler_restart(card, unkilled4_s)
+    phase_stream_restart(cold, card)
     for row in rows:
         row["launches_run"] = RUN_LAUNCHES.get(launch_key(row["name"]), 0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -68,7 +68,12 @@ bench/harness.py measures it, as:
     store.add_node(node); store.add_pod(pod)
     sched.run_until_idle()                                     # binds land in the store
 
-Not ported (ROADMAP.md queue A): the crash-restart checkpoint, leases and
-HTTP extenders (A14), the device-memory ledger and the flight recorder
-(A13).
+Its crash restart is ported too: Scheduler(..., checkpoint_dir=...) (or
+KTPU_CHECKPOINT_DIR) arms the checkpoint and the flight recorder, and
+scheduler.run_restartable / run_ha_restartable answer a kill with a
+restart or a standby's lease takeover; parallel/pipeline.py
+run_stream_restartable does the same for a stream of waves.
+
+Not ported (ROADMAP.md queue A): HTTP extenders and the other host-only
+modules (A14), the device-memory ledger (A13).
 """

@@ -1350,6 +1350,7 @@ def _assemble(cs: ClusterSide, snap, reps, inv: np.ndarray, perm: np.ndarray, re
         pod_class=pod_class,
         class_first_pod=class_first,
         n_classes=int(class_first.shape[0]),
+        dirty_nodes=cs.last_dirty_nodes,
     )
     return arrays, meta
 

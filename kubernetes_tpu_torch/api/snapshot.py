@@ -98,6 +98,10 @@ class EncodingMeta:
     pod_class: Optional[np.ndarray] = None
     class_first_pod: Optional[np.ndarray] = None
     n_classes: int = 0
+    # node rows whose bound-pod contributions changed in THIS encode's sync
+    # (api/delta.py — sync_bound); None = unknown (a fresh rebuild, or the
+    # one-shot encoder).  The flight recorder's dirty_cols reads it
+    dirty_nodes: Optional[np.ndarray] = None
 
 
 # pod-axis fields (axis 0 is P) — what a pod prefix slices (m_pend is the

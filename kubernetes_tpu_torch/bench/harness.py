@@ -8,10 +8,14 @@
     r = run_snapshot_workload("Config4", heterogeneous(20000, 20000), "tpu")
     r = run_snapshot_workload("Config2", basic(1000, 5000), "native")  # the C++ engine
 
-The JAX harness's AOT warm-up, device trace, HA restarts, YAML workloads
-and artifact fields are not here (ROADMAP A14): the first cycle of a run
-includes the kernels' first launches (their build is per process, in
-ops/kernels.py, and a caller that wants it outside the wall builds first).
+``ha_fields`` is the artifact's HA block (the restarts, leader
+transitions, quarantined checkpoints and failover quantiles of a run
+driven by scheduler.run_restartable / run_ha_restartable or
+parallel/pipeline.py run_stream_restartable).  The JAX harness's AOT
+warm-up, device trace, YAML workloads and other artifact fields are not
+here (ROADMAP A14): the first cycle of a run includes the kernels' first
+launches (their build is per process, in ops/kernels.py, and a caller
+that wants it outside the wall builds first).
 
 ``bindings_digest`` and ``failure_outcome`` read only pod and scheduler
 attributes both packages share, so one run of each package can be held
@@ -92,6 +96,28 @@ def run_snapshot_workload(name: str, snap: Snapshot, mode: str = "tpu", device=N
         "bindings_sha256": bindings_digest(sched.store.pods.values()),
         "scheduler": sched,
     }
+
+
+def ha_fields(metrics) -> Optional[Dict]:
+    """The failover-observability block, stamped next to the SLI: the
+    restart / transition / quarantine counters and the
+    failover_duration_seconds quantiles (leases.py — HAReplica takeover
+    blackout).  None when the run never restarted, took over, or
+    quarantined a checkpoint."""
+    counters, _gauges, _hists = metrics.snapshot()
+    h = metrics.hists.get("failover_duration_seconds")
+    p50, p99, count = h.stats() if h is not None else (0.0, 0.0, 0)
+    out = {
+        "scheduler_restarts_total": counters.get("scheduler_restarts_total", 0.0),
+        "leader_election_transitions_total": counters.get("leader_election_transitions_total", 0.0),
+        "checkpoint_corrupt_total": counters.get("checkpoint_corrupt_total", 0.0),
+        "failover_p50_ms": round(p50 * 1e3, 2),
+        "failover_p99_ms": round(p99 * 1e3, 2),
+        "failover_count": count,
+    }
+    if not any(out.values()):
+        return None
+    return out
 
 
 def bindings_digest(pods: Iterable) -> str:

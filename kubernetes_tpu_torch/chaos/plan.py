@@ -10,16 +10,23 @@ Hook sites with callers in the port:
   sidecar.rpc      runtime/client.py — the Schedule RPC: drop (error), hang
                    (sleep then error), partial (truncated response)
   sidecar.health   runtime/client.py — the Health RPC: drop
+  pipeline.step    parallel/pipeline.py — the loop's fetch: error, nan;
+                   recovered by _recover_wave's serial replay
   scheduler.step   scheduler/scheduler.py — the batch step: error, nan
                    (poisoned verdicts); recovered by the serial replay
-  host.stall       scheduler/scheduler.py — inside the encode window
+  host.stall       scheduler/scheduler.py, parallel/pipeline.py — inside
+                   the encode window
   kill.post_assume, kill.post_checkpoint, kill.mid_flush, kill.mid_step
                    scheduler/ — the bind path's process-death points
+                   (kill.mid_step also the loop's fetch); restarted by
+                   scheduler.run_restartable / run_ha_restartable
+  kill.submit, kill.dispatch, kill.collect, kill.drain
+                   parallel/pipeline.py — the streaming loop's; restarted
+                   by run_stream_restartable
 
-The rest of the JAX package's site table (pipeline.step, compile.cache,
-kubelet.sync, the streaming kill points) is kept whole, so a plan parses
-and a seed draws the same faults as there; their callers are not ported,
-and nothing restarts a killed scheduler yet (ROADMAP A14).
+The rest of the JAX package's site table (compile.cache, kubelet.sync) is
+kept whole, so a plan parses and a seed draws the same faults as there;
+their callers are not ported.
 
 Every fired fault emits a `fault_injected` span + a
 `framework_fault_injected_total{site,action}` counter; every recovery the

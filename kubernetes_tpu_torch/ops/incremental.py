@@ -37,6 +37,7 @@ the commit kernels (ops/assign.py) allocate their own t0u / usage buffers.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -210,6 +211,13 @@ def _fields(arr, names):
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
     """Zero rows appended up to n (the node mesh's pad nodes: no usage)."""
     return a if a.shape[0] >= n else np.pad(a, ((0, n - a.shape[0]), (0, 0)))
+
+
+def incremental_enabled() -> bool:
+    """KTPU_INCREMENTAL=0 disables the class state (read per cycle, so a
+    test or an operator flips it without a fresh process), as in the JAX
+    package."""
+    return os.environ.get("KTPU_INCREMENTAL", "") != "0"
 
 
 class HoistCache:
@@ -393,7 +401,11 @@ class HoistCache:
     def ensure(self, arr, meta, cfg: ScoreConfig, host=None) -> Optional[IncState]:
         """This cycle's IncState for the arrays `arr` (on their device, or
         on the node mesh); `host` are the same arrays on the host (numpy),
-        when the caller has them."""
+        when the caller has them.  None under KTPU_INCREMENTAL=0 (counted
+        as `disabled`): the caller routes without class state."""
+        if not incremental_enabled():
+            self.stats["disabled"] += 1
+            return None
         check_config(cfg)
         pc = getattr(meta, "pod_class", None)
         r_u_h = getattr(meta, "class_first_pod", None)

@@ -15,10 +15,14 @@ CPU PostFilter ``DefaultPreemption``) over a ``ClusterStore`` watch, a
     sched.run_until_idle()
 
 Also here: ``preemption.BatchedPreemption`` (the failure loop's batched
-victim search), ``metrics.Metrics`` and ``tracing``.  The crash-restart
-checkpoint, leases and HTTP extenders (ROADMAP.md A14), the device-memory
-ledger and the flight recorder (A13) are not ported.  mode="native" runs
-the batch cycle on the host's C++ engine (native/).
+victim search), ``metrics.Metrics``, ``tracing``, and the crash restart:
+``checkpoint`` (the fsync'd checkpoint a ``checkpoint_dir`` arms),
+``flightrecorder`` (the decision black box), ``leases`` (leader election,
+``HAReplica``'s standby takeover) and the drivers ``run_restartable``,
+``run_ha_restartable``, ``restart_scheduler`` and ``reincarnate``.  HTTP
+extenders (ROADMAP.md A14) and the device-memory ledger (A13) are not
+ported.  mode="native" runs the batch cycle on the host's C++ engine
+(native/).
 """
 
 from .cache import SchedulerCache  # noqa: F401

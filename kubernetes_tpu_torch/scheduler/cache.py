@@ -6,8 +6,8 @@ an assumed-pod set so a bound-but-unconfirmed pod occupies capacity for later
 cycles (AssumePod / FinishBinding / ForgetPod).  UpdateSnapshot produces the
 api.Snapshot the encoder and the CPU path both consume.
 
-The port's copy of the JAX package's ``scheduler/cache.py``.  The
-checkpoint hook has no caller yet (checkpointing is ROADMAP A14).
+The port's copy of the JAX package's ``scheduler/cache.py``: the
+Scheduler sets the checkpoint hook when a checkpoint dir is armed.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ class SchedulerCache:
         # crash-consistency hook (scheduler.py — _checkpoint_state): invoked
         # AFTER every assumed-ledger mutation, outside the cache lock, so the
         # reservation is durable before the bind path proceeds.  None = no
-        # checkpointing (the port has no checkpoint yet).
+        # checkpointing (the default; KTPU_CHECKPOINT_DIR arms it).
         self.checkpoint_hook: Optional[Callable[[], None]] = None
         # kill-point router (scheduler.py — _kill_point): lets the owning
         # scheduler stamp kill.post_assume injections onto ITS tracer and

@@ -49,13 +49,22 @@ wait in unschedulablePods for a Pod/Update); Node add/update and Pod delete
 events MoveAllToActiveOrBackoffQueue — the QueueingHint machinery reduced to
 event kinds.
 
-Not ported, each refused with NotImplementedError naming its ROADMAP item:
-the crash-restart checkpoint and its protocol (checkpoint_dir /
-KTPU_CHECKPOINT_DIR, restore, reincarnate, restart_scheduler,
-run_restartable, run_ha_restartable, ha_takeover: A14) and HTTP extenders
-(A14).  The device-memory ledger and the decision flight recorder are A13:
-KTPU_MEMWATCH has no reader yet, and a cycle's flight record is skipped as
-the JAX package skips it without a checkpoint directory.  The JAX package's persistent compile cache (ops/aot.py) has no
+Crash restart (checkpoint.py, flightrecorder.py, leases.py): checkpoint_dir
+or KTPU_CHECKPOINT_DIR arms the fsync'd checkpoint of the assumed-pod
+ledger, the deferred-bind WAL, the in-flight commit wave and the arrival
+and pop ages, saved at every assume / forget, WAL append, wave clear and
+flush, and the decision flight recorder that dumps into the same
+directory on a kill or a wave recovery.  A kill.* fault latches the
+instance dead; run_restartable answers it with restart_scheduler (detach,
+reincarnate on the same store, restore: the WAL replayed exactly once, the
+class state invalidated so the replacement's first cycle hoists in full),
+run_ha_restartable with a standby's lease takeover (ha_takeover).  Without
+a directory the restart is crash-only: everything rebuilds from the
+store's watch replay.
+
+Not ported, refused with NotImplementedError naming its ROADMAP item: HTTP
+extenders (A14).  The device-memory ledger is A13: KTPU_MEMWATCH has no
+reader yet, and a flight record carries no memory block.  The JAX package's persistent compile cache (ops/aot.py) has no
 counterpart: the kernels are built once per process (ops/kernels.py).
 """
 
@@ -96,6 +105,34 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md {item}")
 
 
+def _sli_phase_block(wave_phases: Dict[str, Dict[str, float]]) -> dict:
+    """Compact per-cycle phase summary for the flight recorder: per-phase
+    mean/max across the cycle's bound pods plus the worst pod's full phase
+    vector (a record stays a few hundred bytes at any wave size)."""
+    n = len(wave_phases)
+    total = {ph: 0.0 for ph in SLI_PHASES}
+    peak = {ph: 0.0 for ph in SLI_PHASES}
+    worst_uid, worst_sli, worst_vec = "", -1.0, {}
+    for uid, phases in wave_phases.items():
+        sli = sum(phases.values())
+        if sli > worst_sli:
+            worst_uid, worst_sli, worst_vec = uid, sli, phases
+        for ph, v in phases.items():
+            total[ph] += v
+            if v > peak[ph]:
+                peak[ph] = v
+    return {
+        "pods": n,
+        "mean_ms": {ph: round(total[ph] / n * 1e3, 3) for ph in SLI_PHASES},
+        "max_ms": {ph: round(peak[ph] * 1e3, 3) for ph in SLI_PHASES},
+        "worst": {
+            "pod": worst_uid,
+            "sli_ms": round(worst_sli * 1e3, 3),
+            "phases_ms": {ph: round(v * 1e3, 3) for ph, v in worst_vec.items()},
+        },
+    }
+
+
 class Scheduler:
     def __init__(
         self,
@@ -110,8 +147,6 @@ class Scheduler:
     ):
         from .tracing import TraceCollector, Tracer, default_collector
 
-        if checkpoint_dir or os.environ.get("KTPU_CHECKPOINT_DIR"):
-            raise _not_ported("the crash-restart checkpoint (checkpoint_dir / KTPU_CHECKPOINT_DIR)", "A14")
         if config.extenders:
             raise _not_ported("an HTTP scheduler extender (HTTPExtender)", "A14")
         # the batch cycle's device: the card unless the caller passes
@@ -134,7 +169,7 @@ class Scheduler:
         # simulated-process liveness: a kill.* chaos fault latches this (and
         # the module-wide chaos.killed()) so the dying instance's unwind —
         # deferred-bind flush, binding drains — does nothing a SIGKILL'd
-        # process couldn't
+        # process couldn't.  restart_scheduler() builds the replacement.
         self._dead = False
         # span tracing: callers may inject a TraceCollector (pass
         # TraceCollector(enabled=False) to opt out of all span allocation);
@@ -172,6 +207,9 @@ class Scheduler:
         # uid -> (kernel dispatch instant, decision-ready instant), consumed
         # at publication (deferred binds keep their marks until the flush)
         self._phase_marks: Dict[str, Tuple[float, float]] = {}
+        # uid -> phase vector of the pods bound this batch cycle (cleared at
+        # each cycle start): the flight recorder's per-cycle latency anatomy
+        self.last_wave_phases: Dict[str, Dict[str, float]] = {}
         self.events = EventRecorder(store=store, metrics=self.metrics)
         from .klog import Logger
 
@@ -246,6 +284,10 @@ class Scheduler:
         # directly-called schedule_batch() keeps its contract that binds
         # are store-visible on return
         self._cycle_streaming = False
+        # wave WAL: while a commit wave is between verdict and full
+        # publication, {"uids": [...], "verdict_crc": str} rides every
+        # checkpoint save so restore() can reconcile the killed wave
+        self._wave_wal: Optional[Dict] = None
         # node mesh for the batch path's sharded routed step: KTPU_MESH
         # wins, else the largest profile meshDevices from TPUScoreArgs.
         # None = one device, the default.  Both batch branches thread it
@@ -265,6 +307,24 @@ class Scheduler:
                 )
                 if md > 1:
                     self.mesh = mesh_from_env(str(md), source="meshDevices", devices=on)
+        # crash-consistent state (checkpoint.py): KTPU_CHECKPOINT_DIR (or the
+        # explicit arg) arms the checksummed checkpoint of the assumed-pod
+        # ledger + deferred-commit WAL + SLI arrival stamps — everything
+        # else rebuilds from the watch (crash-only).  The ledger checkpoints
+        # at every cache.assume/forget via the cache hook.
+        self._ckpt = None
+        ckpt_dir = checkpoint_dir or os.environ.get("KTPU_CHECKPOINT_DIR")
+        if ckpt_dir:
+            from .checkpoint import CheckpointManager
+
+            self._ckpt = CheckpointManager(ckpt_dir, metrics=self.metrics, logger=self.log)
+            self.cache.checkpoint_hook = self._checkpoint_state
+        # decision flight recorder: a bounded ring of per-cycle decision
+        # records, dumped into the checkpoint dir on a kill site or a wave
+        # recovery (recording is skipped without a directory)
+        from .flightrecorder import FlightRecorder
+
+        self._flight = FlightRecorder(directory=ckpt_dir)
         self._last_diagnosis: List[dict] = []
         # the device-memory ledger (KTPU_MEMWATCH) is ROADMAP A13: no
         # reader yet, so the cycle-boundary sample is skipped
@@ -656,25 +716,149 @@ class Scheduler:
             for f in pending:
                 f.result()
 
-    # --- process death (chaos kill.* sites) ---
+    # --- crash-restart & failover (checkpoint.py + leases.py) ---
     def _kill_point(self, site: str) -> None:
         """An enumerated process-death site: poke the injector and, when the
         plan kills here, mark this instance dead BEFORE the ProcessKilled
-        unwinds (its finally-blocks must behave like a SIGKILL'd process).
-        Nothing restarts it in the port yet (restart_scheduler, ROADMAP
-        A14)."""
+        unwinds (its finally-blocks must behave like a SIGKILL'd process)."""
         if not chaos.enabled():
             return
         try:
             chaos.poke(site, tracer=self.tracer, metrics=self.metrics)
         except chaos.ProcessKilled:
             self._dead = True
+            # black-box dump on the way down — diagnostic only, never read
+            # by restore() (flightrecorder.py)
+            try:
+                self._flight.dump(reason=site)
+            except Exception:  # noqa: BLE001 — evidence must not mask the kill
+                pass
             raise
 
+    def _checkpoint_state(self) -> None:
+        """Persist the crash-restart checkpoint (one fsync'd atomic file):
+        assumed-pod ledger + deferred-commit WAL + in-flight wave + SLI
+        arrival and pop ages — the state the watch cannot reconstruct.
+        Invoked from the cache hook at every assume/forget, at every WAL
+        append, at the wave WAL's clear, at flush completion and at the end
+        of restore()."""
+        if self._ckpt is None or self._dead or chaos.killed():
+            return
+        from .checkpoint import save_scheduler_state
+
+        save_scheduler_state(
+            self._ckpt,
+            self.cache.assumed_snapshot(),
+            [(p.uid, node) for p, node in self._deferred_binds],
+            self.queue.export_arrivals(),
+            lineage=self.store.lineage,
+            wave=self._wave_wal,
+            cursor=None,  # no open-loop replay driver in the port (ROADMAP A14)
+            popped=self.queue.export_popped(),
+        )
+
     def restore(self, killed_site: Optional[str] = None) -> Dict[str, int]:
-        """The restart/takeover protocol reads the crash-restart checkpoint,
-        which is not ported."""
-        raise _not_ported("Scheduler.restore (the restart protocol)", "A14")
+        """The restart/takeover protocol: load the checkpoint, reconcile it
+        against the relisted store, and leave the scheduler ready to resume.
+        Runs on a FRESH instance (the constructor's watch replay already
+        re-admitted every unbound pod and rebuilt the cache):
+
+          1. restore arrival and pop ages, the blackout since the last save
+             added to each (the SLI counts the dead time)
+          2. replay the deferred-commit WAL exactly once: an entry whose pod
+             is already bound was published before the kill (skip); an
+             unbound one's verdict was durably decided, so publish it now
+          3. count the assumed-but-unbound pods (their reservation died
+             with the process; the watch replay requeued them) and the
+             in-flight wave's unpublished remainder
+          4. invalidate the class state and drop the encoder: the
+             replacement's first cycle encodes cold and hoists in full
+
+        Safe when no checkpoint exists (a pure crash-only rebuild), and a
+        checkpoint of another cluster lineage is ignored.  killed_site (the
+        chaos kill.* site that felled the previous incarnation) labels the
+        recovery so injected and recovered counts reconcile.  Returns the
+        report dict."""
+        t0 = time.perf_counter()
+        report = {
+            "wal_applied": 0, "wal_skipped": 0, "reconciled_assumed": 0,
+            "restored_arrivals": 0, "restored_popped": 0, "wave_requeued": 0,
+        }
+        doc = None
+        if self._ckpt is not None:
+            from .checkpoint import load_scheduler_state
+
+            doc = load_scheduler_state(self._ckpt)
+        if doc is not None and doc["lineage"] != self.store.lineage:
+            # a checkpoint written against a DIFFERENT cluster: uids are
+            # deterministic (namespace/name), so its WAL could bind
+            # colliding pods of an unrelated workload — ignore it
+            self.log.V(1).info(
+                "Checkpoint from another cluster lineage ignored",
+                checkpoint_lineage=doc["lineage"], store_lineage=self.store.lineage,
+            )
+            doc = None
+        if doc:
+            dead_s = max(0.0, time.time() - doc["saved_wall"]) if doc["saved_wall"] else 0.0
+            report["restored_arrivals"] = self.queue.restore_arrivals(
+                {u: a + dead_s for u, a in doc["arrivals"].items()}
+            )
+            # a pod popped into a wave before the kill keeps its queue_wait;
+            # the dead time lands in wave_wait, where it passed
+            report["restored_popped"] = self.queue.restore_popped(
+                {u: a + dead_s for u, a in doc.get("popped", {}).items()}
+            )
+            node_names = set(self.store.list_node_names())
+            for uid, node in doc["wal"]:
+                cur = self.store.pods.get(uid)
+                if cur is None or node not in node_names:
+                    report["wal_skipped"] += 1  # pod/node gone while dead
+                    continue
+                if cur.node_name:
+                    report["wal_skipped"] += 1  # already applied before the kill
+                    continue
+                self._publish_bind(uid, node)
+                self.queue.delete(uid)  # drop the replay-admitted copy
+                report["wal_applied"] += 1
+            for uid, node in doc["assumed"].items():
+                cur = self.store.pods.get(uid)
+                if cur is not None and not cur.node_name:
+                    report["reconciled_assumed"] += 1
+            # the wave in flight at the kill splits three ways: published
+            # prefix (the store shows it), durable suffix (the WAL above),
+            # and the remainder the watch replay requeued — counted here
+            wave = doc.get("wave")
+            if wave:
+                wal_uids = {u for u, _ in doc["wal"]}
+                for uid in wave.get("uids", ()):
+                    cur = self.store.pods.get(uid)
+                    if cur is not None and not cur.node_name and uid not in wal_uids:
+                        report["wave_requeued"] += 1
+        # crash-only rule: the resident device state rebuilds from scratch
+        if self._hoist_cache is not None:
+            self._hoist_cache.invalidate()
+        self._delta_enc = None
+        self._deferred_binds = []
+        self.metrics.inc("scheduler_restarts_total")
+        self._checkpoint_state()  # persist the clean post-restore slate
+        dt = time.perf_counter() - t0
+        if self.tracer.enabled:
+            self.tracer.record_span("scheduler.restore", start=t0, end=t0 + dt, **report)
+        if killed_site is not None:
+            chaos.record_recovery(
+                killed_site, "restore", tracer=self.tracer,
+                metrics=self.metrics, start=t0, **report,
+            )
+        self.log.V(1).info("Scheduler state restored", **report)
+        return report
+
+    def detach(self) -> None:
+        """Disconnect a DEAD incarnation from the store's watch fan-out (the
+        OS reclaiming a killed process's watch connections).  The instance
+        stays inert afterwards (every drain/flush path returns on _dead)."""
+        self._dead = True
+        self.store.unwatch(self._on_event)
+        self.store.unwatch(self.cache._on_event)
 
     # --- the batch cycle ---
     def schedule_batch(self) -> Dict[str, Optional[str]]:
@@ -686,6 +870,9 @@ class Scheduler:
         Gang members always ride ONE program — the PodGroup's first-seen
         member's profile."""
         t0 = time.perf_counter()
+        if self.last_wave_phases:
+            # per-cycle phase anatomy: this cycle's binds repopulate it
+            self.last_wave_phases = {}
         self._sample_queue_depths()  # pre-drain: the activeQ's true depth
         batch: List[t.Pod] = self.queue.pop_all()
         if not batch:
@@ -993,6 +1180,19 @@ class Scheduler:
         # releases them
         assumed_now: List[str] = []
         done: set = set()  # pod names whose commit disposition fully landed
+        # wave WAL: before the first assume of this commit wave, record its
+        # membership + verdict crc in the checkpoint, so a kill anywhere
+        # inside the wave leaves restore() enough to reconcile it (built
+        # only when a checkpoint is armed: the crc is an O(P) pass; cleared
+        # and re-persisted once the wave fully lands)
+        if self._ckpt is not None:
+            from .flightrecorder import fingerprint
+
+            bound = {u: n for u, n in verdicts.items() if n is not None}
+            self._wave_wal = {
+                "uids": sorted(bound),
+                "verdict_crc": fingerprint({u: bound[u] for u in sorted(bound)}),
+            }
 
         def placed():
             """The cycle's arrays on the device; the native engine read the
@@ -1010,6 +1210,13 @@ class Scheduler:
         except Exception:
             self._release_crashed_commit(snap, done, assumed_now)
             raise
+        finally:
+            if self._wave_wal is not None:
+                self._wave_wal = None
+                # persist the cleared wave record; on a kill this is a no-op
+                # (_checkpoint_state returns on killed()), so the wave stays
+                # durable for the restore to reconcile
+                self._checkpoint_state()
         self._flight_record(profile_name, snap, result, len(failed), meta)
         return result, len(failed)
 
@@ -1061,10 +1268,36 @@ class Scheduler:
         return msgs
 
     def _flight_record(self, profile_name, snap, result, n_failed, meta) -> None:
-        """The decision flight recorder is ROADMAP A13; the JAX package
-        records nothing here without a checkpoint directory either, which
-        the port never has."""
-        return
+        """One compact decision record per profile batch for the flight
+        recorder's ring — fingerprints, not payloads.  Armed by the
+        checkpoint dir: without one nothing can ever dump the ring, so the
+        cycle skips even the O(P) fingerprint passes."""
+        if not self._flight.directory:
+            return
+        from .flightrecorder import fingerprint
+        from .tracing import current_trace_id
+
+        rec = {
+            "ts": time.time(),
+            "profile": profile_name,
+            "mode": self.config.mode,
+            "pods": len(snap.pending_pods),
+            "scheduled": sum(1 for v in result.values() if v),
+            "failed": n_failed,
+            "verdict_crc": fingerprint(result),
+            "trace_id": current_trace_id(),
+        }
+        if meta is not None:
+            rec["classes"] = meta.n_classes
+            if meta.pod_class is not None:
+                rec["class_crc"] = fingerprint(meta.pod_class)
+            rec["dirty_cols"] = int(meta.dirty_nodes.size) if meta.dirty_nodes is not None else -1
+        if self._last_diagnosis:
+            rec["diagnosis"] = self._last_diagnosis
+        if self.last_wave_phases:
+            # the latency anatomy of the pods bound this cycle (tracer-gated)
+            rec["sli_phases"] = _sli_phase_block(self.last_wave_phases)
+        self._flight.record(**rec)
 
     def _commit_profile_batch(
         self, profile_name, snap, verdicts, result, failed, defer_ok,
@@ -1091,6 +1324,9 @@ class Scheduler:
                     self._kill_point("kill.post_checkpoint")
                     if defer_ok and not pod.pvcs:
                         self._deferred_binds.append((pod, node_name))
+                        # WAL append before the publication window: a
+                        # restart replays this verdict exactly once
+                        self._checkpoint_state()
                         result[pod.name] = node_name
                         done.add(pod.name)
                         continue
@@ -1299,6 +1535,9 @@ class Scheduler:
             "scheduler.step", "serial_replay", tracer=self.tracer,
             metrics=self.metrics, start=t0, error=type(err).__name__,
         )
+        # a wave that needed serial replay is parity evidence: dump the
+        # decision ring next to the checkpoint
+        self._flight.dump(reason=f"wave_recovery:{type(err).__name__}")
         return choices, ords, sweeps
 
     def _flush_deferred_binds(self) -> None:
@@ -1334,6 +1573,9 @@ class Scheduler:
             # assumes stay held) so a later flush or drain retries them
             self._deferred_binds = binds[k:] + self._deferred_binds
             raise
+        # flush complete: the WAL drains with it (a later restart must not
+        # replay what the store already shows)
+        self._checkpoint_state()
         dt = time.perf_counter() - t0
         self.metrics.observe("pipeline_deferred_commit_seconds", dt)
         if self.tracer.enabled:
@@ -1392,6 +1634,10 @@ class Scheduler:
         }
         for ph, v in phases.items():
             self._phase_hists[ph].observe(v)
+        if marks is not None:
+            # batch-wave pods only: the flight recorder's per-cycle latency
+            # anatomy (cleared at each batch-cycle start, so bounded)
+            self.last_wave_phases[pod_uid] = phases
 
     def _observe_wave_latency(
         self, ordinals: np.ndarray, t_kernel: float, sweeps: int,
@@ -1488,29 +1734,100 @@ class Scheduler:
 
 
 def reincarnate(dead: Scheduler) -> Scheduler:
-    """Builds a dead scheduler's replacement for the restart protocol, which
-    reads the crash-restart checkpoint: not ported."""
-    raise _not_ported("reincarnate (the restart protocol)", "A14")
+    """Build (but do NOT restore) the replacement incarnation on a dead
+    scheduler's store: the same config, checkpoint dir and device, sharing
+    the collector, Metrics, backoff clock, PodGroups and event sink (the
+    apiserver's, which outlives the process).  The constructor's watch
+    replay re-admits every unbound pod; the caller (restart_scheduler or an
+    HAReplica takeover) runs restore()."""
+    sched = Scheduler(
+        dead.store,
+        dead.config,
+        clock=dead.queue.clock,
+        collector=dead.collector,
+        metrics=dead.metrics,
+        checkpoint_dir=dead._ckpt.directory if dead._ckpt is not None else None,
+        device=dead.device,
+    )
+    sched.cache.pod_groups.update(dead.cache.pod_groups)
+    sched.events = dead.events
+    return sched
 
 
 def restart_scheduler(dead: Scheduler, killed_site: Optional[str] = None) -> Scheduler:
-    """The crash-restart driver step: not ported."""
-    raise _not_ported("restart_scheduler (the restart protocol)", "A14")
+    """The crash-restart driver step: detach the killed incarnation's watch
+    subscriptions, clear the kill latch, and bring up + restore() the
+    replacement on the SAME store.  killed_site (ProcessKilled.fault.site)
+    labels the recovery."""
+    dead.detach()
+    chaos.revive()
+    sched = reincarnate(dead)
+    sched.restore(killed_site=killed_site)
+    return sched
 
 
 def run_restartable(sched: Scheduler, max_restarts: int = 64) -> Tuple[Scheduler, int]:
-    """run_until_idle across kill.* faults by restart from the checkpoint:
-    not ported."""
-    raise _not_ported("run_restartable (the restart protocol)", "A14")
+    """Drive run_until_idle across kill.* chaos faults: every ProcessKilled
+    is answered with restart_scheduler and the loop resumes on the
+    replacement.  Returns (final incarnation, #restarts).  Other exceptions
+    propagate untouched."""
+    restarts = 0
+    while True:
+        try:
+            sched.run_until_idle()
+            return sched, restarts
+        except chaos.ProcessKilled as e:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            sched = restart_scheduler(sched, killed_site=e.fault.site)
 
 
 def run_ha_restartable(sched: Scheduler, lease_duration_s: float = 0.25,
                        max_restarts: int = 64) -> Tuple[Scheduler, int]:
-    """run_restartable with leader-elected standby takeover: not ported."""
-    raise _not_ported("run_ha_restartable (leases and standby takeover)", "A14")
+    """run_restartable with the active/standby protocol: every kill is
+    answered by a standby's leader takeover (leases.py — HAReplica), so
+    every blackout lands in `failover_duration_seconds` and
+    `leader_election_transitions_total`.  The short default lease keeps
+    blackouts in fractions of a second (client-go's default is 15 s)."""
+    from .leases import LeaderElector, LeaseStore
+
+    leases = LeaseStore()  # real clock: blackouts are real wall time
+    leader = LeaderElector(leases, "sched-0", lease_duration_s=lease_duration_s)
+    leader.tick()  # incarnation 0 is the initial leader
+    restarts = 0
+    while True:
+        try:
+            sched.run_until_idle()
+            return sched, restarts
+        except chaos.ProcessKilled as e:
+            restarts += 1
+            if restarts > max_restarts:
+                raise
+            sched, leader = ha_takeover(
+                sched, leases, leader, killed_site=e.fault.site,
+                lease_duration_s=lease_duration_s, name=f"sched-{restarts}",
+            )
 
 
 def ha_takeover(dead: Scheduler, leases, leader, killed_site: Optional[str],
-                lease_duration_s: float = 0.25, name: str = "sched-standby"):
-    """One standby leader takeover: not ported."""
-    raise _not_ported("ha_takeover (leases and standby takeover)", "A14")
+                lease_duration_s: float = 0.25,
+                name: str = "sched-standby") -> Tuple[Scheduler, object]:
+    """One standby leader takeover over a just-killed leader.  The leader's
+    final renewal is modelled at the death instant, so the standby's
+    blackout measures death -> takeover (one lease expiry + build and
+    restore).  Returns (restored replacement, its elector)."""
+    from .leases import HAReplica
+
+    leader.tick()
+    dead.detach()
+    chaos.revive()  # the latch belongs to the dead leader
+    standby = HAReplica(
+        name, leases, lambda d=dead: reincarnate(d),
+        lease_duration_s=lease_duration_s,
+        metrics=dead.metrics, tracer=dead.tracer, killed_site=killed_site,
+    )
+    # tick on the retry period until the dead leader's lease decays
+    while not standby.tick():
+        time.sleep(lease_duration_s / 10.0)
+    return standby.scheduler, standby.elector

@@ -9,7 +9,10 @@
 - over a churn of cycles (a few nodes dirty, none, most, a static field
   replaced) the port's HoistCache takes the JAX HoistCache's actions, keeps
   its stats and holds the same matrices, and never writes into the class
-  state it handed out earlier.  Tolerance: none.
+  state it handed out earlier;
+- under KTPU_INCREMENTAL=0 ensure returns None and counts `disabled` as
+  the JAX one does, and a Scheduler's cycle routes without class state
+  with the JAX Scheduler's HoistCache stats and verdicts.  Tolerance: none.
 """
 
 import dataclasses
@@ -181,3 +184,43 @@ def test_degenerate_and_missing_class_index():
         meta, pod_class=meta.pod_class[:2], class_first_pod=np.array([0, 1])), cfg) is None
     assert cache.last["action"] == "skipped_degenerate"
     assert cache.stats["skipped"] == 2
+
+
+def test_incremental_knob_off_matches_jax(monkeypatch):
+    """KTPU_INCREMENTAL=0: HoistCache.ensure returns None and counts
+    `disabled`, as the JAX one does; the Scheduler's cycles then route with
+    no class state (the port's routes), with the JAX Scheduler's HoistCache
+    stats and verdicts (both sides under KTPU_FORCE_CHUNKED=1, where the
+    JAX package builds class state on the CPU).  With the knob on, the same
+    cycle routes on class state in both."""
+    from helpers import mk_node, mk_pod
+    from kubernetes_tpu_torch.ops import assign
+    from torch_scheduler_sides import Side, observe
+
+    ja, jm = DeltaEncoder().encode(random_cluster(random.Random(21), n_nodes=48, n_pods=200, with_selectors=True))
+    arr, meta = _carry(ja, jm)
+    monkeypatch.setenv("KTPU_INCREMENTAL", "0")
+    jcache, tcache = jinc.HoistCache(), HoistCache()
+    assert jcache.ensure(ja, jm, jax_infer(ja, JAX_DEFAULT)) is None
+    assert tcache.ensure(arr, meta, infer_score_config(arr, DEFAULT_SCORE_CONFIG)) is None
+    assert tcache.stats == jcache.stats and tcache.stats["disabled"] == 1 and tcache.history == []
+
+    monkeypatch.setenv("KTPU_FORCE_CHUNKED", "1")
+    seen = {}
+    for knob in ("1", "0"):
+        monkeypatch.setenv("KTPU_INCREMENTAL", knob)
+        for name in ("jax", "port"):
+            x = Side(name)
+            assign.reset_trace_counts()
+            store, sched = x.cluster(nodes=[mk_node(f"n{i}", cpu=3000, pods=16) for i in range(5)])
+            for i in range(20):
+                store.add_pod(mk_pod(f"p{i}", cpu=250))
+            sched.run_until_idle()
+            hc = sched._hoist_cache
+            seen[knob, name] = (observe(store, sched), hc.stats, [h["action"] for h in hc.history])
+            if name == "port":
+                seen[knob, "routes"] = {k for k, v in assign.TRACE_COUNTS.items() if v}
+        assert seen[knob, "port"] == seen[knob, "jax"]
+    assert seen["0", "port"][1]["disabled"] == 1 and seen["0", "port"][2] == []
+    assert seen["1", "port"][2] == ["static_rebuild"] and seen["0", "port"][0] == seen["1", "port"][0]
+    assert seen["1", "routes"] == {"rounds_inc"} and not {r for r in seen["0", "routes"] if "inc" in r or "wave" in r}

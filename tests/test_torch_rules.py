@@ -39,9 +39,9 @@ for m in mods:
 # sidecar (its wire, metrics, tracing and lock checker), the node mesh
 # (its request grammar, padding, collectives, sharded step and ring layer)
 # the Scheduler (its store, queue, cache, CPU plugins with the oracle's
-# helpers, and the harness that measures it) and the host-side native code
-# (the C++ engine's loader, its static stage, the C interner's loader) are
-# among them
+# helpers, and the harness that measures it), the host-side native code
+# (the C++ engine's loader, its static stage, the C interner's loader) and
+# the crash restart (checkpoint, flight recorder, leases) are among them
 assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
         "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
         "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench",
@@ -55,7 +55,9 @@ assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipelin
         "kubernetes_tpu_torch.scheduler.queue", "kubernetes_tpu_torch.scheduler.cache",
         "kubernetes_tpu_torch.scheduler.plugins.cpu", "kubernetes_tpu_torch.oracle.reference",
         "kubernetes_tpu_torch.bench.harness", "kubernetes_tpu_torch.native",
-        "kubernetes_tpu_torch.native.static_np", "kubernetes_tpu_torch.native.pyintern"} <= set(mods), mods
+        "kubernetes_tpu_torch.native.static_np", "kubernetes_tpu_torch.native.pyintern",
+        "kubernetes_tpu_torch.scheduler.checkpoint", "kubernetes_tpu_torch.scheduler.flightrecorder",
+        "kubernetes_tpu_torch.scheduler.leases"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked

@@ -31,6 +31,7 @@ tests/test_torch_scheduler_preempt.py.
 """
 
 import copy
+import json
 import random
 
 import pytest
@@ -777,7 +778,10 @@ def test_scheduler_on_a_node_mesh_matches_jax(monkeypatch):
     assert got == want
 
 
-def test_refusals():
+def test_refusals(tmp_path):
+    """What the port still refuses (a card it does not have, HTTP
+    extenders), and what it no longer refuses: a checkpoint dir arms the
+    crash-restart checkpoint, and restore and the restart drivers run."""
     from kubernetes_tpu_torch.scheduler import scheduler as ts
     from kubernetes_tpu_torch.scheduler.extender import ExtenderConfig
 
@@ -786,25 +790,34 @@ def test_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             x.S.Scheduler(store, x.cfg("tpu"))
-    with pytest.raises(NotImplementedError, match="A14"):
-        x.S.Scheduler(store, x.cfg("tpu"), device="cpu", checkpoint_dir="ckpt")
+    armed = x.S.Scheduler(store, x.cfg("tpu"), device="cpu", checkpoint_dir=str(tmp_path / "ckpt"))
+    assert armed._ckpt.directory == str(tmp_path / "ckpt") and armed._flight.directory == armed._ckpt.directory
     with pytest.raises(NotImplementedError, match="A14"):
         x.S.Scheduler(store, x.cfg("tpu", extenders=(ExtenderConfig(url_prefix="http://127.0.0.1:1"),)),
                       device="cpu")
     sched = x.S.Scheduler(store, x.cfg("cpu"))  # the per-pod cycle needs no card
     assert sched.device is None and sched.mesh is None
-    for fn in (lambda: sched.restore(), lambda: ts.reincarnate(sched), lambda: ts.restart_scheduler(sched),
-               lambda: ts.run_restartable(sched), lambda: ts.run_ha_restartable(sched),
-               lambda: ts.ha_takeover(sched, None, None, None)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            fn()
+    assert sched.restore()["wal_applied"] == 0
+    assert ts.run_restartable(sched)[1] == 0 and ts.run_ha_restartable(sched)[1] == 0
+    again = ts.restart_scheduler(sched)
+    assert again is not sched and sched._dead and again.metrics is sched.metrics
+    assert sched.metrics.counters["scheduler_restarts_total"] == 2
 
 
-def test_checkpoint_dir_env_is_refused(monkeypatch):
-    x = Side("port")
-    monkeypatch.setenv("KTPU_CHECKPOINT_DIR", "ckpt")
-    with pytest.raises(NotImplementedError, match="A14"):
-        x.S.Scheduler(x.S.ClusterStore(), x.cfg("cpu"))
+def test_checkpoint_dir_env_is_refused(monkeypatch, tmp_path):
+    """KTPU_CHECKPOINT_DIR is no longer refused: it arms the checkpoint as
+    the JAX package's does, and both write the same document."""
+    docs = []
+    for x in (Side("jax"), Side("port")):
+        monkeypatch.setenv("KTPU_CHECKPOINT_DIR", str(tmp_path / x.name))
+        store, sched = x.cluster("tpu")
+        store.add_pod(mk_pod("w0", cpu=100))
+        sched._checkpoint_state()
+        with open(tmp_path / x.name / "scheduler_state.json") as f:
+            doc = json.load(f)["data"]
+        docs.append({k: (sorted(v) if k in ("arrivals", "popped") else v) for k, v in doc.items()
+                     if k not in ("saved_at", "saved_wall", "lineage")})
+    assert docs[0] == docs[1] and docs[1]["arrivals"] == ["default/w0"]
 
 
 def test_event_recorder_drop_accounting_matches_jax():

@@ -20,8 +20,8 @@ the deferred binds):
     releases the cycle's assumptions and requeues the stranded pods;
   - a crash mid-flush of the deferred binds, which keeps the tail;
   - the process-death points (kill.*): the instance latches dead and drains
-    nothing.  Nothing restarts it in the port (ROADMAP A14), so a case
-    holds the state a restart would find.
+    nothing; a case holds the state a restart would find (the restart
+    itself: tests/test_torch_crash_restart.py).
 """
 
 import contextlib

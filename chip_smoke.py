@@ -398,7 +398,26 @@ C++ engine of the Scheduler's mode="native") are built with them:
                      beside the un-killed one's; then pipeline.step error@2
                      and nan@2 through PipelinedBatchLoop alone: one wave
                      recovered by the serial replay on the card (the dense
-                     route), the same digests.
+                     route), the same digests;
+  [control-plane]    last, after every phase that times a kernel: the
+                     control plane end to end (bench/control_plane.py
+                     run at control_plane.FULL: 5000 hollow nodes, 50
+                     Deployments of 600 replicas, 30000 pods, a Service
+                     each): the JSON manifest created through the
+                     apiserver's handler chain with an admin token, then
+                     rounds of the controllers, the Scheduler
+                     (mode="tpu" on the card, traced), the hollow kubelets
+                     and the proxier on a FakeClock until every replica is
+                     Running and routed; kubectl scale (+10%) and drain
+                     (a trickle of a few pods: the per-pod route, K1 + K2)
+                     and 1% of the pods deleted, each converged: the JAX
+                     package's digest (workloads.CONTROL_PLANE_DIGEST:
+                     every pod's node, phase, IP, restart count and
+                     readiness, the EndpointSlices, the Scheduler's
+                     events), the rounds, the walls (apply to all Running,
+                     pods/s, each component's sum), the Scheduler's cycles
+                     with their batch sizes and span split, and the
+                     launches of K3-K6 and K1 + K2.
 
 Each route is counted on its own: every launch count is set to 0 just
 before the route runs and read just after, and a kernel of the route that
@@ -3767,6 +3786,54 @@ def phase_stream_restart(cold, card: str) -> None:
     print(f"[stream-restart] phase {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
 
 
+def phase_control_plane(card: str) -> None:
+    """The control plane around the Scheduler on the card (the module
+    docstring's [control-plane]): every count set to 0 just before the run
+    and read just after; the JAX digest, K3-K6 and K1 + K2 launched."""
+    import torch
+
+    t_phase = time.perf_counter()
+
+    from kubernetes_tpu_torch.bench import control_plane as cp
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import assign, kernels
+    from kubernetes_tpu_torch.scheduler.tracing import TraceCollector
+
+    col = TraceCollector(capacity=1 << 19, enabled=True)
+    kernels.reset_launches()
+    assign.reset_trace_counts()
+    r = cp.run(**cp.FULL, device="cuda", collector=col,
+               log=lambda s: print(f"[control-plane] {s}", flush=True))
+    torch.cuda.synchronize()
+    launches = counted()
+    routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
+    cycles = [int(sp.attributes.get("pods", 0)) for sp in col.spans() if sp.name == "batch.cycle"]
+    split = span_split(col)
+    walls = r["walls"]
+    print(f"[control-plane] {r['nodes']} nodes, {r['pods']} pods ({r['final_pods']} at the end), "
+          f"{r['objects']} manifest objects: {r['rounds']} rounds (up {r['rounds_up']}, scale "
+          f"{r['rounds_scale']}, drain {r['rounds_drain']} of {r['drain_pods']} pods, delete "
+          f"{r['rounds_churn']} of {r['deleted']}); apply {r['apply_s']:.3f} s, apply to all Running "
+          f"{r['up_s']:.3f} s ({r['pods'] / r['up_s']:.1f} pods/s), the churn {r['churn_s']:.3f} s, "
+          f"whole {r['wall_s']:.3f} s; {card}", flush=True)
+    print(f"[control-plane] summed walls (s): controllers {walls['controllers']:.3f}, scheduler "
+          f"{walls['scheduler']:.3f}, kubelets {walls['kubelets']:.3f}, proxy {walls['proxy']:.3f}; "
+          f"share of the whole: controllers {walls['controllers'] / r['wall_s']:.3f}", flush=True)
+    print(f"[control-plane] the Scheduler: {len(cycles)} batch cycles, sizes {cycles}; span split (host s, "
+          f"traced): {split_text(split)}; routes {routes}; launches {launches}; events {r['events']}; "
+          f"digest {r['digest']}", flush=True)
+    check(r["digest"] == w.CONTROL_PLANE_DIGEST,
+          f"control-plane: digest {r['digest']} differs from the JAX package's {w.CONTROL_PLANE_DIGEST}")
+    check({k: r[k] for k in w.CONTROL_PLANE_WANT} == w.CONTROL_PLANE_WANT,
+          f"control-plane: {({k: r[k] for k in w.CONTROL_PLANE_WANT})} differs from the JAX run's "
+          f"{w.CONTROL_PLANE_WANT}")
+    need = WAVE_KERNELS + ("static_feasible", "fit_scan")
+    check(set(need) <= set(launches), f"control-plane: launches {launches}, want every one of {need}")
+    check(any(0 < n <= 8 for n in cycles), f"control-plane: no cycle of 1-8 pods in {cycles}")
+    del r
+    print(f"[control-plane] phase {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+
+
 def phase_env() -> None:
     """Whether the sidecar's wire modules exist on this machine (no phase
     depends on it)."""
@@ -4795,6 +4862,7 @@ def main() -> int:
     phase_dcn(used_sha, c3_used_sha)
     phase_scheduler_restart(card, unkilled4_s)
     phase_stream_restart(cold, card)
+    phase_control_plane(card)
     for row in rows:
         row["launches_run"] = RUN_LAUNCHES.get(launch_key(row["name"]), 0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -74,6 +74,18 @@ scheduler.run_restartable / run_ha_restartable answer a kill with a
 restart or a standby's lease takeover; parallel/pipeline.py
 run_stream_restartable does the same for a stream of waves.
 
-Not ported (ROADMAP.md queue A): HTTP extenders and the other host-only
-modules (A14), the device-memory ledger (A13).
+The control plane is ported too: kubectl (kubectl.py) -> the apiserver's
+handler chain (scheduler/apiserver.py: authentication, API Priority and
+Fairness, RBAC, admission, the registry, CRDs) -> the controllers
+(scheduler/controllers.py ControllerManager: Deployments, ReplicaSets,
+Jobs, the garbage collector, EndpointSlices, ...) -> the Scheduler -> the
+hollow kubelets (scheduler/kubelet.py HollowCluster, behind a fake CRI),
+with HTTP extenders in the Scheduler's per-pod cycle:
+
+    python -m kubernetes_tpu_torch.kubectl --manifests cluster.json get pods
+
+Not ported (ROADMAP.md queue A): the device-memory ledger and the other
+observability modules (A13), the benchmark drivers (the rest of A14).
 """
+
+__version__ = "0.1.0"

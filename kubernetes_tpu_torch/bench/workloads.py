@@ -557,6 +557,15 @@ SCHEDULER_BASELINE = {
     "config3": ("spread_affinity", (5000, 10000), dict(scheduled=10000, unschedulable=0, batches=1,
                 bindings="79cb820f4b69e14067fb1c68bef2d054ea97e424d81757f795a6e0c9fec70328")),
 }
+# The control plane at bench/control_plane.py FULL (5000 nodes, 50
+# Deployments of 600 replicas): the JAX package's modules driven by the
+# same scenario in mode="tpu" (KTPU_FORCE_CHUNKED=1 KTPU_MEMWATCH=0
+# JAX_PLATFORMS=cpu python tests/torch_control_plane_reference.py): the
+# digest over every pod, EndpointSlice and Scheduler event, and the run's
+# counts.  The port's mode="native" on the CPU gives the same.
+CONTROL_PLANE_DIGEST = "57e064ddc5558b6693ccbb7f947cbdd3547d158021cf4800031bcec298a0f171"
+CONTROL_PLANE_WANT = dict(rounds=8, rounds_up=2, rounds_scale=2, rounds_drain=2, rounds_churn=2, deleted=300,
+                          drain_pods=5, final_pods=30060, events={"Scheduled": 30365})
 
 
 def two_profile_split(snap):

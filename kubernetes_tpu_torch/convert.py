@@ -13,9 +13,14 @@ index (``pod_class`` / ``class_first_pod``), so the port's HoistCache and
 class-wave route can be fed exactly the JAX encoder's inputs.
 
 ``from_jax_objects`` carries cluster state across: the JAX package's
-objects (nodes, pods, PDBs, PVs, PVCs, StorageClasses, ResourceSlices,
-DeviceClasses, pod groups, snapshots, and what they hold) rebuilt as the
-port's types of the same class names, field by field.  It reads only the
+objects (nodes and pods with every field, their owner references and
+probes; PDBs, PVs, PVCs, StorageClasses, ResourceSlices, DeviceClasses,
+pod groups, snapshots; the workload kinds ReplicaSet, Deployment, Job,
+StatefulSet, DaemonSet, CronJob and HPA; Services, EndpointSlices,
+Namespaces, PriorityClasses, quotas, limit ranges, RBAC and flow-control
+objects, ResourceClaims, CSRs; CRDs and custom resources; and what they
+hold) rebuilt as the port's types of the same class names, field by
+field.  It reads only the
 objects themselves (dataclass fields and class names), so it needs nothing
 of the JAX package: the tests load one seeded cluster into both packages'
 stores this way.
@@ -32,8 +37,9 @@ from .api import cluster as _cluster
 from .api import snapshot as _snapshot
 from .api import types as _types
 from .api.snapshot import ClusterArrays, EncodingMeta
+from .scheduler import crd as _crd
 
-_MODULES = (_types, _cluster, _snapshot)
+_MODULES = (_types, _cluster, _snapshot, _crd)
 
 
 def _port_class(name: str):
@@ -47,17 +53,15 @@ def _port_class(name: str):
 def from_jax_objects(obj):
     """`obj` (an object of the JAX package's api types, or a list / tuple /
     dict of them, nested) as the port's types: the port's fields, the same
-    values.  A field the port's type does not have is left behind (the
-    control plane's: owner references, probes, lifecycle knobs)."""
+    values, every field carried."""
     if isinstance(obj, (list, tuple)):
         return type(obj)(from_jax_objects(x) for x in obj)
     if isinstance(obj, dict):
         return {k: from_jax_objects(x) for k, x in obj.items()}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         cls = _port_class(type(obj).__name__)
-        names = {f.name for f in dataclasses.fields(cls) if f.init}
         return cls(**{f.name: from_jax_objects(getattr(obj, f.name))
-                      for f in dataclasses.fields(obj) if f.name in names})
+                      for f in dataclasses.fields(obj) if f.init})
     return obj
 
 

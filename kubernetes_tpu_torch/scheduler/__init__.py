@@ -19,10 +19,17 @@ victim search), ``metrics.Metrics``, ``tracing``, and the crash restart:
 ``checkpoint`` (the fsync'd checkpoint a ``checkpoint_dir`` arms),
 ``flightrecorder`` (the decision black box), ``leases`` (leader election,
 ``HAReplica``'s standby takeover) and the drivers ``run_restartable``,
-``run_ha_restartable``, ``restart_scheduler`` and ``reincarnate``.  HTTP
-extenders (ROADMAP.md A14) and the device-memory ledger (A13) are not
-ported.  mode="native" runs the batch cycle on the host's C++ engine
-(native/).
+``run_ha_restartable``, ``restart_scheduler`` and ``reincarnate``; HTTP
+extenders (``extender.HTTPExtender``) in the per-pod cycle.  mode="native"
+runs the batch cycle on the host's C++ engine (native/).
+
+The control plane around it: ``apiserver.APIServer`` (authn -> APF ->
+RBAC -> admission -> registry, with ``auth``, ``flowcontrol``,
+``admission`` and ``crd``), ``controllers.ControllerManager`` (the
+workload controllers and the garbage collector), ``kubelet.HollowCluster``
+(hollow kubelets behind ``cri``, with ``cm`` and ``devicemanager``),
+``network`` (EndpointSlices and the proxier) and ``disruption``; the
+device-memory ledger (ROADMAP.md A13) is not ported.
 """
 
 from .cache import SchedulerCache  # noqa: F401

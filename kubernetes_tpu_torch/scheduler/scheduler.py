@@ -62,10 +62,13 @@ run_ha_restartable with a standby's lease takeover (ha_takeover).  Without
 a directory the restart is crash-only: everything rebuilds from the
 store's watch replay.
 
-Not ported, refused with NotImplementedError naming its ROADMAP item: HTTP
-extenders (A14).  The device-memory ledger is A13: KTPU_MEMWATCH has no
-reader yet, and a flight record carries no memory block.  The JAX package's persistent compile cache (ops/aot.py) has no
-counterpart: the kernels are built once per process (ops/kernels.py).
+HTTP extenders (extender.py HTTPExtender) take part in the per-pod cycle
+as in the JAX package: Filter prunes the feasible nodes, Prioritize adds
+its scores, a binder extender binds, and DefaultPreemption offers
+ProcessPreemption its candidates.  The device-memory ledger is ROADMAP
+A13: KTPU_MEMWATCH has no reader yet, and a flight record carries no
+memory block.  The JAX package's persistent compile cache (ops/aot.py) has
+no counterpart: the kernels are built once per process (ops/kernels.py).
 """
 
 from __future__ import annotations
@@ -99,10 +102,6 @@ from .queue import (
 from .state import ScaledState
 from .store import ClusterStore, Event, replace_pod_nodename
 from ..analysis.lockcheck import make_lock
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: see ROADMAP.md {item}")
 
 
 def _sli_phase_block(wave_phases: Dict[str, Dict[str, float]]) -> dict:
@@ -147,8 +146,6 @@ class Scheduler:
     ):
         from .tracing import TraceCollector, Tracer, default_collector
 
-        if config.extenders:
-            raise _not_ported("an HTTP scheduler extender (HTTPExtender)", "A14")
         # the batch cycle's device: the card unless the caller passes
         # device="cpu" (device.resolve_device raises without a card); the
         # per-pod cycle touches no tensor.  The native engine reads host
@@ -214,9 +211,11 @@ class Scheduler:
         from .klog import Logger
 
         self.log = (logger or Logger()).with_values(component="scheduler")
-        # extenders are refused above (HTTPExtender is ROADMAP A14): the
-        # plugins and the binding cycle see none
-        self.extenders: list = []
+        from .extender import HTTPExtender
+
+        # HTTP extenders: Filter and Prioritize in the per-pod cycle, the
+        # binder in its binding cycle, ProcessPreemption in DefaultPreemption
+        self.extenders = [HTTPExtender(e) for e in config.extenders]
         self._bind_pool = None
         self._bind_lock = make_lock("Scheduler._bind_lock")
         self._bind_futures: list = []
@@ -509,6 +508,47 @@ class Scheduler:
                 sp.attributes["node"] = node or ""
             return node
 
+    def _extender_filter(self, pod, infos, feasible, statuses):
+        """findNodesThatPassExtenders: each extender prunes the feasible set;
+        transport failure from a non-ignorable extender fails the cycle."""
+        from .extender import ExtenderError
+
+        if not self.extenders or not feasible:
+            return feasible, statuses, True
+        names = [infos[i].node.name for i in feasible]
+        for ext in self.extenders:
+            if not ext.cfg.filter_verb:
+                continue
+            try:
+                names, failed = ext.filter(pod, names)
+            except ExtenderError as e:
+                if ext.cfg.ignorable:
+                    continue
+                statuses["*extender*"] = Status.unschedulable(str(e))
+                return [], statuses, False
+            for node, reason in failed.items():
+                statuses[node] = Status.unschedulable(f"extender: {reason}")
+        keep = set(names)
+        return [i for i in feasible if infos[i].node.name in keep], statuses, True
+
+    def _extender_prioritize(self, pod, chosen, scores):
+        from .extender import ExtenderError
+
+        if not self.extenders:
+            return scores
+        names = [info.node.name for info in chosen]
+        scores = list(scores)
+        for ext in self.extenders:
+            if not ext.cfg.prioritize_verb:
+                continue
+            try:
+                prio = ext.prioritize(pod, names)
+            except ExtenderError:
+                continue  # a failed prioritize zeroes that extender's votes
+            for j, name in enumerate(names):
+                scores[j] += prio.get(name, 0.0)
+        return scores
+
     def _schedule_one_cycle(self, pod: t.Pod) -> Optional[str]:
         from ..api.volumes import resolve_snapshot
 
@@ -528,6 +568,20 @@ class Scheduler:
         statuses: Dict[str, Status] = {}
         if st.ok:
             feasible, statuses = self._find_feasible(state, snap, pod, infos)
+            feasible, statuses, ext_ok = self._extender_filter(
+                pod, infos, feasible, statuses
+            )
+            if not ext_ok:
+                # extender transport failure is a cycle ERROR, not an
+                # unschedulable verdict: no preemption (the retry hits the
+                # same dead extender); the pod just backs off
+                self.events.record(
+                    "FailedScheduling", pod.uid,
+                    message=str(statuses.get("*extender*", "extender error")),
+                )
+                self.queue.add_unschedulable(pod, backoff=True)
+                self.metrics.inc("scheduling_attempts_error")
+                return None
         if not feasible:
             nominated, pst = fw.run_post_filters(state, snap, pod, statuses)
             # fitError-shaped diagnosis from the per-plugin statuses this
@@ -587,6 +641,7 @@ class Scheduler:
         chosen = [infos[i] for i in feasible]
         fw.run_pre_score(state, snap, pod, chosen)
         scores = fw.run_scores(state, snap, pod, chosen)
+        scores = self._extender_prioritize(pod, chosen, scores)
         best = feasible[int(np.argmax(scores))]  # first max == lowest node index
         node_name = infos[best].node.name
         # assume: the assumed pod occupies capacity for the NEXT pod's cycle
@@ -664,7 +719,19 @@ class Scheduler:
         fw = self._fw(pod) or self.framework
         st = fw.run_pre_bind(state, snap, pod, node_name)
         if st.ok:
-            st = fw.run_bind(state, snap, pod, node_name)
+            binder = next((e for e in self.extenders if e.cfg.bind_verb), None)
+            if binder is not None:
+                # an extender binder takes precedence (extender.go —
+                # IsBinder); the in-process store stands in for the
+                # apiserver the extender would POST the Binding to
+                err = binder.bind(pod, node_name)
+                if err is None:
+                    self.store.bind(pod.uid, node_name)
+                    st = Status()
+                else:
+                    st = Status.unschedulable(f"extender bind: {err}")
+            else:
+                st = fw.run_bind(state, snap, pod, node_name)
         if not st.ok:
             self.cache.forget(pod.uid)
             self.queue.add_unschedulable(pod, backoff=True)

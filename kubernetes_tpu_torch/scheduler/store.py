@@ -22,7 +22,9 @@ mutating bindings in-process, so CAS degenerates to serialized apply.
 
 The port's copy of the JAX package's ``scheduler/store.py``: the same
 tables, watch fan-out and event order (the Scheduler's decisions depend on
-the order its queue receives pods).
+the order its queue receives pods).  One addition: ``pods_on_node``, a
+node's bound pods from an index that every pod write keeps, so a hollow
+kubelet's pod-IP search reads its own node's pods, not every pod.
 """
 
 from __future__ import annotations
@@ -104,6 +106,10 @@ class ClusterStore:
         self.pdbs: Dict[str, t.PodDisruptionBudget] = {}  # by namespace/name
         self.pvs: Dict[str, t.PersistentVolume] = {}  # by name
         self.pvcs: Dict[str, t.PersistentVolumeClaim] = {}  # by namespace/name
+        # the bound pods of `pods` by node as each pod write below left
+        # them (pods_on_node): node name -> uids, and uid -> node name
+        self._on_node: Dict[str, set] = {}
+        self._node_of: Dict[str, str] = {}
         # dynamic kind registry: kind -> {key -> obj}
         self.objects: Dict[str, Dict[str, object]] = {k: {} for k in BUILTIN_KINDS}
         self._watchers: List[Callable[[Event], None]] = []
@@ -181,15 +187,29 @@ class ClusterStore:
                 self._emit(Event("Deleted", "Node", nd, self._bump()))
 
     # --- pods ---
+    def _put_pod(self, pod: t.Pod) -> Optional[t.Pod]:
+        """pods[pod.uid] = pod, the node index kept; the pod it replaced."""
+        old = self.pods.get(pod.uid)
+        self.pods[pod.uid] = pod
+        self._unindex(pod.uid)
+        if pod.node_name:
+            self._on_node.setdefault(pod.node_name, set()).add(pod.uid)
+            self._node_of[pod.uid] = pod.node_name
+        return old
+
+    def _unindex(self, uid: str) -> None:
+        node = self._node_of.pop(uid, None)
+        if node is not None:
+            self._on_node[node].discard(uid)
+
     def add_pod(self, pod: t.Pod) -> None:
         with self._lock:
-            self.pods[pod.uid] = pod
+            self._put_pod(pod)
             self._emit(Event("Added", "Pod", pod, self._bump()))
 
     def update_pod(self, pod: t.Pod) -> None:
         with self._lock:
-            old = self.pods.get(pod.uid)
-            self.pods[pod.uid] = pod
+            old = self._put_pod(pod)
             self._emit(Event("Modified", "Pod", pod, self._bump(), old=old))
 
     def update_pod_status(self, pod: t.Pod) -> None:
@@ -198,13 +218,14 @@ class ClusterStore:
         scheduler's queue does not treat them as spec changes (the reference's
         isPodUpdated check)."""
         with self._lock:
-            self.pods[pod.uid] = pod
+            self._put_pod(pod)
             self._emit(Event("ModifiedStatus", "Pod", pod, self._bump()))
 
     def delete_pod(self, uid: str) -> None:
         with self._lock:
             p = self.pods.pop(uid, None)
             if p is not None:
+                self._unindex(uid)
                 self._emit(Event("Deleted", "Pod", p, self._bump()))
 
     # --- generic objects (built-in workload kinds + CRDs) ---
@@ -244,6 +265,14 @@ class ClusterStore:
     def list_pods(self) -> List[t.Pod]:
         with self._lock:
             return list(self.pods.values())
+
+    def pods_on_node(self, node_name: str) -> List[t.Pod]:
+        """The pods of list_pods() whose node_name is `node_name`, without
+        a scan of every pod.  A pod whose node_name a caller set in place,
+        with no store write, is seen only once a write stores it."""
+        with self._lock:
+            pods = (self.pods.get(uid) for uid in self._on_node.get(node_name, ()))
+            return [p for p in pods if p is not None and p.node_name == node_name]
 
     def list_nodes(self) -> List[t.Node]:
         with self._lock:
@@ -349,7 +378,7 @@ class ClusterStore:
         with self._lock:
             p = self.pods[pod_uid]
             bound = replace_pod_nodename(p, node_name)
-            self.pods[pod_uid] = bound
+            self._put_pod(bound)
             self._emit(Event("Modified", "Pod", bound, self._bump()))
 
 

@@ -4,6 +4,8 @@
   subprocess imports every module of it with both blocked (a subprocess,
   because tests/conftest.py imports jax into every test process), and a
   source scan finds neither named in an import;
+- the port imports with PyYAML blocked as well, and reads a JSON manifest
+  through serialize and kubectl without it;
 - the sidecar's engine needs neither grpc nor protobuf: a second
   subprocess blocks both (and JAX) and imports runtime.sidecar's _Engine
   and _Session and runtime.convert's clone_pod, then runs a small session
@@ -72,6 +74,49 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 10  # every module of the package was imported
+
+
+_NO_YAML = r"""
+import importlib, json, pkgutil, sys
+for name in ("jax", "jaxlib", "kubernetes_tpu", "yaml"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import kubernetes_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(kubernetes_tpu_torch.__path__, "kubernetes_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+assert {"kubernetes_tpu_torch.kubectl", "kubernetes_tpu_torch.api.serialize",
+        "kubernetes_tpu_torch.scheduler.apiserver", "kubernetes_tpu_torch.scheduler.controllers",
+        "kubernetes_tpu_torch.scheduler.kubelet", "kubernetes_tpu_torch.bench.control_plane"} <= set(mods)
+from kubernetes_tpu_torch.api import serialize
+from kubernetes_tpu_torch.bench import control_plane as cp
+from kubernetes_tpu_torch.kubectl import make_admin_kubectl
+objs = serialize.load_manifests(cp.manifest(3, 2, 2))
+kc = make_admin_kubectl()
+for obj in objs:
+    kc.api.handle(kc.token, "create", type(obj).__name__, obj)
+out = kc.run("get nodes")
+assert "node-00002" in out, out
+assert serialize.load_json(serialize.dump_json(objs[1])) == [objs[1]]
+try:
+    serialize.load_yaml("kind: Node")
+except ImportError:
+    pass
+else:
+    raise AssertionError("load_yaml ran without PyYAML")
+print(len(objs))
+"""
+
+
+def test_port_imports_and_reads_json_without_yaml():
+    """The port imports with PyYAML blocked too (the card's machine has
+    none): the manifest codec imports it only inside its YAML functions, and
+    a JSON manifest goes through serialize and kubectl without it."""
+    out = subprocess.run(
+        [sys.executable, "-c", _NO_YAML], cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "8"  # the Namespace, 3 nodes, 2 Deployments, 2 Services
 
 
 _NO_WIRE = r"""

@@ -21,10 +21,12 @@ back to it when nothing listens at the sidecar's address on the loopback);
 one more runs a batch cycle on a node mesh of
 two CPU shards (KTPU_MESH=2) against the JAX Scheduler on one device (the
 JAX package's own sharded entry points fail on this JAX, ROADMAP C3).  The
-refusals: mode="tpu" without a card and without device=; a checkpoint
-directory (argument or KTPU_CHECKPOINT_DIR), the restart protocol's entry
-points and an HTTP extender (ROADMAP A14).  mode="native" runs: its cases
-are in tests/test_torch_native.py.
+refusal: mode="tpu" without a card and without device=.  What is no longer
+refused: a checkpoint directory (argument or KTPU_CHECKPOINT_DIR), the
+restart protocol's entry points, and an HTTP extender (here one that
+nothing answers, held to the JAX Scheduler's outcome; the answering ones
+are in tests/test_torch_extender.py).  mode="native" runs: its cases are
+in tests/test_torch_native.py.
 
 The batched preemption, explain and failure-path cases are in
 tests/test_torch_scheduler_preempt.py.
@@ -779,11 +781,26 @@ def test_scheduler_on_a_node_mesh_matches_jax(monkeypatch):
 
 
 def test_refusals(tmp_path):
-    """What the port still refuses (a card it does not have, HTTP
-    extenders), and what it no longer refuses: a checkpoint dir arms the
-    crash-restart checkpoint, and restore and the restart drivers run."""
+    """What the port still refuses (a card it does not have), and what it no
+    longer refuses: a checkpoint dir arms the crash-restart checkpoint,
+    restore and the restart drivers run, and an HTTP extender that nothing
+    answers fails the per-pod cycle as it fails the JAX Scheduler's."""
+    import importlib
+
     from kubernetes_tpu_torch.scheduler import scheduler as ts
-    from kubernetes_tpu_torch.scheduler.extender import ExtenderConfig
+
+    def dead_extender(x):
+        ext = importlib.import_module(x.S.__name__ + ".extender")
+        cfg = x.cfg("cpu", extenders=(ext.ExtenderConfig(url_prefix="http://127.0.0.1:1", filter_verb="filter",
+                                                         timeout_s=2.0),))
+        store, sched = x.cluster("cpu", nodes=[mk_node("n0"), mk_node("n1")], config=cfg)
+        store.add_pod(mk_pod("p0", cpu=100))
+        sched.run_until_idle()
+        return observe(store, sched)
+
+    want, got = both(dead_extender)
+    assert got == want and want["events"][0][0] == "FailedScheduling"
+    assert want["counters"]["scheduling_attempts_error"] == 1
 
     x = Side("port")
     store = x.S.ClusterStore()
@@ -792,9 +809,6 @@ def test_refusals(tmp_path):
             x.S.Scheduler(store, x.cfg("tpu"))
     armed = x.S.Scheduler(store, x.cfg("tpu"), device="cpu", checkpoint_dir=str(tmp_path / "ckpt"))
     assert armed._ckpt.directory == str(tmp_path / "ckpt") and armed._flight.directory == armed._ckpt.directory
-    with pytest.raises(NotImplementedError, match="A14"):
-        x.S.Scheduler(store, x.cfg("tpu", extenders=(ExtenderConfig(url_prefix="http://127.0.0.1:1"),)),
-                      device="cpu")
     sched = x.S.Scheduler(store, x.cfg("cpu"))  # the per-pod cycle needs no card
     assert sched.device is None and sched.mesh is None
     assert sched.restore()["wal_applied"] == 0

@@ -68,6 +68,18 @@ C++ engine of the Scheduler's mode="native") are built with them:
                      HoistCache actions, enc.stats["delta"] >= 3, delta_s,
                      end_to_end_s (median of the steady walls) and
                      overlap_fraction as bench.py computes them;
+  [observability]    after [warm-loop] (whose runs keep the memory ledger
+                     off): its depth-1 warm waves with the memory ledger
+                     armed and tracing on, once under device_trace
+                     (torch.profiler), once without, then with both off;
+                     Config4 through the Scheduler under device_trace:
+                     the digests, the card's memory stats, the census
+                     matched, the sentinel clean, peak >= in use >=
+                     resident, every launched kernel in the profile and
+                     owned by a declared sub-phase, attribution summing to
+                     1, the exports loading; the sub-phase tables, memory
+                     blocks, end_to_end_s on against off, the
+                     instruments' own cost a call;
   [mesh-north-star]  the node mesh (parallel/mesh.py) at the north star: a
                      DeltaEncoder on make_mesh(4) ("4 shards on 1 card": every
                      node-axis field resident per shard), the cold dense
@@ -203,6 +215,18 @@ C++ engine of the Scheduler's mode="native") are built with them:
                      product), rounds and full_scan == plain; with class
                      state the same results, score_planes over the class
                      view and every class plane == plain;
+  [score-f32]        a fresh process of this script with
+                     KTPU_SCORE_DTYPE=f32 (--score-f32): config 3 through
+                     the rounds route, on class state and per-pod, and
+                     all_stages() through the rounds, per-pod and
+                     class-state routes == the JAX digests under the knob;
+                     score_planes' f32 build == plain bit for bit, rounds
+                     and full_scan on f32 planes == plain (in turns beside
+                     the same launches on bf16 planes); ROADMAP C5's case
+                     through the Scheduler on the card binds node-a, and
+                     16 copies of its pod through the rounds route == the
+                     CPU's; score_planes at [10240, 6144] in f32 against
+                     bf16, beside its bound;
   [gang-small]       gang(48, 64, 40): the host fixpoint on class state
                      (class-wave route per iteration) and the device
                      fixpoint (K7 + K8 + K13 queued G + 1 times): 13
@@ -1337,13 +1361,158 @@ def phase_warm_loop(cold) -> dict:
 
     res = run_warm_loop("warm-loop", workloads.heterogeneous(**workloads.NORTH_STAR), cold,
                         workloads.NORTH_STAR_WARM_DIGESTS, workloads.NORTH_STAR_WARM_ACTIONS,
-                        workloads.NORTH_STAR_SCHEDULED, WAVE_KERNELS, "class_waves")
+                        workloads.NORTH_STAR_SCHEDULED, WAVE_KERNELS, "class_waves",
+                        loop_kw=dict(memwatch=False))  # [observability]'s ledger-and-tracing-off run
     check(res[1]["overlap"] > 0.0, "warm loop: nothing overlapped at depth 1")
     return res
 
 
+def phase_observability(cold, warm_off: dict, card: str) -> None:
+    """[observability]: the instruments on the north star's warm loop and on
+    Config4's Scheduler cycle.
+
+    bench.py's warm waves 2..7 through PipelinedBatchLoop(depth=1) with the
+    memory ledger armed and tracing on, once under
+    scheduler/tracing.py device_trace (torch.profiler, CPU and CUDA) and
+    once without it, then with both off (the turns: [warm-loop]'s off, on,
+    off); then BASELINE Config4 through the Scheduler (its ledger armed on
+    the card) under device_trace, and the instruments' own cost a call.  Checked: the choices are
+    [warm-loop]'s and the Config4 digest; the card's memory stats are
+    available, every census entry is matched, the sentinel is clean, peak
+    >= in use >= the census' resident bytes; every kernel the counted runs
+    launched is in the profile by name, linked to its launch and owned by a
+    declared sub-phase (ops/scopes.py); attribute_spans' fractions sum to 1;
+    the Chrome exports load as JSON.  Printed beside the card: the
+    sub-phase tables, the memory blocks, end_to_end_s with the ledger and
+    tracing on against off."""
+    import shutil
+
+    import torch
+
+    from kubernetes_tpu_torch.bench import profiling
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.bench.harness import run_snapshot_workload
+    from kubernetes_tpu_torch.ops import kernels, scopes
+    from kubernetes_tpu_torch.scheduler import attribution, memwatch, tracing
+
+    out_dir = os.path.join(HERE, "kubernetes_tpu_torch", "_build", "traces")
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    def owned(tag, trace_dir, launched) -> dict:
+        """Every launched kernel in the profile, linked and owned."""
+        events = profiling.load_profile_events(trace_dir)
+        check(events and all(e["module"] == "cuda" for e in events), f"{tag}: no CUDA kernel in the profile")
+        for k in launched:
+            ev = profiling.events_of(events, k)
+            check(ev, f"{tag}: {k} launched {launched[k]} times, none of its kernels is in the profile")
+            bad = [e for e in ev if not e["linked"] or not scopes.subphase_of(e["path"])]
+            check(not bad, f"{tag}: {len(bad)} of {k}'s kernel events unlinked or unowned: {bad[:2]}")
+        table = profiling.subphase_table(events)
+        check(not table["incomplete"], f"{tag}: an incomplete sub-phase table")
+        by_phase = {}
+        for k in launched:
+            for e in profiling.events_of(events, k):
+                by_phase.setdefault(scopes.subphase_of(e["path"]), set()).add(k)
+        theirs = [e for e in events if profiling.wrapper_of(e["name"]) is None]
+        print(f"[observability] {tag}: {len(events)} kernel events, every launched kernel named, linked to its "
+              f"launch and owned: { {p: sorted(v) for p, v in by_phase.items()} }; torch's own kernels "
+              f"{len(theirs)} ({sum(1 for e in theirs if scopes.subphase_of(e['path']))} owned)\n"
+              f"{profiling.render_subphases(table, indent='  ')}", flush=True)
+        return table
+
+    def ledger_ok(tag, summ, block, census, stats) -> None:
+        mw_ = summ["memwatch"]
+        check(stats["available"] and mw_["memory_stats_available"] and mw_["source"] == "memory_stats",
+              f"{tag}: the card's memory stats are unavailable ({mw_['source']})")
+        check(mw_["census_matched"] and census["matched"],
+              f"{tag}: unmatched census entries {[e for e in census['entries'] if not e['matched']][:3]}")
+        check(not mw_["sentinel"]["leaking"], f"{tag}: the leak sentinel trips: {mw_['sentinel']}")
+        check(stats["peak_bytes_in_use"] >= stats["bytes_in_use"] >= census["resident_bytes"],
+              f"{tag}: peak {stats['peak_bytes_in_use']} / in use {stats['bytes_in_use']} / resident "
+              f"{census['resident_bytes']}")
+        print(f"[observability] {tag}: memory block {block}; {mw_['samples']} samples, {census['n_buffers']} "
+              f"resident buffers all matched ({census['resident_bytes']} B), sentinel clean "
+              f"{mw_['sentinel']['samples']}; peak {stats['peak_bytes_in_use']} >= in use {stats['bytes_in_use']} "
+              f">= resident {census['resident_bytes']} | {card}", flush=True)
+
+    def spans_ok(tag, col) -> None:
+        rep = attribution.attribute_spans(col)
+        total = sum(d["fraction"] for d in rep["phases"].values())
+        check(rep["n_cycles"] >= 1 and abs(total - 1.0) < 0.01, f"{tag}: attribution fractions sum to {total}")
+        path = col.export_chrome_trace(os.path.join(out_dir, f"{tag}.spans.json"))
+        with open(path) as f:
+            doc = json.load(f)
+        check(len([e for e in doc["traceEvents"] if e["ph"] == "X"]) == len(col.spans()), f"{tag}: export")
+        print(f"[observability] {tag}: spans {len(col.spans())} (dropped {col.spans_dropped}), Chrome export "
+              f"loads ({os.path.getsize(path)} B)\n{attribution.render_attribution(rep)}", flush=True)
+
+    snap = w.heterogeneous(**w.NORTH_STAR)
+    e2e = {"off": [warm_off[1]["end_to_end_s"]], "on": [], "profiled": []}
+    enc_s = {"off": [warm_off[1]["delta_s"]], "on": [], "profiled": []}
+    # the profiled run, then on and off in turns after [warm-loop]'s off
+    for kind in ("profiled", "on", "off"):
+        col = tracing.TraceCollector(capacity=1 << 18)
+        tdir = os.path.join(out_dir, "warm-loop")
+        kw = dict(memwatch=False) if kind == "off" else dict(
+            memwatch=True, tracer=tracing.Tracer(col, component="pipeline"))
+        res = run_warm_loop(f"observability {kind}", snap, cold, w.NORTH_STAR_WARM_DIGESTS,
+                            w.NORTH_STAR_WARM_ACTIONS, w.NORTH_STAR_SCHEDULED, WAVE_KERNELS, "class_waves",
+                            depths=(1,), loop_kw=kw,
+                            around=(lambda: tracing.device_trace(tdir)) if kind == "profiled" else None)[1]
+        check(res["digests"] == warm_off[1]["digests"], "observability: choices != [warm-loop]'s")
+        e2e[kind].append(res["end_to_end_s"])
+        enc_s[kind].append(res["delta_s"])
+        if kind != "off":
+            m = res["mem"]
+            ledger_ok(f"warm loop ({kind})", m["summary"], m["block"], m["census"], m["stats"])
+            spans_ok(f"warm-loop-{kind}", col)
+        if kind == "profiled":
+            owned("warm loop", tdir, res["launches"])
+        del col
+    mean = {k: sum(v) / len(v) for k, v in e2e.items()}
+    print(f"[observability] warm loop end_to_end_s: ledger and tracing on {e2e['on']} s, off {e2e['off']} s "
+          f"([warm-loop]'s depth 1 and a run after the on run; on / mean off {mean['on'] / mean['off']:.3f}); "
+          f"under device_trace {e2e['profiled']} s; delta_s (encode + dispatch a cycle) on {enc_s['on']}, off "
+          f"{enc_s['off']}, profiled {enc_s['profiled']} | {card}", flush=True)
+
+    # --- Config4 through the Scheduler, its ledger armed, under device_trace ---
+    col = tracing.TraceCollector(capacity=1 << 19)
+    tdir = os.path.join(out_dir, "config4")
+    kernels.reset_launches()
+    with tracing.device_trace(tdir):
+        r = run_snapshot_workload("observability-config4", w.heterogeneous(**w.SCHEDULER_CONFIG4), "tpu",
+                                  device="cuda", collector=col)
+        torch.cuda.synchronize()
+    launched = counted(default=False)
+    sched = r.pop("scheduler")
+    got = dict(scheduled=r["scheduled"], unschedulable=r["unschedulable"], batches=r["batches"],
+               bindings=r["bindings_sha256"])
+    check(got == w.SCHEDULER_CONFIG4_WANT, f"observability config4: {got}")
+    check(sched._memwatch is not None and sched._memwatch.samples >= 2, "observability: the Scheduler's ledger")
+    ledger_ok("config4", sched._memwatch.summary(), sched._memwatch.memory_block(), sched._memwatch.last_census,
+              sched._memwatch.last_stats)
+    spans_ok("config4", col)
+    owned(f"config4 ({launched})", tdir, launched)
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sched._memwatch.cycle_sample(encoder=sched._delta_enc, hoist=sched._hoist_cache, label="timed")
+    sample_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    tr = tracing.Tracer(tracing.TraceCollector(capacity=1 << 12), component="timed")
+    for _ in range(1000):
+        tr.record_span("timed", start=0.0, end=1.0)
+    span_us = (time.perf_counter() - t0) * 1e3
+    print(f"[observability] the instruments' own cost: a ledger sample (census of "
+          f"{sched._memwatch.last_census['n_buffers']} buffers + the allocator's stats) {sample_ms:.3f} ms; a "
+          f"recorded span {span_us:.2f} us | {card}", flush=True)
+    print(f"[observability] config4 wall {r['wall_s']:.3f} s under device_trace, traced; bindings == JAX | {card}",
+          flush=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_kernels, route, mesh=None,
-                  depths=(1, 0), waves_cls=None, want_stats=None) -> dict:
+                  depths=(1, 0), waves_cls=None, want_stats=None, loop_kw=None, around=None) -> dict:
     """bench.py's warm waves 2..7 over `snap` through PipelinedBatchLoop at
     each of `depths` (1, then 0), each counted on its own: every wave's
     digest and the HoistCache action as the JAX loop's, every kernel of
@@ -1351,7 +1520,11 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
     the node mesh `mesh` when given (the encoder and the loop take it).
     `waves_cls`: a factory of warm_waves' snapshot_cls, made anew for each
     depth (default Snapshot); `want_stats`: the encoder's full and delta
-    counts after the cold encode and the six waves."""
+    counts after the cold encode and the six waves; `loop_kw`: more
+    arguments of PipelinedBatchLoop (its tracer, its memory ledger);
+    `around`: a context manager factory the six waves run inside."""
+    import contextlib
+
     import torch
 
     from kubernetes_tpu_torch.api.delta import DeltaEncoder
@@ -1369,12 +1542,13 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
         on_c_path(enc._interner, tag)
         enc.encode_device(snap)  # the cold encode the loop's encoder carries on from, as in bench.py
         torch.cuda.synchronize()
-        loop = PipelinedBatchLoop(encoder=enc, depth=depth, mesh=mesh)
+        loop = PipelinedBatchLoop(encoder=enc, depth=depth, mesh=mesh, **(loop_kw or {}))
         kernels.reset_launches()
         assign.reset_trace_counts()
-        waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain,
-                                                              waves_cls() if waves_cls else Snapshot)
-        torch.cuda.synchronize()
+        with (around or contextlib.nullcontext)():
+            waves, fetched, walls, submits = workloads.warm_waves(snap, first, loop.submit, loop.drain,
+                                                                  waves_cls() if waves_cls else Snapshot)
+            torch.cuda.synchronize()
         launches = counted()
         routes = {k: v for k, v in assign.TRACE_COUNTS.items() if v}
         digests = {w: workloads.wave_digest(waves[w], fetched[w], names) for w in sorted(fetched) if w >= 2}
@@ -1406,7 +1580,10 @@ def run_warm_loop(tag, snap, cold, want_digests, want_actions, want_sched, need_
         for k in need_kernels:
             check(launches.get(k, 0) > 0, f"{tag} depth {depth}: {k} was not launched: {launches}")
         res[depth] = dict(digests=digests, end_to_end_s=end_to_end_s, delta_s=delta_s, overlap=overlap,
-                          walls=walls)
+                          walls=walls, launches=launches,
+                          mem=None if loop.memwatch is None else dict(
+                              summary=loop.memwatch.summary(), block=loop.memwatch.memory_block(),
+                              census=loop.memwatch.last_census, stats=loop.memwatch.last_stats))
     if 0 in res and 1 in res:
         check(res[0]["digests"] == res[1]["digests"], f"{tag}: depth 0 != depth 1")
     if 0 in res:
@@ -1790,7 +1967,7 @@ def full_bytes(arr) -> int:
     node = sum(getattr(arr, f).numel() * getattr(arr, f).element_size() for f in (
         "node_alloc", "node_used", "node_dom", "term_key", "term_counts0", "anti_counts0", "pref_own0",
         "node_ports0"))
-    img = arr.image_score.numel() * 2 if arr.image_score.shape[1] == N else 0
+    img = arr.image_score.numel() * arr.image_score.element_size() if arr.image_score.shape[1] == N else 0
     return 2 * 4 * P * W + pod + node + img + 3 * 4 * P + arr.node_used.numel() * 4
 
 
@@ -2276,6 +2453,275 @@ def phase_all_stages() -> list:
                  bound_ms=k10_bound, bound_by=k10_by, library_ms=k10_lib, library_card_ms=k10_lib_card,
                  library_whole_ms=k10_whole, library_whole_card_ms=k10_whole_card,
                  class_view_ms=k10u_ms, class_view_card_ms=k10u_card)], (k11_err, k12_err)
+
+
+def phase_score_f32() -> list:
+    """[score-f32]: the port under KTPU_SCORE_DTYPE=f32, in a fresh process
+    of this script (the knob is read when the port is imported; the
+    libraries built by [build] are loaded, not rebuilt): score_f32_child.
+    -> the kernels line's rows of the f32 modes of K10, K11 and K12, with
+    the child's own launch counts."""
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--score-f32"], capture_output=True,
+                         text=True, timeout=600, cwd=HERE, env={**os.environ, "KTPU_SCORE_DTYPE": "f32"})
+    lines = run.stdout.splitlines()
+    ok = run.returncode == 0 and bool(lines) and lines[-1].startswith("{")
+    for line in lines[:-1] if ok else lines:
+        print(line, flush=True)
+    check(ok, f"score-f32: the child failed ({run.returncode}): {run.stderr[-4000:]}")
+    return json.loads(lines[-1])["rows"]
+
+
+def score_f32_child() -> int:
+    """The child of phase_score_f32, KTPU_SCORE_DTYPE=f32 in its
+    environment: the raw score planes are f32 tensors, K10 runs its f32
+    build and K11 / K12 read f32 planes.
+
+    - BASELINE config 3 (spread_affinity(5000, 10000)): the rounds route,
+      the same on class state, and the per-pod route, each == the JAX
+      package's digests under the knob (no score plane there: they are
+      the bf16 ones);
+    - all_stages(): the rounds route (K7, K10 f32, K12), the per-pod route
+      (K7, K10 f32, K11) and class state (K3, K10 f32 over the class view,
+      K4, K12 class rows), counted, == the JAX f32 digests; K10 f32 == plain
+      bit for bit, K12 and K11 on the f32 planes == plain;
+    - ROADMAP C5's case through the Scheduler on the card binds node-a, and
+      sixteen copies of its pod through the rounds route == the plain route;
+    - K10 at config 3's size [10240, 6144] on random arrays: f32 against
+      bf16 (the same process, the bf16 build), card time, bound.
+    Prints its lines, then one JSON line: the kernels line's rows."""
+    import dataclasses
+
+    import torch
+
+    from kubernetes_tpu_torch.api.delta import DeltaEncoder
+    from kubernetes_tpu_torch.api.snapshot import encode_snapshot
+    from kubernetes_tpu_torch.bench import score_explain
+    from kubernetes_tpu_torch.bench import workloads as w
+    from kubernetes_tpu_torch.ops import DEFAULT_SCORE_CONFIG, assign, bitplane, filters, infer_score_config, kernels
+    from kubernetes_tpu_torch.ops.incremental import HoistCache
+    from kubernetes_tpu_torch.scheduler import ClusterStore, Scheduler, SchedulerConfiguration
+
+    check(bitplane.SCORE_DTYPE == "f32" and bitplane.score_store_dtype() == torch.float32,
+          f"score-f32: the knob did not reach the port ({bitplane.SCORE_DTYPE})")
+    kernels.build()
+    f32 = torch.float32
+
+    def digest(x, n):
+        return hashlib.sha256(x[:n].cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+    def held(tag, got, want):
+        print(f"[score-f32] {tag}: {got}", flush=True)
+        check(got == want, f"score-f32 {tag}: {got} != the JAX f32 digests {want}")
+
+    # --- config 3: rounds, class state, per-pod ---
+    snap = w.spread_affinity(**w.CONFIG3)
+    arr, meta = DeltaEncoder().encode_device(snap)
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    check(arr.image_score.dtype == f32, f"score-f32 config 3: image_score {arr.image_score.dtype}")
+    kernels.reset_launches()
+    c, _, o, sw = assign.schedule_batch_ordinals(arr, cfg)
+    torch.cuda.synchronize()
+    held("config 3 rounds", dict(scheduled=int((c[:n] >= 0).sum()), sweeps=sw, ordinals=digest(o, n),
+                                 choices=digest(c, n)), w.SCORE_F32_DIGESTS["config3-rounds"])
+    check(counted() == {"packed_static_rows": 1, "rounds": 1}, "score-f32 config 3: rounds launches")
+    kernels.reset_launches()
+    inc = HoistCache().ensure(arr, meta, cfg)
+    ic, _, io, i_s = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+    torch.cuda.synchronize()
+    held("config 3 class state", dict(scheduled=int((ic[:n] >= 0).sum()), sweeps=i_s, ordinals=digest(io, n),
+                                      choices=digest(ic, n)), w.SCORE_F32_DIGESTS["config3-inc"])
+    check(counted() == {"class_static_hoist": 1, "class_usage_hoist": 1, "rounds": 1}, "score-f32 config 3: inc")
+    kernels.reset_launches()
+    pc, _ = assign.schedule_batch(arr, cfg, chunked=False)
+    torch.cuda.synchronize()
+    check(counted(default=False) == {"packed_static_rows": 1, "full_scan": 1}, "score-f32 config 3: per-pod")
+    held("config 3 per-pod", dict(scheduled=int((pc[:n] >= 0).sum()), choices=digest(pc, n)),
+         w.SCORE_F32_DIGESTS["config3"])
+    del arr, inc, snap
+
+    # --- all_stages(): every route on f32 planes, counted, == JAX f32 ---
+    arr, meta = encode_snapshot(w.all_stages())
+    cfg = infer_score_config(arr, DEFAULT_SCORE_CONFIG)
+    n = meta.n_pods
+    kernels.reset_launches()
+    choices, used, ords, sweeps = assign.schedule_batch_ordinals(arr, cfg)
+    torch.cuda.synchronize()
+    launches = counted()
+    check(launches == {"packed_static_rows": 1, "score_planes_f32": 1, "rounds": 1}, f"all stages f32 {launches}")
+    held("all_stages rounds", dict(scheduled=int((choices[:n] >= 0).sum()), sweeps=sweeps, ordinals=digest(ords, n),
+                                   choices=digest(choices, n)), w.SCORE_F32_DIGESTS["all-stages"])
+    kernels.reset_launches()
+    pchoices, pused = assign.schedule_batch(arr, cfg, chunked=False)
+    torch.cuda.synchronize()
+    plaunch = counted(default=False)
+    check(plaunch == {"packed_static_rows": 1, "score_planes_f32": 1, "full_scan": 1}, f"all stages f32 {plaunch}")
+    check(torch.equal(pchoices, choices) and torch.equal(pused, used), "score-f32 all stages: per-pod != rounds")
+    kernels.reset_launches()
+    inc = HoistCache().ensure(arr, meta, cfg)
+    ic, iu, io, i_s = assign.schedule_batch_ordinals(arr, cfg, inc=inc)
+    torch.cuda.synchronize()
+    ilaunch = counted()
+    check(ilaunch == {"class_static_hoist": 1, "score_planes_f32": 1, "class_usage_hoist": 1, "rounds": 1},
+          f"all stages f32 class state {ilaunch}")
+    check(all(x.dtype == f32 for x in (inc.traw_u, inc.naraw_u, inc.img_u)), "score-f32: class planes not f32")
+    check(torch.equal(ic, choices) and torch.equal(iu, used) and torch.equal(io, ords) and i_s == sweeps,
+          "score-f32 all stages: class state != dense rounds")
+    traw, naraw = kernels.score_planes(arr)
+    traw_p, naraw_p = assign.score_planes_plain(arr)
+    check(traw.dtype == naraw.dtype == traw_p.dtype == f32, "score-f32: the planes are not f32")
+    k10_err = mismatch(traw, traw_p) + mismatch(naraw, naraw_p)
+    check(k10_err == 0, f"score-f32: score_planes (f32) != plain ({k10_err} entries)")
+    check(mismatch(arr.image_score, arr.image_score.to(torch.bfloat16).to(f32)) > 0,
+          "score-f32: no image score off the bf16 lattice (the f32 planes are not exercised)")
+    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
+    out = {}
+
+    def k12():
+        out["r"] = kernels.rounds(arr, cfg, sfs, eligs, (traw, naraw), with_state=True)
+
+    def k11():
+        out["f"] = kernels.full_scan(arr, cfg, sfs, eligs, (traw, naraw), with_state=True)
+
+    k12_ms = cuda_ms(k12, reps=3)
+    k11_ms = cuda_ms(k11, reps=3)
+    # the same launches on the bf16 planes (the bf16 storage of the same
+    # values), timed in turns with the f32 ones: the flag's cost
+    a16 = dataclasses.replace(arr, image_score=arr.image_score.to(torch.bfloat16))
+    p16 = (traw.to(torch.bfloat16), naraw.to(torch.bfloat16))
+
+    def bf16_mode(fn):
+        def run():
+            bitplane.SCORE_DTYPE = "bf16"
+            try:
+                fn()
+            finally:
+                bitplane.SCORE_DTYPE = "f32"
+        return run
+
+    k12_turns = in_turns_ms(lambda: kernels.rounds(arr, cfg, sfs, eligs, (traw, naraw)),
+                            bf16_mode(lambda: kernels.rounds(a16, cfg, sfs, eligs, p16)), reps=3)
+    k11_turns = in_turns_ms(lambda: kernels.full_scan(arr, cfg, sfs, eligs, (traw, naraw)),
+                            bf16_mode(lambda: kernels.full_scan(a16, cfg, sfs, eligs, p16)), reps=3)
+    del a16, p16
+    t0 = time.perf_counter()
+    pr = assign.schedule_scan_rounds_plain(arr, cfg, sfs, eligs, (traw, naraw), with_state=True)
+    torch.cuda.synchronize()
+    k12_plain = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pf = assign.schedule_scan_plain(arr, cfg, sf=filters.static_feasible_plain(arr), planes=(traw, naraw),
+                                    with_state=True)
+    torch.cuda.synchronize()
+    k11_plain = (time.perf_counter() - t0) * 1e3
+    kr, kf = out["r"], out["f"]
+    k12_err = (sum(mismatch(a, b) for a, b in zip(kr[:3], pr[:3])) + abs(kernels.read_sweeps(kr[3]) - pr[3])
+               + same_state(kr[4], pr[4]))
+    k11_err = mismatch(kf[0], pf[0]) + mismatch(kf[1], pf[1]) + same_state(kf[2], pf[2])
+    check(k12_err == 0, f"score-f32: rounds on f32 planes != plain ({k12_err})")
+    check(k11_err == 0, f"score-f32: full_scan on f32 planes != plain ({k11_err})")
+    k_ops, scored = full_ops(arr, cfg, sfs, eligs, choices)
+    k_bytes = full_bytes(arr) + 2 * traw.numel() * traw.element_size()
+    kb, kby = bound(k_bytes, k_ops)
+    print(f"[score-f32] all_stages P={arr.P} N={arr.N}: rounds ({launches}), per-pod ({plaunch}) and class state "
+          f"({ilaunch}) == the JAX f32 digests; score_planes (f32) == plain bit for bit; rounds and full_scan on "
+          f"the f32 planes == plain (choices, usage, ordinals, count planes): rounds {k12_ms:.3f} ms (plain "
+          f"{k12_plain:.1f}), full_scan {k11_ms:.3f} ms (plain {k11_plain:.1f}), bound {kb:.6f} ms ({kby}: "
+          f"{k_bytes} B, {k_ops} ops over {scored} scored pairs); in turns f32 / bf16 planes: rounds "
+          f"{k12_turns[0]:.3f} / {k12_turns[1]:.3f} ms, full_scan {k11_turns[0]:.3f} / {k11_turns[1]:.3f} ms",
+          flush=True)
+
+    # --- ROADMAP C5 through the Scheduler on the card, and on the rounds route ---
+    c5 = w.score_dtype_case()
+    store = ClusterStore()
+    for nd in c5.nodes:
+        store.add_node(nd)
+    sched = Scheduler(store, SchedulerConfiguration(mode="tpu"), device="cuda")
+    for pod in c5.pending_pods:
+        store.add_pod(pod)
+    kernels.reset_launches()
+    sched.run_until_idle()
+    torch.cuda.synchronize()
+    c5_launch = counted()
+    bound_to = {p.name: p.node_name for p in store.pods.values()}
+    print(f"[score-f32] ROADMAP C5 through the Scheduler on the card: {bound_to} (launches {c5_launch})", flush=True)
+    check(bound_to == {"pod-0": "node-a"}, f"score-f32: C5 bound {bound_to}, not node-a")
+    check(c5_launch.get("score_planes_f32", 0) >= 1, f"score-f32: C5 launches {c5_launch}")
+    pods16 = [dataclasses.replace(c5.pending_pods[0], name=f"pod-{i}", uid="") for i in range(16)]
+    snap16 = dataclasses.replace(c5, pending_pods=pods16)
+    a16, m16 = encode_snapshot(snap16)
+    cfg16 = infer_score_config(a16, DEFAULT_SCORE_CONFIG)
+    kernels.reset_launches()
+    c16, u16, o16, s16 = assign.schedule_batch_ordinals(a16, cfg16)
+    torch.cuda.synchronize()
+    l16 = counted()
+    h16, _ = encode_snapshot(snap16, device="cpu")
+    p16 = assign.schedule_batch_ordinals(h16, infer_score_config(h16, DEFAULT_SCORE_CONFIG), device="cpu",
+                                         chunked=True)  # the rounds route on the CPU too
+    check(l16.get("rounds", 0) == 1 and l16.get("score_planes_f32", 0) == 1, f"score-f32: C5 x 16 launches {l16}")
+    check(torch.equal(c16.cpu(), p16[0]) and torch.equal(u16.cpu(), p16[1]) and torch.equal(o16.cpu(), p16[2])
+          and s16 == p16[3], "score-f32: C5 x 16 on the rounds route != the CPU's plain route")
+    print(f"[score-f32] C5 x 16 pods, rounds route ({l16}): {[m16.node_names[int(x)] for x in c16[:16]]} == the "
+          f"CPU's plain route", flush=True)
+
+    # --- K10 at config 3's size: f32 against bf16, the same arrays ---
+    big = score_explain.random_score_arrays(3, 10240, 6144, 5, 3)
+    b32 = score_explain.k10_work(big)
+    k10_32 = cuda_ms(lambda: kernels.score_planes(big), reps=20, warmup=2)
+    k10_32_card, k10_32_host = score_explain.card_host(lambda: kernels.score_planes(big), reps=50)
+    t32, n32 = kernels.score_planes(big)
+    tp, np_ = assign.score_planes_plain(big)
+    k10_big_err = mismatch(t32, tp) + mismatch(n32, np_)
+    check(k10_big_err == 0, f"score-f32: score_planes (f32) != plain at [10240, 6144] ({k10_big_err})")
+    k10_plain = cuda_ms(lambda: assign.score_planes_plain(big), reps=3)
+    tolf = (~big.pod_tol_pref).to(f32)
+    taint_t = big.node_taint_pref.to(f32).T.contiguous()
+    tm = filters.term_match(big.sel_mask, big.sel_kind, big.node_labels).to(f32)
+    W_na = torch.zeros((big.P, tm.shape[0]), dtype=f32, device=big.device)
+    ids = torch.clamp_min(big.pod_pref_terms, 0).to(torch.int64)
+    W_na.index_put_((torch.arange(big.P, device=big.device)[:, None].expand_as(ids), ids),
+                    torch.where(big.pod_pref_terms >= 0, big.pod_pref_weights, torch.zeros_like(big.pod_pref_weights)),
+                    accumulate=True)
+
+    def whole():
+        return torch.matmul(tolf, taint_t), torch.matmul(W_na, tm)
+
+    check(all(same(a, b) for a, b in zip(whole(), (t32, n32))), "score-f32: the torch products != score_planes")
+    k10_lib = cuda_ms(whole, reps=20, warmup=2)
+    k10_lib_card = score_explain.card_host(whole, reps=50)[0]
+    bitplane.SCORE_DTYPE = "bf16"  # the bf16 build on the same arrays, in this process
+    try:
+        b16 = score_explain.k10_work(big)
+        k10_16 = cuda_ms(lambda: kernels.score_planes(big), reps=20, warmup=2)
+        k10_16_card = score_explain.card_host(lambda: kernels.score_planes(big), reps=50)[0]
+    finally:
+        bitplane.SCORE_DTYPE = "f32"
+    bound32, by32 = bound(*b32)
+    bound16, _ = bound(*b16)
+    print(f"[score-f32] score_planes at [10240, 6144] (random arrays, T=5, PW=3): f32 {k10_32:.4f} ms back to back, "
+          f"{k10_32_card:.4f} ms of card time, {k10_32_host:.1f} us host; bf16 {k10_16:.4f} / {k10_16_card:.4f} "
+          f"ms; bound f32 {bound32:.6f} ms ({by32}: {b32[0]} B), bf16 {bound16:.6f} ms; plain (f32) "
+          f"{k10_plain:.3f} ms; torch's two f32 products {k10_lib:.4f} ms ({k10_lib_card:.4f} of card time)",
+          flush=True)
+    src = "kubernetes_tpu_torch/csrc/"
+    rows = [
+        dict(name="score_planes (f32)", route="cuda", source=src + "score_planes.cu",
+             replaces="kubernetes_tpu/ops/scores.py:229", launches=launches["score_planes_f32"],
+             launches_run=RUN_LAUNCHES.get("score_planes_f32", 0), max_abs_err=k10_err + k10_big_err,
+             ms=k10_32, card_ms=k10_32_card, host_us=k10_32_host, plain_ms=k10_plain, bound_ms=bound32,
+             bound_by=by32, library_ms=k10_lib, library_card_ms=k10_lib_card, bf16_ms=k10_16,
+             bf16_card_ms=k10_16_card, bf16_bound_ms=bound16, shape="P=10240 N=6144"),
+        dict(name="rounds (f32)", route="cuda", source=src + "rounds.cu", replaces="kubernetes_tpu/ops/assign.py:1464",
+             launches=launches["rounds"], launches_run=RUN_LAUNCHES.get("rounds", 0), max_abs_err=k12_err,
+             ms=k12_ms, plain_ms=k12_plain, bound_ms=kb, bound_by=kby, library_ms=None,
+             turns_f32_bf16_ms=k12_turns, shape=f"all_stages P={arr.P} N={arr.N}"),
+        dict(name="full_scan (f32)", route="cuda", source=src + "full_scan.cu",
+             replaces="kubernetes_tpu/ops/assign.py:181", launches=plaunch["full_scan"],
+             launches_run=RUN_LAUNCHES.get("full_scan", 0), max_abs_err=k11_err, ms=k11_ms, plain_ms=k11_plain,
+             bound_ms=kb, bound_by=kby, library_ms=None, turns_f32_bf16_ms=k11_turns,
+             shape=f"all_stages P={arr.P} N={arr.N}"),
+    ]
+    print(json.dumps({"rows": rows}), flush=True)
+    return 0
 
 
 def phase_config3_inc(c3) -> tuple:
@@ -4815,6 +5261,7 @@ def main() -> int:
     used_sha = hashlib.sha256(ns["used"].cpu().numpy().astype("<i4").tobytes()).hexdigest()
     del ns
     warm = phase_warm_loop(cold)
+    phase_observability(cold, warm, card)
     rows += phase_mesh_north_star(used_sha)
     phase_mesh_warm_loop(cold, warm)
     phase_mesh2d_north_star(used_sha)
@@ -4840,6 +5287,7 @@ def main() -> int:
     k11_row["max_abs_err"] += k11_err
     k12_row["max_abs_err"] += k12_err
     rows += k10_rows + [k11_row, k12_row] + inc_rows + mesh3_rows
+    rows += phase_score_f32()
     phase_gang_small()
     rows += phase_config5()
     k12_gated = phase_gang_rounds(k_ops3, k12_row)
@@ -4863,8 +5311,8 @@ def main() -> int:
     phase_scheduler_restart(card, unkilled4_s)
     phase_stream_restart(cold, card)
     phase_control_plane(card)
-    for row in rows:
-        row["launches_run"] = RUN_LAUNCHES.get(launch_key(row["name"]), 0)
+    for row in rows:  # the f32 rows carry their child's own count
+        row.setdefault("launches_run", RUN_LAUNCHES.get(launch_key(row["name"]), 0))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -4875,4 +5323,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dcn-worker"]:
         sys.exit(dcn_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:] == ["--score-f32"]:
+        sys.exit(score_f32_child())
     sys.exit(sidecar_config5_child() if sys.argv[1:] == ["--sidecar-config5"] else main())

@@ -84,8 +84,17 @@ with HTTP extenders in the Scheduler's per-pod cycle:
 
     python -m kubernetes_tpu_torch.kubectl --manifests cluster.json get pods
 
-Not ported (ROADMAP.md queue A): the device-memory ledger and the other
-observability modules (A13), the benchmark drivers (the rest of A14).
+The instruments the Scheduler and the loop read are ported: the lock-order
+checker (analysis/lockcheck.py, KTPU_LOCK_CHECK), the span exporters and
+device_trace on torch.profiler (scheduler/tracing.py), the sub-phase
+scopes (ops/scopes.py, KTPU_NAMED_SCOPES) and their profile reader
+(bench/profiling.py), the device-memory ledger (scheduler/memwatch.py,
+KTPU_MEMWATCH), cycle attribution and the flight reader (python -m
+kubernetes_tpu_torch.analysis --flight).  KTPU_SCORE_DTYPE=f32 stores the
+raw score planes in f32, as in the JAX package.
+
+Not ported (ROADMAP.md queue A): the static analyzers (A13, part 2), the
+benchmark drivers (the rest of A14).
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,3 @@
-"""Runtime checks the port's host modules share (lockcheck.make_lock)."""
+"""The port's runtime checks and post-mortem reader: ``lockcheck`` (the
+KTPU_LOCK_CHECK lock-order checker every host module takes its locks
+through) and ``python -m kubernetes_tpu_torch.analysis --flight``."""

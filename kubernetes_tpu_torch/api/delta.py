@@ -715,7 +715,8 @@ class _Staging:
 # patterns (ops/bitplane.py)
 _TORCH_OF = {np.dtype(np.bool_): torch.bool, np.dtype(np.int32): torch.int32, np.dtype(np.uint32): torch.int32,
              np.dtype(np.float32): torch.float32}
-# bf16 planes (image_score) travel as their uint16 bit patterns
+# bf16 planes (image_score) travel as their uint16 bit patterns; under
+# KTPU_SCORE_DTYPE=f32 the plane is f32 and travels as _TORCH_OF says
 _BITS_OF = {np.dtype(np.uint16): (np.int16, torch.bfloat16)}
 
 

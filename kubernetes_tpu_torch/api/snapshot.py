@@ -130,7 +130,7 @@ _DTYPES = {
     "pod_spread_terms": torch.int32, "pod_spread_maxskew": torch.int32, "pod_spread_hard": torch.bool,
     "pod_ports": torch.bool, "node_ports0": torch.bool,
     "pod_group": torch.int32, "group_min": torch.int32,
-    "image_score": torch.bfloat16,
+    "image_score": None,  # the score storage dtype: ops/bitplane.py score_store_dtype
 }
 
 
@@ -164,6 +164,7 @@ class ClusterArrays:
       pod_group[P] i32 (-1: none), group_min[G] i32 minMember per group (G >= 1)
       image_score             bf16  [P, N] ImageLocality scores, [P, 1] zeros
                                     when no pod and node share an image
+                                    (f32 under KTPU_SCORE_DTYPE=f32)
     """
 
     node_valid: torch.Tensor
@@ -241,10 +242,12 @@ class ClusterArrays:
     @classmethod
     def from_numpy(cls, arrays: Dict[str, np.ndarray], device) -> "ClusterArrays":
         """From host arrays (the JAX package's field names and dtypes; a bf16
-        field comes as its uint16 bit patterns or as ml_dtypes bf16).  A
-        field beyond the fit-only ones that is missing takes the value the
-        encoder gives a snapshot without that feature (no_feature_fields)."""
-        from ..ops.bitplane import bf16_of_np, quantize_scores_np
+        field comes as its uint16 bit patterns or as ml_dtypes bf16, an f32
+        one as its values; both land on the storage lattice,
+        ops/bitplane.py scores_of_np).  A field beyond the fit-only ones
+        that is missing takes the value the encoder gives a snapshot
+        without that feature (no_feature_fields)."""
+        from ..ops.bitplane import np_score_dtype, scores_of_np
 
         dev = torch.device(device)
         arrays = {**no_feature_fields(len(arrays["pod_req"]), len(arrays["node_alloc"]),
@@ -252,8 +255,8 @@ class ClusterArrays:
         out = {}
         for name, dt in _DTYPES.items():
             a = np.array(arrays[name])  # a writable, contiguous copy
-            if dt is torch.bfloat16:
-                x = bf16_of_np(a if a.dtype.itemsize == 2 else quantize_scores_np(a))
+            if name == "image_score":
+                x = scores_of_np(a)
             else:
                 if dt is torch.bool:
                     a = a != 0
@@ -266,6 +269,8 @@ def no_feature_fields(P: int, N: int, T: int) -> Dict[str, np.ndarray]:
     """The arrays the encoder gives a snapshot with no preferred terms, no
     pairwise terms, no host ports, no PreferNoSchedule taints and no images:
     one empty slot each, one term whose key no node has (D = 0)."""
+    from ..ops.bitplane import np_score_dtype
+
     return dict(
         node_taint_pref=np.zeros((N, T), bool), pod_tol_pref=np.ones((P, T), bool),
         pod_pref_terms=np.full((P, 1), -1, np.int32), pod_pref_weights=np.zeros((P, 1), np.float32),
@@ -278,7 +283,7 @@ def no_feature_fields(P: int, N: int, T: int) -> Dict[str, np.ndarray]:
         pod_spread_terms=np.full((P, 1), -1, np.int32), pod_spread_maxskew=np.zeros((P, 1), np.int32),
         pod_spread_hard=np.zeros((P, 1), bool), pod_ports=np.zeros((P, 1), bool),
         node_ports0=np.zeros((N, 1), bool), pod_group=np.full(P, -1, np.int32), group_min=np.ones(1, np.int32),
-        image_score=np.zeros((P, 1), np.uint16),
+        image_score=np.zeros((P, 1), np_score_dtype()),
     )
 
 
@@ -340,19 +345,19 @@ def image_score_value(sum_mb: float) -> np.float32:
 
 
 def _image_score_matrix(nodes, reps, inv, N: int, P: int) -> np.ndarray:
-    """ImageLocality scores as bf16 bit patterns (uint16) [P, N], or [P, 1]
-    zeros when no pending pod and node share an image (the JAX package's
+    """ImageLocality scores on the storage lattice [P, N] (bf16 bit patterns
+    as uint16, or f32 under KTPU_SCORE_DTYPE=f32), or [P, 1] zeros when no pending pod and node share an image (the JAX package's
     api/snapshot.py:263).  Image sizes quantize to whole MB, so the sums are
     integer-exact in f32; the product runs over the unique specs `reps` and
     rows are gathered per pod through `inv`."""
-    from ..ops.bitplane import quantize_scores_np
+    from ..ops.bitplane import np_score_dtype, quantize_scores_np
 
     img_ids: Dict[str, int] = {}
     for pod in reps:
         for im in pod.images:
             img_ids.setdefault(im, len(img_ids))
     if not img_ids or not any(nd.images for nd in nodes):
-        return np.zeros((P, 1), dtype=np.uint16)
+        return np.zeros((P, 1), dtype=np_score_dtype())
     I = len(img_ids)
     node_mb = np.zeros((N, I), dtype=np.float32)
     for i, nd in enumerate(nodes):
@@ -369,7 +374,7 @@ def _image_score_matrix(nodes, reps, inv, N: int, P: int) -> np.ndarray:
     scored = ((sc - np.float32(_IMG_MIN_MB)) * np.float32(100.0)
               / np.float32(_IMG_MAX_MB - _IMG_MIN_MB)).astype(np.float32)
     scored = quantize_scores_np(scored)
-    out = np.zeros((P, N), dtype=np.uint16)  # zero == the empty-image score
+    out = np.zeros((P, N), dtype=scored.dtype)  # zero == the empty-image score
     if len(inv):
         out[: len(inv)] = scored[inv]
     return out

@@ -92,12 +92,16 @@ def k14_work(arr, F: int) -> tuple:
 
 def k10_work(arr) -> tuple:
     """(bytes, operations) K10's function needs: the inputs read once, the
-    two bf16 [P, N] planes written once; per (pod, node) a test per taint
-    and per preference slot."""
+    two [P, N] planes written once (bf16, or f32 under
+    KTPU_SCORE_DTYPE=f32); per (pod, node) a test per taint and per
+    preference slot."""
+    from ..ops import bitplane
+
     P, N = arr.P, arr.N
+    sb = 2 if bitplane.SCORE_DTYPE == "bf16" else 4
     T, PW = arr.node_taint_pref.shape[1], arr.pod_pref_terms.shape[1]
     S, E, L = arr.sel_mask.shape
-    nbytes = N * T + P * T + P * PW * 8 + S * E * L + 4 * S * E + N * L + 2 * 2 * P * N
+    nbytes = N * T + P * T + P * PW * 8 + S * E * L + 4 * S * E + N * L + 2 * sb * P * N
     return nbytes, P * N * (T + PW)
 
 

@@ -789,6 +789,40 @@ def all_stages(n_nodes: int = 240, n_pods: int = 512, seed: int = 99) -> Snapsho
     return Snapshot(nodes=nodes, pending_pods=pods)
 
 
+SCORE_DTYPE_CASE_WEIGHTS = {"a": 100, "b": 100, "c": 57, "d": 56}
+
+# the JAX package's digests under KTPU_SCORE_DTYPE=f32
+# (tests/torch_north_star_digest.py config3 config3-rounds all-stages
+# config3-inc, run with the knob set): config 3 has no score plane, and
+# all_stages' f32 image scores (48.82 where bf16 stores 48.75) move no
+# decision, so they are the bf16 digests above
+SCORE_F32_DIGESTS = {
+    "config3": dict(scheduled=CONFIG3_SCHEDULED, choices=CONFIG3_CHOICES_SHA256),
+    "config3-rounds": dict(scheduled=CONFIG3_SCHEDULED, sweeps=CONFIG3_ROUNDS_SWEEPS,
+                           ordinals=CONFIG3_ROUNDS_ORDINALS_SHA256, choices=CONFIG3_CHOICES_SHA256),
+    "config3-inc": dict(scheduled=CONFIG3_SCHEDULED, sweeps=CONFIG3_ROUNDS_SWEEPS,
+                        ordinals=CONFIG3_ROUNDS_ORDINALS_SHA256, choices=CONFIG3_CHOICES_SHA256),
+    "all-stages": dict(scheduled=ALL_STAGES_SCHEDULED, sweeps=ALL_STAGES_ROUNDS_SWEEPS,
+                       ordinals=ALL_STAGES_ROUNDS_ORDINALS_SHA256, choices=ALL_STAGES_CHOICES_SHA256),
+}
+
+
+def score_dtype_case() -> Snapshot:
+    """ROADMAP C5's case: two equal nodes and one pod whose preferred
+    node-affinity terms (key Exists) weigh a 100, b 100, c 57, d 56.
+    node-b, listed first, matches a, b, d (256); node-a matches a, b, c
+    (257, which bf16 stores as 256).  Under bf16 the two tie and the lower
+    index, node-b, wins; under KTPU_SCORE_DTYPE=f32 node-a does, as the
+    JAX package and its oracle bind it (tests/test_torch_score_dtype.py)."""
+    nodes = [t.Node(name=name, allocatable={t.CPU: 4000, t.MEMORY: 8 * GI, t.PODS: 110},
+                    labels={k: "1" for k in keys}) for name, keys in (("node-b", "abd"), ("node-a", "abc"))]
+    terms = tuple(t.PreferredSchedulingTerm(weight=w, preference=t.NodeSelectorTerm(match_expressions=(
+        t.NodeSelectorRequirement(key=k, operator=t.OP_EXISTS),))) for k, w in SCORE_DTYPE_CASE_WEIGHTS.items())
+    pod = t.Pod(name="pod-0", requests={t.CPU: 100, t.MEMORY: 128 * 1024**2},
+                affinity=t.Affinity(preferred_node_terms=terms))
+    return Snapshot(nodes=nodes, pending_pods=[pod])
+
+
 # ---------------------------------------------------------------------------
 # gangs off the dense route, and the sidecar's session waves
 # ---------------------------------------------------------------------------

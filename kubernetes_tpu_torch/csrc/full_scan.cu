@@ -316,8 +316,8 @@ __global__ void __launch_bounds__(ktt::PW_NT) full_scan_kernel(FullArgs a, ktt::
       sraw_r[i] = sraw;
       ipraw_r[i] = ipraw;
       const int64_t pn = ps.prow * g.N + l;
-      if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(g.traw, pn));
-      if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(g.naraw, pn));
+      if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(g.traw, pn, g.f32));
+      if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(g.naraw, pn, g.f32));
       mx[2] = fmaxf(mx[2], sraw);
       mx[3] = fmaxf(mx[3], ipraw);
       mx[4] = fmaxf(mx[4], -ipraw);

@@ -58,6 +58,7 @@ struct FullArgs {
   int P, N, R, W, T, D, PT;
   int CS, A1, A2, B, M;  // slot widths of the per-pod arrays
   int pw, ips, ports, taint, nap, img;  // stage switches
+  int f32;  // the score planes are f32 (KTPU_SCORE_DTYPE=f32), else bf16
   float tw, naw, sw, ipw, iw, hpaw;    // stage weights
   ScoreParams sp;
   // pod side
@@ -67,9 +68,10 @@ struct FullArgs {
   const int32_t* cls;     // [P] class of each pod row, or NULL (dense mode)
   const uint32_t* sfs;    // [rows, W] packed static feasibility (dense: pod_valid included)
   const uint32_t* eligs;  // [rows, W] packed nodesel & node_valid (spread's minMatch)
-  const __nv_bfloat16* traw;   // [rows, N] PreferNoSchedule counts, or NULL
-  const __nv_bfloat16* naraw;  // [rows, N] preferred node-affinity weights, or NULL
-  const __nv_bfloat16* img_s;  // [rows, N] image scores, or NULL
+  // the score planes, bf16 or f32 (f32), read through bf()
+  const void* traw;   // [rows, N] PreferNoSchedule counts, or NULL
+  const void* naraw;  // [rows, N] preferred node-affinity weights, or NULL
+  const void* img_s;  // [rows, N] image scores, or NULL
   const int32_t* spread_t;  // [P, CS]
   const int32_t* skew;      // [P, CS]
   const uint8_t* hard;      // [P, CS]
@@ -111,9 +113,9 @@ constexpr int PW_MAX_SHARDS = 8;  // node shards of a shard-mode launch
 struct ShardPtrs {
   const uint32_t* sfs;
   const uint32_t* eligs;
-  const __nv_bfloat16* traw;
-  const __nv_bfloat16* naraw;
-  const __nv_bfloat16* img_s;
+  const void* traw;
+  const void* naraw;
+  const void* img_s;
   const int32_t* alloc;
   int32_t* used;
   const int32_t* dbt;
@@ -146,9 +148,9 @@ inline ShardTable make_shard_table(const void* const* q, int S, int nl) {
     ShardPtrs& p = t.sh[s];
     p.sfs = static_cast<const uint32_t*>(r[0]);
     p.eligs = static_cast<const uint32_t*>(r[1]);
-    p.traw = static_cast<const __nv_bfloat16*>(r[2]);
-    p.naraw = static_cast<const __nv_bfloat16*>(r[3]);
-    p.img_s = static_cast<const __nv_bfloat16*>(r[4]);
+    p.traw = r[2];
+    p.naraw = r[3];
+    p.img_s = r[4];
     p.alloc = static_cast<const int32_t*>(r[5]);
     p.used = static_cast<int32_t*>(const_cast<void*>(r[6]));
     p.dbt = static_cast<const int32_t*>(r[7]);
@@ -290,6 +292,7 @@ inline int read_full_args(const void* const* ptrs, const int* dims, const int* s
   a.taint = sw[3];
   a.nap = sw[4];
   a.img = sw[5];
+  a.f32 = sw[6];
   a.tw = wp[0];
   a.naw = wp[1];
   a.sw = wp[2];
@@ -304,9 +307,9 @@ inline int read_full_args(const void* const* ptrs, const int* dims, const int* s
   a.pvalid = static_cast<const uint8_t*>(ptrs[1]);
   a.sfs = static_cast<const uint32_t*>(ptrs[2]);
   a.eligs = static_cast<const uint32_t*>(ptrs[3]);
-  a.traw = static_cast<const __nv_bfloat16*>(ptrs[4]);
-  a.naraw = static_cast<const __nv_bfloat16*>(ptrs[5]);
-  a.img_s = static_cast<const __nv_bfloat16*>(ptrs[6]);
+  a.traw = ptrs[4];
+  a.naraw = ptrs[5];
+  a.img_s = ptrs[6];
   a.spread_t = static_cast<const int32_t*>(ptrs[7]);
   a.skew = static_cast<const int32_t*>(ptrs[8]);
   a.hard = static_cast<const uint8_t*>(ptrs[9]);
@@ -544,7 +547,11 @@ __device__ __forceinline__ bool node_feasible(const FullArgs& a, int p, const Po
   return true;
 }
 
-__device__ __forceinline__ float bf(const __nv_bfloat16* x, int64_t i) { return __bfloat162float(x[i]); }
+// element i of a score plane as f32: every read of traw, naraw and img_s
+// goes through here; f32 (FullArgs::f32) is uniform across the launch
+__device__ __forceinline__ float bf(const void* x, int64_t i, int f32) {
+  return f32 ? static_cast<const float*>(x)[i] : __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
+}
 
 // the total score of a feasible node from its base and raws: fit +
 // balanced, taint, node affinity, spread, inter-pod, image, in that order
@@ -552,11 +559,11 @@ __device__ __forceinline__ float node_total(const FullArgs& a, const RowScalars&
                                             float sraw, float ipraw) {
   float total = base;
   if (a.taint) {
-    const float c = bf(a.traw, pn);
+    const float c = bf(a.traw, pn, a.f32);
     total = total + a.tw * ((s.t_mx > 0.0f) ? (100.0f - (100.0f * c) / s.t_mx) : 100.0f);
   }
   if (a.nap) {
-    const float c = bf(a.naraw, pn);
+    const float c = bf(a.naraw, pn, a.f32);
     total = total + a.naw * ((s.na_mx > 0.0f) ? (c * 100.0f) / s.na_mx : 0.0f);
   }
   if (a.pw) total = total + a.sw * ((s.s_mx > 0.0f) ? (100.0f - (100.0f * sraw) / s.s_mx) : 100.0f);
@@ -564,7 +571,7 @@ __device__ __forceinline__ float node_total(const FullArgs& a, const RowScalars&
     const float x = (s.ip_mx > s.ip_mn) ? (100.0f * (ipraw - s.ip_mn)) / (s.ip_mx - s.ip_mn) : 0.0f;
     total = total + a.ipw * x;
   }
-  if (a.img) total = total + a.iw * bf(a.img_s, pn);
+  if (a.img) total = total + a.iw * bf(a.img_s, pn, a.f32);
   return total;
 }
 

@@ -264,8 +264,8 @@ __device__ __forceinline__ void rescore_at(const FullArgs& a, const FullArgs& v,
   mj = (f0 && fit) ? nt : -INFINITY;
   bn = id;
   bool extreme = false;
-  if (a.taint) extreme = extreme || (rs.t_mx > 0.0f && ktt::bf(v.traw, pn) == rs.t_mx);
-  if (a.nap) extreme = extreme || (rs.na_mx > 0.0f && ktt::bf(v.naraw, pn) == rs.na_mx);
+  if (a.taint) extreme = extreme || (rs.t_mx > 0.0f && ktt::bf(v.traw, pn, v.f32) == rs.t_mx);
+  if (a.nap) extreme = extreme || (rs.na_mx > 0.0f && ktt::bf(v.naraw, pn, v.f32) == rs.na_mx);
   if (a.pw) extreme = extreme || (rs.s_mx > 0.0f && sr == rs.s_mx);
   if (a.ips) extreme = extreme || (rs.ip_mx > rs.ip_mn && (ir == rs.ip_mx || ir == rs.ip_mn));
   hard = share_j || (f0 && !fit && extreme);
@@ -404,8 +404,8 @@ __device__ void slice_rows(const FullArgs& a, const FullArgs* views, const Axis&
     sraw_r[n] = sraw;
     ipraw_r[n] = ipraw;
     const int64_t pn = ps.prow * g.N + l;
-    if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(g.traw, pn));
-    if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(g.naraw, pn));
+    if (a.taint) mx[0] = fmaxf(mx[0], ktt::bf(g.traw, pn, g.f32));
+    if (a.nap) mx[1] = fmaxf(mx[1], ktt::bf(g.naraw, pn, g.f32));
     mx[2] = fmaxf(mx[2], sraw);
     mx[3] = fmaxf(mx[3], ipraw);
     mx[4] = fmaxf(mx[4], -ipraw);

@@ -1,5 +1,8 @@
 // K10 score_planes: the two [P, N] raw score planes of the per-pod
-// normalisation stages, stored as bf16 (round to nearest even).
+// normalisation stages, stored as bf16 (round to nearest even), or as f32
+// under KTPU_SCORE_DTYPE=f32 (ktt_score_planes_f32: the same kernel with
+// f32 stores, 16 bytes a plane a lane; the JAX package's
+// ops/bitplane.py:209-236 storage knob).
 //
 //   traw[p, n]  = # PreferNoSchedule taints on node n that pod p does not
 //                 tolerate: the JAX package's ops/scores.py:229
@@ -40,7 +43,7 @@
 //
 // Bound on an H100: the output, 4 bytes per (pod, node) (at P = 512, N =
 // 256: 0.5 MB, >= 0.16 us at 3.35 TB/s; at P = 10240, N = 6144: 252 MB,
-// 75 us); the inputs are KBs.
+// 75 us), 8 bytes in f32 (150 us there); the inputs are KBs.
 //
 // Built by ops/kernels.py with nvcc -gencode arch=compute_90a,code=sm_90a
 // -O3 -fmad=false; called through ctypes (plain C interface below).
@@ -71,8 +74,8 @@ struct PlaneArgs {
   const uint8_t* sel_mask;         // [S, E, L]
   const int32_t* sel_kind;         // [S, E]
   const uint8_t* node_labels;      // [N, L]
-  __nv_bfloat16* traw;             // [P, N]
-  __nv_bfloat16* naraw;            // [P, N]
+  void* traw;                      // [P, N] bf16, or f32 (OutT)
+  void* naraw;                     // [P, N]
   int P, N, T, PW, S, E, L, TW, PB, CH;
 };
 
@@ -89,10 +92,28 @@ __device__ __forceinline__ uint32_t bf16_pair(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// four consecutive values of a plane at x: bf16 (8 bytes, rounded to the
+// nearest even) or f32 (16 bytes), one store where x is aligned to it
+__device__ __forceinline__ void store4(__nv_bfloat16* x, const float v[4], int lim) {
+  if (lim == 4 && (reinterpret_cast<uintptr_t>(x) & 7) == 0) {
+    *reinterpret_cast<uint2*>(x) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  } else {
+    for (int i = 0; i < lim; ++i) x[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+__device__ __forceinline__ void store4(float* x, const float v[4], int lim) {
+  if (lim == 4 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    *reinterpret_cast<float4*>(x) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int i = 0; i < lim; ++i) x[i] = v[i];
+  }
+}
+
 // lane `lane` of a warp writes pod row p's planes at nodes n0 .. n0 + 3;
 // tol(w): the row's toleration word w; slot(k, s, wt): slot k's term (its
 // named slot where terms are staged; < 0: none) and weight
-template <class Tol, class Slot>
+template <class OutT, class Tol, class Slot>
 __device__ __forceinline__ void plane_row(const PlaneArgs& a, const uint32_t* __restrict__ taintw,
                                           const uint32_t* __restrict__ tmw, bool direct_taint, bool direct_terms,
                                           int p, int lane, Tol tol, Slot slot) {
@@ -136,21 +157,13 @@ __device__ __forceinline__ void plane_row(const PlaneArgs& a, const uint32_t* __
   }
   if (n0 >= a.N) return;
   const int64_t o = (int64_t)p * a.N + n0;
-  __nv_bfloat16* tr = a.traw + o;
-  __nv_bfloat16* nr = a.naraw + o;
-  if (n0 + 3 < a.N && (reinterpret_cast<uintptr_t>(tr) & 7) == 0 && (reinterpret_cast<uintptr_t>(nr) & 7) == 0) {
-    *reinterpret_cast<uint2*>(tr) =
-        make_uint2(bf16_pair((float)c[0], (float)c[1]), bf16_pair((float)c[2], (float)c[3]));
-    *reinterpret_cast<uint2*>(nr) = make_uint2(bf16_pair(na[0], na[1]), bf16_pair(na[2], na[3]));
-  } else {
-    for (int i = 0; i < 4 && n0 + i < a.N; ++i) {
-      tr[i] = __float2bfloat16_rn((float)c[i]);
-      nr[i] = __float2bfloat16_rn(na[i]);
-    }
-  }
+  const int lim = min(4, a.N - n0);
+  const float cf[4] = {(float)c[0], (float)c[1], (float)c[2], (float)c[3]};
+  store4(static_cast<OutT*>(a.traw) + o, cf, lim);
+  store4(static_cast<OutT*>(a.naraw) + o, na, lim);
 }
 
-template <bool STAGED>
+template <bool STAGED, class OutT>
 __global__ void __launch_bounds__(NT) score_planes_kernel(const PlaneArgs a) {
   __shared__ __align__(16) uint32_t taintw[TW_STAGE * TN];  // [word][node], read 4 nodes at a time
   __shared__ uint32_t tmw[NS_MAX * TNW];                    // [slot][32-node word]
@@ -234,7 +247,7 @@ __global__ void __launch_bounds__(NT) score_planes_kernel(const PlaneArgs a) {
         __syncthreads();
       }
       for (int r = warp; r < rows; r += NT / 32)
-        plane_row(a, taintw, tmw, direct_taint, direct_terms, c0 + r, lane,
+        plane_row<OutT>(a, taintw, tmw, direct_taint, direct_terms, c0 + r, lane,
                   [&](int w) { return stol[r * a.TW + w]; },
                   [&](int k, int& s, float& wt) {
                     s = sslot[r * a.PW + k];
@@ -244,7 +257,7 @@ __global__ void __launch_bounds__(NT) score_planes_kernel(const PlaneArgs a) {
   } else {
     // rows too wide to stage: a warp a row, straight from global memory
     for (int p = p0 + warp; p < p1; p += NT / 32)
-      plane_row(a, taintw, tmw, direct_taint, direct_terms, p, lane,
+      plane_row<OutT>(a, taintw, tmw, direct_taint, direct_terms, p, lane,
                 [&](int w) {
                   const int b = 32 * w + lane;
                   return __ballot_sync(FULL, b < a.T && a.pod_tol_pref[(int64_t)p * a.T + b]);
@@ -257,13 +270,10 @@ __global__ void __launch_bounds__(NT) score_planes_kernel(const PlaneArgs a) {
   }
 }
 
-}  // namespace
-
-// every pointer is device memory; traw and naraw are [P, N] each
-extern "C" int ktt_score_planes(const void* node_taint_pref, const void* pod_tol_pref, const void* pref_terms,
-                                const void* pref_weights, const void* sel_mask, const void* sel_kind,
-                                const void* node_labels, void* traw, void* naraw, int P, int N, int T, int PW, int S,
-                                int E, int L, void* stream) {
+template <class OutT>
+int launch(const void* node_taint_pref, const void* pod_tol_pref, const void* pref_terms, const void* pref_weights,
+           const void* sel_mask, const void* sel_kind, const void* node_labels, void* traw, void* naraw, int P, int N,
+           int T, int PW, int S, int E, int L, void* stream) {
   if (P < 0 || N < 0 || T < 0 || PW < 0 || S < 0) return (int)cudaErrorInvalidValue;
   if (P == 0 || N == 0) return (int)cudaGetLastError();
   PlaneArgs a;
@@ -274,8 +284,8 @@ extern "C" int ktt_score_planes(const void* node_taint_pref, const void* pod_tol
   a.sel_mask = static_cast<const uint8_t*>(sel_mask);
   a.sel_kind = static_cast<const int32_t*>(sel_kind);
   a.node_labels = static_cast<const uint8_t*>(node_labels);
-  a.traw = static_cast<__nv_bfloat16*>(traw);
-  a.naraw = static_cast<__nv_bfloat16*>(naraw);
+  a.traw = traw;
+  a.naraw = naraw;
   a.P = P;
   a.N = N;
   a.T = T;
@@ -297,8 +307,28 @@ extern "C" int ktt_score_planes(const void* node_taint_pref, const void* pod_tol
   const dim3 grid((unsigned)nbx, (unsigned)nby);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (a.CH >= rows)
-    score_planes_kernel<true><<<grid, NT, 0, st>>>(a);
+    score_planes_kernel<true, OutT><<<grid, NT, 0, st>>>(a);
   else
-    score_planes_kernel<false><<<grid, NT, 0, st>>>(a);
+    score_planes_kernel<false, OutT><<<grid, NT, 0, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// every pointer is device memory; traw and naraw are [P, N] each, bf16
+extern "C" int ktt_score_planes(const void* node_taint_pref, const void* pod_tol_pref, const void* pref_terms,
+                                const void* pref_weights, const void* sel_mask, const void* sel_kind,
+                                const void* node_labels, void* traw, void* naraw, int P, int N, int T, int PW, int S,
+                                int E, int L, void* stream) {
+  return launch<__nv_bfloat16>(node_taint_pref, pod_tol_pref, pref_terms, pref_weights, sel_mask, sel_kind,
+                               node_labels, traw, naraw, P, N, T, PW, S, E, L, stream);
+}
+
+// the same, traw and naraw f32 (KTPU_SCORE_DTYPE=f32)
+extern "C" int ktt_score_planes_f32(const void* node_taint_pref, const void* pod_tol_pref, const void* pref_terms,
+                                    const void* pref_weights, const void* sel_mask, const void* sel_kind,
+                                    const void* node_labels, void* traw, void* naraw, int P, int N, int T, int PW,
+                                    int S, int E, int L, void* stream) {
+  return launch<float>(node_taint_pref, pod_tol_pref, pref_terms, pref_weights, sel_mask, sel_kind, node_labels,
+                       traw, naraw, P, N, T, PW, S, E, L, stream);
 }

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..api.snapshot import ClusterArrays
+from ..ops.bitplane import score_values_np
 from ..ops.scores import ScoreConfig
 
 _DIR = Path(__file__).resolve().parent
@@ -139,18 +140,10 @@ def _ptr(a: Optional[np.ndarray]):
     return a.ctypes.data_as(ctypes.c_void_p) if a is not None else None
 
 
-def _bf16_to_f32(a: np.ndarray) -> np.ndarray:
-    """A bf16 field as its f32 values: the port keeps bf16 as uint16 bit
-    patterns, which astype(float32) would read as integers."""
-    if a.dtype == np.uint16:
-        return (a.astype(np.uint32) << 16).view(np.float32)
-    return a.astype(np.float32)
-
-
 def host_arrays(arr) -> ClusterArrays:
     """`arr` as numpy arrays on the host, image_score as the f32 values of
     its bf16 bit patterns (the JAX arrays keep bf16, which the engine reads
-    as f32).  The bool label planes static_np takes as f32 itself.  A
+    as f32), or its f32 values under KTPU_SCORE_DTYPE=f32.  The bool label planes static_np takes as f32 itself.  A
     tensor on the card is refused: the engine reads host arrays, never a
     quiet copy back."""
     out = {}
@@ -162,7 +155,7 @@ def host_arrays(arr) -> ClusterArrays:
                                  "(pass DeltaEncoder.encode's arrays)")
             a = a.view(torch.int16).numpy().view(np.uint16) if a.dtype == torch.bfloat16 else a.numpy()
         out[name] = np.asarray(a)
-    out["image_score"] = _bf16_to_f32(out["image_score"])
+    out["image_score"] = score_values_np(out["image_score"])
     return ClusterArrays(**out)
 
 

@@ -57,7 +57,7 @@ def static_feasible(arr):
 
 
 def taint_prefer_counts(arr) -> np.ndarray:
-    # bf16-lattice mirror of the device producer (ops/scores.py)
+    # storage-lattice mirror (bf16, or f32 under KTPU_SCORE_DTYPE=f32) of the device producer (ops/scores.py)
     return bf16_round_np(np.einsum(
         "pt,nt->pn",
         (~arr.pod_tol_pref).astype(np.float32),
@@ -72,5 +72,5 @@ def preferred_na_raw(arr, tm: np.ndarray) -> np.ndarray:
     w = np.where(arr.pod_pref_terms >= 0, arr.pod_pref_weights, 0.0).astype(np.float32)
     W = np.zeros((P, S), dtype=np.float32)
     np.add.at(W, (np.arange(P)[:, None], ids), w)
-    # bf16-lattice mirror of the device producer (ops/assign.py)
+    # storage-lattice mirror (bf16, or f32 under KTPU_SCORE_DTYPE=f32) of the device producer (ops/assign.py)
     return bf16_round_np(W @ tm.astype(np.float32))

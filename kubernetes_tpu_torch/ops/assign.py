@@ -81,6 +81,7 @@ import torch
 from ..device import resolve_device
 from . import bitplane, filters
 from .incremental import _scores, fit_rows, score_flat
+from .scopes import subphase
 from .scores import ScoreConfig, check_config, taint_prefer_counts_plain
 
 _INT_MAX = 2**31 - 1
@@ -134,7 +135,7 @@ def preferred_node_affinity_raw_plain(pod_pref_terms, pod_pref_weights, tm: torc
     terms (nodeaffinity/node_affinity.go — Score): the JAX package's
     assign.py:153, a [P, S] weight scatter-add (a term listed twice adds
     twice) and one [P, S] @ [S, N] product in f32 (integer-valued, exact),
-    stored on the bf16 lattice."""
+    stored on the bf16 lattice (f32 under KTPU_SCORE_DTYPE=f32)."""
     P = pod_pref_terms.shape[0]
     S = tm.shape[0]
     if S == 0:  # no terms: every slot is -1 (JAX's scatter drops it, index_put_ refuses it)
@@ -162,12 +163,13 @@ def score_planes(arr, cfg: ScoreConfig):
     device: the plain version for CPU tensors, kernel K10 for CUDA tensors."""
     if not (cfg.enable_taint_score or cfg.enable_node_pref):
         return None, None
-    if arr.device.type == "cpu":
-        traw, naraw = score_planes_plain(arr)
-    else:
-        from . import kernels
+    with subphase("hoist"):
+        if arr.device.type == "cpu":
+            traw, naraw = score_planes_plain(arr)
+        else:
+            from . import kernels
 
-        traw, naraw = kernels.score_planes(arr)
+            traw, naraw = kernels.score_planes(arr)
     return (traw if cfg.enable_taint_score else None), (naraw if cfg.enable_node_pref else None)
 
 
@@ -222,14 +224,20 @@ def _per_pod(arr, cfg: ScoreConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     planes where a stage needs them and the full_scan kernel K11."""
     TRACE_COUNTS["plain"] += 1
     if arr.device.type == "cpu":
-        return schedule_scan_plain(arr, cfg, sf=filters.static_feasible(arr))
+        sf = filters.static_feasible(arr)
+        with subphase("score"):
+            return schedule_scan_plain(arr, cfg, sf=sf)
     from . import kernels
 
     if fit_only(cfg, arr):
-        choices, used, _ = kernels.fit_scan(filters.static_feasible(arr), arr, cfg)
+        sf = filters.static_feasible(arr)
+        with subphase("score"):
+            choices, used, _ = kernels.fit_scan(sf, arr, cfg)
         return choices, used.contiguous()
-    sfs, eligs = kernels.packed_static_rows(arr, with_elig=True)
-    return kernels.full_scan(arr, cfg, sfs, eligs, score_planes(arr, cfg))
+    sfs, eligs = packed_static_rows(arr, with_elig=True)
+    planes = score_planes(arr, cfg)
+    with subphase("score"):
+        return kernels.full_scan(arr, cfg, sfs, eligs, planes)
 
 
 # ---------------------------------------------------------------------------
@@ -808,11 +816,12 @@ def packed_static_rows(arr, with_elig: bool = False, base: int = 0):
     """The packed [P, W] static plane (and with `with_elig` the eligibility
     plane) on arr's device: the plain version for CPU tensors, kernel K7 for
     CUDA tensors; `base` as in packed_static_rows_plain."""
-    if arr.device.type == "cpu":
-        return packed_static_rows_plain(arr, with_elig, base)
-    from . import kernels
+    with subphase("hoist"):
+        if arr.device.type == "cpu":
+            return packed_static_rows_plain(arr, with_elig, base)
+        from . import kernels
 
-    return kernels.packed_static_rows(arr, with_elig, base=base)
+        return kernels.packed_static_rows(arr, with_elig, base=base)
 
 
 def _dense_chunk_plain(cfg, creq, csf, cvalid, used0, alloc, C, K, Z):
@@ -870,11 +879,12 @@ def schedule_scan_chunked_dense(arr, cfg: ScoreConfig):
     versions."""
     TRACE_COUNTS["chunked"] += 1
     sfs = packed_static_rows(arr)
-    if arr.device.type != "cpu":
-        from . import kernels
+    with subphase("round_loop"):
+        if arr.device.type != "cpu":
+            from . import kernels
 
-        return kernels.chunk_rounds_dense(arr, cfg, sfs)
-    return schedule_scan_chunked_dense_plain(arr, cfg, sfs)
+            return kernels.chunk_rounds_dense(arr, cfg, sfs)
+        return schedule_scan_chunked_dense_plain(arr, cfg, sfs)
 
 
 # ---------------------------------------------------------------------------
@@ -1018,18 +1028,20 @@ def schedule_scan_rounds(arr, cfg: ScoreConfig, inc=None, rchunk: int = None, re
     versions."""
     TRACE_COUNTS["rounds_inc" if inc is not None else "rounds"] += 1
     if inc is not None:
+        with subphase("round_loop"):
+            if arr.device.type != "cpu":
+                from . import kernels
+
+                return kernels.rounds(arr, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
+            return schedule_scan_rounds_plain(arr, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
+    sfs, eligs = packed_static_rows(arr, with_elig=True)
+    planes = score_planes(arr, cfg)
+    with subphase("round_loop"):
         if arr.device.type != "cpu":
             from . import kernels
 
-            return kernels.rounds(arr, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
-        return schedule_scan_rounds_plain(arr, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
-    sfs, eligs = packed_static_rows(arr, with_elig=True)
-    planes = score_planes(arr, cfg)
-    if arr.device.type != "cpu":
-        from . import kernels
-
-        return kernels.rounds(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
-    return schedule_scan_rounds_plain(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
+            return kernels.rounds(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
+        return schedule_scan_rounds_plain(arr, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
 
 
 def _chunkable(arr, cfg: ScoreConfig) -> bool:
@@ -1092,21 +1104,27 @@ def chunked_inc(arr, cfg: ScoreConfig, inc, class_waves: bool = CLASS_WAVES, wav
         wave = None
         t0u = None
         if class_waves:
-            wcom, wout, wordn, used_w, t0u, n_blocks, _ = kernels.wave_commit(
-                arr, inc, cfg, wave_k=wave_k, wave_block=wave_block)
+            with subphase("commit_batch"):
+                wcom, wout, wordn, used_w, t0u, n_blocks, _ = kernels.wave_commit(
+                    arr, inc, cfg, wave_k=wave_k, wave_block=wave_block)
             wave = (wcom, wout, wordn, n_blocks)
         else:
             used_w = arr.node_used
-        return kernels.chunk_rounds(arr, inc, cfg, used_w, t0u, wave)
-    t0u = t0u_prologue(inc, arr.N)
+        with subphase("round_loop"):
+            return kernels.chunk_rounds(arr, inc, cfg, used_w, t0u, wave)
     wave = None
     used = arr.node_used
     if class_waves:
-        wcom, wout, wordn, used, t0u, n_blocks, _ = wave_commit_plain(
-            inc.cls, arr.pod_valid, arr.pod_req, arr.node_used, t0u, inc.stat_u, arr.node_alloc,
-            inc.req_u, cfg, wave_k=wave_k, wave_block=wave_block)
+        with subphase("commit_batch"):  # t0u is K5's prologue on the card
+            t0u = t0u_prologue(inc, arr.N)
+            wcom, wout, wordn, used, t0u, n_blocks, _ = wave_commit_plain(
+                inc.cls, arr.pod_valid, arr.pod_req, arr.node_used, t0u, inc.stat_u, arr.node_alloc,
+                inc.req_u, cfg, wave_k=wave_k, wave_block=wave_block)
         wave = (wcom, wout, wordn, n_blocks)
-    return schedule_scan_chunked_plain(arr, cfg, inc, used, t0u, wave)
+    with subphase("round_loop"):
+        if not class_waves:
+            t0u = t0u_prologue(inc, arr.N)  # K6's on the card
+        return schedule_scan_chunked_plain(arr, cfg, inc, used, t0u, wave)
 
 
 class Step(NamedTuple):

@@ -33,12 +33,28 @@ of packed planes.  ``pack_blocks`` / ``unpack_blocks`` / ``test_cols`` /
 block is the plain layout), and ``stitch_planes`` turns it into the flat
 layout of ``S * nl`` bits (kernel K17, csrc/stitch_planes.cu, on the card),
 which the commit kernels read.
+
+Raw score planes (traw / naraw / image_score) are stored as bf16 and upcast
+to f32 before every reduction; ``KTPU_SCORE_DTYPE=f32`` (read once at
+import; anything else raises, as in the JAX package) stores them as f32
+instead, and the host mirrors (``quantize_scores_np``, ``bf16_round_np``)
+follow, so the encoder, the oracle's helpers and the native engine stay on
+the kernels' lattice.  The JAX package also reads a persisted autotune
+winner for the knob (ops/tuning.py); the port reads the environment only
+until that module is ported (ROADMAP.md A14).
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+# the raw score planes' storage (the JAX package's bitplane.py:48-52)
+SCORE_DTYPE: str = os.environ.get("KTPU_SCORE_DTYPE", "") or "bf16"
+if SCORE_DTYPE not in ("bf16", "f32"):
+    raise ValueError(f"KTPU_SCORE_DTYPE must be 'bf16' or 'f32', got {SCORE_DTYPE!r}")
 
 WORD_BITS = 32
 _MASK32 = (1 << 32) - 1
@@ -169,41 +185,61 @@ def stitch_planes_plain(w: torch.Tensor, nl: int) -> torch.Tensor:
 def stitch_planes(w: torch.Tensor, nl: int) -> torch.Tensor:
     """stitch_planes_plain on w's device: the plain version for CPU tensors,
     kernel K17 (csrc/stitch_planes.cu) for CUDA tensors."""
-    if w.device.type == "cpu":
-        return stitch_planes_plain(w, nl)
-    from . import kernels
+    from .scopes import subphase
 
-    return kernels.stitch_planes(w, nl)
+    with subphase("hoist"):
+        if w.device.type == "cpu":
+            return stitch_planes_plain(w, nl)
+        from . import kernels
+
+        return kernels.stitch_planes(w, nl)
 
 
 def unpack_planes(w: torch.Tensor, n: int) -> torch.Tensor:
     """unpack() on w's device: the plain version for CPU tensors, kernel K9
     unpack_planes for CUDA tensors."""
-    if w.device.type == "cpu":
-        return unpack(w, n)
-    from . import kernels
+    from .scopes import subphase
 
-    return kernels.unpack_planes(w, n)
+    with subphase("hoist"):
+        if w.device.type == "cpu":
+            return unpack(w, n)
+        from . import kernels
+
+        return kernels.unpack_planes(w, n)
 
 
 # ---------------------------------------------------------------------------
-# score storage: bf16, accumulated in f32 (the JAX package's
-# bitplane.py:219-251 with its default KTPU_SCORE_DTYPE=bf16)
+# score storage: bf16 (or f32 under KTPU_SCORE_DTYPE=f32), accumulated in
+# f32 (the JAX package's bitplane.py:209-251)
 # ---------------------------------------------------------------------------
+
+def score_store_dtype() -> torch.dtype:
+    """The dtype raw score planes (traw / naraw / image_score and their
+    class rows) are STORED in: bf16 unless KTPU_SCORE_DTYPE=f32.  Consumers
+    upcast to f32 before any reduction."""
+    return torch.bfloat16 if SCORE_DTYPE == "bf16" else torch.float32
+
 
 def quantize_scores(x: torch.Tensor) -> torch.Tensor:
-    """A computed f32 raw score plane onto the bf16 storage lattice (round
-    to nearest even, as XLA's f32 -> bf16 convert).  Consumers upcast to
-    f32 before any reduction."""
-    return x.to(torch.bfloat16)
+    """A computed f32 raw score plane onto the storage lattice (bf16: round
+    to nearest even, as XLA's f32 -> bf16 convert; f32: unchanged)."""
+    return x.to(score_store_dtype())
+
+
+def np_score_dtype() -> np.dtype:
+    """The host storage dtype of a raw score plane: bf16 as its uint16 bit
+    patterns (numpy has no bf16 type without ml_dtypes), else f32."""
+    return np.dtype(np.uint16) if SCORE_DTYPE == "bf16" else np.dtype(np.float32)
 
 
 def quantize_scores_np(x) -> np.ndarray:
     """Host mirror of quantize_scores: f32 values -> their bf16 bit patterns
-    as uint16 (numpy has no bf16 type without ml_dtypes; the rounding is
-    torch's, the same round to nearest even).  ``bf16_of_np`` turns them
-    into a bf16 tensor."""
+    as uint16 (the rounding is torch's, the same round to nearest even), or
+    the f32 values themselves under KTPU_SCORE_DTYPE=f32.  ``scores_of_np``
+    turns either into a tensor of the storage dtype."""
     x = np.asarray(x, dtype=np.float32)
+    if SCORE_DTYPE != "bf16":
+        return x
     t = torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16)
     return t.view(torch.int16).numpy().view(np.uint16).reshape(x.shape)
 
@@ -215,8 +251,30 @@ def bf16_of_np(bits: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16).copy()).view(torch.bfloat16).reshape(bits.shape)
 
 
+def scores_of_np(a: np.ndarray) -> torch.Tensor:
+    """A host score plane -> a CPU tensor of the storage dtype: a 2-byte
+    array is bf16 (uint16 bit patterns or ml_dtypes bf16), anything else
+    f32 values, quantized onto the storage lattice."""
+    a = np.asarray(a)
+    t = bf16_of_np(a) if a.dtype.itemsize == 2 else torch.from_numpy(np.array(a, dtype=np.float32))
+    return t.to(score_store_dtype())
+
+
+def score_values_np(a) -> np.ndarray:
+    """A host score plane's f32 values: uint16 bf16 bit patterns widened
+    (astype(float32) would read them as integers), anything else as f32."""
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        return (a.astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float32)
+
+
 def bf16_round_np(x):
-    """f32 -> bf16 lattice -> f32 (what a value reads as once stored)."""
+    """f32 -> storage lattice -> f32 (what a value reads as once stored):
+    the rounding the oracle and the native mirror apply to every raw score
+    they compute.  Identity under KTPU_SCORE_DTYPE=f32."""
+    if SCORE_DTYPE != "bf16":
+        return np.float32(x) if np.isscalar(x) else np.asarray(x, np.float32)
     out = bf16_of_np(quantize_scores_np(x)).to(torch.float32).numpy()
     return np.float32(out) if out.ndim == 0 else out
 

@@ -101,11 +101,14 @@ def static_feasible(arr, base: int = 0) -> torch.Tensor:
     """bool[P, N] on arr's device: the plain version for CPU tensors, the
     static-feasibility kernel K1 for CUDA tensors; `base` as in
     static_feasible_plain."""
-    if arr.device.type == "cpu":
-        return static_feasible_plain(arr, base)
-    from . import kernels
+    from .scopes import subphase
 
-    return kernels.static_feasible(arr, base=base)
+    with subphase("hoist"):
+        if arr.device.type == "cpu":
+            return static_feasible_plain(arr, base)
+        from . import kernels
+
+        return kernels.static_feasible(arr, base=base)
 
 
 def fit_ok(pod_req: torch.Tensor, node_used: torch.Tensor, node_alloc: torch.Tensor) -> torch.Tensor:

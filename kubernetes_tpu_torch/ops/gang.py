@@ -62,6 +62,7 @@ import torch
 
 from ..device import h2d, resolve_device
 from .assign import RCHUNK, _chunkable, _first, _rounds_capable, dispatch, finish, fit_only
+from .scopes import subphase
 from .scores import ScoreConfig, check_config
 
 
@@ -213,9 +214,12 @@ def _card_loop(arr, cfg, route: str):
                torch.zeros((P,), dtype=torch.int32, device=dev), torch.zeros((2,), dtype=torch.int32, device=dev))
 
         def iterate():
-            kernels.packed_static_rows(arr_i, done=done, out=sfs)
-            kernels.chunk_rounds_dense(arr_i, cfg, sfs, done=done, out=out)
-            kernels.gang_quorum(out[0], arr.pod_group, pv, arr.group_min, done=done, out=qo)
+            with subphase("hoist"):
+                kernels.packed_static_rows(arr_i, done=done, out=sfs)
+            with subphase("round_loop"):
+                kernels.chunk_rounds_dense(arr_i, cfg, sfs, done=done, out=out)
+            with subphase("commit"):
+                kernels.gang_quorum(out[0], arr.pod_group, pv, arr.group_min, done=done, out=qo)
 
         return iterate, out[:2], out[3], pv, done
     if route == "perpod-fit":
@@ -223,9 +227,12 @@ def _card_loop(arr, cfg, route: str):
         fo = kernels.fit_scan_out(arr, cfg)
 
         def iterate():
-            kernels.static_feasible(arr_i, done=done, out=sf)
-            kernels.fit_scan(sf, arr_i, cfg, done=done, out=fo)
-            kernels.gang_quorum(fo.choices, arr.pod_group, pv, arr.group_min, done=done, out=qo)
+            with subphase("hoist"):
+                kernels.static_feasible(arr_i, done=done, out=sf)
+            with subphase("score"):
+                kernels.fit_scan(sf, arr_i, cfg, done=done, out=fo)
+            with subphase("commit"):
+                kernels.gang_quorum(fo.choices, arr.pod_group, pv, arr.group_min, done=done, out=qo)
 
         return iterate, (fo.choices, fo.used_t[:, :N].t()), None, pv, done
     # the full stage set: K10 once (no pod_valid in its planes), K7 with
@@ -235,12 +242,16 @@ def _card_loop(arr, cfg, route: str):
     so = kernels.scan_out(arr, RCHUNK if route == "rounds" else None)
 
     def iterate():
-        _, eligs = kernels.packed_static_rows(arr_i, with_elig=True, done=done, out=sfs)
+        with subphase("hoist"):
+            _, eligs = kernels.packed_static_rows(arr_i, with_elig=True, done=done, out=sfs)
         if route == "rounds":
-            kernels.rounds(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
+            with subphase("round_loop"):
+                kernels.rounds(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
         else:
-            kernels.full_scan(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
-        kernels.gang_quorum(so.choices, arr.pod_group, pv, arr.group_min, done=done, out=qo)
+            with subphase("score"):
+                kernels.full_scan(arr_i, cfg, sfs, eligs, planes, done=done, out=so)
+        with subphase("commit"):
+            kernels.gang_quorum(so.choices, arr.pod_group, pv, arr.group_min, done=done, out=qo)
 
     return iterate, (so.choices, so.state["used"]), (so.scal if route == "rounds" else None), pv, done
 
@@ -293,7 +304,8 @@ def gang_dispatch(arr, cfg: ScoreConfig, device=None, chunked: Optional[bool] = 
         pv = arr.pod_valid
         for it in range(G + 1):
             step = finish(dispatch(dataclasses.replace(arr, pod_valid=pv), cfg, arr.device, chunked=chunked))
-            *_, pv, done = gang_quorum_plain(step.choices, arr.pod_group, pv, arr.group_min)
+            with subphase("commit"):
+                *_, pv, done = gang_quorum_plain(step.choices, arr.pod_group, pv, arr.group_min)
             if done:
                 break
         return GangDispatch(step.choices, step.used, None, route, it + 1)

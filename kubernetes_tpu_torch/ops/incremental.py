@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Any, NamedTuple, Optional
 
 import numpy as np
@@ -46,6 +47,7 @@ import torch
 from ..api.snapshot import POD_FIELDS
 from ..device import h2d
 from . import bitplane, filters
+from .scopes import subphase
 from .scores import ScoreConfig, balanced_allocation, check_config, fit_score
 
 
@@ -60,6 +62,8 @@ class IncState(NamedTuple):
     base_u: Any   # f32[U1, N] fit + balanced base scores vs cycle-start usage
     fit_u: Any    # i32 words [U1, W] fit mask vs cycle-start usage
     elig_u: Any = None   # i32 words [U1, W] nodesel & node_valid (pairwise)
+    # the score planes' dtype is ops/bitplane.py score_store_dtype(): bf16,
+    # or f32 under KTPU_SCORE_DTYPE=f32
     traw_u: Any = None   # bf16[U1, N] PreferNoSchedule counts (taint score)
     naraw_u: Any = None  # bf16[U1, N] preferred node-affinity weights
     img_u: Any = None    # bf16[U1, N] image scores (ImageLocality on a real plane)
@@ -151,32 +155,36 @@ def static_hoist(arr, r_u: torch.Tensor, want_elig: bool = False, want_traw: boo
     version for CPU tensors; for CUDA tensors kernel K3 (stat, and elig when
     wanted) and kernel K10 over the class view's rows (traw, naraw).  `base`:
     a node shard's first global node id."""
-    if arr.device.type == "cpu":
-        return _static_hoist_plain(class_view(arr, r_u), want_elig, want_traw, want_naraw, base)
-    from . import kernels
+    with subphase("hoist"):
+        if arr.device.type == "cpu":
+            return _static_hoist_plain(class_view(arr, r_u), want_elig, want_traw, want_naraw, base)
+        from . import kernels
 
-    stat, elig = kernels.class_static_hoist(arr, r_u, with_elig=True, base=base) if want_elig else (
-        kernels.class_static_hoist(arr, r_u, base=base), None)
-    traw = naraw = None
-    if want_traw or want_naraw:
-        traw, naraw = kernels.score_planes(class_view(arr, r_u))
-    return stat, elig, (traw if want_traw else None), (naraw if want_naraw else None)
+        stat, elig = kernels.class_static_hoist(arr, r_u, with_elig=True, base=base) if want_elig else (
+            kernels.class_static_hoist(arr, r_u, base=base), None)
+        traw = naraw = None
+        if want_traw or want_naraw:
+            traw, naraw = kernels.score_planes(class_view(arr, r_u))
+        return stat, elig, (traw if want_traw else None), (naraw if want_naraw else None)
 
 
 def usage_hoist(req_u, node_used, node_alloc, cfg: ScoreConfig):
-    if node_used.device.type == "cpu":
-        return _usage_hoist_plain(req_u, node_used, node_alloc, cfg)
-    from . import kernels
+    with subphase("hoist"):
+        if node_used.device.type == "cpu":
+            return _usage_hoist_plain(req_u, node_used, node_alloc, cfg)
+        from . import kernels
 
-    return kernels.class_usage_hoist(req_u, node_used, node_alloc, cfg)
+        return kernels.class_usage_hoist(req_u, node_used, node_alloc, cfg)
 
 
 def patch_hoist(base_u, fit_u, req_u, node_used, node_alloc, cols, cfg: ScoreConfig):
-    if node_used.device.type == "cpu":
-        return _patch_hoist_plain(base_u, fit_u, req_u, node_used, node_alloc, cols, cfg)
-    from . import kernels
+    with subphase("hoist"):
+        if node_used.device.type == "cpu":
+            return _patch_hoist_plain(base_u, fit_u, req_u, node_used, node_alloc, cols, cfg)
+        from . import kernels
 
-    return kernels.class_usage_hoist(req_u, node_used, node_alloc, cfg, cols=cols, base_u=base_u, fit_u=fit_u)
+        return kernels.class_usage_hoist(req_u, node_used, node_alloc, cfg, cols=cols, base_u=base_u,
+                                         fit_u=fit_u)
 
 
 def _round_up_pow2(x: int, minimum: int = 16) -> int:
@@ -276,7 +284,7 @@ class HoistCache:
     keeps up to 512 of them, ``summary()`` is the bench triple.
     """
 
-    def __init__(self, mesh=None):
+    def __init__(self, mesh=None, tracer=None):
         from ..parallel.mesh import GridMesh
 
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
@@ -300,14 +308,24 @@ class HoistCache:
         }
         self.last = {"unique_classes": 0, "dirty_node_fraction": 0.0, "patched_cols": 0, "action": "none"}
         self.history = []
+        # a scheduler/tracing.py Tracer: each ensure() records a hoist.update
+        # span (the JAX package's incremental.py:385-397)
+        self.tracer = tracer
 
-    def _note(self, action, u1, frac, ncols) -> None:
+    def _note(self, action, u1, frac, ncols, t0, n_nodes=0) -> None:
         self.last = {
             "unique_classes": int(u1), "dirty_node_fraction": float(frac),
             "patched_cols": int(ncols), "action": action,
         }
         if len(self.history) < 512:
             self.history.append(dict(self.last))
+        tr = self.tracer
+        if tr is not None and getattr(tr, "enabled", False):
+            tr.record_span(
+                "hoist.update", start=t0, end=time.perf_counter(),
+                action=action, unique_classes=int(u1), n_cols=int(ncols),
+                n_nodes=int(n_nodes), dirty_node_fraction=float(frac),
+            )
 
     def invalidate(self) -> None:
         """Forget every fingerprint and resident buffer: the next ensure()
@@ -403,6 +421,7 @@ class HoistCache:
         on the node mesh); `host` are the same arrays on the host (numpy),
         when the caller has them.  None under KTPU_INCREMENTAL=0 (counted
         as `disabled`): the caller routes without class state."""
+        t0 = time.perf_counter()
         if not incremental_enabled():
             self.stats["disabled"] += 1
             return None
@@ -423,7 +442,7 @@ class HoistCache:
         if u1 >= placed.P:
             # the all-pods-unique wave: the class route would be a no-op
             self.stats["skipped"] += 1
-            self._note("skipped_degenerate", u1, 1.0, 0)
+            self._note("skipped_degenerate", u1, 1.0, 0, t0, n_nodes=arr.N)
             return None
         if grid is not None:
             arr = pod_unshard(placed)[0]  # the first held pod row, all pods gathered
@@ -530,7 +549,7 @@ class HoistCache:
             cls_h = np.pad(pc, (0, pl * grid.pods - pc.shape[0]))
             cls = tuple(self._on_device(("cls", r), cls_h[r * pl:(r + 1) * pl], torch.int32, row.devices[0])
                         for r, row in zip(grid.row_ids, grid.rows))
-        self._note(action, u1, frac, ncols)
+        self._note(action, u1, frac, ncols, t0, n_nodes=getattr(meta, "n_nodes", 0) or arr.N)
         stat, elig, traw, naraw, img = self._statics
         per_shard = None
         if mesh is not None:

@@ -79,6 +79,7 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from . import bitplane
 from .assign import CHUNK, INC_CHUNK, SPEC_ITERS, WAVE_BLOCK, WAVE_ITERS, WAVE_K
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -94,12 +95,28 @@ SOURCES = {
     "class_static_hoist": "class_hoist.cu", "class_usage_hoist": "class_hoist.cu",
     "wave_commit": "wave_commit.cu", "chunk_rounds": "chunk_rounds.cu",
     "packed_static_rows": "class_hoist.cu", "chunk_rounds_dense": "chunk_rounds_dense.cu",
-    "unpack_planes": "unpack_planes.cu", "score_planes": "score_planes.cu",
+    "unpack_planes": "unpack_planes.cu", "score_planes": "score_planes.cu", "score_planes_f32": "score_planes.cu",
     "full_scan": "full_scan.cu", "rounds": "rounds.cu", "gang_quorum": "gang.cu",
     "explain_counts": "explain.cu", "preempt_eval": "preempt.cu",
     "ring_match": "ring_match.cu", "stitch_planes": "stitch_planes.cu",
     "fit_scan_shard": "fit_scan.cu", "full_scan_shard": "full_scan.cu", "rounds_shard": "rounds.cu",
 }
+
+# kernel -> the __global__ functions its launches run (the names a profiler
+# trace shows, bench/profiling.py wrapper_of); K3 and K7 share theirs
+GLOBAL_NAMES = {
+    "static_feasible": ("setup_kernel", "rows_kernel"), "fit_scan": ("fit_scan_kernel",),
+    "class_static_hoist": ("static_setup_kernel", "static_rows_kernel"),
+    "class_usage_hoist": ("usage_full_kernel", "usage_patch_kernel"), "wave_commit": ("wave_commit_kernel",),
+    "chunk_rounds": ("chunk_rounds_kernel",), "chunk_rounds_dense": ("chunk_rounds_dense_kernel",),
+    "unpack_planes": ("unpack_planes_kernel",), "score_planes": ("score_planes_kernel",),
+    "full_scan": ("full_scan_kernel",), "rounds": ("rounds_kernel",), "gang_quorum": ("gang_quorum_kernel",),
+    "explain_counts": ("explain_kernel",), "preempt_eval": ("preempt_kernel",), "ring_match": ("ring_match_kernel",),
+    "stitch_planes": ("stitch_kernel", "copy_kernel"),
+}
+GLOBAL_NAMES.update({"packed_static_rows": GLOBAL_NAMES["class_static_hoist"],
+                     "score_planes_f32": GLOBAL_NAMES["score_planes"], "fit_scan_shard": GLOBAL_NAMES["fit_scan"],
+                     "full_scan_shard": GLOBAL_NAMES["full_scan"], "rounds_shard": GLOBAL_NAMES["rounds"]})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -117,6 +134,7 @@ _ARGTYPES = {
     "chunk_rounds_dense": ("ktt_chunk_rounds_dense", [_P] * 17 + [_I] * 5 + [_P]),
     "unpack_planes": ("ktt_unpack_planes", [_P, _P, ctypes.c_longlong, _I, _I, _P]),
     "score_planes": ("ktt_score_planes", [_P] * 9 + [_I] * 7 + [_P]),
+    "score_planes_f32": ("ktt_score_planes_f32", [_P] * 9 + [_I] * 7 + [_P]),
     "full_scan": ("ktt_full_scan", [_P] * 7 + [_I, _P, _P]),
     "rounds": ("ktt_rounds", [_P] * 10 + [_I, _I, _P]),
     "gang_quorum": ("ktt_gang_quorum", [_P] * 10 + [_I, _I, _I, _P, _P]),
@@ -828,7 +846,9 @@ MAX_SLOTS, MAX_MATCH, MAX_PORTS, MAX_RCHUNK, ZR_MAX = 16, 32, 64, 32, 32
 def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10 (csrc/score_planes.cu): (traw, naraw) bf16[P, N], the
     PreferNoSchedule count plane and the preferred node-affinity weight
-    plane: the two halves of one [2, P, N] buffer, written by one launch."""
+    plane: the two halves of one [2, P, N] buffer, written by one launch.
+    Under KTPU_SCORE_DTYPE=f32 the planes are f32: the f32 build
+    (ktt_score_planes_f32), counted as score_planes_f32."""
     dev = arr.device
     _need_cuda(dev, "score_planes")
     P, N = arr.P, arr.N
@@ -842,8 +862,10 @@ def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
         ("node_labels", torch.bool, (N, L)),
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
-    fn = _fn("score_planes")
-    traw, naraw = torch.empty((2, P, N), dtype=torch.bfloat16, device=dev).unbind(0)
+    sdt = bitplane.score_store_dtype()
+    name = "score_planes" if sdt == torch.bfloat16 else "score_planes_f32"
+    fn = _fn(name)
+    traw, naraw = torch.empty((2, P, N), dtype=sdt, device=dev).unbind(0)
     if P == 0 or N == 0:
         return traw, naraw
     with _on(dev):
@@ -852,8 +874,8 @@ def score_planes(arr) -> Tuple[torch.Tensor, torch.Tensor]:
             arr.pod_pref_weights.data_ptr(), arr.sel_mask.data_ptr(), arr.sel_kind.data_ptr(),
             arr.node_labels.data_ptr(), traw.data_ptr(), naraw.data_ptr(), P, N, T, PW, S, E, L, _stream(dev),
         )
-    _raise_on(err, "score_planes")
-    LAUNCHES["score_planes"] += 1
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return traw, naraw
 
 
@@ -949,10 +971,11 @@ def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optio
     _check(sfs, "sfs", torch.int32, (rows, W), dev)
     if pw:
         _check(eligs, "eligs", torch.int32, (rows, W), dev)
+    sdt = bitplane.score_store_dtype()  # the planes' storage: bf16, or f32 (KTPU_SCORE_DTYPE)
     if cfg.enable_taint_score:
-        _check(traw, "traw", torch.bfloat16, (rows, N), dev)
+        _check(traw, "traw", sdt, (rows, N), dev)
     if cfg.enable_node_pref:
-        _check(naraw, "naraw", torch.bfloat16, (rows, N), dev)
+        _check(naraw, "naraw", sdt, (rows, N), dev)
     K = arr.node_dom.shape[0]
     for name, dt, shape in (
         ("pod_req", torch.int32, (P, R)), ("pod_valid", torch.bool, (P,)),
@@ -969,7 +992,7 @@ def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optio
     ):
         _check(getattr(arr, name), name, dt, shape, dev)
     if img_on:
-        _check(img, "image_score", torch.bfloat16, (rows, N), dev)
+        _check(img, "image_score", sdt, (rows, N), dev)
     _check_done(done, dev)
     ip, fp = _score_params(cfg, R)
     dbt, st, start = out.dbt, out.state, out.start
@@ -994,7 +1017,7 @@ def _full_args(arr, cfg, sfs, eligs, planes, out: ScanOut, inc=None, done: Optio
     dims = np.array([P, N, R, T, D, PT, CS, A1, A2, B, M], dtype=np.int32)
     ips = pw and bool(cfg.enable_interpod_score)
     sw = np.array([pw, ips, bool(cfg.enable_ports), bool(cfg.enable_taint_score),
-                   bool(cfg.enable_node_pref), img_on], dtype=np.int32)
+                   bool(cfg.enable_node_pref), img_on, sdt == torch.float32], dtype=np.int32)
     wp = np.array([cfg.taint_weight, cfg.node_affinity_weight, cfg.spread_weight, cfg.interpod_weight,
                    cfg.image_weight, cfg.hard_pod_affinity_weight], dtype=np.float32)
     return ptrs, dims, sw, wp, ip, fp

@@ -198,10 +198,13 @@ def taint_prefer_counts_plain(pod_tol_pref: torch.Tensor, node_taint_pref: torch
     TaintToleration score (tainttoleration/taint_toleration.go —
     CountIntolerableTaintsPreferNoSchedule): a counting product in f32
     (integer-valued, exact below 2^24 in any order), stored on the bf16
-    lattice (the JAX package's ops/scores.py:229 taint_prefer_counts).
-    The plain version of kernel K10 score_planes' first plane."""
+    lattice (f32 under KTPU_SCORE_DTYPE=f32; the JAX package's
+    ops/scores.py:229 taint_prefer_counts).  The plain version of kernel
+    K10 score_planes' first plane."""
+    from . import bitplane
+
     counts = (~pod_tol_pref).to(torch.float32) @ node_taint_pref.to(torch.float32).t()
-    return counts.to(torch.bfloat16)
+    return bitplane.quantize_scores(counts)
 
 
 def normalize_reverse(counts: torch.Tensor, feasible: torch.Tensor) -> torch.Tensor:

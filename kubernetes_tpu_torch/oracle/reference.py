@@ -320,7 +320,8 @@ def _preferred_na_raw(pod, nd) -> f32:
         for pt in pod.affinity.preferred_node_terms:
             if pt.preference.match_expressions and _matches_term(pt.preference, nd.labels):
                 raw = f32(raw + f32(pt.weight))
-    # the device stores this raw plane on the bf16 lattice
+    # the device stores this raw plane on the bf16 lattice (f32 under
+    # KTPU_SCORE_DTYPE=f32, where bf16_round_np is the identity)
     # (ops/assign.py — _preferred_node_affinity_raw quantizes at the
     # producer); round identically so normalization sees the same inputs
     return f32(bf16_round_np(raw))

@@ -503,7 +503,7 @@ def shard_hbm_estimate(n_pods: int, n_nodes: int, n_shards: int, n_res: int = 4,
     (``stitched``).  On a grid (``pod_shards`` > 1) a position also holds
     its pod row's block of the pod-axis fields (``pod_rows``, `pod_row_bytes`
     a pod; default the fit-only set: valid, R requests, priority, pin,
-    has-selector, group, a bf16 image score) and the entry gather makes one
+    has-selector, group, an image score of the score storage dtype) and the entry gather makes one
     whole copy of them (``pod_gather``, a transient: the JAX package's
     pod_gather term)."""
     nl = -(-n_nodes // n_shards)
@@ -520,7 +520,9 @@ def shard_hbm_estimate(n_pods: int, n_nodes: int, n_shards: int, n_res: int = 4,
         stitched += u_classes * (2 * 4 * w + 4 * n)
     b["stitched"] = stitched
     if pod_shards > 1:
-        row = 4 * n_res + 18 if pod_row_bytes is None else int(pod_row_bytes)
+        from ..ops.bitplane import np_score_dtype
+
+        row = 4 * n_res + 16 + np_score_dtype().itemsize if pod_row_bytes is None else int(pod_row_bytes)
         pl = -(-n_pods // pod_shards)
         b["pod_rows"] = row * pl
         b["pod_gather"] = row * pl * pod_shards

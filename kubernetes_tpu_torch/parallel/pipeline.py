@@ -59,8 +59,10 @@ the overlap fraction and the wave's SLI and its phases.
 ``run_stream_restartable`` drives a wave list across kills: each kill is
 answered by a fresh loop that replays exactly the waves its commit ledger
 (the stream WAL in a CheckpointManager) has not recorded.
-``PipelinedRunner`` is the runner facade over the loop.  The memory ledger
-is ROADMAP A13.  The Scheduler's batch cycle (scheduler/scheduler.py)
+``PipelinedRunner`` is the runner facade over the loop.  ``memwatch``
+arms the device-memory ledger (scheduler/memwatch.py; default
+``KTPU_MEMWATCH``): a cycle-boundary sample of the encoder's resident
+table and the HoistCache after every wave.  The Scheduler's batch cycle (scheduler/scheduler.py)
 keeps its own commit overlap: a cycle's deferred binds are published
 while the next cycle's step runs.
 """
@@ -98,6 +100,7 @@ class PipelinedBatchLoop:
         wal: Optional[Callable[[Dict], None]] = None,
         tracer=None,
         metrics=None,
+        memwatch: Optional[bool] = None,
     ):
         # the encoder scores the bound pods' hard affinity terms at the weight
         # the kernels read from base_config
@@ -130,8 +133,19 @@ class PipelinedBatchLoop:
         if mesh is not None:
             self.enc.set_mesh(mesh)
         self.mesh = self.enc.mesh
-        # the resident class state, across cycles
-        self.hoist = HoistCache(mesh=self.mesh)
+        # the resident class state, across cycles; each ensure() records a
+        # hoist.update span
+        self.hoist = HoistCache(mesh=self.mesh, tracer=tracer)
+        # the device-memory ledger (scheduler/memwatch.py): a cycle-boundary
+        # census and measured sample after every wave; memwatch=False
+        # disarms one loop, None follows KTPU_MEMWATCH.  Anchored now,
+        # before this loop places anything
+        from ..scheduler.memwatch import DeviceMemoryLedger, memwatch_enabled
+
+        arm = memwatch_enabled() if memwatch is None else bool(memwatch)
+        self.memwatch = DeviceMemoryLedger(mesh=self.mesh, metrics=metrics) if arm else None
+        if self.memwatch is not None:
+            self.memwatch.baseline()
         # (step, meta, choices on the host, sweeps on the host, done event,
         # class-state span attributes, t_arrival (the encode's start),
         # t_dispatch, snapshot) of the dispatched wave
@@ -309,6 +323,10 @@ class PipelinedBatchLoop:
             self._span("commit_overlap", t3, t4, component="pipeline", wave=self._wave - 1,
                        overlapped=ccredit > 0, overlap_credit=ccredit, pods=len(verdicts))
         self.stats["waves"] += 1
+        if self.memwatch is not None:
+            # the resident census: the encoder's device table and the
+            # HoistCache's planes, usage rows and memos (metadata only)
+            self.memwatch.cycle_sample(encoder=self.enc, hoist=self.hoist, label=f"wave{self._wave - 1}")
         if self.metrics is not None:
             self.metrics.observe("pipeline_cycle_seconds", t2 - t_dispatch)
             # the wave's arrival -> bind SLI: one sample per bound pod at

@@ -53,12 +53,15 @@ def match_block_plain(sel: torch.Tensor, kind: torch.Tensor, lab: torch.Tensor) 
 
 def _match_into(out: torch.Tensor, col0: int, sel, kind, lab) -> None:
     """Write one hop's tile into columns [col0, col0 + B) of out[Sl, P]."""
-    if out.device.type == "cpu":
-        out[:, col0:col0 + lab.shape[0]] = match_block_plain(sel, kind, lab)
-        return
-    from ..ops import kernels
+    from ..ops.scopes import subphase
 
-    kernels.ring_match(sel, kind, lab, out=out, col0=col0)
+    with subphase("score"):
+        if out.device.type == "cpu":
+            out[:, col0:col0 + lab.shape[0]] = match_block_plain(sel, kind, lab)
+            return
+        from ..ops import kernels
+
+        kernels.ring_match(sel, kind, lab, out=out, col0=col0)
 
 
 def _blocks(x: torch.Tensor, mesh: NodeMesh) -> List[torch.Tensor]:

@@ -66,6 +66,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import assign, bitplane, filters, pairwise
+from ..ops.scopes import subphase
 from ..ops.assign import (_INT_MAX, INC_CHUNK, RCHUNK, REPAIR_ITERS, Step, TRACE_COUNTS, _gather_at_nodes,
                           _gather_cols, _global_top_k, _rmax, _rmin, _scatter_rows)
 from ..ops.incremental import _scores, fit_rows, score_flat
@@ -657,11 +658,12 @@ def sharded_dispatch(arr, cfg, mesh, device, inc=None, chunked=None, **knobs) ->
         TRACE_COUNTS["sharded_chunked"] += 1
         cv = sa.commit_view()
         sfs = static_rows(sa)
-        if cv.device.type != "cpu":
-            from ..ops import kernels
+        with subphase("round_loop"):
+            if cv.device.type != "cpu":
+                from ..ops import kernels
 
-            return Step(*kernels.chunk_rounds_dense(cv, cfg, sfs))
-        return Step(*assign.schedule_scan_chunked_dense_plain(cv, cfg, sfs))
+                return Step(*kernels.chunk_rounds_dense(cv, cfg, sfs))
+            return Step(*assign.schedule_scan_chunked_dense_plain(cv, cfg, sfs))
     if routed and assign._rounds_capable(sa, cfg):
         TRACE_COUNTS["sharded_rounds"] += 1
         return Step(*_rounds(sa, cfg, None, **knobs))
@@ -676,14 +678,17 @@ def _rounds(sa: ShardedArrays, cfg, inc, rchunk: int = None, repair_iters: int =
     shard class-row mode alone); on the CPU the plain version."""
     bases = _bases(sa)
     if sa.device.type == "cpu":
-        return sharded_schedule_scan_rounds_plain(sa, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
+        with subphase("round_loop"):
+            return sharded_schedule_scan_rounds_plain(sa, cfg, rchunk=rchunk, repair_iters=repair_iters, inc=inc)
     from ..ops import kernels
 
     if inc is not None:
-        return kernels.rounds_shard(sa, cfg, inc=inc, rchunk=rchunk, repair_iters=repair_iters)
+        with subphase("round_loop"):
+            return kernels.rounds_shard(sa, cfg, inc=inc, rchunk=rchunk, repair_iters=repair_iters)
     sfs, eligs = zip(*[assign.packed_static_rows(sh, with_elig=True, base=b) for sh, b in zip(sa.shards, bases)])
     planes = [assign.score_planes(sh, cfg) for sh in sa.shards]
-    return kernels.rounds_shard(sa, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
+    with subphase("round_loop"):
+        return kernels.rounds_shard(sa, cfg, sfs, eligs, planes, rchunk=rchunk, repair_iters=repair_iters)
 
 
 def _per_pod(sa: ShardedArrays, cfg):
@@ -693,14 +698,18 @@ def _per_pod(sa: ShardedArrays, cfg):
     the plain version."""
     bases = _bases(sa)
     if sa.device.type == "cpu":
-        return sharded_schedule_scan_plain(sa, cfg)
+        with subphase("score"):
+            return sharded_schedule_scan_plain(sa, cfg)
     from ..ops import kernels
 
     if assign.fit_only(cfg, sa):
-        return kernels.fit_scan_shard([kernels.static_feasible(sh, base=b) for sh, b in zip(sa.shards, bases)],
-                                      sa, cfg)
+        sfs = [filters.static_feasible(sh, base=b) for sh, b in zip(sa.shards, bases)]
+        with subphase("score"):
+            return kernels.fit_scan_shard(sfs, sa, cfg)
     sfs, eligs = zip(*[assign.packed_static_rows(sh, with_elig=True, base=b) for sh, b in zip(sa.shards, bases)])
-    return kernels.full_scan_shard(sa, cfg, sfs, eligs, [assign.score_planes(sh, cfg) for sh in sa.shards])
+    planes = [assign.score_planes(sh, cfg) for sh in sa.shards]
+    with subphase("score"):
+        return kernels.full_scan_shard(sa, cfg, sfs, eligs, planes)
 
 
 def sharded_schedule_batch(arr, cfg, mesh, device=None):

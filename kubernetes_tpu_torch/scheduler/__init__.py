@@ -28,8 +28,10 @@ RBAC -> admission -> registry, with ``auth``, ``flowcontrol``,
 ``admission`` and ``crd``), ``controllers.ControllerManager`` (the
 workload controllers and the garbage collector), ``kubelet.HollowCluster``
 (hollow kubelets behind ``cri``, with ``cm`` and ``devicemanager``),
-``network`` (EndpointSlices and the proxier) and ``disruption``; the
-device-memory ledger (ROADMAP.md A13) is not ported.
+``network`` (EndpointSlices and the proxier) and ``disruption``.
+Observability: ``tracing`` (spans, the Chrome-trace and tree exporters,
+``device_trace`` on torch.profiler), ``attribution`` (where a cycle's wall
+goes), ``memwatch`` (the device-memory ledger) and ``flightrecorder``.
 """
 
 from .cache import SchedulerCache  # noqa: F401

@@ -20,9 +20,9 @@ itself lives in memory; ``capacity`` sizes it (default 64).
 
 The port's copy of the JAX package's ``scheduler/flightrecorder.py``:
 `fingerprint` gives the JAX one's crc on the same dicts and arrays, and a
-dump is the same JSON document.  The JAX package's command line reader
-(``analysis --flight``) is not ported; a record carries no device-memory
-block (the port has no memory ledger).
+dump is the same JSON document, read post-mortem by ``python -m
+kubernetes_tpu_torch.analysis --flight [path]``.  A record of a Scheduler
+on a card carries the device-memory ledger's block (memwatch.py).
 """
 
 from __future__ import annotations
@@ -159,8 +159,7 @@ def render_flight(doc: Dict) -> str:
             line += f" trace={r['trace_id'][:8]}"
         mem = r.get("mem")
         if isinstance(mem, dict):
-            # a memory block (the JAX package's device-memory ledger
-            # writes one; the port's records carry none)
+            # the device-memory ledger's block (memwatch.py memory_block)
             line += (
                 f" hbm[in_use={mem.get('in_use', '?')}"
                 f" peak={mem.get('peak', '?')}"

@@ -65,9 +65,10 @@ store's watch replay.
 HTTP extenders (extender.py HTTPExtender) take part in the per-pod cycle
 as in the JAX package: Filter prunes the feasible nodes, Prioritize adds
 its scores, a binder extender binds, and DefaultPreemption offers
-ProcessPreemption its candidates.  The device-memory ledger is ROADMAP
-A13: KTPU_MEMWATCH has no reader yet, and a flight record carries no
-memory block.  The JAX package's persistent compile cache (ops/aot.py) has
+ProcessPreemption its candidates.  On a card in mode="tpu" the
+device-memory ledger (memwatch.py, KTPU_MEMWATCH) samples the caching
+allocator and the resident census at both cycle boundaries, and every
+flight record carries its memory block.  The JAX package's persistent compile cache (ops/aot.py) has
 no counterpart: the kernels are built once per process (ops/kernels.py).
 """
 
@@ -325,9 +326,16 @@ class Scheduler:
 
         self._flight = FlightRecorder(directory=ckpt_dir)
         self._last_diagnosis: List[dict] = []
-        # the device-memory ledger (KTPU_MEMWATCH) is ROADMAP A13: no
-        # reader yet, so the cycle-boundary sample is skipped
-        self._memwatch = None
+        # the device-memory ledger (memwatch.py): the caching allocator's
+        # stats and the resident census sampled at both batch-cycle
+        # boundaries (beside the queue-depth gauges), the device_hbm_*
+        # gauges, and the memory block of every flight record.  Armed in
+        # mode="tpu" on a device the ledger meters (a card), as the JAX
+        # package arms it in mode="tpu"; KTPU_MEMWATCH=0 disables it
+        from .memwatch import DeviceMemoryLedger, device_metered, memwatch_enabled
+
+        self._memwatch = (DeviceMemoryLedger(mesh=self.mesh, metrics=self.metrics)
+                          if config.mode == "tpu" and memwatch_enabled() and device_metered(self.device) else None)
         store.watch(self._on_event)
 
     # --- watch plumbing ---
@@ -954,6 +962,16 @@ class Scheduler:
         for pool, v in self.queue.depths().items():
             self.metrics.set(f"queue_pool_{pool}_pods", v)
             self.metrics.set_max(f"queue_pool_{pool}_pods_peak", v)
+        self._sample_device_memory()
+
+    def _sample_device_memory(self) -> None:
+        """The cycle-boundary memory sample (memwatch.py), on the same two
+        boundary calls as the queue-depth gauges: the allocator's stats, the
+        resident census (the delta encoder's device table and the hoist
+        cache), the leak sentinel and the device_hbm_* gauges."""
+        if self._memwatch is None:
+            return
+        self._memwatch.cycle_sample(encoder=self._delta_enc, hoist=self._hoist_cache, label="cycle")
 
     def _schedule_batch_traced(
         self, batch: List[t.Pod], t0: float
@@ -1118,7 +1136,7 @@ class Scheduler:
                 if self._hoist_cache is None:
                     from ..ops.incremental import HoistCache
 
-                    self._hoist_cache = HoistCache(mesh=self.mesh)
+                    self._hoist_cache = HoistCache(mesh=self.mesh, tracer=self.tracer)
                 inc = self._hoist_cache.ensure(arr, meta, cfg, host=host)
             ords = sweeps = None
             from .tracing import incremental_attrs, mesh_attrs
@@ -1364,6 +1382,10 @@ class Scheduler:
         if self.last_wave_phases:
             # the latency anatomy of the pods bound this cycle (tracer-gated)
             rec["sli_phases"] = _sli_phase_block(self.last_wave_phases)
+        if self._memwatch is not None:
+            # the compact memory block (in-use / peak / resident /
+            # unaccounted / source): was the card near its ceiling
+            rec["mem"] = self._memwatch.memory_block()
         self._flight.record(**rec)
 
     def _commit_profile_batch(

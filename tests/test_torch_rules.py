@@ -43,7 +43,9 @@ for m in mods:
 # the Scheduler (its store, queue, cache, CPU plugins with the oracle's
 # helpers, and the harness that measures it), the host-side native code
 # (the C++ engine's loader, its static stage, the C interner's loader) and
-# the crash restart (checkpoint, flight recorder, leases) are among them
+# the crash restart (checkpoint, flight recorder, leases) and the
+# observability (sub-phase scopes, the memory ledger, attribution, the
+# profile reader, the flight reader) are among them
 assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipeline",
         "kubernetes_tpu_torch.ops.explain", "kubernetes_tpu_torch.ops.preempt",
         "kubernetes_tpu_torch.scheduler.preemption", "kubernetes_tpu_torch.bench.preempt_bench",
@@ -59,7 +61,9 @@ assert {"kubernetes_tpu_torch.api.delta", "kubernetes_tpu_torch.parallel.pipelin
         "kubernetes_tpu_torch.bench.harness", "kubernetes_tpu_torch.native",
         "kubernetes_tpu_torch.native.static_np", "kubernetes_tpu_torch.native.pyintern",
         "kubernetes_tpu_torch.scheduler.checkpoint", "kubernetes_tpu_torch.scheduler.flightrecorder",
-        "kubernetes_tpu_torch.scheduler.leases"} <= set(mods), mods
+        "kubernetes_tpu_torch.scheduler.leases", "kubernetes_tpu_torch.ops.scopes",
+        "kubernetes_tpu_torch.scheduler.memwatch", "kubernetes_tpu_torch.scheduler.attribution",
+        "kubernetes_tpu_torch.bench.profiling", "kubernetes_tpu_torch.analysis.__main__"} <= set(mods), mods
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "kubernetes_tpu")))
 assert not leaked, leaked

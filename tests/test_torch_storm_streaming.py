@@ -327,10 +327,13 @@ def test_flight_dump_matches_jax(tmp_path):
 def scheduler_dump(x: Side, tmp_path, monkeypatch):
     """A Scheduler armed with a checkpoint dir records a decision per cycle
     and dumps the ring when a kill fells it: the same records as JAX's, the
-    times, trace ids and the SLI phase values aside (KTPU_MEMWATCH=0: the
-    JAX records' memory block has no counterpart in the port, ROADMAP A13)."""
+    times, trace ids and the SLI phase values aside.  The device-memory
+    ledgers run (KTPU_MEMWATCH on): each record's memory block is returned
+    apart, since the JAX ledger meters its CPU arrays and the port's
+    ledger arms only on a card (its block on the card: tests/
+    test_torch_memwatch.py)."""
     monkeypatch.setenv("KTPU_CHECKPOINT_DIR", str(tmp_path / x.name))
-    monkeypatch.setenv("KTPU_MEMWATCH", "0")
+    monkeypatch.delenv("KTPU_MEMWATCH", raising=False)
     store, sched = x.cluster(nodes=[mk_node(f"n{i}", cpu=3000, pods=16) for i in range(3)])
     for i in range(6):
         store.add_pod(mk_pod(f"a{i}", cpu=250))
@@ -342,14 +345,18 @@ def scheduler_dump(x: Side, tmp_path, monkeypatch):
             sched.run_until_idle()
     doc = json.load(open(tmp_path / x.name / "flight.json"))
     doc.pop("dumped_wall")
+    mems = []
     for r in doc["records"]:
         r.pop("ts"), r.pop("trace_id")
+        mems.append(r.pop("mem", None))
         if "sli_phases" in r:
             r["sli_phases"] = (r["sli_phases"]["pods"], sorted(r["sli_phases"]["mean_ms"]))
-    return doc
+    return doc, mems
 
 
 def test_scheduler_flight_dump_on_kill_matches_jax(tmp_path, monkeypatch):
-    want, got = (scheduler_dump(Side(n), tmp_path, monkeypatch) for n in SIDES)
+    (want, jmem), (got, mem) = (scheduler_dump(Side(n), tmp_path, monkeypatch) for n in SIDES)
     assert got == want
+    assert jmem and all(set(m) == {"in_use", "peak", "resident", "unaccounted", "source"} for m in jmem)
+    assert mem == [None] * len(jmem)  # the CPU: no device ledger
     assert got["reason"] == "kill.post_checkpoint" and [r["scheduled"] for r in got["records"]] == [6]
